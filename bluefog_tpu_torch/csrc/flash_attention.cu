@@ -7,42 +7,69 @@
 // Same function: scale 1/sqrt(D), mask value -1e30 (masked probabilities are
 // exactly 0), f32 accumulation, O = acc / max(l, 1e-30), lse = m + log(l).
 //
-// Layout.  q, k, v and dO are read as (B, S, H, D) through their strides
-// (unit stride along D), so the fused-QKV slices of the model need no fold
-// transpose and no copy.  O, dq, dk and dv are written contiguous
+// Layout.  q, k, v and dO are (B, S, H, D) tensors read through their
+// strides (unit stride along D), so the fused-QKV slices of the model need
+// no fold transpose and no copy.  O, dq, dk and dv are written contiguous
 // (B, S, H, D); lse and delta are f32 (B, H, S).
-//
-// Design.  The TPU walks a sequential grid dimension over K/V (or Q) blocks
-// and carries the online-softmax state in VMEM scratch between grid steps.
-// On Hopper blocks run in parallel and in no order, so each thread block
-// owns one output tile and a loop inside the block walks the reduction
-// tiles; the running state stays in registers.  One block = 4 warps; each
-// warp owns 16 rows of the output tile and runs mma.sync m16n8k16
-// (bf16 x bf16 -> f32) on fragments read from shared memory.  The
-// probabilities and dS are re-packed from the accumulator layout straight
-// into A fragments (no shared-memory round trip).  Causal tiles above the
-// diagonal are never loaded; ragged S is masked (rows and keys >= S are
-// zero-filled and their probabilities forced to 0), never refused.
 //
 // Bounds on the H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s), at the main
 // path's shape B=2, S=2048, H=16, D=128, causal (half the score matrix):
 //   K1: 4*B*H*S*S*D/2 = 34.4 GFLOP -> 0.035 ms; 67 MB in/out -> 0.020 ms
 //   K2: 6*B*H*S*S*D/2 = 51.5 GFLOP -> 0.052 ms; 84 MB in/out -> 0.025 ms
 //   K3: 8*B*H*S*S*D/2 = 68.7 GFLOP -> 0.069 ms; 101 MB in/out -> 0.030 ms
-// All three are bound by tensor-core operations, not bytes: each K/V (or
-// Q/dO) tile is reused by 64 rows from shared memory.  This first version
-// uses mma.sync with synchronous tile loads; wgmma, TMA and warp
-// specialisation, which the full tensor-core rate needs, are later work.
+// All three are bound by tensor-core operations: each K/V (or Q/dO) tile
+// in shared memory is reused by a whole block of rows.  The full
+// tensor-core rate needs wgmma fed by asynchronous loads.
+//
+// K1 and K3: warp-specialised wgmma kernels.  A block is 3 warpgroups:
+// two consumers of 64 rows each, and a producer of which one warp works
+// (setmaxnreg moves registers to the consumers).  The producer issues
+// TMA loads through tensor maps on the caller's strides (the Python
+// launch plan, ops/flash_attention.launch_plan, gives their dims, byte
+// strides and boxes); rows past S arrive zero-filled, so ragged S needs no
+// padding.  The streamed tiles pass through a 2-stage ring in shared
+// memory with a full and an empty mbarrier per stage, so the next tile
+// loads while the consumers work on this one.  Every product is a wgmma
+// on 128-byte-swizzled tiles (hopper.cuh).  Masks are applied only on the
+// tiles that cross the causal diagonal or the end of the sequence.
+// Grid (B*H, row tiles): block order puts the heaviest causal tiles of
+// every head first, so the short tiles fill the tail.
+//   K1: a block owns 128 query rows; Q arrives once, K and V tiles of 128
+//     keys stream.  S = Q.K^T (m64n128k16, both operands K-major in shared
+//     memory), the online softmax runs on the accumulator in registers,
+//     P is converted there to bf16 A fragments and O += P.V (m64nDk16)
+//     takes V MN-major from shared memory: P never touches memory.
+//   K3: a block owns 128 keys; K and V arrive once, Q and dO tiles of 64
+//     rows stream with their lse and delta slices (the producer warp
+//     writes those, the TMA the tiles).  The S^T = K.Q^T and dP^T = V.dO^T
+//     accumulators (m64n64k16, shared operands) start from -lse/scale and
+//     -delta of their query columns, so P^T = exp2(acc * scale log2 e) and
+//     dS^T / scale = P^T * acc need no lse or delta beside them in
+//     registers: that is what keeps the 128 dK and dV accumulators of a
+//     thread unspilled.  Then dV += P^T.dO and dK += dS^T.Q (m64nDk16, A
+//     from registers, B MN-major); dK takes the scale once, at the end.
+//     Both sums stay in registers: no atomics, no second pass,
+//     deterministic.
+// What bounds them now (PERF.md, kernel_ablations.py): with 8 computing
+// warps per SM,
+// the chain of each tile (TMA wait, a batch of wgmma, the softmax or the
+// P^T/dS^T arithmetic on the CUDA cores, the next batch) is latency-bound:
+// K1 reaches about 41% and K3 about 51% of the tensor-core bound.
+// K2 is the first design: 4 warps of mma.sync m16n8k16 on fragments read
+// from padded shared memory, synchronous tile loads.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kThreads = 128;          // 4 warps
+constexpr int kThreads = 128;          // K2: 4 warps
 constexpr float kMask = -1e30f;        // the TPU kernels' _NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -142,131 +169,243 @@ struct Strides {
 };
 
 // ---------------------------------------------------------------------------
-// K1: forward.  Grid (ceil(S/64), B*H); block = 64 query rows.
+// K1 and K3: warp-specialised wgmma + TMA kernels (see the note above).
+// ---------------------------------------------------------------------------
+constexpr int kWsThreads = 384;    // 2 consumer warpgroups + 1 producer
+constexpr int kConsumerWarps = 8;
+constexpr int kAlign = 1024;        // swizzled tiles start 1024-byte aligned
+constexpr int kProducerRegs = 24;   // setmaxnreg budgets: 128 * 24 + 256 * 240
+constexpr int kConsumerRegs = 240;  // = 64512 of the SM's 65536 registers
+
+template <int D>
+struct FwdTile {
+  static constexpr int kRows = 128;  // query rows per block
+  static constexpr int kKeys = 128;  // keys per pipeline stage
+  static constexpr int kStages = 2;
+  static constexpr uint32_t kQBytes = kRows * D * 2;
+  static constexpr uint32_t kKVBytes = kKeys * D * 2;  // one K or V tile
+  static constexpr int kSmem = kAlign + kQBytes + kStages * 2 * kKVBytes;
+};
+
+template <int D>
+struct DkvTile {
+  static constexpr int kKeys = 128;  // keys per block
+  static constexpr int kRows = 64;   // query rows per pipeline stage
+  static constexpr int kStages = 2;
+  static constexpr uint32_t kKVBytes = kKeys * D * 2;   // K or V
+  static constexpr uint32_t kRowBytes = kRows * D * 2;  // a Q or dO tile
+  // Q tile, dO tile, then lse (log2 units) and delta for its rows.
+  static constexpr uint32_t kStageBytes =
+      (2 * kRowBytes + 2 * kRows * 4 + kAlign - 1) / kAlign * kAlign;
+  static constexpr int kSmem = kAlign + 2 * kKVBytes + kStages * kStageBytes;
+};
+
+// The thread's warpgroup, read from lane 0 so that the compiler knows it is
+// the same for the whole warp: descriptors computed from it can then live
+// in uniform registers.
+__device__ __forceinline__ int warpgroup() {
+  return __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+}
+
+__device__ __forceinline__ unsigned char* align_smem(unsigned char* p) {
+  const uint32_t a = hopper::smem_u32(p);
+  return p + ((kAlign - (a & (kAlign - 1))) & (kAlign - 1));
+}
+
+// TMA of rows [row0, row0 + rows) of the (b, h) slab, as D/64 column
+// halves of (rows x 64) one after the other.
+template <int D>
+__device__ __forceinline__ void load_rows(unsigned char* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int rows, int row0, int h,
+                                          int b) {
+#pragma unroll
+  for (int hf = 0; hf < D / 64; ++hf)
+    hopper::tma_load_4d(dst + hf * rows * 128, map, bar, hf * 64, row0, h, b);
+}
+
+// K-major descriptor of rows [r0, r0 + ...) of a tile of `rows` rows, at
+// k-step kk (columns 16kk..16kk+15).
+__device__ __forceinline__ uint64_t desc_rows(uint32_t tile, int rows, int r0, int kk) {
+  return hopper::desc_k(tile + (kk / 4) * rows * 128 + r0 * 128 + (kk % 4) * 32);
+}
+
+// MN-major descriptor of rows 16kk..16kk+15 of a tile of `rows` rows.
+__device__ __forceinline__ uint64_t desc_cols(uint32_t tile, int rows, int kk) {
+  return hopper::desc_mn(tile + kk * 16 * 128, rows * 128);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Element i of a thread's wgmma m64nN f32 accumulator lies in row
+// g + 8 * ((i >> 1) & 1) of its warp's 16 rows and in column
+// 8 * (i / 4) + 2t + (i & 1) (g = lane / 4, t = lane % 4): per 8 columns
+// the m16n8 C layout, so the array reads as [N / 8][4] for store_rows.
+// The pair (i, i + 1) shares a row; packed to bf16 it is register i / 2 of
+// the m16n8k16 A fragments of a product over these columns.
+template <int N>
+__device__ __forceinline__ const float (&as_frags(const float (&acc)[N]))[N / 4][4] {
+  return reinterpret_cast<const float(&)[N / 4][4]>(acc);
+}
+
+// Keeps A-fragment registers alive, untouched, until the wgmma that reads
+// them has completed: the compiler does not know the product reads them
+// after the instruction that issues it.
+template <int N>
+__device__ __forceinline__ void keep_frags(uint32_t (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+// A consumer warp is done with a ring stage.
+__device__ __forceinline__ void release_stage(uint64_t* empty) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) hopper::mbar_arrive(empty);
+}
+
+// ---------------------------------------------------------------------------
+// K1: forward.  Grid (B*H, ceil(S/128)); block = 128 query rows.
 // ---------------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int H, int S, Strides qs, Strides ks,
-                 Strides vs, float scale_log2, int causal) {
-  constexpr int BM = 64, BN = 64, LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + BM * LD;
-  bf16* sV = sK + BN * LD;
+__global__ void __launch_bounds__(kWsThreads, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+                 float* __restrict__ lse, int H, int S, float scale_log2, int causal) {
+  using T = FwdTile<D>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t bar_q, full[T::kStages], empty[T::kStages];
+  unsigned char* sQ = align_smem(smem_raw);
+  unsigned char* sKV = sQ + T::kQBytes;  // stage s: K tile, then V tile
 
-  // Heaviest causal tiles (the last q tiles) first.
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = qt * BM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int wrow = warp * 16;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * T::kRows;
+  const int kend = causal ? min(S, q0 + T::kRows) : S;
+  const int n_kt = (kend + T::kKeys - 1) / T::kKeys;
 
-  const bf16* qb = q + b * qs.b + h * qs.h;
-  const bf16* kb = k + b * ks.b + h * ks.h;
-  const bf16* vb = v + b * vs.b + h * vs.h;
-  load_tile<BM, D>(sQ, qb, qs.s, q0, S);
-
-  float acc[D / 8][4];
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&bar_q, 1);
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m[2] = {kMask, kMask};  // running max, log2 units
-  float l[2] = {0.f, 0.f};      // per-thread partial row sums
-  const int row[2] = {q0 + wrow + g, q0 + wrow + g + 8};
-
-  const int kend = causal ? min(S, q0 + BM) : S;
-  const int n_kt = (kend + BN - 1) / BN;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BN;
-    __syncthreads();
-    load_tile<BN, D>(sK, kb, ks.s, k0, S);
-    load_tile<BN, D>(sV, vb, vs.s, k0, S);
-    __syncthreads();
-
-    float s[BN / 8][4];
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-      load_a(a, sQ, LD, wrow, kk * 16, g, t);
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        uint32_t bb[2];
-        load_bt(bb, sK, LD, j * 8, kk * 16, g, t);
-        mma16816(s[j], a, bb);
-      }
+    for (int s = 0; s < T::kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kConsumerWarps);
     }
-
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + j * 8 + 2 * t + (e & 1);
-        const bool ok = col < S && (!causal || col <= row[e >> 1]);
-        s[j][e] = ok ? s[j][e] * scale_log2 : -INFINITY;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    }
-    const float corr0 = exp2f(m[0] - mx[0]), corr1 = exp2f(m[1] - mx[1]);
-    m[0] = mx[0];
-    m[1] = mx[1];
-    l[0] *= corr0;
-    l[1] *= corr1;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      acc[n][0] *= corr0;
-      acc[n][1] *= corr0;
-      acc[n][2] *= corr1;
-      acc[n][3] *= corr1;
-    }
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      s[j][0] = exp2f(s[j][0] - mx[0]);
-      s[j][1] = exp2f(s[j][1] - mx[0]);
-      s[j][2] = exp2f(s[j][2] - mx[1]);
-      s[j][3] = exp2f(s[j][3] - mx[1]);
-      l[0] += s[j][0] + s[j][1];
-      l[1] += s[j][2] + s[j][3];
-    }
-
-    // acc += P @ V
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      const uint32_t a[4] = {pack_f(s[2 * kk][0], s[2 * kk][1]),
-                             pack_f(s[2 * kk][2], s[2 * kk][3]),
-                             pack_f(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_f(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t bb[2];
-        load_bn(bb, sV, LD, kk * 16, n * 8, g, t);
-        mma16816(acc[n], a, bb);
-      }
-    }
+    hopper::fence_barrier_init();
   }
+  __syncthreads();
+
+  const int wg = warpgroup();
+  if (wg == 2) {
+    // Producer: one thread issues every load.
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x % 128 == 0) {
+      hopper::mbar_arrive_expect_tx(&bar_q, T::kQBytes);
+      load_rows<D>(sQ, &tq, &bar_q, T::kRows, q0, h, b);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int st = kt % T::kStages;
+        hopper::mbar_wait(&empty[st], ((kt / T::kStages) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[st], 2 * T::kKVBytes);
+        unsigned char* sK = sKV + st * 2 * T::kKVBytes;
+        load_rows<D>(sK, &tk, &full[st], T::kKeys, kt * T::kKeys, h, b);
+        load_rows<D>(sK + T::kKVBytes, &tv, &full[st], T::kKeys, kt * T::kKeys, h, b);
+      }
+    }
+  } else {
+    // Consumers: warpgroup wg owns rows q0 + 64wg .. q0 + 64wg + 63.
+    hopper::setmaxnreg_inc<kConsumerRegs>();
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int row0 = q0 + wg * 64;
+    const int row[2] = {row0 + warp * 16 + g, row0 + warp * 16 + g + 8};
+    const uint32_t aQ = hopper::smem_u32(sQ), aKV = hopper::smem_u32(sKV);
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m[2] = {kMask, kMask};  // running max, log2 units
+    float l[2] = {0.f, 0.f};      // per-thread partial row sums
+
+    hopper::mbar_wait(&bar_q, 0);
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int st = kt % T::kStages;
+      hopper::mbar_wait(&full[st], (kt / T::kStages) & 1);
+      const uint32_t aK = aKV + st * 2 * T::kKVBytes, aV = aK + T::kKVBytes;
+
+      // S = Q . K^T
+      float s[T::kKeys / 2];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_ss(s, desc_rows(aQ, T::kRows, wg * 64, kk),
+                         desc_rows(aK, T::kKeys, 0, kk), kk);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(s);
+
+      // Online softmax; only tiles that cross the diagonal or the end of
+      // the sequence are masked.
+      const int k0 = kt * T::kKeys;
+      if (k0 + T::kKeys > S || (causal && k0 + T::kKeys - 1 > row0)) {
+#pragma unroll
+        for (int i = 0; i < T::kKeys / 2; ++i) {
+          const int col = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+          if (col >= S || (causal && col > row[(i >> 1) & 1])) s[i] = -INFINITY;
+        }
+      }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < T::kKeys / 2; ++i)
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float mn = fmaxf(m[r], quad_max(mx[r]) * scale_log2);
+        corr[r] = exp2f(m[r] - mn);
+        m[r] = mn;
+        l[r] *= corr[r];
+      }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+      // P as bf16 A fragments: pair (i, i + 1) is register i / 2.
+      uint32_t p[T::kKeys / 4];
+#pragma unroll
+      for (int i = 0; i < T::kKeys / 2; i += 2) {
+        const int r = (i >> 1) & 1;
+        const float p0 = exp2f(fmaf(s[i], scale_log2, -m[r]));
+        const float p1 = exp2f(fmaf(s[i + 1], scale_log2, -m[r]));
+        l[r] += p0 + p1;
+        p[i / 2] = pack_f(p0, p1);
+      }
+
+      // O += P . V
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < T::kKeys / 16; ++kk)
+        hopper::wgmma_rs_tb(acc, &p[4 * kk], desc_cols(aV, T::kKeys, kk));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      keep_frags(p);
+      hopper::fence_regs(acc);
+      release_stage(&empty[st]);
+    }
 
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    l[r] = fmaxf(l[r], 1e-30f);
-  }
-  store_rows<D>(o + ((long long)b * S * H + h) * D, H, S, q0 + wrow, acc,
-                1.f / l[0], 1.f / l[1], g, t);
-  if (t == 0) {
+    for (int r = 0; r < 2; ++r) l[r] = fmaxf(quad_sum(l[r]), 1e-30f);
+    store_rows<D>(o + ((long long)b * S * H + h) * D, H, S, row0 + warp * 16, as_frags(acc),
+                  1.f / l[0], 1.f / l[1], g, t);
+    if (t == 0) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r)
-      if (row[r] < S) lse[(long long)bh * S + row[r]] = (m[r] + log2f(l[r])) * kLn2;
+      for (int r = 0; r < 2; ++r)
+        if (row[r] < S) lse[(long long)bh * S + row[r]] = (m[r] + log2f(l[r])) * kLn2;
+    }
   }
 }
 
@@ -374,139 +513,259 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// K3: dk and dv.  Grid (ceil(S/64), B*H); block = 64 key rows, loop over
-// 32-query tiles from the causal frontier to the end.
+// K3: dk and dv.  Grid (B*H, ceil(S/128)); block = 128 keys, loop over
+// 64-row q tiles from the causal frontier to the end.
 // ---------------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int S,
-                 Strides qs, Strides ks, Strides vs, Strides dos, float scale,
-                 float scale_log2, int causal) {
-  constexpr int BN = 64, BQ = 32, LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + BN * LD;
-  bf16* sQ = sV + BN * LD;
-  bf16* sdO = sQ + BQ * LD;
-  float* sL = reinterpret_cast<float*>(sdO + BQ * LD);  // lse, log2 units
-  float* sD = sL + BQ;                                  // delta
+__global__ void __launch_bounds__(kWsThreads, 1)
+flash_dkv_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
+                 const float* __restrict__ delta, bf16* __restrict__ dk,
+                 bf16* __restrict__ dv, int H, int S, float scale, float scale_log2,
+                 int causal) {
+  using T = DkvTile<D>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t bar_kv, full[T::kStages], empty[T::kStages];
+  unsigned char* sK = align_smem(smem_raw);
+  unsigned char* sV = sK + T::kKVBytes;
+  unsigned char* sRing = sV + T::kKVBytes;
 
-  const int kt = blockIdx.x;  // causal: the first key tiles carry the most work
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int k0 = kt * BN;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int wrow = warp * 16;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.y * T::kKeys;  // causal: the first key tiles carry the most work
+  const int qt0 = causal ? k0 / T::kRows : 0;
+  const int n_it = (S + T::kRows - 1) / T::kRows - qt0;
 
-  const bf16* qb = q + b * qs.b + h * qs.h;
-  const bf16* dob = dout + b * dos.b + h * dos.h;
-  load_tile<BN, D>(sK, k + b * ks.b + h * ks.h, ks.s, k0, S);
-  load_tile<BN, D>(sV, v + b * vs.b + h * vs.h, vs.s, k0, S);
-
-  float acc_k[D / 8][4], acc_v[D / 8][4];
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&bar_kv, 1);
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
-  const int krow[2] = {k0 + wrow + g, k0 + wrow + g + 8};
-
-  const int n_qt = (S + BQ - 1) / BQ;
-  for (int qt = causal ? k0 / BQ : 0; qt < n_qt; ++qt) {
-    const int q0 = qt * BQ;
-    __syncthreads();
-    load_tile<BQ, D>(sQ, qb, qs.s, q0, S);
-    load_tile<BQ, D>(sdO, dob, dos.s, q0, S);
-    if (threadIdx.x < BQ) {
-      const int r = q0 + threadIdx.x;
-      sL[threadIdx.x] = r < S ? lse[(long long)bh * S + r] * kLog2e : 0.f;
-      sD[threadIdx.x] = r < S ? delta[(long long)bh * S + r] : 0.f;
+    for (int s = 0; s < T::kStages; ++s) {
+      hopper::mbar_init(&full[s], 32);  // every lane of the producer warp
+      hopper::mbar_init(&empty[s], kConsumerWarps);
     }
-    __syncthreads();
-
-    // S^T = K Q^T and dP^T = V dO^T: rows = this warp's 16 keys.
-    float st[BQ / 8][4], dpt[BQ / 8][4];
-#pragma unroll
-    for (int j = 0; j < BQ / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ak[4], av[4];
-      load_a(ak, sK, LD, wrow, kk * 16, g, t);
-      load_a(av, sV, LD, wrow, kk * 16, g, t);
-#pragma unroll
-      for (int j = 0; j < BQ / 8; ++j) {
-        uint32_t bq[2], bdo[2];
-        load_bt(bq, sQ, LD, j * 8, kk * 16, g, t);
-        load_bt(bdo, sdO, LD, j * 8, kk * 16, g, t);
-        mma16816(st[j], ak, bq);
-        mma16816(dpt[j], av, bdo);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < BQ / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int qc = j * 8 + 2 * t + (e & 1);  // query within the tile
-        const int qi = q0 + qc;
-        const bool ok = qi < S && krow[r] < S && (!causal || krow[r] <= qi);
-        const float p = ok ? exp2f(st[j][e] * scale_log2 - sL[qc]) : 0.f;
-        st[j][e] = p;
-        dpt[j][e] = p * (dpt[j][e] - sD[qc]) * scale;
-      }
-    }
-    // dV += P^T @ dO ; dK += dS^T @ Q
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      const uint32_t ap[4] = {pack_f(st[2 * kk][0], st[2 * kk][1]),
-                              pack_f(st[2 * kk][2], st[2 * kk][3]),
-                              pack_f(st[2 * kk + 1][0], st[2 * kk + 1][1]),
-                              pack_f(st[2 * kk + 1][2], st[2 * kk + 1][3])};
-      const uint32_t ads[4] = {pack_f(dpt[2 * kk][0], dpt[2 * kk][1]),
-                               pack_f(dpt[2 * kk][2], dpt[2 * kk][3]),
-                               pack_f(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]),
-                               pack_f(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3])};
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t bdo[2], bq[2];
-        load_bn(bdo, sdO, LD, kk * 16, n * 8, g, t);
-        load_bn(bq, sQ, LD, kk * 16, n * 8, g, t);
-        mma16816(acc_v[n], ap, bdo);
-        mma16816(acc_k[n], ads, bq);
-      }
-    }
+    hopper::fence_barrier_init();
   }
-  const long long off = ((long long)b * S * H + h) * D;
-  store_rows<D>(dk + off, H, S, k0 + wrow, acc_k, 1.f, 1.f, g, t);
-  store_rows<D>(dv + off, H, S, k0 + wrow, acc_v, 1.f, 1.f, g, t);
+  __syncthreads();
+
+  const int wg = warpgroup();
+  if (wg == 2) {
+    // Producer warp: lane 0 issues the TMA loads; every lane copies two
+    // rows' -lse/scale and -delta (0 past S), the accumulators' start
+    // values for S^T and dP^T below.
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x % 128 < 32) {
+      const int lane = threadIdx.x % 32;
+      if (lane == 0) {
+        hopper::mbar_arrive_expect_tx(&bar_kv, 2 * T::kKVBytes);
+        load_rows<D>(sK, &tk, &bar_kv, T::kKeys, k0, h, b);
+        load_rows<D>(sV, &tv, &bar_kv, T::kKeys, k0, h, b);
+      }
+      const float* lse_bh = lse + (long long)bh * S;
+      const float* delta_bh = delta + (long long)bh * S;
+      const float neg_inv_scale = -1.f / scale;
+      for (int it = 0; it < n_it; ++it) {
+        const int st = it % T::kStages;
+        const int q0 = (qt0 + it) * T::kRows;
+        unsigned char* stage = sRing + st * T::kStageBytes;
+        hopper::mbar_wait(&empty[st], ((it / T::kStages) & 1) ^ 1);
+        if (lane == 0) {
+          hopper::mbar_expect_tx(&full[st], 2 * T::kRowBytes);
+          load_rows<D>(stage, &tq, &full[st], T::kRows, q0, h, b);
+          load_rows<D>(stage + T::kRowBytes, &tdo, &full[st], T::kRows, q0, h, b);
+        }
+        float* stat = reinterpret_cast<float*>(stage + 2 * T::kRowBytes);
+        for (int j = lane; j < T::kRows; j += 32) {
+          const bool in = q0 + j < S;
+          stat[j] = in ? lse_bh[q0 + j] * neg_inv_scale : 0.f;
+          stat[T::kRows + j] = in ? -delta_bh[q0 + j] : 0.f;
+        }
+        hopper::mbar_arrive(&full[st]);
+      }
+    }
+  } else {
+    // Consumers: warpgroup wg owns keys kw0 .. kw0 + 63.
+    hopper::setmaxnreg_inc<kConsumerRegs>();
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int kw0 = k0 + wg * 64;
+    const int key[2] = {kw0 + warp * 16 + g, kw0 + warp * 16 + g + 8};
+    const uint32_t aK = hopper::smem_u32(sK), aV = hopper::smem_u32(sV);
+
+    float acc_k[D / 2], acc_v[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+
+    hopper::mbar_wait(&bar_kv, 0);
+    for (int it = 0; it < n_it; ++it) {
+      const int st = it % T::kStages;
+      const int q0 = (qt0 + it) * T::kRows;
+      hopper::mbar_wait(&full[st], (it / T::kStages) & 1);
+      // A q tile whose every query precedes every key of this warpgroup
+      // contributes nothing.
+      if (!causal || q0 + T::kRows - 1 >= kw0) {
+        const unsigned char* stage = sRing + st * T::kStageBytes;
+        const uint32_t aQ = hopper::smem_u32(stage), aO = aQ + T::kRowBytes;
+        const float* stat = reinterpret_cast<const float*>(stage + 2 * T::kRowBytes);
+
+        // S^T - lse/scale = K . Q^T - lse/scale and dP^T - delta =
+        // V . dO^T - delta, rows = this warpgroup's keys: the accumulators
+        // start from the per-query terms, so no register holds lse or delta
+        // beside them.
+        float s[T::kRows / 2], dp[T::kRows / 2];
+#pragma unroll
+        for (int i = 0; i < T::kRows / 2; i += 2) {
+          const int c = 8 * (i / 4) + 2 * t;  // query of s[i] within the tile
+          const float2 l2 = *reinterpret_cast<const float2*>(stat + c);
+          const float2 d2 = *reinterpret_cast<const float2*>(stat + T::kRows + c);
+          s[i] = l2.x;
+          s[i + 1] = l2.y;
+          dp[i] = d2.x;
+          dp[i + 1] = d2.y;
+        }
+        hopper::fence_regs(s);
+        hopper::fence_regs(dp);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hopper::wgmma_ss(s, desc_rows(aK, T::kKeys, wg * 64, kk),
+                           desc_rows(aQ, T::kRows, 0, kk), 1);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hopper::wgmma_ss(dp, desc_rows(aV, T::kKeys, wg * 64, kk),
+                           desc_rows(aO, T::kRows, 0, kk), 1);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(s);
+        hopper::fence_regs(dp);
+
+        // P^T = exp2(s * scale log2 e) and dS^T / scale = P^T (dP^T - delta)
+        // as bf16 A fragments; masked entries are 0.
+        const bool mask = q0 + T::kRows > S || (causal && q0 < kw0 + 63);
+        uint32_t pa[T::kRows / 4], da[T::kRows / 4];
+#pragma unroll
+        for (int i = 0; i < T::kRows / 2; i += 2) {
+          float p0 = hopper::exp2_ftz(s[i] * scale_log2);
+          float p1 = hopper::exp2_ftz(s[i + 1] * scale_log2);
+          if (mask) {
+            const int kr = key[(i >> 1) & 1], qa = q0 + 8 * (i / 4) + 2 * t;
+            if (qa >= S || (causal && kr > qa)) p0 = 0.f;
+            if (qa + 1 >= S || (causal && kr > qa + 1)) p1 = 0.f;
+          }
+          pa[i / 2] = pack_f(p0, p1);
+          da[i / 2] = pack_f(p0 * dp[i], p1 * dp[i + 1]);
+        }
+
+        // dV += P^T . dO ; dK += dS^T . Q
+        hopper::fence_regs(acc_v);
+        hopper::fence_regs(acc_k);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < T::kRows / 16; ++kk)
+          hopper::wgmma_rs_tb(acc_v, &pa[4 * kk], desc_cols(aO, T::kRows, kk));
+#pragma unroll
+        for (int kk = 0; kk < T::kRows / 16; ++kk)
+          hopper::wgmma_rs_tb(acc_k, &da[4 * kk], desc_cols(aQ, T::kRows, kk));
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        keep_frags(pa);
+        keep_frags(da);
+        hopper::fence_regs(acc_v);
+        hopper::fence_regs(acc_k);
+      }
+      release_stage(&empty[st]);
+    }
+
+    const long long off = ((long long)b * S * H + h) * D;
+    store_rows<D>(dk + off, H, S, kw0 + warp * 16, as_frags(acc_k), scale, scale, g, t);
+    store_rows<D>(dv + off, H, S, kw0 + warp * 16, as_frags(acc_v), 1.f, 1.f, g, t);
+  }
 }
 
 template <int D>
-constexpr int fwd_smem() { return (64 + 64 + 64) * (D + 8) * 2; }
-template <int D>
 constexpr int dq_smem() { return (64 + 64 + 64 + 64) * (D + 8) * 2; }
-template <int D>
-constexpr int dkv_smem() { return (64 + 64 + 32 + 32) * (D + 8) * 2 + 2 * 32 * 4; }
 
 template <typename K>
 cudaError_t prepare(K kernel, int smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
+// cuTensorMapEncodeTiled from the driver, found through the runtime (no
+// -lcuda at build time).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// One tensor map of the launch plan (ops/flash_attention.launch_plan):
+// dims[4] innermost first (D, S, H, B), the byte strides of dims 1-3, and
+// the box[4] one TMA load copies.
+constexpr int kMapLen = 11;
+
+cudaError_t make_map(CUtensorMap* map, const void* base, const long long* plan) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  cuuint64_t dims[4], strides[3];
+  cuuint32_t box[4], unit[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 4; ++i) {
+    dims[i] = (cuuint64_t)plan[i];
+    box[i] = (cuuint32_t)plan[7 + i];
+  }
+  for (int i = 0; i < 3; ++i) strides[i] = (cuuint64_t)plan[4 + i];
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Grid, block and dynamic shared memory of a launch plan; the plan's
+// shared memory must be what the kernel's tile layout takes.
+struct Launch {
+  int grid_x, grid_y, threads, smem;
+};
+
+cudaError_t check_launch(const int* launch, int smem, Launch* ln) {
+  *ln = Launch{launch[0], launch[1], launch[2], launch[3]};
+  if (ln->threads != kWsThreads || ln->smem != smem || ln->grid_x < 1 || ln->grid_y < 1)
+    return cudaErrorInvalidConfiguration;
+  return cudaSuccess;
+}
+
 template <int D>
-cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                int B, int S, int H, Strides qs, Strides ks, Strides vs,
-                float scale, int causal, cudaStream_t st) {
-  cudaError_t err = prepare(flash_fwd_kernel<D>, fwd_smem<D>());
-  if (err != cudaSuccess) return err;
-  dim3 grid((S + 63) / 64, B * H);
-  flash_fwd_kernel<D><<<grid, kThreads, fwd_smem<D>(), st>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, H, S,
-      qs, ks, vs, scale * kLog2e, causal);
+cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse, int S,
+                int H, const long long* maps, const int* launch, float scale, int causal,
+                cudaStream_t st) {
+  Launch ln;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err;
+  if ((err = check_launch(launch, FwdTile<D>::kSmem, &ln)) != cudaSuccess ||
+      (err = make_map(&tq, q, maps)) != cudaSuccess ||
+      (err = make_map(&tk, k, maps + kMapLen)) != cudaSuccess ||
+      (err = make_map(&tv, v, maps + 2 * kMapLen)) != cudaSuccess ||
+      (err = prepare(flash_fwd_kernel<D>, ln.smem)) != cudaSuccess)
+    return err;
+  flash_fwd_kernel<D><<<dim3(ln.grid_x, ln.grid_y), ln.threads, ln.smem, st>>>(
+      tq, tk, tv, (bf16*)o, (float*)lse, H, S, scale * kLog2e, causal);
   return cudaGetLastError();
 }
 
@@ -527,35 +786,41 @@ cudaError_t dq(const void* q, const void* k, const void* v, const void* dout,
 
 template <int D>
 cudaError_t dkv(const void* q, const void* k, const void* v, const void* dout,
-                const void* lse, const void* delta, void* dko, void* dvo, int B,
-                int S, int H, Strides qs, Strides ks, Strides vs, Strides dos,
-                float scale, int causal, cudaStream_t st) {
-  cudaError_t err = prepare(flash_dkv_kernel<D>, dkv_smem<D>());
-  if (err != cudaSuccess) return err;
-  dim3 grid((S + 63) / 64, B * H);
-  flash_dkv_kernel<D><<<grid, kThreads, dkv_smem<D>(), st>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dko, (bf16*)dvo, H, S, qs, ks,
-      vs, dos, scale, scale * kLog2e, causal);
+                const void* lse, const void* delta, void* dko, void* dvo, int S, int H,
+                const long long* maps, const int* launch, float scale, int causal,
+                cudaStream_t st) {
+  Launch ln;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err;
+  if ((err = check_launch(launch, DkvTile<D>::kSmem, &ln)) != cudaSuccess ||
+      (err = make_map(&tq, q, maps)) != cudaSuccess ||
+      (err = make_map(&tk, k, maps + kMapLen)) != cudaSuccess ||
+      (err = make_map(&tv, v, maps + 2 * kMapLen)) != cudaSuccess ||
+      (err = make_map(&tdo, dout, maps + 3 * kMapLen)) != cudaSuccess ||
+      (err = prepare(flash_dkv_kernel<D>, ln.smem)) != cudaSuccess)
+    return err;
+  flash_dkv_kernel<D><<<dim3(ln.grid_x, ln.grid_y), ln.threads, ln.smem, st>>>(
+      tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (bf16*)dko, (bf16*)dvo, H,
+      S, scale, scale * kLog2e, causal);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // C interface, bound with ctypes.  Tensors are bf16 except lse/delta (f32);
-// strides are in elements; D must be 64 or 128.  Each returns the
-// cudaError_t of the launch (0 on success).
+// D must be 64 or 128.  K1 and K3 take the launch plan of
+// ops/flash_attention.launch_plan: `maps` holds one tensor map per operand
+// (q, k, v[, dout]; kMapLen values each) and `launch` is (grid x, grid y,
+// threads, dynamic shared-memory bytes).  K2 takes element strides.  Each
+// returns the cudaError_t of the launch (0 on success).
 extern "C" {
 
-int bf_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                 int B, int S, int H, int D, long long qsb, long long qss,
-                 long long qsh, long long ksb, long long kss, long long ksh,
-                 long long vsb, long long vss, long long vsh, float scale,
+int bf_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int S,
+                 int H, int D, const long long* maps, const int* launch, float scale,
                  int causal, void* stream) {
-  const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
   cudaStream_t st = (cudaStream_t)stream;
-  if (D == 128) return fwd<128>(q, k, v, o, lse, B, S, H, qs, ks, vs, scale, causal, st);
-  if (D == 64) return fwd<64>(q, k, v, o, lse, B, S, H, qs, ks, vs, scale, causal, st);
+  if (D == 128) return fwd<128>(q, k, v, o, lse, S, H, maps, launch, scale, causal, st);
+  if (D == 64) return fwd<64>(q, k, v, o, lse, S, H, maps, launch, scale, causal, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -576,20 +841,16 @@ int bf_flash_dq(const void* q, const void* k, const void* v, const void* dout,
 }
 
 int bf_flash_dkv(const void* q, const void* k, const void* v, const void* dout,
-                 const void* lse, const void* delta, void* dko, void* dvo, int B,
-                 int S, int H, int D, long long qsb, long long qss, long long qsh,
-                 long long ksb, long long kss, long long ksh, long long vsb,
-                 long long vss, long long vsh, long long dsb, long long dss,
-                 long long dsh, float scale, int causal, void* stream) {
-  const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh},
-      dos{dsb, dss, dsh};
+                 const void* lse, const void* delta, void* dko, void* dvo, int S, int H,
+                 int D, const long long* maps, const int* launch, float scale, int causal,
+                 void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (D == 128)
-    return dkv<128>(q, k, v, dout, lse, delta, dko, dvo, B, S, H, qs, ks, vs, dos, scale,
-                    causal, st);
+    return dkv<128>(q, k, v, dout, lse, delta, dko, dvo, S, H, maps, launch, scale, causal,
+                    st);
   if (D == 64)
-    return dkv<64>(q, k, v, dout, lse, delta, dko, dvo, B, S, H, qs, ks, vs, dos, scale,
-                   causal, st);
+    return dkv<64>(q, k, v, dout, lse, delta, dko, dvo, S, H, maps, launch, scale, causal,
+                   st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -2,8 +2,9 @@
 
 Each source under ``bluefog_tpu_torch/csrc/`` compiles with one ``nvcc``
 call into ``bluefog_tpu_torch/_build/<name>-<hash>.so``, keyed by a hash of
-the source and the flags, so an edited source rebuilds and an unchanged one
-loads from the previous build.  The library has a plain C interface and is
+the source, every header beside it (``csrc/*.cuh``) and the flags, so an
+edited source or header rebuilds and an unchanged tree loads from the
+previous build.  The library has a plain C interface and is
 loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds).
 """
 
@@ -37,10 +38,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to under the current source."""
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{key}.so"
+    """Where ``csrc/<name>.cu`` builds to under the current sources."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
+        h.update(f"\0{path.name}\0".encode() + path.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str, verbose: bool = False) -> Tuple[Path, str]:

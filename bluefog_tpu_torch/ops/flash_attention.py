@@ -2,7 +2,9 @@
 
 The port of ``bluefog_tpu/ops/flash_attention.py``.  Its three Pallas TPU
 kernels become three CUDA kernels for ``sm_90a`` in
-``bluefog_tpu_torch/csrc/flash_attention.cu``:
+``bluefog_tpu_torch/csrc/flash_attention.cu`` (K1 and K3 warp-specialised:
+TMA loads through an mbarrier ring, every product a ``wgmma``; K2 still
+``mma.sync``):
 
 - K1 ``flash_fwd_cuda`` (replaces ``_fwd_kernel``): O and the per-row
   logsumexp by the online-softmax recurrence, logits never in device memory;
@@ -19,12 +21,20 @@ attribute ``launches``.
 Layout: ``(B, S, H, D)`` like ``models.transformer.local_attention``; the
 kernels read q, k, v and dO through their strides, so the fused-QKV slices
 need no copy.  The lse is ``(B, S, H)`` at the public functions.
+
+:func:`launch_plan` holds the host-side arithmetic of K1 and K3 (grid, tile
+counts, shared memory, and the TMA tensor maps over the operands' strides)
+as a pure function of shapes and strides; the wrappers pass its result to
+the C interface.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
+from typing import Dict, Tuple
 
 import torch
 
@@ -33,7 +43,8 @@ from bluefog_tpu_torch.ops import _nvcc
 __all__ = ["flash_attention", "flash_attention_lse", "flash_attention_impl",
            "FlashAttention", "flash_fwd_ref", "flash_bwd_ref",
            "flash_fwd_cuda", "flash_dq_cuda", "flash_dkv_cuda",
-           "load_library", "reset_launch_counts"]
+           "load_library", "reset_launch_counts", "launch_plan",
+           "LaunchPlan", "TensorMapPlan"]
 
 _NEG_INF = -1e30
 _HEAD_DIMS = (64, 128)
@@ -103,14 +114,120 @@ def load_library(verbose: bool = False):
     lib = ctypes.CDLL(str(path))
     P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     strides = [L] * 3
-    lib.bf_flash_fwd.argtypes = ([P] * 5 + [I] * 4 + strides * 3
-                                 + [F, I, P])
+    plan = [ctypes.POINTER(L), ctypes.POINTER(I)]     # maps, launch
+    lib.bf_flash_fwd.argtypes = [P] * 5 + [I] * 3 + plan + [F, I, P]
     lib.bf_flash_dq.argtypes = ([P] * 7 + [I] * 4 + strides * 4 + [F, I, P])
-    lib.bf_flash_dkv.argtypes = ([P] * 8 + [I] * 4 + strides * 4 + [F, I, P])
+    lib.bf_flash_dkv.argtypes = [P] * 8 + [I] * 3 + plan + [F, I, P]
     for fn in (lib.bf_flash_fwd, lib.bf_flash_dq, lib.bf_flash_dkv):
         fn.restype = ctypes.c_int
     _LIB = lib
     return lib, log
+
+
+# ---------------------------------------------------------------------------
+# Launch plan of K1 and K3 (pure host arithmetic; tested on the CPU)
+# ---------------------------------------------------------------------------
+
+# Tiles of csrc/flash_attention.cu (FwdTile, DkvTile): a block of 3
+# warpgroups owns `block` rows; `stream` rows of the other operands pass
+# through a ring of `stages` shared-memory stages.  K1's block is query
+# rows and streams keys; K3's block is keys and streams query rows.
+_WS_THREADS = 384
+_ALIGN = 1024                 # swizzled tiles start 1024-byte aligned
+_SMEM_LIMIT = 232448          # dynamic shared memory a Hopper block may use
+_BOX_COLS = 64                # one TMA box row: 64 bf16 = the 128-byte swizzle
+_KERNELS = {
+    # name: (block rows, streamed rows, stages, resident operands, streamed)
+    "fwd": (128, 128, 2, ("q",), ("k", "v")),
+    "dkv": (128, 64, 2, ("k", "v"), ("q", "do")),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorMapPlan:
+    """One operand's TMA tensor map: dims innermost first ``(D, S, H, B)``,
+    the byte strides of dims 1-3, and the box one load copies."""
+    dims: Tuple[int, int, int, int]
+    strides: Tuple[int, int, int]
+    box: Tuple[int, int, int, int]
+
+    def flat(self) -> Tuple[int, ...]:
+        return self.dims + self.strides + self.box
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """Grid ``(B*H, row tiles)``, threads and dynamic shared-memory bytes of
+    one launch; ``inner_tiles`` counts the ring stages filled over one
+    (b, h), and ``maps`` the operands' tensor maps in C-interface order."""
+    grid: Tuple[int, int]
+    threads: int
+    smem: int
+    inner_tiles: int
+    maps: Dict[str, TensorMapPlan]
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _tensor_map(name, shape, strides, rows) -> TensorMapPlan:
+    B, S, H, D = shape
+    sb, ss, sh, sd = strides
+    if sd != 1:
+        raise ValueError(f"{name}: the head dim must have unit stride, got "
+                         f"{sd}")
+    if any((2 * x) % 16 for x in (sb, ss, sh)):
+        raise ValueError(f"{name}: TMA needs byte strides that are multiples "
+                         f"of 16; got element strides {(sb, ss, sh)}")
+    return TensorMapPlan(dims=(D, S, H, B), strides=(2 * ss, 2 * sh, 2 * sb),
+                         box=(_BOX_COLS, rows, 1, 1))
+
+
+def launch_plan(kernel: str, shape, strides, causal: bool = True) -> LaunchPlan:
+    """The launch of K1 (``kernel="fwd"``; operands q, k, v) or K3
+    (``"dkv"``; q, k, v, do) for ``shape = (B, S, H, D)`` and each operand's
+    element strides ``(sb, ss, sh, sd)``.  Raises ``ValueError`` for a head
+    dim other than 64 or 128, or strides a TMA map cannot describe."""
+    block, step, stages, resident, streamed = _KERNELS[kernel]
+    B, S, H, D = shape
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"the flash kernels take head dim {_HEAD_DIMS}, "
+                         f"got {D}")
+    if min(B, S, H) < 1:
+        raise ValueError(f"empty shape {tuple(shape)}")
+    maps = {n: _tensor_map(n, shape, strides[n], block if n in resident else step)
+            for n in ("q", "k", "v", "do") if n in resident + streamed}
+
+    row_tiles = _ceil(S, block)
+    tile = lambda rows: rows * D * 2                        # noqa: E731
+    if kernel == "fwd":
+        ring = stages * 2 * tile(step)                      # K and V
+        smem = _ALIGN + tile(block) + ring
+        inner = sum(_ceil(min(S, (qt + 1) * block) if causal else S, step)
+                    for qt in range(row_tiles))
+    else:
+        stage = _ceil(2 * tile(step) + 2 * step * 4, _ALIGN) * _ALIGN
+        smem = _ALIGN + 2 * tile(block) + stages * stage
+        inner = sum(_ceil(S, step) - (kt * block // step if causal else 0)
+                    for kt in range(row_tiles))
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"{kernel}: {smem} bytes of shared memory, over "
+                         f"{_SMEM_LIMIT}")
+    return LaunchPlan(grid=(B * H, row_tiles), threads=_WS_THREADS,
+                      smem=smem, inner_tiles=inner, maps=maps)
+
+
+@functools.lru_cache(maxsize=256)
+def _c_plan(kernel: str, shape, strides, causal: bool):
+    """The plan as the C interface takes it (tensor maps, launch), cached
+    per shape and strides: a launch then costs the host no Python
+    arithmetic."""
+    plan = launch_plan(kernel, shape, dict(strides), causal)
+    flat = [x for m in plan.maps.values() for x in m.flat()]
+    maps = (ctypes.c_longlong * len(flat))(*flat)
+    launch = (ctypes.c_int * 4)(*plan.grid, plan.threads, plan.smem)
+    return maps, launch
 
 
 def _operand(t: torch.Tensor, name: str, like: torch.Tensor) -> torch.Tensor:
@@ -163,13 +280,14 @@ def flash_fwd_cuda(q, k, v, causal: bool = True):
     B, S, H, D = _dims(q)
     q = _operand(q, "q", q)
     k, v = _operand(k, "k", q), _operand(v, "v", q)
+    plan = _c_plan("fwd", (B, S, H, D), (("q", q.stride()), ("k", k.stride()),
+                                         ("v", v.stride())), bool(causal))
     lib, _ = load_library()
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     rc = lib.bf_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        B, S, H, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        1.0 / math.sqrt(D), int(causal), _stream(q))
+        S, H, D, *plan, 1.0 / math.sqrt(D), int(causal), _stream(q))
     _check(rc, "flash forward (K1)")
     flash_fwd_cuda.launches += 1
     return o, lse
@@ -200,14 +318,16 @@ def flash_dkv_cuda(q, k, v, do, lse, delta, causal: bool = True):
     q = _operand(q, "q", q)
     k, v, do = (_operand(t, n, q) for t, n in ((k, "k"), (v, "v"), (do, "do")))
     lse, delta = _stats(lse, "lse", B, H, S), _stats(delta, "delta", B, H, S)
+    plan = _c_plan("dkv", (B, S, H, D),
+                   (("q", q.stride()), ("k", k.stride()), ("v", v.stride()),
+                    ("do", do.stride())), bool(causal))
     lib, _ = load_library()
     dk = torch.empty((B, S, H, D), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, S, H, D), dtype=v.dtype, device=q.device)
     rc = lib.bf_flash_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        B, S, H, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *do.stride()[:3], 1.0 / math.sqrt(D), int(causal), _stream(q))
+        S, H, D, *plan, 1.0 / math.sqrt(D), int(causal), _stream(q))
     _check(rc, "flash dk/dv (K3)")
     flash_dkv_cuda.launches += 1
     return dk, dv

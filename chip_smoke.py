@@ -7,14 +7,20 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 
 1. ``device``   — the card (``nvidia-smi``), torch and CUDA versions.
 2. ``build``    — builds the flash-attention kernels from ``csrc/`` with
-   ``nvcc`` (``-Xptxas -v``: registers, shared memory, spills).
+   ``nvcc`` (``-Xptxas -v``: registers, shared memory, spills) and requires
+   K1 and K3 to spill no register and to keep their wgmma products
+   asynchronous (ptxas reports no serialization).
 3. ``kernel``   — each of K1 (forward), K2 (dq) and K3 (dk/dv) against its
    plain PyTorch twin on the same inputs, at the training path's shape
    (B=2, S=2048, H=16, D=128, bf16, causal, q/k/v strided slices of a fused
    QKV tensor), at ragged S=1000 and non-causal, with kernel, twin and SDPA
    times and the least time the card could take (989 TFLOP/s bf16,
-   3.35 TB/s); then head dim 64 (causal, and ragged non-causal), checked
-   only.  Matmuls run with TF32 off.  Each output is held to its twin twice:
+   3.35 TB/s); then checked only: S=100 (shorter than one 128-row tile),
+   and head dim 64 (causal, and ragged non-causal).  At the main shape K1
+   and K3 run twice on the same inputs and must agree bit for bit: they
+   use no atomics, so a difference is a race in their pipelines.  Each
+   line carries the kernel's registers, shared memory and spill bytes.
+   Matmuls run with TF32 off.  Each output is held to its twin twice:
    by its relative error ``||kernel - twin|| / ||twin||`` (``REL_TOL``),
    which sees an error spread thinly over many rows, and element by element
    by ``max |kernel - twin| / (|twin| + rms(twin))`` (``ELEM_TOL``), which
@@ -37,6 +43,7 @@ Exits non-zero, printing no result, without a GPU or outside the repository.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -103,8 +110,30 @@ def bound(flops, nbytes):
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def check_kernels(B, S, H, D, causal, seed, timed):
-    """K1-K3 against their twins at one shape; returns per-kernel dicts."""
+def ptxas_report(log):
+    """Per kernel (``flash_fwd/D128`` ...): registers, static shared memory
+    and spill bytes from the ``-Xptxas -v`` log."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function .*?(flash_(?:fwd|dq|dkv))_kernelILi(\d+)E",
+                      ln)
+        if m:
+            cur = out.setdefault(f"{m.group(1)}/D{m.group(2)}", {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and cur is not None:
+            cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", ln)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+            cur["static_smem_bytes"] = int(m.group(2) or 0)
+    return out
+
+
+def check_kernels(B, S, H, D, causal, seed, timed, repeat=False):
+    """K1-K3 against their twins at one shape; returns per-kernel dicts.
+    With ``repeat``, K1 and K3 run again on the same inputs and must give
+    the same bits."""
     import torch
     import torch.nn.functional as F
 
@@ -144,6 +173,21 @@ def check_kernels(B, S, H, D, causal, seed, timed):
 
     res = {"K1": err([(o_k, o_r)]), "K2": err([(dq_k, dq_r)]),
            "K3": err([(dk_k, dk_r), (dv_k, dv_r)])}
+    if repeat:
+        o_2, lse_2 = FA.flash_fwd_cuda(q, k, v, causal)
+        dk_2, dv_2 = FA.flash_dkv_cuda(q, k, v, do, lse_bhs, delta, causal)
+        torch.cuda.synchronize()
+        same = {"K1": torch.equal(o_2, o_k) and torch.equal(lse_2, lse_k),
+                "K3": torch.equal(dk_2, dk_k) and torch.equal(dv_2, dv_k)}
+        for name, ok in same.items():
+            require(ok, f"{name} gave other bits on a second run with the "
+                        f"same inputs")
+            res[name]["bitwise_repeat"] = ok
+    strides = {"q": q.stride(), "k": k.stride(), "v": v.stride(),
+               "do": do.stride()}
+    for name, kernel in (("K1", "fwd"), ("K3", "dkv")):
+        res[name]["dynamic_smem_bytes"] = FA.launch_plan(
+            kernel, (B, S, H, D), strides, causal).smem
     lse_err = float((lse_k.transpose(1, 2) - lse_r).abs().max())
     require(lse_err <= LSE_TOL, f"max |lse - twin| {lse_err} over {LSE_TOL}")
     res["K1"]["lse_max_abs_err"] = lse_err
@@ -253,25 +297,37 @@ def main():
 
     t0 = time.perf_counter()
     _, log = FA.load_library(verbose=True)
-    emit("build", seconds=time.perf_counter() - t0,
-         ptxas=[ln.strip() for ln in log.splitlines()
-                if "registers" in ln or "spill" in ln or "Compiling" in ln])
+    ptxas = ptxas_report(log)
+    serialized = [ln.strip() for ln in log.splitlines()
+                  if "wgmma.mma_async instructions are serialized" in ln]
+    emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas,
+         wgmma_serialized=serialized)
+    for fn, _ in (KERNELS["K1"], KERNELS["K3"]):
+        for d in (64, 128):
+            info = ptxas.get(f"{fn}/D{d}", {})
+            require(info.get("spill_bytes") == 0,
+                    f"{fn} (D={d}) spills registers: {info}")
+    require(not serialized, f"ptxas serialized wgmma: {serialized}")
 
     main_res = None
     # (case, B, S, H, D, causal, timed): the training shape, ragged S,
-    # non-causal, and the head dim 64 instantiation (checked, not timed).
+    # non-causal; checked, not timed: S shorter than one tile and the head
+    # dim 64 instantiation.
     for case, B, S, H, D, causal, timed in (
             ("main", 2, 2048, 16, 128, True, True),
             ("ragged", 2, 1000, 16, 128, True, True),
             ("noncausal", 2, 2048, 16, 128, False, True),
+            ("short", 2, 100, 16, 128, True, False),
             ("d64", 2, 512, 8, 64, True, False),
             ("d64-ragged-noncausal", 1, 777, 4, 64, False, False)):
-        res = check_kernels(B, S, H, D, causal, SEED, timed=timed)
+        res = check_kernels(B, S, H, D, causal, SEED, timed=timed,
+                            repeat=case == "main")
         for kname, r in res.items():
             emit("kernel", kernel=kname, case=case, B=B, S=S, H=H, D=D,
                  dtype="bfloat16", causal=causal, rel_tol=REL_TOL,
                  elem_tol=ELEM_TOL,
-                 lse_tol=LSE_TOL if kname == "K1" else None, **r)
+                 lse_tol=LSE_TOL if kname == "K1" else None,
+                 **ptxas.get(f"{KERNELS[kname][0]}/D{D}", {}), **r)
         if case == "main":
             main_res = res
 
