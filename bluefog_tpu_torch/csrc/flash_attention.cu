@@ -7,21 +7,21 @@
 // Same function: scale 1/sqrt(D), mask value -1e30 (masked probabilities are
 // exactly 0), f32 accumulation, O = acc / max(l, 1e-30), lse = m + log(l).
 //
-// Layout.  q, k, v and dO are (B, S, H, D) tensors read through their
+// Layout.  q, k, v, dO and O are (B, S, H, D) tensors read through their
 // strides (unit stride along D), so the fused-QKV slices of the model need
 // no fold transpose and no copy.  O, dq, dk and dv are written contiguous
-// (B, S, H, D); lse and delta are f32 (B, H, S).
+// (B, S, H, D); lse and delta are f32 (B, H, S), dlse f32 (B, S, H).
 //
 // Bounds on the H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s), at the main
 // path's shape B=2, S=2048, H=16, D=128, causal (half the score matrix):
 //   K1: 4*B*H*S*S*D/2 = 34.4 GFLOP -> 0.035 ms; 67 MB in/out -> 0.020 ms
-//   K2: 6*B*H*S*S*D/2 = 51.5 GFLOP -> 0.052 ms; 84 MB in/out -> 0.025 ms
+//   K2: 6*B*H*S*S*D/2 = 51.5 GFLOP -> 0.052 ms; 101 MB in/out -> 0.030 ms
 //   K3: 8*B*H*S*S*D/2 = 68.7 GFLOP -> 0.069 ms; 101 MB in/out -> 0.030 ms
 // All three are bound by tensor-core operations: each K/V (or Q/dO) tile
 // in shared memory is reused by a whole block of rows.  The full
 // tensor-core rate needs wgmma fed by asynchronous loads.
 //
-// K1 and K3: warp-specialised wgmma kernels.  A block is 3 warpgroups:
+// All three are warp-specialised wgmma kernels.  A block is 3 warpgroups:
 // two consumers of 64 rows each, and a producer of which one warp works
 // (setmaxnreg moves registers to the consumers).  The producer issues
 // TMA loads through tensor maps on the caller's strides (the Python
@@ -39,6 +39,18 @@
 //     memory), the online softmax runs on the accumulator in registers,
 //     P is converted there to bf16 A fragments and O += P.V (m64nDk16)
 //     takes V MN-major from shared memory: P never touches memory.
+//   K2: a block owns 128 query rows; Q, dO and O arrive once, K and V
+//     tiles of 128 keys stream as in K1.  First each thread computes
+//     delta = rowsum(dO O) - dlse for its two rows from the O and dO tiles
+//     in shared memory and writes it for K3 (this replaces a chain of torch
+//     ops over two f32 copies of O and dO).  Per key tile, S = Q.K^T and
+//     dP = dO.V^T are m64n128k16 (all K-major), committed as two groups so
+//     that P is computed from S while dP is still in the tensor cores;
+//     dS / scale = P (dP - delta) follows on the accumulators in registers
+//     (a thread holds two rows, so lse and delta are four registers) and
+//     is packed into bf16 A fragments; dQ += dS.K (m64nDk16)
+//     reads K MN-major from the same shared tile.  dQ takes the scale once
+//     at the end and stays in registers: no atomics, deterministic.
 //   K3: a block owns 128 keys; K and V arrive once, Q and dO tiles of 64
 //     rows stream with their lse and delta slices (the producer warp
 //     writes those, the TMA the tiles).  The S^T = K.Q^T and dP^T = V.dO^T
@@ -51,12 +63,12 @@
 //     Both sums stay in registers: no atomics, no second pass,
 //     deterministic.
 // What bounds them now (PERF.md, kernel_ablations.py): with 8 computing
-// warps per SM,
-// the chain of each tile (TMA wait, a batch of wgmma, the softmax or the
-// P^T/dS^T arithmetic on the CUDA cores, the next batch) is latency-bound:
-// K1 reaches about 41% and K3 about 51% of the tensor-core bound.
-// K2 is the first design: 4 warps of mma.sync m16n8k16 on fragments read
-// from padded shared memory, synchronous tile loads.
+// warps per SM, the chain of each tile (TMA wait, a batch of wgmma, the
+// softmax or the dS arithmetic on the CUDA cores, the next batch) is
+// latency-bound: K1 reaches about 41%, K2 about 50% and K3 about 51% of
+// the tensor-core bound.  In K2 the dQ product's own round trip (issue,
+// wait) is about a third of the time; loads, stages and the exponentials
+// are not what holds it.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -69,79 +81,13 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kThreads = 128;          // K2: 4 warps
 constexpr float kMask = -1e30f;        // the TPU kernels' _NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Two consecutive bf16 (even column) as one 32-bit register.
-__device__ __forceinline__ uint32_t ld2(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two bf16 from different rows: lo in bits 0-15, hi in bits 16-31.
-__device__ __forceinline__ uint32_t pack_h(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
 __device__ __forceinline__ uint32_t pack_f(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// A fragment (16 rows x 16 cols, row-major) of a shared tile at
-// (row0, col0); ld is the tile's row pitch in elements.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* s, int ld,
-                                       int row0, int col0, int g, int t) {
-  const bf16* p = s + (row0 + g) * ld + col0 + 2 * t;
-  a[0] = ld2(p);
-  a[1] = ld2(p + 8 * ld);
-  a[2] = ld2(p + 8);
-  a[3] = ld2(p + 8 * ld + 8);
-}
-
-// B fragment (16 x 8, "col") whose column n is row (row0 + n) of a shared
-// tile: B[kk][n] = tile[row0 + n][col0 + kk].  Used for X @ Y^T.
-__device__ __forceinline__ void load_bt(uint32_t (&b)[2], const bf16* s, int ld,
-                                        int row0, int col0, int g, int t) {
-  const bf16* p = s + (row0 + g) * ld + col0 + 2 * t;
-  b[0] = ld2(p);
-  b[1] = ld2(p + 8);
-}
-
-// B fragment whose rows run along the tile's rows: B[kk][n] =
-// tile[row0 + kk][col0 + n].  Used for P @ V-style products.
-__device__ __forceinline__ void load_bn(uint32_t (&b)[2], const bf16* s, int ld,
-                                        int row0, int col0, int g, int t) {
-  const bf16* p = s + (row0 + 2 * t) * ld + col0 + g;
-  b[0] = pack_h(p[0], p[ld]);
-  b[1] = pack_h(p[8 * ld], p[9 * ld]);
-}
-
-// Copy rows [row0, row0 + ROWS) of a (S, D) slab with row stride `stride`
-// into shared memory; rows >= S become zeros.
-template <int ROWS, int D>
-__device__ __forceinline__ void load_tile(bf16* s, const bf16* g, long long stride,
-                                          int row0, int S) {
-  constexpr int LD = D + 8;
-  constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < ROWS * CHUNKS; i += kThreads) {
-    const int r = i / CHUNKS, c = i % CHUNKS;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S)
-      v = *reinterpret_cast<const uint4*>(g + (long long)(row0 + r) * stride + c * 8);
-    *reinterpret_cast<uint4*>(s + r * LD + c * 8) = v;
-  }
 }
 
 // Store a warp's 16 x D f32 accumulator as bf16 rows of a contiguous
@@ -164,12 +110,8 @@ __device__ __forceinline__ void store_rows(bf16* base, int H, int S, int row0,
   }
 }
 
-struct Strides {
-  long long b, s, h;
-};
-
 // ---------------------------------------------------------------------------
-// K1 and K3: warp-specialised wgmma + TMA kernels (see the note above).
+// K1-K3: warp-specialised wgmma + TMA kernels (see the note above).
 // ---------------------------------------------------------------------------
 constexpr int kWsThreads = 384;    // 2 consumer warpgroups + 1 producer
 constexpr int kConsumerWarps = 8;
@@ -185,6 +127,16 @@ struct FwdTile {
   static constexpr uint32_t kQBytes = kRows * D * 2;
   static constexpr uint32_t kKVBytes = kKeys * D * 2;  // one K or V tile
   static constexpr int kSmem = kAlign + kQBytes + kStages * 2 * kKVBytes;
+};
+
+template <int D>
+struct DqTile {
+  static constexpr int kRows = 128;  // query rows per block
+  static constexpr int kKeys = 128;  // keys per stage of the ring
+  static constexpr int kStages = 2;  // a third does not fit beside Q, dO and O
+  static constexpr uint32_t kRowBytes = kRows * D * 2;  // a Q, dO or O tile
+  static constexpr uint32_t kKVBytes = kKeys * D * 2;   // one K or V tile
+  static constexpr int kSmem = kAlign + 3 * kRowBytes + kStages * 2 * kKVBytes;
 };
 
 template <int D>
@@ -223,6 +175,22 @@ __device__ __forceinline__ void load_rows(unsigned char* dst, const CUtensorMap*
     hopper::tma_load_4d(dst + hf * rows * 128, map, bar, hf * 64, row0, h, b);
 }
 
+// The producer of K1 and K2: K and V tiles 0 .. n_kt - 1 of the (b, h) slab
+// into the ring, a K tile then a V tile per stage.
+template <typename T, int D>
+__device__ __forceinline__ void stream_kv(unsigned char* sKV, const CUtensorMap* tk,
+                                          const CUtensorMap* tv, uint64_t* full,
+                                          uint64_t* empty, int n_kt, int h, int b) {
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int st = kt % T::kStages;
+    hopper::mbar_wait(&empty[st], ((kt / T::kStages) & 1) ^ 1);
+    hopper::mbar_arrive_expect_tx(&full[st], 2 * T::kKVBytes);
+    unsigned char* sK = sKV + st * 2 * T::kKVBytes;
+    load_rows<D>(sK, tk, &full[st], T::kKeys, kt * T::kKeys, h, b);
+    load_rows<D>(sK + T::kKVBytes, tv, &full[st], T::kKeys, kt * T::kKeys, h, b);
+  }
+}
+
 // K-major descriptor of rows [r0, r0 + ...) of a tile of `rows` rows, at
 // k-step kk (columns 16kk..16kk+15).
 __device__ __forceinline__ uint64_t desc_rows(uint32_t tile, int rows, int r0, int kk) {
@@ -242,6 +210,31 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// The dot product of row r of two (rows x D) swizzled tiles (hopper.cuh),
+// in f32, for every thread of a quad: thread t takes the row's 16-byte
+// chunks t, t + 4, ...; quad_sum adds the four parts.
+template <int D>
+__device__ __forceinline__ float row_dot(const unsigned char* a, const unsigned char* b,
+                                         int rows, int r, int t) {
+  float sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < D / 32; ++j) {
+    const int c = 4 * j + t;
+    const int off = (c / 8) * rows * 128 + r * 128 + ((c % 8) ^ (r % 8)) * 16;
+    const uint4 x = *reinterpret_cast<const uint4*>(a + off);
+    const uint4 y = *reinterpret_cast<const uint4*>(b + off);
+    const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&x);
+    const __nv_bfloat162* y2 = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 fx = __bfloat1622float2(x2[e]), fy = __bfloat1622float2(y2[e]);
+      sum = fmaf(fx.x, fy.x, sum);
+      sum = fmaf(fx.y, fy.y, sum);
+    }
+  }
+  return quad_sum(sum);
 }
 
 // Element i of a thread's wgmma m64nN f32 accumulator lies in row
@@ -308,14 +301,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     if (threadIdx.x % 128 == 0) {
       hopper::mbar_arrive_expect_tx(&bar_q, T::kQBytes);
       load_rows<D>(sQ, &tq, &bar_q, T::kRows, q0, h, b);
-      for (int kt = 0; kt < n_kt; ++kt) {
-        const int st = kt % T::kStages;
-        hopper::mbar_wait(&empty[st], ((kt / T::kStages) & 1) ^ 1);
-        hopper::mbar_arrive_expect_tx(&full[st], 2 * T::kKVBytes);
-        unsigned char* sK = sKV + st * 2 * T::kKVBytes;
-        load_rows<D>(sK, &tk, &full[st], T::kKeys, kt * T::kKeys, h, b);
-        load_rows<D>(sK + T::kKVBytes, &tv, &full[st], T::kKeys, kt * T::kKeys, h, b);
-      }
+      stream_kv<T, D>(sKV, &tk, &tv, full, empty, n_kt, h, b);
     }
   } else {
     // Consumers: warpgroup wg owns rows q0 + 64wg .. q0 + 64wg + 63.
@@ -410,106 +396,148 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
-// K2: dq.  Grid (ceil(S/64), B*H); block = 64 query rows, loop over 64-key
-// tiles up to the causal frontier.
+// K2: dq (and delta for K3).  Grid (B*H, ceil(S/128)); block = 128 query
+// rows, 128-key K/V tiles stream up to the causal frontier.
 // ---------------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ delta,
-                bf16* __restrict__ dq, int H, int S, Strides qs, Strides ks,
-                Strides vs, Strides dos, float scale, float scale_log2, int causal) {
-  constexpr int BM = 64, BN = 64, LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sdO = sQ + BM * LD;
-  bf16* sK = sdO + BM * LD;
-  bf16* sV = sK + BN * LD;
+__global__ void __launch_bounds__(kWsThreads, 1)
+flash_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                const __grid_constant__ CUtensorMap tdo,
+                const __grid_constant__ CUtensorMap to, const float* __restrict__ lse,
+                const float* __restrict__ dlse, float* __restrict__ delta,
+                bf16* __restrict__ dq, int H, int S, float scale, float scale_log2,
+                int causal) {
+  using T = DqTile<D>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t bar_q, full[T::kStages], empty[T::kStages];
+  unsigned char* sQ = align_smem(smem_raw);
+  unsigned char* sdO = sQ + T::kRowBytes;
+  unsigned char* sO = sdO + T::kRowBytes;
+  unsigned char* sKV = sO + T::kRowBytes;  // stage s: K tile, then V tile
 
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = qt * BM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int wrow = warp * 16;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * T::kRows;
+  const int kend = causal ? min(S, q0 + T::kRows) : S;
+  const int n_kt = (kend + T::kKeys - 1) / T::kKeys;
 
-  const bf16* kb = k + b * ks.b + h * ks.h;
-  const bf16* vb = v + b * vs.b + h * vs.h;
-  load_tile<BM, D>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, S);
-  load_tile<BM, D>(sdO, dout + b * dos.b + h * dos.h, dos.s, q0, S);
-
-  const int row[2] = {q0 + wrow + g, q0 + wrow + g + 8};
-  float lse2[2], dlt[2];
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&bar_q, 1);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const bool in = row[r] < S;
-    lse2[r] = in ? lse[(long long)bh * S + row[r]] * kLog2e : 0.f;
-    dlt[r] = in ? delta[(long long)bh * S + row[r]] : 0.f;
+    for (int s = 0; s < T::kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kConsumerWarps);
+    }
+    hopper::fence_barrier_init();
   }
+  __syncthreads();
 
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const int wg = warpgroup();
+  if (wg == 2) {
+    // Producer: one thread issues every load.
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x % 128 == 0) {
+      hopper::mbar_arrive_expect_tx(&bar_q, 3 * T::kRowBytes);
+      load_rows<D>(sQ, &tq, &bar_q, T::kRows, q0, h, b);
+      load_rows<D>(sdO, &tdo, &bar_q, T::kRows, q0, h, b);
+      load_rows<D>(sO, &to, &bar_q, T::kRows, q0, h, b);
+      stream_kv<T, D>(sKV, &tk, &tv, full, empty, n_kt, h, b);
+    }
+  } else {
+    // Consumers: warpgroup wg owns rows q0 + 64wg .. q0 + 64wg + 63.
+    hopper::setmaxnreg_inc<kConsumerRegs>();
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int row0 = q0 + wg * 64;
+    const int row[2] = {row0 + warp * 16 + g, row0 + warp * 16 + g + 8};
+    const uint32_t aQ = hopper::smem_u32(sQ), adO = hopper::smem_u32(sdO);
+    const uint32_t aKV = hopper::smem_u32(sKV);
 
-  const int kend = causal ? min(S, q0 + BM) : S;
-  const int n_kt = (kend + BN - 1) / BN;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BN;
-    __syncthreads();
-    load_tile<BN, D>(sK, kb, ks.s, k0, S);
-    load_tile<BN, D>(sV, vb, vs.s, k0, S);
-    __syncthreads();
+    // The thread's two rows: lse in log2 units, and delta = rowsum(dO O) -
+    // dlse, which K3 reads (rows past S: 0, so their dS is 0).
+    hopper::mbar_wait(&bar_q, 0);
+    float lse2[2], dlt[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int lr = row[r] - q0;
+      const float dot = row_dot<D>(sO, sdO, T::kRows, lr, t);
+      const bool in = row[r] < S;
+      lse2[r] = in ? lse[(long long)bh * S + row[r]] * kLog2e : 0.f;
+      dlt[r] = in ? dot - dlse[((long long)b * S + row[r]) * H + h] : 0.f;
+      if (t == 0 && in) delta[(long long)bh * S + row[r]] = dlt[r];
+    }
 
-    float s[BN / 8][4], dp[BN / 8][4];
+    float acc[D / 2];
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int st = kt % T::kStages;
+      hopper::mbar_wait(&full[st], (kt / T::kStages) & 1);
+      const uint32_t aK = aKV + st * 2 * T::kKVBytes, aV = aK + T::kKVBytes;
+
+      // S = Q . K^T and dP = dO . V^T, committed as two groups: P is
+      // computed from S while dP is still in the tensor cores.
+      float s[T::kKeys / 2], dp[T::kKeys / 2];
+      hopper::wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_ss(s, desc_rows(aQ, T::kRows, wg * 64, kk),
+                         desc_rows(aK, T::kKeys, 0, kk), kk);
+      hopper::wgmma_commit();  // S
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t aq[4], ado[4];
-      load_a(aq, sQ, LD, wrow, kk * 16, g, t);
-      load_a(ado, sdO, LD, wrow, kk * 16, g, t);
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_ss(dp, desc_rows(adO, T::kRows, wg * 64, kk),
+                         desc_rows(aV, T::kKeys, 0, kk), kk);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(s);
+
+      // P = exp2(S scale log2 e - lse log2 e) in place of S; masked entries
+      // are 0, and only tiles that cross the diagonal or the end of the
+      // sequence are masked.
+      const int k0 = kt * T::kKeys;
+      const bool mask = k0 + T::kKeys > S || (causal && k0 + T::kKeys - 1 > row0);
 #pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        uint32_t bk[2], bv[2];
-        load_bt(bk, sK, LD, j * 8, kk * 16, g, t);
-        load_bt(bv, sV, LD, j * 8, kk * 16, g, t);
-        mma16816(s[j], aq, bk);    // S  = Q . K^T
-        mma16816(dp[j], ado, bv);  // dP = dO . V^T
+      for (int i = 0; i < T::kKeys / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        float p = hopper::exp2_ftz(fmaf(s[i], scale_log2, -lse2[r]));
+        if (mask) {
+          const int col = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+          if (col >= S || (causal && col > row[r])) p = 0.f;
+        }
+        s[i] = p;
       }
-    }
-    // dS = P * (dP - delta) * scale, P = exp(S - lse); masked -> 0.
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dp);
+
+      // dS / scale = P (dP - delta) as bf16 A fragments: pair (i, i + 1)
+      // is register i / 2.
+      uint32_t ds[T::kKeys / 4];
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int col = k0 + j * 8 + 2 * t + (e & 1);
-        const bool ok = col < S && row[r] < S && (!causal || col <= row[r]);
-        const float p = ok ? exp2f(s[j][e] * scale_log2 - lse2[r]) : 0.f;
-        s[j][e] = p * (dp[j][e] - dlt[r]) * scale;
+      for (int i = 0; i < T::kKeys / 2; i += 2) {
+        const int r = (i >> 1) & 1;
+        ds[i / 2] = pack_f(s[i] * (dp[i] - dlt[r]), s[i + 1] * (dp[i + 1] - dlt[r]));
       }
-    }
-    // acc += dS @ K
+
+      // dQ += dS . K, K read MN-major from the tile S used.
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      const uint32_t a[4] = {pack_f(s[2 * kk][0], s[2 * kk][1]),
-                             pack_f(s[2 * kk][2], s[2 * kk][3]),
-                             pack_f(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_f(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t bb[2];
-        load_bn(bb, sK, LD, kk * 16, n * 8, g, t);
-        mma16816(acc[n], a, bb);
-      }
+      for (int kk = 0; kk < T::kKeys / 16; ++kk)
+        hopper::wgmma_rs_tb(acc, &ds[4 * kk], desc_cols(aK, T::kKeys, kk));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      keep_frags(ds);
+      hopper::fence_regs(acc);
+      release_stage(&empty[st]);
     }
+
+    // dQ takes the scale once, here.
+    store_rows<D>(dq + ((long long)b * S * H + h) * D, H, S, row0 + warp * 16, as_frags(acc),
+                  scale, scale, g, t);
   }
-  store_rows<D>(dq + ((long long)b * S * H + h) * D, H, S, q0 + wrow, acc,
-                1.f, 1.f, g, t);
 }
 
 // ---------------------------------------------------------------------------
@@ -682,9 +710,6 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <int D>
-constexpr int dq_smem() { return (64 + 64 + 64 + 64) * (D + 8) * 2; }
-
 template <typename K>
 cudaError_t prepare(K kernel, int smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -770,17 +795,24 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse,
 }
 
 template <int D>
-cudaError_t dq(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, void* dqo, int B, int S, int H,
-               Strides qs, Strides ks, Strides vs, Strides dos, float scale,
-               int causal, cudaStream_t st) {
-  cudaError_t err = prepare(flash_dq_kernel<D>, dq_smem<D>());
-  if (err != cudaSuccess) return err;
-  dim3 grid((S + 63) / 64, B * H);
-  flash_dq_kernel<D><<<grid, kThreads, dq_smem<D>(), st>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dqo, H, S, qs, ks, vs, dos,
-      scale, scale * kLog2e, causal);
+cudaError_t dq(const void* q, const void* k, const void* v, const void* dout, const void* o,
+               const void* lse, const void* dlse, void* delta, void* dqo, int S, int H,
+               const long long* maps, const int* launch, float scale, int causal,
+               cudaStream_t st) {
+  Launch ln;
+  CUtensorMap tq, tk, tv, tdo, to;
+  cudaError_t err;
+  if ((err = check_launch(launch, DqTile<D>::kSmem, &ln)) != cudaSuccess ||
+      (err = make_map(&tq, q, maps)) != cudaSuccess ||
+      (err = make_map(&tk, k, maps + kMapLen)) != cudaSuccess ||
+      (err = make_map(&tv, v, maps + 2 * kMapLen)) != cudaSuccess ||
+      (err = make_map(&tdo, dout, maps + 3 * kMapLen)) != cudaSuccess ||
+      (err = make_map(&to, o, maps + 4 * kMapLen)) != cudaSuccess ||
+      (err = prepare(flash_dq_kernel<D>, ln.smem)) != cudaSuccess)
+    return err;
+  flash_dq_kernel<D><<<dim3(ln.grid_x, ln.grid_y), ln.threads, ln.smem, st>>>(
+      tq, tk, tv, tdo, to, (const float*)lse, (const float*)dlse, (float*)delta, (bf16*)dqo,
+      H, S, scale, scale * kLog2e, causal);
   return cudaGetLastError();
 }
 
@@ -807,12 +839,13 @@ cudaError_t dkv(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// C interface, bound with ctypes.  Tensors are bf16 except lse/delta (f32);
-// D must be 64 or 128.  K1 and K3 take the launch plan of
+// C interface, bound with ctypes.  Tensors are bf16 except lse, dlse and
+// delta (f32); D must be 64 or 128.  Each kernel takes the launch plan of
 // ops/flash_attention.launch_plan: `maps` holds one tensor map per operand
-// (q, k, v[, dout]; kMapLen values each) and `launch` is (grid x, grid y,
-// threads, dynamic shared-memory bytes).  K2 takes element strides.  Each
-// returns the cudaError_t of the launch (0 on success).
+// (q, k, v[, dout[, o]]; kMapLen values each) and `launch` is (grid x,
+// grid y, threads, dynamic shared-memory bytes).  K2 reads dlse as
+// contiguous (B, S, H) and writes delta (B, H, S) for K3.  Each returns the
+// cudaError_t of the launch (0 on success).
 extern "C" {
 
 int bf_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int S,
@@ -824,19 +857,17 @@ int bf_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse
   return (int)cudaErrorInvalidValue;
 }
 
-int bf_flash_dq(const void* q, const void* k, const void* v, const void* dout,
-                const void* lse, const void* delta, void* dqo, int B, int S, int H,
-                int D, long long qsb, long long qss, long long qsh, long long ksb,
-                long long kss, long long ksh, long long vsb, long long vss,
-                long long vsh, long long dsb, long long dss, long long dsh,
-                float scale, int causal, void* stream) {
-  const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh},
-      dos{dsb, dss, dsh};
+int bf_flash_dq(const void* q, const void* k, const void* v, const void* dout, const void* o,
+                const void* lse, const void* dlse, void* delta, void* dqo, int S, int H, int D,
+                const long long* maps, const int* launch, float scale, int causal,
+                void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (D == 128)
-    return dq<128>(q, k, v, dout, lse, delta, dqo, B, S, H, qs, ks, vs, dos, scale, causal, st);
+    return dq<128>(q, k, v, dout, o, lse, dlse, delta, dqo, S, H, maps, launch, scale, causal,
+                   st);
   if (D == 64)
-    return dq<64>(q, k, v, dout, lse, delta, dqo, B, S, H, qs, ks, vs, dos, scale, causal, st);
+    return dq<64>(q, k, v, dout, o, lse, dlse, delta, dqo, S, H, maps, launch, scale, causal,
+                  st);
   return (int)cudaErrorInvalidValue;
 }
 

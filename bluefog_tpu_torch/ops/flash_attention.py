@@ -2,27 +2,28 @@
 
 The port of ``bluefog_tpu/ops/flash_attention.py``.  Its three Pallas TPU
 kernels become three CUDA kernels for ``sm_90a`` in
-``bluefog_tpu_torch/csrc/flash_attention.cu`` (K1 and K3 warp-specialised:
-TMA loads through an mbarrier ring, every product a ``wgmma``; K2 still
-``mma.sync``):
+``bluefog_tpu_torch/csrc/flash_attention.cu``, each warp-specialised: TMA
+loads through an mbarrier ring, every product a ``wgmma``:
 
 - K1 ``flash_fwd_cuda`` (replaces ``_fwd_kernel``): O and the per-row
   logsumexp by the online-softmax recurrence, logits never in device memory;
-- K2 ``flash_dq_cuda`` (replaces ``_dq_kernel``): ``dq = sum_k dS K``;
+- K2 ``flash_dq_cuda`` (replaces ``_dq_kernel``): ``dq = sum_k dS K``, and
+  the backward's ``delta = rowsum(dO o) - dlse`` for K3 (in the JAX
+  package a plain op before both kernels);
 - K3 ``flash_dkv_cuda`` (replaces ``_dkv_kernel``): ``dk = sum_q dS^T Q`` and
   ``dv = sum_q P^T dO``.
 
-``flash_fwd_ref`` and ``flash_bwd_ref`` are their plain twins: the same
-function as dense float32 math.  :class:`FlashAttention` takes the plain
-path only for tensors on the CPU; for CUDA tensors it launches the kernels
-or raises.  Each CUDA wrapper counts its launches in a plain integer
+``flash_fwd_ref``, ``flash_bwd_ref`` and ``flash_delta`` are their plain
+twins: the same functions as dense float32 math.  :class:`FlashAttention`
+takes the plain path only for tensors on the CPU; for CUDA tensors it
+launches the kernels or raises.  Each CUDA wrapper counts its launches in a plain integer
 attribute ``launches``.
 
 Layout: ``(B, S, H, D)`` like ``models.transformer.local_attention``; the
 kernels read q, k, v and dO through their strides, so the fused-QKV slices
 need no copy.  The lse is ``(B, S, H)`` at the public functions.
 
-:func:`launch_plan` holds the host-side arithmetic of K1 and K3 (grid, tile
+:func:`launch_plan` holds the host-side arithmetic of K1-K3 (grid, tile
 counts, shared memory, and the TMA tensor maps over the operands' strides)
 as a pure function of shapes and strides; the wrappers pass its result to
 the C interface.
@@ -41,7 +42,7 @@ import torch
 from bluefog_tpu_torch.ops import _nvcc
 
 __all__ = ["flash_attention", "flash_attention_lse", "flash_attention_impl",
-           "FlashAttention", "flash_fwd_ref", "flash_bwd_ref",
+           "FlashAttention", "flash_fwd_ref", "flash_bwd_ref", "flash_delta",
            "flash_fwd_cuda", "flash_dq_cuda", "flash_dkv_cuda",
            "load_library", "reset_launch_counts", "launch_plan",
            "LaunchPlan", "TensorMapPlan"]
@@ -112,11 +113,10 @@ def load_library(verbose: bool = False):
         return _LIB, ""
     path, log = _nvcc.build("flash_attention", verbose=verbose)
     lib = ctypes.CDLL(str(path))
-    P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    strides = [L] * 3
-    plan = [ctypes.POINTER(L), ctypes.POINTER(I)]     # maps, launch
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    plan = [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(I)]  # maps, launch
     lib.bf_flash_fwd.argtypes = [P] * 5 + [I] * 3 + plan + [F, I, P]
-    lib.bf_flash_dq.argtypes = ([P] * 7 + [I] * 4 + strides * 4 + [F, I, P])
+    lib.bf_flash_dq.argtypes = [P] * 9 + [I] * 3 + plan + [F, I, P]
     lib.bf_flash_dkv.argtypes = [P] * 8 + [I] * 3 + plan + [F, I, P]
     for fn in (lib.bf_flash_fwd, lib.bf_flash_dq, lib.bf_flash_dkv):
         fn.restype = ctypes.c_int
@@ -125,13 +125,13 @@ def load_library(verbose: bool = False):
 
 
 # ---------------------------------------------------------------------------
-# Launch plan of K1 and K3 (pure host arithmetic; tested on the CPU)
+# Launch plan of K1-K3 (pure host arithmetic; tested on the CPU)
 # ---------------------------------------------------------------------------
 
-# Tiles of csrc/flash_attention.cu (FwdTile, DkvTile): a block of 3
+# Tiles of csrc/flash_attention.cu (FwdTile, DqTile, DkvTile): a block of 3
 # warpgroups owns `block` rows; `stream` rows of the other operands pass
-# through a ring of `stages` shared-memory stages.  K1's block is query
-# rows and streams keys; K3's block is keys and streams query rows.
+# through a ring of `stages` shared-memory stages.  K1's and K2's blocks are
+# query rows and stream keys; K3's block is keys and streams query rows.
 _WS_THREADS = 384
 _ALIGN = 1024                 # swizzled tiles start 1024-byte aligned
 _SMEM_LIMIT = 232448          # dynamic shared memory a Hopper block may use
@@ -139,6 +139,7 @@ _BOX_COLS = 64                # one TMA box row: 64 bf16 = the 128-byte swizzle
 _KERNELS = {
     # name: (block rows, streamed rows, stages, resident operands, streamed)
     "fwd": (128, 128, 2, ("q",), ("k", "v")),
+    "dq": (128, 128, 2, ("q", "do", "o"), ("k", "v")),
     "dkv": (128, 64, 2, ("k", "v"), ("q", "do")),
 }
 
@@ -185,10 +186,11 @@ def _tensor_map(name, shape, strides, rows) -> TensorMapPlan:
 
 
 def launch_plan(kernel: str, shape, strides, causal: bool = True) -> LaunchPlan:
-    """The launch of K1 (``kernel="fwd"``; operands q, k, v) or K3
-    (``"dkv"``; q, k, v, do) for ``shape = (B, S, H, D)`` and each operand's
-    element strides ``(sb, ss, sh, sd)``.  Raises ``ValueError`` for a head
-    dim other than 64 or 128, or strides a TMA map cannot describe."""
+    """The launch of K1 (``kernel="fwd"``; operands q, k, v), K2 (``"dq"``;
+    q, k, v, do, o) or K3 (``"dkv"``; q, k, v, do) for ``shape = (B, S, H,
+    D)`` and each operand's element strides ``(sb, ss, sh, sd)``.  Raises
+    ``ValueError`` for a head dim other than 64 or 128, or strides a TMA
+    map cannot describe."""
     block, step, stages, resident, streamed = _KERNELS[kernel]
     B, S, H, D = shape
     if D not in _HEAD_DIMS:
@@ -197,13 +199,13 @@ def launch_plan(kernel: str, shape, strides, causal: bool = True) -> LaunchPlan:
     if min(B, S, H) < 1:
         raise ValueError(f"empty shape {tuple(shape)}")
     maps = {n: _tensor_map(n, shape, strides[n], block if n in resident else step)
-            for n in ("q", "k", "v", "do") if n in resident + streamed}
+            for n in ("q", "k", "v", "do", "o") if n in resident + streamed}
 
     row_tiles = _ceil(S, block)
     tile = lambda rows: rows * D * 2                        # noqa: E731
-    if kernel == "fwd":
+    if kernel in ("fwd", "dq"):
         ring = stages * 2 * tile(step)                      # K and V
-        smem = _ALIGN + tile(block) + ring
+        smem = _ALIGN + len(resident) * tile(block) + ring
         inner = sum(_ceil(min(S, (qt + 1) * block) if causal else S, step)
                     for qt in range(row_tiles))
     else:
@@ -293,27 +295,38 @@ def flash_fwd_cuda(q, k, v, causal: bool = True):
     return o, lse
 
 
-def flash_dq_cuda(q, k, v, do, lse, delta, causal: bool = True):
-    """K2: dq ``(B, S, H, D)`` from the saved lse and the precomputed
-    ``delta = rowsum(dO o) - dlse``, both float32 ``(B, H, S)``."""
+def flash_dq_cuda(q, k, v, o, do, lse, dlse, causal: bool = True):
+    """K2: ``(dq, delta)`` from the forward's saved ``o`` and lse (float32
+    ``(B, H, S)``) and the cotangents ``do`` and ``dlse`` (``(B, S, H)``, any
+    strides); dq is ``(B, S, H, D)``, ``delta = rowsum(dO o) - dlse`` float32
+    ``(B, H, S)``, the input of K3."""
     B, S, H, D = _dims(q)
     q = _operand(q, "q", q)
-    k, v, do = (_operand(t, n, q) for t, n in ((k, "k"), (v, "v"), (do, "do")))
-    lse, delta = _stats(lse, "lse", B, H, S), _stats(delta, "delta", B, H, S)
+    k, v, do, o = (_operand(t, n, q)
+                   for t, n in ((k, "k"), (v, "v"), (do, "do"), (o, "o")))
+    lse = _stats(lse, "lse", B, H, S)
+    if dlse.shape != (B, S, H) or dlse.device != q.device:
+        raise ValueError(f"dlse must be (B, S, H) = {(B, S, H)} on {q.device}; "
+                         f"got {tuple(dlse.shape)} on {dlse.device}")
+    dlse = dlse.float().contiguous()
+    plan = _c_plan("dq", (B, S, H, D),
+                   (("q", q.stride()), ("k", k.stride()), ("v", v.stride()),
+                    ("do", do.stride()), ("o", o.stride())), bool(causal))
     lib, _ = load_library()
     dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     rc = lib.bf_flash_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, S, H, D,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
-        1.0 / math.sqrt(D), int(causal), _stream(q))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), dlse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        S, H, D, *plan, 1.0 / math.sqrt(D), int(causal), _stream(q))
     _check(rc, "flash dq (K2)")
     flash_dq_cuda.launches += 1
-    return dq
+    return dq, delta
 
 
 def flash_dkv_cuda(q, k, v, do, lse, delta, causal: bool = True):
-    """K3: ``(dk, dv)``, each ``(B, S, H, D)``; inputs as :func:`flash_dq_cuda`."""
+    """K3: ``(dk, dv)``, each ``(B, S, H, D)``, from the saved lse and the
+    ``delta`` that K2 returns, both float32 ``(B, H, S)``."""
     B, S, H, D = _dims(q)
     q = _operand(q, "q", q)
     k, v, do = (_operand(t, n, q) for t, n in ((k, "k"), (v, "v"), (do, "do")))
@@ -345,7 +358,8 @@ def reset_launch_counts() -> None:
 
 def flash_delta(o, do, dlse):
     """``rowsum(dO o) - dlse`` as float32 ``(B, H, S)``: the delta term of
-    the backward, a plain torch op before K2 and K3 as in the JAX package."""
+    the backward, as the JAX package computes it before its K2 and K3; the
+    plain twin of K2's second output."""
     delta = (do.float() * o.float()).sum(-1) - dlse.float()   # (B, S, H)
     return delta.transpose(1, 2).contiguous()
 
@@ -374,8 +388,7 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do, dlse):
         q, k, v, o, lse_bhs = ctx.saved_tensors
         if q.is_cuda:
-            delta = flash_delta(o, do, dlse)
-            dq = flash_dq_cuda(q, k, v, do, lse_bhs, delta, ctx.causal)
+            dq, delta = flash_dq_cuda(q, k, v, o, do, lse_bhs, dlse, ctx.causal)
             dk, dv = flash_dkv_cuda(q, k, v, do, lse_bhs, delta, ctx.causal)
         else:
             dq, dk, dv = flash_bwd_ref(q, k, v, o, lse_bhs.transpose(1, 2),

@@ -8,7 +8,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 1. ``device``   — the card (``nvidia-smi``), torch and CUDA versions.
 2. ``build``    — builds the flash-attention kernels from ``csrc/`` with
    ``nvcc`` (``-Xptxas -v``: registers, shared memory, spills) and requires
-   K1 and K3 to spill no register and to keep their wgmma products
+   K1, K2 and K3 to spill no register and to keep their wgmma products
    asynchronous (ptxas reports no serialization).
 3. ``kernel``   — each of K1 (forward), K2 (dq) and K3 (dk/dv) against its
    plain PyTorch twin on the same inputs, at the training path's shape
@@ -16,10 +16,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    QKV tensor), at ragged S=1000 and non-causal, with kernel, twin and SDPA
    times and the least time the card could take (989 TFLOP/s bf16,
    3.35 TB/s); then checked only: S=100 (shorter than one 128-row tile),
-   and head dim 64 (causal, and ragged non-causal).  At the main shape K1
-   and K3 run twice on the same inputs and must agree bit for bit: they
-   use no atomics, so a difference is a race in their pipelines.  Each
-   line carries the kernel's registers, shared memory and spill bytes.
+   and head dim 64 (causal, and ragged non-causal).  K2 also returns the
+   backward's delta, held to the plain op ``flash_delta`` (``REL_TOL``), and
+   K3 reads that delta, as on the training path; the timed cases time
+   ``flash_delta`` too.  At the main shape K1-K3 run twice on the same
+   inputs and must agree bit for bit: they use no atomics, so a difference
+   is a race in their pipelines.  Each line carries the kernel's
+   registers, shared memory and spill bytes.
    Matmuls run with TF32 off.  Each output is held to its twin twice:
    by its relative error ``||kernel - twin|| / ||twin||`` (``REL_TOL``),
    which sees an error spread thinly over many rows, and element by element
@@ -132,8 +135,8 @@ def ptxas_report(log):
 
 def check_kernels(B, S, H, D, causal, seed, timed, repeat=False):
     """K1-K3 against their twins at one shape; returns per-kernel dicts.
-    With ``repeat``, K1 and K3 run again on the same inputs and must give
-    the same bits."""
+    With ``repeat``, K1-K3 run again on the same inputs and must give the
+    same bits."""
     import torch
     import torch.nn.functional as F
 
@@ -152,8 +155,8 @@ def check_kernels(B, S, H, D, causal, seed, timed, repeat=False):
     o = o_r.to(torch.bfloat16)
     lse_bhs = lse_r.transpose(1, 2).contiguous()
     delta = FA.flash_delta(o, do, dlse)
-    dq_k = FA.flash_dq_cuda(q, k, v, do, lse_bhs, delta, causal)
-    dk_k, dv_k = FA.flash_dkv_cuda(q, k, v, do, lse_bhs, delta, causal)
+    dq_k, delta_k = FA.flash_dq_cuda(q, k, v, o, do, lse_bhs, dlse, causal)
+    dk_k, dv_k = FA.flash_dkv_cuda(q, k, v, do, lse_bhs, delta_k, causal)
     dq_r, dk_r, dv_r = FA.flash_bwd_ref(*f32[:3], o.float(), lse_r, f32[3],
                                         dlse, causal)
     torch.cuda.synchronize()
@@ -173,19 +176,26 @@ def check_kernels(B, S, H, D, causal, seed, timed, repeat=False):
 
     res = {"K1": err([(o_k, o_r)]), "K2": err([(dq_k, dq_r)]),
            "K3": err([(dk_k, dk_r), (dv_k, dv_r)])}
+    delta_err = rel_err(delta_k, delta)
+    require(delta_err <= REL_TOL,
+            f"K2 delta: ||kernel - flash_delta|| / ||flash_delta|| "
+            f"{delta_err} over {REL_TOL}")
+    res["K2"]["delta_rel_err"] = delta_err
     if repeat:
         o_2, lse_2 = FA.flash_fwd_cuda(q, k, v, causal)
-        dk_2, dv_2 = FA.flash_dkv_cuda(q, k, v, do, lse_bhs, delta, causal)
+        dq_2, delta_2 = FA.flash_dq_cuda(q, k, v, o, do, lse_bhs, dlse, causal)
+        dk_2, dv_2 = FA.flash_dkv_cuda(q, k, v, do, lse_bhs, delta_k, causal)
         torch.cuda.synchronize()
         same = {"K1": torch.equal(o_2, o_k) and torch.equal(lse_2, lse_k),
+                "K2": torch.equal(dq_2, dq_k) and torch.equal(delta_2, delta_k),
                 "K3": torch.equal(dk_2, dk_k) and torch.equal(dv_2, dv_k)}
         for name, ok in same.items():
             require(ok, f"{name} gave other bits on a second run with the "
                         f"same inputs")
             res[name]["bitwise_repeat"] = ok
     strides = {"q": q.stride(), "k": k.stride(), "v": v.stride(),
-               "do": do.stride()}
-    for name, kernel in (("K1", "fwd"), ("K3", "dkv")):
+               "do": do.stride(), "o": o.stride()}
+    for name, kernel in (("K1", "fwd"), ("K2", "dq"), ("K3", "dkv")):
         res[name]["dynamic_smem_bytes"] = FA.launch_plan(
             kernel, (B, S, H, D), strides, causal).smem
     lse_err = float((lse_k.transpose(1, 2) - lse_r).abs().max())
@@ -193,8 +203,9 @@ def check_kernels(B, S, H, D, causal, seed, timed, repeat=False):
     res["K1"]["lse_max_abs_err"] = lse_err
     pairs = S * (S + 1) // 2 if causal else S * S
     bsd, bhs = B * S * H * D * 2, B * H * S * 4
+    # K2 reads q, k, v, dO, O, lse and dlse, writes dq and delta.
     work = {"K1": (4 * B * H * pairs * D, 4 * bsd + bhs),
-            "K2": (6 * B * H * pairs * D, 5 * bsd + 2 * bhs),
+            "K2": (6 * B * H * pairs * D, 6 * bsd + 3 * bhs),
             "K3": (8 * B * H * pairs * D, 6 * bsd + 2 * bhs)}
     for name, (flops, nbytes) in work.items():
         res[name]["bound_ms"], res[name]["bound_by"] = bound(flops, nbytes)
@@ -203,9 +214,11 @@ def check_kernels(B, S, H, D, causal, seed, timed, repeat=False):
 
     res["K1"]["ms"] = cuda_ms(lambda: FA.flash_fwd_cuda(q, k, v, causal))
     res["K2"]["ms"] = cuda_ms(
-        lambda: FA.flash_dq_cuda(q, k, v, do, lse_bhs, delta, causal))
+        lambda: FA.flash_dq_cuda(q, k, v, o, do, lse_bhs, dlse, causal))
     res["K3"]["ms"] = cuda_ms(
-        lambda: FA.flash_dkv_cuda(q, k, v, do, lse_bhs, delta, causal))
+        lambda: FA.flash_dkv_cuda(q, k, v, do, lse_bhs, delta_k, causal))
+    # The plain op that K2's fused delta replaces on the card.
+    res["K2"]["flash_delta_ms"] = cuda_ms(lambda: FA.flash_delta(o, do, dlse))
     res["K1"]["plain_ms"] = cuda_ms(
         lambda: FA.flash_fwd_ref(q, k, v, causal), iters=5, warmup=1)
     # The twin computes dq, dk and dv in one pass: its time stands for K2
@@ -302,7 +315,7 @@ def main():
                   if "wgmma.mma_async instructions are serialized" in ln]
     emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas,
          wgmma_serialized=serialized)
-    for fn, _ in (KERNELS["K1"], KERNELS["K3"]):
+    for fn, _ in KERNELS.values():
         for d in (64, 128):
             info = ptxas.get(f"{fn}/D{d}", {})
             require(info.get("spill_bytes") == 0,

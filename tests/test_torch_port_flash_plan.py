@@ -1,4 +1,5 @@
-"""The launch plan of the Hopper kernels K1 (flash forward) and K3 (dk/dv),
+"""The launch plan of the Hopper kernels K1 (flash forward), K2 (dq) and K3
+(dk/dv),
 ``ops.flash_attention.launch_plan``: grid, tile counts, shared memory and
 the TMA tensor maps over the operands' strides.  Pure host arithmetic,
 held here against PyTorch's own addressing and a brute-force count of the
@@ -13,25 +14,28 @@ import torch
 from bluefog_tpu_torch.ops import flash_attention as FA
 
 SMEM_LIMIT = 232448            # dynamic shared memory a Hopper block may use
-OPERANDS = {"fwd": ("q", "k", "v"), "dkv": ("q", "k", "v", "do")}
+OPERANDS = {"fwd": ("q", "k", "v"), "dq": ("q", "k", "v", "do", "o"),
+            "dkv": ("q", "k", "v", "do")}
 # Rows of one TMA box per operand: the block's own rows (128) and the rows
-# of one pipeline stage (K1: 128 keys; K3: 64 queries).
+# of one pipeline stage (K1 and K2: 128 keys; K3: 64 queries).
 BOX_ROWS = {"fwd": {"q": 128, "k": 128, "v": 128},
+            "dq": {"q": 128, "k": 128, "v": 128, "do": 128, "o": 128},
             "dkv": {"q": 64, "k": 128, "v": 128, "do": 64}}
+RESIDENT = {"fwd": ("q",), "dq": ("q", "do", "o"), "dkv": ("k", "v")}
 
 
 def _operands(kernel, B, S, H, D, layout):
     """Views as the model hands them over: q, k, v slices of one fused
     (B, S, H, 3, D) projection, or separate contiguous tensors; dO is always
-    a contiguous gradient."""
+    a contiguous gradient, and O (K2) the forward's contiguous output."""
     if layout == "fused":
         qkv = torch.zeros(B, S, H, 3, D, dtype=torch.bfloat16)
         ts = {"q": qkv[..., 0, :], "k": qkv[..., 1, :], "v": qkv[..., 2, :]}
     else:
         ts = {n: torch.zeros(B, S, H, D, dtype=torch.bfloat16)
               for n in ("q", "k", "v")}
-    if kernel == "dkv":
-        ts["do"] = torch.zeros(B, S, H, D, dtype=torch.bfloat16)
+    for name in OPERANDS[kernel][3:]:
+        ts[name] = torch.zeros(B, S, H, D, dtype=torch.bfloat16)
     return ts
 
 
@@ -43,7 +47,7 @@ def _plan(kernel, B, S, H, D, layout="fused", causal=True):
 
 @pytest.mark.parametrize("layout", ["fused", "contiguous"])
 @pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("kernel", ["fwd", "dkv"])
+@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
 def test_maps_address_what_torch_addresses(kernel, D, layout):
     B, S, H = 2, 300, 3
     plan, ts = _plan(kernel, B, S, H, D, layout)
@@ -77,22 +81,22 @@ def _tiles_with_work(S, rows, inner, causal, block_is_keys):
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("S", [2048, 1000, 777, 128, 100, 1])
-@pytest.mark.parametrize("kernel", ["fwd", "dkv"])
+@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
 def test_grid_and_tile_counts(kernel, S, causal):
     B, H, D = 2, 16, 128
     plan, _ = _plan(kernel, B, S, H, D, causal=causal)
     assert plan.grid == (B * H, math.ceil(S / 128)) and plan.threads == 384
-    inner = 128 if kernel == "fwd" else 64
+    inner = 64 if kernel == "dkv" else 128
     assert plan.inner_tiles == _tiles_with_work(S, 128, inner, causal,
                                                 block_is_keys=kernel == "dkv")
 
 
 @pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("kernel", ["fwd", "dkv"])
+@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
 def test_shared_memory_fits_a_block(kernel, D):
     """Room for the resident tiles and two stages of the streamed ones."""
     plan, _ = _plan(kernel, 2, 2048, 16, D)
-    resident = {"fwd": ("q",), "dkv": ("k", "v")}[kernel]
+    resident = RESIDENT[kernel]
     rows_bytes = {n: m.box[1] * D * 2 for n, m in plan.maps.items()}
     need = sum(b if n in resident else 2 * b for n, b in rows_bytes.items())
     assert plan.smem % 1024 == 0
@@ -102,17 +106,22 @@ def test_shared_memory_fits_a_block(kernel, D):
 def test_main_shape_plan():
     """The training shape: fused QKV, B=2, S=2048, H=16, D=128."""
     fwd, _ = _plan("fwd", 2, 2048, 16, 128)
+    dq, _ = _plan("dq", 2, 2048, 16, 128)
     dkv, _ = _plan("dkv", 2, 2048, 16, 128)
-    assert fwd.grid == dkv.grid == (32, 16)
-    assert fwd.maps["q"].strides == (2 * 16 * 384, 2 * 384, 2 * 2048 * 16 * 384)
-    assert dkv.maps["do"].strides == (2 * 16 * 128, 2 * 128, 2 * 2048 * 16 * 128)
-    assert (fwd.inner_tiles, dkv.inner_tiles) == (136, 272)
-    assert (fwd.smem, dkv.smem) == (164864, 134144)
+    assert fwd.grid == dq.grid == dkv.grid == (32, 16)
+    assert fwd.maps["q"].strides == dq.maps["k"].strides == (
+        2 * 16 * 384, 2 * 384, 2 * 2048 * 16 * 384)
+    assert dkv.maps["do"].strides == dq.maps["o"].strides == (
+        2 * 16 * 128, 2 * 128, 2 * 2048 * 16 * 128)
+    assert (fwd.inner_tiles, dq.inner_tiles, dkv.inner_tiles) == (136, 136, 272)
+    # K2: 1,024 alignment + Q, dO and O (3 x 32 KiB) + 2 stages of K and V.
+    assert (fwd.smem, dq.smem, dkv.smem) == (164864, 230400, 134144)
 
 
 @pytest.mark.parametrize("bad", ["row_stride", "head_stride", "batch_stride",
                                  "head_dim_stride", "head_dim"])
-def test_refuses_what_a_tensor_map_cannot_describe(bad):
+@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
+def test_refuses_what_a_tensor_map_cannot_describe(kernel, bad):
     B, S, H, D = 2, 64, 4, 64
     st = (S * H * D, H * D, D, 1)
     shape = (B, S, H, D)
@@ -127,4 +136,4 @@ def test_refuses_what_a_tensor_map_cannot_describe(bad):
     else:
         shape = (B, S, H, 96)
     with pytest.raises(ValueError):
-        FA.launch_plan("fwd", shape, {n: st for n in "qkv"})
+        FA.launch_plan(kernel, shape, {n: st for n in OPERANDS[kernel]})
