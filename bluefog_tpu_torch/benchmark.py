@@ -1,17 +1,23 @@
-"""Throughput benchmark: decentralized TransformerLM training on one device.
+"""Throughput benchmark: decentralized training on one device.
 
-The port of the transformer branch of ``examples/benchmark.py``: synthetic
-tokens from ``--seed`` (each rank its own), next-token cross-entropy against
-``roll(tokens, -1, axis=1)``, SGD with ``lr = 0.0125 * ranks``, ATC or AWC
-neighbor averaging over the static or dynamic one-peer topology, and the
-``--num-warmup-batches`` then ``--num-iters x --num-batches-per-iter``
-protocol.  All ``--ranks`` virtual ranks live on one device and run forward
-and backward one after another, so one rank's activations are live at a
-time; their parameters are rows of one flat buffer (``replicas``).
+The port of ``examples/benchmark.py``: the model by ``--model`` (the ResNet
+family, VGG, LeNet, ViT, or the transformer LM), synthetic data from
+``--seed`` (each rank its own: bf16 images and labels, or tokens with
+next-token targets), cross-entropy, SGD with ``lr = 0.0125 * ranks``,
+neighbor averaging (ATC or AWC, static or dynamic one-peer topology), the
+global average, or none (``--dist-optimizer``), optionally compressed on
+the wire (``--compression``), and the ``--num-warmup-batches`` then
+``--num-iters x --num-batches-per-iter`` protocol.  All ``--ranks`` virtual
+ranks live on one device and run forward and backward one after another, so
+one rank's activations are live at a time; their parameters are rows of one
+flat buffer (``replicas``), laid out in the JAX package's ravel order for
+the image models, and their BN statistics stay rank-local.
 
-    python -m bluefog_tpu_torch.benchmark --flash-attention --atc --dynamic \\
-        --num-layers 24 --embed-dim 2048 --num-heads 16 --seq-len 2048 \\
-        --batch-size 2 --momentum 0 --ranks 4
+    python -m bluefog_tpu_torch.benchmark --model resnet50 --batch-size 64 \\
+        --atc --dynamic --ranks 4
+    python -m bluefog_tpu_torch.benchmark --model transformer \\
+        --flash-attention --atc --dynamic --num-layers 24 --embed-dim 2048 \\
+        --num-heads 16 --seq-len 2048 --batch-size 2 --momentum 0 --ranks 4
 
 Runs on CUDA unless ``--device cpu`` is given.
 """
@@ -27,11 +33,24 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["build_parser", "Trainer", "measure", "consensus_spread",
-           "main"]
+           "main", "MODELS"]
+
+
+MODELS = ["resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
+          "vgg11", "vgg16", "vgg19", "lenet", "vit", "transformer"]
+DIST_OPTIMIZERS = ["neighbor_allreduce", "allreduce", "empty"]
+
+
+def _compression(value: str) -> str:
+    if value in ("none", "bf16") or value.startswith("sparse:"):
+        return value
+    raise argparse.ArgumentTypeError(
+        f"{value!r}: expected none, bf16 or sparse:<frac>")
 
 
 def build_parser():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", default="resnet50", choices=MODELS)
     ap.add_argument("--batch-size", type=int, default=64)
     ap.add_argument("--num-warmup-batches", type=int, default=10)
     ap.add_argument("--num-iters", type=int, default=10)
@@ -41,13 +60,22 @@ def build_parser():
     ap.add_argument("--dynamic", action="store_true",
                     help="dynamic one-peer topology (the phase table of "
                          "ExponentialGraph(ranks))")
+    ap.add_argument("--dist-optimizer", default="neighbor_allreduce",
+                    choices=DIST_OPTIMIZERS)
+    ap.add_argument("--compression", default="none", type=_compression,
+                    help="wire compression of the combine: none, bf16 or "
+                         "sparse:<frac>")
+    ap.add_argument("--image-size", type=int, default=224)
     ap.add_argument("--seq-len", type=int, default=1024)
     ap.add_argument("--flash-attention", action="store_true",
                     help="use the hand-written flash-attention kernels "
                          "instead of dense attention")
-    ap.add_argument("--num-layers", type=int, default=4)
-    ap.add_argument("--embed-dim", type=int, default=512)
-    ap.add_argument("--num-heads", type=int, default=8)
+    ap.add_argument("--num-layers", type=int, default=4,
+                    help="transformer model: number of blocks")
+    ap.add_argument("--embed-dim", type=int, default=512,
+                    help="transformer model: model width")
+    ap.add_argument("--num-heads", type=int, default=8,
+                    help="transformer model: attention heads")
     ap.add_argument("--vocab-size", type=int, default=32000)
     ap.add_argument("--momentum", type=float, default=0.9,
                     help="SGD momentum (0 drops the momentum buffer)")
@@ -59,13 +87,18 @@ def build_parser():
 
 
 @torch.no_grad()
-def consensus_spread(flat: torch.Tensor, chunk: int = 1 << 24) -> float:
-    """Largest deviation of any rank's parameter from the rank mean."""
+def consensus_spread(flat: torch.Tensor, chunk: int = 1 << 24) -> dict:
+    """The ranks' deviation from the rank mean: ``max``, the largest of any
+    parameter, and ``rms``, its root mean square over every rank and
+    parameter (a combine of a share of the columns, as ``sparse:<frac>``,
+    shrinks the rms but may leave the largest deviation where it was)."""
     worst = torch.zeros((), device=flat.device)
+    sq = torch.zeros((), device=flat.device, dtype=torch.float64)
     for cols in flat.split(chunk, dim=1):
-        worst = torch.maximum(
-            worst, (cols - cols.mean(0, keepdim=True)).abs().amax())
-    return float(worst)
+        dev = cols - cols.mean(0, keepdim=True)
+        worst = torch.maximum(worst, dev.abs().amax())
+        sq += dev.square().sum().double()
+    return {"max": float(worst), "rms": float((sq / flat.numel()).sqrt())}
 
 
 def _sync(device: torch.device) -> None:
@@ -73,12 +106,31 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _image_model(args, attn):
+    """``(make_module, (H, W, C), input dtype, classes)`` of an image
+    model, as ``examples/benchmark.py`` builds it."""
+    from bluefog_tpu_torch import models as M
+    size = args.image_size
+    if args.model.startswith(("resnet", "vgg")):
+        cls = getattr(M, args.model.replace("resnet", "ResNet")
+                      .replace("vgg", "VGG"))
+        kw = {"image_size": size} if args.model.startswith("vgg") else {}
+        return (lambda: cls(num_classes=1000, **kw)), (size, size, 3), \
+            torch.bfloat16, 1000
+    if args.model == "lenet":
+        return M.LeNet5, (28, 28, 1), torch.float32, 10
+    return (lambda: M.ViT(num_classes=1000, image_size=size,
+                          attn_impl=attn)), (size, size, 3), torch.bfloat16, \
+        1000
+
+
 class Trainer:
     """The benchmark's training setup: ``ranks`` replicas of the model on
-    one device, their per-rank tokens, and the distributed optimizer."""
+    one device, their per-rank data, and the distributed optimizer."""
 
     def __init__(self, args):
         import bluefog_tpu_torch as bf
+        from bluefog_tpu_torch.models.convert import jax_ravel_order
         from bluefog_tpu_torch.models.transformer import (TransformerConfig,
                                                           TransformerLM)
         from bluefog_tpu_torch.ops.flash_attention import \
@@ -88,24 +140,45 @@ class Trainer:
 
         bf.init(args.ranks, device=args.device)
         self.n, self.device = bf.size(), bf.device()
-        self.cfg = TransformerConfig(
-            vocab_size=args.vocab_size, num_layers=args.num_layers,
-            num_heads=args.num_heads, embed_dim=args.embed_dim,
-            max_seq_len=args.seq_len)
+        if self.device.type == "cuda":
+            torch.backends.cudnn.benchmark = True  # tuned in the warmup
         attn = flash_attention_impl() if args.flash_attention else None
         gen = torch.Generator(device=self.device).manual_seed(args.seed)
-        self.rep = RankReplicas(lambda: TransformerLM(self.cfg, attn),
-                                self.n, self.device,
-                                init=lambda m: m.reset_parameters(gen))
-        self.tokens = torch.randint(0, args.vocab_size,
-                                    (self.n, args.batch_size, args.seq_len),
-                                    generator=gen, device=self.device)
-        self.targets = torch.roll(self.tokens, -1, dims=2)
+        self.image = args.model != "transformer"
+        order = None
+        if self.image:
+            make, hwc, dtype, self.classes = _image_model(args, attn)
+            with torch.device("meta"):
+                order = jax_ravel_order(make())
+            self.inputs = torch.randn((self.n, args.batch_size) + hwc,
+                                      generator=gen, device=self.device
+                                      ).to(dtype)
+            self.targets = torch.randint(0, self.classes,
+                                         (self.n, args.batch_size),
+                                         generator=gen, device=self.device)
+        else:
+            self.cfg = TransformerConfig(
+                vocab_size=args.vocab_size, num_layers=args.num_layers,
+                num_heads=args.num_heads, embed_dim=args.embed_dim,
+                max_seq_len=args.seq_len)
+            self.classes = args.vocab_size
+            make = lambda: TransformerLM(self.cfg, attn)  # noqa: E731
+        self.rep = RankReplicas(make, self.n, self.device,
+                                init=lambda m: m.reset_parameters(gen),
+                                order=order)
+        if not self.image:
+            self.inputs = torch.randint(0, args.vocab_size,
+                                        (self.n, args.batch_size,
+                                         args.seq_len),
+                                        generator=gen, device=self.device)
+            self.targets = torch.roll(self.inputs, -1, dims=2)
         base = torch.optim.SGD([self.rep.flat], lr=0.0125 * self.n,
                                momentum=args.momentum, dampening=0)
         cls = (O.DistributedAdaptThenCombineOptimizer if args.atc
                else O.DistributedAdaptWithCombineOptimizer)
-        self.opt = cls(base, use_dynamic_topology=args.dynamic)
+        self.opt = cls(base, O.CommunicationType[args.dist_optimizer],
+                       use_dynamic_topology=args.dynamic,
+                       compression=args.compression)
 
     def forward_backward(self) -> torch.Tensor:
         """Every rank's forward and backward, one after another; returns
@@ -113,18 +186,20 @@ class Trainer:
         self.rep.zero_grad()
         losses = []
         for r in range(self.n):
-            logits = self.rep.modules[r](self.tokens[r])
-            loss = F.cross_entropy(logits.reshape(-1, self.cfg.vocab_size),
+            logits = self.rep.modules[r](self.inputs[r])
+            loss = F.cross_entropy(logits.reshape(-1, self.classes),
                                    self.targets[r].reshape(-1))
             loss.backward()
             losses.append(loss.detach())
         return torch.stack(losses)
 
 
-def measure(args) -> dict:
-    """Run the benchmark; returns its numbers (rates in tokens/s over all
-    ranks on the one device)."""
-    tr = Trainer(args)
+def measure(args, tr: Trainer = None, quiet: bool = False) -> dict:
+    """Run the benchmark (on ``tr``, or a new ``Trainer(args)``); returns
+    its numbers, rates over all ranks on the one device (img/s for the
+    image models, tokens/s for the LM).  ``quiet`` prints no per-iteration
+    line."""
+    tr = tr or Trainer(args)
     n, dev, rep, opt = tr.n, tr.device, tr.rep, tr.opt
     forward_backward = tr.forward_backward
 
@@ -140,14 +215,18 @@ def measure(args) -> dict:
             opt.adapt()
             before = consensus_spread(rep.flat)
             opt.combine()
-            spread = {"after_adapt": before,
-                      "after_combine": consensus_spread(rep.flat)}
+            after = consensus_spread(rep.flat)
+            spread = {"after_adapt": before["max"],
+                      "after_combine": after["max"],
+                      "rms_after_adapt": before["rms"],
+                      "rms_after_combine": after["rms"]}
         else:
             opt.step()
     _sync(dev)
 
     rates, step_s = [], []
-    tokens_per_batch = n * args.batch_size * args.seq_len
+    unit = "imgs" if tr.image else "tokens"
+    per_batch = n * args.batch_size * (1 if tr.image else args.seq_len)
     for i in range(args.num_iters):
         t0 = time.perf_counter()
         for _ in range(args.num_batches_per_iter):
@@ -155,18 +234,21 @@ def measure(args) -> dict:
             opt.step()
         _sync(dev)
         dt = time.perf_counter() - t0
-        rates.append(tokens_per_batch * args.num_batches_per_iter / dt)
+        rates.append(per_batch * args.num_batches_per_iter / dt)
         step_s.append(dt / args.num_batches_per_iter)
-        print(f"iter {i}: {rates[-1]:.1f} tokens/sec across {n} ranks "
-              f"on {dev}", flush=True)
+        if not quiet:
+            print(f"iter {i}: {rates[-1]:.1f} {unit}/sec across {n} ranks "
+                  f"on {dev}", flush=True)
 
     out = {
+        "model": args.model,
         "device": str(dev),
         "ranks": n,
         "params_per_rank": rep.numel,
         "step_ms": 1e3 * float(np.mean(step_s)),
-        "tokens_per_s": float(np.mean(rates)),
-        "tokens_per_s_ci": 1.96 * float(np.std(rates)),
+        f"{unit}_per_s": float(np.mean(rates)),
+        f"{unit}_per_s_ci": 1.96 * float(np.std(rates)),
+        "rates": rates,
         "losses": [float(x) for x in losses.cpu()],
         "spread": spread,
         "steps": opt.step_count,
@@ -179,9 +261,11 @@ def measure(args) -> dict:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     res = measure(args)
-    print(f"total tokens/sec: {res['tokens_per_s']:.1f} +- "
-          f"{res['tokens_per_s_ci']:.1f} ({res['ranks']} ranks on "
-          f"{res['device']}, step {res['step_ms']:.1f} ms)")
+    unit = "tokens" if args.model == "transformer" else "imgs"
+    print(f"total {unit}/sec: {res[unit + '_per_s']:.1f} +- "
+          f"{res[unit + '_per_s_ci']:.1f} ({res['ranks']} ranks on "
+          f"{res['device']}, model={args.model}, step "
+          f"{res['step_ms']:.1f} ms)")
     print(json.dumps(res))
 
 

@@ -1,24 +1,105 @@
-"""Carry TransformerLM weights from the JAX package's flax tree to the port.
+"""Carry weights from the JAX package's flax trees to the port's models.
 
-The input is the flax ``params`` tree with numpy leaves (no JAX import
-here); the output is a ``state_dict`` for
-``bluefog_tpu_torch.models.transformer.TransformerLM``.  A flax ``Dense``
-kernel is ``(in, out)``, so ``Linear.weight`` is its transpose; ``Embed``
-tables and ``RMSNorm`` scales copy as they are.
+The input is a flax variables tree with numpy leaves (no JAX import here);
+the output is a ``state_dict``.  A flax conv kernel is ``(kh, kw, in, out)``
+(HWIO), the port's ``(out, in, kh, kw)``; a flax ``Dense`` kernel is
+``(in, out)``, ``nn.Linear.weight`` its transpose; BN ``scale``/``bias`` are
+``weight``/``bias`` and its ``batch_stats`` ``mean``/``var`` the buffers
+``running_mean``/``running_var``.  Module names are the flax tree's.
+
+``jax_ravel_order`` gives the order, and the layout, in which the JAX
+package ravels a model's parameters into one buffer: ``jax.tree_util``
+flattens dicts by sorted key (``BottleneckBlock_10`` before
+``BottleneckBlock_2``) and each leaf in its own layout.  ``RankReplicas``
+takes it as ``order``, so that a column of the port's flat buffer is the same
+coordinate as in the JAX package's (the rotating block of
+``compression="sparse:<frac>"`` depends on it).
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
-__all__ = ["transformer_params_from_jax"]
+from bluefog_tpu_torch.models.layers import BatchNorm, Conv
+from bluefog_tpu_torch.models.transformer import RMSNorm
+
+__all__ = ["transformer_params_from_jax", "params_from_jax",
+           "jax_ravel_order", "flax_leaf"]
+
+# A torch tensor's dims permuted by these is the flax leaf's layout.
+_HWIO = (2, 3, 1, 0)
+_IN_OUT = (1, 0)
 
 
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def flax_leaf(model: nn.Module, name: str
+              ) -> Tuple[str, Tuple[str, ...], Optional[Tuple[int, ...]]]:
+    """``(collection, path, dims)`` of the flax leaf behind the port's
+    parameter or buffer ``name``: ``collection`` is ``"params"`` or
+    ``"batch_stats"``, ``path`` the keys in that tree, and ``dims`` the
+    permutation that takes the torch tensor to the flax layout (None: the
+    same layout)."""
+    owner_name, _, leaf = name.rpartition(".")
+    owner = model.get_submodule(owner_name) if owner_name else model
+    parts = owner_name.split(".") if owner_name else []
+    path: List[str] = []
+    for i, p in enumerate(parts):   # TransformerLM's blocks.{i} is block_{i}
+        if p.isdigit() and i and parts[i - 1] == "blocks":
+            path[-1] = f"block_{p}"
+        else:
+            path.append(p)
+    coll, dims = "params", None
+    if isinstance(owner, Conv) and leaf == "weight":
+        leaf, dims = "kernel", _HWIO
+    elif isinstance(owner, nn.Linear) and leaf == "weight":
+        leaf, dims = "kernel", _IN_OUT
+    elif isinstance(owner, BatchNorm):
+        coll = "batch_stats" if leaf.startswith("running_") else "params"
+        leaf = {"weight": "scale", "bias": "bias", "running_mean": "mean",
+                "running_var": "var"}[leaf]
+    elif isinstance(owner, nn.Embedding):
+        leaf = "embedding"
+    elif not isinstance(owner, (Conv, nn.Linear, RMSNorm)) and owner_name:
+        raise ValueError(f"no flax counterpart for {name} "
+                         f"({type(owner).__name__})")
+    return coll, tuple(path) + (leaf,), dims
+
+
+def jax_ravel_order(model: nn.Module) -> list:
+    """``[(name, dims), ...]``: the model's parameters in the order the JAX
+    package ravels them, each with the permutation of its dims that gives
+    the flax layout.  Works on a model on the meta device."""
+    leaves = []
+    for name, _ in model.named_parameters():
+        _, path, dims = flax_leaf(model, name)
+        leaves.append((path, name, dims))
+    return [(name, dims) for _, name, dims in sorted(leaves)]
+
+
+def params_from_jax(model: nn.Module, variables: Mapping) -> dict:
+    """``state_dict`` of ``model`` (parameters and buffers) from flax
+    ``variables`` (``{"params": ..., "batch_stats": ...}``, or the params
+    tree alone for a model without BN) of numpy arrays."""
+    if "params" not in variables:
+        variables = {"params": variables}
+    sd = {}
+    for name in model.state_dict():
+        coll, path, dims = flax_leaf(model, name)
+        node = variables[coll]
+        for key in path:
+            node = node[key]
+        a = _t(node)
+        if dims is not None:
+            a = a.permute(*np.argsort(dims).tolist()).contiguous()
+        sd[name] = a
+    return sd
 
 
 def transformer_params_from_jax(params: Mapping) -> dict:

@@ -8,16 +8,20 @@ functional.py`` over rank-major tensors on one device:
 
 ``base`` is a ``torch.optim.Optimizer`` over rank-major parameters (leading
 dim ``n``): its update is elementwise, so one ``base.step()`` is every
-rank's local step.  ``combine`` is static or dynamic neighbor averaging, or
-identity ("empty").  The combine updates the parameters in place, over
+rank's local step.  ``combine`` is the global average, static or dynamic
+neighbor averaging, or identity ("empty"); ``compress_combiner`` sends its
+payload compressed.  The combine updates the parameters in place, over
 column chunks of the flat buffer, so its extra memory is a few chunk-sized
-temporaries rather than copies of the whole parameter set; the combine is
-elementwise across columns, so chunking changes no value.
+temporaries rather than copies of the whole parameter set; a combine that
+is elementwise across columns changes no value by chunking.  The
+``sparse:<frac>`` combine is not (its block is a share of the whole row and
+rotates over it), so it runs on the whole row.
 """
 
 from __future__ import annotations
 
 import enum
+import math
 from typing import Callable, List, Optional
 
 import torch
@@ -25,14 +29,15 @@ import torch
 from bluefog_tpu_torch.ops import collective as C
 from bluefog_tpu_torch.ops.schedule import DynamicSchedule, StaticSchedule
 
-__all__ = ["CommunicationType", "make_combiner", "awc_step", "atc_step"]
+__all__ = ["CommunicationType", "make_combiner", "compress_combiner",
+           "awc_step", "atc_step"]
 
 # Columns per chunk of the in-place combine: 16M f32 columns is 64 MiB a row.
 COMBINE_CHUNK = 1 << 24
 
 
 class CommunicationType(enum.Enum):
-    """The JAX package's communication types; this slice ports
+    """The JAX package's communication types; the port has ``allreduce``,
     ``neighbor_allreduce`` and ``empty``."""
     allreduce = "allreduce"
     neighbor_allreduce = "neighbor.allreduce"
@@ -53,32 +58,42 @@ def make_combiner(comm: CommunicationType, *,
             return x
         _empty.is_identity = True
         return _empty
+    if comm == CommunicationType.allreduce:
+        def _ar(x, step=None):
+            return C.allreduce(x)
+        _ar.is_allreduce = True  # replica-identical: compress without residual
+        return _ar
     if comm == CommunicationType.neighbor_allreduce:
         if dyn_sched is not None:
             def _dyn(x, step):
                 return C.dynamic_neighbor_allreduce(x, step, dyn_sched)
+            # Lets compress_combiner run the rotating-block sparse exchange
+            # over the same phases.
+            _dyn._sparse_dyn_sched = dyn_sched
             return _dyn
         if sched is None:
             raise ValueError("static neighbor_allreduce needs a schedule")
 
         def _nbr(x, step=None):
             return C.neighbor_allreduce(x, sched)
+        _nbr._sparse_sched = sched
         return _nbr
     raise NotImplementedError(
         f"communication type {comm} is not ported yet (ROADMAP.md Queue 1)")
 
 
 def _fused_apply(fn, params: List[torch.Tensor],
-                 chunk: int = COMBINE_CHUNK) -> None:
+                 chunk: Optional[int] = COMBINE_CHUNK) -> None:
     """Apply ``fn`` (rank-major ``(n, m)`` -> ``(n, m)``) to the parameters
-    as one flat buffer, in place.  A single contiguous rank-major tensor is
-    its own buffer; several are raveled into one and written back."""
+    as one flat buffer, in place, ``chunk`` columns at a time (None: the
+    whole row at once).  A single contiguous rank-major tensor is its own
+    buffer; several are raveled into one and written back."""
     n = params[0].shape[0]
     if len(params) == 1 and params[0].is_contiguous():
         flat = params[0].view(n, -1)
     else:
         flat = torch.cat([p.reshape(n, -1) for p in params], dim=1)
-    for cols in flat.split(chunk, dim=1):
+    for cols in flat.split(chunk or flat.shape[1], dim=1):
         cols.copy_(fn(cols))
     if flat.data_ptr() != params[0].data_ptr():
         off = 0
@@ -99,10 +114,107 @@ def _tree_combine(params: List[torch.Tensor], combine: Combiner, step: int,
         return
     fn = lambda x: combine(x, step=step)  # noqa: E731
     if fuse:
-        _fused_apply(fn, params)
+        _fused_apply(fn, params, None if getattr(combine, "whole_row", False)
+                     else COMBINE_CHUNK)
     else:
         for p in params:
             p.copy_(fn(p))
+
+
+def _sparse_fraction(compression: str) -> float:
+    if compression.startswith("topk"):
+        raise ValueError(
+            "magnitude-only top-k gossip does not converge under the "
+            "stateless per-round residual (never-picked coordinates "
+            "stay unmixed forever); use compression='sparse:<frac>' — "
+            "a step-rotating aligned block that sweeps every "
+            "coordinate and reaches EXACT consensus")
+    if ":" not in compression:
+        raise ValueError(
+            f"malformed {compression!r}: use 'sparse:<frac>' "
+            "(e.g. 'sparse:0.25')")
+    try:
+        frac = float(compression.split(":", 1)[1])
+    except ValueError:
+        raise ValueError(
+            f"malformed {compression!r}: the fraction must be a "
+            "float in (0, 1], e.g. 'sparse:0.25'") from None
+    if not 0.0 < frac <= 1.0:
+        raise ValueError(f"sparse fraction must be in (0, 1], got {frac}")
+    return frac
+
+
+def compress_combiner(combine: Combiner, compression: str, *,
+                      residual: bool = True,
+                      steps_per_comm: int = 1) -> Combiner:
+    """Wrap a combiner so that its payload is sent compressed, as
+    ``bluefog_tpu.optim.functional.compress_combiner``.
+
+    ``"bf16"`` combines the bfloat16 cast of the parameters and casts the
+    result back; with ``residual`` (the parameter-consensus orders) it adds
+    back each rank's own rounding ``x - q(x)``, so a rank's float32 master
+    weights are never truncated by its own round trip.  ``residual=False``
+    keeps an allreduce replica-identical.
+
+    ``"sparse:<frac>"`` sends ``kk = ceil(frac * P)`` entries of each rank's
+    ``P``-column row per round: a block of consecutive columns, the same on
+    every rank, that starts at ``(round * kk) % P`` and wraps around the
+    row, where ``round = step // steps_per_comm`` counts the combines.  The
+    residual ``x - q`` keeps the unsent columns as they are.  The block is a
+    share of the whole row, so the wrapped combine is marked ``whole_row``
+    and takes the row unchunked; the columns must be in the JAX package's
+    ravel order (``models.convert.jax_ravel_order``) for the block to cover
+    the same parameters as there.  ``"none"`` returns ``combine``."""
+    if compression in (None, "none"):
+        return combine
+    if isinstance(compression, str) and compression.startswith(("sparse",
+                                                                "topk")):
+        frac = _sparse_fraction(compression)
+        if getattr(combine, "is_identity", False):
+            return combine  # empty communication: string validated above
+        sched = getattr(combine, "_sparse_sched", None)
+        dyn_sched = getattr(combine, "_sparse_dyn_sched", None)
+        if sched is None and dyn_sched is None:
+            raise ValueError(
+                "compression='sparse:<frac>' needs a (static or dynamic) "
+                "neighbor_allreduce combiner (the sparse exchange rides "
+                "the compiled edge schedule); use 'bf16' for the other "
+                "communication types")
+        if not residual:
+            raise ValueError(
+                "sparse compression requires residual error feedback "
+                "(decentralized orders); it cannot keep an allreduce "
+                "replica-identical")
+
+        def wrapped_sparse(x, step=None):
+            size = x[0].numel()
+            kk = max(1, math.ceil(frac * size))
+            rnd_idx = (0 if step is None else int(step)) // max(
+                1, int(steps_per_comm))
+            rot = (torch.arange(kk, device=x.device) + rnd_idx * kk) % size
+            if sched is not None:
+                out, q = C.sparse_neighbor_allreduce(
+                    x, sched, indices=rot, return_sent=True)
+            else:
+                out, q = C.dynamic_sparse_neighbor_allreduce(
+                    x, 0 if step is None else step, dyn_sched, indices=rot,
+                    return_sent=True)
+            return out + (x - q)
+        wrapped_sparse.whole_row = True
+        return wrapped_sparse
+    if compression != "bf16":
+        raise ValueError(f"unknown compression {compression!r}; "
+                         "expected 'none', 'bf16' or 'sparse:<frac>'")
+    if getattr(combine, "is_identity", False):
+        return combine  # keep _tree_combine's identity fast path
+
+    def wrapped(x, step=None):
+        q = x.to(torch.bfloat16)
+        out = combine(q, step=step).to(x.dtype)
+        if residual:
+            out = out + (x - q.to(x.dtype))
+        return out
+    return wrapped
 
 
 def awc_step(base: torch.optim.Optimizer, combine: Combiner,

@@ -40,14 +40,17 @@ class DistributedOptimizer:
     Parameters
     ----------
     base : torch.optim.Optimizer over rank-major parameters.
-    communication_type : CommunicationType (``neighbor_allreduce`` or
-        ``empty`` in this slice).
+    communication_type : CommunicationType (``allreduce``,
+        ``neighbor_allreduce`` or ``empty``).
     order : "awc" | "atc".
     num_steps_per_communication : communicate every J-th step.
     use_dynamic_topology : cycle the one-peer phase table of the active
         topology (or ``phases`` if given) by step index.
     phases : explicit list of ``topology.DynamicPhase`` for dynamic mode.
     fusion : combine all parameters as one flat buffer.
+    compression : ``"none"``, ``"bf16"`` or ``"sparse:<frac>"``: the
+        combine's payload compressed (``functional.compress_combiner``),
+        with the difference residual except under ``allreduce``.
     """
 
     def __init__(self, base: torch.optim.Optimizer,
@@ -55,9 +58,14 @@ class DistributedOptimizer:
                  CommunicationType.neighbor_allreduce,
                  *, order: str = "awc", num_steps_per_communication: int = 1,
                  use_dynamic_topology: bool = False, phases=None,
-                 fusion: bool = True):
+                 fusion: bool = True, compression: str = "none"):
         if isinstance(communication_type, str):
             communication_type = CommunicationType(communication_type)
+        if compression not in ("none", "bf16") and not (
+                isinstance(compression, str)
+                and compression.startswith(("sparse", "topk"))):
+            raise ValueError(f"unknown compression {compression!r}; "
+                             "expected 'none', 'bf16' or 'sparse:<frac>'")
         if order not in ("awc", "atc"):
             raise NotImplementedError(
                 f"order {order!r} is not ported yet (ROADMAP.md Queue 1); "
@@ -71,6 +79,7 @@ class DistributedOptimizer:
         self.use_dynamic_topology = use_dynamic_topology
         self.phases = phases
         self.fusion = fusion
+        self.compression = compression
         self.step_count = 0
 
     @property
@@ -79,13 +88,18 @@ class DistributedOptimizer:
 
     def _combiner(self):
         if self.communication_type != CommunicationType.neighbor_allreduce:
-            return F.make_combiner(self.communication_type)
-        if self.use_dynamic_topology:
-            return F.make_combiner(
+            combine = F.make_combiner(self.communication_type)
+        elif self.use_dynamic_topology:
+            combine = F.make_combiner(
                 self.communication_type,
                 dyn_sched=basics.dynamic_schedule(self.phases))
-        return F.make_combiner(self.communication_type,
-                               sched=basics.static_schedule())
+        else:
+            combine = F.make_combiner(self.communication_type,
+                                      sched=basics.static_schedule())
+        return F.compress_combiner(
+            combine, self.compression,
+            residual=self.communication_type != CommunicationType.allreduce,
+            steps_per_comm=self.num_steps_per_communication)
 
     def _check_params(self):
         n = basics.size()

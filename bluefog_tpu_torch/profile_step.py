@@ -1,8 +1,10 @@
 """Where one training step's time goes on the card.
 
-    python -m bluefog_tpu_torch.profile_step --flash-attention --atc \\
-        --dynamic --num-layers 24 --embed-dim 2048 --num-heads 16 \\
-        --seq-len 2048 --batch-size 2 --momentum 0 --ranks 4 \\
+    python -m bluefog_tpu_torch.profile_step --model resnet50 --atc \\
+        --dynamic --batch-size 64 --ranks 4 --num-warmup-batches 2
+    python -m bluefog_tpu_torch.profile_step --model transformer \\
+        --flash-attention --atc --dynamic --num-layers 24 --embed-dim 2048 \\
+        --num-heads 16 --seq-len 2048 --batch-size 2 --momentum 0 --ranks 4 \\
         --num-warmup-batches 1
 
 Takes the benchmark's flags and builds its ``Trainer``; after the warmup
@@ -29,6 +31,12 @@ def kernel_family(name: str) -> str:
     low = name.lower()
     if "flash_" in low:
         return "flash attention (K1-K3)"
+    if "batch_norm" in low or "bn_fw" in low or "bn_bw" in low:
+        return "batch norm"
+    # Before the matmul match: cuDNN's convolutions are implicit GEMMs
+    # whose names also hold "sm90_", "xmma" or "gemm".
+    if any(s in low for s in ("fprop", "dgrad", "wgrad", "conv", "cudnn")):
+        return "convolution (cuDNN)"
     if any(s in low for s in ("gemm", "cutlass", "nvjet", "xmma", "sm90_")):
         return "matmul (cuBLAS)"
     if "reduce" in low or "softmax" in low:
@@ -81,6 +89,7 @@ def main(argv=None):
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
+        "model": args.model,
         "phases": phases,
         "profiled_step_wall_ms": wall_ms,
         "kernel_busy_ms": busy_ms,

@@ -29,16 +29,43 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    by ``max |kernel - twin| / (|twin| + rms(twin))`` (``ELEM_TOL``), which
    sees an error confined to a few rows; the lse by its largest absolute
    error (``LSE_TOL``).
+   Case ``vit`` (timed): ViT-S/16's shape, B=64, S=197, H=6, D=64,
+   non-causal.
 4. ``reference`` — a small TransformerLM on the card: logits and gradients
    through the kernels against the same model with dense attention, by
    relative error (logits, and each parameter's gradient).
-5. ``train``    — ``bluefog_tpu_torch.benchmark``: TransformerLM 24 layers,
+5. ``resnet_reference`` — the port's ResNet-18 on the card at 64x64, batch
+   4, against the same weights on the CPU in float32 (the zero-initialised
+   last BN scale of each block set to 0.2, so that no branch is idle and
+   every parameter has a gradient): on the card in float32 (TF32 off)
+   the logits, every parameter's gradient and the BN running statistics
+   after the train-mode forward, by relative error; in bfloat16 (the
+   training dtype) the logits and the running statistics.  The bf16
+   gradients are reported, not limited: at this init bf16 itself moves the
+   early layers' gradients by tens of percent (PERF.md).
+6. ``train``    — ``bluefog_tpu_torch.benchmark``: TransformerLM 24 layers,
    width 2048, 16 heads, seq 2048, batch 2, vocab 32000, SGD momentum 0,
    4 virtual ranks on the card, ATC over the dynamic one-peer topology,
    1 warmup + 3 timed steps.  Launch counts of K1-K3 must equal
    layers x ranks x steps.
-6. ``{"kernels": [...]}``, then the ``nvidia-smi`` line, then the last line
-   ``{"ok": true, "device": {...}}``.
+7. ``resnet50`` — the benchmark with ``--model resnet50`` at 224x224, batch
+   64 per rank, 4 ranks, ATC over the dynamic topology, momentum 0.9,
+   2 warmup + 3 timed steps: img/s, step ms, peak memory, the spread.
+   Checks: finite losses, the step count, the combine shrinks the spread,
+   the BN running statistics differ between ranks and lie outside
+   ``flat``, and ``flat`` has 25,557,032 columns.
+8. ``resnet50_compression`` — the same under ``bf16`` and ``sparse:0.25``,
+   1 warmup + 2 timed steps each, with the same checks, but on the rms
+   deviation: ``sparse`` combines a quarter of the columns, and the
+   ``bf16`` combine's own rounding (up to half a bf16 ulp, 0.002 at 1.0)
+   is larger than the first step's largest deviation (0.0012 on the card),
+   so neither need shrink the largest one.
+9. ``vit``      — ViT-S/16 at 224x224 through the kernels, batch 64, 4
+   ranks, 1 warmup + 2 timed steps; K1-K3 launches must equal 12 layers x
+   ranks x steps; and a 2-layer ViT's logits and gradients through the
+   kernels against dense attention, as in ``reference``.
+10. ``{"kernels": [...]}`` (launches from the ``train`` phase), then the
+   ``nvidia-smi`` line, then the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a GPU or outside the repository.
 """
@@ -62,6 +89,8 @@ LSE_TOL = 1e-4               # K1 lse vs twin: max |err| (f32, |lse| ~ 8)
 REF_LOGITS_TOL = 2e-2        # flash vs dense model, both bf16: logits
 REF_GRAD_TOL = 5e-2          # and each parameter's gradient
 LAYERS = 24
+RESNET50_PARAMS = 25557032
+VIT_LAYERS = 12
 SEED = 0                     # inputs and weights are drawn from it
 SOURCE = "bluefog_tpu_torch/csrc/flash_attention.cu"
 KERNELS = {
@@ -241,33 +270,20 @@ def check_kernels(B, S, H, D, causal, seed, timed, repeat=False):
     return res
 
 
-def check_reference(seed):
-    """A small model through the kernels against dense attention."""
+def flash_vs_dense(dense, flash, inputs, targets, logits_shape):
+    """One model with dense attention and the same weights through K1-K3:
+    logits and every parameter's gradient, by relative error."""
     import torch
     import torch.nn.functional as F
-
-    from bluefog_tpu_torch.models.transformer import (TransformerConfig,
-                                                      TransformerLM)
-    from bluefog_tpu_torch.ops.flash_attention import flash_attention_impl
-
-    dev = torch.device("cuda")
-    cfg = TransformerConfig(vocab_size=512, num_layers=2, num_heads=2,
-                            embed_dim=256, max_seq_len=256)
-    g = torch.Generator(device=dev).manual_seed(seed)
-    dense = TransformerLM(cfg).to(dev)
-    dense.reset_parameters(g)
-    flash = TransformerLM(cfg, flash_attention_impl()).to(dev)
     flash.load_state_dict(dense.state_dict())
-    tokens = torch.randint(0, cfg.vocab_size, (2, 256), generator=g, device=dev)
-    out = {}
-    grads = {}
+    out, grads = {}, {}
     for name, model in (("dense", dense), ("flash", flash)):
-        logits = model(tokens)
-        require(logits.shape == (2, 256, cfg.vocab_size),
+        logits = model(inputs)
+        require(logits.shape == logits_shape,
                 f"{name} logits shape {tuple(logits.shape)}")
         require(bool(torch.isfinite(logits).all()), f"{name} logits finite")
-        loss = F.cross_entropy(logits.reshape(-1, cfg.vocab_size),
-                               torch.roll(tokens, -1, 1).reshape(-1))
+        loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               targets.reshape(-1))
         loss.backward()
         out[name] = logits.detach()
         grads[name] = {k: p.grad for k, p in model.named_parameters()}
@@ -284,6 +300,132 @@ def check_reference(seed):
             "grad_rel_err_worst_param": worst,
             "logits_max_abs_err": float((out["flash"] - out["dense"]).abs().max()),
             "tol": {"logits": REF_LOGITS_TOL, "grad": REF_GRAD_TOL}}
+
+
+def check_reference(seed):
+    """A small LM through the kernels against dense attention."""
+    import torch
+
+    from bluefog_tpu_torch.models.transformer import (TransformerConfig,
+                                                      TransformerLM)
+    from bluefog_tpu_torch.ops.flash_attention import flash_attention_impl
+
+    dev = torch.device("cuda")
+    cfg = TransformerConfig(vocab_size=512, num_layers=2, num_heads=2,
+                            embed_dim=256, max_seq_len=256)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dense = TransformerLM(cfg).to(dev)
+    dense.reset_parameters(g)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 256), generator=g, device=dev)
+    return flash_vs_dense(dense, TransformerLM(cfg, flash_attention_impl()).to(dev),
+                          tokens, torch.roll(tokens, -1, 1),
+                          (2, 256, cfg.vocab_size))
+
+
+def check_vit_reference(seed):
+    """A 2-layer ViT (S=65, D=64, non-causal) through the kernels against
+    dense attention."""
+    import torch
+
+    from bluefog_tpu_torch.models import ViT
+    from bluefog_tpu_torch.ops.flash_attention import flash_attention_impl
+
+    dev = torch.device("cuda")
+    kw = dict(image_size=64, patch_size=8, embed_dim=128, num_layers=2,
+              num_heads=2)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dense = ViT(**kw).to(dev)
+    dense.reset_parameters(g)
+    images = torch.randn(4, 64, 64, 3, generator=g, device=dev).bfloat16()
+    labels = torch.randint(0, 1000, (4,), generator=g, device=dev)
+    return flash_vs_dense(dense, ViT(attn_impl=flash_attention_impl(), **kw).to(dev),
+                          images, labels, (4, 1000))
+
+
+def check_resnet_reference(seed):
+    """ResNet-18 on the card against the same weights on the CPU in f32."""
+    import torch
+    import torch.nn.functional as F
+
+    from bluefog_tpu_torch.models import ResNet18
+    from bluefog_tpu_torch.models.layers import BatchNorm
+
+    g = torch.Generator().manual_seed(seed)
+    ref = ResNet18(dtype=torch.float32)
+    ref.reset_parameters(g)
+    with torch.no_grad():
+        for mod in ref.modules():
+            if isinstance(mod, BatchNorm) and mod.zero_scale:
+                mod.weight.fill_(0.2)
+    init = {k: v.clone() for k, v in ref.state_dict().items()}
+    images = torch.randn(4, 64, 64, 3, generator=g).bfloat16()
+    labels = torch.randint(0, 1000, (4,), generator=g)
+
+    def run(model, x, y):
+        logits = model(x)
+        F.cross_entropy(logits, y).backward()
+        return (logits.detach().float().cpu(),
+                {k: p.grad.float().cpu() for k, p in model.named_parameters()},
+                {k: b.float().cpu() for k, b in model.named_buffers()})
+
+    want = run(ref, images.float(), labels)
+    out = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        card = ResNet18(dtype=dtype).cuda()
+        card.load_state_dict(init)
+        logits, grads, stats = run(card, images.cuda().to(dtype), labels.cuda())
+        grad_err = {k: rel_err(g, want[1][k]) for k, g in grads.items()}
+        stat_err = {k: rel_err(b, want[2][k]) for k, b in stats.items()}
+        worst, worst_stat = (max(e, key=e.get) for e in (grad_err, stat_err))
+        res = {"logits_rel_err": rel_err(logits, want[0]),
+               "grad_rel_err": grad_err[worst], "grad_rel_err_worst_param": worst,
+               "stats_rel_err": stat_err[worst_stat],
+               "stats_rel_err_worst": worst_stat}
+        require(math.isfinite(res["grad_rel_err"]), f"{name} gradients finite")
+        require(res["logits_rel_err"] <= REF_LOGITS_TOL,
+                f"{name} logits differ by {res['logits_rel_err']} over "
+                f"{REF_LOGITS_TOL}")
+        require(res["stats_rel_err"] <= REF_LOGITS_TOL,
+                f"{name} BN statistic {worst_stat} differs by "
+                f"{res['stats_rel_err']} over {REF_LOGITS_TOL}")
+        if dtype == torch.float32:
+            require(res["grad_rel_err"] <= REF_GRAD_TOL,
+                    f"f32 gradient of {worst} differs by "
+                    f"{res['grad_rel_err']} over {REF_GRAD_TOL}")
+        out[name] = res
+    out["tol"] = {"logits": REF_LOGITS_TOL, "grad_f32": REF_GRAD_TOL,
+                  "stats": REF_LOGITS_TOL}
+    return out
+
+
+def image_phase(benchmark, argv, checks_spread_by="max"):
+    """One benchmark run of an image model; the common checks."""
+    import torch
+    args = benchmark.build_parser().parse_args(argv + ["--seed", str(SEED)])
+    tr = benchmark.Trainer(args)
+    res = benchmark.measure(args, tr)
+    steps = args.num_warmup_batches + args.num_iters * args.num_batches_per_iter
+    require(all(math.isfinite(x) for x in res["losses"]),
+            f"finite losses {res['losses']}")
+    require(res["steps"] == steps, f"{res['steps']} steps, expected {steps}")
+    sp = res["spread"]
+    key = "after_combine" if checks_spread_by == "max" else "rms_after_combine"
+    require(sp[key] < sp[key.replace("combine", "adapt")],
+            f"the combine shrinks the spread {sp}")
+    flat_ptr = tr.rep.flat.untyped_storage().data_ptr()
+    bufs = [tr.rep.rank_buffers(r) for r in range(tr.n)]
+    if bufs[0]:
+        require(all(b.untyped_storage().data_ptr() != flat_ptr
+                    for rank in bufs for b in rank.values()),
+                "BN statistics lie outside flat")
+        differ = max(float((bufs[0][k] - bufs[1][k]).abs().max())
+                     for k in bufs[0])
+        require(differ > 0, "BN statistics differ between ranks")
+        res["bn_stats_rank_diff"] = differ
+    res["steps_expected"] = steps
+    del tr
+    torch.cuda.empty_cache()
+    return res
 
 
 def main():
@@ -323,13 +465,14 @@ def main():
     require(not serialized, f"ptxas serialized wgmma: {serialized}")
 
     main_res = None
-    # (case, B, S, H, D, causal, timed): the training shape, ragged S,
-    # non-causal; checked, not timed: S shorter than one tile and the head
-    # dim 64 instantiation.
+    # (case, B, S, H, D, causal, timed): the LM's training shape, ragged S,
+    # non-causal, ViT-S/16's shape; checked, not timed: S shorter than one
+    # tile and the head dim 64 instantiation.
     for case, B, S, H, D, causal, timed in (
             ("main", 2, 2048, 16, 128, True, True),
             ("ragged", 2, 1000, 16, 128, True, True),
             ("noncausal", 2, 2048, 16, 128, False, True),
+            ("vit", 64, 197, 6, 64, False, True),
             ("short", 2, 100, 16, 128, True, False),
             ("d64", 2, 512, 8, 64, True, False),
             ("d64-ragged-noncausal", 1, 777, 4, 64, False, False)):
@@ -345,8 +488,10 @@ def main():
             main_res = res
 
     emit("reference", **check_reference(SEED))
+    emit("resnet_reference", **check_resnet_reference(SEED))
 
     args = benchmark.build_parser().parse_args([
+        "--model", "transformer",
         "--num-layers", str(LAYERS), "--embed-dim", "2048",
         "--num-heads", "16", "--seq-len", "2048", "--batch-size", "2",
         "--vocab-size", "32000", "--momentum", "0", "--ranks", "4",
@@ -373,6 +518,45 @@ def main():
             f"launches {launches}, expected {expected} of each")
     require(res["spread"]["after_combine"] < res["spread"]["after_adapt"],
             f"the combine shrinks the spread {res['spread']}")
+    torch.cuda.empty_cache()
+
+    image = ["--model", "resnet50", "--batch-size", "64", "--ranks", "4",
+             "--atc", "--dynamic", "--momentum", "0.9"]
+    res = image_phase(benchmark, image + [
+        "--num-warmup-batches", "2", "--num-iters", "3",
+        "--num-batches-per-iter", "1"])
+    emit("resnet50", config={"model": "resnet50", "image_size": 224,
+                             "batch_size": 64, "ranks": 4, "momentum": 0.9,
+                             "order": "atc", "compression": "none"}, **res)
+    require(res["params_per_rank"] == RESNET50_PARAMS,
+            f"flat has {res['params_per_rank']} columns, expected "
+            f"{RESNET50_PARAMS}")
+    for comp in ("bf16", "sparse:0.25"):
+        res = image_phase(benchmark, image + [
+            "--compression", comp, "--num-warmup-batches", "1",
+            "--num-iters", "2", "--num-batches-per-iter", "1"],
+            checks_spread_by="rms")
+        require(res["params_per_rank"] == RESNET50_PARAMS,
+                f"flat has {res['params_per_rank']} columns")
+        emit("resnet50_compression", compression=comp, **res)
+
+    FA.reset_launch_counts()
+    vit_args = ["--model", "vit", "--batch-size", "64", "--ranks", "4",
+                "--atc", "--dynamic", "--momentum", "0.9", "--flash-attention",
+                "--num-warmup-batches", "1", "--num-iters", "2",
+                "--num-batches-per-iter", "1"]
+    res = image_phase(benchmark, vit_args)
+    vit_launches = {"K1": FA.flash_fwd_cuda.launches,
+                    "K2": FA.flash_dq_cuda.launches,
+                    "K3": FA.flash_dkv_cuda.launches}
+    vit_expected = VIT_LAYERS * 4 * res["steps_expected"]
+    require(all(c == vit_expected for c in vit_launches.values()),
+            f"ViT launches {vit_launches}, expected {vit_expected} of each")
+    emit("vit", config={"model": "vit (ViT-S/16)", "image_size": 224,
+                        "batch_size": 64, "ranks": 4, "seq_len": 197,
+                        "heads": 6, "head_dim": 64},
+         launches=vit_launches, expected_launches=vit_expected,
+         reference=check_vit_reference(SEED), **res)
 
     kernels = []
     for kname, (fn, replaces) in KERNELS.items():

@@ -114,3 +114,18 @@ def test_cache_path_not_ported():
     tm = _port_model(torch.float32)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tm(torch.zeros(1, 1, dtype=torch.long), cache=[])
+
+
+def test_params_from_jax_agrees_with_the_lm_converter():
+    """``convert.params_from_jax``, which carries every model of the port,
+    maps the LM's tree (``block_{i}`` to ``blocks.{i}``) as
+    ``transformer_params_from_jax`` does."""
+    from bluefog_tpu_torch.models.convert import params_from_jax
+    params = _params(_jax_model(jnp.float32), _tokens())
+    tm = _port_model(torch.float32)
+    want = transformer_params_from_jax(params)
+    got = params_from_jax(tm, params)
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), want[k].numpy(),
+                                      err_msg=k)

@@ -116,7 +116,8 @@ def test_trajectory_matches_jax(devices, order, momentum):
 def test_benchmark_runs_on_cpu():
     """The trainer entry point end to end at a tiny size on the CPU."""
     args = benchmark.build_parser().parse_args([
-        "--device", "cpu", "--flash-attention", "--atc", "--dynamic",
+        "--device", "cpu", "--model", "transformer", "--flash-attention",
+        "--atc", "--dynamic",
         "--num-layers", "1", "--embed-dim", "32", "--num-heads", "2",
         "--seq-len", "16", "--batch-size", "2", "--vocab-size", "64",
         "--momentum", "0", "--ranks", "4", "--num-warmup-batches", "1",
