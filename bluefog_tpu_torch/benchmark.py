@@ -10,14 +10,21 @@ the wire (``--compression``), and the ``--num-warmup-batches`` then
 ``--num-iters x --num-batches-per-iter`` protocol.  All ``--ranks`` virtual
 ranks live on one device and run forward and backward one after another, so
 one rank's activations are live at a time; their parameters are rows of one
-flat buffer (``replicas``), laid out in the JAX package's ravel order for
-the image models, and their BN statistics stay rank-local.
+flat buffer (``replicas``), laid out in the JAX package's ravel order, and
+their BN statistics stay rank-local.  The LM takes the JAX benchmark's
+options: GQA, RoPE, SwiGLU, per-block remat, the chunked lm-head loss, and
+``--mfu``.
 
     python -m bluefog_tpu_torch.benchmark --model resnet50 --batch-size 64 \\
         --atc --dynamic --ranks 4
     python -m bluefog_tpu_torch.benchmark --model transformer \\
         --flash-attention --atc --dynamic --num-layers 24 --embed-dim 2048 \\
         --num-heads 16 --seq-len 2048 --batch-size 2 --momentum 0 --ranks 4
+    python -m bluefog_tpu_torch.benchmark --model transformer \\
+        --flash-attention --atc --dynamic --num-layers 24 --embed-dim 2048 \\
+        --num-heads 16 --num-kv-heads 4 --rope --swiglu --remat \\
+        --chunked-loss --seq-len 2048 --batch-size 2 --vocab-size 32000 \\
+        --momentum 0 --ranks 4 --mfu
 
 Runs on CUDA unless ``--device cpu`` is given.
 """
@@ -32,8 +39,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from bluefog_tpu_torch.ops.chunked_loss import chunked_softmax_cross_entropy
+
 __all__ = ["build_parser", "Trainer", "measure", "consensus_spread",
-           "main", "MODELS"]
+           "transformer_train_flops_per_token", "main", "MODELS"]
 
 
 MODELS = ["resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
@@ -70,6 +79,26 @@ def build_parser():
     ap.add_argument("--flash-attention", action="store_true",
                     help="use the hand-written flash-attention kernels "
                          "instead of dense attention")
+    ap.add_argument("--remat", action="store_true",
+                    help="transformer and vit: recompute each block's "
+                         "activations in the backward "
+                         "(torch.utils.checkpoint)")
+    ap.add_argument("--remat-policy", default="full",
+                    help="with --remat: 'full' recomputes everything; "
+                         "'dots' saves matmul outputs and recomputes the "
+                         "rest (attention included); 'dots:<K>' applies "
+                         "dots to the first K blocks and full to the rest")
+    ap.add_argument("--chunked-loss", action="store_true",
+                    help="transformer model: chunked lm-head cross-entropy "
+                         "(never materializes the S x vocab logits)")
+    ap.add_argument("--num-kv-heads", type=int, default=0,
+                    help="transformer model: grouped-query attention with "
+                         "this many K/V heads (0 = MHA, 1 = MQA)")
+    ap.add_argument("--rope", action="store_true",
+                    help="transformer model: rotary position embeddings "
+                         "instead of a learned table")
+    ap.add_argument("--swiglu", action="store_true",
+                    help="transformer model: SwiGLU MLP instead of GELU")
     ap.add_argument("--num-layers", type=int, default=4,
                     help="transformer model: number of blocks")
     ap.add_argument("--embed-dim", type=int, default=512,
@@ -79,11 +108,28 @@ def build_parser():
     ap.add_argument("--vocab-size", type=int, default=32000)
     ap.add_argument("--momentum", type=float, default=0.9,
                     help="SGD momentum (0 drops the momentum buffer)")
+    ap.add_argument("--mfu", action="store_true",
+                    help="transformer model: also report model FLOPs "
+                         "utilization of the card from the measured "
+                         "tokens/s; every virtual rank runs on the one "
+                         "card, so it counts the card's whole tokens/s, "
+                         "not tokens/s divided by the ranks")
+    ap.add_argument("--peak-tflops", type=float, default=989.0,
+                    help="the card's peak (bf16) TFLOP/s for --mfu "
+                         "(default: H100 SXM dense bf16)")
     ap.add_argument("--ranks", type=int, default=4,
                     help="virtual ranks, all on the one device")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     return ap
+
+
+def transformer_train_flops_per_token(args, params_total: int) -> float:
+    """Training FLOPs per token: 6*N for the parameter matmuls (fwd 2N +
+    bwd 4N) plus the attention scores/values term 12*L*S*d (*0.5 causal),
+    the PaLM appendix's accounting, as ``examples/benchmark.py`` counts."""
+    attn = 12 * args.num_layers * args.seq_len * args.embed_dim * 0.5
+    return 6.0 * params_total + attn
 
 
 @torch.no_grad()
@@ -119,9 +165,10 @@ def _image_model(args, attn):
             torch.bfloat16, 1000
     if args.model == "lenet":
         return M.LeNet5, (28, 28, 1), torch.float32, 10
-    return (lambda: M.ViT(num_classes=1000, image_size=size,
-                          attn_impl=attn)), (size, size, 3), torch.bfloat16, \
-        1000
+    return (lambda: M.ViT(num_classes=1000, image_size=size, attn_impl=attn,
+                          remat=args.remat,
+                          remat_policy=args.remat_policy)), \
+        (size, size, 3), torch.bfloat16, 1000
 
 
 class Trainer:
@@ -145,11 +192,9 @@ class Trainer:
         attn = flash_attention_impl() if args.flash_attention else None
         gen = torch.Generator(device=self.device).manual_seed(args.seed)
         self.image = args.model != "transformer"
-        order = None
+        self.chunked_loss = args.chunked_loss
         if self.image:
             make, hwc, dtype, self.classes = _image_model(args, attn)
-            with torch.device("meta"):
-                order = jax_ravel_order(make())
             self.inputs = torch.randn((self.n, args.batch_size) + hwc,
                                       generator=gen, device=self.device
                                       ).to(dtype)
@@ -160,9 +205,15 @@ class Trainer:
             self.cfg = TransformerConfig(
                 vocab_size=args.vocab_size, num_layers=args.num_layers,
                 num_heads=args.num_heads, embed_dim=args.embed_dim,
-                max_seq_len=args.seq_len)
+                max_seq_len=args.seq_len, remat=args.remat,
+                remat_policy=args.remat_policy,
+                num_kv_heads=args.num_kv_heads or None,
+                pos_encoding="rope" if args.rope else "learned",
+                mlp="swiglu" if args.swiglu else "gelu")
             self.classes = args.vocab_size
             make = lambda: TransformerLM(self.cfg, attn)  # noqa: E731
+        with torch.device("meta"):
+            order = jax_ravel_order(make())
         self.rep = RankReplicas(make, self.n, self.device,
                                 init=lambda m: m.reset_parameters(gen),
                                 order=order)
@@ -186,9 +237,15 @@ class Trainer:
         self.rep.zero_grad()
         losses = []
         for r in range(self.n):
-            logits = self.rep.modules[r](self.inputs[r])
-            loss = F.cross_entropy(logits.reshape(-1, self.classes),
-                                   self.targets[r].reshape(-1))
+            mod = self.rep.modules[r]
+            if self.chunked_loss and not self.image:
+                loss = chunked_softmax_cross_entropy(
+                    mod(self.inputs[r], return_hidden=True),
+                    mod.lm_head.weight, self.targets[r])
+            else:
+                logits = mod(self.inputs[r])
+                loss = F.cross_entropy(logits.reshape(-1, self.classes),
+                                       self.targets[r].reshape(-1))
             loss.backward()
             losses.append(loss.detach())
         return torch.stack(losses)
@@ -253,6 +310,12 @@ def measure(args, tr: Trainer = None, quiet: bool = False) -> dict:
         "spread": spread,
         "steps": opt.step_count,
     }
+    if args.mfu and not tr.image:
+        fpt = transformer_train_flops_per_token(args, rep.numel)
+        out["train_flops_per_token"] = fpt
+        out["peak_tflops"] = args.peak_tflops
+        # All ranks share the one card: the card's whole rate counts.
+        out["mfu"] = out["tokens_per_s"] * fpt / (args.peak_tflops * 1e12)
     if dev.type == "cuda":
         out["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     return out
@@ -266,6 +329,10 @@ def main(argv=None):
           f"{res[unit + '_per_s_ci']:.1f} ({res['ranks']} ranks on "
           f"{res['device']}, model={args.model}, step "
           f"{res['step_ms']:.1f} ms)")
+    if "mfu" in res:
+        print(f"MFU: {100 * res['mfu']:.1f}% of {res['peak_tflops']:.0f} "
+              f"TFLOP/s ({res['train_flops_per_token'] / 1e9:.2f} GFLOP "
+              f"a token)")
     print(json.dumps(res))
 
 

@@ -102,28 +102,36 @@ def params_from_jax(model: nn.Module, variables: Mapping) -> dict:
     return sd
 
 
+# The Dense layers of a TransformerLM block, under MHA (``qkv``) or GQA
+# (``q``, ``kv``), with a GELU (``up``, ``down``) or SwiGLU (``gate`` too) MLP.
+_LM_DENSE = ("qkv", "q", "kv", "proj", "gate", "up", "down")
+
+
 def transformer_params_from_jax(params: Mapping) -> dict:
     """``state_dict`` of the port's ``TransformerLM`` from a flax params
-    tree (``variables["params"]``) of numpy arrays."""
+    tree (``variables["params"]``) of numpy arrays: MHA or GQA, learned or
+    rotary positions (no ``wpe``), GELU or SwiGLU."""
     if "params" in params:
         params = params["params"]
     sd = {"wte.weight": _t(params["wte"]["embedding"]),
-          "wpe.weight": _t(params["wpe"]["embedding"]),
           "RMSNorm_0.scale": _t(params["RMSNorm_0"]["scale"]),
           "lm_head.weight": _t(params["lm_head"]["kernel"]).T.contiguous()}
+    if "wpe" in params:
+        sd["wpe.weight"] = _t(params["wpe"]["embedding"])
     i = 0
     while f"block_{i}" in params:
         blk = params[f"block_{i}"]
-        extra = set(blk) - {"RMSNorm_0", "RMSNorm_1", "qkv", "proj", "up",
-                            "down"}
+        extra = set(blk) - {"RMSNorm_0", "RMSNorm_1", *_LM_DENSE}
         if extra:
             raise NotImplementedError(
-                f"block_{i} holds {sorted(extra)}: only the MHA + GELU block "
-                "is ported")
+                f"block_{i} holds {sorted(extra)}: MoE blocks are "
+                "not ported yet (ROADMAP.md Queue 1 item 7)")
         pre = f"blocks.{i}."
         sd[pre + "RMSNorm_0.scale"] = _t(blk["RMSNorm_0"]["scale"])
         sd[pre + "RMSNorm_1.scale"] = _t(blk["RMSNorm_1"]["scale"])
-        for name in ("qkv", "proj", "up", "down"):
-            sd[pre + name + ".weight"] = _t(blk[name]["kernel"]).T.contiguous()
+        for name in _LM_DENSE:
+            if name in blk:
+                sd[pre + name + ".weight"] = \
+                    _t(blk[name]["kernel"]).T.contiguous()
         i += 1
     return sd

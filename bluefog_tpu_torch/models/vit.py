@@ -6,7 +6,8 @@ The port of ``bluefog_tpu/models/vit.py``, built from the port's
 learned [CLS] token (zeros at init) and position embeddings (N(0, 0.02^2)),
 the blocks, an ``RMSNorm``, and a float32 head on the [CLS] row.  With
 ``attn_impl=flash_attention_impl()`` ViT-S/16 at 224x224 runs K1-K3
-non-causal at S=197, D=64.
+non-causal at S=197, D=64.  ``remat`` and ``remat_policy`` recompute each
+block's activations in the backward, as the LM's (``transformer.run_block``).
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ from torch import nn
 from bluefog_tpu_torch.models.layers import Conv, flax_init_, nhwc_to_nchw
 from bluefog_tpu_torch.models.transformer import (Block, RMSNorm,
                                                   TransformerConfig,
-                                                  local_attention)
+                                                  block_policy,
+                                                  local_attention, run_block)
 
 __all__ = ["ViT"]
 
@@ -30,7 +32,8 @@ class ViT(nn.Module):
                  patch_size: int = 16, embed_dim: int = 384,
                  num_layers: int = 12, num_heads: int = 6, mlp_ratio: int = 4,
                  dtype=torch.bfloat16, attn_impl: Optional[Callable] = None,
-                 in_channels: int = 3):
+                 in_channels: int = 3, remat: bool = False,
+                 remat_policy: str = "full"):
         super().__init__()
         self.patch_size, self.embed_dim, self.dtype = patch_size, embed_dim, dtype
         self.num_layers = num_layers
@@ -38,7 +41,7 @@ class ViT(nn.Module):
         self.cfg = TransformerConfig(
             vocab_size=1, num_layers=num_layers, num_heads=num_heads,
             embed_dim=embed_dim, mlp_ratio=mlp_ratio, max_seq_len=tokens,
-            dtype=dtype, causal=False)
+            dtype=dtype, remat=remat, remat_policy=remat_policy, causal=False)
         self.patch_embed = Conv(in_channels, embed_dim,
                                 (patch_size, patch_size), patch_size,
                                 dtype=dtype)
@@ -73,6 +76,7 @@ class ViT(nn.Module):
         cls = self.cls_token.to(x.dtype).expand(B, 1, self.embed_dim)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(x.dtype)
         for i in range(self.num_layers):
-            x = getattr(self, f"block_{i}")(x)
+            x = run_block(getattr(self, f"block_{i}"),
+                          block_policy(self.cfg, i), x)
         x = self.RMSNorm_0(x)
         return F.linear(x[:, 0].float(), self.head.weight, self.head.bias)

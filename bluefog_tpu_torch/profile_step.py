@@ -11,8 +11,12 @@ Takes the benchmark's flags and builds its ``Trainer``; after the warmup
 steps it times one step phase by phase with CUDA events (every rank's
 forward and backward, the local update, the neighbor combine), then profiles
 one more step with ``torch.profiler``: device time by kernel family, the
-largest kernels, and the device's idle share of the step's wall time.
-Prints one JSON line.  Needs a GPU.
+largest kernels, the operators whose kernels take the most device time
+(inclusive: ``aten::repeat_interleave`` is the GQA fan-out of K and V,
+``ExpandBackward0`` its reduction in the backward), and the device's idle
+share of the step's wall time.  Takes the benchmark's flags (``--remat``,
+``--chunked-loss``, ``--num-kv-heads`` ...).  Prints one JSON line.  Needs a
+GPU.
 """
 
 from __future__ import annotations
@@ -25,6 +29,13 @@ import torch
 from bluefog_tpu_torch.benchmark import Trainer, build_parser
 
 __all__ = ["main", "kernel_family"]
+
+# Operators reported by name (inclusive device time): the GQA fan-out and
+# its backward, the chunked loss, RoPE's and SwiGLU's ops.
+_BWD = "autograd::engine::evaluate_function: "
+NAMED_OPS = ("aten::repeat_interleave", _BWD + "ExpandBackward0",
+             "aten::logsumexp", _BWD + "GatherBackward0", "aten::cos",
+             "aten::sin", "aten::cat", "aten::silu")
 
 
 def kernel_family(name: str) -> str:
@@ -87,6 +98,11 @@ def main(argv=None):
         fam = kernel_family(e.key)
         families[fam] = families.get(fam, 0.0) + e.self_device_time_total / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    ops = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CPU
+           and e.device_time_total > 0]
+    top_ops = sorted(ops, key=lambda e: -e.device_time_total)[:25]
+    named = {e.key.replace(_BWD, ""): e for e in ops if e.key in NAMED_OPS}
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "model": args.model,
@@ -94,9 +110,17 @@ def main(argv=None):
         "profiled_step_wall_ms": wall_ms,
         "kernel_busy_ms": busy_ms,
         "device_idle_share": (1.0 - busy_ms / wall_ms) if wall_ms else None,
+        # The profiler slows the host: against the step timed by events.
+        "idle_share_of_event_step": 1.0 - busy_ms / sum(phases.values()),
         "families_ms": dict(sorted(families.items(), key=lambda kv: -kv[1])),
         "top_kernels": [{"name": e.key[:90], "count": e.count,
                          "ms": e.self_device_time_total / 1e3} for e in top],
+        "top_ops": [{"name": e.key[:90], "count": e.count,
+                     "device_ms": e.device_time_total / 1e3}
+                    for e in top_ops],
+        "named_ops": {k: {"count": e.count,
+                          "device_ms": e.device_time_total / 1e3}
+                      for k, e in sorted(named.items())},
     }), flush=True)
 
 

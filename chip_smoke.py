@@ -13,10 +13,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 3. ``kernel``   — each of K1 (forward), K2 (dq) and K3 (dk/dv) against its
    plain PyTorch twin on the same inputs, at the training path's shape
    (B=2, S=2048, H=16, D=128, bf16, causal, q/k/v strided slices of a fused
-   QKV tensor), at ragged S=1000 and non-causal, with kernel, twin and SDPA
-   times and the least time the card could take (989 TFLOP/s bf16,
+   QKV tensor), at ragged S=1000, non-causal, with the Llama-style LM's
+   GQA operands (q contiguous, k and v contiguous fan-outs of 4 kv heads)
+   and at its generate prefill (S=512, K1 alone), with kernel, twin and
+   SDPA times and the least time the card could take (989 TFLOP/s bf16,
    3.35 TB/s); then checked only: S=100 (shorter than one 128-row tile),
-   and head dim 64 (causal, and ragged non-causal).  K2 also returns the
+   head dim 64 (causal, and ragged non-causal), and MHA with RoPE's
+   operands (q and k contiguous, v a slice).  K2 also returns the
    backward's delta, held to the plain op ``flash_delta`` (``REL_TOL``), and
    K3 reads that delta, as on the training path; the timed cases time
    ``flash_delta`` too.  At the main shape K1-K3 run twice on the same
@@ -64,8 +67,31 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    ranks, 1 warmup + 2 timed steps; K1-K3 launches must equal 12 layers x
    ranks x steps; and a 2-layer ViT's logits and gradients through the
    kernels against dense attention, as in ``reference``.
-10. ``{"kernels": [...]}`` (launches from the ``train`` phase), then the
-   ``nvidia-smi`` line, then the last line ``{"ok": true, "device": {...}}``.
+10. ``llama_reference`` — a 2-layer Llama-style LM (width 512, 8 heads of
+   64, 2 kv heads, RoPE, SwiGLU) through the kernels: against dense
+   attention, as in ``reference``; with remat ``full`` and ``dots`` against
+   without (logits and gradients, the largest difference reported; K1 runs
+   again in each block's recompute); and the chunked lm-head loss against
+   dense cross-entropy at B=2, S=2048, E=2048, V=32000 in float32
+   (``CE_VALUE_TOL``, ``CE_GRAD_TOL``).
+11. ``llama_train`` — the benchmark with the Llama-style LM at full width:
+   24 layers, width 2048, 16 heads, 4 kv heads, RoPE, SwiGLU, remat,
+   chunked loss, seq 2048, batch 2, vocab 32000, 4 ranks, ATC over the
+   dynamic topology, ``--mfu`` (989 TFLOP/s), 1 warmup + 2 timed steps.
+   Checks: 1,590,790,144 parameters a rank, finite losses, the combine
+   shrinks the spread, peak memory under 80 GB, K1 launches 2 x layers x
+   ranks x steps (forward and recompute) and K2, K3 layers x ranks x steps.
+12. ``generate`` — rank 0's module of ``llama_train`` (bf16, the prefill
+   through K1) continues a 2 x 512-token prompt by 64 greedy tokens:
+   prefill ms, decode ms a token; the prefill launches K1 once a layer; the
+   first token is the argmax of the full forward's last logits; 16
+   teacher-forced decode steps match the full forward (``REF_LOGITS_TOL``);
+   the cache holds the 4 shared kv heads.
+13. ``text_generation`` — ``python -m bluefog_tpu_torch.text_generation``
+   on the card: 300 Adam steps, then the exact greedy continuation.
+14. ``{"kernels": [...]}`` (launches from the ``train`` and ``llama_train``
+   phases, each path's beside), then the ``nvidia-smi`` line, then the last
+   line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a GPU or outside the repository.
 """
@@ -89,6 +115,11 @@ LSE_TOL = 1e-4               # K1 lse vs twin: max |err| (f32, |lse| ~ 8)
 REF_LOGITS_TOL = 2e-2        # flash vs dense model, both bf16: logits
 REF_GRAD_TOL = 5e-2          # and each parameter's gradient
 LAYERS = 24
+LLAMA_LAYERS = 24
+LLAMA_PARAMS = 1590790144    # a rank of the Llama-style LM at full width
+LLAMA = dict(num_kv_heads=2, pos_encoding="rope", mlp="swiglu")
+CE_VALUE_TOL = 1e-5          # chunked vs dense cross-entropy, f32: value
+CE_GRAD_TOL = 2e-4           # and gradients, relative
 RESNET50_PARAMS = 25557032
 VIT_LAYERS = 12
 SEED = 0                     # inputs and weights are drawn from it
@@ -162,10 +193,35 @@ def ptxas_report(log):
     return out
 
 
-def check_kernels(B, S, H, D, causal, seed, timed, repeat=False):
-    """K1-K3 against their twins at one shape; returns per-kernel dicts.
-    With ``repeat``, K1-K3 run again on the same inputs and must give the
-    same bits."""
+def operands(B, S, H, D, layout, g, kv_heads):
+    """q, k, v in bf16 as a model path hands them to K1-K3: ``fused``,
+    strided slices of one fused QKV tensor (the MHA LM); ``gqa``, q from its
+    own projection and k, v contiguous ``repeat_interleave`` fan-outs of
+    ``kv_heads`` shared heads that interleave K and V per head (the
+    Llama-style LM); ``rope``, q and k rotated (contiguous), v a slice of
+    the fused tensor (MHA with RoPE)."""
+    import torch
+    dev = g.device
+    if layout == "gqa":
+        q = torch.randn(B, S, H, D, generator=g, device=dev).to(torch.bfloat16)
+        kv = torch.randn(B, S, kv_heads, 2, D, generator=g,
+                         device=dev).to(torch.bfloat16)
+        rep = H // kv_heads
+        return (q, kv[..., 0, :].repeat_interleave(rep, dim=2),
+                kv[..., 1, :].repeat_interleave(rep, dim=2))
+    qkv = torch.randn(B, S, H, 3, D, generator=g, device=dev).to(torch.bfloat16)
+    q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+    if layout == "rope":
+        q, k = q.contiguous(), k.contiguous()
+    return q, k, v
+
+
+def check_kernels(B, S, H, D, causal, seed, timed, repeat=False,
+                  layout="fused", kv_heads=None, fwd_only=False):
+    """K1-K3 (K1 alone with ``fwd_only``) against their twins at one shape
+    and operand layout (``operands``); returns per-kernel dicts.  With
+    ``repeat``, K1-K3 run again on the same inputs and must give the same
+    bits."""
     import torch
     import torch.nn.functional as F
 
@@ -173,8 +229,7 @@ def check_kernels(B, S, H, D, causal, seed, timed, repeat=False):
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
-    qkv = torch.randn(B, S, H, 3, D, generator=g, device=dev).to(torch.bfloat16)
-    q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+    q, k, v = operands(B, S, H, D, layout, g, kv_heads)
     do = torch.randn(B, S, H, D, generator=g, device=dev).to(torch.bfloat16)
     dlse = 0.1 * torch.randn(B, S, H, generator=g, device=dev)
     f32 = [t.float() for t in (q, k, v, do)]
@@ -183,11 +238,12 @@ def check_kernels(B, S, H, D, causal, seed, timed, repeat=False):
     o_r, lse_r = FA.flash_fwd_ref(*f32[:3], causal)
     o = o_r.to(torch.bfloat16)
     lse_bhs = lse_r.transpose(1, 2).contiguous()
-    delta = FA.flash_delta(o, do, dlse)
-    dq_k, delta_k = FA.flash_dq_cuda(q, k, v, o, do, lse_bhs, dlse, causal)
-    dk_k, dv_k = FA.flash_dkv_cuda(q, k, v, do, lse_bhs, delta_k, causal)
-    dq_r, dk_r, dv_r = FA.flash_bwd_ref(*f32[:3], o.float(), lse_r, f32[3],
-                                        dlse, causal)
+    if not fwd_only:
+        delta = FA.flash_delta(o, do, dlse)
+        dq_k, delta_k = FA.flash_dq_cuda(q, k, v, o, do, lse_bhs, dlse, causal)
+        dk_k, dv_k = FA.flash_dkv_cuda(q, k, v, do, lse_bhs, delta_k, causal)
+        dq_r, dk_r, dv_r = FA.flash_bwd_ref(*f32[:3], o.float(), lse_r,
+                                            f32[3], dlse, causal)
     torch.cuda.synchronize()
 
     def err(pairs):
@@ -203,13 +259,15 @@ def check_kernels(B, S, H, D, causal, seed, timed, repeat=False):
                 f"{ELEM_TOL}")
         return {"rel_err": rel, "elem_err": elem, "max_abs_err": e}
 
-    res = {"K1": err([(o_k, o_r)]), "K2": err([(dq_k, dq_r)]),
-           "K3": err([(dk_k, dk_r), (dv_k, dv_r)])}
-    delta_err = rel_err(delta_k, delta)
-    require(delta_err <= REL_TOL,
-            f"K2 delta: ||kernel - flash_delta|| / ||flash_delta|| "
-            f"{delta_err} over {REL_TOL}")
-    res["K2"]["delta_rel_err"] = delta_err
+    res = {"K1": err([(o_k, o_r)])}
+    if not fwd_only:
+        res["K2"] = err([(dq_k, dq_r)])
+        res["K3"] = err([(dk_k, dk_r), (dv_k, dv_r)])
+        delta_err = rel_err(delta_k, delta)
+        require(delta_err <= REL_TOL,
+                f"K2 delta: ||kernel - flash_delta|| / ||flash_delta|| "
+                f"{delta_err} over {REL_TOL}")
+        res["K2"]["delta_rel_err"] = delta_err
     if repeat:
         o_2, lse_2 = FA.flash_fwd_cuda(q, k, v, causal)
         dq_2, delta_2 = FA.flash_dq_cuda(q, k, v, o, do, lse_bhs, dlse, causal)
@@ -225,6 +283,8 @@ def check_kernels(B, S, H, D, causal, seed, timed, repeat=False):
     strides = {"q": q.stride(), "k": k.stride(), "v": v.stride(),
                "do": do.stride(), "o": o.stride()}
     for name, kernel in (("K1", "fwd"), ("K2", "dq"), ("K3", "dkv")):
+        if name not in res:
+            continue
         res[name]["dynamic_smem_bytes"] = FA.launch_plan(
             kernel, (B, S, H, D), strides, causal).smem
     lse_err = float((lse_k.transpose(1, 2) - lse_r).abs().max())
@@ -236,30 +296,31 @@ def check_kernels(B, S, H, D, causal, seed, timed, repeat=False):
     work = {"K1": (4 * B * H * pairs * D, 4 * bsd + bhs),
             "K2": (6 * B * H * pairs * D, 6 * bsd + 3 * bhs),
             "K3": (8 * B * H * pairs * D, 6 * bsd + 2 * bhs)}
-    for name, (flops, nbytes) in work.items():
-        res[name]["bound_ms"], res[name]["bound_by"] = bound(flops, nbytes)
+    for name in res:
+        res[name]["bound_ms"], res[name]["bound_by"] = bound(*work[name])
     if not timed:
         return res
 
     res["K1"]["ms"] = cuda_ms(lambda: FA.flash_fwd_cuda(q, k, v, causal))
+    res["K1"]["plain_ms"] = cuda_ms(
+        lambda: FA.flash_fwd_ref(q, k, v, causal), iters=5, warmup=1)
+    # Library yardstick (never called by the port): SDPA on (B, H, S, D).
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    res["K1"]["library_ms"] = cuda_ms(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal))
+    if fwd_only:
+        return res
     res["K2"]["ms"] = cuda_ms(
         lambda: FA.flash_dq_cuda(q, k, v, o, do, lse_bhs, dlse, causal))
     res["K3"]["ms"] = cuda_ms(
         lambda: FA.flash_dkv_cuda(q, k, v, do, lse_bhs, delta_k, causal))
     # The plain op that K2's fused delta replaces on the card.
     res["K2"]["flash_delta_ms"] = cuda_ms(lambda: FA.flash_delta(o, do, dlse))
-    res["K1"]["plain_ms"] = cuda_ms(
-        lambda: FA.flash_fwd_ref(q, k, v, causal), iters=5, warmup=1)
     # The twin computes dq, dk and dv in one pass: its time stands for K2
     # and K3 together.
     bwd_plain = cuda_ms(lambda: FA.flash_bwd_ref(q, k, v, o, lse_r, do, dlse,
                                                  causal), iters=5, warmup=1)
     res["K2"]["plain_ms"] = res["K3"]["plain_ms"] = bwd_plain
-
-    # Library yardstick (never called by the port): SDPA on (B, H, S, D).
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-    res["K1"]["library_ms"] = cuda_ms(
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal))
     out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
     dot = do.transpose(1, 2)
     # SDPA's backward computes dq, dk and dv in one call: its time stands
@@ -398,6 +459,216 @@ def check_resnet_reference(seed):
     return out
 
 
+def logits_and_grads(model, tokens):
+    """The LM's logits and every parameter's gradient of its next-token
+    cross-entropy."""
+    import torch
+    import torch.nn.functional as F
+    logits = model(tokens)
+    F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                    torch.roll(tokens, -1, 1).reshape(-1)).backward()
+    return logits.detach(), {k: p.grad for k, p in model.named_parameters()}
+
+
+def flash_launches():
+    from bluefog_tpu_torch.ops import flash_attention as FA
+    return {"K1": FA.flash_fwd_cuda.launches, "K2": FA.flash_dq_cuda.launches,
+            "K3": FA.flash_dkv_cuda.launches}
+
+
+def check_llama_reference(seed):
+    """A 2-layer Llama-style LM (width 512, 8 heads of 64, 2 kv heads,
+    RoPE, SwiGLU) through the kernels: against dense attention; with remat
+    ``full`` and ``dots`` against without; and the chunked loss against
+    dense cross-entropy at the full-width lm-head, float32."""
+    import torch
+    import torch.nn.functional as F
+
+    from bluefog_tpu_torch.models.transformer import (TransformerConfig,
+                                                      TransformerLM)
+    from bluefog_tpu_torch.ops import flash_attention as FA
+    from bluefog_tpu_torch.ops.chunked_loss import \
+        chunked_softmax_cross_entropy
+
+    dev = torch.device("cuda")
+    kw = dict(vocab_size=512, num_layers=2, num_heads=8, embed_dim=512,
+              max_seq_len=256, **LLAMA)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dense = TransformerLM(TransformerConfig(**kw)).to(dev)
+    dense.reset_parameters(g)
+    tokens = torch.randint(0, 512, (2, 256), generator=g, device=dev)
+    out = {"flash_vs_dense": flash_vs_dense(
+        dense, TransformerLM(TransformerConfig(**kw),
+                             FA.flash_attention_impl()).to(dev),
+        tokens, torch.roll(tokens, -1, 1), (2, 256, 512))}
+
+    def run(policy):
+        model = TransformerLM(TransformerConfig(
+            remat=policy is not None, remat_policy=policy or "full", **kw),
+            FA.flash_attention_impl()).to(dev)
+        model.load_state_dict(dense.state_dict())
+        FA.reset_launch_counts()
+        res = logits_and_grads(model, tokens)
+        torch.cuda.synchronize()
+        return res, flash_launches()
+
+    (want, want_g), plain = run(None)
+    require(plain == {"K1": 2, "K2": 2, "K3": 2}, f"plain launches {plain}")
+    for policy in ("full", "dots"):
+        (logits, grads), launches = run(policy)
+        # K1 runs again in each block's recompute.
+        require(launches == {"K1": 4, "K2": 2, "K3": 2},
+                f"remat {policy} launches {launches}")
+        logit_err = rel_err(logits, want)
+        grad_err = max(rel_err(grads[k], g) for k, g in want_g.items())
+        require(logit_err <= REF_LOGITS_TOL and grad_err <= REF_GRAD_TOL,
+                f"remat {policy}: logits {logit_err}, gradients {grad_err}")
+        out[f"remat_{policy}"] = {
+            "launches": launches, "logits_rel_err": logit_err,
+            "grad_rel_err": grad_err,
+            "logits_max_abs_diff": float((logits - want).abs().max()),
+            "grad_max_abs_diff": max(float((grads[k] - g).abs().max())
+                                     for k, g in want_g.items())}
+
+    # The chunked loss at llama_train's lm-head: B=2, S=2048, E=2048,
+    # V=32000, float32 (TF32 is off).
+    h = torch.randn(2, 2048, 2048, generator=g, device=dev,
+                    requires_grad=True)
+    w = (torch.randn(32000, 2048, generator=g, device=dev)
+         / math.sqrt(2048)).requires_grad_()
+    t = torch.randint(0, 32000, (2, 2048), generator=g, device=dev)
+    chunked = lambda: chunked_softmax_cross_entropy(h, w, t)  # noqa: E731
+    full = lambda: F.cross_entropy(  # noqa: E731
+        F.linear(h, w).reshape(-1, 32000), t.reshape(-1))
+    got, want = chunked(), full()
+    got_g = torch.autograd.grad(got, (h, w))
+    want_g = torch.autograd.grad(want, (h, w))
+    value_err = abs(got.item() - want.item()) / abs(want.item())
+    grad_err = max(rel_err(a, b) for a, b in zip(got_g, want_g))
+    require(value_err <= CE_VALUE_TOL and grad_err <= CE_GRAD_TOL,
+            f"chunked loss: value {value_err}, gradients {grad_err}")
+    out["chunked_loss"] = {
+        "value_rel_err": value_err, "grad_rel_err": grad_err,
+        "tol": {"value": CE_VALUE_TOL, "grad": CE_GRAD_TOL},
+        "fwd_bwd_ms": cuda_ms(lambda: torch.autograd.grad(chunked(), (h, w)),
+                              iters=3, warmup=1),
+        "dense_fwd_bwd_ms": cuda_ms(lambda: torch.autograd.grad(full(), (h, w)),
+                                    iters=3, warmup=1)}
+    return out
+
+
+def llama_train_phase(benchmark):
+    """The Llama-style LM at full width, 4 ranks, remat and the chunked
+    loss, through K1-K3; returns the trainer and the launches."""
+    import torch
+
+    from bluefog_tpu_torch.ops import flash_attention as FA
+
+    args = benchmark.build_parser().parse_args([
+        "--model", "transformer", "--flash-attention", "--atc", "--dynamic",
+        "--num-layers", str(LLAMA_LAYERS), "--embed-dim", "2048",
+        "--num-heads", "16", "--num-kv-heads", "4", "--rope", "--swiglu",
+        "--remat", "--chunked-loss", "--seq-len", "2048", "--batch-size", "2",
+        "--vocab-size", "32000", "--momentum", "0", "--ranks", "4", "--mfu",
+        "--num-warmup-batches", "1", "--num-iters", "2",
+        "--num-batches-per-iter", "1", "--seed", str(SEED)])
+    tr = benchmark.Trainer(args)
+    FA.reset_launch_counts()
+    res = benchmark.measure(args, tr)
+    launches = flash_launches()
+    steps = args.num_warmup_batches + args.num_iters * args.num_batches_per_iter
+    per = LLAMA_LAYERS * args.ranks * steps
+    # Under remat K1 runs twice a block: the forward and the recompute.
+    expected = {"K1": 2 * per, "K2": per, "K3": per}
+    emit("llama_train", config={
+        "num_layers": LLAMA_LAYERS, "embed_dim": 2048, "num_heads": 16,
+        "num_kv_heads": 4, "pos_encoding": "rope", "mlp": "swiglu",
+        "remat": "full", "chunked_loss": True, "seq_len": 2048,
+        "batch_size": 2, "vocab_size": 32000, "momentum": 0.0,
+        "ranks": args.ranks, "order": "atc",
+        "topology": "dynamic one-peer ExponentialGraph(4)"},
+        launches=launches, expected_launches=expected, **res)
+    require(res["params_per_rank"] == LLAMA_PARAMS,
+            f"flat has {res['params_per_rank']} columns, expected "
+            f"{LLAMA_PARAMS}")
+    require(all(math.isfinite(x) for x in res["losses"]),
+            f"finite losses {res['losses']}")
+    require(res["steps"] == steps, f"{res['steps']} steps, expected {steps}")
+    require(launches == expected, f"launches {launches}, expected {expected}")
+    require(res["spread"]["after_combine"] < res["spread"]["after_adapt"],
+            f"the combine shrinks the spread {res['spread']}")
+    require(res["peak_mem_gb"] < 80, f"peak {res['peak_mem_gb']} GB")
+    torch.cuda.empty_cache()
+    return tr, launches
+
+
+def check_generate(tr, seed, prompt_len=512, new=64, forced=16):
+    """KV-cache generation from rank 0's module of ``llama_train`` (bf16,
+    the prefill through K1): timing, launches, the first token, and
+    teacher-forced decode logits against the full forward."""
+    import torch
+
+    from bluefog_tpu_torch.models import transformer as T
+    from bluefog_tpu_torch.ops import flash_attention as FA
+
+    model = tr.rep.modules[0]
+    cfg = model.cfg
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    prompt = torch.randint(0, cfg.vocab_size, (2, prompt_len), generator=g,
+                           device=dev)
+    T.generate(model, prompt, 2)                          # warm-up
+    torch.cuda.synchronize()
+    FA.reset_launch_counts()
+    t0 = time.perf_counter()
+    first = T.generate(model, prompt, 1)                  # the prefill
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = flash_launches()
+    FA.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = T.generate(model, prompt, new)
+    torch.cuda.synchronize()
+    decode_s = (time.perf_counter() - t0 - prefill_s) / (new - 1)
+    launches = flash_launches()
+    # The prefill runs K1 once a block; the decode steps attend densely.
+    for what, got in (("prefill", prefill_launches), ("generate", launches)):
+        require(got == {"K1": cfg.num_layers, "K2": 0, "K3": 0},
+                f"{what} launches {got}")
+    with torch.no_grad():
+        full = model(prompt)
+        p0 = prompt_len - forced
+        _, cache = T.prefill(model, prompt[:, :p0], prompt_len)
+        steps = []
+        for t in range(p0, prompt_len):
+            logits, cache = model(prompt[:, t:t + 1],
+                                  positions=torch.full((2, 1), t, device=dev),
+                                  cache=cache)
+            steps.append(logits[:, 0])
+        cache = T.prefill(model, prompt, prompt_len + new)[1]
+    require(out.shape == (2, new) and torch.equal(first[:, 0], out[:, 0]),
+            "generate's first token")
+    require(torch.equal(out[:, 0], full[:, -1].argmax(-1).to(out.dtype)),
+            "the first token is the argmax of the last prompt logits")
+    forced_err = rel_err(torch.stack(steps, 1), full[:, p0:])
+    require(forced_err <= REF_LOGITS_TOL,
+            f"teacher-forced decode logits differ by {forced_err}")
+    kv_h, d = cfg.num_kv_heads, cfg.embed_dim // cfg.num_heads
+    cache_bytes = sum(t.numel() * t.element_size() for kv in cache for t in kv)
+    want_bytes = cfg.num_layers * 2 * 2 * (prompt_len + new) * kv_h * d * 2
+    require(cache_bytes == want_bytes,
+            f"cache {cache_bytes} bytes, expected {want_bytes}")
+    return {"prompt": [2, prompt_len], "new_tokens": new,
+            "prefill_ms": 1e3 * prefill_s, "decode_ms_per_token": 1e3 * decode_s,
+            "decode_tokens_per_s": 2 / decode_s,
+            "launches": launches,
+            "teacher_forced_positions": forced,
+            "teacher_forced_logits_rel_err": forced_err,
+            "cache_bytes": cache_bytes,
+            "mha_cache_bytes": cache_bytes * cfg.num_heads // kv_h,
+            "tol": {"logits": REF_LOGITS_TOL}}
+
+
 def image_phase(benchmark, argv, checks_spread_by="max"):
     """One benchmark run of an image model; the common checks."""
     import torch
@@ -465,23 +736,32 @@ def main():
     require(not serialized, f"ptxas serialized wgmma: {serialized}")
 
     main_res = None
-    # (case, B, S, H, D, causal, timed): the LM's training shape, ragged S,
-    # non-causal, ViT-S/16's shape; checked, not timed: S shorter than one
-    # tile and the head dim 64 instantiation.
-    for case, B, S, H, D, causal, timed in (
-            ("main", 2, 2048, 16, 128, True, True),
-            ("ragged", 2, 1000, 16, 128, True, True),
-            ("noncausal", 2, 2048, 16, 128, False, True),
-            ("vit", 64, 197, 6, 64, False, True),
-            ("short", 2, 100, 16, 128, True, False),
-            ("d64", 2, 512, 8, 64, True, False),
-            ("d64-ragged-noncausal", 1, 777, 4, 64, False, False)):
+    # (case, B, S, H, D, causal, timed, layout, kv heads, forward only):
+    # the LM's training shape, ragged S, non-causal, ViT-S/16's shape, the
+    # Llama-style LM's GQA operands at its training shape and its generate
+    # prefill (K1 alone); checked, not timed: S shorter than one tile, the
+    # head dim 64 instantiation, and MHA with RoPE's operands.
+    for case, B, S, H, D, causal, timed, layout, kv_h, fwd_only in (
+            ("main", 2, 2048, 16, 128, True, True, "fused", None, False),
+            ("ragged", 2, 1000, 16, 128, True, True, "fused", None, False),
+            ("noncausal", 2, 2048, 16, 128, False, True, "fused", None,
+             False),
+            ("vit", 64, 197, 6, 64, False, True, "fused", None, False),
+            ("gqa", 2, 2048, 16, 128, True, True, "gqa", 4, False),
+            ("prefill", 2, 512, 16, 128, True, True, "gqa", 4, True),
+            ("short", 2, 100, 16, 128, True, False, "fused", None, False),
+            ("d64", 2, 512, 8, 64, True, False, "fused", None, False),
+            ("d64-ragged-noncausal", 1, 777, 4, 64, False, False, "fused",
+             None, False),
+            ("mha-rope", 2, 1024, 16, 128, True, False, "rope", None,
+             False)):
         res = check_kernels(B, S, H, D, causal, SEED, timed=timed,
-                            repeat=case == "main")
+                            repeat=case == "main", layout=layout,
+                            kv_heads=kv_h, fwd_only=fwd_only)
         for kname, r in res.items():
             emit("kernel", kernel=kname, case=case, B=B, S=S, H=H, D=D,
-                 dtype="bfloat16", causal=causal, rel_tol=REL_TOL,
-                 elem_tol=ELEM_TOL,
+                 dtype="bfloat16", causal=causal, layout=layout,
+                 kv_heads=kv_h, rel_tol=REL_TOL, elem_tol=ELEM_TOL,
                  lse_tol=LSE_TOL if kname == "K1" else None,
                  **ptxas.get(f"{KERNELS[kname][0]}/D{D}", {}), **r)
         if case == "main":
@@ -558,12 +838,36 @@ def main():
          launches=vit_launches, expected_launches=vit_expected,
          reference=check_vit_reference(SEED), **res)
 
+    emit("llama_reference", **check_llama_reference(SEED))
+    tr, llama_launches = llama_train_phase(benchmark)
+    gen = check_generate(tr, SEED)
+    emit("generate", **gen)
+    gen_launches = gen["launches"]
+    del tr
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "bluefog_tpu_torch.text_generation"],
+        cwd=here, capture_output=True, text=True, timeout=600)
+    require(proc.returncode == 0,
+            f"text_generation failed: {proc.stderr[-2000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    require(res["matches_text"] is True and res["device"].startswith("cuda"),
+            f"text_generation {res}")
+    emit("text_generation", seconds=time.perf_counter() - t0, **res)
+
     kernels = []
     for kname, (fn, replaces) in KERNELS.items():
         r = main_res[kname]
         kernels.append({"name": f"{kname} {fn}", "route": "cuda",
                         "source": SOURCE, "replaces": replaces,
-                        "launches": launches[kname],
+                        "launches": launches[kname] + llama_launches[kname],
+                        "launches_by_path": {
+                            "train": launches[kname],
+                            "llama_train": llama_launches[kname],
+                            "generate": gen_launches[kname],
+                            "vit": vit_launches[kname]},
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
