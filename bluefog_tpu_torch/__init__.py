@@ -11,11 +11,19 @@ asks for the CPU, and raise when no GPU is present.
 """
 
 from bluefog_tpu_torch import topology as topology_util
-from bluefog_tpu_torch.basics import (device, dynamic_neighbor_allreduce,
-                                      init, initialized, is_topo_weighted,
-                                      load_topology, neighbor_allreduce, rank,
-                                      set_topology, shutdown, size)
+from bluefog_tpu_torch.basics import (allgather, allgather_v, allreduce,
+                                      broadcast, broadcast_parameters, device,
+                                      dynamic_neighbor_allreduce, init,
+                                      initialized, is_topo_weighted,
+                                      load_topology, local_allreduce,
+                                      local_size, neighbor_allgather,
+                                      neighbor_allgather_v, neighbor_allreduce,
+                                      pair_gossip, rank, set_topology,
+                                      shutdown, size)
 
 __all__ = ["topology_util", "init", "shutdown", "initialized", "size", "rank",
-           "device", "set_topology", "load_topology", "is_topo_weighted",
-           "neighbor_allreduce", "dynamic_neighbor_allreduce"]
+           "local_size", "device", "set_topology", "load_topology",
+           "is_topo_weighted", "allreduce", "local_allreduce", "broadcast",
+           "allgather", "allgather_v", "neighbor_allreduce",
+           "dynamic_neighbor_allreduce", "neighbor_allgather",
+           "neighbor_allgather_v", "pair_gossip", "broadcast_parameters"]

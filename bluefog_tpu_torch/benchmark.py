@@ -13,7 +13,12 @@ one rank's activations are live at a time; their parameters are rows of one
 flat buffer (``replicas``), laid out in the JAX package's ravel order, and
 their BN statistics stay rank-local.  The LM takes the JAX benchmark's
 options: GQA, RoPE, SwiGLU, per-block remat, the chunked lm-head loss, and
-``--mfu``.
+``--mfu``; ``--num-experts`` swaps each block's MLP for switch-routed GELU
+experts (the loss stays the cross-entropy: the load-balancing loss is
+exposed, ``TransformerLM(..., moe_aux=[])``, not added, as in the JAX
+benchmark).  ``--dist-optimizer gradient_allreduce`` averages the gradients
+over the ranks instead of the parameters, which keeps every replica the
+same.
 
     python -m bluefog_tpu_torch.benchmark --model resnet50 --batch-size 64 \\
         --atc --dynamic --ranks 4
@@ -25,6 +30,12 @@ options: GQA, RoPE, SwiGLU, per-block remat, the chunked lm-head loss, and
         --num-heads 16 --num-kv-heads 4 --rope --swiglu --remat \\
         --chunked-loss --seq-len 2048 --batch-size 2 --vocab-size 32000 \\
         --momentum 0 --ranks 4 --mfu
+    python -m bluefog_tpu_torch.benchmark --model transformer \\
+        --flash-attention --atc --dynamic --num-layers 6 --embed-dim 2048 \\
+        --num-heads 16 --num-experts 8 --remat --seq-len 2048 \\
+        --batch-size 2 --vocab-size 32000 --momentum 0 --ranks 4
+    python -m bluefog_tpu_torch.benchmark --model resnet50 --batch-size 64 \\
+        --dist-optimizer gradient_allreduce --ranks 4
 
 Runs on CUDA unless ``--device cpu`` is given.
 """
@@ -47,7 +58,13 @@ __all__ = ["build_parser", "Trainer", "measure", "consensus_spread",
 
 MODELS = ["resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
           "vgg11", "vgg16", "vgg19", "lenet", "vit", "transformer"]
-DIST_OPTIMIZERS = ["neighbor_allreduce", "allreduce", "empty"]
+# The JAX benchmark's words: 6N over every expert's weights would count
+# E times the expert work a token does.
+MOE_MFU_NOTE = ("--mfu accounting covers dense models only (top-1 MoE "
+                "activates 1 of --num-experts expert MLPs per token); "
+                "skipping the MFU report")
+DIST_OPTIMIZERS = ["neighbor_allreduce", "allreduce", "gradient_allreduce",
+                   "empty"]
 
 
 def _compression(value: str) -> str:
@@ -99,6 +116,9 @@ def build_parser():
                          "instead of a learned table")
     ap.add_argument("--swiglu", action="store_true",
                     help="transformer model: SwiGLU MLP instead of GELU")
+    ap.add_argument("--num-experts", type=int, default=0,
+                    help="transformer model: switch-MoE blocks with this "
+                         "many experts (0 = dense MLP)")
     ap.add_argument("--num-layers", type=int, default=4,
                     help="transformer model: number of blocks")
     ap.add_argument("--embed-dim", type=int, default=512,
@@ -209,7 +229,8 @@ class Trainer:
                 remat_policy=args.remat_policy,
                 num_kv_heads=args.num_kv_heads or None,
                 pos_encoding="rope" if args.rope else "learned",
-                mlp="swiglu" if args.swiglu else "gelu")
+                mlp="swiglu" if args.swiglu else "gelu",
+                num_experts=args.num_experts)
             self.classes = args.vocab_size
             make = lambda: TransformerLM(self.cfg, attn)  # noqa: E731
         with torch.device("meta"):
@@ -225,6 +246,11 @@ class Trainer:
             self.targets = torch.roll(self.inputs, -1, dims=2)
         base = torch.optim.SGD([self.rep.flat], lr=0.0125 * self.n,
                                momentum=args.momentum, dampening=0)
+        if args.dist_optimizer == "gradient_allreduce":
+            # As the JAX benchmark: --atc and --dynamic do not apply.
+            self.opt = O.DistributedGradientAllreduceOptimizer(
+                base, compression=args.compression)
+            return
         cls = (O.DistributedAdaptThenCombineOptimizer if args.atc
                else O.DistributedAdaptWithCombineOptimizer)
         self.opt = cls(base, O.CommunicationType[args.dist_optimizer],
@@ -262,11 +288,17 @@ def measure(args, tr: Trainer = None, quiet: bool = False) -> dict:
 
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    spread = None
+    # Gradient allreduce keeps the replicas equal: its spread is read after
+    # every warmup step and every timed iteration (outside the clock).
+    grad_ar = opt.order == "gradient_allreduce"
+    spread = {"after_step": []} if grad_ar else None
     losses = None
     for i in range(args.num_warmup_batches):
         losses = forward_backward()
-        if i == 0 and args.atc:
+        if grad_ar:
+            opt.step()
+            spread["after_step"].append(consensus_spread(rep.flat)["max"])
+        elif i == 0 and args.atc:
             # One observed ATC step: the ranks' spread after the local
             # update and after the neighbor combine.
             opt.adapt()
@@ -293,6 +325,8 @@ def measure(args, tr: Trainer = None, quiet: bool = False) -> dict:
         dt = time.perf_counter() - t0
         rates.append(per_batch * args.num_batches_per_iter / dt)
         step_s.append(dt / args.num_batches_per_iter)
+        if grad_ar:
+            spread["after_step"].append(consensus_spread(rep.flat)["max"])
         if not quiet:
             print(f"iter {i}: {rates[-1]:.1f} {unit}/sec across {n} ranks "
                   f"on {dev}", flush=True)
@@ -310,7 +344,9 @@ def measure(args, tr: Trainer = None, quiet: bool = False) -> dict:
         "spread": spread,
         "steps": opt.step_count,
     }
-    if args.mfu and not tr.image:
+    if args.mfu and not tr.image and args.num_experts:
+        out["mfu_note"] = MOE_MFU_NOTE
+    elif args.mfu and not tr.image:
         fpt = transformer_train_flops_per_token(args, rep.numel)
         out["train_flops_per_token"] = fpt
         out["peak_tflops"] = args.peak_tflops
@@ -329,6 +365,8 @@ def main(argv=None):
           f"{res[unit + '_per_s_ci']:.1f} ({res['ranks']} ranks on "
           f"{res['device']}, model={args.model}, step "
           f"{res['step_ms']:.1f} ms)")
+    if "mfu_note" in res:
+        print(f"note: {res['mfu_note']}")
     if "mfu" in res:
         print(f"MFU: {100 * res['mfu']:.1f}% of {res['peak_tflops']:.0f} "
               f"TFLOP/s ({res['train_flops_per_token'] / 1e9:.2f} GFLOP "

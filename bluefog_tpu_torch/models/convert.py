@@ -25,7 +25,7 @@ import torch
 from torch import nn
 
 from bluefog_tpu_torch.models.layers import BatchNorm, Conv
-from bluefog_tpu_torch.models.transformer import RMSNorm
+from bluefog_tpu_torch.models.transformer import RMSNorm, SwitchMlp
 
 __all__ = ["transformer_params_from_jax", "params_from_jax",
            "jax_ravel_order", "flax_leaf"]
@@ -66,7 +66,8 @@ def flax_leaf(model: nn.Module, name: str
                 "running_var": "var"}[leaf]
     elif isinstance(owner, nn.Embedding):
         leaf = "embedding"
-    elif not isinstance(owner, (Conv, nn.Linear, RMSNorm)) and owner_name:
+    elif not isinstance(owner, (Conv, nn.Linear, RMSNorm, SwitchMlp)) \
+            and owner_name:
         raise ValueError(f"no flax counterpart for {name} "
                          f"({type(owner).__name__})")
     return coll, tuple(path) + (leaf,), dims
@@ -110,7 +111,9 @@ _LM_DENSE = ("qkv", "q", "kv", "proj", "gate", "up", "down")
 def transformer_params_from_jax(params: Mapping) -> dict:
     """``state_dict`` of the port's ``TransformerLM`` from a flax params
     tree (``variables["params"]``) of numpy arrays: MHA or GQA, learned or
-    rotary positions (no ``wpe``), GELU or SwiGLU."""
+    rotary positions (no ``wpe``), GELU or SwiGLU, or MoE blocks
+    (``moe/router/kernel`` and the stacked ``moe/experts_up``,
+    ``moe/experts_down``, whose layout is the port's)."""
     if "params" in params:
         params = params["params"]
     sd = {"wte.weight": _t(params["wte"]["embedding"]),
@@ -121,11 +124,10 @@ def transformer_params_from_jax(params: Mapping) -> dict:
     i = 0
     while f"block_{i}" in params:
         blk = params[f"block_{i}"]
-        extra = set(blk) - {"RMSNorm_0", "RMSNorm_1", *_LM_DENSE}
+        extra = set(blk) - {"RMSNorm_0", "RMSNorm_1", "moe", *_LM_DENSE}
         if extra:
-            raise NotImplementedError(
-                f"block_{i} holds {sorted(extra)}: MoE blocks are "
-                "not ported yet (ROADMAP.md Queue 1 item 7)")
+            raise ValueError(f"block_{i} holds {sorted(extra)}, which no "
+                             "TransformerLM block has")
         pre = f"blocks.{i}."
         sd[pre + "RMSNorm_0.scale"] = _t(blk["RMSNorm_0"]["scale"])
         sd[pre + "RMSNorm_1.scale"] = _t(blk["RMSNorm_1"]["scale"])
@@ -133,5 +135,11 @@ def transformer_params_from_jax(params: Mapping) -> dict:
             if name in blk:
                 sd[pre + name + ".weight"] = \
                     _t(blk[name]["kernel"]).T.contiguous()
+        if "moe" in blk:
+            moe = blk["moe"]
+            sd[pre + "moe.router.weight"] = \
+                _t(moe["router"]["kernel"]).T.contiguous()
+            sd[pre + "moe.experts_up"] = _t(moe["experts_up"])
+            sd[pre + "moe.experts_down"] = _t(moe["experts_down"])
         i += 1
     return sd

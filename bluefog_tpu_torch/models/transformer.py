@@ -2,7 +2,8 @@
 
 The port of ``bluefog_tpu/models/transformer.py``: learned or rotary
 positions (``pos_encoding``), multi-head or grouped-query attention
-(``num_kv_heads``), GELU or SwiGLU MLP (``mlp``), RMSNorm, fused QKV under
+(``num_kv_heads``), GELU or SwiGLU MLP (``mlp``) or a switch-routed mixture
+of GELU experts (``num_experts``, :class:`SwitchMlp`), RMSNorm, fused QKV under
 MHA, activations in ``cfg.dtype`` (bfloat16 by default) over float32
 parameters, and an lm-head in float32.  ``remat`` recomputes each block's
 activations in the backward (:func:`block_policy`), and :func:`generate`
@@ -27,16 +28,17 @@ from typing import Callable, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.autograd.profiler import record_function
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from bluefog_tpu_torch.basics import resolve_device
+from bluefog_tpu_torch.parallel.moe import load_balance_loss, switch_dispatch
 
 __all__ = ["TransformerLM", "TransformerConfig", "local_attention", "Block",
-           "RMSNorm", "apply_rope", "repeat_kv", "block_policy",
+           "SwitchMlp", "RMSNorm", "apply_rope", "repeat_kv", "block_policy",
            "run_block", "init_cache", "prefill", "generate"]
 
-_ROADMAP = "not ported yet: ROADMAP.md Queue 1 item {} ({})"
 # Standard deviation of a unit normal truncated to [-2, 2]; jax's
 # ``truncated_normal`` initializers divide by it to keep the set variance.
 _TRUNC_NORMAL_STD = 0.87962566103423978
@@ -59,14 +61,17 @@ def local_attention(q, k, v, *, causal: bool = True):
 
 class TransformerConfig:
     """The JAX package's ``TransformerConfig``, with its checks and their
-    words; MoE blocks (``num_experts > 0``) raise ``NotImplementedError``
-    naming their ROADMAP item."""
+    words.  ``num_experts > 0`` replaces each block's MLP with a top-1
+    routed mixture of that many GELU experts (:class:`SwitchMlp`), each with
+    ``expert_capacity_factor * router_group_size / num_experts`` slots a
+    routing group."""
 
     def __init__(self, vocab_size=32000, num_layers=4, num_heads=8,
                  embed_dim=512, mlp_ratio=4, max_seq_len=2048,
                  dtype=torch.bfloat16, remat=False, remat_policy="full",
                  causal=True, num_experts=0, num_kv_heads=None,
-                 pos_encoding="learned", rope_theta=10000.0, mlp="gelu"):
+                 pos_encoding="learned", rope_theta=10000.0, mlp="gelu",
+                 expert_capacity_factor=2.0, router_group_size=4096):
         if num_kv_heads is not None and num_heads % num_kv_heads:
             raise ValueError(f"num_heads ({num_heads}) must be divisible "
                              f"by num_kv_heads ({num_kv_heads})")
@@ -97,8 +102,6 @@ class TransformerConfig:
                 ) from None
             if k < 0:
                 raise ValueError(f"remat_policy dots:K needs K >= 0, got {k}")
-        if num_experts:
-            raise NotImplementedError(_ROADMAP.format(7, "MoE blocks"))
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} is not divisible by "
                              f"num_heads {num_heads}")
@@ -114,6 +117,8 @@ class TransformerConfig:
         self.remat_policy = remat_policy
         self.causal = causal
         self.num_experts = num_experts
+        self.expert_capacity_factor = expert_capacity_factor
+        self.router_group_size = router_group_size
         self.pos_encoding = pos_encoding
         self.rope_theta = rope_theta
         self.mlp = mlp
@@ -138,6 +143,89 @@ class RMSNorm(nn.Module):
 def _dense(x, layer: nn.Linear, dtype):
     """flax ``nn.Dense(use_bias=False, dtype=dtype)``."""
     return F.linear(x.to(dtype), layer.weight.to(dtype))
+
+
+class _NamedEinsum(torch.autograd.Function):
+    """A two-operand ``torch.einsum`` whose forward runs under the profiler
+    range ``name`` and its backward under ``name + "_backward"``, so a step
+    profile (``profile_step``'s ``named_ops``) can tell MoE's dispatch and
+    combine apart from the other batched matmuls.  The gradient of each
+    operand is the einsum of the output gradient with the other operand
+    (every index of the spec appears in two of its three terms)."""
+
+    @staticmethod
+    def forward(ctx, name, spec, a, b):
+        ctx.name, ctx.spec = name, spec
+        ctx.save_for_backward(a, b)
+        with record_function(name):
+            return torch.einsum(spec, a, b)
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, b = ctx.saved_tensors
+        ins, out = ctx.spec.split("->")
+        sa, sb = ins.split(",")
+        ga = gb = None
+        with record_function(ctx.name + "_backward"):
+            if ctx.needs_input_grad[2]:
+                ga = torch.einsum(f"{out},{sb}->{sa}", grad, b)
+            if ctx.needs_input_grad[3]:
+                gb = torch.einsum(f"{sa},{out}->{sb}", a, grad)
+        return None, None, ga, gb
+
+
+class SwitchMlp(nn.Module):
+    """Top-1 routed mixture-of-experts MLP (Switch Transformer), the port of
+    the JAX package's ``SwitchMlp``.
+
+    Tokens route within groups of ``cfg.router_group_size``, padded to a
+    whole number of groups; padding tokens route nowhere and count in no
+    balance statistic.  Each expert takes ``max(1, int(factor * g / E))``
+    tokens a group.  The router is a float32 Dense on the float32 tokens;
+    the expert weights are stacked ``experts_up (E, d, hidden)`` and
+    ``experts_down (E, hidden, d)`` in flax's layout, and the four einsums
+    (dispatch, up, down, combine) run in ``cfg.dtype`` with tanh-GELU
+    between up and down.  ``forward`` returns the output and the
+    load-balancing auxiliary loss (the mean over groups), which the JAX
+    package sows as ``intermediates/moe_aux_loss``."""
+
+    def __init__(self, cfg: TransformerConfig):
+        super().__init__()
+        E, d = cfg.num_experts, cfg.embed_dim
+        hidden = cfg.mlp_ratio * d
+        self.cfg = cfg
+        self.router = nn.Linear(d, E, bias=False)
+        self.experts_up = nn.Parameter(torch.empty(E, d, hidden))
+        self.experts_down = nn.Parameter(torch.empty(E, hidden, d))
+
+    def forward(self, x):
+        cfg, dt = self.cfg, self.cfg.dtype
+        B, S, d = x.shape
+        E = cfg.num_experts
+        T = B * S
+        g = min(cfg.router_group_size, T)
+        G = -(-T // g)
+        pad = G * g - T
+        xt = x.reshape(T, d)
+        if pad:
+            xt = torch.cat([xt, xt.new_zeros(pad, d)])
+        xt = xt.reshape(G, g, d)
+        capacity = max(1, int(cfg.expert_capacity_factor * g / E))
+        with record_function("moe::plan"):
+            # A float32 Dense on float32 tokens (the weight is float32).
+            logits = self.router(xt.float())
+            valid = (torch.arange(G * g, device=x.device) < T).float(
+            ).reshape(G, g)
+            combine, dispatch = switch_dispatch(logits, E, capacity, valid)
+            aux = load_balance_loss(logits, valid).mean()
+        xe = _NamedEinsum.apply("moe::dispatch", "gect,gtd->gecd",
+                                dispatch.to(dt), xt.to(dt))
+        ye = F.gelu(torch.einsum("gecd,edh->gech", xe,
+                                 self.experts_up.to(dt)), approximate="tanh")
+        ye = torch.einsum("gech,ehd->gecd", ye, self.experts_down.to(dt))
+        y = _NamedEinsum.apply("moe::combine", "gtec,gecd->gtd",
+                               combine.to(dt), ye)
+        return y.reshape(G * g, d)[:T].reshape(B, S, d), aux
 
 
 def apply_rope(x, positions, theta: float = 10000.0):
@@ -216,6 +304,9 @@ class Block(nn.Module):
             self.kv = nn.Linear(E, 2 * kv_h * (E // h), bias=False)
         self.proj = nn.Linear(E, E, bias=False)
         self.RMSNorm_1 = RMSNorm(E, cfg.dtype)
+        if cfg.num_experts > 0:
+            self.moe = SwitchMlp(cfg)
+            return
         if cfg.mlp == "swiglu":
             self.gate = nn.Linear(E, hidden, bias=False)
         self.up = nn.Linear(E, hidden, bias=False)
@@ -223,10 +314,11 @@ class Block(nn.Module):
 
     def forward(self, x, positions=None, cache=None, kv_sink=None):
         """Training and prefill path when ``cache is None`` (``kv_sink``, a
-        list, receives the block's shared-head ``(k, v)``); with ``cache =
-        (k_cache, v_cache)`` (``(B, L, kv_h, d)``) ``x`` is ONE new token
-        per sequence, written into the cache in place at ``positions`` and
-        attended against it; returns ``(x, cache)``."""
+        list, receives the block's shared-head ``(k, v)``); a MoE block
+        returns ``(x, aux)``, its load-balancing loss beside the output.
+        With ``cache = (k_cache, v_cache)`` (``(B, L, kv_h, d)``) ``x`` is
+        ONE new token per sequence, written into the cache in place at
+        ``positions`` and attended against it; returns ``(x, cache)``."""
         cfg, dt = self.cfg, self.cfg.dtype
         h = cfg.num_heads
         d = cfg.embed_dim // h
@@ -274,6 +366,9 @@ class Block(nn.Module):
             attn = torch.einsum("bgrql,blgd->bqgrd", probs, cv)
         x = x + _dense(attn.reshape(B, S, cfg.embed_dim), self.proj, dt)
         y = self.RMSNorm_1(x)
+        if cfg.num_experts > 0:
+            y, aux = self.moe(y)
+            return x + y, aux
         if cfg.mlp == "swiglu":
             y = F.silu(_dense(y, self.gate, dt)) * _dense(y, self.up, dt)
         else:
@@ -317,7 +412,7 @@ class TransformerLM(nn.Module):
                                       generator=generator)
 
     def forward(self, tokens, positions=None, return_hidden: bool = False,
-                cache=None):
+                cache=None, moe_aux: Optional[list] = None):
         """Logits ``(B, S, vocab)`` in float32 for int tokens ``(B, S)``.
 
         ``positions``: optional ``(B, S)`` (or ``(1, S)``) position ids.
@@ -325,13 +420,20 @@ class TransformerLM(nn.Module):
         output ``(B, S, E)``, for ``ops.chunked_loss``.  ``cache``: the
         per-block ``(k, v)`` caches of :func:`init_cache`, for one-token
         decoding at explicit ``positions``; the caches are written in place
-        and ``(logits, cache)`` returned."""
-        return self._run(tokens, positions, return_hidden, cache)
+        and ``(logits, cache)`` returned.  ``moe_aux``: a list that receives
+        each MoE block's load-balancing loss, in block order (the JAX
+        package's sown ``intermediates/moe_aux_loss``); a remat recompute
+        adds nothing to it."""
+        return self._run(tokens, positions, return_hidden, cache,
+                         moe_aux=moe_aux)
 
     def _run(self, tokens, positions=None, return_hidden=False, cache=None,
-             kv_sink: Optional[list] = None):
+             kv_sink: Optional[list] = None, moe_aux: Optional[list] = None):
         cfg = self.cfg
         if cache is not None:
+            if cfg.num_experts > 0:
+                raise NotImplementedError(
+                    "KV-cache decoding with MoE blocks is not supported")
             if not cfg.causal:
                 raise ValueError(
                     "KV-cache decoding requires causal=True: the decode "
@@ -358,10 +460,17 @@ class TransformerLM(nn.Module):
         for i, blk in enumerate(self.blocks):
             if cache is not None:
                 x, cache[i] = blk(x, positions, cache[i])
-            elif kv_sink is not None:
+                continue
+            # The aux loss is an output of the (checkpointed) block, so a
+            # recompute in the backward cannot add it twice.
+            if kv_sink is not None:
                 x = blk(x, positions, None, kv_sink)
             else:
                 x = run_block(blk, block_policy(cfg, i), x, positions)
+            if cfg.num_experts > 0:
+                x, aux = x
+                if moe_aux is not None:
+                    moe_aux.append(aux)
         x = self.RMSNorm_0(x)
         if return_hidden:
             return x

@@ -1,24 +1,27 @@
 """Topology -> neighbor-exchange schedule compiler.
 
-The port's copy of the part of ``bluefog_tpu/ops/schedule.py`` that the
-dynamic-topology training step needs.  A topology compiles once into a list
-of rounds plus weight vectors; the edge set is partitioned by cyclic shift
-distance ``d = (dst - src) mod n``, and all edges of one distance form a
-partial permutation, i.e. one round of point-to-point exchange.
+The port's copy of ``bluefog_tpu/ops/schedule.py``.  A topology compiles
+once into a list of rounds plus weight vectors; the edge set is partitioned
+by cyclic shift distance ``d = (dst - src) mod n``, and all edges of one
+distance form a partial permutation, i.e. one round of point-to-point
+exchange.  Every compiled matrix is then repacked into the least number of
+rounds (``ops/schedule_opt.py``, on as the JAX package's default
+``BLUEFOG_TPU_SCHEDULE_OPT`` is) and memoized on its bytes, so the port's
+schedules are the JAX package's round for round.
 
 Weights are applied *source-side*: round ``r`` sends ``x * send_scale_r[src]``
 and the receiver accumulates unscaled, so receiver-chosen and sender-chosen
 weights are one convention.
 
-Left out here: the native round decomposition and the min-round repack of
-``ops/schedule_opt.py``.  A one-peer phase has one round, so its schedule is
-the same either way; a static multi-round topology may order its rounds
-differently from the JAX package's repacked schedule.
+Left out here: the native round decomposition (its pure-Python oracle
+below gives the same rounds), and the schedule artifact's provenance tags,
+placement and synthesis passes.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import cached_property
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import networkx as nx
@@ -30,8 +33,10 @@ __all__ = [
     "CommRound",
     "StaticSchedule",
     "DynamicSchedule",
+    "PairGossipSchedule",
     "compile_static",
     "compile_dynamic",
+    "compile_pair_gossip",
     "uniform_weights",
 ]
 
@@ -53,6 +58,15 @@ class CommRound:
     recv_mask: np.ndarray
     src_of: np.ndarray
 
+    @cached_property
+    def dst_of(self) -> np.ndarray:
+        """(n,) int array; dst rank each src feeds this round, -1 when
+        silent: the inverse of ``src_of``."""
+        dst = np.full(len(self.send_scale), -1, dtype=np.int32)
+        for s, d in self.pairs:
+            dst[s] = d
+        return dst
+
 
 @dataclass(frozen=True, eq=False)
 class StaticSchedule:
@@ -62,6 +76,31 @@ class StaticSchedule:
     self_scale: np.ndarray       # (n,)
     indegree: np.ndarray         # (n,) int, self-loop excluded
     outdegree: np.ndarray        # (n,) int, self-loop excluded
+
+    @property
+    def max_indegree(self) -> int:
+        return int(self.indegree.max(initial=0))
+
+    @cached_property
+    def slot_tables(self) -> Tuple[np.ndarray, ...]:
+        """Per-round output slot of each receiving rank for ordered concat
+        (``neighbor_allgather``): the arriving src's position in the
+        receiver's ascending in-neighbor list, -1 when silent."""
+        in_nbrs: List[List[int]] = [[] for _ in range(self.n)]
+        for rnd in self.rounds:
+            for s, d in rnd.pairs:
+                in_nbrs[d].append(s)
+        for lst in in_nbrs:
+            lst.sort()
+        tables = []
+        for rnd in self.rounds:
+            slot = np.full(self.n, -1, dtype=np.int32)
+            for dst in range(self.n):
+                s = rnd.src_of[dst]
+                if s >= 0:
+                    slot[dst] = in_nbrs[dst].index(int(s))
+            tables.append(slot)
+        return tuple(tables)
 
 
 @dataclass(frozen=True, eq=False)
@@ -73,6 +112,14 @@ class DynamicSchedule:
     @property
     def period(self) -> int:
         return len(self.phases)
+
+
+@dataclass(frozen=True, eq=False)
+class PairGossipSchedule:
+    """Single-round symmetric exchange for ``pair_gossip``."""
+    n: int
+    round: CommRound
+    self_scale: np.ndarray
 
 
 def _rounds_from_matrix_py(w: np.ndarray) -> Tuple[CommRound, ...]:
@@ -98,7 +145,8 @@ def _rounds_from_matrix_py(w: np.ndarray) -> Tuple[CommRound, ...]:
     return tuple(rounds)
 
 
-def _schedule_from_matrix(w: np.ndarray) -> StaticSchedule:
+def _naive_schedule(w: np.ndarray) -> StaticSchedule:
+    """Matrix -> schedule by the shift-distance decomposition alone."""
     n = w.shape[0]
     off_diag = w.copy()
     np.fill_diagonal(off_diag, 0.0)
@@ -109,6 +157,15 @@ def _schedule_from_matrix(w: np.ndarray) -> StaticSchedule:
         indegree=(off_diag != 0).sum(axis=0).astype(np.int32),
         outdegree=(off_diag != 0).sum(axis=1).astype(np.int32),
     )
+
+
+def _schedule_from_matrix(w: np.ndarray) -> StaticSchedule:
+    """Matrix -> repacked schedule through the compile cache: the one
+    funnel of ``compile_static`` and ``compile_dynamic``."""
+    from bluefog_tpu_torch.ops.schedule_opt import (
+        cached_schedule_from_matrix, optimize_schedule)
+    return cached_schedule_from_matrix(
+        w, lambda m: optimize_schedule(_naive_schedule(m)))
 
 
 def uniform_weights(w_adj: np.ndarray) -> np.ndarray:
@@ -174,3 +231,31 @@ def compile_dynamic(phases: Sequence[topo_mod.DynamicPhase], n: int, *,
     compiled = [_schedule_from_matrix(_phase_matrix(ph, n, weights))
                 for ph in phases]
     return DynamicSchedule(n=n, phases=tuple(compiled))
+
+
+def compile_pair_gossip(target_of: Sequence[int], n: int, *,
+                        self_weight: float = 0.5,
+                        target_weight: float = 0.5) -> PairGossipSchedule:
+    """Compile a pairwise exchange: ``target_of[i]`` is rank ``i``'s partner
+    (must be mutual, ``target_of[target_of[i]] == i``), or -1 to sit out."""
+    pairs = []
+    send_scale = np.zeros(n)
+    recv_mask = np.zeros(n)
+    src_of = np.full(n, -1, dtype=np.int32)
+    self_scale = np.ones(n)
+    for i, t in enumerate(target_of):
+        if t < 0:
+            continue
+        if target_of[t] != i:
+            raise AssertionError(
+                f"pair_gossip targets must be mutual ({i}<->{t})")
+        pairs.append((i, t))
+        send_scale[i] = target_weight
+        recv_mask[t] = 1.0
+        src_of[t] = i
+        self_scale[i] = self_weight
+    return PairGossipSchedule(
+        n=n,
+        round=CommRound(tuple(sorted(pairs)), send_scale, recv_mask, src_of),
+        self_scale=self_scale,
+    )

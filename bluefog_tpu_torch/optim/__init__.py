@@ -2,10 +2,13 @@
 
 from bluefog_tpu_torch.optim.optimizers import (
     CommunicationType, DistributedAdaptThenCombineOptimizer,
-    DistributedAdaptWithCombineOptimizer,
+    DistributedAdaptWithCombineOptimizer, DistributedAllreduceOptimizer,
+    DistributedGradientAllreduceOptimizer,
     DistributedNeighborAllreduceOptimizer, DistributedOptimizer)
 
 __all__ = ["CommunicationType", "DistributedOptimizer",
+           "DistributedGradientAllreduceOptimizer",
+           "DistributedAllreduceOptimizer",
            "DistributedNeighborAllreduceOptimizer",
            "DistributedAdaptWithCombineOptimizer",
            "DistributedAdaptThenCombineOptimizer"]

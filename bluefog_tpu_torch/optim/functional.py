@@ -1,28 +1,38 @@
 """Per-step distributed-optimizer functions (the functional core).
 
-The port of the parameter-consensus orders of ``bluefog_tpu/optim/
-functional.py`` over rank-major tensors on one device:
+The port of ``bluefog_tpu/optim/functional.py`` over rank-major tensors on
+one device:
 
   AWC (adapt-with-combine): ``x_{t+1} = combine(x_t) + base_update(g_t)``
   ATC (adapt-then-combine): ``x_{t+1} = combine(x_t + base_update(g_t))``
+  gradient allreduce:       ``x_{t+1} = x_t + base_update(allreduce(g_t))``
 
 ``base`` is a ``torch.optim.Optimizer`` over rank-major parameters (leading
 dim ``n``): its update is elementwise, so one ``base.step()`` is every
 rank's local step.  ``combine`` is the global average, static or dynamic
-neighbor averaging, or identity ("empty"); ``compress_combiner`` sends its
-payload compressed.  The combine updates the parameters in place, over
-column chunks of the flat buffer, so its extra memory is a few chunk-sized
-temporaries rather than copies of the whole parameter set; a combine that
-is elementwise across columns changes no value by chunking.  The
-``sparse:<frac>`` combine is not (its block is a share of the whole row and
-rotates over it), so it runs on the whole row.
+neighbor averaging (with an optional per-step ``(n, n)`` weight matrix),
+or identity ("empty"); ``compress_combiner`` sends its payload compressed.
+The combine updates the parameters in place, over column chunks of the
+flat buffer, so its extra memory is a few chunk-sized temporaries rather
+than copies of the whole parameter set; a combine that is elementwise
+across columns changes no value by chunking.  The ``sparse:<frac>``
+combine is not (its block is a share of the whole row and rotates over
+it), so it runs on the whole row, or on the whole of each fusion bucket.
+
+Fusion buckets (``fusion_buckets=k``) split the flat buffer into ``k``
+byte-balanced runs of whole leaves, as ``_bucket_groups`` does there; each
+bucket is combined on its own.  The leaves are the parameter tensors, or
+the columns of a single flat buffer given by ``leaf_sizes``
+(``RankReplicas.leaf_sizes``, the JAX ravel's leaves).  The JAX package's
+``BLUEFOG_TPU_FUSION_BUCKET_MB`` size cap reads its config module, which
+is not ported: here there is one bucket unless ``fusion_buckets`` is set.
 """
 
 from __future__ import annotations
 
 import enum
 import math
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
@@ -30,7 +40,7 @@ from bluefog_tpu_torch.ops import collective as C
 from bluefog_tpu_torch.ops.schedule import DynamicSchedule, StaticSchedule
 
 __all__ = ["CommunicationType", "make_combiner", "compress_combiner",
-           "awc_step", "atc_step"]
+           "awc_step", "atc_step", "gradient_allreduce_step"]
 
 # Columns per chunk of the in-place combine: 16M f32 columns is 64 MiB a row.
 COMBINE_CHUNK = 1 << 24
@@ -46,27 +56,42 @@ class CommunicationType(enum.Enum):
     empty = "empty"
 
 
-Combiner = Callable[..., torch.Tensor]  # (x, step) -> x
+Combiner = Callable[..., torch.Tensor]  # (x, step, weights) -> x
 
 
 def make_combiner(comm: CommunicationType, *,
                   sched: Optional[StaticSchedule] = None,
                   dyn_sched: Optional[DynamicSchedule] = None) -> Combiner:
-    """Build ``combine(x, step)`` for a communication type."""
+    """Build ``combine(x, step, weights)`` for a communication type.
+    ``weights``: an optional ``(n, n)`` matrix that overrides the
+    schedule's weights for this call (neighbor_allreduce only)."""
+    def _no_weights(weights, what):
+        if weights is not None:
+            raise ValueError(
+                f"per-step weight overrides are not supported for {what}; "
+                "they apply to (dynamic) neighbor_allreduce only")
+
     if comm == CommunicationType.empty:
-        def _empty(x, step=None):
+        def _empty(x, step=None, weights=None):
+            _no_weights(weights, "CommunicationType.empty")
             return x
         _empty.is_identity = True
         return _empty
     if comm == CommunicationType.allreduce:
-        def _ar(x, step=None):
+        def _ar(x, step=None, weights=None):
+            _no_weights(weights, "CommunicationType.allreduce")
             return C.allreduce(x)
         _ar.is_allreduce = True  # replica-identical: compress without residual
         return _ar
     if comm == CommunicationType.neighbor_allreduce:
         if dyn_sched is not None:
-            def _dyn(x, step):
-                return C.dynamic_neighbor_allreduce(x, step, dyn_sched)
+            def _dyn(x, step, weights=None):
+                phase = dyn_sched.phases[int(step) % dyn_sched.period]
+                if weights is None:
+                    return C.neighbor_allreduce(x, phase)
+                # The step's phase, its active edges weighted from the
+                # matrix.
+                return C.neighbor_allreduce_matrix(x, weights, phase)
             # Lets compress_combiner run the rotating-block sparse exchange
             # over the same phases.
             _dyn._sparse_dyn_sched = dyn_sched
@@ -74,27 +99,69 @@ def make_combiner(comm: CommunicationType, *,
         if sched is None:
             raise ValueError("static neighbor_allreduce needs a schedule")
 
-        def _nbr(x, step=None):
-            return C.neighbor_allreduce(x, sched)
+        def _nbr(x, step=None, weights=None):
+            if weights is None:
+                return C.neighbor_allreduce(x, sched)
+            return C.neighbor_allreduce_matrix(x, weights, sched)
         _nbr._sparse_sched = sched
         return _nbr
     raise NotImplementedError(
         f"communication type {comm} is not ported yet (ROADMAP.md Queue 1)")
 
 
+def _bucket_groups(nbytes: Sequence[int],
+                   fusion_buckets: Optional[int]) -> List[List[int]]:
+    """Partition leaf indices (``nbytes``: each leaf's bytes, in ravel
+    order) into contiguous fusion buckets: with ``fusion_buckets`` unset
+    one bucket; else at most that many, each closed once the running total
+    crosses its share of the bytes (``bluefog_tpu.optim.functional.
+    _bucket_groups`` in count mode)."""
+    if fusion_buckets is None:
+        return [list(range(len(nbytes)))]
+    total = sum(nbytes)
+    k = max(1, min(int(fusion_buckets), len(nbytes)))
+    if k == 1:
+        return [list(range(len(nbytes)))]
+    groups, cur, cum, b = [], [], 0, 1
+    for i, nb in enumerate(nbytes):
+        cur.append(i)
+        cum += nb
+        if cum * k >= b * total and b < k:
+            groups.append(cur)
+            cur, b = [], b + 1
+    if cur:
+        groups.append(cur)
+    return groups
+
+
 def _fused_apply(fn, params: List[torch.Tensor],
-                 chunk: Optional[int] = COMBINE_CHUNK) -> None:
+                 chunk: Optional[int] = COMBINE_CHUNK,
+                 fusion_buckets: Optional[int] = None,
+                 leaf_sizes: Optional[Sequence[int]] = None) -> None:
     """Apply ``fn`` (rank-major ``(n, m)`` -> ``(n, m)``) to the parameters
-    as one flat buffer, in place, ``chunk`` columns at a time (None: the
-    whole row at once).  A single contiguous rank-major tensor is its own
-    buffer; several are raveled into one and written back."""
+    as one flat buffer, in place: on each fusion bucket's columns, and
+    within a bucket ``chunk`` columns at a time (None: the whole bucket at
+    once).  A single contiguous rank-major tensor is its own buffer;
+    several are raveled into one and written back.  ``leaf_sizes``: the
+    columns of each leaf of the buffer (default: each tensor a leaf)."""
     n = params[0].shape[0]
     if len(params) == 1 and params[0].is_contiguous():
         flat = params[0].view(n, -1)
     else:
         flat = torch.cat([p.reshape(n, -1) for p in params], dim=1)
-    for cols in flat.split(chunk or flat.shape[1], dim=1):
-        cols.copy_(fn(cols))
+    sizes = (list(leaf_sizes) if leaf_sizes is not None
+             else [p[0].numel() for p in params])
+    if sum(sizes) != flat.shape[1]:
+        raise ValueError(f"leaf_sizes cover {sum(sizes)} columns, the "
+                         f"parameters {flat.shape[1]}")
+    starts = [0]
+    for size in sizes:
+        starts.append(starts[-1] + size)
+    for grp in _bucket_groups([size * flat.element_size() for size in sizes],
+                              fusion_buckets):
+        bucket = flat[:, starts[grp[0]]:starts[grp[-1] + 1]]
+        for cols in bucket.split(chunk or bucket.shape[1], dim=1):
+            cols.copy_(fn(cols))
     if flat.data_ptr() != params[0].data_ptr():
         off = 0
         for p in params:
@@ -105,17 +172,20 @@ def _fused_apply(fn, params: List[torch.Tensor],
 
 @torch.no_grad()
 def _tree_combine(params: List[torch.Tensor], combine: Combiner, step: int,
-                  steps_per_comm: int = 1, fuse: bool = True) -> None:
+                  steps_per_comm: int = 1, fuse: bool = True,
+                  weights=None, fusion_buckets: Optional[int] = None,
+                  leaf_sizes: Optional[Sequence[int]] = None) -> None:
     """Apply ``combine`` to the rank-major parameters in place, skipping
     steps where ``step % steps_per_comm != 0`` (local aggregation).
-    ``fuse=True`` combines one flat buffer, as the JAX package's single
-    ravel; ``fuse=False`` combines each tensor on its own."""
+    ``fuse=True`` combines one flat buffer (or one per fusion bucket), as
+    the JAX package's ravel; ``fuse=False`` combines each tensor on its
+    own."""
     if getattr(combine, "is_identity", False) or step % steps_per_comm:
         return
-    fn = lambda x: combine(x, step=step)  # noqa: E731
+    fn = lambda x: combine(x, step=step, weights=weights)  # noqa: E731
     if fuse:
         _fused_apply(fn, params, None if getattr(combine, "whole_row", False)
-                     else COMBINE_CHUNK)
+                     else COMBINE_CHUNK, fusion_buckets, leaf_sizes)
     else:
         for p in params:
             p.copy_(fn(p))
@@ -186,7 +256,12 @@ def compress_combiner(combine: Combiner, compression: str, *,
                 "(decentralized orders); it cannot keep an allreduce "
                 "replica-identical")
 
-        def wrapped_sparse(x, step=None):
+        def wrapped_sparse(x, step=None, weights=None):
+            if weights is not None:
+                raise ValueError(
+                    "per-step weight overrides are not supported under "
+                    "sparse compression (weights are baked into the "
+                    "sparse schedule)")
             size = x[0].numel()
             kk = max(1, math.ceil(frac * size))
             rnd_idx = (0 if step is None else int(step)) // max(
@@ -208,9 +283,9 @@ def compress_combiner(combine: Combiner, compression: str, *,
     if getattr(combine, "is_identity", False):
         return combine  # keep _tree_combine's identity fast path
 
-    def wrapped(x, step=None):
+    def wrapped(x, **kw):
         q = x.to(torch.bfloat16)
-        out = combine(q, step=step).to(x.dtype)
+        out = combine(q, **kw).to(x.dtype)
         if residual:
             out = out + (x - q.to(x.dtype))
         return out
@@ -219,19 +294,78 @@ def compress_combiner(combine: Combiner, compression: str, *,
 
 def awc_step(base: torch.optim.Optimizer, combine: Combiner,
              params: List[torch.Tensor], step: int, *,
-             steps_per_comm: int = 1, fuse: bool = True) -> int:
+             steps_per_comm: int = 1, fuse: bool = True, weights=None,
+             fusion_buckets: Optional[int] = None,
+             leaf_sizes: Optional[Sequence[int]] = None) -> int:
     """Adapt-with-combine: combine the parameters, then apply the base
     update to the combined values.  Returns the next step counter."""
-    _tree_combine(params, combine, step, steps_per_comm, fuse)
+    _tree_combine(params, combine, step, steps_per_comm, fuse, weights,
+                  fusion_buckets, leaf_sizes)
     base.step()
     return step + 1
 
 
 def atc_step(base: torch.optim.Optimizer, combine: Combiner,
              params: List[torch.Tensor], step: int, *,
-             steps_per_comm: int = 1, fuse: bool = True) -> int:
+             steps_per_comm: int = 1, fuse: bool = True, weights=None,
+             fusion_buckets: Optional[int] = None,
+             leaf_sizes: Optional[Sequence[int]] = None) -> int:
     """Adapt-then-combine: local base update first, then combine.
     Returns the next step counter."""
     base.step()
-    _tree_combine(params, combine, step, steps_per_comm, fuse)
+    _tree_combine(params, combine, step, steps_per_comm, fuse, weights,
+                  fusion_buckets, leaf_sizes)
     return step + 1
+
+
+@torch.no_grad()
+def gradient_allreduce_step(base: torch.optim.Optimizer,
+                            params: List[torch.Tensor], step: int, *,
+                            acc: Optional[List[torch.Tensor]] = None,
+                            steps_per_comm: int = 1,
+                            compression: str = "none", fuse: bool = True,
+                            fusion_buckets: Optional[int] = None,
+                            leaf_sizes: Optional[Sequence[int]] = None):
+    """Synchronous gradient averaging (Horovod's order): every rank's
+    ``param.grad`` becomes the rank mean, in place, then ``base.step()``;
+    every rank applies the same update, so replicas that start equal stay
+    equal bit for bit.  Returns ``(step + 1, acc)``.
+
+    With ``steps_per_comm`` J > 1 the gradients add into ``acc`` (a list
+    of zeros like the gradients, made on the first call when None), and
+    only on steps where ``(step + 1) % J == 0`` is the J-step sum averaged,
+    written into ``param.grad`` and applied, and ``acc`` zeroed; on the
+    other steps the base optimizer does not run.  (The parameter-consensus
+    orders communicate where ``step % J == 0``.)
+
+    Compression is ``compress_combiner(..., residual=False)``: under
+    ``bf16`` the average is of the bfloat16 gradients.  ``fuse`` averages
+    the gradients as one buffer (per fusion bucket); a mixed-dtype set
+    stays per tensor, as in the JAX package."""
+    one = compress_combiner(lambda x, **kw: C.allreduce(x), compression,
+                            residual=False)
+    grads = [p.grad for p in params]
+    uniform_dtype = len({g.dtype for g in grads}) <= 1
+
+    def comm(gs):
+        if fuse and uniform_dtype:
+            _fused_apply(one, gs, COMBINE_CHUNK, fusion_buckets, leaf_sizes)
+        else:
+            for g in gs:
+                g.copy_(one(g))
+
+    if steps_per_comm == 1:
+        comm(grads)
+        base.step()
+        return step + 1, acc
+    if acc is None:
+        acc = [torch.zeros_like(g) for g in grads]
+    for a, g in zip(acc, grads):
+        a.add_(g)
+    if (step + 1) % steps_per_comm == 0:
+        comm(acc)
+        for g, a in zip(grads, acc):
+            g.copy_(a)
+            a.zero_()
+        base.step()
+    return step + 1, acc

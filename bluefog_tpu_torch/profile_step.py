@@ -6,6 +6,10 @@
         --flash-attention --atc --dynamic --num-layers 24 --embed-dim 2048 \\
         --num-heads 16 --seq-len 2048 --batch-size 2 --momentum 0 --ranks 4 \\
         --num-warmup-batches 1
+    python -m bluefog_tpu_torch.profile_step --model transformer \\
+        --flash-attention --atc --dynamic --num-layers 6 --embed-dim 2048 \\
+        --num-heads 16 --num-experts 8 --remat --seq-len 2048 \\
+        --batch-size 2 --momentum 0 --ranks 4 --num-warmup-batches 1
 
 Takes the benchmark's flags and builds its ``Trainer``; after the warmup
 steps it times one step phase by phase with CUDA events (every rank's
@@ -13,10 +17,15 @@ forward and backward, the local update, the neighbor combine), then profiles
 one more step with ``torch.profiler``: device time by kernel family, the
 largest kernels, the operators whose kernels take the most device time
 (inclusive: ``aten::repeat_interleave`` is the GQA fan-out of K and V,
-``ExpandBackward0`` its reduction in the backward), and the device's idle
-share of the step's wall time.  Takes the benchmark's flags (``--remat``,
-``--chunked-loss``, ``--num-kv-heads`` ...).  Prints one JSON line.  Needs a
-GPU.
+``ExpandBackward0`` its reduction in the backward; ``moe::plan`` is the
+MoE routing plan, ``moe::dispatch`` and ``moe::combine`` its one-hot
+einsums, each with its ``_backward``), and the device's idle share of the
+step's wall time.  Under ``--dist-optimizer gradient_allreduce`` the step
+after the forward and backward is timed whole (``step_ms``): the gradients'
+average and the update are one call.  Takes the benchmark's flags
+(``--remat``, ``--chunked-loss``, ``--num-kv-heads``, ``--num-experts``
+...).  Prints one JSON line.  Needs a GPU; :func:`profile` does the same on
+a built ``Trainer``.
 """
 
 from __future__ import annotations
@@ -28,14 +37,18 @@ import torch
 
 from bluefog_tpu_torch.benchmark import Trainer, build_parser
 
-__all__ = ["main", "kernel_family"]
+__all__ = ["main", "profile", "kernel_family", "MOE_OPS"]
 
 # Operators reported by name (inclusive device time): the GQA fan-out and
-# its backward, the chunked loss, RoPE's and SwiGLU's ops.
+# its backward, the chunked loss, RoPE's and SwiGLU's ops, and the MoE
+# routing plan with its dispatch and combine einsums (``SwitchMlp``'s
+# profiler ranges).
 _BWD = "autograd::engine::evaluate_function: "
+MOE_OPS = ("moe::plan", "moe::dispatch", "moe::dispatch_backward",
+           "moe::combine", "moe::combine_backward")
 NAMED_OPS = ("aten::repeat_interleave", _BWD + "ExpandBackward0",
              "aten::logsumexp", _BWD + "GatherBackward0", "aten::cos",
-             "aten::sin", "aten::cat", "aten::silu")
+             "aten::sin", "aten::cat", "aten::silu") + MOE_OPS
 
 
 def kernel_family(name: str) -> str:
@@ -67,20 +80,33 @@ def main(argv=None):
     for _ in range(max(1, args.num_warmup_batches)):
         tr.forward_backward()
         tr.opt.step()
-    torch.cuda.synchronize()
+    print(json.dumps(profile(tr, args.model)), flush=True)
 
+
+def profile(tr: Trainer, model: str = "") -> dict:
+    """One step of ``tr`` timed phase by phase, then one profiled step:
+    the dict ``main`` prints."""
+    torch.cuda.synchronize()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     ev[0].record()
     tr.forward_backward()
     ev[1].record()
-    tr.opt.adapt()
+    grad_ar = tr.opt.order == "gradient_allreduce"
+    if grad_ar:
+        tr.opt.step()
+    else:
+        tr.opt.adapt()
     ev[2].record()
-    tr.opt.combine()
+    if not grad_ar:
+        tr.opt.combine()
     ev[3].record()
     torch.cuda.synchronize()
-    phases = {"forward_backward_ms": ev[0].elapsed_time(ev[1]),
-              "adapt_ms": ev[1].elapsed_time(ev[2]),
-              "combine_ms": ev[2].elapsed_time(ev[3])}
+    phases = {"forward_backward_ms": ev[0].elapsed_time(ev[1])}
+    if grad_ar:
+        phases["step_ms"] = ev[1].elapsed_time(ev[2])
+    else:
+        phases.update(adapt_ms=ev[1].elapsed_time(ev[2]),
+                      combine_ms=ev[2].elapsed_time(ev[3]))
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -90,22 +116,29 @@ def main(argv=None):
         tr.opt.step()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    avgs = prof.key_averages()
+    cpu_keys = {e.key for e in avgs
+                if e.device_type == torch.autograd.DeviceType.CPU}
+    # A profiler range (``record_function``: the optimizer's step, the MoE
+    # ranges) also shows on the device's timeline under its own name,
+    # spanning the kernels it launched; counting it would count them twice.
+    kernels = [e for e in avgs
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key not in cpu_keys]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     families: dict = {}
     for e in kernels:
         fam = kernel_family(e.key)
         families[fam] = families.get(fam, 0.0) + e.self_device_time_total / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
-    ops = [e for e in prof.key_averages()
+    ops = [e for e in avgs
            if e.device_type == torch.autograd.DeviceType.CPU
            and e.device_time_total > 0]
     top_ops = sorted(ops, key=lambda e: -e.device_time_total)[:25]
     named = {e.key.replace(_BWD, ""): e for e in ops if e.key in NAMED_OPS}
-    print(json.dumps({
+    return {
         "device": torch.cuda.get_device_name(0),
-        "model": args.model,
+        "model": model,
         "phases": phases,
         "profiled_step_wall_ms": wall_ms,
         "kernel_busy_ms": busy_ms,
@@ -121,7 +154,7 @@ def main(argv=None):
         "named_ops": {k: {"count": e.count,
                           "device_ms": e.device_time_total / 1e3}
                       for k, e in sorted(named.items())},
-    }), flush=True)
+    }
 
 
 if __name__ == "__main__":

@@ -51,7 +51,8 @@ class RankReplicas:
     column block is stored in (``param.permute(dims)`` is the block's
     row-major layout; the module sees a view in its own layout).
     ``models.convert.jax_ravel_order`` gives the JAX package's ravel.
-    Default: the module's parameter order, each in its own layout."""
+    Default: the module's parameter order, each in its own layout.
+    ``leaf_sizes`` lists each parameter's columns in that order."""
 
     def __init__(self, make_module: Callable[[], nn.Module], n: int,
                  device, init: Callable[[nn.Module], None] = None,
@@ -73,7 +74,10 @@ class RankReplicas:
             else:
                 blocks.append((name, torch.Size(shape[d] for d in dims),
                                tuple(np.argsort(dims).tolist())))
-        self.numel = sum(shape.numel() for _, shape, _ in blocks)
+        # Columns of each parameter's block, in flat's order: the leaves
+        # that fusion buckets split at.
+        self.leaf_sizes = [shape.numel() for _, shape, _ in blocks]
+        self.numel = sum(self.leaf_sizes)
         self.flat = torch.empty((self.n, self.numel), dtype=torch.float32,
                                 device=self.device)
         self.flat.grad = torch.zeros_like(self.flat)

@@ -89,9 +89,31 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    the cache holds the 4 shared kv heads.
 13. ``text_generation`` — ``python -m bluefog_tpu_torch.text_generation``
    on the card: 300 Adam steps, then the exact greedy continuation.
-14. ``{"kernels": [...]}`` (launches from the ``train`` and ``llama_train``
-   phases, each path's beside), then the ``nvidia-smi`` line, then the last
-   line ``{"ok": true, "device": {...}}``.
+14. ``resnet50_gradient_allreduce`` — ``resnet50`` under ``--dist-optimizer
+   gradient_allreduce`` (batch 64, 4 ranks, 2 warmup + 2 timed steps): the
+   ranks' largest deviation must be exactly 0.0 after every step.
+15. ``moe_reference`` — a 2-layer switch-MoE LM (width 256, 2 heads of 128,
+   8 experts, routing groups of 256 tokens) through the kernels against
+   dense attention: the share of routing decisions that differ (bf16 and
+   flash-versus-dense move near-ties), the logits of each sequence's
+   tokens before its first flip, which reaches every later token through
+   the next block's attention (``REF_LOGITS_TOL``), the gradients
+   reported; and one ``SwitchMlp`` in float32 on the card (TF32 off)
+   against the same weights and input on the CPU: the same routing, then
+   output, aux loss and gradients (``SWITCH_F32_TOL``).
+16. ``moe_train`` — the benchmark with the switch-MoE LM at the 1.3B LM's
+   width: 6 layers, width 2048, 16 heads, 8 GELU experts, full remat, seq
+   2048, batch 2, vocab 32000, 4 ranks, ATC over the dynamic topology,
+   ``--mfu`` (which prints the JAX benchmark's MoE note instead), 1 warmup
+   + 2 timed steps.  Checks: 1,846,667,264 parameters a rank, finite
+   losses, the combine shrinks the spread, peak memory under 80 GB, K1
+   launches 2 x layers x ranks x steps and K2, K3 layers x ranks x steps;
+   then ``profile_step.profile`` on one more step gives the device time of
+   the routing plan and of the dispatch and combine einsums (forward,
+   recompute and backward) and their share of the step.
+17. ``{"kernels": [...]}`` (launches from the ``train``, ``llama_train`` and
+   ``moe_train`` phases, each path's beside), then the ``nvidia-smi`` line,
+   then the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a GPU or outside the repository.
 """
@@ -121,6 +143,10 @@ LLAMA = dict(num_kv_heads=2, pos_encoding="rope", mlp="swiglu")
 CE_VALUE_TOL = 1e-5          # chunked vs dense cross-entropy, f32: value
 CE_GRAD_TOL = 2e-4           # and gradients, relative
 RESNET50_PARAMS = 25557032
+MOE_LAYERS = 6               # depth cut by memory: f32 parameters and
+MOE_PARAMS = 1846667264      # gradients of 4 ranks take 59.1 GB at 6 layers
+MOE_FLIP_TOL = 0.05          # bf16 flash vs dense: share of routing flips
+SWITCH_F32_TOL = 1e-5        # SwitchMlp f32, card vs CPU: relative
 VIT_LAYERS = 12
 SEED = 0                     # inputs and weights are drawn from it
 SOURCE = "bluefog_tpu_torch/csrc/flash_attention.cu"
@@ -669,8 +695,196 @@ def check_generate(tr, seed, prompt_len=512, new=64, forced=16):
             "tol": {"logits": REF_LOGITS_TOL}}
 
 
+def moe_plans(routers, cfg, tokens):
+    """The expert that keeps each token (-1: dropped), per block, from the
+    router logits ``(G, g, E)`` each block's ``moe.router`` gave."""
+    import torch
+
+    from bluefog_tpu_torch.parallel import moe as M
+    g = min(cfg.router_group_size, tokens)
+    G = -(-tokens // g)
+    cap = max(1, int(cfg.expert_capacity_factor * g / cfg.num_experts))
+    valid = (torch.arange(G * g, device=routers[0].device) < tokens).float()
+    out = []
+    for lg in routers:
+        _, keep, _ = M._plan(lg.float(), cfg.num_experts, cap,
+                             valid.reshape(G, g))
+        kept = keep.sum(-1) > 0
+        out.append(torch.where(kept, keep.argmax(-1), -1).reshape(-1)[:tokens])
+    return out
+
+
+def routed(model, fn):
+    """``fn()``'s result and the router logits of each of ``model``'s MoE
+    blocks during it."""
+    from bluefog_tpu_torch.models.transformer import SwitchMlp
+    logits = []
+    hooks = [m.router.register_forward_hook(
+        lambda mod, args, out: logits.append(out.detach()))
+        for m in model.modules() if isinstance(m, SwitchMlp)]
+    try:
+        return fn(), logits
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def check_moe_reference(seed):
+    """A 2-layer MoE LM through the kernels against dense attention, and
+    one float32 ``SwitchMlp`` on the card against the CPU."""
+    import copy
+
+    import torch
+
+    from bluefog_tpu_torch.models.transformer import (TransformerConfig,
+                                                      TransformerLM)
+    from bluefog_tpu_torch.ops.flash_attention import flash_attention_impl
+
+    dev = torch.device("cuda")
+    kw = dict(vocab_size=512, num_layers=2, num_heads=2, embed_dim=256,
+              max_seq_len=256, num_experts=8, router_group_size=256)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dense = TransformerLM(TransformerConfig(**kw)).to(dev)
+    dense.reset_parameters(g)
+    flash = TransformerLM(TransformerConfig(**kw),
+                          flash_attention_impl()).to(dev)
+    flash.load_state_dict(dense.state_dict())
+    tokens = torch.randint(0, 512, (2, 256), generator=g, device=dev)
+    T = tokens.numel()
+    runs = {}
+    for name, model in (("dense", dense), ("flash", flash)):
+        (logits, grads), routers = routed(
+            model, lambda: logits_and_grads(model, tokens))
+        runs[name] = (logits, grads, moe_plans(routers, model.cfg, T))
+    agree = torch.ones(T, dtype=torch.bool, device=dev)
+    flips = 0
+    for a, b in zip(runs["dense"][2], runs["flash"][2]):
+        flips += int((a != b).sum())
+        agree &= a == b
+    # A flipped token reaches every later token of its sequence through the
+    # next block's causal attention: hold the tokens before the first flip.
+    agree = agree.reshape(tokens.shape).cumprod(1).bool().reshape(-1)
+    share = flips / (T * len(runs["dense"][2]))
+    require(share <= MOE_FLIP_TOL,
+            f"{share:.2%} of routing decisions differ, over {MOE_FLIP_TOL}")
+    rows = lambda t: t.reshape(T, -1)[agree]  # noqa: E731
+    logit_err = rel_err(rows(runs["flash"][0]), rows(runs["dense"][0]))
+    require(logit_err <= REF_LOGITS_TOL,
+            f"logits before the first routing flip differ by {logit_err} "
+            f"over {REF_LOGITS_TOL}")
+    grad_err = {k: rel_err(runs["flash"][1][k], gd)
+                for k, gd in runs["dense"][1].items()}
+    worst = max(grad_err, key=grad_err.get)
+    require(math.isfinite(grad_err[worst]), "gradients finite")
+    out = {"routing_flips": flips, "routing_decisions": T * 2,
+           "flip_share": share, "agreeing_tokens": int(agree.sum()),
+           "logits_rel_err_agreeing": logit_err,
+           "grad_rel_err": grad_err[worst], "grad_rel_err_worst_param": worst,
+           "tol": {"flip_share": MOE_FLIP_TOL, "logits": REF_LOGITS_TOL}}
+
+    # One SwitchMlp in float32: the card (TF32 off) against the CPU.
+    cfg = TransformerConfig(dtype=torch.float32, **kw)
+    gc = torch.Generator().manual_seed(seed)
+    lm = TransformerLM(cfg)
+    lm.reset_parameters(gc)
+    mlps = {"cpu": lm.blocks[0].moe,
+            "card": copy.deepcopy(lm.blocks[0].moe).to(dev)}
+    x0 = torch.randn(2, 256, 256, generator=gc)
+    tgt = torch.randn(2, 256, 256, generator=gc)
+    res = {}
+    for where, mlp in mlps.items():
+        at = next(mlp.parameters()).device
+        x = x0.to(at, copy=True).requires_grad_()
+        (y, aux), routers = routed(mlp, lambda: mlp(x))
+        ((y * tgt.to(at)).sum() + aux).backward()
+        res[where] = {"plan": moe_plans(routers, cfg, 512)[0].cpu(),
+                      "y": y.detach().cpu(), "aux": float(aux.detach()),
+                      "grads": {"x": x.grad.cpu(),
+                                **{k: p.grad.cpu()
+                                   for k, p in mlp.named_parameters()}}}
+    moved = int((res["cpu"]["plan"] != res["card"]["plan"]).sum())
+    require(moved == 0, f"f32 SwitchMlp routes {moved} tokens otherwise on "
+                        f"the card")
+    errs = {"y": rel_err(res["card"]["y"], res["cpu"]["y"]),
+            "aux_abs": abs(res["card"]["aux"] - res["cpu"]["aux"]),
+            **{f"grad_{k}": rel_err(v, res["cpu"]["grads"][k])
+               for k, v in res["card"]["grads"].items()}}
+    bad = {k: v for k, v in errs.items() if not v <= SWITCH_F32_TOL}
+    require(not bad, f"f32 SwitchMlp card vs CPU over {SWITCH_F32_TOL}: {bad}")
+    out["switch_f32"] = {**errs, "dropped_tokens": int(
+        (res["cpu"]["plan"] < 0).sum()), "tol": SWITCH_F32_TOL}
+    return out
+
+
+def moe_train_phase(benchmark):
+    """The switch-MoE LM at the 1.3B LM's width, 4 ranks, remat, through
+    K1-K3; returns the launches."""
+    import torch
+
+    from bluefog_tpu_torch import profile_step
+    from bluefog_tpu_torch.ops import flash_attention as FA
+
+    args = benchmark.build_parser().parse_args([
+        "--model", "transformer", "--flash-attention", "--atc", "--dynamic",
+        "--num-layers", str(MOE_LAYERS), "--embed-dim", "2048",
+        "--num-heads", "16", "--num-experts", "8", "--remat",
+        "--seq-len", "2048", "--batch-size", "2", "--vocab-size", "32000",
+        "--momentum", "0", "--ranks", "4", "--mfu",
+        "--num-warmup-batches", "1", "--num-iters", "2",
+        "--num-batches-per-iter", "1", "--seed", str(SEED)])
+    tr = benchmark.Trainer(args)
+    FA.reset_launch_counts()
+    res = benchmark.measure(args, tr)
+    launches = flash_launches()
+    steps = args.num_warmup_batches + args.num_iters * args.num_batches_per_iter
+    per = MOE_LAYERS * args.ranks * steps
+    expected = {"K1": 2 * per, "K2": per, "K3": per}
+    prof = profile_step.profile(tr, "transformer (MoE)")
+    named = prof["named_ops"]
+    moe_ms = {k: named[k]["device_ms"] for k in profile_step.MOE_OPS
+              if k in named}
+    einsum_ms = sum(v for k, v in moe_ms.items() if k != "moe::plan")
+    step_ms = sum(prof["phases"].values())
+    emit("moe_train", config={
+        "num_layers": MOE_LAYERS, "embed_dim": 2048, "num_heads": 16,
+        "num_experts": 8, "expert_capacity_factor": 2.0,
+        "router_group_size": 4096, "mlp": "gelu experts", "remat": "full",
+        "seq_len": 2048, "batch_size": 2, "vocab_size": 32000,
+        "momentum": 0.0, "ranks": args.ranks, "order": "atc",
+        "topology": "dynamic one-peer ExponentialGraph(4)"},
+        launches=launches, expected_launches=expected,
+        moe_device_ms=moe_ms, dispatch_combine_ms=einsum_ms,
+        dispatch_combine_share_of_device=einsum_ms / prof["kernel_busy_ms"],
+        dispatch_combine_share_of_step=einsum_ms / step_ms,
+        profile={k: prof[k] for k in (
+            "phases", "profiled_step_wall_ms", "kernel_busy_ms",
+            "device_idle_share", "idle_share_of_event_step", "families_ms",
+            "top_kernels", "top_ops")}, **res)
+    require(res["params_per_rank"] == MOE_PARAMS,
+            f"flat has {res['params_per_rank']} columns, expected "
+            f"{MOE_PARAMS}")
+    require(all(math.isfinite(x) for x in res["losses"]),
+            f"finite losses {res['losses']}")
+    require(res["steps"] == steps, f"{res['steps']} steps, expected {steps}")
+    require(launches == expected, f"launches {launches}, expected {expected}")
+    require(res["spread"]["after_combine"] < res["spread"]["after_adapt"],
+            f"the combine shrinks the spread {res['spread']}")
+    require(res["peak_mem_gb"] < 80, f"peak {res['peak_mem_gb']} GB")
+    require("mfu" not in res and "mfu_note" in res, "MoE reports no MFU")
+    require(einsum_ms > 0 and set(moe_ms) == set(profile_step.MOE_OPS),
+            f"the profile names the MoE ops: {sorted(moe_ms)}")
+    require(0 < prof["kernel_busy_ms"] <= prof["profiled_step_wall_ms"],
+            f"device busy {prof['kernel_busy_ms']} ms within the profiled "
+            f"step's {prof['profiled_step_wall_ms']} ms")
+    del tr
+    torch.cuda.empty_cache()
+    return launches
+
+
 def image_phase(benchmark, argv, checks_spread_by="max"):
-    """One benchmark run of an image model; the common checks."""
+    """One benchmark run of an image model; the common checks
+    (``checks_spread_by``: ``max`` or ``rms`` must shrink in the combine;
+    ``exact``: gradient allreduce, 0.0 after every step)."""
     import torch
     args = benchmark.build_parser().parse_args(argv + ["--seed", str(SEED)])
     tr = benchmark.Trainer(args)
@@ -680,9 +894,14 @@ def image_phase(benchmark, argv, checks_spread_by="max"):
             f"finite losses {res['losses']}")
     require(res["steps"] == steps, f"{res['steps']} steps, expected {steps}")
     sp = res["spread"]
-    key = "after_combine" if checks_spread_by == "max" else "rms_after_combine"
-    require(sp[key] < sp[key.replace("combine", "adapt")],
-            f"the combine shrinks the spread {sp}")
+    if checks_spread_by == "exact":
+        require(sp["after_step"] == [0.0] * steps,
+                f"the replicas differ after a step: {sp}")
+    else:
+        key = ("after_combine" if checks_spread_by == "max"
+               else "rms_after_combine")
+        require(sp[key] < sp[key.replace("combine", "adapt")],
+                f"the combine shrinks the spread {sp}")
     flat_ptr = tr.rep.flat.untyped_storage().data_ptr()
     bufs = [tr.rep.rank_buffers(r) for r in range(tr.n)]
     if bufs[0]:
@@ -819,6 +1038,13 @@ def main():
         require(res["params_per_rank"] == RESNET50_PARAMS,
                 f"flat has {res['params_per_rank']} columns")
         emit("resnet50_compression", compression=comp, **res)
+    res = image_phase(benchmark, image + [
+        "--dist-optimizer", "gradient_allreduce", "--num-warmup-batches", "2",
+        "--num-iters", "2", "--num-batches-per-iter", "1"],
+        checks_spread_by="exact")
+    require(res["params_per_rank"] == RESNET50_PARAMS,
+            f"flat has {res['params_per_rank']} columns")
+    emit("resnet50_gradient_allreduce", **res)
 
     FA.reset_launch_counts()
     vit_args = ["--model", "vit", "--batch-size", "64", "--ranks", "4",
@@ -857,15 +1083,20 @@ def main():
             f"text_generation {res}")
     emit("text_generation", seconds=time.perf_counter() - t0, **res)
 
+    emit("moe_reference", **check_moe_reference(SEED))
+    moe_launches = moe_train_phase(benchmark)
+
     kernels = []
     for kname, (fn, replaces) in KERNELS.items():
         r = main_res[kname]
         kernels.append({"name": f"{kname} {fn}", "route": "cuda",
                         "source": SOURCE, "replaces": replaces,
-                        "launches": launches[kname] + llama_launches[kname],
+                        "launches": (launches[kname] + llama_launches[kname]
+                                     + moe_launches[kname]),
                         "launches_by_path": {
                             "train": launches[kname],
                             "llama_train": llama_launches[kname],
+                            "moe_train": moe_launches[kname],
                             "generate": gen_launches[kname],
                             "vit": vit_launches[kname]},
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],

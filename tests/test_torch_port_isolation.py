@@ -22,7 +22,9 @@ def test_import_leaves_jax_out():
     code = ("import sys, bluefog_tpu_torch, bluefog_tpu_torch.benchmark, "
             "bluefog_tpu_torch.bench, bluefog_tpu_torch.profile_step, "
             "bluefog_tpu_torch.optim, bluefog_tpu_torch.models, "
-            "bluefog_tpu_torch.models.convert, bluefog_tpu_torch.replicas;"
+            "bluefog_tpu_torch.models.convert, bluefog_tpu_torch.replicas, "
+            "bluefog_tpu_torch.parallel.moe, bluefog_tpu_torch.ops.collective, "
+            "bluefog_tpu_torch.ops.schedule_opt;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'bluefog_tpu'));"
             "print(bad); sys.exit(1 if bad else 0)")

@@ -107,14 +107,10 @@ def test_reset_parameters_draws_flax_default_distributions(key):
     {"remat": True}, {"cache": True}, {"num_experts": 4}],
     ids=["gqa", "rope", "swiglu", "remat", "cache", "moe"])
 def test_transformer_options_build_and_run(kw):
-    """GQA, RoPE, SwiGLU, remat and the KV cache build and run a forward;
-    MoE blocks still raise, naming their ROADMAP item."""
+    """GQA, RoPE, SwiGLU, remat, the KV cache and MoE blocks build and run
+    a forward (and a backward)."""
     kw = dict(kw)
     cache = kw.pop("cache", False)
-    if "num_experts" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            TransformerConfig(num_heads=4, embed_dim=64, **kw)
-        return
     cfg = TransformerConfig(vocab_size=V, num_layers=L, num_heads=HEADS,
                             embed_dim=E, max_seq_len=SEQ,
                             dtype=torch.float32, **kw)

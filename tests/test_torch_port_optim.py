@@ -2,8 +2,8 @@
 two-leaf parameter set, with per-rank gradients made from a seed.
 
 Several leaves take the raveled (non-single-buffer) path of the fused
-combine.  Tolerance 1e-6: float32, the same arithmetic in both; static
-rounds may be summed in another order (no schedule_opt repack)."""
+combine.  Tolerance 1e-6: float32, the same arithmetic in both (XLA may
+fuse a weighted sum into multiply-adds under ``jit``)."""
 
 import numpy as np
 import optax

@@ -67,14 +67,40 @@ def test_compile_dynamic_equal(n, table):
 
 @pytest.mark.parametrize("n", SIZES)
 def test_compile_static_same_weights(n):
-    """The JAX package repacks static rounds (schedule_opt), the port does
-    not: the rounds may differ, the weights they carry do not."""
-    for weighted in (True, False):
-        a = jsched.compile_static(jtopo.ExponentialGraph(n),
-                                  use_topo_weights=weighted)
-        b = tsched.compile_static(ttopo.ExponentialGraph(n),
-                                  use_topo_weights=weighted)
-        np.testing.assert_array_equal(a.self_scale, b.self_scale)
-        edges = lambda s: sorted((p, float(r.send_scale[p[0]]))  # noqa: E731
-                                 for r in s.rounds for p in r.pairs)
-        assert edges(a) == edges(b)
+    """Both packages repack static rounds (``schedule_opt``): the rounds,
+    and the weights they carry, are equal round for round, on shift-
+    structured and on irregular topologies."""
+    for name in ("ExponentialGraph", "MeshGrid2DGraph", "StarGraph"):
+        for weighted in (True, False):
+            a = jsched.compile_static(getattr(jtopo, name)(n),
+                                      use_topo_weights=weighted)
+            b = tsched.compile_static(getattr(ttopo, name)(n),
+                                      use_topo_weights=weighted)
+            _same_schedule(a, b)
+            assert a.max_indegree == b.max_indegree
+            for ta, tb in zip(a.slot_tables, b.slot_tables):
+                np.testing.assert_array_equal(ta, tb)
+            for ra, rb in zip(a.rounds, b.rounds):
+                np.testing.assert_array_equal(ra.dst_of, rb.dst_of)
+
+
+@pytest.mark.parametrize("targets", [[1, 0, 3, 2], [2, -1, 0, -1, 5, 4],
+                                     [1, 2, 0]],
+                         ids=["pairs", "some-sit-out", "not-mutual"])
+def test_compile_pair_gossip_equal(targets):
+    n = len(targets)
+    try:
+        a = jsched.compile_pair_gossip(targets, n, self_weight=0.25,
+                                       target_weight=0.75)
+    except AssertionError as e:
+        with pytest.raises(AssertionError) as got:
+            tsched.compile_pair_gossip(targets, n)
+        assert str(got.value) == str(e)
+        return
+    b = tsched.compile_pair_gossip(targets, n, self_weight=0.25,
+                                   target_weight=0.75)
+    assert a.n == b.n and a.round.pairs == b.round.pairs
+    for f in ("send_scale", "recv_mask", "src_of"):
+        np.testing.assert_array_equal(getattr(a.round, f),
+                                      getattr(b.round, f))
+    np.testing.assert_array_equal(a.self_scale, b.self_scale)

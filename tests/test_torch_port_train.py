@@ -137,6 +137,8 @@ def _llama_kw(variant):
               max_seq_len=SEQ)
     if variant == "llama":
         kw.update(num_kv_heads=2, pos_encoding="rope", mlp="swiglu")
+    if variant == "moe":
+        kw.update(num_experts=4, router_group_size=32)
     return kw
 
 
@@ -245,3 +247,58 @@ def test_llama_remat_chunked_trajectory_matches_jax(devices):
     np.testing.assert_allclose(t_losses, j_losses, rtol=0, atol=1e-4)
     assert np.ptp(t_losses[-1]) > 1e-3
     assert _param_diff(rep, j_params) <= 1e-4
+
+
+def test_moe_remat_trajectory_matches_jax(devices):
+    """The slice's path at a tiny size: a 2-layer, 4-expert MoE LM (routing
+    groups of 32 tokens, two a sequence pair) with full remat, 3 ATC steps
+    over the dynamic topology on 4 ranks, through the flash path: losses
+    and parameters at 1e-4."""
+    tokens = np.random.RandomState(2).randint(
+        0, V, (N, BATCH, SEQ)).astype(np.int32)
+    init, j_losses, j_params = _jax_llama_run(devices, tokens, "moe",
+                                              remat="full")
+    t_losses, rep = _port_llama_run(init, tokens, "moe", remat="full")
+    np.testing.assert_allclose(t_losses, j_losses, rtol=0, atol=1e-4)
+    assert np.ptp(t_losses[-1]) > 1e-3
+    assert _param_diff(rep, j_params) <= 1e-4
+
+
+def _benchmark(extra):
+    args = benchmark.build_parser().parse_args([
+        "--device", "cpu", "--model", "transformer", "--flash-attention",
+        "--num-layers", "1", "--embed-dim", "32", "--num-heads", "2",
+        "--seq-len", "16", "--batch-size", "2", "--vocab-size", "64",
+        "--momentum", "0", "--ranks", "4", "--num-warmup-batches", "1",
+        "--num-iters", "2", "--num-batches-per-iter", "1"] + extra)
+    try:
+        return benchmark.measure(args, quiet=True)
+    finally:
+        tbf.shutdown()
+
+
+def test_benchmark_moe_runs_on_cpu():
+    """``--num-experts`` with remat: it trains, and ``--mfu`` reports the
+    JAX benchmark's note instead of an MFU."""
+    res = _benchmark(["--atc", "--dynamic", "--num-experts", "4", "--remat",
+                      "--mfu"])
+    assert res["steps"] == 3 and all(np.isfinite(res["losses"]))
+    assert res["spread"]["after_combine"] < res["spread"]["after_adapt"]
+    assert "mfu" not in res and "dense models only" in res["mfu_note"]
+    # 1 block: the attention, the router (32 x 4) and 4 experts of 32 x 128
+    # both ways.
+    assert res["params_per_rank"] == (64 * 32 + 16 * 32 + 2 * 32 + 32 * 96
+                                      + 32 * 32 + 32 * 4 + 2 * 4 * 32 * 128
+                                      + 32 + 64 * 32)
+
+
+@pytest.mark.parametrize("compression", ["none", "bf16"])
+def test_benchmark_gradient_allreduce_keeps_replicas_equal(compression):
+    """``--dist-optimizer gradient_allreduce``: the ranks' spread is
+    exactly 0 after every step, and their losses differ (each rank its own
+    data)."""
+    res = _benchmark(["--dist-optimizer", "gradient_allreduce",
+                      "--compression", compression])
+    assert res["steps"] == 3
+    assert res["spread"]["after_step"] == [0.0, 0.0, 0.0]
+    assert np.ptp(res["losses"]) > 0
