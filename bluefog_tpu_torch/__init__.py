@@ -8,22 +8,36 @@ asks for the CPU, and raise when no GPU is present.
     import bluefog_tpu_torch as bf
     bf.init(4)                       # 4 virtual ranks on the GPU
     x = bf.dynamic_neighbor_allreduce(rank_major_tensor, step)
+
+    bf.init_distributed()            # one process a card (bfrun, torchrun)
+    x = bf.dynamic_neighbor_allreduce(owned_rows, step)
 """
 
 from bluefog_tpu_torch import topology as topology_util
-from bluefog_tpu_torch.basics import (allgather, allgather_v, allreduce,
-                                      broadcast, broadcast_parameters, device,
-                                      dynamic_neighbor_allreduce, init,
-                                      initialized, is_topo_weighted,
-                                      load_topology, local_allreduce,
-                                      local_size, neighbor_allgather,
-                                      neighbor_allgather_v, neighbor_allreduce,
-                                      pair_gossip, rank, set_topology,
-                                      shutdown, size)
+from bluefog_tpu_torch.basics import (
+    Handle, allgather, allgather_nonblocking, allgather_v, allreduce,
+    allreduce_nonblocking, broadcast, broadcast_nonblocking,
+    broadcast_parameters, device, dynamic_neighbor_allreduce,
+    dynamic_neighbor_allreduce_nonblocking, init, init_distributed,
+    initialized, is_homogeneous, is_topo_weighted, load_topology,
+    local_allreduce, local_allreduce_nonblocking, local_rank, local_size,
+    machine_rank, machine_size, neighbor_allgather,
+    neighbor_allgather_nonblocking, neighbor_allgather_v, neighbor_allreduce,
+    neighbor_allreduce_nonblocking, owned_ranks, pair_gossip,
+    pair_gossip_nonblocking, poll, process_ranks, rank, set_topology,
+    shutdown, size, synchronize, wait)
 
-__all__ = ["topology_util", "init", "shutdown", "initialized", "size", "rank",
-           "local_size", "device", "set_topology", "load_topology",
+__all__ = ["topology_util", "init", "init_distributed", "shutdown",
+           "initialized", "size", "rank", "owned_ranks", "local_size",
+           "local_rank", "machine_size", "machine_rank", "is_homogeneous",
+           "process_ranks", "device", "set_topology", "load_topology",
            "is_topo_weighted", "allreduce", "local_allreduce", "broadcast",
            "allgather", "allgather_v", "neighbor_allreduce",
            "dynamic_neighbor_allreduce", "neighbor_allgather",
-           "neighbor_allgather_v", "pair_gossip", "broadcast_parameters"]
+           "neighbor_allgather_v", "pair_gossip", "broadcast_parameters",
+           "Handle", "allreduce_nonblocking", "local_allreduce_nonblocking",
+           "broadcast_nonblocking", "allgather_nonblocking",
+           "neighbor_allreduce_nonblocking",
+           "dynamic_neighbor_allreduce_nonblocking",
+           "neighbor_allgather_nonblocking", "pair_gossip_nonblocking",
+           "poll", "wait", "synchronize"]

@@ -1,39 +1,60 @@
 """Module-level context: the ``import bluefog_tpu_torch as bf`` surface.
 
-The port's subset of ``bluefog_tpu/basics.py`` in single-process rank-major
-mode, the same data model as the JAX package's eager API: ``n`` virtual ranks
-live on one device, and rank ``i``'s tensor is row ``i`` of a rank-major
-tensor of shape ``(n, ...)``.  The multi-process transport (one process per
-card, rounds over NCCL) is a later slice.
+The port of ``bluefog_tpu/basics.py``, with the JAX package's data model:
+rank ``i``'s tensor is row ``i`` of a rank-major tensor.  Two modes:
+
+- **One process** (:func:`init`): ``n`` virtual ranks live on one device,
+  and a rank-major tensor has all ``n`` rows.
+- **Many processes** (:func:`init_distributed`, one process per card
+  under ``bfrun``'s or ``torchrun``'s environment): each process owns a
+  contiguous block of ranks (:func:`owned_ranks`), a rank-major tensor
+  holds those rows, and the rounds cross processes over
+  ``torch.distributed`` (``ops.p2p``): NCCL on CUDA, gloo on the CPU.
 
 The context holds the device every entry point defaults to.  It is CUDA
 unless the caller asks for another device; with no GPU present, asking for
 CUDA raises instead of falling back to the CPU.
 
 The eager collectives take and return rank-major tensors on the context's
-device.  They return once their work is queued on the device's stream, as
-every torch op does: whatever reads the result waits for it.  The JAX
-package's ``*_nonblocking`` handles wait for the multi-process transport.
+device.  In one process they return once their work is queued on the
+device's stream, as every torch op does.  The ``*_nonblocking`` calls return
+a :class:`Handle`: across processes it holds the async works and finishes
+the combine at :func:`wait`; in one process the result is already queued,
+and the handle holds a CUDA event recorded after it (on the CPU it is ready
+at once).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+import hashlib
+import os
+import socket
+from typing import Dict, List, Optional, Union
 
 import networkx as nx
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from bluefog_tpu_torch import topology as topology_util
 from bluefog_tpu_torch.ops import collective as C
 from bluefog_tpu_torch.ops import schedule as S
+from bluefog_tpu_torch.ops.p2p import Pending, ProcessRanks
 
-__all__ = ["init", "shutdown", "initialized", "size", "rank", "local_size",
-           "device", "set_topology", "load_topology", "is_topo_weighted",
-           "allreduce", "local_allreduce", "broadcast", "allgather",
-           "allgather_v", "neighbor_allreduce", "dynamic_neighbor_allreduce",
-           "neighbor_allgather", "neighbor_allgather_v", "pair_gossip",
-           "broadcast_parameters", "resolve_device"]
+__all__ = ["init", "init_distributed", "shutdown", "initialized", "size",
+           "rank", "owned_ranks", "local_size", "local_rank",
+           "machine_size", "machine_rank", "is_homogeneous",
+           "process_ranks", "device", "set_topology", "load_topology",
+           "is_topo_weighted", "allreduce", "local_allreduce", "broadcast",
+           "allgather", "allgather_v", "neighbor_allreduce",
+           "dynamic_neighbor_allreduce", "neighbor_allgather",
+           "neighbor_allgather_v", "pair_gossip", "broadcast_parameters",
+           "Handle", "allreduce_nonblocking", "local_allreduce_nonblocking",
+           "broadcast_nonblocking", "allgather_nonblocking",
+           "neighbor_allreduce_nonblocking",
+           "dynamic_neighbor_allreduce_nonblocking",
+           "neighbor_allgather_nonblocking", "pair_gossip_nonblocking",
+           "poll", "wait", "synchronize", "resolve_device"]
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -53,6 +74,9 @@ class _Context:
         self.size = 0
         self.local_size = 0
         self.device: Optional[torch.device] = None
+        self.comm: Optional[ProcessRanks] = None
+        # {host digest: ranks on that host}, gathered by init_distributed.
+        self.host_rank_counts: Optional[Dict[str, int]] = None
         self.topology: Optional[nx.DiGraph] = None
         self.is_topo_weighted = False
         self.topology_version = 0
@@ -76,36 +100,120 @@ def _require_init() -> _Context:
     return _ctx
 
 
-def init(size: int, device="cuda", topology_fn=None,
-         is_weighted: bool = False, *,
-         local_size: Optional[int] = None) -> None:
-    """Initialize ``size`` virtual ranks on ``device``.
-
-    ``topology_fn``: zero-arg callable returning the virtual topology
-    (default ``ExponentialGraph(size)``, as the JAX package).
-    ``is_weighted``: use the topology's edge weights instead of uniform
-    ``1/(indeg+1)`` averaging.  ``local_size``: ranks per machine, for
-    :func:`local_allreduce` (default ``size``: one machine)."""
+def _setup(size: int, local: int, dev: torch.device, topology_fn,
+           is_weighted: bool, comm: Optional[ProcessRanks] = None) -> None:
     global _ctx
-    if int(size) < 1:
-        raise ValueError(f"size must be >= 1, got {size}")
-    local = int(size) if local_size is None else int(local_size)
-    if local < 1 or int(size) % local:
+    if local < 1 or size % local:
         raise ValueError("world size must be divisible by local_size "
-                         f"({size} ranks, local_size {local_size})")
-    dev = resolve_device(device)
+                         f"({size} ranks, local_size {local})")
     _ctx = _Context()
-    _ctx.size = int(size)
+    _ctx.size = size
     _ctx.local_size = local
     _ctx.device = dev
+    _ctx.comm = comm
     _ctx.initialized = True
     topo = topology_fn() if topology_fn is not None \
         else topology_util.ExponentialGraph(_ctx.size)
     set_topology(topo, is_weighted=is_weighted)
 
 
+def init(size: int, device="cuda", topology_fn=None,
+         is_weighted: bool = False, *,
+         local_size: Optional[int] = None) -> None:
+    """Initialize ``size`` virtual ranks on ``device``, all in this
+    process.
+
+    ``topology_fn``: zero-arg callable returning the virtual topology
+    (default ``ExponentialGraph(size)``, as the JAX package).
+    ``is_weighted``: use the topology's edge weights instead of uniform
+    ``1/(indeg+1)`` averaging.  ``local_size``: ranks per machine, for
+    :func:`local_allreduce` (default ``size``: one machine)."""
+    if int(size) < 1:
+        raise ValueError(f"size must be >= 1, got {size}")
+    dev = resolve_device(device)
+    shutdown()
+    _setup(int(size), int(size) if local_size is None else int(local_size),
+           dev, topology_fn, is_weighted)
+
+
+def _rendezvous(env) -> tuple:
+    """``(init_method, world_size, process id, local id)``: ``bfrun``'s
+    ``BFTPU_COORDINATOR`` / ``BFTPU_NUM_PROCESSES`` / ``BFTPU_PROCESS_ID``
+    / ``BFTPU_LOCAL_ID`` when set, else ``torchrun``'s environment
+    (``env://``: ``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``,
+    ``RANK``, ``LOCAL_RANK``)."""
+    coord = env.get("BFTPU_COORDINATOR")
+    if coord is not None:
+        return (f"tcp://{coord}", int(env["BFTPU_NUM_PROCESSES"]),
+                int(env["BFTPU_PROCESS_ID"]),
+                int(env.get("BFTPU_LOCAL_ID", "0")))
+    if "WORLD_SIZE" not in env or "RANK" not in env:
+        raise RuntimeError(
+            "init_distributed: no launcher environment; set BFTPU_COORDINATOR"
+            ", BFTPU_NUM_PROCESSES and BFTPU_PROCESS_ID (bfrun) or run under "
+            "torchrun (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK)")
+    return ("env://", int(env["WORLD_SIZE"]), int(env["RANK"]),
+            int(env.get("LOCAL_RANK", "0")))
+
+
+def init_distributed(topology_fn=None, is_weighted: bool = False, *,
+                     backend: Optional[str] = None, device="cuda") -> None:
+    """Multi-process init over ``torch.distributed``, the port of the JAX
+    package's ``init_distributed`` (``bluefog_tpu/basics.py`` L234-272).
+
+    The rendezvous reads the environment ``bfrun`` sets, else
+    ``torchrun``'s (:func:`_rendezvous`).  ``backend``: NCCL for a CUDA
+    ``device`` (default), gloo for the CPU; asking for NCCL without a GPU
+    raises.  On CUDA the process takes card ``BFTPU_LOCAL_ID``
+    (``LOCAL_RANK``).  Each process owns ``BFTPU_LOCAL_DEVICES`` ranks
+    (default 1; the JAX package's virtual CPU mode gives a process that
+    many devices), a contiguous block in process order; every process must
+    own as many.  ``local_size`` is the ranks a process owns when there are
+    several processes, else the world, as the JAX package's
+    ``jax.local_device_count()``."""
+    env = os.environ
+    method, nprocs, proc, local_id = _rendezvous(env)
+    dev = resolve_device(device)
+    if backend is None:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+    if backend == "nccl":
+        if not torch.cuda.is_available():
+            raise RuntimeError("init_distributed: the NCCL backend needs a "
+                               "GPU; pass backend='gloo' and device='cpu'")
+        if dev.type != "cuda":
+            raise ValueError(f"the NCCL backend moves CUDA tensors; device "
+                             f"is {dev}")
+    if dev.type == "cuda":
+        dev = torch.device("cuda", local_id)
+        torch.cuda.set_device(dev)
+    per = int(env.get("BFTPU_LOCAL_DEVICES", "1"))
+    shutdown()
+    dist.init_process_group(backend, init_method=method, world_size=nprocs,
+                            rank=proc)
+    comm = ProcessRanks(per, proc, nprocs)
+    # The JAX package's placement probe (L372-410): every process's host
+    # and rank count.
+    host = hashlib.blake2b(socket.gethostname().encode(),
+                           digest_size=8).hexdigest()
+    seen = comm.all_gather_object((host, per))
+    if any(p != per for _, p in seen):
+        dist.destroy_process_group()
+        raise ValueError("every process must own as many ranks "
+                         f"(BFTPU_LOCAL_DEVICES): {[p for _, p in seen]}")
+    _setup(comm.n, per if nprocs > 1 else comm.n, dev, topology_fn,
+           is_weighted, comm)
+    counts: Dict[str, int] = {}
+    for h, p in seen:
+        counts[h] = counts.get(h, 0) + p
+    _ctx.host_rank_counts = counts
+
+
 def shutdown() -> None:
+    """Drop the context; after :func:`init_distributed`, also the process
+    group."""
     global _ctx
+    if _ctx.comm is not None and dist.is_initialized():
+        dist.destroy_process_group()
     _ctx = _Context()
 
 
@@ -117,15 +225,52 @@ def size() -> int:
     return _require_init().size
 
 
+def owned_ranks() -> List[int]:
+    """The ranks this process drives, ascending: every rank in one
+    process."""
+    ctx = _require_init()
+    if ctx.comm is None:
+        return list(range(ctx.size))
+    return list(range(ctx.comm.lo, ctx.comm.hi))
+
+
 def rank() -> int:
-    """Lowest rank this process drives: every rank lives in this process."""
-    _require_init()
-    return 0
+    """Lowest rank this process drives (:func:`owned_ranks`)."""
+    return owned_ranks()[0]
+
+
+def process_ranks() -> Optional[ProcessRanks]:
+    """The transport of :func:`init_distributed` (None in one process): a
+    sequence axis across processes for ``parallel.ring_attention`` and
+    ``parallel.ulysses``."""
+    return _require_init().comm
 
 
 def local_size() -> int:
-    """Ranks per machine (``init(local_size=)``)."""
+    """Ranks per machine (``init(local_size=)``; under
+    :func:`init_distributed`, the ranks a process owns)."""
     return _require_init().local_size
+
+
+def local_rank() -> int:
+    """Local rank of :func:`rank` within its machine."""
+    return rank() % local_size()
+
+
+def machine_size() -> int:
+    return size() // local_size()
+
+
+def machine_rank() -> int:
+    return rank() // local_size()
+
+
+def is_homogeneous() -> bool:
+    """True iff every host runs as many ranks: under
+    :func:`init_distributed` by the hosts' rank counts gathered at init
+    (the JAX package's placement probe), else trivially."""
+    counts = _require_init().host_rank_counts
+    return not counts or len(set(counts.values())) <= 1
 
 
 def device() -> torch.device:
@@ -176,9 +321,10 @@ def dynamic_schedule(phases=None) -> S.DynamicSchedule:
 def _rank_major(x) -> torch.Tensor:
     ctx = _require_init()
     x = torch.as_tensor(x, device=ctx.device)
-    if x.dim() == 0 or x.shape[0] != ctx.size:
+    rows = len(owned_ranks())
+    if x.dim() == 0 or x.shape[0] != rows:
         raise ValueError(f"expected a rank-major tensor with leading dim "
-                         f"{ctx.size}, got shape {tuple(x.shape)}")
+                         f"{rows}, got shape {tuple(x.shape)}")
     return x
 
 
@@ -241,35 +387,103 @@ def _weight_override_matrix(
     return w
 
 
+class Handle:
+    """An op in flight, from a ``*_nonblocking`` call: :func:`poll` says
+    whether it is done, :func:`wait` returns its result.  Across processes
+    it holds the async works and finishes the op at :func:`wait`; in one
+    process the result is already queued, and a CUDA event recorded after
+    it tells when the device is through (on the CPU it is ready at once)."""
+
+    def __init__(self, pending: Pending):
+        self._pending = pending
+        self._event = None
+        if pending.is_completed():
+            out = pending.wait()
+            if isinstance(out, torch.Tensor) and out.is_cuda:
+                self._event = torch.cuda.Event()
+                self._event.record()
+
+    def poll(self) -> bool:
+        if self._event is not None:
+            return self._event.query()
+        return self._pending.is_completed()
+
+    def wait(self):
+        out = self._pending.wait()
+        if self._event is not None:
+            self._event.synchronize()
+        elif isinstance(out, torch.Tensor) and out.is_cuda:
+            torch.cuda.current_stream(out.device).synchronize()
+        return out
+
+
+def poll(handle: Handle) -> bool:
+    """True iff the handle's op is done."""
+    return handle.poll()
+
+
+def wait(handle: Handle):
+    """The handle's result, once the op is done."""
+    return handle.wait()
+
+
+def synchronize(handle: Handle):
+    """:func:`wait` (the JAX package's name for it)."""
+    return handle.wait()
+
+
+def allreduce_nonblocking(x, *, average: bool = True) -> Handle:
+    return Handle(C.allreduce(_rank_major(x), average=average,
+                              comm=_ctx.comm, async_op=True))
+
+
 def allreduce(x, *, average: bool = True) -> torch.Tensor:
     """Every rank gets the rank mean (or with ``average=False`` the sum)."""
-    return C.allreduce(_rank_major(x), average=average)
+    return C.allreduce(_rank_major(x), average=average, comm=_ctx.comm)
+
+
+def local_allreduce_nonblocking(x, *, average: bool = True) -> Handle:
+    return Handle(C.local_allreduce(_rank_major(x), local_size(),
+                                    average=average, comm=_ctx.comm,
+                                    async_op=True))
 
 
 def local_allreduce(x, *, average: bool = True) -> torch.Tensor:
     """:func:`allreduce` within each machine's ``local_size()`` ranks."""
-    return C.local_allreduce(_rank_major(x), local_size(), average=average)
+    return C.local_allreduce(_rank_major(x), local_size(), average=average,
+                             comm=_ctx.comm)
+
+
+def broadcast_nonblocking(x, root_rank: int) -> Handle:
+    return Handle(C.broadcast(_rank_major(x), root_rank, comm=_ctx.comm,
+                              async_op=True))
 
 
 def broadcast(x, root_rank: int) -> torch.Tensor:
     """Every rank gets ``root_rank``'s value."""
-    return C.broadcast(_rank_major(x), root_rank)
+    return C.broadcast(_rank_major(x), root_rank, comm=_ctx.comm)
+
+
+def allgather_nonblocking(x) -> Handle:
+    return Handle(C.allgather(_rank_major(x), comm=_ctx.comm, async_op=True))
 
 
 def allgather(x) -> torch.Tensor:
     """Every rank receives the concatenation of all ranks' tensors along
     the leading (per-rank) axis; output shape ``(size, size*d0, ...)``."""
-    return C.allgather(_rank_major(x))
+    return C.allgather(_rank_major(x), comm=_ctx.comm)
 
 
 def _ragged_pack(tensors):
-    """Validate a per-rank list of tensors that may differ in their first
-    dim only, and pad it into a rank-major ``(n, max_d, *trailing)``
-    tensor; returns it with the lengths."""
-    n = size()
-    if len(tensors) != n:
+    """Validate a per-rank list of tensors (one an owned rank) that may
+    differ in their first dim only, and pad it into a rank-major ``(m,
+    max_d, *trailing)`` tensor, ``max_d`` the world's longest; returns it
+    with every rank's length."""
+    ctx = _require_init()
+    m = len(owned_ranks())
+    if len(tensors) != m:
         raise ValueError(
-            f"expected one tensor per rank ({n}), got {len(tensors)}")
+            f"expected one tensor per rank ({m}), got {len(tensors)}")
     ts = [torch.as_tensor(t, device=device()) for t in tensors]
     trailing = ts[0].shape[1:]
     dtype = ts[0].dtype
@@ -283,9 +497,13 @@ def _ragged_pack(tensors):
                 f"{dtype} (only the FIRST dim may vary, reference "
                 "mpi_context.cc:443-504)")
     lengths = tuple(int(t.shape[0]) for t in ts)
-    padded = ts[0].new_zeros((n, max(max(lengths), 1)) + tuple(trailing))
+    if ctx.comm is not None:
+        lengths = tuple(d for part in ctx.comm.all_gather_object(lengths)
+                        for d in part)
+    own = lengths[rank():rank() + m]
+    padded = ts[0].new_zeros((m, max(max(lengths), 1)) + tuple(trailing))
     for i, t in enumerate(ts):
-        padded[i, :lengths[i]] = t
+        padded[i, :own[i]] = t
     return padded, lengths
 
 
@@ -295,8 +513,9 @@ def allgather_v(tensors) -> torch.Tensor:
     ``(size, sum_i d_i, *trailing)``, every row the concatenation in rank
     order."""
     padded, lengths = _ragged_pack(tensors)
-    whole = torch.cat([padded[i, :d] for i, d in enumerate(lengths)])
-    return whole.expand((size(),) + whole.shape).clone()
+    rows = padded if _ctx.comm is None else _ctx.comm.all_gather(padded).wait()
+    whole = torch.cat([rows[i, :d] for i, d in enumerate(lengths)])
+    return whole.expand((padded.shape[0],) + whole.shape).clone()
 
 
 def _static_schedule_for(w: Optional[np.ndarray]) -> S.StaticSchedule:
@@ -307,33 +526,55 @@ def _static_schedule_for(w: Optional[np.ndarray]) -> S.StaticSchedule:
         ctx.topology, src_weights=w))
 
 
+def neighbor_allreduce_nonblocking(x, *, self_weight=None, src_weights=None,
+                                   dst_weights=None) -> Handle:
+    w = _weight_override_matrix(self_weight, src_weights, dst_weights)
+    return Handle(C.neighbor_allreduce(_rank_major(x), _static_schedule_for(w),
+                                       comm=_ctx.comm, async_op=True))
+
+
 def neighbor_allreduce(x, *, self_weight=None, src_weights=None,
                        dst_weights=None) -> torch.Tensor:
     """Weighted neighbor averaging over the active topology; the weight
     arguments override its weights (:func:`_weight_override_matrix`)."""
     w = _weight_override_matrix(self_weight, src_weights, dst_weights)
-    return C.neighbor_allreduce(_rank_major(x), _static_schedule_for(w))
+    return C.neighbor_allreduce(_rank_major(x), _static_schedule_for(w),
+                                comm=_ctx.comm)
+
+
+def dynamic_neighbor_allreduce_nonblocking(x, step: int, *,
+                                           phases=None) -> Handle:
+    return Handle(C.dynamic_neighbor_allreduce(
+        _rank_major(x), step, dynamic_schedule(phases), comm=_ctx.comm,
+        async_op=True))
 
 
 def dynamic_neighbor_allreduce(x, step: int, *, phases=None) -> torch.Tensor:
     """Neighbor averaging with the one-peer dynamic walk at ``step``;
     ``phases`` defaults to the phase table of the active topology."""
     return C.dynamic_neighbor_allreduce(_rank_major(x), step,
-                                        dynamic_schedule(phases))
+                                        dynamic_schedule(phases),
+                                        comm=_ctx.comm)
+
+
+def neighbor_allgather_nonblocking(x) -> Handle:
+    return Handle(C.neighbor_allgather(_rank_major(x), static_schedule(),
+                                       comm=_ctx.comm, async_op=True))
 
 
 def neighbor_allgather(x) -> torch.Tensor:
     """Gather in-neighbor tensors: output ``(size, max_indegree, ...)`` in
     ascending-src order with zero padding for irregular indegree."""
-    return C.neighbor_allgather(_rank_major(x), static_schedule())
+    return C.neighbor_allgather(_rank_major(x), static_schedule(),
+                                comm=_ctx.comm)
 
 
 def neighbor_allgather_v(tensors) -> list:
-    """Neighbor allgather of tensors whose first dims differ: entry ``dst``
-    of the returned list is the concatenation of ``tensors[src]`` over
-    ``dst``'s in-neighbors in ascending src order.  The exchange is
-    :func:`neighbor_allgather` of the padded rows; the segments are then
-    cut out of each receiver's slots."""
+    """Neighbor allgather of tensors whose first dims differ: entry ``i``
+    of the returned list, for owned rank ``dst``, is the concatenation of
+    ``tensors[src]`` over ``dst``'s in-neighbors in ascending src order.
+    The exchange is :func:`neighbor_allgather` of the padded rows; the
+    segments are then cut out of each receiver's slots."""
     padded, lengths = _ragged_pack(tensors)
     rows = neighbor_allgather(padded)
     # The slots follow the compiled schedule, whose edges are the nonzero
@@ -342,20 +583,16 @@ def neighbor_allgather_v(tensors) -> list:
     if not is_topo_weighted():
         w = S.uniform_weights(w)
     out = []
-    for dst in range(size()):
+    for i, dst in enumerate(owned_ranks()):
         srcs = [s for s in range(size()) if s != dst and w[s, dst] != 0.0]
-        segs = [rows[dst, slot, :lengths[src]]
+        segs = [rows[i, slot, :lengths[src]]
                 for slot, src in enumerate(srcs)]
         out.append(torch.cat(segs) if segs else padded.new_zeros(
             (0,) + tuple(padded.shape[2:])))
     return out
 
 
-def pair_gossip(x, target_ranks, *, self_weight: float = 0.5,
-                target_weight: float = 0.5) -> torch.Tensor:
-    """Pairwise exchange and average.  ``target_ranks``: a list (or dict)
-    giving each rank its partner, -1 (or missing) to sit out; it must be
-    mutual."""
+def _pair_schedule(target_ranks, self_weight: float, target_weight: float):
     n = size()
     if isinstance(target_ranks, dict):
         tgt = [-1] * n
@@ -363,11 +600,26 @@ def pair_gossip(x, target_ranks, *, self_weight: float = 0.5,
             tgt[r] = t
     else:
         tgt = list(target_ranks)
-    sched = _require_init().schedule(
+    return _require_init().schedule(
         ("gossip", tuple(tgt), self_weight, target_weight),
         lambda: S.compile_pair_gossip(tgt, n, self_weight=self_weight,
                                       target_weight=target_weight))
-    return C.pair_gossip(_rank_major(x), sched)
+
+
+def pair_gossip_nonblocking(x, target_ranks, *, self_weight: float = 0.5,
+                            target_weight: float = 0.5) -> Handle:
+    sched = _pair_schedule(target_ranks, self_weight, target_weight)
+    return Handle(C.pair_gossip(_rank_major(x), sched, comm=_ctx.comm,
+                                async_op=True))
+
+
+def pair_gossip(x, target_ranks, *, self_weight: float = 0.5,
+                target_weight: float = 0.5) -> torch.Tensor:
+    """Pairwise exchange and average.  ``target_ranks``: a list (or dict)
+    giving each rank its partner, -1 (or missing) to sit out; it must be
+    mutual."""
+    sched = _pair_schedule(target_ranks, self_weight, target_weight)
+    return C.pair_gossip(_rank_major(x), sched, comm=_ctx.comm)
 
 
 def broadcast_parameters(params, root_rank: int = 0):

@@ -11,12 +11,15 @@ the wire (``--compression``), and the ``--num-warmup-batches`` then
 ranks live on one device and run forward and backward one after another, so
 one rank's activations are live at a time; their parameters are rows of one
 flat buffer (``replicas``), laid out in the JAX package's ravel order, and
-their BN statistics stay rank-local.  The LM takes the JAX benchmark's
-options: GQA, RoPE, SwiGLU, per-block remat, the chunked lm-head loss, and
-``--mfu``; ``--num-experts`` swaps each block's MLP for switch-routed GELU
-experts (the loss stays the cross-entropy: the load-balancing loss is
-exposed, ``TransformerLM(..., moe_aux=[])``, not added, as in the JAX
-benchmark).  ``--dist-optimizer gradient_allreduce`` averages the gradients
+their BN statistics stay rank-local.  Launched by ``bfrun`` or
+``torchrun`` (their environment present), it runs under
+``basics.init_distributed`` instead: each process trains the ranks it owns
+(one a card) and the combine crosses processes; ``--ranks`` is then the
+launcher's.  The LM takes the JAX benchmark's options: GQA, RoPE,
+SwiGLU, per-block remat, the chunked lm-head loss, and ``--mfu``;
+``--num-experts`` swaps each block's MLP for switch-routed GELU experts
+(the loss stays the cross-entropy: the load-balancing loss is exposed,
+``TransformerLM(..., moe_aux=[])``, not added, as in the JAX benchmark).  ``--dist-optimizer gradient_allreduce`` averages the gradients
 over the ranks instead of the parameters, which keeps every replica the
 same.
 
@@ -37,13 +40,17 @@ same.
     python -m bluefog_tpu_torch.benchmark --model resnet50 --batch-size 64 \\
         --dist-optimizer gradient_allreduce --ranks 4
 
-Runs on CUDA unless ``--device cpu`` is given.
+``--efficiency`` also runs one rank alone and reports the scaling
+efficiency, this process's ranks against one of them (one process only,
+as ``examples/benchmark.py``); with every rank on one card it is not a
+scaling figure.  Runs on CUDA unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
@@ -53,6 +60,7 @@ import torch.nn.functional as F
 from bluefog_tpu_torch.ops.chunked_loss import chunked_softmax_cross_entropy
 
 __all__ = ["build_parser", "Trainer", "measure", "consensus_spread",
+           "efficiency",
            "transformer_train_flops_per_token", "main", "MODELS"]
 
 
@@ -139,6 +147,9 @@ def build_parser():
                          "(default: H100 SXM dense bf16)")
     ap.add_argument("--ranks", type=int, default=4,
                     help="virtual ranks, all on the one device")
+    ap.add_argument("--efficiency", action="store_true",
+                    help="also measure one rank alone and report the "
+                         "scaling efficiency (one process only)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     return ap
@@ -157,14 +168,28 @@ def consensus_spread(flat: torch.Tensor, chunk: int = 1 << 24) -> dict:
     """The ranks' deviation from the rank mean: ``max``, the largest of any
     parameter, and ``rms``, its root mean square over every rank and
     parameter (a combine of a share of the columns, as ``sparse:<frac>``,
-    shrinks the rms but may leave the largest deviation where it was)."""
+    shrinks the rms but may leave the largest deviation where it was).
+    Under ``basics.init_distributed`` ``flat`` holds this process's ranks,
+    and the mean, the largest deviation and the sum of squares are taken
+    over every process's."""
+    from bluefog_tpu_torch import basics
+    procs = basics.process_ranks() if basics.initialized() else None
+    n = flat.shape[0] if procs is None else procs.n
+
+    def total(t, op=None):
+        if procs is not None:
+            torch.distributed.all_reduce(
+                t, op=op or torch.distributed.ReduceOp.SUM)
+        return t
     worst = torch.zeros((), device=flat.device)
     sq = torch.zeros((), device=flat.device, dtype=torch.float64)
     for cols in flat.split(chunk, dim=1):
-        dev = cols - cols.mean(0, keepdim=True)
+        dev = cols - total(cols.sum(0, keepdim=True)) / n
         worst = torch.maximum(worst, dev.abs().amax())
         sq += dev.square().sum().double()
-    return {"max": float(worst), "rms": float((sq / flat.numel()).sqrt())}
+    total(worst, torch.distributed.ReduceOp.MAX)
+    total(sq)
+    return {"max": float(worst), "rms": float((sq / (n * flat.shape[1])).sqrt())}
 
 
 def _sync(device: torch.device) -> None:
@@ -205,8 +230,13 @@ class Trainer:
         from bluefog_tpu_torch.optim import optimizers as O
         from bluefog_tpu_torch.replicas import RankReplicas
 
-        bf.init(args.ranks, device=args.device)
-        self.n, self.device = bf.size(), bf.device()
+        if not (bf.initialized() and bf.process_ranks() is not None):
+            bf.init(args.ranks, device=args.device)
+        # Every process draws the same initialization and every rank's data
+        # from the seed, then keeps its own ranks' rows.
+        world, own = bf.size(), bf.owned_ranks()
+        rows = slice(own[0], own[-1] + 1)
+        self.n, self.world, self.device = len(own), world, bf.device()
         if self.device.type == "cuda":
             torch.backends.cudnn.benchmark = True  # tuned in the warmup
         attn = flash_attention_impl() if args.flash_attention else None
@@ -215,12 +245,13 @@ class Trainer:
         self.chunked_loss = args.chunked_loss
         if self.image:
             make, hwc, dtype, self.classes = _image_model(args, attn)
-            self.inputs = torch.randn((self.n, args.batch_size) + hwc,
+            self.inputs = torch.randn((world, args.batch_size) + hwc,
                                       generator=gen, device=self.device
-                                      ).to(dtype)
+                                      )[rows].to(dtype)
             self.targets = torch.randint(0, self.classes,
-                                         (self.n, args.batch_size),
-                                         generator=gen, device=self.device)
+                                         (world, args.batch_size),
+                                         generator=gen,
+                                         device=self.device)[rows]
         else:
             self.cfg = TransformerConfig(
                 vocab_size=args.vocab_size, num_layers=args.num_layers,
@@ -240,11 +271,12 @@ class Trainer:
                                 order=order)
         if not self.image:
             self.inputs = torch.randint(0, args.vocab_size,
-                                        (self.n, args.batch_size,
+                                        (world, args.batch_size,
                                          args.seq_len),
-                                        generator=gen, device=self.device)
+                                        generator=gen,
+                                        device=self.device)[rows]
             self.targets = torch.roll(self.inputs, -1, dims=2)
-        base = torch.optim.SGD([self.rep.flat], lr=0.0125 * self.n,
+        base = torch.optim.SGD([self.rep.flat], lr=0.0125 * world,
                                momentum=args.momentum, dampening=0)
         if args.dist_optimizer == "gradient_allreduce":
             # As the JAX benchmark: --atc and --dynamic do not apply.
@@ -335,6 +367,7 @@ def measure(args, tr: Trainer = None, quiet: bool = False) -> dict:
         "model": args.model,
         "device": str(dev),
         "ranks": n,
+        "world_size": tr.world,
         "params_per_rank": rep.numel,
         "step_ms": 1e3 * float(np.mean(step_s)),
         f"{unit}_per_s": float(np.mean(rates)),
@@ -357,10 +390,28 @@ def measure(args, tr: Trainer = None, quiet: bool = False) -> dict:
     return out
 
 
+def efficiency(args, res: dict) -> dict:
+    """The scaling efficiency of ``res`` (a :func:`measure` of this
+    process's ranks) against one rank alone, as ``examples/benchmark.py
+    --efficiency``: the rate over ``ranks`` x the one rank's rate."""
+    unit = "tokens" if args.model == "transformer" else "imgs"
+    one = measure(argparse.Namespace(**{**vars(args), "ranks": 1}),
+                  quiet=True)
+    rate1 = one[f"{unit}_per_s"]
+    return {"single_rank_per_s": rate1,
+            "efficiency": res[f"{unit}_per_s"] / (res["ranks"] * rate1)}
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    import bluefog_tpu_torch as bf
+    launched = "BFTPU_COORDINATOR" in os.environ or "WORLD_SIZE" in os.environ
+    if launched:
+        bf.init_distributed(device=args.device)
     res = measure(args)
     unit = "tokens" if args.model == "transformer" else "imgs"
+    if args.efficiency and not launched and res["ranks"] > 1:
+        res.update(efficiency(args, res))
     print(f"total {unit}/sec: {res[unit + '_per_s']:.1f} +- "
           f"{res[unit + '_per_s_ci']:.1f} ({res['ranks']} ranks on "
           f"{res['device']}, model={args.model}, step "
@@ -371,7 +422,17 @@ def main(argv=None):
         print(f"MFU: {100 * res['mfu']:.1f}% of {res['peak_tflops']:.0f} "
               f"TFLOP/s ({res['train_flops_per_token'] / 1e9:.2f} GFLOP "
               f"a token)")
+    if "efficiency" in res:
+        print(f"single-rank {unit}/sec: {res['single_rank_per_s']:.1f}")
+        print(f"scaling efficiency at {res['ranks']} ranks: "
+              f"{100 * res['efficiency']:.1f}% ({res[unit + '_per_s']:.1f} "
+              f"vs {res['ranks']} x {res['single_rank_per_s']:.1f})")
+    elif args.efficiency:
+        print("scaling efficiency: nothing to compare (one rank, or several "
+              "processes: run once per world size and divide the totals)")
     print(json.dumps(res))
+    if launched:
+        bf.shutdown()
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """Per-step distributed-optimizer functions (the functional core).
 
-The port of ``bluefog_tpu/optim/functional.py`` over rank-major tensors on
-one device:
+The port of ``bluefog_tpu/optim/functional.py`` over rank-major tensors (in
+one process every rank's row; with a ``transport``, an
+``ops.p2p.ProcessRanks``, the rows of the ranks this process owns):
 
   AWC (adapt-with-combine): ``x_{t+1} = combine(x_t) + base_update(g_t)``
   ATC (adapt-then-combine): ``x_{t+1} = combine(x_t + base_update(g_t))``
@@ -37,6 +38,7 @@ from typing import Callable, List, Optional, Sequence
 import torch
 
 from bluefog_tpu_torch.ops import collective as C
+from bluefog_tpu_torch.ops.p2p import ProcessRanks
 from bluefog_tpu_torch.ops.schedule import DynamicSchedule, StaticSchedule
 
 __all__ = ["CommunicationType", "make_combiner", "compress_combiner",
@@ -61,10 +63,13 @@ Combiner = Callable[..., torch.Tensor]  # (x, step, weights) -> x
 
 def make_combiner(comm: CommunicationType, *,
                   sched: Optional[StaticSchedule] = None,
-                  dyn_sched: Optional[DynamicSchedule] = None) -> Combiner:
+                  dyn_sched: Optional[DynamicSchedule] = None,
+                  transport: Optional[ProcessRanks] = None) -> Combiner:
     """Build ``combine(x, step, weights)`` for a communication type.
     ``weights``: an optional ``(n, n)`` matrix that overrides the
-    schedule's weights for this call (neighbor_allreduce only)."""
+    schedule's weights for this call (neighbor_allreduce only).
+    ``transport``: the processes' ranks when ``x`` holds this process's
+    rows only (``basics.process_ranks()``)."""
     def _no_weights(weights, what):
         if weights is not None:
             raise ValueError(
@@ -80,7 +85,7 @@ def make_combiner(comm: CommunicationType, *,
     if comm == CommunicationType.allreduce:
         def _ar(x, step=None, weights=None):
             _no_weights(weights, "CommunicationType.allreduce")
-            return C.allreduce(x)
+            return C.allreduce(x, comm=transport)
         _ar.is_allreduce = True  # replica-identical: compress without residual
         return _ar
     if comm == CommunicationType.neighbor_allreduce:
@@ -88,22 +93,26 @@ def make_combiner(comm: CommunicationType, *,
             def _dyn(x, step, weights=None):
                 phase = dyn_sched.phases[int(step) % dyn_sched.period]
                 if weights is None:
-                    return C.neighbor_allreduce(x, phase)
+                    return C.neighbor_allreduce(x, phase, comm=transport)
                 # The step's phase, its active edges weighted from the
                 # matrix.
-                return C.neighbor_allreduce_matrix(x, weights, phase)
+                return C.neighbor_allreduce_matrix(x, weights, phase,
+                                                   comm=transport)
             # Lets compress_combiner run the rotating-block sparse exchange
             # over the same phases.
             _dyn._sparse_dyn_sched = dyn_sched
+            _dyn._transport = transport
             return _dyn
         if sched is None:
             raise ValueError("static neighbor_allreduce needs a schedule")
 
         def _nbr(x, step=None, weights=None):
             if weights is None:
-                return C.neighbor_allreduce(x, sched)
-            return C.neighbor_allreduce_matrix(x, weights, sched)
+                return C.neighbor_allreduce(x, sched, comm=transport)
+            return C.neighbor_allreduce_matrix(x, weights, sched,
+                                               comm=transport)
         _nbr._sparse_sched = sched
+        _nbr._transport = transport
         return _nbr
     raise NotImplementedError(
         f"communication type {comm} is not ported yet (ROADMAP.md Queue 1)")
@@ -244,6 +253,7 @@ def compress_combiner(combine: Combiner, compression: str, *,
             return combine  # empty communication: string validated above
         sched = getattr(combine, "_sparse_sched", None)
         dyn_sched = getattr(combine, "_sparse_dyn_sched", None)
+        transport = getattr(combine, "_transport", None)
         if sched is None and dyn_sched is None:
             raise ValueError(
                 "compression='sparse:<frac>' needs a (static or dynamic) "
@@ -269,11 +279,11 @@ def compress_combiner(combine: Combiner, compression: str, *,
             rot = (torch.arange(kk, device=x.device) + rnd_idx * kk) % size
             if sched is not None:
                 out, q = C.sparse_neighbor_allreduce(
-                    x, sched, indices=rot, return_sent=True)
+                    x, sched, indices=rot, return_sent=True, comm=transport)
             else:
                 out, q = C.dynamic_sparse_neighbor_allreduce(
                     x, 0 if step is None else step, dyn_sched, indices=rot,
-                    return_sent=True)
+                    return_sent=True, comm=transport)
             return out + (x - q)
         wrapped_sparse.whole_row = True
         return wrapped_sparse
@@ -325,7 +335,8 @@ def gradient_allreduce_step(base: torch.optim.Optimizer,
                             steps_per_comm: int = 1,
                             compression: str = "none", fuse: bool = True,
                             fusion_buckets: Optional[int] = None,
-                            leaf_sizes: Optional[Sequence[int]] = None):
+                            leaf_sizes: Optional[Sequence[int]] = None,
+                            transport: Optional[ProcessRanks] = None):
     """Synchronous gradient averaging (Horovod's order): every rank's
     ``param.grad`` becomes the rank mean, in place, then ``base.step()``;
     every rank applies the same update, so replicas that start equal stay
@@ -342,7 +353,8 @@ def gradient_allreduce_step(base: torch.optim.Optimizer,
     ``bf16`` the average is of the bfloat16 gradients.  ``fuse`` averages
     the gradients as one buffer (per fusion bucket); a mixed-dtype set
     stays per tensor, as in the JAX package."""
-    one = compress_combiner(lambda x, **kw: C.allreduce(x), compression,
+    one = compress_combiner(lambda x, **kw: C.allreduce(x, comm=transport),
+                            compression,
                             residual=False)
     grads = [p.grad for p in params]
     uniform_dtype = len({g.dtype for g in grads}) <= 1

@@ -4,7 +4,8 @@ The port of ``bluefog_tpu/optim/optimizers.py``: the parameter-consensus
 orders and gradient allreduce.  Where the JAX package wraps an
 ``optax.GradientTransformation`` and returns new parameters and state,
 these wrap a ``torch.optim.Optimizer`` whose parameters are rank-major
-(leading dim ``size()``), and ``step()`` updates them in place: the base
+(leading dim: the ranks this process owns, ``len(owned_ranks())``, which is
+``size()`` in one process), and ``step()`` updates them in place: the base
 optimizer owns its state, so there is no separate ``init``.  ``torch.optim.SGD(lr, momentum, dampening=0)`` computes
 what ``optax.sgd(lr, momentum)`` does.
 
@@ -107,22 +108,26 @@ class DistributedOptimizer:
         return [p for group in self.base.param_groups for p in group["params"]]
 
     def _combiner(self):
+        transport = basics.process_ranks()
         if self.communication_type != CommunicationType.neighbor_allreduce:
-            combine = F.make_combiner(self.communication_type)
+            combine = F.make_combiner(self.communication_type,
+                                      transport=transport)
         elif self.use_dynamic_topology:
             combine = F.make_combiner(
                 self.communication_type,
-                dyn_sched=basics.dynamic_schedule(self.phases))
+                dyn_sched=basics.dynamic_schedule(self.phases),
+                transport=transport)
         else:
             combine = F.make_combiner(self.communication_type,
-                                      sched=basics.static_schedule())
+                                      sched=basics.static_schedule(),
+                                      transport=transport)
         return F.compress_combiner(
             combine, self.compression,
             residual=self.communication_type != CommunicationType.allreduce,
             steps_per_comm=self.num_steps_per_communication)
 
     def _check_params(self):
-        n = basics.size()
+        n = len(basics.owned_ranks())
         for p in self.params:
             if p.dim() == 0 or p.shape[0] != n:
                 raise ValueError(f"parameters must be rank-major with leading "
@@ -166,7 +171,8 @@ class DistributedOptimizer:
                 steps_per_comm=self.num_steps_per_communication,
                 compression=self.compression, fuse=self.fusion,
                 fusion_buckets=self.fusion_buckets,
-                leaf_sizes=self.leaf_sizes)
+                leaf_sizes=self.leaf_sizes,
+                transport=basics.process_ranks())
             return
         if self.order == "atc":
             self.adapt()

@@ -1,1 +1,3 @@
-"""Parallelism of the port: the switch-routed mixture of experts."""
+"""Parallelism of the port: the switch-routed mixture of experts
+(``moe``) and sequence parallelism, ring attention (``ring_attention``) and
+Ulysses all-to-all attention (``ulysses``)."""

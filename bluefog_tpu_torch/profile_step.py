@@ -25,7 +25,10 @@ after the forward and backward is timed whole (``step_ms``): the gradients'
 average and the update are one call.  Takes the benchmark's flags
 (``--remat``, ``--chunked-loss``, ``--num-kv-heads``, ``--num-experts``
 ...).  Prints one JSON line.  Needs a GPU; :func:`profile` does the same on
-a built ``Trainer``.
+a built ``Trainer``, or on any object with ``forward_backward()`` and a
+plain torch optimizer ``opt`` (``long_context_training.
+SequenceParallelLM``: the step is then timed whole after the forward and
+backward).
 """
 
 from __future__ import annotations
@@ -37,18 +40,21 @@ import torch
 
 from bluefog_tpu_torch.benchmark import Trainer, build_parser
 
-__all__ = ["main", "profile", "kernel_family", "MOE_OPS"]
+__all__ = ["main", "profile", "kernel_family", "MOE_OPS", "ULYSSES_OPS"]
 
 # Operators reported by name (inclusive device time): the GQA fan-out and
-# its backward, the chunked loss, RoPE's and SwiGLU's ops, and the MoE
+# its backward, the chunked loss, RoPE's and SwiGLU's ops, the MoE
 # routing plan with its dispatch and combine einsums (``SwitchMlp``'s
-# profiler ranges).
+# profiler ranges), and Ulysses' two moves, forward and backward
+# (``parallel.ulysses``).
 _BWD = "autograd::engine::evaluate_function: "
 MOE_OPS = ("moe::plan", "moe::dispatch", "moe::dispatch_backward",
            "moe::combine", "moe::combine_backward")
+ULYSSES_OPS = ("ulysses::scatter_heads", "ulysses::scatter_heads_backward",
+               "ulysses::gather_seq", "ulysses::gather_seq_backward")
 NAMED_OPS = ("aten::repeat_interleave", _BWD + "ExpandBackward0",
              "aten::logsumexp", _BWD + "GatherBackward0", "aten::cos",
-             "aten::sin", "aten::cat", "aten::silu") + MOE_OPS
+             "aten::sin", "aten::cat", "aten::silu") + MOE_OPS + ULYSSES_OPS
 
 
 def kernel_family(name: str) -> str:
@@ -91,7 +97,9 @@ def profile(tr: Trainer, model: str = "") -> dict:
     ev[0].record()
     tr.forward_backward()
     ev[1].record()
-    grad_ar = tr.opt.order == "gradient_allreduce"
+    # Gradient allreduce, or a plain torch optimizer: one call a step.
+    grad_ar = getattr(tr.opt, "order", "gradient_allreduce") \
+        == "gradient_allreduce"
     if grad_ar:
         tr.opt.step()
     else:

@@ -18,8 +18,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    and at its generate prefill (S=512, K1 alone), with kernel, twin and
    SDPA times and the least time the card could take (989 TFLOP/s bf16,
    3.35 TB/s); then checked only: S=100 (shorter than one 128-row tile),
-   head dim 64 (causal, and ragged non-causal), and MHA with RoPE's
-   operands (q and k contiguous, v a slice).  K2 also returns the
+   head dim 64 (causal, and ragged non-causal), MHA with RoPE's
+   operands (q and k contiguous, v a slice), and the sequence-parallel
+   paths' shapes: ``ring_train``'s hop 0 (B=4 shards, S=4,096, H=16,
+   causal) and later hops (B=3, non-causal), with RoPE's operands, and
+   ``ulysses_train``'s gathered sequence (B=4, S=16,384, H=4, causal, the
+   strided views of its head scatter), the twins run a few batch rows at
+   a time.  K2 also returns the
    backward's delta, held to the plain op ``flash_delta`` (``REL_TOL``), and
    K3 reads that delta, as on the training path; the timed cases time
    ``flash_delta`` too.  At the main shape K1-K3 run twice on the same
@@ -111,9 +116,44 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    then ``profile_step.profile`` on one more step gives the device time of
    the routing plan and of the dispatch and combine einsums (forward,
    recompute and backward) and their share of the step.
-17. ``{"kernels": [...]}`` (launches from the ``train``, ``llama_train`` and
-   ``moe_train`` phases, each path's beside), then the ``nvidia-smi`` line,
-   then the last line ``{"ok": true, "device": {...}}``.
+17. ``ring_reference`` — a 2-layer LM (width 512, 4 heads of 128) over 4
+   rank-major sequence shards through ring attention (K1-K3 a hop, K2
+   taking the merge's lse cotangent) against the same weights with dense
+   attention: logits and gradients as in ``reference``, with learned
+   positions at S = 1,024 and with RoPE at ragged shards of 1,000; K1-K3
+   launch 4 times a layer; the ring over one shard gives the kernels' own
+   bits.
+18. ``ulysses_reference`` — the same for Ulysses all-to-all attention (one
+   launch of each kernel a layer, on the gathered sequence).
+19. ``ring_train`` — the slice's main path: ``long_context_training.
+   SequenceParallelLM`` at the 1.3B LM's widths (24 layers, width 2048, 16
+   heads of 128, vocab 32000, RoPE; 1,339,131,904 parameters), bf16 over
+   float32 parameters, full remat, the chunked loss, Adam, one sequence of
+   16,384 tokens over 4 rank-major ring shards of 4,096, 5 steps: step ms
+   (the first step left out), tokens/s, peak memory, launches (K1 2 x 4
+   hops x 24 layers a step, K2 and K3 4 x 24) and a ``profile_step``
+   profile of one more step (device idle share, K1-K3's device time).
+20. ``ulysses_train`` — the same LM at 4 layers through Ulysses, with a
+   ``profile_step`` profile of one more step: the copies of its two moves
+   (``ulysses::scatter_heads`` and ``ulysses::gather_seq``, forward,
+   recompute and backward), their count and device time (a move that is a
+   view launches nothing and counts 0).
+21. ``dp_sp_train`` — ``__graft_entry__.dryrun_multichip``'s dp x sp step at
+   dp 2 x sp 2, 4 layers at the same widths, 8,192 tokens a dp rank over 2
+   ring shards, ATC SGD over the one-peer Exp2 walk, 3 steps: the combine
+   shrinks the spread every step.
+22. ``long_context_example`` — ``python -m bluefog_tpu_torch.
+   long_context_training``'s ``main`` on the card, ring and Ulysses: the
+   loss falls.
+23. ``dist_nccl`` — ``init_distributed`` over a world-size-1 NCCL group (a
+   localhost rendezvous): the collectives, a nonblocking allreduce and its
+   wait, and a 2-step ATC run of a small LM through the transport, bit for
+   bit the single-process path on the card.  One card: nothing crosses a
+   wire.
+24. ``{"kernels": [...]}`` (launches from the ``train``, ``llama_train``,
+   ``moe_train``, ``ring_train``, ``ulysses_train`` and ``dp_sp_train``
+   phases, each path's beside), then the ``nvidia-smi`` line, then the last
+   line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a GPU or outside the repository.
 """
@@ -148,7 +188,13 @@ MOE_PARAMS = 1846667264      # gradients of 4 ranks take 59.1 GB at 6 layers
 MOE_FLIP_TOL = 0.05          # bf16 flash vs dense: share of routing flips
 SWITCH_F32_TOL = 1e-5        # SwitchMlp f32, card vs CPU: relative
 VIT_LAYERS = 12
+SEQ_TOKENS = 16384           # the long-context LM: one sequence of 16,384
+SEQ_SHARDS = 4               # tokens over 4 rank-major shards of 4,096
+RING_LAYERS = 24             # ring_train at full depth
+ULYSSES_LAYERS = 4           # ulysses_train and dp_sp_train at a reduced
+DP_SP_LAYERS = 4             # depth, to keep the smoke within its time
 SEED = 0                     # inputs and weights are drawn from it
+TWIN_SCORES_BYTES = 1 << 32  # the plain twins' f32 scores, at most, a call
 SOURCE = "bluefog_tpu_torch/csrc/flash_attention.cu"
 KERNELS = {
     "K1": ("flash_fwd", "bluefog_tpu/ops/flash_attention.py:42"),
@@ -225,9 +271,22 @@ def operands(B, S, H, D, layout, g, kv_heads):
     own projection and k, v contiguous ``repeat_interleave`` fan-outs of
     ``kv_heads`` shared heads that interleave K and V per head (the
     Llama-style LM); ``rope``, q and k rotated (contiguous), v a slice of
-    the fused tensor (MHA with RoPE)."""
+    the fused tensor (MHA with RoPE); ``ulysses``, RoPE's operands of
+    ``SEQ_SHARDS`` rank-major shards of ``S / SEQ_SHARDS`` tokens with
+    ``SEQ_SHARDS * H`` heads as ``parallel.ulysses`` hands them to its inner
+    attention (at one sequence a shard, strided views, no copy)."""
     import torch
     dev = g.device
+    if layout == "ulysses":
+        from bluefog_tpu_torch.parallel.ulysses import ulysses_attention
+        n, seen = SEQ_SHARDS, []
+
+        def inner(q, k, v, causal):
+            seen.extend((q, k, v))
+            return q
+        ulysses_attention(*operands(B, S // n, n * H, D, "rope", g, None),
+                          axis=n, inner_attention=inner)
+        return tuple(seen)
     if layout == "gqa":
         q = torch.randn(B, S, H, D, generator=g, device=dev).to(torch.bfloat16)
         kv = torch.randn(B, S, kv_heads, 2, D, generator=g,
@@ -240,6 +299,21 @@ def operands(B, S, H, D, layout, g, kv_heads):
     if layout == "rope":
         q, k = q.contiguous(), k.contiguous()
     return q, k, v
+
+
+def by_batch(fn, H, S, *args):
+    """``fn`` (a plain twin) over slices of the batch dim small enough that
+    one slice's float32 scores ``(b, H, S, S)`` take at most
+    ``TWIN_SCORES_BYTES``, the outputs concatenated: the batch rows are
+    independent, so this is the twin's result."""
+    import torch
+    b = max(1, TWIN_SCORES_BYTES // (H * S * S * 4))
+    B = args[0].shape[0]
+    if b >= B:
+        return fn(*args)
+    parts = [fn(*(a[i:i + b] if isinstance(a, torch.Tensor) else a
+                  for a in args)) for i in range(0, B, b)]
+    return tuple(torch.cat(p) for p in zip(*parts))
 
 
 def check_kernels(B, S, H, D, causal, seed, timed, repeat=False,
@@ -261,15 +335,15 @@ def check_kernels(B, S, H, D, causal, seed, timed, repeat=False,
     f32 = [t.float() for t in (q, k, v, do)]
 
     o_k, lse_k = FA.flash_fwd_cuda(q, k, v, causal)
-    o_r, lse_r = FA.flash_fwd_ref(*f32[:3], causal)
+    o_r, lse_r = by_batch(FA.flash_fwd_ref, H, S, *f32[:3], causal)
     o = o_r.to(torch.bfloat16)
     lse_bhs = lse_r.transpose(1, 2).contiguous()
     if not fwd_only:
         delta = FA.flash_delta(o, do, dlse)
         dq_k, delta_k = FA.flash_dq_cuda(q, k, v, o, do, lse_bhs, dlse, causal)
         dk_k, dv_k = FA.flash_dkv_cuda(q, k, v, do, lse_bhs, delta_k, causal)
-        dq_r, dk_r, dv_r = FA.flash_bwd_ref(*f32[:3], o.float(), lse_r,
-                                            f32[3], dlse, causal)
+        dq_r, dk_r, dv_r = by_batch(FA.flash_bwd_ref, H, S, *f32[:3],
+                                    o.float(), lse_r, f32[3], dlse, causal)
     torch.cuda.synchronize()
 
     def err(pairs):
@@ -881,6 +955,342 @@ def moe_train_phase(benchmark):
     return launches
 
 
+def seq_lm(seed, seq, pos):
+    """A bf16 TransformerLM on the card (width 512, 4 heads of 128, vocab
+    512), its weights from ``seed``, and ``(1, seq)`` tokens."""
+    import torch
+
+    from bluefog_tpu_torch.models.transformer import (TransformerConfig,
+                                                      TransformerLM)
+    dev = torch.device("cuda")
+    cfg = TransformerConfig(vocab_size=512, num_layers=2, num_heads=4,
+                            embed_dim=512, max_seq_len=seq, pos_encoding=pos)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dense = TransformerLM(cfg).to(dev)
+    dense.reset_parameters(g)
+    tokens = torch.randint(0, 512, (1, seq), generator=g, device=dev)
+    return cfg, dense, tokens
+
+
+def seq_vs_dense(which, seed, n, seq, pos):
+    """The 2-layer LM over an ``n``-shard rank-major sequence axis through
+    ring (K1-K3 a hop) or Ulysses (K1-K3 on the gathered sequence) against
+    the same weights with dense attention on the card: logits and every
+    parameter's gradient, by relative error; and the launches."""
+    import torch
+    import torch.nn.functional as F
+
+    from bluefog_tpu_torch.models.transformer import TransformerLM
+    from bluefog_tpu_torch.ops import flash_attention as FA
+    from bluefog_tpu_torch.parallel import ring_attention as R
+    from bluefog_tpu_torch.parallel.ulysses import ulysses_attention_impl
+
+    cfg, dense, tokens = seq_lm(seed, seq, pos)
+    impl = (R.ring_attention_impl(n) if which == "ring"
+            else ulysses_attention_impl(n))
+    model = TransformerLM(cfg, impl).cuda()
+    model.load_state_dict(dense.state_dict())
+    targets = torch.roll(tokens, -1, 1)
+    want_logits, want = logits_and_grads(dense, tokens)
+    FA.reset_launch_counts()
+    positions = torch.arange(seq, device=tokens.device)[None]
+    logits = R.unshard_sequence(model(R.shard_sequence(tokens, n),
+                                      positions=R.shard_sequence(positions, n)),
+                                n)
+    F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                    targets.reshape(-1)).backward()
+    torch.cuda.synchronize()
+    launches = flash_launches()
+    hops = n if which == "ring" else 1
+    expected = {"K1": cfg.num_layers * hops, "K2": cfg.num_layers * hops,
+                "K3": cfg.num_layers * hops}
+    require(launches == expected,
+            f"{which} n={n} launches {launches}, expected {expected}")
+    logit_err = rel_err(logits.detach(), want_logits)
+    grad_err = {k: rel_err(p.grad, want[k]) for k, p in model.named_parameters()}
+    worst = max(grad_err, key=grad_err.get)
+    require(logit_err <= REF_LOGITS_TOL,
+            f"{which} n={n} S={seq}: logits differ by {logit_err} over "
+            f"{REF_LOGITS_TOL}")
+    require(grad_err[worst] <= REF_GRAD_TOL,
+            f"{which} n={n} S={seq}: gradient of {worst} differs by "
+            f"{grad_err[worst]} over {REF_GRAD_TOL}")
+    return {"shards": n, "seq_len": seq, "seq_local": seq // n,
+            "pos_encoding": pos, "launches": launches,
+            "logits_rel_err": logit_err, "grad_rel_err": grad_err[worst],
+            "grad_rel_err_worst_param": worst,
+            "tol": {"logits": REF_LOGITS_TOL, "grad": REF_GRAD_TOL}}
+
+
+def check_seq_reference(which, seed):
+    """``ring_reference`` / ``ulysses_reference``: the 2-layer LM (D=128)
+    at 4 shards against dense attention, with learned positions and with
+    RoPE at a ragged shard (S_local = 1000); one shard against a direct
+    call of the kernels (the same bits)."""
+    import torch
+
+    from bluefog_tpu_torch.ops import flash_attention as FA
+    from bluefog_tpu_torch.parallel.ring_attention import ring_attention
+    from bluefog_tpu_torch.parallel.ulysses import ulysses_attention
+
+    out = {"sp4": seq_vs_dense(which, seed, 4, 1024, "learned"),
+           "sp4_ragged": seq_vs_dense(which, seed, 4, 4000, "rope")}
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(2, 1000, 4, 128, generator=g, device="cuda")
+               .bfloat16() for _ in range(3))
+    fn = ring_attention if which == "ring" else ulysses_attention
+    same = torch.equal(fn(q, k, v, axis=1),
+                       FA.flash_attention_lse(q, k, v, causal=True)[0])
+    require(same, f"{which} over one shard is not the kernels' bits")
+    out["one_shard_bitwise"] = same
+    return out
+
+
+def ring_param_count(cfg):
+    E, L, V = cfg.embed_dim, cfg.num_layers, cfg.vocab_size
+    return L * (12 * E * E + 2 * E) + 2 * V * E + E
+
+
+def seq_train_phase(phase, attention, layers, steps=5, profile=False):
+    """The long-context LM at the 1.3B LM's widths (width 2048, 16 heads
+    of 128, vocab 32000, RoPE), bf16 over float32 parameters, full remat,
+    the chunked loss, Adam, 16,384 tokens over 4 rank-major shards of
+    4,096, ``steps`` steps; returns the launches."""
+    import torch
+
+    from bluefog_tpu_torch import long_context_training as LC
+    from bluefog_tpu_torch import profile_step
+    from bluefog_tpu_torch.models.transformer import TransformerConfig
+    from bluefog_tpu_torch.ops import flash_attention as FA
+
+    dev = torch.device("cuda")
+    n, seq = SEQ_SHARDS, SEQ_TOKENS
+    cfg = TransformerConfig(vocab_size=32000, num_layers=layers, num_heads=16,
+                            embed_dim=2048, max_seq_len=seq,
+                            pos_encoding="rope", remat=True)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    toks = torch.randint(0, 32000, (1, seq + 1), generator=g, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    lm = LC.SequenceParallelLM(cfg, attention, n, toks[:, :seq], toks[:, 1:],
+                               lr=1e-4, chunked_loss=True, seed=SEED)
+    params = sum(p.numel() for p in lm.model.parameters())
+    require(params == ring_param_count(cfg),
+            f"{params} parameters, expected {ring_param_count(cfg)}")
+    FA.reset_launch_counts()
+    losses, step_s = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(lm.step())
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launches = flash_launches()
+    losses = [float(x) for x in losses]
+    hops = n if attention == "ring" else 1
+    per = {"K1": 2 * layers * hops, "K2": layers * hops, "K3": layers * hops}
+    expected = {k: v * steps for k, v in per.items()}
+    timed = step_s[1:]                    # the first step builds and tunes
+    step_ms = 1e3 * sum(timed) / len(timed)
+    res = {"config": {"num_layers": layers, "embed_dim": 2048, "num_heads": 16,
+                      "head_dim": 128, "vocab_size": 32000,
+                      "pos_encoding": "rope", "remat": "full",
+                      "chunked_loss": True, "optimizer": "adam",
+                      "seq_len": seq, "batch_size": 1, "shards": n,
+                      "seq_local": seq // n, "attention": attention},
+           "params": params, "losses": losses,
+           "step_ms": step_ms, "step_ms_each": [1e3 * t for t in step_s],
+           "tokens_per_s": seq / (step_ms / 1e3),
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "launches": launches, "launches_per_step": per,
+           "expected_launches": expected}
+    if profile:
+        prof = profile_step.profile(lm, f"transformer ({attention})")
+        res["profile"] = {k: prof[k] for k in (
+            "phases", "profiled_step_wall_ms", "kernel_busy_ms",
+            "device_idle_share", "idle_share_of_event_step", "families_ms",
+            "top_kernels", "top_ops")}
+        res["k1_k3_ms"] = prof["families_ms"].get("flash attention (K1-K3)")
+        if attention == "ulysses":
+            # A move that launched no kernel (a view) is not in named_ops.
+            res["moves"] = {k: prof["named_ops"].get(
+                k, {"count": 0, "device_ms": 0.0})
+                for k in profile_step.ULYSSES_OPS}
+            res["moves_ms"] = sum(m["device_ms"]
+                                  for m in res["moves"].values())
+        require(0 < prof["kernel_busy_ms"] <= prof["profiled_step_wall_ms"],
+                f"device busy {prof['kernel_busy_ms']} ms within the "
+                f"profiled step's {prof['profiled_step_wall_ms']} ms")
+    emit(phase, **res)
+    require(all(math.isfinite(x) for x in losses), f"finite losses {losses}")
+    require(launches == expected, f"launches {launches}, expected {expected}")
+    require(res["peak_mem_gb"] < 80, f"peak {res['peak_mem_gb']} GB")
+    del lm
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dp_sp_train_phase(layers=DP_SP_LAYERS, steps=3):
+    """``__graft_entry__.dryrun_multichip``'s dp x sp composition at dp = 2 x
+    sp = 2 on the card: each dp rank's LM (the 1.3B widths, RoPE, remat) over
+    2 ring shards of 4,096 tokens, the loss's targets rolled over the local
+    shard as there, the shards' gradients summed, ATC SGD with the dp ranks
+    combined over the one-peer Exp2 walk; the combine must shrink the
+    spread."""
+    import torch
+    import torch.nn.functional as F
+
+    import bluefog_tpu_torch as bf
+    from bluefog_tpu_torch import benchmark
+    from bluefog_tpu_torch import topology as topo
+    from bluefog_tpu_torch.models.transformer import (TransformerConfig,
+                                                      TransformerLM)
+    from bluefog_tpu_torch.ops import flash_attention as FA
+    from bluefog_tpu_torch.optim import optimizers as O
+    from bluefog_tpu_torch.parallel import ring_attention as R
+    from bluefog_tpu_torch.replicas import RankReplicas
+
+    dp, sp, seq = 2, 2, 8192
+    dev = torch.device("cuda")
+    bf.init(dp)
+    cfg = TransformerConfig(vocab_size=32000, num_layers=layers, num_heads=16,
+                            embed_dim=2048, max_seq_len=seq,
+                            pos_encoding="rope", remat=True)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    rep = RankReplicas(lambda: TransformerLM(cfg, R.ring_attention_impl(sp)),
+                       dp, dev, init=lambda m: m.reset_parameters(g))
+    opt = O.DistributedAdaptThenCombineOptimizer(
+        torch.optim.SGD([rep.flat], lr=0.0125 * dp), use_dynamic_topology=True,
+        phases=topo.one_peer_exp2_phases(dp))
+    tokens = torch.randint(0, 32000, (dp, 1, seq), generator=g, device=dev)
+    pos = R.shard_sequence(torch.arange(seq, device=dev)[None], sp)
+    FA.reset_launch_counts()
+    losses, spreads, step_s = [], [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep.zero_grad()
+        step_loss = []
+        for r, mod in enumerate(rep.modules):
+            shards = R.shard_sequence(tokens[r], sp)
+            logits = mod(shards, positions=pos)
+            nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                  torch.roll(shards, -1, 1).reshape(-1),
+                                  reduction="none").reshape(sp, -1)
+            local = nll.mean(1)
+            local.sum().backward()
+            step_loss.append(local.detach())
+        opt.adapt()
+        before = benchmark.consensus_spread(rep.flat)["max"]
+        opt.combine()
+        after = benchmark.consensus_spread(rep.flat)["max"]
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(torch.stack(step_loss).mean()))
+        spreads.append({"after_adapt": before, "after_combine": after})
+    launches = flash_launches()
+    per = {"K1": 2 * layers * dp * sp, "K2": layers * dp * sp,
+           "K3": layers * dp * sp}
+    expected = {k: v * steps for k, v in per.items()}
+    emit("dp_sp_train", config={"dp": dp, "sp": sp, "num_layers": layers,
+                                "embed_dim": 2048, "num_heads": 16,
+                                "vocab_size": 32000, "pos_encoding": "rope",
+                                "remat": "full", "seq_len": seq,
+                                "seq_local": seq // sp, "optimizer":
+                                "atc sgd, one-peer exp2", "lr": 0.0125 * dp},
+         losses=losses, spreads=spreads,
+         step_ms_each=[1e3 * t for t in step_s], launches=launches,
+         launches_per_step=per, expected_launches=expected,
+         params_per_rank=rep.numel)
+    require(all(math.isfinite(x) for x in losses), f"finite losses {losses}")
+    require(launches == expected, f"launches {launches}, expected {expected}")
+    require(all(s["after_combine"] < s["after_adapt"] for s in spreads),
+            f"the combine shrinks the spread {spreads}")
+    del rep, opt
+    bf.shutdown()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_long_context_example():
+    """``long_context_training``'s own entry point on the card, both
+    attentions (width 512 in bf16, heads of 64): the loss falls."""
+    from bluefog_tpu_torch import long_context_training as LC
+    out = {}
+    for attention in ("ring", "ulysses"):
+        res = LC.main(["--seq-len", "4096", "--steps", "12", "--attention",
+                       attention, "--rope"])
+        require(res["losses"][-1] < res["losses"][0],
+                f"{attention}: loss {res['losses']}")
+        out[attention] = {"first_loss": res["losses"][0],
+                          "last_loss": res["losses"][-1]}
+    return out
+
+
+def check_dist_nccl():
+    """A world-size-1 NCCL process group from ``init_distributed`` (a
+    localhost rendezvous): the collectives, a nonblocking op and its wait,
+    and one ATC step of a small LM through the transport, each held bit
+    for bit to the single-process path on the card.  One card: nothing
+    here crosses a wire."""
+    import socket
+
+    import torch
+
+    import bluefog_tpu_torch as bf
+    from bluefog_tpu_torch import benchmark
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {"BFTPU_COORDINATOR": f"127.0.0.1:{port}",
+           "BFTPU_NUM_PROCESSES": "1", "BFTPU_PROCESS_ID": "0",
+           "BFTPU_LOCAL_ID": "0"}
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(1, 1000, 37, generator=g, device="cuda")
+    args = benchmark.build_parser().parse_args([
+        "--model", "transformer", "--flash-attention", "--atc", "--dynamic",
+        "--num-layers", "2", "--embed-dim", "256", "--num-heads", "2",
+        "--seq-len", "512", "--batch-size", "2", "--vocab-size", "512",
+        "--ranks", "1", "--num-warmup-batches", "1", "--num-iters", "1",
+        "--num-batches-per-iter", "1", "--seed", str(SEED)])
+
+    def run():
+        out = {"allreduce": bf.allreduce(x), "sum": bf.allreduce(x, average=False),
+               "local_allreduce": bf.local_allreduce(x),
+               "broadcast": bf.broadcast(x, 0), "allgather": bf.allgather(x),
+               "neighbor_allreduce": bf.neighbor_allreduce(x),
+               "dynamic_neighbor_allreduce": bf.dynamic_neighbor_allreduce(x, 0),
+               "neighbor_allgather": bf.neighbor_allgather(x)}
+        h = bf.allreduce_nonblocking(x)
+        out["allreduce_nonblocking"] = bf.wait(h)
+        out["polled_after_wait"] = bf.poll(h)
+        tr = benchmark.Trainer(args)
+        benchmark.measure(args, tr, quiet=True)
+        out["atc_flat"] = tr.rep.flat.detach().clone()
+        return out
+
+    bf.init(1)
+    want = run()
+    bf.shutdown()
+    os.environ.update(env)
+    try:
+        bf.init_distributed()
+        backend = torch.distributed.get_backend()
+        got = run()
+        world = torch.distributed.get_world_size()
+    finally:
+        bf.shutdown()
+        for k in env:
+            os.environ.pop(k)
+    same = {k: bool(torch.equal(got[k], want[k])) for k in want
+            if isinstance(want[k], torch.Tensor)}
+    require(backend == "nccl" and world == 1, f"{backend} world {world}")
+    require(all(same.values()), f"NCCL path differs from one process: {same}")
+    require(got["polled_after_wait"], "a waited handle polls done")
+    return {"backend": backend, "world_size": world,
+            "device_count": torch.cuda.device_count(), "bitwise": same}
+
+
 def image_phase(benchmark, argv, checks_spread_by="max"):
     """One benchmark run of an image model; the common checks
     (``checks_spread_by``: ``max`` or ``rms`` must shrink in the combine;
@@ -959,7 +1369,11 @@ def main():
     # the LM's training shape, ragged S, non-causal, ViT-S/16's shape, the
     # Llama-style LM's GQA operands at its training shape and its generate
     # prefill (K1 alone); checked, not timed: S shorter than one tile, the
-    # head dim 64 instantiation, and MHA with RoPE's operands.
+    # head dim 64 instantiation, MHA with RoPE's operands, and the
+    # sequence-parallel paths' shapes (ring_train: 4 shards of 4,096
+    # tokens, causal at hop 0, then the non-causal blocks of 3 of them;
+    # ulysses_train: the gathered 16,384 tokens, 4 heads a shard), each
+    # with K2 taking a nonzero lse cotangent, as every case does.
     for case, B, S, H, D, causal, timed, layout, kv_h, fwd_only in (
             ("main", 2, 2048, 16, 128, True, True, "fused", None, False),
             ("ragged", 2, 1000, 16, 128, True, True, "fused", None, False),
@@ -973,6 +1387,12 @@ def main():
             ("d64-ragged-noncausal", 1, 777, 4, 64, False, False, "fused",
              None, False),
             ("mha-rope", 2, 1024, 16, 128, True, False, "rope", None,
+             False),
+            ("ring-hop0", 4, 4096, 16, 128, True, False, "rope", None,
+             False),
+            ("ring-hop1", 3, 4096, 16, 128, False, False, "rope", None,
+             False),
+            ("ulysses", 4, 16384, 4, 128, True, False, "ulysses", None,
              False)):
         res = check_kernels(B, S, H, D, causal, SEED, timed=timed,
                             repeat=case == "main", layout=layout,
@@ -1086,17 +1506,33 @@ def main():
     emit("moe_reference", **check_moe_reference(SEED))
     moe_launches = moe_train_phase(benchmark)
 
+    emit("ring_reference", **check_seq_reference("ring", SEED))
+    emit("ulysses_reference", **check_seq_reference("ulysses", SEED))
+    ring_launches = seq_train_phase("ring_train", "ring", RING_LAYERS,
+                                    profile=True)
+    ulysses_launches = seq_train_phase("ulysses_train", "ulysses",
+                                       ULYSSES_LAYERS, profile=True)
+    dp_sp_launches = dp_sp_train_phase()
+    emit("long_context_example", **check_long_context_example())
+    emit("dist_nccl", **check_dist_nccl())
+
     kernels = []
     for kname, (fn, replaces) in KERNELS.items():
         r = main_res[kname]
         kernels.append({"name": f"{kname} {fn}", "route": "cuda",
                         "source": SOURCE, "replaces": replaces,
                         "launches": (launches[kname] + llama_launches[kname]
-                                     + moe_launches[kname]),
+                                     + moe_launches[kname]
+                                     + ring_launches[kname]
+                                     + ulysses_launches[kname]
+                                     + dp_sp_launches[kname]),
                         "launches_by_path": {
                             "train": launches[kname],
                             "llama_train": llama_launches[kname],
                             "moe_train": moe_launches[kname],
+                            "ring_train": ring_launches[kname],
+                            "ulysses_train": ulysses_launches[kname],
+                            "dp_sp_train": dp_sp_launches[kname],
                             "generate": gen_launches[kname],
                             "vit": vit_launches[kname]},
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],

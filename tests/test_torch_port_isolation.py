@@ -24,7 +24,10 @@ def test_import_leaves_jax_out():
             "bluefog_tpu_torch.optim, bluefog_tpu_torch.models, "
             "bluefog_tpu_torch.models.convert, bluefog_tpu_torch.replicas, "
             "bluefog_tpu_torch.parallel.moe, bluefog_tpu_torch.ops.collective, "
-            "bluefog_tpu_torch.ops.schedule_opt;"
+            "bluefog_tpu_torch.ops.schedule_opt, bluefog_tpu_torch.ops.p2p, "
+            "bluefog_tpu_torch.parallel.ring_attention, "
+            "bluefog_tpu_torch.parallel.ulysses, "
+            "bluefog_tpu_torch.long_context_training;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'bluefog_tpu'));"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -60,6 +63,22 @@ def test_init_defaults_to_cuda():
         assert basics.device() == torch.device("cpu") and basics.size() == 4
     finally:
         basics.shutdown()
+
+
+def test_init_distributed_nccl_needs_a_gpu(monkeypatch):
+    """The multi-process entry point defaults to CUDA and NCCL too: without
+    a GPU it raises, whatever the launcher set, and never falls back to
+    gloo on the CPU."""
+    from bluefog_tpu_torch import basics
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    monkeypatch.setenv("BFTPU_COORDINATOR", "127.0.0.1:1")
+    monkeypatch.setenv("BFTPU_NUM_PROCESSES", "1")
+    monkeypatch.setenv("BFTPU_PROCESS_ID", "0")
+    for kw in ({}, {"backend": "nccl"}, {"backend": "nccl", "device": "cpu"}):
+        with pytest.raises(RuntimeError, match="GPU"):
+            basics.init_distributed(**kw)
+        assert not basics.initialized()
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
