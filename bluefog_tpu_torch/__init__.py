@@ -11,8 +11,13 @@ asks for the CPU, and raise when no GPU is present.
 
     bf.init_distributed()            # one process a card (bfrun, torchrun)
     x = bf.dynamic_neighbor_allreduce(owned_rows, step)
+
+The model-parallel names of ``parallel`` (tensor, pipeline and expert
+parallelism: ``bf.pipeline_train_step``, ...) are exported here too, each
+imported when first read.
 """
 
+from bluefog_tpu_torch import parallel
 from bluefog_tpu_torch import topology as topology_util
 from bluefog_tpu_torch.basics import (
     Handle, allgather, allgather_nonblocking, allgather_v, allreduce,
@@ -40,4 +45,10 @@ __all__ = ["topology_util", "init", "init_distributed", "shutdown",
            "neighbor_allreduce_nonblocking",
            "dynamic_neighbor_allreduce_nonblocking",
            "neighbor_allgather_nonblocking", "pair_gossip_nonblocking",
-           "poll", "wait", "synchronize"]
+           "poll", "wait", "synchronize"] + parallel.__all__
+
+
+def __getattr__(name):
+    if name in parallel.__all__:
+        return getattr(parallel, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -28,7 +28,7 @@ from bluefog_tpu_torch.models.layers import BatchNorm, Conv
 from bluefog_tpu_torch.models.transformer import RMSNorm, SwitchMlp
 
 __all__ = ["transformer_params_from_jax", "params_from_jax",
-           "jax_ravel_order", "flax_leaf"]
+           "jax_ravel_order", "flax_leaf", "stacked_block_params_from_jax"]
 
 # A torch tensor's dims permuted by these is the flax leaf's layout.
 _HWIO = (2, 3, 1, 0)
@@ -143,3 +143,29 @@ def transformer_params_from_jax(params: Mapping) -> dict:
             sd[pre + "moe.experts_down"] = _t(moe["experts_down"])
         i += 1
     return sd
+
+
+def stacked_block_params_from_jax(params: Mapping, lead: int = 1) -> dict:
+    """The parameters of ``models.transformer.Block`` (its names:
+    ``qkv.weight``, ``RMSNorm_0.scale``, ``moe.experts_up``, ...) from a flax
+    ``Block`` params tree whose leaves lead with ``lead`` stacked dims, as
+    ``__graft_entry__.dryrun_multichip`` stacks them for a pipeline:
+    ``(pp, ...)`` a stage, ``(pp, v, ...)`` a stage chunk.  Each Dense
+    kernel's last two dims are transposed to ``nn.Linear``'s ``(out, in)``;
+    the stacked dims and every other leaf keep their layout (the stacked MoE
+    experts' is the port's)."""
+    if "params" in params:
+        params = params["params"]
+    out = {}
+
+    def walk(node, path):
+        for key, val in node.items():
+            if isinstance(val, Mapping):
+                walk(val, path + (key,))
+            elif key == "kernel" and np.ndim(val) == lead + 2:
+                out[".".join(path + ("weight",))] = \
+                    _t(val).transpose(-1, -2).contiguous()
+            else:
+                out[".".join(path + (key,))] = _t(val)
+    walk(params, ())
+    return out

@@ -19,7 +19,12 @@ the CPU tests also run two.
   :meth:`ProcessRanks.broadcast` carry the dense family;
   :meth:`ProcessRanks.ring` (differentiable: the backward runs the
   transposed move) and :meth:`ProcessRanks.all_to_all` are the
-  sequence-parallel moves.
+  sequence-parallel moves; :meth:`ProcessRanks.rotate` is one hop of a
+  lane of rows up or down the ranks (the pipeline's stage handoff).
+
+:func:`shard_axis` reads a parallel axis (sequence, tensor, pipeline or
+expert): an ``int`` ``n`` is rank-major, all ``n`` shards in this process;
+a :class:`ProcessRanks` spreads them over the world's ranks.
 
 Every move returns a :class:`Pending`: the async works and what finishes the
 result once they are done, so the ``*_nonblocking`` calls can hand it out as
@@ -29,12 +34,12 @@ collective returns a :class:`Pending` that is already done.
 
 from __future__ import annotations
 
-from typing import Callable, List, Sequence
+from typing import Callable, List, Sequence, Union
 
 import torch
 import torch.distributed as dist
 
-__all__ = ["Pending", "ProcessRanks"]
+__all__ = ["Pending", "ProcessRanks", "shard_axis"]
 
 
 class Pending:
@@ -196,8 +201,13 @@ class ProcessRanks:
         flat = _Ring.apply(self, int(hops), k, v)
         return [flat[2 * t:2 * t + 2] for t in range(int(hops))]
 
-    def _rotate(self, xs: Sequence[torch.Tensor], up: bool
-                ) -> List[torch.Tensor]:
+    def rotate(self, xs: Sequence[torch.Tensor], up: bool
+               ) -> List[torch.Tensor]:
+        """Each of ``xs`` (leading dim: the owned ranks) moved one rank up
+        the ring (``up``: rank ``g`` gets rank ``g - 1``'s row, ``ppermute``
+        with ``i -> i + 1``) or down (rank ``g`` gets rank ``g + 1``'s),
+        blocking; a ``torch.roll`` by one of the world's rank-major
+        tensor."""
         nxt = (self.process + 1) % self.nprocs
         prev = (self.process - 1) % self.nprocs
         to, frm = (nxt, prev) if up else (prev, nxt)
@@ -225,19 +235,34 @@ class ProcessRanks:
         return out
 
 
+def shard_axis(axis: Union[int, ProcessRanks]):
+    """``(n, lo, m, transport)`` of a parallel axis: its ``n`` shards, the
+    first one this process holds, how many it holds, and the transport
+    (None for a rank-major ``int`` axis, and for a :class:`ProcessRanks` of
+    one process, which holds every shard)."""
+    if isinstance(axis, ProcessRanks):
+        if axis.nprocs == 1:
+            return axis.n, 0, axis.n, None
+        return axis.n, axis.lo, axis.hi - axis.lo, axis
+    n = int(axis)
+    if n < 1:
+        raise ValueError(f"an axis of {n} shards")
+    return n, 0, n, None
+
+
 class _Ring(torch.autograd.Function):
     @staticmethod
     def forward(ctx, ranks: ProcessRanks, hops: int, k, v):
         ctx.ranks = ranks
         out = [k, v]
         for _ in range(hops - 1):
-            out += ranks._rotate(out[-2:], up=True)
+            out += ranks.rotate(out[-2:], up=True)
         return tuple(out)
 
     @staticmethod
     def backward(ctx, *grads):
         acc = list(grads[-2:])
         for t in range(len(grads) // 2 - 2, -1, -1):
-            back = ctx.ranks._rotate(acc, up=False)
+            back = ctx.ranks.rotate(acc, up=False)
             acc = [g + b for g, b in zip(grads[2 * t:2 * t + 2], back)]
         return (None, None) + tuple(acc)

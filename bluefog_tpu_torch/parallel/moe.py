@@ -6,11 +6,15 @@ per expert; tokens past an expert's capacity drop to zero.  The plan is built
 from one-hot tensors, so ``TransformerLM``'s MoE blocks dispatch and combine
 with matmuls (``models.transformer.SwitchMlp``).
 
-:func:`moe_apply` is the expert-parallel layer over rank-major tensors on one
-device: row ``e`` of a ``(E, ...)`` tensor is rank ``e``, which applies its
-own expert, and the JAX package's ``psum`` over the expert axis becomes
-``ops.collective.allreduce``'s sum over the leading dim, replicated to every
-row.
+:func:`moe_apply` is the expert-parallel layer.  Its expert axis has
+``ops.p2p.shard_axis``'s form: rank-major on one device (row ``e`` of a ``(E,
+...)`` tensor is rank ``e``, which applies its own expert, and the JAX
+package's ``psum`` over the expert axis becomes ``ops.collective.
+allreduce``'s sum over the leading dim, replicated to every row), or an
+``ops.p2p.ProcessRanks``: each process holds its owned ranks' rows and
+experts, sums them in rank order and adds the processes' sums with
+``ProcessRanks.all_reduce``, the backward the same sum of the cotangents
+(the JAX package's ``psum`` and its transpose).
 
 Every function takes leading batch dims before ``(T, E)``: the routing
 groups of ``SwitchMlp``, where the JAX package ``vmap``s.  The one-hot slot
@@ -21,11 +25,12 @@ expert's capacity has no slot.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
 
 import torch
 
 from bluefog_tpu_torch.ops import collective as C
+from bluefog_tpu_torch.ops.p2p import ProcessRanks, shard_axis
 
 __all__ = ["moe_apply", "switch_dispatch", "load_balance_loss"]
 
@@ -91,32 +96,63 @@ def switch_dispatch(router_logits: torch.Tensor, n_experts: int,
     return combine, dispatch
 
 
+class _ExpertSum(torch.autograd.Function):
+    """The expert-parallel ``psum`` across processes: every owned row gets
+    the sum of the world's rows (this process's in rank order, in float32,
+    then over the processes); its transpose is the same sum of the
+    cotangents."""
+
+    @staticmethod
+    def _sum(x, transport):
+        s = C._rank_sum(x, rounded=False)
+        transport.all_reduce(s).wait()
+        return s.to(x.dtype).expand(x.shape).clone()
+
+    @staticmethod
+    def forward(ctx, x, transport):
+        ctx.transport = transport
+        return _ExpertSum._sum(x, transport)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ExpertSum._sum(g, ctx.transport), None
+
+
 def moe_apply(expert_fn: Callable, expert_params, x: torch.Tensor,
-              router_logits: torch.Tensor, *, capacity: Optional[int] = None,
-              with_aux: bool = False):
-    """An ``E``-rank MoE layer over rank-major tensors: ``x`` ``(E, T, d)``
-    tokens and ``router_logits`` ``(E, T, E)``, the same on every row (a
-    replicated router); ``expert_params`` a tuple of rank-major tensors,
-    row ``e`` rank ``e``'s expert, applied as ``expert_fn(params_e, xe)``.
-    Returns ``(E, T, d)``, the gated sum of the expert outputs on every row,
-    or with ``with_aux=True`` also each rank's load-balancing loss ``(E,)``.
+              router_logits: torch.Tensor, *,
+              axis: Union[None, int, ProcessRanks] = None,
+              capacity: Optional[int] = None, with_aux: bool = False):
+    """An ``E``-rank MoE layer: ``x`` ``(m, T, d)`` tokens and
+    ``router_logits`` ``(m, T, E)``, the same on every row (a replicated
+    router), for the ``m`` ranks this process holds of the expert ``axis``
+    (None: rank-major, every rank, ``E = x.shape[0]``); ``expert_params`` a
+    tuple of tensors leading with the same ranks, row ``i`` the expert of
+    rank ``lo + i``, applied as ``expert_fn(params_i, xe)``.  Returns ``(m, T,
+    d)``, the gated sum of every expert's output on each row, or with
+    ``with_aux=True`` also each row's load-balancing loss ``(m,)``.
 
     **Gradient convention** (the JAX package's): every rank computes the
     same loss from the summed output, and the sum's backward adds the
     ranks' cotangents, so divide each rank's objective by ``E``; each
     expert's gradient is then exact, and the router logits' gradient is
     exact once summed over the ranks."""
-    E, T = x.shape[0], x.shape[1]
+    E, lo, m, transport = shard_axis(x.shape[0] if axis is None else axis)
+    if x.shape[0] != m:
+        raise ValueError(f"x leads with {x.shape[0]} rows; this process "
+                         f"holds {m} ranks of the expert axis")
+    T = x.shape[1]
     if capacity is None:
         capacity = max(1, (2 * T) // E)
     parts = []
-    for e in range(E):
-        gate, keep, slot = _plan(router_logits[e], E, capacity)
-        my_keep = keep[:, e]
-        xe = (slot.T * my_keep[None, :]) @ x[e]                  # (C, d)
-        ye = expert_fn(tuple(p[e] for p in expert_params), xe)   # (C, d)
+    for i in range(m):
+        gate, keep, slot = _plan(router_logits[i], E, capacity)
+        my_keep = keep[:, lo + i]
+        xe = (slot.T * my_keep[None, :]) @ x[i]                  # (C, d)
+        ye = expert_fn(tuple(p[i] for p in expert_params), xe)   # (C, d)
         parts.append(((gate * my_keep)[:, None] * slot) @ ye)     # (T, d)
-    y = C.allreduce(torch.stack(parts), average=False)
+    parts = torch.stack(parts)
+    y = (C.allreduce(parts, average=False) if transport is None
+         else _ExpertSum.apply(parts, transport))
     if with_aux:
         return y, load_balance_loss(router_logits)
     return y

@@ -46,26 +46,12 @@ import torch
 
 from bluefog_tpu_torch.ops.flash_attention import flash_attention_lse
 from bluefog_tpu_torch.ops.p2p import ProcessRanks
+from bluefog_tpu_torch.ops.p2p import shard_axis as sequence_axis
 
 __all__ = ["ring_attention", "ring_attention_impl", "shard_sequence",
            "unshard_sequence", "sequence_axis"]
 
 _NEG = -1e30  # finite "minus infinity": logaddexp/exp stay NaN-free
-
-
-def sequence_axis(axis: Union[int, ProcessRanks]):
-    """``(n, lo, m, transport)``: the shards of the axis, the first one
-    this process holds, how many it holds, and the transport (None for a
-    rank-major ``int`` axis, and for a ``ProcessRanks`` of one process,
-    which holds every shard)."""
-    if isinstance(axis, ProcessRanks):
-        if axis.nprocs == 1:
-            return axis.n, 0, axis.n, None
-        return axis.n, axis.lo, axis.hi - axis.lo, axis
-    n = int(axis)
-    if n < 1:
-        raise ValueError(f"a sequence axis of {n} shards")
-    return n, 0, n, None
 
 
 def shard_sequence(x: torch.Tensor, n: int) -> torch.Tensor:

@@ -28,7 +28,9 @@ average and the update are one call.  Takes the benchmark's flags
 a built ``Trainer``, or on any object with ``forward_backward()`` and a
 plain torch optimizer ``opt`` (``long_context_training.
 SequenceParallelLM``: the step is then timed whole after the forward and
-backward).
+backward) or a distributed one (``tensor_parallel_training.
+DataTensorParallelLM``); :func:`trace` profiles any one call (a pipeline
+step).
 """
 
 from __future__ import annotations
@@ -40,21 +42,25 @@ import torch
 
 from bluefog_tpu_torch.benchmark import Trainer, build_parser
 
-__all__ = ["main", "profile", "kernel_family", "MOE_OPS", "ULYSSES_OPS"]
+__all__ = ["main", "profile", "trace", "kernel_family", "MOE_OPS",
+           "ULYSSES_OPS", "TP_OPS"]
 
 # Operators reported by name (inclusive device time): the GQA fan-out and
 # its backward, the chunked loss, RoPE's and SwiGLU's ops, the MoE
 # routing plan with its dispatch and combine einsums (``SwitchMlp``'s
-# profiler ranges), and Ulysses' two moves, forward and backward
-# (``parallel.ulysses``).
+# profiler ranges), Ulysses' two moves, forward and backward
+# (``parallel.ulysses``), and the tensor-parallel row sums
+# (``parallel.tensor_parallel``).
 _BWD = "autograd::engine::evaluate_function: "
 MOE_OPS = ("moe::plan", "moe::dispatch", "moe::dispatch_backward",
            "moe::combine", "moe::combine_backward")
 ULYSSES_OPS = ("ulysses::scatter_heads", "ulysses::scatter_heads_backward",
                "ulysses::gather_seq", "ulysses::gather_seq_backward")
+TP_OPS = ("tp::row_sum",)
 NAMED_OPS = ("aten::repeat_interleave", _BWD + "ExpandBackward0",
              "aten::logsumexp", _BWD + "GatherBackward0", "aten::cos",
-             "aten::sin", "aten::cat", "aten::silu") + MOE_OPS + ULYSSES_OPS
+             "aten::sin", "aten::cat", "aten::silu") + MOE_OPS + ULYSSES_OPS \
+    + TP_OPS
 
 
 def kernel_family(name: str) -> str:
@@ -116,12 +122,27 @@ def profile(tr: Trainer, model: str = "") -> dict:
         phases.update(adapt_ms=ev[1].elapsed_time(ev[2]),
                       combine_ms=ev[2].elapsed_time(ev[3]))
 
+    out = trace(lambda: (tr.forward_backward(), tr.opt.step()))
+    return {
+        "device": out.pop("device"),
+        "model": model,
+        "phases": phases,
+        **out,
+        # The profiler slows the host: against the step timed by events.
+        "idle_share_of_event_step":
+            1.0 - out["kernel_busy_ms"] / sum(phases.values()),
+    }
+
+
+def trace(step) -> dict:
+    """One call of ``step()`` under ``torch.profiler``: its wall time, the
+    device's busy time and idle share, device time by kernel family, the
+    largest kernels and operators, and the named operators."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        tr.forward_backward()
-        tr.opt.step()
+        step()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     avgs = prof.key_averages()
@@ -146,13 +167,9 @@ def profile(tr: Trainer, model: str = "") -> dict:
     named = {e.key.replace(_BWD, ""): e for e in ops if e.key in NAMED_OPS}
     return {
         "device": torch.cuda.get_device_name(0),
-        "model": model,
-        "phases": phases,
         "profiled_step_wall_ms": wall_ms,
         "kernel_busy_ms": busy_ms,
         "device_idle_share": (1.0 - busy_ms / wall_ms) if wall_ms else None,
-        # The profiler slows the host: against the step timed by events.
-        "idle_share_of_event_step": 1.0 - busy_ms / sum(phases.values()),
         "families_ms": dict(sorted(families.items(), key=lambda kv: -kv[1])),
         "top_kernels": [{"name": e.key[:90], "count": e.count,
                          "ms": e.self_device_time_total / 1e3} for e in top],

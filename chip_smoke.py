@@ -23,8 +23,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    paths' shapes: ``ring_train``'s hop 0 (B=4 shards, S=4,096, H=16,
    causal) and later hops (B=3, non-causal), with RoPE's operands, and
    ``ulysses_train``'s gathered sequence (B=4, S=16,384, H=4, causal, the
-   strided views of its head scatter), the twins run a few batch rows at
-   a time.  K2 also returns the
+   strided views of its head scatter), ``pp_train``'s microbatch (B=1,
+   S=2048, H=16), the twins run a few batch rows at a time; and timed,
+   ``tp_train``'s head shards (``tp-heads``: B = tp x 2 = 4 rows of 8
+   heads, S=2048, causal).  K2 also returns the
    backward's delta, held to the plain op ``flash_delta`` (``REL_TOL``), and
    K3 reads that delta, as on the training path; the timed cases time
    ``flash_delta`` too.  At the main shape K1-K3 run twice on the same
@@ -147,13 +149,48 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    loss falls.
 23. ``dist_nccl`` — ``init_distributed`` over a world-size-1 NCCL group (a
    localhost rendezvous): the collectives, a nonblocking allreduce and its
-   wait, and a 2-step ATC run of a small LM through the transport, bit for
-   bit the single-process path on the card.  One card: nothing crosses a
-   wire.
-24. ``{"kernels": [...]}`` (launches from the ``train``, ``llama_train``,
-   ``moe_train``, ``ring_train``, ``ulysses_train`` and ``dp_sp_train``
-   phases, each path's beside), then the ``nvidia-smi`` line, then the last
-   line ``{"ok": true, "device": {...}}``.
+   wait, a 2-step ATC run of a small LM through the transport, and a
+   tensor-parallel forward and backward and a 1F1B step over
+   ``process_ranks()``, bit for bit the single-process path on the card.
+   One card: nothing crosses a wire.
+24. ``tp_reference`` — a 2-layer SwiGLU LM (width 512, 4 heads of 128) cut
+   over rank-major tp shards (``parallel.tensor_parallel.TensorParallelLM``,
+   K1-K3 on the shards' heads stacked on the batch dim) against the same
+   weights unsharded through K1-K3: MHA at tp 2, GQA with 2 kv heads at tp
+   4 (half-group kv shards, gathered); logits and every gradient, as in
+   ``reference``; K1 launches once a layer.
+25. ``tp_train`` — ``__graft_entry__.dryrun_multichip``'s tensor-parallel
+   step at dp 2 x tp 2 on 4 virtual ranks: ``tensor_parallel_training.
+   DataTensorParallelLM`` at the 1.3B LM's widths with SwiGLU (24 layers,
+   1,745,979,392 parameters a dp replica, no remat), batch 2 x 2048 a dp
+   rank, ATC SGD (lr 0.025) over the one-peer Exp2 walk, 4 steps: step ms
+   (the first left out), tokens/s, peak memory under 80 GB, the spread
+   exactly 0.0 after every combine, launches 24 layers x 2 dp ranks of
+   each kernel a step; a ``profile_step`` profile of one more step (idle
+   share, K1-K3, the tp sums ``tp::row_sum``).
+26. ``pp_train`` — 1F1B (``parallel.pipeline.pipeline_train_step``) of the
+   same model's 24 blocks in 4 rank-major stages of 6, 8 microbatches of
+   one 2048-token sequence, MSE against a synthetic target, 3 SGD steps:
+   the first step's loss and gradients against autograd through the 24
+   blocks in sequence (``REF_LOGITS_TOL``, ``REF_GRAD_TOL``), step ms,
+   tokens/s, the 22 ticks, peak memory under 80 GB, launches K1 2 x 24 x 8
+   and K2, K3 24 x 8 a step; ``profile_step.trace`` of one more step.
+27. ``pp_variants`` — GPipe (autograd through ``pipeline_apply``),
+   interleaved 1F1B (v = 2) and ZB-H1 at 8 blocks (the depth cut for the
+   smoke's time), each warmed once, then one timed step against plain
+   1F1B's gradients; launches per schedule (ZB-H1: K1 3, K2 and K3 2 a
+   block and microbatch).
+28. ``dp_tp_pp_ep`` — dryrun's dp x tp x pp and dp x tp x pp x ep steps
+   (``parallel.composed``) at 8 virtual ranks and its shapes, float32,
+   against the dense sequential step on the card (``COMPOSED_TOL``).
+29. ``tp_example``, 30. ``pp_example`` — ``python -m bluefog_tpu_torch.
+   tensor_parallel_training``'s and ``pipeline_training``'s ``main`` on the
+   card (each schedule): the loss falls.
+31. ``{"kernels": [...]}`` (launches from the ``train``, ``llama_train``,
+   ``moe_train``, ``ring_train``, ``ulysses_train``, ``dp_sp_train``,
+   ``tp_train``, ``pp_train`` and ``pp_variants`` phases, each path's
+   beside), then the ``nvidia-smi`` line, then the last line ``{"ok":
+   true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a GPU or outside the repository.
 """
@@ -193,6 +230,12 @@ SEQ_SHARDS = 4               # tokens over 4 rank-major shards of 4,096
 RING_LAYERS = 24             # ring_train at full depth
 ULYSSES_LAYERS = 4           # ulysses_train and dp_sp_train at a reduced
 DP_SP_LAYERS = 4             # depth, to keep the smoke within its time
+TP_DP, TP_WAYS = 2, 2        # tp_train: dp 2 x tp 2, 4 virtual ranks
+TP_PARAMS = 1745979392       # a dp replica: MHA, SwiGLU, learned positions
+PP_STAGES, PP_MICROBATCHES = 4, 8   # pp_train: 24 blocks in 4 stages of 6,
+PP_BLOCK_PARAMS = 1610711040        # 8 microbatches of one 2048 sequence
+PP_VARIANT_LAYERS = 8        # pp_variants: depth cut to keep the smoke's time
+COMPOSED_TOL = (2e-4, 2e-5)  # dp x tp x pp (x ep) vs dense, f32: rtol, atol
 SEED = 0                     # inputs and weights are drawn from it
 TWIN_SCORES_BYTES = 1 << 32  # the plain twins' f32 scores, at most, a call
 SOURCE = "bluefog_tpu_torch/csrc/flash_attention.cu"
@@ -1226,12 +1269,53 @@ def check_long_context_example():
     return out
 
 
+def model_parallel_step(axis):
+    """A tensor-parallel forward and backward over ``axis`` (a 2-layer
+    SwiGLU LM, width 256, 2 heads of 128, through K1-K3) and a 1F1B step of
+    its 2 blocks as the stages of ``axis``: the logits, the loss, every
+    gradient."""
+    import torch
+    import torch.nn.functional as F
+
+    from bluefog_tpu_torch.models.transformer import (TransformerConfig,
+                                                      TransformerLM)
+    from bluefog_tpu_torch.ops.p2p import shard_axis
+    from bluefog_tpu_torch.parallel import pipeline as PP
+    from bluefog_tpu_torch.parallel import tensor_parallel as TPL
+
+    dev = torch.device("cuda")
+    cfg = TransformerConfig(vocab_size=512, num_layers=2, num_heads=2,
+                            embed_dim=256, max_seq_len=512, mlp="swiglu")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    full = TransformerLM(cfg).to(dev)
+    full.reset_parameters(g)
+    tokens = torch.randint(0, 512, (2, 512), generator=g, device=dev)
+    model = TPL.TensorParallelLM(cfg, axis).to(dev)
+    model.load_state_dict(TPL.tp_shard_params(full, full.state_dict(), axis))
+    logits = model(tokens)
+    loss = F.cross_entropy(logits.reshape(-1, 512),
+                           torch.roll(tokens, -1, 1).reshape(-1))
+    loss.backward()
+    out = {"tp_logits": logits.detach(), "tp_loss": loss.detach()}
+    out.update({f"tp_grad/{k}": p.grad for k, p in model.named_parameters()})
+    blocks = stacked_blocks(cfg, shard_axis(axis)[0])
+    x = torch.randn(4, 1, 512, 256, generator=g, device=dev).bfloat16()
+    pp_loss, grads = PP.pipeline_train_step(PP.blocks_stage(cfg), blocks, x,
+                                            torch.zeros_like(x), pp_mse,
+                                            axis=axis)
+    out["pp_loss"] = pp_loss
+    out.update({f"pp_grad/{k}": v for k, v in grads.items()})
+    return out
+
+
 def check_dist_nccl():
     """A world-size-1 NCCL process group from ``init_distributed`` (a
     localhost rendezvous): the collectives, a nonblocking op and its wait,
-    and one ATC step of a small LM through the transport, each held bit
-    for bit to the single-process path on the card.  One card: nothing
-    here crosses a wire."""
+    one ATC step of a small LM through the transport, and a tensor-parallel
+    forward and backward and a 1F1B step over ``process_ranks()``
+    (:func:`model_parallel_step`), each held bit for bit to the
+    single-process path on the card.  One card: nothing here crosses a
+    wire."""
     import socket
 
     import torch
@@ -1267,6 +1351,7 @@ def check_dist_nccl():
         tr = benchmark.Trainer(args)
         benchmark.measure(args, tr, quiet=True)
         out["atc_flat"] = tr.rep.flat.detach().clone()
+        out.update(model_parallel_step(bf.process_ranks() or 1))
         return out
 
     bf.init(1)
@@ -1289,6 +1374,499 @@ def check_dist_nccl():
     require(got["polled_after_wait"], "a waited handle polls done")
     return {"backend": backend, "world_size": world,
             "device_count": torch.cuda.device_count(), "bitwise": same}
+
+
+def check_tp_reference(seed):
+    """``tp_reference``: a 2-layer SwiGLU LM (width 512, 4 heads of 128,
+    bf16) through K1-K3 cut over rank-major tp shards against the same
+    weights unsharded through K1-K3: as MHA at tp 2, and as GQA with 2 kv
+    heads at tp 4 (the kv shards are half groups, gathered back).  Logits
+    and every parameter's gradient (the shards put back together) by
+    relative error; K1 launches once a layer in the forward."""
+    import torch
+    import torch.nn.functional as F
+
+    from bluefog_tpu_torch.models.transformer import (TransformerConfig,
+                                                      TransformerLM)
+    from bluefog_tpu_torch.ops import flash_attention as FA
+    from bluefog_tpu_torch.parallel import tensor_parallel as TPL
+
+    dev = torch.device("cuda")
+    out = {}
+    for case, kw, tp in (("mha", {}, 2), ("gqa", dict(num_kv_heads=2), 4)):
+        cfg = TransformerConfig(vocab_size=512, num_layers=2, num_heads=4,
+                                embed_dim=512, max_seq_len=1024, mlp="swiglu",
+                                **kw)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        full = TransformerLM(cfg, FA.flash_attention_impl()).to(dev)
+        full.reset_parameters(g)
+        tokens = torch.randint(0, 512, (2, 1024), generator=g, device=dev)
+        want_logits, want = logits_and_grads(full, tokens)
+        model = TPL.TensorParallelLM(cfg, tp).to(dev)
+        model.load_state_dict(TPL.tp_shard_params(full, full.state_dict(), tp))
+        FA.reset_launch_counts()
+        logits = model(tokens)
+        torch.cuda.synchronize()
+        forward = flash_launches()
+        F.cross_entropy(logits.reshape(-1, 512),
+                        torch.roll(tokens, -1, 1).reshape(-1)).backward()
+        torch.cuda.synchronize()
+        launches = flash_launches()
+        specs = TPL.tp_param_specs(full, tp)
+        params = dict(model.named_parameters())
+        grad_err = {}
+        for k, spec in specs.items():
+            got = params[k].grad
+            if spec is not None:
+                got = torch.cat(list(got), spec[1])
+            grad_err[k] = rel_err(got, want[k])
+        worst = max(grad_err, key=grad_err.get)
+        logit_err = rel_err(logits.detach(), want_logits)
+        layers = cfg.num_layers
+        require(forward["K1"] == layers and launches == {
+            "K1": layers, "K2": layers, "K3": layers},
+            f"tp_reference {case}: launches {launches} (forward {forward})")
+        require(logit_err <= REF_LOGITS_TOL,
+                f"tp_reference {case}: logits differ by {logit_err}")
+        require(grad_err[worst] <= REF_GRAD_TOL,
+                f"tp_reference {case}: gradient of {worst} differs by "
+                f"{grad_err[worst]}")
+        out[case] = {"tp": tp, "num_kv_heads": cfg.num_kv_heads or 4,
+                     "launches": launches, "logits_rel_err": logit_err,
+                     "grad_rel_err": grad_err[worst],
+                     "grad_rel_err_worst_param": worst}
+        del full, model
+    out["tol"] = {"logits": REF_LOGITS_TOL, "grad": REF_GRAD_TOL}
+    return out
+
+
+def tp_train_phase(layers=LAYERS, steps=4):
+    """``__graft_entry__.dryrun_multichip``'s tensor-parallel step at dp 2 x
+    tp 2 on 4 virtual ranks of the card: ``tensor_parallel_training.
+    DataTensorParallelLM`` at the 1.3B LM's widths (MHA, SwiGLU, learned
+    positions, no remat; bf16 over float32), batch 2 a dp rank, ATC SGD
+    combined over dp by the one-peer Exp2 walk (at dp 2 the exact average:
+    the spread is 0.0 after every combine); then a ``profile_step`` profile
+    of one more step (idle share, K1-K3, the tp sums).  Returns the
+    launches of the ``steps`` steps."""
+    import torch
+
+    import bluefog_tpu_torch as bf
+    from bluefog_tpu_torch import benchmark, profile_step
+    from bluefog_tpu_torch import tensor_parallel_training as TPT
+    from bluefog_tpu_torch import topology as topo
+    from bluefog_tpu_torch.models.transformer import TransformerConfig
+    from bluefog_tpu_torch.ops import flash_attention as FA
+    from bluefog_tpu_torch.optim import optimizers as O
+
+    dp, tp, seq, batch = TP_DP, TP_WAYS, 2048, 2
+    dev = torch.device("cuda")
+    cfg = TransformerConfig(vocab_size=32000, num_layers=layers, num_heads=16,
+                            embed_dim=2048, max_seq_len=seq, mlp="swiglu")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    toks = torch.randint(0, 32000, (dp, batch, seq + 1), generator=g,
+                         device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    bf.init(dp)
+    lm = TPT.DataTensorParallelLM(
+        cfg, tp, toks[..., :-1], toks[..., 1:], lambda params:
+        O.DistributedAdaptThenCombineOptimizer(
+            torch.optim.SGD(params, lr=0.0125 * dp), use_dynamic_topology=True,
+            phases=topo.one_peer_exp2_phases(dp)), seed=SEED)
+    require(lm.params_per_replica == TP_PARAMS,
+            f"{lm.params_per_replica} parameters a replica, expected "
+            f"{TP_PARAMS}")
+    FA.reset_launch_counts()
+    losses, spreads, step_s = [], [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(lm.forward_backward())
+        lm.opt.adapt()
+        before = benchmark.consensus_spread(lm.rep.flat)["max"]
+        lm.opt.combine()
+        after = benchmark.consensus_spread(lm.rep.flat)["max"]
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        spreads.append({"after_adapt": before, "after_combine": after})
+    launches = flash_launches()
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    losses = [float(x) for x in losses]
+    per = {k: layers * dp for k in ("K1", "K2", "K3")}
+    expected = {k: v * steps for k, v in per.items()}
+    step_ms = 1e3 * sum(step_s[1:]) / (steps - 1)  # the first step tunes
+    prof = profile_step.profile(lm, "transformer (dp x tp)")
+    res = {"config": {"dp": dp, "tp": tp, "num_layers": layers,
+                      "embed_dim": 2048, "num_heads": 16,
+                      "heads_per_shard": 16 // tp, "head_dim": 128,
+                      "vocab_size": 32000, "mlp": "swiglu",
+                      "pos_encoding": "learned", "remat": None,
+                      "seq_len": seq, "batch_per_dp_rank": batch,
+                      "optimizer": "atc sgd, one-peer exp2",
+                      "lr": 0.0125 * dp},
+           "params_per_replica": lm.params_per_replica, "losses": losses,
+           "spreads": spreads, "step_ms": step_ms,
+           "step_ms_each": [1e3 * t for t in step_s],
+           "tokens_per_s": dp * batch * seq / (step_ms / 1e3),
+           "peak_mem_gb": peak, "launches": launches,
+           "launches_per_step": per, "expected_launches": expected,
+           "k1_k3_ms": prof["families_ms"].get("flash attention (K1-K3)"),
+           "tp_sum": prof["named_ops"].get("tp::row_sum"),
+           "profile": {k: prof[k] for k in (
+               "phases", "profiled_step_wall_ms", "kernel_busy_ms",
+               "device_idle_share", "idle_share_of_event_step",
+               "families_ms", "top_kernels", "top_ops")}}
+    emit("tp_train", **res)
+    require(all(math.isfinite(x) for x in losses), f"finite losses {losses}")
+    require(launches == expected, f"launches {launches}, expected {expected}")
+    require(all(s["after_combine"] == 0.0 for s in spreads),
+            f"dp 2 combines to the exact average: {spreads}")
+    require(peak < 80, f"peak {peak} GB")
+    require(0 < prof["kernel_busy_ms"] <= prof["profiled_step_wall_ms"],
+            f"device busy {prof['kernel_busy_ms']} ms")
+    del lm
+    bf.shutdown()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def stacked_blocks(cfg, stages, seed=SEED):
+    """The blocks of ``cfg``'s ``TransformerLM`` (``reset_parameters`` from
+    ``seed`` on the card), stacked ``(stages, layers / stages, ...)`` by
+    ``Block`` parameter name."""
+    import torch
+
+    from bluefog_tpu_torch.models.transformer import TransformerLM
+    dev = torch.device("cuda")
+    full = TransformerLM(cfg).to(dev)
+    full.reset_parameters(torch.Generator(device=dev).manual_seed(seed))
+    names = list(full.blocks[0].state_dict())
+    per = cfg.num_layers // stages
+    out = {k: torch.stack([blk.state_dict()[k] for blk in full.blocks])
+           .reshape((stages, per) + tuple(full.blocks[0].state_dict()[k].shape))
+           for k in names}
+    del full
+    torch.cuda.empty_cache()
+    return out
+
+
+def pp_inputs(cfg, M, seed=SEED):
+    """``M`` microbatches of one 2048-token sequence of bf16 activations and
+    their targets, from ``seed``."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    shape = (M, 1, cfg.max_seq_len, cfg.embed_dim)
+    return tuple(torch.randn(shape, generator=g, device="cuda")
+                 .to(cfg.dtype) for _ in range(2))
+
+
+def pp_mse(y, t):
+    return ((y.float() - t.float()) ** 2).mean()
+
+
+def pp_train_phase(layers=LAYERS, stages=PP_STAGES, M=PP_MICROBATCHES,
+                   steps=3, lr=0.01):
+    """``pp_train``: 1F1B (``parallel.pipeline.pipeline_train_step``) of the
+    tp_train model's 24 blocks over 4 rank-major stages of 6, ``M`` = 8
+    microbatches of one 2048-token sequence, the mean squared error of the
+    last stage's output against a synthetic target, 3 SGD steps.  The first
+    step's loss and gradients against autograd through the same 24 blocks
+    run in sequence on the card (each microbatch's loss / M backpropagated
+    in turn), by relative error; then ``profile_step.trace`` of one more
+    step.  Returns the steps' launches."""
+    import torch
+
+    from bluefog_tpu_torch import profile_step
+    from bluefog_tpu_torch.models.transformer import TransformerConfig
+    from bluefog_tpu_torch.ops import flash_attention as FA
+    from bluefog_tpu_torch.parallel import pipeline as PP
+
+    dev = torch.device("cuda")
+    cfg = TransformerConfig(vocab_size=32000, num_layers=layers, num_heads=16,
+                            embed_dim=2048, max_seq_len=2048, mlp="swiglu")
+    params = stacked_blocks(cfg, stages)
+    n_params = sum(v.numel() for v in params.values())
+    require(n_params == PP_BLOCK_PARAMS,
+            f"{n_params} block parameters, expected {PP_BLOCK_PARAMS}")
+    x, tgt = pp_inputs(cfg, M)
+    stage = PP.blocks_stage(cfg)
+    flat = {k: v.detach().reshape((layers,) + tuple(v.shape[2:]))
+            .requires_grad_() for k, v in params.items()}
+    ref_loss = 0.0
+    for m in range(M):
+        loss = pp_mse(stage(flat, x[m]), tgt[m]) / M
+        loss.backward()
+        ref_loss += float(loss.detach())
+    ref = {k: v.grad for k, v in flat.items()}
+    del flat
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    FA.reset_launch_counts()
+    losses, step_s, check = [], [], None
+    for step in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = PP.pipeline_train_step(stage, params, x, tgt, pp_mse,
+                                             axis=stages)
+        with torch.no_grad():
+            for k, gk in grads.items():
+                params[k] -= lr * gk
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        if step == 0:
+            err = {k: rel_err(gk.reshape(ref[k].shape), ref[k])
+                   for k, gk in grads.items()}
+            worst = max(err, key=err.get)
+            check = {"loss_rel_err": abs(losses[0] - ref_loss) / ref_loss,
+                     "grad_rel_err": err[worst],
+                     "grad_rel_err_worst_param": worst}
+        del grads
+    launches = flash_launches()
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    per = {"K1": 2 * layers * M, "K2": layers * M, "K3": layers * M}
+    expected = {k: v * steps for k, v in per.items()}
+    step_ms = 1e3 * sum(step_s[1:]) / (steps - 1)
+    del ref
+    prof = profile_step.trace(lambda: PP.pipeline_train_step(
+        stage, params, x, tgt, pp_mse, axis=stages))
+    emit("pp_train", config={"schedule": "1f1b", "stages": stages,
+                             "blocks": layers, "blocks_per_stage":
+                             layers // stages, "microbatches": M,
+                             "microbatch": [1, 2048], "embed_dim": 2048,
+                             "num_heads": 16, "mlp": "swiglu",
+                             "loss": "mse", "optimizer": "sgd", "lr": lr},
+         block_params=n_params, ticks=2 * M + 2 * stages - 2, losses=losses,
+         sequential_loss=ref_loss, reference=check, step_ms=step_ms,
+         step_ms_each=[1e3 * t for t in step_s],
+         tokens_per_s=M * 2048 / (step_ms / 1e3), peak_mem_gb=peak,
+         launches=launches, launches_per_step=per,
+         expected_launches=expected,
+         k1_k3_ms=prof["families_ms"].get("flash attention (K1-K3)"),
+         profile={k: prof[k] for k in (
+             "profiled_step_wall_ms", "kernel_busy_ms", "device_idle_share",
+             "families_ms", "top_kernels", "top_ops")},
+         tol={"loss": REF_LOGITS_TOL, "grad": REF_GRAD_TOL})
+    require(all(math.isfinite(v) for v in losses), f"finite losses {losses}")
+    require(launches == expected, f"launches {launches}, expected {expected}")
+    require(check["loss_rel_err"] <= REF_LOGITS_TOL, f"pp_train loss {check}")
+    require(check["grad_rel_err"] <= REF_GRAD_TOL, f"pp_train grads {check}")
+    require(peak < 80, f"peak {peak} GB")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def pp_variants_phase(layers=PP_VARIANT_LAYERS, stages=PP_STAGES,
+                      M=PP_MICROBATCHES):
+    """``pp_variants``: the other schedules on ``layers`` blocks of the same
+    model, 4 stages, 8 microbatches: plain 1F1B, then GPipe (autograd
+    through ``pipeline_apply``), interleaved 1F1B with v = 2 (rank r's chunk
+    c one block, global stage ``c * 4 + r``) and ZB-H1 (``split_backward``),
+    each step's gradients against the plain 1F1B's by relative error; each
+    schedule runs once to warm, then once timed and counted.  Returns the
+    launches of the four counted runs together."""
+    import torch
+
+    from bluefog_tpu_torch.models.transformer import TransformerConfig
+    from bluefog_tpu_torch.ops import flash_attention as FA
+    from bluefog_tpu_torch.parallel import pipeline as PP
+
+    cfg = TransformerConfig(vocab_size=32000, num_layers=layers, num_heads=16,
+                            embed_dim=2048, max_seq_len=2048, mlp="swiglu")
+    params = stacked_blocks(cfg, stages)
+    x, tgt = pp_inputs(cfg, M)
+    stage = PP.blocks_stage(cfg)
+    per = layers // stages
+    flat = lambda g: {k: v.reshape((layers,) + tuple(v.shape[2:]))  # noqa
+                      for k, v in g.items()}
+    v = 2
+    order = [[c * stages + r for c in range(v)] for r in range(stages)]
+    index = torch.tensor(order, device=x.device)
+    chunked = {k: t[index][:, :, None] for k, t in flat(params).items()}
+
+    def gpipe():
+        leaves = {k: t.detach().requires_grad_() for k, t in params.items()}
+        y = PP.pipeline_apply(stage, leaves, x, axis=stages)
+        loss = torch.stack([pp_mse(y[m], tgt[m]) for m in range(M)]).mean()
+        loss.backward()
+        return loss.detach(), {k: t.grad for k, t in leaves.items()}
+
+    def interleaved():
+        loss, g = PP.pipeline_train_step_interleaved(
+            stage, chunked, x, tgt, pp_mse, axis=stages)
+        back = {}
+        for k, t in g.items():
+            out = torch.empty((layers,) + tuple(t.shape[3:]), dtype=t.dtype,
+                              device=t.device)
+            for r in range(stages):
+                for c in range(v):
+                    out[order[r][c]] = t[r, c, 0]
+            back[k] = out.reshape(params[k].shape)
+        return loss, back
+
+    runs = {
+        "1f1b": lambda: PP.pipeline_train_step(stage, params, x, tgt, pp_mse,
+                                               axis=stages),
+        "gpipe": gpipe, "interleaved_v2": interleaved,
+        "zb_h1": lambda: PP.pipeline_train_step(stage, params, x, tgt, pp_mse,
+                                                axis=stages,
+                                                split_backward=True)}
+    expected = {"1f1b": (2, 1, 1), "gpipe": (1, 1, 1),
+                "interleaved_v2": (2, 1, 1), "zb_h1": (3, 2, 2)}
+    out, total, base = {}, {"K1": 0, "K2": 0, "K3": 0}, None
+    for name, run in runs.items():
+        run()      # warm: the allocator grows once for each schedule
+        FA.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = run()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        launches = flash_launches()
+        want = {k: n * layers * M for k, n in zip(("K1", "K2", "K3"),
+                                                   expected[name])}
+        require(launches == want, f"{name} launches {launches}, expected "
+                f"{want}")
+        grads = flat(grads)
+        if base is None:
+            base = (float(loss), grads)
+            res = {}
+        else:
+            err = {k: rel_err(grads[k], base[1][k]) for k in grads}
+            worst = max(err, key=err.get)
+            res = {"loss_rel_err_vs_1f1b": abs(float(loss) - base[0])
+                   / base[0], "grad_rel_err_vs_1f1b": err[worst],
+                   "grad_rel_err_worst_param": worst}
+            require(res["loss_rel_err_vs_1f1b"] <= REF_LOGITS_TOL
+                    and err[worst] <= REF_GRAD_TOL, f"{name}: {res}")
+        out[name] = {"loss": float(loss), "ms": ms, "launches": launches,
+                     **res}
+        for k in total:
+            total[k] += launches[k]
+        del grads
+    emit("pp_variants", config={"blocks": layers, "stages": stages,
+                                "blocks_per_stage": per, "microbatches": M,
+                                "interleaved_chunks": v, "embed_dim": 2048,
+                                "num_heads": 16, "mlp": "swiglu"},
+         runs=out, launches=total,
+         tol={"loss": REF_LOGITS_TOL, "grad": REF_GRAD_TOL})
+    del params, chunked, base
+    torch.cuda.empty_cache()
+    return total
+
+
+def check_compositions(seed):
+    """``dp_tp_pp_ep``: the two compositions of ``__graft_entry__.
+    dryrun_multichip`` at 8 virtual ranks and its shapes, ``parallel.
+    composed``'s steps in float32 on the card (TF32 off), each dp replica
+    its own data: dp x tp x pp (2 x 2 x 2; d 8, hidden 8, 4 microbatches of
+    2) and dp x tp x pp x ep with tp and ep on one mp axis (2 x 2 x 2; d 6,
+    hidden 8, 2 experts of capacity 4, 4 microbatches of 4).  Each against
+    its dense sequential step on the card: every dp replica's SGD update of
+    the unsharded weights, averaged over dp (the ring combine at dp 2)."""
+    import torch
+
+    from bluefog_tpu_torch import topology as topo
+    from bluefog_tpu_torch.ops import schedule as S
+    from bluefog_tpu_torch.parallel import composed as TC
+    from bluefog_tpu_torch.parallel.moe import switch_dispatch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
+    sched = S.compile_static(topo.RingGraph(2), use_topo_weights=False)
+    lr, dp, mp, pp = 0.1, 2, 2, 2
+    out = {}
+    for case, (d, hid, M, mb, E) in (("dp_tp_pp", (8, 8, 4, 2, 0)),
+                                     ("dp_tp_pp_ep", (6, 8, 4, 4, 2))):
+        hs = hid // mp
+        full = [rnd(pp, d, hid) * 0.3, rnd(pp, hid, d) * 0.3]
+        if E:
+            full += [rnd(pp, E, d, d) * 0.3, rnd(pp, d, E) * 0.3]
+        x, tgt = rnd(dp, M, mb, d), torch.zeros(dp, M, mb, d, device=dev)
+
+        def stage(w, s, z):
+            y = torch.relu(z @ w[0][s]) @ w[1][s]
+            if not E:
+                return y
+            combine, dispatch = switch_dispatch(y @ w[3][s], E, 4)
+            return y + sum(combine[:, e] @ torch.tanh(
+                (dispatch[e] @ y) @ w[2][s, e]) for e in range(E))
+
+        want, want_loss = [torch.zeros_like(w) for w in full], []
+        for r in range(dp):
+            w = [t.clone().requires_grad_() for t in full]
+            losses = []
+            for m in range(M):
+                z = x[r, m]
+                for s in range(pp):
+                    z = stage(w, s, z)
+                losses.append(((z - tgt[r, m]) ** 2).mean())
+            loss = torch.stack(losses).mean()
+            grads = torch.autograd.grad(loss, w)
+            want_loss.append(float(loss.detach()))
+            for acc, t, gr in zip(want, full, grads):
+                acc += (t - lr * gr) / dp
+        lead = lambda t: t[None].expand((dp,) + t.shape).clone()  # noqa
+        shards = [full[0].reshape(pp, d, mp, hs).transpose(1, 2),
+                  full[1].reshape(pp, mp, hs, d)]
+        if E:
+            shards += [full[2], full[3][:, None].expand(pp, mp, d, E)]
+            new, loss = TC.dp_tp_pp_ep_step(tuple(lead(t) for t in shards), x,
+                                            tgt, lr=lr, sched=sched,
+                                            capacity=4)
+        else:
+            new, loss = TC.dp_tp_pp_step(tuple(lead(t) for t in shards), x,
+                                         tgt, lr=lr, sched=sched)
+        got = [new[0].transpose(2, 3).reshape(dp, pp, d, hid),
+               new[1].reshape(dp, pp, hid, d)]
+        if E:
+            got += [new[2], new[3]]
+        rtol, atol = COMPOSED_TOL
+        errs = []
+        for name, a, b in zip(("wi", "wo", "we", "wr"), got, want):
+            for r in range(dp):
+                if name == "wr":   # every mp rank's router copy
+                    ok = torch.allclose(a[r], b[:, None].expand_as(a[r]),
+                                        rtol=rtol, atol=atol)
+                    errs.append(float((a[r] - b[:, None]).abs().max()))
+                else:
+                    ok = torch.allclose(a[r], b, rtol=rtol, atol=atol)
+                    errs.append(float((a[r] - b).abs().max()))
+                require(ok, f"{case}: {name} of dp rank {r} differs from "
+                        f"the dense step by {errs[-1]}")
+        losses = [float(v) for v in loss]
+        require(all(math.isfinite(v) for v in losses), f"{case} {losses}")
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, want_loss))
+        require(loss_err <= 1e-5, f"{case}: losses {losses} vs {want_loss}")
+        out[case] = {"dp": dp, "mp": mp, "pp": pp, "d": d, "hidden": hid,
+                     "experts": E, "microbatches": M, "microbatch": mb,
+                     "losses": losses, "loss_rel_err": loss_err,
+                     "param_max_abs_err": max(errs)}
+    out["tol"] = {"rtol": COMPOSED_TOL[0], "atol": COMPOSED_TOL[1],
+                  "loss_rtol": 1e-5}
+    return out
+
+
+def check_mp_examples():
+    """``tensor_parallel_training`` and ``pipeline_training``'s own entry
+    points on the card, each schedule: the loss falls."""
+    from bluefog_tpu_torch import pipeline_training as PT
+    from bluefog_tpu_torch import tensor_parallel_training as TPT
+    res = TPT.main(["--steps", "30"])
+    require(res["losses"][-1] < res["losses"][0], f"tp: {res['losses']}")
+    tp = {"dp": res["dp"], "tp": res["tp"], "qkv_shards": res["qkv_shards"],
+          "first_loss": res["losses"][0], "last_loss": res["losses"][-1]}
+    pp = {}
+    for schedule in ("gpipe", "1f1b", "zb"):
+        res = PT.main(["--steps", "40", "--schedule", schedule])
+        require(res["losses"][-1] < res["losses"][0],
+                f"pp {schedule}: {res['losses']}")
+        pp[schedule] = {"first_loss": res["losses"][0],
+                        "last_loss": res["losses"][-1],
+                        "forward_max_abs_err": res["forward_max_abs_err"]}
+    return tp, pp
 
 
 def image_phase(benchmark, argv, checks_spread_by="max"):
@@ -1373,7 +1951,9 @@ def main():
     # sequence-parallel paths' shapes (ring_train: 4 shards of 4,096
     # tokens, causal at hop 0, then the non-causal blocks of 3 of them;
     # ulysses_train: the gathered 16,384 tokens, 4 heads a shard), each
-    # with K2 taking a nonzero lse cotangent, as every case does.
+    # with K2 taking a nonzero lse cotangent, as every case does; tp_train's
+    # head shards (timed: tp x B = 4 rows of 8 heads) and pp_train's
+    # microbatch of one sequence.
     for case, B, S, H, D, causal, timed, layout, kv_h, fwd_only in (
             ("main", 2, 2048, 16, 128, True, True, "fused", None, False),
             ("ragged", 2, 1000, 16, 128, True, True, "fused", None, False),
@@ -1393,6 +1973,10 @@ def main():
             ("ring-hop1", 3, 4096, 16, 128, False, False, "rope", None,
              False),
             ("ulysses", 4, 16384, 4, 128, True, False, "ulysses", None,
+             False),
+            ("tp-heads", TP_WAYS * 2, 2048, 16 // TP_WAYS, 128, True, True,
+             "fused", None, False),
+            ("pp-microbatch", 1, 2048, 16, 128, True, False, "fused", None,
              False)):
         res = check_kernels(B, S, H, D, causal, SEED, timed=timed,
                             repeat=case == "main", layout=layout,
@@ -1515,6 +2099,14 @@ def main():
     dp_sp_launches = dp_sp_train_phase()
     emit("long_context_example", **check_long_context_example())
     emit("dist_nccl", **check_dist_nccl())
+    emit("tp_reference", **check_tp_reference(SEED))
+    tp_launches = tp_train_phase()
+    pp_launches = pp_train_phase()
+    pp_variant_launches = pp_variants_phase()
+    emit("dp_tp_pp_ep", **check_compositions(SEED))
+    tp_example, pp_example = check_mp_examples()
+    emit("tp_example", **tp_example)
+    emit("pp_example", **pp_example)
 
     kernels = []
     for kname, (fn, replaces) in KERNELS.items():
@@ -1525,7 +2117,10 @@ def main():
                                      + moe_launches[kname]
                                      + ring_launches[kname]
                                      + ulysses_launches[kname]
-                                     + dp_sp_launches[kname]),
+                                     + dp_sp_launches[kname]
+                                     + tp_launches[kname]
+                                     + pp_launches[kname]
+                                     + pp_variant_launches[kname]),
                         "launches_by_path": {
                             "train": launches[kname],
                             "llama_train": llama_launches[kname],
@@ -1533,6 +2128,9 @@ def main():
                             "ring_train": ring_launches[kname],
                             "ulysses_train": ulysses_launches[kname],
                             "dp_sp_train": dp_sp_launches[kname],
+                            "tp_train": tp_launches[kname],
+                            "pp_train": pp_launches[kname],
+                            "pp_variants": pp_variant_launches[kname],
                             "generate": gen_launches[kname],
                             "vit": vit_launches[kname]},
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -17,7 +17,17 @@ of each process, put together, must equal the single-process results:
   topology, also under ``sparse:0.25``) within 1e-6, and of gradient
   allreduce with fusion buckets within 1e-6 absolute and relative;
 - ring and Ulysses attention over point-to-point rotation and all-to-all,
-  forward and gradients, within 1e-6 of the rank-major form.
+  forward and gradients, within 1e-6 of the rank-major form;
+- the pipeline schedules (GPipe, 1F1B, interleaved ZB-H1) with a stage a
+  rank, their hops through ``ProcessRanks.rotate``: bit for bit the
+  rank-major run;
+- the tensor-parallel LM with a shard a rank (GQA with 2 kv heads, so the
+  kv shards are gathered across processes) and ``moe_apply`` with an expert
+  a rank: the logits, the loss and the replicated parameters' gradients, and
+  the MoE output, within 1e-6 and the same on every process; the shards'
+  and experts' gradients within 1e-6;
+- 3 ATC steps of dp (the world's ranks, across processes) x tp 2
+  (rank-major in each process) within 1e-6.
 
 The single-process path is held to the JAX package in the other
 ``test_torch_port_*`` files.  Run as a script, this file is the worker.
@@ -59,14 +69,16 @@ BITWISE = ["neighbor_allreduce", "neighbor_allreduce_override",
            "nonblocking_neighbor_allreduce", "nonblocking_dynamic",
            "nonblocking_neighbor_allgather", "nonblocking_pair_gossip",
            "nonblocking_broadcast", "nonblocking_allgather",
-           "nonblocking_local_allreduce"]
+           "nonblocking_local_allreduce", "pp_gpipe", "pp_1f1b",
+           "pp_zb_interleaved"]
 # Sums over the processes by ``dist.all_reduce``: within 1e-6, and the
 # same on every rank.
 ALL_REDUCE = ["allreduce", "allreduce_sum", "nonblocking_allreduce",
-              "local_allreduce_world"]
+              "local_allreduce_world", "tp_replicated", "moe_ep"]
 CLOSE = ["atc_flat", "atc_sparse_flat", "gradient_allreduce_flat",
          "ring_causal", "ring_noncausal", "ulysses_causal",
-         "ulysses_noncausal"]
+         "ulysses_noncausal", "tp_shard_grads", "moe_ep_grads",
+         "dp_tp_atc_flat"]
 # Gradient allreduce sums by ``dist.all_reduce`` (3 steps, values up to ~5):
 # also within 1e-6 relative.
 CLOSE_RTOL = {"gradient_allreduce_flat": 1e-6}
@@ -196,7 +208,103 @@ def scenario(bf) -> dict:
             name = f"{fname}_{'causal' if causal else 'noncausal'}"
             out[name] = torch.cat([o.detach()] + list(grads), 1).reshape(
                 len(own), -1)
+    out.update(_model_parallel(n, rows, axis))
     out["scalars"] = scalars
+    return out
+
+
+def _model_parallel(n, rows, axis) -> dict:
+    """Pipeline, tensor and expert parallelism over the world's ranks
+    (``axis``: the transport, or the world's size in one process), and dp
+    over the ranks x tp 2 rank-major; each result as the owned ranks'
+    rows."""
+    import torch.nn.functional as F
+
+    from bluefog_tpu_torch.models.transformer import (TransformerConfig,
+                                                      TransformerLM)
+    from bluefog_tpu_torch.optim import optimizers as O
+    from bluefog_tpu_torch.parallel import moe as MO
+    from bluefog_tpu_torch.parallel import pipeline as PP
+    from bluefog_tpu_torch.parallel import tensor_parallel as TPL
+    from bluefog_tpu_torch.replicas import RankReplicas
+
+    m = rows.stop - rows.start
+    rng = np.random.RandomState(SEED + 1)
+    draw = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.randn(*s).astype(np.float32))
+    out = {}
+    each = lambda *ts: torch.cat([t.reshape(m, -1) for t in ts], 1)  # noqa
+    rep = lambda t: t.reshape(1, -1).expand(m, -1)  # noqa: E731
+
+    def stage(p, x):
+        return torch.tanh(x @ p[0] + p[1])
+
+    def mse(y, t):
+        return ((y - t) ** 2).mean()
+    M, d = 6, 5
+    x, tgt = draw(M, 2, d), draw(M, 2, d)
+    W = (draw(n, d, d) * 0.5)[rows].requires_grad_()
+    b = (draw(n, d) * 0.1)[rows].requires_grad_()
+    y = PP.pipeline_apply(stage, (W, b), x, axis=axis)
+    gW, gb = torch.autograd.grad((y ** 2).sum(), (W, b))
+    out["pp_gpipe"] = torch.cat([rep(y.detach()), each(gW, gb)], 1)
+    loss, (gW, gb) = PP.pipeline_train_step(stage, (W, b), x, tgt, mse,
+                                            axis=axis)
+    out["pp_1f1b"] = torch.cat([rep(loss), each(gW, gb)], 1)
+    Wc = (draw(n, 2, d, d) * 0.4)[rows]
+    bc = (draw(n, 2, d) * 0.1)[rows]
+    loss, (gW, gb) = PP.pipeline_train_step_interleaved(
+        stage, (Wc, bc), x, tgt, mse, axis=axis, split_backward=True)
+    out["pp_zb_interleaved"] = torch.cat([rep(loss), each(gW, gb)], 1)
+
+    cfg = TransformerConfig(vocab_size=64, num_layers=1, num_heads=4,
+                            num_kv_heads=2, embed_dim=32, max_seq_len=8,
+                            mlp="swiglu", dtype=torch.float32)
+    full = TransformerLM(cfg)
+    full.reset_parameters(torch.Generator().manual_seed(SEED))
+    tp = TPL.TensorParallelLM(cfg, axis)
+    tp.load_state_dict(TPL.tp_shard_params(full, full.state_dict(), axis))
+    tokens = torch.from_numpy(rng.randint(0, 64, (2, 8)))
+    logits = tp(tokens)
+    loss = F.cross_entropy(logits.reshape(-1, 64),
+                           torch.roll(tokens, -1, 1).reshape(-1))
+    loss.backward()
+    specs = TPL.tp_param_specs(full, axis)
+    params = dict(tp.named_parameters())
+    out["tp_replicated"] = rep(torch.cat(
+        [logits.detach().reshape(-1), loss.detach().reshape(1)]
+        + [params[k].grad.reshape(-1) for k, s in specs.items() if s is None]))
+    out["tp_shard_grads"] = each(*[params[k].grad for k, s in specs.items()
+                                   if s is not None])
+
+    T = 12
+    xt = draw(T, d).expand(m, T, d)
+    lg = draw(T, n).expand(m, T, n).clone().requires_grad_()
+    We = (draw(n, d, d) * 0.5)[rows].requires_grad_()
+    ye = MO.moe_apply(lambda w, z: torch.tanh(z @ w[0]), (We,), xt, lg,
+                      axis=axis, capacity=4)
+    (ye * draw(T, d)).sum().div(n).backward()
+    out["moe_ep"] = ye.detach().reshape(m, -1)
+    out["moe_ep_grads"] = each(We.grad, lg.grad)
+
+    cfg = TransformerConfig(vocab_size=64, num_layers=1, num_heads=4,
+                            embed_dim=32, max_seq_len=8, dtype=torch.float32)
+    full = TransformerLM(cfg)
+    full.reset_parameters(torch.Generator().manual_seed(SEED))
+    shards = TPL.tp_shard_params(full, full.state_dict(), 2)
+    dp_rep = RankReplicas(lambda: TPL.TensorParallelLM(cfg, 2), m, "cpu")
+    dp_rep.load_state_dict(shards)
+    opt = O.DistributedAdaptThenCombineOptimizer(
+        torch.optim.SGD([dp_rep.flat], lr=0.1), use_dynamic_topology=True)
+    data = torch.from_numpy(rng.randint(0, 64, (n, 2, 9)))[rows]
+    for _ in range(3):
+        dp_rep.zero_grad()
+        for r, mod in enumerate(dp_rep.modules):
+            lgt = mod(data[r, :, :-1])
+            F.cross_entropy(lgt.reshape(-1, 64),
+                            data[r, :, 1:].reshape(-1)).backward()
+        opt.step()
+    out["dp_tp_atc_flat"] = dp_rep.flat.detach().clone()
     return out
 
 

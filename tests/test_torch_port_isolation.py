@@ -27,7 +27,14 @@ def test_import_leaves_jax_out():
             "bluefog_tpu_torch.ops.schedule_opt, bluefog_tpu_torch.ops.p2p, "
             "bluefog_tpu_torch.parallel.ring_attention, "
             "bluefog_tpu_torch.parallel.ulysses, "
-            "bluefog_tpu_torch.long_context_training;"
+            "bluefog_tpu_torch.long_context_training, "
+            "bluefog_tpu_torch.parallel.tensor_parallel, "
+            "bluefog_tpu_torch.parallel.pipeline, "
+            "bluefog_tpu_torch.parallel.composed, "
+            "bluefog_tpu_torch.tensor_parallel_training, "
+            "bluefog_tpu_torch.pipeline_training;"
+            "bf = bluefog_tpu_torch; bf.pipeline_train_step, bf.moe_apply, "
+            "bf.tp_shard_params, bf.parallel.pipeline_apply;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'bluefog_tpu'));"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -87,3 +94,17 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         FA.flash_fwd_cuda(q, q, q)
     assert FA.flash_fwd_cuda.launches == 0
+
+
+@pytest.mark.parametrize("module", ["long_context_training",
+                                    "tensor_parallel_training",
+                                    "pipeline_training"])
+def test_entry_points_default_to_cuda(module):
+    """Without ``--device cpu`` an entry point runs on CUDA: without a GPU
+    it raises before any work."""
+    import importlib
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    main = importlib.import_module(f"bluefog_tpu_torch.{module}").main
+    with pytest.raises(RuntimeError, match="no GPU"):
+        main(["--steps", "2"])
