@@ -12,6 +12,10 @@ asks for the CPU, and raise when no GPU is present.
     bf.init_distributed()            # one process a card (bfrun, torchrun)
     x = bf.dynamic_neighbor_allreduce(owned_rows, step)
 
+    bf.win_create(rank_major_tensor, "w")   # one-sided windows, one process
+    bf.win_put(rank_major_tensor, "w")
+    x = bf.win_update("w")
+
 The model-parallel names of ``parallel`` (tensor, pipeline and expert
 parallelism: ``bf.pipeline_train_step``, ...) are exported here too, each
 imported when first read.
@@ -30,7 +34,20 @@ from bluefog_tpu_torch.basics import (
     neighbor_allgather_nonblocking, neighbor_allgather_v, neighbor_allreduce,
     neighbor_allreduce_nonblocking, owned_ranks, pair_gossip,
     pair_gossip_nonblocking, poll, process_ranks, rank, set_topology,
-    shutdown, size, synchronize, wait)
+    shutdown, size, synchronize, wait, set_machine_topology,
+    load_machine_topology, hierarchical_neighbor_allreduce,
+    hierarchical_neighbor_allreduce_nonblocking,
+    dynamic_hierarchical_neighbor_allreduce,
+    dynamic_hierarchical_neighbor_allreduce_nonblocking, hierarchical_gossip,
+    hierarchical_gossip_nonblocking)
+from bluefog_tpu_torch.ops import window as _window
+from bluefog_tpu_torch.ops.window import (
+    get_current_created_window_names, get_win_version, win_accumulate,
+    win_accumulate_nonblocking, win_associated_p, win_create, win_fence,
+    win_flush, win_free, win_get, win_get_nonblocking, win_load_state_dict,
+    win_mutex, win_poll, win_put, win_put_nonblocking, win_state_dict,
+    win_update, win_update_then_collect, win_wait,
+    turn_off_win_ops_with_associated_p, turn_on_win_ops_with_associated_p)
 
 __all__ = ["topology_util", "init", "init_distributed", "shutdown",
            "initialized", "size", "rank", "owned_ranks", "local_size",
@@ -45,7 +62,13 @@ __all__ = ["topology_util", "init", "init_distributed", "shutdown",
            "neighbor_allreduce_nonblocking",
            "dynamic_neighbor_allreduce_nonblocking",
            "neighbor_allgather_nonblocking", "pair_gossip_nonblocking",
-           "poll", "wait", "synchronize"] + parallel.__all__
+           "poll", "wait", "synchronize", "set_machine_topology",
+           "load_machine_topology", "hierarchical_neighbor_allreduce",
+           "hierarchical_neighbor_allreduce_nonblocking",
+           "dynamic_hierarchical_neighbor_allreduce",
+           "dynamic_hierarchical_neighbor_allreduce_nonblocking",
+           "hierarchical_gossip", "hierarchical_gossip_nonblocking"
+           ] + _window.__all__ + parallel.__all__
 
 
 def __getattr__(name):

@@ -54,7 +54,13 @@ __all__ = ["init", "init_distributed", "shutdown", "initialized", "size",
            "neighbor_allreduce_nonblocking",
            "dynamic_neighbor_allreduce_nonblocking",
            "neighbor_allgather_nonblocking", "pair_gossip_nonblocking",
-           "poll", "wait", "synchronize", "resolve_device"]
+           "poll", "wait", "synchronize", "resolve_device",
+           "set_machine_topology", "load_machine_topology",
+           "hierarchical_neighbor_allreduce",
+           "hierarchical_neighbor_allreduce_nonblocking",
+           "dynamic_hierarchical_neighbor_allreduce",
+           "dynamic_hierarchical_neighbor_allreduce_nonblocking",
+           "hierarchical_gossip", "hierarchical_gossip_nonblocking"]
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -80,11 +86,17 @@ class _Context:
         self.topology: Optional[nx.DiGraph] = None
         self.is_topo_weighted = False
         self.topology_version = 0
+        # The machine level of the hierarchical ops (set_machine_topology).
+        self.machine_topology: Optional[nx.DiGraph] = None
+        self.is_machine_topo_weighted = False
+        self.machine_topology_version = 0
+        self.hier_topology = None   # hierarchical_gossip's, with its key
+        self._hier_key = None
         self._schedules: dict = {}
 
     def schedule(self, key, build):
         """Compiled schedules, cached per topology version."""
-        key = (self.topology_version,) + key
+        key = (self.topology_version, self.machine_topology_version) + key
         if key not in self._schedules:
             self._schedules[key] = build()
         return self._schedules[key]
@@ -115,6 +127,9 @@ def _setup(size: int, local: int, dev: torch.device, topology_fn,
     topo = topology_fn() if topology_fn is not None \
         else topology_util.ExponentialGraph(_ctx.size)
     set_topology(topo, is_weighted=is_weighted)
+    if size // local > 1:
+        set_machine_topology(topology_util.ExponentialGraph(size // local),
+                             is_weighted=False)
 
 
 def init(size: int, device="cuda", topology_fn=None,
@@ -127,7 +142,9 @@ def init(size: int, device="cuda", topology_fn=None,
     (default ``ExponentialGraph(size)``, as the JAX package).
     ``is_weighted``: use the topology's edge weights instead of uniform
     ``1/(indeg+1)`` averaging.  ``local_size``: ranks per machine, for
-    :func:`local_allreduce` (default ``size``: one machine)."""
+    :func:`local_allreduce` and the hierarchical ops (default ``size``:
+    one machine); with more than one machine the machine topology starts
+    as ``ExponentialGraph(machines)``, as in the JAX package."""
     if int(size) < 1:
         raise ValueError(f"size must be >= 1, got {size}")
     dev = resolve_device(device)
@@ -209,9 +226,11 @@ def init_distributed(topology_fn=None, is_weighted: bool = False, *,
 
 
 def shutdown() -> None:
-    """Drop the context; after :func:`init_distributed`, also the process
-    group."""
+    """Free every window and drop the context; after
+    :func:`init_distributed`, also the process group."""
     global _ctx
+    from bluefog_tpu_torch.ops import window
+    window._free_all_windows()
     if _ctx.comm is not None and dist.is_initialized():
         dist.destroy_process_group()
     _ctx = _Context()
@@ -279,8 +298,15 @@ def device() -> torch.device:
 
 def set_topology(topology: Optional[nx.DiGraph] = None,
                  is_weighted: bool = False) -> bool:
-    """Install a new virtual topology; the next op compiles against it."""
+    """Install a new virtual topology; the next op compiles against it.
+    Refused while windows exist: their staging buffers follow the
+    topology they were created under (the reference's rule)."""
     ctx = _require_init()
+    from bluefog_tpu_torch.ops import window
+    if window._any_window_exists():
+        raise RuntimeError(
+            "cannot change the topology while windows exist; win_free() them "
+            "first (matches reference basics.py set_topology restriction)")
     if topology is None:
         topology = topology_util.ExponentialGraph(ctx.size)
     if topology.number_of_nodes() != ctx.size:
@@ -295,6 +321,26 @@ def set_topology(topology: Optional[nx.DiGraph] = None,
 
 def load_topology() -> nx.DiGraph:
     return _require_init().topology
+
+
+def set_machine_topology(topology: nx.DiGraph,
+                         is_weighted: bool = False) -> bool:
+    """Install the machine-level topology of the hierarchical ops: a graph
+    over the ``machine_size()`` machines (parity: ``basics.py:259-293``)."""
+    ctx = _require_init()
+    if topology.number_of_nodes() != machine_size():
+        raise ValueError(
+            f"machine topology has {topology.number_of_nodes()} nodes, "
+            f"machine count is {machine_size()}")
+    ctx.machine_topology = topology
+    ctx.is_machine_topo_weighted = is_weighted
+    ctx.machine_topology_version += 1
+    ctx._schedules.clear()
+    return True
+
+
+def load_machine_topology() -> Optional[nx.DiGraph]:
+    return _require_init().machine_topology
 
 
 def is_topo_weighted() -> bool:
@@ -633,3 +679,131 @@ def broadcast_parameters(params, root_rank: int = 0):
         return type(params)(broadcast_parameters(v, root_rank)
                             for v in params)
     return broadcast(params, root_rank)
+
+
+# ---------------------------------------------------------------------------
+# Hierarchical family: machines of local_size() consecutive ranks
+# ---------------------------------------------------------------------------
+
+def _require_machine_topology() -> _Context:
+    ctx = _require_init()
+    if ctx.machine_topology is None:
+        raise RuntimeError(
+            "set_machine_topology() required for hierarchical ops")
+    return ctx
+
+
+def hierarchical_neighbor_allreduce_nonblocking(
+        x, *, self_weight=None, src_machine_weights=None) -> Handle:
+    ctx = _require_machine_topology()
+    key = ("hier", ctx.is_machine_topo_weighted, self_weight,
+           None if src_machine_weights is None
+           else np.asarray(src_machine_weights, dtype=float).tobytes())
+    sched = ctx.schedule(key, lambda: S.compile_static(
+        ctx.machine_topology, use_topo_weights=ctx.is_machine_topo_weighted,
+        self_weight=self_weight, src_weights=src_machine_weights))
+    return Handle(C.hierarchical_neighbor_allreduce(
+        _rank_major(x), sched, ctx.local_size, comm=ctx.comm,
+        async_op=True))
+
+
+def hierarchical_neighbor_allreduce(x, *, self_weight=None,
+                                    src_machine_weights=None) -> torch.Tensor:
+    """Machine-level neighbor averaging: each machine's local sum, the
+    neighbor combine of the sums over the machine topology (its weights,
+    or ``self_weight`` and the ``(machines, machines)``
+    ``src_machine_weights``), then the division by ``local_size()``."""
+    return hierarchical_neighbor_allreduce_nonblocking(
+        x, self_weight=self_weight,
+        src_machine_weights=src_machine_weights).wait()
+
+
+def dynamic_hierarchical_neighbor_allreduce_nonblocking(
+        x, step: int, *, phases=None) -> Handle:
+    """Hierarchical averaging with a per-step machine-level topology;
+    ``phases`` defaults to the one-peer walk of the machine topology (the
+    analogue of driving ``GetExp2DynamicSendRecvMachineRanks`` by hand)."""
+    ctx = _require_machine_topology()
+    m = machine_size()
+    if phases is None:
+        sched = ctx.schedule(("dynhier",), lambda: S.compile_dynamic(
+            topology_util.dynamic_phase_table(ctx.machine_topology), m))
+    else:
+        sched = ctx.schedule(
+            ("dynhierphases", tuple(ph.send_to for ph in phases)),
+            lambda: S.compile_dynamic(phases, m))
+    return Handle(C.dynamic_hierarchical_neighbor_allreduce(
+        _rank_major(x), step, sched, ctx.local_size, comm=ctx.comm,
+        async_op=True))
+
+
+def dynamic_hierarchical_neighbor_allreduce(x, step: int, *,
+                                            phases=None) -> torch.Tensor:
+    return dynamic_hierarchical_neighbor_allreduce_nonblocking(
+        x, step, phases=phases).wait()
+
+
+def _hier_topology(ctx: _Context, cfg):
+    """The :class:`topology.HierarchicalTopology` of the
+    ``BLUEFOG_TPU_HIER_*`` knobs (``cfg``) over the machines (slices =
+    machines), cached until the knobs or the world change."""
+    n_slices = ctx.size // ctx.local_size
+    key = (ctx.size, n_slices, cfg.hier_inner, cfg.hier_outer,
+           cfg.hier_outer_every, cfg.hier_outer_self_weight)
+    if ctx._hier_key != key:
+        ctx.hier_topology = topology_util.hierarchical_two_level(
+            ctx.size, n_slices, inner=cfg.hier_inner, outer=cfg.hier_outer,
+            outer_every=cfg.hier_outer_every,
+            outer_self_weight=cfg.hier_outer_self_weight)
+        ctx._hier_key = key
+    return ctx.hier_topology
+
+
+def _hier_plan(what: str, ht=None) -> dict:
+    """The compiled two-level bundle of ``hierarchical_gossip`` (``what``
+    names the caller in its errors): the inner schedule over a machine's
+    ranks, the outer schedules, a phase each, over the machines, the
+    cadence and the outer codec; ``ht`` overrides the knobs' topology.
+    Requires ``BLUEFOG_TPU_HIER=1`` and more than one machine."""
+    from bluefog_tpu_torch.utils import config
+    ctx = _require_init()
+    cfg = config.get()
+    if not cfg.hier:
+        raise RuntimeError(
+            f"{what} requires BLUEFOG_TPU_HIER=1 (default off: the two-level "
+            "mode must be an explicit operational decision)")
+    if ctx.local_size >= ctx.size:
+        raise RuntimeError(
+            f"{what} needs more than one machine: call "
+            "bf.init(size, local_size=<ranks per machine>) so "
+            "machine_size() > 1")
+    ht = ht or _hier_topology(ctx, cfg)
+    sig = ("hier_gossip", ht.n, ht.n_slices, ht.inner_kind, ht.outer_kind,
+           ht.outer_every, ht.outer_self_weight)
+    inner, outer = ctx.schedule(sig, lambda: (
+        S.compile_static(ht.inner, use_topo_weights=True),
+        tuple(S._schedule_from_matrix(ht.outer_slice_matrix(p))
+              for p in range(len(ht.outer_phases)))))
+    comp = cfg.hier_outer_compression
+    return {"inner_sched": inner, "outer_scheds": outer,
+            "outer_every": ht.outer_every, "outer_compression": comp,
+            "outer_frac": (config.parse_sparse_frac(comp)
+                           if comp.startswith("sparse") else None)}
+
+
+def hierarchical_gossip_nonblocking(x, step: int, *, ht=None) -> Handle:
+    """Two-level gossip step: the dense inner combine within each machine
+    every step, the one-peer exchange between machines every
+    ``BLUEFOG_TPU_HIER_OUTER_EVERY`` steps with its own codec
+    (``BLUEFOG_TPU_HIER_OUTER_COMPRESSION``).  Requires
+    ``BLUEFOG_TPU_HIER=1`` and more than one machine; ``ht`` overrides the
+    knobs' :class:`~bluefog_tpu_torch.topology.HierarchicalTopology`."""
+    plan = _hier_plan("hierarchical_gossip", ht)
+    out = C.hierarchical_gossip(
+        _rank_major(x), step, plan.pop("inner_sched"),
+        plan.pop("outer_scheds"), _ctx.local_size, comm=_ctx.comm, **plan)
+    return Handle(Pending.done(out))
+
+
+def hierarchical_gossip(x, step: int, *, ht=None) -> torch.Tensor:
+    return hierarchical_gossip_nonblocking(x, step, ht=ht).wait()

@@ -21,7 +21,13 @@ SwiGLU, per-block remat, the chunked lm-head loss, and ``--mfu``;
 (the loss stays the cross-entropy: the load-balancing loss is exposed,
 ``TransformerLM(..., moe_aux=[])``, not added, as in the JAX benchmark).  ``--dist-optimizer gradient_allreduce`` averages the gradients
 over the ranks instead of the parameters, which keeps every replica the
-same.
+same.  ``--dist-optimizer hierarchical`` averages over machines of ``ranks
+// 2`` ranks (``CommunicationType.hierarchical_neighbor_allreduce``, the
+machine topology's one-peer walk with ``--dynamic``), and ``win_put``
+trains with ``DistributedWinPutOptimizer`` through one-sided windows on
+the card (``--atc`` and ``--dynamic`` do not apply; window compression
+acts across processes only, so in one process ``--compression`` changes
+nothing, as the JAX benchmark notes).
 
     python -m bluefog_tpu_torch.benchmark --model resnet50 --batch-size 64 \\
         --atc --dynamic --ranks 4
@@ -39,6 +45,12 @@ same.
         --batch-size 2 --vocab-size 32000 --momentum 0 --ranks 4
     python -m bluefog_tpu_torch.benchmark --model resnet50 --batch-size 64 \\
         --dist-optimizer gradient_allreduce --ranks 4
+    python -m bluefog_tpu_torch.benchmark --model transformer \\
+        --flash-attention --atc --dynamic --num-layers 24 --embed-dim 2048 \\
+        --num-heads 16 --seq-len 2048 --batch-size 2 --momentum 0 --ranks 4 \\
+        --dist-optimizer hierarchical
+    python -m bluefog_tpu_torch.benchmark --model resnet50 --batch-size 64 \\
+        --dist-optimizer win_put --ranks 4
 
 ``--efficiency`` also runs one rank alone and reports the scaling
 efficiency, this process's ranks against one of them (one process only,
@@ -72,7 +84,12 @@ MOE_MFU_NOTE = ("--mfu accounting covers dense models only (top-1 MoE "
                 "activates 1 of --num-experts expert MLPs per token); "
                 "skipping the MFU report")
 DIST_OPTIMIZERS = ["neighbor_allreduce", "allreduce", "gradient_allreduce",
-                   "empty"]
+                   "hierarchical", "win_put", "empty"]
+# The JAX benchmark's words for --compression under win_put in one process.
+WIN_COMPRESSION_NOTE = (
+    "window compression applies to CROSS-PROCESS edges only; this "
+    "single-process run sends nothing over the transport, so the flag does "
+    "not change the measurement")
 
 
 def _compression(value: str) -> str:
@@ -228,10 +245,14 @@ class Trainer:
         from bluefog_tpu_torch.ops.flash_attention import \
             flash_attention_impl
         from bluefog_tpu_torch.optim import optimizers as O
+        from bluefog_tpu_torch.optim import window_optimizers as WO
         from bluefog_tpu_torch.replicas import RankReplicas
 
         if not (bf.initialized() and bf.process_ranks() is not None):
-            bf.init(args.ranks, device=args.device)
+            # As the JAX benchmark: machines of half the ranks.
+            bf.init(args.ranks, device=args.device,
+                    local_size=max(1, args.ranks // 2)
+                    if args.dist_optimizer == "hierarchical" else None)
         # Every process draws the same initialization and every rank's data
         # from the seed, then keeps its own ranks' rows.
         world, own = bf.size(), bf.owned_ranks()
@@ -278,6 +299,14 @@ class Trainer:
             self.targets = torch.roll(self.inputs, -1, dims=2)
         base = torch.optim.SGD([self.rep.flat], lr=0.0125 * world,
                                momentum=args.momentum, dampening=0)
+        self.note = None
+        if args.dist_optimizer == "win_put":
+            # Windows run in one process only (item 17b brings the
+            # transport), so no window payload is ever compressed.
+            if args.compression != "none":
+                self.note = WIN_COMPRESSION_NOTE
+            self.opt = WO.DistributedWinPutOptimizer(base)
+            return
         if args.dist_optimizer == "gradient_allreduce":
             # As the JAX benchmark: --atc and --dynamic do not apply.
             self.opt = O.DistributedGradientAllreduceOptimizer(
@@ -285,7 +314,10 @@ class Trainer:
             return
         cls = (O.DistributedAdaptThenCombineOptimizer if args.atc
                else O.DistributedAdaptWithCombineOptimizer)
-        self.opt = cls(base, O.CommunicationType[args.dist_optimizer],
+        comm = ("hierarchical_neighbor_allreduce"
+                if args.dist_optimizer == "hierarchical"
+                else args.dist_optimizer)
+        self.opt = cls(base, O.CommunicationType[comm],
                        use_dynamic_topology=args.dynamic,
                        compression=args.compression)
 
@@ -322,7 +354,10 @@ def measure(args, tr: Trainer = None, quiet: bool = False) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
     # Gradient allreduce keeps the replicas equal: its spread is read after
     # every warmup step and every timed iteration (outside the clock).
-    grad_ar = opt.order == "gradient_allreduce"
+    grad_ar = getattr(opt, "order", None) == "gradient_allreduce"
+    # A step observed between its halves: ATC, and win_put (adapt, then
+    # the puts and the window update).
+    halves = args.atc or args.dist_optimizer == "win_put"
     spread = {"after_step": []} if grad_ar else None
     losses = None
     for i in range(args.num_warmup_batches):
@@ -330,9 +365,9 @@ def measure(args, tr: Trainer = None, quiet: bool = False) -> dict:
         if grad_ar:
             opt.step()
             spread["after_step"].append(consensus_spread(rep.flat)["max"])
-        elif i == 0 and args.atc:
-            # One observed ATC step: the ranks' spread after the local
-            # update and after the neighbor combine.
+        elif i == 0 and halves:
+            # One observed step: the ranks' spread after the local update
+            # and after the combine.
             opt.adapt()
             before = consensus_spread(rep.flat)
             opt.combine()
@@ -377,6 +412,8 @@ def measure(args, tr: Trainer = None, quiet: bool = False) -> dict:
         "spread": spread,
         "steps": opt.step_count,
     }
+    if tr.note:
+        out["compression_note"] = tr.note
     if args.mfu and not tr.image and args.num_experts:
         out["mfu_note"] = MOE_MFU_NOTE
     elif args.mfu and not tr.image:
@@ -416,8 +453,9 @@ def main(argv=None):
           f"{res[unit + '_per_s_ci']:.1f} ({res['ranks']} ranks on "
           f"{res['device']}, model={args.model}, step "
           f"{res['step_ms']:.1f} ms)")
-    if "mfu_note" in res:
-        print(f"note: {res['mfu_note']}")
+    for key in ("mfu_note", "compression_note"):
+        if key in res:
+            print(f"note: {res[key]}")
     if "mfu" in res:
         print(f"MFU: {100 * res['mfu']:.1f}% of {res['peak_tflops']:.0f} "
               f"TFLOP/s ({res['train_flops_per_token'] / 1e9:.2f} GFLOP "

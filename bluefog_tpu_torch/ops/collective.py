@@ -32,20 +32,22 @@ Every op takes ``async_op``: with it, the op returns an
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Sequence
 
 import torch
 
 from bluefog_tpu_torch.ops.p2p import Pending, ProcessRanks
 from bluefog_tpu_torch.ops.schedule import (DynamicSchedule,
                                             PairGossipSchedule,
-                                            StaticSchedule)
+                                            StaticSchedule, lift_schedule)
 
 __all__ = ["allreduce", "local_allreduce", "broadcast", "allgather",
            "neighbor_allgather", "neighbor_allreduce",
            "neighbor_allreduce_matrix", "dynamic_neighbor_allreduce",
            "sparse_neighbor_allreduce", "dynamic_sparse_neighbor_allreduce",
-           "pair_gossip"]
+           "pair_gossip", "hierarchical_neighbor_allreduce",
+           "dynamic_hierarchical_neighbor_allreduce", "hierarchical_gossip"]
 
 
 def _tree_sum(terms: list) -> torch.Tensor:
@@ -365,3 +367,132 @@ def dynamic_sparse_neighbor_allreduce(x: torch.Tensor, step: int,
     return sparse_neighbor_allreduce(
         x, sched.phases[int(step) % sched.period], indices=indices,
         valid=valid, aligned=True, return_sent=return_sent, comm=comm)
+
+
+# ---------------------------------------------------------------------------
+# Hierarchical family (the machine x local mesh)
+# ---------------------------------------------------------------------------
+# The JAX package's two-axis mesh is a reshape of the rank-major leading dim
+# into ``(machines, local_size)``: rank ``m * local_size + l`` is local rank
+# ``l`` of machine ``m``.  A collective over one axis is the level's schedule
+# lifted to the world's ranks (``schedule.lift_schedule``), so the same
+# rounds run in one process and across processes.
+
+
+def _check_world(x: torch.Tensor, local_size: int,
+                 comm: Optional[ProcessRanks]) -> int:
+    n = x.shape[0] if comm is None else comm.n
+    if local_size < 1 or n % local_size:
+        raise ValueError(f"world size {n} is not divisible by local_size "
+                         f"{local_size}")
+    return n
+
+
+def _hierarchical(x: torch.Tensor, machine_sched: StaticSchedule,
+                  local_size: int, comm: Optional[ProcessRanks],
+                  async_op: bool):
+    """``bluefog_tpu.ops.collective._hierarchical``: each machine's local
+    sum (in rank order, the order of XLA's CPU ``psum_scatter``), the
+    machine-level neighbor combine of the sums, then the division by
+    ``local_size`` after the combine (the reference's averaging order).
+    The JAX package combines a ``1/local_size`` shard a local rank and
+    gathers the shards back; the combine is elementwise, so whole rows give
+    the same values.  In one process the combine runs on the ``(machines,
+    ...)`` sums; across processes every owned rank holds its machine's sum
+    (``local_allreduce``) and the machine schedule runs lifted to the
+    world's ranks."""
+    n = _check_world(x, local_size, comm)
+    if machine_sched.n != n // local_size:
+        raise ValueError(f"the machine schedule has {machine_sched.n} ranks,"
+                         f" the world {n // local_size} machines")
+    if comm is None:
+        g = x.reshape((n // local_size, local_size) + x.shape[1:])
+        combined = _apply_rounds(_rank_sum(g.transpose(0, 1)), machine_sched)
+        return _result(combined.then(
+            lambda c: (c / local_size).repeat_interleave(local_size, dim=0)),
+            async_op)
+    sums = local_allreduce(x, local_size, average=False, comm=comm)
+    lifted = lift_schedule(machine_sched, n, local_size, "machine")
+    return _result(_apply_rounds(sums, lifted, comm).then(
+        lambda c: c / local_size), async_op)
+
+
+def hierarchical_neighbor_allreduce(x: torch.Tensor,
+                                    sched: StaticSchedule, local_size: int,
+                                    *, comm: Optional[ProcessRanks] = None,
+                                    async_op: bool = False):
+    """Machine-level neighbor averaging: machines are super-nodes, and the
+    weights of ``sched`` (compiled on the machine topology) index
+    machines; every rank of machine ``m`` gets ``(sum_j W[j, m] S_j) /
+    local_size``, ``S_j`` machine ``j``'s local sum."""
+    return _hierarchical(x, sched, local_size, comm, async_op)
+
+
+def dynamic_hierarchical_neighbor_allreduce(
+        x: torch.Tensor, step: int, sched: DynamicSchedule, local_size: int,
+        *, comm: Optional[ProcessRanks] = None, async_op: bool = False):
+    """Hierarchical averaging with a per-step machine topology: step ``t``
+    runs machine phase ``t % period``."""
+    return _hierarchical(x, sched.phases[int(step) % sched.period],
+                         local_size, comm, async_op)
+
+
+def hierarchical_gossip(x: torch.Tensor, step: int,
+                        inner_sched: StaticSchedule,
+                        outer_scheds: Sequence[StaticSchedule],
+                        local_size: int, *, outer_every: int = 1,
+                        outer_compression: str = "none",
+                        outer_frac: Optional[float] = None,
+                        comm: Optional[ProcessRanks] = None) -> torch.Tensor:
+    """Two-level gossip step (``topology.HierarchicalTopology``'s executor,
+    ``bluefog_tpu.ops.collective.hierarchical_gossip``): the dense inner
+    combine ``inner_sched`` (over a machine's ``local_size`` ranks) every
+    step, then on steps with ``step % outer_every == 0`` the one-peer
+    exchange between machines, phase ``outer_scheds[...]`` (over the
+    machines).  The outer level's codec:
+
+    - ``bf16``: the bfloat16 cast crosses, and each rank re-adds its own
+      rounding ``y - q(y)`` after the mix;
+    - ``sparse:<frac>`` (``outer_frac``): a block of ``ceil(frac * size)``
+      consecutive coordinates, rotating by the outer step, is mixed
+      exactly, the rest is left as it is; the phase is held for a whole
+      sweep of blocks."""
+    n = _check_world(x, local_size, comm)
+    inner = lift_schedule(inner_sched, n, local_size, "local")
+    y = _apply_rounds(x, inner, comm).wait()
+    k = max(1, int(outer_every))
+    if not outer_scheds or int(step) % k:
+        return y
+    outer_step = int(step) // k
+    nphases = len(outer_scheds)
+    if isinstance(outer_compression, str) and \
+            outer_compression.startswith("sparse"):
+        if outer_frac is None:
+            raise ValueError("sparse outer compression needs outer_frac")
+        size = math.prod(x.shape[1:])
+        kk = max(1, math.ceil(outer_frac * size))
+        nblocks = max(1, -(-size // kk))
+        phase = outer_scheds[(outer_step // nblocks) % nphases]
+        if len(phase.rounds) != 1:
+            raise ValueError(
+                "sparse outer compression expects one-round outer phases "
+                f"(a pure machine shift), got {len(phase.rounds)}")
+        lifted = lift_schedule(phase, n, local_size, "machine")
+        rnd = lifted.rounds[0]
+        rot = (torch.arange(kk, device=x.device)
+               + (outer_step % nblocks) * kk) % size
+        flat = y.reshape(y.shape[0], -1)
+        vals = flat.index_select(1, rot)
+        (recv,), = _exchange([rnd], [[vals * _per_rank(rnd.send_scale, vals,
+                                                       comm)]], comm).wait()
+        self_sc = _per_rank(lifted.self_scale, vals, comm)
+        # On the block: theta * vals + recv; off the block: untouched.
+        return flat.index_add(1, rot, (self_sc - 1.0) * vals + recv
+                              ).view(y.shape)
+    lifted = lift_schedule(outer_scheds[outer_step % nphases], n, local_size,
+                           "machine")
+    if outer_compression == "bf16":
+        q = y.to(torch.bfloat16)
+        mixed = _apply_rounds(q, lifted, comm).wait().to(y.dtype)
+        return mixed + (y - q.to(y.dtype))
+    return _apply_rounds(y, lifted, comm).wait()

@@ -38,6 +38,7 @@ __all__ = [
     "compile_dynamic",
     "compile_pair_gossip",
     "uniform_weights",
+    "lift_schedule",
 ]
 
 
@@ -259,3 +260,47 @@ def compile_pair_gossip(target_of: Sequence[int], n: int, *,
         round=CommRound(tuple(sorted(pairs)), send_scale, recv_mask, src_of),
         self_scale=self_scale,
     )
+
+
+def lift_schedule(sched: StaticSchedule, n: int, local_size: int,
+                  level: str) -> StaticSchedule:
+    """A schedule of one level of the machine x local mesh as the same
+    rounds over the world's ``n`` ranks, rank-major (rank ``m * local_size
+    + l`` is local rank ``l`` of machine ``m``).
+
+    ``level="machine"``: ``sched`` is over the ``n // local_size``
+    machines, and local rank ``l`` of machine ``m`` exchanges with local
+    rank ``l`` of ``m``'s peers (a collective over the JAX package's
+    machine axis).  ``level="local"``: ``sched`` is over the
+    ``local_size`` ranks of a machine and runs inside every machine (its
+    local axis).  Round for round and weight for weight the level's
+    schedule, so each rank adds its terms in the level's order."""
+    L = int(local_size)
+    if L < 1 or n % L:
+        raise ValueError(f"world size {n} is not divisible by local_size {L}")
+    world = np.arange(n)
+    if level == "machine":
+        idx, base, scale = world // L, world % L, L
+    elif level == "local":
+        idx, base, scale = world % L, world - world % L, 1
+    else:
+        raise ValueError(f"level must be 'machine' or 'local', got {level!r}")
+    if sched.n != (n // L if level == "machine" else L):
+        raise ValueError(f"a {level}-level schedule of {sched.n} ranks does "
+                         f"not fit {n} ranks of local_size {L}")
+
+    def rank(level_rank, i):
+        return int(level_rank) * scale + int(base[i])
+
+    rounds = []
+    for rnd in sched.rounds:
+        src = rnd.src_of[idx]
+        src_of = np.where(src >= 0, src * scale + base, -1).astype(np.int32)
+        pairs = tuple(sorted((rank(s, i), i) for i, s in enumerate(src)
+                             if s >= 0))
+        rounds.append(CommRound(pairs, rnd.send_scale[idx],
+                                rnd.recv_mask[idx], src_of))
+    return StaticSchedule(n=n, rounds=tuple(rounds),
+                          self_scale=sched.self_scale[idx],
+                          indegree=sched.indegree[idx],
+                          outdegree=sched.outdegree[idx])

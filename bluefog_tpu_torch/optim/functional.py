@@ -49,8 +49,7 @@ COMBINE_CHUNK = 1 << 24
 
 
 class CommunicationType(enum.Enum):
-    """The JAX package's communication types; the port has ``allreduce``,
-    ``neighbor_allreduce`` and ``empty``."""
+    """The JAX package's communication types."""
     allreduce = "allreduce"
     neighbor_allreduce = "neighbor.allreduce"
     hierarchical_neighbor_allreduce = "hierarchical.neighbor.allreduce"
@@ -64,12 +63,19 @@ Combiner = Callable[..., torch.Tensor]  # (x, step, weights) -> x
 def make_combiner(comm: CommunicationType, *,
                   sched: Optional[StaticSchedule] = None,
                   dyn_sched: Optional[DynamicSchedule] = None,
-                  transport: Optional[ProcessRanks] = None) -> Combiner:
+                  transport: Optional[ProcessRanks] = None,
+                  local_size: Optional[int] = None,
+                  hier: Optional[dict] = None) -> Combiner:
     """Build ``combine(x, step, weights)`` for a communication type.
     ``weights``: an optional ``(n, n)`` matrix that overrides the
     schedule's weights for this call (neighbor_allreduce only).
     ``transport``: the processes' ranks when ``x`` holds this process's
-    rows only (``basics.process_ranks()``)."""
+    rows only (``basics.process_ranks()``).  The hierarchical types take
+    ``local_size`` (ranks a machine); ``hierarchical_neighbor_allreduce``
+    takes ``sched`` or ``dyn_sched`` over the machines, and
+    ``hierarchical_gossip`` the level bundle ``hier``: ``inner_sched``,
+    ``outer_scheds``, ``outer_every``, ``outer_compression`` and
+    ``outer_frac``."""
     def _no_weights(weights, what):
         if weights is not None:
             raise ValueError(
@@ -114,8 +120,41 @@ def make_combiner(comm: CommunicationType, *,
         _nbr._sparse_sched = sched
         _nbr._transport = transport
         return _nbr
-    raise NotImplementedError(
-        f"communication type {comm} is not ported yet (ROADMAP.md Queue 1)")
+    if comm == CommunicationType.hierarchical_gossip:
+        if local_size is None or hier is None:
+            raise ValueError("hierarchical gossip needs local_size and the "
+                             "compiled level bundle (hier=)")
+
+        def _hgossip(x, step, weights=None):
+            _no_weights(weights, "hierarchical_gossip")
+            return C.hierarchical_gossip(
+                x, step, hier["inner_sched"], hier["outer_scheds"],
+                local_size, outer_every=hier.get("outer_every", 1),
+                outer_compression=hier.get("outer_compression", "none"),
+                outer_frac=hier.get("outer_frac"), comm=transport)
+        # The sparse outer block is a share of the whole row.
+        _hgossip.whole_row = str(hier.get("outer_compression", "none")
+                                 ).startswith("sparse")
+        return _hgossip
+    if comm == CommunicationType.hierarchical_neighbor_allreduce:
+        if local_size is None:
+            raise ValueError("the hierarchical combine needs local_size")
+        if dyn_sched is not None:
+            def _hdyn(x, step, weights=None):
+                _no_weights(weights, "hierarchical_neighbor_allreduce")
+                return C.dynamic_hierarchical_neighbor_allreduce(
+                    x, step, dyn_sched, local_size, comm=transport)
+            return _hdyn
+        if sched is None:
+            raise ValueError("static hierarchical_neighbor_allreduce needs "
+                             "a machine schedule")
+
+        def _hier(x, step=None, weights=None):
+            _no_weights(weights, "hierarchical_neighbor_allreduce")
+            return C.hierarchical_neighbor_allreduce(x, sched, local_size,
+                                                     comm=transport)
+        return _hier
+    raise ValueError(f"unknown communication type {comm}")
 
 
 def _bucket_groups(nbytes: Sequence[int],

@@ -30,6 +30,8 @@ from typing import Optional, Sequence
 import torch
 
 from bluefog_tpu_torch import basics
+from bluefog_tpu_torch import topology as topology_util
+from bluefog_tpu_torch.ops import schedule as S
 from bluefog_tpu_torch.optim import functional as F
 from bluefog_tpu_torch.optim.functional import CommunicationType
 
@@ -38,7 +40,9 @@ __all__ = ["CommunicationType", "DistributedOptimizer",
            "DistributedAllreduceOptimizer",
            "DistributedNeighborAllreduceOptimizer",
            "DistributedAdaptWithCombineOptimizer",
-           "DistributedAdaptThenCombineOptimizer"]
+           "DistributedAdaptThenCombineOptimizer",
+           "DistributedHierarchicalNeighborAllreduceOptimizer",
+           "DistributedHierarchicalGossipOptimizer"]
 
 
 class DistributedOptimizer:
@@ -47,8 +51,12 @@ class DistributedOptimizer:
     Parameters
     ----------
     base : torch.optim.Optimizer over rank-major parameters.
-    communication_type : CommunicationType (``allreduce``,
-        ``neighbor_allreduce`` or ``empty``).
+    communication_type : CommunicationType.  The hierarchical types
+        combine over machines of ``local_size()`` ranks:
+        ``hierarchical_neighbor_allreduce`` over the machine topology
+        (``use_dynamic_topology``: its one-peer walk, or ``phases`` over
+        the machines), ``hierarchical_gossip`` over the
+        ``BLUEFOG_TPU_HIER_*`` two-level topology.
     order : "awc" | "atc" | "gradient_allreduce" (the gradients averaged
         over the ranks before the base step; ``communication_type`` is
         then not used).
@@ -107,20 +115,44 @@ class DistributedOptimizer:
     def params(self):
         return [p for group in self.base.param_groups for p in group["params"]]
 
+    def _schedules(self):
+        """``(static schedule, dynamic schedule)``, one of them None: over
+        the ranks, or for ``hierarchical_neighbor_allreduce`` over the
+        machines (``bluefog_tpu/optim/optimizers.py`` L184-207)."""
+        if self.communication_type != \
+                CommunicationType.hierarchical_neighbor_allreduce:
+            if self.use_dynamic_topology:
+                return None, basics.dynamic_schedule(self.phases)
+            return basics.static_schedule(), None
+        ctx = basics._require_machine_topology()
+        topo, m = ctx.machine_topology, basics.machine_size()
+        if self.use_dynamic_topology:
+            phases = self.phases
+            key = ("opt_dyn", None if phases is None
+                   else tuple(ph.send_to for ph in phases))
+            return None, ctx.schedule(key, lambda: S.compile_dynamic(
+                phases if phases is not None
+                else topology_util.dynamic_phase_table(topo), m))
+        weighted = ctx.is_machine_topo_weighted
+        return ctx.schedule(("opt_static", weighted), lambda: (
+            S.compile_static(topo, use_topo_weights=weighted))), None
+
     def _combiner(self):
         transport = basics.process_ranks()
-        if self.communication_type != CommunicationType.neighbor_allreduce:
-            combine = F.make_combiner(self.communication_type,
-                                      transport=transport)
-        elif self.use_dynamic_topology:
+        kind = self.communication_type
+        if kind in (CommunicationType.neighbor_allreduce,
+                    CommunicationType.hierarchical_neighbor_allreduce):
+            sched, dyn = self._schedules()
+            combine = F.make_combiner(kind, sched=sched, dyn_sched=dyn,
+                                      transport=transport,
+                                      local_size=basics.local_size())
+        elif kind == CommunicationType.hierarchical_gossip:
             combine = F.make_combiner(
-                self.communication_type,
-                dyn_sched=basics.dynamic_schedule(self.phases),
-                transport=transport)
+                kind, transport=transport, local_size=basics.local_size(),
+                hier=basics._hier_plan(
+                    "CommunicationType.hierarchical_gossip"))
         else:
-            combine = F.make_combiner(self.communication_type,
-                                      sched=basics.static_schedule(),
-                                      transport=transport)
+            combine = F.make_combiner(kind, transport=transport)
         return F.compress_combiner(
             combine, self.compression,
             residual=self.communication_type != CommunicationType.allreduce,
@@ -213,6 +245,31 @@ def DistributedNeighborAllreduceOptimizer(
         base, CommunicationType.neighbor_allreduce, order="awc",
         num_steps_per_communication=num_steps_per_communication,
         use_dynamic_topology=use_dynamic_topology, phases=phases, **kw)
+
+
+def DistributedHierarchicalNeighborAllreduceOptimizer(
+        base, *, num_steps_per_communication: int = 1,
+        use_dynamic_topology: bool = False, phases=None,
+        **kw) -> DistributedOptimizer:
+    """Machine-level neighbor averaging (AWC): each machine's local sum
+    combined over the machine topology, divided by ``local_size()``
+    (reference ``:1352``)."""
+    return DistributedOptimizer(
+        base, CommunicationType.hierarchical_neighbor_allreduce, order="awc",
+        num_steps_per_communication=num_steps_per_communication,
+        use_dynamic_topology=use_dynamic_topology, phases=phases, **kw)
+
+
+def DistributedHierarchicalGossipOptimizer(
+        base, *, num_steps_per_communication: int = 1,
+        order: str = "awc", **kw) -> DistributedOptimizer:
+    """Two-level hierarchical gossip (``BLUEFOG_TPU_HIER=1``): the dense
+    combine inside each machine every step, the one-peer exchange between
+    machines on its own cadence with its own codec
+    (``BLUEFOG_TPU_HIER_OUTER_*``)."""
+    return DistributedOptimizer(
+        base, CommunicationType.hierarchical_gossip, order=order,
+        num_steps_per_communication=num_steps_per_communication, **kw)
 
 
 def DistributedAdaptWithCombineOptimizer(

@@ -22,7 +22,11 @@ MoE routing plan, ``moe::dispatch`` and ``moe::combine`` its one-hot
 einsums, each with its ``_backward``), and the device's idle share of the
 step's wall time.  Under ``--dist-optimizer gradient_allreduce`` the step
 after the forward and backward is timed whole (``step_ms``): the gradients'
-average and the update are one call.  Takes the benchmark's flags
+average and the update are one call.  Under ``--dist-optimizer win_put``
+the combine is ``window_ms``: the puts, the window update and the copy of
+its result into the parameters.  Where the combine is a call of its own
+(ATC, the window optimizers), ``combine_trace`` profiles one more combine
+alone: its kernels with their launches, and the device's idle share.  Takes the benchmark's flags
 (``--remat``, ``--chunked-loss``, ``--num-kv-heads``, ``--num-experts``
 ...).  Prints one JSON line.  Needs a GPU; :func:`profile` does the same on
 a built ``Trainer``, or on any object with ``forward_backward()`` and a
@@ -41,6 +45,7 @@ import time
 import torch
 
 from bluefog_tpu_torch.benchmark import Trainer, build_parser
+from bluefog_tpu_torch.optim.window_optimizers import _WindowOptimizerBase
 
 __all__ = ["main", "profile", "trace", "kernel_family", "MOE_OPS",
            "ULYSSES_OPS", "TP_OPS"]
@@ -103,8 +108,9 @@ def profile(tr: Trainer, model: str = "") -> dict:
     ev[0].record()
     tr.forward_backward()
     ev[1].record()
+    window = isinstance(tr.opt, _WindowOptimizerBase)
     # Gradient allreduce, or a plain torch optimizer: one call a step.
-    grad_ar = getattr(tr.opt, "order", "gradient_allreduce") \
+    grad_ar = not window and getattr(tr.opt, "order", "gradient_allreduce") \
         == "gradient_allreduce"
     if grad_ar:
         tr.opt.step()
@@ -119,15 +125,26 @@ def profile(tr: Trainer, model: str = "") -> dict:
     if grad_ar:
         phases["step_ms"] = ev[1].elapsed_time(ev[2])
     else:
-        phases.update(adapt_ms=ev[1].elapsed_time(ev[2]),
-                      combine_ms=ev[2].elapsed_time(ev[3]))
+        # A window optimizer's combine: puts + win_update + the copy back.
+        combine = "window_ms" if window else "combine_ms"
+        phases.update({"adapt_ms": ev[1].elapsed_time(ev[2]),
+                       combine: ev[2].elapsed_time(ev[3])})
 
+    extra = {}
+    if not grad_ar:
+        # The combine alone under the profiler: its kernels, their
+        # launches and device time, and the device's idle share there.
+        tr.forward_backward()
+        tr.opt.adapt()
+        extra["combine_trace"] = trace(tr.opt.combine)
+        extra["combine_trace"].pop("device")
     out = trace(lambda: (tr.forward_backward(), tr.opt.step()))
     return {
         "device": out.pop("device"),
         "model": model,
         "phases": phases,
         **out,
+        **extra,
         # The profiler slows the host: against the step timed by events.
         "idle_share_of_event_step":
             1.0 - out["kernel_busy_ms"] / sum(phases.values()),

@@ -186,11 +186,45 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 29. ``tp_example``, 30. ``pp_example`` — ``python -m bluefog_tpu_torch.
    tensor_parallel_training``'s and ``pipeline_training``'s ``main`` on the
    card (each schedule): the loss falls.
-31. ``{"kernels": [...]}`` (launches from the ``train``, ``llama_train``,
+31. ``hier_train`` — the benchmark with ``--dist-optimizer hierarchical
+   --atc --dynamic``: the 1.3B LM at full width and depth, 4 ranks in 2
+   machines of 2 (the machine topology's one-peer walk), 1 warmup + 2
+   timed steps: step ms, tokens/s, peak memory, K1-K3 launches a step
+   (layers x ranks), the combine's time on one more step beside its byte
+   bound, the spread (it must shrink in the combine); and the hierarchical
+   combines on the card against the CPU at (4, 2^24) float32, bit for bit.
+32. ``winput_train`` — ``--dist-optimizer win_put``: the LM at full width
+   and ``WINPUT_LAYERS`` = 10 blocks (flat, gradients, main, the
+   combine's scaled copy of main, the 8 staging rows of in-degree 2 and a
+   scratch row: 25 rows of 2.55 GB at the peak, 63.9 GB; at 11 layers,
+   68.9 GB, the whole smoke ran out of memory, its cache fragmented; 24
+   layers would need 134 GB), 1 warmup + 2 timed steps, then 2
+   steps whose combine (the window ms, beside its bound of 28 row passes)
+   is held to the same combine recomputed in float64 from the rows before
+   and after the adapt, with ``_default_update_weights``, on 2^22 sampled
+   columns (``WIN_TOL``).
+33. ``win_variants`` — ``DistributedPullGetOptimizer``,
+   ``DistributedPushSumOptimizer`` and ``DistributedWinPutOptimizer(
+   overlap=True)`` on the LM at full width and 2 blocks, 3 steps each: the
+   combine shrinks the rms spread every step; after push-sum's
+   ``collect`` the P scalars sum to 4, each above 0, and the de-biased
+   rows' mean is the adapted rows' within 1e-5.
+34. ``win_ops`` — ``win_put`` with partial destinations, ``win_accumulate``,
+   ``win_get``, ``win_update`` with partial weights (the left-out edges
+   stay pending), ``win_update_then_collect``, the versions and P, a
+   state-dict round trip and ``win_mutex`` against a writer in another
+   thread, on a (4, 2^24) float32 tensor under ExponentialGraph(4): the
+   card against the CPU bit for bit; ``win_update``'s time beside its
+   bound.
+35. ``resnet50_win_put`` — the ResNet-50 phase under ``--dist-optimizer
+   win_put`` (batch 64, 4 ranks, 1 warmup + 2 timed steps), with the
+   window combine's time beside its bound.
+36. ``{"kernels": [...]}`` (launches from the ``train``, ``llama_train``,
    ``moe_train``, ``ring_train``, ``ulysses_train``, ``dp_sp_train``,
-   ``tp_train``, ``pp_train`` and ``pp_variants`` phases, each path's
-   beside), then the ``nvidia-smi`` line, then the last line ``{"ok":
-   true, "device": {...}}``.
+   ``tp_train``, ``pp_train``, ``pp_variants``, ``hier_train``,
+   ``winput_train`` and ``win_variants`` phases, each path's beside), then
+   the ``nvidia-smi`` line, then the last line ``{"ok": true, "device":
+   {...}}``.
 
 Exits non-zero, printing no result, without a GPU or outside the repository.
 """
@@ -239,6 +273,14 @@ COMPOSED_TOL = (2e-4, 2e-5)  # dp x tp x pp (x ep) vs dense, f32: rtol, atol
 SEED = 0                     # inputs and weights are drawn from it
 TWIN_SCORES_BYTES = 1 << 32  # the plain twins' f32 scores, at most, a call
 SOURCE = "bluefog_tpu_torch/csrc/flash_attention.cu"
+HIER_LAYERS = 24             # hier_train: full depth
+WINPUT_LAYERS = 10           # winput_train: the windows' 25 rows a step fit
+WIN_VARIANT_LAYERS = 2       # win_variants: pull-get, push-sum, overlap
+WIN_OPS_COLS = 1 << 24       # win_ops and the hierarchical card-vs-CPU check
+WIN_CHECK_COLS = 1 << 22     # winput_train's float64 recheck: column sample
+WIN_TOL = 1e-6               # window combine vs float64: ||err|| / ||ref||
+LM_WIDTHS = {"width": 2048, "heads": 16, "seq": 2048, "vocab": 32000}
+DEVICE = "cuda"              # the new phases' device ("cpu" to rehearse)
 KERNELS = {
     "K1": ("flash_fwd", "bluefog_tpu/ops/flash_attention.py:42"),
     "K2": ("flash_dq", "bluefog_tpu/ops/flash_attention.py:180"),
@@ -1849,6 +1891,351 @@ def check_compositions(seed):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Hierarchical gossip and the one-sided windows
+# ---------------------------------------------------------------------------
+
+def lm_args(benchmark, layers, dist, extra=()):
+    """The benchmark's flags for the 1.3B LM's widths at ``layers`` blocks,
+    4 ranks, under ``--dist-optimizer dist``."""
+    w = LM_WIDTHS
+    return benchmark.build_parser().parse_args([
+        "--model", "transformer", "--flash-attention",
+        "--num-layers", str(layers), "--embed-dim", str(w["width"]),
+        "--num-heads", str(w["heads"]), "--seq-len", str(w["seq"]),
+        "--batch-size", "2", "--vocab-size", str(w["vocab"]),
+        "--momentum", "0", "--ranks", "4", "--dist-optimizer", dist,
+        "--device", DEVICE, "--seed", str(SEED)] + list(extra))
+
+
+def timed_ms(fn):
+    """One call of ``fn`` between CUDA events (a host clock on the CPU,
+    where the smoke is rehearsed)."""
+    import torch
+    if DEVICE != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return 1e3 * (time.perf_counter() - t0)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    fn()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1])
+
+
+def timed_combine(tr):
+    """One more step of ``tr``: its combine's time alone."""
+    tr.forward_backward()
+    tr.opt.adapt()
+    return timed_ms(tr.opt.combine)
+
+
+def per_step(launches, steps):
+    return {k: v / steps for k, v in launches.items()}
+
+
+def check_hier_card_vs_cpu():
+    """The hierarchical combines on the card against the same functions on
+    the CPU at (4, 2^24) float32, 2 machines of 2: the dynamic neighbor
+    allreduce (each machine phase) and hierarchical gossip (each outer
+    codec).  The same float32 products and sums in the same order, no
+    multiply-add to contract, so bit for bit."""
+    import torch
+
+    from bluefog_tpu_torch import topology as topo
+    from bluefog_tpu_torch.ops import collective as C
+    from bluefog_tpu_torch.ops import schedule as S
+    gen = torch.Generator().manual_seed(SEED)
+    x = torch.randn(4, WIN_OPS_COLS, generator=gen)
+    dyn = S.compile_dynamic(topo.dynamic_phase_table(topo.ExponentialGraph(2)),
+                            2)
+    ht = topo.hierarchical_two_level(4, 2)
+    inner = S.compile_static(ht.inner, use_topo_weights=True)
+    outer = tuple(S._schedule_from_matrix(ht.outer_slice_matrix(p))
+                  for p in range(len(ht.outer_phases)))
+    cases = {f"neighbor_allreduce_phase{s}": lambda t, s=s:
+             C.dynamic_hierarchical_neighbor_allreduce(t, s, dyn, 2)
+             for s in range(dyn.period)}
+    for comp, frac in (("none", None), ("bf16", None), ("sparse:0.25", 0.25)):
+        cases[f"gossip_{comp}"] = lambda t, comp=comp, frac=frac: \
+            C.hierarchical_gossip(t, 0, inner, outer, 2,
+                                  outer_compression=comp, outer_frac=frac)
+    out = {}
+    xd = x.to(DEVICE)
+    for name, fn in cases.items():
+        want, got = fn(x), fn(xd).cpu()
+        out[name] = {"bitwise": bool(torch.equal(got, want)),
+                     "max_abs_err": float((got - want).abs().max())}
+        require(out[name]["max_abs_err"] <= 1e-6 * float(x.abs().max()),
+                f"hierarchical {name}: card vs CPU {out[name]}")
+    return out
+
+
+def hier_train_phase(benchmark):
+    """``--dist-optimizer hierarchical --atc --dynamic``: the 1.3B LM, 4
+    ranks in 2 machines of 2, through K1-K3; returns the launches."""
+    import torch
+
+    from bluefog_tpu_torch.ops import flash_attention as FA
+    args = lm_args(benchmark, HIER_LAYERS, "hierarchical", [
+        "--atc", "--dynamic", "--num-warmup-batches", "1", "--num-iters", "2",
+        "--num-batches-per-iter", "1"])
+    tr = benchmark.Trainer(args)
+    FA.reset_launch_counts()
+    res = benchmark.measure(args, tr, quiet=True)
+    launches = flash_launches()
+    steps = args.num_warmup_batches + args.num_iters * args.num_batches_per_iter
+    expected = HIER_LAYERS * args.ranks * steps
+    # The combine's least bytes: every rank's row read once, written once.
+    row_bytes = 4 * tr.rep.numel
+    combine_ms = timed_combine(tr)
+    emit("hier_train", config={
+        "num_layers": HIER_LAYERS, **LM_WIDTHS, "batch_size": 2,
+        "momentum": 0.0, "ranks": args.ranks, "local_size": 2,
+        "machines": 2, "order": "atc",
+        "topology": "dynamic one-peer walk of the machine "
+                    "ExponentialGraph(2)"},
+        launches=launches, launches_per_step=per_step(launches, steps),
+        expected_launches=expected, combine_ms=combine_ms,
+        combine_bound_ms=1e3 * 2 * args.ranks * row_bytes / PEAK_BYTES,
+        card_vs_cpu=check_hier_card_vs_cpu(), **res)
+    require(all(math.isfinite(x) for x in res["losses"]),
+            f"finite losses {res['losses']}")
+    require(res["steps"] == steps, f"{res['steps']} steps, expected {steps}")
+    require(all(c == expected for c in launches.values()),
+            f"launches {launches}, expected {expected} of each")
+    require(res["spread"]["after_combine"] < res["spread"]["after_adapt"],
+            f"the combine shrinks the spread {res['spread']}")
+    del tr
+    empty_cache()
+    return launches
+
+
+def winput_train_phase(benchmark):
+    """``--dist-optimizer win_put``: the LM at full width, cut to
+    ``WINPUT_LAYERS`` blocks so that the windows fit; then two more steps
+    whose combine is held to the same combine recomputed in float64 on a
+    sample of columns.  Returns the launches."""
+    import torch
+
+    from bluefog_tpu_torch.ops import flash_attention as FA
+    from bluefog_tpu_torch.ops import window as W
+    args = lm_args(benchmark, WINPUT_LAYERS, "win_put", [
+        "--num-warmup-batches", "1", "--num-iters", "2",
+        "--num-batches-per-iter", "1"])
+    tr = benchmark.Trainer(args)
+    FA.reset_launch_counts()
+    res = benchmark.measure(args, tr, quiet=True)
+    launches = flash_launches()
+    steps = args.num_warmup_batches + args.num_iters * args.num_batches_per_iter
+    expected = WINPUT_LAYERS * args.ranks * steps
+    n, P = args.ranks, tr.rep.numel
+    # The least bytes of the window combine, 28 row passes: the puts read
+    # 4 rows and write 8 staging rows, win_update reads main and staging
+    # (12 rows) and writes 4.
+    bound_ms = 1e3 * 28 * 4 * P / PEAK_BYTES
+    flat = tr.rep.flat
+    win = W._store.get(tr.opt._names[0])
+    self_w, nbr_w = W._default_update_weights(win)
+    gen = torch.Generator(device=flat.device).manual_seed(SEED)
+    cols = torch.randint(0, P, (WIN_CHECK_COLS,), generator=gen,
+                         device=flat.device).sort().values
+    checks, window_ms = [], []
+    for _ in range(2):
+        tr.forward_backward()
+        pre = flat.detach().index_select(1, cols).double()
+        tr.opt.adapt()
+        adapted = flat.detach().index_select(1, cols).double()
+        window_ms.append(timed_ms(tr.opt.combine))
+        got = flat.detach().index_select(1, cols).double()
+        # The self term is the window's memory, the previous combine.
+        ref = torch.stack([
+            self_w[r] * pre[r] + sum(nbr_w[(r, s)] * adapted[s]
+                                     for s in win.in_nbrs[r])
+            for r in range(n)])
+        checks.append(float((got - ref).norm() / ref.norm()))
+    emit("winput_train", config={
+        "num_layers": WINPUT_LAYERS, **LM_WIDTHS, "batch_size": 2,
+        "momentum": 0.0, "ranks": n, "optimizer": "DistributedWinPutOptimizer",
+        "overlap": False, "topology": "ExponentialGraph(4), in-degree 2"},
+        launches=launches, launches_per_step=per_step(launches, steps),
+        expected_launches=expected, window_ms=window_ms,
+        window_bound_ms=bound_ms, window_bound_by="bytes",
+        row_gb=4 * P / 1e9, f64_recheck_rel_err=checks,
+        f64_recheck_cols=WIN_CHECK_COLS, f64_recheck_tol=WIN_TOL, **res)
+    require(all(math.isfinite(x) for x in res["losses"]),
+            f"finite losses {res['losses']}")
+    require(res["steps"] == steps, f"{res['steps']} steps, expected {steps}")
+    require(all(c == expected for c in launches.values()),
+            f"launches {launches}, expected {expected} of each")
+    require(res["spread"]["after_combine"] < res["spread"]["after_adapt"],
+            f"the combine shrinks the spread {res['spread']}")
+    require(all(c <= WIN_TOL for c in checks),
+            f"the window combine against float64: {checks}")
+    tr.opt.free()
+    del tr, flat, win
+    empty_cache()
+    return launches
+
+
+def win_variants_phase(benchmark, steps=3):
+    """Pull-get, push-sum and win_put with ``overlap=True`` on the LM at
+    full width and ``WIN_VARIANT_LAYERS`` blocks, 3 steps each; returns the
+    launches."""
+    import torch
+
+    from bluefog_tpu_torch.benchmark import consensus_spread
+    from bluefog_tpu_torch.ops import flash_attention as FA
+    from bluefog_tpu_torch.optim import window_optimizers as WO
+    variants = {"pull_get": (WO.DistributedPullGetOptimizer, {}),
+                "push_sum": (WO.DistributedPushSumOptimizer, {}),
+                "win_put_overlap": (WO.DistributedWinPutOptimizer,
+                                    {"overlap": True})}
+    FA.reset_launch_counts()
+    out = {}
+    for name, (cls, kw) in variants.items():
+        args = lm_args(benchmark, WIN_VARIANT_LAYERS, "empty")
+        tr = benchmark.Trainer(args)
+        tr.opt = opt = cls(torch.optim.SGD([tr.rep.flat], lr=0.0125 * 4),
+                           **kw)
+        flat, rec = tr.rep.flat, {"losses": [], "rms_after_adapt": [],
+                                  "rms_after_combine": [], "step_ms": []}
+        for step in range(steps):
+            t0 = time.perf_counter()
+            rec["losses"].append([float(v) for v in tr.forward_backward()])
+            opt.adapt()
+            rec["rms_after_adapt"].append(consensus_spread(flat)["rms"])
+            if name == "push_sum" and step == steps - 1:
+                adapted_mean = flat.detach().double().mean(0)
+            opt.combine()
+            sync()
+            rec["step_ms"].append(1e3 * (time.perf_counter() - t0))
+            rec["rms_after_combine"].append(consensus_spread(flat)["rms"])
+        require(all(math.isfinite(v) for ls in rec["losses"] for v in ls),
+                f"{name}: finite losses")
+        require(all(b < a for a, b in zip(rec["rms_after_adapt"],
+                                          rec["rms_after_combine"])),
+                f"{name}: the combine shrinks the spread {rec}")
+        if name == "push_sum":
+            opt.collect()
+            p = opt.associated_p()
+            deb_mean = opt.debias()[0].double().mean(0)
+            rec["p"] = p.tolist()
+            rec["debiased_mean_rel_err"] = float(
+                (deb_mean - adapted_mean).norm() / adapted_mean.norm())
+            require(abs(p.sum() - args.ranks) < 1e-9 and (p > 0).all(),
+                    f"push-sum P {p}")
+            require(rec["debiased_mean_rel_err"] <= 1e-5,
+                    f"push-sum de-biased mean {rec['debiased_mean_rel_err']}")
+            del adapted_mean, deb_mean
+        opt.free()
+        out[name] = rec
+        del tr, opt, flat
+        empty_cache()
+    launches = flash_launches()
+    expected = WIN_VARIANT_LAYERS * 4 * steps * len(variants)
+    require(all(c == expected for c in launches.values()),
+            f"launches {launches}, expected {expected} of each")
+    emit("win_variants", config={
+        "num_layers": WIN_VARIANT_LAYERS, **LM_WIDTHS, "batch_size": 2,
+        "ranks": 4, "steps": steps, "topology": "ExponentialGraph(4)"},
+        launches=launches, expected_launches=expected, **out)
+    return launches
+
+
+def window_ops(dev):
+    """The window ops on a (4, 2^24) float32 tensor under
+    ExponentialGraph(4) on ``dev``: every result, counter and P scalar."""
+    import threading
+
+    import torch
+
+    import bluefog_tpu_torch as bf
+    bf.init(4, device=dev)
+    out = {}
+    try:
+        gen = torch.Generator().manual_seed(SEED)
+        x = torch.randn(4, WIN_OPS_COLS, generator=gen).to(dev)
+        ring = {(r, (r + 1) % 4): 0.3 + 0.1 * r for r in range(4)}
+        skip = {(r, (r + 2) % 4): 0.35 for r in range(4)}
+        bf.turn_on_win_ops_with_associated_p()
+        bf.win_create(x, "w", zero_init=True)
+        bf.win_put(1.5 * x, "w", dst_weights=ring)        # partial dsts
+        out["versions_put"] = [bf.get_win_version("w", r) for r in range(4)]
+        bf.win_accumulate(x, "w", self_weight=0.45, dst_weights=skip)
+        bf.win_get("w", src_weights={(r, (r - 1) % 4): 0.6
+                                     for r in range(4)})
+        # Partial weights: the (r, r - 2) edges stay pending.
+        out["update_partial"] = bf.win_update(
+            "w", self_weight=0.3, neighbor_weights={
+                (r, (r - 1) % 4): 0.7 for r in range(4)}, reset_weights=True)
+        out["versions_pending"] = [bf.get_win_version("w", r)
+                                   for r in range(4)]
+        out["collect"] = bf.win_update_then_collect("w")
+        out["p"] = bf.win_associated_p("w").tolist()
+        bf.turn_off_win_ops_with_associated_p()
+        snap = bf.win_state_dict("w")
+        bf.win_put(x, "w")
+        bf.win_load_state_dict("w", snap)
+        bf.win_accumulate(0.5 * x, "w")
+        out["after_restore"] = bf.win_update("w")
+        # Mutex from two threads: a require_mutex put waits for its release.
+        done = threading.Event()
+        with bf.win_mutex("w", ranks=[1, 2]):
+            t = threading.Thread(target=lambda: (
+                bf.win_put(x, "w", require_mutex=True), done.set()))
+            t.start()
+            time.sleep(0.2)
+            out["blocked_while_held"] = not done.is_set()
+        t.join(timeout=30)
+        out["ran_after_release"] = done.is_set()
+        out["after_mutex_put"] = bf.win_update("w")
+        if dev == "cuda":
+            reps = 10
+            out["win_update_ms"] = timed_ms(lambda: [
+                bf.win_update("w") for _ in range(reps)]) / reps
+        return {k: v.cpu() if isinstance(v, torch.Tensor) else v
+                for k, v in out.items()}
+    finally:
+        bf.shutdown()
+
+
+def win_ops_phase():
+    """``window_ops`` on the card against the CPU, bit for bit."""
+    import torch
+    card, cpu = window_ops(DEVICE), window_ops("cpu")
+    res = {}
+    for k, want in cpu.items():
+        got = card[k]
+        if isinstance(want, torch.Tensor):
+            res[k] = {"bitwise": bool(torch.equal(got, want)),
+                      "max_abs_err": float((got - want).abs().max())}
+            require(res[k]["bitwise"], f"win_ops {k}: card vs CPU {res[k]}")
+        else:
+            require(got == want, f"win_ops {k}: {got} vs {want}")
+            res[k] = got
+    require(cpu["blocked_while_held"] and cpu["ran_after_release"],
+            "win_mutex excludes a require_mutex writer")
+    # win_update reads main (4 rows) and staging (8), writes 4.
+    emit("win_ops", shape=[4, WIN_OPS_COLS], dtype="float32",
+         topology="ExponentialGraph(4)", win_update_ms=card.get(
+             "win_update_ms"), win_update_bound_ms=1e3 * 16 * 4 *
+         WIN_OPS_COLS / PEAK_BYTES, **res)
+
+
+def sync():
+    import torch
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def empty_cache():
+    import torch
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+
 def check_mp_examples():
     """``tensor_parallel_training`` and ``pipeline_training``'s own entry
     points on the card, each schedule: the loss falls."""
@@ -1869,10 +2256,11 @@ def check_mp_examples():
     return tp, pp
 
 
-def image_phase(benchmark, argv, checks_spread_by="max"):
+def image_phase(benchmark, argv, checks_spread_by="max", time_combine=False):
     """One benchmark run of an image model; the common checks
     (``checks_spread_by``: ``max`` or ``rms`` must shrink in the combine;
-    ``exact``: gradient allreduce, 0.0 after every step)."""
+    ``exact``: gradient allreduce, 0.0 after every step); with
+    ``time_combine``, one more step's combine time (``combine_ms``)."""
     import torch
     args = benchmark.build_parser().parse_args(argv + ["--seed", str(SEED)])
     tr = benchmark.Trainer(args)
@@ -1901,6 +2289,8 @@ def image_phase(benchmark, argv, checks_spread_by="max"):
         require(differ > 0, "BN statistics differ between ranks")
         res["bn_stats_rank_diff"] = differ
     res["steps_expected"] = steps
+    if time_combine:
+        res["combine_ms"] = timed_combine(tr)
     del tr
     torch.cuda.empty_cache()
     return res
@@ -2107,6 +2497,19 @@ def main():
     tp_example, pp_example = check_mp_examples()
     emit("tp_example", **tp_example)
     emit("pp_example", **pp_example)
+    hier_launches = hier_train_phase(benchmark)
+    winput_launches = winput_train_phase(benchmark)
+    win_variant_launches = win_variants_phase(benchmark)
+    win_ops_phase()
+    res = image_phase(benchmark, image + [
+        "--dist-optimizer", "win_put", "--num-warmup-batches", "1",
+        "--num-iters", "2", "--num-batches-per-iter", "1"],
+        time_combine=True)
+    require(res["params_per_rank"] == RESNET50_PARAMS,
+            f"flat has {res['params_per_rank']} columns")
+    # The window combine's 28 row passes, as in winput_train.
+    emit("resnet50_win_put", window_ms=res.pop("combine_ms"),
+         window_bound_ms=1e3 * 28 * 4 * RESNET50_PARAMS / PEAK_BYTES, **res)
 
     kernels = []
     for kname, (fn, replaces) in KERNELS.items():
@@ -2120,7 +2523,10 @@ def main():
                                      + dp_sp_launches[kname]
                                      + tp_launches[kname]
                                      + pp_launches[kname]
-                                     + pp_variant_launches[kname]),
+                                     + pp_variant_launches[kname]
+                                     + hier_launches[kname]
+                                     + winput_launches[kname]
+                                     + win_variant_launches[kname]),
                         "launches_by_path": {
                             "train": launches[kname],
                             "llama_train": llama_launches[kname],
@@ -2131,6 +2537,9 @@ def main():
                             "tp_train": tp_launches[kname],
                             "pp_train": pp_launches[kname],
                             "pp_variants": pp_variant_launches[kname],
+                            "hier_train": hier_launches[kname],
+                            "winput_train": winput_launches[kname],
+                            "win_variants": win_variant_launches[kname],
                             "generate": gen_launches[kname],
                             "vit": vit_launches[kname]},
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],

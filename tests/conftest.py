@@ -47,6 +47,8 @@ def _reset_bluefog_state():
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running multi-process integration test")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips without one")
 
 
 _TPU_PROBE: dict = {}

@@ -27,7 +27,13 @@ of each process, put together, must equal the single-process results:
   the MoE output, within 1e-6 and the same on every process; the shards'
   and experts' gradients within 1e-6;
 - 3 ATC steps of dp (the world's ranks, across processes) x tp 2
-  (rank-major in each process) within 1e-6.
+  (rank-major in each process) within 1e-6;
+- the hierarchical family over machines of 2 ranks (one a process in
+  2 x 2, one across two processes in 4 x 1): ``hierarchical_gossip`` (each
+  outer codec) bit for bit, the hierarchical neighbor allreduce within 1e-6
+  (its local sums by ``dist.all_reduce`` when a machine spans processes),
+  and bit for bit through ``bf.hierarchical_neighbor_allreduce`` with a
+  machine a process.
 
 The single-process path is held to the JAX package in the other
 ``test_torch_port_*`` files.  Run as a script, this file is the worker.
@@ -70,7 +76,8 @@ BITWISE = ["neighbor_allreduce", "neighbor_allreduce_override",
            "nonblocking_neighbor_allgather", "nonblocking_pair_gossip",
            "nonblocking_broadcast", "nonblocking_allgather",
            "nonblocking_local_allreduce", "pp_gpipe", "pp_1f1b",
-           "pp_zb_interleaved"]
+           "pp_zb_interleaved", "hier_bf", "hier_gossip_none",
+           "hier_gossip_bf16", "hier_gossip_sparse"]
 # Sums over the processes by ``dist.all_reduce``: within 1e-6, and the
 # same on every rank.
 ALL_REDUCE = ["allreduce", "allreduce_sum", "nonblocking_allreduce",
@@ -78,7 +85,7 @@ ALL_REDUCE = ["allreduce", "allreduce_sum", "nonblocking_allreduce",
 CLOSE = ["atc_flat", "atc_sparse_flat", "gradient_allreduce_flat",
          "ring_causal", "ring_noncausal", "ulysses_causal",
          "ulysses_noncausal", "tp_shard_grads", "moe_ep_grads",
-         "dp_tp_atc_flat"]
+         "dp_tp_atc_flat", "hier_static", "hier_dynamic"]
 # Gradient allreduce sums by ``dist.all_reduce`` (3 steps, values up to ~5):
 # also within 1e-6 relative.
 CLOSE_RTOL = {"gradient_allreduce_flat": 1e-6}
@@ -165,6 +172,7 @@ def scenario(bf) -> dict:
 
     bf.set_topology(topo.RingGraph(n), is_weighted=True)
     out["neighbor_allreduce_weighted"] = bf.neighbor_allreduce(x)
+    out.update(_hierarchical(bf, x, flat, comm))
 
     scalars = {"polled": [bool(p) for p in polled]}
     for name, extra in (("atc", []), ("atc_sparse",
@@ -210,6 +218,36 @@ def scenario(bf) -> dict:
                 len(own), -1)
     out.update(_model_parallel(n, rows, axis))
     out["scalars"] = scalars
+    return out
+
+
+def _hierarchical(bf, x, flat, comm) -> dict:
+    """The hierarchical family over machines of 2 ranks, and through the
+    context's machines (a process's ranks, or all in one process)."""
+    from bluefog_tpu_torch import topology as topo
+    from bluefog_tpu_torch.ops import collective as C
+    from bluefog_tpu_torch.ops import schedule as S
+    n, L = bf.size(), 2
+    out = {"hier_bf": bf.hierarchical_neighbor_allreduce(x)
+           if bf.machine_size() > 1 else x}
+    msched = S.compile_static(topo.RingGraph(n // L), use_topo_weights=False)
+    out["hier_static"] = C.hierarchical_neighbor_allreduce(x, msched, L,
+                                                           comm=comm)
+    mdyn = S.compile_dynamic(topo.dynamic_phase_table(
+        topo.ExponentialGraph(n // L)), n // L)
+    out["hier_dynamic"] = C.dynamic_hierarchical_neighbor_allreduce(
+        x, 1, mdyn, L, comm=comm)
+    ht = topo.hierarchical_two_level(n, n // L)
+    inner = S.compile_static(ht.inner, use_topo_weights=True)
+    outer = tuple(S._schedule_from_matrix(ht.outer_slice_matrix(p))
+                  for p in range(len(ht.outer_phases)))
+    for comp, frac in (("none", None), ("bf16", None), ("sparse", 0.25)):
+        y = flat
+        for step in range(3):
+            y = C.hierarchical_gossip(y, step, inner, outer, L,
+                                      outer_every=2, outer_compression=comp,
+                                      outer_frac=frac, comm=comm)
+        out[f"hier_gossip_{comp}"] = y
     return out
 
 

@@ -32,7 +32,9 @@ def test_import_leaves_jax_out():
             "bluefog_tpu_torch.parallel.pipeline, "
             "bluefog_tpu_torch.parallel.composed, "
             "bluefog_tpu_torch.tensor_parallel_training, "
-            "bluefog_tpu_torch.pipeline_training;"
+            "bluefog_tpu_torch.pipeline_training, "
+            "bluefog_tpu_torch.ops.window, bluefog_tpu_torch.utils.config, "
+            "bluefog_tpu_torch.optim.window_optimizers;"
             "bf = bluefog_tpu_torch; bf.pipeline_train_step, bf.moe_apply, "
             "bf.tp_shard_params, bf.parallel.pipeline_apply;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -94,6 +96,25 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         FA.flash_fwd_cuda(q, q, q)
     assert FA.flash_fwd_cuda.launches == 0
+
+
+def test_window_and_hierarchical_entry_points_default_to_cuda():
+    """The windows follow ``bf.device()``, CUDA unless the CPU was asked
+    for; a CPU tensor is refused when the windows live on the card."""
+    from bluefog_tpu_torch import basics
+    from bluefog_tpu_torch.ops import window
+    if torch.cuda.is_available():
+        basics.init(4, local_size=2)
+        try:
+            assert basics.device().type == "cuda"
+            with pytest.raises(ValueError, match="windows live on cuda"):
+                window.win_create(torch.zeros(4, 2), "w")
+        finally:
+            basics.shutdown()
+    else:
+        with pytest.raises(RuntimeError, match="no GPU"):
+            basics.init(4, local_size=2)
+    assert not basics.initialized()
 
 
 @pytest.mark.parametrize("module", ["long_context_training",

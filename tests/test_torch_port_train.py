@@ -302,3 +302,67 @@ def test_benchmark_gradient_allreduce_keeps_replicas_equal(compression):
     assert res["steps"] == 3
     assert res["spread"]["after_step"] == [0.0, 0.0, 0.0]
     assert np.ptp(res["losses"]) > 0
+
+
+@pytest.mark.parametrize("extra", [
+    ["--dist-optimizer", "hierarchical", "--atc", "--dynamic"],
+    ["--dist-optimizer", "hierarchical"],
+    ["--dist-optimizer", "win_put"],
+    ["--dist-optimizer", "win_put", "--compression", "bf16"]],
+    ids=["hierarchical-atc-dynamic", "hierarchical-awc-static", "win_put",
+         "win_put-bf16"])
+def test_benchmark_hierarchical_and_win_put_run_on_cpu(extra):
+    """The two ``--dist-optimizer`` choices this port adds, as
+    ``examples/benchmark.py`` has them: machines of ``ranks // 2`` ranks,
+    and the window optimizer, whose step is observed between its adapt and
+    its combine; window compression is a no-op in one process, and the run
+    says so."""
+    res = _benchmark(extra)
+    assert res["steps"] == 3 and all(np.isfinite(res["losses"]))
+    if "--atc" in extra or "win_put" in extra:
+        assert res["spread"]["after_combine"] < res["spread"]["after_adapt"]
+    assert ("compression_note" in res) == ("bf16" in extra)
+    assert tbf.get_current_created_window_names() == []  # freed at shutdown
+
+
+@pytest.mark.parametrize("dist,phases", [
+    ("win_put", {"forward_backward_ms", "adapt_ms", "window_ms"}),
+    ("hierarchical", {"forward_backward_ms", "adapt_ms", "combine_ms"}),
+    ("gradient_allreduce", {"forward_backward_ms", "step_ms"})])
+def test_profile_step_phases(monkeypatch, dist, phases):
+    """``profile_step.profile`` splits a step into its phases: a window
+    optimizer's combine is ``window_ms`` (the puts, the update and the
+    copy back), gradient allreduce's step is one call.  CUDA events and
+    the profiler are stood in for by the host clock (no card here)."""
+    import time
+
+    from bluefog_tpu_torch import profile_step as PS
+
+    class HostEvent:
+        def __init__(self, **_):
+            self.t = None
+
+        def record(self):
+            self.t = time.perf_counter()
+
+        def elapsed_time(self, other):
+            return 1e3 * (other.t - self.t)
+
+    monkeypatch.setattr(torch.cuda, "Event", HostEvent)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(PS, "trace", lambda step: (
+        step(), {"device": "cpu", "kernel_busy_ms": 1.0})[1])
+    args = benchmark.build_parser().parse_args([
+        "--device", "cpu", "--model", "transformer", "--flash-attention",
+        "--num-layers", "1", "--embed-dim", "32", "--num-heads", "2",
+        "--seq-len", "16", "--batch-size", "2", "--vocab-size", "64",
+        "--ranks", "4", "--atc", "--dynamic", "--dist-optimizer", dist])
+    try:
+        tr = benchmark.Trainer(args)
+        res = PS.profile(tr)
+    finally:
+        tbf.shutdown()
+    assert set(res["phases"]) == phases
+    assert all(v >= 0 for v in res["phases"].values())
+    # The combine, where it is a call of its own, is profiled alone too.
+    assert ("combine_trace" in res) == ("step_ms" not in phases)
