@@ -12,9 +12,9 @@ asks for the CPU, and raise when no GPU is present.
     bf.init_distributed()            # one process a card (bfrun, torchrun)
     x = bf.dynamic_neighbor_allreduce(owned_rows, step)
 
-    bf.win_create(rank_major_tensor, "w")   # one-sided windows, one process
-    bf.win_put(rank_major_tensor, "w")
-    x = bf.win_update("w")
+    bf.win_create(rows, "w")         # one-sided windows (rank-major rows,
+    bf.win_put(rows, "w")            # or a process's owned rows across
+    x = bf.win_update("w")           # processes)
 
 The model-parallel names of ``parallel`` (tensor, pipeline and expert
 parallelism: ``bf.pipeline_train_step``, ...) are exported here too, each
@@ -25,7 +25,7 @@ from bluefog_tpu_torch import parallel
 from bluefog_tpu_torch import topology as topology_util
 from bluefog_tpu_torch.basics import (
     Handle, allgather, allgather_nonblocking, allgather_v, allreduce,
-    allreduce_nonblocking, broadcast, broadcast_nonblocking,
+    allreduce_nonblocking, barrier, broadcast, broadcast_nonblocking,
     broadcast_parameters, device, dynamic_neighbor_allreduce,
     dynamic_neighbor_allreduce_nonblocking, init, init_distributed,
     initialized, is_homogeneous, is_topo_weighted, load_topology,
@@ -49,7 +49,7 @@ from bluefog_tpu_torch.ops.window import (
     win_update, win_update_then_collect, win_wait,
     turn_off_win_ops_with_associated_p, turn_on_win_ops_with_associated_p)
 
-__all__ = ["topology_util", "init", "init_distributed", "shutdown",
+__all__ = ["topology_util", "init", "init_distributed", "shutdown", "barrier",
            "initialized", "size", "rank", "owned_ranks", "local_size",
            "local_rank", "machine_size", "machine_rank", "is_homogeneous",
            "process_ranks", "device", "set_topology", "load_topology",

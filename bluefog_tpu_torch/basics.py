@@ -41,8 +41,8 @@ from bluefog_tpu_torch.ops import collective as C
 from bluefog_tpu_torch.ops import schedule as S
 from bluefog_tpu_torch.ops.p2p import Pending, ProcessRanks
 
-__all__ = ["init", "init_distributed", "shutdown", "initialized", "size",
-           "rank", "owned_ranks", "local_size", "local_rank",
+__all__ = ["init", "init_distributed", "shutdown", "barrier", "initialized",
+           "size", "rank", "owned_ranks", "local_size", "local_rank",
            "machine_size", "machine_rank", "is_homogeneous",
            "process_ranks", "device", "set_topology", "load_topology",
            "is_topo_weighted", "allreduce", "local_allreduce", "broadcast",
@@ -223,17 +223,34 @@ def init_distributed(topology_fn=None, is_weighted: bool = False, *,
     for h, p in seen:
         counts[h] = counts.get(h, 0) + p
     _ctx.host_rank_counts = counts
+    # Windows across processes ride their own TCP transport (the JAX
+    # package's init_distributed starts it here too).
+    from bluefog_tpu_torch.ops import window
+    window.init_transport()
 
 
 def shutdown() -> None:
     """Free every window and drop the context; after
-    :func:`init_distributed`, also the process group."""
+    :func:`init_distributed`, also the window transport and then the
+    process group."""
     global _ctx
     from bluefog_tpu_torch.ops import window
     window._free_all_windows()
+    window._shutdown_transport()
     if _ctx.comm is not None and dist.is_initialized():
         dist.destroy_process_group()
     _ctx = _Context()
+
+
+def barrier() -> None:
+    """Block until the device work enqueued so far is done and, across
+    processes, until every process has reached the barrier (over the
+    process group; one process needs no wire)."""
+    ctx = _require_init()
+    if ctx.device.type == "cuda":
+        torch.cuda.synchronize(ctx.device)
+    if ctx.comm is not None and ctx.comm.nprocs > 1:
+        dist.barrier()
 
 
 def initialized() -> bool:

@@ -25,9 +25,17 @@ same.  ``--dist-optimizer hierarchical`` averages over machines of ``ranks
 // 2`` ranks (``CommunicationType.hierarchical_neighbor_allreduce``, the
 machine topology's one-peer walk with ``--dynamic``), and ``win_put``
 trains with ``DistributedWinPutOptimizer`` through one-sided windows on
-the card (``--atc`` and ``--dynamic`` do not apply; window compression
-acts across processes only, so in one process ``--compression`` changes
-nothing, as the JAX benchmark notes).
+the card (``--atc`` and ``--dynamic`` do not apply).  ``--compression`` is
+then the window codec, for this run only (a scoped override of the port's
+config, ``os.environ`` untouched); it acts on edges across processes, so
+in one process it changes nothing, as the JAX benchmark notes.  Under a
+launcher, each process's ``flat`` holds its owned rows, the windows take
+the owned layout, and the rows that cross processes travel over the
+window transport; the result then carries ``window``: the seconds a step
+of staging rows off the card, of sends until they were handed to TCP and
+of the drain's commits, and the bytes sent.  ``--backend gloo`` runs the
+processes' control group on gloo, for several processes on one card
+(NCCL refuses two ranks on one device).
 
     python -m bluefog_tpu_torch.benchmark --model resnet50 --batch-size 64 \\
         --atc --dynamic --ranks 4
@@ -51,6 +59,10 @@ nothing, as the JAX benchmark notes).
         --dist-optimizer hierarchical
     python -m bluefog_tpu_torch.benchmark --model resnet50 --batch-size 64 \\
         --dist-optimizer win_put --ranks 4
+    BFTPU_COORDINATOR=127.0.0.1:29400 BFTPU_NUM_PROCESSES=2 \\
+    BFTPU_PROCESS_ID=<0|1> BFTPU_LOCAL_DEVICES=2 \\
+    python -m bluefog_tpu_torch.benchmark --model resnet50 --batch-size 64 \\
+        --dist-optimizer win_put --backend gloo
 
 ``--efficiency`` also runs one rank alone and reports the scaling
 efficiency, this process's ranks against one of them (one process only,
@@ -61,6 +73,7 @@ scaling figure.  Runs on CUDA unless ``--device cpu`` is given.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -169,6 +182,9 @@ def build_parser():
                          "scaling efficiency (one process only)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                    help="under a launcher: the process group's backend "
+                         "(default NCCL on CUDA, gloo on the CPU)")
     return ap
 
 
@@ -193,10 +209,17 @@ def consensus_spread(flat: torch.Tensor, chunk: int = 1 << 24) -> dict:
     procs = basics.process_ranks() if basics.initialized() else None
     n = flat.shape[0] if procs is None else procs.n
 
+    # gloo moves CPU tensors: a card's tensor crosses through the host.
+    host = procs is not None and flat.device.type == "cuda" and \
+        torch.distributed.get_backend() == "gloo"
+
     def total(t, op=None):
         if procs is not None:
+            h = t.cpu() if host else t
             torch.distributed.all_reduce(
-                t, op=op or torch.distributed.ReduceOp.SUM)
+                h, op=op or torch.distributed.ReduceOp.SUM)
+            if host:
+                t.copy_(h)
         return t
     worst = torch.zeros((), device=flat.device)
     sq = torch.zeros((), device=flat.device, dtype=torch.float64)
@@ -301,11 +324,11 @@ class Trainer:
                                momentum=args.momentum, dampening=0)
         self.note = None
         if args.dist_optimizer == "win_put":
-            # Windows run in one process only (item 17b brings the
-            # transport), so no window payload is ever compressed.
-            if args.compression != "none":
+            # In one process no window payload crosses the transport.
+            if args.compression != "none" and world == self.n:
                 self.note = WIN_COMPRESSION_NOTE
-            self.opt = WO.DistributedWinPutOptimizer(base)
+            with window_codec(args):
+                self.opt = WO.DistributedWinPutOptimizer(base)
             return
         if args.dist_optimizer == "gradient_allreduce":
             # As the JAX benchmark: --atc and --dynamic do not apply.
@@ -341,12 +364,28 @@ class Trainer:
         return torch.stack(losses)
 
 
+def window_codec(args):
+    """``--compression`` as the window codec, for the enclosed block, under
+    ``--dist-optimizer win_put`` (a scoped override of the port's config:
+    ``os.environ`` is not touched)."""
+    if args.dist_optimizer != "win_put":
+        return contextlib.nullcontext()
+    from bluefog_tpu_torch.utils import config
+    return config.override(win_compression=args.compression)
+
+
 def measure(args, tr: Trainer = None, quiet: bool = False) -> dict:
     """Run the benchmark (on ``tr``, or a new ``Trainer(args)``); returns
     its numbers, rates over all ranks on the one device (img/s for the
     image models, tokens/s for the LM).  ``quiet`` prints no per-iteration
     line."""
     tr = tr or Trainer(args)
+    with window_codec(args):
+        return _measure(args, tr, quiet)
+
+
+def _measure(args, tr: Trainer, quiet: bool) -> dict:
+    from bluefog_tpu_torch.ops import window as W
     n, dev, rep, opt = tr.n, tr.device, tr.rep, tr.opt
     forward_backward = tr.forward_backward
 
@@ -381,6 +420,7 @@ def measure(args, tr: Trainer = None, quiet: bool = False) -> dict:
     _sync(dev)
 
     rates, step_s = [], []
+    win0 = W.stats.snapshot()
     unit = "imgs" if tr.image else "tokens"
     per_batch = n * args.batch_size * (1 if tr.image else args.seq_len)
     for i in range(args.num_iters):
@@ -412,6 +452,11 @@ def measure(args, tr: Trainer = None, quiet: bool = False) -> dict:
         "spread": spread,
         "steps": opt.step_count,
     }
+    if W._store.distrib is not None:
+        # The timed steps' cross-process window path, a step.
+        steps = args.num_iters * args.num_batches_per_iter
+        win1 = W.stats.snapshot()
+        out["window"] = {k: (win1[k] - win0[k]) / steps for k in win1}
     if tr.note:
         out["compression_note"] = tr.note
     if args.mfu and not tr.image and args.num_experts:
@@ -444,7 +489,7 @@ def main(argv=None):
     import bluefog_tpu_torch as bf
     launched = "BFTPU_COORDINATOR" in os.environ or "WORLD_SIZE" in os.environ
     if launched:
-        bf.init_distributed(device=args.device)
+        bf.init_distributed(device=args.device, backend=args.backend)
     res = measure(args)
     unit = "tokens" if args.model == "transformer" else "imgs"
     if args.efficiency and not launched and res["ranks"] > 1:

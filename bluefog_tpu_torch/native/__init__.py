@@ -1,0 +1,165 @@
+"""The window transport's native service, built at first use and bound
+with ``ctypes``.
+
+The port of ``bluefog_tpu/native/__init__.py`` for the one library the
+window transport needs: ``src/winsvc.cc`` (a copy of the JAX package's,
+with the declarations of its header that it defines) compiles with one
+``g++`` call into ``bluefog_tpu_torch/_build/winsvc-<hash>.so``, keyed by a
+hash of the sources and the flags, as ``ops/_nvcc.py`` keys the CUDA
+kernels: an edited source rebuilds, an unchanged tree loads the previous
+build.  The flags are the JAX Makefile's, ``-ffp-contract=off`` included:
+the drain's fold promises f32 sums bit for bit equal to the Python fold's,
+and a fused multiply-add would break that.
+
+There is no silent fallback.  A failed build raises with the compiler's
+output; the Python hot loop runs only when the caller asks for it
+(``BLUEFOG_TPU_WIN_NATIVE=0``).  The service itself (the TCP listener and
+``bf_winsvc_send``) is native on both paths, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional
+
+__all__ = ["CXX_FLAGS", "library_path", "build", "lib", "WinMsg", "WinItem"]
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+SRC_DIR = Path(__file__).resolve().parent / "src"
+BUILD_DIR = PACKAGE_DIR / "_build"
+SOURCES = ("winsvc.cc",)
+
+# bluefog_tpu/native/Makefile's CXXFLAGS and LDFLAGS.
+CXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-Wall", "-Wextra", "-pthread",
+             "-ffp-contract=off", "-shared")
+
+_lib = None
+_lock = threading.Lock()
+
+
+class WinMsg(ctypes.Structure):
+    """Mirror of ``bf_win_msg_t``: one inbound message of the Python
+    drain."""
+    _fields_ = [
+        ("op", ctypes.c_uint8),
+        ("src", ctypes.c_int32),
+        ("dst", ctypes.c_int32),
+        ("weight", ctypes.c_double),
+        ("p_weight", ctypes.c_double),
+        ("name", ctypes.c_char * 128),
+        ("payload_len", ctypes.c_uint64),
+    ]
+
+
+class WinItem(ctypes.Structure):
+    """Mirror of ``bf_win_item_t``: one ordered drain item, a raw message
+    (kind 0) or a folded commit entry (kind 1)."""
+    _fields_ = [
+        ("kind", ctypes.c_uint8),
+        ("op", ctypes.c_uint8),
+        ("replace", ctypes.c_uint8),
+        ("frame", ctypes.c_uint8),
+        ("src", ctypes.c_int32),
+        ("dst", ctypes.c_int32),
+        ("puts", ctypes.c_int32),
+        ("accs", ctypes.c_int32),
+        ("weight", ctypes.c_double),
+        ("p_weight", ctypes.c_double),
+        ("off", ctypes.c_uint64),
+        ("len", ctypes.c_uint64),
+        ("wire_bytes", ctypes.c_uint64),
+        ("trace_seq", ctypes.c_uint32),
+        ("trace_src", ctypes.c_int32),
+        ("trace_mono_us", ctypes.c_int64),
+        ("trace_unix_us", ctypes.c_int64),
+        ("trace_step", ctypes.c_int64),
+        ("name", ctypes.c_char * 128),
+    ]
+
+
+def _cxx() -> str:
+    found = shutil.which(os.environ.get("CXX", "g++"))
+    if not found:
+        raise RuntimeError(
+            "no C++ compiler (g++, or $CXX) on PATH: the window transport's "
+            "native service (bluefog_tpu_torch/native/src/winsvc.cc) builds "
+            "with it at first use")
+    return found
+
+
+def library_path() -> Path:
+    """Where the service builds to under the current sources and flags."""
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    for path in [*(SRC_DIR / s for s in SOURCES),
+                 *sorted(SRC_DIR.glob("*.h"))]:
+        h.update(f"\0{path.name}\0".encode() + path.read_bytes())
+    return BUILD_DIR / f"winsvc-{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the service unless its library is already built; a failed
+    build raises with what the compiler printed."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_cxx(), *CXX_FLAGS, "-o", str(tmp),
+           *(str(SRC_DIR / s) for s in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError("building the window transport's native service "
+                           f"failed:\n{' '.join(cmd)}\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    i32, i64, u64, dbl = (ctypes.c_int32, ctypes.c_int64, ctypes.c_uint64,
+                          ctypes.c_double)
+    vp, cp, u8 = ctypes.c_void_p, ctypes.c_char_p, ctypes.c_uint8
+    ptr = ctypes.POINTER
+    sigs = {
+        "bf_winsvc_start": (vp, [i32, i32]),
+        "bf_winsvc_port": (i32, [vp]),
+        "bf_winsvc_recv": (i32, [vp, ptr(WinMsg), ptr(u8), u64]),
+        "bf_winsvc_send": (i32, [cp, i32, u8, cp, i32, i32, dbl, dbl,
+                                 ptr(u8), u64]),
+        "bf_winsvc_stop": (None, [vp]),
+        "bf_winsvc_win_set": (i32, [vp, cp, i64]),
+        "bf_winsvc_drain": (i32, [vp, ptr(WinItem), i32, ptr(u8), u64,
+                                  ptr(ctypes.c_float), u64, i32, i32]),
+        "bf_winsvc_set_decode": (i32, [vp, i32]),
+        "bf_wintx_start": (vp, [u64, u64, i32, i32, dbl, i32]),
+        # The payload rides as c_void_p: a raw address (the pinned staging
+        # row, or a numpy buffer); bf_wintx_send copies it into its arena
+        # before it returns.
+        "bf_wintx_send": (i32, [vp, cp, i32, u8, cp, i32, i32, dbl, dbl, vp,
+                                u64, i32, i32]),
+        "bf_wintx_flush": (i32, [vp, cp, i32, dbl]),
+        "bf_wintx_err_count": (i64, [vp, cp, i32]),
+        "bf_wintx_kick": (None, [vp]),
+        "bf_wintx_drop_peer": (i64, [vp, cp, i32]),
+        "bf_wintx_set_partition": (None, [vp, cp]),
+        "bf_wintx_stop": (None, [vp]),
+    }
+    for name, (res, args) in sigs.items():
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = res, args
+    return lib
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded service, built first when needed (raises when it cannot
+    be built)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = _bind(ctypes.CDLL(str(build())))
+        return _lib

@@ -1,7 +1,8 @@
-"""One-sided window ops: the async gossip family, in one process.
+"""One-sided window ops: the async gossip family, in one process or across
+processes.
 
-The port of ``bluefog_tpu/ops/window.py``'s single-process store.  A window
-holds, for every rank, its exposed memory (``main``) and one staging buffer
+The port of ``bluefog_tpu/ops/window.py``.  A window holds, for every rank
+this process owns, its exposed memory (``main``) and one staging buffer
 per in-neighbor edge, with per-rank mutexes, per-edge version counters and
 the associated-P scalars of push-sum.  ``win_put`` overwrites each
 destination's buffer-for-me with ``w * t``, ``win_accumulate`` adds into
@@ -10,41 +11,63 @@ memory with the staging buffers, and ``win_update_then_collect`` sums them
 with weight 1 and empties them (push-sum's collect).  The nonblocking ops
 run on a worker pool and return an integer handle for :func:`win_wait`.
 
-The JAX package keeps this store in host numpy because a TPU has no RMA.
-Here every rank of a single-process run lives on one device, so ``main``
-and the staging buffers stay on ``bf.device()``: a put is a device copy,
-``win_update`` a device weighted sum, and nothing is staged through the
-host (a tensor on another device is refused).  The host keeps only the
-bookkeeping: versions, ``main_versions`` and the P scalars.
+**Across processes** (``basics.init_distributed``), each process is the
+authority for the ranks it owns, as in the JAX package: the window keeps
+main and staging for the owned ranks and their in-edges only (the
+owned-rows layout, O(owned + in-degree) rows a process), and an edge whose
+target another process owns travels over the window transport
+(``ops/transport.py``, its native service in ``native/src/winsvc.cc``) as
+the raw row and its weight; the owner's drain thread scales and applies it
+with the same versions, mutexes and associated P.  :func:`win_fence` acks
+every peer's sends and ends in ``basics.barrier()``.  A window created
+from a tensor of the owned rows (``(len(owned_ranks()), ...)``) takes and
+returns owned rows (``layout="owned"``); one created from a rank-major
+tensor takes rank-major tensors and returns zeros in the rows of other
+processes' ranks.
+
+**The device.**  ``main`` and the staging buffers stay on ``bf.device()``:
+a local put is a device copy, ``win_update`` a device weighted sum.  A
+remote edge's row is copied from the card into a pinned host buffer (one
+a window, row and codec, reused), handed to the transport, which copies
+it into its send arena before it returns; an inbound row is decoded and
+scaled on the host by the drain (in C++ on the native path) and copied to
+the card into staging, in the drain's call, from a pinned receive buffer.
+The receiver multiplies the raw row by the weight in float32, as the JAX
+package's numpy does and as torch multiplies a float32 tensor by a Python
+scalar, so a fenced put lands the same bits as in one process.
 
 **One stream.**  Every window op, including the jobs of the pool threads,
-is enqueued on one CUDA stream, the device's default stream
-(:func:`_stream`).  Under the locks, enqueue order is then execution
-order, which is what the store's locking argues about.  The host
-bookkeeping is updated when a job *runs*, not when the device finishes;
-each bookkeeping step stays inside the locks exactly as in the JAX
-package.  A caller may have another stream current: an op (a job at its
-dispatch) first makes the default stream wait for the caller's stream,
-so it reads what the caller wrote; an op that returns rows, and
-:func:`win_wait`, :func:`win_fence` and :func:`win_flush`, make the
-caller's stream wait for the default stream, so the caller reads the
-results, and overwrites a payload, after the window ops.  Moving window
-ops themselves to a side stream needs events at every lock boundary.
+the drain thread's commits and the service pool's replies, is enqueued on
+one CUDA stream, the device's default stream (:func:`_stream`, which also
+makes the thread's current device the window's).  Under the locks,
+enqueue order is then execution order, which is what the store's locking
+argues about.  The host bookkeeping is updated when a job *runs*, not
+when the device finishes.  A caller may have another stream current: an
+op (a job at its dispatch) first makes the default stream wait for the
+caller's stream, so it reads what the caller wrote; an op that returns
+rows, and :func:`win_wait`, :func:`win_fence` and :func:`win_flush`, make
+the caller's stream wait for the default stream.
 
 A nonblocking op reads its payload when its job runs: the caller must not
 change the tensor before :func:`win_wait` (MPI's rule for a nonblocking
-put).
+put).  Across processes :func:`win_wait` of a put means the local send is
+done (the payload handed to TCP), not that the row arrived; remote
+visibility is ordered by :func:`win_fence`, as with ``MPI_Put``.
 
-Left out, each raising an error that names its ROADMAP item: windows
-across processes (item 17b: the transport, ``_Distrib``, the owned layout,
-window compression across processes) and the async staleness mode
-(``BLUEFOG_TPU_ASYNC=1``, item 17c).  ``BLUEFOG_TPU_WIN_COMPRESSION`` acts on
-cross-process edges only, so in one process it changes nothing.
+Left out, raising an error that names its ROADMAP item: the async
+staleness mode (``BLUEFOG_TPU_ASYNC=1``, item 17c), the device-side put
+path (item 18) and the membership and gang control ops (item 20, dropped
+and logged when one arrives).  ``BLUEFOG_TPU_WIN_COMPRESSION`` acts on
+cross-process edges only.
 """
 
 from __future__ import annotations
 
 import contextlib
+import logging
+import math
+import os
+import socket
 import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
@@ -54,6 +77,11 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from bluefog_tpu_torch.ops.transport import (
+    OP_ACCUMULATE, OP_BF16_FLAG, OP_FENCE_ACK, OP_FENCE_REQ, OP_FLAG_MASK,
+    OP_GANG, OP_GET_REPLY, OP_GET_REQ, OP_MEMBER, OP_MUTEX_ACQ,
+    OP_MUTEX_GRANT, OP_MUTEX_REL, OP_PUT, OP_SPARSE_FLAG, OP_TRACE_FLAG,
+    sparse_decode, sparse_encode, trace_strip)
 from bluefog_tpu_torch.utils import config
 
 __all__ = [
@@ -66,20 +94,27 @@ __all__ = [
     "turn_on_win_ops_with_associated_p", "turn_off_win_ops_with_associated_p",
 ]
 
-# Wait bound of win_fence on the outstanding ops (the JAX package's
-# BLUEFOG_TPU_WIN_TIMEOUT default).
-_MSG_TIMEOUT_SEC = 300.0
+_log = logging.getLogger("bluefog_tpu_torch")
+
+
+def _timeout() -> float:
+    """``BLUEFOG_TPU_WIN_TIMEOUT``: how long an op waits for a peer."""
+    return config.get().win_timeout
 
 
 class _Window:
-    """State of one named window, every rank owned (the JAX package's
-    owned-slice layout with ``layout="rank"``): ``main``, ``p_main``,
-    ``main_versions`` and ``mutexes`` keyed by rank, ``staging``,
-    ``p_staging`` and ``versions`` by ``(dst, src)`` edge."""
+    """State of one named window in the owned-rows layout: ``main``,
+    ``p_main``, ``main_versions`` and ``mutexes`` keyed by owned rank,
+    ``staging``, ``p_staging`` and ``versions`` by ``(dst, src)`` edge with
+    an owned ``dst``.  One process owns every rank.
+
+    ``layout`` is the caller's array convention: ``"rank"`` windows take
+    and return rank-major ``(n, ...)`` tensors, ``"owned"`` windows (across
+    processes) ``(len(owned), ...)`` ones, row ``i`` rank ``owned[i]``."""
 
     def __init__(self, name: str, tensor: torch.Tensor,
                  in_nbrs: List[List[int]], out_nbrs: List[List[int]],
-                 zero_init: bool):
+                 zero_init: bool, owned: List[int], layout: str):
         n = len(in_nbrs)
         self.name = name
         self.n = n
@@ -88,17 +123,29 @@ class _Window:
         self.device = tensor.device
         self.in_nbrs = in_nbrs
         self.out_nbrs = out_nbrs
-        self.owned = list(range(n))
+        self.owned = list(owned)
+        self.layout = layout
+        # rank -> row of the caller's tensors
+        self.row_of = ({r: r for r in range(n)} if layout == "rank"
+                       else {r: i for i, r in enumerate(self.owned)})
         # main[r]: rank r's exposed memory (win_get's source, win_update's
         # self term).
         self.main: Dict[int, torch.Tensor] = {
-            r: tensor[r].clone() for r in self.owned}
+            r: tensor[self.row_of[r]].clone() for r in self.owned}
         # staging[(dst, src)]: what src pushed toward dst (or dst pulled
         # from src); seeded with the neighbor's initial value.
-        self.staging: Dict[tuple, torch.Tensor] = {
-            (dst, src): (torch.zeros_like(tensor[src]) if zero_init
-                         else tensor[src].clone())
-            for dst in self.owned for src in in_nbrs[dst]}
+        self.staging: Dict[tuple, torch.Tensor] = {}
+        for dst in self.owned:
+            for src in in_nbrs[dst]:
+                if zero_init:
+                    self.staging[(dst, src)] = torch.zeros_like(tensor[0])
+                elif layout == "rank":
+                    self.staging[(dst, src)] = tensor[src].clone()
+                else:
+                    raise ValueError(
+                        "owned-layout windows require zero_init=True (the "
+                        "creation tensor carries no neighbor rows to seed "
+                        "staging with)")
         # versions[(dst, src)]: puts into the slot since the last update.
         self.versions: Dict[tuple, int] = {k: 0 for k in self.staging}
         # Self-publishes to main[r] (win_put's self_weight): a publish that
@@ -109,12 +156,49 @@ class _Window:
             r: threading.RLock() for r in self.owned}
         self.lock = threading.RLock()      # the store-structure lock
         # Whole win_update calls, one at a time (snapshot -> combine -> swap
-        # of two updates must not interleave); puts take only `lock`, so
-        # they stay concurrent with the combine.
+        # of two updates must not interleave); puts and the drain take only
+        # `lock`, so they stay concurrent with the combine.
         self.update_lock = threading.Lock()
         # associated-P scalars (push-sum weights); self starts at 1.0
         self.p_main: Dict[int, float] = {r: 1.0 for r in self.owned}
         self.p_staging: Dict[tuple, float] = {k: 0.0 for k in self.staging}
+        # Pinned host rows of remote sends, one a (src, codec, purpose),
+        # reused; each purpose has its lock (puts, GET replies).
+        self.pinned: Dict[tuple, torch.Tensor] = {}
+        self.put_stage_lock = threading.Lock()
+        self.reply_stage_lock = threading.Lock()
+
+
+class _Distrib:
+    """Multi-process window state: the transport and the rank directory.
+
+    ``rank_owner[r]`` is the process that owns rank ``r``;
+    ``proc_addr[p]`` is process ``p``'s ``(host, port)`` endpoint."""
+
+    def __init__(self, transport, rank_owner: Dict[int, int],
+                 proc_addr: Dict[int, tuple], my_proc: int):
+        self.transport = transport
+        self.rank_owner = rank_owner
+        self.proc_addr = proc_addr
+        self.my_proc = my_proc
+        self.my_rank = min(r for r, p in rank_owner.items() if p == my_proc)
+        self.cv = threading.Condition()
+        self.pending_gets: Dict[tuple, int] = {}   # (name, dst, src) -> n
+        self.fence_acks = 0
+        # Striped fan-out: FENCE_REQ and MUTEX_REL ride every stripe of a
+        # peer, with the copy count in the wire `weight` and a sender serial
+        # in `p_weight`; the receiver acts on the last copy of the newest
+        # serial.  Keys: requesting rank (fence) / (name, rank, requester)
+        # (release); values: (serial, copies seen).
+        self.fence_req_seen: Dict[int, tuple] = {}
+        self.rel_seen: Dict[tuple, tuple] = {}
+        self.fanout_serial = 0
+        # The remote mutex: one outstanding ACQ a (name, rank) a process.
+        self.grant_events: Dict[tuple, threading.Event] = {}
+        self.remote_holds: Dict[tuple, threading.Event] = {}
+        self.mutex_serial: Dict[tuple, threading.Lock] = {}
+        # Inbound messages for windows not created here yet (SPMD skew).
+        self.parked: Dict[str, list] = {}
 
 
 class _WindowStore:
@@ -123,9 +207,19 @@ class _WindowStore:
         self.lock = threading.RLock()
         self.pool = ThreadPoolExecutor(max_workers=8,
                                        thread_name_prefix="bf-win")
+        # Inbound service work (GET replies, fence acks) runs on its own
+        # executor: user ops on `pool` block waiting for peers' replies,
+        # and serving replies from a saturated `pool` would deadlock both
+        # sides until the timeout.
+        self.svc_pool = ThreadPoolExecutor(max_workers=4,
+                                           thread_name_prefix="bf-win-svc")
         self.handles: Dict[int, Future] = {}
         self.next_handle = 0
         self.associated_p_enabled = False
+        self.distrib: Optional[_Distrib] = None
+        # Messages that arrived between the listener going live and the
+        # directory being installed.
+        self.preinit_msgs: list = []
 
     def get(self, name: str) -> _Window:
         with self.lock:
@@ -152,6 +246,39 @@ class _WindowStore:
 
 
 _store = _WindowStore()
+
+
+class _Stats:
+    """Seconds and bytes of the cross-process path, summed over threads:
+    card-to-host staging of remote rows, their sends and flushes until
+    they were handed to TCP (the wire), the waits for a remote mutex's
+    grant, and the drain's host-to-card copies of what arrived.  Read by
+    the benchmark and ``chip_smoke.py``."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.reset()
+
+    def reset(self) -> None:
+        self.stage_s = self.wire_s = self.commit_s = self.mutex_s = 0.0
+        self.stage_bytes = self.commit_bytes = 0
+
+    def add(self, **kv) -> None:
+        with self.lock:
+            for k, v in kv.items():
+                setattr(self, k, getattr(self, k) + v)
+
+    def snapshot(self) -> dict:
+        with self.lock:
+            d = _store.distrib
+            return {"stage_s": self.stage_s, "stage_bytes": self.stage_bytes,
+                    "wire_s": self.wire_s, "mutex_s": self.mutex_s,
+                    "commit_s": self.commit_s,
+                    "commit_bytes": self.commit_bytes,
+                    "tx_bytes": d.transport.tx_bytes if d else 0}
+
+
+stats = _Stats()
 
 
 def _side_stream(device: torch.device):
@@ -186,17 +313,18 @@ def _caller_waits(device: torch.device) -> None:
 
 @contextlib.contextmanager
 def _stream(device: torch.device):
-    """Run the enclosed window ops on ``device``'s default stream (a no-op
-    on the CPU), ordered after the work the calling thread has enqueued
-    on its current stream, which waits for them in turn."""
+    """Run the enclosed window ops on ``device``'s default stream, with
+    ``device`` current (a no-op on the CPU), ordered after the work the
+    calling thread has enqueued on its current stream, which waits for
+    them in turn."""
     if device.type != "cuda":
         yield
         return
-    _default_waits_for_caller(device)
-    with torch.cuda.device(device), \
-            torch.cuda.stream(torch.cuda.default_stream(device)):
-        yield
-    _caller_waits(device)
+    with torch.cuda.device(device):
+        _default_waits_for_caller(device)
+        with torch.cuda.stream(torch.cuda.default_stream(device)):
+            yield
+        _caller_waits(device)
 
 
 def _any_window_exists() -> bool:
@@ -222,12 +350,700 @@ def _drain_handles(timeout: float = 60.0) -> bool:
 
 
 def _free_all_windows() -> None:
+    d = _store.distrib
     with _store.lock:
         for f in _store.handles.values():
             f.cancel()
         _store.handles.clear()
+        if d is not None:
+            for name in _store.windows:
+                d.transport.unregister_window(name)
         _store.windows.clear()
+    _drop_ef_residuals()
 
+
+# ---------------------------------------------------------------------------
+# Multi-process plumbing: rank ownership and the transport
+# ---------------------------------------------------------------------------
+
+def _owns(rank: int) -> bool:
+    d = _store.distrib
+    return d is None or d.rank_owner[rank] == d.my_proc
+
+
+def _owned_ranks(n: int) -> List[int]:
+    d = _store.distrib
+    if d is None:
+        return list(range(n))
+    return [r for r in range(n) if d.rank_owner[r] == d.my_proc]
+
+
+def _local_host_addr() -> str:
+    """This process's address for the window transport: ``BFTPU_WIN_HOST``,
+    else the interface that routes to the rendezvous host (a UDP connect
+    sends no packet), else the host name's address."""
+    override = os.environ.get("BFTPU_WIN_HOST")
+    if override:
+        return override
+    coord = os.environ.get("BFTPU_COORDINATOR")
+    target = None
+    if coord and ":" in coord:
+        host, port = coord.rsplit(":", 1)
+        target = (host, int(port))
+    elif os.environ.get("MASTER_ADDR"):
+        target = (os.environ["MASTER_ADDR"],
+                  int(os.environ.get("MASTER_PORT", "29500")))
+    if target is not None:
+        try:
+            with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+                s.connect(target)
+                return s.getsockname()[0]
+        except OSError:
+            pass
+    try:
+        return socket.gethostbyname(socket.gethostname())
+    except OSError:
+        return "127.0.0.1"
+
+
+# The endpoint exchange's key namespace: c10d store keys are set once, and
+# a re-init must not read the previous incarnation's.  Every process calls
+# init_transport as often (an SPMD call), so the counters agree.
+_exchange_generation = 0
+
+
+def _exchange_endpoints(me: str, comm) -> List[str]:
+    """Every process's ``host:port`` endpoint, in process order, over the
+    c10d store of the default process group (the JAX package uses its
+    coordinator's key-value store the same way)."""
+    global _exchange_generation
+    from torch.distributed import distributed_c10d
+    gen = _exchange_generation
+    _exchange_generation += 1
+    store = distributed_c10d._get_default_store()
+    store.set(f"bf/win_addr/{gen}/{comm.process}", me)
+    out = []
+    for p in range(comm.nprocs):
+        out.append(store.get(f"bf/win_addr/{gen}/{p}").decode())
+    return out
+
+
+def _pinned_alloc(device: torch.device):
+    """The transport's receive-buffer allocator: pinned host memory when
+    the windows live on a card, so a commit's copy to it reads pinned
+    memory."""
+    if device.type != "cuda":
+        return None
+
+    def alloc(nbytes: int) -> np.ndarray:
+        with torch.cuda.device(device):
+            return torch.empty(nbytes, dtype=torch.uint8,
+                               pin_memory=True).numpy()
+    return alloc
+
+
+def make_transport(port: int = 0, device: Optional[torch.device] = None):
+    """A window transport wired to this store's apply callbacks, with no
+    rank directory yet: inbound data messages wait in ``preinit_msgs``
+    until :func:`install_distrib`."""
+    from bluefog_tpu_torch.ops.transport import WindowTransport
+    return WindowTransport(_apply_inbound, apply_batch=_apply_inbound_batch,
+                           apply_items=_apply_inbound_items, port=port,
+                           alloc=_pinned_alloc(device or torch.device("cpu")))
+
+
+def install_distrib(transport, rank_owner: Dict[int, int],
+                    proc_addr: Dict[int, tuple], my_proc: int) -> None:
+    """Install the rank directory over a live transport and replay the
+    messages that raced ahead of it, under one lock hold (the drain thread
+    waits on that lock in its pre-init check)."""
+    with _store.lock:
+        _store.distrib = _Distrib(transport, dict(rank_owner),
+                                  dict(proc_addr), my_proc)
+        pending, _store.preinit_msgs = _store.preinit_msgs, []
+        for msg in pending:
+            _apply_inbound(*msg)
+
+
+def init_transport() -> bool:
+    """Start the window transport and exchange the rank directory: called
+    by ``basics.init_distributed`` when the world spans processes.  False
+    (and nothing started) in one process."""
+    from bluefog_tpu_torch import basics
+    if _store.distrib is not None:
+        return True
+    comm = basics.process_ranks()
+    if comm is None or comm.nprocs == 1:
+        return False
+    transport = make_transport(config.get().win_port, basics.device())
+    try:
+        addrs = _exchange_endpoints(
+            f"{_local_host_addr()}:{transport.port}", comm)
+    except BaseException:
+        transport.stop()
+        raise
+    proc_addr = {}
+    for p, addr in enumerate(addrs):
+        host, _, port = addr.rpartition(":")
+        proc_addr[p] = (host, int(port))
+    rank_owner = {r: comm.owner(r) for r in range(comm.n)}
+    install_distrib(transport, rank_owner, proc_addr, comm.process)
+    return True
+
+
+def _shutdown_transport() -> None:
+    d = _store.distrib
+    _store.distrib = None
+    if d is not None:
+        d.transport.stop()
+
+
+# ---------------------------------------------------------------------------
+# Payloads on the wire
+# ---------------------------------------------------------------------------
+
+# Sender-side error-feedback residuals of the sparse:<frac> codec, keyed by
+# (window, src, dst) edge, on the window's device: the un-sent complement
+# of every sparsified row is folded into the next send on that edge, so the
+# time-summed wire traffic carries the full mass.
+_ef_residuals: Dict[tuple, torch.Tensor] = {}
+_ef_lock = threading.Lock()
+
+
+def _drop_ef_residuals(name: Optional[str] = None) -> None:
+    """Forget sender residuals (every window's, or one freed window's)."""
+    with _ef_lock:
+        if name is None:
+            _ef_residuals.clear()
+        else:
+            for k in [k for k in _ef_residuals if k[0] == name]:
+                _ef_residuals.pop(k, None)
+
+
+def _sparse_payload(name: str, src: int, dst: int, row: torch.Tensor,
+                    frac: float) -> np.ndarray:
+    """Top-|magnitude| sparsification of one edge's row with error
+    feedback: the previous residual is added, the top ``ceil(frac *
+    size)`` entries ship (their float32 bits exact), the complement is the
+    new residual."""
+    flat = row.reshape(-1)
+    key = (name, src, dst)
+    with _ef_lock:
+        res = _ef_residuals.get(key)
+        v = flat + res if res is not None and res.shape == flat.shape \
+            else flat.clone()
+        k = max(1, int(math.ceil(frac * v.numel())))
+        if k >= v.numel():
+            idx = torch.arange(v.numel(), device=v.device)
+        else:
+            idx = torch.topk(v.abs(), k, sorted=False).indices.sort().values
+        vals = v[idx]
+        v[idx] = 0.0
+        _ef_residuals[key] = v
+    return sparse_encode(vals.cpu().numpy(), idx.cpu().numpy())
+
+
+def _stage(win: _Window, key: tuple, row: torch.Tensor) -> np.ndarray:
+    """``row`` (contiguous, on the window's device) as host bytes the
+    transport copies from: on a card, copied into the pinned buffer of
+    ``key`` (kept for reuse; the caller holds that purpose's lock), the
+    copy complete on return; on the CPU, the row's own memory."""
+    if row.device.type != "cuda":
+        return row.contiguous().view(torch.uint8).reshape(-1).numpy()
+    t0 = time.perf_counter()
+    buf = win.pinned.get(key)
+    if buf is None or buf.shape != row.shape or buf.dtype != row.dtype:
+        buf = win.pinned[key] = torch.empty(row.shape, dtype=row.dtype,
+                                            pin_memory=True)
+    buf.copy_(row, non_blocking=True)
+    torch.cuda.current_stream(row.device).synchronize()
+    stats.add(stage_s=time.perf_counter() - t0,
+              stage_bytes=row.numel() * row.element_size())
+    return buf.view(torch.uint8).reshape(-1).numpy()
+
+
+def _encode_row(win: _Window, op: int, src: int, dst: int,
+                row: torch.Tensor, purpose: str, cache: dict):
+    """``(op with codec flags, host payload)`` of one remote edge's row
+    under ``BLUEFOG_TPU_WIN_COMPRESSION``, as the JAX package's
+    ``_send_to_proc`` encodes it: ``sparse:<frac>`` for float32
+    accumulates (error feedback a (window, src, dst) edge), ``bf16`` for
+    every float32 row, else the raw row.  Dense and bf16 rows are staged
+    once a src an op (``cache``)."""
+    comp = config.get().win_compression
+    f32 = row.dtype == torch.float32 and row.numel() > 0
+    if f32 and comp.startswith("sparse") and op == OP_ACCUMULATE:
+        return op | OP_SPARSE_FLAG, _sparse_payload(
+            win.name, src, dst, row, config.parse_sparse_frac(comp))
+    if f32 and comp == "bf16":
+        if ("bf16", src) not in cache:
+            cache[("bf16", src)] = _stage(
+                win, (src, "bf16", purpose), row.to(torch.bfloat16))
+        return op | OP_BF16_FLAG, cache[("bf16", src)]
+    if ("raw", src) not in cache:
+        cache[("raw", src)] = _stage(win, (src, "raw", purpose),
+                                     row.contiguous())
+    return op, cache[("raw", src)]
+
+
+def _send_to_proc(proc: int, op: int, name: str, src: int, dst: int,
+                  weight: float, p_weight: float = 0.0, payload=None,
+                  stripe: Optional[int] = None) -> None:
+    d = _store.distrib
+    host, port = d.proc_addr[proc]
+    if payload is None:
+        payload = np.empty(0, np.uint8)
+    d.transport.send(host, port, op, name, src, dst, weight, payload,
+                     p_weight, stripe=stripe)
+
+
+def _send_to_rank_owner(rank: int, op: int, name: str, src: int, dst: int,
+                        weight: float, p_weight: float = 0.0, payload=None,
+                        stripe: Optional[int] = None) -> None:
+    _send_to_proc(_store.distrib.rank_owner[rank], op, name, src, dst,
+                  weight, p_weight, payload, stripe=stripe)
+
+
+def _fanout_weight(n_stripes: int) -> float:
+    """Wire ``weight`` of a FENCE_REQ / MUTEX_REL copy: the copy count,
+    exactly 0.0 single-stream (the pre-stripe wire)."""
+    return float(n_stripes) if n_stripes > 1 else 0.0
+
+
+def _fanout_serial(d: _Distrib, n_stripes: int) -> float:
+    """Wire ``p_weight`` of a fan-out's copies: a per-process serial, so a
+    partially delivered earlier fan-out never completes a later one;
+    exactly 0.0 single-stream."""
+    if n_stripes <= 1:
+        return 0.0
+    with d.cv:
+        d.fanout_serial += 1
+        return float(d.fanout_serial)
+
+
+def _fanout_count(seen: dict, key, serial: float):
+    """Advance one fan-out counter for an arriving copy (under ``d.cv``):
+    the copies seen for ``serial``, or None for a stale copy of an older
+    fan-out."""
+    cur = seen.get(key)
+    if cur is not None and cur[0] > serial:
+        return None
+    count = cur[1] + 1 if cur is not None and cur[0] == serial else 1
+    seen[key] = (serial, count)
+    return count
+
+
+def _flush_transport(procs=None, since=None, timeout=None) -> None:
+    """Hand the queued sends to TCP (to the processes ``procs``, default
+    every peer) and raise their errors here; ``since`` is the transport's
+    error token from before the op's sends.  A no-op in one process."""
+    d = _store.distrib
+    if d is None:
+        return
+    addrs = None if procs is None else {d.proc_addr[p] for p in procs}
+    if addrs is not None and not addrs:
+        return
+    d.transport.flush(timeout=_timeout() if timeout is None else timeout,
+                      addrs=addrs, since=since)
+
+
+def _payload_row(win: _Window, payload, compressed: bool = False,
+                 sparse: bool = False) -> torch.Tensor:
+    """Decode one wire payload (bytes, or a view into the transport's
+    receive buffer valid only for the apply call) to a window-shaped host
+    row; the result may view the payload."""
+    numel = int(np.prod(win.shape, dtype=np.int64))
+    itemsize = torch.empty((), dtype=win.dtype).element_size()
+    expected = numel * itemsize
+    if sparse:
+        idx, vals = sparse_decode(payload)
+        row = torch.zeros(numel, dtype=win.dtype)
+        if idx.size:
+            if int(idx.max(initial=0)) >= numel or \
+                    int(idx.min(initial=0)) < 0:
+                raise ValueError(
+                    f"window {win.name!r}: sparse payload indexes outside "
+                    f"the {numel}-element row")
+            row[torch.from_numpy(idx.astype(np.int64))] = \
+                torch.from_numpy(vals.copy()).to(win.dtype)
+        return row.reshape(win.shape)
+    raw = np.frombuffer(payload, np.uint8)
+    if compressed:
+        if len(raw) * 2 != expected:
+            raise ValueError(
+                f"window {win.name!r}: bf16-flagged payload of {len(raw)} "
+                f"bytes does not match half a {expected}-byte row")
+        # bf16 -> float32 is exact: the bf16 bits are the high half.
+        wide = raw.view(np.uint16).astype(np.uint32) << 16
+        return torch.from_numpy(wide.view(np.float32)).to(
+            win.dtype).reshape(win.shape)
+    if len(raw) != expected:
+        raise ValueError(
+            f"window {win.name!r}: payload of {len(raw)} bytes does not "
+            f"match the {expected}-byte row (shape {win.shape}, dtype "
+            f"{win.dtype})")
+    if not raw.flags.writeable:
+        raw = raw.copy()
+    return torch.from_numpy(raw).view(win.dtype).reshape(win.shape)
+
+
+def _to_device(win: _Window, row: torch.Tensor) -> torch.Tensor:
+    """A host row on the window's device, the copy complete on return (the
+    row may view a receive buffer that the next drain reuses)."""
+    if win.device.type != "cuda":
+        return row
+    t0 = time.perf_counter()
+    out = row.to(win.device)
+    stats.add(commit_s=time.perf_counter() - t0,
+              commit_bytes=row.numel() * row.element_size())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Inbound: the drain thread's apply
+# ---------------------------------------------------------------------------
+
+def _reply_get(name: str, src: int, dst: int, weight: float) -> None:
+    """Answer a GET_REQ: ship ``main[src]`` (owned here) to ``dst``'s
+    owner, which scales it by ``weight``."""
+    try:
+        win = _store.get(name)
+    except KeyError:
+        return  # freed concurrently; the requester's timeout reports it
+    with win.reply_stage_lock, _stream(win.device):
+        with win.lock:
+            row = win.main[src].clone()
+            p_w = weight * float(win.p_main[src])
+        op, payload = _encode_row(win, OP_GET_REPLY, src, dst, row, "reply",
+                                  {})
+        _send_to_rank_owner(dst, op, name, src, dst, weight, p_w, payload)
+
+
+@contextlib.contextmanager
+def _remote_mutex(name: str, rank: int, my_rank: int):
+    """Writer-side distributed mutex on a rank another process owns: ACQ,
+    wait for the GRANT, the critical section, REL.  The REL travels the
+    same FIFO as the puts sent inside, so the owner applies them before it
+    releases.  Yields the seconds the grant took."""
+    d = _store.distrib
+    with d.cv:
+        serial = d.mutex_serial.setdefault((name, rank), threading.Lock())
+    with serial:
+        granted = threading.Event()
+        with d.cv:
+            d.grant_events[(name, rank)] = granted
+        try:
+            proc = d.rank_owner[rank]
+            tok = d.transport.error_token({d.proc_addr[proc]})
+            t0 = time.perf_counter()
+            _send_to_rank_owner(rank, OP_MUTEX_ACQ, name, my_rank, rank, 0.0)
+            _flush_transport({proc}, since=tok)
+            if not granted.wait(timeout=_timeout()):
+                raise ConnectionError(
+                    f"win_mutex({name!r}): rank {rank}'s owner did not grant "
+                    f"within {_timeout():.0f}s")
+            waited = time.perf_counter() - t0
+            stats.add(mutex_s=waited)
+            yield waited
+        finally:
+            try:
+                proc = d.rank_owner[rank]
+                tok = d.transport.error_token({d.proc_addr[proc]})
+                n_str = d.transport.n_stripes
+                w = _fanout_weight(n_str)
+                serial_no = _fanout_serial(d, n_str)
+                for k in range(n_str):
+                    _send_to_rank_owner(rank, OP_MUTEX_REL, name, my_rank,
+                                        rank, w, p_weight=serial_no,
+                                        stripe=k)
+                _flush_transport({proc}, since=tok)
+            finally:
+                with d.cv:
+                    d.grant_events.pop((name, rank), None)
+
+
+def _hold_mutex_for_remote(name: str, rank: int, requester: int) -> None:
+    """Hold rank's (owned) mutex for a remote requester until its
+    MUTEX_REL arrives; on its own daemon thread."""
+    d = _store.distrib
+    try:
+        win = _store.get(name)
+    except KeyError:
+        return
+    release = threading.Event()
+    key = (name, rank, requester)
+    try:
+        with win.mutexes[rank]:
+            # Registered only once the mutex is ours: a predecessor's late
+            # release copies must not set this event.
+            with d.cv:
+                d.remote_holds[key] = release
+            proc = d.rank_owner[requester]
+            tok = d.transport.error_token({d.proc_addr[proc]})
+            _send_to_rank_owner(requester, OP_MUTEX_GRANT, name, requester,
+                                rank, 0.0)
+            _flush_transport({proc}, since=tok)
+            release.wait(timeout=_timeout())
+    finally:
+        with d.cv:
+            if d.remote_holds.get(key) is release:
+                d.remote_holds.pop(key, None)
+
+
+def _apply_inbound(op: int, name: str, src: int, dst: int, weight: float,
+                   p_weight: float, payload) -> None:
+    """Apply one inbound message to the owned window state (the drain
+    thread).  It never blocks on a peer: replies and mutex holds go to the
+    service pool and their own threads.  ``payload`` may view the
+    transport's receive buffer, valid for this call only."""
+    base = op & ~OP_FLAG_MASK
+    if base in (OP_MEMBER, OP_GANG):
+        _log.warning("window transport: dropped an inbound %s control "
+                     "message (the membership and gang subsystems are not "
+                     "ported: ROADMAP item 20)",
+                     "OP_MEMBER" if base == OP_MEMBER else "OP_GANG")
+        return
+    orig_op = op
+    compressed = bool(op & OP_BF16_FLAG)
+    sparse = bool(op & OP_SPARSE_FLAG)
+    traced = bool(op & OP_TRACE_FLAG)
+    op = base
+    d = _store.distrib
+    if d is None:
+        with _store.lock:
+            if _store.distrib is None:
+                # No directory yet (a peer finished its init first): keep
+                # the bytes; install_distrib replays in arrival order.
+                _store.preinit_msgs.append(
+                    (orig_op, name, src, dst, weight, p_weight,
+                     bytes(payload)))
+                return
+            d = _store.distrib
+    if op == OP_FENCE_REQ:
+        # Striped: answer only the last copy of the newest serial.
+        total = int(weight) if weight >= 2.0 else 1
+        if total > 1:
+            with d.cv:
+                seen = _fanout_count(d.fence_req_seen, src, p_weight)
+                if seen is None or seen < total:
+                    return
+                d.fence_req_seen.pop(src, None)
+        _store.svc_pool.submit(_send_to_rank_owner, src, OP_FENCE_ACK, "",
+                               src, dst, 0.0)
+        return
+    if op == OP_FENCE_ACK:
+        with d.cv:
+            d.fence_acks += 1
+            d.cv.notify_all()
+        return
+    if op == OP_MUTEX_GRANT:
+        with d.cv:
+            ev = d.grant_events.get((name, dst))
+        if ev is not None:
+            ev.set()
+        return
+    if op == OP_MUTEX_REL:
+        total = int(weight) if weight >= 2.0 else 1
+        with d.cv:
+            if total > 1:
+                key = (name, dst, src)
+                seen = _fanout_count(d.rel_seen, key, p_weight)
+                if seen is None or seen < total:
+                    return
+                d.rel_seen.pop(key, None)
+            ev = d.remote_holds.get((name, dst, src))
+        if ev is not None:
+            ev.set()
+        return
+    with _store.lock:
+        win = _store.windows.get(name)
+        if win is None:
+            # SPMD skew: the peer wrote this window before our win_create
+            # ran; win_create replays in arrival order.
+            d.parked.setdefault(name, []).append(
+                (orig_op, name, src, dst, weight, p_weight, bytes(payload)))
+            return
+    if op in (OP_PUT, OP_ACCUMULATE, OP_GET_REPLY):
+        if traced:
+            payload, _ = trace_strip(payload)
+        row = _payload_row(win, payload, compressed, sparse=sparse)
+        with _stream(win.device):
+            scaled = _to_device(win, row) * weight  # a float32 multiply
+            with win.lock:
+                if (dst, src) in win.staging:
+                    if op == OP_ACCUMULATE:
+                        win.staging[(dst, src)] += scaled
+                    else:
+                        win.staging[(dst, src)] = scaled
+                    win.versions[dst, src] += 1
+                    if _store.associated_p_enabled:
+                        if op == OP_ACCUMULATE:
+                            win.p_staging[(dst, src)] += p_weight
+                        else:
+                            win.p_staging[(dst, src)] = p_weight
+        if op == OP_GET_REPLY:
+            with d.cv:
+                key = (name, dst, src)
+                d.pending_gets[key] = d.pending_gets.get(key, 0) - 1
+                d.cv.notify_all()
+    elif op == OP_GET_REQ:
+        _store.svc_pool.submit(_reply_get, name, src, dst, weight)
+    elif op == OP_MUTEX_ACQ:
+        threading.Thread(target=_hold_mutex_for_remote,
+                         args=(name, dst, src), daemon=True,
+                         name=f"bf-win-hold-{dst}").start()
+
+
+def _apply_inbound_batch(msgs) -> None:
+    """One decoded OP_BATCH frame (the Python drain), in arrival order:
+    runs of puts and accumulates into one window take
+    :func:`_apply_data_run`; a bad message or run loses only itself."""
+    i, n = 0, len(msgs)
+    while i < n:
+        if (msgs[i][0] & ~OP_FLAG_MASK) not in (OP_PUT, OP_ACCUMULATE):
+            try:
+                _apply_inbound(*msgs[i])
+            except Exception:  # noqa: BLE001 — isolate per message
+                _log.exception("window transport apply failed (batched "
+                               "control msg)")
+            i += 1
+            continue
+        name = msgs[i][1]
+        j = i + 1
+        while (j < n and msgs[j][1] == name
+               and (msgs[j][0] & ~OP_FLAG_MASK) in (OP_PUT, OP_ACCUMULATE)):
+            j += 1
+        try:
+            _apply_data_run(name, msgs[i:j])
+        except Exception:  # noqa: BLE001 — isolate per run
+            _log.exception("window transport apply failed (batched data "
+                           "run)")
+        i = j
+
+
+def _apply_inbound_items(items) -> None:
+    """The native drain's ordered items: ``(0, msg)`` raw messages and
+    ``(1, commit)`` folded entries, a window's run committed under one
+    lock hold; a bad run or message loses only itself."""
+    i, n = 0, len(items)
+    while i < n:
+        kind, payload = items[i]
+        if kind == 0:
+            try:
+                _apply_inbound(*payload)
+            except Exception:  # noqa: BLE001 — isolate per message
+                _log.exception("window transport apply failed (native raw "
+                               "msg)")
+            i += 1
+            continue
+        name = payload[0]
+        j = i + 1
+        while j < n and items[j][0] == 1 and items[j][1][0] == name:
+            j += 1
+        try:
+            _commit_native_run(name, [it[1] for it in items[i:j]])
+        except Exception:  # noqa: BLE001 — isolate per run
+            _log.exception("window transport apply failed (native commit "
+                           "run)")
+        i = j
+
+
+def _commit_native_run(name: str, entries) -> None:
+    """Commit one window's run of natively folded entries under one
+    ``win.lock`` hold.  An entry is ``(name, replace, src, dst, p_mass,
+    puts, accs, values, wire_bytes, trace)`` with ``values`` a float32 view
+    into the drain's buffer, valid only for this call: a replace copies it
+    into staging, an accumulate adds it, each copy to the card complete
+    before the call returns.  The C++ fold reproduces the Python batched
+    apply's decode, scale and fold order, so the state is the same bits."""
+    d = _store.distrib
+    with _store.lock:
+        win = _store.windows.get(name) if d is not None else None
+    if win is None or d is None:
+        # Pre-init or SPMD-skew parking: each folded entry as one
+        # equivalent message (a put of the folded row at weight 1).
+        for (nm, replace, src, dst, p_mass, _puts, _accs, vals, _wb,
+             _tr) in entries:
+            _apply_inbound(OP_PUT if replace else OP_ACCUMULATE, nm, src,
+                           dst, 1.0, p_mass, np.asarray(vals).tobytes())
+        return
+    expected = int(np.prod(win.shape, dtype=np.int64))
+    with _stream(win.device), win.lock:
+        for (_nm, replace, src, dst, p_mass, puts, accs, vals, _wb,
+             _tr) in entries:
+            key = (dst, src)
+            if key not in win.staging:
+                continue
+            if vals.size != expected or win.dtype != torch.float32:
+                _log.warning("window %r: folded entry of %d elements does "
+                             "not match the %d-element row; dropped", name,
+                             vals.size, expected)
+                continue
+            row = _to_device(win, torch.from_numpy(vals).view(win.shape))
+            if replace:
+                # On the CPU the row still views the drain's buffer.
+                win.staging[key] = row if win.device.type == "cuda" \
+                    else row.clone()
+                if _store.associated_p_enabled:
+                    win.p_staging[key] = p_mass
+            else:
+                win.staging[key] += row
+                if _store.associated_p_enabled:
+                    win.p_staging[key] += p_mass
+            win.versions[key] += puts + accs
+
+
+def _apply_data_run(name: str, group) -> None:
+    """A run of puts and accumulates into one window (the Python drain):
+    decode and scale outside the lock, fold consecutive contributions to
+    one slot (a put then accumulates is ``A + B`` with every version tick
+    kept), commit the run under one lock hold."""
+    d = _store.distrib
+    with _store.lock:
+        win = _store.windows.get(name) if _store.distrib is not None else None
+    if d is None or win is None:
+        for m in group:
+            _apply_inbound(*m)
+        return
+    entries = []  # [replace, (dst, src), scaled row, p mass, ticks]
+    with _stream(win.device):
+        for (op, _n, src, dst, weight, p_weight, payload) in group:
+            try:
+                if op & OP_TRACE_FLAG:
+                    payload, _ = trace_strip(payload)
+                row = _payload_row(win, payload, bool(op & OP_BF16_FLAG),
+                                   sparse=bool(op & OP_SPARSE_FLAG))
+            except ValueError:
+                _log.exception("window transport apply failed (batched row "
+                               "decode)")
+                continue
+            scaled = _to_device(win, row) * weight  # fresh: no view kept
+            key = (dst, src)
+            accumulate = (op & ~OP_FLAG_MASK) == OP_ACCUMULATE
+            if accumulate and entries and entries[-1][1] == key:
+                entries[-1][2] += scaled
+                entries[-1][3] += p_weight
+                entries[-1][4] += 1
+            else:
+                entries.append([not accumulate, key, scaled, p_weight, 1])
+        with win.lock:
+            for replace, key, scaled, p_mass, ticks in entries:
+                if key not in win.staging:
+                    continue
+                if replace:
+                    win.staging[key] = scaled
+                    if _store.associated_p_enabled:
+                        win.p_staging[key] = p_mass
+                else:
+                    win.staging[key] += scaled
+                    if _store.associated_p_enabled:
+                        win.p_staging[key] += p_mass
+                win.versions[key] += ticks
+
+
+# ---------------------------------------------------------------------------
+# Topology, weights, devices
+# ---------------------------------------------------------------------------
 
 def _neighbors_from_topology():
     from bluefog_tpu_torch import basics
@@ -300,17 +1116,21 @@ def _device_tensor(tensor, what: str) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def win_create(tensor, name: str, zero_init: bool = False) -> bool:
-    """Create a named window from a rank-major ``(size, ...)`` tensor on
-    ``bf.device()``: one staging buffer per in-neighbor edge of the
-    current topology, which is frozen while windows exist (as in the
-    reference).  Returns False if the name is taken."""
+    """Create a named window on ``bf.device()`` from a rank-major ``(size,
+    ...)`` tensor or, across processes, from the owned rows
+    (``(len(owned_ranks()), ...)``, the owned layout, which requires
+    ``zero_init``): one staging buffer per in-edge of an owned rank, under
+    the current topology, which is frozen while windows exist.  Across
+    processes an SPMD call (every process creates the window); gossip that
+    raced ahead of it is replayed in arrival order.  Returns False if the
+    name is taken."""
     from bluefog_tpu_torch import basics
-    if basics.process_ranks() is not None:
-        raise NotImplementedError(
-            "windows across processes need the window transport (ROADMAP "
-            "Queue 1, item 17b: ops/transport.py, winsvc.cc, _Distrib, the "
-            "owned layout and window compression); they run in one process "
-            "only so far")
+    comm = basics.process_ranks()
+    if comm is not None and comm.nprocs > 1 and _store.distrib is None:
+        raise RuntimeError(
+            "window ops across processes need the window transport, which "
+            "bf.init_distributed() starts: without it each process would "
+            "gossip with a private copy")
     if config.get().async_mode:
         raise NotImplementedError(
             "BLUEFOG_TPU_ASYNC=1 (the barrier-free async window mode: the "
@@ -319,31 +1139,59 @@ def win_create(tensor, name: str, zero_init: bool = False) -> bool:
             "lockstep window ops")
     n, in_nbrs, out_nbrs = _neighbors_from_topology()
     t = _device_tensor(tensor, f"win_create({name!r})")
-    if t.dim() == 0 or t.shape[0] != n:
+    owned = _owned_ranks(n)
+    rows = t.shape[0] if t.dim() else None
+    if rows == n:
+        layout = "rank"
+    elif _store.distrib is not None and rows == len(owned):
+        layout = "owned"
+    else:
         raise ValueError(
-            f"win_create({name!r}): leading dim "
-            f"{t.shape[0] if t.dim() else None} is not the world size {n} "
-            "(rank-major; the owned layout comes with item 17b)")
+            f"win_create({name!r}): leading dim {rows} is neither the world "
+            f"size ({n}, rank-major) nor this process's owned-rank count "
+            f"({len(owned)}, owned layout)")
+    d = _store.distrib
     with _store.lock:
         if name in _store.windows:
             return False
         with _stream(t.device):
-            _store.windows[name] = _Window(name, t, in_nbrs, out_nbrs,
-                                           zero_init)
+            win = _store.windows[name] = _Window(
+                name, t, in_nbrs, out_nbrs, zero_init, owned, layout)
+            if d is not None:
+                for msg in d.parked.pop(name, []):
+                    try:
+                        _apply_inbound(*msg)
+                    except Exception:  # noqa: BLE001 — isolate per message
+                        # A straggler of an earlier window of this name
+                        # (freed while its gossip was in flight).
+                        _log.exception("window %r: a parked message could "
+                                       "not be applied; dropped", name)
+    if d is not None and win.dtype == torch.float32:
+        # The native drain folds float32 rows; other dtypes arrive raw.
+        d.transport.register_window(name, int(np.prod(win.shape,
+                                                       dtype=np.int64)))
     return True
 
 
 def win_free(name: Optional[str] = None) -> bool:
     """Free one window (all with ``name=None``); False if there is none of
-    that name."""
-    with _store.lock:
-        if name is None:
-            _store.windows.clear()
-        elif name in _store.windows:
-            del _store.windows[name]
-        else:
-            return False
-    return True
+    that name.  Its sparse residuals go with it."""
+    d = _store.distrib
+    try:
+        with _store.lock:
+            if name is None:
+                names = list(_store.windows)
+            elif name in _store.windows:
+                names = [name]
+            else:
+                return False
+            for nm in names:
+                if d is not None:
+                    d.transport.unregister_window(nm)
+                del _store.windows[nm]
+        return True
+    finally:
+        _drop_ef_residuals(name)
 
 
 def get_current_created_window_names() -> List[str]:
@@ -367,10 +1215,19 @@ def _validate_edges(edges: Dict[tuple, float], nbrs_of: List[List[int]],
                 "window's topology")
 
 
+def _expected_rows(win: _Window) -> int:
+    return win.n if win.layout == "rank" else len(win.owned)
+
+
 def _validate_payload(win: _Window, t: torch.Tensor, op: str) -> None:
-    if t.dim() == 0 or t.shape[0] != win.n:
-        raise ValueError(f"{op}({win.name!r}): leading dim != {win.n} — "
-                         "this window uses the rank-major layout")
+    want = _expected_rows(win)
+    if t.dim() == 0 or t.shape[0] != want:
+        kind = ("rank-major (world size)" if win.layout == "rank"
+                else "owned-rows (this process's owned-rank count)")
+        raise ValueError(
+            f"{op}({win.name!r}): leading dim "
+            f"{t.shape[0] if t.dim() else None} != {want} — this window "
+            f"uses the {kind} layout")
 
 
 def _validate_self_weight(win: _Window, self_weight) -> None:
@@ -381,7 +1238,7 @@ def _validate_self_weight(win: _Window, self_weight) -> None:
     if sw.ndim and sw.shape != (win.n,):
         raise ValueError(
             f"self_weight vector must have shape ({win.n},) — one entry "
-            f"per rank — got {sw.shape}")
+            f"per global rank — got {sw.shape}")
 
 
 def _do_put(name: str, tensor: torch.Tensor, edges: Dict[tuple, float],
@@ -390,18 +1247,66 @@ def _do_put(name: str, tensor: torch.Tensor, edges: Dict[tuple, float],
         win = _store.get(name)
     except KeyError:
         return  # window freed after dispatch: the put becomes a no-op
-    for (src, dst), w in edges.items():
-        _do_put_edge(win, tensor, src, dst, w, accumulate, require_mutex)
+    d = _store.distrib
+    remote_procs = ({d.rank_owner[dst] for (src, dst) in edges
+                     if _owns(src) and not _owns(dst)}
+                    if d is not None else set())
+    # An error token scoped to the peers this op addresses, taken before
+    # any enqueue: failures on other peers never fail this op.
+    tok = (d.transport.error_token({d.proc_addr[p] for p in remote_procs})
+           if remote_procs else None)
+    op = OP_ACCUMULATE if accumulate else OP_PUT
+    with (win.put_stage_lock if remote_procs else contextlib.nullcontext()):
+        staged: dict = {}
+        wire_s = 0.0
+        for (src, dst), w in edges.items():
+            if not _owns(src):
+                continue  # src's owner performs this edge
+            if _owns(dst):
+                _do_put_edge(win, tensor, win.row_of[src], src, dst, w,
+                             accumulate, require_mutex)
+            else:
+                wire_s += _send_put_edge(win, name, tensor[win.row_of[src]],
+                                         src, dst, w, op, require_mutex,
+                                         staged)
+        # Op boundary: every remote edge is handed to TCP (its errors
+        # raised on this op's future) before the op completes.
+        if remote_procs:
+            t0 = time.perf_counter()
+            _flush_transport(remote_procs, since=tok)
+            stats.add(wire_s=wire_s + time.perf_counter() - t0)
     if self_weight is not None:
         _publish_self(win, tensor, self_weight)
 
 
-def _do_put_edge(win: _Window, tensor: torch.Tensor, src: int, dst: int,
-                 w: float, accumulate: bool, require_mutex: bool) -> None:
-    """One (src, dst) edge of a put or accumulate: ``w * tensor[src]`` in
-    the window's dtype (a float32 multiply by ``w`` for a float32 payload,
-    as numpy's)."""
-    payload = (tensor[src] * w).to(win.dtype)
+def _send_put_edge(win: _Window, name: str, row: torch.Tensor, src: int,
+                   dst: int, w: float, op: int, require_mutex: bool,
+                   staged: dict) -> float:
+    """A remote edge: the raw row (in the window's dtype) and its weight go
+    to ``dst``'s owner, whose drain scales and applies it;
+    ``require_mutex`` takes the distributed mutex around the send.
+    Returns the seconds of the send and, with the mutex, of its release's
+    flush (the grant's wait left out)."""
+    with win.lock:
+        p_w = w * float(win.p_main[src]) \
+            if _store.associated_p_enabled else 0.0
+    wire_op, payload = _encode_row(win, op, src, dst, row.to(win.dtype),
+                                   "put", staged)
+    t0 = time.perf_counter()
+    # With the mutex, the release's flush hands this row to TCP.
+    with (_remote_mutex(name, dst, src) if require_mutex
+          else contextlib.nullcontext(0.0)) as waited:
+        _send_to_rank_owner(dst, wire_op, name, src, dst, w, p_w, payload)
+    return time.perf_counter() - t0 - waited
+
+
+def _do_put_edge(win: _Window, tensor: torch.Tensor, row: int, src: int,
+                 dst: int, w: float, accumulate: bool,
+                 require_mutex: bool) -> None:
+    """One local (src, dst) edge of a put or accumulate: ``w *
+    tensor[row]`` in the window's dtype (a float32 multiply by ``w`` for a
+    float32 payload, as numpy's)."""
+    payload = (tensor[row] * w).to(win.dtype)
     mutex = win.mutexes[dst] if require_mutex else None
     if mutex:
         mutex.acquire()
@@ -427,16 +1332,16 @@ def _do_put_edge(win: _Window, tensor: torch.Tensor, src: int, dst: int,
 def _publish_self(win: _Window, tensor: torch.Tensor, self_weight) -> None:
     """Self-scaling after the edge sends, so that the sends carry the
     pre-scaled P mass (column-stochastic conservation: self_weight plus
-    the dst weights is 1 on p_old).  The JAX package multiplies the row by
-    a float64 weight, which numpy does in float64 before the cast to the
-    window's dtype; so does this, except for a weight of 1.0, which is
-    exact either way."""
+    the dst weights is 1 on p_old).  Owned rows only.  The JAX package
+    multiplies the row by a float64 weight, which numpy does in float64
+    before the cast to the window's dtype; so does this, except for a
+    weight of 1.0, which is exact either way."""
     sw = np.asarray(self_weight, dtype=float)
     with win.lock:
         sw_vec = sw if sw.ndim else np.full(win.n, float(sw))
         for r in win.owned:
             s = float(sw_vec[r])
-            row = tensor[r]
+            row = tensor[win.row_of[r]]
             if s == 1.0:
                 win.main[r] = row.to(win.dtype, copy=True)
             else:
@@ -469,7 +1374,7 @@ def win_put_nonblocking(tensor, name: str, *, self_weight=None,
     ``dst_weights``: None (every out-edge, weight 1), a ``{(src, dst): w}``
     or ``{dst: w}`` dict, or an ``(n, n)`` matrix ``W[src, dst]``.
     ``self_weight`` — a scalar or a per-rank ``(n,)`` vector — rescales
-    each rank's exposed memory to ``self_weight * tensor`` after the
+    each owned rank's exposed memory to ``self_weight * tensor`` after the
     sends.  With associated-P on, pass ``dst_weights`` and ``self_weight``
     that sum to 1 per source (push-sum)."""
     return _put_nonblocking(tensor, name, self_weight, dst_weights,
@@ -506,7 +1411,14 @@ def _do_get(name: str, edges: Dict[tuple, float], require_mutex: bool) -> None:
         win = _store.get(name)
     except KeyError:
         return  # window freed after dispatch: the get becomes a no-op
+    d = _store.distrib
+    remote = []
     for (dst, src), w in edges.items():
+        if not _owns(dst):
+            continue  # dst's owner performs this edge
+        if not _owns(src):
+            remote.append((dst, src, w))
+            continue
         mutex = win.mutexes[src] if require_mutex else None
         if mutex:
             mutex.acquire()
@@ -521,6 +1433,30 @@ def _do_get(name: str, edges: Dict[tuple, float], require_mutex: bool) -> None:
         finally:
             if mutex:
                 mutex.release()
+    if not remote:
+        return
+    # One-sided pull: request each remote row, then wait for the replies.
+    req_procs = {d.rank_owner[src] for (_, src, _) in remote}
+    tok = d.transport.error_token({d.proc_addr[p] for p in req_procs})
+    with d.cv:
+        for (dst, src, w) in remote:
+            key = (name, dst, src)
+            d.pending_gets[key] = d.pending_gets.get(key, 0) + 1
+    for (dst, src, w) in remote:
+        _send_to_rank_owner(src, OP_GET_REQ, name, src, dst, w)
+    _flush_transport(req_procs, since=tok)
+    keys = [(name, dst, src) for (dst, src, _) in remote]
+    with d.cv:
+        ok = d.cv.wait_for(
+            lambda: all(d.pending_gets.get(k, 0) <= 0 for k in keys),
+            timeout=_timeout())
+        for k in keys:
+            d.pending_gets.pop(k, None)
+    if not ok:
+        raise ConnectionError(
+            f"win_get({name!r}): no reply from remote rank(s) "
+            f"{sorted({s for (_, s, _) in remote})} within "
+            f"{_timeout():.0f}s")
 
 
 def win_get_nonblocking(name: str, *, src_weights=None,
@@ -548,8 +1484,8 @@ def win_get(name: str, *, src_weights=None,
 # ---------------------------------------------------------------------------
 
 def _default_update_weights(win: _Window):
-    """The topology's combine weights: its edge weights when the topology
-    is weighted, else uniform ``1/(indeg+1)``."""
+    """The topology's combine weights, owned edges only: its edge weights
+    when the topology is weighted, else uniform ``1/(indeg+1)``."""
     from bluefog_tpu_torch import basics
     from bluefog_tpu_torch import topology as topology_util
     if basics.is_topo_weighted():
@@ -565,6 +1501,18 @@ def _default_update_weights(win: _Window):
     return self_w, nbr_w
 
 
+def _caller_rows(win: _Window, rows: List[torch.Tensor]) -> torch.Tensor:
+    """The owned ranks' rows in the window's layout: stacked (owned), or
+    rank-major with zeros in the rows of other processes' ranks."""
+    if win.layout == "owned" or len(win.owned) == win.n:
+        return torch.stack(rows)
+    out = torch.zeros((win.n,) + win.shape, dtype=win.dtype,
+                      device=win.device)
+    for r, row in zip(win.owned, rows):
+        out[r] = row
+    return out
+
+
 def win_update(name: str, *, self_weight=None, neighbor_weights=None,
                reset_weights: bool = False,
                require_mutex: bool = False) -> torch.Tensor:
@@ -572,21 +1520,24 @@ def win_update(name: str, *, self_weight=None, neighbor_weights=None,
     ``out_i = sw_i * main_i + sum_src w[i, src] * staging[i, src]``, in
     ``in_nbrs`` order (``acc = sw * main``, then ``acc += w * staging``
     an edge at a time, as the JAX package's numpy, so float32 results
-    agree bit for bit).  Writes the result to self memory and returns it,
-    rank-major ``(n, ...)``.  ``reset_weights`` empties the consumed
-    staging buffers.  An edge left out of an explicit partial
+    agree bit for bit).  Writes the result to self memory and returns it
+    in the window's layout (rank-major: zeros in the rows of ranks another
+    process owns, which their owners combine).  ``reset_weights`` empties
+    the consumed staging buffers.  An edge left out of an explicit partial
     ``neighbor_weights`` is not consumed: its staging, P and version
     counter stay pending.
 
     Locking: ``win.lock`` is held to snapshot the inputs, to swap the
     results back and, without ``reset_weights``, for one edge's multiply
-    at a time.  With ``reset_weights`` the staging buffers are moved out
-    at the snapshot (fresh zeros swap in): a put landing mid-combine goes
-    into the fresh buffer and waits for the next update.  A self-publish
+    at a time (the drain thread is never held behind the whole combine).
+    With ``reset_weights`` the staging buffers are moved out at the
+    snapshot (fresh zeros swap in): a put landing mid-combine goes into
+    the fresh buffer and waits for the next update.  A self-publish
     landing mid-combine (``main_versions`` moved) serializes after the
     update: its main stands, and its P factor applies on top of the
     combined P."""
-    return torch.stack(_update_rows(
+    win = _store.get(name)
+    return _caller_rows(win, _update_rows(
         name, self_weight=self_weight, neighbor_weights=neighbor_weights,
         reset_weights=reset_weights, require_mutex=require_mutex))
 
@@ -594,10 +1545,10 @@ def win_update(name: str, *, self_weight=None, neighbor_weights=None,
 def _update_rows(name: str, *, self_weight=None, neighbor_weights=None,
                  reset_weights: bool = False,
                  require_mutex: bool = False) -> List[torch.Tensor]:
-    """:func:`win_update`'s rows, one a rank: the window's new memory
-    itself, not copies, so that a caller that copies them out (the window
-    optimizers) allocates no rank-major tensor.  Read them, never write
-    them."""
+    """:func:`win_update`'s rows, one an owned rank in ``win.owned``
+    order: the window's new memory itself, not copies, so that a caller
+    that copies them out (the window optimizers) allocates no rank-major
+    tensor.  Read them, never write them."""
     win = _store.get(name)
     owned = win.owned
     if (self_weight is None) != (neighbor_weights is None):
@@ -679,7 +1630,7 @@ def _combine(win: _Window, self_w: np.ndarray, nbr_w: Dict[tuple, float],
             acc.add_(tmp)
             p_acc += w * p_stag.get(k, 0.0)
         p_out[dst] = p_acc
-    # -- swap (under lock)
+    # -- swap (under lock; owned ranks only: their owners run the rest)
     with win.lock:
         for dst in owned:
             if win.main_versions[dst] == mver[dst]:
@@ -709,7 +1660,8 @@ def win_update_then_collect(name: str, *,
                             require_mutex: bool = True) -> torch.Tensor:
     """Sum self memory with every received contribution and empty the
     staging buffers: push-sum's collect (``torch/mpi_ops.py:1206-1260``)."""
-    return torch.stack(_collect_rows(name, require_mutex=require_mutex))
+    win = _store.get(name)
+    return _caller_rows(win, _collect_rows(name, require_mutex=require_mutex))
 
 
 def _collect_rows(name: str, *,
@@ -750,8 +1702,11 @@ def win_poll(handle: int) -> bool:
 def win_mutex(name: str, *, for_self: bool = False,
               ranks: Optional[List[int]] = None):
     """Hold the mutexes of ``ranks`` (default: ``rank()``'s out-neighbors,
-    and with ``for_self`` itself), taken in ascending rank order so that
-    no lock cycle forms; ``require_mutex`` writers to them wait."""
+    and with ``for_self`` itself), in ascending rank order everywhere so
+    that no lock cycle forms; ``require_mutex`` writers to them wait.  A
+    rank another process owns is locked through the transport (ACQ,
+    GRANT, REL): its owner holds the rank's lock until our release
+    lands."""
     from bluefog_tpu_torch import basics
     from bluefog_tpu_torch import topology as topology_util
     win = _store.get(name)
@@ -762,21 +1717,28 @@ def win_mutex(name: str, *, for_self: bool = False,
             ranks = list(ranks) + [me]
     with contextlib.ExitStack() as stack:
         for r in sorted(set(ranks)):
-            win.mutexes[r].acquire()
-            stack.callback(win.mutexes[r].release)
+            if _owns(r):
+                win.mutexes[r].acquire()
+                stack.callback(win.mutexes[r].release)
+            else:
+                stack.enter_context(_remote_mutex(name, r, me))
         yield
 
 
 def win_fence(name: Optional[str] = None) -> None:
     """Epoch fence over the one-sided family: on return every window op
-    dispatched so far has run (the first error among them is raised).
-    Across processes it also acks every peer's sends (item 17b)."""
+    this process dispatched has run (the first error among them is
+    raised), every message any process sent before its fence has been
+    applied at its target, and every process has reached the fence.  Our
+    FENCE_REQ trails our puts on each peer's FIFO (every stripe's), so the
+    peer's ack certifies them; the fence ends in ``basics.barrier()``."""
+    from bluefog_tpu_torch import basics
     with _store.lock:
         outstanding = list(_store.handles.items())
     errors = []
     for _, fut in outstanding:
         try:
-            _caller_waits(fut.result(timeout=_MSG_TIMEOUT_SEC))
+            _caller_waits(fut.result(timeout=_timeout()))
         except KeyError:
             pass  # window freed while the op ran (win_wait's reading)
         except Exception as e:  # noqa: BLE001 — raised below
@@ -786,21 +1748,51 @@ def win_fence(name: Optional[str] = None) -> None:
             _store.handles.pop(h, None)
     if errors:
         raise errors[0]
+    d = _store.distrib
+    if d is not None:
+        peers = [p for p in d.proc_addr if p != d.my_proc]
+        with d.cv:
+            d.fence_acks = 0
+        tok = d.transport.error_token()
+        n_str = d.transport.n_stripes
+        w = _fanout_weight(n_str)
+        serial = _fanout_serial(d, n_str)
+        for p in peers:
+            for k in range(n_str):
+                _send_to_proc(p, OP_FENCE_REQ, name or "", d.my_rank, -1,
+                              w, p_weight=serial, stripe=k)
+        _flush_transport(since=tok)
+        with d.cv:
+            ok = d.cv.wait_for(lambda: d.fence_acks >= len(peers),
+                               timeout=_timeout())
+        if not ok:
+            raise ConnectionError(
+                f"win_fence: missing acks ({d.fence_acks}/{len(peers)}) "
+                f"after {_timeout():.0f}s")
+    basics.barrier()
 
 
 def win_flush(wait: bool = True, timeout: Optional[float] = None) -> None:
-    """Push queued window work out now.  Without a transport (one process)
-    there are no send queues: with ``wait`` it drains the outstanding ops
-    (their errors stay for ``win_wait``), without it, it does nothing."""
-    if wait:
-        _drain_handles(_MSG_TIMEOUT_SEC if timeout is None else timeout)
+    """Push queued window work out now.  With ``wait``, the outstanding
+    ops are drained (their errors stay for ``win_wait``) and, across
+    processes, every per-peer send queue is handed to TCP (its errors
+    raised here); without it, the senders are only woken (pacing, not a
+    barrier).  ``timeout`` defaults to ``BLUEFOG_TPU_WIN_TIMEOUT``."""
+    d = _store.distrib
+    if not wait:
+        if d is not None:
+            d.transport.kick()
+        return
+    _drain_handles(_timeout() if timeout is None else timeout)
+    _flush_transport(timeout=timeout)
 
 
 def win_state_dict(name: str) -> Dict[str, object]:
-    """A window's whole state on the CPU, for checkpointing: main, the
-    staging buffers (keys ``"dst:src"``), the version counters and the
-    associated-P scalars.  Serialized against a running ``win_update``.
-    The copy to the host is made here, only when called."""
+    """A window's whole state on the CPU, for checkpointing: the owned
+    ranks' main, the staging buffers (keys ``"dst:src"``), the version
+    counters and the associated-P scalars.  Serialized against a running
+    ``win_update``.  The copy to the host is made here, only when
+    called."""
     win = _store.get(name)
     with win.update_lock, win.lock, _stream(win.device):
         return {
@@ -870,21 +1862,33 @@ def win_load_state_dict(name: str, state: Dict[str, object]) -> None:
 
 def get_win_version(name: str, rank: Optional[int] = None) -> Dict[int, int]:
     """Per-in-neighbor put counts since the last ``win_update`` of
-    ``rank`` (default ``rank()``)."""
+    ``rank`` (default ``rank()``); only owned ranks carry them."""
     from bluefog_tpu_torch import basics
     win = _store.get(name)
     r = basics.rank() if rank is None else rank
+    if r not in win.main_versions:
+        raise ValueError(
+            f"get_win_version({name!r}): rank {r} is owned by another "
+            "process — query its owner")
     with win.lock:
         return {src: int(win.versions[r, src]) for src in win.in_nbrs[r]}
 
 
 def win_associated_p(name: str, rank: Optional[int] = None):
     """The push-sum de-bias scalar of ``rank``, or with ``rank=None`` the
-    ``(n,)`` float64 vector of every rank's."""
+    ``(n,)`` float64 vector of every rank's (1.0, the initial value, for
+    ranks another process owns; asking for one of them alone raises)."""
     win = _store.get(name)
     with win.lock:
         if rank is None:
-            return np.array([win.p_main[r] for r in range(win.n)])
+            p = np.ones(win.n)
+            for r in win.owned:
+                p[r] = win.p_main[r]
+            return p
+        if rank not in win.p_main:
+            raise ValueError(
+                f"win_associated_p({name!r}): rank {rank} is owned by "
+                "another process — query its owner")
         return float(win.p_main[rank])
 
 

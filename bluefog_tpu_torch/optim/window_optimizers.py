@@ -1,7 +1,7 @@
 """Asynchronous one-sided optimizers: win_put, pull-get and push-sum.
 
 The port of ``bluefog_tpu/optim/window_optimizers.py`` (reference
-``torch/optimizers.py:844-1178``), in one process:
+``torch/optimizers.py:844-1178``), in one process or across processes:
 
 - :class:`DistributedWinPutOptimizer`: adapt, ``win_put`` the new
   parameters to the out-neighbors, combine what arrived by ``win_update``;
@@ -12,10 +12,11 @@ The port of ``bluefog_tpu/optim/window_optimizers.py`` (reference
   associated P), ``win_update_then_collect``; :meth:`debias` divides by P.
 
 As ``optim/optimizers.py``: ``base`` is a ``torch.optim.Optimizer`` over
-rank-major parameters (leading dim ``size()``); its ``step()`` is every
-rank's local adapt, and ``step()`` here updates the parameters in place.
-The combine goes through the windows of ``ops/window.py``, on the
-parameters' device.
+rank-major parameters (leading dim ``size()``) or, across processes, over
+the owned ranks' rows (leading dim ``len(owned_ranks())``); its ``step()``
+is every rank's local adapt, and ``step()`` here updates the parameters
+in place.  The combine goes through the windows of ``ops/window.py``, on
+the parameters' device.
 
 Fusion: with ``fuse=True`` (the default) each rank's whole parameter row
 travels through ONE window: a single contiguous rank-major parameter (the
@@ -24,23 +25,33 @@ several are concatenated in ``base``'s order, which must be the JAX tree's
 leaf order.  ``fuse=False`` keeps a window a parameter (the reference's
 per-parameter layout).
 
-``layout`` is ``"auto"`` or ``"rank"``: in one process both are the
-rank-major layout, the only one here.
+``layout`` (``"auto"``, ``"rank"`` or ``"owned"``) is resolved as in the
+JAX package's ``init``: ``auto`` is ``rank`` for a leading dim of the
+world size and ``owned`` for one of the owned ranks across processes.
+Across processes only the owned ranks' rows are combined: in the rank
+layout the other rows keep their previous value (the JAX package's
+``_merge_owned``), and :meth:`gather` all-gathers the owned rows into the
+rank-major view.  The windows' puts complete locally: ``win_update``
+combines what has arrived, so the trajectories across processes are not
+deterministic; push-sum fences every ``auto_collect_rounds`` steps to
+bound the mass in flight.
 
 Left out, each raising an error that names its ROADMAP item: the fused
 step (``fused=True``, or ``fused=None`` under ``BLUEFOG_TPU_FUSED_STEP=1``,
 item 19b; the variable defaults to 0 in the JAX package, whose eager step,
-ported here, is the bitwise oracle) and its fusion buckets, sharded gossip (``shard_specs``, item 16), the
-churn hooks (item 20), windows across processes with the owned layout
-(item 17b) and the async mode (``BLUEFOG_TPU_ASYNC``, item 17c).
+ported here, is the bitwise oracle) and its fusion buckets, sharded gossip
+(``shard_specs``, ``shard_groups``, ``num_shards``: item 16), the churn
+hooks (item 20) and the async mode (``BLUEFOG_TPU_ASYNC``, item 17c).
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from bluefog_tpu_torch import basics
 from bluefog_tpu_torch import topology as topology_util
@@ -64,27 +75,28 @@ class _WindowOptimizerBase:
     def __init__(self, base: torch.optim.Optimizer, *, window_prefix: str,
                  num_steps_per_communication: int = 1, fuse: bool = True,
                  layout: str = "auto", fused=None, fusion_buckets=None,
-                 shard_specs=None):
+                 shard_specs=None, shard_groups=None, num_shards=None):
         if layout not in ("auto", "rank", "owned"):
             raise ValueError(
                 f"layout must be 'auto', 'rank' or 'owned', got {layout!r}")
-        if layout == "owned":
-            _refuse("the owned layout (owned-rows windows across processes)",
-                    "item 17b")
         if fused or (fused is None and config.get().fused_step):
             _refuse("the fused window step (fused=True or "
                     "BLUEFOG_TPU_FUSED_STEP=1)", "item 19b")
         if fusion_buckets is not None:
             _refuse("window fusion buckets (the fused step's per-bucket "
                     "puts)", "item 19b")
-        if shard_specs is not None:
-            _refuse("sharded gossip (shard_specs)", "item 16")
+        for what, value in (("shard_specs", shard_specs),
+                            ("shard_groups", shard_groups),
+                            ("num_shards", num_shards)):
+            if value is not None:
+                _refuse(f"sharded gossip ({what})", "item 16")
         if config.get().churn:
             _refuse("the churn supervisor hooks (BLUEFOG_TPU_CHURN=1)",
                     "item 20")
         if int(num_steps_per_communication) < 1:
             raise ValueError("num_steps_per_communication must be >= 1")
         self.base = base
+        self.layout = layout
         self.window_prefix = window_prefix
         self.num_steps_per_communication = int(num_steps_per_communication)
         self.fuse = bool(fuse)
@@ -111,63 +123,121 @@ class _WindowOptimizerBase:
 
     @torch.no_grad()
     def _rebuild(self, combined: List[List[torch.Tensor]]) -> None:
-        """Write the combined rows (a window's, one a rank: the window's
-        memory, read here only) back into the parameters, the inverse of
-        :meth:`_payloads`, in place, a rank at a time."""
+        """Write the combined rows (a window's, one an owned rank: the
+        window's memory, read here only) back into the parameters, the
+        inverse of :meth:`_payloads`, in place, a rank at a time.  The rows
+        of ranks another process owns keep their previous value (the JAX
+        package's ``_merge_owned``)."""
         ps = self.params
         if not self.fuse:
             for p, rows in zip(ps, combined):
-                for r, row in enumerate(rows):
-                    p[r].copy_(row)
+                for i, row in zip(self._rows_of_owned, rows):
+                    p[i].copy_(row)
             return
         (rows,) = combined
-        for r, row in enumerate(rows):
+        for i, row in zip(self._rows_of_owned, rows):
             off = 0
             for p in ps:
-                size = p[r].numel()
-                p[r].copy_(row[off:off + size].view(p.shape[1:]))
+                size = p[i].numel()
+                p[i].copy_(row[off:off + size].view(p.shape[1:]))
                 off += size
 
     # -- lifecycle ---------------------------------------------------------
     def init(self) -> None:
         """Create the windows from the parameters' current values (the
-        constructor does; again after :meth:`free`)."""
+        constructor does; again after :meth:`free`), resolving the layout
+        as the JAX package's ``init`` does."""
         n = basics.size()
-        for p in self.params:
-            if p.dim() == 0 or p.shape[0] != n:
+        self._owned = W._owned_ranks(n)
+        rows = {p.shape[0] if p.dim() else None for p in self.params}
+        if len(rows) != 1:
+            raise ValueError(
+                f"{type(self).__name__}: parameters must share one leading "
+                f"(row) dim; got {sorted(rows, key=str)}")
+        (rows,) = rows
+        distrib = W._store.distrib is not None
+        if self.layout == "auto":
+            if rows == n:
+                self._layout = "rank"
+            elif distrib and rows == len(self._owned):
+                self._layout = "owned"
+            else:
                 raise ValueError(
-                    f"{type(self).__name__}: parameters must be rank-major "
-                    f"with leading dim {n} (the owned layout comes with item "
-                    f"17b); got shape {tuple(p.shape)}")
+                    f"{type(self).__name__}.init: leading dim {rows} is "
+                    f"neither the world size ({n}, rank-major) nor this "
+                    f"process's owned-rank count ({len(self._owned)}, owned "
+                    "layout)")
+        else:
+            self._layout = self.layout
+            want = n if self._layout == "rank" else len(self._owned)
+            if rows != want:
+                raise ValueError(
+                    f"{type(self).__name__}.init: layout={self._layout!r} "
+                    f"expects leading dim {want}, got {rows}")
+        # The parameter row of each owned rank, in the windows' order.
+        self._rows_of_owned = (self._owned if self._layout == "rank"
+                               else list(range(len(self._owned))))
         payloads = self._payloads()
         if self.fuse:
             self._names = [f"{self.window_prefix}.fused"]
         else:
             self._names = [f"{self.window_prefix}.{i}"
                            for i in range(len(payloads))]
+        # An owned-layout window carries no neighbor rows to seed staging
+        # from: one identity put seeds it instead, as in the JAX package,
+        # fenced so that no first update combines a seed still in flight.
+        zero = self._zero_init or self._layout == "owned"
         for name, payload in zip(self._names, payloads):
-            W.win_create(payload, name, zero_init=self._zero_init)
+            W.win_create(payload, name, zero_init=zero)
+        if self._layout == "owned" and not self._zero_init:
+            for name, payload in zip(self._names, payloads):
+                W.win_put(payload, name)
+            W.win_fence()
 
     def adapt(self) -> None:
         """The local base update alone (every rank at once): the first
         half of :meth:`step`."""
         self.base.step()
 
-    def gather(self):
-        """Every rank's parameters, rank-major: in one process, the
-        parameters themselves."""
-        return self.params
+    @torch.no_grad()
+    def gather(self) -> List[torch.Tensor]:
+        """Every rank's parameters, rank-major (for evaluation): in one
+        process the parameters themselves; across processes the owned
+        rows of every process, all-gathered (through the host when the
+        group is gloo and the rows are on a card: gloo moves CPU tensors).
+        A collective: every process calls it."""
+        if W._store.distrib is None:
+            return self.params
+        comm = basics.process_ranks()
+        out = []
+        for p in self.params:
+            own = p.detach()[self._rows_of_owned].contiguous()
+            host = own.device.type == "cuda" and \
+                dist.get_backend() == "gloo"
+            full = comm.all_gather(own.cpu() if host else own).wait()
+            out.append(full.to(p.device) if host else full)
+        return out
 
     def free(self) -> None:
-        W.win_flush()
+        # Queued sends reach the wire before their windows go; best effort
+        # with a short timeout, so that a dead peer cannot stall teardown.
+        try:
+            W.win_flush(timeout=5.0)
+        except Exception:  # noqa: BLE001 — never abort the teardown
+            logging.getLogger("bluefog_tpu_torch").warning(
+                "window optimizer free(): the transport flush failed; "
+                "continuing the teardown", exc_info=True)
         for name in self._names or []:
             W.win_free(name)
         self._names = None
 
     def _quiesce(self) -> None:
-        """Complete every window op in flight, so that a snapshot misses
-        no gossip mass."""
+        """Complete every window op in flight and, across processes, fence
+        the transport, so that a snapshot misses no gossip mass (a
+        collective across processes: ``win_fence`` ends in a barrier)."""
         W.win_flush()
+        if W._store.distrib is not None:
+            W.win_fence()
 
     def _require_windows(self, what: str) -> List[str]:
         if not self._names:
@@ -224,14 +294,16 @@ class DistributedWinPutOptimizer(_WindowOptimizerBase):
     def __init__(self, base, *, window_prefix: str = "winput",
                  num_steps_per_communication: int = 1, fuse: bool = True,
                  overlap: bool = False, layout: str = "auto", fused=None,
-                 fusion_buckets=None, shard_specs=None):
+                 fusion_buckets=None, shard_specs=None, shard_groups=None,
+                 num_shards=None):
         self.overlap = bool(overlap)
         self._pending: List[int] = []
         super().__init__(base, window_prefix=window_prefix,
                          num_steps_per_communication=num_steps_per_communication,
                          fuse=fuse, layout=layout, fused=fused,
                          fusion_buckets=fusion_buckets,
-                         shard_specs=shard_specs)
+                         shard_specs=shard_specs, shard_groups=shard_groups,
+                         num_shards=num_shards)
 
     def step(self, *, dst_weights=None, require_mutex: bool = True) -> None:
         self.adapt()
@@ -250,6 +322,10 @@ class DistributedWinPutOptimizer(_WindowOptimizerBase):
                                              require_mutex=require_mutex)
                        for name, p in zip(self._names, payloads)]
             if self.overlap:
+                # Wake the senders now: the queued gossip rides the wire
+                # during the next forward and backward, not after the
+                # linger.
+                W.win_flush(wait=False)
                 self._pending = handles
             else:
                 for h in handles:
@@ -316,14 +392,23 @@ class DistributedPushSumOptimizer(_WindowOptimizerBase):
     and its out-neighbors), ``win_update_then_collect``; the associated P
     tracks the accumulated weight, so :meth:`debias` recovers the
     unbiased iterates.  Gradients should be taken at the de-biased
-    parameters."""
+    parameters.
+
+    Across processes the step's accumulates complete locally and the
+    collect folds what has arrived; every ``auto_collect_rounds`` steps
+    (0: never) the step fences the transport first, so that no process
+    runs more than that many rounds ahead of a stalled peer and the share
+    of a rank's P mass in flight stays bounded (the fence is a barrier:
+    every process steps as often)."""
 
     _zero_init = True
 
     def __init__(self, base, *, window_prefix: str = "pushsum",
                  num_steps_per_communication: int = 1, fuse: bool = True,
-                 layout: str = "auto", fused=None, fusion_buckets=None):
+                 layout: str = "auto", auto_collect_rounds: int = 8,
+                 fused=None, fusion_buckets=None):
         W.turn_on_win_ops_with_associated_p()
+        self.auto_collect_rounds = int(auto_collect_rounds)
         super().__init__(base, window_prefix=window_prefix,
                          num_steps_per_communication=num_steps_per_communication,
                          fuse=fuse, layout=layout, fused=fused,
@@ -359,6 +444,9 @@ class DistributedPushSumOptimizer(_WindowOptimizerBase):
                 require_mutex=require_mutex)
                 for name, p in zip(self._names, self._payloads())]:
             W.win_wait(h)
+        if (self.auto_collect_rounds > 0 and W._store.distrib is not None
+                and (self.step_count + 1) % self.auto_collect_rounds == 0):
+            W.win_fence()
         self._rebuild([W._collect_rows(name, require_mutex=require_mutex)
                        for name in self._names])
         self.step_count += 1
@@ -372,16 +460,32 @@ class DistributedPushSumOptimizer(_WindowOptimizerBase):
                        for name in self._names])
 
     def associated_p(self) -> np.ndarray:
-        """The ``(n,)`` push-sum weights (the same in every window)."""
+        """The ``(n,)`` push-sum weights (the same in every window; 1.0 for
+        ranks another process owns)."""
         return W.win_associated_p(self._names[0])
 
     def debias(self, params=None, *, p_min: float = 1e-3
                ) -> List[torch.Tensor]:
-        """Each rank's row of ``params`` (default: the parameters) divided
-        by its associated P, floored at ``p_min`` (a rank whose mass is
-        almost all in flight would divide by ~0); new tensors, in the
-        parameters' order."""
-        p = np.maximum(self.associated_p(), p_min)
+        """Each owned rank's row of ``params`` (default: the parameters)
+        divided by its associated P, floored at ``p_min`` (a rank whose
+        mass is almost all in flight would divide by ~0; a warning names
+        the clipped ranks); new tensors, in the parameters' order.  In the
+        rank layout across processes, the rows of other processes' ranks
+        are divided by 1.0."""
+        raw = np.asarray(self.associated_p())
+        rank_of_row = np.arange(raw.shape[0])
+        if self._layout == "owned":
+            rank_of_row = np.asarray(self._owned, dtype=np.int64)
+            raw = raw[rank_of_row]
+        p = np.maximum(raw, p_min)
+        clipped = np.nonzero(raw < p_min)[0]
+        if clipped.size:
+            logging.getLogger("bluefog_tpu_torch").warning(
+                "push-sum debias: associated-P below p_min=%g for rank(s) "
+                "%s: most of their mass is in flight; the de-biased "
+                "estimate is clipped (finite but biased); bound the "
+                "staleness with collect()", p_min,
+                rank_of_row[clipped].tolist())
         out = []
         for t in (self.params if params is None else params):
             shape = (-1,) + (1,) * (t.dim() - 1)

@@ -3,14 +3,30 @@
 A subset of ``bluefog_tpu/utils/config.py``: the same variable names,
 defaults and validation, for the knobs of the ported paths.  Values are
 read on first access and cached; call :func:`reload` after changing
-``os.environ``.  The rest of the JAX package's inventory (telemetry,
-transport, placement, tuner, ...) comes with ROADMAP item 21, which folds
+``os.environ``, or scope a change with :func:`override` (which leaves
+``os.environ`` alone).  The rest of the JAX package's inventory
+(telemetry, placement, tuner, ...) comes with ROADMAP item 21, which folds
 this module into the ported config; until then the tuner's overrides are
 the identity they are with ``BLUEFOG_TPU_TUNE=0``, the JAX package's
-default.
+default, and ``BLUEFOG_TPU_WIN_STRIPES=auto`` is 1, what the JAX package's
+static oracle gives without a placement model (item 16).
 
 | Variable | Default | Meaning |
 |---|---|---|
+| BLUEFOG_TPU_WIN_PORT          | 0     | window-service port (0=ephemeral) |
+| BLUEFOG_TPU_WIN_MAX_PENDING   | 4096  | inbound window-message queue bound |
+| BLUEFOG_TPU_WIN_COMPRESSION   | none  | cross-process window payloads: none / bf16 / sparse:<frac> (top-|magnitude| with sender error feedback, accumulates only) |
+| BLUEFOG_TPU_WIN_COALESCE      | 1     | 0: one native send a message, no per-peer queues |
+| BLUEFOG_TPU_WIN_COALESCE_LINGER_MS | 1.0 | sender-worker linger before flushing a partial batch |
+| BLUEFOG_TPU_WIN_COALESCE_BYTES | 1 MiB | queued bytes that force an immediate batch flush |
+| BLUEFOG_TPU_WIN_TX_QUEUE      | 1024  | per-peer outbound queue bound (messages); full blocks the producer |
+| BLUEFOG_TPU_WIN_NATIVE        | 1     | 0: the transport's hot loop (queues, batch encode, drain decode and fold) in Python |
+| BLUEFOG_TPU_WIN_STRIPES       | auto  | sockets and sender workers a peer, frames sharded by (window, row); auto = 1 |
+| BLUEFOG_TPU_WIN_DECODE_THREADS | auto | native drain's decode pool (0 = inline); auto = min(4, cores - 1), at least 1 |
+| BLUEFOG_TPU_WIN_RETRIES       | 1     | transient-send retries before ConnectionError |
+| BLUEFOG_TPU_WIN_RETRY_BACKOFF_MS | 50 | base of the jittered exponential retry backoff |
+| BLUEFOG_TPU_WIN_TIMEOUT       | 300   | seconds a window op waits for a peer (fence acks, get replies, mutex grants, flushes) |
+| BLUEFOG_TPU_TRACE_SAMPLE      | 0     | wire trace tags (not ported: item 21; refused when set) |
 | BLUEFOG_TPU_FUSED_STEP        | 0     | whole-step compilation of the window optimizers (not ported: item 19b) |
 | BLUEFOG_TPU_ASYNC             | 0     | barrier-free async window mode (not ported: item 17c) |
 | BLUEFOG_TPU_CHURN             | 0     | churn supervisor hooks of the window optimizers (not ported: item 20) |
@@ -24,11 +40,13 @@ default.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import os
 from dataclasses import dataclass
 from typing import Optional
 
-__all__ = ["Config", "get", "reload", "parse_sparse_frac",
+__all__ = ["Config", "get", "reload", "override", "parse_sparse_frac",
            "COMPRESSION_VOCAB"]
 
 COMPRESSION_VOCAB = ("none", "bf16", "sparse:<frac>")
@@ -67,8 +85,38 @@ def _flag(name: str, default: bool = False) -> bool:
                                                              "True", "yes")
 
 
+def _int_or_auto(name: str, floor: int = 0) -> int:
+    """An integer knob with an ``auto`` sentinel: unset or ``auto`` is -1
+    (the consumer derives the value); anything else is an integer >=
+    ``floor``."""
+    raw = os.environ.get(name, "auto").strip().lower()
+    if raw in ("", "auto"):
+        return -1
+    try:
+        v = int(raw)
+    except ValueError:
+        raise ValueError(f"{name}={raw!r} is not an integer or 'auto'") \
+            from None
+    if v < floor:
+        raise ValueError(f"{name}={v} must be >= {floor} (or 'auto')")
+    return v
+
+
 @dataclass(frozen=True)
 class Config:
+    win_port: int
+    win_max_pending: int
+    win_compression: str
+    win_coalesce: bool
+    win_coalesce_linger_ms: float
+    win_coalesce_bytes: int
+    win_tx_queue: int
+    win_native: bool
+    win_stripes: int
+    win_decode_threads: int
+    win_retries: int
+    win_retry_backoff_ms: float
+    win_timeout: float
     fused_step: bool
     async_mode: bool
     churn: bool
@@ -82,7 +130,32 @@ class Config:
     @classmethod
     def from_env(cls) -> "Config":
         env = os.environ
+        if env.get("BLUEFOG_TPU_TRACE_SAMPLE", "").strip() not in (
+                "", "0", "off"):
+            raise NotImplementedError(
+                "BLUEFOG_TPU_TRACE_SAMPLE (wire trace tags) is not ported "
+                "yet (ROADMAP Queue 1, item 21: tracing); unset it")
         return cls(
+            win_port=int(env.get("BLUEFOG_TPU_WIN_PORT", "0")),
+            win_max_pending=int(env.get("BLUEFOG_TPU_WIN_MAX_PENDING",
+                                        "4096")),
+            win_compression=_validated_compression(
+                env.get("BLUEFOG_TPU_WIN_COMPRESSION", "none").lower(),
+                "BLUEFOG_TPU_WIN_COMPRESSION"),
+            win_coalesce=_flag("BLUEFOG_TPU_WIN_COALESCE", default=True),
+            win_coalesce_linger_ms=float(env.get(
+                "BLUEFOG_TPU_WIN_COALESCE_LINGER_MS", "1.0")),
+            win_coalesce_bytes=int(env.get("BLUEFOG_TPU_WIN_COALESCE_BYTES",
+                                           str(1 << 20))),
+            win_tx_queue=int(env.get("BLUEFOG_TPU_WIN_TX_QUEUE", "1024")),
+            win_native=_flag("BLUEFOG_TPU_WIN_NATIVE", default=True),
+            win_stripes=_int_or_auto("BLUEFOG_TPU_WIN_STRIPES", floor=1),
+            win_decode_threads=_int_or_auto(
+                "BLUEFOG_TPU_WIN_DECODE_THREADS", floor=0),
+            win_retries=int(env.get("BLUEFOG_TPU_WIN_RETRIES", "1")),
+            win_retry_backoff_ms=float(env.get(
+                "BLUEFOG_TPU_WIN_RETRY_BACKOFF_MS", "50")),
+            win_timeout=float(env.get("BLUEFOG_TPU_WIN_TIMEOUT", "300")),
             fused_step=_flag("BLUEFOG_TPU_FUSED_STEP"),
             async_mode=_flag("BLUEFOG_TPU_ASYNC"),
             churn=_flag("BLUEFOG_TPU_CHURN"),
@@ -113,3 +186,17 @@ def reload() -> Config:
     global _cfg
     _cfg = None
     return get()
+
+
+@contextlib.contextmanager
+def override(**fields):
+    """The config with ``fields`` replaced, for the enclosed block (the
+    benchmark's ``--compression`` of the window codec); ``os.environ`` is
+    not touched, and the previous config comes back on exit."""
+    global _cfg
+    prev = get()
+    _cfg = dataclasses.replace(prev, **fields)
+    try:
+        yield _cfg
+    finally:
+        _cfg = prev

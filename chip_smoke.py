@@ -216,15 +216,38 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    thread, on a (4, 2^24) float32 tensor under ExponentialGraph(4): the
    card against the CPU bit for bit; ``win_update``'s time beside its
    bound.
-35. ``resnet50_win_put`` — the ResNet-50 phase under ``--dist-optimizer
+35. ``native_build``, ``win_dist_ops`` — the window transport's native
+   service built with g++ (``bluefog_tpu_torch/native``); then
+   ``win_ops``' sequence across 2 processes of 2 ranks, both on card 0
+   (``BFTPU_*`` rendezvous, gloo for the control, every remote row over
+   the window transport's loopback socket; this script relaunched with
+   ``--worker``), in the owned layout with a fence after each op, through
+   the native and the Python transport paths: every owned row (by its
+   sha256), counter and P scalar bit for bit the one-process card run;
+   under bf16 window compression within ``WIN_DIST_BF16_TOL``; the bytes
+   that crossed the socket, the wire, card-to-host and host-to-card ms and
+   GB/s, beside what one pinned copy of 1 GiB each way and one loopback
+   socket reach on this machine (the path's bounds).
+36. ``resnet50_win_put`` — the ResNet-50 phase under ``--dist-optimizer
    win_put`` (batch 64, 4 ranks, 1 warmup + 2 timed steps), with the
    window combine's time beside its bound.
-36. ``{"kernels": [...]}`` (launches from the ``train``, ``llama_train``,
+37. ``win_dist_train`` — across the same 2 x 2: the benchmark's win_put
+   LM at full width cut to ``WIN_DIST_LAYERS`` = 4 blocks (at 10, a step
+   took 25 s: the phase's time; owned layout), 1 warmup + 2 timed steps:
+   finite losses, K1-K3 launches layers x 2 ranks x 3 steps a process,
+   the combine shrinks the world's spread; step ms, tokens/s, the window
+   a step split into staging out, wire, the remote mutex's waits and
+   commit, the bytes crossing a step, peak memory a process, and the
+   device idle share of one more step profiled in process 0; ResNet-50
+   under win_put (batch 64, 102 MB rows); pull-get and push-sum at 2
+   blocks, 2 steps each (pull-get shrinks the rms spread each step,
+   push-sum's P sums to 4 after ``collect``).
+38. ``{"kernels": [...]}`` (launches from the ``train``, ``llama_train``,
    ``moe_train``, ``ring_train``, ``ulysses_train``, ``dp_sp_train``,
    ``tp_train``, ``pp_train``, ``pp_variants``, ``hier_train``,
-   ``winput_train`` and ``win_variants`` phases, each path's beside), then
-   the ``nvidia-smi`` line, then the last line ``{"ok": true, "device":
-   {...}}``.
+   ``winput_train``, ``win_variants`` and ``win_dist_train`` phases, each
+   path's beside), then the ``nvidia-smi`` line, then the last line
+   ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a GPU or outside the repository.
 """
@@ -275,10 +298,19 @@ TWIN_SCORES_BYTES = 1 << 32  # the plain twins' f32 scores, at most, a call
 SOURCE = "bluefog_tpu_torch/csrc/flash_attention.cu"
 HIER_LAYERS = 24             # hier_train: full depth
 WINPUT_LAYERS = 10           # winput_train: the windows' 25 rows a step fit
+WIN_DIST_LAYERS = 4          # win_dist_train: the depth its time allows
 WIN_VARIANT_LAYERS = 2       # win_variants: pull-get, push-sum, overlap
 WIN_OPS_COLS = 1 << 24       # win_ops and the hierarchical card-vs-CPU check
 WIN_CHECK_COLS = 1 << 22     # winput_train's float64 recheck: column sample
 WIN_TOL = 1e-6               # window combine vs float64: ||err|| / ||ref||
+WIN_DIST_PROCS = 2           # win_dist_*: processes, all on card 0 (NCCL
+WIN_DIST_PER = 2             # refuses two ranks on one card): the world of
+                             # 4 ranks, 2 a process, gloo for the control
+WIN_DIST_VARIANT_LAYERS = 2  # win_dist_train's pull-get and push-sum,
+WIN_DIST_VARIANT_STEPS = 2   # 2 steps each
+WIN_DIST_BF16_TOL = 1e-2     # bf16 window compression vs exact: rtol, atol
+WIN_DIST_TIMEOUT = 600       # seconds a worker group may take
+BOUND_BYTES = 1 << 30        # path_bounds: one copy of 1 GiB a leg
 LM_WIDTHS = {"width": 2048, "heads": 16, "seq": 2048, "vocab": 32000}
 DEVICE = "cuda"              # the new phases' device ("cpu" to rehearse)
 KERNELS = {
@@ -2144,53 +2176,88 @@ def win_variants_phase(benchmark, steps=3):
     return launches
 
 
-def window_ops(dev):
-    """The window ops on a (4, 2^24) float32 tensor under
-    ExponentialGraph(4) on ``dev``: every result, counter and P scalar."""
+def window_sequence(bf, x, own, layout):
+    """The window ops on ``x``, the rank-major ``(4, WIN_OPS_COLS)``
+    float32 tensor on the windows' device, under ExponentialGraph(4), each
+    followed by a fence (and a local read that a later remote write must
+    not overtake by a barrier): the owned ranks' rows of every result,
+    their counters and P scalars.  ``layout``: the windows take the
+    rank-major tensor or the owned rows."""
     import threading
 
+    rows = own if layout == "owned" else list(range(4))
+
+    def t(a):
+        return a[rows] if layout == "owned" else a
+
+    def mine(out):
+        return out if layout == "owned" else out[own]
+    ring = {(r, (r + 1) % 4): 0.3 + 0.1 * r for r in range(4)}
+    skip = {(r, (r + 2) % 4): 0.35 for r in range(4)}
+    out = {}
+    bf.turn_on_win_ops_with_associated_p()
+    bf.win_create(t(x), "w", zero_init=True)
+    bf.win_put(t(1.5 * x), "w", dst_weights=ring)        # partial dsts
+    bf.win_fence()
+    out["versions_put"] = [bf.get_win_version("w", r) for r in own]
+    bf.barrier()
+    bf.win_accumulate(t(x), "w", self_weight=0.45, dst_weights=skip)
+    bf.win_fence()
+    bf.win_get("w", src_weights={(r, (r - 1) % 4): 0.6 for r in range(4)})
+    bf.win_fence()
+    # Partial weights: the (r, r - 2) edges stay pending.
+    out["update_partial"] = mine(bf.win_update(
+        "w", self_weight=0.3, neighbor_weights={
+            (r, (r - 1) % 4): 0.7 for r in range(4)}, reset_weights=True))
+    out["versions_pending"] = [bf.get_win_version("w", r) for r in own]
+    bf.win_fence()
+    out["collect"] = mine(bf.win_update_then_collect("w"))
+    out["p"] = [float(bf.win_associated_p("w", r)) for r in own]
+    bf.turn_off_win_ops_with_associated_p()
+    bf.win_fence()
+    snap = bf.win_state_dict("w")
+    bf.barrier()
+    bf.win_put(t(x), "w")
+    bf.win_fence()
+    bf.win_load_state_dict("w", snap)
+    bf.win_fence()
+    bf.win_accumulate(t(0.5 * x), "w")
+    bf.win_fence()
+    out["after_restore"] = mine(bf.win_update("w"))
+    bf.win_fence()
+    # Mutex from two threads: a require_mutex put waits for its release
+    # (across processes, ranks 1 and 2 sit in different processes, and the
+    # put's edges into them wait on the remote mutex).
+    done = threading.Event()
+    with bf.win_mutex("w", ranks=[1, 2]):
+        th = threading.Thread(target=lambda: (
+            bf.win_put(t(x), "w", require_mutex=True), done.set()))
+        th.start()
+        time.sleep(0.2)
+        out["blocked_while_held"] = not done.is_set()
+    th.join(timeout=60)
+    out["ran_after_release"] = done.is_set()
+    bf.win_fence()
+    out["after_mutex_put"] = mine(bf.win_update("w"))
+    bf.win_fence()
+    return out
+
+
+def ops_input(dev):
+    import torch
+    gen = torch.Generator().manual_seed(SEED)
+    return torch.randn(4, WIN_OPS_COLS, generator=gen).to(dev)
+
+
+def window_ops(dev):
+    """``window_sequence`` in one process (every rank owned) on ``dev``,
+    every result on the CPU."""
     import torch
 
     import bluefog_tpu_torch as bf
     bf.init(4, device=dev)
-    out = {}
     try:
-        gen = torch.Generator().manual_seed(SEED)
-        x = torch.randn(4, WIN_OPS_COLS, generator=gen).to(dev)
-        ring = {(r, (r + 1) % 4): 0.3 + 0.1 * r for r in range(4)}
-        skip = {(r, (r + 2) % 4): 0.35 for r in range(4)}
-        bf.turn_on_win_ops_with_associated_p()
-        bf.win_create(x, "w", zero_init=True)
-        bf.win_put(1.5 * x, "w", dst_weights=ring)        # partial dsts
-        out["versions_put"] = [bf.get_win_version("w", r) for r in range(4)]
-        bf.win_accumulate(x, "w", self_weight=0.45, dst_weights=skip)
-        bf.win_get("w", src_weights={(r, (r - 1) % 4): 0.6
-                                     for r in range(4)})
-        # Partial weights: the (r, r - 2) edges stay pending.
-        out["update_partial"] = bf.win_update(
-            "w", self_weight=0.3, neighbor_weights={
-                (r, (r - 1) % 4): 0.7 for r in range(4)}, reset_weights=True)
-        out["versions_pending"] = [bf.get_win_version("w", r)
-                                   for r in range(4)]
-        out["collect"] = bf.win_update_then_collect("w")
-        out["p"] = bf.win_associated_p("w").tolist()
-        bf.turn_off_win_ops_with_associated_p()
-        snap = bf.win_state_dict("w")
-        bf.win_put(x, "w")
-        bf.win_load_state_dict("w", snap)
-        bf.win_accumulate(0.5 * x, "w")
-        out["after_restore"] = bf.win_update("w")
-        # Mutex from two threads: a require_mutex put waits for its release.
-        done = threading.Event()
-        with bf.win_mutex("w", ranks=[1, 2]):
-            t = threading.Thread(target=lambda: (
-                bf.win_put(x, "w", require_mutex=True), done.set()))
-            t.start()
-            time.sleep(0.2)
-            out["blocked_while_held"] = not done.is_set()
-        t.join(timeout=30)
-        out["ran_after_release"] = done.is_set()
-        out["after_mutex_put"] = bf.win_update("w")
+        out = window_sequence(bf, ops_input(dev), [0, 1, 2, 3], "rank")
         if dev == "cuda":
             reps = 10
             out["win_update_ms"] = timed_ms(lambda: [
@@ -2202,7 +2269,8 @@ def window_ops(dev):
 
 
 def win_ops_phase():
-    """``window_ops`` on the card against the CPU, bit for bit."""
+    """``window_ops`` on the card against the CPU, bit for bit; returns the
+    card's results (``win_dist_ops`` holds the processes to them)."""
     import torch
     card, cpu = window_ops(DEVICE), window_ops("cpu")
     res = {}
@@ -2222,6 +2290,410 @@ def win_ops_phase():
          topology="ExponentialGraph(4)", win_update_ms=card.get(
              "win_update_ms"), win_update_bound_ms=1e3 * 16 * 4 *
          WIN_OPS_COLS / PEAK_BYTES, **res)
+    return card
+
+
+# ---------------------------------------------------------------------------
+# Windows across processes: WIN_DIST_PROCS processes of WIN_DIST_PER ranks,
+# all on card 0, their control group on gloo; every remote row leaves the
+# card, crosses the window transport's loopback socket and comes back.
+# ---------------------------------------------------------------------------
+
+def row_hashes(t):
+    import hashlib
+    return [hashlib.sha256(r.contiguous().cpu().numpy().tobytes())
+            .hexdigest() for r in t]
+
+
+def launch_workers(phase, args=()):
+    """Run ``chip_smoke.py --worker <phase>`` in ``WIN_DIST_PROCS``
+    processes (bfrun's ``BFTPU_*`` rendezvous on this host, card 0 for
+    each); their results, in process order.  Every process is stopped
+    before this returns, also on a failure."""
+    import socket
+    import tempfile
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    tmp = tempfile.mkdtemp(prefix="win_dist_")
+    here = os.path.dirname(os.path.abspath(__file__))
+    children, outs = [], []
+    try:
+        for p in range(WIN_DIST_PROCS):
+            out = os.path.join(tmp, f"proc{p}.json")
+            outs.append(out)
+            env = {k: v for k, v in os.environ.items()
+                   if not k.startswith(("BFTPU_", "BLUEFOG_TPU_WIN",
+                                        "MASTER_", "WORLD_SIZE", "RANK",
+                                        "LOCAL_RANK"))}
+            env.update(BFTPU_COORDINATOR=f"127.0.0.1:{port}",
+                       BFTPU_NUM_PROCESSES=str(WIN_DIST_PROCS),
+                       BFTPU_PROCESS_ID=str(p), BFTPU_LOCAL_ID="0",
+                       BFTPU_LOCAL_DEVICES=str(WIN_DIST_PER),
+                       BFTPU_WIN_HOST="127.0.0.1")
+            children.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--worker",
+                 phase, out, DEVICE, *args], cwd=here, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        deadline = time.monotonic() + WIN_DIST_TIMEOUT
+        logs = [c.communicate(timeout=max(1.0, deadline - time.monotonic()))
+                [0] for c in children]
+        for p, c in enumerate(children):
+            require(c.returncode == 0,
+                    f"{phase} process {p} failed:\n{logs[p][-3000:]}")
+        res = []
+        for out in outs:
+            with open(out) as f:
+                res.append(json.load(f))
+        return res
+    finally:
+        for c in children:
+            if c.poll() is None:
+                c.kill()
+                c.wait()
+        for out in outs:
+            if os.path.exists(out):
+                os.remove(out)
+        os.rmdir(tmp)
+
+
+def stats_since(W, before):
+    after = W.stats.snapshot()
+    return {k: after[k] - before[k] for k in after}
+
+
+def ops_worker(bf, ref_path):
+    """``window_sequence`` in the owned layout through both transport
+    paths (row hashes, counters, the native path's bytes and seconds),
+    then under bf16 compression against the one-process card run."""
+    import torch
+
+    from bluefog_tpu_torch.ops import window as W
+    from bluefog_tpu_torch.utils import config
+    x = ops_input(DEVICE)
+    own = bf.owned_ranks()
+    res = {"owned": own}
+    for path, native_on in (("native", True), ("python", False)):
+        with config.override(win_native=native_on):
+            W._shutdown_transport()
+            W.init_transport()
+            require(W._store.distrib.transport.native_path == native_on,
+                    f"{path} transport")
+            before = W.stats.snapshot()
+            out = window_sequence(bf, x, own, "owned")
+            sync()
+            res[path] = {
+                "stats": stats_since(W, before),
+                "hashes": {k: row_hashes(v) for k, v in out.items()
+                           if isinstance(v, torch.Tensor)},
+                "values": {k: v for k, v in out.items()
+                           if not isinstance(v, torch.Tensor)}}
+            bf.win_free("w")
+            bf.barrier()
+    W._shutdown_transport()
+    W.init_transport()
+    ref = torch.load(ref_path, mmap=True)
+    with config.override(win_compression="bf16"):
+        before = W.stats.snapshot()
+        out = window_sequence(bf, x, own, "owned")
+        res["bf16_stats"] = stats_since(W, before)
+    res["bf16"] = {}
+    for k, want in ref.items():
+        got, want = out[k].cpu(), want[own]
+        res["bf16"][k] = {
+            "max_abs_err": float((got - want).abs().max()),
+            "within": bool(torch.allclose(got, want, rtol=WIN_DIST_BF16_TOL,
+                                          atol=WIN_DIST_BF16_TOL))}
+    bf.win_free("w")
+    return res
+
+
+def path_bounds():
+    """What the path's three legs reach alone on this machine: one pinned
+    copy of ``BOUND_BYTES`` card to host and host to card (CUDA events),
+    and the same bytes through one loopback TCP socket."""
+    import socket
+    import threading
+
+    import torch
+    n = BOUND_BYTES
+    out = {"bytes": n}
+    host = torch.empty(n, dtype=torch.uint8, pin_memory=DEVICE == "cuda")
+    if DEVICE == "cuda":
+        dev = torch.empty(n, dtype=torch.uint8, device="cuda")
+        for name, fn in (
+                ("d2h", lambda: host.copy_(dev, non_blocking=True)),
+                ("h2d", lambda: dev.copy_(host, non_blocking=True))):
+            fn()
+            ms = timed_ms(fn)
+            out[f"{name}_ms"], out[f"{name}_gbps"] = ms, n / ms / 1e6
+        del dev
+        torch.cuda.empty_cache()
+    sink = bytearray(n)
+    srv = socket.socket()
+    srv.bind(("127.0.0.1", 0))
+    srv.listen(1)
+
+    def receive():
+        conn, _ = srv.accept()
+        with conn:
+            view, got = memoryview(sink), 0
+            while got < n:
+                got += conn.recv_into(view[got:], n - got)
+    th = threading.Thread(target=receive)
+    th.start()
+    with socket.create_connection(srv.getsockname()) as c:
+        t0 = time.perf_counter()
+        c.sendall(memoryview(host.numpy()))
+        th.join()
+        dt = time.perf_counter() - t0
+    srv.close()
+    out["socket_ms"], out["socket_gbps"] = 1e3 * dt, n / dt / 1e9
+    return out
+
+
+def rate(nbytes, seconds):
+    return nbytes / seconds / 1e9 if seconds else None
+
+
+def win_dist_ops_phase(card):
+    """``window_sequence`` across processes, owned layout, through both
+    transport paths: every owned row, counter and P scalar bit for bit the
+    one-process card run; bf16 within ``WIN_DIST_BF16_TOL``; the bytes
+    that crossed, the seconds of each leg, beside ``path_bounds``."""
+    import tempfile
+
+    import torch
+    ref_keys = [k for k, v in card.items() if isinstance(v, torch.Tensor)]
+    fd, ref_path = tempfile.mkstemp(suffix=".pt")
+    os.close(fd)
+    try:
+        torch.save({k: card[k] for k in ref_keys}, ref_path)
+        parts = launch_workers("ops", [ref_path])
+    finally:
+        os.remove(ref_path)
+    want_hash = {k: row_hashes(card[k]) for k in ref_keys}
+    res = {"per_process": []}
+    for part in parts:
+        own = part["owned"]
+        mine = {"owned": own}
+        for path in ("native", "python"):
+            got = part[path]
+            for k, hashes in got["hashes"].items():
+                require(hashes == [want_hash[k][r] for r in own],
+                        f"win_dist_ops {path} {k}: rows of {own} differ "
+                        "from the one-process card run")
+            for k, v in got["values"].items():
+                if k in ("blocked_while_held", "ran_after_release"):
+                    continue
+                want = json.loads(json.dumps([card[k][r] for r in own]))
+                require(v == want, f"win_dist_ops {path} {k}: {v} vs {want}")
+            require(got["values"]["blocked_while_held"]
+                    and got["values"]["ran_after_release"],
+                    f"win_dist_ops {path}: the remote mutex excludes the "
+                    "writer")
+            mine[f"{path}_bitwise"] = True
+        st = part["native"]["stats"]
+        mine["native"] = {
+            "tx_bytes": st["tx_bytes"],
+            "wire_ms": 1e3 * st["wire_s"],
+            "wire_gbps": rate(st["tx_bytes"], st["wire_s"]),
+            "d2h_bytes": st["stage_bytes"], "d2h_ms": 1e3 * st["stage_s"],
+            "d2h_gbps": rate(st["stage_bytes"], st["stage_s"]),
+            "h2d_bytes": st["commit_bytes"], "h2d_ms": 1e3 * st["commit_s"],
+            "h2d_gbps": rate(st["commit_bytes"], st["commit_s"])}
+        mine["python_path_stats"] = part["python"]["stats"]
+        mine["bf16"] = part["bf16"]
+        mine["bf16_tx_bytes"] = part["bf16_stats"]["tx_bytes"]
+        for k, v in part["bf16"].items():
+            require(v["within"], f"win_dist_ops bf16 {k}: {v}")
+        res["per_process"].append(mine)
+    emit("win_dist_ops", processes=WIN_DIST_PROCS,
+         ranks_per_process=WIN_DIST_PER, layout="owned",
+         shape=[4, WIN_OPS_COLS], dtype="float32",
+         topology="ExponentialGraph(4)", transport="loopback TCP, one card",
+         bf16_tol=WIN_DIST_BF16_TOL, bounds=path_bounds(), **res)
+
+
+def train_worker(bf):
+    """The benchmark's win_put LM at full width and ``WIN_DIST_LAYERS``,
+    ResNet-50, and pull-get and push-sum at ``WIN_DIST_VARIANT_LAYERS``,
+    across the processes."""
+    import gc
+
+    import torch
+
+    from bluefog_tpu_torch import benchmark, profile_step
+    from bluefog_tpu_torch.benchmark import consensus_spread
+    from bluefog_tpu_torch.ops import flash_attention as FA
+    from bluefog_tpu_torch.ops import window as W
+    from bluefog_tpu_torch.optim import window_optimizers as WO
+
+    def done(tr):
+        # Nothing of this trainer's gossip may still be in flight when the
+        # next one creates its windows under the same names.
+        W.win_fence()
+        tr.opt.free()
+        del tr
+        gc.collect()
+        empty_cache()
+        bf.barrier()
+    out = {}
+    args = lm_args(benchmark, WIN_DIST_LAYERS, "win_put", [
+        "--num-warmup-batches", "1", "--num-iters", "2",
+        "--num-batches-per-iter", "1"])
+    tr = benchmark.Trainer(args)
+    FA.reset_launch_counts()
+    res = benchmark.measure(args, tr, quiet=True)
+    res["launches"] = flash_launches()
+    res["row_gb"] = 4 * tr.rep.numel / 1e9
+    # One more step, profiled in process 0 (its kernels only: the other
+    # process's share the card), run plain in the others.
+    step = lambda: (tr.forward_backward(), tr.opt.step())  # noqa: E731
+    if DEVICE == "cuda" and bf.process_ranks().process == 0:
+        prof = profile_step.trace(step)
+        res["profile"] = {k: prof[k] for k in (
+            "profiled_step_wall_ms", "kernel_busy_ms", "device_idle_share")}
+    else:
+        step()
+        sync()
+    out["lm"] = res
+    done(tr)
+    args = benchmark.build_parser().parse_args([
+        "--model", "resnet50", "--batch-size", "64", "--momentum", "0.9",
+        "--dist-optimizer", "win_put", "--num-warmup-batches", "1",
+        "--num-iters", "2", "--num-batches-per-iter", "1", "--seed",
+        str(SEED)])
+    tr = benchmark.Trainer(args)
+    out["resnet50"] = benchmark.measure(args, tr, quiet=True)
+    done(tr)
+    FA.reset_launch_counts()
+    comm = bf.process_ranks()
+    for name, cls in (("pull_get", WO.DistributedPullGetOptimizer),
+                      ("push_sum", WO.DistributedPushSumOptimizer)):
+        args = lm_args(benchmark, WIN_DIST_VARIANT_LAYERS, "empty")
+        tr = benchmark.Trainer(args)
+        tr.opt = opt = cls(torch.optim.SGD([tr.rep.flat], lr=0.0125 * 4))
+        flat, rec = tr.rep.flat, {"losses": [], "rms_after_adapt": [],
+                                  "rms_after_combine": [], "step_ms": []}
+        for _ in range(WIN_DIST_VARIANT_STEPS):
+            t0 = time.perf_counter()
+            rec["losses"].append([float(v) for v in tr.forward_backward()])
+            opt.adapt()
+            rec["rms_after_adapt"].append(consensus_spread(flat)["rms"])
+            opt.combine()
+            sync()
+            rec["step_ms"].append(1e3 * (time.perf_counter() - t0))
+            rec["rms_after_combine"].append(consensus_spread(flat)["rms"])
+        if name == "push_sum":
+            opt.collect()
+            p = opt.associated_p()[bf.owned_ranks()]
+            rec["p_owned"] = p.tolist()
+            rec["p_sum"] = float(comm.all_reduce(
+                torch.tensor([float(p.sum())], dtype=torch.float64))
+                .wait()[0])
+        out[name] = rec
+        done(tr)
+    out["variant_launches"] = flash_launches()
+    return out
+
+
+def win_dist_train_phase():
+    """``train_worker`` across the processes; returns the launches of
+    K1-K3, summed over the processes."""
+    parts = launch_workers("train")
+    lm_expected = WIN_DIST_LAYERS * WIN_DIST_PER * 3
+    var_expected = WIN_DIST_VARIANT_LAYERS * WIN_DIST_PER * \
+        WIN_DIST_VARIANT_STEPS * 2
+    launches = {k: 0 for k in KERNELS}
+    per_process = []
+    for part in parts:
+        lm = part["lm"]
+        require(all(math.isfinite(x) for x in lm["losses"]),
+                f"win_dist_train: finite losses {lm['losses']}")
+        require(all(c == lm_expected for c in lm["launches"].values()),
+                f"win_dist_train launches {lm['launches']}, expected "
+                f"{lm_expected} of each a process")
+        require(lm["spread"]["after_combine"] < lm["spread"]["after_adapt"],
+                f"win_dist_train: the combine shrinks the spread "
+                f"{lm['spread']}")
+        rn = part["resnet50"]
+        require(all(math.isfinite(x) for x in rn["losses"]),
+                f"resnet50 win_put: finite losses {rn['losses']}")
+        require(rn["spread"]["after_combine"] < rn["spread"]["after_adapt"],
+                f"resnet50 win_put: the spread {rn['spread']}")
+        require(all(c == var_expected
+                    for c in part["variant_launches"].values()),
+                f"win_dist variants launches {part['variant_launches']}")
+        for name in ("pull_get", "push_sum"):
+            rec = part[name]
+            require(all(math.isfinite(v) for ls in rec["losses"]
+                        for v in ls), f"{name}: finite losses")
+        pg = part["pull_get"]
+        require(all(b < a for a, b in zip(pg["rms_after_adapt"],
+                                          pg["rms_after_combine"])),
+                f"pull_get: the combine shrinks the spread {pg}")
+        ps = part["push_sum"]
+        require(abs(ps["p_sum"] - 4.0) <= 1e-4 * 4.0
+                and min(ps["p_owned"]) > 0, f"push_sum P {ps}")
+        for k in KERNELS:
+            launches[k] += lm["launches"][k] + part["variant_launches"][k]
+        win = lm["window"]
+        per_process.append({
+            "owned": part.get("owned"), "step_ms": lm["step_ms"],
+            "tokens_per_s": lm["tokens_per_s"],
+            "peak_mem_gb": lm.get("peak_mem_gb"),
+            "launches": lm["launches"],
+            "window_ms": {"stage_out": 1e3 * win["stage_s"],
+                          "wire": 1e3 * win["wire_s"],
+                          "mutex_wait": 1e3 * win["mutex_s"],
+                          "commit": 1e3 * win["commit_s"]},
+            "tx_bytes_per_step": win["tx_bytes"],
+            "wire_gbps": rate(win["tx_bytes"], win["wire_s"]),
+            "d2h_gbps": rate(win["stage_bytes"], win["stage_s"]),
+            "h2d_gbps": rate(win["commit_bytes"], win["commit_s"]),
+            "profile": lm.get("profile"), "losses": lm["losses"],
+            "spread": lm["spread"],
+            "resnet50": {k: rn.get(k) for k in (
+                "step_ms", "imgs_per_s", "losses", "spread", "window",
+                "peak_mem_gb")},
+            "pull_get": part["pull_get"], "push_sum": part["push_sum"]})
+    emit("win_dist_train", config={
+        "num_layers": WIN_DIST_LAYERS, **LM_WIDTHS, "batch_size": 2,
+        "momentum": 0.0, "processes": WIN_DIST_PROCS,
+        "ranks_per_process": WIN_DIST_PER, "layout": "owned",
+        "optimizer": "DistributedWinPutOptimizer",
+        "topology": "ExponentialGraph(4), processes {0,1} and {2,3}",
+        "variant_layers": WIN_DIST_VARIANT_LAYERS,
+        "control": "gloo", "payloads": "window transport, loopback TCP"},
+        row_gb=parts[0]["lm"]["row_gb"],
+        tx_bytes_per_step=sum(p["tx_bytes_per_step"] for p in per_process),
+        tokens_per_s=sum(p["tokens_per_s"] for p in per_process),
+        expected_launches_per_process=lm_expected,
+        per_process=per_process, launches=launches)
+    return launches
+
+
+def worker_main(phase, out_path, device, *args):
+    """One process of a ``win_dist_*`` phase (``launch_workers``), on the
+    phase's ``device``."""
+    global DEVICE
+    import torch
+    DEVICE = device
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import bluefog_tpu_torch as bf
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bf.init_distributed(backend="gloo", device=DEVICE)
+    try:
+        res = ops_worker(bf, *args) if phase == "ops" else train_worker(bf)
+        res.setdefault("owned", bf.owned_ranks())
+        bf.barrier()
+    finally:
+        bf.shutdown()
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+    return 0
 
 
 def sync():
@@ -2500,7 +2972,14 @@ def main():
     hier_launches = hier_train_phase(benchmark)
     winput_launches = winput_train_phase(benchmark)
     win_variant_launches = win_variants_phase(benchmark)
-    win_ops_phase()
+    card_ops = win_ops_phase()
+    from bluefog_tpu_torch import native
+    t0 = time.perf_counter()
+    native.lib()  # the window transport's service, before the workers
+    emit("native_build", seconds=time.perf_counter() - t0,
+         library=str(native.library_path().name))
+    win_dist_ops_phase(card_ops)
+    del card_ops
     res = image_phase(benchmark, image + [
         "--dist-optimizer", "win_put", "--num-warmup-batches", "1",
         "--num-iters", "2", "--num-batches-per-iter", "1"],
@@ -2510,6 +2989,8 @@ def main():
     # The window combine's 28 row passes, as in winput_train.
     emit("resnet50_win_put", window_ms=res.pop("combine_ms"),
          window_bound_ms=1e3 * 28 * 4 * RESNET50_PARAMS / PEAK_BYTES, **res)
+    torch.cuda.empty_cache()
+    win_dist_launches = win_dist_train_phase()
 
     kernels = []
     for kname, (fn, replaces) in KERNELS.items():
@@ -2526,7 +3007,8 @@ def main():
                                      + pp_variant_launches[kname]
                                      + hier_launches[kname]
                                      + winput_launches[kname]
-                                     + win_variant_launches[kname]),
+                                     + win_variant_launches[kname]
+                                     + win_dist_launches[kname]),
                         "launches_by_path": {
                             "train": launches[kname],
                             "llama_train": llama_launches[kname],
@@ -2540,6 +3022,7 @@ def main():
                             "hier_train": hier_launches[kname],
                             "winput_train": winput_launches[kname],
                             "win_variants": win_variant_launches[kname],
+                            "win_dist_train": win_dist_launches[kname],
                             "generate": gen_launches[kname],
                             "vit": vit_launches[kname]},
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -2555,4 +3038,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 4 and sys.argv[1] == "--worker":
+        sys.exit(worker_main(*sys.argv[2:]))
     sys.exit(main())

@@ -1,12 +1,15 @@
 """The key under which the port's CUDA sources build (``ops/_nvcc``) covers
 the source, every header beside it and the compiler flags, so an edited
 header never loads a library built from the old one.  No ``nvcc`` runs:
-the sources live in a temporary ``csrc``."""
+the sources live in a temporary ``csrc``.  The window transport's native
+service (``native/``) is keyed the same way, and a failed ``g++`` build
+raises."""
 
 import re
 
 import pytest
 
+from bluefog_tpu_torch import native as _native
 from bluefog_tpu_torch.ops import _nvcc
 
 REAL_CSRC = _nvcc.CSRC_DIR
@@ -82,3 +85,68 @@ def test_real_sources_include_only_keyed_headers(src):
     assert local, f"{src} includes no local header"
     for name in local:
         assert name.endswith(".cuh") and (REAL_CSRC / name).is_file(), name
+
+
+# ---------------------------------------------------------------------------
+# The window transport's native service (``bluefog_tpu_torch/native``):
+# built with g++ into the same directory, keyed the same way.
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def nsrc(tmp_path, monkeypatch):
+    d = tmp_path / "src"
+    d.mkdir()
+    (d / "winsvc.cc").write_text('#include "h.h"\nint f() { return g(); }\n')
+    (d / "h.h").write_text("inline int g() { return 1; }\n")
+    monkeypatch.setattr(_native, "SRC_DIR", d)
+    monkeypatch.setattr(_native, "BUILD_DIR", tmp_path / "_build")
+    return d
+
+
+def test_native_key_is_stable(nsrc):
+    assert _native.library_path() == _native.library_path()
+    assert _native.library_path().parent == _native.BUILD_DIR
+
+
+@pytest.mark.parametrize("edit", ["source", "header", "new_header", "flags"])
+def test_native_key_changes_with_what_the_build_reads(nsrc, monkeypatch,
+                                                      edit):
+    before = _native.library_path()
+    if edit == "source":
+        (nsrc / "winsvc.cc").write_text("int f() { return 2; }\n")
+    elif edit == "header":
+        (nsrc / "h.h").write_text("inline int g() { return 2; }\n")
+    elif edit == "new_header":
+        (nsrc / "extra.h").write_text("// new\n")
+    else:
+        monkeypatch.setattr(_native, "CXX_FLAGS",
+                            _native.CXX_FLAGS + ("-g",))
+    assert _native.library_path() != before
+
+
+def test_native_flags_keep_float_contraction_off():
+    """The drain's fold promises f32 sums bit for bit the Python fold's:
+    a fused multiply-add would break that (the JAX Makefile's flag)."""
+    assert "-ffp-contract=off" in _native.CXX_FLAGS
+
+
+def test_native_built_library_is_reused_without_a_compiler(nsrc,
+                                                           monkeypatch):
+    path = _native.library_path()
+    path.parent.mkdir(parents=True)
+    path.write_bytes(b"")
+    monkeypatch.setattr(_native, "_cxx",
+                        lambda: pytest.fail("the compiler was run"))
+    assert _native.build() == path
+
+
+def test_native_failed_build_raises_with_the_compiler_output(nsrc):
+    """No silent fallback: a source that does not compile raises with what
+    g++ printed."""
+    import shutil
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ on this machine")
+    (nsrc / "winsvc.cc").write_text("int f( { return 1; }\n")
+    with pytest.raises(RuntimeError, match="error"):
+        _native.build()

@@ -34,7 +34,8 @@ def test_import_leaves_jax_out():
             "bluefog_tpu_torch.tensor_parallel_training, "
             "bluefog_tpu_torch.pipeline_training, "
             "bluefog_tpu_torch.ops.window, bluefog_tpu_torch.utils.config, "
-            "bluefog_tpu_torch.optim.window_optimizers;"
+            "bluefog_tpu_torch.optim.window_optimizers, "
+            "bluefog_tpu_torch.ops.transport, bluefog_tpu_torch.native;"
             "bf = bluefog_tpu_torch; bf.pipeline_train_step, bf.moe_apply, "
             "bf.tp_shard_params, bf.parallel.pipeline_apply;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -9,6 +9,7 @@ the refused tensors and the parts not ported yet."""
 
 import threading
 import time
+import types
 
 import numpy as np
 import pytest
@@ -418,9 +419,11 @@ def test_refuses_edges_outside_the_topology(ring):
 
 
 def test_not_ported_parts_raise_with_their_item(ring, monkeypatch):
-    """Windows across processes (item 17b), the owned layout (rows other
-    than the world) and the async mode raise, naming what is missing."""
-    with pytest.raises(ValueError, match="owned layout comes with item 17b"):
+    """The async mode (item 17c) raises, naming what is missing; a leading
+    dim that is neither the world nor the owned ranks is refused, and so
+    are windows across processes before the transport is up (the JAX
+    package's check: ``bf.init_distributed`` starts it)."""
+    with pytest.raises(ValueError, match="neither the world size"):
         tbf.win_create(torch.zeros(2, 3), "w")
     monkeypatch.setenv("BLUEFOG_TPU_ASYNC", "1")
     config.reload()
@@ -430,8 +433,9 @@ def test_not_ported_parts_raise_with_their_item(ring, monkeypatch):
     finally:
         monkeypatch.delenv("BLUEFOG_TPU_ASYNC")
         config.reload()
-    monkeypatch.setattr(basics, "process_ranks", lambda: object())
-    with pytest.raises(NotImplementedError, match="item 17b"):
+    monkeypatch.setattr(basics, "process_ranks",
+                        lambda: types.SimpleNamespace(nprocs=2))
+    with pytest.raises(RuntimeError, match="init_distributed"):
         tbf.win_create(torch.zeros(N, 3), "w")
 
 

@@ -228,7 +228,8 @@ def test_not_ported_options_raise_with_their_item(monkeypatch):
         for kw, item in (({"fused": True}, "item 19b"),
                          ({"fusion_buckets": 2}, "item 19b"),
                          ({"shard_specs": {}}, "item 16"),
-                         ({"layout": "owned"}, "item 17b")):
+                         ({"shard_groups": [[0]]}, "item 16"),
+                         ({"num_shards": 2}, "item 16")):
             with pytest.raises(NotImplementedError, match=item):
                 TWO.DistributedWinPutOptimizer(sgd, **kw)
         monkeypatch.setenv("BLUEFOG_TPU_CHURN", "1")
