@@ -39,7 +39,14 @@ from bluefog_tpu_torch.basics import (
     hierarchical_neighbor_allreduce_nonblocking,
     dynamic_hierarchical_neighbor_allreduce,
     dynamic_hierarchical_neighbor_allreduce_nonblocking, hierarchical_gossip,
-    hierarchical_gossip_nonblocking)
+    hierarchical_gossip_nonblocking, hierarchical_gossip_info, suspend,
+    resume, suspended, in_neighbor_ranks, out_neighbor_ranks,
+    in_neighbor_machine_ranks, out_neighbor_machine_ranks,
+    allreduce_parameters, broadcast_optimizer_state, allreduce_,
+    allreduce_nonblocking_, broadcast_, broadcast_nonblocking_,
+    set_skip_negotiate_stage, get_skip_negotiate_stage,
+    mpi_threads_supported, nccl_built, unified_mpi_window_model_supported)
+from bluefog_tpu_torch import optim
 from bluefog_tpu_torch.ops import window as _window
 from bluefog_tpu_torch.ops.window import (
     get_current_created_window_names, get_win_version, win_accumulate,
@@ -47,7 +54,8 @@ from bluefog_tpu_torch.ops.window import (
     win_flush, win_free, win_get, win_get_nonblocking, win_load_state_dict,
     win_mutex, win_poll, win_put, win_put_nonblocking, win_state_dict,
     win_update, win_update_then_collect, win_wait,
-    turn_off_win_ops_with_associated_p, turn_on_win_ops_with_associated_p)
+    turn_off_win_ops_with_associated_p, turn_on_win_ops_with_associated_p,
+    async_info, win_fold_stale_residuals)
 
 __all__ = ["topology_util", "init", "init_distributed", "shutdown", "barrier",
            "initialized", "size", "rank", "owned_ranks", "local_size",
@@ -67,7 +75,15 @@ __all__ = ["topology_util", "init", "init_distributed", "shutdown", "barrier",
            "hierarchical_neighbor_allreduce_nonblocking",
            "dynamic_hierarchical_neighbor_allreduce",
            "dynamic_hierarchical_neighbor_allreduce_nonblocking",
-           "hierarchical_gossip", "hierarchical_gossip_nonblocking"
+           "hierarchical_gossip", "hierarchical_gossip_nonblocking",
+           "hierarchical_gossip_info", "suspend", "resume", "suspended",
+           "in_neighbor_ranks", "out_neighbor_ranks",
+           "in_neighbor_machine_ranks", "out_neighbor_machine_ranks",
+           "allreduce_parameters", "broadcast_optimizer_state", "allreduce_",
+           "allreduce_nonblocking_", "broadcast_", "broadcast_nonblocking_",
+           "set_skip_negotiate_stage", "get_skip_negotiate_stage",
+           "mpi_threads_supported", "nccl_built",
+           "unified_mpi_window_model_supported"
            ] + _window.__all__ + parallel.__all__
 
 

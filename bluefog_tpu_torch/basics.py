@@ -27,6 +27,7 @@ at once).
 from __future__ import annotations
 
 import hashlib
+import logging
 import os
 import socket
 from typing import Dict, List, Optional, Union
@@ -60,7 +61,15 @@ __all__ = ["init", "init_distributed", "shutdown", "barrier", "initialized",
            "hierarchical_neighbor_allreduce_nonblocking",
            "dynamic_hierarchical_neighbor_allreduce",
            "dynamic_hierarchical_neighbor_allreduce_nonblocking",
-           "hierarchical_gossip", "hierarchical_gossip_nonblocking"]
+           "hierarchical_gossip", "hierarchical_gossip_nonblocking",
+           "hierarchical_gossip_info", "suspend", "resume", "suspended",
+           "in_neighbor_ranks", "out_neighbor_ranks",
+           "in_neighbor_machine_ranks", "out_neighbor_machine_ranks",
+           "allreduce_parameters", "broadcast_optimizer_state",
+           "allreduce_", "allreduce_nonblocking_", "broadcast_",
+           "broadcast_nonblocking_", "set_skip_negotiate_stage",
+           "get_skip_negotiate_stage", "mpi_threads_supported",
+           "nccl_built", "unified_mpi_window_model_supported"]
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -93,6 +102,7 @@ class _Context:
         self.hier_topology = None   # hierarchical_gossip's, with its key
         self._hier_key = None
         self._schedules: dict = {}
+        self.suspended = False      # suspend(): new communication refused
 
     def schedule(self, key, build):
         """Compiled schedules, cached per topology version."""
@@ -110,6 +120,16 @@ def _require_init() -> _Context:
         raise RuntimeError(
             "bluefog_tpu_torch is not initialized; call init() first")
     return _ctx
+
+
+def _require_active() -> _Context:
+    """The context, refusing while :func:`suspend` is in force."""
+    ctx = _require_init()
+    if ctx.suspended:
+        raise RuntimeError(
+            "bluefog_tpu_torch is suspended (suspend()); call resume() "
+            "before issuing communication ops")
+    return ctx
 
 
 def _setup(size: int, local: int, dev: torch.device, topology_fn,
@@ -242,6 +262,34 @@ def shutdown() -> None:
     _ctx = _Context()
 
 
+def suspend() -> None:
+    """Quiesce for interactive use (the reference's ``bf.suspend``, the
+    JAX package's ``basics.py`` L283-309): wait for every outstanding
+    window op, then refuse new communication ops until :func:`resume`.
+    Queries (rank, size, topology) and reading window state stay
+    available.  (The JAX package also pauses its stall watchdog here:
+    ROADMAP item 21.)"""
+    ctx = _require_init()
+    if ctx.suspended:
+        return
+    from bluefog_tpu_torch.ops import window
+    if not window._drain_handles():
+        logging.getLogger("bluefog_tpu_torch").warning(
+            "suspend: outstanding window ops did not drain within 60 s; "
+            "suspending anyway (a hung peer or a dead transport is likely)")
+    ctx.suspended = True
+
+
+def resume() -> None:
+    """Accept communication ops again after :func:`suspend`."""
+    ctx = _require_init()
+    ctx.suspended = False
+
+
+def suspended() -> bool:
+    return _ctx.initialized and _ctx.suspended
+
+
 def barrier() -> None:
     """Block until the device work enqueued so far is done and, across
     processes, until every process has reached the barrier (over the
@@ -364,6 +412,30 @@ def is_topo_weighted() -> bool:
     return _require_init().is_topo_weighted
 
 
+def in_neighbor_ranks(rank_: Optional[int] = None) -> List[int]:
+    """The in-neighbors of ``rank_`` (default :func:`rank`) in the
+    topology that is set."""
+    r = rank() if rank_ is None else rank_
+    return topology_util.in_neighbor_ranks(load_topology(), r)
+
+
+def out_neighbor_ranks(rank_: Optional[int] = None) -> List[int]:
+    r = rank() if rank_ is None else rank_
+    return topology_util.out_neighbor_ranks(load_topology(), r)
+
+
+def in_neighbor_machine_ranks(rank_: Optional[int] = None) -> List[int]:
+    """The in-neighbors of machine ``rank_`` (default
+    :func:`machine_rank`) in the machine topology."""
+    r = machine_rank() if rank_ is None else rank_
+    return topology_util.in_neighbor_ranks(load_machine_topology(), r)
+
+
+def out_neighbor_machine_ranks(rank_: Optional[int] = None) -> List[int]:
+    r = machine_rank() if rank_ is None else rank_
+    return topology_util.out_neighbor_ranks(load_machine_topology(), r)
+
+
 def static_schedule() -> S.StaticSchedule:
     ctx = _require_init()
     return ctx.schedule(("static", ctx.is_topo_weighted), lambda: S.compile_static(
@@ -382,7 +454,7 @@ def dynamic_schedule(phases=None) -> S.DynamicSchedule:
 
 
 def _rank_major(x) -> torch.Tensor:
-    ctx = _require_init()
+    ctx = _require_active()
     x = torch.as_tensor(x, device=ctx.device)
     rows = len(owned_ranks())
     if x.dim() == 0 or x.shape[0] != rows:
@@ -505,6 +577,17 @@ def allreduce(x, *, average: bool = True) -> torch.Tensor:
     return C.allreduce(_rank_major(x), average=average, comm=_ctx.comm)
 
 
+def allreduce_(x, *, average: bool = True) -> torch.Tensor:
+    """:func:`allreduce` written into ``x``, which is returned (the
+    reference's in-place op; the same bits as the out-of-place one)."""
+    return C.allreduce_(_rank_major(x), average=average, comm=_ctx.comm)
+
+
+def allreduce_nonblocking_(x, *, average: bool = True) -> Handle:
+    return Handle(C.allreduce_(_rank_major(x), average=average,
+                               comm=_ctx.comm, async_op=True))
+
+
 def local_allreduce_nonblocking(x, *, average: bool = True) -> Handle:
     return Handle(C.local_allreduce(_rank_major(x), local_size(),
                                     average=average, comm=_ctx.comm,
@@ -527,6 +610,16 @@ def broadcast(x, root_rank: int) -> torch.Tensor:
     return C.broadcast(_rank_major(x), root_rank, comm=_ctx.comm)
 
 
+def broadcast_(x, root_rank: int) -> torch.Tensor:
+    """:func:`broadcast` written into ``x``, which is returned."""
+    return C.broadcast_(_rank_major(x), root_rank, comm=_ctx.comm)
+
+
+def broadcast_nonblocking_(x, root_rank: int) -> Handle:
+    return Handle(C.broadcast_(_rank_major(x), root_rank, comm=_ctx.comm,
+                               async_op=True))
+
+
 def allgather_nonblocking(x) -> Handle:
     return Handle(C.allgather(_rank_major(x), comm=_ctx.comm, async_op=True))
 
@@ -542,7 +635,7 @@ def _ragged_pack(tensors):
     differ in their first dim only, and pad it into a rank-major ``(m,
     max_d, *trailing)`` tensor, ``max_d`` the world's longest; returns it
     with every rank's length."""
-    ctx = _require_init()
+    ctx = _require_active()
     m = len(owned_ranks())
     if len(tensors) != m:
         raise ValueError(
@@ -698,6 +791,63 @@ def broadcast_parameters(params, root_rank: int = 0):
     return broadcast(params, root_rank)
 
 
+def allreduce_parameters(params, *, average: bool = True):
+    """The rank mean (or sum) of every rank-major tensor in ``params``, in
+    the same structure (the JAX package's ``basics.py`` L1691)."""
+    if isinstance(params, dict):
+        return type(params)(
+            (k, allreduce_parameters(v, average=average))
+            for k, v in params.items())
+    if isinstance(params, (list, tuple)):
+        return type(params)(allreduce_parameters(v, average=average)
+                            for v in params)
+    return allreduce(params, average=average)
+
+
+def broadcast_optimizer_state(state, root_rank: int = 0):
+    """``root_rank``'s row of every rank-major tensor of an optimizer
+    state (a ``state_dict()``-like tree of dicts, lists and tuples); 0-d
+    tensors and other leaves (step counts, hyperparameters) pass through,
+    as in the JAX package (L1696)."""
+    if isinstance(state, dict):
+        return type(state)((k, broadcast_optimizer_state(v, root_rank))
+                           for k, v in state.items())
+    if isinstance(state, (list, tuple)):
+        return type(state)(broadcast_optimizer_state(v, root_rank)
+                           for v in state)
+    if not isinstance(state, torch.Tensor) or state.dim() == 0:
+        return state
+    return broadcast(state, root_rank)
+
+
+# ---------------------------------------------------------------------------
+# The reference's capability shims (the JAX package's L1731-1755)
+# ---------------------------------------------------------------------------
+
+def set_skip_negotiate_stage(value: bool) -> None:
+    """A no-op: there is no negotiation stage to skip."""
+
+
+def get_skip_negotiate_stage() -> bool:
+    return True
+
+
+def mpi_threads_supported() -> bool:
+    """True: there is no MPI, and the ops may be called from any thread."""
+    return True
+
+
+def nccl_built() -> bool:
+    """Whether torch has NCCL (``torch.distributed.is_nccl_available()``);
+    the JAX package, which has no NCCL, answers False."""
+    return bool(dist.is_available() and dist.is_nccl_available())
+
+
+def unified_mpi_window_model_supported() -> bool:
+    """True: the window store has one memory model."""
+    return True
+
+
 # ---------------------------------------------------------------------------
 # Hierarchical family: machines of local_size() consecutive ranks
 # ---------------------------------------------------------------------------
@@ -824,3 +974,32 @@ def hierarchical_gossip_nonblocking(x, step: int, *, ht=None) -> Handle:
 
 def hierarchical_gossip(x, step: int, *, ht=None) -> torch.Tensor:
     return hierarchical_gossip_nonblocking(x, step, ht=ht).wait()
+
+
+def hierarchical_gossip_info() -> Optional[dict]:
+    """The two-level gossip policy in force (None when
+    ``BLUEFOG_TPU_HIER`` is off or there is one machine): the levels'
+    topologies, the outer cadence, self weight and codec, and each level's
+    modeled rows on the wire a step."""
+    from bluefog_tpu_torch.utils import config
+    ctx = _require_init()
+    cfg = config.get()
+    if not cfg.hier or ctx.local_size >= ctx.size:
+        return None
+    ht = _hier_topology(ctx, cfg)
+    comp = cfg.hier_outer_compression
+    outer_rows = (ht.dcn_edges_per_outer_step()
+                  * config.compression_byte_factor(comp)
+                  / max(ht.outer_every, 1))
+    return {
+        "levels": 2,
+        "n_slices": ht.n_slices,
+        "slice_size": ht.slice_size,
+        "inner": ht.inner_kind,
+        "outer": ht.outer_kind,
+        "outer_every": ht.outer_every,
+        "outer_self_weight": ht.outer_self_weight,
+        "outer_compression": comp,
+        "ici_rows_per_step": ht.ici_edges_per_step(),
+        "dcn_rows_per_step": round(outer_rows, 3),
+    }

@@ -457,6 +457,8 @@ def _measure(args, tr: Trainer, quiet: bool) -> dict:
         steps = args.num_iters * args.num_batches_per_iter
         win1 = W.stats.snapshot()
         out["window"] = {k: (win1[k] - win0[k]) / steps for k in win1}
+        # fastcall or ctypes on the native path, python on the other
+        out["window"]["send_path"] = W._store.distrib.transport.send_path
     if tr.note:
         out["compression_note"] = tr.note
     if args.mfu and not tr.image and args.num_experts:
@@ -469,6 +471,10 @@ def _measure(args, tr: Trainer, quiet: bool) -> dict:
         out["mfu"] = out["tokens_per_s"] * fpt / (args.peak_tflops * 1e12)
     if dev.type == "cuda":
         out["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    if W._store.distrib is not None and args.dist_optimizer == "win_put":
+        # The async mode leaves the last step's puts in flight: every
+        # process lands them before any tears its transport down.
+        W.win_fence()
     return out
 
 

@@ -28,7 +28,9 @@ from bluefog_tpu_torch.models.layers import BatchNorm, Conv
 from bluefog_tpu_torch.models.transformer import RMSNorm, SwitchMlp
 
 __all__ = ["transformer_params_from_jax", "params_from_jax",
-           "jax_ravel_order", "flax_leaf", "stacked_block_params_from_jax"]
+           "jax_ravel_order", "flax_leaf", "stacked_block_params_from_jax",
+           "tensor_parallel_params_from_jax", "window_state_from_jax",
+           "window_state_to_jax"]
 
 # A torch tensor's dims permuted by these is the flax leaf's layout.
 _HWIO = (2, 3, 1, 0)
@@ -168,4 +170,66 @@ def stacked_block_params_from_jax(params: Mapping, lead: int = 1) -> dict:
             else:
                 out[".".join(path + (key,))] = _t(val)
     walk(params, ())
+    return out
+
+
+def tensor_parallel_params_from_jax(params: Mapping, cfg, axis, *,
+                                    ep_axis=None) -> dict:
+    """``state_dict`` of the port's ``parallel.tensor_parallel.
+    TensorParallelLM(cfg, axis, ep_axis=ep_axis)`` from the flax params
+    tree of the JAX package's unsharded ``TransformerLM`` of the same
+    config: :func:`transformer_params_from_jax`, then ``tp_shard_params``'s
+    cut (the JAX package's ``tp_param_specs``; a MoE block's experts whole,
+    or over ``ep_axis``)."""
+    from bluefog_tpu_torch.models.transformer import TransformerLM
+    from bluefog_tpu_torch.parallel.tensor_parallel import tp_shard_params
+    with torch.device("meta"):
+        model = TransformerLM(cfg)
+    return tp_shard_params(model, transformer_params_from_jax(params), axis,
+                           ep_axis=ep_axis)
+
+
+# The per-row and per-edge entries of a window snapshot, and the scalar
+# kind of the counter and associated-P entries.
+_WIN_ARRAYS = ("main", "staging", "stale_residual")
+_WIN_INTS = ("versions", "main_versions")
+_WIN_FLOATS = ("p_main", "p_staging", "p_stale_residual")
+
+
+def window_state_from_jax(state: Mapping) -> dict:
+    """The port's ``win_state_dict`` form (CPU tensors, Python ints and
+    floats) of the JAX package's ``win_state_dict`` snapshot (numpy, the
+    same ``"rank"`` and ``"dst:src"`` keys), the async mode's stale-residual
+    store included; ``win_load_state_dict`` restores either."""
+    out = {}
+    for key, entries in state.items():
+        if key in _WIN_ARRAYS:
+            out[key] = {k: torch.from_numpy(np.array(v))
+                        for k, v in dict(entries).items()}
+        elif key in _WIN_INTS:
+            out[key] = {k: int(v) for k, v in dict(entries).items()}
+        elif key in _WIN_FLOATS:
+            out[key] = {k: float(v) for k, v in dict(entries).items()}
+        else:
+            raise ValueError(f"window snapshot entry {key!r} is not one "
+                             "of win_state_dict's")
+    return out
+
+
+def window_state_to_jax(state: Mapping) -> dict:
+    """The JAX package's ``win_state_dict`` form (numpy arrays,
+    ``np.int64`` counters, ``np.float64`` P scalars) of the port's
+    snapshot: the inverse of :func:`window_state_from_jax`."""
+    out = {}
+    for key, entries in state.items():
+        if key in _WIN_ARRAYS:
+            out[key] = {k: torch.as_tensor(v).numpy().copy()
+                        for k, v in dict(entries).items()}
+        elif key in _WIN_INTS:
+            out[key] = {k: np.int64(v) for k, v in dict(entries).items()}
+        elif key in _WIN_FLOATS:
+            out[key] = {k: np.float64(v) for k, v in dict(entries).items()}
+        else:
+            raise ValueError(f"window snapshot entry {key!r} is not one "
+                             "of win_state_dict's")
     return out

@@ -15,25 +15,43 @@ There is no silent fallback.  A failed build raises with the compiler's
 output; the Python hot loop runs only when the caller asks for it
 (``BLUEFOG_TPU_WIN_NATIVE=0``).  The service itself (the TCP listener and
 ``bf_winsvc_send``) is native on both paths, as in the JAX package.
+
+:func:`fastcall` is the optional ``_bf_fastcall`` module (``src/fastcall.cc``,
+a copy of the JAX package's): one METH_FASTCALL C call a send on the native
+path instead of a ``ctypes`` call, the payload taken through the buffer
+protocol.  It builds at first use with ``g++`` and ``Python.h`` into
+``_build/fastcall-<hash><EXT_SUFFIX>``, linked against the service's
+library, whose hash covers ``fastcall.cc`` too.  As in the JAX package it
+is the reference's optional fast path: where ``Python.h`` is missing or the
+build fails, the send stays on ``ctypes`` (the transport's ``send_path``
+says which ran).
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib.util
+import logging
 import os
 import shutil
 import subprocess
+import sysconfig
 import threading
 from pathlib import Path
 from typing import Optional
 
-__all__ = ["CXX_FLAGS", "library_path", "build", "lib", "WinMsg", "WinItem"]
+__all__ = ["CXX_FLAGS", "library_path", "build", "lib", "fastcall",
+           "fastcall_path", "WinMsg", "WinItem"]
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 SRC_DIR = Path(__file__).resolve().parent / "src"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("winsvc.cc",)
+# Keyed into the service's hash with SOURCES, built on its own.
+FASTCALL_SOURCE = "fastcall.cc"
+# The argument contract of fastcall.cc's wintx_send (BF_FASTCALL_ABI).
+FASTCALL_ABI = 2
 
 # bluefog_tpu/native/Makefile's CXXFLAGS and LDFLAGS.
 CXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-Wall", "-Wextra", "-pthread",
@@ -41,6 +59,8 @@ CXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-Wall", "-Wextra", "-pthread",
 
 _lib = None
 _lock = threading.Lock()
+_fastcall = None
+_fastcall_tried = False
 
 
 class WinMsg(ctypes.Structure):
@@ -95,11 +115,25 @@ def _cxx() -> str:
 
 def library_path() -> Path:
     """Where the service builds to under the current sources and flags."""
+    return BUILD_DIR / f"winsvc-{_hash()}.so"
+
+
+def _hash() -> str:
+    """The build key: the flags, the service's sources, ``fastcall.cc``
+    and the headers."""
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    fast = SRC_DIR / FASTCALL_SOURCE
     for path in [*(SRC_DIR / s for s in SOURCES),
+                 *([fast] if fast.exists() else []),
                  *sorted(SRC_DIR.glob("*.h"))]:
         h.update(f"\0{path.name}\0".encode() + path.read_bytes())
-    return BUILD_DIR / f"winsvc-{h.hexdigest()[:16]}.so"
+    return h.hexdigest()[:16]
+
+
+def fastcall_path() -> Path:
+    """Where the ``_bf_fastcall`` module builds to, beside the service."""
+    suffix = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
+    return BUILD_DIR / f"fastcall-{_hash()}{suffix}"
 
 
 def build() -> Path:
@@ -110,7 +144,8 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_cxx(), *CXX_FLAGS, "-o", str(tmp),
+    # The soname is the file's name, which fastcall's module records.
+    cmd = [_cxx(), *CXX_FLAGS, f"-Wl,-soname,{out.name}", "-o", str(tmp),
            *(str(SRC_DIR / s) for s in SOURCES)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -148,6 +183,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "bf_wintx_drop_peer": (i64, [vp, cp, i32]),
         "bf_wintx_set_partition": (None, [vp, cp]),
         "bf_wintx_stop": (None, [vp]),
+        "bf_trace_configure": (None, [i32]),
+        "bf_trace_period": (i32, []),
+        "bf_trace_set_step": (None, [i64]),
+        "bf_trace_step": (i64, []),
+        "bf_winsvc_set_fold_across_put": (None, [i32]),
     }
     for name, (res, args) in sigs.items():
         fn = getattr(lib, name)
@@ -163,3 +203,59 @@ def lib() -> ctypes.CDLL:
         if _lib is None:
             _lib = _bind(ctypes.CDLL(str(build())))
         return _lib
+
+
+def loaded() -> Optional[ctypes.CDLL]:
+    """The service if it is loaded already, else None (no build)."""
+    return _lib
+
+
+def _build_fastcall(service: Path) -> Optional[Path]:
+    """Compile ``_bf_fastcall`` against ``service`` unless it is built;
+    None (logged) when ``Python.h`` is missing or the build fails."""
+    out = fastcall_path()
+    if out.exists():
+        return out
+    inc = sysconfig.get_paths().get("include")
+    if not inc or not Path(inc, "Python.h").exists():
+        logging.getLogger("bluefog_tpu_torch").info(
+            "no Python.h: the window transport sends through ctypes")
+        return None
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_cxx(), *CXX_FLAGS, f"-I{inc}", "-o", str(tmp),
+           str(SRC_DIR / FASTCALL_SOURCE), f"-L{service.parent}",
+           f"-l:{service.name}", "-Wl,-rpath,$ORIGIN"]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        logging.getLogger("bluefog_tpu_torch").warning(
+            "building the _bf_fastcall send module failed; the window "
+            "transport sends through ctypes:\n%s", proc.stderr[-2000:])
+        return None
+    os.replace(tmp, out)
+    return out
+
+
+def fastcall():
+    """The ``_bf_fastcall`` module, built first when needed; None where it
+    cannot be built or its ABI differs (the send stays on ctypes)."""
+    global _fastcall, _fastcall_tried
+    service = lib()
+    del service  # loaded first: the module binds to this instance
+    with _lock:
+        if _fastcall_tried:
+            return _fastcall
+        _fastcall_tried = True
+        path = _build_fastcall(library_path())
+        if path is None:
+            return None
+        spec = importlib.util.spec_from_file_location("_bf_fastcall",
+                                                      str(path))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        if getattr(mod, "ABI_VERSION", None) != FASTCALL_ABI:
+            logging.getLogger("bluefog_tpu_torch").warning(
+                "_bf_fastcall ABI %s != %s; sending through ctypes",
+                getattr(mod, "ABI_VERSION", None), FASTCALL_ABI)
+            return None
+        _fastcall = mod
+        return _fastcall

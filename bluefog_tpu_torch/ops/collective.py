@@ -42,7 +42,8 @@ from bluefog_tpu_torch.ops.schedule import (DynamicSchedule,
                                             PairGossipSchedule,
                                             StaticSchedule, lift_schedule)
 
-__all__ = ["allreduce", "local_allreduce", "broadcast", "allgather",
+__all__ = ["allreduce", "allreduce_", "local_allreduce", "broadcast",
+           "broadcast_", "allgather",
            "neighbor_allgather", "neighbor_allreduce",
            "neighbor_allreduce_matrix", "dynamic_neighbor_allreduce",
            "sparse_neighbor_allreduce", "dynamic_sparse_neighbor_allreduce",
@@ -155,6 +156,19 @@ def allreduce(x: torch.Tensor, *, average: bool = True,
     return _result(p.then(finish), async_op)
 
 
+def allreduce_(x: torch.Tensor, *, average: bool = True,
+               comm: Optional[ProcessRanks] = None, async_op: bool = False):
+    """:func:`allreduce` written into ``x`` (returned, or its handle's
+    result): the same bits as the out-of-place op."""
+    return _result(_into(x, allreduce(x, average=average, comm=comm,
+                                      async_op=True)), async_op)
+
+
+def _into(x: torch.Tensor, p: Pending) -> Pending:
+    """``p``'s result copied into ``x``, which becomes the result."""
+    return p.then(lambda out: x.copy_(out))
+
+
 def local_allreduce(x: torch.Tensor, local_size: int, *,
                     average: bool = True,
                     comm: Optional[ProcessRanks] = None,
@@ -201,6 +215,14 @@ def broadcast(x: torch.Tensor, root_rank: int, *,
     else:
         p = comm.broadcast(x, root_rank)
     return _result(p.then(lambda row: row.expand_as(x).clone()), async_op)
+
+
+def broadcast_(x: torch.Tensor, root_rank: int, *,
+               comm: Optional[ProcessRanks] = None, async_op: bool = False):
+    """:func:`broadcast` written into ``x`` (returned, or its handle's
+    result): the same bits as the out-of-place op."""
+    return _result(_into(x, broadcast(x, root_rank, comm=comm,
+                                      async_op=True)), async_op)
 
 
 def allgather(x: torch.Tensor, *, comm: Optional[ProcessRanks] = None,

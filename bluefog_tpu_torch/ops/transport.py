@@ -37,12 +37,24 @@ has a decode pool (``BLUEFOG_TPU_WIN_DECODE_THREADS``) that decodes
 frames of different connections in parallel and emits them in arrival
 order.
 
+Wire trace tags (``BLUEFOG_TPU_TRACE_SAMPLE``): one data message in N
+carries ``OP_TRACE_FLAG`` and a 32-byte trailer (:data:`TRACE_TRAILER`:
+the source rank, a sequence number, the origin's monotonic and wall
+clocks and its training step, :func:`set_trace_origin_step`), built by
+:func:`make_trace_tag`, which ``ops/window.py`` appends after the codec, so
+both hot paths ship it as payload; the receiver strips it and the async
+mode's staleness policy reads the step.  Unset, the wire is the same bits.
+
+The native send (``BLUEFOG_TPU_WIN_NATIVE=1``) is one call a message into
+``bf_wintx_send``: through the ``_bf_fastcall`` METH_FASTCALL module where it
+builds (``native.fastcall``), else through ``ctypes``, as in the JAX package;
+:attr:`WindowTransport.send_path` says which (``"python"`` on the Python
+path).
+
 Left out (ROADMAP item 21): the flight recorder, telemetry and the tuner
-hooks, and the wire trace tags on the send side (an inbound tagged
-payload is still stripped of its trailer); with them off the JAX wire is
-the same bits.  The chaos link delay and the runtime linger change go
-with them.  The control ops ``OP_MEMBER`` and ``OP_GANG`` belong to item
-20: the window store drops an inbound one and logs that it came.
+hooks.  The chaos link delay and the runtime linger change go with them.
+The control ops ``OP_MEMBER`` and ``OP_GANG`` belong to item 20: the window
+store drops an inbound one and logs that it came.
 """
 
 from __future__ import annotations
@@ -90,7 +102,8 @@ __all__ = ["WindowTransport", "OP_PUT", "OP_ACCUMULATE", "OP_GET_REQ",
            "OP_GET_REPLY", "OP_FENCE_REQ", "OP_FENCE_ACK", "OP_MUTEX_ACQ",
            "OP_MUTEX_GRANT", "OP_MUTEX_REL", "OP_BATCH", "OP_MEMBER",
            "OP_GANG", "OP_BF16_FLAG", "OP_SPARSE_FLAG", "OP_TRACE_FLAG",
-           "OP_FLAG_MASK", "TRACE_TRAILER", "trace_strip", "sparse_encode",
+           "OP_FLAG_MASK", "TRACE_TRAILER", "make_trace_tag", "trace_strip",
+           "set_trace_origin_step", "trace_origin_step", "sparse_encode",
            "sparse_decode", "stripe_for", "resolve_stripes"]
 
 _log = logging.getLogger("bluefog_tpu_torch")
@@ -104,8 +117,51 @@ _URGENT_OPS = frozenset((OP_GET_REQ, OP_GET_REPLY, OP_FENCE_REQ,
                          OP_FENCE_ACK, OP_MUTEX_ACQ, OP_MUTEX_GRANT,
                          OP_MUTEX_REL, OP_MEMBER, OP_GANG))
 
-# src_rank, seq, origin monotonic us, origin unix us, origin step.
+# src_rank, seq, origin monotonic us, origin unix us, origin step (-1: the
+# sender had no step clock).
 TRACE_TRAILER = struct.Struct("<iIqqq")
+
+_trace_lock = threading.Lock()
+_trace_count = 0
+_trace_seq = 0
+# The sender's training step (the async step clock), stamped into each
+# trailer so that a receiver counts a contribution's age in steps.
+_origin_step = -1
+
+
+def set_trace_origin_step(step: int) -> None:
+    """Publish the sender's origin-step clock to both encoders: this
+    module's :func:`make_trace_tag` and, when the native service is loaded,
+    its own (``bf_trace_set_step``)."""
+    global _origin_step
+    _origin_step = int(step)
+    handle = native.loaded()
+    if handle is not None:
+        handle.bf_trace_set_step(int(step))
+
+
+def trace_origin_step() -> int:
+    return _origin_step
+
+
+def make_trace_tag(src: int) -> Optional[bytes]:
+    """The packed trailer when this outgoing data message is the 1-in-N
+    tagged one, else None.  With ``BLUEFOG_TPU_TRACE_SAMPLE`` unset this is
+    one config check: no counter moves and nothing is allocated (the wire
+    stays bitwise the untagged one)."""
+    period = config.get().trace_sample
+    if period <= 0:
+        return None
+    global _trace_count, _trace_seq
+    with _trace_lock:
+        count = _trace_count
+        _trace_count += 1
+        if count % period:
+            return None
+        _trace_seq += 1
+        seq = _trace_seq
+    return TRACE_TRAILER.pack(src, seq, time.monotonic_ns() // 1000,
+                              time.time_ns() // 1000, _origin_step)
 
 
 def trace_strip(payload):
@@ -413,7 +469,8 @@ class WindowTransport:
     that a commit's host-to-card copy reads pinned memory.
 
     ``tx_bytes`` counts the payload bytes handed to :meth:`send` (what
-    crosses the socket, less the framing)."""
+    crosses the socket, less the framing); ``send_path`` is the native
+    send's binding, ``"fastcall"`` or ``"ctypes"``, or ``"python"``."""
 
     def __init__(self, apply: Callable, *, apply_batch: Callable = None,
                  apply_items: Callable = None, port: int = 0,
@@ -423,6 +480,9 @@ class WindowTransport:
         self._svc = self._lib.bf_winsvc_start(port, cfg.win_max_pending)
         if not self._svc:
             raise OSError(f"cannot start window service on port {port}")
+        # The native encoder's sampling period (the Python sender tags
+        # through make_trace_tag); both off by default.
+        self._lib.bf_trace_configure(int(cfg.trace_sample))
         self._apply = apply
         self._apply_batch = apply_batch
         self._apply_items = apply_items
@@ -441,8 +501,13 @@ class WindowTransport:
         self.tx_bytes = 0
         self.native_path = self.coalesce and bool(cfg.win_native)
         self._tx = None
+        self._fc_send = None
+        self.send_path = "python"
         self.decode_threads = 0
         if self.native_path:
+            fc = native.fastcall()
+            self._fc_send = fc.wintx_send if fc is not None else None
+            self.send_path = "ctypes" if fc is None else "fastcall"
             self._tx = self._lib.bf_wintx_start(
                 self._flush_bytes, int(self._linger * 1e6),
                 self._tx_queue_max, self._retries, self._retry_backoff,
@@ -499,10 +564,17 @@ class WindowTransport:
             urgent = 1 if (op & ~OP_FLAG_MASK) in _URGENT_OPS else 0
             # bf_wintx_send copies the payload into the peer's arena before
             # it returns, so the payload need live only for the call.
-            rc = self._lib.bf_wintx_send(
-                self._tx, hb, port, op, nb, src, dst, float(weight),
-                float(p_weight), payload.ctypes.data, payload.size, urgent,
-                stripe)
+            if self._fc_send is not None:
+                # One METH_FASTCALL call, the payload through the buffer
+                # protocol (no copy: a contiguous uint8 array).
+                rc = self._fc_send(self._tx, hb, port, op, nb, src, dst,
+                                   float(weight), float(p_weight), payload,
+                                   urgent, stripe)
+            else:
+                rc = self._lib.bf_wintx_send(
+                    self._tx, hb, port, op, nb, src, dst, float(weight),
+                    float(p_weight), payload.ctypes.data, payload.size,
+                    urgent, stripe)
             if rc == 0:
                 return
             if rc == -4:

@@ -54,10 +54,27 @@ put).  Across processes :func:`win_wait` of a put means the local send is
 done (the payload handed to TCP), not that the row arrived; remote
 visibility is ordered by :func:`win_fence`, as with ``MPI_Put``.
 
-Left out, raising an error that names its ROADMAP item: the async
-staleness mode (``BLUEFOG_TPU_ASYNC=1``, item 17c), the device-side put
-path (item 18) and the membership and gang control ops (item 20, dropped
-and logged when one arrives).  ``BLUEFOG_TPU_WIN_COMPRESSION`` acts on
+**The async mode** (``BLUEFOG_TPU_ASYNC=1``, armed by the window
+optimizers through :func:`configure_async`): the optimizers drop the
+per-step fence, and every committed accumulate passes the bounded-staleness
+policy.  A contribution's age is the receiver's step clock
+(:func:`set_async_step`) less the origin step in its wire trace tag
+(``BLUEFOG_TPU_TRACE_SAMPLE``), or its wall-clock age over the receiver's
+step period when the tag has no step; an untagged one inherits its edge's
+last estimate.  Past ``BLUEFOG_TPU_ASYNC_STALENESS_STEPS`` it is rejected or
+downweighted (``BLUEFOG_TPU_ASYNC_STALENESS_POLICY``), the mass held back
+kept in the window's stale-residual store until
+:func:`win_fold_stale_residuals` folds it into staging after a fence, so
+push-sum's mass is conserved.  Off, nothing changes: every data path is
+bit for bit the lockstep one.  The arithmetic is the JAX package's, in
+float32 on the window's device: the policy's decisions, the staging, the
+store and P are the same bits.
+
+Left out, raising an error that names its ROADMAP item where it can be
+asked for: the device-side put path (item 18), the membership and gang
+control ops (item 20, dropped and logged when one arrives), and the async
+mode's telemetry (the stale counters and the link observatory's step
+tick, items 21 and 21b).  ``BLUEFOG_TPU_WIN_COMPRESSION`` acts on
 cross-process edges only.
 """
 
@@ -81,7 +98,8 @@ from bluefog_tpu_torch.ops.transport import (
     OP_ACCUMULATE, OP_BF16_FLAG, OP_FENCE_ACK, OP_FENCE_REQ, OP_FLAG_MASK,
     OP_GANG, OP_GET_REPLY, OP_GET_REQ, OP_MEMBER, OP_MUTEX_ACQ,
     OP_MUTEX_GRANT, OP_MUTEX_REL, OP_PUT, OP_SPARSE_FLAG, OP_TRACE_FLAG,
-    sparse_decode, sparse_encode, trace_strip)
+    make_trace_tag, set_trace_origin_step, sparse_decode, sparse_encode,
+    trace_strip)
 from bluefog_tpu_torch.utils import config
 
 __all__ = [
@@ -92,6 +110,8 @@ __all__ = [
     "get_win_version", "win_state_dict", "win_load_state_dict",
     "get_current_created_window_names", "win_associated_p",
     "turn_on_win_ops_with_associated_p", "turn_off_win_ops_with_associated_p",
+    "configure_async", "async_armed", "set_async_step", "async_step_lag",
+    "async_info", "win_fold_stale_residuals", "clear_async_staleness",
 ]
 
 _log = logging.getLogger("bluefog_tpu_torch")
@@ -167,6 +187,10 @@ class _Window:
         self.pinned: Dict[tuple, torch.Tensor] = {}
         self.put_stage_lock = threading.Lock()
         self.reply_stage_lock = threading.Lock()
+        # The async mode's stale-residual store, by edge: the mass the
+        # staleness policy held back, until win_fold_stale_residuals.
+        self.stale_residual: Dict[tuple, torch.Tensor] = {}
+        self.p_stale_residual: Dict[tuple, float] = {}
 
 
 class _Distrib:
@@ -231,7 +255,10 @@ class _WindowStore:
                payload: Optional[torch.Tensor] = None) -> int:
         """Run ``fn`` on the pool; the job returns ``device``, for the
         waiter's stream order.  Called on the caller's thread, it orders
-        the default stream after the caller's (see :func:`_stream`)."""
+        the default stream after the caller's (see :func:`_stream`).
+        Refused while ``suspend()`` is in force."""
+        from bluefog_tpu_torch import basics
+        basics._require_active()
         _default_waits_for_caller(device, payload)
 
         def job():
@@ -363,6 +390,207 @@ def _free_all_windows() -> None:
 
 
 # ---------------------------------------------------------------------------
+# The async mode: the step clock and the bounded-staleness policy
+# ---------------------------------------------------------------------------
+
+class _AsyncGossip:
+    """The process's async-mode state.  ``armed`` is the one check every
+    commit makes: off (the default) every data path is the lockstep one.
+    ``step`` and its EWMA ``step_period`` are this process's step clock;
+    ``peer_step`` the newest origin step seen from each source (from the
+    trace tags), ``edge_age`` the last age estimated on each edge, which an
+    untagged message on that edge inherits."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.armed = False
+        self.staleness_steps = 0
+        self.policy = ("reject", 0.0)
+        self.step = 0
+        self.step_period = 0.0
+        self._last_step_mono = None
+        self.peer_step: Dict[int, int] = {}
+        self.edge_age: Dict[tuple, float] = {}
+
+
+_async = _AsyncGossip()
+
+
+def _set_native_fold(armed: bool) -> None:
+    """The native drain folds accumulates into a put-headed entry only
+    outside the async mode, as :func:`_apply_data_run` does, so the policy
+    sees the same entries on both paths."""
+    from bluefog_tpu_torch import native
+    handle = native.loaded()
+    if handle is not None:
+        handle.bf_winsvc_set_fold_across_put(0 if armed else 1)
+
+
+def configure_async(enabled: Optional[bool] = None) -> bool:
+    """Arm (or disarm) the async mode from the config (``enabled``
+    overrides ``BLUEFOG_TPU_ASYNC``); returns whether it is armed.
+    Disarming clears every estimate, so that a re-arm starts afresh."""
+    cfg = config.get()
+    on = cfg.async_mode if enabled is None else bool(enabled)
+    with _async.lock:
+        _async.staleness_steps = int(cfg.async_staleness_steps)
+        _async.policy = config.parse_staleness_policy(
+            cfg.async_staleness_policy)
+        _async.armed = on
+        if not on:
+            _async.peer_step.clear()
+            _async.edge_age.clear()
+            _async._last_step_mono = None
+            _async.step_period = 0.0
+    _set_native_fold(on)
+    return on
+
+
+def async_armed() -> bool:
+    return _async.armed
+
+
+def set_async_step(step: int) -> None:
+    """Publish this process's training step: ages count against it, and
+    the trace tags carry it as their origin step.  (The JAX package also
+    ticks its link observatory here: ROADMAP item 21b.)"""
+    now = time.monotonic()
+    with _async.lock:
+        prev, _async._last_step_mono = _async._last_step_mono, now
+        _async.step = int(step)
+        if prev is not None and now > prev:
+            dt = now - prev
+            _async.step_period = dt if _async.step_period == 0.0 \
+                else 0.9 * _async.step_period + 0.1 * dt
+    set_trace_origin_step(step)
+
+
+def async_step_lag() -> int:
+    """The newest peer step seen less this process's step (positive: this
+    process is behind); 0 before any tagged message arrived."""
+    with _async.lock:
+        if not _async.peer_step:
+            return 0
+        return max(_async.peer_step.values()) - _async.step
+
+
+def async_info() -> Optional[dict]:
+    """The async mode's state (None when it is not armed)."""
+    with _async.lock:
+        if not _async.armed:
+            return None
+        cfg = config.get()
+        freshest = max(_async.peer_step.values(), default=None)
+        return {
+            "step": _async.step,
+            "staleness_steps": _async.staleness_steps,
+            "policy": cfg.async_staleness_policy,
+            "collect_every": cfg.async_collect_every,
+            "step_lag": (freshest - _async.step)
+            if freshest is not None else 0,
+            "step_period_sec": round(_async.step_period, 6),
+            "peer_steps": dict(_async.peer_step),
+        }
+
+
+def _staleness_factor(name: str, key: tuple, tag) -> tuple:
+    """The policy's decision for one arriving accumulate on edge ``key``
+    (``win.lock`` held): ``(keep, action)``, ``keep`` the share that
+    enters staging and ``action`` None (fresh: the caller takes the
+    lockstep arithmetic), ``"reject"`` (keep 0.0) or ``"downweight"``.
+
+    The age in steps: exact from a tag's origin step; from a tag without
+    one, its wall-clock age over this process's step period; an untagged
+    message inherits its edge's last estimate (fresh before the first)."""
+    if not _async.armed:
+        return 1.0, None
+    src = key[1]
+    with _async.lock:
+        bound = _async.staleness_steps
+        kind, alpha = _async.policy
+        if tag is not None:
+            o_step = tag[4] if len(tag) > 4 else -1
+            if o_step >= 0:
+                age = float(max(0, _async.step - o_step))
+                if o_step > _async.peer_step.get(src, -(1 << 62)):
+                    _async.peer_step[src] = int(o_step)
+            else:
+                age_sec = max(0.0, (time.time_ns() // 1000 - tag[3]) / 1e6)
+                period = _async.step_period
+                age = age_sec / period if period > 0 else 0.0
+            _async.edge_age[(name,) + key] = age
+        else:
+            age = _async.edge_age.get((name,) + key, 0.0)
+    if bound <= 0 or age <= bound:
+        return 1.0, None
+    if kind == "downweight":
+        return alpha, "downweight"
+    return 0.0, "reject"
+
+
+def _divert_stale(win: _Window, key: tuple, contrib: torch.Tensor,
+                  p_mass: float, keep: float) -> None:
+    """Move the share of one stale contribution that was not admitted into
+    the window's stale-residual store (``win.lock`` held).  ``contrib``
+    may view a receive buffer: the store keeps its own tensors."""
+    frac = 1.0 - keep
+    add = contrib.clone() if keep == 0.0 else contrib * frac
+    res = win.stale_residual.get(key)
+    if res is None:
+        win.stale_residual[key] = add
+    else:
+        res += add
+    if _store.associated_p_enabled:
+        win.p_stale_residual[key] = \
+            win.p_stale_residual.get(key, 0.0) + frac * p_mass
+
+
+def win_fold_stale_residuals(name: Optional[str] = None) -> int:
+    """Fold every stale-diverted contribution back into its staging slot
+    (one window, or every window); returns the edges folded.  After a
+    fence nothing is in flight, so staging plus the residuals is exactly
+    the mass the senders shipped: the collect that follows is exact.
+    Residuals of edges the window no longer has are dropped."""
+    with _store.lock:
+        names = [name] if name is not None else list(_store.windows)
+    folded = 0
+    for nm in names:
+        try:
+            win = _store.get(nm)
+        except KeyError:
+            continue
+        with _stream(win.device), win.lock:
+            for key, res in list(win.stale_residual.items()):
+                if key in win.staging:
+                    win.staging[key] += res
+                    win.versions[key] += 1
+                    if _store.associated_p_enabled:
+                        win.p_staging[key] += \
+                            win.p_stale_residual.get(key, 0.0)
+                    folded += 1
+            win.stale_residual.clear()
+            win.p_stale_residual.clear()
+    return folded
+
+
+def clear_async_staleness(ranks=None) -> None:
+    """Forget the async estimates of the sources ``ranks`` (None: every
+    one): a peer gone from the world must not keep its last origin step in
+    the step lag.  (The JAX package also clears its stale counters, item
+    21.)"""
+    with _async.lock:
+        if ranks is None:
+            targets = sorted(set(_async.peer_step)
+                             | {k[2] for k in _async.edge_age})
+        else:
+            targets = [int(r) for r in ranks]
+        for r in targets:
+            _async.peer_step.pop(r, None)
+        for k in [k for k in _async.edge_age if k[2] in targets]:
+            _async.edge_age.pop(k, None)
+
+
+# ---------------------------------------------------------------------------
 # Multi-process plumbing: rank ownership and the transport
 # ---------------------------------------------------------------------------
 
@@ -476,6 +704,7 @@ def init_transport() -> bool:
     if comm is None or comm.nprocs == 1:
         return False
     transport = make_transport(config.get().win_port, basics.device())
+    _set_native_fold(_async.armed)
     try:
         addrs = _exchange_endpoints(
             f"{_local_host_addr()}:{transport.port}", comm)
@@ -593,6 +822,17 @@ def _send_to_proc(proc: int, op: int, name: str, src: int, dst: int,
     host, port = d.proc_addr[proc]
     if payload is None:
         payload = np.empty(0, np.uint8)
+    if payload.size and (op & ~OP_FLAG_MASK) in (OP_PUT, OP_ACCUMULATE):
+        # The sampled data message carries its trace trailer inside the
+        # payload, after any codec (BLUEFOG_TPU_TRACE_SAMPLE; unset, this
+        # is one config check).
+        tag = make_trace_tag(src)
+        if tag is not None:
+            # One copy of the row (the JAX package's bytes concatenation
+            # makes two); the same bytes on the wire.
+            payload = np.concatenate([payload.reshape(-1).view(np.uint8),
+                                      np.frombuffer(tag, np.uint8)])
+            op |= OP_TRACE_FLAG
     d.transport.send(host, port, op, name, src, dst, weight, payload,
                      p_weight, stripe=stripe)
 
@@ -864,23 +1104,37 @@ def _apply_inbound(op: int, name: str, src: int, dst: int, weight: float,
                 (orig_op, name, src, dst, weight, p_weight, bytes(payload)))
             return
     if op in (OP_PUT, OP_ACCUMULATE, OP_GET_REPLY):
+        tag = None
         if traced:
-            payload, _ = trace_strip(payload)
+            payload, tag = trace_strip(payload)
         row = _payload_row(win, payload, compressed, sparse=sparse)
         with _stream(win.device):
             scaled = _to_device(win, row) * weight  # a float32 multiply
             with win.lock:
-                if (dst, src) in win.staging:
+                key = (dst, src)
+                if key in win.staging:
+                    stale = None
                     if op == OP_ACCUMULATE:
-                        win.staging[(dst, src)] += scaled
-                    else:
-                        win.staging[(dst, src)] = scaled
-                    win.versions[dst, src] += 1
-                    if _store.associated_p_enabled:
-                        if op == OP_ACCUMULATE:
-                            win.p_staging[(dst, src)] += p_weight
+                        keep, stale = _staleness_factor(name, key, tag)
+                        if stale is None:
+                            win.staging[key] += scaled
                         else:
-                            win.p_staging[(dst, src)] = p_weight
+                            # The admitted share in, the rest held in the
+                            # stale-residual store: no mass is dropped.
+                            if keep:
+                                win.staging[key] += scaled * keep
+                            _divert_stale(win, key, scaled, p_weight, keep)
+                    else:
+                        win.staging[key] = scaled
+                    if stale != "reject":
+                        win.versions[key] += 1
+                    if _store.associated_p_enabled:
+                        if op != OP_ACCUMULATE:
+                            win.p_staging[key] = p_weight
+                        elif stale is None:
+                            win.p_staging[key] += p_weight
+                        elif keep:
+                            win.p_staging[key] += keep * p_weight
         if op == OP_GET_REPLY:
             with d.cv:
                 key = (name, dst, src)
@@ -970,7 +1224,7 @@ def _commit_native_run(name: str, entries) -> None:
     expected = int(np.prod(win.shape, dtype=np.int64))
     with _stream(win.device), win.lock:
         for (_nm, replace, src, dst, p_mass, puts, accs, vals, _wb,
-             _tr) in entries:
+             trace) in entries:
             key = (dst, src)
             if key not in win.staging:
                 continue
@@ -984,13 +1238,23 @@ def _commit_native_run(name: str, entries) -> None:
                 # On the CPU the row still views the drain's buffer.
                 win.staging[key] = row if win.device.type == "cuda" \
                     else row.clone()
+                win.versions[key] += puts + accs
                 if _store.associated_p_enabled:
                     win.p_staging[key] = p_mass
-            else:
+                continue
+            keep, action = _staleness_factor(name, key, trace)
+            if action is None:
                 win.staging[key] += row
+                win.versions[key] += puts + accs
                 if _store.associated_p_enabled:
                     win.p_staging[key] += p_mass
-            win.versions[key] += puts + accs
+                continue
+            if keep:
+                win.staging[key] += row * keep
+                win.versions[key] += puts + accs
+                if _store.associated_p_enabled:
+                    win.p_staging[key] += keep * p_mass
+            _divert_stale(win, key, row, p_mass, keep)
 
 
 def _apply_data_run(name: str, group) -> None:
@@ -1005,12 +1269,14 @@ def _apply_data_run(name: str, group) -> None:
         for m in group:
             _apply_inbound(*m)
         return
-    entries = []  # [replace, (dst, src), scaled row, p mass, ticks]
+    # [replace, (dst, src), scaled row, p mass, ticks, trace tag or None]
+    entries = []
     with _stream(win.device):
         for (op, _n, src, dst, weight, p_weight, payload) in group:
             try:
+                tag = None
                 if op & OP_TRACE_FLAG:
-                    payload, _ = trace_strip(payload)
+                    payload, tag = trace_strip(payload)
                 row = _payload_row(win, payload, bool(op & OP_BF16_FLAG),
                                    sparse=bool(op & OP_SPARSE_FLAG))
             except ValueError:
@@ -1020,25 +1286,42 @@ def _apply_data_run(name: str, group) -> None:
             scaled = _to_device(win, row) * weight  # fresh: no view kept
             key = (dst, src)
             accumulate = (op & ~OP_FLAG_MASK) == OP_ACCUMULATE
-            if accumulate and entries and entries[-1][1] == key:
+            # The async mode folds no accumulate into a put-headed entry:
+            # puts pass no policy, and the fold would carry the
+            # accumulate's mass past it.  The latest tag governs a run.
+            if accumulate and entries and entries[-1][1] == key \
+                    and (not _async.armed or not entries[-1][0]):
                 entries[-1][2] += scaled
                 entries[-1][3] += p_weight
                 entries[-1][4] += 1
+                if tag is not None:
+                    entries[-1][5] = tag
             else:
-                entries.append([not accumulate, key, scaled, p_weight, 1])
+                entries.append([not accumulate, key, scaled, p_weight, 1,
+                                tag])
         with win.lock:
-            for replace, key, scaled, p_mass, ticks in entries:
+            for replace, key, scaled, p_mass, ticks, tag in entries:
                 if key not in win.staging:
                     continue
                 if replace:
                     win.staging[key] = scaled
+                    win.versions[key] += ticks
                     if _store.associated_p_enabled:
                         win.p_staging[key] = p_mass
-                else:
+                    continue
+                keep, action = _staleness_factor(name, key, tag)
+                if action is None:
                     win.staging[key] += scaled
+                    win.versions[key] += ticks
                     if _store.associated_p_enabled:
                         win.p_staging[key] += p_mass
-                win.versions[key] += ticks
+                    continue
+                if keep:
+                    win.staging[key] += scaled * keep
+                    win.versions[key] += ticks
+                    if _store.associated_p_enabled:
+                        win.p_staging[key] += keep * p_mass
+                _divert_stale(win, key, scaled, p_mass, keep)
 
 
 # ---------------------------------------------------------------------------
@@ -1131,12 +1414,6 @@ def win_create(tensor, name: str, zero_init: bool = False) -> bool:
             "window ops across processes need the window transport, which "
             "bf.init_distributed() starts: without it each process would "
             "gossip with a private copy")
-    if config.get().async_mode:
-        raise NotImplementedError(
-            "BLUEFOG_TPU_ASYNC=1 (the barrier-free async window mode: the "
-            "staleness policy and the stale-residual store) is not ported "
-            "yet (ROADMAP Queue 1, item 17c: async mode); unset it for the "
-            "lockstep window ops")
     n, in_nbrs, out_nbrs = _neighbors_from_topology()
     t = _device_tensor(tensor, f"win_create({name!r})")
     owned = _owned_ranks(n)
@@ -1709,6 +1986,7 @@ def win_mutex(name: str, *, for_self: bool = False,
     lands."""
     from bluefog_tpu_torch import basics
     from bluefog_tpu_torch import topology as topology_util
+    basics._require_active()
     win = _store.get(name)
     me = basics.rank()
     if ranks is None:
@@ -1733,6 +2011,7 @@ def win_fence(name: Optional[str] = None) -> None:
     FENCE_REQ trails our puts on each peer's FIFO (every stripe's), so the
     peer's ack certifies them; the fence ends in ``basics.barrier()``."""
     from bluefog_tpu_torch import basics
+    basics._require_active()
     with _store.lock:
         outstanding = list(_store.handles.items())
     errors = []
@@ -1790,7 +2069,8 @@ def win_flush(wait: bool = True, timeout: Optional[float] = None) -> None:
 def win_state_dict(name: str) -> Dict[str, object]:
     """A window's whole state on the CPU, for checkpointing: the owned
     ranks' main, the staging buffers (keys ``"dst:src"``), the version
-    counters and the associated-P scalars.  Serialized against a running
+    counters, the associated-P scalars and the async mode's stale-residual
+    store (empty outside it).  Serialized against a running
     ``win_update``.  The copy to the host is made here, only when
     called."""
     win = _store.get(name)
@@ -1806,6 +2086,11 @@ def win_state_dict(name: str) -> Dict[str, object]:
             "p_main": {str(r): float(win.p_main[r]) for r in win.owned},
             "p_staging": {f"{d}:{s}": float(v)
                           for (d, s), v in win.p_staging.items()},
+            "stale_residual": {f"{d}:{s}": a.cpu().clone()
+                               for (d, s), a in win.stale_residual.items()},
+            "p_stale_residual": {
+                f"{d}:{s}": float(v)
+                for (d, s), v in win.p_stale_residual.items()},
         }
 
 
@@ -1821,11 +2106,6 @@ def win_load_state_dict(name: str, state: Dict[str, object]) -> None:
     if not isinstance(state.get("main"), dict):
         raise ValueError(f"win_load_state_dict({name!r}): 'main' must map "
                          "each rank to its row (a win_state_dict snapshot)")
-    if state.get("stale_residual"):
-        raise NotImplementedError(
-            "the snapshot holds async-mode stale residuals (BLUEFOG_TPU_ASYNC"
-            "); they are not ported yet (ROADMAP Queue 1, item 17c: async "
-            "mode)")
     main = {int(r): torch.as_tensor(v) for r, v in state["main"].items()}
     if set(main) != set(win.owned):
         raise ValueError(
@@ -1858,6 +2138,17 @@ def win_load_state_dict(name: str, state: Dict[str, object]) -> None:
             win.p_main[int(r)] = float(v)
         for k, v in dict(state["p_staging"]).items():
             win.p_staging[_edge(k)] = float(v)
+        # Optional (snapshots from before the async mode lack it): the
+        # stale-residual store, for the edges the window still has.
+        win.stale_residual.clear()
+        win.p_stale_residual.clear()
+        for k, v in dict(state.get("stale_residual", {})).items():
+            if _edge(k) in win.staging:
+                win.stale_residual[_edge(k)] = torch.as_tensor(v).to(
+                    win.device, copy=True)
+        for k, v in dict(state.get("p_stale_residual", {})).items():
+            if _edge(k) in win.staging:
+                win.p_stale_residual[_edge(k)] = float(v)
 
 
 def get_win_version(name: str, rank: Optional[int] = None) -> Dict[int, int]:

@@ -36,12 +36,21 @@ combines what has arrived, so the trajectories across processes are not
 deterministic; push-sum fences every ``auto_collect_rounds`` steps to
 bound the mass in flight.
 
+The async mode (``BLUEFOG_TPU_ASYNC=1``; ``ops/window.py``'s
+``configure_async``, armed at :meth:`init`): every step publishes the step
+clock (``set_async_step``, which the wire trace tags carry); win_put's
+puts overlap the next step as with ``overlap=True``; push-sum drops its
+``auto_collect_rounds`` fence, and every ``BLUEFOG_TPU_ASYNC_COLLECT_EVERY``
+steps across processes fences the transport, folds the stale residuals
+back into staging and collects exactly (the only barrier left).  Off,
+every step is bit for bit the lockstep one.
+
 Left out, each raising an error that names its ROADMAP item: the fused
 step (``fused=True``, or ``fused=None`` under ``BLUEFOG_TPU_FUSED_STEP=1``,
 item 19b; the variable defaults to 0 in the JAX package, whose eager step,
 ported here, is the bitwise oracle) and its fusion buckets, sharded gossip
-(``shard_specs``, ``shard_groups``, ``num_shards``: item 16), the churn
-hooks (item 20) and the async mode (``BLUEFOG_TPU_ASYNC``, item 17c).
+(``shard_specs``, ``shard_groups``, ``num_shards``: item 16) and the churn
+hooks (item 20).
 """
 
 from __future__ import annotations
@@ -146,8 +155,10 @@ class _WindowOptimizerBase:
     def init(self) -> None:
         """Create the windows from the parameters' current values (the
         constructor does; again after :meth:`free`), resolving the layout
-        as the JAX package's ``init`` does."""
+        as the JAX package's ``init`` does, and arm the async mode from the
+        config (``BLUEFOG_TPU_ASYNC``)."""
         n = basics.size()
+        self._async_on = W.configure_async()
         self._owned = W._owned_ranks(n)
         rows = {p.shape[0] if p.dim() else None for p in self.params}
         if len(rows) != 1:
@@ -271,6 +282,24 @@ class _WindowOptimizerBase:
     def _communicates(self) -> bool:
         return (self.step_count + 1) % self.num_steps_per_communication == 0
 
+    _async_on = False
+
+    def _async_step_begin(self) -> None:
+        """Async mode: publish this step on the step clock (staleness
+        ages count against it; the trace tags carry it).  (The JAX package
+        also sets its step-lag gauge here: ROADMAP item 21.)"""
+        if self._async_on:
+            W.set_async_step(self.step_count)
+
+    def _async_collect_due(self) -> bool:
+        """True on the async mode's periodic exact collect across
+        processes (``BLUEFOG_TPU_ASYNC_COLLECT_EVERY``): fence, fold the
+        stale residuals, collect exactly; fast ranks wait here only."""
+        if not self._async_on or W._store.distrib is None:
+            return False
+        every = config.get().async_collect_every
+        return every > 0 and (self.step_count + 1) % every == 0
+
 
 class DistributedWinPutOptimizer(_WindowOptimizerBase):
     """Push-style async optimizer: adapt locally, ``win_put`` the new
@@ -312,16 +341,20 @@ class DistributedWinPutOptimizer(_WindowOptimizerBase):
     def combine(self, *, dst_weights=None,
                 require_mutex: bool = True) -> None:
         """The second half of :meth:`step`: on communication steps the
-        puts and ``win_update``; then the step counter's advance."""
+        puts and ``win_update``; then the step counter's advance.  The
+        async mode implies ``overlap``: a slow peer's wire never blocks the
+        step."""
+        self._async_step_begin()
         if self._communicates():
             self._drain_pending()
             payloads = self._payloads()
-            if self.overlap:
+            overlap = self.overlap or self._async_on
+            if overlap:
                 payloads = [p.clone() for p in payloads]
             handles = [W.win_put_nonblocking(p, name, dst_weights=dst_weights,
                                              require_mutex=require_mutex)
                        for name, p in zip(self._names, payloads)]
-            if self.overlap:
+            if overlap:
                 # Wake the senders now: the queued gossip rides the wire
                 # during the next forward and backward, not after the
                 # linger.
@@ -367,6 +400,9 @@ class DistributedPullGetOptimizer(_WindowOptimizerBase):
 
     def combine(self, *, src_weights=None,
                 require_mutex: bool = True) -> None:
+        # Gets stay request and reply (a get asks now), but the step clock
+        # is published, as in the JAX package.
+        self._async_step_begin()
         if self._communicates():
             # The put with no edge only refreshes main (self_weight 1).
             for h in [W.win_put_nonblocking(p, name, self_weight=1.0,
@@ -399,7 +435,11 @@ class DistributedPushSumOptimizer(_WindowOptimizerBase):
     (0: never) the step fences the transport first, so that no process
     runs more than that many rounds ahead of a stalled peer and the share
     of a rank's P mass in flight stays bounded (the fence is a barrier:
-    every process steps as often)."""
+    every process steps as often).  The async mode replaces that fence
+    with the staleness policy and the periodic exact collect
+    (``BLUEFOG_TPU_ASYNC_COLLECT_EVERY``): fence, fold the stale residuals,
+    collect; ``backstops`` counts them and ``folded_edges`` lists the
+    edges each folded."""
 
     _zero_init = True
 
@@ -409,6 +449,8 @@ class DistributedPushSumOptimizer(_WindowOptimizerBase):
                  fused=None, fusion_buckets=None):
         W.turn_on_win_ops_with_associated_p()
         self.auto_collect_rounds = int(auto_collect_rounds)
+        self.backstops = 0
+        self.folded_edges: List[int] = []
         super().__init__(base, window_prefix=window_prefix,
                          num_steps_per_communication=num_steps_per_communication,
                          fuse=fuse, layout=layout, fused=fused,
@@ -433,20 +475,32 @@ class DistributedPushSumOptimizer(_WindowOptimizerBase):
                 require_mutex: bool = True) -> None:
         """The accumulate and the collect, every step (the JAX package's
         push-sum ignores ``num_steps_per_communication`` here too)."""
+        self._async_step_begin()
         if dst_weights is None:
             dst_weights = self._outgoing_weights()
         self_share = 1.0 / (self._out_degree() + 1.0)
         # self_weight applies after the edge sends, so the out-edges carry
         # w * p_old and each source's mass (self_share + sum_out w = 1) is
         # conserved: push-sum's column-stochastic invariant.
+        fence_now = (not self._async_on and self.auto_collect_rounds > 0
+                     and W._store.distrib is not None
+                     and (self.step_count + 1)
+                     % self.auto_collect_rounds == 0)
+        backstop_now = self._async_collect_due()
         for h in [W.win_accumulate_nonblocking(
                 p, name, self_weight=self_share, dst_weights=dst_weights,
                 require_mutex=require_mutex)
                 for name, p in zip(self._names, self._payloads())]:
             W.win_wait(h)
-        if (self.auto_collect_rounds > 0 and W._store.distrib is not None
-                and (self.step_count + 1) % self.auto_collect_rounds == 0):
+        if fence_now or backstop_now:
             W.win_fence()
+            if backstop_now:
+                # After the fence nothing is in flight: the residuals
+                # folded in, the collect below is exact.
+                self.backstops += 1
+                self.folded_edges.append(sum(
+                    W.win_fold_stale_residuals(name)
+                    for name in self._names))
         self._rebuild([W._collect_rows(name, require_mutex=require_mutex)
                        for name in self._names])
         self.step_count += 1
@@ -456,6 +510,9 @@ class DistributedPushSumOptimizer(_WindowOptimizerBase):
         parameters (the reference's end-of-run collect); the gathered P
         then sums to ``n``."""
         W.win_fence()
+        # The async mode's held-back mass too (a no-op outside it).
+        for name in self._names:
+            W.win_fold_stale_residuals(name)
         self._rebuild([W._collect_rows(name, require_mutex=require_mutex)
                        for name in self._names])
 

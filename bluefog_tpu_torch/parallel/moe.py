@@ -147,9 +147,12 @@ def moe_apply(expert_fn: Callable, expert_params, x: torch.Tensor,
     for i in range(m):
         gate, keep, slot = _plan(router_logits[i], E, capacity)
         my_keep = keep[:, lo + i]
-        xe = (slot.T * my_keep[None, :]) @ x[i]                  # (C, d)
+        # The plan in the tokens' dtype, as SwitchMlp casts its dispatch
+        # (a no-op in float32).
+        xe = (slot.T * my_keep[None, :]).to(x.dtype) @ x[i]       # (C, d)
         ye = expert_fn(tuple(p[i] for p in expert_params), xe)   # (C, d)
-        parts.append(((gate * my_keep)[:, None] * slot) @ ye)     # (T, d)
+        parts.append(((gate * my_keep)[:, None] * slot).to(ye.dtype)
+                     @ ye)                                       # (T, d)
     parts = torch.stack(parts)
     y = (C.allreduce(parts, average=False) if transport is None
          else _ExpertSum.apply(parts, transport))

@@ -36,6 +36,24 @@ collectives written out:
   re-gathers K/V.
 - the **vocabulary slices'** logits are gathered, so the loss sees the whole
   softmax.
+- **switch-MoE blocks** (``cfg.num_experts > 0``) take one of the two layouts
+  of :func:`tp_param_specs`: without ``ep_axis`` the experts are whole on
+  every tp shard, and the router, the dispatch and the experts run as
+  ``models.transformer.SwitchMlp`` on the block's replicated input; with
+  ``ep_axis`` expert ``e`` lives on rank ``e`` of that axis (one expert a
+  rank), and the block runs ``parallel.moe.moe_apply`` over it.  There every
+  rank computes the same objective from the summed output, so each rank's
+  row carries ``1 / E`` of it (the JAX package's divide-by-E convention) and
+  the sum's backward adds them back; across processes the block's input and
+  router logits pass Megatron's *f* over the expert axis, so the router and
+  the residual stream get the whole gradient.  The block's load-balancing
+  loss comes out as ``TransformerLM``'s does (``forward(..., moe_aux=[])``).
+- **remat** (``cfg.remat``, ``cfg.remat_policy``): each block runs through
+  ``models.transformer.run_block``, as in the unsharded model, so its
+  recompute in the backward runs the block's collectives again (the
+  shards' *f*, ``tp::row_sum``, the kv gather, the expert sums), on every
+  process, in the same order, since every process backpropagates the same
+  graph.
 
 The tensor-parallel axis has the form of ``parallel.ring_attention``'s
 sequence axis (``ops.p2p.shard_axis``): an ``int`` ``n`` holds all ``n`` shards
@@ -48,6 +66,7 @@ convention: the loss is not divided by the axis size).
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
@@ -56,11 +75,14 @@ from torch import nn
 from torch.autograd.profiler import record_function
 
 from bluefog_tpu_torch.models.convert import flax_leaf
-from bluefog_tpu_torch.models.transformer import (RMSNorm, TransformerConfig,
-                                                  apply_rope)
+from bluefog_tpu_torch.models.transformer import (RMSNorm, SwitchMlp,
+                                                  TransformerConfig,
+                                                  apply_rope, block_policy,
+                                                  run_block)
 from bluefog_tpu_torch.ops.collective import _rank_sum
 from bluefog_tpu_torch.ops.flash_attention import flash_attention
 from bluefog_tpu_torch.ops.p2p import ProcessRanks, shard_axis
+from bluefog_tpu_torch.parallel.moe import load_balance_loss, moe_apply
 
 __all__ = ["tp_param_specs", "tp_shard_params", "TensorParallelLM"]
 
@@ -201,6 +223,21 @@ class _GatherShards(torch.autograd.Function):
         return g[..., lo:lo + ctx.c], None, None
 
 
+class _EpRow(torch.autograd.Function):
+    """Row 0 of ``moe_apply``'s output (every row holds the same sum); the
+    backward hands each of this process's ``m`` expert ranks ``1 / E`` of
+    the cotangent, which the sum's backward adds over the ``E`` ranks."""
+
+    @staticmethod
+    def forward(ctx, out, n_experts):
+        ctx.m, ctx.E = out.shape[0], n_experts
+        return out[0].clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g / ctx.E)[None].expand((ctx.m,) + tuple(g.shape)), None
+
+
 class _Shards(nn.Module):
     """``m`` shards of one Dense layer: ``weight`` ``(m, out, in)``, shard
     ``i`` an ``nn.Linear.weight``."""
@@ -223,16 +260,32 @@ def _cut(n: int, size: int, what: str) -> int:
     return size // n
 
 
+class _ExpertShards(nn.Module):
+    """A MoE block's router (whole) and this process's ``m`` experts of an
+    expert axis of ``E`` ranks, one expert a rank: ``experts_up`` ``(m, 1,
+    d, hidden)``, ``experts_down`` ``(m, 1, hidden, d)``, as
+    :func:`tp_shard_params` cuts the stacks."""
+
+    def __init__(self, cfg: TransformerConfig, m: int):
+        super().__init__()
+        d, E = cfg.embed_dim, cfg.num_experts
+        hidden = cfg.mlp_ratio * d
+        self.router = nn.Linear(d, E, bias=False)
+        self.experts_up = nn.Parameter(torch.empty(m, 1, d, hidden))
+        self.experts_down = nn.Parameter(torch.empty(m, 1, hidden, d))
+
+
 class _Block(nn.Module):
     """One block's parameters, named after ``models.transformer.Block``'s;
-    the cut ones hold this process's shards."""
+    the cut ones hold this process's shards (a MoE block's experts: whole,
+    or this process's ranks of the expert axis, ``m_ep`` of them)."""
 
-    def __init__(self, cfg: TransformerConfig, n: int, m: int):
+    def __init__(self, cfg: TransformerConfig, n: int, m: int,
+                 m_ep: Optional[int] = None):
         super().__init__()
         E, h = cfg.embed_dim, cfg.num_heads
         kv_h = cfg.num_kv_heads or h
         d = E // h
-        hidden = _cut(n, cfg.mlp_ratio * E, "the mlp hidden width")
         _cut(n, h, "num_heads")
         self.RMSNorm_0 = RMSNorm(E, cfg.dtype)
         if kv_h == h:
@@ -242,6 +295,11 @@ class _Block(nn.Module):
             self.kv = _Shards(m, _cut(n, 2 * kv_h * d, "the kv width"), E)
         self.proj = _Shards(m, E, E // n)
         self.RMSNorm_1 = RMSNorm(E, cfg.dtype)
+        if cfg.num_experts > 0:
+            self.moe = (SwitchMlp(cfg) if m_ep is None
+                        else _ExpertShards(cfg, m_ep))
+            return
+        hidden = _cut(n, cfg.mlp_ratio * E, "the mlp hidden width")
         if cfg.mlp == "swiglu":
             self.gate = _Shards(m, hidden, E)
         self.up = _Shards(m, hidden, E)
@@ -254,26 +312,37 @@ class TensorParallelLM(nn.Module):
     (load :func:`tp_shard_params`'s result); ``forward(tokens, positions)``
     returns the whole ``(B, S, vocab)`` float32 logits, equal to the
     unsharded model's.  MHA or GQA, learned or rotary positions, GELU or
-    SwiGLU; no MoE blocks and no remat.  ``attn_impl`` (default
+    SwiGLU or switch-MoE blocks, with or without remat.  ``ep_axis`` (MoE
+    only; ``None``: the experts whole on every shard) cuts the experts over
+    an expert axis of ``num_experts`` ranks, in ``axis``' form; pass the
+    same ``ep_axis`` to :func:`tp_shard_params`.  ``attn_impl`` (default
     ``ops.flash_attention``) takes ``(q, k, v, causal=)`` in ``(B, S, H,
     D)``."""
 
     def __init__(self, cfg: TransformerConfig, axis: Axis,
-                 attn_impl: Optional[Callable] = None):
+                 attn_impl: Optional[Callable] = None, *,
+                 ep_axis: Optional[Axis] = None):
         super().__init__()
-        if cfg.num_experts:
-            raise NotImplementedError("tensor parallelism of MoE blocks: "
-                                      "shard the experts with moe_apply")
-        if cfg.remat:
-            raise NotImplementedError("tensor parallelism with remat")
         self.cfg = cfg
         self.n, self.lo, self.m, self.transport = shard_axis(axis)
+        self.ep_axis, self.ep_transport = ep_axis, None
+        m_ep = None
+        if ep_axis is not None:
+            if not cfg.num_experts:
+                raise ValueError("ep_axis cuts MoE experts; the model has "
+                                 "none (num_experts=0)")
+            n_ep, _, m_ep, self.ep_transport = shard_axis(ep_axis)
+            if n_ep != cfg.num_experts:
+                raise ValueError(
+                    f"the expert axis has {n_ep} ranks and the model "
+                    f"{cfg.num_experts} experts: moe_apply places one "
+                    "expert a rank")
         self.attn = attn_impl or flash_attention
         E = cfg.embed_dim
         self.wte = nn.Embedding(cfg.vocab_size, E)
         self.wpe = (nn.Embedding(cfg.max_seq_len, E)
                     if cfg.pos_encoding == "learned" else None)
-        self.blocks = nn.ModuleList(_Block(cfg, self.n, self.m)
+        self.blocks = nn.ModuleList(_Block(cfg, self.n, self.m, m_ep)
                                     for _ in range(cfg.num_layers))
         self.RMSNorm_0 = RMSNorm(E, cfg.dtype)
         self.lm_head = _Shards(self.m, _cut(self.n, cfg.vocab_size,
@@ -293,6 +362,12 @@ class TensorParallelLM(nn.Module):
             if self.transport is None:
                 return _rank_sum(partial)
             return _SumShards.apply(partial, self.transport)
+
+    def _f_ep(self, y):
+        """Megatron's *f* over the expert axis across processes (each
+        process's experts see only their share of the tokens' gradient)."""
+        return y if self.ep_transport is None else _ToShards.apply(
+            y, self.ep_transport)
 
     def _gather(self, x, replicated: bool):
         if self.transport is None:
@@ -328,6 +403,41 @@ class TensorParallelLM(nn.Module):
 
     # -- the model -----------------------------------------------------------
 
+    def _experts(self, moe: _ExpertShards, y):
+        """The MoE sublayer over the expert axis: ``SwitchMlp``'s routing
+        groups, each through ``moe_apply``; returns the output and the
+        load-balancing loss."""
+        cfg, dt = self.cfg, self.cfg.dtype
+        B, S, d = y.shape
+        E = cfg.num_experts
+        T = B * S
+        g = min(cfg.router_group_size, T)
+        if T % g:
+            raise ValueError(
+                f"the expert axis routes whole groups: {T} tokens do not "
+                f"fill groups of {g} (router_group_size)")
+        capacity = max(1, int(cfg.expert_capacity_factor * g / E))
+        xt = y.reshape(T // g, g, d)
+        with record_function("moe::plan"):
+            logits = moe.router(xt.float())
+            # SwitchMlp's statistic: every token of a whole group valid.
+            aux = load_balance_loss(logits,
+                                    logits.new_ones(logits.shape[:2])).mean()
+        m = moe.experts_up.shape[0]
+
+        def expert(w, z):
+            up, down = w
+            return F.gelu(z @ up[0].to(dt), approximate="tanh") @ \
+                down[0].to(dt)
+        parts = []
+        for xg, lg in zip(self._f_ep(xt.to(dt)), self._f_ep(logits)):
+            out = moe_apply(expert, (moe.experts_up, moe.experts_down),
+                            xg.expand((m,) + tuple(xg.shape)),
+                            lg.expand((m,) + tuple(lg.shape)),
+                            axis=self.ep_axis, capacity=capacity)
+            parts.append(_EpRow.apply(out, E))
+        return torch.stack(parts).reshape(B, S, d), aux
+
     def _block(self, blk: _Block, x, positions):
         cfg, dt = self.cfg, self.cfg.dtype
         h = cfg.num_heads
@@ -349,6 +459,13 @@ class TensorParallelLM(nn.Module):
         o = self.attn(q, k, v, causal=cfg.causal)        # (m * B, S, hl, d)
         x = x + self._row(o.reshape(self.m, B * S, hl * d), blk.proj,
                           dt).view(B, S, E)
+        if cfg.num_experts > 0:
+            # The block's input is replicated: the experts-whole layout
+            # runs SwitchMlp on it as the unsharded model does.
+            y = blk.RMSNorm_1(x)
+            y, aux = (blk.moe(y) if self.ep_axis is None
+                      else self._experts(blk.moe, y))
+            return x + y, aux
         y = self._f(blk.RMSNorm_1(x))
         if cfg.mlp == "swiglu":
             u = F.silu(_column(y, blk.gate, dt)) * _column(y, blk.up, dt)
@@ -357,9 +474,12 @@ class TensorParallelLM(nn.Module):
         u = u.view(B * S, self.m, -1).transpose(0, 1)
         return x + self._row(u, blk.down, dt).view(B, S, E)
 
-    def forward(self, tokens, positions=None):
+    def forward(self, tokens, positions=None,
+                moe_aux: Optional[list] = None):
         """Logits ``(B, S, vocab)`` in float32 for int tokens ``(B, S)``
-        (``positions``: optional ``(B, S)`` or ``(1, S)`` position ids)."""
+        (``positions``: optional ``(B, S)`` or ``(1, S)`` position ids;
+        ``moe_aux``: a list that receives each MoE block's load-balancing
+        loss, in block order, as ``TransformerLM``'s)."""
         cfg = self.cfg
         B, S = tokens.shape
         x = self.wte(tokens).to(cfg.dtype)
@@ -368,8 +488,15 @@ class TensorParallelLM(nn.Module):
         if self.wpe is not None:
             x = x + self.wpe(positions).to(cfg.dtype)
         positions = positions.expand(B, S)
-        for blk in self.blocks:
-            x = self._block(blk, x, positions)
+        for i, blk in enumerate(self.blocks):
+            # The aux loss is an output of the (checkpointed) block, so a
+            # recompute in the backward cannot add it twice.
+            x = run_block(functools.partial(self._block, blk),
+                          block_policy(cfg, i), x, positions)
+            if cfg.num_experts > 0:
+                x, aux = x
+                if moe_aux is not None:
+                    moe_aux.append(aux)
         x = self._f(self.RMSNorm_0(x).float())
         return self._gather(_column(x, self.lm_head, torch.float32),
                             replicated=True)

@@ -13,10 +13,14 @@ The run checks that the loss fell and that the qkv weight is cut over tp.
 On the CPU the model is the JAX example's width 128 in float32 (heads of 16,
 the plain attention twin); the flash kernels take bfloat16 and heads of 64 or
 128, so on CUDA it is width 512 in bfloat16 (heads of 64), through K1-K3.
+``--num-experts`` makes its blocks switch-MoE blocks (GELU experts, whole on
+every tp shard) and ``--remat`` recomputes each block in the backward.
 
     python -m bluefog_tpu_torch.tensor_parallel_training
     python -m bluefog_tpu_torch.tensor_parallel_training --device cpu \\
         --steps 20 --tp 4
+    python -m bluefog_tpu_torch.tensor_parallel_training --device cpu \\
+        --steps 20 --num-experts 4 --remat
 """
 
 from __future__ import annotations
@@ -108,6 +112,10 @@ def build_parser():
     ap.add_argument("--seq-len", type=int, default=64)
     ap.add_argument("--ranks", type=int, default=8,
                     help="virtual devices (the JAX example's device count)")
+    ap.add_argument("--num-experts", type=int, default=0,
+                    help="switch-MoE blocks of this many GELU experts")
+    ap.add_argument("--remat", action="store_true",
+                    help="recompute each block in the backward")
     ap.add_argument("--device", default="cuda")
     return ap
 
@@ -128,7 +136,9 @@ def main(argv=None) -> dict:
     cfg = TransformerConfig(
         vocab_size=VOCAB, num_layers=2, num_heads=8,
         embed_dim=128 if cpu else 512, max_seq_len=args.seq_len,
-        dtype=torch.float32 if cpu else torch.bfloat16, mlp="swiglu")
+        dtype=torch.float32 if cpu else torch.bfloat16,
+        mlp="gelu" if args.num_experts else "swiglu",
+        num_experts=args.num_experts, remat=args.remat)
     toks = torch.from_numpy(synthetic_batch(args.batch, args.seq_len)).to(dev)
     tokens = toks[:, :-1].reshape(dp, -1, args.seq_len)
     targets = toks[:, 1:].reshape(dp, -1, args.seq_len)

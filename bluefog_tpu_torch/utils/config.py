@@ -26,9 +26,12 @@ static oracle gives without a placement model (item 16).
 | BLUEFOG_TPU_WIN_RETRIES       | 1     | transient-send retries before ConnectionError |
 | BLUEFOG_TPU_WIN_RETRY_BACKOFF_MS | 50 | base of the jittered exponential retry backoff |
 | BLUEFOG_TPU_WIN_TIMEOUT       | 300   | seconds a window op waits for a peer (fence acks, get replies, mutex grants, flushes) |
-| BLUEFOG_TPU_TRACE_SAMPLE      | 0     | wire trace tags (not ported: item 21; refused when set) |
+| BLUEFOG_TPU_TRACE_SAMPLE      | 0     | wire trace-tag sampling: "1/N" (or plain "N") tags every Nth put/accumulate with a (src, seq, origin-time, origin-step) trailer; 0/unset = off, wire bitwise identical |
 | BLUEFOG_TPU_FUSED_STEP        | 0     | whole-step compilation of the window optimizers (not ported: item 19b) |
-| BLUEFOG_TPU_ASYNC             | 0     | barrier-free async window mode (not ported: item 17c) |
+| BLUEFOG_TPU_ASYNC             | 0     | 1: barrier-free async window-optimizer mode (no per-step fence, bounded-staleness policy); 0 = bitwise lockstep |
+| BLUEFOG_TPU_ASYNC_STALENESS_STEPS | 0 | staleness bound k (origin steps); 0 = unbounded (accept everything) |
+| BLUEFOG_TPU_ASYNC_STALENESS_POLICY | reject | reject (full mass to the stale-residual store) or downweight:<alpha> (alpha enters staging, 1-alpha to the store) |
+| BLUEFOG_TPU_ASYNC_COLLECT_EVERY | 64  | every N async steps: fence, fold the stale residuals back, exact collect; 0 = never |
 | BLUEFOG_TPU_CHURN             | 0     | churn supervisor hooks of the window optimizers (not ported: item 20) |
 | BLUEFOG_TPU_HIER              | 0     | 1: enable two-level hierarchical gossip |
 | BLUEFOG_TPU_HIER_OUTER_EVERY  | 1     | outer (inter-machine) cadence: every k steps |
@@ -47,6 +50,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 __all__ = ["Config", "get", "reload", "override", "parse_sparse_frac",
+           "parse_staleness_policy", "compression_byte_factor",
            "COMPRESSION_VOCAB"]
 
 COMPRESSION_VOCAB = ("none", "bf16", "sparse:<frac>")
@@ -68,6 +72,20 @@ def parse_sparse_frac(value: str) -> float:
     return frac
 
 
+def compression_byte_factor(value: str) -> float:
+    """The wire bytes of a compression spec against the raw row's:
+    ``none`` 1.0, ``bf16`` 0.5, ``sparse:<frac>`` the fraction."""
+    if value in (None, "none"):
+        return 1.0
+    if value == "bf16":
+        return 0.5
+    if isinstance(value, str) and value.startswith("sparse"):
+        return parse_sparse_frac(value)
+    raise ValueError(
+        f"unknown compression {value!r}; expected one of "
+        f"{', '.join(COMPRESSION_VOCAB)}")
+
+
 def _validated_compression(value: str, var: str) -> str:
     if value in ("none", "bf16"):
         return value
@@ -78,6 +96,64 @@ def _validated_compression(value: str, var: str) -> str:
         f"{var}={value!r} is not supported; expected one of "
         f"{', '.join(COMPRESSION_VOCAB)} (a typo here would otherwise "
         "silently disable compression)")
+
+
+def parse_staleness_policy(value: str):
+    """Parse ``BLUEFOG_TPU_ASYNC_STALENESS_POLICY`` into ``(kind, alpha)``:
+    ``("reject", 0.0)`` or ``("downweight", alpha)`` with alpha in (0, 1).
+    A typo fails loudly: a misread policy would either drop fresh gossip or
+    admit arbitrarily stale mass."""
+    if value == "reject":
+        return ("reject", 0.0)
+    if value.startswith("downweight"):
+        if ":" not in value:
+            raise ValueError(
+                f"malformed {value!r}: use 'downweight:<alpha>' "
+                "(e.g. 'downweight:0.25')")
+        try:
+            alpha = float(value.split(":", 1)[1])
+        except ValueError:
+            raise ValueError(
+                f"malformed {value!r}: the alpha must be a float in "
+                "(0, 1), e.g. 'downweight:0.25'") from None
+        if not 0.0 < alpha < 1.0:
+            raise ValueError(
+                f"downweight alpha must be in (0, 1), got {alpha} "
+                "(1.0 would be a no-op — raise "
+                "BLUEFOG_TPU_ASYNC_STALENESS_STEPS instead; 0.0 is "
+                "'reject')")
+        return ("downweight", alpha)
+    raise ValueError(
+        f"BLUEFOG_TPU_ASYNC_STALENESS_POLICY={value!r} is not supported; "
+        "expected 'reject' or 'downweight:<alpha>'")
+
+
+def _validated_staleness_policy(value: str) -> str:
+    parse_staleness_policy(value)  # raises on malformed input
+    return value
+
+
+def _parse_trace_sample(raw: Optional[str]) -> int:
+    """``BLUEFOG_TPU_TRACE_SAMPLE``: ``"1/N"`` or a plain period ``N``
+    tags every Nth data message; ``0``, ``off``, empty or unset disable
+    tagging (the wire stays bitwise identical).  A typo fails loudly."""
+    if raw is None:
+        return 0
+    raw = raw.strip()
+    if raw in ("", "0", "off"):
+        return 0
+    if raw.startswith("1/"):
+        raw = raw[2:]
+    try:
+        period = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"BLUEFOG_TPU_TRACE_SAMPLE={raw!r} is not '1/N', an integer "
+            "period N, or 0/off") from None
+    if period < 0:
+        raise ValueError(
+            f"BLUEFOG_TPU_TRACE_SAMPLE period must be >= 0, got {period}")
+    return period
 
 
 def _flag(name: str, default: bool = False) -> bool:
@@ -117,8 +193,12 @@ class Config:
     win_retries: int
     win_retry_backoff_ms: float
     win_timeout: float
+    trace_sample: int
     fused_step: bool
     async_mode: bool
+    async_staleness_steps: int
+    async_staleness_policy: str
+    async_collect_every: int
     churn: bool
     hier: bool
     hier_outer_every: int
@@ -130,11 +210,6 @@ class Config:
     @classmethod
     def from_env(cls) -> "Config":
         env = os.environ
-        if env.get("BLUEFOG_TPU_TRACE_SAMPLE", "").strip() not in (
-                "", "0", "off"):
-            raise NotImplementedError(
-                "BLUEFOG_TPU_TRACE_SAMPLE (wire trace tags) is not ported "
-                "yet (ROADMAP Queue 1, item 21: tracing); unset it")
         return cls(
             win_port=int(env.get("BLUEFOG_TPU_WIN_PORT", "0")),
             win_max_pending=int(env.get("BLUEFOG_TPU_WIN_MAX_PENDING",
@@ -156,8 +231,17 @@ class Config:
             win_retry_backoff_ms=float(env.get(
                 "BLUEFOG_TPU_WIN_RETRY_BACKOFF_MS", "50")),
             win_timeout=float(env.get("BLUEFOG_TPU_WIN_TIMEOUT", "300")),
+            trace_sample=_parse_trace_sample(
+                env.get("BLUEFOG_TPU_TRACE_SAMPLE")),
             fused_step=_flag("BLUEFOG_TPU_FUSED_STEP"),
             async_mode=_flag("BLUEFOG_TPU_ASYNC"),
+            async_staleness_steps=int(env.get(
+                "BLUEFOG_TPU_ASYNC_STALENESS_STEPS", "0")),
+            async_staleness_policy=_validated_staleness_policy(
+                env.get("BLUEFOG_TPU_ASYNC_STALENESS_POLICY",
+                        "reject").lower()),
+            async_collect_every=int(env.get(
+                "BLUEFOG_TPU_ASYNC_COLLECT_EVERY", "64")),
             churn=_flag("BLUEFOG_TPU_CHURN"),
             hier=_flag("BLUEFOG_TPU_HIER"),
             hier_outer_every=int(env.get("BLUEFOG_TPU_HIER_OUTER_EVERY",

@@ -242,11 +242,46 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    under win_put (batch 64, 102 MB rows); pull-get and push-sum at 2
    blocks, 2 steps each (pull-get shrinks the rms spread each step,
    push-sum's P sums to 4 after ``collect``).
-38. ``{"kernels": [...]}`` (launches from the ``train``, ``llama_train``,
+38. ``tp_moe_reference`` — the switch-MoE LM at the 1.3B LM's widths
+   (``TP_MOE_LAYERS`` = 2 blocks of 8 GELU experts, vocab 32000, one
+   sequence of 2048) in float32, dense attention, TF32 off: the card's
+   ``TensorParallelLM`` at tp 2 with ``remat=True``, its experts whole on
+   each shard and cut over an 8-rank expert axis (``moe_apply``), against
+   the card's unsharded model on the same weights: the routing decisions
+   that differ (reported), logits and every gradient (loss with the aux
+   losses) by relative error (``REF_LOGITS_TOL``, ``REF_GRAD_TOL``), and
+   remat against none.
+39. ``tp_moe_train`` — dp 2 x tp 2 of that MoE LM (bf16 over float32,
+   K1-K3 on the head shards, experts whole on each shard, full remat,
+   batch 2 a dp rank), ATC SGD over the one-peer Exp2 walk,
+   ``TP_MOE_STEPS`` steps: step ms (the first left out), tokens/s, peak
+   memory, the spread exactly 0.0 after every combine, launches a step (K1
+   2 x layers x dp, forward and recompute; K2, K3 layers x dp), and the
+   recompute's share of the step (one more step without remat, timed).
+40. ``win_async_ops`` — the async window mode across 2 processes of 2
+   ranks on card 0 (as ``win_dist_ops``), on both transport paths, under
+   ``reject`` and ``downweight:0.5`` with a bound of 1 step and every data
+   message tagged: ``WIN_ASYNC_PHASES``, each setting the step clocks by
+   hand, then tagged ``win_accumulate``s of (4, 2^20) float32 rows and a
+   fence; the staging, the stale-residual store, P and the versions bit
+   for bit the same sequence's run on the CPU (the same workers with
+   ``--worker ... cpu``); after a fence and ``win_fold_stale_residuals``
+   the staging is exactly what the senders shipped.
+41. ``win_async_train`` — ``BLUEFOG_TPU_ASYNC=1``, ``TRACE_SAMPLE=1``,
+   ``STALENESS_STEPS=1``, ``COLLECT_EVERY=3`` across the same 2 x 2, process
+   1 sleeping ``WIN_ASYNC_SLEEP`` s before each step (a straggler): the
+   benchmark's win_put LM at 4 blocks and push-sum at 2 blocks, each
+   ``WIN_ASYNC_LOCKSTEP_STEPS`` lockstep step then ``WIN_ASYNC_STEPS``
+   async ones (2 and 3) in the same run: step ms of each,
+   ``async_info()``'s step lag, the edges folded at each backstop, the
+   remote mutex's grant waits, K1-K3 launches, and push-sum's P summing
+   to 4.0 after each backstop.
+42. ``{"kernels": [...]}`` (launches from the ``train``, ``llama_train``,
    ``moe_train``, ``ring_train``, ``ulysses_train``, ``dp_sp_train``,
    ``tp_train``, ``pp_train``, ``pp_variants``, ``hier_train``,
-   ``winput_train``, ``win_variants`` and ``win_dist_train`` phases, each
-   path's beside), then the ``nvidia-smi`` line, then the last line
+   ``winput_train``, ``win_variants``, ``win_dist_train``,
+   ``tp_moe_train`` and ``win_async_train`` phases, each path's beside),
+   then the ``nvidia-smi`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a GPU or outside the repository.
@@ -310,6 +345,24 @@ WIN_DIST_VARIANT_LAYERS = 2  # win_dist_train's pull-get and push-sum,
 WIN_DIST_VARIANT_STEPS = 2   # 2 steps each
 WIN_DIST_BF16_TOL = 1e-2     # bf16 window compression vs exact: rtol, atol
 WIN_DIST_TIMEOUT = 600       # seconds a worker group may take
+TP_MOE_LAYERS = 2            # tp_moe_*: the MoE LM's depth, cut for time
+TP_MOE_EXPERTS = 8           # GELU experts a block (docs/performance.md)
+TP_MOE_STEPS = 3             # tp_moe_train: steps (the first left out)
+WIN_ASYNC_COLS = 1 << 20     # win_async_ops: the rows' width (float32)
+# win_async_ops: each phase's step of process 0 and 1 (the receiver's clock
+# and the origin step its sends carry); with a bound of 1 step, phase 0's
+# and phase 2's older rows are stale at their receivers.
+WIN_ASYNC_PHASES = ((10, 7), (11, 11), (12, 14), (15, 14))
+WIN_ASYNC_POLICIES = ("reject", "downweight:0.5")
+WIN_ASYNC_PUT_LAYERS = 4     # win_async_train: win_put's depth (as
+WIN_ASYNC_PUSHSUM_LAYERS = 2  # win_dist_train's) and push-sum's
+# Async steps of each (push-sum: a backstop at the 3rd), and the lockstep
+# steps beside them; cut to keep the smoke's time.
+WIN_ASYNC_STEPS = {"win_put": 2, "push_sum": 3}
+WIN_ASYNC_LOCKSTEP_STEPS = 1
+WIN_ASYNC_SLEEP = 1.5        # seconds process 1 sleeps before each step
+WIN_ASYNC_KNOBS = dict(async_mode=True, trace_sample=1,
+                       async_staleness_steps=1, async_collect_every=3)
 BOUND_BYTES = 1 << 30        # path_bounds: one copy of 1 GiB a leg
 LM_WIDTHS = {"width": 2048, "heads": 16, "seq": 2048, "vocab": 32000}
 DEVICE = "cuda"              # the new phases' device ("cpu" to rehearse)
@@ -1604,6 +1657,199 @@ def tp_train_phase(layers=LAYERS, steps=4):
     return launches
 
 
+def moe_loss(model, tokens, routes=None):
+    """Next-token cross-entropy plus 0.01 x the blocks' load-balancing
+    losses; ``routes`` receives each block's routing decisions (a forward
+    hook on the router, the first forward only)."""
+    import torch
+    import torch.nn.functional as F
+    hooks = []
+    if routes is not None:
+        for blk in model.blocks:
+            hooks.append(blk.moe.router.register_forward_hook(
+                lambda m, i, o: routes.append(o.argmax(-1))))
+    aux = []
+    logits = model(tokens, moe_aux=aux)
+    for h in hooks:
+        h.remove()
+    loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           torch.roll(tokens, -1, 1).reshape(-1))
+    return logits, loss + 0.01 * torch.stack(aux).sum()
+
+
+def check_tp_moe_reference(seed):
+    """``tp_moe_reference``: the MoE LM at full width, float32, dense
+    attention: ``TensorParallelLM`` at tp 2 with remat, experts whole and
+    over an 8-rank expert axis, against the unsharded model on the card;
+    and remat against none."""
+    import torch
+
+    from bluefog_tpu_torch.models.transformer import (TransformerConfig,
+                                                      TransformerLM,
+                                                      local_attention)
+    from bluefog_tpu_torch.parallel import tensor_parallel as TPL
+    dev = torch.device(DEVICE)
+    w = LM_WIDTHS
+
+    def cfg(remat):
+        return TransformerConfig(
+            vocab_size=w["vocab"], num_layers=TP_MOE_LAYERS,
+            num_heads=w["heads"], embed_dim=w["width"],
+            max_seq_len=w["seq"], num_experts=TP_MOE_EXPERTS,
+            dtype=torch.float32, remat=remat)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    full = TransformerLM(cfg(False)).to(dev)
+    full.reset_parameters(g)
+    tokens = torch.randint(0, w["vocab"], (1, w["seq"]), generator=g,
+                           device=dev)
+    want_routes = []
+    want_logits, loss = moe_loss(full, tokens, want_routes)
+    loss.backward()
+    want = {k: p.grad for k, p in full.named_parameters()}
+    out = {"params": sum(p.numel() for p in full.parameters())}
+    for layout, ep in (("whole", None), ("ep", TP_MOE_EXPERTS)):
+        model = TPL.TensorParallelLM(cfg(True), 2, local_attention,
+                                     ep_axis=ep).to(dev)
+        model.load_state_dict(TPL.tp_shard_params(full, full.state_dict(),
+                                                  2, ep_axis=ep))
+        routes = []
+        sync()
+        t0 = time.perf_counter()
+        logits, loss = moe_loss(model, tokens, routes)
+        loss.backward()
+        sync()
+        seconds = time.perf_counter() - t0
+        flips = sum(int((a != b).sum()) for a, b in zip(
+            want_routes, routes[:len(want_routes)]))
+        specs = TPL.tp_param_specs(full, 2, ep_axis=ep)
+        grads = {}
+        for k, p in model.named_parameters():
+            got = p.grad
+            if specs[k] is not None:
+                got = torch.cat(list(got), specs[k][1])
+            grads[k] = got.clone()
+        grad_err = {k: rel_err(v, want[k]) for k, v in grads.items()}
+        worst = max(grad_err, key=grad_err.get)
+        logit_err = rel_err(logits.detach(), want_logits)
+        # The same model without remat.
+        model.cfg.remat = False
+        model.zero_grad()
+        plain_logits, loss = moe_loss(model, tokens)
+        loss.backward()
+        remat_err = max([rel_err(logits.detach(), plain_logits.detach())]
+                        + [rel_err(grads[k], torch.cat(
+                            list(p.grad), specs[k][1])
+                            if specs[k] is not None else p.grad)
+                           for k, p in model.named_parameters()])
+        require(logit_err <= REF_LOGITS_TOL,
+                f"tp_moe_reference {layout}: logits differ by {logit_err}")
+        require(grad_err[worst] <= REF_GRAD_TOL,
+                f"tp_moe_reference {layout}: gradient of {worst} differs "
+                f"by {grad_err[worst]}")
+        require(remat_err <= REF_LOGITS_TOL,
+                f"tp_moe_reference {layout}: remat vs none {remat_err}")
+        out[layout] = {"ep_axis": ep, "routing_flips": flips,
+                       "tokens_routed": TP_MOE_LAYERS * w["seq"],
+                       "logits_rel_err": logit_err,
+                       "grad_rel_err": grad_err[worst],
+                       "grad_rel_err_worst_param": worst,
+                       "remat_vs_none_rel_err": remat_err,
+                       "remat_step_s": seconds}
+        del model, grads
+        empty_cache()
+    out["tol"] = {"logits": REF_LOGITS_TOL, "grad": REF_GRAD_TOL}
+    del full, want
+    empty_cache()
+    return out
+
+
+def tp_moe_train_phase(layers=TP_MOE_LAYERS, steps=TP_MOE_STEPS):
+    """dp 2 x tp 2 of the switch-MoE LM (experts whole on each shard, full
+    remat) through K1-K3: ``tensor_parallel_training.
+    DataTensorParallelLM``, ATC SGD over the one-peer Exp2 walk; then one
+    step without remat, timed, for the recompute's share.  Returns the
+    launches of the ``steps`` steps."""
+    import torch
+
+    import bluefog_tpu_torch as bf
+    from bluefog_tpu_torch import benchmark
+    from bluefog_tpu_torch import tensor_parallel_training as TPT
+    from bluefog_tpu_torch import topology as topo
+    from bluefog_tpu_torch.models.transformer import TransformerConfig
+    from bluefog_tpu_torch.ops import flash_attention as FA
+    from bluefog_tpu_torch.optim import optimizers as O
+
+    dp, tp, batch = TP_DP, TP_WAYS, 2
+    w = LM_WIDTHS
+    dev = torch.device(DEVICE)
+    cfg = TransformerConfig(vocab_size=w["vocab"], num_layers=layers,
+                            num_heads=w["heads"], embed_dim=w["width"],
+                            max_seq_len=w["seq"], remat=True,
+                            num_experts=TP_MOE_EXPERTS)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    toks = torch.randint(0, w["vocab"], (dp, batch, w["seq"] + 1),
+                         generator=g, device=dev)
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    bf.init(dp, device=DEVICE)
+    lm = TPT.DataTensorParallelLM(
+        cfg, tp, toks[..., :-1], toks[..., 1:], lambda params:
+        O.DistributedAdaptThenCombineOptimizer(
+            torch.optim.SGD(params, lr=0.0125 * dp), use_dynamic_topology=True,
+            phases=topo.one_peer_exp2_phases(dp)), seed=SEED)
+    FA.reset_launch_counts()
+
+    def step():
+        sync()
+        t0 = time.perf_counter()
+        loss = lm.forward_backward()
+        lm.opt.adapt()
+        before = benchmark.consensus_spread(lm.rep.flat)["max"]
+        lm.opt.combine()
+        after = benchmark.consensus_spread(lm.rep.flat)["max"]
+        sync()
+        return (time.perf_counter() - t0, float(loss),
+                {"after_adapt": before, "after_combine": after})
+    runs = [step() for _ in range(steps)]
+    launches = flash_launches()
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9 \
+        if DEVICE == "cuda" else None
+    cfg.remat = False
+    plain_s = step()[0]
+    cfg.remat = True
+    step_s = [r[0] for r in runs]
+    losses = [r[1] for r in runs]
+    step_ms = 1e3 * sum(step_s[1:]) / (steps - 1)
+    per = {"K1": 2 * layers * dp, "K2": layers * dp, "K3": layers * dp}
+    expected = {k: v * steps for k, v in per.items()}
+    res = {"config": {"dp": dp, "tp": tp, "num_layers": layers,
+                      "embed_dim": w["width"], "num_heads": w["heads"],
+                      "num_experts": TP_MOE_EXPERTS, "experts": "whole",
+                      "vocab_size": w["vocab"], "seq_len": w["seq"],
+                      "batch_per_dp_rank": batch, "remat": "full",
+                      "optimizer": "atc sgd, one-peer exp2"},
+           "params_per_replica": lm.params_per_replica, "losses": losses,
+           "spreads": [r[2] for r in runs], "step_ms": step_ms,
+           "step_ms_each": [1e3 * t for t in step_s],
+           "tokens_per_s": dp * batch * w["seq"] / (step_ms / 1e3),
+           "peak_mem_gb": peak, "launches": launches,
+           "launches_per_step": per, "expected_launches": expected,
+           "step_ms_without_remat": 1e3 * plain_s,
+           "recompute_share": (step_ms - 1e3 * plain_s) / step_ms}
+    emit("tp_moe_train", **res)
+    require(all(math.isfinite(x) for x in losses), f"finite losses {losses}")
+    if DEVICE == "cuda":
+        require(launches == expected,
+                f"launches {launches}, expected {expected}")
+        require(peak < 80, f"peak {peak} GB")
+    require(all(r[2]["after_combine"] == 0.0 for r in runs),
+            f"dp 2 combines to the exact average: {res['spreads']}")
+    del lm
+    bf.shutdown()
+    empty_cache()
+    return launches
+
+
 def stacked_blocks(cfg, stages, seed=SEED):
     """The blocks of ``cfg``'s ``TransformerLM`` (``reset_parameters`` from
     ``seed`` on the card), stacked ``(stages, layers / stages, ...)`` by
@@ -2305,11 +2551,12 @@ def row_hashes(t):
             .hexdigest() for r in t]
 
 
-def launch_workers(phase, args=()):
+def launch_workers(phase, args=(), device=None):
     """Run ``chip_smoke.py --worker <phase>`` in ``WIN_DIST_PROCS``
     processes (bfrun's ``BFTPU_*`` rendezvous on this host, card 0 for
-    each); their results, in process order.  Every process is stopped
-    before this returns, also on a failure."""
+    each) on ``device`` (default ``DEVICE``); their results, in process
+    order.  Every process is stopped before this returns, also on a
+    failure."""
     import socket
     import tempfile
     with socket.socket() as s:
@@ -2333,7 +2580,7 @@ def launch_workers(phase, args=()):
                        BFTPU_WIN_HOST="127.0.0.1")
             children.append(subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--worker",
-                 phase, out, DEVICE, *args], cwd=here, env=env,
+                 phase, out, device or DEVICE, *args], cwd=here, env=env,
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         deadline = time.monotonic() + WIN_DIST_TIMEOUT
         logs = [c.communicate(timeout=max(1.0, deadline - time.monotonic()))
@@ -2598,6 +2845,261 @@ def train_worker(bf):
     return out
 
 
+def state_digest(win, owned):
+    """A window's state at the owned ranks' slots: each staging and
+    residual row's sha256, the P scalars and the versions."""
+    import hashlib
+
+    def sha(t):
+        return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()
+                              ).hexdigest()
+    with win.lock:
+        return {
+            "staging": {f"{d}:{s}": sha(v)
+                        for (d, s), v in win.staging.items() if d in owned},
+            "stale_residual": {
+                f"{d}:{s}": sha(v) for (d, s), v in
+                win.stale_residual.items() if d in owned},
+            "p_staging": {f"{d}:{s}": v for (d, s), v in
+                          win.p_staging.items() if d in owned},
+            "p_stale_residual": {
+                f"{d}:{s}": v for (d, s), v in
+                win.p_stale_residual.items() if d in owned},
+            "versions": {f"{d}:{s}": v for (d, s), v in
+                         win.versions.items() if d in owned}}
+
+
+def async_ops_worker(bf):
+    """``WIN_ASYNC_PHASES`` under each policy on both transport paths: the
+    digests of the state before and after the fold, the edges folded, the
+    staging against the mass shipped, and the stats."""
+    import torch
+
+    from bluefog_tpu_torch.ops import window as W
+    from bluefog_tpu_torch.utils import config
+    comm = bf.process_ranks()
+    own = bf.owned_ranks()
+    n = bf.size()
+    rows = ((torch.arange(n * WIN_ASYNC_COLS) % 7) + 1).float().reshape(
+        n, WIN_ASYNC_COLS).to(DEVICE)
+    edges = [(s, d) for s in range(n) for d in bf.out_neighbor_ranks(s)]
+    weights = {e: 0.5 for e in edges}
+    res = {}
+    for policy in WIN_ASYNC_POLICIES:
+        for path, native_on in (("native", True), ("python", False)):
+            with config.override(async_staleness_policy=policy,
+                                 win_native=native_on, **WIN_ASYNC_KNOBS):
+                W._shutdown_transport()
+                W.init_transport()
+                tr = W._store.distrib.transport
+                require(tr.native_path == native_on, f"{path} transport")
+                W.turn_on_win_ops_with_associated_p()
+                require(W.configure_async(), "the async mode arms")
+                bf.win_create(torch.zeros(len(own), WIN_ASYNC_COLS,
+                                          device=DEVICE), "aw",
+                              zero_init=True)
+                before = W.stats.snapshot()
+                t0 = time.perf_counter()
+                for phase, steps in enumerate(WIN_ASYNC_PHASES):
+                    W.set_async_step(steps[comm.process])
+                    bf.barrier()
+                    bf.win_accumulate(rows[own] * float(phase + 1), "aw",
+                                      dst_weights=weights)
+                    bf.win_fence("aw")
+                seconds = time.perf_counter() - t0
+                win = W._store.get("aw")
+                out = {"before": state_digest(win, own)}
+                bf.win_fence("aw")
+                out["folded"] = bf.win_fold_stale_residuals("aw")
+                out["after"] = state_digest(win, own)
+                shipped_ok = True
+                with win.lock:
+                    for (d, s), v in win.staging.items():
+                        want = sum(rows[s] * float(k + 1) * 0.5
+                                   for k in range(len(WIN_ASYNC_PHASES)))
+                        shipped_ok &= bool(torch.equal(v, want))
+                out.update(shipped_exact=shipped_ok, seconds=seconds,
+                           stats=stats_since(W, before),
+                           send_path=tr.send_path,
+                           info=W.async_info())
+                bf.win_free("aw")
+                W.turn_off_win_ops_with_associated_p()
+                bf.barrier()
+            W.configure_async()
+            res[f"{policy}/{path}"] = out
+    return res
+
+
+def win_async_ops_phase():
+    """``async_ops_worker`` on the card and on the CPU: every digest the
+    same, the policy fired, the mass shipped exactly; returns nothing."""
+    card = launch_workers("async_ops")
+    cpu = launch_workers("async_ops", device="cpu")
+    per_process = []
+    for p, (c, h) in enumerate(zip(card, cpu)):
+        mine = {"owned": c["owned"]}
+        for key in sorted(k for k in c if "/" in k):
+            got, want = c[key], h[key]
+            for when in ("before", "after"):
+                require(got[when] == want[when],
+                        f"win_async_ops {key} {when}: process {p}'s state "
+                        "differs from the CPU run")
+            require(got["folded"] == want["folded"]
+                    and got["shipped_exact"] and want["shipped_exact"],
+                    f"win_async_ops {key}: folded {got['folded']}, the "
+                    "mass shipped exact on card and CPU")
+            mine[key] = {
+                "bitwise_cpu": True, "folded": got["folded"],
+                "stale_edges": sorted(got["before"]["stale_residual"]),
+                "shipped_exact": True, "send_path": got["send_path"],
+                "seconds": got["seconds"], "cpu_seconds": want["seconds"],
+                "tx_bytes": got["stats"]["tx_bytes"],
+                "step_lag": (got["info"] or {}).get("step_lag")}
+        per_process.append(mine)
+    fired = [k for m in per_process for k, v in m.items()
+             if isinstance(v, dict) and v["stale_edges"]]
+    require(fired, "win_async_ops: the staleness policy never fired")
+    emit("win_async_ops", processes=WIN_DIST_PROCS,
+         ranks_per_process=WIN_DIST_PER, shape=[4, WIN_ASYNC_COLS],
+         dtype="float32", topology="ExponentialGraph(4)",
+         phases=WIN_ASYNC_PHASES, policies=WIN_ASYNC_POLICIES,
+         staleness_steps=1, trace_sample=1, per_process=per_process)
+
+
+def async_train_worker(bf):
+    """win_put at ``WIN_ASYNC_PUT_LAYERS`` and push-sum at
+    ``WIN_ASYNC_PUSHSUM_LAYERS``: lockstep steps, then async ones under
+    ``WIN_ASYNC_KNOBS``, process 1 sleeping before every step."""
+    import gc
+
+    import torch
+
+    from bluefog_tpu_torch import benchmark
+    from bluefog_tpu_torch.ops import flash_attention as FA
+    from bluefog_tpu_torch.ops import window as W
+    from bluefog_tpu_torch.optim import window_optimizers as WO
+    from bluefog_tpu_torch.utils import config
+    comm = bf.process_ranks()
+    straggler = comm.process == 1
+
+    def done(tr):
+        W.win_fence()
+        tr.opt.free()
+        del tr
+        gc.collect()
+        empty_cache()
+        bf.barrier()
+
+    def trainer(kind):
+        if kind == "win_put":
+            return benchmark.Trainer(lm_args(
+                benchmark, WIN_ASYNC_PUT_LAYERS, "win_put"))
+        tr = benchmark.Trainer(lm_args(benchmark, WIN_ASYNC_PUSHSUM_LAYERS,
+                                       "empty"))
+        tr.opt = WO.DistributedPushSumOptimizer(
+            torch.optim.SGD([tr.rep.flat], lr=0.0125 * 4))
+        return tr
+
+    def run(kind, steps):
+        tr = trainer(kind)
+        opt = tr.opt
+        rec = {"step_ms": [], "losses": [], "mutex_wait_ms": [],
+               "step_lag": [], "p_sum_after_backstop": []}
+        for _ in range(steps):
+            if straggler:
+                time.sleep(WIN_ASYNC_SLEEP)
+            before = W.stats.snapshot()
+            backstops = getattr(opt, "backstops", 0)
+            sync()
+            t0 = time.perf_counter()
+            rec["losses"].append([float(v) for v in tr.forward_backward()])
+            opt.step()
+            sync()
+            rec["step_ms"].append(1e3 * (time.perf_counter() - t0))
+            rec["mutex_wait_ms"].append(
+                1e3 * stats_since(W, before)["mutex_s"])
+            info = W.async_info()
+            rec["step_lag"].append(None if info is None
+                                   else info["step_lag"])
+            if getattr(opt, "backstops", 0) > backstops:
+                # Every process takes the backstop at the same step.
+                p = opt.associated_p()[bf.owned_ranks()]
+                rec["p_sum_after_backstop"].append(float(comm.all_reduce(
+                    torch.tensor([float(p.sum())], dtype=torch.float64))
+                    .wait()[0]))
+        rec["async_on"] = bool(opt._async_on)
+        rec["folded_edges"] = list(getattr(opt, "folded_edges", []))
+        rec["info"] = W.async_info()
+        done(tr)
+        return rec
+
+    out = {}
+    FA.reset_launch_counts()
+    for kind in ("win_put", "push_sum"):
+        out[kind] = {"lockstep": run(kind, WIN_ASYNC_LOCKSTEP_STEPS)}
+        with config.override(**WIN_ASYNC_KNOBS):
+            out[kind]["async"] = run(kind, WIN_ASYNC_STEPS[kind])
+        W.configure_async()
+    out["launches"] = flash_launches()
+    out["send_path"] = W._store.distrib.transport.send_path
+    return out
+
+
+def win_async_train_phase():
+    """``async_train_worker`` across the processes; returns the launches
+    of K1-K3, summed over the processes."""
+    parts = launch_workers("async_train")
+    expected = WIN_DIST_PER * sum(
+        layers * (WIN_ASYNC_LOCKSTEP_STEPS + WIN_ASYNC_STEPS[kind])
+        for kind, layers in (("win_put", WIN_ASYNC_PUT_LAYERS),
+                             ("push_sum", WIN_ASYNC_PUSHSUM_LAYERS)))
+    launches = {k: 0 for k in KERNELS}
+    per_process = []
+    for p, part in enumerate(parts):
+        require(all(c == expected for c in part["launches"].values()),
+                f"win_async_train launches {part['launches']}, expected "
+                f"{expected} of each a process")
+        mine = {"owned": part.get("owned"), "launches": part["launches"],
+                "send_path": part["send_path"], "straggler": p == 1}
+        for kind in ("win_put", "push_sum"):
+            lock, asy = part[kind]["lockstep"], part[kind]["async"]
+            for rec in (lock, asy):
+                require(all(math.isfinite(v) for ls in rec["losses"]
+                            for v in ls), f"{kind}: finite losses")
+            require(asy["async_on"] and not lock["async_on"],
+                    f"{kind}: the async mode armed only in the async run")
+            mine[kind] = {
+                "lockstep_step_ms": lock["step_ms"],
+                "async_step_ms": asy["step_ms"],
+                "lockstep_mutex_wait_ms": lock["mutex_wait_ms"],
+                "async_mutex_wait_ms": asy["mutex_wait_ms"],
+                "step_lag": asy["step_lag"], "info": asy["info"],
+                "folded_edges": asy["folded_edges"],
+                "p_sum_after_backstop": asy["p_sum_after_backstop"],
+                "losses": {"lockstep": lock["losses"],
+                           "async": asy["losses"]}}
+        ps = part["push_sum"]["async"]
+        require(len(ps["p_sum_after_backstop"]) >= 1
+                and all(abs(v - 4.0) <= 1e-9
+                        for v in ps["p_sum_after_backstop"]),
+                f"push_sum: P after each backstop {ps}")
+        for k in KERNELS:
+            launches[k] += part["launches"][k]
+        per_process.append(mine)
+    emit("win_async_train", config={
+        **LM_WIDTHS, "batch_size": 2, "processes": WIN_DIST_PROCS,
+        "ranks_per_process": WIN_DIST_PER, "layout": "owned",
+        "win_put_layers": WIN_ASYNC_PUT_LAYERS,
+        "push_sum_layers": WIN_ASYNC_PUSHSUM_LAYERS,
+        "knobs": WIN_ASYNC_KNOBS, "policy": "reject",
+        "straggler_sleep_s": WIN_ASYNC_SLEEP,
+        "lockstep_steps": WIN_ASYNC_LOCKSTEP_STEPS,
+        "async_steps": WIN_ASYNC_STEPS},
+        expected_launches_per_process=expected, per_process=per_process,
+        launches=launches)
+    return launches
+
+
 def win_dist_train_phase():
     """``train_worker`` across the processes; returns the launches of
     K1-K3, summed over the processes."""
@@ -2686,7 +3188,10 @@ def worker_main(phase, out_path, device, *args):
     torch.backends.cudnn.allow_tf32 = False
     bf.init_distributed(backend="gloo", device=DEVICE)
     try:
-        res = ops_worker(bf, *args) if phase == "ops" else train_worker(bf)
+        res = {"ops": lambda: ops_worker(bf, *args),
+               "train": lambda: train_worker(bf),
+               "async_ops": lambda: async_ops_worker(bf),
+               "async_train": lambda: async_train_worker(bf)}[phase]()
         res.setdefault("owned", bf.owned_ranks())
         bf.barrier()
     finally:
@@ -2991,6 +3496,10 @@ def main():
          window_bound_ms=1e3 * 28 * 4 * RESNET50_PARAMS / PEAK_BYTES, **res)
     torch.cuda.empty_cache()
     win_dist_launches = win_dist_train_phase()
+    emit("tp_moe_reference", **check_tp_moe_reference(SEED))
+    tp_moe_launches = tp_moe_train_phase()
+    win_async_ops_phase()
+    win_async_launches = win_async_train_phase()
 
     kernels = []
     for kname, (fn, replaces) in KERNELS.items():
@@ -3008,7 +3517,9 @@ def main():
                                      + hier_launches[kname]
                                      + winput_launches[kname]
                                      + win_variant_launches[kname]
-                                     + win_dist_launches[kname]),
+                                     + win_dist_launches[kname]
+                                     + tp_moe_launches[kname]
+                                     + win_async_launches[kname]),
                         "launches_by_path": {
                             "train": launches[kname],
                             "llama_train": llama_launches[kname],
@@ -3023,6 +3534,8 @@ def main():
                             "winput_train": winput_launches[kname],
                             "win_variants": win_variant_launches[kname],
                             "win_dist_train": win_dist_launches[kname],
+                            "tp_moe_train": tp_moe_launches[kname],
+                            "win_async_train": win_async_launches[kname],
                             "generate": gen_launches[kname],
                             "vit": vit_launches[kname]},
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],

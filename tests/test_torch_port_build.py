@@ -109,11 +109,17 @@ def test_native_key_is_stable(nsrc):
     assert _native.library_path().parent == _native.BUILD_DIR
 
 
-@pytest.mark.parametrize("edit", ["source", "header", "new_header", "flags"])
+@pytest.mark.parametrize("edit", ["source", "header", "new_header", "flags",
+                                  "fastcall"])
 def test_native_key_changes_with_what_the_build_reads(nsrc, monkeypatch,
                                                       edit):
     before = _native.library_path()
-    if edit == "source":
+    fast_before = _native.fastcall_path()
+    if edit == "fastcall":
+        # The fastcall module links against the service: one key for both.
+        (nsrc / "fastcall.cc").write_text("// the send module\n")
+        assert _native.fastcall_path() != fast_before
+    elif edit == "source":
         (nsrc / "winsvc.cc").write_text("int f() { return 2; }\n")
     elif edit == "header":
         (nsrc / "h.h").write_text("inline int g() { return 2; }\n")

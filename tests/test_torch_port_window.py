@@ -419,20 +419,24 @@ def test_refuses_edges_outside_the_topology(ring):
 
 
 def test_not_ported_parts_raise_with_their_item(ring, monkeypatch):
-    """The async mode (item 17c) raises, naming what is missing; a leading
-    dim that is neither the world nor the owned ranks is refused, and so
-    are windows across processes before the transport is up (the JAX
-    package's check: ``bf.init_distributed`` starts it)."""
+    """The async mode (item 17c, ported) creates its windows with an empty
+    stale-residual store; a leading dim that is neither the world nor the
+    owned ranks is refused, and so are windows across processes before
+    the transport is up (the JAX package's check: ``bf.init_distributed``
+    starts it)."""
     with pytest.raises(ValueError, match="neither the world size"):
         tbf.win_create(torch.zeros(2, 3), "w")
     monkeypatch.setenv("BLUEFOG_TPU_ASYNC", "1")
     config.reload()
     try:
-        with pytest.raises(NotImplementedError, match="async mode"):
-            tbf.win_create(torch.zeros(N, 3), "w")
+        assert TW.configure_async()
+        assert tbf.win_create(torch.zeros(N, 3), "w")
+        assert tbf.win_state_dict("w")["stale_residual"] == {}
+        tbf.win_free("w")
     finally:
         monkeypatch.delenv("BLUEFOG_TPU_ASYNC")
         config.reload()
+        TW.configure_async()
     monkeypatch.setattr(basics, "process_ranks",
                         lambda: types.SimpleNamespace(nprocs=2))
     with pytest.raises(RuntimeError, match="init_distributed"):
