@@ -45,7 +45,8 @@ from bluefog_tpu_torch.basics import (
     allreduce_parameters, broadcast_optimizer_state, allreduce_,
     allreduce_nonblocking_, broadcast_, broadcast_nonblocking_,
     set_skip_negotiate_stage, get_skip_negotiate_stage,
-    mpi_threads_supported, nccl_built, unified_mpi_window_model_supported)
+    mpi_threads_supported, nccl_built, unified_mpi_window_model_supported,
+    placement_info, synthesis_info)
 from bluefog_tpu_torch import optim
 from bluefog_tpu_torch.ops import window as _window
 from bluefog_tpu_torch.ops.window import (
@@ -83,7 +84,8 @@ __all__ = ["topology_util", "init", "init_distributed", "shutdown", "barrier",
            "allreduce_nonblocking_", "broadcast_", "broadcast_nonblocking_",
            "set_skip_negotiate_stage", "get_skip_negotiate_stage",
            "mpi_threads_supported", "nccl_built",
-           "unified_mpi_window_model_supported"
+           "unified_mpi_window_model_supported", "placement_info",
+           "synthesis_info"
            ] + _window.__all__ + parallel.__all__
 
 

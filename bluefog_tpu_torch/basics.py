@@ -15,6 +15,15 @@ The context holds the device every entry point defaults to.  It is CUDA
 unless the caller asks for another device; with no GPU present, asking for
 CUDA raises instead of falling back to the CPU.
 
+:func:`set_topology` also refreshes the physical placement, as the JAX
+package's does: with an interconnect model (``BLUEFOG_TPU_FAKE_TORUS``;
+CUDA and CPU devices carry no geometry, so without it there is none) it
+searches the logical-rank -> device permutation over the static schedule,
+the one-peer phase table and the hierarchical levels, and the eager
+neighbor ops dispatch the congestion-repacked or synthesized schedules
+(:func:`placement_info`, :func:`synthesis_info`).  The ranks are rows of
+one tensor, so the permutation moves no data; it prices the schedules.
+
 The eager collectives take and return rank-major tensors on the context's
 device.  In one process they return once their work is queued on the
 device's stream, as every torch op does.  The ``*_nonblocking`` calls return
@@ -26,6 +35,7 @@ at once).
 
 from __future__ import annotations
 
+import collections
 import hashlib
 import logging
 import os
@@ -69,7 +79,8 @@ __all__ = ["init", "init_distributed", "shutdown", "barrier", "initialized",
            "allreduce_", "allreduce_nonblocking_", "broadcast_",
            "broadcast_nonblocking_", "set_skip_negotiate_stage",
            "get_skip_negotiate_stage", "mpi_threads_supported",
-           "nccl_built", "unified_mpi_window_model_supported"]
+           "nccl_built", "unified_mpi_window_model_supported",
+           "placement_info", "synthesis_info"]
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -103,6 +114,18 @@ class _Context:
         self._hier_key = None
         self._schedules: dict = {}
         self.suspended = False      # suspend(): new communication refused
+        # The physical placement (_refresh_placement): the interconnect
+        # model (None: no geometry), the logical -> device permutation
+        # (None: identity), the search's result, the synthesis selection,
+        # and (model, perm) as one snapshot for the dispatch's repack; the
+        # generation keys the dispatched schedules.
+        self.placement_model = None
+        self.placement = None
+        self.placement_result = None
+        self.synthesis_ratio: Optional[float] = None
+        self.synthesis_provenance: Optional[str] = None
+        self._placement_state: tuple = (None, None)
+        self.placement_generation = 0
 
     def schedule(self, key, build):
         """Compiled schedules, cached per topology version."""
@@ -381,7 +404,245 @@ def set_topology(topology: Optional[nx.DiGraph] = None,
     ctx.is_topo_weighted = is_weighted
     ctx.topology_version += 1
     ctx._schedules.clear()
+    _refresh_placement(ctx)
     return True
+
+
+# How many one-peer phases the placement search optimizes over jointly;
+# longer periods price the static schedule alone (whose edges are every
+# phase's).
+_PLACEMENT_MAX_DYN_PHASES = 16
+
+# Interconnect models keyed by the knobs and the devices: the model's route
+# tables are the expensive part, and one model serves every set_topology.
+_placement_model_cache: dict = {}
+
+# Search results keyed by the model's geometry, the schedules' edges and
+# the search's knobs, FIFO-bounded: re-installing a seen topology does not
+# search again.
+_placement_search_cache: "collections.OrderedDict" = collections.OrderedDict()
+_PLACEMENT_SEARCH_CACHE_MAX = 64
+
+
+def _placement_model(devices):
+    """The interconnect model of ``devices`` (``ops.placement.
+    build_model``), cached (the JAX package's ``basics.py`` L488; its
+    tuner's measured re-pricing is item 21's)."""
+    from bluefog_tpu_torch.ops import placement as PL
+    from bluefog_tpu_torch.utils import config
+    cfg = config.get()
+    key = (cfg.fake_torus, cfg.torus_wrap, tuple(map(str, devices)))
+    if key not in _placement_model_cache:
+        if len(_placement_model_cache) > 8:
+            _placement_model_cache.clear()
+        _placement_model_cache[key] = PL.build_model(devices)
+    return _placement_model_cache[key]
+
+
+def _placement_search(model, scheds, n, *, iters, block, budget,
+                      synth=False, sketch="auto"):
+    """Memoized ``(PlacementResult, dispatched max link load, synthesis
+    improvement ratio, dispatched provenance)`` of a model and schedule set
+    (the JAX package's L508).  With ``synth`` the pricing runs the
+    dispatch's packed-vs-synthesized selection, and the key carries the
+    synthesis knobs."""
+    from bluefog_tpu_torch.ops import placement as PL
+    from bluefog_tpu_torch.ops import schedule_opt as SO
+    sig = []
+    for s in scheds:
+        phs = getattr(s, "phases", None)
+        for ph in (phs if phs is not None else (s,)):
+            sig.extend(rnd.pairs for rnd in ph.rounds)
+    key = (model.name, model.dims, model.wrap_dims, model.device_node,
+           tuple(sig), n, iters, block, budget, synth,
+           sketch if synth else None)
+    hit = _placement_search_cache.get(key)
+    if hit is not None:
+        _placement_search_cache.move_to_end(key)
+        return hit
+    result = PL.optimize_placement(model, scheds, n, iters=iters, seed=0,
+                                   block=block)
+    # What dispatches: the placed, congestion-packed and (with synthesis)
+    # selected schedules; these pricing repacks never run.
+    dispatched = []
+    packed_serial = 0.0
+    chosen_serial = 0.0
+    static_prov = None
+    for s in scheds:
+        phs = getattr(s, "phases", None)
+        for ph in (phs if phs is not None else (s,)):
+            packed = SO.congestion_aware_repack(
+                ph, model, result.perm, budget_factor=budget, record=False)
+            chosen = packed
+            if synth:
+                from bluefog_tpu_torch.ops import synthesis as SY
+                chosen, _r = SY.select_schedule(
+                    ph, packed, model, result.perm, sketch=sketch,
+                    budget_factor=budget)
+                packed_serial += PL.schedule_cost(
+                    model, packed, result.perm).serial_link_time
+                chosen_serial += PL.schedule_cost(
+                    model, chosen, result.perm).serial_link_time
+            if static_prov is None:  # scheds[0] is the static schedule
+                static_prov = S.schedule_provenance(chosen)
+            dispatched.append(chosen)
+    mll = PL.schedule_cost(model, dispatched, result.perm).max_link_load
+    ratio = (packed_serial / max(chosen_serial, 1e-12)
+             if synth and chosen_serial else None)
+    value = (result, mll, ratio, static_prov)
+    _placement_search_cache[key] = value
+    if len(_placement_search_cache) > _PLACEMENT_SEARCH_CACHE_MAX:
+        _placement_search_cache.popitem(last=False)
+    return value
+
+
+def _refresh_placement(ctx: _Context) -> None:
+    """Recompute the physical placement of the active topology (the JAX
+    package's L574).
+
+    Builds the interconnect model of the world's devices (only under
+    ``BLUEFOG_TPU_FAKE_TORUS``: torch devices carry no coordinates) and
+    searches the logical-rank -> device permutation minimizing the modeled
+    ``(max_link_load, hop_bytes)`` jointly over the static schedule, the
+    one-peer phase table and, under ``BLUEFOG_TPU_HIER`` with several
+    machines, the hierarchical levels.  The weight matrix is untouched and
+    no row moves: the permutation prices the dispatched schedules
+    (:func:`_physical_repack`).  ``BLUEFOG_TPU_PLACEMENT=0`` turns it off.
+    Deterministic, so every process computes the same permutation; across
+    processes a rank is permuted only within its machine block."""
+    from bluefog_tpu_torch.ops import placement as PL
+    from bluefog_tpu_torch.utils import config
+    cfg = config.get()
+    n = ctx.size
+    model = perm = result = None
+    synth_ratio = dispatch_prov = None
+    if cfg.placement and n > 1 and ctx.topology is not None:
+        # Every rank's device is a torch device: no torus coordinates.
+        model = _placement_model([ctx.device] * n)
+    if model is not None:
+        scheds = [S.compile_static(
+            ctx.topology, use_topo_weights=ctx.is_topo_weighted)]
+        try:
+            phases = topology_util.dynamic_phase_table(
+                ctx.topology, max_phases=_PLACEMENT_MAX_DYN_PHASES)
+            scheds.append(S.compile_dynamic(phases, n))
+        except ValueError:
+            pass  # period too long: the static edge set covers the union
+        if cfg.hier and 0 < ctx.local_size < n and n % ctx.local_size == 0:
+            # The dense inner level and every outer one-peer phase join the
+            # search, each priced against its own links.
+            ht = _hier_topology(ctx, cfg)
+            if ht.n_slices > 1:
+                scheds.append(
+                    S._schedule_from_matrix(ht.inner_full_matrix()))
+                scheds.extend(
+                    S._schedule_from_matrix(ht.outer_full_matrix(p))
+                    for p in range(len(ht.outer_phases)))
+        block = ctx.local_size if 0 < ctx.local_size < n else None
+        result, _mll, synth_ratio, dispatch_prov = _placement_search(
+            model, scheds, n, iters=cfg.placement_iters, block=block,
+            budget=cfg.placement_round_budget,
+            synth=cfg.schedule_synth, sketch=cfg.schedule_synth_sketch)
+        if not result.is_identity:
+            perm = result.perm
+    ctx.placement_model = model
+    ctx.placement = perm
+    ctx.placement_result = result
+    ctx.synthesis_ratio = synth_ratio
+    ctx.synthesis_provenance = dispatch_prov
+    ctx._placement_state = (model, perm)
+    ctx.placement_generation += 1
+    ctx._schedules.clear()
+    PL.set_active(model, perm)
+    # item 21: set_gauge("bf_placement_improvement_ratio") and
+    # ("bf_schedule_max_link_load", _mll), cleared without a model.
+
+
+def _sched_path_tag(cfg) -> tuple:
+    """The physical passes' knobs, folded into every dispatched schedule's
+    cache key: a knob changed mid-process (``config.reload()``) misses the
+    cache instead of serving the other path's schedule."""
+    return (cfg.schedule_synth, cfg.schedule_synth_sketch,
+            cfg.placement_round_budget)
+
+
+def _physical_repack(sched, _state=None, _cfg=None):
+    """The dispatch's physical pipeline (the JAX package's L685): the
+    congestion-aware repack, then (``BLUEFOG_TPU_SCHEDULE_SYNTH``) the
+    synthesized candidate when it strictly beats the packed one on modeled
+    ``serial_link_time``.  A no-op without a model;
+    ``BLUEFOG_TPU_PLACEMENT_ROUND_BUDGET=0`` turns both off.  ``_state``
+    is the ``(model, perm)`` snapshot and ``_cfg`` the config snapshot the
+    caller keyed its cache with."""
+    from bluefog_tpu_torch.utils import config
+    model, perm = _ctx._placement_state if _state is None else _state
+    if model is None:
+        return sched
+    from bluefog_tpu_torch.ops import schedule_opt as SO
+    from bluefog_tpu_torch.ops import synthesis as SY
+    cfg = config.get() if _cfg is None else _cfg
+    packed = SO.congestion_aware_repack(
+        sched, model, perm, budget_factor=cfg.placement_round_budget)
+    if not cfg.schedule_synth:
+        # Switched off mid-process: synthesis_info() stops claiming it.
+        _ctx.synthesis_ratio = None
+        _ctx.synthesis_provenance = None
+        return packed
+    # Switched on after a refresh that ran without it: publish from this
+    # selection.
+    publish = _ctx.synthesis_ratio is None
+    chosen, ratio = SY.select_schedule(
+        sched, packed, model, perm, sketch=cfg.schedule_synth_sketch,
+        budget_factor=cfg.placement_round_budget, record=publish)
+    if publish:
+        _ctx.synthesis_ratio = ratio
+        _ctx.synthesis_provenance = S.schedule_provenance(chosen)
+    return chosen
+
+
+def _physical_repack_dynamic(dyn, _cfg=None):
+    state = _ctx._placement_state
+    if state[0] is None:
+        return dyn
+    return S.DynamicSchedule(
+        n=dyn.n, phases=tuple(_physical_repack(ph, state, _cfg)
+                              for ph in dyn.phases))
+
+
+def placement_info() -> Optional[dict]:
+    """The active physical placement (None without an interconnect
+    model): the model's name, whether the permutation is the identity, and
+    the modeled link costs of the identity and of the chosen placement."""
+    ctx = _require_init()
+    res = ctx.placement_result
+    if res is None:
+        return None
+    return {
+        "model": res.model_name,
+        "identity": bool(res.is_identity),
+        "max_link_load_naive": res.identity_cost.max_link_load,
+        "max_link_load_opt": res.optimized_cost.max_link_load,
+        "hop_bytes_naive": res.identity_cost.hop_bytes,
+        "hop_bytes_opt": res.optimized_cost.hop_bytes,
+        "improvement_ratio": res.improvement_ratio,
+    }
+
+
+def synthesis_info() -> Optional[dict]:
+    """The schedule synthesis of the active topology (None when it is off
+    or there is no model): the sketch knob, the provenance of the static
+    schedule that dispatches, and the packed -> chosen modeled serial-time
+    improvement."""
+    from bluefog_tpu_torch.utils import config
+    ctx = _require_init()
+    cfg = config.get()
+    if not cfg.schedule_synth or ctx.synthesis_ratio is None:
+        return None
+    return {
+        "sketch": cfg.schedule_synth_sketch,
+        "provenance": ctx.synthesis_provenance,
+        "improvement_ratio": round(float(ctx.synthesis_ratio), 6),
+    }
 
 
 def load_topology() -> nx.DiGraph:
@@ -437,13 +698,16 @@ def out_neighbor_machine_ranks(rank_: Optional[int] = None) -> List[int]:
 
 
 def static_schedule() -> S.StaticSchedule:
+    """The active topology's logical schedule (the optimizers'; the eager
+    ops dispatch :func:`_dispatch_static`)."""
     ctx = _require_init()
     return ctx.schedule(("static", ctx.is_topo_weighted), lambda: S.compile_static(
         ctx.topology, use_topo_weights=ctx.is_topo_weighted))
 
 
 def dynamic_schedule(phases=None) -> S.DynamicSchedule:
-    """Compiled one-peer walk: ``phases`` or the active topology's table."""
+    """Compiled one-peer walk: ``phases`` or the active topology's table
+    (logical, as :func:`static_schedule`)."""
     ctx = _require_init()
     if phases is None:
         return ctx.schedule(("dynamic",), lambda: S.compile_dynamic(
@@ -451,6 +715,40 @@ def dynamic_schedule(phases=None) -> S.DynamicSchedule:
     return ctx.schedule(
         ("dynphases", tuple(ph.send_to for ph in phases)),
         lambda: S.compile_dynamic(phases, ctx.size))
+
+
+def _dispatch_static(w: Optional[np.ndarray] = None) -> S.StaticSchedule:
+    """The schedule the eager static ops dispatch (the JAX package's
+    ``_nbr_schedule``): the active topology's, or ``w``'s, through the
+    physical pipeline, cached under the pipeline's knobs and the
+    placement generation."""
+    from bluefog_tpu_torch.utils import config
+    ctx = _require_init()
+    cfg = config.get()
+    tag, gen = _sched_path_tag(cfg), ctx.placement_generation
+    if w is not None:
+        return ctx.schedule(
+            ("static_override", w.tobytes(), tag, gen),
+            lambda: _physical_repack(S.compile_static(
+                ctx.topology, src_weights=w), _cfg=cfg))
+    return ctx.schedule(
+        ("static_dispatch", ctx.is_topo_weighted, tag, gen),
+        lambda: _physical_repack(S.compile_static(
+            ctx.topology, use_topo_weights=ctx.is_topo_weighted), _cfg=cfg))
+
+
+def _dispatch_dynamic(phases=None) -> S.DynamicSchedule:
+    """The one-peer walk the eager dynamic op dispatches, through the
+    physical pipeline (as :func:`_dispatch_static`)."""
+    from bluefog_tpu_torch.utils import config
+    ctx = _require_init()
+    cfg = config.get()
+    tag, gen = _sched_path_tag(cfg), ctx.placement_generation
+    key = (("dynamic_dispatch", tag, gen) if phases is None else
+           ("dynphases_dispatch", tuple(ph.send_to for ph in phases), tag,
+            gen))
+    return ctx.schedule(key, lambda: _physical_repack_dynamic(
+        dynamic_schedule(phases), _cfg=cfg))
 
 
 def _rank_major(x) -> torch.Tensor:
@@ -674,18 +972,10 @@ def allgather_v(tensors) -> torch.Tensor:
     return whole.expand((padded.shape[0],) + whole.shape).clone()
 
 
-def _static_schedule_for(w: Optional[np.ndarray]) -> S.StaticSchedule:
-    if w is None:
-        return static_schedule()
-    ctx = _require_init()
-    return ctx.schedule(("override", w.tobytes()), lambda: S.compile_static(
-        ctx.topology, src_weights=w))
-
-
 def neighbor_allreduce_nonblocking(x, *, self_weight=None, src_weights=None,
                                    dst_weights=None) -> Handle:
     w = _weight_override_matrix(self_weight, src_weights, dst_weights)
-    return Handle(C.neighbor_allreduce(_rank_major(x), _static_schedule_for(w),
+    return Handle(C.neighbor_allreduce(_rank_major(x), _dispatch_static(w),
                                        comm=_ctx.comm, async_op=True))
 
 
@@ -694,14 +984,14 @@ def neighbor_allreduce(x, *, self_weight=None, src_weights=None,
     """Weighted neighbor averaging over the active topology; the weight
     arguments override its weights (:func:`_weight_override_matrix`)."""
     w = _weight_override_matrix(self_weight, src_weights, dst_weights)
-    return C.neighbor_allreduce(_rank_major(x), _static_schedule_for(w),
+    return C.neighbor_allreduce(_rank_major(x), _dispatch_static(w),
                                 comm=_ctx.comm)
 
 
 def dynamic_neighbor_allreduce_nonblocking(x, step: int, *,
                                            phases=None) -> Handle:
     return Handle(C.dynamic_neighbor_allreduce(
-        _rank_major(x), step, dynamic_schedule(phases), comm=_ctx.comm,
+        _rank_major(x), step, _dispatch_dynamic(phases), comm=_ctx.comm,
         async_op=True))
 
 
@@ -709,19 +999,19 @@ def dynamic_neighbor_allreduce(x, step: int, *, phases=None) -> torch.Tensor:
     """Neighbor averaging with the one-peer dynamic walk at ``step``;
     ``phases`` defaults to the phase table of the active topology."""
     return C.dynamic_neighbor_allreduce(_rank_major(x), step,
-                                        dynamic_schedule(phases),
+                                        _dispatch_dynamic(phases),
                                         comm=_ctx.comm)
 
 
 def neighbor_allgather_nonblocking(x) -> Handle:
-    return Handle(C.neighbor_allgather(_rank_major(x), static_schedule(),
+    return Handle(C.neighbor_allgather(_rank_major(x), _dispatch_static(),
                                        comm=_ctx.comm, async_op=True))
 
 
 def neighbor_allgather(x) -> torch.Tensor:
     """Gather in-neighbor tensors: output ``(size, max_indegree, ...)`` in
     ascending-src order with zero padding for irregular indegree."""
-    return C.neighbor_allgather(_rank_major(x), static_schedule(),
+    return C.neighbor_allgather(_rank_major(x), _dispatch_static(),
                                 comm=_ctx.comm)
 
 

@@ -16,18 +16,28 @@ is the total over the ranks.
 Prints one JSON line with ``bench.py``'s keys.  Runs on CUDA unless
 ``--device cpu`` is given; on the CPU it is a smoke run at a tiny size
 (batch 2, 64x64, 1 warmup and 2 x 2 timed batches), never a throughput.
+
+``detail`` carries ``bench.py``'s modeled blocks, with the same keys:
+``placement`` and ``synthesis`` (the benchmark's gossip schedules priced on
+the devices' interconnect model; torch devices carry no geometry, so
+unless ``BLUEFOG_TPU_FAKE_TORUS`` names one, a near-square torus sized to
+the ranks, labeled "(synthetic)": a data point of the cost model, never a
+claim about the hardware), ``hierarchy`` (the two-level gossip's modeled
+bytes a step, synthetic slices labeled) and ``sharding`` (the plan of a
+labeled synthetic MoE tree).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 
 import numpy as np
 
 from bluefog_tpu_torch import benchmark
 
-__all__ = ["main", "BASELINE_PER_GPU"]
+__all__ = ["main", "modeled_blocks", "BASELINE_PER_GPU"]
 
 BASELINE_PER_GPU = 4310.6 / 16  # img/s per V100, the reference's docs
 
@@ -42,6 +52,181 @@ def build_parser():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     return ap
+
+
+def _model_or_synthetic(devs):
+    """The devices' interconnect model, or a labeled near-square synthetic
+    torus over them."""
+    from bluefog_tpu_torch.ops import placement as PL
+    n = len(devs)
+    model = PL.build_model(devs)
+    if model is not None:
+        return model, False
+    r = max(int(math.isqrt(n)), 1)
+    while n % r:
+        r -= 1
+    return PL.synthetic_torus((r, n // r), name=f"synthetic-{r}x{n // r}"), \
+        True
+
+
+def _placement_summary(devs, dyn):
+    """The root ``bench.py``'s ``_placement_summary``: identity against
+    optimized max link load of the benchmark's dynamic schedule."""
+    from bluefog_tpu_torch.ops import placement as PL
+    n = len(devs)
+    if n < 2 or dyn is None:
+        return None
+    model, synthetic = _model_or_synthetic(devs)
+    try:
+        res = PL.optimize_placement(model, dyn, n, iters=300, seed=0)
+    except ValueError:
+        return None
+    return {
+        "model": model.name + (" (synthetic)" if synthetic else ""),
+        "max_link_load_naive": res.identity_cost.max_link_load,
+        "max_link_load_opt": res.optimized_cost.max_link_load,
+        "improvement_ratio": round(res.improvement_ratio, 3),
+    }
+
+
+def _hierarchy_summary(devs, tree_bytes: float):
+    """The root ``bench.py``'s ``_hierarchy_summary``: the two-level
+    policy of the ``BLUEFOG_TPU_HIER_*`` knobs and each level's modeled
+    bytes a step for this run's parameters; the ranks share one device,
+    so the slices are a synthetic split in two, labeled."""
+    from bluefog_tpu_torch import topology
+    from bluefog_tpu_torch.utils import config
+    cfg = config.get()
+    n = len(devs)
+    out = {"enabled": bool(cfg.hier)}
+    if n < 2 or n % 2:
+        return out
+    n_slices, synthetic = 2, True
+    try:
+        ht = topology.hierarchical_two_level(
+            n, n_slices, inner=cfg.hier_inner, outer=cfg.hier_outer,
+            outer_every=cfg.hier_outer_every,
+            outer_self_weight=cfg.hier_outer_self_weight)
+    except ValueError:
+        return out
+    comp = cfg.hier_outer_compression
+    factor = config.compression_byte_factor(comp)
+    row_bytes = float(tree_bytes) / n
+    out.update({
+        "levels": 2,
+        "n_slices": n_slices,
+        "slice_size": ht.slice_size,
+        "synthetic_slices": synthetic,
+        "inner": ht.inner_kind,
+        "outer": ht.outer_kind,
+        "outer_every": ht.outer_every,
+        "outer_compression": comp,
+        "outer_self_weight": ht.outer_self_weight,
+        "ici_bytes_per_step": round(row_bytes * ht.ici_edges_per_step(), 1),
+        "dcn_bytes_per_step": round(
+            row_bytes * ht.dcn_edges_per_outer_step() * factor
+            / max(ht.outer_every, 1), 1),
+    })
+    return out
+
+
+def _sharding_summary(devs):
+    """The root ``bench.py``'s ``_sharding_summary``: the ``ShardPlan`` of
+    a labeled synthetic MoE tree (the ResNet tree is all replicated) and
+    its modeled bytes a step by level and shard."""
+    from bluefog_tpu_torch import topology
+    from bluefog_tpu_torch.ops import schedule as S
+    from bluefog_tpu_torch.ops import sharded as SH
+    from bluefog_tpu_torch.utils import config
+    cfg = config.get()
+    n = len(devs)
+    out = {"enabled": bool(cfg.sharded_gossip)}
+    if n < 4 or n % 2:
+        return out
+    n_shards = 4 if n % 4 == 0 else 2
+    tree = {
+        "router": np.zeros((n, 256), np.float32),
+        "experts": np.zeros((n, n_shards, 512), np.float32),
+        # An indivisible model dim: the planner falls back to replicated
+        # and says so in its decision.
+        "head": np.zeros((n, 7, 16), np.float32),
+    }
+    specs = {"router": None, "experts": ("ep", None), "head": ("ep", None)}
+    try:
+        plan = SH.build_plan(tree, specs, n=n, n_shards=n_shards)
+        sched = S.compile_static(topology.ExponentialTwoGraph(n))
+        gsched, _per = SH.compile_group_schedules(n, plan.groups)
+    except ValueError:
+        return out
+    rep_ici, rep_dcn = SH.edge_level_counts(plan.coords, sched)
+    g_ici, g_dcn = SH.edge_level_counts(plan.coords, gsched)
+    rep_row = plan.rep_bytes / n
+    sh_row = (plan.sh_bytes / n / plan.n_shards
+              if plan.any_sharded else 0.0)
+    out.update(plan.summary())
+    out.update({
+        "synthetic_tree": True,
+        "bytes_per_step": {
+            "replicated_ici": round(rep_row * rep_ici, 1),
+            "replicated_dcn": round(rep_row * rep_dcn, 1),
+            "sharded_ici": round(sh_row * g_ici, 1),
+            # 0 by construction: in-group schedules cross no group
+            # boundary; kept so that a regression shows.
+            "sharded_dcn": round(sh_row * g_dcn, 1),
+        },
+    })
+    return out
+
+
+def _synthesis_summary(devs):
+    """The root ``bench.py``'s ``_synthesis_summary``: the static Exp2
+    schedule priced on the model, the congestion-packed baseline against
+    the synthesized selection on ``serial_link_time``."""
+    from bluefog_tpu_torch import topology
+    from bluefog_tpu_torch.ops import placement as PL
+    from bluefog_tpu_torch.ops import schedule as S
+    from bluefog_tpu_torch.ops import schedule_opt as SO
+    from bluefog_tpu_torch.ops import synthesis as SY
+    n = len(devs)
+    if n < 4:
+        return None
+    model, synthetic = _model_or_synthetic(devs)
+    try:
+        w = topology.weight_matrix(topology.ExponentialTwoGraph(n))
+        naive = S._naive_schedule(w)
+        sched = SO.optimize_schedule(naive)
+        packed = SO.congestion_aware_repack(sched, model, None,
+                                            budget_factor=2.0, record=False)
+        chosen, ratio = SY.select_schedule(sched, packed, model, None)
+    except ValueError:
+        return None
+    return {
+        "model": model.name + (" (synthetic)" if synthetic else ""),
+        "sketch": getattr(chosen, "sketch", None),
+        "provenance": S.schedule_provenance(chosen),
+        "serial_naive": PL.schedule_cost(model, naive).serial_link_time,
+        "serial_konig": PL.schedule_cost(model, sched).serial_link_time,
+        "serial_packed": PL.schedule_cost(model, packed).serial_link_time,
+        "serial_synth": PL.schedule_cost(model, chosen).serial_link_time,
+        "improvement_ratio": round(ratio, 3),
+    }
+
+
+def modeled_blocks(ranks: int, device, params_per_rank: int) -> dict:
+    """``detail``'s modeled blocks for ``ranks`` ranks on ``device`` and a
+    float32 tree of ``params_per_rank`` parameters a rank."""
+    import torch
+
+    from bluefog_tpu_torch import topology
+    from bluefog_tpu_torch.ops import schedule as S
+    devs = [torch.device(device)] * ranks
+    dyn = (S.compile_dynamic(topology.one_peer_exp2_phases(ranks), ranks)
+           if ranks > 1 else None)
+    tree_bytes = 4.0 * params_per_rank * ranks
+    return {"placement": _placement_summary(devs, dyn),
+            "synthesis": _synthesis_summary(devs),
+            "hierarchy": _hierarchy_summary(devs, tree_bytes),
+            "sharding": _sharding_summary(devs)}
 
 
 def main(argv=None):
@@ -74,6 +259,7 @@ def main(argv=None):
         "compression": args.compression,
         "step_ms": res["step_ms"],
         "peak_mem_gb": res.get("peak_mem_gb"),
+        **modeled_blocks(res["ranks"], args.device, res["params_per_rank"]),
     }
     if on_card:
         import torch

@@ -13,7 +13,9 @@ flattens dicts by sorted key (``BottleneckBlock_10`` before
 ``BottleneckBlock_2``) and each leaf in its own layout.  ``RankReplicas``
 takes it as ``order``, so that a column of the port's flat buffer is the same
 coordinate as in the JAX package's (the rotating block of
-``compression="sparse:<frac>"`` depends on it).
+``compression="sparse:<frac>"`` depends on it).  ``jax_leaf_specs`` takes a
+JAX spec tree (``tp_param_specs``' form, keyed by the flax paths) onto the
+same order, for sharded gossip's ``shard_specs``.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ from bluefog_tpu_torch.models.layers import BatchNorm, Conv
 from bluefog_tpu_torch.models.transformer import RMSNorm, SwitchMlp
 
 __all__ = ["transformer_params_from_jax", "params_from_jax",
-           "jax_ravel_order", "flax_leaf", "stacked_block_params_from_jax",
+           "jax_ravel_order", "jax_leaf_specs", "flax_leaf",
+           "stacked_block_params_from_jax",
            "tensor_parallel_params_from_jax", "window_state_from_jax",
            "window_state_to_jax"]
 
@@ -84,6 +87,31 @@ def jax_ravel_order(model: nn.Module) -> list:
         _, path, dims = flax_leaf(model, name)
         leaves.append((path, name, dims))
     return [(name, dims) for _, name, dims in sorted(leaves)]
+
+
+def jax_leaf_specs(model: nn.Module, specs: Mapping,
+                   names: Optional[List[str]] = None) -> list:
+    """The JAX package's spec tree ``specs`` (nested dicts keyed by the
+    flax paths; a leaf is ``None``, ``P()`` or a tuple of axis names, one a
+    model dim of the flax layout) as a list, one spec a parameter of
+    ``model`` in the order ``names`` (``RankReplicas.names``; default
+    :func:`jax_ravel_order`'s).  A path the tree stops short of (a
+    ``None`` subtree) is replicated.  Works on a model on the meta
+    device."""
+    if names is None:
+        names = [name for name, _ in jax_ravel_order(model)]
+    if "params" in specs:
+        specs = specs["params"]
+    out = []
+    for name in names:
+        _, path, _ = flax_leaf(model, name)
+        node = specs
+        for key in path:
+            if not isinstance(node, Mapping):
+                break
+            node = node[key]
+        out.append(None if isinstance(node, Mapping) else node)
+    return out
 
 
 def params_from_jax(model: nn.Module, variables: Mapping) -> dict:

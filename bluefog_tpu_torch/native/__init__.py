@@ -1,8 +1,8 @@
-"""The window transport's native service, built at first use and bound
-with ``ctypes``.
+"""The native libraries of the port, built at first use and bound with
+``ctypes``: the window transport's service and the round compiler.
 
-The port of ``bluefog_tpu/native/__init__.py`` for the one library the
-window transport needs: ``src/winsvc.cc`` (a copy of the JAX package's,
+The port of ``bluefog_tpu/native/__init__.py`` for the window transport's
+library, ``src/winsvc.cc`` (a copy of the JAX package's,
 with the declarations of its header that it defines) compiles with one
 ``g++`` call into ``bluefog_tpu_torch/_build/winsvc-<hash>.so``, keyed by a
 hash of the sources and the flags, as ``ops/_nvcc.py`` keys the CUDA
@@ -25,6 +25,14 @@ library, whose hash covers ``fastcall.cc`` too.  As in the JAX package it
 is the reference's optional fast path: where ``Python.h`` is missing or the
 build fails, the send stays on ``ctypes`` (the transport's ``send_path``
 says which ran).
+
+:func:`schedule_lib` is the round compiler, ``src/schedule.cc`` (a copy of
+the JAX package's): ``bf_rounds_from_matrix`` splits a weight matrix's
+edges into shift-distance rounds in one O(n^2) pass, bit for bit the numpy
+``ops.schedule._rounds_from_matrix_py``.  It builds with the same flags
+into a library of its own, ``_build/schedule-<hash>.so``, keyed by a hash
+of ``schedule.cc``, the headers and the flags; a failed build raises with
+the compiler's output, as the service's does.
 """
 
 from __future__ import annotations
@@ -42,7 +50,8 @@ from pathlib import Path
 from typing import Optional
 
 __all__ = ["CXX_FLAGS", "library_path", "build", "lib", "fastcall",
-           "fastcall_path", "WinMsg", "WinItem"]
+           "fastcall_path", "schedule_library_path", "build_schedule",
+           "schedule_lib", "WinMsg", "WinItem"]
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 SRC_DIR = Path(__file__).resolve().parent / "src"
@@ -50,6 +59,8 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("winsvc.cc",)
 # Keyed into the service's hash with SOURCES, built on its own.
 FASTCALL_SOURCE = "fastcall.cc"
+# The round compiler: a library of its own, with its own key.
+SCHEDULE_SOURCE = "schedule.cc"
 # The argument contract of fastcall.cc's wintx_send (BF_FASTCALL_ABI).
 FASTCALL_ABI = 2
 
@@ -61,6 +72,7 @@ _lib = None
 _lock = threading.Lock()
 _fastcall = None
 _fastcall_tried = False
+_schedule_lib = None
 
 
 class WinMsg(ctypes.Structure):
@@ -107,9 +119,9 @@ def _cxx() -> str:
     found = shutil.which(os.environ.get("CXX", "g++"))
     if not found:
         raise RuntimeError(
-            "no C++ compiler (g++, or $CXX) on PATH: the window transport's "
-            "native service (bluefog_tpu_torch/native/src/winsvc.cc) builds "
-            "with it at first use")
+            "no C++ compiler (g++, or $CXX) on PATH: the port's native "
+            "libraries (bluefog_tpu_torch/native/src/) build with it at "
+            "first use")
     return found
 
 
@@ -136,23 +148,61 @@ def fastcall_path() -> Path:
     return BUILD_DIR / f"fastcall-{_hash()}{suffix}"
 
 
-def build() -> Path:
-    """Compile the service unless its library is already built; a failed
-    build raises with what the compiler printed."""
-    out = library_path()
+def _compile(out: Path, sources, what: str) -> Path:
+    """``sources`` compiled into the shared library ``out`` unless it is
+    built already; a failed build raises with what the compiler printed."""
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     # The soname is the file's name, which fastcall's module records.
     cmd = [_cxx(), *CXX_FLAGS, f"-Wl,-soname,{out.name}", "-o", str(tmp),
-           *(str(SRC_DIR / s) for s in SOURCES)]
+           *(str(SRC_DIR / s) for s in sources)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError("building the window transport's native service "
-                           f"failed:\n{' '.join(cmd)}\n{proc.stderr}")
+        raise RuntimeError(f"building {what} failed:\n{' '.join(cmd)}\n"
+                           f"{proc.stderr}")
     os.replace(tmp, out)
     return out
+
+
+def build() -> Path:
+    """Compile the service unless its library is already built; a failed
+    build raises with what the compiler printed."""
+    return _compile(library_path(), SOURCES,
+                    "the window transport's native service")
+
+
+def schedule_library_path() -> Path:
+    """Where the round compiler builds to: keyed by the flags,
+    ``schedule.cc`` and the headers."""
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    for path in [SRC_DIR / SCHEDULE_SOURCE, *sorted(SRC_DIR.glob("*.h"))]:
+        h.update(f"\0{path.name}\0".encode() + path.read_bytes())
+    return BUILD_DIR / f"schedule-{h.hexdigest()[:16]}.so"
+
+
+def build_schedule() -> Path:
+    """Compile the round compiler unless it is built; a failed build
+    raises with what the compiler printed."""
+    return _compile(schedule_library_path(), (SCHEDULE_SOURCE,),
+                    "the native round compiler")
+
+
+def schedule_lib() -> ctypes.CDLL:
+    """The loaded round compiler, built first when needed (raises when it
+    cannot be built)."""
+    global _schedule_lib
+    with _lock:
+        if _schedule_lib is None:
+            lib_ = ctypes.CDLL(str(build_schedule()))
+            i32, dbl = ctypes.c_int32, ctypes.c_double
+            ptr = ctypes.POINTER
+            lib_.bf_rounds_from_matrix.restype = i32
+            lib_.bf_rounds_from_matrix.argtypes = [
+                i32, ptr(dbl), ptr(i32), ptr(dbl), ptr(dbl), ptr(i32)]
+            _schedule_lib = lib_
+        return _schedule_lib
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:

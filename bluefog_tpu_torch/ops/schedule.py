@@ -4,18 +4,25 @@ The port's copy of ``bluefog_tpu/ops/schedule.py``.  A topology compiles
 once into a list of rounds plus weight vectors; the edge set is partitioned
 by cyclic shift distance ``d = (dst - src) mod n``, and all edges of one
 distance form a partial permutation, i.e. one round of point-to-point
-exchange.  Every compiled matrix is then repacked into the least number of
-rounds (``ops/schedule_opt.py``, on as the JAX package's default
-``BLUEFOG_TPU_SCHEDULE_OPT`` is) and memoized on its bytes, so the port's
-schedules are the JAX package's round for round.
+exchange.  The decomposition runs in native code (``native/src/schedule.cc``,
+``bf_rounds_from_matrix``, built at first use; a failed build raises), with
+the numpy ``_rounds_from_matrix_py`` as its oracle.  Every compiled matrix
+is then repacked into the least number of rounds (``ops/schedule_opt.py``,
+on as the JAX package's default ``BLUEFOG_TPU_SCHEDULE_OPT`` is) and
+memoized on its bytes, so the port's schedules are the JAX package's round
+for round.
 
 Weights are applied *source-side*: round ``r`` sends ``x * send_scale_r[src]``
 and the receiver accumulates unscaled, so receiver-chosen and sender-chosen
 weights are one convention.
 
-Left out here: the native round decomposition (its pure-Python oracle
-below gives the same rounds), and the schedule artifact's provenance tags,
-placement and synthesis passes.
+A compiled schedule is a :class:`CompiledSchedule`: the rounds plus the
+stamps of the pass that produced them (``provenance``: ``naive``,
+``konig``, ``congestion``, ``synthesized:<sketch>`` or ``sharded``; the
+``modeled_cost`` a pass priced them at; the ``sketch`` of a synthesized
+schedule), as in the JAX package.  The physical passes (the congestion
+repack, the synthesis) run at the context's dispatch
+(``basics._physical_repack``), never in the matrix compile cache.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from bluefog_tpu_torch import topology as topo_mod
 __all__ = [
     "CommRound",
     "StaticSchedule",
+    "CompiledSchedule",
     "DynamicSchedule",
     "PairGossipSchedule",
     "compile_static",
@@ -39,6 +47,8 @@ __all__ = [
     "compile_pair_gossip",
     "uniform_weights",
     "lift_schedule",
+    "as_compiled",
+    "schedule_provenance",
 ]
 
 
@@ -105,6 +115,53 @@ class StaticSchedule:
 
 
 @dataclass(frozen=True, eq=False)
+class CompiledSchedule(StaticSchedule):
+    """A :class:`StaticSchedule` with the stamps of the pass that made it:
+
+    ``provenance``   — ``naive`` (shift-distance decomposition), ``konig``
+                       (min-round repack), ``congestion`` (link-load
+                       repack), ``synthesized:<sketch>``
+                       (``ops/synthesis.py``) or ``sharded`` (the merged
+                       replica-group schedule of ``ops/sharded.py``).
+    ``modeled_cost`` — the ``ops.placement.CostReport`` the producer priced
+                       the rounds at (None without an interconnect model).
+    ``sketch``       — the sketch a synthesized schedule grew from."""
+    provenance: str = "naive"
+    modeled_cost: Optional[object] = None
+    sketch: Optional[str] = None
+
+
+_UNSET = object()
+
+
+def as_compiled(sched: StaticSchedule, *, provenance=None, modeled_cost=_UNSET,
+                sketch=_UNSET) -> CompiledSchedule:
+    """``sched`` as a :class:`CompiledSchedule`, each stamp left
+    unspecified inherited from ``sched`` (or the default), so a pass stamps
+    only what it owns."""
+    prov = provenance if provenance is not None else \
+        getattr(sched, "provenance", "naive")
+    cost = modeled_cost if modeled_cost is not _UNSET else \
+        getattr(sched, "modeled_cost", None)
+    sk = sketch if sketch is not _UNSET else getattr(sched, "sketch", None)
+    return CompiledSchedule(
+        n=sched.n, rounds=sched.rounds, self_scale=sched.self_scale,
+        indegree=sched.indegree, outdegree=sched.outdegree,
+        provenance=prov, modeled_cost=cost, sketch=sk)
+
+
+def schedule_provenance(sched) -> str:
+    """The provenance of any schedule: its own stamp, a dynamic schedule's
+    phases' common one (``mixed`` when they differ), ``naive`` for an
+    unstamped one."""
+    phases = getattr(sched, "phases", None)
+    if phases is not None:
+        tags = {schedule_provenance(ph) for ph in phases}
+        return tags.pop() if len(tags) == 1 else "mixed"
+    return getattr(sched, "provenance", "naive")
+
+
+@dataclass(frozen=True, eq=False)
 class DynamicSchedule:
     """Periodic dynamic topology: step ``t`` runs ``phases[t % len(phases)]``."""
     n: int
@@ -113,6 +170,10 @@ class DynamicSchedule:
     @property
     def period(self) -> int:
         return len(self.phases)
+
+    @property
+    def provenance(self) -> str:
+        return schedule_provenance(self)
 
 
 @dataclass(frozen=True, eq=False)
@@ -124,7 +185,8 @@ class PairGossipSchedule:
 
 
 def _rounds_from_matrix_py(w: np.ndarray) -> Tuple[CommRound, ...]:
-    """Partition off-diagonal edges of ``w`` by shift distance into rounds."""
+    """Partition off-diagonal edges of ``w`` by shift distance into rounds
+    (numpy: the oracle of the native :func:`_rounds_from_matrix_native`)."""
     n = w.shape[0]
     by_dist: Dict[int, List[Tuple[int, int]]] = {}
     srcs, dsts = np.nonzero(w)
@@ -146,17 +208,50 @@ def _rounds_from_matrix_py(w: np.ndarray) -> Tuple[CommRound, ...]:
     return tuple(rounds)
 
 
-def _naive_schedule(w: np.ndarray) -> StaticSchedule:
+def _rounds_from_matrix_native(w: np.ndarray) -> Tuple[CommRound, ...]:
+    """The shift-distance rounds of ``w`` from the native round compiler
+    (``native/src/schedule.cc``), built at first use; bit for bit
+    :func:`_rounds_from_matrix_py`."""
+    import ctypes
+
+    from bluefog_tpu_torch import native
+    lib = native.schedule_lib()
+    n = w.shape[0]
+    if n < 2:
+        return ()
+    wq = np.ascontiguousarray(w, dtype=np.float64)
+    distances = np.empty(n - 1, dtype=np.int32)
+    send_scale = np.empty((n - 1, n), dtype=np.float64)
+    recv_mask = np.empty((n - 1, n), dtype=np.float64)
+    src_of = np.empty((n - 1, n), dtype=np.int32)
+    k = lib.bf_rounds_from_matrix(
+        n, wq.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        distances.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        send_scale.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        recv_mask.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        src_of.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+    rounds = []
+    for r in range(k):
+        so = src_of[r]
+        dsts = np.nonzero(so >= 0)[0]
+        pairs = tuple(sorted((int(so[d]), int(d)) for d in dsts))
+        rounds.append(CommRound(pairs, send_scale[r].copy(),
+                                recv_mask[r].copy(), so.copy()))
+    return tuple(rounds)
+
+
+def _naive_schedule(w: np.ndarray) -> CompiledSchedule:
     """Matrix -> schedule by the shift-distance decomposition alone."""
     n = w.shape[0]
     off_diag = w.copy()
     np.fill_diagonal(off_diag, 0.0)
-    return StaticSchedule(
+    return CompiledSchedule(
         n=n,
-        rounds=_rounds_from_matrix_py(w),
+        rounds=_rounds_from_matrix_native(w),
         self_scale=np.diag(w).copy(),
         indegree=(off_diag != 0).sum(axis=0).astype(np.int32),
         outdegree=(off_diag != 0).sum(axis=1).astype(np.int32),
+        provenance="naive",
     )
 
 

@@ -104,7 +104,8 @@ __all__ = ["WindowTransport", "OP_PUT", "OP_ACCUMULATE", "OP_GET_REQ",
            "OP_GANG", "OP_BF16_FLAG", "OP_SPARSE_FLAG", "OP_TRACE_FLAG",
            "OP_FLAG_MASK", "TRACE_TRAILER", "make_trace_tag", "trace_strip",
            "set_trace_origin_step", "trace_origin_step", "sparse_encode",
-           "sparse_decode", "stripe_for", "resolve_stripes"]
+           "sparse_decode", "stripe_for", "resolve_stripes",
+           "resolve_stripes_static"]
 
 _log = logging.getLogger("bluefog_tpu_torch")
 # The Python drain's poll period on an empty inbound queue (the native
@@ -197,10 +198,27 @@ def stripe_for(name: str, src: int, op: int, n_stripes: int) -> int:
 
 
 def resolve_stripes() -> int:
-    """``BLUEFOG_TPU_WIN_STRIPES``, or 1 for ``auto``: the JAX package's
-    static oracle gives 1 without a placement model (item 16)."""
+    """``BLUEFOG_TPU_WIN_STRIPES``, or for ``auto`` the static oracle
+    (:func:`resolve_stripes_static`): the port has no tuner, so the static
+    value passes through, as the JAX package's does with ``TUNE=0``."""
     cfg = config.get()
-    return cfg.win_stripes if cfg.win_stripes >= 1 else 1
+    if cfg.win_stripes >= 1:
+        return cfg.win_stripes
+    return resolve_stripes_static()
+
+
+def resolve_stripes_static() -> int:
+    """The ``auto`` oracle: the placement model's ``dcn_link_cost`` (a DCN
+    crossing modeled k hops gets ~k streams, at most 8); without a model
+    (hosts whose devices carry no geometry) 1, the single-stream wire."""
+    try:
+        from bluefog_tpu_torch import basics
+        model = basics._ctx._placement_state[0]
+    except Exception:  # noqa: BLE001 — a transport before the context
+        model = None
+    if model is None:
+        return 1
+    return max(1, min(8, int(round(float(model.dcn_link_cost)))))
 
 
 def _resolve_decode_threads() -> int:

@@ -27,6 +27,18 @@ the columns of a single flat buffer given by ``leaf_sizes``
 (``RankReplicas.leaf_sizes``, the JAX ravel's leaves).  The JAX package's
 ``BLUEFOG_TPU_FUSION_BUCKET_MB`` size cap reads its config module, which
 is not ported: here there is one bucket unless ``fusion_buckets`` is set.
+
+Sharded gossip (``shard_plan``, ``ops/sharded.py``): the replicated leaves
+ride the fused path over the whole topology, and each rank's own slice of
+every sharded leaf is gossiped over the plan's merged replica-group
+schedule (:func:`make_shard_combiner`); the other coordinates' slices, the
+rank's ghosts, are left as they are, bit for bit.  The slices are gathered
+into one ``(rows, S)`` buffer (a leaf at a time where the combine is
+elementwise over columns; every sharded leaf at once for ``sparse``, whose
+block rotates over the whole buffer, as the JAX package's ravel of the
+slices), combined, and scattered back: a copy in and a copy out of the
+gossiped columns.  A slice along a leaf's leading dim (the MoE experts'
+``E``) is a contiguous column range of the row; others are strided views.
 """
 
 from __future__ import annotations
@@ -41,8 +53,9 @@ from bluefog_tpu_torch.ops import collective as C
 from bluefog_tpu_torch.ops.p2p import ProcessRanks
 from bluefog_tpu_torch.ops.schedule import DynamicSchedule, StaticSchedule
 
-__all__ = ["CommunicationType", "make_combiner", "compress_combiner",
-           "awc_step", "atc_step", "gradient_allreduce_step"]
+__all__ = ["CommunicationType", "make_combiner", "make_shard_combiner",
+           "compress_combiner", "awc_step", "atc_step",
+           "gradient_allreduce_step"]
 
 # Columns per chunk of the in-place combine: 16M f32 columns is 64 MiB a row.
 COMBINE_CHUNK = 1 << 24
@@ -157,6 +170,57 @@ def make_combiner(comm: CommunicationType, *,
     raise ValueError(f"unknown communication type {comm}")
 
 
+def make_shard_combiner(plan, group_combine: Combiner, *,
+                        ranks: Optional[Sequence[int]] = None):
+    """The combiner of a plan's sharded leaves (the JAX package's
+    ``make_shard_combiner``): ``group_combine`` is a combiner over the
+    plan's merged replica-group schedule (``make_combiner`` output,
+    optionally ``compress_combiner``-wrapped), whose in-group edges keep
+    the sharded bytes inside their groups.  ``ranks``: the ranks of the
+    rows given (default every rank; across processes, the owned ones).
+
+    The result, ``shard_combine(flat, starts, shapes, step)``, works in
+    place on a rank-major ``(rows, P)`` buffer whose leaf ``i`` takes
+    columns ``starts[i]:`` of per-rank shape ``shapes[i]``: each row's own
+    slice of every sharded leaf (coordinate ``plan.coords[rank]`` along
+    the leaf's sharded model dim) is gathered, combined and written back;
+    the ghost slices are not touched."""
+    rows = list(range(plan.n)) if ranks is None else [int(r) for r in ranks]
+    coords = [plan.coords[r] for r in rows]
+    sh_idx = [i for i, m in enumerate(plan.mask) if m]
+    whole = getattr(group_combine, "whole_row", False)
+
+    def own_slices(flat, starts, shapes, i):
+        shape, d = tuple(shapes[i]), plan.dims[i]
+        chunk = shape[d] // plan.n_shards
+        leaf = flat[:, starts[i]:starts[i] + math.prod(shape)]
+        return [leaf[j].view(shape).narrow(d, c * chunk, chunk)
+                for j, c in enumerate(coords)]
+
+    def shard_combine(flat, starts, shapes, step=None):
+        fn = lambda x: group_combine(x, step=step, weights=None)  # noqa: E731
+        for grp in ([sh_idx] if whole else [[i] for i in sh_idx]):
+            views = [own_slices(flat, starts, shapes, i) for i in grp]
+            width = sum(v[0].numel() for v in views)
+            buf = flat.new_empty((len(rows), width))
+            for j in range(len(rows)):
+                off = 0
+                for v in views:
+                    k = v[j].numel()
+                    buf[j, off:off + k].view(v[j].shape).copy_(v[j])
+                    off += k
+            for cols in buf.split(buf.shape[1] if whole else COMBINE_CHUNK,
+                                  dim=1):
+                cols.copy_(fn(cols))
+            for j in range(len(rows)):
+                off = 0
+                for v in views:
+                    k = v[j].numel()
+                    v[j].copy_(buf[j, off:off + k].view(v[j].shape))
+                    off += k
+    return shard_combine
+
+
 def _bucket_groups(nbytes: Sequence[int],
                    fusion_buckets: Optional[int]) -> List[List[int]]:
     """Partition leaf indices (``nbytes``: each leaf's bytes, in ravel
@@ -218,19 +282,103 @@ def _fused_apply(fn, params: List[torch.Tensor],
             off += size
 
 
+def _apply_columns(fn, flat: torch.Tensor, ranges, whole_row: bool) -> None:
+    """``fn`` on the columns ``ranges`` (``[(start, stop), ...]``, in
+    order) of the rank-major ``flat``, in place: as one buffer, gathered
+    when the ranges are not adjacent, for a ``whole_row`` combine; else a
+    run of adjacent ranges at a time, ``COMBINE_CHUNK`` columns at once."""
+    runs: List[list] = []
+    for a, b in ranges:
+        if runs and runs[-1][1] == a:
+            runs[-1][1] = b
+        else:
+            runs.append([a, b])
+    if whole_row and len(runs) > 1:
+        out = fn(torch.cat([flat[:, a:b] for a, b in runs], dim=1))
+        off = 0
+        for a, b in runs:
+            flat[:, a:b].copy_(out[:, off:off + b - a])
+            off += b - a
+        return
+    for a, b in runs:
+        run = flat[:, a:b]
+        for cols in run.split(run.shape[1] if whole_row else COMBINE_CHUNK,
+                              dim=1):
+            cols.copy_(fn(cols))
+
+
+def _sharded_combine(params: List[torch.Tensor], fn, combine: Combiner,
+                     fuse: bool, fusion_buckets: Optional[int],
+                     leaf_shapes: Optional[Sequence[Sequence[int]]],
+                     plan, shard_combine, step: int) -> None:
+    """The JAX package's sharded ``_tree_combine``: the replicated leaves
+    through ``fn`` (fused: a fusion bucket at a time), then the sharded
+    ones through ``shard_combine``; the leaves are the columns of the
+    parameters as one flat buffer."""
+    n = params[0].shape[0]
+    if len(params) == 1 and params[0].is_contiguous():
+        flat = params[0].view(n, -1)
+    else:
+        flat = torch.cat([p.reshape(n, -1) for p in params], dim=1)
+    shapes = ([tuple(s) for s in leaf_shapes] if leaf_shapes is not None
+              else [tuple(p.shape[1:]) for p in params])
+    starts = [0]
+    for shape in shapes:
+        starts.append(starts[-1] + math.prod(shape))
+    if starts[-1] != flat.shape[1] or len(shapes) != len(plan.mask):
+        raise ValueError(f"the plan's {len(plan.mask)} leaves of "
+                         f"{starts[-1]} columns do not lay out the "
+                         f"parameters' {flat.shape[1]}")
+    rep_idx = [i for i, m in enumerate(plan.mask) if not m]
+    whole = getattr(combine, "whole_row", False)
+    if rep_idx and not getattr(combine, "is_identity", False):
+        if fuse:
+            nbytes = [math.prod(shapes[i]) * flat.element_size()
+                      for i in rep_idx]
+            for grp in _bucket_groups(nbytes, fusion_buckets):
+                _apply_columns(fn, flat, [(starts[rep_idx[j]],
+                                           starts[rep_idx[j] + 1])
+                                          for j in grp], whole)
+        else:
+            for i in rep_idx:
+                cols = flat[:, starts[i]:starts[i + 1]]
+                cols.copy_(fn(cols))
+    shard_combine(flat, starts, shapes, step)
+    if flat.data_ptr() != params[0].data_ptr():
+        off = 0
+        for p in params:
+            size = p[0].numel()
+            p.copy_(flat[:, off:off + size].view(p.shape))
+            off += size
+
+
 @torch.no_grad()
 def _tree_combine(params: List[torch.Tensor], combine: Combiner, step: int,
                   steps_per_comm: int = 1, fuse: bool = True,
                   weights=None, fusion_buckets: Optional[int] = None,
-                  leaf_sizes: Optional[Sequence[int]] = None) -> None:
+                  leaf_sizes: Optional[Sequence[int]] = None,
+                  shard_plan=None, shard_combine=None,
+                  leaf_shapes: Optional[Sequence[Sequence[int]]] = None
+                  ) -> None:
     """Apply ``combine`` to the rank-major parameters in place, skipping
     steps where ``step % steps_per_comm != 0`` (local aggregation).
     ``fuse=True`` combines one flat buffer (or one per fusion bucket), as
     the JAX package's ravel; ``fuse=False`` combines each tensor on its
-    own."""
-    if getattr(combine, "is_identity", False) or step % steps_per_comm:
+    own.  With a ``shard_plan`` that shards some leaf (and its
+    ``shard_combine``, :func:`make_shard_combiner`), the replicated leaves
+    take ``combine`` and the sharded ones ``shard_combine``; the leaves are
+    ``leaf_shapes`` (per-rank shapes of a flat buffer's columns) or the
+    parameters.  Without one, this is the replicated path, bit for bit."""
+    if step % steps_per_comm:
         return
     fn = lambda x: combine(x, step=step, weights=weights)  # noqa: E731
+    if (shard_plan is not None and shard_combine is not None
+            and shard_plan.any_sharded):
+        _sharded_combine(params, fn, combine, fuse, fusion_buckets,
+                         leaf_shapes, shard_plan, shard_combine, step)
+        return
+    if getattr(combine, "is_identity", False):
+        return
     if fuse:
         _fused_apply(fn, params, None if getattr(combine, "whole_row", False)
                      else COMBINE_CHUNK, fusion_buckets, leaf_sizes)
@@ -345,11 +493,13 @@ def awc_step(base: torch.optim.Optimizer, combine: Combiner,
              params: List[torch.Tensor], step: int, *,
              steps_per_comm: int = 1, fuse: bool = True, weights=None,
              fusion_buckets: Optional[int] = None,
-             leaf_sizes: Optional[Sequence[int]] = None) -> int:
+             leaf_sizes: Optional[Sequence[int]] = None, shard_plan=None,
+             shard_combine=None, leaf_shapes=None) -> int:
     """Adapt-with-combine: combine the parameters, then apply the base
     update to the combined values.  Returns the next step counter."""
     _tree_combine(params, combine, step, steps_per_comm, fuse, weights,
-                  fusion_buckets, leaf_sizes)
+                  fusion_buckets, leaf_sizes, shard_plan, shard_combine,
+                  leaf_shapes)
     base.step()
     return step + 1
 
@@ -358,12 +508,14 @@ def atc_step(base: torch.optim.Optimizer, combine: Combiner,
              params: List[torch.Tensor], step: int, *,
              steps_per_comm: int = 1, fuse: bool = True, weights=None,
              fusion_buckets: Optional[int] = None,
-             leaf_sizes: Optional[Sequence[int]] = None) -> int:
+             leaf_sizes: Optional[Sequence[int]] = None, shard_plan=None,
+             shard_combine=None, leaf_shapes=None) -> int:
     """Adapt-then-combine: local base update first, then combine.
     Returns the next step counter."""
     base.step()
     _tree_combine(params, combine, step, steps_per_comm, fuse, weights,
-                  fusion_buckets, leaf_sizes)
+                  fusion_buckets, leaf_sizes, shard_plan, shard_combine,
+                  leaf_shapes)
     return step + 1
 
 

@@ -21,10 +21,20 @@ The step counter starts at 0 and advances after each combine; the dynamic
 phase is ``step % period``.  ``step(self_weight=, src_weights=,
 dst_weights=)`` overrides the topology's weights for one step
 (``basics._weight_override_matrix``).
+
+Sharded gossip (``shard_specs``, ``ops/sharded.py``): the leaves whose spec
+names an axis gossip each rank's own slice inside its replica group, over
+the merged group schedule, while the replicated leaves ride the whole
+topology; ``BLUEFOG_TPU_SHARDED_GOSSIP=0`` restores the replicated path bit
+for bit.  The leaves of a single flat parameter are ``leaf_shapes``
+(``RankReplicas.leaf_shapes``) and the specs a list in that order
+(``models.convert.jax_leaf_specs`` takes the JAX package's spec tree onto
+it); otherwise each parameter tensor is a leaf.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -32,6 +42,7 @@ import torch
 from bluefog_tpu_torch import basics
 from bluefog_tpu_torch import topology as topology_util
 from bluefog_tpu_torch.ops import schedule as S
+from bluefog_tpu_torch.ops import sharded as SH
 from bluefog_tpu_torch.optim import functional as F
 from bluefog_tpu_torch.optim.functional import CommunicationType
 
@@ -74,6 +85,16 @@ class DistributedOptimizer:
         combine's payload compressed (``functional.compress_combiner``),
         with the difference residual except under ``allreduce`` and
         gradient allreduce.
+    shard_specs : one *model*-dimension spec a leaf, in the leaves' order
+        (the JAX package's form: ``None``/``P()`` or a tuple of axis
+        names), that arms sharded gossip.  Requires
+        ``neighbor_allreduce`` with an awc/atc order.  ``None`` (default):
+        the replicated path, bit for bit.
+    shard_groups : explicit replica groups partitioning ``range(n)``;
+        default ``num_shards`` contiguous blocks.
+    num_shards : shard count along each sharded model dim.
+    leaf_shapes : the per-rank shape of each leaf of a single flat
+        parameter (``RankReplicas.leaf_shapes``); sets ``leaf_sizes``.
     """
 
     def __init__(self, base: torch.optim.Optimizer,
@@ -83,7 +104,9 @@ class DistributedOptimizer:
                  use_dynamic_topology: bool = False, phases=None,
                  fusion: bool = True, fusion_buckets: Optional[int] = None,
                  leaf_sizes: Optional[Sequence[int]] = None,
-                 compression: str = "none"):
+                 compression: str = "none", shard_specs=None,
+                 shard_groups=None, num_shards: Optional[int] = None,
+                 leaf_shapes: Optional[Sequence[Sequence[int]]] = None):
         if isinstance(communication_type, str):
             communication_type = CommunicationType(communication_type)
         if compression not in ("none", "bf16") and not (
@@ -106,8 +129,28 @@ class DistributedOptimizer:
         self.fusion = fusion
         self.fusion_buckets = (None if fusion_buckets is None
                                else int(fusion_buckets))
+        if shard_specs is not None:
+            if communication_type != CommunicationType.neighbor_allreduce:
+                raise ValueError(
+                    "shard_specs requires CommunicationType."
+                    "neighbor_allreduce (sharded leaves gossip per replica "
+                    f"group over the compiled schedule), got "
+                    f"{communication_type}")
+            if order not in ("awc", "atc"):
+                raise ValueError(
+                    "shard_specs requires a parameter-consensus order "
+                    f"(awc/atc), got {order!r}")
+        self.leaf_shapes = (None if leaf_shapes is None
+                            else [tuple(int(d) for d in s)
+                                  for s in leaf_shapes])
+        if leaf_sizes is None and self.leaf_shapes is not None:
+            leaf_sizes = [math.prod(s) for s in self.leaf_shapes]
         self.leaf_sizes = None if leaf_sizes is None else list(leaf_sizes)
         self.compression = compression
+        self.shard_specs = shard_specs
+        self.shard_groups = shard_groups
+        self.num_shards = None if num_shards is None else int(num_shards)
+        self._shard_plan_cache = {}   # (shapes, dtypes) -> ShardPlan
         self.step_count = 0
         self._acc = None   # gradient allreduce's J-step accumulator
 
@@ -158,6 +201,64 @@ class DistributedOptimizer:
             residual=self.communication_type != CommunicationType.allreduce,
             steps_per_comm=self.num_steps_per_communication)
 
+    # -- sharded gossip ------------------------------------------------------
+    def _leaves(self):
+        """The leaves the specs describe, rank-major over the world:
+        ``leaf_shapes`` of the single flat parameter, or the parameters."""
+        n = basics.size()
+        ps = self.params
+        if self.leaf_shapes is not None:
+            if len(ps) != 1:
+                raise ValueError("leaf_shapes describes the columns of a "
+                                 f"single flat parameter; the base "
+                                 f"optimizer has {len(ps)}")
+            return [SH.Leaf((n,) + s, ps[0].dtype) for s in self.leaf_shapes]
+        return [SH.Leaf((n,) + tuple(p.shape[1:]), p.dtype) for p in ps]
+
+    def _shard_plan(self):
+        """The sharded-gossip plan (cached by the leaves' shapes and
+        dtypes), or None, the replicated path: no specs, or
+        ``BLUEFOG_TPU_SHARDED_GOSSIP=0``."""
+        from bluefog_tpu_torch.utils import config
+        if self.shard_specs is None or not config.get().sharded_gossip:
+            return None
+        leaves = self._leaves()
+        key = tuple((leaf.shape, str(leaf.dtype)) for leaf in leaves)
+        plan = self._shard_plan_cache.get(key)
+        if plan is None:
+            plan = SH.build_plan(leaves, list(self.shard_specs),
+                                 n=basics.size(),
+                                 n_shards=self.num_shards,
+                                 groups=self.shard_groups)
+            self._shard_plan_cache[key] = plan
+        return plan
+
+    def _group_schedule(self, plan):
+        """The plan's merged replica-group schedule, cached on the context
+        under the plan's signature."""
+        ctx = basics._require_init()
+        return ctx.schedule(("opt_sharded", plan.signature),
+                            lambda: SH.compile_group_schedules(
+                                plan.n, plan.groups))
+
+    def _shard_combiner(self, plan):
+        """The sharded leaves' combiner: each rank's own slice over the
+        plan's group schedule, compressed as the replicated combine is."""
+        gsched, _per_group = self._group_schedule(plan)
+        gc = F.make_combiner(CommunicationType.neighbor_allreduce,
+                             sched=gsched, transport=basics.process_ranks())
+        gc = F.compress_combiner(
+            gc, self.compression, residual=True,
+            steps_per_comm=self.num_steps_per_communication)
+        return F.make_shard_combiner(plan, gc, ranks=basics.owned_ranks())
+
+    def _shard_args(self) -> dict:
+        plan = self._shard_plan()
+        if plan is None or not plan.any_sharded:
+            return {}
+        return {"shard_plan": plan, "shard_combine": self._shard_combiner(plan),
+                "leaf_shapes": self.leaf_shapes}
+
     def _check_params(self):
         n = len(basics.owned_ranks())
         for p in self.params:
@@ -181,7 +282,8 @@ class DistributedOptimizer:
         the counter's advance."""
         F._tree_combine(self.params, self._combiner(), self.step_count,
                         self.num_steps_per_communication, self.fusion,
-                        weights, self.fusion_buckets, self.leaf_sizes)
+                        weights, self.fusion_buckets, self.leaf_sizes,
+                        **self._shard_args())
         self.step_count += 1
 
     def step(self, *, self_weight: Optional[float] = None,
@@ -215,7 +317,7 @@ class DistributedOptimizer:
             self.base, self._combiner(), self.params, self.step_count,
             steps_per_comm=self.num_steps_per_communication, fuse=self.fusion,
             weights=w, fusion_buckets=self.fusion_buckets,
-            leaf_sizes=self.leaf_sizes)
+            leaf_sizes=self.leaf_sizes, **self._shard_args())
 
 
 def DistributedGradientAllreduceOptimizer(

@@ -45,11 +45,19 @@ steps across processes fences the transport, folds the stale residuals
 back into staging and collects exactly (the only barrier left).  Off,
 every step is bit for bit the lockstep one.
 
+Sharded gossip (:class:`DistributedWinPutOptimizer`'s ``shard_specs``,
+``shard_groups``, ``num_shards``, ``ops/sharded.py``): the replicated
+leaves ride the fused window over the whole topology, and each rank's own
+slice of the sharded leaves rides a second fused window,
+``<prefix>.sharded``, whose puts cross only in-group edges and whose
+``win_update`` weighs only them (``induced_window_weights``); the ghost
+slices are left as they are.  It needs the rank layout and ``fuse=True``,
+as in the JAX package.
+
 Left out, each raising an error that names its ROADMAP item: the fused
 step (``fused=True``, or ``fused=None`` under ``BLUEFOG_TPU_FUSED_STEP=1``,
 item 19b; the variable defaults to 0 in the JAX package, whose eager step,
-ported here, is the bitwise oracle) and its fusion buckets, sharded gossip
-(``shard_specs``, ``shard_groups``, ``num_shards``: item 16) and the churn
+ported here, is the bitwise oracle) and its fusion buckets, and the churn
 hooks (item 20).
 """
 
@@ -64,6 +72,7 @@ import torch.distributed as dist
 
 from bluefog_tpu_torch import basics
 from bluefog_tpu_torch import topology as topology_util
+from bluefog_tpu_torch.ops import sharded as SH
 from bluefog_tpu_torch.ops import window as W
 from bluefog_tpu_torch.utils import config
 
@@ -84,7 +93,8 @@ class _WindowOptimizerBase:
     def __init__(self, base: torch.optim.Optimizer, *, window_prefix: str,
                  num_steps_per_communication: int = 1, fuse: bool = True,
                  layout: str = "auto", fused=None, fusion_buckets=None,
-                 shard_specs=None, shard_groups=None, num_shards=None):
+                 shard_specs=None, shard_groups=None, num_shards=None,
+                 leaf_shapes=None):
         if layout not in ("auto", "rank", "owned"):
             raise ValueError(
                 f"layout must be 'auto', 'rank' or 'owned', got {layout!r}")
@@ -94,11 +104,6 @@ class _WindowOptimizerBase:
         if fusion_buckets is not None:
             _refuse("window fusion buckets (the fused step's per-bucket "
                     "puts)", "item 19b")
-        for what, value in (("shard_specs", shard_specs),
-                            ("shard_groups", shard_groups),
-                            ("num_shards", num_shards)):
-            if value is not None:
-                _refuse(f"sharded gossip ({what})", "item 16")
         if config.get().churn:
             _refuse("the churn supervisor hooks (BLUEFOG_TPU_CHURN=1)",
                     "item 20")
@@ -109,8 +114,16 @@ class _WindowOptimizerBase:
         self.window_prefix = window_prefix
         self.num_steps_per_communication = int(num_steps_per_communication)
         self.fuse = bool(fuse)
+        self.shard_specs = shard_specs
+        self.shard_groups = shard_groups
+        self.num_shards = None if num_shards is None else int(num_shards)
+        self.leaf_shapes = (None if leaf_shapes is None
+                            else [tuple(int(d) for d in shape)
+                                  for shape in leaf_shapes])
         self.step_count = 0
         self._names: Optional[List[str]] = None
+        self._shard_plan = None
+        self._sharded_name = None
         self.init()
 
     @property
@@ -118,17 +131,54 @@ class _WindowOptimizerBase:
         return [p for group in self.base.param_groups for p in group["params"]]
 
     # -- payload layout ----------------------------------------------------
+    def _flat(self) -> torch.Tensor:
+        """Every parameter's row, raveled and concatenated (a single
+        contiguous parameter is its own row, no copy)."""
+        ps = self.params
+        n = ps[0].shape[0]
+        if len(ps) == 1 and ps[0].is_contiguous():
+            return ps[0].detach().view(n, -1)
+        return torch.cat([p.detach().reshape(n, -1) for p in ps], dim=1)
+
     def _payloads(self) -> List[torch.Tensor]:
         """The rank-major rows to ship, one a window: every parameter's
-        row, raveled and concatenated (fused; a single contiguous
-        parameter is its own row, no copy), or the parameters as they are."""
+        row (fused), or the parameters as they are; with a shard plan, the
+        replicated leaves' columns, then each rank's own slices of the
+        sharded leaves (:meth:`_shard_rows`)."""
         ps = self.params
         if not self.fuse:
             return list(ps)
-        n = ps[0].shape[0]
-        if len(ps) == 1 and ps[0].is_contiguous():
-            return [ps[0].detach().view(n, -1)]
-        return [torch.cat([p.detach().reshape(n, -1) for p in ps], dim=1)]
+        flat = self._flat()
+        if self._shard_plan is None:
+            return [flat]
+        rep = [flat[:, a:b] for a, b in self._rep_ranges]
+        return [rep[0] if len(rep) == 1 else torch.cat(rep, dim=1),
+                self._shard_rows(flat)]
+
+    def _own_slices(self, flat: torch.Tensor, row: int) -> List[torch.Tensor]:
+        """Row ``row``'s own slice of each sharded leaf (views of ``flat``,
+        whose rows are the world's ranks: the rank layout)."""
+        plan = self._shard_plan
+        c = plan.coords[row]
+        out = []
+        for i in self._shard_leaf_idx:
+            shape, d = self._leaf_shapes[i], plan.dims[i]
+            chunk = shape[d] // plan.n_shards
+            leaf = flat[row, self._starts[i]:self._starts[i + 1]]
+            out.append(leaf.view(shape).narrow(d, c * chunk, chunk))
+        return out
+
+    def _shard_rows(self, flat: torch.Tensor) -> torch.Tensor:
+        """The sharded window's rows: each rank's own slice of every
+        sharded leaf, raveled and concatenated (the JAX package's
+        ``_shard_payload``)."""
+        rows = flat.new_empty((flat.shape[0], self._shard_width))
+        for r in range(flat.shape[0]):
+            off = 0
+            for v in self._own_slices(flat, r):
+                rows[r, off:off + v.numel()].view(v.shape).copy_(v)
+                off += v.numel()
+        return rows
 
     @torch.no_grad()
     def _rebuild(self, combined: List[List[torch.Tensor]]) -> None:
@@ -136,12 +186,16 @@ class _WindowOptimizerBase:
         window's memory, read here only) back into the parameters, the
         inverse of :meth:`_payloads`, in place, a rank at a time.  The rows
         of ranks another process owns keep their previous value (the JAX
-        package's ``_merge_owned``)."""
+        package's ``_merge_owned``); a shard plan's ghost slices keep
+        theirs."""
         ps = self.params
         if not self.fuse:
             for p, rows in zip(ps, combined):
                 for i, row in zip(self._rows_of_owned, rows):
                     p[i].copy_(row)
+            return
+        if self._shard_plan is not None:
+            self._rebuild_sharded(*combined)
             return
         (rows,) = combined
         for i, row in zip(self._rows_of_owned, rows):
@@ -150,6 +204,90 @@ class _WindowOptimizerBase:
                 size = p[i].numel()
                 p[i].copy_(row[off:off + size].view(p.shape[1:]))
                 off += size
+
+    @torch.no_grad()
+    def _rebuild_sharded(self, rep_rows, shard_rows) -> None:
+        """:meth:`_rebuild` under a shard plan: the replicated leaves'
+        columns, then the own slices; every other column stays."""
+        ps = self.params
+        single = len(ps) == 1 and ps[0].is_contiguous()
+        flat = self._flat()
+        for i, rep, sh in zip(self._rows_of_owned, rep_rows, shard_rows):
+            off = 0
+            for a, b in self._rep_ranges:
+                flat[i, a:b].copy_(rep[off:off + b - a])
+                off += b - a
+            off = 0
+            for v in self._own_slices(flat, i):
+                v.copy_(sh[off:off + v.numel()].view(v.shape))
+                off += v.numel()
+        if not single:
+            n, off = flat.shape[0], 0
+            for p in ps:
+                size = p[0].numel()
+                p.copy_(flat[:, off:off + size].view(p.shape))
+                off += size
+
+    def _resolve_shard_plan(self) -> None:
+        """Arm sharded gossip when shard specs were given, the knob is on
+        and some leaf is sharded; else leave every structure None, the
+        replicated layout (the JAX package's ``_resolve_shard_plan``)."""
+        self._shard_plan = None
+        self._sharded_name = None
+        if self.shard_specs is None or not config.get().sharded_gossip:
+            return
+        n = basics.size()
+        ps = self.params
+        if self.leaf_shapes is not None:
+            shapes = self.leaf_shapes
+        else:
+            shapes = [tuple(p.shape[1:]) for p in ps]
+        leaves = [SH.Leaf((n,) + tuple(s), ps[0].dtype) for s in shapes]
+        plan = SH.build_plan(leaves, list(self.shard_specs), n=n,
+                             n_shards=self.num_shards,
+                             groups=self.shard_groups)
+        if not plan.any_sharded:
+            return
+        if self._layout != "rank":
+            raise ValueError(
+                f"{type(self).__name__}: shard_specs requires the "
+                "rank-major layout (the sharded window's per-coordinate "
+                "rows are rank-indexed); owned layout is not supported")
+        if not self.fuse:
+            raise ValueError(
+                f"{type(self).__name__}: shard_specs requires fuse=True "
+                "(the sharded slices ride one dedicated fused window)")
+        self._shard_plan = plan
+        self._leaf_shapes = [tuple(s) for s in shapes]
+        self._starts = [0]
+        for s in self._leaf_shapes:
+            self._starts.append(self._starts[-1] + int(np.prod(s)))
+        width = sum(p[0].numel() for p in ps)
+        if self._starts[-1] != width:
+            raise ValueError(f"leaf_shapes cover {self._starts[-1]} columns, "
+                             f"the parameters {width}")
+        self._rep_ranges = [(self._starts[i], self._starts[i + 1])
+                            for i, m in enumerate(plan.mask) if not m]
+        self._shard_leaf_idx = [i for i, m in enumerate(plan.mask) if m]
+        self._shard_width = sum(int(np.prod(shapes[i])) // plan.n_shards
+                                for i in self._shard_leaf_idx)
+        put_edges, self_w, nbr_w = SH.induced_window_weights(
+            plan, basics.load_topology())
+        self._shard_edges = put_edges
+        self._shard_update_kwargs = {"self_weight": self_w,
+                                     "neighbor_weights": nbr_w}
+
+    def _put_weights(self, name: str, dst_weights):
+        """A window's put destinations: the sharded window's in-group
+        edges, else ``dst_weights``."""
+        return self._shard_edges if name == self._sharded_name \
+            else dst_weights
+
+    def _update_kwargs(self, name: str) -> dict:
+        """The sharded window's explicit in-group update weights (an
+        out-of-group staging buffer, had one landed, stays pending)."""
+        return self._shard_update_kwargs if name == self._sharded_name \
+            else {}
 
     # -- lifecycle ---------------------------------------------------------
     def init(self) -> None:
@@ -188,9 +326,13 @@ class _WindowOptimizerBase:
         # The parameter row of each owned rank, in the windows' order.
         self._rows_of_owned = (self._owned if self._layout == "rank"
                                else list(range(len(self._owned))))
+        self._resolve_shard_plan()
         payloads = self._payloads()
         if self.fuse:
             self._names = [f"{self.window_prefix}.fused"]
+            if self._shard_plan is not None:
+                self._sharded_name = f"{self.window_prefix}.sharded"
+                self._names.append(self._sharded_name)
         else:
             self._names = [f"{self.window_prefix}.{i}"
                            for i in range(len(payloads))]
@@ -307,7 +449,9 @@ class DistributedWinPutOptimizer(_WindowOptimizerBase):
     ``win_update`` (reference factory ``torch/optimizers.py:1271``).
 
     ``step(dst_weights=...)`` takes ``win_put``'s weight forms, anew each
-    call.  ``overlap=True`` issues the put and does not wait for it: the
+    call.  ``shard_specs`` (one spec a leaf; ``leaf_shapes``: the leaves of
+    a single flat parameter), ``shard_groups`` and ``num_shards`` arm
+    sharded gossip (module docstring).  ``overlap=True`` issues the put and does not wait for it: the
     put runs on the window pool while the caller computes the next
     forward and backward, and the next step's ``win_update`` combines
     what has arrived (one step of staleness, the reference's async
@@ -324,7 +468,7 @@ class DistributedWinPutOptimizer(_WindowOptimizerBase):
                  num_steps_per_communication: int = 1, fuse: bool = True,
                  overlap: bool = False, layout: str = "auto", fused=None,
                  fusion_buckets=None, shard_specs=None, shard_groups=None,
-                 num_shards=None):
+                 num_shards=None, leaf_shapes=None):
         self.overlap = bool(overlap)
         self._pending: List[int] = []
         super().__init__(base, window_prefix=window_prefix,
@@ -332,7 +476,7 @@ class DistributedWinPutOptimizer(_WindowOptimizerBase):
                          fuse=fuse, layout=layout, fused=fused,
                          fusion_buckets=fusion_buckets,
                          shard_specs=shard_specs, shard_groups=shard_groups,
-                         num_shards=num_shards)
+                         num_shards=num_shards, leaf_shapes=leaf_shapes)
 
     def step(self, *, dst_weights=None, require_mutex: bool = True) -> None:
         self.adapt()
@@ -351,9 +495,10 @@ class DistributedWinPutOptimizer(_WindowOptimizerBase):
             overlap = self.overlap or self._async_on
             if overlap:
                 payloads = [p.clone() for p in payloads]
-            handles = [W.win_put_nonblocking(p, name, dst_weights=dst_weights,
-                                             require_mutex=require_mutex)
-                       for name, p in zip(self._names, payloads)]
+            handles = [W.win_put_nonblocking(
+                p, name, dst_weights=self._put_weights(name, dst_weights),
+                require_mutex=require_mutex)
+                for name, p in zip(self._names, payloads)]
             if overlap:
                 # Wake the senders now: the queued gossip rides the wire
                 # during the next forward and backward, not after the
@@ -363,8 +508,8 @@ class DistributedWinPutOptimizer(_WindowOptimizerBase):
             else:
                 for h in handles:
                     W.win_wait(h)
-            self._rebuild([W._update_rows(name,
-                                          require_mutex=require_mutex)
+            self._rebuild([W._update_rows(name, require_mutex=require_mutex,
+                                          **self._update_kwargs(name))
                            for name in self._names])
         self.step_count += 1
 

@@ -52,7 +52,9 @@ class RankReplicas:
     row-major layout; the module sees a view in its own layout).
     ``models.convert.jax_ravel_order`` gives the JAX package's ravel.
     Default: the module's parameter order, each in its own layout.
-    ``leaf_sizes`` lists each parameter's columns in that order."""
+    ``leaf_sizes`` lists each parameter's columns in that order, and
+    ``leaf_shapes`` the stored shape of each block (the JAX layout under
+    ``jax_ravel_order``): the leaves of sharded gossip's plan."""
 
     def __init__(self, make_module: Callable[[], nn.Module], n: int,
                  device, init: Callable[[nn.Module], None] = None,
@@ -77,6 +79,7 @@ class RankReplicas:
         # Columns of each parameter's block, in flat's order: the leaves
         # that fusion buckets split at.
         self.leaf_sizes = [shape.numel() for _, shape, _ in blocks]
+        self.leaf_shapes = [tuple(shape) for _, shape, _ in blocks]
         self.numel = sum(self.leaf_sizes)
         self.flat = torch.empty((self.n, self.numel), dtype=torch.float32,
                                 device=self.device)

@@ -5,11 +5,11 @@ defaults and validation, for the knobs of the ported paths.  Values are
 read on first access and cached; call :func:`reload` after changing
 ``os.environ``, or scope a change with :func:`override` (which leaves
 ``os.environ`` alone).  The rest of the JAX package's inventory
-(telemetry, placement, tuner, ...) comes with ROADMAP item 21, which folds
-this module into the ported config; until then the tuner's overrides are
-the identity they are with ``BLUEFOG_TPU_TUNE=0``, the JAX package's
-default, and ``BLUEFOG_TPU_WIN_STRIPES=auto`` is 1, what the JAX package's
-static oracle gives without a placement model (item 16).
+(telemetry, tuner, ...) comes with ROADMAP item 21, which folds this module
+into the ported config; until then the tuner's overrides are the identity
+they are with ``BLUEFOG_TPU_TUNE=0``, the JAX package's default, and
+``BLUEFOG_TPU_WIN_STRIPES=auto`` is the JAX package's static oracle: the
+placement model's ``dcn_link_cost``, 1 without a model.
 
 | Variable | Default | Meaning |
 |---|---|---|
@@ -21,7 +21,7 @@ static oracle gives without a placement model (item 16).
 | BLUEFOG_TPU_WIN_COALESCE_BYTES | 1 MiB | queued bytes that force an immediate batch flush |
 | BLUEFOG_TPU_WIN_TX_QUEUE      | 1024  | per-peer outbound queue bound (messages); full blocks the producer |
 | BLUEFOG_TPU_WIN_NATIVE        | 1     | 0: the transport's hot loop (queues, batch encode, drain decode and fold) in Python |
-| BLUEFOG_TPU_WIN_STRIPES       | auto  | sockets and sender workers a peer, frames sharded by (window, row); auto = 1 |
+| BLUEFOG_TPU_WIN_STRIPES       | auto  | sockets and sender workers a peer, frames sharded by (window, row); auto = the placement model's dcn_link_cost (no model: 1) |
 | BLUEFOG_TPU_WIN_DECODE_THREADS | auto | native drain's decode pool (0 = inline); auto = min(4, cores - 1), at least 1 |
 | BLUEFOG_TPU_WIN_RETRIES       | 1     | transient-send retries before ConnectionError |
 | BLUEFOG_TPU_WIN_RETRY_BACKOFF_MS | 50 | base of the jittered exponential retry backoff |
@@ -39,6 +39,14 @@ static oracle gives without a placement model (item 16).
 | BLUEFOG_TPU_HIER_OUTER        | exp2  | inter-machine one-peer walk: exp2 / ring |
 | BLUEFOG_TPU_HIER_OUTER_COMPRESSION | none | outer-level codec: none / bf16 / sparse:<frac> |
 | BLUEFOG_TPU_HIER_OUTER_SELF_WEIGHT | 0.5 | cadence-1 outer self weight (cadence-corrected to theta**k) |
+| BLUEFOG_TPU_SHARDED_GOSSIP    | 1     | with shard specs: replicated leaves gossip over the whole topology, sharded ones per replica group (ops/sharded.py); 0 = the replicated path, bit for bit |
+| BLUEFOG_TPU_SCHEDULE_SYNTH    | 1     | 0: skip sketch-guided schedule synthesis (the congestion-repack path exactly) |
+| BLUEFOG_TPU_SCHEDULE_SYNTH_SKETCH | auto | synthesis sketch: auto / ring-within-slice / hierarchical / chunked-pipelined |
+| BLUEFOG_TPU_PLACEMENT         | 1     | 0: keep the enumeration-order placement |
+| BLUEFOG_TPU_PLACEMENT_ITERS   | 1000  | simulated-annealing refinement iterations |
+| BLUEFOG_TPU_PLACEMENT_ROUND_BUDGET | 2.0 | congestion-repack round budget (x König; 0=off) |
+| BLUEFOG_TPU_FAKE_TORUS        | unset | synthetic torus spec (e.g. 4x8): the interconnect model where devices carry no geometry |
+| BLUEFOG_TPU_TORUS_WRAP        | auto  | real-coords wrap policy: auto / 1 (torus) / 0 (mesh) |
 """
 
 from __future__ import annotations
@@ -156,6 +164,18 @@ def _parse_trace_sample(raw: Optional[str]) -> int:
     return period
 
 
+def _validated_sketch(value: str) -> str:
+    # Lazy import: ops/synthesis owns the sketch vocabulary.
+    from bluefog_tpu_torch.ops.synthesis import SKETCHES
+    allowed = ("auto",) + SKETCHES
+    if value not in allowed:
+        raise ValueError(
+            f"BLUEFOG_TPU_SCHEDULE_SYNTH_SKETCH={value!r} is not a known "
+            f"sketch; expected one of {', '.join(allowed)} (a typo here "
+            "would otherwise silently fall back to some default sketch)")
+    return value
+
+
 def _flag(name: str, default: bool = False) -> bool:
     return os.environ.get(name, "1" if default else "0") in ("1", "true",
                                                              "True", "yes")
@@ -206,6 +226,14 @@ class Config:
     hier_outer: str
     hier_outer_compression: str
     hier_outer_self_weight: float
+    sharded_gossip: bool
+    schedule_synth: bool
+    schedule_synth_sketch: str
+    placement: bool
+    placement_iters: int
+    placement_round_budget: float
+    fake_torus: Optional[str]
+    torus_wrap: str
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -253,7 +281,18 @@ class Config:
                         "none").lower(),
                 "BLUEFOG_TPU_HIER_OUTER_COMPRESSION"),
             hier_outer_self_weight=float(env.get(
-                "BLUEFOG_TPU_HIER_OUTER_SELF_WEIGHT", "0.5")))
+                "BLUEFOG_TPU_HIER_OUTER_SELF_WEIGHT", "0.5")),
+            sharded_gossip=_flag("BLUEFOG_TPU_SHARDED_GOSSIP", default=True),
+            schedule_synth=_flag("BLUEFOG_TPU_SCHEDULE_SYNTH", default=True),
+            schedule_synth_sketch=_validated_sketch(env.get(
+                "BLUEFOG_TPU_SCHEDULE_SYNTH_SKETCH", "auto").lower()),
+            placement=_flag("BLUEFOG_TPU_PLACEMENT", default=True),
+            placement_iters=int(env.get("BLUEFOG_TPU_PLACEMENT_ITERS",
+                                        "1000")),
+            placement_round_budget=float(env.get(
+                "BLUEFOG_TPU_PLACEMENT_ROUND_BUDGET", "2.0")),
+            fake_torus=env.get("BLUEFOG_TPU_FAKE_TORUS"),
+            torus_wrap=env.get("BLUEFOG_TPU_TORUS_WRAP", "auto"))
 
 
 _cfg: Optional[Config] = None

@@ -232,8 +232,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    win_put`` (batch 64, 4 ranks, 1 warmup + 2 timed steps), with the
    window combine's time beside its bound.
 37. ``win_dist_train`` — across the same 2 x 2: the benchmark's win_put
-   LM at full width cut to ``WIN_DIST_LAYERS`` = 4 blocks (at 10, a step
-   took 25 s: the phase's time; owned layout), 1 warmup + 2 timed steps:
+   LM at full width cut to ``WIN_DIST_LAYERS`` = 2 blocks (at 10, a step
+   took 25 s, at 4 11 s: the smoke's time; owned layout), 1 warmup + 2
+   timed steps:
    finite losses, K1-K3 launches layers x 2 ranks x 3 steps a process,
    the combine shrinks the world's spread; step ms, tokens/s, the window
    a step split into staging out, wire, the remote mutex's waits and
@@ -270,19 +271,55 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 41. ``win_async_train`` — ``BLUEFOG_TPU_ASYNC=1``, ``TRACE_SAMPLE=1``,
    ``STALENESS_STEPS=1``, ``COLLECT_EVERY=3`` across the same 2 x 2, process
    1 sleeping ``WIN_ASYNC_SLEEP`` s before each step (a straggler): the
-   benchmark's win_put LM at 4 blocks and push-sum at 2 blocks, each
+   benchmark's win_put LM and push-sum at 2 blocks each (win_put cut from
+   4 for the smoke's time), each
    ``WIN_ASYNC_LOCKSTEP_STEPS`` lockstep step then ``WIN_ASYNC_STEPS``
    async ones (2 and 3) in the same run: step ms of each,
    ``async_info()``'s step lag, the edges folded at each backstop, the
    remote mutex's grant waits, K1-K3 launches, and push-sum's P summing
    to 4.0 after each backstop.
-42. ``{"kernels": [...]}`` (launches from the ``train``, ``llama_train``,
+42. ``schedule_pipeline`` — the native round compiler
+   (``native/src/schedule.cc``, built with g++) against its numpy oracle,
+   bit for bit, with both times; then ``set_topology`` of a 16-rank
+   ``ExponentialTwoGraph`` under ``BLUEFOG_TPU_FAKE_TORUS`` = 4x4 and 16
+   (a ring, where the congestion repack and the synthesis move rounds):
+   ``placement_info()``, ``synthesis_info()``, the permutation, and each
+   dispatched schedule (static, and each one-peer phase) with its
+   provenance, rounds against König's bound and modeled cost; then
+   ``neighbor_allreduce`` and the dynamic combine of every phase on
+   (16, 2^20) float32 rows over those schedules, bit for bit the same calls
+   on the CPU, timed beside the byte bound.  Fails unless some dispatched
+   schedule is congestion-packed or synthesized.
+43. ``sharded_moe_train`` — the switch-MoE LM at the 1.3B LM's widths
+   (``SHARD_LAYERS`` = 2 blocks of 8 GELU experts, 705,734,656 parameters a
+   rank, full remat, bf16 through K1-K3), 4 ranks, each row offset from the
+   one init by seeded noise, ATC SGD (lr 0.0125 x 4) over the one-peer Exp2
+   walk, ``experts_up`` and ``experts_down`` sharded on their expert axis
+   over the groups {0, 1} and {2, 3}: one lr-0 step against the float64
+   oracle (replicated columns: the walk's first phase; each rank's own
+   slice: its group's mix; ``SHARD_ORACLE_TOL``; every ghost slice its
+   input bit for bit), then ``SHARD_STEPS`` steps with the specs and as
+   many without from the same start: step ms, tokens/s, the combine's ms
+   (CUDA events) beside its bound (the gossiped columns read once and
+   written once: 705.7M a rank without the specs, 437.3M with), the
+   spread of the replicated columns and of each group's own slice after
+   every combine, peak memory, K1-K3 launches a step.
+44. ``win_sharded`` — one ``DistributedWinPutOptimizer`` step (lr 0) with
+   ``shard_specs`` of a MoE-shaped tree (``WIN_SHARD_TREE``, rows of
+   16,777,328 float32 columns), rank layout, ``fuse=True``: the windows
+   ``.fused`` and ``.sharded``; on the card bit for bit the CPU run, each
+   own slice the in-group combine, each ghost slice its input.
+45. ``{"kernels": [...]}`` (launches from the ``train``, ``llama_train``,
    ``moe_train``, ``ring_train``, ``ulysses_train``, ``dp_sp_train``,
    ``tp_train``, ``pp_train``, ``pp_variants``, ``hier_train``,
    ``winput_train``, ``win_variants``, ``win_dist_train``,
-   ``tp_moe_train`` and ``win_async_train`` phases, each path's beside),
-   then the ``nvidia-smi`` line, then the last line
+   ``tp_moe_train``, ``win_async_train`` and ``sharded_moe_train`` phases,
+   each path's beside), then the ``nvidia-smi`` line, then the last line
    ``{"ok": true, "device": {...}}``.
+
+After each phase a ``{"phase": "wall", "of": ..., "seconds": ...}`` line
+gives its wall seconds (from the previous phase's last line to its own
+last).
 
 Exits non-zero, printing no result, without a GPU or outside the repository.
 """
@@ -333,7 +370,7 @@ TWIN_SCORES_BYTES = 1 << 32  # the plain twins' f32 scores, at most, a call
 SOURCE = "bluefog_tpu_torch/csrc/flash_attention.cu"
 HIER_LAYERS = 24             # hier_train: full depth
 WINPUT_LAYERS = 10           # winput_train: the windows' 25 rows a step fit
-WIN_DIST_LAYERS = 4          # win_dist_train: the depth its time allows
+WIN_DIST_LAYERS = 2          # win_dist_train: the depth its time allows
 WIN_VARIANT_LAYERS = 2       # win_variants: pull-get, push-sum, overlap
 WIN_OPS_COLS = 1 << 24       # win_ops and the hierarchical card-vs-CPU check
 WIN_CHECK_COLS = 1 << 22     # winput_train's float64 recheck: column sample
@@ -354,7 +391,7 @@ WIN_ASYNC_COLS = 1 << 20     # win_async_ops: the rows' width (float32)
 # and phase 2's older rows are stale at their receivers.
 WIN_ASYNC_PHASES = ((10, 7), (11, 11), (12, 14), (15, 14))
 WIN_ASYNC_POLICIES = ("reject", "downweight:0.5")
-WIN_ASYNC_PUT_LAYERS = 4     # win_async_train: win_put's depth (as
+WIN_ASYNC_PUT_LAYERS = 2     # win_async_train: win_put's depth (as
 WIN_ASYNC_PUSHSUM_LAYERS = 2  # win_dist_train's) and push-sum's
 # Async steps of each (push-sum: a backstop at the 3rd), and the lockstep
 # steps beside them; cut to keep the smoke's time.
@@ -364,6 +401,23 @@ WIN_ASYNC_SLEEP = 1.5        # seconds process 1 sleeps before each step
 WIN_ASYNC_KNOBS = dict(async_mode=True, trace_sample=1,
                        async_staleness_steps=1, async_collect_every=3)
 BOUND_BYTES = 1 << 30        # path_bounds: one copy of 1 GiB a leg
+SCHED_RANKS = 16             # schedule_pipeline: the virtual ranks,
+SCHED_COLS = 1 << 20         # the rows' width (float32),
+# the fake tori: the 4x4 of the 16 ranks, and a 16-ring, where the
+# congestion repack and the synthesis move the Exp2 rounds.
+SCHED_TORI = ("4x4", "16")
+SHARD_LAYERS = 2             # sharded_moe_train: the MoE LM's depth (as
+SHARD_EXPERTS = 8            # tp_moe_train's), its experts,
+SHARD_GROUPS = 2             # the replica groups ({0, 1} and {2, 3}),
+SHARD_STEPS = 3              # the steps each way (the first left out)
+SHARD_PARAMS = 705734656     # a rank at 2 blocks
+SHARD_NOISE = 1e-2           # the rows' seeded offsets from the one init
+SHARD_ORACLE_TOL = 1e-6      # the lr-0 combine vs float64: ||err|| / ||ref||
+# win_sharded: a MoE-shaped tree (bench.py's _sharding_summary) at
+# win_ops' row size: router (replicated), experts (2 x 6,291,456, sharded
+# on dim 0) and an indivisible head (replicated).
+WIN_SHARD_TREE = {"experts": (2, 6291456), "head": (7, 16),
+                  "router": (1 << 22,)}
 LM_WIDTHS = {"width": 2048, "heads": 16, "seq": 2048, "vocab": 32000}
 DEVICE = "cuda"              # the new phases' device ("cpu" to rehearse)
 KERNELS = {
@@ -379,8 +433,27 @@ def require(ok, what):
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
+_WALL = {"phase": None, "seconds": 0.0, "t": time.perf_counter()}
+
+
 def emit(phase, **kw):
+    """One phase line; when the phase changes, the previous phase's wall
+    seconds (the time since the line before its first, to its last) on a
+    line of its own."""
+    now = time.perf_counter()
+    if phase != _WALL["phase"]:
+        flush_wall()
+        _WALL["phase"] = phase
+    _WALL["seconds"] += now - _WALL["t"]
+    _WALL["t"] = now
     print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def flush_wall():
+    if _WALL["phase"] is not None:
+        print(json.dumps({"phase": "wall", "of": _WALL["phase"],
+                          "seconds": _WALL["seconds"]}), flush=True)
+    _WALL["phase"], _WALL["seconds"] = None, 0.0
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -3176,6 +3249,433 @@ def win_dist_train_phase():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The schedule pipeline and sharded gossip
+# ---------------------------------------------------------------------------
+
+def _cost(c):
+    return None if c is None else {k: getattr(c, k) for k in (
+        "max_link_load", "hop_bytes", "serial_link_time", "rounds")}
+
+
+def _sched_report(sched, model, perm):
+    """A dispatched schedule's stamps, rounds against König's bound, and
+    its modeled cost under the active placement."""
+    from bluefog_tpu_torch.ops import placement as PL
+    from bluefog_tpu_torch.ops import schedule as S
+    from bluefog_tpu_torch.ops import schedule_opt as SO
+    return {"provenance": S.schedule_provenance(sched),
+            "sketch": getattr(sched, "sketch", None),
+            "rounds": len(sched.rounds), "konig_bound": SO.min_rounds(sched),
+            "modeled_cost": _cost(getattr(sched, "modeled_cost", None)),
+            "priced": _cost(PL.schedule_cost(model, sched, perm))}
+
+
+def check_native_rounds():
+    """The native round compiler against its numpy oracle, on the
+    schedule_pipeline's topologies and a dense random 512-rank matrix:
+    the rounds bit for bit, and each one's host time."""
+    import numpy as np
+
+    from bluefog_tpu_torch import native
+    from bluefog_tpu_torch import topology as topo
+    from bluefog_tpu_torch.ops import schedule as S
+    t0 = time.perf_counter()
+    native.schedule_lib()
+    out = {"build_s": time.perf_counter() - t0,
+           "library": native.schedule_library_path().name}
+    rng = np.random.RandomState(SEED)
+    dense = np.where(rng.rand(512, 512) < 0.5, rng.rand(512, 512), 0.0)
+    cases = {
+        "exp2_16": topo.weight_matrix(topo.ExponentialTwoGraph(SCHED_RANKS)),
+        "rr4_16": topo.weight_matrix(
+            topo.RandomRegularGraph(SCHED_RANKS, 4, seed=SEED)),
+        "dense_512": dense}
+    for name, w in cases.items():
+        t0 = time.perf_counter()
+        got = S._rounds_from_matrix_native(w)
+        t1 = time.perf_counter()
+        want = S._rounds_from_matrix_py(w)
+        t2 = time.perf_counter()
+        same = len(got) == len(want) and all(
+            a.pairs == b.pairs and all(
+                np.array_equal(getattr(a, f), getattr(b, f))
+                and getattr(a, f).dtype == getattr(b, f).dtype
+                for f in ("send_scale", "recv_mask", "src_of"))
+            for a, b in zip(got, want))
+        out[name] = {"rounds": len(got), "bitwise": same,
+                     "native_ms": 1e3 * (t1 - t0),
+                     "numpy_ms": 1e3 * (t2 - t1)}
+        require(same, f"native rounds of {name} differ from numpy's")
+    return out
+
+
+def schedule_pipeline_phase():
+    """``set_topology`` of a 16-rank Exp2 under ``BLUEFOG_TPU_FAKE_TORUS``
+    (each of ``SCHED_TORI``): the placement, the synthesis selection and
+    the dispatched static and one-peer schedules (provenance, rounds
+    against König's bound, modeled cost); then ``neighbor_allreduce`` and
+    the dynamic combine of every phase over them on the card, bit for bit
+    the same calls on the CPU, timed beside their byte bound."""
+    import torch
+
+    import bluefog_tpu_torch as bf
+    from bluefog_tpu_torch import basics
+    from bluefog_tpu_torch import topology as topo
+    from bluefog_tpu_torch.utils import config
+
+    native_rounds = check_native_rounds()
+    gen = torch.Generator().manual_seed(SEED)
+    x = torch.randn(SCHED_RANKS, SCHED_COLS, generator=gen)
+    saved = os.environ.get("BLUEFOG_TPU_FAKE_TORUS")
+    tori = {}
+    try:
+        for spec in SCHED_TORI:
+            os.environ["BLUEFOG_TPU_FAKE_TORUS"] = spec
+            config.reload()
+            runs = {}
+            for dev in (DEVICE, "cpu"):
+                t0 = time.perf_counter()
+                bf.init(SCHED_RANKS, device=dev, topology_fn=lambda:
+                        topo.ExponentialTwoGraph(SCHED_RANKS))
+                init_s = time.perf_counter() - t0
+                model, perm = basics._ctx._placement_state
+                static = basics._dispatch_static()
+                dyn = basics._dispatch_dynamic()
+                xd = x.to(dev)
+                calls = [lambda: bf.neighbor_allreduce(xd)] + [
+                    lambda s=s: bf.dynamic_neighbor_allreduce(xd, s)
+                    for s in range(dyn.period)]
+                res = {"outs": [c().cpu() for c in calls],
+                       "init_s": init_s,
+                       "placement_info": bf.placement_info(),
+                       "synthesis_info": bf.synthesis_info(),
+                       "static": _sched_report(static, model, perm),
+                       "dynamic": [_sched_report(ph, model, perm)
+                                   for ph in dyn.phases],
+                       "perm": None if perm is None else
+                       [int(p) for p in perm]}
+                if dev == DEVICE and DEVICE == "cuda":
+                    res["ms"] = {"neighbor_allreduce": cuda_ms(calls[0]),
+                                 "dynamic_phase0": cuda_ms(calls[1])}
+                bf.shutdown()
+                runs[dev] = res
+            card, cpu = runs[DEVICE], runs["cpu"]
+            bitwise = [bool(torch.equal(a, b))
+                       for a, b in zip(card["outs"], cpu["outs"])]
+            require(all(bitwise), f"torus {spec}: card vs CPU {bitwise}")
+            for k in ("placement_info", "synthesis_info", "static",
+                      "dynamic", "perm"):
+                require(card[k] == cpu[k],
+                        f"torus {spec}: {k} differs by device")
+            require(card["placement_info"] is not None,
+                    f"torus {spec}: no placement model")
+            for rep in [card["static"]] + card["dynamic"]:
+                require(rep["rounds"] <= 2 * rep["konig_bound"],
+                        f"torus {spec}: {rep['rounds']} rounds over the "
+                        "budget")
+            tori[spec] = {k: card[k] for k in (
+                "init_s", "placement_info", "synthesis_info", "static",
+                "dynamic", "perm")}
+            tori[spec]["card_vs_cpu_bitwise"] = bitwise
+            tori[spec]["ms"] = card.get("ms")
+    finally:
+        if saved is None:
+            os.environ.pop("BLUEFOG_TPU_FAKE_TORUS", None)
+        else:
+            os.environ["BLUEFOG_TPU_FAKE_TORUS"] = saved
+        config.reload()
+    provs = {r["provenance"] for t in tori.values()
+             for r in [t["static"]] + t["dynamic"]}
+    require(provs & {"congestion", "synthesized:ring-within-slice",
+                     "synthesized:hierarchical",
+                     "synthesized:chunked-pipelined"},
+            f"no packed or synthesized schedule dispatched: {provs}")
+    # Each rank's row read once and its result written once.
+    emit("schedule_pipeline", ranks=SCHED_RANKS, shape=[SCHED_RANKS,
+         SCHED_COLS], dtype="float32",
+         topology=f"ExponentialTwoGraph({SCHED_RANKS}), static and its "
+                  "one-peer phases", native_rounds=native_rounds,
+         tori=tori, combine_bound_ms=1e3 * 2 * 4 * SCHED_RANKS * SCHED_COLS
+         / PEAK_BYTES)
+
+
+def _col_spread(flat, ranges, rows):
+    """The largest deviation of ``rows`` from their mean over the columns
+    ``ranges``."""
+    import torch
+    worst = 0.0
+    for a, b in ranges:
+        for c0 in range(a, b, 1 << 24):
+            blk = flat[rows, c0:min(b, c0 + (1 << 24))]
+            worst = max(worst, float((blk - blk.mean(0)).abs().max()))
+    return worst
+
+
+def sharded_moe_train_phase(benchmark):
+    """The switch-MoE LM at the 1.3B LM's widths (``SHARD_LAYERS`` blocks of
+    ``SHARD_EXPERTS`` GELU experts, full remat, bf16 through K1-K3), 4
+    ranks, ATC over the one-peer Exp2 walk, its expert kernels sharded on
+    their expert axis over ``SHARD_GROUPS`` replica groups: an lr-0 step
+    against a float64 oracle, then ``SHARD_STEPS`` steps with the specs and
+    as many without, from the same start.  Returns the launches."""
+    import torch
+
+    from bluefog_tpu_torch import basics
+    from bluefog_tpu_torch.models.convert import flax_leaf
+    from bluefog_tpu_torch.optim import optimizers as O
+    from bluefog_tpu_torch.ops import flash_attention as FA
+
+    w = LM_WIDTHS
+    args = benchmark.build_parser().parse_args([
+        "--model", "transformer", "--flash-attention", "--atc", "--dynamic",
+        "--num-layers", str(SHARD_LAYERS), "--embed-dim", str(w["width"]),
+        "--num-heads", str(w["heads"]), "--num-experts", str(SHARD_EXPERTS),
+        "--remat", "--seq-len", str(w["seq"]), "--batch-size", "2",
+        "--vocab-size", str(w["vocab"]), "--momentum", "0", "--ranks", "4",
+        "--device", DEVICE, "--seed", str(SEED)])
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    tr = benchmark.Trainer(args)
+    rep, n = tr.rep, tr.n
+    flat, base = rep.flat, tr.opt.base
+    lr = base.param_groups[0]["lr"]
+    proto = rep.modules[0]
+    specs = [("ep", None, None) if flax_leaf(proto, name)[1][-1] in (
+        "experts_up", "experts_down") else None for name in rep.names]
+
+    def make(sharded):
+        return O.DistributedAdaptThenCombineOptimizer(
+            base, use_dynamic_topology=True, leaf_shapes=rep.leaf_shapes,
+            shard_specs=specs if sharded else None,
+            num_shards=SHARD_GROUPS if sharded else None)
+
+    with torch.no_grad():   # each rank its own seeded offset
+        g = torch.Generator(device=flat.device).manual_seed(SEED + 1)
+        for r in range(n):
+            flat[r].add_(torch.randn(flat.shape[1], generator=g,
+                                     device=flat.device), alpha=SHARD_NOISE)
+    x0 = flat.detach().clone()
+    opt = make(True)
+    plan = opt._shard_plan()
+    gsched, _ = opt._group_schedule(plan)
+    starts = [0]
+    for size in rep.leaf_sizes:
+        starts.append(starts[-1] + size)
+    rep_ranges = [(starts[i], starts[i + 1])
+                  for i, m in enumerate(plan.mask) if not m]
+    sh_idx = [i for i, m in enumerate(plan.mask) if m]
+
+    def own_ranges(c):   # a leaf sharded on dim 0: a column range
+        return [(starts[i] + c * (rep.leaf_sizes[i] // plan.n_shards),
+                 starts[i] + (c + 1) * (rep.leaf_sizes[i] // plan.n_shards))
+                for i in sh_idx]
+    require(all(plan.dims[i] == 0 for i in sh_idx) and len(sh_idx)
+            == 2 * SHARD_LAYERS, f"the plan: {plan.decisions}")
+    gossiped = {"replicated": sum(b - a for a, b in rep_ranges),
+                "own_slice": sum(b - a for a, b in own_ranges(0))}
+
+    # -- the lr-0 step against a float64 oracle -------------------------------
+    for grp in base.param_groups:
+        grp["lr"] = 0.0
+    rep.zero_grad()
+    opt.step()
+    for grp in base.param_groups:
+        grp["lr"] = lr
+
+    def matrix(sched):
+        m = torch.diag(torch.as_tensor(sched.self_scale, dtype=torch.float64))
+        for rnd in sched.rounds:
+            for s_, d_ in rnd.pairs:
+                m[s_, d_] = float(rnd.send_scale[s_])
+        return m.to(flat.device)
+    w_rep = matrix(basics.dynamic_schedule().phases[0])
+    w_grp = matrix(gsched)
+    err2 = ref2 = 0.0
+    worst = 0.0
+
+    def hold(ranges, rows, wm):
+        nonlocal err2, ref2, worst
+        for a, b in ranges:
+            for c0 in range(a, b, 1 << 23):
+                c1 = min(b, c0 + (1 << 23))
+                ref = wm[:, rows].T @ x0[:, c0:c1].double()
+                d = flat[rows, c0:c1].double() - ref
+                err2 += float(d.square().sum())
+                ref2 += float(ref.square().sum())
+                worst = max(worst, float(d.abs().max()))
+    hold(rep_ranges, list(range(n)), w_rep)
+    ghost_bitwise = True
+    for c, grp in enumerate(plan.groups):
+        hold(own_ranges(c), list(grp), w_grp)
+        for o in range(plan.n_shards):
+            if o == c:
+                continue
+            for a, b in own_ranges(o):
+                ghost_bitwise &= bool(torch.equal(flat[list(grp), a:b],
+                                                  x0[list(grp), a:b]))
+    oracle = {"rel_err": (err2 / ref2) ** 0.5, "max_abs_err": worst,
+              "ghost_bitwise": ghost_bitwise, "tol": SHARD_ORACLE_TOL}
+    require(oracle["rel_err"] <= SHARD_ORACLE_TOL,
+            f"the lr-0 sharded combine vs float64: {oracle}")
+    require(ghost_bitwise, "a ghost slice moved in the sharded combine")
+
+    # -- the steps, with the specs and without ----------------------------------
+    def run(sharded):
+        with torch.no_grad():
+            flat.copy_(x0)
+        o = make(sharded)
+        if DEVICE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        steps = []
+        for _ in range(SHARD_STEPS):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)] \
+                if DEVICE == "cuda" else None
+            sync()
+            t0 = time.perf_counter()
+            if ev:
+                ev[0].record()
+            losses = tr.forward_backward()
+            o.adapt()
+            if ev:
+                ev[1].record()
+            t1 = time.perf_counter()
+            o.combine()
+            if ev:
+                ev[2].record()
+            sync()
+            t2 = time.perf_counter()
+            if ev:
+                step_ms = ev[0].elapsed_time(ev[2])
+                combine_ms = ev[1].elapsed_time(ev[2])
+            else:
+                step_ms, combine_ms = 1e3 * (t2 - t0), 1e3 * (t2 - t1)
+            steps.append({
+                "step_ms": step_ms, "combine_ms": combine_ms,
+                "losses": [float(v) for v in losses],
+                "spread_replicated": _col_spread(flat, rep_ranges,
+                                                 list(range(n))),
+                "spread_own_slice": [_col_spread(flat, own_ranges(c),
+                                                 list(grp))
+                                     for c, grp in enumerate(plan.groups)]})
+        step_ms = sum(s["step_ms"] for s in steps[1:]) / (SHARD_STEPS - 1)
+        comb = sum(s["combine_ms"] for s in steps[1:]) / (SHARD_STEPS - 1)
+        cols = (gossiped["replicated"] + gossiped["own_slice"] if sharded
+                else rep.numel)
+        return {"steps": steps, "step_ms": step_ms, "combine_ms": comb,
+                "tokens_per_s": n * 2 * w["seq"] / (step_ms / 1e3),
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9
+                if DEVICE == "cuda" else None,
+                "gossiped_columns": cols,
+                # Each rank's gossiped columns read once, written once.
+                "combine_bound_ms": 1e3 * 2 * n * 4 * cols / PEAK_BYTES}
+
+    oracle_peak = torch.cuda.max_memory_allocated() / 1e9 \
+        if DEVICE == "cuda" else None
+    FA.reset_launch_counts()
+    runs = {"sharded": run(True), "replicated": run(False)}
+    launches = flash_launches()
+    peak = None if DEVICE != "cuda" else max(
+        oracle_peak, *(r["peak_mem_gb"] for r in runs.values()))
+    per = {"K1": 2 * SHARD_LAYERS * n, "K2": SHARD_LAYERS * n,
+           "K3": SHARD_LAYERS * n}
+    expected = {k: 2 * SHARD_STEPS * v for k, v in per.items()}
+    emit("sharded_moe_train", config={
+        "num_layers": SHARD_LAYERS, **LM_WIDTHS, "num_experts":
+        SHARD_EXPERTS, "remat": "full", "batch_size": 2, "ranks": n,
+        "order": "atc", "momentum": 0.0, "lr": lr,
+        "topology": "dynamic one-peer ExponentialGraph(4); experts over "
+                    "the group schedule",
+        "shard_specs": "experts_up, experts_down: (ep, None, None)",
+        "groups": [list(g) for g in plan.groups]},
+        params_per_rank=rep.numel, plan=plan.summary(),
+        gossiped_columns_per_rank={**gossiped, "all": rep.numel,
+                                   "share": (gossiped["replicated"]
+                                             + gossiped["own_slice"])
+                                   / rep.numel},
+        oracle=oracle, launches=launches, launches_per_step=per,
+        expected_launches=expected, peak_mem_gb=peak, **runs)
+    require(rep.numel == SHARD_PARAMS,
+            f"flat has {rep.numel} columns, expected {SHARD_PARAMS}")
+    for name, r in runs.items():
+        for st in r["steps"]:
+            require(all(math.isfinite(v) for v in st["losses"]),
+                    f"{name}: finite losses {st['losses']}")
+    first = [runs[k]["steps"][0]["losses"] for k in runs]
+    require(all(abs(a - b) <= 1e-6 * abs(b) for a, b in zip(*first)),
+            f"the two runs start from the same weights: {first}")
+    if DEVICE == "cuda":
+        require(launches == expected,
+                f"launches {launches}, expected {expected}")
+        require(peak < 80, f"peak {peak} GB")
+    del tr, opt, x0
+    empty_cache()
+    return launches
+
+
+def win_sharded_phase():
+    """One ``DistributedWinPutOptimizer`` step (lr 0: the combine alone) of
+    a MoE-shaped tree at ``win_ops``' row size, rank layout, ``fuse=True``,
+    its experts sharded over 2 replica groups: on the card, bit for bit
+    the CPU run; each own slice the in-group combine of
+    ``induced_window_weights``, each ghost slice its input."""
+    import numpy as np
+    import torch
+
+    import bluefog_tpu_torch as bf
+    from bluefog_tpu_torch import topology as topo
+    from bluefog_tpu_torch.ops import sharded as SH
+    from bluefog_tpu_torch.optim import window_optimizers as WO
+    keys = sorted(WIN_SHARD_TREE)
+    gen = torch.Generator().manual_seed(SEED)
+    tree = {k: torch.randn((4,) + WIN_SHARD_TREE[k], generator=gen)
+            for k in keys}
+    specs = {"experts": ("ep", None), "head": ("ep", None), "router": None}
+    outs = {}
+    for dev in (DEVICE, "cpu"):
+        bf.init(4, device=dev,
+                topology_fn=lambda: topo.ExponentialTwoGraph(4))
+        ps = [tree[k].to(dev, copy=True) for k in keys]
+        opt = WO.DistributedWinPutOptimizer(
+            torch.optim.SGD(ps, lr=0.0), window_prefix="winshard",
+            shard_specs=[specs[k] for k in keys], num_shards=2)
+        plan = opt._shard_plan
+        names = list(opt._names)
+        ms = timed_ms(opt.step)
+        outs[dev] = ([p.cpu() for p in ps], ms, names, plan)
+        opt.free()
+        bf.shutdown()
+    (card, card_ms, names, plan), (cpu, _ms, _n, _p) = outs[DEVICE], \
+        outs["cpu"]
+    bitwise = {k: bool(torch.equal(a, b)) for k, a, b in zip(keys, card,
+                                                             cpu)}
+    require(all(bitwise.values()), f"win_sharded card vs CPU {bitwise}")
+    _pe, self_w, nbr_w = SH.induced_window_weights(
+        plan, topo.ExponentialTwoGraph(4))
+    e0, e1 = tree["experts"].double(), card[0].double()
+    half = WIN_SHARD_TREE["experts"][0] // 2
+    worst, ghost = 0.0, True
+    for r in range(4):
+        c = plan.coords[r]
+        ref = self_w[r] * e0[r, c * half:(c + 1) * half]
+        for (d, s_), wt in nbr_w.items():
+            if d == r:
+                ref = ref + wt * e0[s_, c * half:(c + 1) * half]
+        worst = max(worst, float((e1[r, c * half:(c + 1) * half] - ref)
+                                 .abs().max()))
+        o = 1 - c
+        ghost &= bool(torch.equal(card[0][r, o * half:(o + 1) * half],
+                                  tree["experts"][r, o * half:(o + 1)
+                                                  * half]))
+    require(worst <= 1e-5 and ghost,
+            f"win_sharded in-group oracle {worst}, ghosts {ghost}")
+    cols = {k: int(np.prod(WIN_SHARD_TREE[k])) for k in keys}
+    emit("win_sharded", tree={k: [4, *WIN_SHARD_TREE[k]] for k in keys},
+         row_columns=sum(cols.values()), windows=names,
+         plan=plan.summary(), card_vs_cpu_bitwise=bitwise,
+         in_group_max_abs_err=worst, ghost_bitwise=ghost, step_ms=card_ms)
+
+
 def worker_main(phase, out_path, device, *args):
     """One process of a ``win_dist_*`` phase (``launch_workers``), on the
     phase's ``device``."""
@@ -3500,6 +4000,10 @@ def main():
     tp_moe_launches = tp_moe_train_phase()
     win_async_ops_phase()
     win_async_launches = win_async_train_phase()
+    schedule_pipeline_phase()
+    sharded_launches = sharded_moe_train_phase(benchmark)
+    win_sharded_phase()
+    flush_wall()
 
     kernels = []
     for kname, (fn, replaces) in KERNELS.items():
@@ -3519,7 +4023,8 @@ def main():
                                      + win_variant_launches[kname]
                                      + win_dist_launches[kname]
                                      + tp_moe_launches[kname]
-                                     + win_async_launches[kname]),
+                                     + win_async_launches[kname]
+                                     + sharded_launches[kname]),
                         "launches_by_path": {
                             "train": launches[kname],
                             "llama_train": llama_launches[kname],
@@ -3536,6 +4041,7 @@ def main():
                             "win_dist_train": win_dist_launches[kname],
                             "tp_moe_train": tp_moe_launches[kname],
                             "win_async_train": win_async_launches[kname],
+                            "sharded_moe_train": sharded_launches[kname],
                             "generate": gen_launches[kname],
                             "vit": vit_launches[kname]},
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -40,7 +40,6 @@ NOT_PORTED = {
     "stop_timeline": "21", "telemetry": "21", "telemetry_snapshot": "21",
     "profiler": "21", "step_profile": "21", "flight_recorder_dump": "21",
     "link_report": "21b",
-    "placement_info": "16", "synthesis_info": "16",
     "win_xla_info": "18",
     "gang": "20", "gang_info": "20", "membership_info": "20",
     "data": "22", "mesh": "22", "hierarchical_mesh": "22",
@@ -76,7 +75,7 @@ def test_not_ported_list_is_exact():
     ``NOT_PORTED``'s: a name that lands must leave the list."""
     lacking = {n for n in _jax_surface() if not hasattr(tbf, n)}
     assert lacking == set(NOT_PORTED)
-    assert set(NOT_PORTED.values()) <= {"16", "18", "20", "21", "21b", "22"}
+    assert set(NOT_PORTED.values()) <= {"18", "20", "21", "21b", "22"}
 
 
 @pytest.fixture

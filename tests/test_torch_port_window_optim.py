@@ -221,16 +221,25 @@ def test_window_state_dict_guards_and_resume():
 
 
 def test_not_ported_options_raise_with_their_item(monkeypatch):
-    params = [torch.zeros(N, 3)]
+    params = [torch.zeros(N, 4)]
     tbf.init(N, device="cpu")
     try:
         sgd = torch.optim.SGD(params, lr=LR)
         for kw, item in (({"fused": True}, "item 19b"),
-                         ({"fusion_buckets": 2}, "item 19b"),
-                         ({"shard_specs": {}}, "item 16"),
-                         ({"shard_groups": [[0]]}, "item 16"),
-                         ({"num_shards": 2}, "item 16")):
+                         ({"fusion_buckets": 2}, "item 19b")):
             with pytest.raises(NotImplementedError, match=item):
+                TWO.DistributedWinPutOptimizer(sgd, **kw)
+        # Sharded gossip is ported; its layout and fusion requirements
+        # raise the JAX package's ValueErrors.
+        sharded = {"shard_specs": [("ep",)], "num_shards": 2}
+        groups = {"shard_specs": [("ep",)],
+                  "shard_groups": [list(range(N // 2)),
+                                   list(range(N // 2, N))]}
+        for kw, match in (({**sharded, "fuse": False}, "fuse=True"),
+                          ({**sharded, "layout": "owned"},
+                           "rank-major layout"),
+                          ({**groups, "fuse": False}, "fuse=True")):
+            with pytest.raises(ValueError, match=match):
                 TWO.DistributedWinPutOptimizer(sgd, **kw)
         monkeypatch.setenv("BLUEFOG_TPU_CHURN", "1")
         config.reload()
