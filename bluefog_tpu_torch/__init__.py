@@ -19,6 +19,11 @@ asks for the CPU, and raise when no GPU is present.
 The model-parallel names of ``parallel`` (tensor, pipeline and expert
 parallelism: ``bf.pipeline_train_step``, ...) are exported here too, each
 imported when first read.
+
+Observability: ``bf.telemetry`` (the metric registry, ``/metrics`` and
+``/healthz``), ``bf.telemetry_snapshot()``, ``bf.step_profile()``,
+``bf.profiler``, the timeline (``BLUEFOG_TIMELINE``, ``bf.start_timeline``,
+``bf.timeline_context``) and ``bf.flight_recorder_dump()``.
 """
 
 from bluefog_tpu_torch import parallel
@@ -48,6 +53,13 @@ from bluefog_tpu_torch.basics import (
     mpi_threads_supported, nccl_built, unified_mpi_window_model_supported,
     placement_info, synthesis_info)
 from bluefog_tpu_torch import optim
+from bluefog_tpu_torch.utils import profiler, telemetry
+from bluefog_tpu_torch.utils.flightrec import dump as flight_recorder_dump
+from bluefog_tpu_torch.utils.profiler import step_profile
+from bluefog_tpu_torch.utils.telemetry import telemetry_snapshot
+from bluefog_tpu_torch.utils.timeline import (
+    start_timeline, stop_timeline, timeline_context, timeline_end_activity,
+    timeline_start_activity)
 from bluefog_tpu_torch.ops import window as _window
 from bluefog_tpu_torch.ops.window import (
     get_current_created_window_names, get_win_version, win_accumulate,
@@ -85,7 +97,10 @@ __all__ = ["topology_util", "init", "init_distributed", "shutdown", "barrier",
            "set_skip_negotiate_stage", "get_skip_negotiate_stage",
            "mpi_threads_supported", "nccl_built",
            "unified_mpi_window_model_supported", "placement_info",
-           "synthesis_info"
+           "synthesis_info", "telemetry", "telemetry_snapshot", "profiler",
+           "step_profile", "flight_recorder_dump", "start_timeline",
+           "stop_timeline", "timeline_context", "timeline_start_activity",
+           "timeline_end_activity"
            ] + _window.__all__ + parallel.__all__
 
 

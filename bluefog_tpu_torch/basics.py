@@ -26,18 +26,21 @@ one tensor, so the permutation moves no data; it prices the schedules.
 
 The eager collectives take and return rank-major tensors on the context's
 device.  In one process they return once their work is queued on the
-device's stream, as every torch op does.  The ``*_nonblocking`` calls return
-a :class:`Handle`: across processes it holds the async works and finishes
-the combine at :func:`wait`; in one process the result is already queued,
-and the handle holds a CUDA event recorded after it (on the CPU it is ready
-at once).
+device's stream, as every torch op does.  Each call is recorded as the JAX
+package's dispatch records it (``utils/telemetry``: calls, bytes, the
+schedule's rounds and edges; an ``ENQUEUE`` span around the launch and a
+``synchronize``/``COMMUNICATE`` span around the wait for its works), from
+shapes and schedules only: the telemetry never synchronises the device.
+The ``*_nonblocking`` calls return a :class:`Handle`: across processes it
+holds the async works and finishes the combine at :func:`wait`; in one
+process the result is already queued, and the handle holds a CUDA event
+recorded after it (on the CPU it is ready at once).
 """
 
 from __future__ import annotations
 
 import collections
 import hashlib
-import logging
 import os
 import socket
 from typing import Dict, List, Optional, Union
@@ -51,6 +54,10 @@ from bluefog_tpu_torch import topology as topology_util
 from bluefog_tpu_torch.ops import collective as C
 from bluefog_tpu_torch.ops import schedule as S
 from bluefog_tpu_torch.ops.p2p import Pending, ProcessRanks
+from bluefog_tpu_torch.utils import stall, telemetry
+from bluefog_tpu_torch.utils.logging import get_logger
+from bluefog_tpu_torch.utils.timeline import flush as _timeline_flush
+from bluefog_tpu_torch.utils.timeline import op_span
 
 __all__ = ["init", "init_distributed", "shutdown", "barrier", "initialized",
            "size", "rank", "owned_ranks", "local_size", "local_rank",
@@ -113,6 +120,9 @@ class _Context:
         self.hier_topology = None   # hierarchical_gossip's, with its key
         self._hier_key = None
         self._schedules: dict = {}
+        # Dispatch keys seen (the JAX package's jit-cache keys): the
+        # dispatch-cache hit and miss counters.
+        self._dispatched: set = set()
         self.suspended = False      # suspend(): new communication refused
         # The physical placement (_refresh_placement): the interconnect
         # model (None: no geometry), the logical -> device permutation
@@ -173,6 +183,9 @@ def _setup(size: int, local: int, dev: torch.device, topology_fn,
     if size // local > 1:
         set_machine_topology(topology_util.ExponentialGraph(size // local),
                              is_weighted=False)
+    # The opt-in /metrics + /healthz endpoint (BLUEFOG_TPU_TELEMETRY_PORT);
+    # idempotent across re-init.
+    telemetry.maybe_start_endpoint()
 
 
 def init(size: int, device="cuda", topology_fn=None,
@@ -282,30 +295,34 @@ def shutdown() -> None:
     window._shutdown_transport()
     if _ctx.comm is not None and dist.is_initialized():
         dist.destroy_process_group()
+    stall._monitor.unpause()  # a suspended session must not outlive it
     _ctx = _Context()
 
 
 def suspend() -> None:
     """Quiesce for interactive use (the reference's ``bf.suspend``, the
     JAX package's ``basics.py`` L283-309): wait for every outstanding
-    window op, then refuse new communication ops until :func:`resume`.
-    Queries (rank, size, topology) and reading window state stay
-    available.  (The JAX package also pauses its stall watchdog here:
-    ROADMAP item 21.)"""
+    window op, silence the stall watchdog (an idle prompt is not a stalled
+    peer), flush the timeline, then refuse new communication ops until
+    :func:`resume`.  Queries (rank, size, topology) and reading window
+    state stay available."""
     ctx = _require_init()
     if ctx.suspended:
         return
     from bluefog_tpu_torch.ops import window
     if not window._drain_handles():
-        logging.getLogger("bluefog_tpu_torch").warning(
+        get_logger().warning(
             "suspend: outstanding window ops did not drain within 60 s; "
             "suspending anyway (a hung peer or a dead transport is likely)")
+    stall._monitor.pause()
+    _timeline_flush()
     ctx.suspended = True
 
 
 def resume() -> None:
     """Accept communication ops again after :func:`suspend`."""
     ctx = _require_init()
+    stall._monitor.unpause()
     ctx.suspended = False
 
 
@@ -318,10 +335,11 @@ def barrier() -> None:
     processes, until every process has reached the barrier (over the
     process group; one process needs no wire)."""
     ctx = _require_init()
-    if ctx.device.type == "cuda":
-        torch.cuda.synchronize(ctx.device)
-    if ctx.comm is not None and ctx.comm.nprocs > 1:
-        dist.barrier()
+    with stall.watch("barrier"):
+        if ctx.device.type == "cuda":
+            torch.cuda.synchronize(ctx.device)
+        if ctx.comm is not None and ctx.comm.nprocs > 1:
+            dist.barrier()
 
 
 def initialized() -> bool:
@@ -427,7 +445,7 @@ _PLACEMENT_SEARCH_CACHE_MAX = 64
 def _placement_model(devices):
     """The interconnect model of ``devices`` (``ops.placement.
     build_model``), cached (the JAX package's ``basics.py`` L488; its
-    tuner's measured re-pricing is item 21's)."""
+    tuner's measured re-pricing is item 21b's)."""
     from bluefog_tpu_torch.ops import placement as PL
     from bluefog_tpu_torch.utils import config
     cfg = config.get()
@@ -514,7 +532,7 @@ def _refresh_placement(ctx: _Context) -> None:
     from bluefog_tpu_torch.utils import config
     cfg = config.get()
     n = ctx.size
-    model = perm = result = None
+    model = perm = result = mll = None
     synth_ratio = dispatch_prov = None
     if cfg.placement and n > 1 and ctx.topology is not None:
         # Every rank's device is a torch device: no torus coordinates.
@@ -539,7 +557,7 @@ def _refresh_placement(ctx: _Context) -> None:
                     S._schedule_from_matrix(ht.outer_full_matrix(p))
                     for p in range(len(ht.outer_phases)))
         block = ctx.local_size if 0 < ctx.local_size < n else None
-        result, _mll, synth_ratio, dispatch_prov = _placement_search(
+        result, mll, synth_ratio, dispatch_prov = _placement_search(
             model, scheds, n, iters=cfg.placement_iters, block=block,
             budget=cfg.placement_round_budget,
             synth=cfg.schedule_synth, sketch=cfg.schedule_synth_sketch)
@@ -554,8 +572,22 @@ def _refresh_placement(ctx: _Context) -> None:
     ctx.placement_generation += 1
     ctx._schedules.clear()
     PL.set_active(model, perm)
-    # item 21: set_gauge("bf_placement_improvement_ratio") and
-    # ("bf_schedule_max_link_load", _mll), cleared without a model.
+    from bluefog_tpu_torch.ops import synthesis as SY
+    if result is not None:
+        telemetry.set_gauge("bf_placement_improvement_ratio",
+                            result.improvement_ratio)
+        telemetry.set_gauge("bf_schedule_max_link_load", mll)
+    else:
+        # No model: a stale value of an earlier topology would misreport.
+        telemetry.clear_gauge("bf_placement_improvement_ratio")
+        telemetry.clear_gauge("bf_schedule_max_link_load")
+    if synth_ratio is not None:
+        telemetry.set_gauge("bf_schedule_synth_improvement_ratio",
+                            synth_ratio)
+        SY._publish_provenance(dispatch_prov)
+    else:
+        telemetry.clear_gauge("bf_schedule_synth_improvement_ratio")
+        SY._publish_provenance(None)
 
 
 def _sched_path_tag(cfg) -> tuple:
@@ -584,9 +616,13 @@ def _physical_repack(sched, _state=None, _cfg=None):
     packed = SO.congestion_aware_repack(
         sched, model, perm, budget_factor=cfg.placement_round_budget)
     if not cfg.schedule_synth:
-        # Switched off mid-process: synthesis_info() stops claiming it.
-        _ctx.synthesis_ratio = None
-        _ctx.synthesis_provenance = None
+        # Switched off mid-process: synthesis_info() and the gauges stop
+        # claiming it.
+        if _ctx.synthesis_ratio is not None:
+            _ctx.synthesis_ratio = None
+            _ctx.synthesis_provenance = None
+            telemetry.clear_gauge("bf_schedule_synth_improvement_ratio")
+            SY._publish_provenance(None)
         return packed
     # Switched on after a refresh that ran without it: publish from this
     # selection.
@@ -717,38 +753,97 @@ def dynamic_schedule(phases=None) -> S.DynamicSchedule:
         lambda: S.compile_dynamic(phases, ctx.size))
 
 
-def _dispatch_static(w: Optional[np.ndarray] = None) -> S.StaticSchedule:
-    """The schedule the eager static ops dispatch (the JAX package's
-    ``_nbr_schedule``): the active topology's, or ``w``'s, through the
-    physical pipeline, cached under the pipeline's knobs and the
-    placement generation."""
+def _static_keyed(w: Optional[np.ndarray] = None) -> tuple:
+    """``(schedule, key)`` of the eager static ops (the JAX package's
+    ``_nbr_schedule``): the active topology's schedule, or ``w``'s, through
+    the physical pipeline, cached under the pipeline's knobs and the
+    placement generation; ``key`` is the JAX package's content key."""
     from bluefog_tpu_torch.utils import config
     ctx = _require_init()
     cfg = config.get()
     tag, gen = _sched_path_tag(cfg), ctx.placement_generation
     if w is not None:
-        return ctx.schedule(
-            ("static_override", w.tobytes(), tag, gen),
-            lambda: _physical_repack(S.compile_static(
-                ctx.topology, src_weights=w), _cfg=cfg))
+        key = ("static_override", w.tobytes(), tag, gen)
+        return ctx.schedule(key, lambda: _physical_repack(S.compile_static(
+            ctx.topology, src_weights=w), _cfg=cfg)), key
+    key = ("static", ctx.topology_version, ctx.is_topo_weighted, tag, gen)
     return ctx.schedule(
         ("static_dispatch", ctx.is_topo_weighted, tag, gen),
         lambda: _physical_repack(S.compile_static(
-            ctx.topology, use_topo_weights=ctx.is_topo_weighted), _cfg=cfg))
+            ctx.topology, use_topo_weights=ctx.is_topo_weighted),
+            _cfg=cfg)), key
 
 
-def _dispatch_dynamic(phases=None) -> S.DynamicSchedule:
-    """The one-peer walk the eager dynamic op dispatches, through the
-    physical pipeline (as :func:`_dispatch_static`)."""
+def _dispatch_static(w: Optional[np.ndarray] = None) -> S.StaticSchedule:
+    """The schedule the eager static ops dispatch (:func:`_static_keyed`)."""
+    return _static_keyed(w)[0]
+
+
+def _dynamic_keyed(phases=None) -> tuple:
+    """``(schedule, key)`` of the one-peer walk the eager dynamic op
+    dispatches, through the physical pipeline (as :func:`_static_keyed`)."""
     from bluefog_tpu_torch.utils import config
     ctx = _require_init()
     cfg = config.get()
     tag, gen = _sched_path_tag(cfg), ctx.placement_generation
-    key = (("dynamic_dispatch", tag, gen) if phases is None else
-           ("dynphases_dispatch", tuple(ph.send_to for ph in phases), tag,
-            gen))
+    key = (("dynamic", ctx.topology_version, tag, gen) if phases is None
+           else ("dynphases", tuple(ph.send_to for ph in phases), tag, gen))
     return ctx.schedule(key, lambda: _physical_repack_dynamic(
-        dynamic_schedule(phases), _cfg=cfg))
+        dynamic_schedule(phases), _cfg=cfg)), key
+
+
+def _dispatch_dynamic(phases=None) -> S.DynamicSchedule:
+    """The walk the eager dynamic op dispatches (:func:`_dynamic_keyed`)."""
+    return _dynamic_keyed(phases)[0]
+
+
+def _record_dispatch(op: str, x, sched=None) -> None:
+    """A call's comm counters (the JAX package's L959): calls, the element
+    bytes of the rank-major input and, from the schedule, rounds, edges and
+    estimated wire bytes (``collective.schedule_wire_stats``; a dynamic
+    schedule's per-call average)."""
+    if not telemetry.enabled():
+        return
+    nbytes = x.numel() * x.element_size()
+    telemetry.record_comm_traffic(
+        op, nbytes, size=size(),
+        sched_stats=None if sched is None else C.schedule_wire_stats(sched))
+
+
+def _dispatch(key: tuple, x: torch.Tensor, sched, launch) -> Pending:
+    """One eager op's launch, recorded: its counters, the dispatch-cache
+    counter of ``key`` (the JAX package's jit-cache key: an op's first
+    dispatch with its schedule or arguments misses), the
+    ``bf_comm_dispatch_seconds`` histogram and an ``ENQUEUE`` span around
+    ``launch()``, which returns the op's :class:`Pending`."""
+    op = str(key[0])
+    _record_dispatch(op, x, sched)
+    t0 = telemetry.start_timer()
+    with op_span(op, "ENQUEUE"):
+        if telemetry.enabled():
+            ctx = _ctx
+            if key in ctx._dispatched:
+                telemetry.inc("bf_dispatch_cache_hits_total")
+            else:
+                ctx._dispatched.add(key)
+                telemetry.inc("bf_dispatch_cache_misses_total")
+        pending = launch()
+    telemetry.observe_since(t0, "bf_comm_dispatch_seconds", op=op)
+    return pending
+
+
+def _complete(pending):
+    """Wait for an op's works (the JAX package's ``synchronize``, L1649):
+    under the stall watchdog, in a ``synchronize``/``COMMUNICATE`` span,
+    timed into ``bf_comm_sync_seconds``.  In one process the result is
+    queued on the device's stream already, and this does not wait for the
+    device."""
+    t0 = telemetry.start_timer()
+    with stall.watch("collective synchronize"), \
+            op_span("synchronize", "COMMUNICATE"):
+        out = pending.wait()
+    telemetry.observe_since(t0, "bf_comm_sync_seconds")
+    return out
 
 
 def _rank_major(x) -> torch.Tensor:
@@ -856,76 +951,98 @@ def poll(handle: Handle) -> bool:
 
 
 def wait(handle: Handle):
-    """The handle's result, once the op is done."""
-    return handle.wait()
+    """The handle's result, once the op is done (:func:`synchronize`)."""
+    return synchronize(handle)
 
 
 def synchronize(handle: Handle):
-    """:func:`wait` (the JAX package's name for it)."""
-    return handle.wait()
+    """The handle's result, once the op is done, waited under the stall
+    watchdog in a ``synchronize``/``COMMUNICATE`` span."""
+    return _complete(handle)
+
+
+def _allreduce(x, average: bool, in_place: bool) -> Pending:
+    x = _rank_major(x)
+    fn = C.allreduce_ if in_place else C.allreduce
+    return _dispatch(("allreduce", average), x, None, lambda: fn(
+        x, average=average, comm=_ctx.comm, async_op=True))
 
 
 def allreduce_nonblocking(x, *, average: bool = True) -> Handle:
-    return Handle(C.allreduce(_rank_major(x), average=average,
-                              comm=_ctx.comm, async_op=True))
+    return Handle(_allreduce(x, average, False))
 
 
 def allreduce(x, *, average: bool = True) -> torch.Tensor:
     """Every rank gets the rank mean (or with ``average=False`` the sum)."""
-    return C.allreduce(_rank_major(x), average=average, comm=_ctx.comm)
+    return _complete(_allreduce(x, average, False))
 
 
 def allreduce_(x, *, average: bool = True) -> torch.Tensor:
     """:func:`allreduce` written into ``x``, which is returned (the
     reference's in-place op; the same bits as the out-of-place one)."""
-    return C.allreduce_(_rank_major(x), average=average, comm=_ctx.comm)
+    return _complete(_allreduce(x, average, True))
 
 
 def allreduce_nonblocking_(x, *, average: bool = True) -> Handle:
-    return Handle(C.allreduce_(_rank_major(x), average=average,
-                               comm=_ctx.comm, async_op=True))
+    return Handle(_allreduce(x, average, True))
+
+
+def _local_allreduce(x, average: bool) -> Pending:
+    x = _rank_major(x)
+    return _dispatch(("local_allreduce", average), x, None,
+                     lambda: C.local_allreduce(x, local_size(),
+                                               average=average,
+                                               comm=_ctx.comm, async_op=True))
 
 
 def local_allreduce_nonblocking(x, *, average: bool = True) -> Handle:
-    return Handle(C.local_allreduce(_rank_major(x), local_size(),
-                                    average=average, comm=_ctx.comm,
-                                    async_op=True))
+    return Handle(_local_allreduce(x, average))
 
 
 def local_allreduce(x, *, average: bool = True) -> torch.Tensor:
     """:func:`allreduce` within each machine's ``local_size()`` ranks."""
-    return C.local_allreduce(_rank_major(x), local_size(), average=average,
-                             comm=_ctx.comm)
+    return _complete(_local_allreduce(x, average))
+
+
+def _broadcast(x, root_rank: int, in_place: bool) -> Pending:
+    x = _rank_major(x)
+    fn = C.broadcast_ if in_place else C.broadcast
+    return _dispatch(("broadcast", root_rank), x, None, lambda: fn(
+        x, root_rank, comm=_ctx.comm, async_op=True))
 
 
 def broadcast_nonblocking(x, root_rank: int) -> Handle:
-    return Handle(C.broadcast(_rank_major(x), root_rank, comm=_ctx.comm,
-                              async_op=True))
+    return Handle(_broadcast(x, root_rank, False))
 
 
 def broadcast(x, root_rank: int) -> torch.Tensor:
     """Every rank gets ``root_rank``'s value."""
-    return C.broadcast(_rank_major(x), root_rank, comm=_ctx.comm)
+    return _complete(_broadcast(x, root_rank, False))
 
 
 def broadcast_(x, root_rank: int) -> torch.Tensor:
     """:func:`broadcast` written into ``x``, which is returned."""
-    return C.broadcast_(_rank_major(x), root_rank, comm=_ctx.comm)
+    return _complete(_broadcast(x, root_rank, True))
 
 
 def broadcast_nonblocking_(x, root_rank: int) -> Handle:
-    return Handle(C.broadcast_(_rank_major(x), root_rank, comm=_ctx.comm,
-                               async_op=True))
+    return Handle(_broadcast(x, root_rank, True))
+
+
+def _allgather(x) -> Pending:
+    x = _rank_major(x)
+    return _dispatch(("allgather",), x, None, lambda: C.allgather(
+        x, comm=_ctx.comm, async_op=True))
 
 
 def allgather_nonblocking(x) -> Handle:
-    return Handle(C.allgather(_rank_major(x), comm=_ctx.comm, async_op=True))
+    return Handle(_allgather(x))
 
 
 def allgather(x) -> torch.Tensor:
     """Every rank receives the concatenation of all ranks' tensors along
     the leading (per-rank) axis; output shape ``(size, size*d0, ...)``."""
-    return C.allgather(_rank_major(x), comm=_ctx.comm)
+    return _complete(_allgather(x))
 
 
 def _ragged_pack(tensors):
@@ -967,16 +1084,26 @@ def allgather_v(tensors) -> torch.Tensor:
     ``(size, sum_i d_i, *trailing)``, every row the concatenation in rank
     order."""
     padded, lengths = _ragged_pack(tensors)
-    rows = padded if _ctx.comm is None else _ctx.comm.all_gather(padded).wait()
+    key = ("allgather_v", lengths, tuple(padded.shape), str(padded.dtype))
+    rows = _complete(_dispatch(key, padded, None, lambda: (
+        Pending.done(padded) if _ctx.comm is None
+        else _ctx.comm.all_gather(padded))))
     whole = torch.cat([rows[i, :d] for i, d in enumerate(lengths)])
     return whole.expand((padded.shape[0],) + whole.shape).clone()
+
+
+def _neighbor_allreduce(x, w) -> Pending:
+    x = _rank_major(x)
+    sched, skey = _static_keyed(w)
+    return _dispatch(("neighbor_allreduce", skey), x, sched, lambda:
+                     C.neighbor_allreduce(x, sched, comm=_ctx.comm,
+                                          async_op=True))
 
 
 def neighbor_allreduce_nonblocking(x, *, self_weight=None, src_weights=None,
                                    dst_weights=None) -> Handle:
     w = _weight_override_matrix(self_weight, src_weights, dst_weights)
-    return Handle(C.neighbor_allreduce(_rank_major(x), _dispatch_static(w),
-                                       comm=_ctx.comm, async_op=True))
+    return Handle(_neighbor_allreduce(x, w))
 
 
 def neighbor_allreduce(x, *, self_weight=None, src_weights=None,
@@ -984,35 +1111,45 @@ def neighbor_allreduce(x, *, self_weight=None, src_weights=None,
     """Weighted neighbor averaging over the active topology; the weight
     arguments override its weights (:func:`_weight_override_matrix`)."""
     w = _weight_override_matrix(self_weight, src_weights, dst_weights)
-    return C.neighbor_allreduce(_rank_major(x), _dispatch_static(w),
-                                comm=_ctx.comm)
+    return _complete(_neighbor_allreduce(x, w))
+
+
+def _dynamic_neighbor_allreduce(x, step: int, phases) -> Pending:
+    x = _rank_major(x)
+    sched, key = _dynamic_keyed(phases)
+    return _dispatch(("dynamic_neighbor_allreduce", key), x, sched, lambda:
+                     C.dynamic_neighbor_allreduce(x, step, sched,
+                                                  comm=_ctx.comm,
+                                                  async_op=True))
 
 
 def dynamic_neighbor_allreduce_nonblocking(x, step: int, *,
                                            phases=None) -> Handle:
-    return Handle(C.dynamic_neighbor_allreduce(
-        _rank_major(x), step, _dispatch_dynamic(phases), comm=_ctx.comm,
-        async_op=True))
+    return Handle(_dynamic_neighbor_allreduce(x, step, phases))
 
 
 def dynamic_neighbor_allreduce(x, step: int, *, phases=None) -> torch.Tensor:
     """Neighbor averaging with the one-peer dynamic walk at ``step``;
     ``phases`` defaults to the phase table of the active topology."""
-    return C.dynamic_neighbor_allreduce(_rank_major(x), step,
-                                        _dispatch_dynamic(phases),
-                                        comm=_ctx.comm)
+    return _complete(_dynamic_neighbor_allreduce(x, step, phases))
+
+
+def _neighbor_allgather(x) -> Pending:
+    x = _rank_major(x)
+    sched, skey = _static_keyed()
+    return _dispatch(("neighbor_allgather", skey), x, sched, lambda:
+                     C.neighbor_allgather(x, sched, comm=_ctx.comm,
+                                          async_op=True))
 
 
 def neighbor_allgather_nonblocking(x) -> Handle:
-    return Handle(C.neighbor_allgather(_rank_major(x), _dispatch_static(),
-                                       comm=_ctx.comm, async_op=True))
+    return Handle(_neighbor_allgather(x))
 
 
 def neighbor_allgather(x) -> torch.Tensor:
     """Gather in-neighbor tensors: output ``(size, max_indegree, ...)`` in
     ascending-src order with zero padding for irregular indegree."""
-    return C.neighbor_allgather(_rank_major(x), _dispatch_static(),
-                                comm=_ctx.comm)
+    return _complete(_neighbor_allgather(x))
 
 
 def neighbor_allgather_v(tensors) -> list:
@@ -1046,17 +1183,22 @@ def _pair_schedule(target_ranks, self_weight: float, target_weight: float):
             tgt[r] = t
     else:
         tgt = list(target_ranks)
+    key = ("gossip", tuple(tgt), self_weight, target_weight)
     return _require_init().schedule(
-        ("gossip", tuple(tgt), self_weight, target_weight),
-        lambda: S.compile_pair_gossip(tgt, n, self_weight=self_weight,
-                                      target_weight=target_weight))
+        key, lambda: S.compile_pair_gossip(tgt, n, self_weight=self_weight,
+                                           target_weight=target_weight)), key
+
+
+def _pair_gossip(x, target_ranks, self_weight, target_weight) -> Pending:
+    x = _rank_major(x)
+    sched, key = _pair_schedule(target_ranks, self_weight, target_weight)
+    return _dispatch(("pair_gossip", key), x, sched, lambda: C.pair_gossip(
+        x, sched, comm=_ctx.comm, async_op=True))
 
 
 def pair_gossip_nonblocking(x, target_ranks, *, self_weight: float = 0.5,
                             target_weight: float = 0.5) -> Handle:
-    sched = _pair_schedule(target_ranks, self_weight, target_weight)
-    return Handle(C.pair_gossip(_rank_major(x), sched, comm=_ctx.comm,
-                                async_op=True))
+    return Handle(_pair_gossip(x, target_ranks, self_weight, target_weight))
 
 
 def pair_gossip(x, target_ranks, *, self_weight: float = 0.5,
@@ -1064,8 +1206,8 @@ def pair_gossip(x, target_ranks, *, self_weight: float = 0.5,
     """Pairwise exchange and average.  ``target_ranks``: a list (or dict)
     giving each rank its partner, -1 (or missing) to sit out; it must be
     mutual."""
-    sched = _pair_schedule(target_ranks, self_weight, target_weight)
-    return C.pair_gossip(_rank_major(x), sched, comm=_ctx.comm)
+    return _complete(_pair_gossip(x, target_ranks, self_weight,
+                                  target_weight))
 
 
 def broadcast_parameters(params, root_rank: int = 0):
@@ -1150,18 +1292,27 @@ def _require_machine_topology() -> _Context:
     return ctx
 
 
-def hierarchical_neighbor_allreduce_nonblocking(
-        x, *, self_weight=None, src_machine_weights=None) -> Handle:
+def _hierarchical_neighbor_allreduce(x, self_weight,
+                                     src_machine_weights) -> Pending:
     ctx = _require_machine_topology()
-    key = ("hier", ctx.is_machine_topo_weighted, self_weight,
+    x = _rank_major(x)
+    key = ("hier", ctx.machine_topology_version,
+           ctx.is_machine_topo_weighted, self_weight,
            None if src_machine_weights is None
            else np.asarray(src_machine_weights, dtype=float).tobytes())
     sched = ctx.schedule(key, lambda: S.compile_static(
         ctx.machine_topology, use_topo_weights=ctx.is_machine_topo_weighted,
         self_weight=self_weight, src_weights=src_machine_weights))
-    return Handle(C.hierarchical_neighbor_allreduce(
-        _rank_major(x), sched, ctx.local_size, comm=ctx.comm,
-        async_op=True))
+    return _dispatch(("hierarchical_neighbor_allreduce", key), x, sched,
+                     lambda: C.hierarchical_neighbor_allreduce(
+                         x, sched, ctx.local_size, comm=ctx.comm,
+                         async_op=True))
+
+
+def hierarchical_neighbor_allreduce_nonblocking(
+        x, *, self_weight=None, src_machine_weights=None) -> Handle:
+    return Handle(_hierarchical_neighbor_allreduce(x, self_weight,
+                                                   src_machine_weights))
 
 
 def hierarchical_neighbor_allreduce(x, *, self_weight=None,
@@ -1170,9 +1321,26 @@ def hierarchical_neighbor_allreduce(x, *, self_weight=None,
     neighbor combine of the sums over the machine topology (its weights,
     or ``self_weight`` and the ``(machines, machines)``
     ``src_machine_weights``), then the division by ``local_size()``."""
-    return hierarchical_neighbor_allreduce_nonblocking(
-        x, self_weight=self_weight,
-        src_machine_weights=src_machine_weights).wait()
+    return _complete(_hierarchical_neighbor_allreduce(x, self_weight,
+                                                      src_machine_weights))
+
+
+def _dynamic_hierarchical_neighbor_allreduce(x, step: int,
+                                             phases) -> Pending:
+    ctx = _require_machine_topology()
+    x = _rank_major(x)
+    m = machine_size()
+    if phases is None:
+        key = ("dynhier", ctx.machine_topology_version)
+        sched = ctx.schedule(key, lambda: S.compile_dynamic(
+            topology_util.dynamic_phase_table(ctx.machine_topology), m))
+    else:
+        key = ("dynhierphases", tuple(ph.send_to for ph in phases))
+        sched = ctx.schedule(key, lambda: S.compile_dynamic(phases, m))
+    return _dispatch(("dynamic_hierarchical_neighbor_allreduce", key), x,
+                     sched, lambda: C.dynamic_hierarchical_neighbor_allreduce(
+                         x, step, sched, ctx.local_size, comm=ctx.comm,
+                         async_op=True))
 
 
 def dynamic_hierarchical_neighbor_allreduce_nonblocking(
@@ -1180,24 +1348,13 @@ def dynamic_hierarchical_neighbor_allreduce_nonblocking(
     """Hierarchical averaging with a per-step machine-level topology;
     ``phases`` defaults to the one-peer walk of the machine topology (the
     analogue of driving ``GetExp2DynamicSendRecvMachineRanks`` by hand)."""
-    ctx = _require_machine_topology()
-    m = machine_size()
-    if phases is None:
-        sched = ctx.schedule(("dynhier",), lambda: S.compile_dynamic(
-            topology_util.dynamic_phase_table(ctx.machine_topology), m))
-    else:
-        sched = ctx.schedule(
-            ("dynhierphases", tuple(ph.send_to for ph in phases)),
-            lambda: S.compile_dynamic(phases, m))
-    return Handle(C.dynamic_hierarchical_neighbor_allreduce(
-        _rank_major(x), step, sched, ctx.local_size, comm=ctx.comm,
-        async_op=True))
+    return Handle(_dynamic_hierarchical_neighbor_allreduce(x, step, phases))
 
 
 def dynamic_hierarchical_neighbor_allreduce(x, step: int, *,
                                             phases=None) -> torch.Tensor:
-    return dynamic_hierarchical_neighbor_allreduce_nonblocking(
-        x, step, phases=phases).wait()
+    return _complete(_dynamic_hierarchical_neighbor_allreduce(x, step,
+                                                              phases))
 
 
 def _hier_topology(ctx: _Context, cfg):
@@ -1245,7 +1402,43 @@ def _hier_plan(what: str, ht=None) -> dict:
     return {"inner_sched": inner, "outer_scheds": outer,
             "outer_every": ht.outer_every, "outer_compression": comp,
             "outer_frac": (config.parse_sparse_frac(comp)
-                           if comp.startswith("sparse") else None)}
+                           if comp.startswith("sparse") else None),
+            "ht": ht, "sig": sig}
+
+
+def _record_hier_levels(ht, step: int, nbytes: float, inner_edges: int,
+                        compression: str) -> None:
+    """One hierarchical gossip step's wire bytes by level (the JAX
+    package's L1496): the inner level's dense edges every step
+    (``level="ici"``), the outer one-peer exchange on outer steps scaled by
+    its codec (``level="dcn"``), and the outer-step counter.  Shared by the
+    eager op and the optimizers."""
+    from bluefog_tpu_torch.utils import config
+    if not telemetry.enabled():
+        return
+    row_bytes = float(nbytes) / max(ht.n, 1)
+    telemetry.inc("bf_comm_level_bytes_total", row_bytes * inner_edges,
+                  level="ici")
+    if ht.n_slices > 1 and ht.is_outer_step(int(step)):
+        telemetry.inc("bf_comm_level_bytes_total",
+                      row_bytes * ht.dcn_edges_per_outer_step()
+                      * config.compression_byte_factor(compression),
+                      level="dcn")
+        telemetry.inc("bf_hier_outer_steps_total")
+
+
+def _hierarchical_gossip(x, step: int, ht) -> Pending:
+    plan = _hier_plan("hierarchical_gossip", ht)
+    x = _rank_major(x)
+    ht, sig = plan.pop("ht"), plan.pop("sig")
+    inner, outer = plan.pop("inner_sched"), plan.pop("outer_scheds")
+    # Calls and bytes land through _dispatch; the split by level here.
+    _record_hier_levels(ht, step, x.numel() * x.element_size(),
+                        ht.ici_edges_per_step(), plan["outer_compression"])
+    return _dispatch(("hierarchical_gossip", sig), x, None, lambda:
+                     Pending.done(C.hierarchical_gossip(
+                         x, step, inner, outer, _ctx.local_size,
+                         comm=_ctx.comm, **plan)))
 
 
 def hierarchical_gossip_nonblocking(x, step: int, *, ht=None) -> Handle:
@@ -1255,15 +1448,11 @@ def hierarchical_gossip_nonblocking(x, step: int, *, ht=None) -> Handle:
     (``BLUEFOG_TPU_HIER_OUTER_COMPRESSION``).  Requires
     ``BLUEFOG_TPU_HIER=1`` and more than one machine; ``ht`` overrides the
     knobs' :class:`~bluefog_tpu_torch.topology.HierarchicalTopology`."""
-    plan = _hier_plan("hierarchical_gossip", ht)
-    out = C.hierarchical_gossip(
-        _rank_major(x), step, plan.pop("inner_sched"),
-        plan.pop("outer_scheds"), _ctx.local_size, comm=_ctx.comm, **plan)
-    return Handle(Pending.done(out))
+    return Handle(_hierarchical_gossip(x, step, ht))
 
 
 def hierarchical_gossip(x, step: int, *, ht=None) -> torch.Tensor:
-    return hierarchical_gossip_nonblocking(x, step, ht=ht).wait()
+    return _complete(_hierarchical_gossip(x, step, ht))
 
 
 def hierarchical_gossip_info() -> Optional[dict]:

@@ -15,7 +15,16 @@ is the total over the ranks.
 
 Prints one JSON line with ``bench.py``'s keys.  Runs on CUDA unless
 ``--device cpu`` is given; on the CPU it is a smoke run at a tiny size
-(batch 2, 64x64, 1 warmup and 2 x 2 timed batches), never a throughput.
+(batch 2, 64x64, 1 warmup and 2 x 2 timed batches), never a throughput,
+and ``detail.cpu_fallback`` says so.  Asked for CUDA with no card, it
+prints ``bench.py``'s ``"status": "no_backend"`` line and exits 3, unless
+``BLUEFOG_TPU_BENCH_ALLOW_CPU=1`` asks for the CPU smoke run instead.
+
+``detail.telemetry`` is the registry's snapshot after the run (None with
+``BLUEFOG_TPU_TELEMETRY=0``) and ``detail.phase_latency`` the p50/p99 ms of
+the ``bf_bench_phase_seconds`` histogram: each timed step's host time
+(``optimizer-update``) and each iteration's wait for the device
+(``host-sync``), as in ``bench.py``.
 
 ``detail`` carries ``bench.py``'s modeled blocks, with the same keys:
 ``placement`` and ``synthesis`` (the benchmark's gossip schedules priced on
@@ -32,6 +41,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 
 import numpy as np
 
@@ -229,8 +239,36 @@ def modeled_blocks(ranks: int, device, params_per_rank: int) -> dict:
             "sharding": _sharding_summary(devs)}
 
 
+def _no_backend_or_cpu(reason: str) -> bool:
+    """The card was asked for and is absent: with
+    ``BLUEFOG_TPU_BENCH_ALLOW_CPU=1`` go on as a labeled CPU smoke run
+    (True); without, print ``bench.py``'s ``no_backend`` line and exit 3,
+    so that no run carries on quietly on the CPU."""
+    import sys
+    if os.environ.get("BLUEFOG_TPU_BENCH_ALLOW_CPU") not in (
+            "1", "true", "True", "yes"):
+        print(json.dumps({
+            "metric": "resnet50_train_imgs_per_sec_per_chip",
+            "value": None,
+            "unit": "img/s/chip",
+            "status": "no_backend",
+            "detail": {"reason": reason},
+        }), flush=True)
+        raise SystemExit(3)
+    print(f"bench: {reason}; BLUEFOG_TPU_BENCH_ALLOW_CPU=1 is set, so this "
+          "is a CPU smoke run (labeled cpu_fallback)", file=sys.stderr)
+    return True
+
+
 def main(argv=None):
+    import torch
+
+    from bluefog_tpu_torch.utils import telemetry
     args = build_parser().parse_args(argv)
+    cpu_fallback = args.device == "cpu"
+    if not cpu_fallback and not torch.cuda.is_available():
+        cpu_fallback = _no_backend_or_cpu("no CUDA device is available")
+        args.device = "cpu"
     on_card = args.device != "cpu"
     batch = args.batch_size or (64 if on_card else 2)
     image = 224 if on_card else 64
@@ -243,8 +281,16 @@ def main(argv=None):
         "--num-warmup-batches", str(warmup), "--num-iters", str(iters),
         "--num-batches-per-iter", str(per_iter), "--seed", str(args.seed),
         "--device", args.device])
-    res = benchmark.measure(bargs, quiet=True)
+    res = benchmark.measure(bargs, quiet=True,
+                            phase_series="bf_bench_phase_seconds")
     total = res["imgs_per_s"]
+    phase_latency = {}
+    for ph in ("optimizer-update", "host-sync"):
+        pct = telemetry.histogram_percentiles(
+            "bf_bench_phase_seconds", (50.0, 99.0), phase=ph)
+        if pct:
+            phase_latency[ph] = {"p50_ms": round(pct[50.0] * 1e3, 3),
+                                 "p99_ms": round(pct[99.0] * 1e3, 3)}
     detail = {
         "total_imgs_per_sec": round(total, 1),
         "n_devices": 1,
@@ -257,12 +303,15 @@ def main(argv=None):
         "optimizer": f"ATC neighbor_allreduce (dynamic one-peer Exp2, "
                      f"{res['ranks']} ranks on one device)",
         "compression": args.compression,
+        # A CPU smoke run: the code path's evidence, never a throughput.
+        "cpu_fallback": cpu_fallback,
         "step_ms": res["step_ms"],
         "peak_mem_gb": res.get("peak_mem_gb"),
+        "phase_latency": phase_latency or None,
         **modeled_blocks(res["ranks"], args.device, res["params_per_rank"]),
+        "telemetry": telemetry.snapshot() if telemetry.enabled() else None,
     }
     if on_card:
-        import torch
         detail["device_name"] = torch.cuda.get_device_name(0)
     print(json.dumps({
         "metric": "resnet50_train_imgs_per_sec_per_chip",

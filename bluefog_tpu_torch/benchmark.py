@@ -185,6 +185,10 @@ def build_parser():
     ap.add_argument("--backend", default=None, choices=["nccl", "gloo"],
                     help="under a launcher: the process group's backend "
                          "(default NCCL on CUDA, gloo on the CPU)")
+    ap.add_argument("--metrics-file", default=None,
+                    help="append per-iteration JSONL scalars to this path "
+                         "(utils.metrics.MetricsWriter; one file a "
+                         "process)")
     return ap
 
 
@@ -374,17 +378,22 @@ def window_codec(args):
     return config.override(win_compression=args.compression)
 
 
-def measure(args, tr: Trainer = None, quiet: bool = False) -> dict:
+def measure(args, tr: Trainer = None, quiet: bool = False,
+            phase_series: str = None) -> dict:
     """Run the benchmark (on ``tr``, or a new ``Trainer(args)``); returns
     its numbers, rates over all ranks on the one device (img/s for the
     image models, tokens/s for the LM).  ``quiet`` prints no per-iteration
-    line."""
+    line and writes no ``--metrics-file``.  ``phase_series`` names a
+    histogram that gets each timed step's host time (phase
+    ``optimizer-update``) and each iteration's device wait (``host-sync``),
+    as the root ``bench.py``'s ``bf_bench_phase_seconds``."""
     tr = tr or Trainer(args)
     with window_codec(args):
-        return _measure(args, tr, quiet)
+        return _measure(args, tr, quiet, phase_series)
 
 
-def _measure(args, tr: Trainer, quiet: bool) -> dict:
+def _measure(args, tr: Trainer, quiet: bool, phase_series=None) -> dict:
+    from bluefog_tpu_torch.utils import telemetry
     from bluefog_tpu_torch.ops import window as W
     n, dev, rep, opt = tr.n, tr.device, tr.rep, tr.opt
     forward_backward = tr.forward_backward
@@ -399,8 +408,10 @@ def _measure(args, tr: Trainer, quiet: bool) -> dict:
     halves = args.atc or args.dist_optimizer == "win_put"
     spread = {"after_step": []} if grad_ar else None
     losses = None
+    by_step = []  # every step's per-rank losses, read once at the end
     for i in range(args.num_warmup_batches):
         losses = forward_backward()
+        by_step.append(losses)
         if grad_ar:
             opt.step()
             spread["after_step"].append(consensus_spread(rep.flat)["max"])
@@ -423,20 +434,38 @@ def _measure(args, tr: Trainer, quiet: bool) -> dict:
     win0 = W.stats.snapshot()
     unit = "imgs" if tr.image else "tokens"
     per_batch = n * args.batch_size * (1 if tr.image else args.seq_len)
+    writer = None
+    if getattr(args, "metrics_file", None) and not quiet:
+        from bluefog_tpu_torch.utils.metrics import MetricsWriter
+        writer = MetricsWriter(args.metrics_file)
     for i in range(args.num_iters):
         t0 = time.perf_counter()
         for _ in range(args.num_batches_per_iter):
+            t_step = time.perf_counter()
             losses = forward_backward()
+            by_step.append(losses)
             opt.step()
+            if phase_series:
+                telemetry.observe(phase_series, time.perf_counter() - t_step,
+                                  phase="optimizer-update")
+        t_sync = time.perf_counter()
         _sync(dev)
+        if phase_series:
+            telemetry.observe(phase_series, time.perf_counter() - t_sync,
+                              phase="host-sync")
         dt = time.perf_counter() - t0
         rates.append(per_batch * args.num_batches_per_iter / dt)
         step_s.append(dt / args.num_batches_per_iter)
         if grad_ar:
             spread["after_step"].append(consensus_spread(rep.flat)["max"])
+        if writer is not None:
+            writer.log(step=i, **{f"{unit}_per_sec": rates[-1]},
+                       model=args.model, n_devices=n)
         if not quiet:
             print(f"iter {i}: {rates[-1]:.1f} {unit}/sec across {n} ranks "
                   f"on {dev}", flush=True)
+    if writer is not None:
+        writer.close()
 
     out = {
         "model": args.model,
@@ -449,6 +478,7 @@ def _measure(args, tr: Trainer, quiet: bool) -> dict:
         f"{unit}_per_s_ci": 1.96 * float(np.std(rates)),
         "rates": rates,
         "losses": [float(x) for x in losses.cpu()],
+        "losses_by_step": torch.stack(by_step).cpu().tolist(),
         "spread": spread,
         "steps": opt.step_count,
     }

@@ -1,11 +1,12 @@
 """The native libraries of the port, built at first use and bound with
-``ctypes``: the window transport's service and the round compiler.
+``ctypes``: the window transport's service (with the timeline writer and
+the flight recorder) and the round compiler.
 
 The port of ``bluefog_tpu/native/__init__.py`` for the window transport's
-library, ``src/winsvc.cc`` (a copy of the JAX package's,
-with the declarations of its header that it defines) compiles with one
-``g++`` call into ``bluefog_tpu_torch/_build/winsvc-<hash>.so``, keyed by a
-hash of the sources and the flags, as ``ops/_nvcc.py`` keys the CUDA
+library, ``src/winsvc.cc`` and ``src/timeline.cc`` (copies of the JAX
+package's, with the declarations of its header that they define) compile
+with one ``g++`` call into ``bluefog_tpu_torch/_build/winsvc-<hash>.so``,
+keyed by a hash of the sources and the flags, as ``ops/_nvcc.py`` keys the CUDA
 kernels: an edited source rebuilds, an unchanged tree loads the previous
 build.  The flags are the JAX Makefile's, ``-ffp-contract=off`` included:
 the drain's fold promises f32 sums bit for bit equal to the Python fold's,
@@ -40,7 +41,6 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import importlib.util
-import logging
 import os
 import shutil
 import subprocess
@@ -49,14 +49,20 @@ import threading
 from pathlib import Path
 from typing import Optional
 
+from bluefog_tpu_torch.utils.logging import get_logger
+
 __all__ = ["CXX_FLAGS", "library_path", "build", "lib", "fastcall",
            "fastcall_path", "schedule_library_path", "build_schedule",
-           "schedule_lib", "WinMsg", "WinItem"]
+           "schedule_lib", "WinMsg", "WinItem", "WinRxStats", "WinTxStats",
+           "RecEvent"]
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 SRC_DIR = Path(__file__).resolve().parent / "src"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("winsvc.cc",)
+# The chrome-trace writer (utils/timeline.py), linked into the service's
+# library and keyed into its hash.
+TIMELINE_SOURCE = "timeline.cc"
 # Keyed into the service's hash with SOURCES, built on its own.
 FASTCALL_SOURCE = "fastcall.cc"
 # The round compiler: a library of its own, with its own key.
@@ -115,6 +121,71 @@ class WinItem(ctypes.Structure):
     ]
 
 
+class WinRxStats(ctypes.Structure):
+    """Mirror of ``bf_winrx_stats_t``: the native drain's cumulative
+    counters."""
+    _fields_ = [
+        ("batch_frames", ctypes.c_uint64),
+        ("msgs", ctypes.c_uint64),
+        ("folded_msgs", ctypes.c_uint64),
+        ("commits", ctypes.c_uint64),
+        ("bytes", ctypes.c_uint64),
+        ("by_op", ctypes.c_uint64 * 16),
+        ("batch_size_hist", ctypes.c_uint64 * 25),
+        ("batch_size_sum", ctypes.c_double),
+        ("decode_busy", ctypes.c_uint64),
+        ("decode_threads", ctypes.c_uint64),
+        ("decoded_frames", ctypes.c_uint64),
+    ]
+
+
+class WinTxStats(ctypes.Structure):
+    """Mirror of ``bf_wintx_stats_t``: the native sender's cumulative
+    counters (all peers, one peer or one stripe)."""
+    _fields_ = [
+        ("msgs_enq", ctypes.c_uint64),
+        ("msgs_done", ctypes.c_uint64),
+        ("frames", ctypes.c_uint64),
+        ("batches", ctypes.c_uint64),
+        ("batched_msgs", ctypes.c_uint64),
+        ("bytes", ctypes.c_uint64),
+        ("errors", ctypes.c_uint64),
+        ("retries", ctypes.c_uint64),
+        ("dropped_msgs", ctypes.c_uint64),
+        ("queue_len", ctypes.c_uint64),
+        ("by_op", ctypes.c_uint64 * 16),
+        ("batch_size_hist", ctypes.c_uint64 * 25),
+        ("send_sec_hist", ctypes.c_uint64 * 25),
+        ("batch_size_sum", ctypes.c_double),
+        ("send_sec_sum", ctypes.c_double),
+    ]
+
+
+class RecEvent(ctypes.Structure):
+    """Mirror of ``bf_rec_event_t``: one flight-recorder ring slot (48
+    bytes; ``utils/flightrec.EVENT_DTYPE`` is its numpy twin)."""
+    _fields_ = [
+        ("t_us", ctypes.c_int64),
+        ("src", ctypes.c_int32),
+        ("dst", ctypes.c_int32),
+        ("seq", ctypes.c_uint32),
+        ("len", ctypes.c_uint32),
+        ("etype", ctypes.c_uint8),
+        ("op", ctypes.c_uint8),
+        ("stripe", ctypes.c_uint8),
+        ("flags", ctypes.c_uint8),
+        ("name", ctypes.c_char * 20),
+    ]
+
+
+def _service_sources() -> tuple:
+    """The sources of the service's library: ``winsvc.cc`` and, where the
+    tree has it, ``timeline.cc``."""
+    extra = (TIMELINE_SOURCE,) if (SRC_DIR / TIMELINE_SOURCE).exists() \
+        else ()
+    return SOURCES + extra
+
+
 def _cxx() -> str:
     found = shutil.which(os.environ.get("CXX", "g++"))
     if not found:
@@ -131,11 +202,11 @@ def library_path() -> Path:
 
 
 def _hash() -> str:
-    """The build key: the flags, the service's sources, ``fastcall.cc``
-    and the headers."""
+    """The build key: the flags, the service's sources (the timeline
+    writer's too), ``fastcall.cc`` and the headers."""
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
     fast = SRC_DIR / FASTCALL_SOURCE
-    for path in [*(SRC_DIR / s for s in SOURCES),
+    for path in [*(SRC_DIR / s for s in _service_sources()),
                  *([fast] if fast.exists() else []),
                  *sorted(SRC_DIR.glob("*.h"))]:
         h.update(f"\0{path.name}\0".encode() + path.read_bytes())
@@ -169,7 +240,7 @@ def _compile(out: Path, sources, what: str) -> Path:
 def build() -> Path:
     """Compile the service unless its library is already built; a failed
     build raises with what the compiler printed."""
-    return _compile(library_path(), SOURCES,
+    return _compile(library_path(), _service_sources(),
                     "the window transport's native service")
 
 
@@ -238,6 +309,21 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "bf_trace_set_step": (None, [i64]),
         "bf_trace_step": (i64, []),
         "bf_winsvc_set_fold_across_put": (None, [i32]),
+        "bf_winsvc_rx_stats": (None, [vp, ptr(WinRxStats)]),
+        "bf_wintx_stats": (None, [vp, cp, i32, ptr(WinTxStats)]),
+        "bf_wintx_stripe_stats": (None, [vp, cp, i32, i32,
+                                         ptr(WinTxStats)]),
+        "bf_rec_enable": (i64, [i64]),
+        "bf_rec_is_enabled": (i32, []),
+        "bf_rec_note": (None, [i32, i32, i32, i32, i32, ctypes.c_uint32,
+                               u64, cp]),
+        "bf_rec_snapshot": (i64, [ptr(RecEvent), i64]),
+        "bf_rec_reset": (None, []),
+        "bf_timeline_open": (vp, [cp, i32]),
+        "bf_timeline_event": (None, [vp, cp, cp, ctypes.c_char, i64, i64,
+                                     i64]),
+        "bf_timeline_dropped": (i64, [vp]),
+        "bf_timeline_close": (None, [vp]),
     }
     for name, (res, args) in sigs.items():
         fn = getattr(lib, name)
@@ -268,7 +354,7 @@ def _build_fastcall(service: Path) -> Optional[Path]:
         return out
     inc = sysconfig.get_paths().get("include")
     if not inc or not Path(inc, "Python.h").exists():
-        logging.getLogger("bluefog_tpu_torch").info(
+        get_logger().info(
             "no Python.h: the window transport sends through ctypes")
         return None
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
@@ -277,7 +363,7 @@ def _build_fastcall(service: Path) -> Optional[Path]:
            f"-l:{service.name}", "-Wl,-rpath,$ORIGIN"]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        logging.getLogger("bluefog_tpu_torch").warning(
+        get_logger().warning(
             "building the _bf_fastcall send module failed; the window "
             "transport sends through ctypes:\n%s", proc.stderr[-2000:])
         return None
@@ -303,7 +389,7 @@ def fastcall():
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
         if getattr(mod, "ABI_VERSION", None) != FASTCALL_ABI:
-            logging.getLogger("bluefog_tpu_torch").warning(
+            get_logger().warning(
                 "_bf_fastcall ABI %s != %s; sending through ctypes",
                 getattr(mod, "ABI_VERSION", None), FASTCALL_ABI)
             return None

@@ -1,10 +1,12 @@
-/* C ABI of the window transport's native service (winsvc.cc).
+/* C ABI of the window transport's native service (winsvc.cc) and the
+ * timeline writer (timeline.cc).
  *
  * The declarations of the JAX package's bluefog_tpu/native/src/
- * bluefog_native.h that winsvc.cc defines, copied unchanged: the TCP
- * service, its native drain and decode pool, the per-peer coalescing
- * send queues, the wire trace tags and the transport flight recorder.
- * Plain C for ctypes (bluefog_tpu_torch/native/__init__.py binds it).
+ * bluefog_native.h that winsvc.cc and timeline.cc define, copied
+ * unchanged: the chrome-trace writer, the TCP service, its native drain
+ * and decode pool, the per-peer coalescing send queues, the wire trace
+ * tags and the transport flight recorder.  Plain C for ctypes
+ * (bluefog_tpu_torch/native/__init__.py binds it).
  */
 
 #ifndef BLUEFOG_NATIVE_H_
@@ -15,6 +17,19 @@
 #ifdef __cplusplus
 extern "C" {
 #endif
+
+/* ---------------- timeline.cc ---------------- */
+
+typedef struct bf_timeline bf_timeline_t;
+
+bf_timeline_t* bf_timeline_open(const char* path, int32_t pid);
+/* phase: 'B' begin | 'E' end | 'X' complete (dur_us used). Non-blocking:
+ * events are dropped (counted) if the ring is full. */
+void bf_timeline_event(bf_timeline_t* t, const char* name, const char* cat,
+                       char phase, int64_t ts_us, int64_t dur_us,
+                       int64_t tid);
+int64_t bf_timeline_dropped(bf_timeline_t* t);
+void bf_timeline_close(bf_timeline_t* t);
 
 /* ---------------- winsvc.cc ---------------- */
 

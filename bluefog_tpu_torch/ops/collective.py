@@ -48,7 +48,35 @@ __all__ = ["allreduce", "allreduce_", "local_allreduce", "broadcast",
            "neighbor_allreduce_matrix", "dynamic_neighbor_allreduce",
            "sparse_neighbor_allreduce", "dynamic_sparse_neighbor_allreduce",
            "pair_gossip", "hierarchical_neighbor_allreduce",
-           "dynamic_hierarchical_neighbor_allreduce", "hierarchical_gossip"]
+           "dynamic_hierarchical_neighbor_allreduce", "hierarchical_gossip",
+           "schedule_wire_stats"]
+
+
+def schedule_wire_stats(sched) -> tuple:
+    """``(rounds, edges, hops, provenance)`` of a compiled schedule: what
+    the telemetry records a call (the JAX package's L52).  A static or pair
+    schedule: its exchange rounds and their (src, dst) pairs.  A dynamic
+    schedule runs one phase a call, so all three are its phases' average.
+    ``hops`` is the weighted link-crossing count of one call under the
+    active interconnect model (``ops/placement``), None without one;
+    ``provenance`` the schedule artifact's pipeline tag."""
+    from bluefog_tpu_torch.ops import placement as PL
+    from bluefog_tpu_torch.ops.schedule import schedule_provenance
+    phases = getattr(sched, "phases", None)
+    prov = schedule_provenance(sched)
+    if phases is not None:
+        per = [_logical_rounds_edges(ph) for ph in phases]
+        k = max(len(per), 1)
+        return (sum(r for r, _ in per) / k, sum(e for _, e in per) / k,
+                PL.modeled_schedule_hops(sched), prov)
+    return _logical_rounds_edges(sched) + (
+        PL.modeled_schedule_hops(sched), prov)
+
+
+def _logical_rounds_edges(sched) -> tuple:
+    rnd = getattr(sched, "round", None)
+    rounds = sched.rounds if rnd is None else [rnd]
+    return (len(rounds), sum(len(r.pairs) for r in rounds))
 
 
 def _tree_sum(terms: list) -> torch.Tensor:

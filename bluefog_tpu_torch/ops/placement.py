@@ -36,7 +36,6 @@ synthesis route each edge under it) and for ``placement_info``.
 from __future__ import annotations
 
 import hashlib
-import logging
 import math
 import threading
 import weakref
@@ -45,6 +44,8 @@ from functools import cached_property
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from bluefog_tpu_torch.utils.logging import get_logger
 
 __all__ = [
     "TorusModel",
@@ -397,7 +398,7 @@ def build_model(devices) -> Optional[TorusModel]:
                     f"but the mesh has {n} devices")
             return synthetic_torus(dims, n_devices=n)
         except ValueError as e:
-            logging.getLogger("bluefog_tpu_torch").warning(
+            get_logger().warning(
                 "ignoring BLUEFOG_TPU_FAKE_TORUS (%s); physical placement "
                 "disabled", e)
             return None
@@ -722,7 +723,7 @@ def optimize_placement(model: TorusModel, scheds, n: int, *,
             total_edges = max(sum(len(r) for r in rounds), 1)
             capped = max(_SLOW_EVAL_BUDGET // total_edges, 32)
             if capped < iters:
-                logging.getLogger("bluefog_tpu_torch").warning(
+                get_logger().warning(
                     "placement search on %s (%d nodes, no dense route "
                     "table): annealing capped at %d of %d iterations to "
                     "bound init-time search cost", model.name,

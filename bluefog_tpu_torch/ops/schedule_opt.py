@@ -33,9 +33,10 @@ across rounds (up to ``BLUEFOG_TPU_PLACEMENT_ROUND_BUDGET`` times the
 König bound) when the link-load model says an extra round beats
 contending.
 
-Left out here: the ``BLUEFOG_TPU_SCHEDULE_OPT`` switch (the port always
-repacks, as the JAX package does by default) and the telemetry counters,
-which come with ROADMAP item 21 (a marked line stands where each goes).
+Both report into the telemetry as the JAX package's do (rounds saved,
+congestion moves, the compile cache's hits and misses).  Left out here:
+the ``BLUEFOG_TPU_SCHEDULE_OPT`` switch (the port always repacks, as the
+JAX package does by default).
 """
 
 from __future__ import annotations
@@ -47,6 +48,8 @@ from collections import OrderedDict
 from typing import Dict, List, Tuple
 
 import numpy as np
+
+from bluefog_tpu_torch.utils import telemetry
 
 __all__ = ["optimize_schedule", "congestion_aware_repack", "min_rounds",
            "cached_schedule_from_matrix", "clear_compile_cache",
@@ -146,7 +149,8 @@ def optimize_schedule(sched):
             recv_mask[d] = 1.0
             src_of[d] = s
         rounds.append(CommRound(pairs, send_scale, recv_mask, src_of))
-    # item 21: telemetry.inc("bf_schedule_opt_rounds_saved_total", ...)
+    telemetry.inc("bf_schedule_opt_rounds_saved_total",
+                  len(sched.rounds) - k)
     # The cost and sketch described the input's rounds: they do not carry.
     return as_compiled(dataclasses.replace(sched, rounds=tuple(rounds)),
                        provenance="konig", modeled_cost=None, sketch=None)
@@ -191,8 +195,9 @@ def congestion_aware_repack(sched, model, perm=None, *,
 
     ``model``/``perm``: the interconnect model and the logical -> device
     permutation (``ops/placement.py``); a schedule over another rank count
-    passes through.  ``record``: count the moves (item 21's counter; the
-    pricing repacks of the placement search pass False)."""
+    passes through.  ``record``: count the moves
+    (``bf_schedule_congestion_moves_total``; the pricing repacks of the
+    placement search pass False)."""
     from bluefog_tpu_torch.ops.schedule import as_compiled
 
     if model is None or budget_factor <= 0 or len(sched.rounds) <= 0:
@@ -321,7 +326,8 @@ def congestion_aware_repack(sched, model, perm=None, *,
 
     if moves == 0:
         return sched
-    # item 21: if record: telemetry.inc("bf_schedule_congestion_moves_total")
+    if record:
+        telemetry.inc("bf_schedule_congestion_moves_total", moves)
     rounds = _rebuild_rounds(
         [[edges[e] for e in grp] for grp in groups if grp], n)
     return as_compiled(dataclasses.replace(sched, rounds=rounds),
@@ -359,9 +365,9 @@ def cached_schedule_from_matrix(w: np.ndarray, build):
     key = (wq.shape, wq.tobytes())
     with _cache_lock:
         if key in _cache:
-            # item 21: telemetry.inc("bf_schedule_compile_cache_hits_total")
+            telemetry.inc("bf_schedule_compile_cache_hits_total")
             return _cache[key]
-    # item 21: telemetry.inc("bf_schedule_compile_cache_misses_total")
+    telemetry.inc("bf_schedule_compile_cache_misses_total")
     sched = build(w)
     with _cache_lock:
         if len(_cache) >= _CACHE_MAX:

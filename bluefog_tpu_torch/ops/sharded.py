@@ -489,9 +489,9 @@ def scatter_shard_rows(leaf: np.ndarray, rows: np.ndarray, dim: int,
 def record_level_bytes(plan: ShardPlan, *, rep_ici_edges: float,
                        rep_dcn_edges: float, grp_edges: float,
                        compression: str = "none") -> dict:
-    """One comm step's wire bytes, by level and shard: ``{(level, shard):
-    bytes}`` (the labels of the JAX package's ``bf_comm_level_bytes_total``,
-    whose counter is item 21's).
+    """Record one comm step's wire bytes into
+    ``bf_comm_level_bytes_total{level, shard}`` and return them as
+    ``{(level, shard): bytes}``.
 
     Levels are replica-group-relative (in-group = "ici", cross-group =
     "dcn").  Replicated leaves ride every full-topology edge; sharded
@@ -509,5 +509,8 @@ def record_level_bytes(plan: ShardPlan, *, rep_ici_edges: float,
     if grp_edges and plan.sh_bytes:
         sh_row = plan.sh_bytes / max(plan.n, 1) / max(plan.n_shards, 1)
         out[("ici", "sharded")] = sh_row * grp_edges * factor
-    # item 21: telemetry.inc("bf_comm_level_bytes_total", ...) for each
+    from bluefog_tpu_torch.utils import telemetry
+    for (level, shard), nbytes in out.items():
+        telemetry.inc("bf_comm_level_bytes_total", nbytes, level=level,
+                      shard=shard)
     return out

@@ -1,8 +1,8 @@
 """Sketch-guided gossip schedule synthesis (TACCL / SCCL / GC3 line).
 
 The port's copy of ``bluefog_tpu/ops/synthesis.py``: the same search, bit
-for bit the same artifacts on the same inputs.  (The JAX package's
-gauges come with ROADMAP item 21.)
+for bit the same artifacts on the same inputs, and its gauges
+(``bf_schedule_synth_improvement_ratio``, ``bf_schedule_provenance``).
 
 ``ops/schedule_opt.py`` only *rearranges* a given round decomposition:
 the König repack packs edges into the fewest rounds, the congestion
@@ -567,7 +567,9 @@ def select_schedule(sched, packed, model, perm=None, *,
 
     Returns ``(chosen, improvement_ratio)``; ratio = packed serial /
     chosen serial (>= 1.0, exactly 1.0 when packed is kept).  ``record``
-    publishes the ratio and the winning provenance (item 21's gauges)."""
+    publishes the ratio and the winning provenance (the
+    ``bf_schedule_synth_improvement_ratio`` and ``bf_schedule_provenance``
+    gauges)."""
     synth = synthesize_schedule(sched, model, perm, sketch=sketch,
                                 budget_factor=budget_factor,
                                 baseline=packed)
@@ -578,9 +580,27 @@ def select_schedule(sched, packed, model, perm=None, *,
         if synth_serial < packed_serial - 1e-9:
             chosen = synth
             ratio = packed_serial / max(synth_serial, 1e-12)
-    # item 21: if record: set_gauge("bf_schedule_synth_improvement_ratio",
-    # ratio) and the bf_schedule_provenance gauge of the chosen schedule.
+    if record:
+        from bluefog_tpu_torch.utils import telemetry
+        telemetry.set_gauge("bf_schedule_synth_improvement_ratio", ratio)
+        from bluefog_tpu_torch.ops.schedule import schedule_provenance
+        _publish_provenance(schedule_provenance(chosen))
     return chosen, ratio
+
+
+_PROVENANCE_VOCAB = ("naive", "konig", "congestion", "mixed") + tuple(
+    f"synthesized:{s}" for s in SKETCHES)
+
+
+def _publish_provenance(tag: Optional[str]) -> None:
+    """The ``bf_schedule_provenance`` info gauge: exactly one provenance
+    series at 1 (``None`` clears them all)."""
+    from bluefog_tpu_torch.utils import telemetry
+    for t in _PROVENANCE_VOCAB:
+        if t != tag:
+            telemetry.clear_gauge("bf_schedule_provenance", provenance=t)
+    if tag is not None:
+        telemetry.set_gauge("bf_schedule_provenance", 1.0, provenance=tag)
 
 
 # ---------------------------------------------------------------------------

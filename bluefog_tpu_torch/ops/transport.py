@@ -51,16 +51,21 @@ builds (``native.fastcall``), else through ``ctypes``, as in the JAX package;
 :attr:`WindowTransport.send_path` says which (``"python"`` on the Python
 path).
 
-Left out (ROADMAP item 21): the flight recorder, telemetry and the tuner
-hooks.  The chaos link delay and the runtime linger change go with them.
-The control ops ``OP_MEMBER`` and ``OP_GANG`` belong to item 20: the window
-store drops an inbound one and logs that it came.
+Telemetry and the flight recorder are the JAX package's: message and byte
+counters a peer and op, RPC latency, batch sizes and the coalescing ratio,
+queue depths, the drain's bursts, retries and errors (``utils/telemetry``;
+on the native path pumped from the C++ counters at flush boundaries and
+burst ends, as the JAX package does); the recorder's ENQUEUE, FLUSH and
+SENDMSG events on the Python path (the native path records its own) and a
+dump on a fatal send error (``utils/flightrec``).  Left out: the tuner hooks (ROADMAP item
+21b), and the chaos link delay and partition schedule with the control ops
+``OP_MEMBER`` and ``OP_GANG`` (item 20: the window store drops an inbound
+one and logs that it came).
 """
 
 from __future__ import annotations
 
 import ctypes
-import logging
 import os
 import random
 import struct
@@ -73,7 +78,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from bluefog_tpu_torch import native
-from bluefog_tpu_torch.utils import config
+from bluefog_tpu_torch.utils import config, flightrec, telemetry
+from bluefog_tpu_torch.utils.logging import get_logger
 
 # Wire op codes, word for word the JAX package's (``bluefog_tpu/ops/
 # transport.py`` L78-127).
@@ -107,7 +113,7 @@ __all__ = ["WindowTransport", "OP_PUT", "OP_ACCUMULATE", "OP_GET_REQ",
            "sparse_decode", "stripe_for", "resolve_stripes",
            "resolve_stripes_static"]
 
-_log = logging.getLogger("bluefog_tpu_torch")
+_log = get_logger()
 # The Python drain's poll period on an empty inbound queue (the native
 # drain blocks inside its call instead).
 _POLL_SEC = 0.002
@@ -117,6 +123,18 @@ _POLL_SEC = 0.002
 _URGENT_OPS = frozenset((OP_GET_REQ, OP_GET_REPLY, OP_FENCE_REQ,
                          OP_FENCE_ACK, OP_MUTEX_ACQ, OP_MUTEX_GRANT,
                          OP_MUTEX_REL, OP_MEMBER, OP_GANG))
+
+_OP_NAMES = {OP_PUT: "put", OP_ACCUMULATE: "accumulate",
+             OP_GET_REQ: "get_req", OP_GET_REPLY: "get_reply",
+             OP_FENCE_REQ: "fence_req", OP_FENCE_ACK: "fence_ack",
+             OP_MUTEX_ACQ: "mutex_acq", OP_MUTEX_GRANT: "mutex_grant",
+             OP_MUTEX_REL: "mutex_rel", OP_BATCH: "batch",
+             OP_MEMBER: "member", OP_GANG: "gang"}
+
+
+def _op_label(op: int) -> str:
+    """The telemetry label of a wire op code (flags stripped)."""
+    return _OP_NAMES.get(op & ~OP_FLAG_MASK, str(op))
 
 # src_rank, seq, origin monotonic us, origin unix us, origin step (-1: the
 # sender had no step clock).
@@ -387,6 +405,15 @@ class _PeerSender:
             if urgent or self.bytes_pending >= self._t._flush_bytes:
                 self.flush_now = True
             self.cond.notify_all()
+        if flightrec.enabled():
+            op = msg[0]
+            seq = 0
+            if op & OP_TRACE_FLAG and len(msg[6]) >= TRACE_TRAILER.size:
+                seq = TRACE_TRAILER.unpack_from(
+                    msg[6], len(msg[6]) - TRACE_TRAILER.size)[1]
+            flightrec.note(flightrec.ENQUEUE, op=op, stripe=self.stripe,
+                           src=msg[2], dst=msg[3], seq=seq,
+                           length=len(msg[6]), name=msg[1])
 
     def flush(self, timeout: float) -> None:
         """Block until everything enqueued before this call was handed to
@@ -456,16 +483,24 @@ class _PeerSender:
                 self.flush_now = bool(self.q)
                 self.cond.notify_all()
             try:
-                self._t._send_frames(self.host, self.port, batch)
+                self._t._send_frames(self.host, self.port, batch,
+                                     self.stripe)
             except Exception as e:  # noqa: BLE001 — surfaced to flushers
                 _log.warning("window transport: batch of %d message(s) to "
                              "%s dropped: %s", len(batch), self.peer, e)
+                flightrec.dump_on_error(f"batch send to {self.peer} dropped")
                 with self.cond:
                     self.error = e
                     self.err_count += 1
             finally:
                 with self.cond:
                     self.seq_done += len(batch)
+                    if telemetry.enabled():
+                        # The backlog left after the drain: 0 when the
+                        # sender keeps up.
+                        telemetry.set_gauge("bf_win_tx_queue_depth",
+                                            len(self.q), peer=self.peer,
+                                            stripe=str(self.stripe))
                     self.cond.notify_all()
 
 
@@ -495,6 +530,7 @@ class WindowTransport:
                  alloc: Optional[Callable[[int], np.ndarray]] = None):
         cfg = config.get()
         self._lib = native.lib()
+        flightrec.maybe_enable()
         self._svc = self._lib.bf_winsvc_start(port, cfg.win_max_pending)
         if not self._svc:
             raise OSError(f"cannot start window service on port {port}")
@@ -517,6 +553,15 @@ class WindowTransport:
         self._senders_lock = threading.Lock()
         self._bytes_lock = threading.Lock()
         self.tx_bytes = 0
+        self._tx_frames = self._tx_msgs = 0  # the coalescing ratio's
+        # The native stats pumps' last snapshots, and the peers sent to.
+        self._stats_lock = threading.Lock()
+        self._tx_pump_last = 0.0
+        self._tx_last = native.WinTxStats()
+        self._rx_last = native.WinRxStats()
+        self._peer_addrs: set = set()
+        self._peer_last: Dict[Tuple[str, int], tuple] = {}
+        self._stripe_last: Dict[Tuple[str, int, int], int] = {}
         self.native_path = self.coalesce and bool(cfg.win_native)
         self._tx = None
         self._fc_send = None
@@ -540,6 +585,7 @@ class WindowTransport:
             self._val_buf = self._alloc(1 << 20).view(np.float32)
             self.decode_threads = int(self._lib.bf_winsvc_set_decode(
                 self._svc, _resolve_decode_threads()))
+            telemetry.set_gauge("bf_win_native_active", 1)
         self._stop = threading.Event()
         self._buf = None if self.native_path else self._alloc(1 << 20)
         self._drainer = threading.Thread(target=self._drain, daemon=True,
@@ -573,9 +619,11 @@ class WindowTransport:
         with self._bytes_lock:
             self.tx_bytes += payload.size
         if self._tx is not None:
+            # The native path's counters are pumped from the C++ ones.
             hb = self._hostb.get(host)
             if hb is None:
                 hb = self._hostb[host] = host.encode()
+            self._peer_addrs.add((host, port))
             nb = self._nameb.get(name)
             if nb is None:
                 nb = self._nameb[name] = name.encode()
@@ -599,15 +647,27 @@ class WindowTransport:
                 raise ValueError(
                     "window transport: window name exceeds the receiver's "
                     f"128-byte name field (127 usable bytes): {name!r}")
+            if telemetry.enabled():
+                telemetry.inc("bf_win_tx_errors_total", peer=f"{host}:{port}")
+            flightrec.dump_on_error(
+                f"native send to {host}:{port} failed (code {rc})")
             raise ConnectionError(
                 f"win transport send to {host}:{port} failed "
                 f"(native code {rc})")
         if len(name.encode()) >= 128:
             raise ValueError(
                 f"window transport: name exceeds 127 bytes: {name!r}")
+        if telemetry.enabled():
+            telemetry.inc("bf_win_tx_msgs_total", op=_op_label(op))
+            telemetry.inc("bf_win_tx_bytes_total", float(payload.size),
+                          peer=f"{host}:{port}")
         if not self.coalesce:
+            t0 = telemetry.start_timer()
             self._native_send(host, port, op, name, src, dst, weight,
                               p_weight, payload)
+            if t0 is not None:
+                telemetry.observe_since(t0, "bf_win_rpc_seconds",
+                                        op=_op_label(op))
             return
         msg: Msg = (op, name, src, dst, float(weight), float(p_weight),
                     payload.tobytes())
@@ -640,16 +700,34 @@ class WindowTransport:
         """Retire every stripe of a peer's sender: its queued messages are
         discarded, a producer blocked on it fails, and a later send to the
         address makes fresh senders."""
+        peer = f"{host}:{port}"
         if self._tx is not None:
-            self._lib.bf_wintx_drop_peer(self._tx, host.encode(), port)
+            dropped = int(self._lib.bf_wintx_drop_peer(self._tx,
+                                                       host.encode(), port))
+            # The pumps forget the peer: its counters restart at 0 when a
+            # later send makes fresh senders.
+            with self._stats_lock:
+                self._peer_addrs.discard((host, port))
+                self._peer_last.pop((host, port), None)
+                for k in [k for k in self._stripe_last
+                          if k[:2] == (host, port)]:
+                    self._stripe_last.pop(k, None)
+            for k in range(self.n_stripes):
+                telemetry.clear_gauge("bf_win_tx_queue_depth", peer=peer,
+                                      stripe=str(k))
+            if dropped and telemetry.enabled():
+                telemetry.inc("bf_win_tx_dropped_msgs_total", float(dropped),
+                              peer=peer)
             return
         with self._senders_lock:
             senders = [self._senders.pop(k)
                        for k in [k for k in self._senders
                                  if k[:2] == (host, port)]]
+        dropped = 0
         for s in senders:
             with s.cond:
                 n = len(s.q)
+                dropped += n
                 s.q.clear()
                 s.bytes_pending = 0
                 s.seq_done = s.seq_enq
@@ -660,6 +738,11 @@ class WindowTransport:
                     s.err_count += 1
                 s.closing = True
                 s.cond.notify_all()
+            telemetry.clear_gauge("bf_win_tx_queue_depth", peer=s.peer,
+                                  stripe=str(s.stripe))
+        if dropped and telemetry.enabled():
+            telemetry.inc("bf_win_tx_dropped_msgs_total", float(dropped),
+                          peer=peer)
 
     def error_token(self, addrs=None) -> int:
         """Snapshot for ``flush(since=...)``, over the same ``addrs``:
@@ -710,7 +793,9 @@ class WindowTransport:
                                               float(timeout)))
             if rc:
                 errors.append(rc)
+        self._pump_native_tx_stats()
         if errors:
+            flightrec.dump_on_error(f"native flush failed (code {errors[0]})")
             rc = errors[0]
             if rc == -6:
                 raise ConnectionError(
@@ -731,6 +816,113 @@ class WindowTransport:
                 "win transport: a batched send containing this op's "
                 "message(s) failed on a sender worker")
 
+    def _pump_native_tx_stats(self, tx=None, force: bool = False) -> None:
+        """Diff the native sender's cumulative counters into the telemetry
+        (the series the Python path keeps a message, and the
+        ``bf_win_native_*`` ones), at most every 50 ms unless ``force``:
+        every window op flushes at its boundary."""
+        tx = self._tx if tx is None else tx
+        if tx is None or not telemetry.enabled():
+            return
+        now = time.monotonic()
+        if not force and now - self._tx_pump_last < 0.05:
+            return
+        self._tx_pump_last = now
+        with self._stats_lock:
+            cur = native.WinTxStats()
+            self._lib.bf_wintx_stats(tx, None, 0, ctypes.byref(cur))
+            last, self._tx_last = self._tx_last, cur
+            for i in range(16):
+                d = cur.by_op[i] - last.by_op[i]
+                if d > 0:
+                    telemetry.inc("bf_win_tx_msgs_total", float(d),
+                                  op=_op_label(i))
+            for name, d in (
+                    ("bf_win_native_tx_frames_total",
+                     cur.frames - last.frames),
+                    ("bf_win_tx_batches_total", cur.batches - last.batches),
+                    ("bf_win_tx_batched_msgs_total",
+                     cur.batched_msgs - last.batched_msgs)):
+                if d > 0:
+                    telemetry.inc(name, float(d))
+            if cur.frames > 0:
+                telemetry.set_gauge("bf_win_tx_coalesce_ratio",
+                                    cur.batch_size_sum / cur.frames)
+            telemetry.observe_bucket_counts(
+                "bf_win_tx_batch_size",
+                [cur.batch_size_hist[i] - last.batch_size_hist[i]
+                 for i in range(25)],
+                cur.batch_size_sum - last.batch_size_sum)
+            telemetry.observe_bucket_counts(
+                "bf_win_rpc_seconds",
+                [cur.send_sec_hist[i] - last.send_sec_hist[i]
+                 for i in range(25)],
+                cur.send_sec_sum - last.send_sec_sum, op="native")
+            # A peer's bytes, errors and retries, and each stripe's bytes
+            # and queue depth.  The diffs are clamped at 0: a dropped and
+            # re-made peer restarts its counters.
+            for (h, p) in list(self._peer_addrs):
+                ps = native.WinTxStats()
+                self._lib.bf_wintx_stats(tx, h.encode(), p, ctypes.byref(ps))
+                peer = f"{h}:{p}"
+                lb, le, lr = self._peer_last.get((h, p), (0, 0, 0))
+                for name, d in (("bf_win_tx_bytes_total", ps.bytes - lb),
+                                ("bf_win_tx_errors_total", ps.errors - le),
+                                ("bf_win_tx_retries_total",
+                                 ps.retries - lr)):
+                    if d > 0:
+                        telemetry.inc(name, float(d), peer=peer)
+                self._peer_last[(h, p)] = (ps.bytes, ps.errors, ps.retries)
+                for k in range(self.n_stripes):
+                    ss = native.WinTxStats()
+                    self._lib.bf_wintx_stripe_stats(tx, h.encode(), p, k,
+                                                    ctypes.byref(ss))
+                    d = ss.bytes - self._stripe_last.get((h, p, k), 0)
+                    if d > 0:
+                        telemetry.inc("bf_win_tx_stripe_bytes_total",
+                                      float(d), peer=peer, stripe=str(k))
+                    telemetry.set_gauge("bf_win_tx_queue_depth",
+                                        float(ss.queue_len), peer=peer,
+                                        stripe=str(k))
+                    self._stripe_last[(h, p, k)] = ss.bytes
+
+    def _pump_native_rx_stats(self) -> None:
+        """Diff the native drain's cumulative counters into the telemetry
+        (the series the Python drain keeps a frame and a message)."""
+        if not telemetry.enabled():
+            return
+        cur = native.WinRxStats()
+        self._lib.bf_winsvc_rx_stats(self._svc, ctypes.byref(cur))
+        last, self._rx_last = self._rx_last, cur
+        d = cur.batch_frames - last.batch_frames
+        if d > 0:
+            telemetry.inc("bf_win_rx_batches_total", float(d))
+            telemetry.inc("bf_win_native_rx_frames_total", float(d))
+        d = cur.bytes - last.bytes
+        if d > 0:
+            telemetry.inc("bf_win_rx_bytes_total", float(d))
+        for i in range(16):
+            d = cur.by_op[i] - last.by_op[i]
+            if d > 0:
+                telemetry.inc("bf_win_rx_msgs_total", float(d),
+                              op=_op_label(i))
+        for name, d in (("bf_win_native_rx_folded_msgs_total",
+                         cur.folded_msgs - last.folded_msgs),
+                        ("bf_win_native_rx_commits_total",
+                         cur.commits - last.commits)):
+            if d > 0:
+                telemetry.inc(name, float(d))
+        if self.decode_threads > 0:
+            # Busy decode workers now: pinned at the pool's size, inbound
+            # decode is the bottleneck.
+            telemetry.set_gauge("bf_win_rx_decode_pool_busy",
+                                float(cur.decode_busy))
+        telemetry.observe_bucket_counts(
+            "bf_win_rx_batch_size",
+            [cur.batch_size_hist[i] - last.batch_size_hist[i]
+             for i in range(25)],
+            cur.batch_size_sum - last.batch_size_sum)
+
     def _sender(self, host: str, port: int, stripe: int = 0) -> _PeerSender:
         key = (host, port, stripe)
         with self._senders_lock:
@@ -740,16 +932,49 @@ class WindowTransport:
                                                      stripe)
             return s
 
-    def _send_frames(self, host: str, port: int, batch: List[Msg]) -> None:
+    def _send_frames(self, host: str, port: int, batch: List[Msg],
+                     stripe: int = 0) -> None:
         """Ship a drained queue as one OP_BATCH frame, or as the plain
         frame when one message coalesced (the per-message wire)."""
+        peer = f"{host}:{port}"
+        nbytes = sum(len(m[6]) for m in batch)
+        if telemetry.enabled():
+            telemetry.inc("bf_win_tx_stripe_bytes_total", float(nbytes),
+                          peer=peer, stripe=str(stripe))
+        frame_op = batch[0][0] if len(batch) == 1 else OP_BATCH
+        if flightrec.enabled():
+            flightrec.note(flightrec.FLUSH, op=frame_op, stripe=stripe,
+                           src=-1, dst=port, seq=len(batch), length=nbytes,
+                           name=peer)
+        t0 = telemetry.start_timer()
         if len(batch) == 1:
             op, name, src, dst, weight, p_weight, payload = batch[0]
+            blob = np.frombuffer(payload, np.uint8)
             self._native_send(host, port, op, name, src, dst, weight,
-                              p_weight, np.frombuffer(payload, np.uint8))
+                              p_weight, blob)
         else:
+            blob = np.frombuffer(_encode_batch(batch), np.uint8)
             self._native_send(host, port, OP_BATCH, "", -1, -1, 0.0, 0.0,
-                              np.frombuffer(_encode_batch(batch), np.uint8))
+                              blob)
+        if t0 is not None:
+            telemetry.observe_since(t0, "bf_win_rpc_seconds",
+                                    op=_op_label(frame_op))
+        if flightrec.enabled():
+            # src carries the native recorder's rc: this runs on success.
+            flightrec.note(flightrec.SENDMSG, op=frame_op, stripe=stripe,
+                           src=0, dst=port, seq=len(batch), length=blob.size,
+                           name=peer)
+        with self._bytes_lock:  # several sender threads update the ratio
+            self._tx_frames += 1
+            self._tx_msgs += len(batch)
+            ratio = self._tx_msgs / self._tx_frames
+        if telemetry.enabled():
+            telemetry.observe("bf_win_tx_batch_size", float(len(batch)))
+            if len(batch) > 1:
+                telemetry.inc("bf_win_tx_batches_total")
+                telemetry.inc("bf_win_tx_batched_msgs_total",
+                              float(len(batch)))
+            telemetry.set_gauge("bf_win_tx_coalesce_ratio", ratio)
 
     def _native_send(self, host: str, port: int, op: int, name: str,
                      src: int, dst: int, weight: float, p_weight: float,
@@ -768,6 +993,7 @@ class WindowTransport:
         attempt = 0
         # -1 (address resolution) and -4 (name too long) are deterministic.
         while rc not in (0, -1, -4) and attempt < self._retries:
+            telemetry.inc("bf_win_tx_retries_total", peer=f"{host}:{port}")
             time.sleep(self._retry_backoff * (2 ** attempt)
                        * (0.5 + random.random()))
             attempt += 1
@@ -777,6 +1003,10 @@ class WindowTransport:
                 "window transport: window name exceeds the receiver's "
                 f"128-byte name field (127 usable bytes): {name!r}")
         if rc != 0:
+            if telemetry.enabled():
+                telemetry.inc("bf_win_tx_errors_total", peer=f"{host}:{port}")
+            flightrec.dump_on_error(
+                f"send to {host}:{port} failed (code {rc})")
             raise ConnectionError(
                 f"win transport send to {host}:{port} failed (code {rc})")
 
@@ -791,13 +1021,24 @@ class WindowTransport:
         decode, codecs and same-slot folds done in C++; it blocks inside
         the call (without the GIL) while the queue is empty."""
         lib, svc = self._lib, self._svc
+        burst, burst_t0, burst_t_end = 0, 0.0, 0.0
         while not self._stop.is_set():
+            t_call = time.perf_counter()
             n = lib.bf_winsvc_drain(
                 svc, self._items, self._items_cap,
                 self._raw_buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
                 self._raw_buf.size,
                 self._val_buf.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
                 self._val_buf.size, 64, 50)
+            # A burst (items drained back to back, the inbound depth's
+            # proxy) ends when the call had to wait for data or found none.
+            if burst and (n == 0 or (n > 0 and
+                                     time.perf_counter() - t_call > 0.002)):
+                telemetry.set_gauge("bf_win_rx_queue_depth", burst)
+                telemetry.observe("bf_win_drain_burst_seconds",
+                                  burst_t_end - burst_t0)
+                burst = 0
+                self._pump_native_rx_stats()
             if n == -1:    # the next frame's raw payloads exceed the buffer
                 self._raw_buf = self._alloc(
                     max(self._raw_buf.size * 2, 1 << 24))
@@ -812,7 +1053,11 @@ class WindowTransport:
                 self._items = (native.WinItem * self._items_cap)()
                 continue
             if n > 0:
+                if not burst:
+                    burst_t0 = time.perf_counter()
+                burst += int(n)
                 self._apply_native_items(int(n))
+                burst_t_end = time.perf_counter()
 
     def _raw_item_msg(self, it, raw_mv) -> Msg:
         return (int(it.op), it.name.decode(), int(it.src), int(it.dst),
@@ -901,6 +1146,7 @@ class WindowTransport:
 
     def _drain_python(self):
         msg = native.WinMsg()
+        burst, burst_t0 = 0, 0.0  # messages drained back to back
         while not self._stop.is_set():
             got = self._lib.bf_winsvc_recv(
                 self._svc, ctypes.byref(msg),
@@ -910,19 +1156,43 @@ class WindowTransport:
                 self._buf = self._alloc(max(self._buf.size * 2, 1 << 24))
                 continue
             if got == 0:
+                if burst:
+                    # The burst's length is the inbound depth's proxy, its
+                    # time the drain's service time.
+                    telemetry.set_gauge("bf_win_rx_queue_depth", burst)
+                    telemetry.observe("bf_win_drain_burst_seconds",
+                                      time.perf_counter() - burst_t0)
+                    burst = 0
                 self._stop.wait(_POLL_SEC)
                 continue
+            if not burst:
+                burst_t0 = time.perf_counter()
+            burst += 1
             payload = memoryview(self._buf)[:msg.payload_len]
             op = int(msg.op)
             try:
                 if op == OP_BATCH:
                     msgs = _decode_batch(payload)
+                    if telemetry.enabled():
+                        telemetry.inc("bf_win_rx_batches_total")
+                        telemetry.inc("bf_win_rx_bytes_total",
+                                      float(len(payload)))
+                        telemetry.observe("bf_win_rx_batch_size",
+                                          float(len(msgs)))
+                        for m in msgs:
+                            telemetry.inc("bf_win_rx_msgs_total",
+                                          op=_op_label(m[0]))
                     if self._apply_batch is not None:
                         self._apply_batch(msgs)
                     else:
                         for m in msgs:
                             self._apply(*m)
                 else:
+                    if telemetry.enabled():
+                        telemetry.inc("bf_win_rx_msgs_total",
+                                      op=_op_label(op))
+                        telemetry.inc("bf_win_rx_bytes_total",
+                                      float(msg.payload_len))
                     self._apply(op, msg.name.decode(), int(msg.src),
                                 int(msg.dst), float(msg.weight),
                                 float(msg.p_weight), payload)
@@ -934,6 +1204,10 @@ class WindowTransport:
         and the service."""
         tx, self._tx = self._tx, None
         if tx is not None:
+            try:
+                self._pump_native_tx_stats(tx, force=True)
+            except Exception:  # noqa: BLE001 — telemetry must not block stop
+                pass
             self._lib.bf_wintx_stop(tx)
         with self._senders_lock:
             senders = list(self._senders.values())
@@ -943,5 +1217,10 @@ class WindowTransport:
         self._stop.set()
         self._drainer.join(timeout=5)
         if self._svc:
+            if self.native_path:
+                try:
+                    self._pump_native_rx_stats()
+                except Exception:  # noqa: BLE001
+                    pass
             self._lib.bf_winsvc_stop(self._svc)
             self._svc = None

@@ -70,18 +70,22 @@ bit for bit the lockstep one.  The arithmetic is the JAX package's, in
 float32 on the window's device: the policy's decisions, the staging, the
 store and P are the same bits.
 
+Every op reports into ``utils/telemetry`` as the JAX package's does (op
+counts, bytes a peer process, in-flight handles, mutex waits, the stale
+counters, the contribution ages), in ``op_span`` spans for the timeline and
+the step profiler; ``win_wait`` and the remote mutex grants run under the
+stall watchdog, whose peer probe the transport installs.
+
 Left out, raising an error that names its ROADMAP item where it can be
 asked for: the device-side put path (item 18), the membership and gang
-control ops (item 20, dropped and logged when one arrives), and the async
-mode's telemetry (the stale counters and the link observatory's step
-tick, items 21 and 21b).  ``BLUEFOG_TPU_WIN_COMPRESSION`` acts on
-cross-process edges only.
+control ops (item 20, dropped and logged when one arrives), and the link
+observatory's step tick (item 21b).  ``BLUEFOG_TPU_WIN_COMPRESSION`` acts
+on cross-process edges only.
 """
 
 from __future__ import annotations
 
 import contextlib
-import logging
 import math
 import os
 import socket
@@ -100,7 +104,9 @@ from bluefog_tpu_torch.ops.transport import (
     OP_MUTEX_GRANT, OP_MUTEX_REL, OP_PUT, OP_SPARSE_FLAG, OP_TRACE_FLAG,
     make_trace_tag, set_trace_origin_step, sparse_decode, sparse_encode,
     trace_strip)
-from bluefog_tpu_torch.utils import config
+from bluefog_tpu_torch.utils import config, flightrec, stall, telemetry
+from bluefog_tpu_torch.utils.logging import get_logger
+from bluefog_tpu_torch.utils.timeline import op_span
 
 __all__ = [
     "win_create", "win_free", "win_put", "win_put_nonblocking",
@@ -114,7 +120,7 @@ __all__ = [
     "async_info", "win_fold_stale_residuals", "clear_async_staleness",
 ]
 
-_log = logging.getLogger("bluefog_tpu_torch")
+_log = get_logger()
 
 
 def _timeout() -> float:
@@ -269,6 +275,7 @@ class _WindowStore:
             h = self.next_handle
             self.next_handle += 1
             self.handles[h] = self.pool.submit(job)
+            telemetry.set_gauge("bf_win_inflight_handles", len(self.handles))
             return h
 
 
@@ -528,6 +535,47 @@ def _staleness_factor(name: str, key: tuple, tag) -> tuple:
     return 0.0, "reject"
 
 
+_age_lock = threading.Lock()
+_age_minmax: Dict[int, list] = {}
+
+
+def _note_contribution(name: str, src: int, tag) -> None:
+    """One tagged contribution reached its staging slot: the flight
+    recorder's COMMIT event (the end of the tag's chain) and its age, the
+    receiver's wall clock less the tag's origin (exact on one host), into
+    ``bf_win_contribution_age_seconds`` and the freshest and stalest
+    gauges of its source."""
+    if flightrec.enabled():
+        flightrec.note(flightrec.COMMIT, src=tag[0], dst=src, seq=tag[1],
+                       name=name)
+    if not telemetry.enabled():
+        return
+    age = max(0.0, (time.time_ns() // 1000 - tag[3]) / 1e6)
+    telemetry.observe("bf_win_contribution_age_seconds", age, src=str(src))
+    with _age_lock:
+        mm = _age_minmax.get(src)
+        if mm is None:
+            mm = _age_minmax[src] = [age, age]
+        else:
+            mm[0] = min(mm[0], age)
+            mm[1] = max(mm[1], age)
+        lo, hi = mm
+    telemetry.set_gauge("bf_win_contribution_freshest_age_seconds", lo,
+                        src=str(src))
+    telemetry.set_gauge("bf_win_contribution_stalest_age_seconds", hi,
+                        src=str(src))
+
+
+def _note_stale(actions) -> None:
+    """The staleness policy's applied decisions, ``[(src, action)]``
+    (counted outside ``win.lock``: counters are not state)."""
+    if not telemetry.enabled():
+        return
+    for src, action in actions:
+        telemetry.inc("bf_win_stale_rejected_total" if action == "reject"
+                      else "bf_win_stale_downweighted_total", src=str(src))
+
+
 def _divert_stale(win: _Window, key: tuple, contrib: torch.Tensor,
                   p_mass: float, keep: float) -> None:
     """Move the share of one stale contribution that was not admitted into
@@ -576,8 +624,7 @@ def win_fold_stale_residuals(name: Optional[str] = None) -> int:
 def clear_async_staleness(ranks=None) -> None:
     """Forget the async estimates of the sources ``ranks`` (None: every
     one): a peer gone from the world must not keep its last origin step in
-    the step lag.  (The JAX package also clears its stale counters, item
-    21.)"""
+    the step lag, nor its stale counters."""
     with _async.lock:
         if ranks is None:
             targets = sorted(set(_async.peer_step)
@@ -588,6 +635,10 @@ def clear_async_staleness(ranks=None) -> None:
             _async.peer_step.pop(r, None)
         for k in [k for k in _async.edge_age if k[2] in targets]:
             _async.edge_age.pop(k, None)
+    for r in targets:
+        telemetry.clear_counter("bf_win_stale_rejected_total", src=str(r))
+        telemetry.clear_counter("bf_win_stale_downweighted_total",
+                                src=str(r))
 
 
 # ---------------------------------------------------------------------------
@@ -691,6 +742,40 @@ def install_distrib(transport, rank_owner: Dict[int, int],
         pending, _store.preinit_msgs = _store.preinit_msgs, []
         for msg in pending:
             _apply_inbound(*msg)
+    # Stall warnings can now name the unreachable peers' ranks.
+    stall.set_peer_probe(_probe_missing_ranks)
+
+
+def _probe_missing_ranks(timeout: float = 1.0) -> List[int]:
+    """The ranks whose owner's transport endpoint refuses a TCP connection
+    (the stall watchdog's and ``/healthz``'s liveness source; the JAX
+    package's L494).  The peers are probed concurrently."""
+    d = _store.distrib
+    if d is None:
+        return []
+
+    def reachable(addr) -> bool:
+        try:
+            socket.create_connection(addr, timeout=timeout).close()
+            return True
+        except OSError:
+            return False
+
+    peers = [(p, addr) for p, addr in sorted(d.proc_addr.items())
+             if p != d.my_proc]
+    if not peers:
+        return []
+    with ThreadPoolExecutor(max_workers=min(16, len(peers)),
+                            thread_name_prefix="bf-stall-probe") as pool:
+        alive = list(pool.map(lambda pa: reachable(pa[1]), peers))
+    missing: List[int] = []
+    for (p, _), ok in zip(peers, alive):
+        if not ok:
+            missing.extend(r for r, owner in d.rank_owner.items()
+                           if owner == p)
+    telemetry.inc("bf_win_peer_probes_total")
+    telemetry.set_gauge("bf_win_unreachable_peers", len(missing))
+    return sorted(missing)
 
 
 def init_transport() -> bool:
@@ -724,6 +809,7 @@ def _shutdown_transport() -> None:
     d = _store.distrib
     _store.distrib = None
     if d is not None:
+        stall.set_peer_probe(None)
         d.transport.stop()
 
 
@@ -833,6 +919,13 @@ def _send_to_proc(proc: int, op: int, name: str, src: int, dst: int,
             payload = np.concatenate([payload.reshape(-1).view(np.uint8),
                                       np.frombuffer(tag, np.uint8)])
             op |= OP_TRACE_FLAG
+    if telemetry.enabled():
+        telemetry.inc("bf_win_proc_tx_bytes_total", float(payload.nbytes),
+                      proc=proc)
+        # Window traffic between processes is the dcn level of the
+        # two-level wire accounting.
+        telemetry.inc("bf_comm_level_bytes_total", float(payload.nbytes),
+                      level="dcn")
     d.transport.send(host, port, op, name, src, dst, weight, payload,
                      p_weight, stripe=stripe)
 
@@ -978,12 +1071,17 @@ def _remote_mutex(name: str, rank: int, my_rank: int):
             t0 = time.perf_counter()
             _send_to_rank_owner(rank, OP_MUTEX_ACQ, name, my_rank, rank, 0.0)
             _flush_transport({proc}, since=tok)
-            if not granted.wait(timeout=_timeout()):
+            with stall.watch(f"win_mutex({name!r}) grant of rank {rank}"):
+                got = granted.wait(timeout=_timeout())
+            if not got:
                 raise ConnectionError(
                     f"win_mutex({name!r}): rank {rank}'s owner did not grant "
                     f"within {_timeout():.0f}s")
             waited = time.perf_counter() - t0
             stats.add(mutex_s=waited)
+            telemetry.inc("bf_win_mutex_acquisitions_total", kind="remote")
+            telemetry.inc("bf_win_mutex_wait_seconds_total", waited,
+                          kind="remote")
             yield waited
         finally:
             try:
@@ -1104,11 +1202,18 @@ def _apply_inbound(op: int, name: str, src: int, dst: int, weight: float,
                 (orig_op, name, src, dst, weight, p_weight, bytes(payload)))
             return
     if op in (OP_PUT, OP_ACCUMULATE, OP_GET_REPLY):
+        # Applied, not parked: inbound bytes a peer process (a parked
+        # message's replay is not counted twice).
+        if telemetry.enabled():
+            telemetry.inc("bf_win_proc_rx_bytes_total", float(len(payload)),
+                          proc=d.rank_owner.get(src, -1))
         tag = None
+        stale = None
         if traced:
             payload, tag = trace_strip(payload)
         row = _payload_row(win, payload, compressed, sparse=sparse)
-        with _stream(win.device):
+        with _stream(win.device), \
+                op_span(f"win_apply.{name}.{src}->{dst}", "COMMUNICATE"):
             scaled = _to_device(win, row) * weight  # a float32 multiply
             with win.lock:
                 key = (dst, src)
@@ -1135,6 +1240,10 @@ def _apply_inbound(op: int, name: str, src: int, dst: int, weight: float,
                             win.p_staging[key] += p_weight
                         elif keep:
                             win.p_staging[key] += keep * p_weight
+        if stale is not None:
+            _note_stale([(src, stale)])
+        if tag is not None:
+            _note_contribution(name, src, tag)
         if op == OP_GET_REPLY:
             with d.cv:
                 key = (name, dst, src)
@@ -1221,13 +1330,21 @@ def _commit_native_run(name: str, entries) -> None:
             _apply_inbound(OP_PUT if replace else OP_ACCUMULATE, nm, src,
                            dst, 1.0, p_mass, np.asarray(vals).tobytes())
         return
+    if telemetry.enabled():
+        for (_nm, _r, src, _d, _pm, _p, _a, _v, wire_bytes, _t) in entries:
+            telemetry.inc("bf_win_proc_rx_bytes_total", float(wire_bytes),
+                          proc=d.rank_owner.get(src, -1))
     expected = int(np.prod(win.shape, dtype=np.int64))
-    with _stream(win.device), win.lock:
+    noted, stale_noted = [], []
+    with _stream(win.device), win.lock, \
+            op_span(f"win_apply_batch.{name}", "COMMUNICATE"):
         for (_nm, replace, src, dst, p_mass, puts, accs, vals, _wb,
              trace) in entries:
             key = (dst, src)
             if key not in win.staging:
                 continue
+            if trace is not None:
+                noted.append((src, trace))
             if vals.size != expected or win.dtype != torch.float32:
                 _log.warning("window %r: folded entry of %d elements does "
                              "not match the %d-element row; dropped", name,
@@ -1249,12 +1366,16 @@ def _commit_native_run(name: str, entries) -> None:
                 if _store.associated_p_enabled:
                     win.p_staging[key] += p_mass
                 continue
+            stale_noted.append((src, action))
             if keep:
                 win.staging[key] += row * keep
                 win.versions[key] += puts + accs
                 if _store.associated_p_enabled:
                     win.p_staging[key] += keep * p_mass
             _divert_stale(win, key, row, p_mass, keep)
+    _note_stale(stale_noted)
+    for src, trace in noted:
+        _note_contribution(name, src, trace)
 
 
 def _apply_data_run(name: str, group) -> None:
@@ -1269,9 +1390,15 @@ def _apply_data_run(name: str, group) -> None:
         for m in group:
             _apply_inbound(*m)
         return
+    if telemetry.enabled():
+        for m in group:
+            telemetry.inc("bf_win_proc_rx_bytes_total", float(len(m[6])),
+                          proc=d.rank_owner.get(m[2], -1))
     # [replace, (dst, src), scaled row, p mass, ticks, trace tag or None]
     entries = []
-    with _stream(win.device):
+    noted, stale_noted = [], []
+    with _stream(win.device), \
+            op_span(f"win_apply_batch.{name}", "COMMUNICATE"):
         for (op, _n, src, dst, weight, p_weight, payload) in group:
             try:
                 tag = None
@@ -1303,6 +1430,8 @@ def _apply_data_run(name: str, group) -> None:
             for replace, key, scaled, p_mass, ticks, tag in entries:
                 if key not in win.staging:
                     continue
+                if tag is not None:
+                    noted.append((key[1], tag))
                 if replace:
                     win.staging[key] = scaled
                     win.versions[key] += ticks
@@ -1316,12 +1445,16 @@ def _apply_data_run(name: str, group) -> None:
                     if _store.associated_p_enabled:
                         win.p_staging[key] += p_mass
                     continue
+                stale_noted.append((key[1], action))
                 if keep:
                     win.staging[key] += scaled * keep
                     win.versions[key] += ticks
                     if _store.associated_p_enabled:
                         win.p_staging[key] += keep * p_mass
                 _divert_stale(win, key, scaled, p_mass, keep)
+    _note_stale(stale_noted)
+    for src, tag in noted:
+        _note_contribution(name, src, tag)
 
 
 # ---------------------------------------------------------------------------
@@ -1533,19 +1666,22 @@ def _do_put(name: str, tensor: torch.Tensor, edges: Dict[tuple, float],
     tok = (d.transport.error_token({d.proc_addr[p] for p in remote_procs})
            if remote_procs else None)
     op = OP_ACCUMULATE if accumulate else OP_PUT
+    kind = "win_accumulate" if accumulate else "win_put"
     with (win.put_stage_lock if remote_procs else contextlib.nullcontext()):
         staged: dict = {}
         wire_s = 0.0
         for (src, dst), w in edges.items():
             if not _owns(src):
                 continue  # src's owner performs this edge
-            if _owns(dst):
-                _do_put_edge(win, tensor, win.row_of[src], src, dst, w,
-                             accumulate, require_mutex)
-            else:
-                wire_s += _send_put_edge(win, name, tensor[win.row_of[src]],
-                                         src, dst, w, op, require_mutex,
-                                         staged)
+            # A span an edge: the timeline shows each transfer.
+            with op_span(f"{kind}.{name}.{src}->{dst}", "COMMUNICATE"):
+                if _owns(dst):
+                    _do_put_edge(win, tensor, win.row_of[src], src, dst, w,
+                                 accumulate, require_mutex)
+                else:
+                    wire_s += _send_put_edge(
+                        win, name, tensor[win.row_of[src]], src, dst, w, op,
+                        require_mutex, staged)
         # Op boundary: every remote edge is handed to TCP (its errors
         # raised on this op's future) before the op completes.
         if remote_procs:
@@ -1639,9 +1775,31 @@ def _put_nonblocking(tensor, name: str, self_weight, dst_weights,
     edges = _resolve_edge_weights(dst_weights, win.out_nbrs, 1.0,
                                   ranks=win.owned)
     _validate_edges(edges, win.out_nbrs, peer_is_src=False, op=op)
-    return _store.submit(lambda: _do_put(
-        name, t, edges, require_mutex, accumulate=accumulate,
-        self_weight=self_weight), win.device, payload=t)
+    _count_win_op("accumulate" if accumulate else "put",
+                  t.numel() * t.element_size(), edges)
+
+    def work():
+        with op_span(f"{op}.{name}", "COMMUNICATE"):
+            _do_put(name, t, edges, require_mutex, accumulate=accumulate,
+                    self_weight=self_weight)
+    return _store.submit(work, win.device, payload=t)
+
+
+def _count_win_op(op: str, nbytes: float, edges) -> None:
+    """One one-sided op's counters at dispatch: calls, the topology edges
+    it touches, and the bytes it moves (puts and accumulates: the caller's
+    payload; gets: a window row a pulled edge; updates: the combined owned
+    rows)."""
+    if not telemetry.enabled():
+        return
+    telemetry.inc("bf_win_ops_total", op=op)
+    telemetry.inc("bf_win_edges_total", float(len(edges)), op=op)
+    telemetry.inc("bf_win_bytes_total", float(nbytes), op=op)
+
+
+def _row_nbytes(win: _Window) -> int:
+    return int(np.prod(win.shape, dtype=np.int64)) * \
+        torch.empty((), dtype=win.dtype).element_size()
 
 
 def win_put_nonblocking(tensor, name: str, *, self_weight=None,
@@ -1697,19 +1855,20 @@ def _do_get(name: str, edges: Dict[tuple, float], require_mutex: bool) -> None:
             remote.append((dst, src, w))
             continue
         mutex = win.mutexes[src] if require_mutex else None
-        if mutex:
-            mutex.acquire()
-        try:
-            with win.lock:
-                if (dst, src) not in win.staging:
-                    continue
-                win.staging[(dst, src)] = win.main[src] * w
-                win.versions[dst, src] += 1
-                if _store.associated_p_enabled:
-                    win.p_staging[(dst, src)] = w * win.p_main[src]
-        finally:
+        with op_span(f"win_get.{name}.{src}->{dst}", "COMMUNICATE"):
             if mutex:
-                mutex.release()
+                mutex.acquire()
+            try:
+                with win.lock:
+                    if (dst, src) not in win.staging:
+                        continue
+                    win.staging[(dst, src)] = win.main[src] * w
+                    win.versions[dst, src] += 1
+                    if _store.associated_p_enabled:
+                        win.p_staging[(dst, src)] = w * win.p_main[src]
+            finally:
+                if mutex:
+                    mutex.release()
     if not remote:
         return
     # One-sided pull: request each remote row, then wait for the replies.
@@ -1745,8 +1904,12 @@ def win_get_nonblocking(name: str, *, src_weights=None,
     edges = _resolve_edge_weights(src_weights, win.in_nbrs, 1.0,
                                   peer_is_src=True, ranks=win.owned)
     _validate_edges(edges, win.in_nbrs, peer_is_src=True, op="win_get")
-    return _store.submit(lambda: _do_get(name, edges, require_mutex),
-                         win.device)
+    _count_win_op("get", len(edges) * _row_nbytes(win), edges)
+
+    def work():
+        with op_span(f"win_get.{name}", "COMMUNICATE"):
+            _do_get(name, edges, require_mutex)
+    return _store.submit(work, win.device)
 
 
 def win_get(name: str, *, src_weights=None,
@@ -1827,6 +1990,7 @@ def _update_rows(name: str, *, self_weight=None, neighbor_weights=None,
     that copies them out (the window optimizers) allocates no rank-major
     tensor.  Read them, never write them."""
     win = _store.get(name)
+    _count_win_op("update", len(win.owned) * _row_nbytes(win), {})
     owned = win.owned
     if (self_weight is None) != (neighbor_weights is None):
         raise ValueError(
@@ -1847,7 +2011,7 @@ def _update_rows(name: str, *, self_weight=None, neighbor_weights=None,
     win.update_lock.acquire()
     acquired.append(win.update_lock)
     try:
-        with _stream(win.device):
+        with _stream(win.device), op_span(f"win_update.{name}", "UPDATE"):
             return _combine(win, self_w, nbr_w, reset_weights)
     finally:
         for m in acquired:
@@ -1945,6 +2109,9 @@ def _collect_rows(name: str, *,
                   require_mutex: bool = True) -> List[torch.Tensor]:
     """:func:`win_update_then_collect`'s rows (see :func:`_update_rows`)."""
     win = _store.get(name)
+    # Counted with the inner update, as in the JAX package.
+    _count_win_op("update_then_collect", len(win.owned) * _row_nbytes(win),
+                  {})
     all_edges = {(dst, src): 1.0
                  for dst in win.owned for src in win.in_nbrs[dst]}
     return _update_rows(name, self_weight=1.0, neighbor_weights=all_edges,
@@ -1960,12 +2127,20 @@ def win_wait(handle: int) -> bool:
     ran.  Its error, if any, is raised here."""
     with _store.lock:
         fut = _store.handles.pop(handle, None)
+        telemetry.set_gauge("bf_win_inflight_handles", len(_store.handles))
     if fut is None:
         return True
+    t0 = telemetry.start_timer()
     try:
-        _caller_waits(fut.result())
+        with stall.watch(f"win_wait(handle={handle})"):
+            device = fut.result()
+        _caller_waits(device)
     except KeyError:
         return False
+    finally:
+        # The host-side latency of one nonblocking op: its wait on the
+        # pool and its own sends and replies.
+        telemetry.observe_since(t0, "bf_win_wait_seconds")
     return True
 
 
@@ -1996,7 +2171,11 @@ def win_mutex(name: str, *, for_self: bool = False,
     with contextlib.ExitStack() as stack:
         for r in sorted(set(ranks)):
             if _owns(r):
+                t0 = time.perf_counter()
                 win.mutexes[r].acquire()
+                telemetry.inc("bf_win_mutex_acquisitions_total", kind="local")
+                telemetry.inc("bf_win_mutex_wait_seconds_total",
+                              time.perf_counter() - t0, kind="local")
                 stack.callback(win.mutexes[r].release)
             else:
                 stack.enter_context(_remote_mutex(name, r, me))

@@ -22,11 +22,11 @@ it), so it runs on the whole row, or on the whole of each fusion bucket.
 
 Fusion buckets (``fusion_buckets=k``) split the flat buffer into ``k``
 byte-balanced runs of whole leaves, as ``_bucket_groups`` does there; each
-bucket is combined on its own.  The leaves are the parameter tensors, or
+bucket is combined on its own.  Without ``fusion_buckets``,
+``BLUEFOG_TPU_FUSION_BUCKET_MB`` caps each bucket's bytes a rank instead
+(0, the default: one bucket).  The leaves are the parameter tensors, or
 the columns of a single flat buffer given by ``leaf_sizes``
-(``RankReplicas.leaf_sizes``, the JAX ravel's leaves).  The JAX package's
-``BLUEFOG_TPU_FUSION_BUCKET_MB`` size cap reads its config module, which
-is not ported: here there is one bucket unless ``fusion_buckets`` is set.
+(``RankReplicas.leaf_sizes``, the JAX ravel's leaves).
 
 Sharded gossip (``shard_plan``, ``ops/sharded.py``): the replicated leaves
 ride the fused path over the whole topology, and each rank's own slice of
@@ -223,13 +223,28 @@ def make_shard_combiner(plan, group_combine: Combiner, *,
 
 def _bucket_groups(nbytes: Sequence[int],
                    fusion_buckets: Optional[int]) -> List[List[int]]:
-    """Partition leaf indices (``nbytes``: each leaf's bytes, in ravel
-    order) into contiguous fusion buckets: with ``fusion_buckets`` unset
-    one bucket; else at most that many, each closed once the running total
-    crosses its share of the bytes (``bluefog_tpu.optim.functional.
-    _bucket_groups`` in count mode)."""
+    """Partition leaf indices (``nbytes``: each leaf's bytes a rank, in
+    ravel order) into contiguous fusion buckets, as
+    ``bluefog_tpu.optim.functional._bucket_groups``: with
+    ``fusion_buckets`` at most that many, each closed once the running
+    total crosses its share of the bytes (count mode); else runs capped at
+    ``BLUEFOG_TPU_FUSION_BUCKET_MB`` MiB (MB mode: a leaf larger than the
+    cap is a bucket of its own), one bucket when the cap is 0."""
     if fusion_buckets is None:
-        return [list(range(len(nbytes)))]
+        from bluefog_tpu_torch.utils import config
+        cap = config.get().fusion_bucket_mb * (1 << 20)
+        if cap <= 0:
+            return [list(range(len(nbytes)))]
+        groups, cur, cur_bytes = [], [], 0
+        for i, nb in enumerate(nbytes):
+            if cur and cur_bytes + nb > cap:
+                groups.append(cur)
+                cur, cur_bytes = [], 0
+            cur.append(i)
+            cur_bytes += nb
+        if cur:
+            groups.append(cur)
+        return groups
     total = sum(nbytes)
     k = max(1, min(int(fusion_buckets), len(nbytes)))
     if k == 1:

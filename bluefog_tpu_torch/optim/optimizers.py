@@ -22,6 +22,21 @@ phase is ``step % period``.  ``step(self_weight=, src_weights=,
 dst_weights=)`` overrides the topology's weights for one step
 (``basics._weight_override_matrix``).
 
+Observability (``utils/telemetry``, ``utils/profiler``): each combine
+is an ``ENQUEUE`` span (the combiner and its schedules) and a
+``COMMUNICATE`` span (the rounds), and its traffic is counted as the eager
+op's would be (calls, bytes, the schedule's rounds and edges; the
+hierarchical and sharded level bytes), from shapes and schedules only.
+The JAX package's step is one jitted program and counts none of this per
+step (its ``bench.py`` accounts a whole run at once).  ``step()`` times
+itself into ``bf_optimizer_step_seconds{family="collective"}``; with
+``profile_every=N`` (or ``BLUEFOG_TPU_PROFILE=1``) every Nth step waits
+for the device (``torch.cuda.synchronize``, on that step only) and records
+a synced sample and a straggler gather; the consensus-distance gauge
+samples every ``BLUEFOG_TPU_TELEMETRY_CONSENSUS_EVERY`` steps, only when
+that variable is set (it costs a combine), on the device, with ``n``
+floats read back.
+
 Sharded gossip (``shard_specs``, ``ops/sharded.py``): the leaves whose spec
 names an axis gossip each rank's own slice inside its replica group, over
 the merged group schedule, while the replicated leaves ride the whole
@@ -35,16 +50,20 @@ it); otherwise each parameter tensor is a leaf.
 from __future__ import annotations
 
 import math
+import time
 from typing import Optional, Sequence
 
 import torch
 
 from bluefog_tpu_torch import basics
 from bluefog_tpu_torch import topology as topology_util
+from bluefog_tpu_torch.ops import collective as C
 from bluefog_tpu_torch.ops import schedule as S
 from bluefog_tpu_torch.ops import sharded as SH
 from bluefog_tpu_torch.optim import functional as F
 from bluefog_tpu_torch.optim.functional import CommunicationType
+from bluefog_tpu_torch.utils import profiler, telemetry
+from bluefog_tpu_torch.utils.timeline import op_span
 
 __all__ = ["CommunicationType", "DistributedOptimizer",
            "DistributedGradientAllreduceOptimizer",
@@ -95,6 +114,9 @@ class DistributedOptimizer:
     num_shards : shard count along each sharded model dim.
     leaf_shapes : the per-rank shape of each leaf of a single flat
         parameter (``RankReplicas.leaf_shapes``); sets ``leaf_sizes``.
+    profile_every : every this many steps, a synced step sample and a
+        straggler gather (None: ``BLUEFOG_TPU_PROFILE`` and
+        ``BLUEFOG_TPU_PROFILE_EVERY`` decide).
     """
 
     def __init__(self, base: torch.optim.Optimizer,
@@ -106,7 +128,8 @@ class DistributedOptimizer:
                  leaf_sizes: Optional[Sequence[int]] = None,
                  compression: str = "none", shard_specs=None,
                  shard_groups=None, num_shards: Optional[int] = None,
-                 leaf_shapes: Optional[Sequence[Sequence[int]]] = None):
+                 leaf_shapes: Optional[Sequence[Sequence[int]]] = None,
+                 profile_every: Optional[int] = None):
         if isinstance(communication_type, str):
             communication_type = CommunicationType(communication_type)
         if compression not in ("none", "bf16") and not (
@@ -153,6 +176,9 @@ class DistributedOptimizer:
         self._shard_plan_cache = {}   # (shapes, dtypes) -> ShardPlan
         self.step_count = 0
         self._acc = None   # gradient allreduce's J-step accumulator
+        self.profile_every = profile_every
+        self._steps_seen = 0          # step() calls: the sampling periods
+        self._shard_meta_cache = {}   # level edge counts per plan/topology
 
     @property
     def params(self):
@@ -280,17 +306,152 @@ class DistributedOptimizer:
         """The second half of an ATC step: the neighbor combine at the
         current step counter (``weights``: an ``(n, n)`` override), then
         the counter's advance."""
-        F._tree_combine(self.params, self._combiner(), self.step_count,
-                        self.num_steps_per_communication, self.fusion,
-                        weights, self.fusion_buckets, self.leaf_sizes,
-                        **self._shard_args())
+        self._combine_step(lambda combiner, shard: F._tree_combine(
+            self.params, combiner, self.step_count,
+            self.num_steps_per_communication, self.fusion, weights,
+            self.fusion_buckets, self.leaf_sizes, **shard))
         self.step_count += 1
+
+    def _comm_op(self) -> Optional[str]:
+        """The eager op a combine of this optimizer is counted as (None:
+        no communication)."""
+        kind = self.communication_type
+        if kind == CommunicationType.empty:
+            return None
+        if kind in (CommunicationType.neighbor_allreduce,
+                    CommunicationType.hierarchical_neighbor_allreduce):
+            return ("dynamic_" if self.use_dynamic_topology else "") + \
+                kind.name
+        return kind.name
+
+    def _combine_step(self, run) -> None:
+        """One combine at the current step: ``run(combiner, shard_args)``
+        in an ``ENQUEUE`` span (building the combiner) and a
+        ``COMMUNICATE`` span (the rounds), and its traffic counted, on the
+        steps that communicate."""
+        op = self._comm_op()
+        if op is None or self.step_count % self.num_steps_per_communication:
+            run(self._combiner(), self._shard_args())
+            return
+        with op_span(op, "ENQUEUE"):
+            combiner = self._combiner()
+            shard = self._shard_args()
+        with op_span(op, "COMMUNICATE"):
+            run(combiner, shard)
+        if telemetry.enabled():
+            self._record_combine(op, shard.get("shard_plan"))
+
+    def _record_combine(self, op: str, plan) -> None:
+        """One combine's traffic, at its step (before the counter
+        advances): the eager op's counters over this optimizer's schedule,
+        and the level bytes of the hierarchical gossip and of sharded
+        gossip."""
+        ps = self.params
+        nbytes = sum(p.numel() * p.element_size() for p in ps)
+        sched = None
+        if self.communication_type in (
+                CommunicationType.neighbor_allreduce,
+                CommunicationType.hierarchical_neighbor_allreduce):
+            static, dyn = self._schedules()
+            sched = static if static is not None else dyn
+        telemetry.record_comm_traffic(
+            op, nbytes, size=basics.size(),
+            sched_stats=None if sched is None
+            else C.schedule_wire_stats(sched))
+        if self.communication_type == CommunicationType.hierarchical_gossip:
+            hier = basics._hier_plan("CommunicationType.hierarchical_gossip")
+            ht = hier["ht"]
+            basics._record_hier_levels(ht, self.step_count, nbytes,
+                                       ht.ici_edges_per_step(),
+                                       hier["outer_compression"])
+        if plan is not None:
+            rep_ici, rep_dcn, grp_edges = self._shard_telemetry_meta(plan)
+            SH.record_level_bytes(plan, rep_ici_edges=rep_ici,
+                                  rep_dcn_edges=rep_dcn,
+                                  grp_edges=grp_edges,
+                                  compression=self.compression)
+
+    def _shard_telemetry_meta(self, plan):
+        """(replicated in-group, replicated cross-group, in-group) edge
+        counts of sharded gossip's level bytes, memoized a topology and
+        plan (the JAX package's L242)."""
+        ctx = basics._require_init()
+        key = (ctx.topology_version, plan.signature,
+               self.use_dynamic_topology)
+        meta = self._shard_meta_cache.get(key)
+        if meta is None:
+            sched, dyn = self._schedules()
+            rep_ici, rep_dcn = SH.edge_level_counts(
+                plan.coords, sched if sched is not None else dyn)
+            grp_edges = 0.0
+            if plan.any_sharded:
+                gsched, _per_group = self._group_schedule(plan)
+                grp_edges = float(sum(len(r.pairs) for r in gsched.rounds))
+            meta = (rep_ici, rep_dcn, grp_edges)
+            self._shard_meta_cache[key] = meta
+        return meta
 
     def step(self, *, self_weight: Optional[float] = None,
              src_weights=None, dst_weights=None) -> None:
         """One optimizer step in this optimizer's order, then the step
         counter's advance.  The weight arguments override the topology's
         weights for this step (``neighbor_allreduce`` only)."""
+        t0 = telemetry.start_timer()
+        self._step(self_weight, src_weights, dst_weights)
+        self._steps_seen += 1
+        # The host's time: the device work may still be queued.
+        telemetry.observe_since(t0, "bf_optimizer_step_seconds",
+                                family="collective")
+        pe = profiler.profile_period(self.profile_every)
+        if pe and self._steps_seen % pe == 0 and t0 is not None:
+            # The synced sample: this step alone waits for the device, so
+            # its total is the step's true wall time.
+            t_sync = time.perf_counter()
+            dev = self.params[0].device
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            now = time.perf_counter()
+            outer = profiler.active()
+            if outer is not None:
+                # An enclosing step_profile() records this step and
+                # gathers the stragglers, once.
+                outer.attribute("host-sync", now - t_sync)
+                outer.request_straggler()
+            else:
+                profiler.record_synced_step(
+                    now - t0, phases={"optimizer-update": t_sync - t0,
+                                      "host-sync": now - t_sync})
+        # It costs a combine: only with the period set explicitly.
+        k = telemetry.consensus_every(costs_communication=True)
+        if k and self._steps_seen % k == 0 and self.order != \
+                "gradient_allreduce":
+            self.sample_consensus_distance()
+
+    @torch.no_grad()
+    def sample_consensus_distance(self) -> None:
+        """Record the consensus-distance gauge: a rank's L2 distance from
+        the weighted mean of its neighborhood over the active topology's
+        static schedule, over every parameter (the JAX package's
+        ``_sample_consensus_distance``, L479).  Reduced on the device a
+        column chunk at a time; ``n`` floats cross to the host."""
+        ps = self.params
+        m = ps[0].shape[0]
+        sched = basics._dispatch_static()
+        comm = basics.process_ranks()
+        sq = torch.zeros(m, dtype=torch.float32, device=ps[0].device)
+        for p in ps:
+            flat = p.detach().reshape(m, -1)
+            for cols in flat.split(F.COMBINE_CHUNK, dim=1):
+                x = cols.float()
+                mean = C.neighbor_allreduce(x, sched, comm=comm)
+                sq += (x - mean).square().sum(1)
+        # Counted as the one eager combine it stands for.
+        basics._record_dispatch("neighbor_allreduce", ps[0], sched)
+        dist = sq.sqrt().cpu()
+        telemetry.record_consensus_distance(float(dist.mean()),
+                                            float(dist.max()))
+
+    def _step(self, self_weight, src_weights, dst_weights) -> None:
         w = basics._weight_override_matrix(self_weight, src_weights,
                                            dst_weights)
         if self.order == "gradient_allreduce":
@@ -300,6 +461,12 @@ class DistributedOptimizer:
                     "consensus orders (awc/atc); gradient allreduce "
                     "averages over every rank")
             self._check_params()
+            if telemetry.enabled() and (self.step_count + 1) \
+                    % self.num_steps_per_communication == 0:
+                telemetry.record_comm_traffic(
+                    "allreduce", sum(p.numel() * p.element_size()
+                                     for p in self.params),
+                    size=basics.size())
             self.step_count, self._acc = F.gradient_allreduce_step(
                 self.base, self.params, self.step_count, acc=self._acc,
                 steps_per_comm=self.num_steps_per_communication,
@@ -313,11 +480,13 @@ class DistributedOptimizer:
             self.combine(w)
             return
         self._check_params()
-        self.step_count = F.awc_step(
-            self.base, self._combiner(), self.params, self.step_count,
-            steps_per_comm=self.num_steps_per_communication, fuse=self.fusion,
-            weights=w, fusion_buckets=self.fusion_buckets,
-            leaf_sizes=self.leaf_sizes, **self._shard_args())
+        # F.awc_step's order: the combine, then the base update.
+        self._combine_step(lambda combiner, shard: F._tree_combine(
+            self.params, combiner, self.step_count,
+            self.num_steps_per_communication, self.fusion, w,
+            self.fusion_buckets, self.leaf_sizes, **shard))
+        self.base.step()
+        self.step_count += 1
 
 
 def DistributedGradientAllreduceOptimizer(

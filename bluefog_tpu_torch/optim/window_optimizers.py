@@ -54,6 +54,16 @@ slice of the sharded leaves rides a second fused window,
 slices are left as they are.  It needs the rank layout and ``fuse=True``,
 as in the JAX package.
 
+Observability (``utils/telemetry``, ``utils/profiler``): ``step()`` times
+itself into ``bf_optimizer_step_seconds{family="window"}`` and, every
+``BLUEFOG_TPU_PROFILE_EVERY`` steps under ``BLUEFOG_TPU_PROFILE=1``, waits
+for the device on that step and records a synced sample and a straggler
+gather.  Every ``BLUEFOG_TPU_TELEMETRY_CONSENSUS_EVERY`` steps (default
+10) the combine records the consensus-distance gauge: each owned rank's
+L2 distance between its adapted parameters and the ``win_update`` result,
+reduced on the device, ``n`` floats read back (the JAX package reads both
+to the host).  The async mode sets ``bf_async_step_lag``.
+
 Left out, each raising an error that names its ROADMAP item: the fused
 step (``fused=True``, or ``fused=None`` under ``BLUEFOG_TPU_FUSED_STEP=1``,
 item 19b; the variable defaults to 0 in the JAX package, whose eager step,
@@ -63,7 +73,7 @@ hooks (item 20).
 
 from __future__ import annotations
 
-import logging
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -74,7 +84,9 @@ from bluefog_tpu_torch import basics
 from bluefog_tpu_torch import topology as topology_util
 from bluefog_tpu_torch.ops import sharded as SH
 from bluefog_tpu_torch.ops import window as W
-from bluefog_tpu_torch.utils import config
+from bluefog_tpu_torch.optim.functional import COMBINE_CHUNK
+from bluefog_tpu_torch.utils import config, profiler, telemetry
+from bluefog_tpu_torch.utils.logging import get_logger
 
 __all__ = ["DistributedWinPutOptimizer", "DistributedPullGetOptimizer",
            "DistributedPushSumOptimizer"]
@@ -377,7 +389,7 @@ class _WindowOptimizerBase:
         try:
             W.win_flush(timeout=5.0)
         except Exception:  # noqa: BLE001 — never abort the teardown
-            logging.getLogger("bluefog_tpu_torch").warning(
+            get_logger().warning(
                 "window optimizer free(): the transport flush failed; "
                 "continuing the teardown", exc_info=True)
         for name in self._names or []:
@@ -424,14 +436,73 @@ class _WindowOptimizerBase:
     def _communicates(self) -> bool:
         return (self.step_count + 1) % self.num_steps_per_communication == 0
 
+    def step(self, **kw) -> None:
+        """One step: :meth:`adapt`, then :meth:`combine` (``kw`` goes to
+        the combine), timed."""
+        t0 = telemetry.start_timer()
+        self.adapt()
+        self.combine(**kw)
+        self._record_step_time(t0)
+
+    def _record_step_time(self, t0) -> None:
+        """The step's host time into ``bf_optimizer_step_seconds{family=
+        "window"}``; on a profile period's step (``BLUEFOG_TPU_PROFILE``),
+        the device is waited for and the synced sample recorded with a
+        straggler gather (collective: every process steps alike)."""
+        dt = telemetry.observe_since(t0, "bf_optimizer_step_seconds",
+                                     family="window")
+        if dt is None:
+            return
+        pe = profiler.profile_period()
+        if pe and self.step_count % pe == 0:
+            outer = profiler.active()
+            if outer is not None:
+                outer.request_straggler()
+                return
+            dev = self.params[0].device
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            profiler.record_synced_step(time.perf_counter() - t0)
+
+    @torch.no_grad()
+    def _maybe_sample_consensus(self, payloads, combined) -> None:
+        """Every ``BLUEFOG_TPU_TELEMETRY_CONSENSUS_EVERY`` steps (default
+        10), the consensus-distance gauge: each owned rank's L2 distance
+        between its adapted row (``payloads``, before the combine) and the
+        combined row (``combined``, the weighted neighborhood mean), read
+        off the combine this step already did.  Reduced on the device a
+        chunk of columns at a time; ``n`` floats cross to the host."""
+        k = telemetry.consensus_every()
+        if not k or (self.step_count + 1) % k:
+            return
+        sq = None
+        for pre, rows in zip(payloads, combined):
+            pre = pre.detach().reshape(pre.shape[0], -1)
+            per_rank = []
+            for i, row in zip(self._rows_of_owned, rows):
+                acc = torch.zeros((), dtype=torch.float32, device=row.device)
+                for a, b in zip(pre[i].split(COMBINE_CHUNK),
+                                row.reshape(-1).split(COMBINE_CHUNK)):
+                    acc += (a.float() - b.float()).square().sum()
+                per_rank.append(acc)
+            s = torch.stack(per_rank)
+            sq = s if sq is None else sq + s
+        dist = sq.sqrt().cpu()
+        telemetry.record_consensus_distance(float(dist.mean()),
+                                            float(dist.max()))
+
     _async_on = False
 
     def _async_step_begin(self) -> None:
         """Async mode: publish this step on the step clock (staleness
-        ages count against it; the trace tags carry it).  (The JAX package
-        also sets its step-lag gauge here: ROADMAP item 21.)"""
+        ages count against it; the trace tags carry it) and the
+        ``bf_async_step_lag`` gauge, the freshest peer step seen less
+        this one."""
         if self._async_on:
             W.set_async_step(self.step_count)
+            telemetry.set_gauge("bf_async_step_lag",
+                                float(W.async_step_lag()),
+                                rank=str(basics.rank()))
 
     def _async_collect_due(self) -> bool:
         """True on the async mode's periodic exact collect across
@@ -478,10 +549,6 @@ class DistributedWinPutOptimizer(_WindowOptimizerBase):
                          shard_specs=shard_specs, shard_groups=shard_groups,
                          num_shards=num_shards, leaf_shapes=leaf_shapes)
 
-    def step(self, *, dst_weights=None, require_mutex: bool = True) -> None:
-        self.adapt()
-        self.combine(dst_weights=dst_weights, require_mutex=require_mutex)
-
     def combine(self, *, dst_weights=None,
                 require_mutex: bool = True) -> None:
         """The second half of :meth:`step`: on communication steps the
@@ -508,9 +575,11 @@ class DistributedWinPutOptimizer(_WindowOptimizerBase):
             else:
                 for h in handles:
                     W.win_wait(h)
-            self._rebuild([W._update_rows(name, require_mutex=require_mutex,
-                                          **self._update_kwargs(name))
-                           for name in self._names])
+            combined = [W._update_rows(name, require_mutex=require_mutex,
+                                       **self._update_kwargs(name))
+                        for name in self._names]
+            self._maybe_sample_consensus(payloads, combined)
+            self._rebuild(combined)
         self.step_count += 1
 
     def _drain_pending(self) -> None:
@@ -539,28 +608,26 @@ class DistributedPullGetOptimizer(_WindowOptimizerBase):
                          num_steps_per_communication=num_steps_per_communication,
                          fuse=fuse, layout=layout)
 
-    def step(self, *, src_weights=None, require_mutex: bool = True) -> None:
-        self.adapt()
-        self.combine(src_weights=src_weights, require_mutex=require_mutex)
-
     def combine(self, *, src_weights=None,
                 require_mutex: bool = True) -> None:
         # Gets stay request and reply (a get asks now), but the step clock
         # is published, as in the JAX package.
         self._async_step_begin()
         if self._communicates():
+            payloads = self._payloads()
             # The put with no edge only refreshes main (self_weight 1).
             for h in [W.win_put_nonblocking(p, name, self_weight=1.0,
                                             dst_weights={})
-                      for name, p in zip(self._names, self._payloads())]:
+                      for name, p in zip(self._names, payloads)]:
                 W.win_wait(h)
             for h in [W.win_get_nonblocking(name, src_weights=src_weights,
                                             require_mutex=require_mutex)
                       for name in self._names]:
                 W.win_wait(h)
-            self._rebuild([W._update_rows(name,
-                                          require_mutex=require_mutex)
-                           for name in self._names])
+            combined = [W._update_rows(name, require_mutex=require_mutex)
+                        for name in self._names]
+            self._maybe_sample_consensus(payloads, combined)
+            self._rebuild(combined)
         self.step_count += 1
 
 
@@ -612,10 +679,6 @@ class DistributedPushSumOptimizer(_WindowOptimizerBase):
         return {(r, o): float(share[r]) for r in range(basics.size())
                 for o in topology_util.out_neighbor_ranks(topo, r)}
 
-    def step(self, *, dst_weights=None, require_mutex: bool = True) -> None:
-        self.adapt()
-        self.combine(dst_weights=dst_weights, require_mutex=require_mutex)
-
     def combine(self, *, dst_weights=None,
                 require_mutex: bool = True) -> None:
         """The accumulate and the collect, every step (the JAX package's
@@ -632,10 +695,11 @@ class DistributedPushSumOptimizer(_WindowOptimizerBase):
                      and (self.step_count + 1)
                      % self.auto_collect_rounds == 0)
         backstop_now = self._async_collect_due()
+        payloads = self._payloads()
         for h in [W.win_accumulate_nonblocking(
                 p, name, self_weight=self_share, dst_weights=dst_weights,
                 require_mutex=require_mutex)
-                for name, p in zip(self._names, self._payloads())]:
+                for name, p in zip(self._names, payloads)]:
             W.win_wait(h)
         if fence_now or backstop_now:
             W.win_fence()
@@ -646,8 +710,10 @@ class DistributedPushSumOptimizer(_WindowOptimizerBase):
                 self.folded_edges.append(sum(
                     W.win_fold_stale_residuals(name)
                     for name in self._names))
-        self._rebuild([W._collect_rows(name, require_mutex=require_mutex)
-                       for name in self._names])
+        combined = [W._collect_rows(name, require_mutex=require_mutex)
+                    for name in self._names]
+        self._maybe_sample_consensus(payloads, combined)
+        self._rebuild(combined)
         self.step_count += 1
 
     def collect(self, *, require_mutex: bool = True) -> None:
@@ -682,7 +748,7 @@ class DistributedPushSumOptimizer(_WindowOptimizerBase):
         p = np.maximum(raw, p_min)
         clipped = np.nonzero(raw < p_min)[0]
         if clipped.size:
-            logging.getLogger("bluefog_tpu_torch").warning(
+            get_logger().warning(
                 "push-sum debias: associated-P below p_min=%g for rank(s) "
                 "%s: most of their mass is in flight; the de-biased "
                 "estimate is clipped (finite but biased); bound the "

@@ -19,10 +19,12 @@ largest kernels, the operators whose kernels take the most device time
 (inclusive: ``aten::repeat_interleave`` is the GQA fan-out of K and V,
 ``ExpandBackward0`` its reduction in the backward; ``moe::plan`` is the
 MoE routing plan, ``moe::dispatch`` and ``moe::combine`` its one-hot
-einsums, each with its ``_backward``), and the device's idle share of the
-step's wall time.  Under ``--dist-optimizer gradient_allreduce`` the step
-after the forward and backward is timed whole (``step_ms``): the gradients'
-average and the update are one call.  Under ``--dist-optimizer win_put``
+einsums, each with its ``_backward``), the framework's op spans
+(``op_spans``: ``dynamic_neighbor_allreduce:COMMUNICATE`` ..., the ranges
+``utils.timeline.op_span`` enters while a profiler is live), and the
+device's idle share of the step's wall time.  Under ``--dist-optimizer
+gradient_allreduce`` the step after the forward and backward is timed
+whole (``step_ms``): the gradients' average and the update are one call.  Under ``--dist-optimizer win_put``
 the combine is ``window_ms``: the puts, the window update and the copy of
 its result into the parameters.  Where the combine is a call of its own
 (ATC, the window optimizers), ``combine_trace`` profiles one more combine
@@ -40,6 +42,7 @@ step).
 from __future__ import annotations
 
 import json
+import re
 import time
 
 import torch
@@ -66,6 +69,11 @@ NAMED_OPS = ("aten::repeat_interleave", _BWD + "ExpandBackward0",
              "aten::logsumexp", _BWD + "GatherBackward0", "aten::cos",
              "aten::sin", "aten::cat", "aten::silu") + MOE_OPS + ULYSSES_OPS \
     + TP_OPS
+
+
+# The framework's op spans (``utils.timeline.op_span``), ranges named
+# ``<op>:<phase>`` while a profiler is live.
+_OP_SPAN = re.compile(r":(ENQUEUE|COMMUNICATE|UPDATE)$")
 
 
 def kernel_family(name: str) -> str:
@@ -182,6 +190,9 @@ def trace(step) -> dict:
            and e.device_time_total > 0]
     top_ops = sorted(ops, key=lambda e: -e.device_time_total)[:25]
     named = {e.key.replace(_BWD, ""): e for e in ops if e.key in NAMED_OPS}
+    spans = {e.key: e for e in avgs
+             if e.device_type == torch.autograd.DeviceType.CPU
+             and _OP_SPAN.search(e.key)}
     return {
         "device": torch.cuda.get_device_name(0),
         "profiled_step_wall_ms": wall_ms,
@@ -196,6 +207,10 @@ def trace(step) -> dict:
         "named_ops": {k: {"count": e.count,
                           "device_ms": e.device_time_total / 1e3}
                       for k, e in sorted(named.items())},
+        "op_spans": {k: {"count": e.count,
+                         "cpu_ms": e.cpu_time_total / 1e3,
+                         "device_ms": e.device_time_total / 1e3}
+                     for k, e in sorted(spans.items())},
     }
 
 

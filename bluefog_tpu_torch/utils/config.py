@@ -4,15 +4,31 @@ A subset of ``bluefog_tpu/utils/config.py``: the same variable names,
 defaults and validation, for the knobs of the ported paths.  Values are
 read on first access and cached; call :func:`reload` after changing
 ``os.environ``, or scope a change with :func:`override` (which leaves
-``os.environ`` alone).  The rest of the JAX package's inventory
-(telemetry, tuner, ...) comes with ROADMAP item 21, which folds this module
-into the ported config; until then the tuner's overrides are the identity
-they are with ``BLUEFOG_TPU_TUNE=0``, the JAX package's default, and
-``BLUEFOG_TPU_WIN_STRIPES=auto`` is the JAX package's static oracle: the
-placement model's ``dcn_link_cost``, 1 without a model.
+``os.environ`` alone).  The observability knobs (timeline, log level, stall
+watchdog, telemetry, flight recorder, step profiler, fusion-bucket cap) are
+the JAX package's, with its names and defaults.  The tuner's, SLO's, churn's
+and gang's knobs come with ROADMAP items 21b and 20; until then the tuner's
+overrides are the identity they are with ``BLUEFOG_TPU_TUNE=0``, the JAX
+package's default, and ``BLUEFOG_TPU_WIN_STRIPES=auto`` is the JAX
+package's static oracle: the placement model's ``dcn_link_cost``, 1 without
+a model.
 
 | Variable | Default | Meaning |
 |---|---|---|
+| BLUEFOG_TIMELINE              | unset | timeline file prefix (one file a process: <prefix><process>.json) |
+| BLUEFOG_TPU_LOG_LEVEL         | warn  | trace/debug/info/warn/error/fatal |
+| BLUEFOG_TPU_LOG_HIDE_TIME     | 0     | drop timestamps from log lines |
+| BLUEFOG_TPU_PYTHON_TIMELINE   | 0     | 1: the Python timeline writer instead of the native one |
+| BLUEFOG_TPU_STALL_WARNING_SEC | 60    | stall-watchdog threshold in seconds (0 = off) |
+| BLUEFOG_TPU_TELEMETRY         | 1     | 0: disable the metric registry entirely |
+| BLUEFOG_TPU_TELEMETRY_PORT    | unset | serve /metrics + /healthz on this port (0 = ephemeral) |
+| BLUEFOG_TPU_TELEMETRY_CONSENSUS_EVERY | 10 | consensus-distance sample period in steps (0 = off) |
+| BLUEFOG_TPU_FLIGHT_RECORDER   | 0     | 1: record transport events into the native ring, dumped to <path>.<rank>.bin |
+| BLUEFOG_TPU_FLIGHT_RECORDER_EVENTS | 65536 | flight-recorder ring capacity (events; oldest overwritten) |
+| BLUEFOG_TPU_FLIGHT_RECORDER_PATH | flightrec | dump path prefix |
+| BLUEFOG_TPU_PROFILE           | 0     | 1: the step profiler's periodic synced samples and straggler gathers |
+| BLUEFOG_TPU_PROFILE_EVERY     | 50    | their period in steps |
+| BLUEFOG_TPU_FUSION_BUCKET_MB  | 0     | fusion-buffer bucket cap in MiB (0 = one bucket) |
 | BLUEFOG_TPU_WIN_PORT          | 0     | window-service port (0=ephemeral) |
 | BLUEFOG_TPU_WIN_MAX_PENDING   | 4096  | inbound window-message queue bound |
 | BLUEFOG_TPU_WIN_COMPRESSION   | none  | cross-process window payloads: none / bf16 / sparse:<frac> (top-|magnitude| with sender error feedback, accumulates only) |
@@ -200,6 +216,25 @@ def _int_or_auto(name: str, floor: int = 0) -> int:
 
 @dataclass(frozen=True)
 class Config:
+    timeline_prefix: Optional[str]
+    log_level: str
+    log_hide_time: bool
+    python_timeline: bool
+    stall_warning_sec: float
+    telemetry: bool
+    telemetry_port: Optional[int]
+    telemetry_consensus_every: int
+    # Whether the consensus period was set explicitly: samplers that cost
+    # communication (the collective optimizer family) run only then.
+    telemetry_consensus_set: bool
+    flight_recorder: bool
+    flight_recorder_events: int
+    flight_recorder_path: str
+    # bf.step_profile() works regardless; these arm the periodic synced
+    # samples (an explicit profile_every= on an optimizer wins).
+    profile: bool
+    profile_every: int
+    fusion_bucket_mb: float
     win_port: int
     win_max_pending: int
     win_compression: str
@@ -239,6 +274,29 @@ class Config:
     def from_env(cls) -> "Config":
         env = os.environ
         return cls(
+            timeline_prefix=env.get("BLUEFOG_TIMELINE"),
+            log_level=env.get("BLUEFOG_TPU_LOG_LEVEL", "warn").lower(),
+            log_hide_time=_flag("BLUEFOG_TPU_LOG_HIDE_TIME"),
+            python_timeline=_flag("BLUEFOG_TPU_PYTHON_TIMELINE"),
+            stall_warning_sec=float(env.get("BLUEFOG_TPU_STALL_WARNING_SEC",
+                                            "60")),
+            telemetry=_flag("BLUEFOG_TPU_TELEMETRY", default=True),
+            telemetry_port=(
+                None if env.get("BLUEFOG_TPU_TELEMETRY_PORT") is None
+                else int(env["BLUEFOG_TPU_TELEMETRY_PORT"])),
+            telemetry_consensus_every=int(env.get(
+                "BLUEFOG_TPU_TELEMETRY_CONSENSUS_EVERY", "10")),
+            telemetry_consensus_set=(
+                "BLUEFOG_TPU_TELEMETRY_CONSENSUS_EVERY" in env),
+            flight_recorder=_flag("BLUEFOG_TPU_FLIGHT_RECORDER"),
+            flight_recorder_events=int(env.get(
+                "BLUEFOG_TPU_FLIGHT_RECORDER_EVENTS", "65536")),
+            flight_recorder_path=env.get("BLUEFOG_TPU_FLIGHT_RECORDER_PATH",
+                                         "flightrec"),
+            profile=_flag("BLUEFOG_TPU_PROFILE"),
+            profile_every=int(env.get("BLUEFOG_TPU_PROFILE_EVERY", "50")),
+            fusion_bucket_mb=float(env.get("BLUEFOG_TPU_FUSION_BUCKET_MB",
+                                           "0")),
             win_port=int(env.get("BLUEFOG_TPU_WIN_PORT", "0")),
             win_max_pending=int(env.get("BLUEFOG_TPU_WIN_MAX_PENDING",
                                         "4096")),

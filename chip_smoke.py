@@ -16,7 +16,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    QKV tensor), at ragged S=1000, non-causal, with the Llama-style LM's
    GQA operands (q contiguous, k and v contiguous fan-outs of 4 kv heads)
    and at its generate prefill (S=512, K1 alone), with kernel, twin and
-   SDPA times and the least time the card could take (989 TFLOP/s bf16,
+   SDPA times (SDPA's forward and backward on the kernels' operands as
+   strided ``(B, H, S, D)`` views, which ``library_ms`` reports, and as
+   contiguous copies; each the median of 3 readings, with the backend that
+   ran) and the least time the card could take (989 TFLOP/s bf16,
    3.35 TB/s); then checked only: S=100 (shorter than one 128-row tile),
    head dim 64 (causal, and ragged non-causal), MHA with RoPE's
    operands (q and k contiguous, v a slice), and the sequence-parallel
@@ -58,6 +61,25 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    4 virtual ranks on the card, ATC over the dynamic one-peer topology,
    1 warmup + 3 timed steps.  Launch counts of K1-K3 must equal
    layers x ranks x steps.
+6b. ``native_build``, ``observe_train`` — the native library (the window
+   transport's service and the timeline writer) built with g++
+   (``bluefog_tpu_torch/native``); then ``train``'s LM, 1 warmup + 2 timed
+   steps, with all of the observability armed (``BLUEFOG_TIMELINE``, the
+   step profile's synced sample every step, the consensus gauge every 2
+   steps, ``--metrics-file``, the ``/metrics`` + ``/healthz`` endpoint on an
+   ephemeral port): K1-K3 launches layers x ranks x steps, the losses bit
+   for bit ``train``'s, the timeline strict JSON with one
+   ENQUEUE/COMMUNICATE span pair a combine and its clock anchor, the
+   ``record_function`` ranges of the spans in a ``profile_step.trace`` of
+   one step, ``bf_comm_calls_total`` and ``bf_comm_rounds_total`` the
+   schedule's rounds x steps, the step-phase histograms one sample a timed
+   step, the consensus gauge finite and smaller after a combine than after
+   the local update before it, one metrics line a timed step, ``/metrics``
+   parsing and ``/healthz`` ``ok``.  Then the synchronizing calls of a step
+   with telemetry on and off (``torch.cuda.set_sync_debug_mode``, equal),
+   and an eager ``neighbor_allreduce`` on (4, 2^24) float32 with telemetry
+   on and off, in turns, three readings each (``cuda_ms`` and host
+   microseconds a call), beside its byte bound.
 7. ``resnet50`` — the benchmark with ``--model resnet50`` at 224x224, batch
    64 per rank, 4 ranks, ATC over the dynamic topology, momentum 0.9,
    2 warmup + 3 timed steps: img/s, step ms, peak memory, the spread.
@@ -216,9 +238,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    thread, on a (4, 2^24) float32 tensor under ExponentialGraph(4): the
    card against the CPU bit for bit; ``win_update``'s time beside its
    bound.
-35. ``native_build``, ``win_dist_ops`` — the window transport's native
-   service built with g++ (``bluefog_tpu_torch/native``); then
-   ``win_ops``' sequence across 2 processes of 2 ranks, both on card 0
+35. ``win_dist_ops`` — ``win_ops``' sequence across 2 processes of 2
+   ranks, both on card 0
    (``BFTPU_*`` rendezvous, gloo for the control, every remote row over
    the window transport's loopback socket; this script relaunched with
    ``--worker``), in the owned layout with a fence after each op, through
@@ -227,21 +248,25 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    under bf16 window compression within ``WIN_DIST_BF16_TOL``; the bytes
    that crossed the socket, the wire, card-to-host and host-to-card ms and
    GB/s, beside what one pinned copy of 1 GiB each way and one loopback
-   socket reach on this machine (the path's bounds).
+   socket reach on this machine (the path's bounds).  Then the flight
+   recorder armed in both processes with every data message traced: two
+   accumulates sent back to back to a remote rank (the receiver's drain
+   folds them), a fence, the ring dumped; ``utils.flightrec.load`` reads
+   each process's dump back with events of all seven ``BF_REC_*`` types.
 36. ``resnet50_win_put`` — the ResNet-50 phase under ``--dist-optimizer
    win_put`` (batch 64, 4 ranks, 1 warmup + 2 timed steps), with the
    window combine's time beside its bound.
 37. ``win_dist_train`` — across the same 2 x 2: the benchmark's win_put
    LM at full width cut to ``WIN_DIST_LAYERS`` = 2 blocks (at 10, a step
-   took 25 s, at 4 11 s: the smoke's time; owned layout), 1 warmup + 2
-   timed steps:
-   finite losses, K1-K3 launches layers x 2 ranks x 3 steps a process,
+   took 25 s, at 4 11 s: the smoke's time; owned layout), 1 warmup + 1
+   timed step (cut from 2):
+   finite losses, K1-K3 launches layers x 2 ranks x 2 steps a process,
    the combine shrinks the world's spread; step ms, tokens/s, the window
    a step split into staging out, wire, the remote mutex's waits and
    commit, the bytes crossing a step, peak memory a process, and the
    device idle share of one more step profiled in process 0; ResNet-50
    under win_put (batch 64, 102 MB rows); pull-get and push-sum at 2
-   blocks, 2 steps each (pull-get shrinks the rms spread each step,
+   blocks, a step each (cut from 2; pull-get shrinks the rms spread,
    push-sum's P sums to 4 after ``collect``).
 38. ``tp_moe_reference`` — the switch-MoE LM at the 1.3B LM's widths
    (``TP_MOE_LAYERS`` = 2 blocks of 8 GELU experts, vocab 32000, one
@@ -269,12 +294,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    ``--worker ... cpu``); after a fence and ``win_fold_stale_residuals``
    the staging is exactly what the senders shipped.
 41. ``win_async_train`` — ``BLUEFOG_TPU_ASYNC=1``, ``TRACE_SAMPLE=1``,
-   ``STALENESS_STEPS=1``, ``COLLECT_EVERY=3`` across the same 2 x 2, process
+   ``STALENESS_STEPS=1``, ``COLLECT_EVERY=2`` across the same 2 x 2, process
    1 sleeping ``WIN_ASYNC_SLEEP`` s before each step (a straggler): the
    benchmark's win_put LM and push-sum at 2 blocks each (win_put cut from
    4 for the smoke's time), each
    ``WIN_ASYNC_LOCKSTEP_STEPS`` lockstep step then ``WIN_ASYNC_STEPS``
-   async ones (2 and 3) in the same run: step ms of each,
+   async ones (1 and 2, cut from 2 and 3 for the smoke's time) in the same
+   run: step ms of each,
    ``async_info()``'s step lag, the edges folded at each backstop, the
    remote mutex's grant waits, K1-K3 launches, and push-sum's P summing
    to 4.0 after each backstop.
@@ -313,7 +339,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    ``moe_train``, ``ring_train``, ``ulysses_train``, ``dp_sp_train``,
    ``tp_train``, ``pp_train``, ``pp_variants``, ``hier_train``,
    ``winput_train``, ``win_variants``, ``win_dist_train``,
-   ``tp_moe_train``, ``win_async_train`` and ``sharded_moe_train`` phases,
+   ``tp_moe_train``, ``win_async_train``, ``sharded_moe_train`` and
+   ``observe_train`` phases,
    each path's beside), then the ``nvidia-smi`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -379,7 +406,9 @@ WIN_DIST_PROCS = 2           # win_dist_*: processes, all on card 0 (NCCL
 WIN_DIST_PER = 2             # refuses two ranks on one card): the world of
                              # 4 ranks, 2 a process, gloo for the control
 WIN_DIST_VARIANT_LAYERS = 2  # win_dist_train's pull-get and push-sum,
-WIN_DIST_VARIANT_STEPS = 2   # 2 steps each
+WIN_DIST_VARIANT_STEPS = 1   # a step each (cut from 2 for the smoke's time)
+WIN_DIST_LM_ITERS = 1        # win_dist_train's timed steps of the LM and of
+                             # ResNet-50 after 1 warmup (cut from 2)
 WIN_DIST_BF16_TOL = 1e-2     # bf16 window compression vs exact: rtol, atol
 WIN_DIST_TIMEOUT = 600       # seconds a worker group may take
 TP_MOE_LAYERS = 2            # tp_moe_*: the MoE LM's depth, cut for time
@@ -393,13 +422,13 @@ WIN_ASYNC_PHASES = ((10, 7), (11, 11), (12, 14), (15, 14))
 WIN_ASYNC_POLICIES = ("reject", "downweight:0.5")
 WIN_ASYNC_PUT_LAYERS = 2     # win_async_train: win_put's depth (as
 WIN_ASYNC_PUSHSUM_LAYERS = 2  # win_dist_train's) and push-sum's
-# Async steps of each (push-sum: a backstop at the 3rd), and the lockstep
+# Async steps of each (push-sum: a backstop at the 2nd), and the lockstep
 # steps beside them; cut to keep the smoke's time.
-WIN_ASYNC_STEPS = {"win_put": 2, "push_sum": 3}
+WIN_ASYNC_STEPS = {"win_put": 1, "push_sum": 2}
 WIN_ASYNC_LOCKSTEP_STEPS = 1
 WIN_ASYNC_SLEEP = 1.5        # seconds process 1 sleeps before each step
 WIN_ASYNC_KNOBS = dict(async_mode=True, trace_sample=1,
-                       async_staleness_steps=1, async_collect_every=3)
+                       async_staleness_steps=1, async_collect_every=2)
 BOUND_BYTES = 1 << 30        # path_bounds: one copy of 1 GiB a leg
 SCHED_RANKS = 16             # schedule_pipeline: the virtual ranks,
 SCHED_COLS = 1 << 20         # the rows' width (float32),
@@ -418,6 +447,13 @@ SHARD_ORACLE_TOL = 1e-6      # the lr-0 combine vs float64: ||err|| / ||ref||
 # on dim 0) and an indivisible head (replicated).
 WIN_SHARD_TREE = {"experts": (2, 6291456), "head": (7, 16),
                   "router": (1 << 22,)}
+# observe_train: item 21 armed on the train phase's LM (1 warmup step and
+# 2 timed); the eager neighbor_allreduce timed with telemetry on and off.
+OBSERVE_ITERS = 2
+OBSERVE_KNOBS = {"BLUEFOG_TPU_PROFILE": "1", "BLUEFOG_TPU_PROFILE_EVERY": "1",
+                 "BLUEFOG_TPU_TELEMETRY_CONSENSUS_EVERY": "2",
+                 "BLUEFOG_TPU_TELEMETRY_PORT": "0"}
+OBSERVE_NAR_SHAPE = (4, 1 << 24)
 LM_WIDTHS = {"width": 2048, "heads": 16, "seq": 2048, "vocab": 32000}
 DEVICE = "cuda"              # the new phases' device ("cpu" to rehearse)
 KERNELS = {
@@ -559,6 +595,65 @@ def by_batch(fn, H, S, *args):
     return tuple(torch.cat(p) for p in zip(*parts))
 
 
+def sdpa_backend(fn):
+    """Which backend ``scaled_dot_product_attention`` ran in ``fn()``: the
+    device kernels of one call under ``torch.profiler``, named by the
+    first that matches (``cudnn``, whose kernels' names also hold
+    "flash"; ``flash``; ``efficient``; else ``math``), with the name of
+    its kernel that took the most device time."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = sorted(((e.key, e.self_device_time_total)
+                      for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda kv: -kv[1])
+    for backend, marks in (("cudnn", ("cudnn",)), ("flash", ("flash",)),
+                           ("efficient", ("fmha", "efficient",
+                                          "attention_kernel"))):
+        hit = [n for n, _ in kernels if any(m in n.lower() for m in marks)]
+        if hit:
+            return {"backend": backend, "kernel": hit[0][:90]}
+    return {"backend": "math", "kernel": None}
+
+
+def sdpa_times(q, k, v, do, causal, repeats=3):
+    """The library yardstick (never called by the port): SDPA's forward
+    and its backward (dq, dk and dv in one call) on ``(B, H, S, D)``
+    operands, as the strided views of the kernels' own inputs and as
+    contiguous copies; each the median of ``repeats`` ``cuda_ms`` readings
+    (each of those beside it), with the backend that ran."""
+    import statistics
+
+    import torch
+    import torch.nn.functional as F
+    out = {}
+    for layout in ("strided", "contiguous"):
+        ts = [t.transpose(1, 2) for t in (q, k, v, do)]
+        if layout == "contiguous":
+            ts = [t.contiguous() for t in ts]
+        qt, kt, vt = (t.detach().requires_grad_() for t in ts[:3])
+        dot = ts[3]
+
+        def fwd():
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal)
+        o = fwd()
+
+        def bwd():
+            return torch.autograd.grad(o, (qt, kt, vt), dot,
+                                       retain_graph=True)
+        fwd_runs = [cuda_ms(fwd) for _ in range(repeats)]
+        bwd_runs = [cuda_ms(bwd) for _ in range(repeats)]
+        out[layout] = {"fwd_ms": statistics.median(fwd_runs),
+                       "bwd_ms": statistics.median(bwd_runs),
+                       "fwd_runs_ms": fwd_runs, "bwd_runs_ms": bwd_runs,
+                       "fwd": sdpa_backend(fwd), "bwd": sdpa_backend(bwd)}
+    return out
+
+
 def check_kernels(B, S, H, D, causal, seed, timed, repeat=False,
                   layout="fused", kv_heads=None, fwd_only=False):
     """K1-K3 (K1 alone with ``fwd_only``) against their twins at one shape
@@ -566,7 +661,6 @@ def check_kernels(B, S, H, D, causal, seed, timed, repeat=False,
     ``repeat``, K1-K3 run again on the same inputs and must give the same
     bits."""
     import torch
-    import torch.nn.functional as F
 
     from bluefog_tpu_torch.ops import flash_attention as FA
 
@@ -647,10 +741,13 @@ def check_kernels(B, S, H, D, causal, seed, timed, repeat=False,
     res["K1"]["ms"] = cuda_ms(lambda: FA.flash_fwd_cuda(q, k, v, causal))
     res["K1"]["plain_ms"] = cuda_ms(
         lambda: FA.flash_fwd_ref(q, k, v, causal), iters=5, warmup=1)
-    # Library yardstick (never called by the port): SDPA on (B, H, S, D).
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-    res["K1"]["library_ms"] = cuda_ms(
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal))
+    # The library yardstick: the kernels' own operands as (B, H, S, D)
+    # views (library_ms) and as contiguous copies, medians of 3.
+    sdpa = sdpa_times(q, k, v, do, causal)
+    res["K1"]["library_ms"] = sdpa["strided"]["fwd_ms"]
+    res["K1"]["sdpa"] = {lay: {k_: v_ for k_, v_ in d.items()
+                               if k_.startswith("fwd")}
+                         for lay, d in sdpa.items()}
     if fwd_only:
         return res
     res["K2"]["ms"] = cuda_ms(
@@ -664,13 +761,14 @@ def check_kernels(B, S, H, D, causal, seed, timed, repeat=False,
     bwd_plain = cuda_ms(lambda: FA.flash_bwd_ref(q, k, v, o, lse_r, do, dlse,
                                                  causal), iters=5, warmup=1)
     res["K2"]["plain_ms"] = res["K3"]["plain_ms"] = bwd_plain
-    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
-    dot = do.transpose(1, 2)
     # SDPA's backward computes dq, dk and dv in one call: its time stands
     # for K2 and K3 together.
-    bwd_lib = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
-                                                  retain_graph=True))
-    res["K2"]["library_ms"] = res["K3"]["library_ms"] = bwd_lib
+    res["K2"]["library_ms"] = res["K3"]["library_ms"] = \
+        sdpa["strided"]["bwd_ms"]
+    for name in ("K2", "K3"):
+        res[name]["sdpa"] = {lay: {k_: v_ for k_, v_ in d.items()
+                                   if k_.startswith("bwd")}
+                             for lay, d in sdpa.items()}
     return res
 
 
@@ -2246,6 +2344,246 @@ def check_compositions(seed):
 # Hierarchical gossip and the one-sided windows
 # ---------------------------------------------------------------------------
 
+def train_argv(iters):
+    """The ``train`` phase's benchmark flags: the 1.3B MHA LM, 4 ranks,
+    ATC over the dynamic one-peer walk, K1-K3, one warmup step and
+    ``iters`` timed."""
+    return ["--model", "transformer",
+            "--num-layers", str(LAYERS), "--embed-dim", "2048",
+            "--num-heads", "16", "--seq-len", "2048", "--batch-size", "2",
+            "--vocab-size", "32000", "--momentum", "0", "--ranks", "4",
+            "--atc", "--dynamic", "--flash-attention",
+            "--num-warmup-batches", "1", "--num-iters", str(iters),
+            "--num-batches-per-iter", "1", "--seed", str(SEED),
+            "--device", DEVICE]
+
+
+def _env_set(values):
+    """Set (a value) or unset (None) environment variables and reload the
+    port's config; returns the values they had."""
+    from bluefog_tpu_torch.utils import config
+    before = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    config.reload()
+    return before
+
+
+def sync_warnings(tr, telemetry_on):
+    """The synchronizing CUDA calls one training step of ``tr`` makes
+    (``torch.cuda.set_sync_debug_mode("warn")``), with telemetry on or
+    off and every opt-in sampler at its default (off).  The first such
+    step after others makes one more than the next, whichever the
+    setting: take a step before the counted ones."""
+    import warnings
+
+    import torch
+    before = _env_set({"BLUEFOG_TPU_TELEMETRY":
+                       "1" if telemetry_on else "0"})
+    try:
+        sync()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                tr.forward_backward()
+                tr.opt.step()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        sync()
+    finally:
+        _env_set(before)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def observe_train_phase(benchmark, train_res):
+    """``observe_train``: the ``train`` phase's LM through
+    ``benchmark.measure`` with all of item 21 armed: a timeline
+    (``BLUEFOG_TIMELINE``, the native writer), the synced step profile
+    every step, the consensus gauge every 2 steps, ``--metrics-file`` and
+    the endpoint on an ephemeral port.  Requires the K1-K3 launches, the
+    losses bit for bit ``train``'s, the timeline's spans and anchor, the
+    ``record_function`` ranges in a ``profile_step.trace`` of one step,
+    the comm counters, the step-phase histograms, the consensus gauge
+    shrinking across a combine, one metrics line a step and the
+    endpoint's answers; then the sync-warning counts of a step with
+    telemetry on and off, and an eager ``neighbor_allreduce``'s times
+    with telemetry on and off.  Returns the measured steps' launches."""
+    import shutil
+    import tempfile
+    import urllib.request
+
+    import torch
+
+    import bluefog_tpu_torch as bf
+    from bluefog_tpu_torch import basics, profile_step
+    from bluefog_tpu_torch.ops import collective as C
+    from bluefog_tpu_torch.ops import flash_attention as FA
+    from bluefog_tpu_torch.utils import telemetry as T
+    from bluefog_tpu_torch.utils import timeline as TL
+
+    tmp = tempfile.mkdtemp(prefix="observe_")
+    prefix = os.path.join(tmp, "tl_")
+    metrics = os.path.join(tmp, "metrics.jsonl")
+    saved = _env_set({**OBSERVE_KNOBS, "BLUEFOG_TIMELINE": prefix,
+                      "BLUEFOG_TPU_TELEMETRY": None,
+                      "BLUEFOG_TPU_PYTHON_TIMELINE": None})
+    try:
+        T.reset()
+        args = benchmark.build_parser().parse_args(
+            train_argv(OBSERVE_ITERS) + ["--metrics-file", metrics])
+        FA.reset_launch_counts()
+        tr = benchmark.Trainer(args)
+        res = benchmark.measure(args, tr)
+        launches = flash_launches()
+        snap = T.snapshot()
+        TL.stop_timeline()
+        _env_set({"BLUEFOG_TIMELINE": None})
+        steps = args.num_warmup_batches + OBSERVE_ITERS
+        timed = OBSERVE_ITERS * args.num_batches_per_iter
+        expected = LAYERS * args.ranks * steps
+        require(all(c == expected for c in launches.values()),
+                f"observe_train launches {launches}, expected {expected}")
+        want = train_res["losses_by_step"][:steps]
+        require(res["losses_by_step"] == want,
+                f"observe_train losses {res['losses_by_step']} are not "
+                f"train's {want} bit for bit")
+        # The timeline: strict JSON, one ENQUEUE/COMMUNICATE pair a
+        # combine, the anchor in the native writer's sidecar.
+        path = f"{prefix}0.json"
+        with open(path) as f:
+            events = json.load(f)
+        op = "dynamic_neighbor_allreduce"
+        pairs = {ph: sum(e["cat"] == op and e["name"] == ph and
+                         e["ph"] == "B" for e in events)
+                 for ph in ("ENQUEUE", "COMMUNICATE")}
+        closed = sum(e["cat"] == op and e["ph"] == "E" for e in events)
+        require(pairs == {"ENQUEUE": steps, "COMMUNICATE": steps}
+                and closed == 2 * steps,
+                f"timeline spans of {op}: {pairs}, {closed} closed")
+        with open(path + ".anchor.json") as f:
+            anchor = json.load(f)
+        require({"monotonic_us", "unix_us", "rank"} <= set(anchor),
+                f"clock anchor {anchor}")
+        # The counters: the schedule's rounds x steps.
+        rounds = C.schedule_wire_stats(basics.dynamic_schedule())[0]
+        calls = snap.get(f'bf_comm_calls_total{{op="{op}"}}')
+        got_rounds = snap.get(f'bf_comm_rounds_total{{op="{op}"}}')
+        require(calls == steps and got_rounds == rounds * steps,
+                f"bf_comm_calls_total {calls}, bf_comm_rounds_total "
+                f"{got_rounds}: expected {steps} and {rounds * steps}")
+        phases = {ph: snap.get(
+            f'bf_step_phase_seconds_count{{phase="{ph}"}}')
+            for ph in ("optimizer-update", "host-sync")}
+        require(all(v == timed for v in phases.values())
+                and snap.get("bf_step_seconds_count") == timed,
+                f"step-phase samples {phases}, expected {timed}")
+        with open(metrics) as f:
+            lines = [json.loads(ln) for ln in f]
+        require(len(lines) == timed and all(
+            math.isfinite(ln["tokens_per_sec"]) for ln in lines),
+            f"metrics file: {len(lines)} lines, expected {timed}")
+        # The endpoint, scraped once.
+        port = T.server_port()
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                    timeout=30) as r:
+            text = r.read().decode()
+        prom = re.compile(r'^(# TYPE \w+ (counter|gauge|histogram)|'
+                          r'[a-z_]+(\{[^}]*\})? \S+)$')
+        bad = [ln for ln in text.splitlines() if not prom.match(ln)]
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                    timeout=30) as r:
+            health = json.loads(r.read().decode())
+        T.stop_http_server()
+        require(not bad and f'bf_comm_calls_total{{op="{op}"}}' in text,
+                f"/metrics does not parse: {bad[:3]}")
+        require(health["status"] == "ok", f"/healthz {health}")
+        # The consensus gauge: finite, and smaller after a combine than
+        # after the local update before it.
+        gauge = "bf_consensus_distance"
+        sampled = snap.get(gauge)
+        tr.opt.adapt()
+        tr.opt.sample_consensus_distance()
+        after_adapt = T.snapshot()[gauge]
+        tr.opt.combine()
+        tr.opt.sample_consensus_distance()
+        after_combine = T.snapshot()[gauge]
+        require(sampled is not None and math.isfinite(sampled)
+                and after_combine < after_adapt,
+                f"consensus distance {sampled}; {after_adapt} after adapt, "
+                f"{after_combine} after the combine")
+        # One more step under torch.profiler: the op spans' ranges.
+        prof = profile_step.trace(lambda: (tr.forward_backward(),
+                                           tr.opt.step()))
+        spans = prof["op_spans"]
+        require(f"{op}:ENQUEUE" in spans and f"{op}:COMMUNICATE" in spans,
+                f"record_function ranges in the trace: {sorted(spans)}")
+        # Telemetry on by default must not synchronise the card.
+        _env_set({k: None for k in OBSERVE_KNOBS})
+        sync_warnings(tr, True)
+        syncs = {"on": sync_warnings(tr, True),
+                 "off": sync_warnings(tr, False)}
+        require(syncs["on"] == syncs["off"],
+                f"sync warnings with telemetry on and off: {syncs}")
+        del tr
+        empty_cache()
+        x = torch.randn(OBSERVE_NAR_SHAPE, device=DEVICE)
+        # In turns, on and off, three readings each.
+        cost = {s_: {"cuda_ms": [], "host_us_per_call": []}
+                for s_ in ("on", "off")}
+        for state in ("on", "off") * 3:
+            before = _env_set({"BLUEFOG_TPU_TELEMETRY":
+                               "1" if state == "on" else "0"})
+            try:
+                def nar():
+                    return bf.neighbor_allreduce(x)
+                cost[state]["cuda_ms"].append(cuda_ms(nar))
+                sync()
+                t0 = time.perf_counter()
+                for _ in range(50):
+                    nar()
+                cost[state]["host_us_per_call"].append(
+                    1e6 * (time.perf_counter() - t0) / 50)
+                sync()
+            finally:
+                _env_set(before)
+        del x
+    finally:
+        TL.stop_timeline()
+        T.stop_http_server()
+        _env_set(saved)
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("observe_train", config={
+        "num_layers": LAYERS, **LM_WIDTHS, "batch_size": 2, "ranks": 4,
+        "order": "atc", "topology": "dynamic one-peer ExponentialGraph(4)",
+        "knobs": {**OBSERVE_KNOBS, "BLUEFOG_TIMELINE": "<tmp>/tl_",
+                  "--metrics-file": "<tmp>/metrics.jsonl"}},
+        step_ms=res["step_ms"], train_step_ms=train_res["step_ms"],
+        step_ms_each=[1e3 * 4 * 2 * 2048 / r for r in res["rates"]],
+        tokens_per_s=res["tokens_per_s"], peak_mem_gb=res.get("peak_mem_gb"),
+        launches=launches, expected_launches=expected,
+        losses_by_step=res["losses_by_step"],
+        comm={"calls": calls, "rounds": got_rounds},
+        step_phase_samples=phases, metrics_lines=len(lines),
+        timeline_events=len(events), timeline_pairs=pairs,
+        consensus_distance={"sampled": sampled, "after_adapt": after_adapt,
+                            "after_combine": after_combine},
+        profiled_step={k: prof[k] for k in (
+            "profiled_step_wall_ms", "kernel_busy_ms", "device_idle_share")},
+        op_spans=spans, healthz=health, metrics_text_lines=len(
+            text.splitlines()),
+        sync_warnings=syncs, neighbor_allreduce=dict(
+            shape=list(OBSERVE_NAR_SHAPE), dtype="float32",
+            bound_ms=1e3 * 2 * 4 * math.prod(OBSERVE_NAR_SHAPE) / PEAK_BYTES,
+            **cost),
+        telemetry={k: v for k, v in snap.items()
+                   if "_bucket{" not in k})
+    return launches
+
+
 def lm_args(benchmark, layers, dist, extra=()):
     """The benchmark's flags for the 1.3B LM's widths at ``layers`` blocks,
     4 ranks, under ``--dist-optimizer dist``."""
@@ -2725,7 +3063,50 @@ def ops_worker(bf, ref_path):
             "within": bool(torch.allclose(got, want, rtol=WIN_DIST_BF16_TOL,
                                           atol=WIN_DIST_BF16_TOL))}
     bf.win_free("w")
+    res["flightrec"] = flightrec_worker(bf, f"{ref_path}.fr{own[0]}.bin")
     return res
+
+
+def flightrec_worker(bf, path):
+    """The flight recorder armed on the native path with every data
+    message traced: two accumulates from one owned rank to its remote
+    out-neighbor, sent back to back so that one frame carries both and
+    the receiver's drain folds them, then a fence; the ring dumped to
+    ``path``.  Returns the dump's path and the event counts by type."""
+    import numpy as np
+
+    from bluefog_tpu_torch import topology as topology_util
+    from bluefog_tpu_torch.ops import transport as TR
+    from bluefog_tpu_torch.ops import window as W
+    from bluefog_tpu_torch.utils import config, flightrec
+    own = bf.owned_ranks()
+    flightrec.enable()
+    with config.override(win_native=True, trace_sample=1):
+        W._shutdown_transport()
+        W.init_transport()
+        flightrec.reset()
+        x = ops_input(DEVICE)[:, :4096].contiguous()
+        bf.win_create(x, "fr")
+        bf.barrier()
+        src = own[0]
+        dst = next(d for d in topology_util.out_neighbor_ranks(
+            bf.load_topology(), src) if d not in own)
+        row = np.ones(4096, np.float32).view(np.uint8)
+        for _ in range(2):
+            W._send_to_rank_owner(dst, TR.OP_ACCUMULATE, "fr", src, dst,
+                                  0.5, payload=row)
+        W._flush_transport()
+        bf.win_fence("fr")
+        bf.barrier()
+        dumped = flightrec.dump(path, reason="chip_smoke win_dist_ops")
+        counts = {}
+        for e in flightrec.snapshot():
+            name = flightrec.ETYPE_NAMES.get(int(e["etype"]), "?")
+            counts[name] = counts.get(name, 0) + 1
+        bf.win_free("fr")
+    W._shutdown_transport()
+    W.init_transport()
+    return {"path": dumped, "counts": counts}
 
 
 def path_bounds():
@@ -2784,13 +3165,32 @@ def win_dist_ops_phase(card):
     import tempfile
 
     import torch
+    from bluefog_tpu_torch.utils import flightrec
     ref_keys = [k for k, v in card.items() if isinstance(v, torch.Tensor)]
     fd, ref_path = tempfile.mkstemp(suffix=".pt")
     os.close(fd)
+    recorded, parts = {}, []
     try:
         torch.save({k: card[k] for k in ref_keys}, ref_path)
         parts = launch_workers("ops", [ref_path])
+        # Each process's flight-recorder dump, read back: events of every
+        # type the native path records, and the Python commit.
+        for part in parts:
+            header, events = flightrec.load(part["flightrec"]["path"])
+            kinds = sorted({flightrec.ETYPE_NAMES[int(e["etype"])]
+                            for e in events})
+            require(header["rank"] == part["owned"][0]
+                    and header["count"] == len(events) > 0
+                    and set(kinds) == set(flightrec.ETYPE_NAMES.values()),
+                    f"flight recorder dump of process {part['owned']}: "
+                    f"{header}, event types {kinds}")
+            recorded[str(part["owned"][0])] = {
+                "events": len(events), "by_type": part["flightrec"]["counts"]}
     finally:
+        for part in parts:
+            dump = part.get("flightrec", {}).get("path")
+            if dump and os.path.exists(dump):
+                os.remove(dump)
         os.remove(ref_path)
     want_hash = {k: row_hashes(card[k]) for k in ref_keys}
     res = {"per_process": []}
@@ -2832,7 +3232,8 @@ def win_dist_ops_phase(card):
          ranks_per_process=WIN_DIST_PER, layout="owned",
          shape=[4, WIN_OPS_COLS], dtype="float32",
          topology="ExponentialGraph(4)", transport="loopback TCP, one card",
-         bf16_tol=WIN_DIST_BF16_TOL, bounds=path_bounds(), **res)
+         bf16_tol=WIN_DIST_BF16_TOL, bounds=path_bounds(),
+         flight_recorder=recorded, **res)
 
 
 def train_worker(bf):
@@ -2860,7 +3261,7 @@ def train_worker(bf):
         bf.barrier()
     out = {}
     args = lm_args(benchmark, WIN_DIST_LAYERS, "win_put", [
-        "--num-warmup-batches", "1", "--num-iters", "2",
+        "--num-warmup-batches", "1", "--num-iters", str(WIN_DIST_LM_ITERS),
         "--num-batches-per-iter", "1"])
     tr = benchmark.Trainer(args)
     FA.reset_launch_counts()
@@ -2882,8 +3283,8 @@ def train_worker(bf):
     args = benchmark.build_parser().parse_args([
         "--model", "resnet50", "--batch-size", "64", "--momentum", "0.9",
         "--dist-optimizer", "win_put", "--num-warmup-batches", "1",
-        "--num-iters", "2", "--num-batches-per-iter", "1", "--seed",
-        str(SEED)])
+        "--num-iters", str(WIN_DIST_LM_ITERS), "--num-batches-per-iter", "1",
+        "--seed", str(SEED)])
     tr = benchmark.Trainer(args)
     out["resnet50"] = benchmark.measure(args, tr, quiet=True)
     done(tr)
@@ -3177,7 +3578,7 @@ def win_dist_train_phase():
     """``train_worker`` across the processes; returns the launches of
     K1-K3, summed over the processes."""
     parts = launch_workers("train")
-    lm_expected = WIN_DIST_LAYERS * WIN_DIST_PER * 3
+    lm_expected = WIN_DIST_LAYERS * WIN_DIST_PER * (1 + WIN_DIST_LM_ITERS)
     var_expected = WIN_DIST_VARIANT_LAYERS * WIN_DIST_PER * \
         WIN_DIST_VARIANT_STEPS * 2
     launches = {k: 0 for k in KERNELS}
@@ -3860,16 +4261,9 @@ def main():
     emit("reference", **check_reference(SEED))
     emit("resnet_reference", **check_resnet_reference(SEED))
 
-    args = benchmark.build_parser().parse_args([
-        "--model", "transformer",
-        "--num-layers", str(LAYERS), "--embed-dim", "2048",
-        "--num-heads", "16", "--seq-len", "2048", "--batch-size", "2",
-        "--vocab-size", "32000", "--momentum", "0", "--ranks", "4",
-        "--atc", "--dynamic", "--flash-attention",
-        "--num-warmup-batches", "1", "--num-iters", "3",
-        "--num-batches-per-iter", "1", "--seed", str(SEED)])
+    args = benchmark.build_parser().parse_args(train_argv(3))
     FA.reset_launch_counts()
-    res = benchmark.measure(args)
+    res = train_res = benchmark.measure(args)
     launches = {"K1": FA.flash_fwd_cuda.launches,
                 "K2": FA.flash_dq_cuda.launches,
                 "K3": FA.flash_dkv_cuda.launches}
@@ -3888,6 +4282,14 @@ def main():
             f"launches {launches}, expected {expected} of each")
     require(res["spread"]["after_combine"] < res["spread"]["after_adapt"],
             f"the combine shrinks the spread {res['spread']}")
+    torch.cuda.empty_cache()
+    from bluefog_tpu_torch import native
+    t0 = time.perf_counter()
+    # The window transport's service and the timeline writer, one library.
+    native.lib()
+    emit("native_build", seconds=time.perf_counter() - t0,
+         library=str(native.library_path().name))
+    observe_launches = observe_train_phase(benchmark, train_res)
     torch.cuda.empty_cache()
 
     image = ["--model", "resnet50", "--batch-size", "64", "--ranks", "4",
@@ -3978,11 +4380,6 @@ def main():
     winput_launches = winput_train_phase(benchmark)
     win_variant_launches = win_variants_phase(benchmark)
     card_ops = win_ops_phase()
-    from bluefog_tpu_torch import native
-    t0 = time.perf_counter()
-    native.lib()  # the window transport's service, before the workers
-    emit("native_build", seconds=time.perf_counter() - t0,
-         library=str(native.library_path().name))
     win_dist_ops_phase(card_ops)
     del card_ops
     res = image_phase(benchmark, image + [
@@ -4010,7 +4407,9 @@ def main():
         r = main_res[kname]
         kernels.append({"name": f"{kname} {fn}", "route": "cuda",
                         "source": SOURCE, "replaces": replaces,
-                        "launches": (launches[kname] + llama_launches[kname]
+                        "launches": (launches[kname]
+                                     + observe_launches[kname]
+                                     + llama_launches[kname]
                                      + moe_launches[kname]
                                      + ring_launches[kname]
                                      + ulysses_launches[kname]
@@ -4027,6 +4426,7 @@ def main():
                                      + sharded_launches[kname]),
                         "launches_by_path": {
                             "train": launches[kname],
+                            "observe_train": observe_launches[kname],
                             "llama_train": llama_launches[kname],
                             "moe_train": moe_launches[kname],
                             "ring_train": ring_launches[kname],

@@ -35,10 +35,6 @@ N = 8
 # that brings it (item 22: the data module, and the jax-only names whose
 # role the port's rank-major tensors and process_ranks() take).
 NOT_PORTED = {
-    "timeline_context": "21", "timeline_start_activity": "21",
-    "timeline_end_activity": "21", "start_timeline": "21",
-    "stop_timeline": "21", "telemetry": "21", "telemetry_snapshot": "21",
-    "profiler": "21", "step_profile": "21", "flight_recorder_dump": "21",
     "link_report": "21b",
     "win_xla_info": "18",
     "gang": "20", "gang_info": "20", "membership_info": "20",
@@ -48,10 +44,10 @@ NOT_PORTED = {
 
 
 def test_reference_torch_surface_is_covered_but_item_21():
+    """The whole of ``REFERENCE_TORCH_EXPORTS`` (item 21 brought the last
+    names, the ``timeline_*`` three)."""
     missing = [n for n in REFERENCE_TORCH_EXPORTS if not hasattr(tbf, n)]
-    assert missing == sorted(n for n in NOT_PORTED
-                             if n.startswith("timeline_"))
-    assert all(NOT_PORTED[n] == "21" for n in missing)
+    assert missing == []
 
 
 def _jax_surface():
@@ -75,7 +71,7 @@ def test_not_ported_list_is_exact():
     ``NOT_PORTED``'s: a name that lands must leave the list."""
     lacking = {n for n in _jax_surface() if not hasattr(tbf, n)}
     assert lacking == set(NOT_PORTED)
-    assert set(NOT_PORTED.values()) <= {"18", "20", "21", "21b", "22"}
+    assert set(NOT_PORTED.values()) <= {"18", "20", "21b", "22"}
 
 
 @pytest.fixture

@@ -198,15 +198,33 @@ def test_bench_main_prints_bench_keys_on_cpu(capsys):
             "compression"} <= set(res["detail"])
     assert res["detail"]["backend"] == "cpu"
     assert res["detail"]["n_devices"] == 1 and res["detail"]["ranks"] == 2
+    # Asked for the CPU: a labeled smoke run, with the registry's snapshot
+    # and the bench's own phase histogram.
+    assert res["detail"]["cpu_fallback"] is True
+    assert res["detail"]["telemetry"][
+        'bf_comm_calls_total{op="dynamic_neighbor_allreduce"}'] > 0
+    assert set(res["detail"]["phase_latency"]) == {"optimizer-update",
+                                                   "host-sync"}
 
 
 @pytest.mark.parametrize("entry", ["benchmark", "bench"])
-def test_entry_points_default_to_cuda(entry):
+def test_entry_points_default_to_cuda(entry, capsys, monkeypatch):
+    """Without a GPU the default device raises in the benchmark; the bench
+    prints the root ``bench.py``'s ``no_backend`` line and exits 3 (unless
+    ``BLUEFOG_TPU_BENCH_ALLOW_CPU=1`` asks for a CPU smoke run)."""
     main = {"benchmark": benchmark.main, "bench": bench.main}[entry]
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid here")
+    monkeypatch.delenv("BLUEFOG_TPU_BENCH_ALLOW_CPU", raising=False)
     try:
-        with pytest.raises(RuntimeError, match="no GPU"):
+        if entry == "benchmark":
+            with pytest.raises(RuntimeError, match="no GPU"):
+                main(["--ranks", "2"])
+            return
+        with pytest.raises(SystemExit) as exc:
             main(["--ranks", "2"])
+        assert exc.value.code == 3
+        line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert line["status"] == "no_backend" and line["value"] is None
     finally:
         tbf.shutdown()
