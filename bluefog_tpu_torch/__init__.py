@@ -23,7 +23,9 @@ imported when first read.
 Observability: ``bf.telemetry`` (the metric registry, ``/metrics`` and
 ``/healthz``), ``bf.telemetry_snapshot()``, ``bf.step_profile()``,
 ``bf.profiler``, the timeline (``BLUEFOG_TIMELINE``, ``bf.start_timeline``,
-``bf.timeline_context``) and ``bf.flight_recorder_dump()``.
+``bf.timeline_context``), ``bf.flight_recorder_dump()``, the link
+observatory's matrix ``bf.link_report()`` and the put-plan path's
+``bf.win_xla_info()``.
 """
 
 from bluefog_tpu_torch import parallel
@@ -55,6 +57,8 @@ from bluefog_tpu_torch.basics import (
 from bluefog_tpu_torch import optim
 from bluefog_tpu_torch.utils import profiler, telemetry
 from bluefog_tpu_torch.utils.flightrec import dump as flight_recorder_dump
+from bluefog_tpu_torch.utils.linkobs import link_report
+from bluefog_tpu_torch.ops.xlaffi import info as win_xla_info
 from bluefog_tpu_torch.utils.profiler import step_profile
 from bluefog_tpu_torch.utils.telemetry import telemetry_snapshot
 from bluefog_tpu_torch.utils.timeline import (
@@ -100,7 +104,7 @@ __all__ = ["topology_util", "init", "init_distributed", "shutdown", "barrier",
            "synthesis_info", "telemetry", "telemetry_snapshot", "profiler",
            "step_profile", "flight_recorder_dump", "start_timeline",
            "stop_timeline", "timeline_context", "timeline_start_activity",
-           "timeline_end_activity"
+           "timeline_end_activity", "link_report", "win_xla_info"
            ] + _window.__all__ + parallel.__all__
 
 

@@ -444,8 +444,9 @@ _PLACEMENT_SEARCH_CACHE_MAX = 64
 
 def _placement_model(devices):
     """The interconnect model of ``devices`` (``ops.placement.
-    build_model``), cached (the JAX package's ``basics.py`` L488; its
-    tuner's measured re-pricing is item 21b's)."""
+    build_model``), cached (the JAX package's ``basics.py`` L488), or the
+    tuner's measured re-pricing of it (``utils.tuner.maybe_measured``;
+    with ``BLUEFOG_TPU_TUNE=0`` the static model, bitwise)."""
     from bluefog_tpu_torch.ops import placement as PL
     from bluefog_tpu_torch.utils import config
     cfg = config.get()
@@ -454,7 +455,11 @@ def _placement_model(devices):
         if len(_placement_model_cache) > 8:
             _placement_model_cache.clear()
         _placement_model_cache[key] = PL.build_model(devices)
-    return _placement_model_cache[key]
+    base = _placement_model_cache[key]
+    if base is None or not cfg.tune:
+        return base
+    from bluefog_tpu_torch.utils import tuner
+    return tuner.maybe_measured(base)
 
 
 def _placement_search(model, scheds, n, *, iters, block, budget,
@@ -1362,12 +1367,18 @@ def _hier_topology(ctx: _Context, cfg):
     ``BLUEFOG_TPU_HIER_*`` knobs (``cfg``) over the machines (slices =
     machines), cached until the knobs or the world change."""
     n_slices = ctx.size // ctx.local_size
+    # The outer cadence under the tuner's override (empty with
+    # BLUEFOG_TPU_TUNE=0); the adapted value rides the key, so an epoch
+    # rebuilds.
+    from bluefog_tpu_torch.utils import tuner
+    outer_every = tuner.override_int("hier_outer_every",
+                                     cfg.hier_outer_every)
     key = (ctx.size, n_slices, cfg.hier_inner, cfg.hier_outer,
-           cfg.hier_outer_every, cfg.hier_outer_self_weight)
+           outer_every, cfg.hier_outer_self_weight)
     if ctx._hier_key != key:
         ctx.hier_topology = topology_util.hierarchical_two_level(
             ctx.size, n_slices, inner=cfg.hier_inner, outer=cfg.hier_outer,
-            outer_every=cfg.hier_outer_every,
+            outer_every=outer_every,
             outer_self_weight=cfg.hier_outer_self_weight)
         ctx._hier_key = key
     return ctx.hier_topology

@@ -33,7 +33,12 @@ unless ``BLUEFOG_TPU_FAKE_TORUS`` names one, a near-square torus sized to
 the ranks, labeled "(synthetic)": a data point of the cost model, never a
 claim about the hardware), ``hierarchy`` (the two-level gossip's modeled
 bytes a step, synthetic slices labeled) and ``sharding`` (the plan of a
-labeled synthetic MoE tree).
+labeled synthetic MoE tree), and ``links``: the link observatory's gate,
+SLO rules and this process's link table, as the root ``bench.py``'s
+``_links_summary`` (a one-process run crosses no window transport, so the
+table is empty; the block keeps the schema).  The root's ``fused_step``
+block drives ``bench_comm.py``'s loopback rig and comes with that rig
+(ROADMAP item 22).
 """
 
 from __future__ import annotations
@@ -239,6 +244,21 @@ def modeled_blocks(ranks: int, device, params_per_rank: int) -> dict:
             "sharding": _sharding_summary(devs)}
 
 
+def _links_summary() -> dict:
+    """The link observatory's evidence (the root ``bench.py``'s
+    ``_links_summary``): its gate, the SLO rules and breaches, and this
+    process's edges and goodput."""
+    from bluefog_tpu_torch.utils import config, linkobs
+    if not config.get().link_obs:
+        return {"enabled": False}
+    rep = linkobs.local_report()
+    return {"enabled": True,
+            "slo_rules": rep["slo"]["rules"],
+            "slo_breached": sorted(rep["slo"]["breached"]),
+            "edges": rep["edges"],
+            "goodput": rep["goodput"]}
+
+
 def _no_backend_or_cpu(reason: str) -> bool:
     """The card was asked for and is absent: with
     ``BLUEFOG_TPU_BENCH_ALLOW_CPU=1`` go on as a labeled CPU smoke run
@@ -309,6 +329,7 @@ def main(argv=None):
         "peak_mem_gb": res.get("peak_mem_gb"),
         "phase_latency": phase_latency or None,
         **modeled_blocks(res["ranks"], args.device, res["params_per_rank"]),
+        "links": _links_summary(),
         "telemetry": telemetry.snapshot() if telemetry.enabled() else None,
     }
     if on_card:

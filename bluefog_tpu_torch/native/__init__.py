@@ -1,11 +1,12 @@
 """The native libraries of the port, built at first use and bound with
-``ctypes``: the window transport's service (with the timeline writer and
-the flight recorder) and the round compiler.
+``ctypes``: the window transport's service (with the timeline writer, the
+flight recorder, the put plans and the probe ring) and the round compiler.
 
 The port of ``bluefog_tpu/native/__init__.py`` for the window transport's
-library, ``src/winsvc.cc`` and ``src/timeline.cc`` (copies of the JAX
-package's, with the declarations of its header that they define) compile
-with one ``g++`` call into ``bluefog_tpu_torch/_build/winsvc-<hash>.so``,
+library, ``src/winsvc.cc``, ``src/timeline.cc`` and ``src/xlacall.cc``
+(copies of the JAX package's, the last without its XLA FFI handlers, with
+the declarations of its header that they define) compile with one ``g++``
+call into ``bluefog_tpu_torch/_build/winsvc-<hash>.so``,
 keyed by a hash of the sources and the flags, as ``ops/_nvcc.py`` keys the CUDA
 kernels: an edited source rebuilds, an unchanged tree loads the previous
 build.  The flags are the JAX Makefile's, ``-ffp-contract=off`` included:
@@ -54,7 +55,7 @@ from bluefog_tpu_torch.utils.logging import get_logger
 __all__ = ["CXX_FLAGS", "library_path", "build", "lib", "fastcall",
            "fastcall_path", "schedule_library_path", "build_schedule",
            "schedule_lib", "WinMsg", "WinItem", "WinRxStats", "WinTxStats",
-           "RecEvent"]
+           "RecEvent", "ProbeEvent"]
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 SRC_DIR = Path(__file__).resolve().parent / "src"
@@ -63,6 +64,9 @@ SOURCES = ("winsvc.cc",)
 # The chrome-trace writer (utils/timeline.py), linked into the service's
 # library and keyed into its hash.
 TIMELINE_SOURCE = "timeline.cc"
+# The put plans and the probe ring (ops/xlaffi.py, utils/probes.py), linked
+# and keyed the same way.
+XLACALL_SOURCE = "xlacall.cc"
 # Keyed into the service's hash with SOURCES, built on its own.
 FASTCALL_SOURCE = "fastcall.cc"
 # The round compiler: a library of its own, with its own key.
@@ -178,11 +182,20 @@ class RecEvent(ctypes.Structure):
     ]
 
 
+class ProbeEvent(ctypes.Structure):
+    """Mirror of ``bf_probe_event_t``: one probe-ring slot (16 bytes)."""
+    _fields_ = [
+        ("t_ns", ctypes.c_int64),
+        ("probe_id", ctypes.c_int32),
+        ("seq", ctypes.c_uint32),
+    ]
+
+
 def _service_sources() -> tuple:
     """The sources of the service's library: ``winsvc.cc`` and, where the
-    tree has it, ``timeline.cc``."""
-    extra = (TIMELINE_SOURCE,) if (SRC_DIR / TIMELINE_SOURCE).exists() \
-        else ()
+    tree has them, ``timeline.cc`` and ``xlacall.cc``."""
+    extra = tuple(s for s in (TIMELINE_SOURCE, XLACALL_SOURCE)
+                  if (SRC_DIR / s).exists())
     return SOURCES + extra
 
 
@@ -203,7 +216,7 @@ def library_path() -> Path:
 
 def _hash() -> str:
     """The build key: the flags, the service's sources (the timeline
-    writer's too), ``fastcall.cc`` and the headers."""
+    writer's and the put plans' too), ``fastcall.cc`` and the headers."""
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
     fast = SRC_DIR / FASTCALL_SOURCE
     for path in [*(SRC_DIR / s for s in _service_sources()),
@@ -324,6 +337,24 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                      i64]),
         "bf_timeline_dropped": (i64, [vp]),
         "bf_timeline_close": (None, [vp]),
+        "bf_xla_plan_new": (i64, [cp, i64, i32, i32, dbl]),
+        "bf_xla_plan_edge": (i32, [i64, i32, cp, i32, u8, i32, i32, dbl,
+                                   i64, i32]),
+        "bf_xla_plan_set_p": (i32, [i64, ptr(dbl), i32]),
+        # tx and data ride as raw addresses (c_void_p).
+        "bf_xla_plan_run": (i32, [i64, vp, vp, u64]),
+        "bf_xla_plan_free": (i32, [i64]),
+        "bf_xla_take_residual": (i64, [cp, i32, i32, ptr(ctypes.c_float),
+                                       i64]),
+        "bf_xla_add_residual": (i32, [cp, i32, i32, ptr(ctypes.c_float),
+                                      i64]),
+        "bf_xla_drop_residuals": (None, [cp]),
+        "bf_probe_enable": (i64, [i64]),
+        "bf_probe_is_enabled": (i32, []),
+        "bf_probe_note": (None, [i32]),
+        "bf_probe_total": (i64, []),
+        "bf_probe_drain": (i64, [ptr(ProbeEvent), i64]),
+        "bf_probe_reset": (None, []),
     }
     for name, (res, args) in sigs.items():
         fn = getattr(lib, name)

@@ -1,12 +1,13 @@
-/* C ABI of the window transport's native service (winsvc.cc) and the
- * timeline writer (timeline.cc).
+/* C ABI of the window transport's native service (winsvc.cc), the
+ * timeline writer (timeline.cc) and the put plans and probe ring
+ * (xlacall.cc).
  *
  * The declarations of the JAX package's bluefog_tpu/native/src/
- * bluefog_native.h that winsvc.cc and timeline.cc define, copied
- * unchanged: the chrome-trace writer, the TCP service, its native drain
- * and decode pool, the per-peer coalescing send queues, the wire trace
- * tags and the transport flight recorder.  Plain C for ctypes
- * (bluefog_tpu_torch/native/__init__.py binds it).
+ * bluefog_native.h that these sources define: the chrome-trace writer,
+ * the TCP service, its native drain and decode pool, the per-peer
+ * coalescing send queues, the wire trace tags, the transport flight
+ * recorder, the put plans with their residual store, and the probe ring.
+ * Plain C for ctypes (bluefog_tpu_torch/native/__init__.py binds it).
  */
 
 #ifndef BLUEFOG_NATIVE_H_
@@ -347,6 +348,98 @@ void bf_rec_note(int32_t etype, int32_t op, int32_t stripe, int32_t src,
  * out == NULL returns the count a full snapshot would produce. */
 int64_t bf_rec_snapshot(bf_rec_event_t* out, int64_t cap);
 void bf_rec_reset(void);
+
+/* -------- xlacall.cc: put plans --------
+ *
+ * A put plan is the routing of one window put/accumulate dispatch: per
+ * remote edge, the peer endpoint, wire op, (src, dst), weight, stripe and
+ * the row of the caller's (rows, elems) f32 buffer.  Running a plan
+ * encodes each row straight from the buffer into the bf_wintx_* per-peer
+ * arenas (one arena copy, no per-edge staging): ops/xlaffi.py runs it
+ * with a pointer to the tensor's memory on the CPU, or to the pinned copy
+ * of the put's owned rows on a card, from Python or from a stream host
+ * function (csrc/hostfn.cpp).  Codecs (bf16 round-to-nearest-even, sparse
+ * top-|magnitude| with sender error-feedback residuals keyed by (window,
+ * src, dst), as ops/window.py's) are applied during the encode. */
+
+/* codec: 0 dense f32, 1 bf16, 2 sparse(frac).  Returns a plan id > 0,
+ * or -4 if the window name exceeds the receiver's 128-byte field. */
+int64_t bf_xla_plan_new(const char* name, int64_t elems, int32_t n_edges,
+                        int32_t codec, double sparse_frac);
+
+/* Fill edge slot i (0-based).  op carries the BASE wire code (codec flag
+ * bits are applied by the encoder).  row is the row index into the
+ * (rows, elems) input buffer.  stripe pins the edge's transport stripe
+ * AT COMPILE TIME (the same deterministic (window, row) shard the eager
+ * sender computes, so plan-dispatched and host-dispatched frames for one
+ * edge always ride the same FIFO).  Returns 0, -9 unknown plan / bad
+ * index. */
+int32_t bf_xla_plan_edge(int64_t plan, int32_t i, const char* host,
+                         int32_t port, uint8_t op, int32_t src, int32_t dst,
+                         double weight, int64_t row, int32_t stripe);
+
+/* Refresh every edge's associated-P mass before a dispatch (push-sum
+ * runs; n must equal n_edges).  Returns 0, -9 unknown plan / size. */
+int32_t bf_xla_plan_set_p(int64_t plan, const double* p, int32_t n);
+
+/* Execute a plan against a raw f32 buffer of total_elems elements,
+ * enqueueing every edge's encoded row onto tx's per-peer queues.  Returns 0, -9 unknown plan, -10 a row offset
+ * falls outside the buffer, -5/-7/... any bf_wintx_send error (stops at
+ * the first failing edge, like the Python per-edge loop). */
+int32_t bf_xla_plan_run(int64_t plan, const void* tx, const float* data,
+                        uint64_t total_elems);
+
+int32_t bf_xla_plan_free(int64_t plan);
+
+/* Purge sparse error-feedback residuals (one window's, or all when name
+ * is NULL) — the native twin of ops/window._drop_ef_residuals. */
+void bf_xla_drop_residuals(const char* name);
+
+/* Cross-store residual hand-off, so a put stream that mixes the plan and
+ * host-staged paths on one (window, src, dst) edge never strands mass in
+ * whichever store the other path cannot see (residuals are additive:
+ * merging is exact).  take: copy-and-erase the native residual into out
+ * (returns the element count, 0 if none, -1 if cap is too small — the
+ * residual stays).  add: fold data into (or create) the native
+ * residual. */
+int64_t bf_xla_take_residual(const char* name, int32_t src, int32_t dst,
+                             float* out, int64_t cap);
+int32_t bf_xla_add_residual(const char* name, int32_t src, int32_t dst,
+                            const float* data, int64_t n);
+
+/* -------- xlacall.cc: the probe ring --------
+ *
+ * Timestamps of the fused step's seams (utils/probes.py): each note
+ * records one (probe_id, steady-clock ns, claim counter) event into a
+ * process-wide lock-free ring, the flight recorder's design with a 16-byte
+ * event and a drain cursor.  A note is one relaxed fetch_add and a 16-byte
+ * store; with the ring off, one atomic pointer load.  The clock is
+ * CLOCK_MONOTONIC, the epoch of Python's time.monotonic_ns() and of the
+ * timeline's event clock.  On a card the fused step's program notes its
+ * seams from stream host functions (csrc/hostfn.cpp), the host notes its
+ * own over ctypes, into the same ring. */
+
+typedef struct {
+  int64_t t_ns;     /* std::chrono::steady_clock (CLOCK_MONOTONIC) ns */
+  int32_t probe_id; /* caller-defined seam id (utils/probes.py names them) */
+  uint32_t seq;     /* low 32 bits of the global claim counter (wraps) */
+} bf_probe_event_t;
+
+/* Allocate + arm the ring (idempotent; capacity <= 0 = 8192).  Returns
+ * the live capacity. */
+int64_t bf_probe_enable(int64_t capacity);
+int32_t bf_probe_is_enabled(void);
+/* Record one probe event (a stream host function of the fused program,
+ * or Python over ctypes for the host-side seams). */
+void bf_probe_note(int32_t probe_id);
+/* Total events ever recorded (monotonic; drain loss = total - drained). */
+int64_t bf_probe_total(void);
+/* Copy the events recorded since the last drain into out (oldest-first,
+ * at most cap; events overwritten before the drain are lost — ring
+ * semantics) and advance the cursor.  Returns the count copied, 0 when
+ * nothing new, -1 when the ring is off. */
+int64_t bf_probe_drain(bf_probe_event_t* out, int64_t cap);
+void bf_probe_reset(void);
 
 #ifdef __cplusplus
 }

@@ -113,6 +113,18 @@ class StaticSchedule:
             tables.append(slot)
         return tuple(tables)
 
+    def window_plan(self) -> Tuple[Tuple[Tuple[int, float], ...], ...]:
+        """The lowering for the one-sided window executor: entry ``s`` is
+        the ``(dst, weight)`` list rank ``s`` pushes each step, the round
+        structure erased (the window transport has per-peer FIFOs, no
+        round barrier); the diagonal stays with the combiner.  The fused
+        window step (``ops/fused_step.py``) reads its edges from here."""
+        plan: List[List[Tuple[int, float]]] = [[] for _ in range(self.n)]
+        for rnd in self.rounds:
+            for s, d in rnd.pairs:
+                plan[s].append((d, float(rnd.send_scale[s])))
+        return tuple(tuple(p) for p in plan)
+
 
 @dataclass(frozen=True, eq=False)
 class CompiledSchedule(StaticSchedule):
@@ -125,9 +137,14 @@ class CompiledSchedule(StaticSchedule):
                        replica-group schedule of ``ops/sharded.py``).
     ``modeled_cost`` — the ``ops.placement.CostReport`` the producer priced
                        the rounds at (None without an interconnect model).
+    ``lowering``     — the executor the rounds target: ``ppermute`` (the
+                       collective rounds), ``window`` (the per-peer push
+                       plan of :meth:`window_plan`) or ``fused`` (that
+                       plan, inside the fused window step).
     ``sketch``       — the sketch a synthesized schedule grew from."""
     provenance: str = "naive"
     modeled_cost: Optional[object] = None
+    lowering: str = "ppermute"
     sketch: Optional[str] = None
 
 
@@ -135,7 +152,7 @@ _UNSET = object()
 
 
 def as_compiled(sched: StaticSchedule, *, provenance=None, modeled_cost=_UNSET,
-                sketch=_UNSET) -> CompiledSchedule:
+                lowering=None, sketch=_UNSET) -> CompiledSchedule:
     """``sched`` as a :class:`CompiledSchedule`, each stamp left
     unspecified inherited from ``sched`` (or the default), so a pass stamps
     only what it owns."""
@@ -143,11 +160,13 @@ def as_compiled(sched: StaticSchedule, *, provenance=None, modeled_cost=_UNSET,
         getattr(sched, "provenance", "naive")
     cost = modeled_cost if modeled_cost is not _UNSET else \
         getattr(sched, "modeled_cost", None)
+    low = lowering if lowering is not None else \
+        getattr(sched, "lowering", "ppermute")
     sk = sketch if sketch is not _UNSET else getattr(sched, "sketch", None)
     return CompiledSchedule(
         n=sched.n, rounds=sched.rounds, self_scale=sched.self_scale,
         indegree=sched.indegree, outdegree=sched.outdegree,
-        provenance=prov, modeled_cost=cost, sketch=sk)
+        provenance=prov, modeled_cost=cost, lowering=low, sketch=sk)
 
 
 def schedule_provenance(sched) -> str:

@@ -57,10 +57,14 @@ queue depths, the drain's bursts, retries and errors (``utils/telemetry``;
 on the native path pumped from the C++ counters at flush boundaries and
 burst ends, as the JAX package does); the recorder's ENQUEUE, FLUSH and
 SENDMSG events on the Python path (the native path records its own) and a
-dump on a fatal send error (``utils/flightrec``).  Left out: the tuner hooks (ROADMAP item
-21b), and the chaos link delay and partition schedule with the control ops
-``OP_MEMBER`` and ``OP_GANG`` (item 20: the window store drops an inbound
-one and logs that it came).
+dump on a fatal send error (``utils/flightrec``).  The link observatory
+(``utils/linkobs``) reads each stripe's sent bytes as goodput, from the
+native pump's diffs or the Python sender's batches; the tuner
+(``utils/tuner``) may override ``auto`` stripes and, through
+:meth:`WindowTransport.set_linger_ms`, the linger.  Left out: the chaos
+link delay and partition schedule with the control ops ``OP_MEMBER`` and
+``OP_GANG`` (item 20: the window store drops an inbound one and logs that
+it came).
 """
 
 from __future__ import annotations
@@ -78,7 +82,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from bluefog_tpu_torch import native
-from bluefog_tpu_torch.utils import config, flightrec, telemetry
+from bluefog_tpu_torch.ops import xlaffi
+from bluefog_tpu_torch.utils import config, flightrec, linkobs, telemetry
 from bluefog_tpu_torch.utils.logging import get_logger
 
 # Wire op codes, word for word the JAX package's (``bluefog_tpu/ops/
@@ -217,12 +222,15 @@ def stripe_for(name: str, src: int, op: int, n_stripes: int) -> int:
 
 def resolve_stripes() -> int:
     """``BLUEFOG_TPU_WIN_STRIPES``, or for ``auto`` the static oracle
-    (:func:`resolve_stripes_static`): the port has no tuner, so the static
-    value passes through, as the JAX package's does with ``TUNE=0``."""
+    (:func:`resolve_stripes_static`) under the tuner's measured override;
+    with ``BLUEFOG_TPU_TUNE=0`` the override table is empty and the static
+    value passes through, bitwise."""
     cfg = config.get()
     if cfg.win_stripes >= 1:
         return cfg.win_stripes
-    return resolve_stripes_static()
+    static = resolve_stripes_static()
+    from bluefog_tpu_torch.utils import tuner
+    return max(1, min(8, tuner.override_int("stripes", static)))
 
 
 def resolve_stripes_static() -> int:
@@ -669,10 +677,18 @@ class WindowTransport:
                 telemetry.observe_since(t0, "bf_win_rpc_seconds",
                                         op=_op_label(op))
             return
+        # The queue owns a copy: the caller may reuse its array at once.
+        xlaffi.count_host_copy(payload.size, "enqueue")
         msg: Msg = (op, name, src, dst, float(weight), float(p_weight),
                     payload.tobytes())
         self._sender(host, port, stripe).enqueue(
             msg, urgent=(op & ~OP_FLAG_MASK) in _URGENT_OPS)
+
+    def count_tx(self, nbytes: float) -> None:
+        """Add payload bytes that a put plan enqueued on the native sender
+        itself (not through :meth:`send`) to :attr:`tx_bytes`."""
+        with self._bytes_lock:
+            self.tx_bytes += int(nbytes)
 
     def kick(self) -> None:
         """Wake every sender with a pending queue, without waiting (ship
@@ -696,11 +712,21 @@ class WindowTransport:
             csv = ",".join(f"{h}:{p}" for h, p in sorted(self._partitioned))
             self._lib.bf_wintx_set_partition(self._tx, csv.encode())
 
+    def set_linger_ms(self, ms: float) -> None:
+        """Adapt the coalesce linger at run time (the tuner's
+        ``coalesce_linger_ms``): live on the Python senders, which read it
+        at every wait; the native sender keeps the linger it started with,
+        and a new transport takes the new value."""
+        self._linger = max(0.0, float(ms)) / 1e3
+
     def drop_peer(self, host: str, port: int) -> None:
         """Retire every stripe of a peer's sender: its queued messages are
         discarded, a producer blocked on it fails, and a later send to the
         address makes fresh senders."""
         peer = f"{host}:{port}"
+        # A dead peer's goodput and rate gauges are no claims about a live
+        # wire.
+        linkobs.clear_peer(peer)
         if self._tx is not None:
             dropped = int(self._lib.bf_wintx_drop_peer(self._tx,
                                                        host.encode(), port))
@@ -881,6 +907,8 @@ class WindowTransport:
                     if d > 0:
                         telemetry.inc("bf_win_tx_stripe_bytes_total",
                                       float(d), peer=peer, stripe=str(k))
+                        # The same diff is the observatory's goodput.
+                        linkobs.note_tx(peer, k, float(d))
                     telemetry.set_gauge("bf_win_tx_queue_depth",
                                         float(ss.queue_len), peer=peer,
                                         stripe=str(k))
@@ -941,6 +969,7 @@ class WindowTransport:
         if telemetry.enabled():
             telemetry.inc("bf_win_tx_stripe_bytes_total", float(nbytes),
                           peer=peer, stripe=str(stripe))
+        linkobs.note_tx(peer, stripe, float(nbytes))
         frame_op = batch[0][0] if len(batch) == 1 else OP_BATCH
         if flightrec.enabled():
             flightrec.note(flightrec.FLUSH, op=frame_op, stripe=stripe,

@@ -76,11 +76,21 @@ counters, the contribution ages), in ``op_span`` spans for the timeline and
 the step profiler; ``win_wait`` and the remote mutex grants run under the
 stall watchdog, whose peer probe the transport installs.
 
+**The put-plan path** (``BLUEFOG_TPU_WIN_XLA``, default on;
+``ops/xlaffi.py``): a float32 put whose remote edges all ride the native
+sender runs them as one native plan over one staging copy of the owned
+rows (pinned, on a card) instead of a staged row and a send an edge; the
+frames are the same bytes, and ``=0`` keeps the host-staged path as the
+oracle.  The fused window step (``ops/fused_step.py``) captures the same
+plan into its program and finishes each bucket with
+:func:`_fused_host_finish`.  Every traced commit feeds the link
+observatory (``utils/linkobs.py``), and :func:`set_async_step` ticks it
+and the tuner.
+
 Left out, raising an error that names its ROADMAP item where it can be
-asked for: the device-side put path (item 18), the membership and gang
-control ops (item 20, dropped and logged when one arrives), and the link
-observatory's step tick (item 21b).  ``BLUEFOG_TPU_WIN_COMPRESSION`` acts
-on cross-process edges only.
+asked for: the membership and gang control ops (item 20, dropped and
+logged when one arrives).  ``BLUEFOG_TPU_WIN_COMPRESSION`` acts on
+cross-process edges only.
 """
 
 from __future__ import annotations
@@ -104,7 +114,9 @@ from bluefog_tpu_torch.ops.transport import (
     OP_MUTEX_GRANT, OP_MUTEX_REL, OP_PUT, OP_SPARSE_FLAG, OP_TRACE_FLAG,
     make_trace_tag, set_trace_origin_step, sparse_decode, sparse_encode,
     trace_strip)
-from bluefog_tpu_torch.utils import config, flightrec, stall, telemetry
+from bluefog_tpu_torch.ops import xlaffi
+from bluefog_tpu_torch.utils import (config, flightrec, linkobs, stall,
+                                     telemetry)
 from bluefog_tpu_torch.utils.logging import get_logger
 from bluefog_tpu_torch.utils.timeline import op_span
 
@@ -284,7 +296,9 @@ _store = _WindowStore()
 
 class _Stats:
     """Seconds and bytes of the cross-process path, summed over threads:
-    card-to-host staging of remote rows, their sends and flushes until
+    card-to-host staging of remote rows (the host-staged path's a row, the
+    put-plan path's one copy a put: ``plan_stage_*``), their sends and
+    flushes until
     they were handed to TCP (the wire), the waits for a remote mutex's
     grant, and the drain's host-to-card copies of what arrived.  Read by
     the benchmark and ``chip_smoke.py``."""
@@ -295,7 +309,8 @@ class _Stats:
 
     def reset(self) -> None:
         self.stage_s = self.wire_s = self.commit_s = self.mutex_s = 0.0
-        self.stage_bytes = self.commit_bytes = 0
+        self.plan_stage_s = 0.0
+        self.stage_bytes = self.commit_bytes = self.plan_stage_bytes = 0
 
     def add(self, **kv) -> None:
         with self.lock:
@@ -306,6 +321,8 @@ class _Stats:
         with self.lock:
             d = _store.distrib
             return {"stage_s": self.stage_s, "stage_bytes": self.stage_bytes,
+                    "plan_stage_s": self.plan_stage_s,
+                    "plan_stage_bytes": self.plan_stage_bytes,
                     "wire_s": self.wire_s, "mutex_s": self.mutex_s,
                     "commit_s": self.commit_s,
                     "commit_bytes": self.commit_bytes,
@@ -459,8 +476,10 @@ def async_armed() -> bool:
 
 def set_async_step(step: int) -> None:
     """Publish this process's training step: ages count against it, and
-    the trace tags carry it as their origin step.  (The JAX package also
-    ticks its link observatory here: ROADMAP item 21b.)"""
+    the trace tags carry it as their origin step.  It is the step boundary
+    of the link observatory (divergence, rates, SLO rules) and of the
+    tuner (a no-op unless ``BLUEFOG_TPU_TUNE=1``; the JAX package ticks its
+    tuner from the churn supervisor, which the port does not have)."""
     now = time.monotonic()
     with _async.lock:
         prev, _async._last_step_mono = _async._last_step_mono, now
@@ -470,6 +489,9 @@ def set_async_step(step: int) -> None:
             _async.step_period = dt if _async.step_period == 0.0 \
                 else 0.9 * _async.step_period + 0.1 * dt
     set_trace_origin_step(step)
+    linkobs.on_step(step)
+    from bluefog_tpu_torch.utils import tuner
+    tuner.tick(step)
 
 
 def async_step_lag() -> int:
@@ -539,15 +561,17 @@ _age_lock = threading.Lock()
 _age_minmax: Dict[int, list] = {}
 
 
-def _note_contribution(name: str, src: int, tag) -> None:
+def _note_contribution(name: str, src: int, tag, dst: int = -1) -> None:
     """One tagged contribution reached its staging slot: the flight
-    recorder's COMMIT event (the end of the tag's chain) and its age, the
-    receiver's wall clock less the tag's origin (exact on one host), into
-    ``bf_win_contribution_age_seconds`` and the freshest and stalest
+    recorder's COMMIT event (the end of the tag's chain), the link
+    observatory's delay sample of the edge ``src -> dst``, and its age,
+    the receiver's wall clock less the tag's origin (exact on one host),
+    into ``bf_win_contribution_age_seconds`` and the freshest and stalest
     gauges of its source."""
     if flightrec.enabled():
         flightrec.note(flightrec.COMMIT, src=tag[0], dst=src, seq=tag[1],
                        name=name)
+    linkobs.note_commit(src, dst, tag)
     if not telemetry.enabled():
         return
     age = max(0.0, (time.time_ns() // 1000 - tag[3]) / 1e6)
@@ -810,7 +834,11 @@ def _shutdown_transport() -> None:
     _store.distrib = None
     if d is not None:
         stall.set_peer_probe(None)
+        # The cached put plans route onto this transport's native sender:
+        # they die before it does.
+        xlaffi.invalidate()
         d.transport.stop()
+        linkobs.clear_all()
 
 
 # ---------------------------------------------------------------------------
@@ -826,7 +854,9 @@ _ef_lock = threading.Lock()
 
 
 def _drop_ef_residuals(name: Optional[str] = None) -> None:
-    """Forget sender residuals (every window's, or one freed window's)."""
+    """Forget sender residuals (every window's, or one freed window's),
+    the put plans' native ones and the plans with them."""
+    xlaffi.invalidate(name)
     with _ef_lock:
         if name is None:
             _ef_residuals.clear()
@@ -843,10 +873,16 @@ def _sparse_payload(name: str, src: int, dst: int, row: torch.Tensor,
     new residual."""
     flat = row.reshape(-1)
     key = (name, src, dst)
+    # A stream that switched from the put-plan path to this one would
+    # strand mass in the native residual store: take it (copy and erase)
+    # and fold it in; residuals add, so the merge is exact.
+    nat = xlaffi.take_native_residual(name, src, dst, flat.numel())
     with _ef_lock:
         res = _ef_residuals.get(key)
         v = flat + res if res is not None and res.shape == flat.shape \
             else flat.clone()
+        if nat is not None:
+            v += torch.from_numpy(nat).to(v.device)
         k = max(1, int(math.ceil(frac * v.numel())))
         if k >= v.numel():
             idx = torch.arange(v.numel(), device=v.device)
@@ -872,8 +908,9 @@ def _stage(win: _Window, key: tuple, row: torch.Tensor) -> np.ndarray:
                                             pin_memory=True)
     buf.copy_(row, non_blocking=True)
     torch.cuda.current_stream(row.device).synchronize()
-    stats.add(stage_s=time.perf_counter() - t0,
-              stage_bytes=row.numel() * row.element_size())
+    nbytes = row.numel() * row.element_size()
+    stats.add(stage_s=time.perf_counter() - t0, stage_bytes=nbytes)
+    xlaffi.count_host_copy(nbytes, "stage")
     return buf.view(torch.uint8).reshape(-1).numpy()
 
 
@@ -888,8 +925,12 @@ def _encode_row(win: _Window, op: int, src: int, dst: int,
     comp = config.get().win_compression
     f32 = row.dtype == torch.float32 and row.numel() > 0
     if f32 and comp.startswith("sparse") and op == OP_ACCUMULATE:
+        # The fraction under the tuner's override (empty with
+        # BLUEFOG_TPU_TUNE=0: the configured value, bitwise).
+        from bluefog_tpu_torch.utils import tuner
         return op | OP_SPARSE_FLAG, _sparse_payload(
-            win.name, src, dst, row, config.parse_sparse_frac(comp))
+            win.name, src, dst, row, tuner.override_float(
+                "sparse_frac", config.parse_sparse_frac(comp)))
     if f32 and comp == "bf16":
         if ("bf16", src) not in cache:
             cache[("bf16", src)] = _stage(
@@ -1243,7 +1284,7 @@ def _apply_inbound(op: int, name: str, src: int, dst: int, weight: float,
         if stale is not None:
             _note_stale([(src, stale)])
         if tag is not None:
-            _note_contribution(name, src, tag)
+            _note_contribution(name, src, tag, dst)
         if op == OP_GET_REPLY:
             with d.cv:
                 key = (name, dst, src)
@@ -1344,7 +1385,7 @@ def _commit_native_run(name: str, entries) -> None:
             if key not in win.staging:
                 continue
             if trace is not None:
-                noted.append((src, trace))
+                noted.append((src, dst, trace))
             if vals.size != expected or win.dtype != torch.float32:
                 _log.warning("window %r: folded entry of %d elements does "
                              "not match the %d-element row; dropped", name,
@@ -1374,8 +1415,8 @@ def _commit_native_run(name: str, entries) -> None:
                     win.p_staging[key] += keep * p_mass
             _divert_stale(win, key, row, p_mass, keep)
     _note_stale(stale_noted)
-    for src, trace in noted:
-        _note_contribution(name, src, trace)
+    for src, dst, trace in noted:
+        _note_contribution(name, src, trace, dst)
 
 
 def _apply_data_run(name: str, group) -> None:
@@ -1431,7 +1472,7 @@ def _apply_data_run(name: str, group) -> None:
                 if key not in win.staging:
                     continue
                 if tag is not None:
-                    noted.append((key[1], tag))
+                    noted.append((key[1], key[0], tag))
                 if replace:
                     win.staging[key] = scaled
                     win.versions[key] += ticks
@@ -1453,8 +1494,8 @@ def _apply_data_run(name: str, group) -> None:
                         win.p_staging[key] += keep * p_mass
                 _divert_stale(win, key, scaled, p_mass, keep)
     _note_stale(stale_noted)
-    for src, tag in noted:
-        _note_contribution(name, src, tag)
+    for src, dst, tag in noted:
+        _note_contribution(name, src, tag, dst)
 
 
 # ---------------------------------------------------------------------------
@@ -1667,6 +1708,27 @@ def _do_put(name: str, tensor: torch.Tensor, edges: Dict[tuple, float],
            if remote_procs else None)
     op = OP_ACCUMULATE if accumulate else OP_PUT
     kind = "win_accumulate" if accumulate else "win_put"
+    # The put-plan path (BLUEFOG_TPU_WIN_XLA): every remote edge in one
+    # native plan run over one staging copy of the owned rows; the
+    # host-staged loop below is its oracle (=0) and takes what a plan
+    # cannot serve, with the same frames.
+    plan = None
+    if remote_procs and xlaffi.keep_device_ok(tensor, win):
+        remote_edges = tuple(
+            ((src, dst), w) for (src, dst), w in edges.items()
+            if _owns(src) and not _owns(dst))
+        plan = xlaffi.prepare_put(d, win, name, op, remote_edges,
+                                  per_edge=require_mutex,
+                                  compact=tensor.device.type == "cuda")
+    if plan is not None:
+        t0 = time.perf_counter()
+        _plan_put(win, name, tensor, edges, plan, accumulate,
+                  require_mutex, kind)
+        _flush_transport(remote_procs, since=tok)
+        stats.add(wire_s=time.perf_counter() - t0)
+        if self_weight is not None:
+            _publish_self(win, tensor, self_weight)
+        return
     with (win.put_stage_lock if remote_procs else contextlib.nullcontext()):
         staged: dict = {}
         wire_s = 0.0
@@ -1690,6 +1752,61 @@ def _do_put(name: str, tensor: torch.Tensor, edges: Dict[tuple, float],
             stats.add(wire_s=wire_s + time.perf_counter() - t0)
     if self_weight is not None:
         _publish_self(win, tensor, self_weight)
+
+
+def _plan_put(win: _Window, name: str, tensor: torch.Tensor,
+              edges: Dict[tuple, float], plan, accumulate: bool,
+              require_mutex: bool, kind: str) -> None:
+    """One put through its plan: the local edges keep the store write,
+    the remote edges run the plan on one staging copy (``xlaffi.
+    stage_rows``), each inside its edge's mutex with ``require_mutex``
+    (a plan an edge then).  The sparse residuals the host-staged path left
+    move to the native store first."""
+    for (src, dst), w in edges.items():
+        if _owns(src) and _owns(dst):
+            with op_span(f"{kind}.{name}.{src}->{dst}", "COMMUNICATE"):
+                _do_put_edge(win, tensor, win.row_of[src], src, dst, w,
+                             accumulate, require_mutex)
+    d = _store.distrib
+    tx = d.transport._tx
+    if not tx:
+        raise ConnectionError(f"{kind}({name!r}): window transport is "
+                              "stopping")
+    xlaffi.migrate_residuals(plan, _ef_residuals, _ef_lock)
+    xlaffi.sync_trace_period()
+    with plan.stage_lock:
+        buf = xlaffi.stage_rows(plan, tensor, win)
+        ptr, total = buf.data_ptr(), buf.numel()
+        with plan.dispatch_lock, \
+                op_span(f"{kind}.{name}.plan", "COMMUNICATE"):
+            xlaffi.refresh_p(plan, win, _store.associated_p_enabled)
+            for pid, grp in plan.groups:
+                if require_mutex:
+                    (src, dst), _w = grp[0]
+                    with _remote_mutex(name, dst, src):
+                        _run_plan_group(win, name, plan, pid, grp, tx, ptr,
+                                        total)
+                else:
+                    _run_plan_group(win, name, plan, pid, grp, tx, ptr,
+                                    total)
+    d.transport.count_tx(plan.total_bytes)
+    xlaffi.record_dispatch(plan)
+
+
+def _run_plan_group(win: _Window, name: str, plan, pid: int, grp, tx: int,
+                    ptr: int, total: int) -> None:
+    """Run one plan group, rebuilding it once if the native plan vanished
+    between the cache fetch and the run (nothing was sent then)."""
+    try:
+        xlaffi.run_group(pid, tx, ptr, total)
+    except xlaffi.PlanVanished:
+        fresh = xlaffi.prepare_put(_store.distrib, win, name, plan.op,
+                                   tuple(grp), per_edge=False,
+                                   compact=plan.compact)
+        if fresh is None:
+            raise
+        xlaffi.refresh_p(fresh, win, _store.associated_p_enabled)
+        xlaffi.run_group(fresh.groups[0][0], tx, ptr, total)
 
 
 def _send_put_edge(win: _Window, name: str, row: torch.Tensor, src: int,
@@ -1763,6 +1880,36 @@ def _publish_self(win: _Window, tensor: torch.Tensor, self_weight) -> None:
             win.main_versions[r] += 1
             if _store.associated_p_enabled:
                 win.p_main[r] *= s
+
+
+def _fused_host_finish(name: str, payload: torch.Tensor,
+                       edges: Dict[tuple, float], *, accumulate: bool,
+                       self_weight=None, require_mutex: bool = False,
+                       remote_procs=None, since=None,
+                       flush: bool = True) -> None:
+    """The host half of one fused-program put (``ops/fused_step.py``): the
+    program ran the remote edges' plan; what :func:`_do_put` does around
+    that run stays here, in its order, so the window state a fused step
+    leaves is the eager one's: the local edges' staging writes, the scoped
+    flush (every remote edge handed to TCP before the put counts as done)
+    and the self-publish.  ``flush=False`` leaves the flush to a caller
+    that issues one for every bucket (a wire boundary, not a state
+    change)."""
+    try:
+        win = _store.get(name)
+    except KeyError:
+        return  # window freed after dispatch
+    kind = "win_accumulate" if accumulate else "win_put"
+    with _stream(win.device):
+        for (src, dst), w in edges.items():
+            if _owns(src) and _owns(dst):
+                with op_span(f"{kind}.{name}.{src}->{dst}", "COMMUNICATE"):
+                    _do_put_edge(win, payload, win.row_of[src], src, dst, w,
+                                 accumulate, require_mutex)
+        if remote_procs and flush:
+            _flush_transport(remote_procs, since=since)
+        if self_weight is not None:
+            _publish_self(win, payload, self_weight)
 
 
 def _put_nonblocking(tensor, name: str, self_weight, dst_weights,

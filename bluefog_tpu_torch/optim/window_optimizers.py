@@ -64,11 +64,21 @@ L2 distance between its adapted parameters and the ``win_update`` result,
 reduced on the device, ``n`` floats read back (the JAX package reads both
 to the host).  The async mode sets ``bf_async_step_lag``.
 
-Left out, each raising an error that names its ROADMAP item: the fused
-step (``fused=True``, or ``fused=None`` under ``BLUEFOG_TPU_FUSED_STEP=1``,
-item 19b; the variable defaults to 0 in the JAX package, whose eager step,
-ported here, is the bitwise oracle) and its fusion buckets, and the churn
-hooks (item 20).
+Fusion buckets and the fused step: ``fusion_buckets=k`` splits the
+replicated leaves (the parameters, or ``leaf_shapes`` of one flat
+parameter) into at most ``k`` contiguous byte-balanced buckets
+(``optim.functional._bucket_groups``), one window each
+(``<prefix>.fusedb<i>``).  ``fused=True`` (or ``fused=None`` under
+``BLUEFOG_TPU_FUSED_STEP=1``) runs the win_put and push-sum steps through
+``ops/fused_step.py``: the base update, each bucket's flat and its put
+plan as one captured program (a CUDA graph on the card), then the host's
+local edges, flush, self-publish and drain; the parameters come out bit
+for bit those of the eager step.  ``fused=False`` pins the eager step, and
+a configuration the fused step cannot take warns once and runs the eager
+step.
+
+Left out, raising an error that names its ROADMAP item: the churn hooks
+(item 20).
 """
 
 from __future__ import annotations
@@ -97,6 +107,17 @@ def _refuse(what: str, item: str) -> None:
                               f"{item})")
 
 
+def _merged_ranges(ranges) -> List[tuple]:
+    """Column ranges with adjacent ones merged."""
+    out: List[list] = []
+    for a, b in ranges:
+        if out and out[-1][1] == a:
+            out[-1][1] = b
+        else:
+            out.append([a, b])
+    return [tuple(r) for r in out]
+
+
 class _WindowOptimizerBase:
     """The windows (one fused, or one a parameter) and the local adapt."""
 
@@ -110,12 +131,6 @@ class _WindowOptimizerBase:
         if layout not in ("auto", "rank", "owned"):
             raise ValueError(
                 f"layout must be 'auto', 'rank' or 'owned', got {layout!r}")
-        if fused or (fused is None and config.get().fused_step):
-            _refuse("the fused window step (fused=True or "
-                    "BLUEFOG_TPU_FUSED_STEP=1)", "item 19b")
-        if fusion_buckets is not None:
-            _refuse("window fusion buckets (the fused step's per-bucket "
-                    "puts)", "item 19b")
         if config.get().churn:
             _refuse("the churn supervisor hooks (BLUEFOG_TPU_CHURN=1)",
                     "item 20")
@@ -133,9 +148,15 @@ class _WindowOptimizerBase:
                             else [tuple(int(d) for d in shape)
                                   for shape in leaf_shapes])
         self.step_count = 0
+        # None defers to BLUEFOG_TPU_FUSED_STEP, False pins the eager step.
+        self.fused = fused
+        self.fusion_buckets = (None if fusion_buckets is None
+                               else int(fusion_buckets))
+        self._fused_impl = None      # ops.fused_step.FusedStep, at first use
         self._names: Optional[List[str]] = None
         self._shard_plan = None
         self._sharded_name = None
+        self._bucket_ranges: List[List[tuple]] = []
         self.init()
 
     @property
@@ -153,19 +174,41 @@ class _WindowOptimizerBase:
         return torch.cat([p.detach().reshape(n, -1) for p in ps], dim=1)
 
     def _payloads(self) -> List[torch.Tensor]:
-        """The rank-major rows to ship, one a window: every parameter's
-        row (fused), or the parameters as they are; with a shard plan, the
-        replicated leaves' columns, then each rank's own slices of the
-        sharded leaves (:meth:`_shard_rows`)."""
+        """The rank-major rows to ship, one a window: each bucket's columns
+        of every parameter's row (fused; one bucket: the whole row), or
+        the parameters as they are; with a shard plan the buckets cover the
+        replicated leaves, and each rank's own slices of the sharded leaves
+        follow (:meth:`_shard_rows`)."""
         ps = self.params
         if not self.fuse:
             return list(ps)
         flat = self._flat()
-        if self._shard_plan is None:
-            return [flat]
-        rep = [flat[:, a:b] for a, b in self._rep_ranges]
-        return [rep[0] if len(rep) == 1 else torch.cat(rep, dim=1),
-                self._shard_rows(flat)]
+        out = [self._columns(flat, rngs) for rngs in self._bucket_ranges]
+        if self._shard_plan is not None:
+            out.append(self._shard_rows(flat))
+        return out
+
+    @staticmethod
+    def _columns(flat: torch.Tensor, rngs) -> torch.Tensor:
+        """The columns ``rngs`` of ``flat``: ``flat`` itself, a view, or
+        their concatenation."""
+        if len(rngs) == 1:
+            a, b = rngs[0]
+            return flat if (a, b) == (0, flat.shape[1]) else flat[:, a:b]
+        return torch.cat([flat[:, a:b] for a, b in rngs], dim=1)
+
+    def _write_columns(self, i: int, a: int, b: int,
+                       src: torch.Tensor) -> None:
+        """Row ``i``'s columns ``[a, b)`` of the parameters' rows (in the
+        concatenated order of :meth:`_flat`) set to ``src``."""
+        for p, c0, c1 in zip(self.params, self._pcols, self._pcols[1:]):
+            lo, hi = max(a, c0), min(b, c1)
+            if lo >= hi:
+                continue
+            if (lo, hi) == (c0, c1):
+                p[i].copy_(src[lo - a:hi - a].view(p.shape[1:]))
+            else:
+                p[i].view(-1)[lo - c0:hi - c0].copy_(src[lo - a:hi - a])
 
     def _own_slices(self, flat: torch.Tensor, row: int) -> List[torch.Tensor]:
         """Row ``row``'s own slice of each sharded leaf (views of ``flat``,
@@ -206,29 +249,31 @@ class _WindowOptimizerBase:
                 for i, row in zip(self._rows_of_owned, rows):
                     p[i].copy_(row)
             return
+        nb = len(self._bucket_ranges)
         if self._shard_plan is not None:
-            self._rebuild_sharded(*combined)
+            self._rebuild_sharded(combined[:nb], combined[nb])
             return
-        (rows,) = combined
-        for i, row in zip(self._rows_of_owned, rows):
-            off = 0
-            for p in ps:
-                size = p[i].numel()
-                p[i].copy_(row[off:off + size].view(p.shape[1:]))
-                off += size
+        for rngs, rows in zip(self._bucket_ranges, combined):
+            for i, row in zip(self._rows_of_owned, rows):
+                off = 0
+                for a, b in rngs:
+                    self._write_columns(i, a, b, row[off:off + b - a])
+                    off += b - a
 
     @torch.no_grad()
     def _rebuild_sharded(self, rep_rows, shard_rows) -> None:
         """:meth:`_rebuild` under a shard plan: the replicated leaves'
-        columns, then the own slices; every other column stays."""
+        columns (a window a bucket), then the own slices; every other
+        column stays."""
         ps = self.params
         single = len(ps) == 1 and ps[0].is_contiguous()
         flat = self._flat()
-        for i, rep, sh in zip(self._rows_of_owned, rep_rows, shard_rows):
-            off = 0
-            for a, b in self._rep_ranges:
-                flat[i, a:b].copy_(rep[off:off + b - a])
-                off += b - a
+        for k, (i, sh) in enumerate(zip(self._rows_of_owned, shard_rows)):
+            for rngs, rows in zip(self._bucket_ranges, rep_rows):
+                off = 0
+                for a, b in rngs:
+                    flat[i, a:b].copy_(rows[k][off:off + b - a])
+                    off += b - a
             off = 0
             for v in self._own_slices(flat, i):
                 v.copy_(sh[off:off + v.numel()].view(v.shape))
@@ -278,8 +323,6 @@ class _WindowOptimizerBase:
         if self._starts[-1] != width:
             raise ValueError(f"leaf_shapes cover {self._starts[-1]} columns, "
                              f"the parameters {width}")
-        self._rep_ranges = [(self._starts[i], self._starts[i + 1])
-                            for i, m in enumerate(plan.mask) if not m]
         self._shard_leaf_idx = [i for i, m in enumerate(plan.mask) if m]
         self._shard_width = sum(int(np.prod(shapes[i])) // plan.n_shards
                                 for i in self._shard_leaf_idx)
@@ -288,6 +331,46 @@ class _WindowOptimizerBase:
         self._shard_edges = put_edges
         self._shard_update_kwargs = {"self_weight": self_w,
                                      "neighbor_weights": nbr_w}
+
+    def _resolve_buckets(self) -> None:
+        """The fusion buckets: the column ranges of each replicated
+        window's row (the JAX package's ``_buckets``).  The leaves are the
+        shard plan's or ``leaf_shapes`` (one flat parameter), else the
+        parameters; ``fusion_buckets > 1`` partitions the replicated ones
+        into contiguous byte-balanced groups, else they are one bucket."""
+        ps = self.params
+        widths = [p[0].numel() if p.dim() else 1 for p in ps]
+        self._pcols = [0]
+        for w in widths:
+            self._pcols.append(self._pcols[-1] + w)
+        self._bucket_ranges = []
+        if not self.fuse:
+            return
+        plan = self._shard_plan
+        split = self.fusion_buckets is not None and self.fusion_buckets > 1
+        if plan is not None:
+            shapes = self._leaf_shapes
+        elif split and self.leaf_shapes is not None:
+            shapes = self.leaf_shapes
+        else:
+            shapes = [tuple(p.shape[1:]) for p in ps]
+        sizes = [int(np.prod(s)) for s in shapes]
+        starts = np.concatenate([[0], np.cumsum(sizes)]).astype(int)
+        if int(starts[-1]) != self._pcols[-1]:
+            raise ValueError(f"leaf_shapes cover {int(starts[-1])} columns, "
+                             f"the parameters {self._pcols[-1]}")
+        rep = [i for i in range(len(shapes))
+               if plan is None or not plan.mask[i]]
+        if split and rep:
+            from bluefog_tpu_torch.optim.functional import _bucket_groups
+            item = ps[0].element_size()
+            groups = [[rep[j] for j in g] for g in _bucket_groups(
+                [sizes[i] * item for i in rep], self.fusion_buckets)]
+        else:
+            groups = [rep] if rep else []
+        self._bucket_ranges = [
+            _merged_ranges((int(starts[i]), int(starts[i + 1])) for i in g)
+            for g in groups]
 
     def _put_weights(self, name: str, dst_weights):
         """A window's put destinations: the sharded window's in-group
@@ -339,9 +422,13 @@ class _WindowOptimizerBase:
         self._rows_of_owned = (self._owned if self._layout == "rank"
                                else list(range(len(self._owned))))
         self._resolve_shard_plan()
+        self._resolve_buckets()
         payloads = self._payloads()
         if self.fuse:
-            self._names = [f"{self.window_prefix}.fused"]
+            nb = len(self._bucket_ranges)
+            self._names = ([f"{self.window_prefix}.fused"] if nb == 1 else
+                           [f"{self.window_prefix}.fusedb{i}"
+                            for i in range(nb)])
             if self._shard_plan is not None:
                 self._sharded_name = f"{self.window_prefix}.sharded"
                 self._names.append(self._sharded_name)
@@ -395,6 +482,9 @@ class _WindowOptimizerBase:
         for name in self._names or []:
             W.win_free(name)
         self._names = None
+        if self._fused_impl is not None:
+            # Its programs run the freed windows' plans.
+            self._fused_impl.close()
 
     def _quiesce(self) -> None:
         """Complete every window op in flight and, across processes, fence
@@ -438,11 +528,46 @@ class _WindowOptimizerBase:
 
     def step(self, **kw) -> None:
         """One step: :meth:`adapt`, then :meth:`combine` (``kw`` goes to
-        the combine), timed."""
+        the combine), timed; or, when the fused step is wanted and this
+        configuration can take it, the same step through
+        ``ops/fused_step.py``."""
         t0 = telemetry.start_timer()
-        self.adapt()
-        self.combine(**kw)
+        if not (self._fused_wanted() and self._fused_step(**kw)):
+            self.adapt()
+            self.combine(**kw)
         self._record_step_time(t0)
+
+    # -- the fused step (ops/fused_step.py) --------------------------------
+    def _fused_wanted(self) -> bool:
+        """Does this step try the fused step?  ``fused`` True or False
+        decides; None defers to ``BLUEFOG_TPU_FUSED_STEP`` (one config
+        check: off, nothing fused is imported or built)."""
+        if self.fused is not None:
+            return bool(self.fused)
+        return bool(config.get().fused_step)
+
+    def _fused_step(self, **kw) -> bool:
+        """The family's fused step; False runs the eager step (the pull
+        family has none, as in the JAX package)."""
+        return False
+
+    def _fused_try_step(self, *, family: str, dst_weights=None,
+                        self_weight=None, require_mutex: bool = True,
+                        pre_drain=None) -> bool:
+        """One step through the fused program; False (after one warning a
+        reason) when this configuration cannot take it, and the caller
+        runs the eager step, which stays the bitwise oracle."""
+        from bluefog_tpu_torch.ops import fused_step as F
+        if self._fused_impl is None:
+            self._fused_impl = F.FusedStep(self)
+        try:
+            self._fused_impl.step(family=family, dst_weights=dst_weights,
+                                  self_weight=self_weight,
+                                  require_mutex=require_mutex,
+                                  pre_drain=pre_drain)
+        except F.FusedFallback:
+            return False
+        return True
 
     def _record_step_time(self, t0) -> None:
         """The step's host time into ``bf_optimizer_step_seconds{family=
@@ -582,6 +707,16 @@ class DistributedWinPutOptimizer(_WindowOptimizerBase):
             self._rebuild(combined)
         self.step_count += 1
 
+    def _fused_step(self, *, dst_weights=None,
+                    require_mutex: bool = True) -> bool:
+        # (The async mode is not fused: its step clock stays the eager
+        # combine's.)
+        if not self._communicates():
+            return False
+        return self._fused_try_step(
+            family="put", dst_weights=dst_weights,
+            require_mutex=require_mutex)
+
     def _drain_pending(self) -> None:
         for h in self._pending:   # overlapped puts land first
             W.win_wait(h)
@@ -715,6 +850,31 @@ class DistributedPushSumOptimizer(_WindowOptimizerBase):
         self._maybe_sample_consensus(payloads, combined)
         self._rebuild(combined)
         self.step_count += 1
+
+    def _fused_step(self, *, dst_weights=None,
+                    require_mutex: bool = True) -> bool:
+        if dst_weights is None:
+            dst_weights = self._outgoing_weights()
+        fence_now = (not self._async_on and self.auto_collect_rounds > 0
+                     and W._store.distrib is not None
+                     and (self.step_count + 1)
+                     % self.auto_collect_rounds == 0)
+        backstop_now = self._async_collect_due()
+
+        def pre_drain():
+            # The eager step's fence and backstop, between the program and
+            # the collect.
+            if fence_now or backstop_now:
+                W.win_fence()
+                if backstop_now:
+                    self.backstops += 1
+                    self.folded_edges.append(sum(
+                        W.win_fold_stale_residuals(name)
+                        for name in self._names))
+        return self._fused_try_step(
+            family="pushsum", dst_weights=dst_weights,
+            self_weight=1.0 / (self._out_degree() + 1.0),
+            require_mutex=require_mutex, pre_drain=pre_drain)
 
     def collect(self, *, require_mutex: bool = True) -> None:
         """Fold every contribution still in the windows into the

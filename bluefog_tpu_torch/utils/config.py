@@ -6,12 +6,10 @@ read on first access and cached; call :func:`reload` after changing
 ``os.environ``, or scope a change with :func:`override` (which leaves
 ``os.environ`` alone).  The observability knobs (timeline, log level, stall
 watchdog, telemetry, flight recorder, step profiler, fusion-bucket cap) are
-the JAX package's, with its names and defaults.  The tuner's, SLO's, churn's
-and gang's knobs come with ROADMAP items 21b and 20; until then the tuner's
-overrides are the identity they are with ``BLUEFOG_TPU_TUNE=0``, the JAX
-package's default, and ``BLUEFOG_TPU_WIN_STRIPES=auto`` is the JAX
-package's static oracle: the placement model's ``dcn_link_cost``, 1 without
-a model.
+the JAX package's, with its names and defaults, and so are the link
+observatory's, the SLO engine's, the tuner's, the device-side put plans'
+and the fused step's with its probes.  The churn and gang knobs come with
+ROADMAP item 20.
 
 | Variable | Default | Meaning |
 |---|---|---|
@@ -43,7 +41,14 @@ a model.
 | BLUEFOG_TPU_WIN_RETRY_BACKOFF_MS | 50 | base of the jittered exponential retry backoff |
 | BLUEFOG_TPU_WIN_TIMEOUT       | 300   | seconds a window op waits for a peer (fence acks, get replies, mutex grants, flushes) |
 | BLUEFOG_TPU_TRACE_SAMPLE      | 0     | wire trace-tag sampling: "1/N" (or plain "N") tags every Nth put/accumulate with a (src, seq, origin-time, origin-step) trailer; 0/unset = off, wire bitwise identical |
-| BLUEFOG_TPU_FUSED_STEP        | 0     | whole-step compilation of the window optimizers (not ported: item 19b) |
+| BLUEFOG_TPU_WIN_XLA           | 1     | the put-plan path (ops/xlaffi.py + native/src/xlacall.cc): a put whose remote edges all ride the native transport copies its owned rows once into a pinned buffer and encodes them in C; 0 pins the host-staged put path (the bitwise oracle) |
+| BLUEFOG_TPU_FUSED_STEP        | 0     | the fused window step (ops/fused_step.py): update, bucket flats and per-bucket put plans as one captured program (a CUDA graph on the card); 0 pins the eager step (the bitwise oracle); 1 falls back to eager (one warning) where the configuration cannot be lowered |
+| BLUEFOG_TPU_PROBE             | 1     | probes of the fused step (utils/probes.py): host nodes noting the program's seams into the native ring on one steady clock; 0 records none |
+| BLUEFOG_TPU_LINK_OBS          | 1     | 0: disable the link observatory (utils/linkobs.py): no per-edge delay/jitter/goodput/divergence estimation, no SLO evaluation, bitwise inert |
+| BLUEFOG_TPU_SLO               | unset | SLO rules, `<metric><op><value>` joined by `;` (e.g. `link_delay_us>50000;step_lag>128`), evaluated at step boundaries; a breach degrades /healthz, bumps bf_slo_breaches_total and dumps the flight recorder |
+| BLUEFOG_TPU_TUNE              | 0     | 1: arm the tuner (utils/tuner.py): measured link costs re-price placement (MeasuredModel) and adapt transport knobs; 0 leaves every knob and modeled cost as configured, bitwise |
+| BLUEFOG_TPU_TUNE_DIVERGENCE   | 3.0   | measured-vs-applied divergence ratio that opens a tuner epoch |
+| BLUEFOG_TPU_TUNE_DWELL_STEPS  | 20    | minimum steps between tuner epochs, and the revert-on-regression probation window |
 | BLUEFOG_TPU_ASYNC             | 0     | 1: barrier-free async window-optimizer mode (no per-step fence, bounded-staleness policy); 0 = bitwise lockstep |
 | BLUEFOG_TPU_ASYNC_STALENESS_STEPS | 0 | staleness bound k (origin steps); 0 = unbounded (accept everything) |
 | BLUEFOG_TPU_ASYNC_STALENESS_POLICY | reject | reject (full mass to the stale-residual store) or downweight:<alpha> (alpha enters staging, 1-alpha to the store) |
@@ -157,6 +162,16 @@ def _validated_staleness_policy(value: str) -> str:
     return value
 
 
+def _validated_slo(value: Optional[str]) -> Optional[str]:
+    """``BLUEFOG_TPU_SLO``, parsed once at load so that a malformed rule
+    stops the run here (``utils/linkobs.py`` owns the grammar)."""
+    if value is None or not value.strip():
+        return None
+    from bluefog_tpu_torch.utils.linkobs import parse_slo_rules
+    parse_slo_rules(value)
+    return value
+
+
 def _parse_trace_sample(raw: Optional[str]) -> int:
     """``BLUEFOG_TPU_TRACE_SAMPLE``: ``"1/N"`` or a plain period ``N``
     tags every Nth data message; ``0``, ``off``, empty or unset disable
@@ -249,7 +264,14 @@ class Config:
     win_retry_backoff_ms: float
     win_timeout: float
     trace_sample: int
+    win_xla: bool
     fused_step: bool
+    probe: bool
+    link_obs: bool
+    slo: Optional[str]
+    tune: bool
+    tune_divergence: float
+    tune_dwell_steps: int
     async_mode: bool
     async_staleness_steps: int
     async_staleness_policy: str
@@ -319,7 +341,16 @@ class Config:
             win_timeout=float(env.get("BLUEFOG_TPU_WIN_TIMEOUT", "300")),
             trace_sample=_parse_trace_sample(
                 env.get("BLUEFOG_TPU_TRACE_SAMPLE")),
+            win_xla=_flag("BLUEFOG_TPU_WIN_XLA", default=True),
             fused_step=_flag("BLUEFOG_TPU_FUSED_STEP"),
+            probe=_flag("BLUEFOG_TPU_PROBE", default=True),
+            link_obs=_flag("BLUEFOG_TPU_LINK_OBS", default=True),
+            slo=_validated_slo(env.get("BLUEFOG_TPU_SLO")),
+            tune=_flag("BLUEFOG_TPU_TUNE"),
+            tune_divergence=float(env.get("BLUEFOG_TPU_TUNE_DIVERGENCE",
+                                          "3.0")),
+            tune_dwell_steps=int(env.get("BLUEFOG_TPU_TUNE_DWELL_STEPS",
+                                         "20")),
             async_mode=_flag("BLUEFOG_TPU_ASYNC"),
             async_staleness_steps=int(env.get(
                 "BLUEFOG_TPU_ASYNC_STALENESS_STEPS", "0")),

@@ -22,6 +22,13 @@ the port's ``allgather`` and emits a straggler report (per-rank z-scores,
 the slowest rank, the ``bf_straggler_score`` gauge), which ``/healthz``
 shows.  The gather is collective across processes: every process profiles
 the same steps.  Nothing here runs with ``BLUEFOG_TPU_TELEMETRY=0``.
+
+A fused window step (``ops/fused_step.py``) is one captured program,
+opaque to host spans: its probes (``utils/probes.py``) attribute its
+phases through :meth:`StepProfiler.attribute`.  A fused step that ran
+without that attribution labels the step's remainder ``fused-step``
+(:data:`FUSED_PHASE`) instead of ``grad-compute``, and trips the flag
+:func:`attribution_degraded` that ``/healthz`` reports.
 """
 
 from __future__ import annotations
@@ -54,6 +61,10 @@ __all__ = [
 PHASES = ("grad-compute", "gossip-communicate", "optimizer-update",
           "host-sync")
 
+# The remainder of a profiled step that a fused program served without
+# probe attribution: one captured program, composition unknown.
+FUSED_PHASE = "fused-step"
+
 def _classify_span(op_name: str, span_phase: str) -> str:
     """Map a ``timeline.op_span`` (op, phase) pair to a profiler phase.
 
@@ -76,11 +87,19 @@ _active: Optional["StepProfiler"] = None
 _state_lock = threading.Lock()
 _step_count = 0          # profiled steps seen (straggler-gather period base)
 _last_report: Optional[dict] = None
+_degraded = False        # a fused step ran without probe attribution
 
 
 def active() -> Optional["StepProfiler"]:
     """The StepProfiler currently wrapping a step, or None."""
     return _active
+
+
+def attribution_degraded() -> bool:
+    """True once a profiled fused step ran without probe attribution
+    (``BLUEFOG_TPU_PROBE=0``): its phase histograms carry an opaque
+    ``fused-step`` bucket, and ``/healthz`` says so."""
+    return _degraded
 
 
 def last_straggler_report() -> Optional[dict]:
@@ -91,10 +110,11 @@ def last_straggler_report() -> Optional[dict]:
 
 
 def _reset_for_tests() -> None:
-    global _active, _step_count, _last_report
+    global _active, _step_count, _last_report, _degraded
     _active = None
     _step_count = 0
     _last_report = None
+    _degraded = False
     _uninstall_hook()
 
 
@@ -168,6 +188,20 @@ class StepProfiler:
         self._t0: Optional[float] = None
         self._enabled = False
         self._prev: Optional[StepProfiler] = None
+        self._fused = False
+        self._fused_attributed = False
+
+    def note_fused(self, attributed: bool) -> None:
+        """A fused program served this step; ``attributed`` says whether
+        its probes reconciled real phases into it.  Without them the
+        remainder is labeled ``fused-step`` and the module's degraded flag
+        trips."""
+        global _degraded
+        self._fused = True
+        if attributed:
+            self._fused_attributed = True
+        else:
+            _degraded = True
 
     def attribute(self, phase: str, seconds: float) -> None:
         """Add ``seconds`` of this step's wall time to ``phase``."""
@@ -223,8 +257,13 @@ class StepProfiler:
                 _uninstall_hook()
         attributed = sum(self.phases().values())
         if total > attributed:
-            # The step's own compute: everything no framework span claimed.
-            self.attribute("grad-compute", total - attributed)
+            # The step's own compute: everything no framework span claimed;
+            # a fused program without probe attribution is the opaque
+            # ``fused-step`` instead.
+            remainder = (FUSED_PHASE
+                         if self._fused and not self._fused_attributed
+                         else "grad-compute")
+            self.attribute(remainder, total - attributed)
         for ph, dt in sorted(self.phases().items()):
             telemetry.observe("bf_step_phase_seconds", dt, phase=ph)
         telemetry.observe("bf_step_seconds", total)

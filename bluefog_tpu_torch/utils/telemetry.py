@@ -221,6 +221,16 @@ def observe_since(t0: Optional[float], name: str,
     return dt
 
 
+def histogram_bucket_counts(name: str, **labels) -> Optional[List[float]]:
+    """The raw cumulative bucket counts of a recorded histogram (None with
+    no observations): two snapshots' difference is exactly what was
+    observed in between (the tuner's revert-on-regression medians)."""
+    key = _key(name, labels)
+    with _registry.lock:
+        h = _registry.hists.get(key)
+        return None if h is None else list(h[0])
+
+
 def histogram_percentiles(name: str, qs=(50.0, 95.0, 99.0),
                           **labels) -> Optional[Dict[float, float]]:
     """Approximate percentiles of a recorded histogram (``{q: seconds}``),
@@ -457,10 +467,11 @@ def health() -> dict:
     """Liveness summary for ``/healthz``: the stall watchdog's overdue
     waits, the window transport's unreachable-peer probe, the latest
     cross-rank straggler report, the transport's coalescing, queue depths
-    and decode pool, and the async window mode's block.  The JAX package's
-    ``membership``, ``gang_directory``, ``links`` and ``tuner`` blocks come
-    with items 20 and 21b; until then they are absent, as they are there
-    when those subsystems are off."""
+    and decode pool, the async window mode's block, the link observatory's
+    ``links`` block (a latched SLO breach degrades the status) and the
+    tuner's.  The JAX package's ``membership`` and ``gang_directory``
+    blocks come with item 20; until then they are absent, as they are
+    there when those subsystems are off."""
     from bluefog_tpu_torch.utils import stall
     overdue = stall._monitor.overdue_ops()
     body = {
@@ -472,6 +483,13 @@ def health() -> dict:
     from bluefog_tpu_torch.utils import profiler
     straggler = profiler.last_straggler_report()
     if straggler is not None:
+        if profiler.attribution_degraded():
+            # A fused step ran without probe attribution: the phase
+            # histograms carry an opaque fused-step bucket.
+            straggler["attribution"] = (
+                "degraded: fused steps unattributed (no in-program "
+                "probes); phase histograms carry an opaque fused-step "
+                "bucket")
         body["straggler"] = straggler
     # Transport coalescing: sub-messages a native send (1.0: nothing
     # coalesces) and the deepest per-peer backlog after a drain.
@@ -522,6 +540,26 @@ def health() -> dict:
         if dwn:
             async_block["stale_downweighted"] = dwn
         body["async"] = async_block
+    # The link observatory: worst edge, max divergence, the SLO engine's
+    # state; absent with BLUEFOG_TPU_LINK_OBS=0 or nothing observed.
+    try:
+        from bluefog_tpu_torch.utils import linkobs
+        links = linkobs.health_summary()
+    except Exception:  # noqa: BLE001 — health must render regardless
+        links = None
+    if links is not None:
+        body["links"] = links
+        if links.get("slo", {}).get("breached"):
+            body["status"] = "degraded"
+    # The tuner's epoch, knobs and probation; absent unless
+    # BLUEFOG_TPU_TUNE=1.
+    try:
+        from bluefog_tpu_torch.utils import tuner
+        tune = tuner.health_summary()
+    except Exception:  # noqa: BLE001 — health must render regardless
+        tune = None
+    if tune is not None:
+        body["tuner"] = tune
     probe = stall._peer_probe
     if probe is not None:
         try:

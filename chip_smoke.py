@@ -150,12 +150,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 18. ``ulysses_reference`` — the same for Ulysses all-to-all attention (one
    launch of each kernel a layer, on the gathered sequence).
 19. ``ring_train`` — the slice's main path: ``long_context_training.
-   SequenceParallelLM`` at the 1.3B LM's widths (24 layers, width 2048, 16
-   heads of 128, vocab 32000, RoPE; 1,339,131,904 parameters), bf16 over
+   SequenceParallelLM`` at the 1.3B LM's widths (``RING_LAYERS`` = 12
+   layers, cut from 24 for the smoke's time, width 2048, 16 heads of 128,
+   vocab 32000, RoPE; 24 layers are 1,339,131,904 parameters), bf16 over
    float32 parameters, full remat, the chunked loss, Adam, one sequence of
-   16,384 tokens over 4 rank-major ring shards of 4,096, 5 steps: step ms
+   16,384 tokens over 4 rank-major ring shards of 4,096, ``RING_STEPS`` =
+   3 steps (cut from 5 for the smoke's time): step ms
    (the first step left out), tokens/s, peak memory, launches (K1 2 x 4
-   hops x 24 layers a step, K2 and K3 4 x 24) and a ``profile_step``
+   hops x 12 layers a step, K2 and K3 4 x 12) and a ``profile_step``
    profile of one more step (device idle share, K1-K3's device time).
 20. ``ulysses_train`` — the same LM at 4 layers through Ulysses, with a
    ``profile_step`` profile of one more step: the copies of its two moves
@@ -191,12 +193,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    each kernel a step; a ``profile_step`` profile of one more step (idle
    share, K1-K3, the tp sums ``tp::row_sum``).
 26. ``pp_train`` — 1F1B (``parallel.pipeline.pipeline_train_step``) of the
-   same model's 24 blocks in 4 rank-major stages of 6, 8 microbatches of
-   one 2048-token sequence, MSE against a synthetic target, 3 SGD steps:
-   the first step's loss and gradients against autograd through the 24
-   blocks in sequence (``REF_LOGITS_TOL``, ``REF_GRAD_TOL``), step ms,
-   tokens/s, the 22 ticks, peak memory under 80 GB, launches K1 2 x 24 x 8
-   and K2, K3 24 x 8 a step; ``profile_step.trace`` of one more step.
+   same model's blocks, ``PP_LAYERS`` = 12 (cut from 24 for the smoke's
+   time) in 4 rank-major stages of 3, 8 microbatches of one 2048-token
+   sequence, MSE against a synthetic target, 3 SGD steps: the first step's
+   loss and gradients against autograd through the 12 blocks in sequence
+   (``REF_LOGITS_TOL``, ``REF_GRAD_TOL``), step ms, tokens/s, the 22
+   ticks, peak memory under 80 GB, launches K1 2 x 12 x 8 and K2, K3
+   12 x 8 a step; ``profile_step.trace`` of one more step.
 27. ``pp_variants`` — GPipe (autograd through ``pipeline_apply``),
    interleaved 1F1B (v = 2) and ZB-H1 at 8 blocks (the depth cut for the
    smoke's time), each warmed once, then one timed step against plain
@@ -225,6 +228,17 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    is held to the same combine recomputed in float64 from the rows before
    and after the adapt, with ``_default_update_weights``, on 2^22 sampled
    columns (``WIN_TOL``).
+32a. ``fused_train`` — the fused window step (``ops/fused_step.py``):
+   ``winput_train``'s LM and depth, win_put in ``FUSED_BUCKETS`` = 4
+   fusion buckets, ``FUSED_STEPS`` = 3 steps eagerly, then 3 fused from the
+   same seed (the first uncaptured, then captured into a CUDA graph and
+   replayed): the parameters bit for bit the eager ones after step 2 (a
+   replayed step); ``bf_fused_step_active`` 1, the replays equal to the 2 timed
+   steps; each step's ms both ways, the window ms beside its bound of 28
+   row passes, the capture seconds, the synchronizing calls of step 3
+   both ways (``set_sync_debug_mode``), the probes' measured overlap
+   beside ``modeled_overlap``'s, and K1-K3 launches (the graph holds no
+   attention: the eager count).
 33. ``win_variants`` — ``DistributedPullGetOptimizer``,
    ``DistributedPushSumOptimizer`` and ``DistributedWinPutOptimizer(
    overlap=True)`` on the LM at full width and 2 blocks, 3 steps each: the
@@ -267,7 +281,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    device idle share of one more step profiled in process 0; ResNet-50
    under win_put (batch 64, 102 MB rows); pull-get and push-sum at 2
    blocks, a step each (cut from 2; pull-get shrinks the rms spread,
-   push-sum's P sums to 4 after ``collect``).
+   push-sum's P sums to 4 after ``collect``); then the same LM in 2
+   fusion buckets, one step each way from the same seed: eager with
+   ``BLUEFOG_TPU_WIN_XLA=0`` (the host-staged puts) and fused (``=1``,
+   the put plans inside the program), each window's staging rows after a
+   fence bit for bit the ``=0`` run's; the fused run steps once more
+   (captured, replayed once) with every put status 0 and
+   ``xlaffi.armed()``; then the staging GB/s of the plan path beside
+   ``_stage``'s, warm, one process at a time (the two share the card's
+   host link), and ``bf_win_host_copy_bytes_total`` by path.
 38. ``tp_moe_reference`` — the switch-MoE LM at the 1.3B LM's widths
    (``TP_MOE_LAYERS`` = 2 blocks of 8 GELU experts, vocab 32000, one
    sequence of 2048) in float32, dense attention, TF32 off: the card's
@@ -303,7 +325,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    run: step ms of each,
    ``async_info()``'s step lag, the edges folded at each backstop, the
    remote mutex's grant waits, K1-K3 launches, and push-sum's P summing
-   to 4.0 after each backstop.
+   to 4.0 after each backstop; then ``bf.link_report()`` over both
+   processes (every cross-process edge with a delay from its trace tags,
+   each peer a goodput from its sent bytes) and one ``BLUEFOG_TPU_SLO``
+   rule set to breach (``link_delay_us>=0``): ``bf_slo_breaches_total``
+   and a flight-recorder dump in each process.
 42. ``schedule_pipeline`` — the native round compiler
    (``native/src/schedule.cc``, built with g++) against its numpy oracle,
    bit for bit, with both times; then ``set_topology`` of a 16-rank
@@ -338,7 +364,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 45. ``{"kernels": [...]}`` (launches from the ``train``, ``llama_train``,
    ``moe_train``, ``ring_train``, ``ulysses_train``, ``dp_sp_train``,
    ``tp_train``, ``pp_train``, ``pp_variants``, ``hier_train``,
-   ``winput_train``, ``win_variants``, ``win_dist_train``,
+   ``winput_train``, ``fused_train``, ``win_variants``, ``win_dist_train``,
    ``tp_moe_train``, ``win_async_train``, ``sharded_moe_train`` and
    ``observe_train`` phases,
    each path's beside), then the ``nvidia-smi`` line, then the last line
@@ -383,13 +409,15 @@ SWITCH_F32_TOL = 1e-5        # SwitchMlp f32, card vs CPU: relative
 VIT_LAYERS = 12
 SEQ_TOKENS = 16384           # the long-context LM: one sequence of 16,384
 SEQ_SHARDS = 4               # tokens over 4 rank-major shards of 4,096
-RING_LAYERS = 24             # ring_train at full depth
+RING_LAYERS = 12             # ring_train: 12 layers and 3 Adam steps
+RING_STEPS = 3               # (24 and 5 until cut for the smoke's time)
 ULYSSES_LAYERS = 4           # ulysses_train and dp_sp_train at a reduced
 DP_SP_LAYERS = 4             # depth, to keep the smoke within its time
 TP_DP, TP_WAYS = 2, 2        # tp_train: dp 2 x tp 2, 4 virtual ranks
 TP_PARAMS = 1745979392       # a dp replica: MHA, SwiGLU, learned positions
-PP_STAGES, PP_MICROBATCHES = 4, 8   # pp_train: 24 blocks in 4 stages of 6,
-PP_BLOCK_PARAMS = 1610711040        # 8 microbatches of one 2048 sequence
+PP_STAGES, PP_MICROBATCHES = 4, 8   # pp_train: 12 blocks in 4 stages of 3,
+PP_LAYERS = 12                      # 8 microbatches of one 2048 sequence
+PP_BLOCK_PARAMS = 805355520         # (24 blocks until cut for time)
 PP_VARIANT_LAYERS = 8        # pp_variants: depth cut to keep the smoke's time
 COMPOSED_TOL = (2e-4, 2e-5)  # dp x tp x pp (x ep) vs dense, f32: rtol, atol
 SEED = 0                     # inputs and weights are drawn from it
@@ -397,6 +425,9 @@ TWIN_SCORES_BYTES = 1 << 32  # the plain twins' f32 scores, at most, a call
 SOURCE = "bluefog_tpu_torch/csrc/flash_attention.cu"
 HIER_LAYERS = 24             # hier_train: full depth
 WINPUT_LAYERS = 10           # winput_train: the windows' 25 rows a step fit
+FUSED_BUCKETS = 4            # fused_train: winput_train's LM and depth in
+FUSED_STEPS = 3              # 4 fusion buckets, 1 uncaptured + 2 replayed
+FUSED_COMPARE_AT = (2,)      # steps after which the parameters must agree
 WIN_DIST_LAYERS = 2          # win_dist_train: the depth its time allows
 WIN_VARIANT_LAYERS = 2       # win_variants: pull-get, push-sum, overlap
 WIN_OPS_COLS = 1 << 24       # win_ops and the hierarchical card-vs-CPU check
@@ -2055,13 +2086,14 @@ def pp_mse(y, t):
     return ((y.float() - t.float()) ** 2).mean()
 
 
-def pp_train_phase(layers=LAYERS, stages=PP_STAGES, M=PP_MICROBATCHES,
+def pp_train_phase(layers=PP_LAYERS, stages=PP_STAGES, M=PP_MICROBATCHES,
                    steps=3, lr=0.01):
-    """``pp_train``: 1F1B (``parallel.pipeline.pipeline_train_step``) of the
-    tp_train model's 24 blocks over 4 rank-major stages of 6, ``M`` = 8
-    microbatches of one 2048-token sequence, the mean squared error of the
-    last stage's output against a synthetic target, 3 SGD steps.  The first
-    step's loss and gradients against autograd through the same 24 blocks
+    """``pp_train``: 1F1B (``parallel.pipeline.pipeline_train_step``) of
+    ``PP_LAYERS`` = 12 blocks of the tp_train model over 4 rank-major
+    stages of 3, ``M`` = 8 microbatches of one 2048-token sequence, the
+    mean squared error of the last stage's output against a synthetic
+    target, 3 SGD steps.  The first step's loss and gradients against
+    autograd through the same blocks
     run in sequence on the card (each microbatch's loss / M backpropagated
     in turn), by relative error; then ``profile_step.trace`` of one more
     step.  Returns the steps' launches."""
@@ -2768,6 +2800,120 @@ def winput_train_phase(benchmark):
     return launches
 
 
+def fused_train_phase(benchmark):
+    """``fused_train``: the win_put step of ``winput_train``'s LM in
+    ``FUSED_BUCKETS`` fusion buckets, ``FUSED_STEPS`` steps eagerly and then
+    fused from the same seed (the first uncaptured, then a CUDA graph
+    captured and replayed); the parameters after the steps of
+    ``FUSED_COMPARE_AT`` bit for bit.  Returns the fused run's launches."""
+    import warnings
+
+    import torch
+
+    from bluefog_tpu_torch.ops import flash_attention as FA
+    from bluefog_tpu_torch.ops import fused_step as F
+    from bluefog_tpu_torch.optim import window_optimizers as WO
+    from bluefog_tpu_torch.utils import probes, telemetry
+    args = lm_args(benchmark, WINPUT_LAYERS, "win_put")
+    runs, snaps = {}, {}
+    for fused in (False, True):
+        tr = benchmark.Trainer(args)
+        tr.opt.free()
+        tr.opt = opt = WO.DistributedWinPutOptimizer(
+            tr.opt.base, fused=fused, fusion_buckets=FUSED_BUCKETS,
+            leaf_shapes=tr.rep.leaf_shapes)
+        require(len(opt._names) == FUSED_BUCKETS,
+                f"fused_train windows {opt._names}")
+        telemetry.reset()
+        FA.reset_launch_counts()
+        rec = {"step_ms": [], "window_ms": [], "sync_calls": None}
+        for step in range(1, FUSED_STEPS + 1):
+            tr.forward_backward()
+            counted = step == FUSED_STEPS
+            with warnings.catch_warnings(record=True) as caught:
+                if counted:
+                    warnings.simplefilter("always")
+                    sync()
+                    torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    if fused:
+                        rec["step_ms"].append(timed_ms(opt.step))
+                        prog = opt._fused_impl.last_program_ms
+                        rec["window_ms"].append(
+                            None if prog is None  # (a CPU rehearsal)
+                            else rec["step_ms"][-1] - prog)
+                    else:
+                        ms = timed_ms(opt.adapt)
+                        window = timed_ms(opt.combine)
+                        rec["step_ms"].append(ms + window)
+                        rec["window_ms"].append(window)
+                finally:
+                    if counted:
+                        torch.cuda.set_sync_debug_mode(0)
+            if counted:
+                rec["sync_calls"] = sum("synchroniz" in str(w.message)
+                                        for w in caught)
+            if step in FUSED_COMPARE_AT:
+                flat = tr.rep.flat.detach()
+                if not fused:
+                    snaps[step] = flat.to("cpu", copy=True)
+                else:
+                    same = all(torch.equal(flat[r].cpu(), snaps[step][r])
+                               for r in range(flat.shape[0]))
+                    rec.setdefault("bitwise_at", {})[step] = same
+        rec["launches"] = flash_launches()
+        rec["params_per_rank"] = tr.rep.numel
+        if fused:
+            impl = opt._fused_impl
+            snap = telemetry.snapshot()
+            summary = probes.last_summary() or {}
+            widths = [sum(b - a for a, b in r) for r in opt._bucket_ranges]
+            modeled = F.modeled_overlap([4 * w for w in widths])
+            rec.update(
+                active=snap.get("bf_fused_step_active"),
+                fused_steps=impl.fused_steps, replays=impl.replays,
+                captures=impl.captures, builds=impl.builds,
+                capture_s=impl.capture_seconds,
+                bucket_columns=widths,
+                measured_overlap=summary.get("measured_overlap"),
+                modeled_overlap=sum(r["overlap"] for r in modeled)
+                / len(modeled),
+                overlap_divergence=summary.get("divergence"),
+                bucket_issue_s=summary.get("bucket_issue_seconds"),
+                probe_attributed=summary.get("attributed"))
+        runs["fused" if fused else "eager"] = rec
+        opt.free()
+        del tr, opt
+        empty_cache()
+    snaps.clear()
+    eager, fused = runs["eager"], runs["fused"]
+    P = fused["params_per_rank"]
+    expected = WINPUT_LAYERS * 4 * FUSED_STEPS
+    emit("fused_train", config={
+        "num_layers": WINPUT_LAYERS, **LM_WIDTHS, "batch_size": 2,
+        "momentum": 0.0, "ranks": 4, "fusion_buckets": FUSED_BUCKETS,
+        "optimizer": "DistributedWinPutOptimizer", "steps": FUSED_STEPS,
+        "program": "CUDA graph: the SGD update, the bucket flats, the "
+                   "probes' host nodes (one process: no remote edge)"},
+        eager=eager, fused=fused, window_bound_ms=1e3 * 28 * 4 * P
+        / PEAK_BYTES, window_bound_by="bytes", expected_launches=expected)
+    require(fused["bitwise_at"] == {s: True for s in FUSED_COMPARE_AT},
+            f"fused vs eager parameters: {fused['bitwise_at']}")
+    require(fused["active"] == 1.0, f"bf_fused_step_active {fused['active']}")
+    # The first step of the key runs uncaptured, the rest replay its
+    # graph (a CPU rehearsal runs the program uncaptured throughout).
+    graphs = DEVICE == "cuda"
+    require(fused["fused_steps"] == FUSED_STEPS
+            and fused["replays"] == (FUSED_STEPS - 1 if graphs else 0)
+            and fused["captures"] == (1 if graphs else 0),
+            f"fused steps, replays, captures: {fused}")
+    for rec in (eager, fused):
+        require(all(c == expected for c in rec["launches"].values()),
+                f"fused_train launches {rec['launches']}, expected "
+                f"{expected} of each")
+    return fused["launches"]
+
+
 def win_variants_phase(benchmark, steps=3):
     """Pull-get, push-sum and win_put with ``overlap=True`` on the LM at
     full width and ``WIN_VARIANT_LAYERS`` blocks, 3 steps each; returns the
@@ -3316,7 +3462,116 @@ def train_worker(bf):
         out[name] = rec
         done(tr)
     out["variant_launches"] = flash_launches()
+    FA.reset_launch_counts()
+    out["plan_fused"] = plan_fused_runs(bf, benchmark, done)
+    out["plan_fused_launches"] = flash_launches()
     return out
+
+
+def plan_fused_runs(bf, benchmark, done):
+    """The put plans and the fused step across the processes: the win_put
+    LM at ``WIN_DIST_LAYERS`` in 2 fusion buckets, one step from the same
+    seed eagerly with ``BLUEFOG_TPU_WIN_XLA=0`` (host-staged puts) and
+    fused (``=1``: the plans inside the program); each window's staging
+    rows at the owned ranks after a fence (the step's puts: deterministic,
+    where the combine folds what has arrived).  The fused run steps once
+    more, its graph captured and replayed, and then times the two paths'
+    staging of one bucket's owned rows, warm (``staging_rates``)."""
+    from bluefog_tpu_torch.ops import window as W
+    from bluefog_tpu_torch.ops import xlaffi
+    from bluefog_tpu_torch.optim import window_optimizers as WO
+    from bluefog_tpu_torch.utils import config, telemetry
+    out = {}
+    for mode in ("host", "fused"):
+        with config.override(win_xla=mode == "fused"):
+            tr = benchmark.Trainer(lm_args(benchmark, WIN_DIST_LAYERS,
+                                           "win_put"))
+            tr.opt.free()
+            tr.opt = opt = WO.DistributedWinPutOptimizer(
+                tr.opt.base, fused=mode == "fused", fusion_buckets=2,
+                leaf_shapes=tr.rep.leaf_shapes)
+            telemetry.reset()
+            before = W.stats.snapshot()
+            tr.forward_backward()
+            sync()
+            t0 = time.perf_counter()
+            opt.step()
+            sync()
+            rec = {"step_ms": 1e3 * (time.perf_counter() - t0),
+                   "window": stats_since(W, before), "armed": xlaffi.armed()}
+            W.win_fence()
+            own = set(bf.owned_ranks())
+            rec["staging"] = {name: state_digest(W._store.get(name),
+                                                 own)["staging"]
+                              for name in opt._names}
+            if mode == "fused":
+                tr.forward_backward()
+                sync()
+                t0 = time.perf_counter()
+                opt.step()
+                sync()
+                rec["replay_step_ms"] = 1e3 * (time.perf_counter() - t0)
+                impl = opt._fused_impl
+                rec.update(fused_steps=impl.fused_steps,
+                           replays=impl.replays, captures=impl.captures,
+                           capture_s=impl.capture_seconds,
+                           statuses=impl.last_statuses,
+                           program_ms=impl.last_program_ms,
+                           active=telemetry.snapshot().get(
+                               "bf_fused_step_active"))
+                W.win_fence()
+                # One process at a time: both share the card's host link.
+                comm = bf.process_ranks()
+                for p in range(comm.nprocs):
+                    if p == comm.process:
+                        rec["staging_gbps"] = staging_rates(opt)
+                    bf.barrier()
+            rec["host_copy_bytes"] = {
+                k: v for k, v in telemetry.snapshot().items()
+                if k.startswith("bf_win_host_copy_bytes_total")}
+            out[mode] = rec
+            done(tr)
+    return out
+
+
+def staging_rates(opt, reps=3):
+    """GB/s of staging one bucket's owned rows for their remote edges,
+    warm (the pinned buffers made by a first call): the put plan's one
+    copy (``xlaffi.stage_rows``) against the host-staged path's copy and
+    stream synchronize a row (``window._stage``); None on the CPU, where
+    neither copies."""
+    from bluefog_tpu_torch.ops import window as W
+    from bluefog_tpu_torch.ops import xlaffi
+    if DEVICE != "cuda":
+        return None
+    name = opt._names[0]
+    win = W._store.get(name)
+    payload = opt._payloads()[0]
+    remote = tuple(
+        (e, w) for e, w in W._resolve_edge_weights(
+            None, win.out_nbrs, 1.0, ranks=win.owned).items()
+        if W._owns(e[0]) and not W._owns(e[1]))
+    plan = xlaffi.prepare_put(W._store.distrib, win, name, W.OP_PUT, remote,
+                              per_edge=False, compact=True)
+
+    def planned():
+        with plan.stage_lock:
+            xlaffi.stage_rows(plan, payload, win)
+
+    def host_staged():
+        for src in plan.srcs:
+            W._stage(win, (src, "raw", "put"),
+                     payload[win.row_of[src]].contiguous())
+    rates = {}
+    for label, fn, key in (("plan", planned, "plan_stage"),
+                           ("host_staged", host_staged, "stage")):
+        fn()
+        before = W.stats.snapshot()
+        for _ in range(reps):
+            fn()
+        d = stats_since(W, before)
+        rates[label] = rate(d[f"{key}_bytes"], d[f"{key}_s"])
+    return rates
 
 
 def state_digest(win, owned):
@@ -3516,7 +3771,40 @@ def async_train_worker(bf):
         W.configure_async()
     out["launches"] = flash_launches()
     out["send_path"] = W._store.distrib.transport.send_path
+    out["links"] = links_and_slo(bf)
     return out
+
+
+def links_and_slo(bf):
+    """After the traced async runs: ``bf.link_report()`` over both
+    processes, the topology's cross-process edges, and one SLO rule set to
+    breach at a step boundary (``link_delay_us>=0``): the breach counter
+    and this process's flight-recorder dump."""
+    import shutil
+    import tempfile
+
+    from bluefog_tpu_torch.ops import window as W
+    from bluefog_tpu_torch.utils import config, flightrec, telemetry
+    rep = bf.link_report()
+    owner = {r: W._store.distrib.rank_owner[r] for r in range(bf.size())}
+    cross = sorted((s, d) for s, d in bf.load_topology().edges()
+                   if s != d and owner[s] != owner[d])
+    tmp = tempfile.mkdtemp(prefix="slo_")
+    try:
+        flightrec.enable()
+        prefix = os.path.join(tmp, "fr")
+        with config.override(slo="link_delay_us>=0",
+                             flight_recorder_path=prefix):
+            W.set_async_step(1 << 20)
+            snap = telemetry.snapshot()
+            health = telemetry.health().get("links")
+        dumps = [f for f in os.listdir(tmp) if f.startswith("fr.")]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"report": rep, "cross_edges": cross, "health": health,
+            "breaches": sum(v for k, v in snap.items()
+                            if k.startswith("bf_slo_breaches_total")),
+            "dumps": dumps}
 
 
 def win_async_train_phase():
@@ -3557,6 +3845,22 @@ def win_async_train_phase():
                 and all(abs(v - 4.0) <= 1e-9
                         for v in ps["p_sum_after_backstop"]),
                 f"push_sum: P after each backstop {ps}")
+        links = part["links"]
+        delayed = {(e["src"], e["dst"]) for e in links["report"]["edges"]
+                   if e.get("delay_us", 0) > 0}
+        require(links["cross_edges"]
+                and {tuple(e) for e in links["cross_edges"]} <= delayed,
+                f"link_report: cross-process edges {links['cross_edges']} "
+                f"without a measured delay ({sorted(delayed)})")
+        require(len({g["peer"] for g in links["report"]["goodput"]}) == 2
+                and all(g["goodput_bytes_s"] > 0
+                        for g in links["report"]["goodput"]),
+                f"link_report goodput {links['report']['goodput']}")
+        require(links["breaches"] >= 1 and len(links["dumps"]) == 1
+                and links["health"]["slo"]["breached"]
+                == ["link_delay_us>=0"],
+                f"the SLO breach: {links}")
+        mine["links"] = links
         for k in KERNELS:
             launches[k] += part["launches"][k]
         per_process.append(mine)
@@ -3581,6 +3885,8 @@ def win_dist_train_phase():
     lm_expected = WIN_DIST_LAYERS * WIN_DIST_PER * (1 + WIN_DIST_LM_ITERS)
     var_expected = WIN_DIST_VARIANT_LAYERS * WIN_DIST_PER * \
         WIN_DIST_VARIANT_STEPS * 2
+    # plan_fused_runs: a step eagerly, two fused steps.
+    pf_expected = WIN_DIST_LAYERS * WIN_DIST_PER * 3
     launches = {k: 0 for k in KERNELS}
     per_process = []
     for part in parts:
@@ -3612,8 +3918,29 @@ def win_dist_train_phase():
         ps = part["push_sum"]
         require(abs(ps["p_sum"] - 4.0) <= 1e-4 * 4.0
                 and min(ps["p_owned"]) > 0, f"push_sum P {ps}")
+        pf = part["plan_fused"]
+        require(pf["fused"]["staging"] == pf["host"]["staging"],
+                "fused: the staging rows differ from WIN_XLA=0's")
+        fz = pf["fused"]
+        # (A CPU rehearsal neither captures nor stages: the plans read the
+        # tensors' memory.)
+        card = DEVICE == "cuda"
+        require(fz["armed"] and fz["active"] == 1.0
+                and fz["fused_steps"] == 2 and fz["replays"] == int(card)
+                and fz["captures"] == int(card)
+                and fz["statuses"] == [0, 0],
+                f"fused across processes: {fz}")
+        require(not card or (pf["host"]["window"]["stage_bytes"] > 0
+                             and pf["fused"]["window"]["stage_bytes"] == 0
+                             and all(fz["staging_gbps"].values())),
+                f"staging by path: {pf['host']['window']}, "
+                f"{pf['fused']['window']}, {fz['staging_gbps']}")
+        require(all(c == pf_expected
+                    for c in part["plan_fused_launches"].values()),
+                f"plan/fused launches {part['plan_fused_launches']}")
         for k in KERNELS:
-            launches[k] += lm["launches"][k] + part["variant_launches"][k]
+            launches[k] += (lm["launches"][k] + part["variant_launches"][k]
+                            + part["plan_fused_launches"][k])
         win = lm["window"]
         per_process.append({
             "owned": part.get("owned"), "step_ms": lm["step_ms"],
@@ -3627,9 +3954,15 @@ def win_dist_train_phase():
             "tx_bytes_per_step": win["tx_bytes"],
             "wire_gbps": rate(win["tx_bytes"], win["wire_s"]),
             "d2h_gbps": rate(win["stage_bytes"], win["stage_s"]),
+            "plan_d2h_gbps": rate(win["plan_stage_bytes"],
+                                  win["plan_stage_s"]),
             "h2d_gbps": rate(win["commit_bytes"], win["commit_s"]),
             "profile": lm.get("profile"), "losses": lm["losses"],
             "spread": lm["spread"],
+            "plan_fused": {
+                mode: {k: v for k, v in rec.items() if k != "staging"}
+                for mode, rec in part["plan_fused"].items()},
+            "staging_gbps": part["plan_fused"]["fused"]["staging_gbps"],
             "resnet50": {k: rn.get(k) for k in (
                 "step_ms", "imgs_per_s", "losses", "spread", "window",
                 "peak_mem_gb")},
@@ -4362,7 +4695,7 @@ def main():
     emit("ring_reference", **check_seq_reference("ring", SEED))
     emit("ulysses_reference", **check_seq_reference("ulysses", SEED))
     ring_launches = seq_train_phase("ring_train", "ring", RING_LAYERS,
-                                    profile=True)
+                                    steps=RING_STEPS, profile=True)
     ulysses_launches = seq_train_phase("ulysses_train", "ulysses",
                                        ULYSSES_LAYERS, profile=True)
     dp_sp_launches = dp_sp_train_phase()
@@ -4378,6 +4711,7 @@ def main():
     emit("pp_example", **pp_example)
     hier_launches = hier_train_phase(benchmark)
     winput_launches = winput_train_phase(benchmark)
+    fused_launches = fused_train_phase(benchmark)
     win_variant_launches = win_variants_phase(benchmark)
     card_ops = win_ops_phase()
     win_dist_ops_phase(card_ops)
@@ -4419,6 +4753,7 @@ def main():
                                      + pp_variant_launches[kname]
                                      + hier_launches[kname]
                                      + winput_launches[kname]
+                                     + fused_launches[kname]
                                      + win_variant_launches[kname]
                                      + win_dist_launches[kname]
                                      + tp_moe_launches[kname]
@@ -4437,6 +4772,7 @@ def main():
                             "pp_variants": pp_variant_launches[kname],
                             "hier_train": hier_launches[kname],
                             "winput_train": winput_launches[kname],
+                            "fused_train": fused_launches[kname],
                             "win_variants": win_variant_launches[kname],
                             "win_dist_train": win_dist_launches[kname],
                             "tp_moe_train": tp_moe_launches[kname],

@@ -35,8 +35,6 @@ N = 8
 # that brings it (item 22: the data module, and the jax-only names whose
 # role the port's rank-major tensors and process_ranks() take).
 NOT_PORTED = {
-    "link_report": "21b",
-    "win_xla_info": "18",
     "gang": "20", "gang_info": "20", "membership_info": "20",
     "data": "22", "mesh": "22", "hierarchical_mesh": "22",
     "to_numpy": "22",
@@ -71,7 +69,7 @@ def test_not_ported_list_is_exact():
     ``NOT_PORTED``'s: a name that lands must leave the list."""
     lacking = {n for n in _jax_surface() if not hasattr(tbf, n)}
     assert lacking == set(NOT_PORTED)
-    assert set(NOT_PORTED.values()) <= {"18", "20", "21b", "22"}
+    assert set(NOT_PORTED.values()) <= {"20", "22"}
 
 
 @pytest.fixture

@@ -153,6 +153,18 @@ def _sparse_mass(bf, x, own):
         staging = bf.win_state_dict("s")["staging"]
         residuals = {k[1:]: v.clone() for k, v in W._ef_residuals.items()
                      if k[0] == "s"}
+        # The put-plan path (BLUEFOG_TPU_WIN_XLA, on by default) keeps its
+        # sends' residuals in the native store: they are owed too.
+        from bluefog_tpu_torch.ops import xlaffi
+        win = W._store.get("s")
+        for src in own:
+            for dst in win.out_nbrs[src]:
+                nat = xlaffi.take_native_residual("s", src, dst,
+                                                  x.shape[1])
+                if nat is not None:
+                    r = torch.from_numpy(nat)
+                    prev = residuals.get((src, dst))
+                    residuals[(src, dst)] = r if prev is None else prev + r
         bf.win_free("s")
     return {"staging": staging, "residuals": residuals}
 

@@ -225,10 +225,16 @@ def test_not_ported_options_raise_with_their_item(monkeypatch):
     tbf.init(N, device="cpu")
     try:
         sgd = torch.optim.SGD(params, lr=LR)
-        for kw, item in (({"fused": True}, "item 19b"),
-                         ({"fusion_buckets": 2}, "item 19b")):
-            with pytest.raises(NotImplementedError, match=item):
-                TWO.DistributedWinPutOptimizer(sgd, **kw)
+        # The fused step and its buckets are ported (item 19b): they build
+        # their windows, one a bucket, and step.
+        two = torch.optim.SGD([torch.zeros(N, 4), torch.zeros(N, 2)], lr=LR)
+        for kw, names in (({"fused": True}, ["winput.fused"]),
+                          ({"fusion_buckets": 2},
+                           ["winput.fusedb0", "winput.fusedb1"])):
+            opt = TWO.DistributedWinPutOptimizer(two, **kw)
+            assert opt._names == names
+            opt.step()
+            opt.free()
         # Sharded gossip is ported; its layout and fusion requirements
         # raise the JAX package's ValueErrors.
         sharded = {"shard_specs": [("ep",)], "num_shards": 2}
@@ -254,24 +260,31 @@ def test_not_ported_options_raise_with_their_item(monkeypatch):
 
 
 def test_fused_step_variable_is_refused(monkeypatch):
-    """With ``fused=None`` the JAX optimizers follow
-    ``BLUEFOG_TPU_FUSED_STEP``; the port has no fused step, so the
-    variable set to 1 is refused rather than silently run eagerly, and
-    ``fused=False`` still runs the eager step."""
+    """With ``fused=None`` the optimizers follow
+    ``BLUEFOG_TPU_FUSED_STEP``: set to 1, win_put and push-sum take the
+    fused step (the pull family has none and steps eagerly, as in the JAX
+    package), and ``fused=False`` pins the eager step.  (The name is kept
+    from when the variable was refused.)"""
     tbf.init(N, device="cpu")
     monkeypatch.setenv("BLUEFOG_TPU_FUSED_STEP", "1")
     config.reload()
     try:
-        sgd = torch.optim.SGD([torch.zeros(N, 3)], lr=LR)
-        for cls in (TWO.DistributedWinPutOptimizer,
-                    TWO.DistributedPullGetOptimizer,
-                    TWO.DistributedPushSumOptimizer):
-            with pytest.raises(NotImplementedError,
-                               match="BLUEFOG_TPU_FUSED_STEP=1.*item 19b"):
-                cls(sgd)
+        p = torch.zeros(N, 3)
+        p.grad = torch.ones(N, 3)
+        sgd = torch.optim.SGD([p], lr=LR)
+        for cls, fused_steps in ((TWO.DistributedWinPutOptimizer, 1),
+                                 (TWO.DistributedPullGetOptimizer, None),
+                                 (TWO.DistributedPushSumOptimizer, 1)):
+            opt = cls(sgd)
+            opt.step()
+            impl = getattr(opt, "_fused_impl", None)
+            assert (impl.fused_steps if impl else None) == fused_steps
+            opt.free()
+            TW.turn_off_win_ops_with_associated_p()
         assert tbf.get_current_created_window_names() == []
         opt = TWO.DistributedWinPutOptimizer(sgd, fused=False)
         opt.step()
+        assert opt._fused_impl is None
         opt.free()
     finally:
         monkeypatch.delenv("BLUEFOG_TPU_FUSED_STEP")
