@@ -26,6 +26,13 @@ Observability: ``bf.telemetry`` (the metric registry, ``/metrics`` and
 ``bf.timeline_context``), ``bf.flight_recorder_dump()``, the link
 observatory's matrix ``bf.link_report()`` and the put-plan path's
 ``bf.win_xla_info()``.
+
+Elasticity (``BLUEFOG_TPU_CHURN``, ``BLUEFOG_TPU_ELASTIC_JOIN``): the churn
+supervisor (``bluefog_tpu_torch.run.supervisor``, driven by the window
+optimizers), ``bf.membership_info()``, the gang join and bootstrap
+``bf.gang`` with ``bf.gang_info()``, checkpoints and the restartable run
+loop (``utils.checkpoint``, ``utils.elastic``) and the input pipeline
+``bf.data``.
 """
 
 from bluefog_tpu_torch import parallel
@@ -53,8 +60,10 @@ from bluefog_tpu_torch.basics import (
     allreduce_nonblocking_, broadcast_, broadcast_nonblocking_,
     set_skip_negotiate_stage, get_skip_negotiate_stage,
     mpi_threads_supported, nccl_built, unified_mpi_window_model_supported,
-    placement_info, synthesis_info)
+    placement_info, synthesis_info, membership_info, gang_info)
+from bluefog_tpu_torch import data
 from bluefog_tpu_torch import optim
+from bluefog_tpu_torch.ops import gang
 from bluefog_tpu_torch.utils import profiler, telemetry
 from bluefog_tpu_torch.utils.flightrec import dump as flight_recorder_dump
 from bluefog_tpu_torch.utils.linkobs import link_report
@@ -104,7 +113,8 @@ __all__ = ["topology_util", "init", "init_distributed", "shutdown", "barrier",
            "synthesis_info", "telemetry", "telemetry_snapshot", "profiler",
            "step_profile", "flight_recorder_dump", "start_timeline",
            "stop_timeline", "timeline_context", "timeline_start_activity",
-           "timeline_end_activity", "link_report", "win_xla_info"
+           "timeline_end_activity", "link_report", "win_xla_info",
+           "membership_info", "gang_info", "gang", "data"
            ] + _window.__all__ + parallel.__all__
 
 

@@ -287,13 +287,23 @@ def init_distributed(topology_fn=None, is_weighted: bool = False, *,
 
 def shutdown() -> None:
     """Free every window and drop the context; after
-    :func:`init_distributed`, also the window transport and then the
-    process group."""
+    :func:`init_distributed`, also the churn supervisor, the window
+    transport and then the process group.  After the gang lost a member
+    (a committed membership change) the process group is left to the
+    process exit: it holds the dead member, and tearing it down would
+    wait for it."""
     global _ctx
-    from bluefog_tpu_torch.ops import window
+    from bluefog_tpu_torch.ops import membership, window
+    from bluefog_tpu_torch.run import supervisor
+    ctrl = membership.current()
+    churned = ctrl is not None and (
+        ctrl.evicted or set(ctrl.active) != set(range(ctrl.n_procs)))
+    supervisor._stop_singleton()
+    if membership.current() is not None:
+        membership.install(None)
     window._free_all_windows()
     window._shutdown_transport()
-    if _ctx.comm is not None and dist.is_initialized():
+    if _ctx.comm is not None and dist.is_initialized() and not churned:
         dist.destroy_process_group()
     stall._monitor.unpause()  # a suspended session must not outlive it
     _ctx = _Context()
@@ -684,6 +694,23 @@ def synthesis_info() -> Optional[dict]:
         "provenance": ctx.synthesis_provenance,
         "improvement_ratio": round(float(ctx.synthesis_ratio), 6),
     }
+
+
+def membership_info() -> Optional[dict]:
+    """The churn controller's committed view: epoch, active ranks, live
+    suspicion, eviction (None when ``BLUEFOG_TPU_CHURN`` is off or no
+    supervisor runs); the ``/healthz`` "membership" block."""
+    from bluefog_tpu_torch.ops import membership
+    return membership.health_summary()
+
+
+def gang_info() -> Optional[dict]:
+    """The gang directory (``ops/gang.py``): committed epoch, active
+    processes, vacant ranks, grants (None when
+    ``BLUEFOG_TPU_ELASTIC_JOIN`` is off or no gang service is installed);
+    the ``/healthz`` "gang_directory" block."""
+    from bluefog_tpu_torch.ops import gang
+    return gang.health_summary()
 
 
 def load_topology() -> nx.DiGraph:

@@ -36,7 +36,10 @@ bytes a step, synthetic slices labeled) and ``sharding`` (the plan of a
 labeled synthetic MoE tree), and ``links``: the link observatory's gate,
 SLO rules and this process's link table, as the root ``bench.py``'s
 ``_links_summary`` (a one-process run crosses no window transport, so the
-table is empty; the block keeps the schema).  The root's ``fused_step``
+table is empty; the block keeps the schema), and ``churn``: the churn
+controller's membership view (epoch, active ranks, changes, last change)
+with ``BLUEFOG_TPU_CHURN=1``, ``{"enabled": false}`` otherwise, as the
+root's ``_churn_summary``.  The root's ``fused_step``
 block drives ``bench_comm.py``'s loopback rig and comes with that rig
 (ROADMAP item 22).
 """
@@ -259,6 +262,23 @@ def _links_summary() -> dict:
             "goodput": rep["goodput"]}
 
 
+def _churn_summary() -> dict:
+    """The churn controller's evidence (the root ``bench.py``'s
+    ``_churn_summary``): the membership view the numbers were measured
+    against, or ``{"enabled": False}`` with churn off."""
+    from bluefog_tpu_torch.ops import membership
+    from bluefog_tpu_torch.utils import config
+    if not config.get().churn:
+        return {"enabled": False}
+    m = membership.health_summary()
+    if m is None:
+        return {"enabled": True, "active": None}
+    return {"enabled": True, "epoch": m["epoch"],
+            "active_ranks": m["active_ranks"],
+            "changes_total": m["changes_total"],
+            "last_change_unix": m["last_change_unix"]}
+
+
 def _no_backend_or_cpu(reason: str) -> bool:
     """The card was asked for and is absent: with
     ``BLUEFOG_TPU_BENCH_ALLOW_CPU=1`` go on as a labeled CPU smoke run
@@ -329,6 +349,7 @@ def main(argv=None):
         "peak_mem_gb": res.get("peak_mem_gb"),
         "phase_latency": phase_latency or None,
         **modeled_blocks(res["ranks"], args.device, res["params_per_rank"]),
+        "churn": _churn_summary(),
         "links": _links_summary(),
         "telemetry": telemetry.snapshot() if telemetry.enabled() else None,
     }

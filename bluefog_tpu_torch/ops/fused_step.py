@@ -53,6 +53,13 @@ held to the host-staged one), the same host arithmetic.
 * A host function blocks its stream while it encodes: the local-edge
   staging, the flush, the self-publish and the fence stay on the host
   between programs, as in the JAX package.
+* Under churn (``BLUEFOG_TPU_CHURN``) the key carries the membership
+  epoch: after a committed change the optimizer drops its programs, the
+  next step builds at the new epoch and the one after captures.  A send
+  to a peer that died before the gang voted it out fails its status or
+  its flush; the step then combines what arrived (``window.
+  churn_tolerates``), and a remote mutex that does not answer leaves this
+  step to the eager path before anything is dispatched.
 * Probes (``utils/probes.py``) are host functions too (grad-ready, each
   bucket's put chain before and after, step end), so the program's seams
   and the host's drain seams land in one ring on one steady clock.
@@ -478,8 +485,17 @@ class FusedStep:
                     if not W._owns(dst):
                         holders.setdefault(dst, src)
                 for dst in sorted(holders):
-                    stack.enter_context(
-                        W._remote_mutex(prog.names[0], dst, holders[dst]))
+                    try:
+                        stack.enter_context(W._remote_mutex(
+                            prog.names[0], dst, holders[dst]))
+                    except ConnectionError as e:
+                        # A peer that died before the gang voted it out:
+                        # nothing has run, and the eager step combines
+                        # what arrived (churn only; else it raises).
+                        if not W.churn_tolerates(e):
+                            raise
+                        raise FusedFallback(
+                            f"rank {dst}'s mutex did not answer") from e
             transient: List[int] = []
             if on_card:
                 began = torch.cuda.Event(enable_timing=True)
@@ -494,7 +510,12 @@ class FusedStep:
                 for a in transient:  # an uncaptured run's callbacks
                     hostfn.free(a)
         t_statuses_ns = time.monotonic_ns() if prog.probes else None
-        self._check_statuses(prog)
+        try:
+            self._check_statuses(prog)
+        except ConnectionError as e:
+            if not W.churn_tolerates(e):
+                raise
+            opt.churn_send_errors += 1
 
         for name, payload in zip(prog.names, payloads):
             W._count_win_op("accumulate" if prog.accumulate else "put",
@@ -517,7 +538,14 @@ class FusedStep:
                 self_weight=self_weight, require_mutex=require_mutex,
                 remote_procs=prog.remote_procs, since=tok, flush=False)
         if prog.remote_procs:
-            W._flush_transport(prog.remote_procs, since=tok)
+            try:
+                W._flush_transport(prog.remote_procs, since=tok)
+            except ConnectionError as e:
+                # Under churn: a dead peer's sends failed; the others
+                # were flushed, and the step combines what arrived.
+                if not W.churn_tolerates(e):
+                    raise
+                opt.churn_send_errors += 1
         if pre_drain is not None:    # push-sum's fence and backstop
             pre_drain()
         if prog.probes:

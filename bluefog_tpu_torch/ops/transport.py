@@ -61,10 +61,16 @@ dump on a fatal send error (``utils/flightrec``).  The link observatory
 (``utils/linkobs``) reads each stripe's sent bytes as goodput, from the
 native pump's diffs or the Python sender's batches; the tuner
 (``utils/tuner``) may override ``auto`` stripes and, through
-:meth:`WindowTransport.set_linger_ms`, the linger.  Left out: the chaos
-link delay and partition schedule with the control ops ``OP_MEMBER`` and
-``OP_GANG`` (item 20: the window store drops an inbound one and logs that
-it came).
+:meth:`WindowTransport.set_linger_ms`, the linger.
+
+Chaos faults (``utils/chaos.py``): :meth:`WindowTransport.set_partition`
+drops every outbound frame to the named peers, and
+:meth:`WindowTransport.set_send_delay` sleeps before each DATA enqueue (a
+slow link, which the link observatory measures as one-way delay); the
+control ops, ``OP_MEMBER`` heartbeats and ``OP_GANG`` directory traffic
+among them, are never delayed, and they are urgent: an enqueue cuts the
+linger, so they ship at once, behind whatever the peer's FIFO already
+holds.
 """
 
 from __future__ import annotations
@@ -412,16 +418,18 @@ class _PeerSender:
             self.bytes_pending += len(msg[6])
             if urgent or self.bytes_pending >= self._t._flush_bytes:
                 self.flush_now = True
+            if flightrec.enabled():
+                # Noted before the worker is woken: its FLUSH and SENDMSG
+                # of this message come after, in the ring too.
+                op = msg[0]
+                seq = 0
+                if op & OP_TRACE_FLAG and len(msg[6]) >= TRACE_TRAILER.size:
+                    seq = TRACE_TRAILER.unpack_from(
+                        msg[6], len(msg[6]) - TRACE_TRAILER.size)[1]
+                flightrec.note(flightrec.ENQUEUE, op=op, stripe=self.stripe,
+                               src=msg[2], dst=msg[3], seq=seq,
+                               length=len(msg[6]), name=msg[1])
             self.cond.notify_all()
-        if flightrec.enabled():
-            op = msg[0]
-            seq = 0
-            if op & OP_TRACE_FLAG and len(msg[6]) >= TRACE_TRAILER.size:
-                seq = TRACE_TRAILER.unpack_from(
-                    msg[6], len(msg[6]) - TRACE_TRAILER.size)[1]
-            flightrec.note(flightrec.ENQUEUE, op=op, stripe=self.stripe,
-                           src=msg[2], dst=msg[3], seq=seq,
-                           length=len(msg[6]), name=msg[1])
 
     def flush(self, timeout: float) -> None:
         """Block until everything enqueued before this call was handed to
@@ -557,6 +565,9 @@ class WindowTransport:
         self._retry_backoff = max(0.0, cfg.win_retry_backoff_ms) / 1e3
         self.n_stripes = resolve_stripes()
         self._partitioned: frozenset = frozenset()
+        # The chaos link-delay fault (set_send_delay): seconds slept before
+        # each DATA enqueue; 0.0 outside chaos, one float check a send.
+        self._send_delay = 0.0
         self._senders: Dict[Tuple[str, int, int], _PeerSender] = {}
         self._senders_lock = threading.Lock()
         self._bytes_lock = threading.Lock()
@@ -623,6 +634,10 @@ class WindowTransport:
         bytes-like (copied before this returns, on every path)."""
         if stripe is None:
             stripe = stripe_for(name, src, op, self.n_stripes)
+        if self._send_delay and (op & ~OP_FLAG_MASK) in _DATA_OPS:
+            # DATA ops only: heartbeats, fences, mutex and gang traffic are
+            # never delayed (a slow data link, not a dead control plane).
+            time.sleep(self._send_delay)
         payload = _as_bytes_view(tensor)
         with self._bytes_lock:
             self.tx_bytes += payload.size
@@ -711,6 +726,12 @@ class WindowTransport:
         if self._tx is not None:
             csv = ",".join(f"{h}:{p}" for h, p in sorted(self._partitioned))
             self._lib.bf_wintx_set_partition(self._tx, csv.encode())
+
+    def set_send_delay(self, seconds: float) -> None:
+        """Chaos link-delay fault: sleep ``seconds`` before every DATA
+        enqueue (control ops never), so that the link observatory measures
+        it as per-edge one-way delay; 0.0 heals the fault."""
+        self._send_delay = max(0.0, float(seconds))
 
     def set_linger_ms(self, ms: float) -> None:
         """Adapt the coalesce linger at run time (the tuner's

@@ -87,10 +87,18 @@ plan into its program and finishes each bucket with
 observatory (``utils/linkobs.py``), and :func:`set_async_step` ticks it
 and the tuner.
 
-Left out, raising an error that names its ROADMAP item where it can be
-asked for: the membership and gang control ops (item 20, dropped and
-logged when one arrives).  ``BLUEFOG_TPU_WIN_COMPRESSION`` acts on
-cross-process edges only.
+**Elasticity** (``BLUEFOG_TPU_CHURN``, ``BLUEFOG_TPU_ELASTIC_JOIN``): the
+membership heartbeats (``OP_MEMBER``) and the gang's directory and join
+traffic (``OP_GANG``) go to ``ops/membership.py`` and ``ops/gang.py``
+before the rank-directory check, as in the JAX package (a joiner gets its
+grant on a transport with no directory yet); with the subsystems off they
+are dropped there.  The churn supervisor (``run/supervisor.py``) rebuilds
+the windows after a committed change with :func:`owned_snapshot` and
+:func:`rebuild_from_snapshot`: the owned rows are stacked on the window's
+device, never through the host, and the new window, under the survivor
+topology, starts from them with zeroed staging and the push-sum scalars
+restored.  ``BLUEFOG_TPU_WIN_COMPRESSION`` acts on cross-process edges
+only.
 """
 
 from __future__ import annotations
@@ -130,6 +138,8 @@ __all__ = [
     "turn_on_win_ops_with_associated_p", "turn_off_win_ops_with_associated_p",
     "configure_async", "async_armed", "set_async_step", "async_step_lag",
     "async_info", "win_fold_stale_residuals", "clear_async_staleness",
+    "clear_contribution_age", "owned_snapshot", "rebuild_from_snapshot",
+    "churn_tolerates",
 ]
 
 _log = get_logger()
@@ -167,9 +177,12 @@ class _Window:
         self.row_of = ({r: r for r in range(n)} if layout == "rank"
                        else {r: i for i, r in enumerate(self.owned)})
         # main[r]: rank r's exposed memory (win_get's source, win_update's
-        # self term).
+        # self term), from a rank-major tensor or one of the owned rows (a
+        # rebuild keeps a rank-layout window's layout, rebuild_from_snapshot).
+        src_row = ({r: r for r in range(n)} if tensor.shape[0] == n
+                   else {r: i for i, r in enumerate(self.owned)})
         self.main: Dict[int, torch.Tensor] = {
-            r: tensor[self.row_of[r]].clone() for r in self.owned}
+            r: tensor[src_row[r]].clone() for r in self.owned}
         # staging[(dst, src)]: what src pushed toward dst (or dst pulled
         # from src); seeded with the neighbor's initial value.
         self.staging: Dict[tuple, torch.Tensor] = {}
@@ -234,6 +247,11 @@ class _Distrib:
         # (release); values: (serial, copies seen).
         self.fence_req_seen: Dict[int, tuple] = {}
         self.rel_seen: Dict[tuple, tuple] = {}
+        # Fences each process has sent us (counted on the last copy) and
+        # fences of ours: under churn the fence's barrier is the peers'
+        # own FENCE_REQs, not a collective over the process group.
+        self.fence_reqs_in: Dict[int, int] = {}
+        self.fences_out = 0
         self.fanout_serial = 0
         # The remote mutex: one outstanding ACQ a (name, rank) a process.
         self.grant_events: Dict[tuple, threading.Event] = {}
@@ -476,10 +494,10 @@ def async_armed() -> bool:
 
 def set_async_step(step: int) -> None:
     """Publish this process's training step: ages count against it, and
-    the trace tags carry it as their origin step.  It is the step boundary
-    of the link observatory (divergence, rates, SLO rules) and of the
-    tuner (a no-op unless ``BLUEFOG_TPU_TUNE=1``; the JAX package ticks its
-    tuner from the churn supervisor, which the port does not have)."""
+    the trace tags carry it as their origin step.  It is a step boundary
+    of the link observatory (divergence, rates, SLO rules); the tuner
+    ticks in the churn supervisor's ``step`` (or ``tuner.tick``), as in
+    the JAX package."""
     now = time.monotonic()
     with _async.lock:
         prev, _async._last_step_mono = _async._last_step_mono, now
@@ -490,8 +508,6 @@ def set_async_step(step: int) -> None:
                 else 0.9 * _async.step_period + 0.1 * dt
     set_trace_origin_step(step)
     linkobs.on_step(step)
-    from bluefog_tpu_torch.utils import tuner
-    tuner.tick(step)
 
 
 def async_step_lag() -> int:
@@ -588,6 +604,22 @@ def _note_contribution(name: str, src: int, tag, dst: int = -1) -> None:
                         src=str(src))
     telemetry.set_gauge("bf_win_contribution_stalest_age_seconds", hi,
                         src=str(src))
+
+
+def clear_contribution_age(ranks=None) -> None:
+    """Drop the contribution-age gauges of the sources ``ranks`` (None:
+    every one): a dead peer's last ages must not linger as live series.
+    The histograms stay (counters, not claims about a live edge)."""
+    with _age_lock:
+        targets = list(_age_minmax) if ranks is None else \
+            [r for r in ranks if r in _age_minmax]
+        for r in targets:
+            _age_minmax.pop(r, None)
+    for r in targets:
+        telemetry.clear_gauge("bf_win_contribution_freshest_age_seconds",
+                              src=str(r))
+        telemetry.clear_gauge("bf_win_contribution_stalest_age_seconds",
+                              src=str(r))
 
 
 def _note_stale(actions) -> None:
@@ -838,6 +870,12 @@ def _shutdown_transport() -> None:
         # they die before it does.
         xlaffi.invalidate()
         d.transport.stop()
+        # No transport, no edges: the gang service rode it, and the
+        # per-edge ages and async estimates describe peers gone with it.
+        from bluefog_tpu_torch.ops import gang
+        gang.install(None)
+        clear_contribution_age()
+        clear_async_staleness()
         linkobs.clear_all()
 
 
@@ -1021,6 +1059,37 @@ def _flush_transport(procs=None, since=None, timeout=None) -> None:
                       addrs=addrs, since=since)
 
 
+def _wait_on_peers(wait, procs, tok, what: str,
+                   timeout: Optional[float] = None) -> bool:
+    """``wait(seconds) -> bool`` until it holds or ``timeout`` (default
+    ``BLUEFOG_TPU_WIN_TIMEOUT``) passes.  Under churn (a membership
+    controller installed) the wait runs in slices, and a peer process of
+    ``procs`` that left the committed view, or whose sends failed since
+    the error token ``tok``, ends it with ``ConnectionError``: a dead
+    peer's grant, reply or ack never comes, and the controller's own
+    heartbeats to it are what fail first."""
+    timeout = _timeout() if timeout is None else timeout
+    from bluefog_tpu_torch.ops import membership
+    ctrl = membership.current()
+    if ctrl is None:
+        return wait(timeout)
+    d = _store.distrib
+    addrs = {d.proc_addr[p] for p in procs if p in d.proc_addr}
+    deadline = time.monotonic() + timeout
+    while True:
+        left = deadline - time.monotonic()
+        if wait(max(0.0, min(0.05, left))):
+            return True
+        gone = sorted(p for p in procs if p not in ctrl.active)
+        if gone or (tok is not None and addrs
+                    and d.transport.error_token(addrs) > tok):
+            raise ConnectionError(
+                f"{what}: peer process(es) {gone or sorted(procs)} failed "
+                "or left the gang")
+        if left <= 0:
+            return False
+
+
 def _payload_row(win: _Window, payload, compressed: bool = False,
                  sparse: bool = False) -> torch.Tensor:
     """Decode one wire payload (bytes, or a view into the transport's
@@ -1113,7 +1182,8 @@ def _remote_mutex(name: str, rank: int, my_rank: int):
             _send_to_rank_owner(rank, OP_MUTEX_ACQ, name, my_rank, rank, 0.0)
             _flush_transport({proc}, since=tok)
             with stall.watch(f"win_mutex({name!r}) grant of rank {rank}"):
-                got = granted.wait(timeout=_timeout())
+                got = _wait_on_peers(granted.wait, {proc}, tok,
+                                     f"win_mutex({name!r}) grant")
             if not got:
                 raise ConnectionError(
                     f"win_mutex({name!r}): rank {rank}'s owner did not grant "
@@ -1136,6 +1206,11 @@ def _remote_mutex(name: str, rank: int, my_rank: int):
                                         rank, w, p_weight=serial_no,
                                         stripe=k)
                 _flush_transport({proc}, since=tok)
+            except ConnectionError as e:
+                # Under churn a dead owner's release goes nowhere, and
+                # nothing waits for it.
+                if not churn_tolerates(e):
+                    raise
             finally:
                 with d.cv:
                     d.grant_events.pop((name, rank), None)
@@ -1176,11 +1251,18 @@ def _apply_inbound(op: int, name: str, src: int, dst: int, weight: float,
     service pool and their own threads.  ``payload`` may view the
     transport's receive buffer, valid for this call only."""
     base = op & ~OP_FLAG_MASK
-    if base in (OP_MEMBER, OP_GANG):
-        _log.warning("window transport: dropped an inbound %s control "
-                     "message (the membership and gang subsystems are not "
-                     "ported: ROADMAP item 20)",
-                     "OP_MEMBER" if base == OP_MEMBER else "OP_GANG")
+    if base == OP_MEMBER:
+        # The churn controller's heartbeats: consumed at once, never
+        # parked (dropped with no controller installed; the sender
+        # heartbeats again on its own cadence).
+        from bluefog_tpu_torch.ops import membership
+        membership.handle_wire(payload)
+        return
+    if base == OP_GANG:
+        # Gang join and directory traffic: before the directory check, as
+        # a joiner's grant lands on a transport with no directory yet.
+        from bluefog_tpu_torch.ops import gang
+        gang.handle_wire(payload)
         return
     orig_op = op
     compressed = bool(op & OP_BF16_FLAG)
@@ -1207,6 +1289,10 @@ def _apply_inbound(op: int, name: str, src: int, dst: int, weight: float,
                 if seen is None or seen < total:
                     return
                 d.fence_req_seen.pop(src, None)
+        with d.cv:
+            proc = d.rank_owner.get(src)
+            d.fence_reqs_in[proc] = d.fence_reqs_in.get(proc, 0) + 1
+            d.cv.notify_all()
         _store.svc_pool.submit(_send_to_rank_owner, src, OP_FENCE_ACK, "",
                                src, dst, 0.0)
         return
@@ -1650,6 +1736,103 @@ def get_current_created_window_names() -> List[str]:
         return sorted(_store.windows)
 
 
+def owned_snapshot(name: str) -> Dict[str, object]:
+    """What a rebuild after a membership change starts from: the owned
+    ranks' rows of the window's memory stacked into one tensor on the
+    window's device (no row crosses to the host), the push-sum scalars and
+    the layout.  Taken between whole updates (``update_lock``)."""
+    win = _store.get(name)
+    with win.update_lock, win.lock, _stream(win.device):
+        rows = (torch.stack([win.main[r] for r in win.owned]) if win.owned
+                else torch.empty((0,) + win.shape, dtype=win.dtype,
+                                 device=win.device))
+        return {"rows": rows, "owned": list(win.owned),
+                "p_main": dict(win.p_main), "layout": win.layout}
+
+
+def rebuild_from_snapshot(name: str, snap: Dict[str, object]) -> None:
+    """Create window ``name`` anew under the current topology from an
+    :func:`owned_snapshot`: its memory the snapshot's rows (the same
+    bits), its staging zeroed (gossip of the old epoch, and of a dead
+    peer, is dropped), its push-sum scalars restored and its layout kept.
+    An SPMD call across the survivors (each rebuilds its own windows)."""
+    n, in_nbrs, out_nbrs = _neighbors_from_topology()
+    rows = snap["rows"]
+    owned = _owned_ranks(n)
+    if list(snap["owned"]) != owned:
+        raise ValueError(
+            f"rebuild_from_snapshot({name!r}): the snapshot holds ranks "
+            f"{snap['owned']}, this process owns {owned}")
+    d = _store.distrib
+    with _store.lock:
+        if name in _store.windows:
+            raise ValueError(f"rebuild_from_snapshot: window {name!r} "
+                             "exists; free it first")
+        with _stream(rows.device):
+            win = _store.windows[name] = _Window(
+                name, rows, in_nbrs, out_nbrs, True, owned,
+                snap["layout"])
+            for r, p in snap["p_main"].items():
+                if r in win.p_main:
+                    win.p_main[r] = p
+            if d is not None:
+                for msg in d.parked.pop(name, []):
+                    try:
+                        _apply_inbound(*msg)
+                    except Exception:  # noqa: BLE001 — isolate per message
+                        _log.exception("window %r: a parked message could "
+                                       "not be applied; dropped", name)
+    if d is not None and win.dtype == torch.float32:
+        d.transport.register_window(name, int(np.prod(win.shape,
+                                                       dtype=np.int64)))
+
+
+def _seed_staging_with_self(name: str) -> int:
+    """Fill each staging slot of the window that no put has reached since
+    it was created with the receiving rank's own memory: a rebuilt put
+    window's first combine then stands in the rank itself for a neighbor
+    whose first put is still on the wire, instead of a zero row.  Returns
+    the slots seeded."""
+    win = _store.get(name)
+    seeded = 0
+    with win.lock, _stream(win.device):
+        for (dst, src), v in win.versions.items():
+            if v == 0:
+                win.staging[(dst, src)] = win.main[dst].clone()
+                seeded += 1
+    return seeded
+
+
+def _release_remote_holds(ranks) -> None:
+    """Release the owned mutexes held for the requesters ``ranks`` (their
+    process died holding them: no MUTEX_REL will come)."""
+    d = _store.distrib
+    if d is None:
+        return
+    dead = {int(r) for r in ranks}
+    with d.cv:
+        for (_name, _rank, requester), ev in list(d.remote_holds.items()):
+            if requester in dead:
+                ev.set()
+
+
+def churn_tolerates(err: BaseException) -> bool:
+    """True when ``err`` is a send failure the churn controller owns: a
+    ``ConnectionError`` while a live membership controller is installed.
+    A peer that died before the gang voted it out fails its sends; the
+    window optimizers count such a failure and combine what arrived, and
+    the committed change retires the peer (``run/supervisor.py``)."""
+    if not isinstance(err, ConnectionError):
+        return False
+    from bluefog_tpu_torch.ops import membership
+    ctrl = membership.current()
+    if ctrl is None or ctrl.evicted:
+        return False
+    _log.warning("churn: a send failed before the gang voted its peer out "
+                 "(%s); combining what has arrived", err)
+    return True
+
+
 # ---------------------------------------------------------------------------
 # One-sided ops
 # ---------------------------------------------------------------------------
@@ -1720,43 +1903,66 @@ def _do_put(name: str, tensor: torch.Tensor, edges: Dict[tuple, float],
         plan = xlaffi.prepare_put(d, win, name, op, remote_edges,
                                   per_edge=require_mutex,
                                   compact=tensor.device.type == "cuda")
+    # Under churn a failed edge (a peer not yet voted out) does not stop
+    # the others nor the self-publish: push-sum's mass is split once,
+    # whatever reached the dead peer is lost with it, and the first error
+    # is raised at the end.
+    from bluefog_tpu_torch.ops import membership
+    errors = [] if membership.current() is not None else None
     if plan is not None:
         t0 = time.perf_counter()
-        _plan_put(win, name, tensor, edges, plan, accumulate,
-                  require_mutex, kind)
-        _flush_transport(remote_procs, since=tok)
-        stats.add(wire_s=time.perf_counter() - t0)
-        if self_weight is not None:
-            _publish_self(win, tensor, self_weight)
-        return
-    with (win.put_stage_lock if remote_procs else contextlib.nullcontext()):
-        staged: dict = {}
-        wire_s = 0.0
-        for (src, dst), w in edges.items():
-            if not _owns(src):
-                continue  # src's owner performs this edge
-            # A span an edge: the timeline shows each transfer.
-            with op_span(f"{kind}.{name}.{src}->{dst}", "COMMUNICATE"):
-                if _owns(dst):
-                    _do_put_edge(win, tensor, win.row_of[src], src, dst, w,
-                                 accumulate, require_mutex)
-                else:
-                    wire_s += _send_put_edge(
-                        win, name, tensor[win.row_of[src]], src, dst, w, op,
-                        require_mutex, staged)
-        # Op boundary: every remote edge is handed to TCP (its errors
-        # raised on this op's future) before the op completes.
-        if remote_procs:
-            t0 = time.perf_counter()
+        with _collect_errors(errors):
+            _plan_put(win, name, tensor, edges, plan, accumulate,
+                      require_mutex, kind, errors)
             _flush_transport(remote_procs, since=tok)
-            stats.add(wire_s=wire_s + time.perf_counter() - t0)
+        stats.add(wire_s=time.perf_counter() - t0)
+    else:
+        with (win.put_stage_lock if remote_procs
+              else contextlib.nullcontext()):
+            staged: dict = {}
+            wire_s = 0.0
+            for (src, dst), w in edges.items():
+                if not _owns(src):
+                    continue  # src's owner performs this edge
+                # A span an edge: the timeline shows each transfer.
+                with op_span(f"{kind}.{name}.{src}->{dst}", "COMMUNICATE"):
+                    if _owns(dst):
+                        _do_put_edge(win, tensor, win.row_of[src], src, dst,
+                                     w, accumulate, require_mutex)
+                    else:
+                        with _collect_errors(errors):
+                            wire_s += _send_put_edge(
+                                win, name, tensor[win.row_of[src]], src, dst,
+                                w, op, require_mutex, staged)
+            # Op boundary: every remote edge is handed to TCP (its errors
+            # raised on this op's future) before the op completes.
+            if remote_procs:
+                t0 = time.perf_counter()
+                with _collect_errors(errors):
+                    _flush_transport(remote_procs, since=tok)
+                stats.add(wire_s=wire_s + time.perf_counter() - t0)
     if self_weight is not None:
         _publish_self(win, tensor, self_weight)
+    if errors:
+        raise errors[0]
+
+
+@contextlib.contextmanager
+def _collect_errors(errors):
+    """Raise as usual with ``errors`` None; else keep a ConnectionError in
+    the list and go on (the churn path of :func:`_do_put`)."""
+    if errors is None:
+        yield
+        return
+    try:
+        yield
+    except ConnectionError as e:
+        errors.append(e)
 
 
 def _plan_put(win: _Window, name: str, tensor: torch.Tensor,
               edges: Dict[tuple, float], plan, accumulate: bool,
-              require_mutex: bool, kind: str) -> None:
+              require_mutex: bool, kind: str, errors=None) -> None:
     """One put through its plan: the local edges keep the store write,
     the remote edges run the plan on one staging copy (``xlaffi.
     stage_rows``), each inside its edge's mutex with ``require_mutex``
@@ -1783,7 +1989,8 @@ def _plan_put(win: _Window, name: str, tensor: torch.Tensor,
             for pid, grp in plan.groups:
                 if require_mutex:
                     (src, dst), _w = grp[0]
-                    with _remote_mutex(name, dst, src):
+                    with _collect_errors(errors), \
+                            _remote_mutex(name, dst, src):
                         _run_plan_group(win, name, plan, pid, grp, tx, ptr,
                                         total)
                 else:
@@ -2029,12 +2236,18 @@ def _do_get(name: str, edges: Dict[tuple, float], require_mutex: bool) -> None:
         _send_to_rank_owner(src, OP_GET_REQ, name, src, dst, w)
     _flush_transport(req_procs, since=tok)
     keys = [(name, dst, src) for (dst, src, _) in remote]
-    with d.cv:
-        ok = d.cv.wait_for(
-            lambda: all(d.pending_gets.get(k, 0) <= 0 for k in keys),
-            timeout=_timeout())
-        for k in keys:
-            d.pending_gets.pop(k, None)
+
+    def replied(t):
+        with d.cv:
+            return d.cv.wait_for(
+                lambda: all(d.pending_gets.get(k, 0) <= 0 for k in keys),
+                timeout=t)
+    try:
+        ok = _wait_on_peers(replied, req_procs, tok, f"win_get({name!r})")
+    finally:
+        with d.cv:
+            for k in keys:
+                d.pending_gets.pop(k, None)
     if not ok:
         raise ConnectionError(
             f"win_get({name!r}): no reply from remote rank(s) "
@@ -2335,7 +2548,11 @@ def win_fence(name: Optional[str] = None) -> None:
     raised), every message any process sent before its fence has been
     applied at its target, and every process has reached the fence.  Our
     FENCE_REQ trails our puts on each peer's FIFO (every stripe's), so the
-    peer's ack certifies them; the fence ends in ``basics.barrier()``."""
+    peer's ack certifies them; the fence ends in ``basics.barrier()``.
+    Under churn (a membership controller installed) the fence addresses
+    the processes of the committed view only, and its barrier is their
+    FENCE_REQs of this fence (each trails that peer's puts to us): no
+    collective over a process group that may hold a dead member."""
     from bluefog_tpu_torch import basics
     basics._require_active()
     with _store.lock:
@@ -2354,11 +2571,21 @@ def win_fence(name: Optional[str] = None) -> None:
     if errors:
         raise errors[0]
     d = _store.distrib
+    from bluefog_tpu_torch.ops import membership
+    ctrl = membership.current() if d is not None else None
     if d is not None:
-        peers = [p for p in d.proc_addr if p != d.my_proc]
+        members = None if ctrl is None else set(ctrl.active)
+        peers = [p for p in d.proc_addr if p != d.my_proc
+                 and (members is None or p in members)]
         with d.cv:
             d.fence_acks = 0
-        tok = d.transport.error_token()
+            d.fences_out += 1
+            generation = d.fences_out
+        # Under churn the error token and the flush cover the members
+        # only (a dead peer's retired senders are no part of the fence).
+        scope = None if ctrl is None else set(peers)
+        tok = d.transport.error_token(
+            None if scope is None else {d.proc_addr[p] for p in scope})
         n_str = d.transport.n_stripes
         w = _fanout_weight(n_str)
         serial = _fanout_serial(d, n_str)
@@ -2366,14 +2593,32 @@ def win_fence(name: Optional[str] = None) -> None:
             for k in range(n_str):
                 _send_to_proc(p, OP_FENCE_REQ, name or "", d.my_rank, -1,
                               w, p_weight=serial, stripe=k)
-        _flush_transport(since=tok)
-        with d.cv:
-            ok = d.cv.wait_for(lambda: d.fence_acks >= len(peers),
-                               timeout=_timeout())
+        _flush_transport(scope, since=tok)
+
+        def acked(t):
+            with d.cv:
+                return d.cv.wait_for(lambda: d.fence_acks >= len(peers),
+                                     timeout=t)
+        ok = _wait_on_peers(acked, peers, tok, "win_fence")
         if not ok:
             raise ConnectionError(
                 f"win_fence: missing acks ({d.fence_acks}/{len(peers)}) "
                 f"after {_timeout():.0f}s")
+        if ctrl is not None:
+            def reached(t):
+                with d.cv:
+                    return d.cv.wait_for(
+                        lambda: all(d.fence_reqs_in.get(p, 0) >= generation
+                                    for p in peers), timeout=t)
+            ok = _wait_on_peers(reached, peers, tok, "win_fence")
+            if not ok:
+                raise ConnectionError(
+                    f"win_fence: peers {peers} did not reach fence "
+                    f"{generation} within {_timeout():.0f}s")
+            dev = basics.device()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            return
     basics.barrier()
 
 

@@ -77,8 +77,20 @@ for bit those of the eager step.  ``fused=False`` pins the eager step, and
 a configuration the fused step cannot take warns once and runs the eager
 step.
 
-Left out, raising an error that names its ROADMAP item: the churn hooks
-(item 20).
+Churn (``BLUEFOG_TPU_CHURN=1`` across processes): every ``step()`` first
+drives the process's churn supervisor (``run/supervisor.py``), so failure
+detection, the survivor re-plan and the rebuild of the windows on the card
+happen before the step's window ops, as in the JAX package.  A committed
+change lands on :attr:`membership_change`; a rank voted out raises (its
+:attr:`evicted` set).  After a change the fused programs of the freed
+windows are dropped (the next step builds anew at the new epoch, the one
+after captures), and a put family's rebuilt staging slots are seeded with
+the receiving rank's own row, so that the first combine does not average
+in zeros for a neighbor whose first put is still on the wire (the JAX
+package's stay zero).  A send to a peer that died before the gang voted
+it out fails; under churn the step counts it (:attr:`churn_send_errors`)
+and combines what arrived.  A supervisor built by hand is deferred to:
+its owner steps it.
 """
 
 from __future__ import annotations
@@ -100,11 +112,6 @@ from bluefog_tpu_torch.utils.logging import get_logger
 
 __all__ = ["DistributedWinPutOptimizer", "DistributedPullGetOptimizer",
            "DistributedPushSumOptimizer"]
-
-
-def _refuse(what: str, item: str) -> None:
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1, "
-                              f"{item})")
 
 
 def _merged_ranges(ranges) -> List[tuple]:
@@ -131,9 +138,6 @@ class _WindowOptimizerBase:
         if layout not in ("auto", "rank", "owned"):
             raise ValueError(
                 f"layout must be 'auto', 'rank' or 'owned', got {layout!r}")
-        if config.get().churn:
-            _refuse("the churn supervisor hooks (BLUEFOG_TPU_CHURN=1)",
-                    "item 20")
         if int(num_steps_per_communication) < 1:
             raise ValueError("num_steps_per_communication must be >= 1")
         self.base = base
@@ -526,11 +530,77 @@ class _WindowOptimizerBase:
     def _communicates(self) -> bool:
         return (self.step_count + 1) % self.num_steps_per_communication == 0
 
+    # The newest committed membership change _maybe_churn_step saw (None
+    # until the gang changes); `evicted` is the supervisor's verdict on
+    # this rank; the sends that failed before a dead peer was voted out.
+    membership_change = None
+    evicted = False
+    churn_send_errors = 0
+
+    def _maybe_churn_step(self, t: int) -> None:
+        """Drive the churn supervisor at this step boundary (with
+        ``BLUEFOG_TPU_CHURN=1`` and a live multi-process transport; else
+        one config check).  A committed change lands in
+        :attr:`membership_change`; if this rank was voted out,
+        :attr:`evicted` is set and a RuntimeError tells the loop to exit.
+        A live controller that the process-wide supervisor does not own
+        (a supervisor built by hand) is left to its owner."""
+        if not config.get().churn:
+            return
+        from bluefog_tpu_torch.ops import membership
+        from bluefog_tpu_torch.run import supervisor as sup_mod
+        cur = membership.current()
+        if cur is not None and (sup_mod._singleton is None
+                                or sup_mod._singleton.ctrl is not cur):
+            return
+        sup = sup_mod.maybe_supervisor()
+        if sup is None:
+            return
+        view = sup.step(t)
+        if view is None:
+            return
+        self.membership_change = view
+        if view.evicted:
+            self.evicted = True
+            raise RuntimeError(
+                f"{type(self).__name__}.step: this rank was evicted by "
+                f"membership consensus (epoch {view.epoch}); exit the "
+                "training loop — the survivors have re-planned without it")
+        if self._fused_impl is not None:
+            # Its programs ran the freed windows' plans.
+            self._fused_impl.close()
+        if not self._zero_init:
+            for name in self._names or []:
+                W._seed_staging_with_self(name)
+
+    def _wait_all(self, handles) -> None:
+        """``win_wait`` every handle; under churn a send that failed on a
+        peer not yet voted out is counted, and the step goes on."""
+        for h in handles:
+            try:
+                W.win_wait(h)
+            except ConnectionError as e:
+                if not W.churn_tolerates(e):
+                    raise
+                self.churn_send_errors += 1
+
+    def _fence(self) -> None:
+        """A step's ``win_fence``; under churn one that fails on a peer
+        not yet voted out is counted, and the step goes on."""
+        try:
+            W.win_fence()
+        except ConnectionError as e:
+            if not W.churn_tolerates(e):
+                raise
+            self.churn_send_errors += 1
+
     def step(self, **kw) -> None:
-        """One step: :meth:`adapt`, then :meth:`combine` (``kw`` goes to
-        the combine), timed; or, when the fused step is wanted and this
-        configuration can take it, the same step through
+        """One step: the churn supervisor's step boundary (under
+        ``BLUEFOG_TPU_CHURN``), :meth:`adapt`, then :meth:`combine` (``kw``
+        goes to the combine), timed; or, when the fused step is wanted and
+        this configuration can take it, the same step through
         ``ops/fused_step.py``."""
+        self._maybe_churn_step(self.step_count)
         t0 = telemetry.start_timer()
         if not (self._fused_wanted() and self._fused_step(**kw)):
             self.adapt()
@@ -698,8 +768,7 @@ class DistributedWinPutOptimizer(_WindowOptimizerBase):
                 W.win_flush(wait=False)
                 self._pending = handles
             else:
-                for h in handles:
-                    W.win_wait(h)
+                self._wait_all(handles)
             combined = [W._update_rows(name, require_mutex=require_mutex,
                                        **self._update_kwargs(name))
                         for name in self._names]
@@ -718,9 +787,8 @@ class DistributedWinPutOptimizer(_WindowOptimizerBase):
             require_mutex=require_mutex)
 
     def _drain_pending(self) -> None:
-        for h in self._pending:   # overlapped puts land first
-            W.win_wait(h)
-        self._pending = []
+        pending, self._pending = self._pending, []
+        self._wait_all(pending)   # overlapped puts land first
 
     def free(self) -> None:
         self._drain_pending()
@@ -751,14 +819,12 @@ class DistributedPullGetOptimizer(_WindowOptimizerBase):
         if self._communicates():
             payloads = self._payloads()
             # The put with no edge only refreshes main (self_weight 1).
-            for h in [W.win_put_nonblocking(p, name, self_weight=1.0,
-                                            dst_weights={})
-                      for name, p in zip(self._names, payloads)]:
-                W.win_wait(h)
-            for h in [W.win_get_nonblocking(name, src_weights=src_weights,
-                                            require_mutex=require_mutex)
-                      for name in self._names]:
-                W.win_wait(h)
+            self._wait_all([W.win_put_nonblocking(p, name, self_weight=1.0,
+                                                  dst_weights={})
+                            for name, p in zip(self._names, payloads)])
+            self._wait_all([W.win_get_nonblocking(
+                name, src_weights=src_weights, require_mutex=require_mutex)
+                for name in self._names])
             combined = [W._update_rows(name, require_mutex=require_mutex)
                         for name in self._names]
             self._maybe_sample_consensus(payloads, combined)
@@ -831,13 +897,12 @@ class DistributedPushSumOptimizer(_WindowOptimizerBase):
                      % self.auto_collect_rounds == 0)
         backstop_now = self._async_collect_due()
         payloads = self._payloads()
-        for h in [W.win_accumulate_nonblocking(
-                p, name, self_weight=self_share, dst_weights=dst_weights,
-                require_mutex=require_mutex)
-                for name, p in zip(self._names, payloads)]:
-            W.win_wait(h)
+        self._wait_all([W.win_accumulate_nonblocking(
+            p, name, self_weight=self_share, dst_weights=dst_weights,
+            require_mutex=require_mutex)
+            for name, p in zip(self._names, payloads)])
         if fence_now or backstop_now:
-            W.win_fence()
+            self._fence()
             if backstop_now:
                 # After the fence nothing is in flight: the residuals
                 # folded in, the collect below is exact.
@@ -865,7 +930,7 @@ class DistributedPushSumOptimizer(_WindowOptimizerBase):
             # The eager step's fence and backstop, between the program and
             # the collect.
             if fence_now or backstop_now:
-                W.win_fence()
+                self._fence()
                 if backstop_now:
                     self.backstops += 1
                     self.folded_edges.append(sum(

@@ -8,8 +8,8 @@ read on first access and cached; call :func:`reload` after changing
 watchdog, telemetry, flight recorder, step profiler, fusion-bucket cap) are
 the JAX package's, with its names and defaults, and so are the link
 observatory's, the SLO engine's, the tuner's, the device-side put plans'
-and the fused step's with its probes.  The churn and gang knobs come with
-ROADMAP item 20.
+and the fused step's with its probes, and so are the churn, gang and
+chaos knobs of the elasticity layer (ROADMAP item 20).
 
 | Variable | Default | Meaning |
 |---|---|---|
@@ -53,7 +53,14 @@ ROADMAP item 20.
 | BLUEFOG_TPU_ASYNC_STALENESS_STEPS | 0 | staleness bound k (origin steps); 0 = unbounded (accept everything) |
 | BLUEFOG_TPU_ASYNC_STALENESS_POLICY | reject | reject (full mass to the stale-residual store) or downweight:<alpha> (alpha enters staging, 1-alpha to the store) |
 | BLUEFOG_TPU_ASYNC_COLLECT_EVERY | 64  | every N async steps: fence, fold the stale residuals back, exact collect; 0 = never |
-| BLUEFOG_TPU_CHURN             | 0     | churn supervisor hooks of the window optimizers (not ported: item 20) |
+| BLUEFOG_TPU_CHURN             | 0     | 1: enable the elastic-gossip churn controller (ops/membership.py, run/supervisor.py) |
+| BLUEFOG_TPU_CHURN_HEARTBEAT_MS | 250  | membership heartbeat period |
+| BLUEFOG_TPU_CHURN_SUSPECT_MS  | 1500  | heartbeat silence before a peer is suspected |
+| BLUEFOG_TPU_CHURN_STRAGGLER_STEPS | 0 | step lag that marks a live peer a straggler suspect (0=off) |
+| BLUEFOG_TPU_ELASTIC_JOIN      | 0     | 1: enable the join/bootstrap subsystem (ops/gang.py): wired joins, the replicated endpoint directory, coordinator-free bootstrap |
+| BLUEFOG_TPU_GANG_DIR_PATH     | unset | endpoint-directory persistence prefix (files <prefix>.<proc>.json); unset = in memory only |
+| BLUEFOG_TPU_JOIN_TIMEOUT_MS   | 30000 | how long a joining process waits for a join grant per contacted endpoint |
+| BLUEFOG_TPU_CHAOS             | unset | fault-injection spec (utils/chaos.py grammar) |
 | BLUEFOG_TPU_HIER              | 0     | 1: enable two-level hierarchical gossip |
 | BLUEFOG_TPU_HIER_OUTER_EVERY  | 1     | outer (inter-machine) cadence: every k steps |
 | BLUEFOG_TPU_HIER_INNER        | exp2  | intra-machine dense topology: exp2 / ring |
@@ -277,6 +284,13 @@ class Config:
     async_staleness_policy: str
     async_collect_every: int
     churn: bool
+    churn_heartbeat_ms: float
+    churn_suspect_ms: float
+    churn_straggler_steps: int
+    elastic_join: bool
+    gang_dir_path: Optional[str]
+    join_timeout_ms: float
+    chaos: Optional[str]
     hier: bool
     hier_outer_every: int
     hier_inner: str
@@ -360,6 +374,17 @@ class Config:
             async_collect_every=int(env.get(
                 "BLUEFOG_TPU_ASYNC_COLLECT_EVERY", "64")),
             churn=_flag("BLUEFOG_TPU_CHURN"),
+            churn_heartbeat_ms=float(env.get(
+                "BLUEFOG_TPU_CHURN_HEARTBEAT_MS", "250")),
+            churn_suspect_ms=float(env.get(
+                "BLUEFOG_TPU_CHURN_SUSPECT_MS", "1500")),
+            churn_straggler_steps=int(env.get(
+                "BLUEFOG_TPU_CHURN_STRAGGLER_STEPS", "0")),
+            elastic_join=_flag("BLUEFOG_TPU_ELASTIC_JOIN"),
+            gang_dir_path=env.get("BLUEFOG_TPU_GANG_DIR_PATH"),
+            join_timeout_ms=float(env.get(
+                "BLUEFOG_TPU_JOIN_TIMEOUT_MS", "30000")),
+            chaos=env.get("BLUEFOG_TPU_CHAOS"),
             hier=_flag("BLUEFOG_TPU_HIER"),
             hier_outer_every=int(env.get("BLUEFOG_TPU_HIER_OUTER_EVERY",
                                          "1")),

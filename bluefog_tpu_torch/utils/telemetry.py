@@ -468,10 +468,10 @@ def health() -> dict:
     waits, the window transport's unreachable-peer probe, the latest
     cross-rank straggler report, the transport's coalescing, queue depths
     and decode pool, the async window mode's block, the link observatory's
-    ``links`` block (a latched SLO breach degrades the status) and the
-    tuner's.  The JAX package's ``membership`` and ``gang_directory``
-    blocks come with item 20; until then they are absent, as they are
-    there when those subsystems are off."""
+    ``links`` block (a latched SLO breach degrades the status), the
+    tuner's, the churn controller's ``membership`` (a suspect or an
+    eviction degrades the status) and the gang's ``gang_directory``; each
+    block is absent when its subsystem is off."""
     from bluefog_tpu_torch.utils import stall
     overdue = stall._monitor.overdue_ops()
     body = {
@@ -540,6 +540,27 @@ def health() -> dict:
         if dwn:
             async_block["stale_downweighted"] = dwn
         body["async"] = async_block
+    # The churn controller's membership (ops/membership.py): the committed
+    # epoch, the active ranks, live suspicion; absent unless
+    # BLUEFOG_TPU_CHURN=1 installed a controller.
+    try:
+        from bluefog_tpu_torch.ops import membership
+        member = membership.health_summary()
+    except Exception:  # noqa: BLE001 — health must render regardless
+        member = None
+    if member is not None:
+        body["membership"] = member
+        if member.get("suspect_ranks") or member.get("evicted"):
+            body["status"] = "degraded"
+    # The replicated endpoint directory (ops/gang.py): committed epoch,
+    # vacant ranks, grants; absent unless BLUEFOG_TPU_ELASTIC_JOIN=1.
+    try:
+        from bluefog_tpu_torch.ops import gang
+        gd = gang.health_summary()
+    except Exception:  # noqa: BLE001 — health must render regardless
+        gd = None
+    if gd is not None:
+        body["gang_directory"] = gd
     # The link observatory: worst edge, max divergence, the SLO engine's
     # state; absent with BLUEFOG_TPU_LINK_OBS=0 or nothing observed.
     try:

@@ -185,11 +185,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    ``reference``; K1 launches once a layer.
 25. ``tp_train`` — ``__graft_entry__.dryrun_multichip``'s tensor-parallel
    step at dp 2 x tp 2 on 4 virtual ranks: ``tensor_parallel_training.
-   DataTensorParallelLM`` at the 1.3B LM's widths with SwiGLU (24 layers,
-   1,745,979,392 parameters a dp replica, no remat), batch 2 x 2048 a dp
+   DataTensorParallelLM`` at the 1.3B LM's widths with SwiGLU
+   (``TP_LAYERS`` = 12 layers, cut from 24 for the smoke's time,
+   940,623,872 parameters a dp replica, no remat), batch 2 x 2048 a dp
    rank, ATC SGD (lr 0.025) over the one-peer Exp2 walk, 4 steps: step ms
    (the first left out), tokens/s, peak memory under 80 GB, the spread
-   exactly 0.0 after every combine, launches 24 layers x 2 dp ranks of
+   exactly 0.0 after every combine, launches 12 layers x 2 dp ranks of
    each kernel a step; a ``profile_step`` profile of one more step (idle
    share, K1-K3, the tp sums ``tp::row_sum``).
 26. ``pp_train`` — 1F1B (``parallel.pipeline.pipeline_train_step``) of the
@@ -211,6 +212,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 29. ``tp_example``, 30. ``pp_example`` — ``python -m bluefog_tpu_torch.
    tensor_parallel_training``'s and ``pipeline_training``'s ``main`` on the
    card (each schedule): the loss falls.
+30a. ``elastic_example`` — ``python -m bluefog_tpu_torch.elastic_training``'s
+   ``main`` on the card at its own size (60 steps of a small MLP on 4
+   ranks, a checkpoint every 10), under neighbor_allreduce and under
+   push-sum (its window store in the checkpoint): uninterrupted, then
+   preempted at step 25 (exit 75) and run again: it resumes and ends bit
+   for bit where the uninterrupted run did.
 31. ``hier_train`` — the benchmark with ``--dist-optimizer hierarchical
    --atc --dynamic``: the 1.3B LM at full width and depth, 4 ranks in 2
    machines of 2 (the machine topology's one-peer walk), 1 warmup + 2
@@ -252,6 +259,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    thread, on a (4, 2^24) float32 tensor under ExponentialGraph(4): the
    card against the CPU bit for bit; ``win_update``'s time beside its
    bound.
+35-41 across processes: one launch of 2 processes of 2 ranks runs the
+   workers of ``win_dist_ops``, ``win_dist_train``, ``win_async_ops`` and
+   ``win_async_train`` in turn (``dist_phases``: one start-up of the
+   processes, where each phase had its own), the CPU run of
+   ``win_async_ops`` alongside it; a wall line of each part precedes the
+   phases' lines, which follow ``resnet50_win_put``'s.
 35. ``win_dist_ops`` — ``win_ops``' sequence across 2 processes of 2
    ranks, both on card 0
    (``BFTPU_*`` rendezvous, gloo for the control, every remote row over
@@ -277,16 +290,16 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    finite losses, K1-K3 launches layers x 2 ranks x 2 steps a process,
    the combine shrinks the world's spread; step ms, tokens/s, the window
    a step split into staging out, wire, the remote mutex's waits and
-   commit, the bytes crossing a step, peak memory a process, and the
-   device idle share of one more step profiled in process 0; ResNet-50
-   under win_put (batch 64, 102 MB rows); pull-get and push-sum at 2
-   blocks, a step each (cut from 2; pull-get shrinks the rms spread,
-   push-sum's P sums to 4 after ``collect``); then the same LM in 2
+   commit, the bytes crossing a step, peak memory a process; ResNet-50
+   under win_put (batch 64, 102 MB rows); pull-get and push-sum at 1
+   block (cut from 2), a step each (cut from 2; pull-get shrinks the rms
+   spread, push-sum's P sums to 4 after ``collect``); then the same LM in 2
    fusion buckets, one step each way from the same seed: eager with
    ``BLUEFOG_TPU_WIN_XLA=0`` (the host-staged puts) and fused (``=1``,
    the put plans inside the program), each window's staging rows after a
    fence bit for bit the ``=0`` run's; the fused run steps once more
-   (captured, replayed once) with every put status 0 and
+   (captured, replayed once; in process 0 under ``profile_step.trace``,
+   the device idle share of the step) with every put status 0 and
    ``xlaffi.armed()``; then the staging GB/s of the plan path beside
    ``_stage``'s, warm, one process at a time (the two share the card's
    host link), and ``bf_win_host_copy_bytes_total`` by path.
@@ -317,9 +330,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    the staging is exactly what the senders shipped.
 41. ``win_async_train`` — ``BLUEFOG_TPU_ASYNC=1``, ``TRACE_SAMPLE=1``,
    ``STALENESS_STEPS=1``, ``COLLECT_EVERY=2`` across the same 2 x 2, process
-   1 sleeping ``WIN_ASYNC_SLEEP`` s before each step (a straggler): the
-   benchmark's win_put LM and push-sum at 2 blocks each (win_put cut from
-   4 for the smoke's time), each
+   1 sleeping ``WIN_ASYNC_SLEEP`` = 0.5 s (1.5 until cut for the smoke's
+   time) before each step (a straggler): the
+   benchmark's win_put LM and push-sum at 1 block each (win_put cut from
+   4, then from 2, for the smoke's time), each
    ``WIN_ASYNC_LOCKSTEP_STEPS`` lockstep step then ``WIN_ASYNC_STEPS``
    async ones (1 and 2, cut from 2 and 3 for the smoke's time) in the same
    run: step ms of each,
@@ -361,12 +375,50 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    16,777,328 float32 columns), rank layout, ``fuse=True``: the windows
    ``.fused`` and ``.sharded``; on the card bit for bit the CPU run, each
    own slice the in-group combine, each ghost slice its input.
+44a. ``churn_train`` — elasticity across processes (ROADMAP item 20): 4
+   processes of one rank on card 0 (``BFTPU_*`` rendezvous, gloo for the
+   control, the window transport for the rows), the 1.3B LM at full width
+   and ``WIN_DIST_LAYERS`` = 2 blocks in the owned layout,
+   ``DistributedWinPutOptimizer(fused=True)`` on ``ExponentialGraph(4)``,
+   ``CHURN_STEPS`` = 6 steps under ``CHURN_KNOBS`` (the JAX package's
+   ``tools/chaos.py`` demo: 80 ms heartbeats, 500 ms suspicion, one retry
+   of 25 ms, ``kill:rank=3:step=2``; 2 stripes, so that a heartbeat copy
+   never waits behind a 0.94 GB row).  Rank 3 SIGKILLs itself at the top
+   of step 2 and must die of it; the survivors, without a leader or a
+   collective, each commit epoch 1 with ranks (0, 1, 2), none evicted,
+   observe ``bf_churn_recovery_seconds`` once, rebuild their window from
+   the owned rows on the card (the rows' sha256 before and after equal),
+   re-plan onto a doubly stochastic survivor topology with rank 3
+   isolated, build and capture the fused program anew at the new epoch
+   with statuses 0, keep finite losses, and at the last step the rms
+   spread across them (over ``CHURN_SAMPLE`` sampled columns) is smaller
+   after the combine than after the adapt; K1-K3 launch 2 x 6 times in
+   each survivor (the processes drift apart: the survivors commit at their
+   step 2 or 3, so 6 steps leave one to capture the new program in).  Prints the detection time (rank 3's clock at the kill
+   to each survivor's commit), the recovery seconds, the step ms before
+   and after the commit and each survivor's peak memory.  The workers
+   report through their JSON files only: after the kill nothing calls a
+   collective.
+44b. ``elastic_train`` — ``utils.elastic.run_elastic`` in this process: the
+   LM at 2 blocks on 4 virtual ranks, static neighbor_allreduce, 6 steps
+   in a temporary directory the phase removes: the 6 steps uninterrupted
+   (the reference, no checkpoint), then under ``run_elastic`` a checkpoint
+   (DCP, ``utils/checkpoint.py``) every 2
+   steps, 2 kept, SIGTERM after step 3 (``Preempted`` after its save) and
+   the restart, which resumes from step 3 (steps 2, 3 then 4, 6 on disk):
+   the final parameters bit for bit the uninterrupted run's (else the
+   largest difference is reported and the phase fails).  Prints each
+   save's pinned host copy and DCP write of the 3.78 GB of rows in GB/s,
+   and the resume seconds.  Push-sum's resume with its window store in
+   the checkpoint runs in ``elastic_example``: at these widths its store
+   (main and staging, ~11 GB a save) would take the machine's disk past
+   its 45 GiB of writes a call.
 45. ``{"kernels": [...]}`` (launches from the ``train``, ``llama_train``,
    ``moe_train``, ``ring_train``, ``ulysses_train``, ``dp_sp_train``,
    ``tp_train``, ``pp_train``, ``pp_variants``, ``hier_train``,
    ``winput_train``, ``fused_train``, ``win_variants``, ``win_dist_train``,
-   ``tp_moe_train``, ``win_async_train``, ``sharded_moe_train`` and
-   ``observe_train`` phases,
+   ``tp_moe_train``, ``win_async_train``, ``sharded_moe_train``,
+   ``churn_train``, ``elastic_train`` and ``observe_train`` phases,
    each path's beside), then the ``nvidia-smi`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -381,6 +433,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -414,7 +467,8 @@ RING_STEPS = 3               # (24 and 5 until cut for the smoke's time)
 ULYSSES_LAYERS = 4           # ulysses_train and dp_sp_train at a reduced
 DP_SP_LAYERS = 4             # depth, to keep the smoke within its time
 TP_DP, TP_WAYS = 2, 2        # tp_train: dp 2 x tp 2, 4 virtual ranks
-TP_PARAMS = 1745979392       # a dp replica: MHA, SwiGLU, learned positions
+TP_LAYERS = 12               # tp_train's depth (24 until cut for time)
+TP_PARAMS = 940623872        # a dp replica: MHA, SwiGLU, learned positions
 PP_STAGES, PP_MICROBATCHES = 4, 8   # pp_train: 12 blocks in 4 stages of 3,
 PP_LAYERS = 12                      # 8 microbatches of one 2048 sequence
 PP_BLOCK_PARAMS = 805355520         # (24 blocks until cut for time)
@@ -436,8 +490,9 @@ WIN_TOL = 1e-6               # window combine vs float64: ||err|| / ||ref||
 WIN_DIST_PROCS = 2           # win_dist_*: processes, all on card 0 (NCCL
 WIN_DIST_PER = 2             # refuses two ranks on one card): the world of
                              # 4 ranks, 2 a process, gloo for the control
-WIN_DIST_VARIANT_LAYERS = 2  # win_dist_train's pull-get and push-sum,
-WIN_DIST_VARIANT_STEPS = 1   # a step each (cut from 2 for the smoke's time)
+WIN_DIST_VARIANT_LAYERS = 1  # win_dist_train's pull-get and push-sum,
+WIN_DIST_VARIANT_STEPS = 1   # a step each (cut from 2 blocks and 2 steps
+                             # for the smoke's time)
 WIN_DIST_LM_ITERS = 1        # win_dist_train's timed steps of the LM and of
                              # ResNet-50 after 1 warmup (cut from 2)
 WIN_DIST_BF16_TOL = 1e-2     # bf16 window compression vs exact: rtol, atol
@@ -451,13 +506,13 @@ WIN_ASYNC_COLS = 1 << 20     # win_async_ops: the rows' width (float32)
 # and phase 2's older rows are stale at their receivers.
 WIN_ASYNC_PHASES = ((10, 7), (11, 11), (12, 14), (15, 14))
 WIN_ASYNC_POLICIES = ("reject", "downweight:0.5")
-WIN_ASYNC_PUT_LAYERS = 2     # win_async_train: win_put's depth (as
-WIN_ASYNC_PUSHSUM_LAYERS = 2  # win_dist_train's) and push-sum's
+WIN_ASYNC_PUT_LAYERS = 1     # win_async_train: win_put's depth and
+WIN_ASYNC_PUSHSUM_LAYERS = 1  # push-sum's (cut from 2 for the smoke's time)
 # Async steps of each (push-sum: a backstop at the 2nd), and the lockstep
 # steps beside them; cut to keep the smoke's time.
 WIN_ASYNC_STEPS = {"win_put": 1, "push_sum": 2}
 WIN_ASYNC_LOCKSTEP_STEPS = 1
-WIN_ASYNC_SLEEP = 1.5        # seconds process 1 sleeps before each step
+WIN_ASYNC_SLEEP = 0.5        # seconds process 1 sleeps before each step
 WIN_ASYNC_KNOBS = dict(async_mode=True, trace_sample=1,
                        async_staleness_steps=1, async_collect_every=2)
 BOUND_BYTES = 1 << 30        # path_bounds: one copy of 1 GiB a leg
@@ -485,6 +540,24 @@ OBSERVE_KNOBS = {"BLUEFOG_TPU_PROFILE": "1", "BLUEFOG_TPU_PROFILE_EVERY": "1",
                  "BLUEFOG_TPU_TELEMETRY_CONSENSUS_EVERY": "2",
                  "BLUEFOG_TPU_TELEMETRY_PORT": "0"}
 OBSERVE_NAR_SHAPE = (4, 1 << 24)
+CHURN_PROCS = 4              # churn_train: 4 processes of one rank on
+CHURN_STEPS = 6              # card 0, win_put steps; rank 3 killed at
+CHURN_KILL_STEP = 2          # step 2 (rank 0 hosts the rendezvous)
+CHURN_SAMPLE = 4096          # columns sampled for the spread across them
+# tools/chaos.py run_demo's knobs (heartbeat, suspicion, retries), and 2
+# stripes: the row of a (window, rank) rides one, and every heartbeat is
+# sent on each, so a copy never queues behind a row of ~0.94 GB.
+CHURN_KNOBS = {"BLUEFOG_TPU_CHURN": "1",
+               "BLUEFOG_TPU_CHURN_HEARTBEAT_MS": "80",
+               "BLUEFOG_TPU_CHURN_SUSPECT_MS": "500",
+               "BLUEFOG_TPU_WIN_RETRIES": "1",
+               "BLUEFOG_TPU_WIN_RETRY_BACKOFF_MS": "25",
+               "BLUEFOG_TPU_WIN_STRIPES": "2",
+               "BLUEFOG_TPU_CHAOS": f"kill:rank=3:step={CHURN_KILL_STEP}"}
+ELASTIC_STEPS = 6            # elastic_train: the LM at WIN_DIST_LAYERS
+ELASTIC_SAVE_EVERY = 2       # under run_elastic, SIGTERM after step 3;
+ELASTIC_PREEMPT = 3          # 5 saves of 3.78 GB (the machine's disk takes
+                             # 45 GiB of writes a call)
 LM_WIDTHS = {"width": 2048, "heads": 16, "seq": 2048, "vocab": 32000}
 DEVICE = "cuda"              # the new phases' device ("cpu" to rehearse)
 KERNELS = {
@@ -3108,12 +3181,16 @@ def row_hashes(t):
             .hexdigest() for r in t]
 
 
-def launch_workers(phase, args=(), device=None):
-    """Run ``chip_smoke.py --worker <phase>`` in ``WIN_DIST_PROCS``
-    processes (bfrun's ``BFTPU_*`` rendezvous on this host, card 0 for
-    each) on ``device`` (default ``DEVICE``); their results, in process
-    order.  Every process is stopped before this returns, also on a
-    failure."""
+def launch_workers(phase, args=(), device=None, procs=WIN_DIST_PROCS,
+                   per=WIN_DIST_PER, env=None, killed=()):
+    """Run ``chip_smoke.py --worker <phase>`` in ``procs`` processes of
+    ``per`` ranks (bfrun's ``BFTPU_*`` rendezvous on this host, card 0 for
+    each) on ``device`` (default ``DEVICE``), with ``env`` added; their
+    results, in process order.  Every process must exit with 0 but those
+    of ``killed``, which must die of SIGKILL (and leave no result: None in
+    their place).  Every process is stopped before this returns, also on
+    a failure."""
+    import signal
     import socket
     import tempfile
     with socket.socket() as s:
@@ -3123,30 +3200,38 @@ def launch_workers(phase, args=(), device=None):
     here = os.path.dirname(os.path.abspath(__file__))
     children, outs = [], []
     try:
-        for p in range(WIN_DIST_PROCS):
+        for p in range(procs):
             out = os.path.join(tmp, f"proc{p}.json")
             outs.append(out)
-            env = {k: v for k, v in os.environ.items()
-                   if not k.startswith(("BFTPU_", "BLUEFOG_TPU_WIN",
-                                        "MASTER_", "WORLD_SIZE", "RANK",
-                                        "LOCAL_RANK"))}
-            env.update(BFTPU_COORDINATOR=f"127.0.0.1:{port}",
-                       BFTPU_NUM_PROCESSES=str(WIN_DIST_PROCS),
-                       BFTPU_PROCESS_ID=str(p), BFTPU_LOCAL_ID="0",
-                       BFTPU_LOCAL_DEVICES=str(WIN_DIST_PER),
-                       BFTPU_WIN_HOST="127.0.0.1")
+            child_env = {k: v for k, v in os.environ.items()
+                         if not k.startswith(("BFTPU_", "BLUEFOG_TPU_WIN",
+                                              "MASTER_", "WORLD_SIZE",
+                                              "RANK", "LOCAL_RANK"))}
+            child_env.update(BFTPU_COORDINATOR=f"127.0.0.1:{port}",
+                             BFTPU_NUM_PROCESSES=str(procs),
+                             BFTPU_PROCESS_ID=str(p), BFTPU_LOCAL_ID="0",
+                             BFTPU_LOCAL_DEVICES=str(per),
+                             BFTPU_WIN_HOST="127.0.0.1", **(env or {}))
             children.append(subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--worker",
-                 phase, out, device or DEVICE, *args], cwd=here, env=env,
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+                 phase, out, device or DEVICE, *args], cwd=here,
+                env=child_env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
         deadline = time.monotonic() + WIN_DIST_TIMEOUT
         logs = [c.communicate(timeout=max(1.0, deadline - time.monotonic()))
                 [0] for c in children]
         for p, c in enumerate(children):
-            require(c.returncode == 0,
-                    f"{phase} process {p} failed:\n{logs[p][-3000:]}")
+            want = -signal.SIGKILL if p in killed else 0
+            require(c.returncode == want,
+                    f"{phase} process {p} exited {c.returncode}, expected "
+                    f"{want}:\n{logs[p][-3000:]}")
         res = []
-        for out in outs:
+        for p, out in enumerate(outs):
+            if p in killed:
+                require(not os.path.exists(out),
+                        f"{phase}: killed process {p} left a result")
+                res.append(None)
+                continue
             with open(out) as f:
                 res.append(json.load(f))
         return res
@@ -3155,10 +3240,7 @@ def launch_workers(phase, args=(), device=None):
             if c.poll() is None:
                 c.kill()
                 c.wait()
-        for out in outs:
-            if os.path.exists(out):
-                os.remove(out)
-        os.rmdir(tmp)
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def stats_since(W, before):
@@ -3303,22 +3385,84 @@ def rate(nbytes, seconds):
     return nbytes / seconds / 1e9 if seconds else None
 
 
-def win_dist_ops_phase(card):
-    """``window_sequence`` across processes, owned layout, through both
+def dist_worker(bf, ref_path):
+    """One process of ``dist_phases``: ``ops_worker``, ``train_worker``,
+    ``async_ops_worker`` and ``async_train_worker`` in turn (each ending
+    in a barrier), with each one's wall seconds."""
+    out, seconds = {}, {}
+    for name, fn in (("ops", lambda: ops_worker(bf, ref_path)),
+                     ("train", lambda: train_worker(bf)),
+                     ("async_ops", lambda: async_ops_worker(bf)),
+                     ("async_train", lambda: async_train_worker(bf))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        out[name].setdefault("owned", bf.owned_ranks())
+        bf.barrier()
+        seconds[name] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    return out
+
+
+def dist_phases(card_ops):
+    """The 2 x 2 phases across processes from one launch of the workers
+    (``dist_worker``: one start-up for the four, where each had its own),
+    the CPU run of ``async_ops_worker`` alongside it; then each phase's
+    checks and line.  Before them, a wall line of each part (process 0's
+    seconds; ``win_dist_train.*`` its sub-phases; ``dist.startup``: the
+    launch, rendezvous and exit).  Returns the launches of K1-K3 of
+    ``win_dist_train`` and of ``win_async_train``."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    ref_keys = [k for k, v in card_ops.items() if isinstance(v, torch.Tensor)]
+    fd, ref_path = tempfile.mkstemp(suffix=".pt")
+    os.close(fd)
+    try:
+        torch.save({k: card_ops[k] for k in ref_keys}, ref_path)
+        with ThreadPoolExecutor(1) as pool:
+            cpu_run = pool.submit(launch_workers, "async_ops", (), "cpu",
+                                  env={"OMP_NUM_THREADS": "2"})
+            t0 = time.perf_counter()
+            parts = launch_workers("dist", [ref_path])
+            wall = time.perf_counter() - t0
+            cpu = cpu_run.result()
+    finally:
+        os.remove(ref_path)
+    # The launch's seconds go to this line's wall, not to the first phase's.
+    emit("dist_workers", processes=WIN_DIST_PROCS,
+         ranks_per_process=WIN_DIST_PER, seconds=wall,
+         phases=["win_dist_ops", "win_dist_train", "win_async_ops",
+                 "win_async_train"])
+    secs = parts[0]["seconds"]
+    subs = parts[0]["train"]["sub_phase_s"]
+    walls = [("dist.startup", wall - sum(secs.values())),
+             ("win_dist_ops", secs["ops"])]
+    walls += [(f"win_dist_train.{k}", v) for k, v in subs.items()]
+    walls += [("win_async_ops", secs["async_ops"]),
+              ("win_async_train", secs["async_train"])]
+    for what, sec in walls:
+        print(json.dumps({"phase": "wall", "of": what, "seconds": sec}),
+              flush=True)
+    win_dist_ops_phase(card_ops, [p["ops"] for p in parts])
+    dist_launches = win_dist_train_phase([p["train"] for p in parts])
+    win_async_ops_phase([p["async_ops"] for p in parts], cpu)
+    async_launches = win_async_train_phase([p["async_train"]
+                                            for p in parts])
+    return dist_launches, async_launches
+
+
+def win_dist_ops_phase(card, parts):
+    """``window_sequence`` across processes (``parts``: the ``ops``
+    results of ``dist_phases``' workers), owned layout, through both
     transport paths: every owned row, counter and P scalar bit for bit the
     one-process card run; bf16 within ``WIN_DIST_BF16_TOL``; the bytes
     that crossed, the seconds of each leg, beside ``path_bounds``."""
-    import tempfile
-
     import torch
     from bluefog_tpu_torch.utils import flightrec
     ref_keys = [k for k, v in card.items() if isinstance(v, torch.Tensor)]
-    fd, ref_path = tempfile.mkstemp(suffix=".pt")
-    os.close(fd)
-    recorded, parts = {}, []
+    recorded = {}
     try:
-        torch.save({k: card[k] for k in ref_keys}, ref_path)
-        parts = launch_workers("ops", [ref_path])
         # Each process's flight-recorder dump, read back: events of every
         # type the native path records, and the Python commit.
         for part in parts:
@@ -3337,7 +3481,6 @@ def win_dist_ops_phase(card):
             dump = part.get("flightrec", {}).get("path")
             if dump and os.path.exists(dump):
                 os.remove(dump)
-        os.remove(ref_path)
     want_hash = {k: row_hashes(card[k]) for k in ref_keys}
     res = {"per_process": []}
     for part in parts:
@@ -3390,7 +3533,7 @@ def train_worker(bf):
 
     import torch
 
-    from bluefog_tpu_torch import benchmark, profile_step
+    from bluefog_tpu_torch import benchmark
     from bluefog_tpu_torch.benchmark import consensus_spread
     from bluefog_tpu_torch.ops import flash_attention as FA
     from bluefog_tpu_torch.ops import window as W
@@ -3406,6 +3549,11 @@ def train_worker(bf):
         empty_cache()
         bf.barrier()
     out = {}
+    # Each sub-phase's wall seconds, for win_dist_train's wall lines.
+    marks = [("start", time.perf_counter())]
+
+    def mark(what):
+        marks.append((what, time.perf_counter()))
     args = lm_args(benchmark, WIN_DIST_LAYERS, "win_put", [
         "--num-warmup-batches", "1", "--num-iters", str(WIN_DIST_LM_ITERS),
         "--num-batches-per-iter", "1"])
@@ -3414,18 +3562,9 @@ def train_worker(bf):
     res = benchmark.measure(args, tr, quiet=True)
     res["launches"] = flash_launches()
     res["row_gb"] = 4 * tr.rep.numel / 1e9
-    # One more step, profiled in process 0 (its kernels only: the other
-    # process's share the card), run plain in the others.
-    step = lambda: (tr.forward_backward(), tr.opt.step())  # noqa: E731
-    if DEVICE == "cuda" and bf.process_ranks().process == 0:
-        prof = profile_step.trace(step)
-        res["profile"] = {k: prof[k] for k in (
-            "profiled_step_wall_ms", "kernel_busy_ms", "device_idle_share")}
-    else:
-        step()
-        sync()
     out["lm"] = res
     done(tr)
+    mark("lm")
     args = benchmark.build_parser().parse_args([
         "--model", "resnet50", "--batch-size", "64", "--momentum", "0.9",
         "--dist-optimizer", "win_put", "--num-warmup-batches", "1",
@@ -3434,6 +3573,7 @@ def train_worker(bf):
     tr = benchmark.Trainer(args)
     out["resnet50"] = benchmark.measure(args, tr, quiet=True)
     done(tr)
+    mark("resnet50")
     FA.reset_launch_counts()
     comm = bf.process_ranks()
     for name, cls in (("pull_get", WO.DistributedPullGetOptimizer),
@@ -3462,9 +3602,13 @@ def train_worker(bf):
         out[name] = rec
         done(tr)
     out["variant_launches"] = flash_launches()
+    mark("variants")
     FA.reset_launch_counts()
     out["plan_fused"] = plan_fused_runs(bf, benchmark, done)
     out["plan_fused_launches"] = flash_launches()
+    mark("plan_fused")
+    out["sub_phase_s"] = {what: t - marks[i][1]
+                          for i, (what, t) in enumerate(marks[1:])}
     return out
 
 
@@ -3484,9 +3628,9 @@ def plan_fused_runs(bf, benchmark, done):
     out = {}
     for mode in ("host", "fused"):
         with config.override(win_xla=mode == "fused"):
+            # (An "empty" trainer: the optimizer's windows are made once.)
             tr = benchmark.Trainer(lm_args(benchmark, WIN_DIST_LAYERS,
-                                           "win_put"))
-            tr.opt.free()
+                                           "empty"))
             tr.opt = opt = WO.DistributedWinPutOptimizer(
                 tr.opt.base, fused=mode == "fused", fusion_buckets=2,
                 leaf_shapes=tr.rep.leaf_shapes)
@@ -3505,12 +3649,24 @@ def plan_fused_runs(bf, benchmark, done):
                                                  own)["staging"]
                               for name in opt._names}
             if mode == "fused":
-                tr.forward_backward()
-                sync()
-                t0 = time.perf_counter()
-                opt.step()
-                sync()
-                rec["replay_step_ms"] = 1e3 * (time.perf_counter() - t0)
+                # The replayed step, profiled in process 0 (its kernels
+                # only: the other process shares the card), timed plain in
+                # the other.
+                if DEVICE == "cuda" and bf.process_ranks().process == 0:
+                    from bluefog_tpu_torch import profile_step
+                    prof = profile_step.trace(
+                        lambda: (tr.forward_backward(), opt.step()))
+                    rec["profile"] = {k: prof[k] for k in (
+                        "profiled_step_wall_ms", "kernel_busy_ms",
+                        "device_idle_share")}
+                    rec["replay_step_ms"] = prof["profiled_step_wall_ms"]
+                else:
+                    tr.forward_backward()
+                    sync()
+                    t0 = time.perf_counter()
+                    opt.step()
+                    sync()
+                    rec["replay_step_ms"] = 1e3 * (time.perf_counter() - t0)
                 impl = opt._fused_impl
                 rec.update(fused_steps=impl.fused_steps,
                            replays=impl.replays, captures=impl.captures,
@@ -3659,11 +3815,10 @@ def async_ops_worker(bf):
     return res
 
 
-def win_async_ops_phase():
-    """``async_ops_worker`` on the card and on the CPU: every digest the
-    same, the policy fired, the mass shipped exactly; returns nothing."""
-    card = launch_workers("async_ops")
-    cpu = launch_workers("async_ops", device="cpu")
+def win_async_ops_phase(card, cpu):
+    """``async_ops_worker``'s results on the card (``dist_phases``'
+    workers) and on the CPU: every digest the same, the policy fired, the
+    mass shipped exactly; returns nothing."""
     per_process = []
     for p, (c, h) in enumerate(zip(card, cpu)):
         mine = {"owned": c["owned"]}
@@ -3807,10 +3962,9 @@ def links_and_slo(bf):
             "dumps": dumps}
 
 
-def win_async_train_phase():
-    """``async_train_worker`` across the processes; returns the launches
-    of K1-K3, summed over the processes."""
-    parts = launch_workers("async_train")
+def win_async_train_phase(parts):
+    """``async_train_worker``'s results across the processes; returns the
+    launches of K1-K3, summed over the processes."""
     expected = WIN_DIST_PER * sum(
         layers * (WIN_ASYNC_LOCKSTEP_STEPS + WIN_ASYNC_STEPS[kind])
         for kind, layers in (("win_put", WIN_ASYNC_PUT_LAYERS),
@@ -3878,10 +4032,9 @@ def win_async_train_phase():
     return launches
 
 
-def win_dist_train_phase():
-    """``train_worker`` across the processes; returns the launches of
-    K1-K3, summed over the processes."""
-    parts = launch_workers("train")
+def win_dist_train_phase(parts):
+    """``train_worker``'s results across the processes; returns the
+    launches of K1-K3, summed over the processes."""
     lm_expected = WIN_DIST_LAYERS * WIN_DIST_PER * (1 + WIN_DIST_LM_ITERS)
     var_expected = WIN_DIST_VARIANT_LAYERS * WIN_DIST_PER * \
         WIN_DIST_VARIANT_STEPS * 2
@@ -3957,7 +4110,8 @@ def win_dist_train_phase():
             "plan_d2h_gbps": rate(win["plan_stage_bytes"],
                                   win["plan_stage_s"]),
             "h2d_gbps": rate(win["commit_bytes"], win["commit_s"]),
-            "profile": lm.get("profile"), "losses": lm["losses"],
+            "profile": part["plan_fused"]["fused"].get("profile"),
+            "losses": lm["losses"],
             "spread": lm["spread"],
             "plan_fused": {
                 mode: {k: v for k, v in rec.items() if k != "staging"}
@@ -3980,6 +4134,344 @@ def win_dist_train_phase():
         tokens_per_s=sum(p["tokens_per_s"] for p in per_process),
         expected_launches_per_process=lm_expected,
         per_process=per_process, launches=launches)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Elasticity: the churn gang and the elastic run loop
+# ---------------------------------------------------------------------------
+
+def churn_worker(bf, out_dir):
+    """One process of the churn gang: the win_put LM at full width and
+    ``WIN_DIST_LAYERS`` in the owned layout, ``DistributedWinPutOptimizer(
+    fused=True)`` on ``ExponentialGraph(4)``, ``CHURN_STEPS`` steps under
+    ``CHURN_KNOBS``; rank 3 SIGKILLs itself at the top of step
+    ``CHURN_KILL_STEP`` (after noting the time in ``kill_clock``).  Reports
+    through its JSON file only: after the kill no collective runs."""
+    import numpy as np
+    import torch
+
+    from bluefog_tpu_torch import benchmark
+    from bluefog_tpu_torch import topology as T
+    from bluefog_tpu_torch.ops import flash_attention as FA
+    from bluefog_tpu_torch.ops import window as W
+    from bluefog_tpu_torch.optim import window_optimizers as WO
+    from bluefog_tpu_torch.run import supervisor as S
+    from bluefog_tpu_torch.utils import telemetry
+    me = bf.process_ranks().process
+    tr = benchmark.Trainer(lm_args(benchmark, WIN_DIST_LAYERS, "empty"))
+    opt = tr.opt = WO.DistributedWinPutOptimizer(tr.opt.base, fused=True)
+    name, flat = opt._names[0], tr.rep.flat
+    lr = opt.base.param_groups[0]["lr"]
+    cols = torch.from_numpy(np.sort(np.random.RandomState(SEED).choice(
+        flat.shape[1], CHURN_SAMPLE, replace=False))).to(flat.device)
+    sup = S.maybe_supervisor()
+    rec = {"losses": [], "step_ms": [], "adapt": [], "combined": [],
+           "captures": [], "builds": [], "commit_step": None}
+    prev = {}
+
+    def on_change(view):
+        # Right after the rebuild: the owned rows against the window's
+        # memory at the end of the previous step, which the recovery
+        # snapshotted on the card.
+        rec["commit_unix"] = sup.ctrl.last_change_unix
+        win = W._store.get(name)
+        rec["rebuilt_rows"] = row_hashes([win.main[r] for r in win.owned])
+        rec["snapshot_rows"] = row_hashes([prev[r] for r in win.owned])
+        wm = T.weight_matrix(bf.load_topology())
+        rec["topology"] = {
+            "row_sums": wm.sum(axis=1).tolist(),
+            "col_sums": wm.sum(axis=0).tolist(),
+            "isolated": [int(r) for r in range(wm.shape[0])
+                         if wm[r, r] == 1.0
+                         and np.count_nonzero(wm[r]) == 1
+                         and np.count_nonzero(wm[:, r]) == 1]}
+    sup.on_change = on_change
+    FA.reset_launch_counts()
+    clock = os.path.join(out_dir, "kill_clock")
+    for t in range(CHURN_STEPS):
+        if me == 3:
+            with open(clock, "a") as f:
+                f.write(f"{t} {time.time()!r}\n")
+        sync()
+        t0 = time.perf_counter()
+        rec["losses"].append([float(v) for v in tr.forward_backward()])
+        with torch.no_grad():
+            # The adapt (SGD, momentum 0) on the sampled columns.
+            rec["adapt"].append((flat[:, cols] - lr * flat.grad[:, cols])
+                                .cpu().tolist())
+        seen = opt.membership_change
+        # The window's memory as the step's recovery, if it runs one, will
+        # find it (the other processes may be steps ahead or behind).
+        win = W._store.get(name)
+        prev = {r: win.main[r].clone() for r in win.owned}
+        opt.step()
+        sync()
+        rec["step_ms"].append(1e3 * (time.perf_counter() - t0))
+        if opt.membership_change is not seen:
+            rec["commit_step"] = t
+        rec["combined"].append(flat[:, cols].cpu().tolist())
+        impl = opt._fused_impl
+        rec["captures"].append(impl.captures if impl else 0)
+        rec["builds"].append(impl.builds if impl else 0)
+    # The survivors leave together (files, no collective): one that exits
+    # early would look dead to the others, still stepping.
+    view = opt.membership_change
+    if view is not None and not opt.evicted:
+        mine = os.path.join(out_dir, f"done.{me}")
+        with open(mine, "w") as f:
+            f.write("1")
+        others = [p for p in view.active_procs if p != me]
+        deadline = time.monotonic() + 120
+        while not all(os.path.exists(os.path.join(out_dir, f"done.{p}"))
+                      for p in others):
+            require(time.monotonic() < deadline,
+                    f"churn: survivors {others} did not finish")
+            time.sleep(0.05)
+    impl = opt._fused_impl
+    snap = telemetry.snapshot()
+    if os.path.exists(clock):
+        with open(clock) as f:
+            rec["kill_clock"] = {int(t): float(u) for t, u in
+                                 (ln.split() for ln in f if ln.strip())}
+    rec.update(
+        launches=flash_launches(), epoch=view.epoch if view else 0,
+        active=list(view.active_ranks) if view else None,
+        evicted=opt.evicted, membership=bf.membership_info(),
+        recovery=sup.last_recovery,
+        recoveries=snap.get("bf_churn_recovery_seconds_count", 0.0),
+        fused={"builds": impl.builds, "captures": impl.captures,
+               "replays": impl.replays, "fused_steps": impl.fused_steps,
+               "statuses": impl.last_statuses},
+        send_errors=opt.churn_send_errors,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9
+        if DEVICE == "cuda" else None)
+    return rec
+
+
+def _spread(rows):
+    """rms over the sampled columns of each process's deviation from the
+    processes' mean."""
+    import numpy as np
+    x = np.asarray(rows, dtype=np.float64)
+    return float(np.sqrt(((x - x.mean(axis=0)) ** 2).mean()))
+
+
+def churn_train_phase():
+    """``churn_worker`` in ``CHURN_PROCS`` processes of one rank, rank 3
+    killed: the survivors' checks; returns the launches of K1-K3, summed
+    over the survivors."""
+    import numpy as np
+    t0 = time.perf_counter()
+    parts = launch_workers("churn", procs=CHURN_PROCS, per=1,
+                           env=CHURN_KNOBS, killed=(3,))
+    wall = time.perf_counter() - t0
+    survivors = parts[:3]
+    expected = WIN_DIST_LAYERS * CHURN_STEPS
+    launches = {k: 0 for k in KERNELS}
+    per_process = []
+    commits = []
+    for p, rec in enumerate(survivors):
+        require(rec["epoch"] == 1 and rec["active"] == [0, 1, 2]
+                and not rec["evicted"],
+                f"churn process {p}: committed {rec['epoch']} "
+                f"{rec['active']} evicted={rec['evicted']}")
+        require(rec["recoveries"] == 1.0,
+                f"churn process {p}: bf_churn_recovery_seconds observed "
+                f"{rec['recoveries']} times")
+        require(rec["snapshot_rows"] == rec["rebuilt_rows"]
+                and all(rec["recovery"]["rows_equal"].values()),
+                f"churn process {p}: the rebuilt rows differ")
+        topo = rec["topology"]
+        require(np.allclose(topo["row_sums"], 1.0)
+                and np.allclose(topo["col_sums"], 1.0)
+                and topo["isolated"] == [3],
+                f"churn process {p}: survivor topology {topo}")
+        require(all(math.isfinite(v) for ls in rec["losses"] for v in ls),
+                f"churn process {p}: losses {rec['losses']}")
+        # The fused program re-keys at the commit's epoch: built anew at
+        # the commit's step, captured (on the card) at the next.
+        c = rec["commit_step"]
+        card = DEVICE == "cuda"
+        require(c is not None and c + 1 < CHURN_STEPS
+                and rec["builds"][c] > (rec["builds"][c - 1] if c else 0)
+                and (not card or rec["captures"][-1] > rec["captures"][c]),
+                f"churn process {p}: no new program after the commit at "
+                f"step {c}: builds {rec['builds']}, captures "
+                f"{rec['captures']}")
+        require(rec["fused"]["statuses"]
+                and all(v == 0 for v in rec["fused"]["statuses"]),
+                f"churn process {p}: statuses {rec['fused']}")
+        require(all(v == expected for v in rec["launches"].values()),
+                f"churn process {p}: launches {rec['launches']}, expected "
+                f"{expected}")
+        for k in KERNELS:
+            launches[k] += rec["launches"][k]
+        commits.append(rec["commit_unix"])
+        before = rec["step_ms"][1:CHURN_KILL_STEP]
+        after = rec["step_ms"][c + 2:]
+        per_process.append({
+            "commit_step": c, "recovery_s": rec["recovery"]["seconds"],
+            "step_ms": rec["step_ms"],
+            "step_ms_before_commit": before, "step_ms_after_commit": after,
+            "peak_mem_gb": rec["peak_mem_gb"], "fused": rec["fused"],
+            "send_errors": rec["send_errors"], "losses": rec["losses"],
+            "captures": rec["captures"], "builds": rec["builds"],
+            "launches": rec["launches"]})
+    last = CHURN_STEPS - 1
+    adapt = _spread([r["adapt"][last] for r in survivors])
+    combined = _spread([r["combined"][last] for r in survivors])
+    require(combined < adapt, f"churn: spread after the combine {combined} "
+            f"not below after the adapt {adapt} at step {last}")
+    # The kill: rank 3's clock at the top of its step CHURN_KILL_STEP,
+    # read by the survivors from the file it left.
+    kill_t = survivors[0].get("kill_clock", {}).get(str(CHURN_KILL_STEP))
+    require(kill_t is not None, "churn: rank 3 left no kill time")
+    detection = [c - kill_t for c in commits]
+    require(all(d > 0 for d in detection),
+            f"churn: commits {commits} before the kill {kill_t}")
+    emit("churn_train", config={
+        **LM_WIDTHS, "num_layers": WIN_DIST_LAYERS, "batch_size": 2,
+        "processes": CHURN_PROCS, "ranks_per_process": 1, "layout": "owned",
+        "optimizer": "DistributedWinPutOptimizer(fused=True)",
+        "topology": "ExponentialGraph(4)", "steps": CHURN_STEPS,
+        "knobs": CHURN_KNOBS},
+        wall_s=wall, detection_s=detection,
+        recovery_s=[p["recovery_s"] for p in per_process],
+        spread_last_step={"after_adapt": adapt, "after_combine": combined},
+        expected_launches_per_survivor=expected, per_process=per_process,
+        launches=launches)
+    return launches
+
+
+class _RecordingSaver:
+    """``checkpoint.AsyncSaver`` that keeps each save's bytes and seconds
+    (run_elastic makes its own saver; the phase reads its rates here)."""
+
+    records = []
+
+    @classmethod
+    def make(cls, base):
+        class Saver(base):
+            def flush(self):
+                # A write ends here (the next save, or the saver's end).
+                pending = self._pending is not None
+                super().flush()
+                if pending:
+                    cls.records.append((self.last_bytes,
+                                        self.last_copy_seconds,
+                                        self.last_write_seconds))
+        return Saver
+
+
+def elastic_train_phase(benchmark):
+    """The LM at ``WIN_DIST_LAYERS`` under ``run_elastic`` (one process, 4
+    virtual ranks, static neighbor_allreduce): the uninterrupted steps
+    (outside it, no checkpoint), then with a checkpoint every
+    ``ELASTIC_SAVE_EVERY`` steps,
+    ``keep`` 2, SIGTERM after step ``ELASTIC_PREEMPT`` (``Preempted``
+    after its save) and the restart that resumes; the final parameters
+    bit for bit.  Returns the launches of K1-K3."""
+    import signal
+    import tempfile
+
+    import torch
+
+    from bluefog_tpu_torch.ops import flash_attention as FA
+    from bluefog_tpu_torch.utils import checkpoint as CK
+    from bluefog_tpu_torch.utils import elastic as EL
+    tmp = tempfile.mkdtemp(prefix="elastic_")
+    FA.reset_launch_counts()
+    _RecordingSaver.records = []
+    base_saver = CK.AsyncSaver
+    CK.AsyncSaver = _RecordingSaver.make(base_saver)
+    out = {}
+    try:
+        tr = benchmark.Trainer(lm_args(benchmark, WIN_DIST_LAYERS,
+                                       "neighbor_allreduce"))
+        flat = tr.rep.flat
+        init = flat.detach().clone()
+
+        def run(d, every, preempt=None):
+            with torch.no_grad():
+                flat.copy_(init)     # what a restarted process starts from
+            seen = {}
+
+            # A leaf a rank's row (views of flat): DCP writes them with a
+            # thread each.
+            rows = list(flat.unbind(0))
+
+            def step_fn(state, step):
+                tr.forward_backward()
+                tr.opt.step()
+                return {"rows": rows}
+
+            def on_step(state, step):
+                if preempt is not None and step + 1 == preempt:
+                    os.kill(os.getpid(), signal.SIGTERM)
+
+            def on_restore(state, step):
+                seen["resume_s"] = time.perf_counter() - t0
+                seen["start"] = step
+                with torch.no_grad():
+                    for row, saved in zip(rows, state["rows"]):
+                        row.copy_(saved)
+
+            t0 = time.perf_counter()
+            try:
+                EL.run_elastic(step_fn, {"rows": rows}, ckpt_dir=d,
+                               num_steps=ELASTIC_STEPS, save_every=every,
+                               keep=2, on_step=on_step,
+                               on_restore=on_restore)
+            except EL.Preempted as e:
+                seen["preempted"] = e.step
+            sync()
+            seen["seconds"] = time.perf_counter() - t0
+            seen["steps_on_disk"] = CK.list_steps(d)
+            return flat.detach().clone(), seen
+
+        # The uninterrupted reference: the same steps, no checkpoint.
+        with torch.no_grad():
+            flat.copy_(init)
+        t0 = time.perf_counter()
+        for _ in range(ELASTIC_STEPS):
+            tr.forward_backward()
+            tr.opt.step()
+        sync()
+        a, ra = flat.detach().clone(), {"seconds": time.perf_counter() - t0}
+        _, rb = run(os.path.join(tmp, "b"), ELASTIC_SAVE_EVERY,
+                    preempt=ELASTIC_PREEMPT)
+        b, rc = run(os.path.join(tmp, "b"), ELASTIC_SAVE_EVERY)
+        require(rb.get("preempted") == ELASTIC_PREEMPT
+                and rb["steps_on_disk"] == [2, 3]
+                and rc.get("start") == ELASTIC_PREEMPT
+                and rc["steps_on_disk"] == [4, 6],
+                f"elastic: preempted {rb}, resumed {rc}")
+        diff = float((a - b).abs().max())
+        require(torch.equal(a, b),
+                f"elastic: the resumed run differs from the uninterrupted "
+                f"one by {diff} (max |difference|)")
+        require(bool(torch.isfinite(a).all()), "elastic: finite")
+        out.update(uninterrupted=ra, preempted=rb, resumed=rc,
+                   max_abs_diff=diff)
+        del tr
+    finally:
+        CK.AsyncSaver = base_saver
+        shutil.rmtree(tmp, ignore_errors=True)
+    empty_cache()
+    saves = _RecordingSaver.records
+    out["saves"] = [{"bytes": n, "host_copy_gbps": rate(n, c),
+                     "write_gbps": rate(n, w)} for n, c, w in saves]
+    launches = flash_launches()
+    expected = WIN_DIST_LAYERS * 4 * 2 * ELASTIC_STEPS
+    require(all(v == expected for v in launches.values()),
+            f"elastic launches {launches}, expected {expected}")
+    emit("elastic_train", config={
+        **LM_WIDTHS, "num_layers": WIN_DIST_LAYERS, "ranks": 4,
+        "steps": ELASTIC_STEPS, "save_every": ELASTIC_SAVE_EVERY,
+        "keep": 2, "preempt_after": ELASTIC_PREEMPT,
+        "checkpoint": "torch.distributed.checkpoint (DCP)"},
+        expected_launches=expected, launches=launches, **out)
     return launches
 
 
@@ -4422,17 +4914,31 @@ def worker_main(phase, out_path, device, *args):
     torch.backends.cudnn.allow_tf32 = False
     bf.init_distributed(backend="gloo", device=DEVICE)
     try:
-        res = {"ops": lambda: ops_worker(bf, *args),
-               "train": lambda: train_worker(bf),
+        res = {"dist": lambda: dist_worker(bf, *args),
                "async_ops": lambda: async_ops_worker(bf),
-               "async_train": lambda: async_train_worker(bf)}[phase]()
+               "churn": lambda: churn_worker(
+                   bf, os.path.dirname(out_path))}[phase]()
         res.setdefault("owned", bf.owned_ranks())
-        bf.barrier()
+        if phase != "churn":
+            # (After a kill no collective may run: a dead peer hangs it.)
+            bf.barrier()
     finally:
         bf.shutdown()
     with open(out_path, "w") as f:
         json.dump(res, f)
     return 0
+
+
+def build_native():
+    """Build (or load) the host libraries; the seconds it took."""
+    from bluefog_tpu_torch import native
+    from bluefog_tpu_torch.ops import hostfn
+    t0 = time.perf_counter()
+    native.lib()
+    native.fastcall()
+    native.schedule_lib()
+    hostfn.load()
+    return time.perf_counter() - t0
 
 
 def sync():
@@ -4452,19 +4958,53 @@ def check_mp_examples():
     points on the card, each schedule: the loss falls."""
     from bluefog_tpu_torch import pipeline_training as PT
     from bluefog_tpu_torch import tensor_parallel_training as TPT
-    res = TPT.main(["--steps", "30"])
+    res = TPT.main(["--steps", "15"])
     require(res["losses"][-1] < res["losses"][0], f"tp: {res['losses']}")
     tp = {"dp": res["dp"], "tp": res["tp"], "qkv_shards": res["qkv_shards"],
           "first_loss": res["losses"][0], "last_loss": res["losses"][-1]}
     pp = {}
     for schedule in ("gpipe", "1f1b", "zb"):
-        res = PT.main(["--steps", "40", "--schedule", schedule])
+        res = PT.main(["--steps", "20", "--schedule", schedule])
         require(res["losses"][-1] < res["losses"][0],
                 f"pp {schedule}: {res['losses']}")
         pp[schedule] = {"first_loss": res["losses"][0],
                         "last_loss": res["losses"][-1],
                         "forward_max_abs_err": res["forward_max_abs_err"]}
-    return tp, pp
+    return tp, pp, check_elastic_example()
+
+
+def check_elastic_example():
+    """``elastic_training``'s own entry point on the card at its own size,
+    under each optimizer (push-sum carries its window store in the
+    checkpoint): uninterrupted, then preempted (exit 75) and resumed from
+    its checkpoint, bit for bit the uninterrupted parameters."""
+    import tempfile
+
+    import torch
+
+    from bluefog_tpu_torch import elastic_training as ET
+    out = {}
+    for opt in ("neighbor_allreduce", "push_sum"):
+        tmp = tempfile.mkdtemp(prefix="elastic_example_")
+        try:
+            args = ["--optimizer", opt]
+            a = ET.main(args + ["--ckpt-dir", os.path.join(tmp, "a")])
+            try:
+                ET.main(args + ["--ckpt-dir", os.path.join(tmp, "b"),
+                                "--preempt-at-step", "25"])
+                code = 0
+            except SystemExit as e:
+                code = e.code
+            b = ET.main(args + ["--ckpt-dir", os.path.join(tmp, "b")])
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        require(code == 75, f"elastic_training {opt} preempted: exit {code}")
+        require(a["device"].startswith("cuda")
+                and torch.equal(a["params"], b["params"]),
+                f"elastic_training {opt}: the resumed run differs")
+        out[opt] = {"final_loss": a["final_loss"], "steps": a["steps"],
+                    "preempted_exit": code, "bitwise": True}
+    return out
 
 
 def image_phase(benchmark, argv, checks_spread_by="max", time_combine=False):
@@ -4529,6 +5069,13 @@ def main():
          torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0])
 
+    # The host libraries build with g++ and nvcc in a thread meanwhile
+    # (the window transport's service and the timeline writer, its
+    # METH_FASTCALL binding, the round compiler, csrc/hostfn.cu): the
+    # worker processes later load what this one built.
+    from concurrent.futures import ThreadPoolExecutor
+    host_builds = ThreadPoolExecutor(1)
+    native_built = host_builds.submit(build_native)
     t0 = time.perf_counter()
     _, log = FA.load_library(verbose=True)
     ptxas = ptxas_report(log)
@@ -4618,9 +5165,10 @@ def main():
     torch.cuda.empty_cache()
     from bluefog_tpu_torch import native
     t0 = time.perf_counter()
-    # The window transport's service and the timeline writer, one library.
-    native.lib()
-    emit("native_build", seconds=time.perf_counter() - t0,
+    build_s = native_built.result()
+    host_builds.shutdown()
+    emit("native_build", seconds=build_s,
+         waited_s=time.perf_counter() - t0,
          library=str(native.library_path().name))
     observe_launches = observe_train_phase(benchmark, train_res)
     torch.cuda.empty_cache()
@@ -4679,12 +5227,10 @@ def main():
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "bluefog_tpu_torch.text_generation"],
-        cwd=here, capture_output=True, text=True, timeout=600)
-    require(proc.returncode == 0,
-            f"text_generation failed: {proc.stderr[-2000:]}")
-    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    # The entry point's main, in this process (a process of its own cost
+    # ~8 s of start-up).
+    from bluefog_tpu_torch import text_generation
+    res = text_generation.main([])
     require(res["matches_text"] is True and res["device"].startswith("cuda"),
             f"text_generation {res}")
     emit("text_generation", seconds=time.perf_counter() - t0, **res)
@@ -4702,19 +5248,20 @@ def main():
     emit("long_context_example", **check_long_context_example())
     emit("dist_nccl", **check_dist_nccl())
     emit("tp_reference", **check_tp_reference(SEED))
-    tp_launches = tp_train_phase()
+    tp_launches = tp_train_phase(layers=TP_LAYERS)
     pp_launches = pp_train_phase()
     pp_variant_launches = pp_variants_phase()
     emit("dp_tp_pp_ep", **check_compositions(SEED))
-    tp_example, pp_example = check_mp_examples()
+    tp_example, pp_example, elastic_example = check_mp_examples()
     emit("tp_example", **tp_example)
     emit("pp_example", **pp_example)
+    emit("elastic_example", **elastic_example)
     hier_launches = hier_train_phase(benchmark)
     winput_launches = winput_train_phase(benchmark)
     fused_launches = fused_train_phase(benchmark)
     win_variant_launches = win_variants_phase(benchmark)
     card_ops = win_ops_phase()
-    win_dist_ops_phase(card_ops)
+    win_dist_launches, win_async_launches = dist_phases(card_ops)
     del card_ops
     res = image_phase(benchmark, image + [
         "--dist-optimizer", "win_put", "--num-warmup-batches", "1",
@@ -4726,14 +5273,13 @@ def main():
     emit("resnet50_win_put", window_ms=res.pop("combine_ms"),
          window_bound_ms=1e3 * 28 * 4 * RESNET50_PARAMS / PEAK_BYTES, **res)
     torch.cuda.empty_cache()
-    win_dist_launches = win_dist_train_phase()
     emit("tp_moe_reference", **check_tp_moe_reference(SEED))
     tp_moe_launches = tp_moe_train_phase()
-    win_async_ops_phase()
-    win_async_launches = win_async_train_phase()
     schedule_pipeline_phase()
     sharded_launches = sharded_moe_train_phase(benchmark)
     win_sharded_phase()
+    churn_launches = churn_train_phase()
+    elastic_launches = elastic_train_phase(benchmark)
     flush_wall()
 
     kernels = []
@@ -4758,7 +5304,9 @@ def main():
                                      + win_dist_launches[kname]
                                      + tp_moe_launches[kname]
                                      + win_async_launches[kname]
-                                     + sharded_launches[kname]),
+                                     + sharded_launches[kname]
+                                     + churn_launches[kname]
+                                     + elastic_launches[kname]),
                         "launches_by_path": {
                             "train": launches[kname],
                             "observe_train": observe_launches[kname],
@@ -4778,6 +5326,8 @@ def main():
                             "tp_moe_train": tp_moe_launches[kname],
                             "win_async_train": win_async_launches[kname],
                             "sharded_moe_train": sharded_launches[kname],
+                            "churn_train": churn_launches[kname],
+                            "elastic_train": elastic_launches[kname],
                             "generate": gen_launches[kname],
                             "vit": vit_launches[kname]},
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],

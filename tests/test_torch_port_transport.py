@@ -972,12 +972,22 @@ def test_native_fold_counts_versions(built, env, store):
         server.stop()
 
 
-def test_control_ops_of_unported_subsystems_are_dropped(store, caplog):
-    """OP_MEMBER and OP_GANG (item 20) are dropped and logged."""
+def test_control_ops_of_unported_subsystems_are_dropped(store, monkeypatch):
+    """OP_MEMBER and OP_GANG go to the membership and gang handlers, which
+    drop them when their subsystems are not installed: nothing is sent,
+    parked or applied to a window."""
+    from bluefog_tpu_torch.ops import gang, membership
+    got = []
+    monkeypatch.setattr(membership, "handle_wire",
+                        lambda p: got.append(("member", bytes(p))))
+    monkeypatch.setattr(gang, "handle_wire",
+                        lambda p: got.append(("gang", bytes(p))))
     for op in (T.OP_MEMBER, T.OP_GANG):
-        with caplog.at_level("WARNING", logger="bluefog_tpu_torch"):
-            W._apply_inbound(op, "", 0, 0, 0.0, 0.0, b"{}")
-    assert "OP_MEMBER" in caplog.text and "OP_GANG" in caplog.text
+        W._apply_inbound(op, "", 0, 0, 0.0, 0.0, b"{}")
+    assert got == [("member", b"{}"), ("gang", b"{}")]
+    monkeypatch.undo()
+    for op in (T.OP_MEMBER, T.OP_GANG):
+        W._apply_inbound(op, "", 0, 0, 0.0, 0.0, b"{}")
     assert not store.sent
 
 

@@ -247,10 +247,14 @@ def test_not_ported_options_raise_with_their_item(monkeypatch):
                           ({**groups, "fuse": False}, "fuse=True")):
             with pytest.raises(ValueError, match=match):
                 TWO.DistributedWinPutOptimizer(sgd, **kw)
+        # The churn hooks are ported (item 20): in one process there is no
+        # gang to supervise, and the step is the plain one.
         monkeypatch.setenv("BLUEFOG_TPU_CHURN", "1")
         config.reload()
-        with pytest.raises(NotImplementedError, match="item 20"):
-            TWO.DistributedPushSumOptimizer(sgd)
+        opt = TWO.DistributedPushSumOptimizer(sgd)
+        opt.step()
+        assert opt.membership_change is None and not opt.evicted
+        opt.free()
         assert tbf.get_current_created_window_names() == []
     finally:
         monkeypatch.delenv("BLUEFOG_TPU_CHURN", raising=False)
