@@ -33,92 +33,124 @@ optimizers), ``bf.membership_info()``, the gang join and bootstrap
 ``bf.gang`` with ``bf.gang_info()``, checkpoints and the restartable run
 loop (``utils.checkpoint``, ``utils.elastic``) and the input pipeline
 ``bf.data``.
+
+Every name here is imported when first read, as ``parallel``'s are: the
+package itself imports nothing, so that ``python -m
+bluefog_tpu_torch.run`` (the launcher) and ``python -m
+bluefog_tpu_torch.tools`` start without torch.
 """
 
-from bluefog_tpu_torch import parallel
-from bluefog_tpu_torch import topology as topology_util
-from bluefog_tpu_torch.basics import (
-    Handle, allgather, allgather_nonblocking, allgather_v, allreduce,
-    allreduce_nonblocking, barrier, broadcast, broadcast_nonblocking,
-    broadcast_parameters, device, dynamic_neighbor_allreduce,
-    dynamic_neighbor_allreduce_nonblocking, init, init_distributed,
-    initialized, is_homogeneous, is_topo_weighted, load_topology,
-    local_allreduce, local_allreduce_nonblocking, local_rank, local_size,
-    machine_rank, machine_size, neighbor_allgather,
-    neighbor_allgather_nonblocking, neighbor_allgather_v, neighbor_allreduce,
-    neighbor_allreduce_nonblocking, owned_ranks, pair_gossip,
-    pair_gossip_nonblocking, poll, process_ranks, rank, set_topology,
-    shutdown, size, synchronize, wait, set_machine_topology,
-    load_machine_topology, hierarchical_neighbor_allreduce,
-    hierarchical_neighbor_allreduce_nonblocking,
-    dynamic_hierarchical_neighbor_allreduce,
-    dynamic_hierarchical_neighbor_allreduce_nonblocking, hierarchical_gossip,
-    hierarchical_gossip_nonblocking, hierarchical_gossip_info, suspend,
-    resume, suspended, in_neighbor_ranks, out_neighbor_ranks,
-    in_neighbor_machine_ranks, out_neighbor_machine_ranks,
-    allreduce_parameters, broadcast_optimizer_state, allreduce_,
-    allreduce_nonblocking_, broadcast_, broadcast_nonblocking_,
-    set_skip_negotiate_stage, get_skip_negotiate_stage,
-    mpi_threads_supported, nccl_built, unified_mpi_window_model_supported,
-    placement_info, synthesis_info, membership_info, gang_info)
-from bluefog_tpu_torch import data
-from bluefog_tpu_torch import optim
-from bluefog_tpu_torch.ops import gang
-from bluefog_tpu_torch.utils import profiler, telemetry
-from bluefog_tpu_torch.utils.flightrec import dump as flight_recorder_dump
-from bluefog_tpu_torch.utils.linkobs import link_report
-from bluefog_tpu_torch.ops.xlaffi import info as win_xla_info
-from bluefog_tpu_torch.utils.profiler import step_profile
-from bluefog_tpu_torch.utils.telemetry import telemetry_snapshot
-from bluefog_tpu_torch.utils.timeline import (
-    start_timeline, stop_timeline, timeline_context, timeline_end_activity,
-    timeline_start_activity)
-from bluefog_tpu_torch.ops import window as _window
-from bluefog_tpu_torch.ops.window import (
-    get_current_created_window_names, get_win_version, win_accumulate,
-    win_accumulate_nonblocking, win_associated_p, win_create, win_fence,
-    win_flush, win_free, win_get, win_get_nonblocking, win_load_state_dict,
-    win_mutex, win_poll, win_put, win_put_nonblocking, win_state_dict,
-    win_update, win_update_then_collect, win_wait,
-    turn_off_win_ops_with_associated_p, turn_on_win_ops_with_associated_p,
-    async_info, win_fold_stale_residuals)
+import importlib
+import importlib.util
 
-__all__ = ["topology_util", "init", "init_distributed", "shutdown", "barrier",
-           "initialized", "size", "rank", "owned_ranks", "local_size",
-           "local_rank", "machine_size", "machine_rank", "is_homogeneous",
-           "process_ranks", "device", "set_topology", "load_topology",
-           "is_topo_weighted", "allreduce", "local_allreduce", "broadcast",
-           "allgather", "allgather_v", "neighbor_allreduce",
-           "dynamic_neighbor_allreduce", "neighbor_allgather",
-           "neighbor_allgather_v", "pair_gossip", "broadcast_parameters",
-           "Handle", "allreduce_nonblocking", "local_allreduce_nonblocking",
-           "broadcast_nonblocking", "allgather_nonblocking",
-           "neighbor_allreduce_nonblocking",
-           "dynamic_neighbor_allreduce_nonblocking",
-           "neighbor_allgather_nonblocking", "pair_gossip_nonblocking",
-           "poll", "wait", "synchronize", "set_machine_topology",
-           "load_machine_topology", "hierarchical_neighbor_allreduce",
-           "hierarchical_neighbor_allreduce_nonblocking",
-           "dynamic_hierarchical_neighbor_allreduce",
-           "dynamic_hierarchical_neighbor_allreduce_nonblocking",
-           "hierarchical_gossip", "hierarchical_gossip_nonblocking",
-           "hierarchical_gossip_info", "suspend", "resume", "suspended",
-           "in_neighbor_ranks", "out_neighbor_ranks",
-           "in_neighbor_machine_ranks", "out_neighbor_machine_ranks",
-           "allreduce_parameters", "broadcast_optimizer_state", "allreduce_",
-           "allreduce_nonblocking_", "broadcast_", "broadcast_nonblocking_",
-           "set_skip_negotiate_stage", "get_skip_negotiate_stage",
-           "mpi_threads_supported", "nccl_built",
-           "unified_mpi_window_model_supported", "placement_info",
-           "synthesis_info", "telemetry", "telemetry_snapshot", "profiler",
-           "step_profile", "flight_recorder_dump", "start_timeline",
-           "stop_timeline", "timeline_context", "timeline_start_activity",
-           "timeline_end_activity", "link_report", "win_xla_info",
-           "membership_info", "gang_info", "gang", "data"
-           ] + _window.__all__ + parallel.__all__
+# name -> (module, attribute in it; None for the module itself).
+_EXPORTS = {"topology_util": ("topology", None), "data": ("data", None),
+            "optim": ("optim", None), "gang": ("ops.gang", None),
+            "profiler": ("utils.profiler", None),
+            "telemetry": ("utils.telemetry", None),
+            "flight_recorder_dump": ("utils.flightrec", "dump"),
+            "link_report": ("utils.linkobs", "link_report"),
+            "win_xla_info": ("ops.xlaffi", "info"),
+            "step_profile": ("utils.profiler", "step_profile"),
+            "telemetry_snapshot": ("utils.telemetry", "telemetry_snapshot"),
+            "_window": ("ops.window", None)}
+for _module, _names in (
+        ("basics", """
+    Handle allgather allgather_nonblocking allgather_v allreduce
+    allreduce_nonblocking barrier broadcast broadcast_nonblocking
+    broadcast_parameters device dynamic_neighbor_allreduce
+    dynamic_neighbor_allreduce_nonblocking init init_distributed
+    initialized is_homogeneous is_topo_weighted load_topology
+    local_allreduce local_allreduce_nonblocking local_rank local_size
+    machine_rank machine_size neighbor_allgather
+    neighbor_allgather_nonblocking neighbor_allgather_v neighbor_allreduce
+    neighbor_allreduce_nonblocking owned_ranks pair_gossip
+    pair_gossip_nonblocking poll process_ranks rank set_topology
+    shutdown size synchronize wait set_machine_topology
+    load_machine_topology hierarchical_neighbor_allreduce
+    hierarchical_neighbor_allreduce_nonblocking
+    dynamic_hierarchical_neighbor_allreduce
+    dynamic_hierarchical_neighbor_allreduce_nonblocking hierarchical_gossip
+    hierarchical_gossip_nonblocking hierarchical_gossip_info suspend
+    resume suspended in_neighbor_ranks out_neighbor_ranks
+    in_neighbor_machine_ranks out_neighbor_machine_ranks
+    allreduce_parameters broadcast_optimizer_state allreduce_
+    allreduce_nonblocking_ broadcast_ broadcast_nonblocking_
+    set_skip_negotiate_stage get_skip_negotiate_stage
+    mpi_threads_supported nccl_built unified_mpi_window_model_supported
+    placement_info synthesis_info membership_info gang_info"""),
+        ("utils.timeline", """
+    start_timeline stop_timeline timeline_context timeline_end_activity
+    timeline_start_activity"""),
+        ("ops.window", """
+    get_current_created_window_names get_win_version win_accumulate
+    win_accumulate_nonblocking win_associated_p win_create win_fence
+    win_flush win_free win_get win_get_nonblocking win_load_state_dict
+    win_mutex win_poll win_put win_put_nonblocking win_state_dict
+    win_update win_update_then_collect win_wait
+    turn_off_win_ops_with_associated_p turn_on_win_ops_with_associated_p
+    async_info win_fold_stale_residuals"""),
+        ("parallel", """
+    load_balance_loss moe_apply pipeline_apply pipeline_train_step
+    pipeline_train_step_interleaved switch_dispatch tp_param_specs
+    tp_shard_params""")):
+    _EXPORTS.update((_n, (_module, _n)) for _n in _names.split())
+
+_ALL = ["topology_util", "init", "init_distributed", "shutdown", "barrier",
+        "initialized", "size", "rank", "owned_ranks", "local_size",
+        "local_rank", "machine_size", "machine_rank", "is_homogeneous",
+        "process_ranks", "device", "set_topology", "load_topology",
+        "is_topo_weighted", "allreduce", "local_allreduce", "broadcast",
+        "allgather", "allgather_v", "neighbor_allreduce",
+        "dynamic_neighbor_allreduce", "neighbor_allgather",
+        "neighbor_allgather_v", "pair_gossip", "broadcast_parameters",
+        "Handle", "allreduce_nonblocking", "local_allreduce_nonblocking",
+        "broadcast_nonblocking", "allgather_nonblocking",
+        "neighbor_allreduce_nonblocking",
+        "dynamic_neighbor_allreduce_nonblocking",
+        "neighbor_allgather_nonblocking", "pair_gossip_nonblocking",
+        "poll", "wait", "synchronize", "set_machine_topology",
+        "load_machine_topology", "hierarchical_neighbor_allreduce",
+        "hierarchical_neighbor_allreduce_nonblocking",
+        "dynamic_hierarchical_neighbor_allreduce",
+        "dynamic_hierarchical_neighbor_allreduce_nonblocking",
+        "hierarchical_gossip", "hierarchical_gossip_nonblocking",
+        "hierarchical_gossip_info", "suspend", "resume", "suspended",
+        "in_neighbor_ranks", "out_neighbor_ranks",
+        "in_neighbor_machine_ranks", "out_neighbor_machine_ranks",
+        "allreduce_parameters", "broadcast_optimizer_state", "allreduce_",
+        "allreduce_nonblocking_", "broadcast_", "broadcast_nonblocking_",
+        "set_skip_negotiate_stage", "get_skip_negotiate_stage",
+        "mpi_threads_supported", "nccl_built",
+        "unified_mpi_window_model_supported", "placement_info",
+        "synthesis_info", "telemetry", "telemetry_snapshot", "profiler",
+        "step_profile", "flight_recorder_dump", "start_timeline",
+        "stop_timeline", "timeline_context", "timeline_start_activity",
+        "timeline_end_activity", "link_report", "win_xla_info",
+        "membership_info", "gang_info", "gang", "data"]
 
 
 def __getattr__(name):
-    if name in parallel.__all__:
-        return getattr(parallel, name)
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    if name == "__all__":
+        # The window module's whole surface and parallel's names.
+        value = (_ALL + importlib.import_module(f"{__name__}.ops.window")
+                 .__all__ + importlib.import_module(f"{__name__}.parallel")
+                 .__all__)
+    elif name in _EXPORTS:
+        module, attr = _EXPORTS[name]
+        value = importlib.import_module(f"{__name__}.{module}")
+        if attr is not None:
+            value = getattr(value, attr)
+    elif (not name.startswith("__")
+          and importlib.util.find_spec(f"{__name__}.{name}") is not None):
+        # A subpackage or module (``bf.ops``, ``bf.basics``, ...).
+        value = importlib.import_module(f"{__name__}.{name}")
+    else:
+        raise AttributeError(f"module {__name__!r} has no attribute "
+                             f"{name!r}")
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_EXPORTS))

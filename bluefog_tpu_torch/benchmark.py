@@ -35,7 +35,9 @@ window transport; the result then carries ``window``: the seconds a step
 of staging rows off the card, of sends until they were handed to TCP and
 of the drain's commits, and the bytes sent.  ``--backend gloo`` runs the
 processes' control group on gloo, for several processes on one card
-(NCCL refuses two ranks on one device).
+(NCCL refuses two ranks on one device).  ``--host-data`` feeds every
+batch from host memory through ``data.prefetch_to_device`` (depth 2), as
+the JAX benchmark's flag does.
 
     python -m bluefog_tpu_torch.benchmark --model resnet50 --batch-size 64 \\
         --atc --dynamic --ranks 4
@@ -189,7 +191,34 @@ def build_parser():
                     help="append per-iteration JSONL scalars to this path "
                          "(utils.metrics.MetricsWriter; one file a "
                          "process)")
+    ap.add_argument("--host-data", action="store_true",
+                    help="feed each batch from host memory through the "
+                         "prefetching input pipeline (data.prefetch_to_"
+                         "device, depth 2) instead of the device-resident "
+                         "tensors: the step then includes the host-to-"
+                         "device copy and its overlap")
     return ap
+
+
+def host_feed(tr: "Trainer", size: int = 2):
+    """The trainer's batch as it would come from host memory: one host
+    copy of its inputs and targets, placed afresh on its device for every
+    batch by ``data.prefetch_to_device`` (a pinned copy and an async
+    transfer, ``size`` batches ahead).  bfloat16 images cross as their
+    16-bit patterns (numpy has no bfloat16) and are viewed back on the
+    device."""
+    from bluefog_tpu_torch.data import prefetch_to_device
+    bf16 = tr.inputs.dtype == torch.bfloat16
+    x = tr.inputs.cpu()
+    host = (x.view(torch.int16).numpy() if bf16 else x.numpy(),
+            tr.targets.cpu().numpy())
+
+    def gen():
+        while True:
+            yield host
+
+    for x, y in prefetch_to_device(gen(), size=size, device=tr.device):
+        yield (x.view(torch.bfloat16) if bf16 else x), y
 
 
 def transformer_train_flops_per_token(args, params_total: int) -> float:
@@ -397,6 +426,14 @@ def _measure(args, tr: Trainer, quiet: bool, phase_series=None) -> dict:
     from bluefog_tpu_torch.ops import window as W
     n, dev, rep, opt = tr.n, tr.device, tr.rep, tr.opt
     forward_backward = tr.forward_backward
+    host_data = getattr(args, "host_data", False)
+    if host_data:
+        # Each batch from host memory: the step waits for its copy.
+        feed = host_feed(tr)
+
+        def forward_backward():
+            tr.inputs, tr.targets = next(feed)
+            return tr.forward_backward()
 
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -481,7 +518,10 @@ def _measure(args, tr: Trainer, quiet: bool, phase_series=None) -> dict:
         "losses_by_step": torch.stack(by_step).cpu().tolist(),
         "spread": spread,
         "steps": opt.step_count,
+        "host_data": bool(host_data),
     }
+    if host_data:
+        feed.close()   # the prefetch thread exits
     if W._store.distrib is not None:
         # The timed steps' cross-process window path, a step.
         steps = args.num_iters * args.num_batches_per_iter
@@ -520,7 +560,7 @@ def efficiency(args, res: dict) -> dict:
             "efficiency": res[f"{unit}_per_s"] / (res["ranks"] * rate1)}
 
 
-def main(argv=None):
+def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     import bluefog_tpu_torch as bf
     launched = "BFTPU_COORDINATOR" in os.environ or "WORLD_SIZE" in os.environ
@@ -552,6 +592,7 @@ def main(argv=None):
     print(json.dumps(res))
     if launched:
         bf.shutdown()
+    return res
 
 
 if __name__ == "__main__":

@@ -22,12 +22,15 @@ __all__ = ["LeNet5", "MLP", "LogisticRegression", "LinearModel"]
 
 
 class LeNet5(FlaxInit):
-    """Classic LeNet-5 for ``(B, 28, 28, 1)`` inputs (MNIST)."""
+    """Classic LeNet-5 for ``(B, 28, 28, in_channels)`` inputs (MNIST's
+    one channel by default; flax infers the channels from the input)."""
 
-    def __init__(self, num_classes: int = 10, dtype=torch.float32):
+    def __init__(self, num_classes: int = 10, dtype=torch.float32,
+                 in_channels: int = 1):
         super().__init__()
         self.dtype = dtype
-        self.Conv_0 = Conv(1, 6, (5, 5), padding="SAME", dtype=dtype)
+        self.Conv_0 = Conv(in_channels, 6, (5, 5), padding="SAME",
+                           dtype=dtype)
         self.Conv_1 = Conv(6, 16, (5, 5), padding="VALID", dtype=dtype)
         self.Dense_0 = nn.Linear(5 * 5 * 16, 120)
         self.Dense_1 = nn.Linear(120, 84)

@@ -1787,22 +1787,6 @@ def rebuild_from_snapshot(name: str, snap: Dict[str, object]) -> None:
                                                        dtype=np.int64)))
 
 
-def _seed_staging_with_self(name: str) -> int:
-    """Fill each staging slot of the window that no put has reached since
-    it was created with the receiving rank's own memory: a rebuilt put
-    window's first combine then stands in the rank itself for a neighbor
-    whose first put is still on the wire, instead of a zero row.  Returns
-    the slots seeded."""
-    win = _store.get(name)
-    seeded = 0
-    with win.lock, _stream(win.device):
-        for (dst, src), v in win.versions.items():
-            if v == 0:
-                win.staging[(dst, src)] = win.main[dst].clone()
-                seeded += 1
-    return seeded
-
-
 def _release_remote_holds(ranks) -> None:
     """Release the owned mutexes held for the requesters ``ranks`` (their
     process died holding them: no MUTEX_REL will come)."""

@@ -84,10 +84,9 @@ happen before the step's window ops, as in the JAX package.  A committed
 change lands on :attr:`membership_change`; a rank voted out raises (its
 :attr:`evicted` set).  After a change the fused programs of the freed
 windows are dropped (the next step builds anew at the new epoch, the one
-after captures), and a put family's rebuilt staging slots are seeded with
-the receiving rank's own row, so that the first combine does not average
-in zeros for a neighbor whose first put is still on the wire (the JAX
-package's stay zero).  A send to a peer that died before the gang voted
+after captures); the rebuilt windows' staging stays zero, as the JAX
+supervisor leaves it, so the first combine averages in zeros for a
+neighbor whose first put or get has not landed yet.  A send to a peer that died before the gang voted
 it out fails; under churn the step counts it (:attr:`churn_send_errors`)
 and combines what arrived.  A supervisor built by hand is deferred to:
 its owner steps it.
@@ -569,9 +568,6 @@ class _WindowOptimizerBase:
         if self._fused_impl is not None:
             # Its programs ran the freed windows' plans.
             self._fused_impl.close()
-        if not self._zero_init:
-            for name in self._names or []:
-                W._seed_staging_with_self(name)
 
     def _wait_all(self, handles) -> None:
         """``win_wait`` every handle; under churn a send that failed on a

@@ -1,0 +1,684 @@
+"""``bfrun``: the process launcher, ``python -m bluefog_tpu_torch.run``.
+
+The port of ``bluefog_tpu/run/run.py`` (BlueFog's ``bfrun -np N -H
+h1:4,h2:4 python train.py``).  There is no MPI: every child gets the
+``BFTPU_*`` rendezvous in its environment (``BFTPU_COORDINATOR`` host:port,
+``BFTPU_NUM_PROCESSES``, ``BFTPU_PROCESS_ID``, ``BFTPU_LOCAL_ID``,
+``BFTPU_LOCAL_SIZE``) and ``bf.init_distributed()`` joins one
+``torch.distributed`` process group through a TCP store that process 0
+hosts at the coordinator address (NCCL on CUDA, gloo on the CPU or with
+``--backend gloo``).
+
+* Local fan-out:
+    python -m bluefog_tpu_torch.run -np 4 python train.py
+* ``--devices-per-proc k``: each process owns k contiguous ranks
+  (``BFTPU_LOCAL_DEVICES``).  The children run on the card unless their
+  own ``--device`` says otherwise; nothing here forces the CPU.
+* Multi-host: ``-H host:slots`` entries, slot-major rank order (mpirun
+  ``-map-by slot``), launched through ssh (or ``--rsh``), the coordinator
+  on the first host; a bare hostname is one slot.
+* ``--tag-output`` prefixes each output line with ``[rank]``; ``--chaos``
+  exports a fault spec (``utils/chaos.py``) and tolerates the deaths it
+  schedules; any other failure stops the gang: TERM, then KILL after a
+  grace period.  One line of each rank's exit reason ends every run (the
+  JAX launcher prints it only when it stops the gang).
+* ``--restarts``, ``--timeline``, ``--telemetry[-port]``, ``--profile``,
+  ``--elastic``, ``--join``, ``--grow`` and ``--gang-dir`` export the
+  same knobs as the JAX launcher.
+"""
+
+from __future__ import annotations
+
+import argparse
+import functools
+import os
+import shlex
+import socket
+import subprocess
+import sys
+import threading
+import time
+import uuid
+
+__all__ = ["main", "build_parser", "parse_hosts", "local_devices_env"]
+
+
+def local_devices_env(env: dict, num_ranks: int) -> dict:
+    """Mutate ``env`` so that the child owns ``num_ranks`` contiguous ranks
+    (``BFTPU_LOCAL_DEVICES``, read by ``bf.init_distributed``).  Nothing
+    else: the child runs on the card unless its own ``--device`` says
+    otherwise (the JAX package's launcher also forces a virtual CPU
+    mesh here)."""
+    env["BFTPU_LOCAL_DEVICES"] = str(num_ranks)
+    return env
+
+
+def parse_hosts(spec: str, num_proc: int):
+    """Expand ``h1:4,h2:4`` into a rank-ordered list of (host, local_rank).
+
+    Mirrors the reference launcher's host-slot parsing (``run/run.py:58-118``):
+    each entry contributes ``slots`` consecutive ranks (mpirun ``-map-by
+    slot``), bare hostnames count as one slot, and the total slot count must
+    cover ``num_proc``.
+    """
+    entries = []
+    for item in spec.split(","):
+        item = item.strip()
+        if not item:
+            continue
+        host, sep, slots_s = item.partition(":")
+        if not host:
+            raise ValueError(f"bad host entry {item!r}")
+        if sep:
+            try:
+                slots = int(slots_s)
+            except ValueError:
+                raise ValueError(f"bad slot count in {item!r}") from None
+            if slots <= 0:
+                raise ValueError(f"slot count must be positive in {item!r}")
+        else:
+            slots = 1
+        entries.append((host, slots))
+    total = sum(s for _, s in entries)
+    if total < num_proc:
+        raise ValueError(
+            f"host slots ({total}) < requested processes ({num_proc})")
+    placement = []
+    next_local = {}  # repeated host entries keep accumulating local ranks
+    for host, slots in entries:
+        for _ in range(slots):
+            if len(placement) == num_proc:
+                break
+            local_rank = next_local.get(host, 0)
+            next_local[host] = local_rank + 1
+            placement.append((host, local_rank))
+    return placement
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("", 0))
+        return s.getsockname()[1]
+
+
+_TAG_LOCK = threading.Lock()
+
+
+def _spawn_tagged(cmd_or_argv, env, rank: int):
+    """Popen with pump threads that prefix each output line with ``[rank]``
+    (mpirun ``--tag-output`` parity: stdout stays stdout, stderr stays
+    stderr).  Whole lines are written under one lock, so ranks can no
+    longer tear each other's lines on the shared streams.  The threads are
+    joined by ``_join_tag_pumps`` after the child exits — they must drain
+    the pipes fully or trailing output would be lost at interpreter
+    shutdown; ``errors='replace'`` keeps one bad byte (native crash dumps)
+    from killing a pump and deadlocking the child on a full pipe."""
+    p = subprocess.Popen(cmd_or_argv, env=env,
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True, bufsize=1, errors="replace")
+
+    def pump(stream, sink):
+        for line in stream:
+            if not line.endswith("\n"):
+                line += "\n"  # unterminated final write: keep tags per-line
+            with _TAG_LOCK:
+                sink.write(f"[{rank}]{line}")
+                sink.flush()
+        stream.close()
+
+    threads = [
+        threading.Thread(target=pump, args=(p.stdout, sys.stdout),
+                         daemon=True, name=f"bfrun-tag-{rank}"),
+        threading.Thread(target=pump, args=(p.stderr, sys.stderr),
+                         daemon=True, name=f"bfrun-tag-err-{rank}"),
+    ]
+    for t in threads:
+        t.start()
+    p._bf_tag_threads = threads
+    return p
+
+
+def _join_tag_pumps(entries, timeout: float = 10.0) -> None:
+    """Drain tagged-output pumps after their children exited."""
+    for p, _, _ in entries:
+        for t in getattr(p, "_bf_tag_threads", ()):
+            t.join(timeout=timeout)
+
+
+# Env vars forwarded to remote ranks (the remote login shell supplies the
+# rest, as with mpirun's -x lists).
+_ENV_EXPORT_PREFIXES = ("BFTPU_", "BLUEFOG", "CUDA_", "NCCL_", "OMP_")
+
+
+@functools.lru_cache(maxsize=None)
+def _local_addrs() -> frozenset:
+    addrs = {"127.0.0.1", "::1"}
+    try:
+        addrs.update(socket.gethostbyname_ex(socket.gethostname())[2])
+    except OSError:
+        pass
+    return frozenset(addrs)
+
+
+@functools.lru_cache(maxsize=None)
+def is_local_host(host: str) -> bool:
+    """True when ``host`` names THIS machine — by shortname, FQDN, or any
+    address that resolves to a local interface.  A --hosts entry naming
+    the local machine by FQDN/IP must not be treated as remote: bfrun
+    would ssh-to-self needlessly, and ibfrun --hosts would refuse to
+    start ('the first --hosts entry must be this machine')."""
+    if host in ("127.0.0.1", "::1", "localhost",
+                socket.gethostname(), socket.getfqdn()):
+        return True
+    try:
+        resolved = {ai[4][0] for ai in socket.getaddrinfo(host, None)}
+    except OSError:
+        return False
+    return bool(resolved & _local_addrs())
+
+
+def rsh_argv(rsh_opt, ssh_port: int) -> list:
+    """The remote transport argv prefix: ``--rsh`` override or ssh."""
+    return shlex.split(rsh_opt) if rsh_opt else ["ssh", "-p", str(ssh_port)]
+
+
+# Secrets must NEVER ride a remote command line: argv is world-readable in
+# /proc on every gang machine for the whole session.  These keys are
+# excluded from remote_run_cmd's inline exports; their owners ship them out
+# of band (ibfrun pipes the gang token over the rsh client's stdin).
+_ENV_NEVER_INLINE = ("BFTPU_IBF_TOKEN",)
+
+
+def remote_run_cmd(env: dict, cmd: list) -> str:
+    """The shell line a remote rank executes: replicate cwd + the BFTPU,
+    BLUEFOG, CUDA, NCCL and OMP env, then the command.  Shared by bfrun and multi-machine ibfrun so a
+    new env var cannot reach one launcher's remote ranks and not the
+    other's."""
+    exports = " ".join(f"{k}={shlex.quote(v)}" for k, v in env.items()
+                       if k.startswith(_ENV_EXPORT_PREFIXES)
+                       and k not in _ENV_NEVER_INLINE)
+    return (f"cd {shlex.quote(os.getcwd())} && {exports} "
+            + " ".join(shlex.quote(c) for c in cmd))
+
+
+def _launch_shell(tag: str, rank: int, run_cmd: str,
+                  piddir: str = "/tmp") -> str:
+    """The remote launch command for one gang rank.
+
+    ``setsid`` puts the rank in its own session, so the shell's PID (written
+    to the tag pidfile) is the process-group id of every descendant;
+    ``_remote_signal`` kills the whole group.  A bare ``pkill -f tag`` would
+    only reach this shell — the training process carries no tag in its argv.
+    ``-w`` (wait) is load-bearing: when the invoking remote shell is already
+    a process-group leader, ``setsid`` FORKS and without ``-w`` the parent
+    exits 0 immediately — the gang supervisor would read every remote rank
+    as instantly successful.  The traps remove the pidfile on normal exit
+    and on TERM, so healthy runs leave no litter; the KILL path cleans up
+    via ``_remote_signal``."""
+    pidfile = shlex.quote(f"{piddir}/{tag}.{rank}.pid")
+    inner = (f"echo $$ > {pidfile}; "
+             f"trap 'rm -f {pidfile}; exit 143' TERM INT; "
+             f"trap 'rm -f {pidfile}' EXIT; " + run_cmd)
+    return f"setsid -w sh -c {shlex.quote(inner)}"
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="bfrun", description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("-np", "--num-proc", type=int, required=True,
+                   help="number of processes to launch")
+    p.add_argument("-H", "--hosts", default=None,
+                   help="comma-separated host[:slots] entries "
+                        "(default: all local)")
+    p.add_argument("--ssh-port", type=int, default=22)
+    p.add_argument("--rsh", default=None,
+                   help="remote-shell command used to reach -H hosts, "
+                        "invoked as '<rsh> <host> <script>' (default: "
+                        "'ssh -p <ssh-port>').  The same transport carries "
+                        "launch, TERM/KILL escalation and pidfile cleanup, "
+                        "so tests and rsh-like schedulers exercise the "
+                        "REAL remote code path (reference verifies its ssh "
+                        "transport live, run/run.py:128-145)")
+    p.add_argument("--coordinator-port", type=int, default=None)
+    p.add_argument("--devices-per-proc", type=int, default=None,
+                   help="ranks per process (BFTPU_LOCAL_DEVICES: each "
+                        "process owns that many contiguous ranks)")
+    p.add_argument("--restarts", type=int, default=0,
+                   help="gang-restart budget: when any process exits "
+                        "nonzero, kill the rest and relaunch ALL processes "
+                        "(pair with utils.elastic.run_elastic in the "
+                        "program so the job resumes from its newest "
+                        "checkpoint)")
+    p.add_argument("--timeline", default=None,
+                   help="timeline file prefix (sets BLUEFOG_TIMELINE)")
+    p.add_argument("--telemetry", action="store_true",
+                   help="enable the runtime telemetry registry in every "
+                        "rank (sets BLUEFOG_TPU_TELEMETRY=1 for the gang; "
+                        "read it back via bf.telemetry_snapshot() or pair "
+                        "with --telemetry-port for live /metrics)")
+    p.add_argument("--telemetry-port", type=int, default=None,
+                   metavar="BASE",
+                   help="serve /metrics + /healthz per rank: rank r binds "
+                        "port BASE + r (0 = ephemeral everywhere; implies "
+                        "--telemetry)")
+    p.add_argument("--profile", action="store_true",
+                   help="enable the distributed step profiler in every "
+                        "rank (sets BLUEFOG_TPU_PROFILE=1; implies "
+                        "--telemetry): periodic synced step samples, "
+                        "phase latency histograms and cross-rank "
+                        "straggler reports every BLUEFOG_TPU_PROFILE_EVERY "
+                        "steps — pair with --timeline and `python -m "
+                        "bluefog_tpu_torch.tools trace-merge` for a "
+                        "merged per-rank trace")
+    p.add_argument("--elastic", action="store_true",
+                   help="coordinator-free gang bootstrap (ops/gang.py): "
+                        "pre-assign one window-transport port per rank, "
+                        "export the complete endpoint list to every rank "
+                        "as BFTPU_GANG_PEERS, and enable "
+                        "BLUEFOG_TPU_ELASTIC_JOIN (+ BLUEFOG_TPU_CHURN) — "
+                        "membership and bootstrap ride the gossip-"
+                        "replicated endpoint directory, so no process "
+                        "(rank 0 included) is a bootstrap single point of "
+                        "failure.  The program should call "
+                        "bf.gang.init_elastic() instead of relying on the "
+                        "coordinator")
+    p.add_argument("--join", default=None, metavar="TARGET",
+                   help="launch ONE process that JOINS a live gang "
+                        "(requires -np 1): TARGET is any live member's "
+                        "window-transport endpoint host:port, or "
+                        "@<prefix> naming a persisted gang-directory "
+                        "prefix (BLUEFOG_TPU_GANG_DIR_PATH) whose live "
+                        "members are tried in turn.  With "
+                        "--devices-per-proc N, N is the WORLD rank count "
+                        "(the joiner sees the whole virtual mesh).  "
+                        "Exported to the child as BFTPU_GANG_JOIN; the "
+                        "program calls bf.gang.join_gang()")
+    p.add_argument("--join-want", type=int, default=None, metavar="N",
+                   help="with --join/--grow: how many vacant ranks the "
+                        "joining process claims (default 1; a replacement "
+                        "for a multi-rank process should claim its whole "
+                        "seat count).  Exported as BFTPU_GANG_JOIN_WANT")
+    p.add_argument("--grow", type=float, default=None, metavar="SECONDS",
+                   help="spawn one extra joining process SECONDS after "
+                        "launch (requires --elastic): the late process "
+                        "gets BFTPU_GANG_JOIN=@<gang-dir> and is "
+                        "supervised like any gang rank — its exit reason "
+                        "appears in the gang summary")
+    p.add_argument("--gang-dir", default=None, metavar="PREFIX",
+                   help="gang-directory persistence prefix "
+                        "(BLUEFOG_TPU_GANG_DIR_PATH); default with "
+                        "--elastic: a fresh /tmp prefix per incarnation")
+    p.add_argument("--chaos", default=None, metavar="SPEC",
+                   help="fault-injection spec for the gang (utils/chaos.py "
+                        "grammar): comma-separated kill:rank=K:step=N / "
+                        "delay:rank=K:step=N[:steps=M][:ms=D] / "
+                        "partition:rank=K:step=N[:steps=M].  Exported to "
+                        "every rank as BLUEFOG_TPU_CHAOS (ranks self-inject "
+                        "at the named steps) and implies BLUEFOG_TPU_CHURN=1 "
+                        "so the survivors re-form; a chaos-killed rank's "
+                        "death does NOT trigger the normal "
+                        "any-failure-kills-the-gang policy")
+    p.add_argument("--tag-output", action="store_true",
+                   help="prefix every output line with [rank] (mpirun "
+                        "--tag-output parity); also prevents ranks' lines "
+                        "interleaving mid-line on the shared stdout")
+    p.add_argument("command", nargs=argparse.REMAINDER,
+                   help="program to launch")
+    return p
+
+
+def _child_env(args, coord: str, rank: int, local_rank: int = 0,
+               local_size: int = 1, gang_peers: str = None,
+               gang_dir: str = None, join_target: str = None,
+               join_world: int = None) -> dict:
+    env = dict(os.environ)
+    env["BFTPU_COORDINATOR"] = coord
+    env["BFTPU_NUM_PROCESSES"] = str(args.num_proc)
+    env["BFTPU_PROCESS_ID"] = str(rank)
+    env["BFTPU_LOCAL_ID"] = str(local_rank)
+    env["BFTPU_LOCAL_SIZE"] = str(local_size)
+    elastic = gang_peers is not None or join_target is not None
+    if args.devices_per_proc:
+        if elastic:
+            # Elastic/join processes see the WHOLE world (rank ownership
+            # is per-process through the gang directory): each founding
+            # member of a 4-rank gang is told 4 ranks, not 1.
+            # For a top-level --join, --devices-per-proc NAMES the world
+            # size; a --grow joiner inherits the gang's (join_world).
+            if join_target is not None:
+                n = join_world or args.devices_per_proc
+            else:
+                n = args.num_proc * args.devices_per_proc
+            local_devices_env(env, n)
+        else:
+            local_devices_env(env, args.devices_per_proc)
+    if elastic:
+        env.setdefault("BLUEFOG_TPU_ELASTIC_JOIN", "1")
+        env.setdefault("BLUEFOG_TPU_CHURN", "1")
+        if gang_dir:
+            env.setdefault("BLUEFOG_TPU_GANG_DIR_PATH", gang_dir)
+    if gang_peers is not None:
+        env["BFTPU_GANG_PEERS"] = gang_peers
+    if join_target is not None:
+        env["BFTPU_GANG_JOIN"] = join_target
+        if getattr(args, "join_want", None):
+            env["BFTPU_GANG_JOIN_WANT"] = str(args.join_want)
+    if args.timeline:
+        env["BLUEFOG_TIMELINE"] = args.timeline
+    if args.telemetry or args.telemetry_port is not None or args.profile:
+        env["BLUEFOG_TPU_TELEMETRY"] = "1"
+    if args.profile:
+        env["BLUEFOG_TPU_PROFILE"] = "1"
+    if args.telemetry_port is not None:
+        # Distinct port per rank (0 = ephemeral for every rank; the bound
+        # port is logged by the endpoint at init).
+        env["BLUEFOG_TPU_TELEMETRY_PORT"] = str(
+            args.telemetry_port + rank if args.telemetry_port else 0)
+    if args.chaos and join_target is None:
+        # Ranks self-inject (the launcher cannot know when "step N"
+        # happens); chaos without the churn controller would just be a
+        # crashed gang, so --chaos implies churn unless explicitly pinned.
+        env["BLUEFOG_TPU_CHAOS"] = args.chaos
+        env.setdefault("BLUEFOG_TPU_CHURN", "1")
+    if join_target is not None:
+        # A replacement spawned into a chaos gang must NOT re-execute the
+        # fault that vacated its seat: a joiner adopting the killed
+        # rank's id would otherwise SIGKILL itself at the same step.
+        env.pop("BLUEFOG_TPU_CHAOS", None)
+        if args.chaos:
+            env.setdefault("BLUEFOG_TPU_CHURN", "1")
+    return env
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    cmd = args.command
+    if cmd and cmd[0] == "--":
+        cmd = cmd[1:]
+    if not cmd:
+        print("bfrun: no command given", file=sys.stderr)
+        return 2
+    if args.num_proc < 1:
+        print("bfrun: -np must be >= 1", file=sys.stderr)
+        return 2
+
+    if args.join is not None and args.num_proc != 1:
+        print("bfrun: --join launches exactly one joining process; "
+              "use -np 1", file=sys.stderr)
+        return 2
+    if args.grow is not None and not args.elastic:
+        print("bfrun: --grow requires --elastic (the joiner bootstraps "
+              "from the gang directory)", file=sys.stderr)
+        return 2
+
+    if args.hosts:
+        try:
+            placement = parse_hosts(args.hosts, args.num_proc)
+        except ValueError as e:
+            print(f"bfrun: {e}", file=sys.stderr)
+            return 2
+    else:
+        placement = [("127.0.0.1", i) for i in range(args.num_proc)]
+
+    if args.grow is not None and args.gang_dir is None \
+            and any(not is_local_host(h) for h, _ in placement):
+        # The default gang-dir is a launcher-local /tmp prefix, but
+        # remote members persist their replicas on THEIR hosts — the
+        # locally-spawned joiner would find nothing and its failure
+        # would tear down the healthy gang.
+        print("bfrun: --grow with remote hosts needs --gang-dir on "
+              "storage shared with this machine (the joiner bootstraps "
+              "from the persisted directory replicas)", file=sys.stderr)
+        return 2
+
+    tolerate = frozenset()
+    if args.chaos:
+        from bluefog_tpu_torch.utils.chaos import killed_ranks, parse_chaos
+        try:
+            faults = parse_chaos(args.chaos)
+        except ValueError as e:
+            print(f"bfrun: {e}", file=sys.stderr)
+            return 2
+        bad_targets = [f.rank for f in faults if f.rank >= args.num_proc]
+        if bad_targets:
+            print(f"bfrun: --chaos targets rank(s) {sorted(bad_targets)} "
+                  f"outside the {args.num_proc}-process gang",
+                  file=sys.stderr)
+            return 2
+        tolerate = frozenset(killed_ranks(faults))
+
+    # The remote transport: one argv prefix for launch AND signalling.
+    rsh = rsh_argv(args.rsh, args.ssh_port)
+
+    host_slots = {}
+    for host, _ in placement:
+        host_slots[host] = host_slots.get(host, 0) + 1
+
+    attempt = 0
+    while True:
+        # Fresh coordinator port per incarnation (unless pinned): the old
+        # store died with rank 0 and its port may sit in TIME_WAIT.
+        port = args.coordinator_port or _free_port()
+        coord = f"{placement[0][0]}:{port}"
+        # Unique per-incarnation tag: exported into every child env, so it
+        # appears on remote command lines and `pkill -f <tag>` can reach
+        # ranks whose local ssh client we can only disconnect, not signal.
+        tag = f"bfrun-gang-{uuid.uuid4().hex[:12]}"
+        gang_peers = None
+        gang_dir = args.gang_dir
+        if args.elastic:
+            # One pinned window-transport port per rank, exported to the
+            # whole gang: with the complete endpoint map known at launch
+            # there is no key-value exchange to run and no coordinator to
+            # lose — gossip anti-entropy keeps the map live from here on.
+            # (Ports are probed free locally; for remote hosts the probe
+            # is best-effort — a collision surfaces as that rank failing
+            # to bind, which the restart budget covers.)
+            win_ports = [_free_port() for _ in placement]
+            gang_peers = ",".join(
+                f"{host}:{p}" for (host, _), p in zip(placement, win_ports))
+            if gang_dir is None:
+                import tempfile
+                gang_dir = os.path.join(
+                    tempfile.mkdtemp(prefix="bf-gang-"), "gang")
+        if args.join is not None and gang_dir is None \
+                and args.join.startswith("@"):
+            gang_dir = args.join[1:]
+        entries = []  # (Popen, host, is_remote)
+
+        def _spawn_member(rank, host, env):
+            env["BFTPU_GANG_TAG"] = tag
+            if is_local_host(host):
+                proc = (_spawn_tagged(cmd, env, rank) if args.tag_output
+                        else subprocess.Popen(cmd, env=env))
+                entries.append((proc, host, False))
+            else:
+                remote = _launch_shell(tag, rank, remote_run_cmd(env, cmd))
+                rsh_cmd = rsh + [host, remote]
+                proc = (_spawn_tagged(rsh_cmd, None, rank)
+                        if args.tag_output
+                        else subprocess.Popen(rsh_cmd))
+                entries.append((proc, host, True))
+
+        grow = []
+        if args.grow is not None:
+            def _spawn_joiner():
+                rank = len(entries)
+                env = _child_env(args, coord, rank, 0, 1,
+                                 gang_dir=gang_dir,
+                                 join_target=f"@{gang_dir}",
+                                 join_world=args.num_proc
+                                 * (args.devices_per_proc or 1))
+                print(f"bfrun: growing the gang — spawning a joining "
+                      f"process as rank {rank} (@{gang_dir})",
+                      file=sys.stderr)
+                _spawn_member(rank, "127.0.0.1", env)
+            grow = [(time.monotonic() + args.grow, _spawn_joiner)]
+        try:
+            for rank, (host, local_rank) in enumerate(placement):
+                env = _child_env(args, coord, rank, local_rank,
+                                 host_slots[host], gang_peers=gang_peers,
+                                 gang_dir=gang_dir,
+                                 join_target=args.join)
+                _spawn_member(rank, host, env)
+            rc = _wait_gang(entries, rsh, tag, tolerate=tolerate,
+                            grow=grow)
+        except KeyboardInterrupt:
+            print("bfrun: interrupted; stopping the gang", file=sys.stderr)
+            _kill_gang(entries, rsh, tag)
+            return 130
+        if rc == 0 or attempt >= args.restarts:
+            return rc
+        attempt += 1
+        # Backoff so a deterministically-failing command (bad flag, missing
+        # module, pinned port in TIME_WAIT) cannot burn the budget in a
+        # tight loop.
+        delay = min(10.0, 2.0 ** (attempt - 1))
+        print(f"bfrun: process failed (exit {rc}); restarting the gang "
+              f"in {delay:.0f}s (attempt {attempt}/{args.restarts})",
+              file=sys.stderr)
+        time.sleep(delay)
+
+
+def _remote_signal(host: str, rsh: list, tag: str, sig: str) -> None:
+    """Signal every remote process group of this gang tag (killing the
+    local ssh client only drops the connection; without a TTY the remote
+    command keeps running).
+
+    Each rank's launch shell ran under ``setsid`` and wrote its PID — the
+    group id of all its descendants — to ``/tmp/<tag>.<rank>.pid``, so
+    ``kill -- -PGID`` reaches the training process even though its argv
+    carries no tag.  A ``pkill -f`` fallback covers shells that have not
+    reached the pidfile write.  EVERY occurrence of the tag in this command
+    brackets its first character (``[b]frun-...``): as a glob that still
+    matches the literal pidfile paths, and as the pkill regex it still
+    matches the launch shells' command lines — but this kill shell's own
+    cmdline now contains only bracketed forms, which the regex does not
+    match, so the kill shell never signals itself mid-cleanup.  KILL also
+    removes the pidfiles (TERM leaves them for the launch shells' own
+    TERM/EXIT traps)."""
+    btag = f"[{tag[0]}]{tag[1:]}"
+    cleanup = f"rm -f /tmp/{btag}.*.pid; " if sig == "KILL" else ""
+    # `kill -s SIG -- -PGID` is the POSIX form: dash's builtin rejects the
+    # `kill -SIG -- -PGID` spelling ("Illegal number").
+    script = (
+        f"for f in /tmp/{btag}.*.pid; do "
+        f"[ -f \"$f\" ] && kill -s {sig} -- -\"$(cat \"$f\")\" 2>/dev/null; "
+        f"done; {cleanup}pkill -{sig} -f {shlex.quote(btag)}; true")
+    subprocess.run(
+        rsh + [host, script],
+        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL, timeout=30,
+        check=False)
+
+
+def _exit_reason(rc) -> str:
+    """Human-readable exit reason for one gang process."""
+    if rc is None:
+        return "UNRESPONSIVE (still running after SIGKILL)"
+    if rc < 0:
+        import signal as _signal
+        try:
+            name = _signal.Signals(-rc).name
+        except ValueError:
+            name = f"signal {-rc}"
+        return f"killed by {name}"
+    return f"exit {rc}"
+
+
+def _kill_gang(entries, rsh: list, tag: str,
+               kill_grace: float = 10.0) -> None:
+    """TERM the whole gang (local + remote), escalate to KILL after
+    ``kill_grace`` — a peer blocked in a collective against a dead rank
+    with ``run_elastic``'s SIGTERM handler installed can never reach a step
+    boundary to honor TERM — and print a per-rank exit-reason summary, so
+    a hung remote shell (whose local rsh client we can only disconnect)
+    can never leave the gang half-dead SILENTLY: any rank the escalation
+    could not reap is called out as UNRESPONSIVE."""
+    remote_hosts = sorted({h for _, h, r in entries if r})
+    for p, _, _ in entries:
+        if p.poll() is None:
+            p.terminate()
+    for h in remote_hosts:
+        _remote_signal(h, rsh, tag, "TERM")
+    deadline = time.monotonic() + kill_grace
+    escalated = set()
+    for rank, (p, _, _) in enumerate(entries):
+        try:
+            p.wait(timeout=max(0.1, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            escalated.add(rank)
+            p.kill()
+    for h in remote_hosts:
+        _remote_signal(h, rsh, tag, "KILL")
+    for rank, (p, _, _) in enumerate(entries):
+        try:
+            p.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            pass
+    print(_exit_summary(entries, escalated), file=sys.stderr)
+
+
+def _exit_summary(entries, escalated=frozenset()) -> str:
+    """The one line of every gang process's exit reason."""
+    parts = []
+    for rank, (p, host, is_remote) in enumerate(entries):
+        reason = _exit_reason(p.poll())
+        if rank in escalated:
+            reason += " after SIGTERM timeout"
+        if is_remote:
+            reason += f" [{host}]"
+        parts.append(f"rank {rank}: {reason}")
+    return "bfrun: gang exit summary — " + "; ".join(parts)
+
+
+def _wait_gang(entries, rsh: list, tag: str,
+               tolerate=frozenset(), grow=()) -> int:
+    """Wait for all processes; any nonzero exit kills the survivors —
+    except ranks in ``tolerate`` (chaos-injected deaths), whose exits are
+    expected and must leave the survivors running so recovery can be
+    observed.  The gang still waits for EVERY process to finish.
+
+    The gang may GROW mid-wait (elastic scale-up): ``grow`` is a list of
+    ``(fire_monotonic, spawn_fn)`` entries; when an entry's time comes,
+    its ``spawn_fn`` appends a new ``(proc, host, is_remote)`` member to
+    ``entries`` and from then on the joined process is supervised exactly
+    like a founding rank — its nonzero exit kills the gang and its exit
+    reason appears in the summary (mirroring the kill-toleration the loop
+    already has for shrink).  The exit summary ends a clean finish too."""
+    pending_grow = sorted(grow, key=lambda g: g[0])
+    while True:
+        while pending_grow and time.monotonic() >= pending_grow[0][0]:
+            _, spawn_fn = pending_grow.pop(0)
+            try:
+                spawn_fn()  # appends to `entries`; supervised below
+            except Exception as e:  # noqa: BLE001 — a failed grow is fatal
+                print(f"bfrun: failed to grow the gang: {e}",
+                      file=sys.stderr)
+                _kill_gang(entries, rsh, tag)
+                _join_tag_pumps(entries)
+                return 1
+        rcs = [p.poll() for p, _, _ in entries]
+        bad = next((r for i, r in enumerate(rcs)
+                    if r not in (None, 0) and i not in tolerate), None)
+        if bad is None:
+            if all(r is not None for r in rcs):
+                if pending_grow:
+                    # Every rank already finished cleanly: there is no
+                    # gang left to grow into — spawning the joiner now
+                    # would only manufacture a failure.
+                    print(f"bfrun: gang finished before "
+                          f"{len(pending_grow)} scheduled --grow "
+                          "spawn(s); skipping them", file=sys.stderr)
+                _join_tag_pumps(entries)
+                print(_exit_summary(entries), file=sys.stderr)
+                return 0
+            time.sleep(0.2)
+            continue
+        _kill_gang(entries, rsh, tag)
+        _join_tag_pumps(entries)
+        return bad
+
+
+if __name__ == "__main__":
+    sys.exit(main())

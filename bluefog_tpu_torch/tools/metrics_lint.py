@@ -1,0 +1,184 @@
+"""metrics-lint: the port's registered ``bf_*`` metrics against the
+``docs/observability.md`` inventory, both directions; the port of
+``bluefog_tpu/tools/metrics_lint.py``.
+
+It fails when the package registers a ``bf_*`` series (``telemetry.inc``
+/ ``set_gauge`` / ``observe`` / ``observe_bucket_counts``, the name
+second in ``observe_since``, both arms of a conditional, and the values
+of module-level ``*_GAUGES`` / ``*_COUNTERS`` / ``*_METRICS`` tables)
+that the doc never mentions in backticks (UNDOCUMENTED), or when an
+inventory-table row (a line starting ``| `bf_``) names a metric that no
+code path registers (STALE).  Histogram suffixes ``_bucket`` / ``_sum``
+/ ``_count`` are dropped on both sides.  An AST walk over every ``.py``
+under ``<root>/<package>``: nothing of the audited package is imported.
+``--package bluefog_tpu`` is the JAX package's own lint.
+
+    python -m bluefog_tpu_torch.tools.metrics_lint [--root DIR] \
+        [--package bluefog_tpu_torch]
+"""
+
+from __future__ import annotations
+
+import argparse
+import ast
+import os
+import re
+import sys
+from typing import Dict, List, Set, Tuple
+
+__all__ = ["registered_metrics", "documented_metrics", "inventory_rows",
+           "run_lint", "main"]
+
+_MUTATORS = ("inc", "set_gauge", "observe", "observe_bucket_counts")
+# observe_since(t0, "name", ...): the metric name is the SECOND argument.
+_MUTATORS_ARG1 = ("observe_since",)
+_TABLE_SUFFIX = ("_GAUGES", "_COUNTERS", "_METRICS")
+_HIST_SUFFIXES = ("_bucket", "_sum", "_count")
+_NAME_RE = re.compile(r"^bf_[a-z0-9_]+$")
+_DOC_TOKEN_RE = re.compile(r"`(bf_[a-z0-9_]+)")
+_ROW_RE = re.compile(r"^\|\s*`bf_")
+
+
+def _norm(name: str) -> str:
+    for suf in _HIST_SUFFIXES:
+        if name.endswith(suf):
+            return name[: -len(suf)]
+    return name
+
+
+def _call_name(node: ast.Call) -> str:
+    f = node.func
+    if isinstance(f, ast.Attribute):
+        return f.attr
+    if isinstance(f, ast.Name):
+        return f.id
+    return ""
+
+
+def registered_metrics(root: str, package: str = "bluefog_tpu_torch"
+                       ) -> Dict[str, List[str]]:
+    """``{metric: [file:line, ...]}`` of every ``bf_*`` series the
+    package ``package`` under ``root`` registers."""
+    out: Dict[str, List[str]] = {}
+
+    def add(name: str, path: str, lineno: int) -> None:
+        if _NAME_RE.match(name):
+            out.setdefault(_norm(name), []).append(
+                f"{os.path.relpath(path, root)}:{lineno}")
+
+    pkg = os.path.join(root, package)
+    for dirpath, _, files in os.walk(pkg):
+        for fn in sorted(files):
+            if not fn.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, fn)
+            with open(path) as f:
+                src = f.read()
+            try:
+                tree = ast.parse(src, filename=path)
+            except SyntaxError as e:  # pragma: no cover — broken tree
+                raise SystemExit(f"metrics-lint: cannot parse {path}: {e}")
+            def name_args(node: ast.Call):
+                cn = _call_name(node)
+                if cn in _MUTATORS and node.args:
+                    yield node.args[0]
+                elif cn in _MUTATORS_ARG1 and len(node.args) > 1:
+                    yield node.args[1]
+
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Call):
+                    for arg in name_args(node):
+                        if isinstance(arg, ast.IfExp):
+                            arms = (arg.body, arg.orelse)
+                        else:
+                            arms = (arg,)
+                        for a in arms:
+                            if isinstance(a, ast.Constant) \
+                                    and isinstance(a.value, str):
+                                add(a.value, path, node.lineno)
+                elif isinstance(node, ast.Assign):
+                    # *_GAUGES = {"kind": "bf_..."} lookup tables.
+                    named = any(
+                        isinstance(t, ast.Name)
+                        and t.id.endswith(_TABLE_SUFFIX)
+                        for t in node.targets)
+                    if named and isinstance(node.value, ast.Dict):
+                        for v in node.value.values:
+                            if isinstance(v, ast.Constant) \
+                                    and isinstance(v.value, str):
+                                add(v.value, path, v.lineno)
+    return out
+
+
+def documented_metrics(doc_path: str) -> Set[str]:
+    """Every backticked ``bf_*`` token anywhere in the doc."""
+    with open(doc_path) as f:
+        text = f.read()
+    return {_norm(m) for m in _DOC_TOKEN_RE.findall(text)}
+
+
+def inventory_rows(doc_path: str) -> Dict[str, int]:
+    """``{metric: first line number}`` from the markdown inventory-table
+    rows (``| `bf_...` | type | ... |``)."""
+    out: Dict[str, int] = {}
+    with open(doc_path) as f:
+        for lineno, line in enumerate(f, 1):
+            if not _ROW_RE.match(line):
+                continue
+            first_cell = line.split("|")[1]
+            for name in _DOC_TOKEN_RE.findall(first_cell):
+                out.setdefault(_norm(name), lineno)
+    return out
+
+
+def run_lint(root: str, package: str = "bluefog_tpu_torch"
+             ) -> Tuple[List[str], int, int]:
+    """Returns ``(problems, n_registered, n_rows)``."""
+    doc = os.path.join(root, "docs", "observability.md")
+    if not os.path.exists(doc):
+        return ([f"metrics-lint: missing {doc}"], 0, 0)
+    reg = registered_metrics(root, package)
+    doc_all = documented_metrics(doc)
+    rows = inventory_rows(doc)
+    problems: List[str] = []
+    for name in sorted(set(reg) - doc_all):
+        problems.append(
+            f"UNDOCUMENTED metric {name!r} (registered at "
+            f"{', '.join(reg[name][:3])}) — add an inventory row to "
+            "docs/observability.md")
+    for name in sorted(set(rows) - set(reg)):
+        problems.append(
+            f"STALE inventory row {name!r} "
+            f"(docs/observability.md:{rows[name]}) — no code path "
+            "registers it; remove or fix the row")
+    return problems, len(reg), len(rows)
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(
+        prog="python -m bluefog_tpu_torch.tools.metrics_lint",
+        description="check code-registered bf_* metrics against the "
+                    "docs/observability.md inventory, both directions")
+    p.add_argument("--root", default=None,
+                   help="repo root (default: two levels above this file)")
+    p.add_argument("--package", default="bluefog_tpu_torch",
+                   help="the package under the root to audit (default "
+                        "bluefog_tpu_torch; bluefog_tpu is the JAX lint)")
+    args = p.parse_args(argv)
+    root = args.root or os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    problems, n_reg, n_rows = run_lint(root, args.package)
+    for msg in problems:
+        print(f"metrics-lint: {msg}", file=sys.stderr)
+    if problems:
+        print(f"metrics-lint: FAILED ({len(problems)} problem(s); "
+              f"{n_reg} registered, {n_rows} inventory rows)",
+              file=sys.stderr)
+        return 1
+    print(f"metrics-lint: OK — {n_reg} registered metric(s) documented, "
+          f"{n_rows} inventory row(s) live")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -61,6 +61,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    4 virtual ranks on the card, ATC over the dynamic one-peer topology,
    1 warmup + 3 timed steps.  Launch counts of K1-K3 must equal
    layers x ranks x steps.
+6a. ``train_host_data`` — ``--host-data`` on the same trainer: each batch
+   from host memory through ``data.prefetch_to_device`` (depth 2: a
+   pinned copy and an async transfer a batch), 1 warmup + 2 timed steps;
+   finite losses, K1-K3 launches layers x ranks x steps; the step ms
+   beside the device-resident feed's.
 6b. ``native_build``, ``observe_train`` — the native library (the window
    transport's service and the timeline writer) built with g++
    (``bluefog_tpu_torch/native``); then ``train``'s LM, 1 warmup + 2 timed
@@ -79,7 +84,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    with telemetry on and off (``torch.cuda.set_sync_debug_mode``, equal),
    and an eager ``neighbor_allreduce`` on (4, 2^24) float32 with telemetry
    on and off, in turns, three readings each (``cuda_ms`` and host
-   microseconds a call), beside its byte bound.
+   microseconds a call), beside its byte bound.  The host tools over the
+   timeline: ``tools.trace_merge`` (one lane, strict JSON) and
+   ``tools.trace_summary`` of the merged file (ENQUEUE and COMMUNICATE
+   rows).
 7. ``resnet50`` — the benchmark with ``--model resnet50`` at 224x224, batch
    64 per rank, 4 ranks, ATC over the dynamic topology, momentum 0.9,
    2 warmup + 3 timed steps: img/s, step ms, peak memory, the spread.
@@ -150,14 +158,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 18. ``ulysses_reference`` — the same for Ulysses all-to-all attention (one
    launch of each kernel a layer, on the gathered sequence).
 19. ``ring_train`` — the slice's main path: ``long_context_training.
-   SequenceParallelLM`` at the 1.3B LM's widths (``RING_LAYERS`` = 12
-   layers, cut from 24 for the smoke's time, width 2048, 16 heads of 128,
+   SequenceParallelLM`` at the 1.3B LM's widths (``RING_LAYERS`` = 6
+   layers, cut from 24 and then 12 for the smoke's time, width 2048, 16 heads of 128,
    vocab 32000, RoPE; 24 layers are 1,339,131,904 parameters), bf16 over
    float32 parameters, full remat, the chunked loss, Adam, one sequence of
    16,384 tokens over 4 rank-major ring shards of 4,096, ``RING_STEPS`` =
    3 steps (cut from 5 for the smoke's time): step ms
    (the first step left out), tokens/s, peak memory, launches (K1 2 x 4
-   hops x 12 layers a step, K2 and K3 4 x 12) and a ``profile_step``
+   hops x 6 layers a step, K2 and K3 4 x 6) and a ``profile_step``
    profile of one more step (device idle share, K1-K3's device time).
 20. ``ulysses_train`` — the same LM at 4 layers through Ulysses, with a
    ``profile_step`` profile of one more step: the copies of its two moves
@@ -186,21 +194,22 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 25. ``tp_train`` — ``__graft_entry__.dryrun_multichip``'s tensor-parallel
    step at dp 2 x tp 2 on 4 virtual ranks: ``tensor_parallel_training.
    DataTensorParallelLM`` at the 1.3B LM's widths with SwiGLU
-   (``TP_LAYERS`` = 12 layers, cut from 24 for the smoke's time,
-   940,623,872 parameters a dp replica, no remat), batch 2 x 2048 a dp
+   (``TP_LAYERS`` = 8 layers, cut from 24 and then 12 for the smoke's
+   time, 672,172,032 parameters a dp replica, no remat), batch 2 x 2048 a dp
    rank, ATC SGD (lr 0.025) over the one-peer Exp2 walk, 4 steps: step ms
    (the first left out), tokens/s, peak memory under 80 GB, the spread
-   exactly 0.0 after every combine, launches 12 layers x 2 dp ranks of
+   exactly 0.0 after every combine, launches 8 layers x 2 dp ranks of
    each kernel a step; a ``profile_step`` profile of one more step (idle
    share, K1-K3, the tp sums ``tp::row_sum``).
 26. ``pp_train`` — 1F1B (``parallel.pipeline.pipeline_train_step``) of the
-   same model's blocks, ``PP_LAYERS`` = 12 (cut from 24 for the smoke's
-   time) in 4 rank-major stages of 3, 8 microbatches of one 2048-token
-   sequence, MSE against a synthetic target, 3 SGD steps: the first step's
-   loss and gradients against autograd through the 12 blocks in sequence
+   same model's blocks, ``PP_LAYERS`` = 8 (cut from 24 and then 12 for
+   the smoke's time) in 4 rank-major stages of 2, 8 microbatches of one
+   2048-token sequence, MSE against a synthetic target, 3 SGD steps: the
+   first step's loss and gradients against autograd through the 8 blocks
+   in sequence
    (``REF_LOGITS_TOL``, ``REF_GRAD_TOL``), step ms, tokens/s, the 22
-   ticks, peak memory under 80 GB, launches K1 2 x 12 x 8 and K2, K3
-   12 x 8 a step; ``profile_step.trace`` of one more step.
+   ticks, peak memory under 80 GB, launches K1 2 x 8 x 8 and K2, K3
+   8 x 8 a step; ``profile_step.trace`` of one more step.
 27. ``pp_variants`` — GPipe (autograd through ``pipeline_apply``),
    interleaved 1F1B (v = 2) and ZB-H1 at 8 blocks (the depth cut for the
    smoke's time), each warmed once, then one timed step against plain
@@ -218,6 +227,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    push-sum (its window store in the checkpoint): uninterrupted, then
    preempted at step 25 (exit 75) and run again: it resumes and ends bit
    for bit where the uninterrupted run did.
+30b. ``examples_22a`` — the entry points of ROADMAP item 22a on the card,
+   in this process, at their own widths with few steps:
+   ``average_consensus`` (static ring, 8 ranks), ``decentralized_
+   optimization`` (every method, 300 iterations), ``resource_allocation``
+   (EXTRA, 500 iterations), ``moe_training`` (60 steps), ``resnet_
+   training`` (its ResNet-18 at 32x32, batch 32 on 8 ranks, 2 epochs of
+   4 steps where it runs 3 of 16; cuDNN's autotuning off, as the example
+   leaves it) and ``mnist_lenet`` (its defaults); each error or loss must
+   fall.
 31. ``hier_train`` — the benchmark with ``--dist-optimizer hierarchical
    --atc --dynamic``: the 1.3B LM at full width and depth, 4 ranks in 2
    machines of 2 (the machine topology's one-peer walk), 1 warmup + 2
@@ -279,7 +297,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    recorder armed in both processes with every data message traced: two
    accumulates sent back to back to a remote rank (the receiver's drain
    folds them), a fence, the ring dumped; ``utils.flightrec.load`` reads
-   each process's dump back with events of all seven ``BF_REC_*`` types.
+   each process's dump back with events of all seven ``BF_REC_*`` types,
+   and the host tool ``tools/tracegossip.py`` merges the two dumps (one
+   lane a process, the per-edge delay table).  The four 2 x 2 phases run
+   from one launch through the port's ``bfrun`` (``python -m
+   bluefog_tpu_torch.run -np 2 --devices-per-proc 2 --tag-output``), as
+   does the CPU run of ``win_async_ops``; bfrun's per-rank exit summary
+   and the launch's clock (to the workers' start, their rendezvous,
+   from their shutdown to bfrun's exit) are on the ``dist_workers``
+   line.
 36. ``resnet50_win_put`` — the ResNet-50 phase under ``--dist-optimizer
    win_put`` (batch 64, 4 ranks, 1 warmup + 2 timed steps), with the
    window combine's time beside its bound.
@@ -380,10 +406,18 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    control, the window transport for the rows), the 1.3B LM at full width
    and ``WIN_DIST_LAYERS`` = 2 blocks in the owned layout,
    ``DistributedWinPutOptimizer(fused=True)`` on ``ExponentialGraph(4)``,
-   ``CHURN_STEPS`` = 6 steps under ``CHURN_KNOBS`` (the JAX package's
-   ``tools/chaos.py`` demo: 80 ms heartbeats, 500 ms suspicion, one retry
-   of 25 ms, ``kill:rank=3:step=2``; 2 stripes, so that a heartbeat copy
-   never waits behind a 0.94 GB row).  Rank 3 SIGKILLs itself at the top
+   ``CHURN_STEPS`` = 12 steps under ``CHURN_KNOBS`` (the JAX package's
+   ``tools/chaos.py`` demo: 80 ms heartbeats, one retry of 25 ms,
+   ``kill:rank=3:step=2``, but 2,000 ms of suspicion where the demo has
+   500: at 500 a live process was voted out in 7 of 14 runs of this
+   phase before each heartbeat copy had its own sender thread, and gaps
+   of up to ~1.5 s remain; 2 stripes, each heartbeat copy sent from its
+   own thread, so
+   that none waits behind a 0.94 GB row).  Before the checks, a
+   ``churn_liveness`` line: each survivor's longest heartbeat gaps from
+   each peer, its heartbeat thread's ticks, probes and proposals, the
+   drain's slow calls and the longest stalls of its threads with where
+   each thread stood.  Rank 3 SIGKILLs itself at the top
    of step 2 and must die of it; the survivors, without a leader or a
    collective, each commit epoch 1 with ranks (0, 1, 2), none evicted,
    observe ``bf_churn_recovery_seconds`` once, rebuild their window from
@@ -392,20 +426,29 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    isolated, build and capture the fused program anew at the new epoch
    with statuses 0, keep finite losses, and at the last step the rms
    spread across them (over ``CHURN_SAMPLE`` sampled columns) is smaller
-   after the combine than after the adapt; K1-K3 launch 2 x 6 times in
+   after the combine than after the adapt; K1-K3 launch 2 x 12 times in
    each survivor (the processes drift apart: the survivors commit at their
-   step 2 or 3, so 6 steps leave one to capture the new program in).  Prints the detection time (rank 3's clock at the kill
+   step 2 to 4).  The rebuilt staging is zero, as the JAX supervisor
+   leaves it: a survivor's first combine after its rebuild takes a zero
+   slot (the peer's first put of the new epoch lands a step later) and
+   pulls its row toward zero (the spread 3.3e-3 against 5e-6 before);
+   the lagged averaging then shrinks it by 3 a step, or, in turns, back
+   to the floor and to a pull 9 times smaller two steps on.  12 steps (6
+   while PR 15 seeded the staging with the rank's own row) take that
+   pull below the floor at the last step whatever its parity; the spread
+   of each step from the first commit on is reported.  Prints the detection time (rank 3's clock at the kill
    to each survivor's commit), the recovery seconds, the step ms before
    and after the commit and each survivor's peak memory.  The workers
    report through their JSON files only: after the kill nothing calls a
    collective.
 44b. ``elastic_train`` — ``utils.elastic.run_elastic`` in this process: the
-   LM at 2 blocks on 4 virtual ranks, static neighbor_allreduce, 6 steps
-   in a temporary directory the phase removes: the 6 steps uninterrupted
+   LM at 2 blocks on 4 virtual ranks, static neighbor_allreduce, 4 steps
+   in a temporary directory the phase removes: the 4 steps uninterrupted
    (the reference, no checkpoint), then under ``run_elastic`` a checkpoint
    (DCP, ``utils/checkpoint.py``) every 2
    steps, 2 kept, SIGTERM after step 3 (``Preempted`` after its save) and
-   the restart, which resumes from step 3 (steps 2, 3 then 4, 6 on disk):
+   the restart, which resumes from step 3 (steps 2, 3 then 3, 4 on disk;
+   6 steps until cut for the smoke's time):
    the final parameters bit for bit the uninterrupted run's (else the
    largest difference is reported and the phase fails).  Prints each
    save's pinned host copy and DCP write of the 3.78 GB of rows in GB/s,
@@ -413,7 +456,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    the checkpoint runs in ``elastic_example``: at these widths its store
    (main and staging, ~11 GB a save) would take the machine's disk past
    its 45 GiB of writes a call.
-45. ``{"kernels": [...]}`` (launches from the ``train``, ``llama_train``,
+45. ``{"kernels": [...]}`` (launches from the ``train``,
+   ``train_host_data``, ``llama_train``,
    ``moe_train``, ``ring_train``, ``ulysses_train``, ``dp_sp_train``,
    ``tp_train``, ``pp_train``, ``pp_variants``, ``hier_train``,
    ``winput_train``, ``fused_train``, ``win_variants``, ``win_dist_train``,
@@ -429,6 +473,8 @@ last).
 Exits non-zero, printing no result, without a GPU or outside the repository.
 """
 
+import contextlib
+import io
 import json
 import math
 import os
@@ -436,6 +482,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16
@@ -462,16 +509,16 @@ SWITCH_F32_TOL = 1e-5        # SwitchMlp f32, card vs CPU: relative
 VIT_LAYERS = 12
 SEQ_TOKENS = 16384           # the long-context LM: one sequence of 16,384
 SEQ_SHARDS = 4               # tokens over 4 rank-major shards of 4,096
-RING_LAYERS = 12             # ring_train: 12 layers and 3 Adam steps
-RING_STEPS = 3               # (24 and 5 until cut for the smoke's time)
+RING_LAYERS = 6              # ring_train: 6 layers and 3 Adam steps
+RING_STEPS = 3               # (24 and 5, then 12 layers: cut for time)
 ULYSSES_LAYERS = 4           # ulysses_train and dp_sp_train at a reduced
 DP_SP_LAYERS = 4             # depth, to keep the smoke within its time
 TP_DP, TP_WAYS = 2, 2        # tp_train: dp 2 x tp 2, 4 virtual ranks
-TP_LAYERS = 12               # tp_train's depth (24 until cut for time)
-TP_PARAMS = 940623872        # a dp replica: MHA, SwiGLU, learned positions
-PP_STAGES, PP_MICROBATCHES = 4, 8   # pp_train: 12 blocks in 4 stages of 3,
-PP_LAYERS = 12                      # 8 microbatches of one 2048 sequence
-PP_BLOCK_PARAMS = 805355520         # (24 blocks until cut for time)
+TP_LAYERS = 8                # tp_train's depth (24, then 12: cut for time)
+TP_PARAMS = 672172032        # a dp replica: MHA, SwiGLU, learned positions
+PP_STAGES, PP_MICROBATCHES = 4, 8   # pp_train: 8 blocks in 4 stages of 2,
+PP_LAYERS = 8                       # 8 microbatches of one 2048 sequence
+PP_BLOCK_PARAMS = 536903680         # (24, then 12 blocks: cut for time)
 PP_VARIANT_LAYERS = 8        # pp_variants: depth cut to keep the smoke's time
 COMPOSED_TOL = (2e-4, 2e-5)  # dp x tp x pp (x ep) vs dense, f32: rtol, atol
 SEED = 0                     # inputs and weights are drawn from it
@@ -536,28 +583,33 @@ WIN_SHARD_TREE = {"experts": (2, 6291456), "head": (7, 16),
 # observe_train: item 21 armed on the train phase's LM (1 warmup step and
 # 2 timed); the eager neighbor_allreduce timed with telemetry on and off.
 OBSERVE_ITERS = 2
+HOST_DATA_ITERS = 2          # train_host_data: timed steps (+1 warmup)
 OBSERVE_KNOBS = {"BLUEFOG_TPU_PROFILE": "1", "BLUEFOG_TPU_PROFILE_EVERY": "1",
                  "BLUEFOG_TPU_TELEMETRY_CONSENSUS_EVERY": "2",
                  "BLUEFOG_TPU_TELEMETRY_PORT": "0"}
 OBSERVE_NAR_SHAPE = (4, 1 << 24)
 CHURN_PROCS = 4              # churn_train: 4 processes of one rank on
-CHURN_STEPS = 6              # card 0, win_put steps; rank 3 killed at
+CHURN_STEPS = 12             # card 0, win_put steps; rank 3 killed at
 CHURN_KILL_STEP = 2          # step 2 (rank 0 hosts the rendezvous)
 CHURN_SAMPLE = 4096          # columns sampled for the spread across them
-# tools/chaos.py run_demo's knobs (heartbeat, suspicion, retries), and 2
-# stripes: the row of a (window, rank) rides one, and every heartbeat is
-# sent on each, so a copy never queues behind a row of ~0.94 GB.
+# tools/chaos.py run_demo's knobs (heartbeat, retries) but 2 s of suspicion
+# where the demo has 500 ms: at 500 a live process was voted out in 7 of
+# 14 runs here before each heartbeat copy had its own sender thread, and
+# gaps of up to ~1.5 s between heartbeats remain after (4 processes put
+# 0.94 GB rows over one loopback; PERF.md section 7), and 2 stripes: the
+# row of a (window, rank) rides one, and every heartbeat is sent on each.
 CHURN_KNOBS = {"BLUEFOG_TPU_CHURN": "1",
                "BLUEFOG_TPU_CHURN_HEARTBEAT_MS": "80",
-               "BLUEFOG_TPU_CHURN_SUSPECT_MS": "500",
+               "BLUEFOG_TPU_CHURN_SUSPECT_MS": "2000",
                "BLUEFOG_TPU_WIN_RETRIES": "1",
                "BLUEFOG_TPU_WIN_RETRY_BACKOFF_MS": "25",
                "BLUEFOG_TPU_WIN_STRIPES": "2",
                "BLUEFOG_TPU_CHAOS": f"kill:rank=3:step={CHURN_KILL_STEP}"}
-ELASTIC_STEPS = 6            # elastic_train: the LM at WIN_DIST_LAYERS
+ELASTIC_STEPS = 4            # elastic_train: the LM at WIN_DIST_LAYERS
 ELASTIC_SAVE_EVERY = 2       # under run_elastic, SIGTERM after step 3;
-ELASTIC_PREEMPT = 3          # 5 saves of 3.78 GB (the machine's disk takes
-                             # 45 GiB of writes a call)
+ELASTIC_PREEMPT = 3          # saves of 3.78 GB at steps 2, 3 and 4 (the
+                             # machine's disk takes 45 GiB of writes a
+                             # call; 6 steps until cut for the smoke's time)
 LM_WIDTHS = {"width": 2048, "heads": 16, "seq": 2048, "vocab": 32000}
 DEVICE = "cuda"              # the new phases' device ("cpu" to rehearse)
 KERNELS = {
@@ -2162,8 +2214,8 @@ def pp_mse(y, t):
 def pp_train_phase(layers=PP_LAYERS, stages=PP_STAGES, M=PP_MICROBATCHES,
                    steps=3, lr=0.01):
     """``pp_train``: 1F1B (``parallel.pipeline.pipeline_train_step``) of
-    ``PP_LAYERS`` = 12 blocks of the tp_train model over 4 rank-major
-    stages of 3, ``M`` = 8 microbatches of one 2048-token sequence, the
+    ``PP_LAYERS`` = 8 blocks of the tp_train model over 4 rank-major
+    stages of 2, ``M`` = 8 microbatches of one 2048-token sequence, the
     mean squared error of the last stage's output against a synthetic
     target, 3 SGD steps.  The first step's loss and gradients against
     autograd through the same blocks
@@ -2504,6 +2556,37 @@ def sync_warnings(tr, telemetry_on):
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
+def host_data_phase(benchmark, tr, train_res):
+    """``benchmark --host-data`` on the ``train`` phase's trainer (the
+    1.3B LM, 4 ranks, K1-K3): its batches from host memory through
+    ``data.prefetch_to_device`` (depth 2: a pinned copy and an async
+    transfer a batch), one warmup step and ``HOST_DATA_ITERS`` timed; the
+    step ms beside the device-resident feed's.  Returns the launches."""
+    from bluefog_tpu_torch.ops import flash_attention as FA
+    args = benchmark.build_parser().parse_args(
+        train_argv(HOST_DATA_ITERS) + ["--host-data"])
+    FA.reset_launch_counts()
+    res = benchmark.measure(args, tr)
+    launches = flash_launches()
+    steps = args.num_warmup_batches + HOST_DATA_ITERS
+    expected = LAYERS * args.ranks * steps
+    require(res["host_data"] and res["steps"] == train_res["steps"] + steps,
+            f"host-data steps {res['steps']}")
+    require(all(math.isfinite(x) for row in res["losses_by_step"]
+                for x in row), f"host-data losses {res['losses_by_step']}")
+    require(all(c == expected for c in launches.values()),
+            f"host-data launches {launches}, expected {expected} of each")
+    emit("train_host_data", config={"num_layers": LAYERS, **LM_WIDTHS,
+                                    "batch_size": 2, "ranks": args.ranks,
+                                    "feed": "prefetch_to_device(size=2)"},
+         step_ms=res["step_ms"], device_feed_step_ms=train_res["step_ms"],
+         tokens_per_s=res["tokens_per_s"],
+         device_feed_tokens_per_s=train_res["tokens_per_s"],
+         rates=res["rates"], losses_by_step=res["losses_by_step"],
+         launches=launches, expected_launches=expected)
+    return launches
+
+
 def observe_train_phase(benchmark, train_res):
     """``observe_train``: the ``train`` phase's LM through
     ``benchmark.measure`` with all of item 21 armed: a timeline
@@ -2573,6 +2656,23 @@ def observe_train_phase(benchmark, train_res):
             anchor = json.load(f)
         require({"monotonic_us", "unix_us", "rank"} <= set(anchor),
                 f"clock anchor {anchor}")
+        # The host tools over it: python -m bluefog_tpu_torch.tools
+        # trace-merge <prefix>, then trace-summary of the merged file.
+        from bluefog_tpu_torch import tools
+        t_tools = time.perf_counter()
+        merged_path = tools.trace_merge(prefix,
+                                        os.path.join(tmp, "merged.json"))
+        with open(merged_path) as f:
+            merged = json.load(f)
+        summary = tools.trace_summary(merged_path)
+        lanes = sorted({e.get("pid") for e in merged if "ts" in e
+                        and e.get("ph") in ("B", "E")})
+        require(lanes == [0] and "COMMUNICATE" in summary
+                and "ENQUEUE" in summary,
+                f"trace-merge lanes {lanes}, trace-summary:\n{summary}")
+        trace_tools = {"seconds": time.perf_counter() - t_tools,
+                       "merged_events": len(merged), "lanes": lanes,
+                       "summary": summary.splitlines()}
         # The counters: the schedule's rounds x steps.
         rounds = C.schedule_wire_stats(basics.dynamic_schedule())[0]
         calls = snap.get(f'bf_comm_calls_total{{op="{op}"}}')
@@ -2674,7 +2774,7 @@ def observe_train_phase(benchmark, train_res):
         comm={"calls": calls, "rounds": got_rounds},
         step_phase_samples=phases, metrics_lines=len(lines),
         timeline_events=len(events), timeline_pairs=pairs,
-        consensus_distance={"sampled": sampled, "after_adapt": after_adapt,
+        trace_tools=trace_tools, consensus_distance={"sampled": sampled, "after_adapt": after_adapt,
                             "after_combine": after_combine},
         profiled_step={k: prof[k] for k in (
             "profiled_step_wall_ms", "kernel_busy_ms", "device_idle_share")},
@@ -3184,63 +3284,122 @@ def row_hashes(t):
 def launch_workers(phase, args=(), device=None, procs=WIN_DIST_PROCS,
                    per=WIN_DIST_PER, env=None, killed=()):
     """Run ``chip_smoke.py --worker <phase>`` in ``procs`` processes of
-    ``per`` ranks (bfrun's ``BFTPU_*`` rendezvous on this host, card 0 for
-    each) on ``device`` (default ``DEVICE``), with ``env`` added; their
-    results, in process order.  Every process must exit with 0 but those
-    of ``killed``, which must die of SIGKILL (and leave no result: None in
-    their place).  Every process is stopped before this returns, also on
-    a failure."""
+    ``per`` ranks (the ``BFTPU_*`` rendezvous on this host, card 0 for
+    each) on ``device`` (default ``DEVICE``), with ``env`` added.  The
+    port's ``bfrun`` launches them (``python -m bluefog_tpu_torch.run -np
+    procs --devices-per-proc per --tag-output``) unless ``killed`` names
+    processes that must die of SIGKILL: bfrun would stop the gang at that
+    death, so those are started by hand.  Returns their results in
+    process order (None for a killed one, which must leave none), the
+    per-rank exit summary (bfrun's own line; the same words for a launch
+    by hand) and the launch's clock: seconds from the launch to the
+    first worker's start, from the last start to the last worker's
+    rendezvous, and from the last worker's shutdown to the launch's end.
+    Every process must exit with 0 but those of ``killed``.  Every
+    process is stopped before this returns, also on a failure."""
     import signal
     import socket
     import tempfile
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+
+    from bluefog_tpu_torch.run import run as bfrun
     tmp = tempfile.mkdtemp(prefix="win_dist_")
     here = os.path.dirname(os.path.abspath(__file__))
-    children, outs = [], []
+    worker = [sys.executable, os.path.abspath(__file__), "--worker", phase]
+    base = _launcher_free_env()
+    base.update(BFTPU_WIN_HOST="127.0.0.1", **(env or {}))
+    outs = [os.path.join(tmp, f"proc{p}.json") for p in range(procs)]
+    children = []
+    t0 = time.time()
     try:
-        for p in range(procs):
-            out = os.path.join(tmp, f"proc{p}.json")
-            outs.append(out)
-            child_env = {k: v for k, v in os.environ.items()
-                         if not k.startswith(("BFTPU_", "BLUEFOG_TPU_WIN",
-                                              "MASTER_", "WORLD_SIZE",
-                                              "RANK", "LOCAL_RANK"))}
-            child_env.update(BFTPU_COORDINATOR=f"127.0.0.1:{port}",
-                             BFTPU_NUM_PROCESSES=str(procs),
-                             BFTPU_PROCESS_ID=str(p), BFTPU_LOCAL_ID="0",
-                             BFTPU_LOCAL_DEVICES=str(per),
-                             BFTPU_WIN_HOST="127.0.0.1", **(env or {}))
+        if not killed:
+            cmd = [sys.executable, "-m", "bluefog_tpu_torch.run",
+                   "-np", str(procs), "--devices-per-proc", str(per),
+                   "--tag-output", *worker,
+                   os.path.join(tmp, "proc{proc}.json"), device or DEVICE,
+                   *args]
+            # bfrun and the workers it starts share its process group.
             children.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--worker",
-                 phase, out, device or DEVICE, *args], cwd=here,
-                env=child_env, stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True))
-        deadline = time.monotonic() + WIN_DIST_TIMEOUT
-        logs = [c.communicate(timeout=max(1.0, deadline - time.monotonic()))
-                [0] for c in children]
-        for p, c in enumerate(children):
-            want = -signal.SIGKILL if p in killed else 0
-            require(c.returncode == want,
-                    f"{phase} process {p} exited {c.returncode}, expected "
-                    f"{want}:\n{logs[p][-3000:]}")
-        res = []
-        for p, out in enumerate(outs):
-            if p in killed:
-                require(not os.path.exists(out),
-                        f"{phase}: killed process {p} left a result")
-                res.append(None)
-                continue
-            with open(out) as f:
-                res.append(json.load(f))
-        return res
+                cmd, cwd=here, env=base, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True,
+                start_new_session=True))
+            log = children[0].communicate(timeout=WIN_DIST_TIMEOUT)[0]
+            lines = [ln for ln in log.splitlines()
+                     if ln.startswith("bfrun: gang exit summary")]
+            require(children[0].returncode == 0 and len(lines) == 1,
+                    f"{phase}: bfrun exited {children[0].returncode}:\n"
+                    f"{log[-6000:]}")
+            summary = lines[0]
+        else:
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            for p in range(procs):
+                child_env = dict(base, BFTPU_COORDINATOR=f"127.0.0.1:{port}",
+                                 BFTPU_NUM_PROCESSES=str(procs),
+                                 BFTPU_PROCESS_ID=str(p),
+                                 BFTPU_LOCAL_DEVICES=str(per))
+                children.append(subprocess.Popen(
+                    [*worker, outs[p], device or DEVICE, *args], cwd=here,
+                    env=child_env, stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True))
+            deadline = time.monotonic() + WIN_DIST_TIMEOUT
+            logs = [c.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))[0]
+                for c in children]
+            for p, c in enumerate(children):
+                want = -signal.SIGKILL if p in killed else 0
+                require(c.returncode == want,
+                        f"{phase} process {p} exited {c.returncode}, "
+                        f"expected {want}:\n{logs[p][-3000:]}")
+            summary = bfrun._exit_summary([(c, "127.0.0.1", False)
+                                           for c in children])
+        t_end = time.time()
+        want = "; ".join(f"rank {p}: " + ("killed by SIGKILL" if p in killed
+                                          else "exit 0")
+                         for p in range(procs))
+        require(summary.endswith(want), f"{phase}: exit summary {summary}")
+        res = _worker_results(phase, outs, killed)
+        clocks = [r.pop("clock") for r in res if r is not None]
+        clock = {"launch_to_first_start_s":
+                 min(c["start"] for c in clocks) - t0,
+                 "last_start_to_last_init_s":
+                 max(c["init"] for c in clocks)
+                 - max(c["start"] for c in clocks),
+                 "last_shutdown_to_end_s":
+                 t_end - max(c["done"] for c in clocks)}
+        return res, summary, clock
     finally:
         for c in children:
             if c.poll() is None:
-                c.kill()
+                if killed:
+                    c.kill()
+                else:
+                    os.killpg(c.pid, signal.SIGKILL)
                 c.wait()
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _launcher_free_env():
+    """This process's environment less any launcher's rendezvous and the
+    window transport's knobs, for the workers."""
+    return {k: v for k, v in os.environ.items()
+            if not k.startswith(("BFTPU_", "BLUEFOG_TPU_WIN", "MASTER_",
+                                 "WORLD_SIZE", "RANK", "LOCAL_RANK"))}
+
+
+def _worker_results(phase, outs, killed=()):
+    """Each process's result file, in process order (None for a killed
+    one, which must have left none)."""
+    res = []
+    for p, out in enumerate(outs):
+        if p in killed:
+            require(not os.path.exists(out),
+                    f"{phase}: killed process {p} left a result")
+            res.append(None)
+            continue
+        with open(out) as f:
+            res.append(json.load(f))
+    return res
 
 
 def stats_since(W, before):
@@ -3291,7 +3450,7 @@ def ops_worker(bf, ref_path):
             "within": bool(torch.allclose(got, want, rtol=WIN_DIST_BF16_TOL,
                                           atol=WIN_DIST_BF16_TOL))}
     bf.win_free("w")
-    res["flightrec"] = flightrec_worker(bf, f"{ref_path}.fr{own[0]}.bin")
+    res["flightrec"] = flightrec_worker(bf, f"{ref_path}.fr.{own[0]}.bin")
     return res
 
 
@@ -3424,14 +3583,16 @@ def dist_phases(card_ops):
             cpu_run = pool.submit(launch_workers, "async_ops", (), "cpu",
                                   env={"OMP_NUM_THREADS": "2"})
             t0 = time.perf_counter()
-            parts = launch_workers("dist", [ref_path])
+            parts, summary, clock = launch_workers("dist", [ref_path])
             wall = time.perf_counter() - t0
-            cpu = cpu_run.result()
+            cpu, _, _ = cpu_run.result()
     finally:
         os.remove(ref_path)
     # The launch's seconds go to this line's wall, not to the first phase's.
     emit("dist_workers", processes=WIN_DIST_PROCS,
          ranks_per_process=WIN_DIST_PER, seconds=wall,
+         launcher="python -m bluefog_tpu_torch.run (bfrun)",
+         exit_summary=summary, launch_clock=clock,
          phases=["win_dist_ops", "win_dist_train", "win_async_ops",
                  "win_async_train"])
     secs = parts[0]["seconds"]
@@ -3476,6 +3637,27 @@ def win_dist_ops_phase(card, parts):
                     f"{header}, event types {kinds}")
             recorded[str(part["owned"][0])] = {
                 "events": len(events), "by_type": part["flightrec"]["counts"]}
+        # The host tool over the dumps: python -m bluefog_tpu_torch.tools
+        # trace-gossip <prefix> (one lane a process, a flow arrow a traced
+        # message seen at both ends, the per-edge delays).
+        from bluefog_tpu_torch.tools import tracegossip as TG
+        t0 = time.perf_counter()
+        prefix = parts[0]["flightrec"]["path"].rsplit(".", 2)[0]
+        merged_path = prefix + ".merged.json"
+        dumps = TG.load_dumps(prefix)
+        _, stats = TG.merge_gossip(prefix, merged_path, dumps=dumps)
+        with open(merged_path) as f:
+            merged = json.load(f)
+        os.remove(merged_path)
+        table = TG.delay_table(TG.edge_delays(dumps))
+        require(stats["ranks"] == [p["owned"][0] for p in parts]
+                and stats["events"] == sum(r["events"]
+                                           for r in recorded.values())
+                and any(e.get("ph") == "X" for e in merged),
+                f"trace-gossip over the dumps: {stats}")
+        recorded["trace_gossip"] = {
+            "seconds": time.perf_counter() - t0, **stats,
+            "merged_events": len(merged), "delay_table": table.splitlines()}
     finally:
         for part in parts:
             dump = part.get("flightrec", {}).get("path")
@@ -4168,6 +4350,7 @@ def churn_worker(bf, out_dir):
     sup = S.maybe_supervisor()
     rec = {"losses": [], "step_ms": [], "adapt": [], "combined": [],
            "captures": [], "builds": [], "commit_step": None}
+    live = rec["liveness"] = _watch_liveness(sup)
     prev = {}
 
     def on_change(view):
@@ -4192,7 +4375,7 @@ def churn_worker(bf, out_dir):
     for t in range(CHURN_STEPS):
         if me == 3:
             with open(clock, "a") as f:
-                f.write(f"{t} {time.time()!r}\n")
+                f.write(f"{t} {time.time()!r} {time.monotonic()!r}\n")
         sync()
         t0 = time.perf_counter()
         rec["losses"].append([float(v) for v in tr.forward_backward()])
@@ -4205,8 +4388,17 @@ def churn_worker(bf, out_dir):
         # find it (the other processes may be steps ahead or behind).
         win = W._store.get(name)
         prev = {r: win.main[r].clone() for r in win.owned}
-        opt.step()
+        t_step = time.monotonic()
+        try:
+            opt.step()
+        except RuntimeError:
+            # Voted out: stop and report (the phase's checks fail on it).
+            if not opt.evicted:
+                raise
+            rec["evicted_at_step"] = t
+            break
         sync()
+        live["steps"].append([t_step, time.monotonic()])
         rec["step_ms"].append(1e3 * (time.perf_counter() - t0))
         if opt.membership_change is not seen:
             rec["commit_step"] = t
@@ -4232,8 +4424,12 @@ def churn_worker(bf, out_dir):
     snap = telemetry.snapshot()
     if os.path.exists(clock):
         with open(clock) as f:
-            rec["kill_clock"] = {int(t): float(u) for t, u in
-                                 (ln.split() for ln in f if ln.strip())}
+            stamps = [ln.split() for ln in f if ln.strip()]
+        rec["kill_clock"] = {int(t): float(u) for t, u, _ in stamps}
+        rec["kill_mono"] = {int(t): float(m) for t, _, m in stamps}
+    live["commit_mono"] = (None if sup.ctrl.last_change_unix is None else
+                           sup.ctrl.last_change_unix - time.time()
+                           + time.monotonic())
     rec.update(
         launches=flash_launches(), epoch=view.epoch if view else 0,
         active=list(view.active_ranks) if view else None,
@@ -4249,6 +4445,155 @@ def churn_worker(bf, out_dir):
     return rec
 
 
+def _watch_liveness(sup):
+    """Record, on the host's monotonic clock (one clock for every process
+    of the gang on this machine), each membership message's arrival from
+    each peer (the drain thread's ``on_message``), each tick of this
+    process's heartbeat thread (the round of sends and probes), each
+    reachability probe, and each call of the drain thread that took
+    over 50 ms; the lists live in the returned dict."""
+    live = {"arrivals": {}, "ticks": [], "probes": [], "drain": [],
+            "steps": [], "proposals": [], "own_proposals": []}
+    ctrl = sup.ctrl
+    on_message, tick, probe = ctrl.on_message, ctrl.tick, ctrl.probe_fn
+    tr = sup._d.transport
+
+    def timed_on_message(msg):
+        t = time.monotonic()
+        live["arrivals"].setdefault(str(msg.get("proc", -1)), []).append(t)
+        if msg.get("prop") is not None:
+            live["proposals"].append([t, msg.get("proc"), msg.get("epoch"),
+                                      sorted(msg["prop"])])
+        on_message(msg)
+
+    def tick_and_note():
+        tick()
+        # This process's proposal when it changes, with each peer's
+        # silence then (seconds since its last message).
+        own = ctrl.proposals.get(ctrl.my_proc)
+        own = None if own is None else [own[0], sorted(own[1])]
+        if not live["own_proposals"] or live["own_proposals"][-1][1] != own:
+            now = time.monotonic()
+            live["own_proposals"].append(
+                [now, own, {str(p): ctrl.now_fn() - s
+                            for p, s in ctrl.last_seen.items()}])
+
+    def timed(fn, into):
+        def call(*a):
+            t0 = time.monotonic()
+            try:
+                return fn(*a)
+            finally:
+                into.append([t0, time.monotonic() - t0])
+        return call
+
+    def noted_probe(p):
+        t0 = time.monotonic()
+        ok = bool(probe(p))
+        live["probes"].append([t0, p, ok, time.monotonic() - t0])
+        return ok
+
+    def slow_drain(fn, kind):
+        def call(*a):
+            t0 = time.monotonic()
+            try:
+                return fn(*a)
+            finally:
+                dt = time.monotonic() - t0
+                if dt > 0.05:
+                    live["drain"].append([t0, dt, kind])
+        return call
+
+    def watch_stalls():
+        # A thread that sleeps 20 ms at a time: a wake-up over 250 ms late
+        # means this process's threads were held off (the GIL, or no
+        # core).  Where each thread stood just before (its three innermost
+        # frames): the one that ran next held them off.
+        me = threading.get_ident()
+        while True:
+            names = {t.ident: t.name for t in threading.enumerate()}
+            where = {names.get(ident, str(ident)): [
+                f"{os.path.basename(f.f_code.co_filename)}:{f.f_lineno} "
+                f"{f.f_code.co_name}" for f in _innermost(frame, 3)]
+                for ident, frame in sys._current_frames().items()
+                if ident != me}
+            t0 = time.monotonic()
+            time.sleep(0.02)
+            late = time.monotonic() - t0
+            if late > 0.25:
+                live["stalls"].append([t0, late, where])
+
+    live["stalls"] = []
+    threading.Thread(target=watch_stalls, daemon=True,
+                     name="smoke-stall-watch").start()
+    ctrl.on_message = timed_on_message
+    ctrl.tick = timed(tick_and_note, live["ticks"])
+    ctrl.probe_fn = noted_probe
+    for attr in ("_apply", "_apply_batch", "_apply_items"):
+        if getattr(tr, attr, None) is not None:
+            setattr(tr, attr, slow_drain(getattr(tr, attr), attr))
+    return live
+
+
+def _innermost(frame, k):
+    out = []
+    while frame is not None and len(out) < k:
+        out.append(frame)
+        frame = frame.f_back
+    return out
+
+
+def _liveness_report(survivors, kill_mono, suspect_s):
+    """Per survivor, on times relative to the kill: each peer's three
+    longest gaps between heartbeats (start, seconds), the heartbeat
+    thread's longest gap between ticks and longest tick, every probe,
+    the three longest drain calls, the commit of the new view, and the
+    three longest stalls of the process's threads with where each was."""
+    out = []
+    for p, rec in enumerate(survivors):
+        live = rec.get("liveness") or {}
+
+        def longest(times, k=3):
+            gaps = sorted(((b - a, a) for a, b in zip(times, times[1:])),
+                          reverse=True)[:k]
+            return [[round(a - kill_mono, 4), round(g, 4)] for g, a in gaps]
+        ticks = live.get("ticks", [])
+        out.append({
+            "process": p, "epoch": rec.get("epoch"),
+            "active": rec.get("active"), "evicted": rec.get("evicted"),
+            "commit_s": (None if live.get("commit_mono") is None
+                         else round(live["commit_mono"] - kill_mono, 4)),
+            "heartbeat_gaps": {q: longest(ts) for q, ts in
+                               sorted(live.get("arrivals", {}).items())},
+            "gaps_over_suspicion": {
+                q: sum(1 for a, b in zip(ts, ts[1:]) if b - a > suspect_s)
+                for q, ts in sorted(live.get("arrivals", {}).items())},
+            "tick_gaps": longest([t for t, _ in ticks], 2),
+            "longest_ticks": [[round(t - kill_mono, 4), round(d, 4)]
+                              for t, d in sorted(ticks, key=lambda x: -x[1])
+                              [:2]],
+            "probes": [[round(t - kill_mono, 4), q, ok, round(d, 4)]
+                       for t, q, ok, d in live.get("probes", [])][:12],
+            "longest_drain_calls": [
+                [round(t - kill_mono, 4), round(d, 4), n] for t, d, n in
+                sorted(live.get("drain", []), key=lambda x: -x[1])[:3]],
+            "steps": [[round(a - kill_mono, 3), round(b - kill_mono, 3)]
+                      for a, b in live.get("steps", [])],
+            "own_proposals": [
+                [round(t - kill_mono, 4), prop,
+                 {q: round(s, 3) for q, s in ages.items()}]
+                for t, prop, ages in live.get("own_proposals", [])][:8],
+            "peer_proposals": [
+                [round(t - kill_mono, 4), q, e, prop]
+                for t, q, e, prop in live.get("proposals", [])][:8],
+            "stalls": len(live.get("stalls", [])),
+            "longest_stalls": [
+                [round(t - kill_mono, 4), round(d, 4), where]
+                for t, d, where in sorted(live.get("stalls", []),
+                                          key=lambda x: -x[1])[:3]]})
+    return out
+
+
 def _spread(rows):
     """rms over the sampled columns of each process's deviation from the
     processes' mean."""
@@ -4261,12 +4606,36 @@ def churn_train_phase():
     """``churn_worker`` in ``CHURN_PROCS`` processes of one rank, rank 3
     killed: the survivors' checks; returns the launches of K1-K3, summed
     over the survivors."""
+    import gc
+
     import numpy as np
+    import torch
+    # Four processes of ~11 GB share the card with this one: it hands its
+    # cached blocks back first (an archive run went out of memory here).
+    gc.collect()
+    empty_cache()
+    main_gb = ({"allocated": torch.cuda.memory_allocated() / 1e9,
+                "reserved": torch.cuda.memory_reserved() / 1e9}
+               if DEVICE == "cuda" else None)
     t0 = time.perf_counter()
-    parts = launch_workers("churn", procs=CHURN_PROCS, per=1,
-                           env=CHURN_KNOBS, killed=(3,))
+    parts, summary, clock = launch_workers(
+        "churn", procs=CHURN_PROCS, per=1, env=CHURN_KNOBS, killed=(3,))
     wall = time.perf_counter() - t0
     survivors = parts[:3]
+    kill_mono = (survivors[0].get("kill_mono") or {}).get(
+        str(CHURN_KILL_STEP))
+    # Before the checks, so that a failed run shows it too (its times from
+    # process 0's first step where rank 3 left no kill time).
+    suspect_s = float(CHURN_KNOBS["BLUEFOG_TPU_CHURN_SUSPECT_MS"]) / 1e3
+    zero = (kill_mono if kill_mono is not None
+            else survivors[0]["liveness"]["steps"][0][0])
+    emit("churn_liveness", exit_summary=summary, launch_clock=clock,
+         suspect_s=suspect_s,
+         times_from="kill" if kill_mono is not None else "first step",
+         survivors=_liveness_report(survivors, zero, suspect_s))
+    require(kill_mono is not None, "churn: rank 3 left no kill time")
+    for rec in survivors:
+        rec.pop("liveness", None)
     expected = WIN_DIST_LAYERS * CHURN_STEPS
     launches = {k: 0 for k in KERNELS}
     per_process = []
@@ -4321,8 +4690,21 @@ def churn_train_phase():
     last = CHURN_STEPS - 1
     adapt = _spread([r["adapt"][last] for r in survivors])
     combined = _spread([r["combined"][last] for r in survivors])
+    # Each step's spread from the first commit on: a survivor's first
+    # combine after its rebuild takes a zero staging slot (the JAX
+    # supervisor's zero_init; the peer's first put of the new epoch lands
+    # later), which pulls its row toward zero; the delayed averaging then
+    # shrinks the spread step by step (reported, the reference's
+    # transient).
+    first_commit = min(r["commit_step"] for r in survivors)
+    spread_by_step = [
+        {"step": t, "after_adapt": _spread([r["adapt"][t]
+                                            for r in survivors]),
+         "after_combine": _spread([r["combined"][t] for r in survivors])}
+        for t in range(first_commit, CHURN_STEPS)]
     require(combined < adapt, f"churn: spread after the combine {combined} "
-            f"not below after the adapt {adapt} at step {last}")
+            f"not below after the adapt {adapt} at step {last}; by step "
+            f"{spread_by_step}")
     # The kill: rank 3's clock at the top of its step CHURN_KILL_STEP,
     # read by the survivors from the file it left.
     kill_t = survivors[0].get("kill_clock", {}).get(str(CHURN_KILL_STEP))
@@ -4336,9 +4718,11 @@ def churn_train_phase():
         "optimizer": "DistributedWinPutOptimizer(fused=True)",
         "topology": "ExponentialGraph(4)", "steps": CHURN_STEPS,
         "knobs": CHURN_KNOBS},
-        wall_s=wall, detection_s=detection,
+        wall_s=wall, main_process_gb=main_gb,
+        detection_s=detection,
         recovery_s=[p["recovery_s"] for p in per_process],
         spread_last_step={"after_adapt": adapt, "after_combine": combined},
+        spread_by_step=spread_by_step,
         expected_launches_per_survivor=expected, per_process=per_process,
         launches=launches)
     return launches
@@ -4445,7 +4829,7 @@ def elastic_train_phase(benchmark):
         require(rb.get("preempted") == ELASTIC_PREEMPT
                 and rb["steps_on_disk"] == [2, 3]
                 and rc.get("start") == ELASTIC_PREEMPT
-                and rc["steps_on_disk"] == [4, 6],
+                and rc["steps_on_disk"] == [ELASTIC_PREEMPT, ELASTIC_STEPS],
                 f"elastic: preempted {rb}, resumed {rc}")
         diff = float((a - b).abs().max())
         require(torch.equal(a, b),
@@ -4906,13 +5290,21 @@ def worker_main(phase, out_path, device, *args):
     """One process of a ``win_dist_*`` phase (``launch_workers``), on the
     phase's ``device``."""
     global DEVICE
+    t_start = time.time()
     import torch
     DEVICE = device
+    if "{proc}" in out_path:
+        # Launched by bfrun: one command for every process.
+        out_path = out_path.format(proc=os.environ["BFTPU_PROCESS_ID"])
+    # Every process shares card 0 (bfrun numbers the local slots).
+    os.environ["BFTPU_LOCAL_ID"] = "0"
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import bluefog_tpu_torch as bf
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    clock = {"start": t_start}
     bf.init_distributed(backend="gloo", device=DEVICE)
+    clock["init"] = time.time()
     try:
         res = {"dist": lambda: dist_worker(bf, *args),
                "async_ops": lambda: async_ops_worker(bf),
@@ -4924,6 +5316,8 @@ def worker_main(phase, out_path, device, *args):
             bf.barrier()
     finally:
         bf.shutdown()
+    clock["done"] = time.time()
+    res["clock"] = clock
     with open(out_path, "w") as f:
         json.dump(res, f)
     return 0
@@ -4971,6 +5365,78 @@ def check_mp_examples():
                         "last_loss": res["losses"][-1],
                         "forward_max_abs_err": res["forward_max_abs_err"]}
     return tp, pp, check_elastic_example()
+
+
+def check_22a_examples():
+    """The entry points of ROADMAP item 22a on the card, in this process,
+    each at its own widths with few steps: the consensus error, the
+    optimizers' distance to the minimizer, the allocation error and the
+    MoE, ResNet-18 and LeNet losses must fall."""
+    import numpy as np
+    import torch
+
+    from bluefog_tpu_torch import (average_consensus,
+                                   decentralized_optimization, mnist_lenet,
+                                   moe_training, resnet_training,
+                                   resource_allocation)
+    out = {}
+
+    def run(name, fn, argv):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = fn(argv)
+        require(res["device"].startswith("cuda"), f"{name} ran on "
+                f"{res['device']}")
+        out[name] = {"seconds": time.perf_counter() - t0}
+        return res
+
+    np.random.seed(SEED)     # the example draws its rows from numpy's
+    res = run("average_consensus", average_consensus.main, [])
+    require(res["errors"][-1] < 1e-4 <= res["errors"][0],
+            f"average_consensus errors {res['errors'][0]} -> "
+            f"{res['errors'][-1]}")
+    out["average_consensus"].update(iterations=res["iterations"],
+                                    first=res["errors"][0],
+                                    last=res["errors"][-1])
+    res = run("decentralized_optimization", decentralized_optimization.main,
+              ["--max-iters", "300"])
+    # Every method starts at x = 0, a relative error of 1.
+    require(all(e < 1.0 for e in res["errors"].values()),
+            f"decentralized_optimization errors {res['errors']}")
+    out["decentralized_optimization"]["relative_errors"] = res["errors"]
+    res = run("resource_allocation", resource_allocation.main,
+              ["--method", "extra", "--iters", "500"])
+    require(res["errors"][-1] < res["errors"][0],
+            f"resource_allocation errors {res['errors']}")
+    out["resource_allocation"].update(first=res["errors"][0],
+                                      last=res["errors"][-1])
+    res = run("moe_training", moe_training.main, ["--steps", "60"])
+    out["moe_training"].update(first=res["first"], last=res["last"])
+    # Its own model and widths (ResNet-18 at 32x32, batch 32 on 8 ranks),
+    # 2 epochs of 128 samples a rank (4 steps each) where it runs 3 of
+    # 512; cuDNN's autotuning off, as the example leaves it (earlier
+    # phases turned it on in this process).
+    bench_mode = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    try:
+        res = run("resnet_training", resnet_training.main,
+                  ["--epochs", "2", "--samples-per-rank", "128"])
+    finally:
+        torch.backends.cudnn.benchmark = bench_mode
+    require(res["model"] == "resnet18"
+            and res["epoch_losses"][-1] < res["epoch_losses"][0],
+            f"resnet_training {res['model']} epoch losses "
+            f"{res['epoch_losses']}")
+    out["resnet_training"].update(model=res["model"],
+                                  epoch_losses=res["epoch_losses"],
+                                  val_acc=res["val_acc"])
+    res = run("mnist_lenet", mnist_lenet.main, [])
+    require(res["loss_last"] < res["loss_first"],
+            f"mnist_lenet losses {res['loss_first']} -> {res['loss_last']}")
+    out["mnist_lenet"].update(loss_first=res["loss_first"],
+                              loss_last=res["loss_last"],
+                              accuracy=res["accuracy"])
+    return out
 
 
 def check_elastic_example():
@@ -5143,7 +5609,8 @@ def main():
 
     args = benchmark.build_parser().parse_args(train_argv(3))
     FA.reset_launch_counts()
-    res = train_res = benchmark.measure(args)
+    tr = benchmark.Trainer(args)
+    res = train_res = benchmark.measure(args, tr)
     launches = {"K1": FA.flash_fwd_cuda.launches,
                 "K2": FA.flash_dq_cuda.launches,
                 "K3": FA.flash_dkv_cuda.launches}
@@ -5162,6 +5629,8 @@ def main():
             f"launches {launches}, expected {expected} of each")
     require(res["spread"]["after_combine"] < res["spread"]["after_adapt"],
             f"the combine shrinks the spread {res['spread']}")
+    host_launches = host_data_phase(benchmark, tr, train_res)
+    del tr
     torch.cuda.empty_cache()
     from bluefog_tpu_torch import native
     t0 = time.perf_counter()
@@ -5256,6 +5725,7 @@ def main():
     emit("tp_example", **tp_example)
     emit("pp_example", **pp_example)
     emit("elastic_example", **elastic_example)
+    emit("examples_22a", **check_22a_examples())
     hier_launches = hier_train_phase(benchmark)
     winput_launches = winput_train_phase(benchmark)
     fused_launches = fused_train_phase(benchmark)
@@ -5288,6 +5758,7 @@ def main():
         kernels.append({"name": f"{kname} {fn}", "route": "cuda",
                         "source": SOURCE, "replaces": replaces,
                         "launches": (launches[kname]
+                                     + host_launches[kname]
                                      + observe_launches[kname]
                                      + llama_launches[kname]
                                      + moe_launches[kname]
@@ -5309,6 +5780,7 @@ def main():
                                      + elastic_launches[kname]),
                         "launches_by_path": {
                             "train": launches[kname],
+                            "train_host_data": host_launches[kname],
                             "observe_train": observe_launches[kname],
                             "llama_train": llama_launches[kname],
                             "moe_train": moe_launches[kname],

@@ -62,6 +62,30 @@ def _jax_surface():
     return {n for n in names if not n.startswith("_") and hasattr(jbf, n)}
 
 
+def test_bfrun_console_entry_has_its_port():
+    """The packaging names ``bfrun = bluefog_tpu.run.run:main``
+    (``tests/test_runtime_services.py`` L360); the port's launcher is
+    ``bluefog_tpu_torch.run.run:main`` (``python -m
+    bluefog_tpu_torch.run``), callable the same way, with every option of
+    the JAX launcher and the same defaults."""
+    import tomllib
+
+    from bluefog_tpu.run import run as jrun
+    from bluefog_tpu_torch.run import run as trun
+    meta = tomllib.loads((Path(__file__).resolve().parents[1]
+                          / "pyproject.toml").read_text())
+    assert meta["project"]["scripts"]["bfrun"] == "bluefog_tpu.run.run:main"
+    assert "bluefog_tpu_torch.run" in meta["tool"]["setuptools"]["packages"]
+    assert callable(trun.main)
+
+    def options(parser):
+        return {o: (a.dest, a.default) for a in parser._actions
+                for o in a.option_strings}
+    want, got = options(jrun.build_parser()), options(trun.build_parser())
+    assert set(want) <= set(got)
+    assert all(got[o] == want[o] for o in want)
+
+
 def test_not_ported_list_is_exact():
     """The JAX package's public names the port lacks are exactly
     ``NOT_PORTED``'s: a name that lands must leave the list."""

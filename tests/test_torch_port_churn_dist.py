@@ -273,11 +273,74 @@ def test_supervisor_ticks_the_tuner_and_async_step_does_not(monkeypatch):
         assert sup.step(5) is None and ticks == [5]
         sup.ctrl.tick()
         from bluefog_tpu_torch.ops.transport import OP_MEMBER
+
+        # Each (peer, stripe) copy leaves on its own sender thread.
+        deadline = time.monotonic() + 10
+        while not tr.sent and time.monotonic() < deadline:
+            time.sleep(0.01)
         assert tr.sent and tr.sent[0][0] == OP_MEMBER
         assert json.loads(tr.sent[0][1])["step"] == 5
         sup.stop()
         assert TM.current() is None
     finally:
+        W._store.distrib = None
+        bf.shutdown()
+        monkeypatch.delenv("BLUEFOG_TPU_CHURN")
+        config.reload()
+
+
+class _BlockingTransport(_FakeTransport):
+    """Two stripes; a send on stripe 0 to the peer at port 2 blocks until
+    released, as the native sender's does while a row is copied into
+    that stripe's queue."""
+    n_stripes = 2
+
+    def __init__(self):
+        super().__init__()
+        import threading
+        self.release = threading.Event()
+
+    def send(self, host, port, op, name, src, dst, weight, payload,
+             *a, stripe=0, **kw):
+        if port == 2 and stripe == 0:
+            self.release.wait(30)
+        self.sent.append((port, stripe))
+
+
+def test_a_blocked_heartbeat_copy_delays_no_other(monkeypatch):
+    """A tick returns while one (peer, stripe) copy is blocked, and the
+    other stripe's copy and the other peer's copies are sent meanwhile."""
+    import types
+
+    import bluefog_tpu_torch as bf
+    from bluefog_tpu_torch.ops import window as W
+    from bluefog_tpu_torch.run import supervisor as S
+    from bluefog_tpu_torch.utils import config
+    monkeypatch.setenv("BLUEFOG_TPU_CHURN", "1")
+    monkeypatch.setenv("BLUEFOG_TPU_CHURN_HEARTBEAT_MS", "100000")
+    config.reload()
+    bf.init(3, device="cpu")
+    tr = _BlockingTransport()
+    W._store.distrib = types.SimpleNamespace(
+        transport=tr, rank_owner={0: 0, 1: 1, 2: 2},
+        proc_addr={0: ("127.0.0.1", 1), 1: ("127.0.0.1", 2),
+                   2: ("127.0.0.1", 3)}, my_proc=0, my_rank=0)
+    try:
+        sup = S.ChurnSupervisor()
+        t0 = time.monotonic()
+        sup.ctrl.tick()
+        assert time.monotonic() - t0 < 5
+        deadline = time.monotonic() + 10
+        while len(tr.sent) < 3 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert sorted(tr.sent) == [(2, 1), (3, 0), (3, 1)]
+        tr.release.set()
+        while len(tr.sent) < 4 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert sorted(tr.sent) == [(2, 0), (2, 1), (3, 0), (3, 1)]
+        sup.stop()
+    finally:
+        tr.release.set()
         W._store.distrib = None
         bf.shutdown()
         monkeypatch.delenv("BLUEFOG_TPU_CHURN")

@@ -35,7 +35,16 @@ def test_import_leaves_jax_out():
             "bluefog_tpu_torch.pipeline_training, "
             "bluefog_tpu_torch.ops.window, bluefog_tpu_torch.utils.config, "
             "bluefog_tpu_torch.optim.window_optimizers, "
-            "bluefog_tpu_torch.ops.transport, bluefog_tpu_torch.native;"
+            "bluefog_tpu_torch.ops.transport, bluefog_tpu_torch.native, "
+            "bluefog_tpu_torch.average_consensus, "
+            "bluefog_tpu_torch.decentralized_optimization, "
+            "bluefog_tpu_torch.resource_allocation, "
+            "bluefog_tpu_torch.moe_training, "
+            "bluefog_tpu_torch.resnet_training, "
+            "bluefog_tpu_torch.mnist_lenet, bluefog_tpu_torch.tools, "
+            "bluefog_tpu_torch.tools.tracegossip, "
+            "bluefog_tpu_torch.tools.metrics_lint, "
+            "bluefog_tpu_torch.run.run;"
             "bf = bluefog_tpu_torch; bf.pipeline_train_step, bf.moe_apply, "
             "bf.tp_shard_params, bf.parallel.pipeline_apply;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -130,3 +139,18 @@ def test_entry_points_default_to_cuda(module):
     main = importlib.import_module(f"bluefog_tpu_torch.{module}").main
     with pytest.raises(RuntimeError, match="no GPU"):
         main(["--steps", "2"])
+
+
+@pytest.mark.parametrize("module", ["average_consensus",
+                                    "decentralized_optimization",
+                                    "resource_allocation", "moe_training",
+                                    "resnet_training", "mnist_lenet"])
+def test_example_entry_points_default_to_cuda(module):
+    """The examples of item 22a run on CUDA unless ``--device cpu`` is
+    given: without a GPU they raise before any work."""
+    import importlib
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    main = importlib.import_module(f"bluefog_tpu_torch.{module}").main
+    with pytest.raises(RuntimeError, match="no GPU"):
+        main([])

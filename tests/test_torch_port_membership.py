@@ -456,3 +456,179 @@ def test_bench_churn_block_equals_jax(monkeypatch):
         monkeypatch.delenv("BLUEFOG_TPU_CHURN")
         jconfig.reload()
         tconfig.reload()
+
+
+# -- The survivors' recovery against the JAX package's -------------------
+#
+# Both packages' ``ChurnSupervisor._recover`` driven by a fake-clock gang's
+# committed view (process 3 killed), over a 4-rank window optimizer in one
+# process: the rebuilt windows' staging and versions right after the
+# optimizer's post-commit hook, then the first post-commit combine, bit
+# for bit in float32.  The gradients are zero, so the base SGD update is
+# the identity in both packages and only the windows move the rows.  The
+# first combine takes a subset of the edges (``dst_weights`` /
+# ``src_weights`` as ``{(rank, peer): w}``), so the slots that no new put
+# or get reaches show what the recovery left in them.
+
+RN, RCOLS = 4, 6
+
+
+class _NoChaos:
+    def apply(self, step):
+        pass
+
+
+def _fake_supervisor(sup_mod, W, basics, membership, ctrl):
+    """A ``ChurnSupervisor`` over an in-process window store: the gang's
+    controller, a rank directory with no endpoints, no heartbeat thread."""
+    import threading
+    import types
+    sup = object.__new__(sup_mod.ChurnSupervisor)
+    sup._d = types.SimpleNamespace(
+        rank_owner={r: r for r in range(RN)}, proc_addr={},
+        transport=types.SimpleNamespace(drop_peer=lambda *a: None))
+    sup._W, sup._n, sup._basics = W, RN, basics
+    sup._membership, sup._topology_builder = membership, None
+    sup._gang, sup.ctrl, sup.chaos = None, ctrl, _NoChaos()
+    sup._stop = threading.Event()
+    sup.on_change = sup._on_change = None
+    sup.last_recovery = None
+    sup_mod._singleton = sup
+    membership.install(ctrl)
+    return sup
+
+
+def _subset(nbrs, first_only):
+    """``{(rank, peer): 1.0}`` for each survivor's first neighbor."""
+    return {(r, nb[0]): 1.0 for r, nb in enumerate(nbrs)
+            if r < RN - 1 and nb and first_only}
+
+
+def _window_state(W, names, as_np):
+    out = []
+    for name in names:
+        win = W._store.get(name)
+        out.append({
+            "staging": {k: as_np(v) for k, v in win.staging.items()},
+            "versions": dict(win.versions),
+            "main": {r: as_np(win.main[r]) for r in range(RN)}})
+    return out
+
+
+def _jax_recovery(devices, family, rows, pre_steps):
+    import jax.numpy as jnp
+    import optax
+
+    import bluefog_tpu as jbf
+    from bluefog_tpu import basics as jbasics
+    from bluefog_tpu.ops import window as JW
+    from bluefog_tpu.run import supervisor as jsup
+    jbf.init(lambda: JTOPO.ExponentialGraph(RN), devices=devices[:RN])
+    cls = {"win_put": "DistributedWinPutOptimizer",
+           "pull_get": "DistributedPullGetOptimizer"}[family]
+    kw = {"fused": False} if family == "win_put" else {}
+    opt = getattr(jbf.optim, cls)(optax.sgd(0.1), **kw)
+    params = {"x": jnp.asarray(rows)}
+    state = opt.init(params)
+    zero = {"x": jnp.zeros_like(params["x"])}
+    for _ in range(pre_steps):
+        params, state = opt.step(params, zero, state)
+    g = _Gang(JM, RN)
+    g.dead.add(RN - 1)
+    g.run(5.0)
+    sup = _fake_supervisor(jsup, JW, jbasics, JM, g.ctrls[0])
+    try:
+        opt._maybe_churn_step(int(state.step))
+        assert opt.membership_change is not None
+        names = list(opt._names)
+        after = _window_state(JW, names, np.asarray)
+        key = "dst_weights" if family == "win_put" else "src_weights"
+        nbrs = [JW._store.get(names[0]).out_nbrs[r] if family == "win_put"
+                else JW._store.get(names[0]).in_nbrs[r] for r in range(RN)]
+        params, state = opt.step(params, zero, state,
+                                 **{key: _subset(nbrs, True)})
+        first = np.asarray(params["x"])
+        opt.free()
+    finally:
+        jsup._singleton = None
+    return after, first, nbrs
+
+
+def _port_recovery(family, rows, pre_steps):
+    import torch
+
+    import bluefog_tpu_torch as tbf
+    from bluefog_tpu_torch import basics as tbasics
+    from bluefog_tpu_torch.ops import window as TW
+    from bluefog_tpu_torch.optim import window_optimizers as TWO
+    from bluefog_tpu_torch.run import supervisor as tsup
+    tbf.init(RN, device="cpu",
+             topology_fn=lambda: TTOPO.ExponentialGraph(RN))
+    cls = {"win_put": "DistributedWinPutOptimizer",
+           "pull_get": "DistributedPullGetOptimizer"}[family]
+    x = torch.tensor(rows, requires_grad=True)
+    opt = getattr(TWO, cls)(torch.optim.SGD([x], lr=0.1))
+    try:
+        for _ in range(pre_steps):
+            x.grad = torch.zeros_like(x)
+            opt.step()
+        g = _Gang(TM, RN)
+        g.dead.add(RN - 1)
+        g.run(5.0)
+        _fake_supervisor(tsup, TW, tbasics, TM, g.ctrls[0])
+        opt._maybe_churn_step(opt.step_count)
+        assert opt.membership_change is not None
+        names = list(opt._names)
+        after = _window_state(TW, names, lambda t: t.numpy().copy())
+        key = "dst_weights" if family == "win_put" else "src_weights"
+        nbrs = [TW._store.get(names[0]).out_nbrs[r] if family == "win_put"
+                else TW._store.get(names[0]).in_nbrs[r] for r in range(RN)]
+        x.grad = torch.zeros_like(x)
+        opt.step(**{key: _subset(nbrs, True)})
+        first = x.detach().numpy().copy()
+        opt.free()
+        return after, first, nbrs
+    finally:
+        tsup._singleton = None
+        tbf.shutdown()
+
+
+@pytest.mark.parametrize("pre_steps", [1, 3])
+@pytest.mark.parametrize("family", ["win_put", "pull_get"])
+def test_recovery_staging_and_first_combine_equal_jax(devices, monkeypatch,
+                                                       tmp_path, family,
+                                                       pre_steps):
+    """After a committed view the rebuilt windows' staging is zero and
+    their versions 0 in both packages (``bluefog_tpu/run/supervisor.py``
+    L312, ``zero_init=True``; the JAX optimizer's ``_maybe_churn_step``
+    adds nothing), and every survivor's first post-commit combine equals
+    the JAX one bit for bit (float32, exact)."""
+    from bluefog_tpu.run import supervisor as jsup
+    from bluefog_tpu.utils import config as jconfig
+    from bluefog_tpu_torch.run import supervisor as tsup
+    monkeypatch.chdir(tmp_path)        # the recovery's flight-recorder dump
+    # One process holds the whole gang: the optimizers' step boundary
+    # reaches the hand-built supervisor (the module's own refuses without
+    # a multi-process transport).
+    for m in (jsup, tsup):
+        monkeypatch.setattr(m, "maybe_supervisor", lambda m=m: m._singleton)
+    monkeypatch.setenv("BLUEFOG_TPU_CHURN", "1")
+    jconfig.reload()
+    tconfig.reload()
+    rows = np.random.RandomState(11).randn(RN, RCOLS).astype(np.float32)
+    want_after, want, jnbrs = _jax_recovery(devices, family, rows, pre_steps)
+    got_after, got, tnbrs = _port_recovery(family, rows, pre_steps)
+    assert jnbrs == tnbrs
+    assert len(want_after) == len(got_after) == 1
+    w, g = want_after[0], got_after[0]
+    assert g["versions"] == w["versions"]
+    assert set(w["versions"].values()) == {0}
+    assert g["staging"].keys() == w["staging"].keys()
+    for k in w["staging"]:
+        np.testing.assert_array_equal(g["staging"][k], w["staging"][k],
+                                      err_msg=f"staging {k}")
+        assert not w["staging"][k].any(), k
+    for r in range(RN):
+        np.testing.assert_array_equal(g["main"][r], w["main"][r],
+                                      err_msg=f"main {r}")
+    np.testing.assert_array_equal(got, want)

@@ -32,7 +32,7 @@ import torch
 
 import bluefog_tpu as jbf
 import bluefog_tpu_torch as tbf
-from bluefog_tpu import native as jnative
+from _jax_native import ensure_jax_native
 from bluefog_tpu import topology as jtopo
 from bluefog_tpu.ops import transport as JT
 from bluefog_tpu.ops import window as JW
@@ -303,9 +303,8 @@ def test_frames_decode_bit_identically_across_packages(built, env, client,
     """Every frame the sender's encoder ships (its C++ arena or its Python
     ``_encode_batch``) is decoded bit for bit, in order, by the receiver's
     decoder (C++ drain or Python), across the two packages."""
-    if (client[0] == "jax" and client[1] or server[0] == "jax"
-            and server[1]) and not jnative.has_win_native():
-        pytest.skip("the JAX package's native core is not built")
+    if "jax" in (client[0], server[0]):
+        ensure_jax_native()
     msgs = _mixed_stream(7, 120)
     rec = _Recorder()
     srv = _transport(*server, env, rec)
@@ -451,8 +450,7 @@ def test_jax_sender_folds_to_the_same_bits_on_the_port(built, env, jax_native,
     """A JAX transport's puts and accumulates, folded by the port's
     receiver (its C++ drain or its Python batched apply), land the same
     staging, versions and P as on a JAX receiver of the same path."""
-    if jax_native and not jnative.has_win_native():
-        pytest.skip("the JAX package's native core is not built")
+    ensure_jax_native()
     stream = _fold_stream()
     want = _receive(env, "jax", port_native, "jax", jax_native, with_p,
                     stream)
