@@ -96,6 +96,7 @@ class WinMsg(ctypes.Structure):
         ("p_weight", ctypes.c_double),
         ("name", ctypes.c_char * 128),
         ("payload_len", ctypes.c_uint64),
+        ("rx_mono_us", ctypes.c_int64),
     ]
 
 
@@ -301,6 +302,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "bf_winsvc_send": (i32, [cp, i32, u8, cp, i32, i32, dbl, dbl,
                                  ptr(u8), u64]),
         "bf_winsvc_stop": (None, [vp]),
+        "bf_winsvc_ctrl_recv": (i32, [vp, ptr(WinMsg), ptr(u8), u64, i32]),
         "bf_winsvc_win_set": (i32, [vp, cp, i64]),
         "bf_winsvc_drain": (i32, [vp, ptr(WinItem), i32, ptr(u8), u64,
                                   ptr(ctypes.c_float), u64, i32, i32]),
@@ -316,6 +318,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "bf_wintx_kick": (None, [vp]),
         "bf_wintx_drop_peer": (i64, [vp, cp, i32]),
         "bf_wintx_set_partition": (None, [vp, cp]),
+        "bf_wintx_set_send_delay": (None, [vp, i64]),
         "bf_wintx_stop": (None, [vp]),
         "bf_trace_configure": (None, [i32]),
         "bf_trace_period": (i32, []),

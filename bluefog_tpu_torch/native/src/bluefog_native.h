@@ -46,6 +46,8 @@ typedef struct {
   double p_weight;     /* associated-P mass carried with the payload */
   char name[128];      /* window name (NUL-terminated) */
   uint64_t payload_len;
+  int64_t rx_mono_us;  /* CLOCK_MONOTONIC (us) when the reader had read the
+                        * frame's last byte off its connection */
 } bf_win_msg_t;
 
 /* Start a server listening on port (0 = ephemeral; bf_winsvc_port tells).
@@ -69,6 +71,13 @@ int32_t bf_winsvc_send(const char* host, int32_t port, uint8_t op,
                        uint64_t payload_len);
 
 void bf_winsvc_stop(bf_winsvc_t* s);
+
+/* The control lane: the readers hand OP_MEMBER frames to a queue of their
+ * own instead of the drain's, and bf_winsvc_ctrl_recv pops them in arrival
+ * order, waiting up to wait_ms for one; it returns as bf_winsvc_recv does
+ * (bf_winsvc_recv and bf_winsvc_drain never see an OP_MEMBER frame). */
+int32_t bf_winsvc_ctrl_recv(bf_winsvc_t* s, bf_win_msg_t* msg,
+                            uint8_t* payload, uint64_t cap, int32_t wait_ms);
 
 /* -------- native receive/drain fast path (BLUEFOG_TPU_WIN_NATIVE) -------
  *
@@ -251,6 +260,12 @@ int64_t bf_wintx_drop_peer(bf_wintx_t* t, const char* host, int32_t port);
  * injection): their batch sends fail with no wire traffic and no retries.
  * NULL or "" heals. */
 void bf_wintx_set_partition(bf_wintx_t* t, const char* csv);
+
+/* The chaos link-delay fault: sleep us microseconds before each DATA
+ * enqueue (put, accumulate, get reply; control ops never), on every path
+ * that enqueues (a Python send and a put plan's run alike), after the
+ * message's trace tag was stamped.  0 heals. */
+void bf_wintx_set_send_delay(bf_wintx_t* t, int64_t us);
 
 /* Counter snapshot: host == NULL aggregates every peer ever created;
  * otherwise the named active peer, summed over ALL its stripes (zeroed

@@ -98,7 +98,9 @@ constexpr uint32_t kMagic = 0xBF09F06Du;
 // truth for the codes; these mirrors exist only for the native hot path).
 constexpr uint8_t kOpPut = 1;
 constexpr uint8_t kOpAccumulate = 2;
+constexpr uint8_t kOpGetReply = 4;
 constexpr uint8_t kOpBatch = 10;
+constexpr uint8_t kOpMember = 11;  // membership heartbeats: the control lane
 constexpr uint8_t kFlagBf16 = 0x40;
 constexpr uint8_t kFlagSparse = 0x20;
 constexpr uint8_t kFlagTrace = 0x10;  // OP_TRACE_FLAG: payload carries a
@@ -387,6 +389,13 @@ struct bf_winsvc {
                                     // bf_winsvc_drain can BLOCK in C (GIL
                                     // released) instead of Python polling
   std::deque<Inbound> q;
+  // The control lane: OP_MEMBER frames skip q and wait here for their own
+  // consumer (bf_winsvc_ctrl_recv), so a heartbeat read off its connection
+  // never queues behind the data frames of other connections (nor behind
+  // the drain's decode and fold of a large row).  Guarded by m, like q.
+  std::deque<Inbound> cq;
+  std::condition_variable cv_ctrl;        // cq became nonempty
+  std::condition_variable cv_ctrl_space;  // cq shrank
   bool stopping = false;
   std::thread acceptor;
   std::mutex conn_m;
@@ -442,7 +451,17 @@ struct bf_winsvc {
       if (in.msg.payload_len &&
           !ReadFull(fd, in.payload.data(), in.msg.payload_len))
         break;
+      in.msg.rx_mono_us = MonoUs();
       std::unique_lock<std::mutex> lk(m);
+      if ((in.msg.op & (uint8_t)~kFlagMask) == kOpMember) {
+        cv_ctrl_space.wait(lk, [this] {
+          return stopping || (int32_t)cq.size() < max_pending;
+        });
+        if (stopping) break;
+        cq.push_back(std::move(in));
+        cv_ctrl.notify_one();
+        continue;
+      }
       cv_space.wait(lk, [this] {
         return stopping || (int32_t)q.size() < max_pending;
       });
@@ -515,6 +534,24 @@ bf_winsvc_t* bf_winsvc_start(int32_t port, int32_t max_pending) {
 }
 
 int32_t bf_winsvc_port(bf_winsvc_t* s) { return s ? s->port : -1; }
+
+int32_t bf_winsvc_ctrl_recv(bf_winsvc_t* s, bf_win_msg_t* msg,
+                            uint8_t* payload, uint64_t cap, int32_t wait_ms) {
+  if (!s) return 0;
+  std::unique_lock<std::mutex> lk(s->m);
+  if (s->cq.empty() && wait_ms > 0)
+    s->cv_ctrl.wait_for(lk, std::chrono::milliseconds(wait_ms),
+                        [&] { return !s->cq.empty() || s->stopping; });
+  if (s->cq.empty()) return 0;
+  Inbound& in = s->cq.front();
+  if (in.payload.size() > cap) return -1;
+  *msg = in.msg;
+  if (!in.payload.empty())
+    std::memcpy(payload, in.payload.data(), in.payload.size());
+  s->cq.pop_front();
+  s->cv_ctrl_space.notify_one();
+  return 1;
+}
 
 int32_t bf_winsvc_recv(bf_winsvc_t* s, bf_win_msg_t* msg, uint8_t* payload,
                        uint64_t cap) {
@@ -1226,6 +1263,8 @@ void bf_winsvc_stop(bf_winsvc_t* s) {
   s->cv_space.notify_all();
   s->cv_data.notify_all();  // wake a drain call blocked on an empty queue
   s->cv_decoded.notify_all();
+  s->cv_ctrl.notify_all();
+  s->cv_ctrl_space.notify_all();
   ::shutdown(s->listen_fd, SHUT_RDWR);
   ::close(s->listen_fd);
   s->acceptor.join();  // after this, no new slots can appear
@@ -1255,7 +1294,14 @@ namespace {
 struct TxSeg {
   uint64_t len;   // encoded sub-message bytes in the arena
   uint64_t plen;  // payload bytes (threshold accounting, Python parity)
+  uint8_t op;     // wire op byte (a heartbeat ships as a frame of its own)
 };
+
+// OP_MEMBER ships as a frame of its own, so that the receiver's reader can
+// hand it to the control lane (never inside an OP_BATCH with data).
+inline bool ShipsAlone(uint8_t op) {
+  return (op & (uint8_t)~kFlagMask) == kOpMember;
+}
 
 struct TxPeer {
   std::string host;
@@ -1302,6 +1348,9 @@ struct bf_wintx {
   std::map<std::string, TxPeer*> peers;      // active senders
   std::vector<std::unique_ptr<TxPeer>> all;  // every peer ever (joined at stop)
   std::set<std::string> partition;
+  // The chaos link-delay fault (bf_wintx_set_send_delay): microseconds
+  // slept before each DATA enqueue; 0 outside chaos.
+  std::atomic<int64_t> send_delay_us{0};
   std::atomic<bool> stopping{false};
   // Callers currently inside an API function (a producer blocked in the
   // backpressure wait, a flusher in FlushPeer): bf_wintx_stop wakes them
@@ -1513,7 +1562,10 @@ void TxWorker(bf_wintx* t, TxPeer* p) {
       size_t fmsgs = 0;
       uint64_t fpayload = 0, flen = 0;
       const size_t fstart = pos;
-      while (idx < nsegs && (fmsgs == 0 || fpayload < t->flush_bytes)) {
+      while (idx < nsegs &&
+             (fmsgs == 0 ||
+              (fpayload < t->flush_bytes && !ShipsAlone(segs[idx].op) &&
+               !ShipsAlone(segs[idx - 1].op)))) {
         flen += segs[idx].len;
         fpayload += segs[idx].plen;
         fmsgs++;
@@ -1720,6 +1772,11 @@ int32_t bf_wintx_send(bf_wintx_t* t, const char* host, int32_t port,
   const size_t nlen = name ? std::strlen(name) : 0;
   if (nlen >= 128) return -4;  // deterministic, path-independent rejection
   if (stripe < 0 || stripe >= t->stripes) stripe = 0;
+  const int64_t delay_us = t->send_delay_us.load(std::memory_order_relaxed);
+  const uint8_t base = op & (uint8_t)~kFlagMask;
+  if (delay_us > 0 &&
+      (base == kOpPut || base == kOpAccumulate || base == kOpGetReply))
+    std::this_thread::sleep_for(std::chrono::microseconds(delay_us));
   TxPeer* p = GetOrCreatePeer(t, host, port, stripe);
   if (p == nullptr) return -5;  // raced a stop(): transport is closing
   std::unique_lock<std::mutex> lk(p->m);
@@ -1765,7 +1822,7 @@ int32_t bf_wintx_send(bf_wintx_t* t, const char* host, int32_t port,
   std::memcpy(w + kSubFixed + nlen, &payload_len, 8);
   if (payload_len)
     std::memcpy(w + kSubFixed + nlen + 8, payload, payload_len);
-  p->segs.push_back(TxSeg{need, payload_len});
+  p->segs.push_back(TxSeg{need, payload_len, op});
   p->seq_enq++;
   p->bytes_pending += payload_len;
   p->bytes_enq += payload_len;
@@ -1904,6 +1961,11 @@ void bf_wintx_set_partition(bf_wintx_t* t, const char* csv) {
   }
   std::lock_guard<std::mutex> lk(t->m);
   t->partition.swap(next);
+}
+
+void bf_wintx_set_send_delay(bf_wintx_t* t, int64_t us) {
+  if (!t) return;
+  t->send_delay_us.store(us > 0 ? us : 0, std::memory_order_relaxed);
 }
 
 void bf_wintx_stats(bf_wintx_t* t, const char* host, int32_t port,

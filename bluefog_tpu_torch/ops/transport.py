@@ -66,11 +66,22 @@ native pump's diffs or the Python sender's batches; the tuner
 Chaos faults (``utils/chaos.py``): :meth:`WindowTransport.set_partition`
 drops every outbound frame to the named peers, and
 :meth:`WindowTransport.set_send_delay` sleeps before each DATA enqueue (a
-slow link, which the link observatory measures as one-way delay); the
+slow link, which the link observatory measures as one-way delay), in the
+native sender's enqueue (``bf_wintx_send``, which a put plan's run and
+:meth:`WindowTransport.send` both reach) or in ``send`` on the Python
+sender; the
 control ops, ``OP_MEMBER`` heartbeats and ``OP_GANG`` directory traffic
 among them, are never delayed, and they are urgent: an enqueue cuts the
 linger, so they ship at once, behind whatever the peer's FIFO already
 holds.
+
+The control lane (the port's own; the frames stay the JAX package's): an
+``OP_MEMBER`` heartbeat ships as a frame of its own on its stripe's FIFO,
+and the receiver's reader hands it to a queue of its own, consumed by a
+thread of its own, instead of the drain's, so that no heartbeat waits for
+the drain to decode and fold the rows read before it (a 0.94 GB row held
+a heartbeat 0.4-0.9 s on the H100's host).  Each such frame's read and
+hand-over times are kept, a source rank at a time (``member_rx``).
 """
 
 from __future__ import annotations
@@ -134,6 +145,14 @@ _POLL_SEC = 0.002
 _URGENT_OPS = frozenset((OP_GET_REQ, OP_GET_REPLY, OP_FENCE_REQ,
                          OP_FENCE_ACK, OP_MUTEX_ACQ, OP_MUTEX_GRANT,
                          OP_MUTEX_REL, OP_MEMBER, OP_GANG))
+
+
+def _ships_alone(op: int) -> bool:
+    """A heartbeat (``OP_MEMBER``) ships as a frame of its own, so that
+    the receiver's reader hands it to the control lane (never inside an
+    ``OP_BATCH`` with data); the native sender groups its frames alike."""
+    return (op & ~OP_FLAG_MASK) == OP_MEMBER
+
 
 _OP_NAMES = {OP_PUT: "put", OP_ACCUMULATE: "accumulate",
              OP_GET_REQ: "get_req", OP_GET_REPLY: "get_reply",
@@ -492,6 +511,9 @@ class _PeerSender:
                 nbytes = 0
                 while self.q and (not batch
                                   or nbytes < self._t._flush_bytes):
+                    if batch and (_ships_alone(self.q[0][0])
+                                  or _ships_alone(batch[-1][0])):
+                        break
                     m = self.q.popleft()
                     batch.append(m)
                     nbytes += len(m[6])
@@ -575,8 +597,9 @@ class WindowTransport:
         self._retry_backoff = max(0.0, cfg.win_retry_backoff_ms) / 1e3
         self.n_stripes = resolve_stripes()
         self._partitioned: frozenset = frozenset()
-        # The chaos link-delay fault (set_send_delay): seconds slept before
-        # each DATA enqueue; 0.0 outside chaos, one float check a send.
+        # The chaos link-delay fault (set_send_delay) on the Python sender:
+        # seconds slept before each DATA enqueue; 0.0 outside chaos, one
+        # float check a send (the native sender keeps its own).
         self._send_delay = 0.0
         self._senders: Dict[Tuple[str, int, int], _PeerSender] = {}
         self._senders_lock = threading.Lock()
@@ -615,11 +638,23 @@ class WindowTransport:
             self.decode_threads = int(self._lib.bf_winsvc_set_decode(
                 self._svc, _resolve_decode_threads()))
             telemetry.set_gauge("bf_win_native_active", 1)
+        # Each source rank's newest OP_MEMBER frames as (read, popped), on
+        # the host's monotonic clock: the reader's stamp when the frame's
+        # last byte was read, and the moment the control lane took it
+        # (churn_liveness reads them).
+        self.member_rx: Dict[int, deque] = {}
         self._stop = threading.Event()
         self._buf = None if self.native_path else self._alloc(1 << 20)
         self._drainer = threading.Thread(target=self._drain, daemon=True,
                                          name="bf-win-transport")
         self._drainer.start()
+        # The control lane: the readers hand OP_MEMBER frames to this
+        # thread, not to the drain, so a heartbeat never waits behind the
+        # decode and fold of the data frames read before it.
+        self._ctrl_buf = np.empty(1 << 16, np.uint8)
+        self._ctrl = threading.Thread(target=self._drain_control,
+                                      daemon=True, name="bf-win-control")
+        self._ctrl.start()
 
     @property
     def port(self) -> int:
@@ -644,7 +679,8 @@ class WindowTransport:
         bytes-like (copied before this returns, on every path)."""
         if stripe is None:
             stripe = stripe_for(name, src, op, self.n_stripes)
-        if self._send_delay and (op & ~OP_FLAG_MASK) in _DATA_OPS:
+        if self._send_delay and self._tx is None \
+                and (op & ~OP_FLAG_MASK) in _DATA_OPS:
             # DATA ops only: heartbeats, fences, mutex and gang traffic are
             # never delayed (a slow data link, not a dead control plane).
             time.sleep(self._send_delay)
@@ -740,8 +776,14 @@ class WindowTransport:
     def set_send_delay(self, seconds: float) -> None:
         """Chaos link-delay fault: sleep ``seconds`` before every DATA
         enqueue (control ops never), so that the link observatory measures
-        it as per-edge one-way delay; 0.0 heals the fault."""
-        self._send_delay = max(0.0, float(seconds))
+        it as per-edge one-way delay; 0.0 heals the fault.  The native
+        sender sleeps in its enqueue, after the message's trace tag was
+        stamped, which a put plan's run reaches as :meth:`send` does."""
+        seconds = max(0.0, float(seconds))
+        if self._tx is not None:
+            self._lib.bf_wintx_set_send_delay(self._tx,
+                                              int(round(seconds * 1e6)))
+        self._send_delay = seconds
 
     def set_linger_ms(self, ms: float) -> None:
         """Adapt the coalesce linger at run time (the tuner's
@@ -1253,9 +1295,42 @@ class WindowTransport:
             except Exception:  # noqa: BLE001 — the drain must survive
                 _log.exception("window transport apply failed")
 
+    def _drain_control(self):
+        """The control lane's consumer: each ``OP_MEMBER`` frame, in
+        arrival order, to ``apply`` (the membership controller takes only
+        its own lock)."""
+        msg = native.WinMsg()
+        while not self._stop.is_set():
+            got = self._lib.bf_winsvc_ctrl_recv(
+                self._svc, ctypes.byref(msg),
+                self._ctrl_buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                self._ctrl_buf.size, 50)
+            if got == -1:  # payload larger than the buffer
+                self._ctrl_buf = np.empty(self._ctrl_buf.size * 2, np.uint8)
+                continue
+            if got == 0:
+                continue
+            op = int(msg.op)
+            src = int(msg.src)
+            q = self.member_rx.get(src)
+            if q is None:
+                q = self.member_rx.setdefault(src, deque(maxlen=4096))
+            q.append((msg.rx_mono_us / 1e6, time.monotonic()))
+            if telemetry.enabled():
+                telemetry.inc("bf_win_rx_msgs_total", op=_op_label(op))
+                telemetry.inc("bf_win_rx_bytes_total",
+                              float(msg.payload_len))
+            try:
+                self._apply(op, msg.name.decode(), src,
+                            int(msg.dst), float(msg.weight),
+                            float(msg.p_weight),
+                            memoryview(self._ctrl_buf)[:msg.payload_len])
+            except Exception:  # noqa: BLE001 — the lane must survive
+                _log.exception("window transport control apply failed")
+
     def stop(self):
-        """Stop the senders (each drains its queue first), the drain thread
-        and the service."""
+        """Stop the senders (each drains its queue first), the drain and
+        control threads and the service."""
         tx, self._tx = self._tx, None
         if tx is not None:
             try:
@@ -1270,6 +1345,7 @@ class WindowTransport:
             s.stop()
         self._stop.set()
         self._drainer.join(timeout=5)
+        self._ctrl.join(timeout=5)
         if self._svc:
             if self.native_path:
                 try:

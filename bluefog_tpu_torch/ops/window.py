@@ -800,6 +800,10 @@ def install_distrib(transport, rank_owner: Dict[int, int],
             _apply_inbound(*msg)
     # Stall warnings can now name the unreachable peers' ranks.
     stall.set_peer_probe(_probe_missing_ranks)
+    # The async mode (BLUEFOG_TPU_ASYNC) arms with the transport, as in
+    # the JAX package: raw window gossip (no optimizer) ages and folds
+    # contributions too; with the knob off the flag stays False.
+    configure_async()
 
 
 def _probe_missing_ranks(timeout: float = 1.0) -> List[int]:
@@ -1216,9 +1220,25 @@ def _remote_mutex(name: str, rank: int, my_rank: int):
                     d.grant_events.pop((name, rank), None)
 
 
+def _requester_removed(requester: int) -> bool:
+    """Under churn: is the requester's process out of the committed view
+    (dead, or voted out alive)?  Its release would never come, and a
+    grant to it would hold the mutex for the whole release timeout,
+    stalling every later requester (``_release_remote_holds`` frees only
+    the holds taken before the commit)."""
+    from bluefog_tpu_torch.ops import membership
+    ctrl = membership.current()
+    d = _store.distrib
+    if ctrl is None or d is None:
+        return False
+    proc = d.rank_owner.get(requester)
+    return proc is not None and proc not in ctrl.view().active_procs
+
+
 def _hold_mutex_for_remote(name: str, rank: int, requester: int) -> None:
     """Hold rank's (owned) mutex for a remote requester until its
-    MUTEX_REL arrives; on its own daemon thread."""
+    MUTEX_REL arrives; on its own daemon thread.  A requester out of the
+    gang's committed view gets no grant."""
     d = _store.distrib
     try:
         win = _store.get(name)
@@ -1228,6 +1248,8 @@ def _hold_mutex_for_remote(name: str, rank: int, requester: int) -> None:
     key = (name, rank, requester)
     try:
         with win.mutexes[rank]:
+            if _requester_removed(requester):
+                return
             # Registered only once the mutex is ours: a predecessor's late
             # release copies must not set this event.
             with d.cv:

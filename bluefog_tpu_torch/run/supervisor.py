@@ -42,6 +42,23 @@ from bluefog_tpu_torch.utils import config
 
 __all__ = ["ChurnSupervisor", "maybe_supervisor"]
 
+# The start-up skew the window allows for: twice the largest measured
+# between a gang's supervisors (2.1 s, the 4-process gang of
+# ``tests/test_torch_port_churn_dist.py`` beside five other test files on
+# a loaded CPU host).
+STARTUP_SKEW_SEC = 4.2
+
+
+def startup_grace_sec(suspect_sec: float) -> float:
+    """The start-up window, in seconds from the supervisor's start: until
+    a peer's first heartbeat, and for at most the start-up skew plus the
+    controller's hard-silence span (3 x the suspicion), a peer whose
+    transport answers the probe counts as heard at each round
+    (``ChurnSupervisor._startup_round``).  A peer that answers but never
+    heartbeats is then voted out 3 x the suspicion after the window, as
+    the controller votes out a wedged one."""
+    return STARTUP_SKEW_SEC + 3 * suspect_sec
+
 
 class ChurnSupervisor:
     """One per-process churn control loop over the live window transport.
@@ -119,6 +136,14 @@ class ChurnSupervisor:
                             len(self.ctrl.active_ranks()))
         telemetry.set_gauge("bf_membership_epoch", self.ctrl.epoch)
         self._stop = threading.Event()
+        # The peers not heard from yet (a heartbeat carries its step), the
+        # end of their start-up window, and each first heartbeat's seconds
+        # from this supervisor's start (the start-up skew, measured).
+        self._started = self.ctrl.now_fn()
+        self._unheard = set(self.ctrl.active) - {d.my_proc}
+        self._grace_until = self._started + startup_grace_sec(
+            self.ctrl.suspect_sec)
+        self.startup_heard: Dict[int, float] = {}
         self._hb_thread = threading.Thread(
             target=self._hb_loop, daemon=True, name="bf-churn-hb")
         self._hb_thread.start()
@@ -170,11 +195,47 @@ class ChurnSupervisor:
         except (OSError, ConnectionError):
             return False
 
+    def _startup_round(self) -> None:
+        """The start-up window.  The gang's processes reach their
+        supervisors at different times (each builds its model and
+        optimizer first, seconds apart on a loaded host), and the
+        controller counts a peer silent from its own construction, so a
+        process that started 3 x the suspicion before a peer proposed it
+        out, and with it everyone it had not heard yet (the reference
+        does the same on that schedule: ``test_torch_port_liveness.py::
+        test_late_starter_is_voted_out_by_both_controllers``).  Until a
+        peer's first heartbeat, for at most :func:`startup_grace_sec`, a
+        peer whose transport listener answers counts as heard at this
+        round: alive, its supervisor not started yet.  A dead peer does
+        not answer and ages out as before."""
+        ctrl = self.ctrl
+        now = ctrl.now_fn()
+        with ctrl._lock:
+            # A heartbeat carries its sender's step.
+            for p in self._unheard & set(ctrl.peer_step):
+                self.startup_heard[p] = round(now - self._started, 4)
+            self._unheard = {p for p in self._unheard & ctrl.active
+                             if p not in ctrl.peer_step}
+        if not self._unheard or now > self._grace_until:
+            self._unheard = set()
+            return
+        alive = [p for p in sorted(self._unheard) if self._probe(p)]
+        with ctrl._lock:
+            for p in alive:
+                ctrl.last_seen[p] = max(ctrl.last_seen.get(p, 0.0), now)
+
+    def _round(self) -> None:
+        """One heartbeat round: the start-up window, then the
+        controller's detection, consensus and heartbeats."""
+        if self._unheard:
+            self._startup_round()
+        self.ctrl.tick()
+
     def _hb_loop(self) -> None:
         ticks = 0
         while not self._stop.wait(self._hb_sec):
             try:
-                self.ctrl.tick()
+                self._round()
             except Exception:  # noqa: BLE001 — the heartbeat must survive
                 from bluefog_tpu_torch.utils.logging import get_logger
                 get_logger().exception("churn supervisor heartbeat failed")

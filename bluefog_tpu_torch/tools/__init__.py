@@ -34,9 +34,24 @@ writes too, and prints what the JAX command prints, byte for byte:
       The trajectory table of the repo's ``BENCH_r<N>.json`` records,
       with the ``MULTICHIP_r<N>.json`` probe table beside it.
 
-``chaos`` and ``top`` are refused: they are ROADMAP item 22c's second
-half.  ``python -m bluefog_tpu_torch.tools.metrics_lint`` checks the
-port's registered metrics against ``docs/observability.md``.
+  python -m bluefog_tpu_torch.tools top --endpoints host:port,... | \
+          --gang-dir <prefix> [--telemetry-base PORT] [--once]
+      Live fleet dashboard (``tools/top.py``): poll every rank's
+      ``/metrics`` + ``/healthz`` and render per-rank status, async lag,
+      queue depth, straggler score, overlap, tuner and SLO state, the
+      merged link matrix, membership and the stalest contribution.
+
+  python -m bluefog_tpu_torch.tools chaos [--np 4] [--device cpu] \
+          [--smoke | --delay-smoke | --join-smoke | --kill0-smoke |
+           --links-smoke | --tune-smoke]
+      The chaos harness (``tools/chaos.py``): a gang under ``bfrun
+      --chaos`` that loses a process (or a join, a straggler, a slow
+      link), judged on the churn controller's, the async mode's, the link
+      observatory's or the tuner's promise.  The gang's rows live on the
+      card unless ``--device cpu``.
+
+``python -m bluefog_tpu_torch.tools.metrics_lint`` checks the port's
+registered metrics against ``docs/observability.md``.
 """
 
 from __future__ import annotations
@@ -633,11 +648,15 @@ def _multichip_trend(directory: str,
 def main(argv=None) -> int:
     import sys
     argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in ("chaos", "top"):
-        print(f"python -m bluefog_tpu_torch.tools {argv[0]}: not ported "
-              "yet (ROADMAP item 22c, its second half: tools/chaos.py and "
-              "tools/top.py)", file=sys.stderr)
-        return 2
+    if argv and argv[0] == "chaos":
+        # The chaos harness owns a rich flag surface (and a --worker mode
+        # bfrun re-enters); delegate before the subparser dispatch.
+        from bluefog_tpu_torch.tools.chaos import main as chaos_main
+        return chaos_main(argv[1:])
+    if argv and argv[0] == "top":
+        # Same delegation: the dashboard owns its flag surface.
+        from bluefog_tpu_torch.tools.top import main_top
+        return main_top(argv[1:])
     parser = argparse.ArgumentParser(
         prog="python -m bluefog_tpu_torch.tools", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -677,11 +696,16 @@ def main(argv=None) -> int:
     pb.add_argument("--pattern", default="BENCH_r*.json",
                     help="glob for the bench records "
                          "(default BENCH_r*.json)")
-    # Listed for --help only; refused above until item 22c's second half.
-    sub.add_parser("chaos", add_help=False,
-                   help="not ported yet (ROADMAP item 22c)")
-    sub.add_parser("top", add_help=False,
-                   help="not ported yet (ROADMAP item 22c)")
+    # Listed for --help only; dispatched above.
+    sub.add_parser(
+        "chaos", add_help=False,
+        help="churn-controller chaos harness: kill a gang rank mid-gossip "
+             "under bfrun --chaos and assert survivor-only recovery")
+    sub.add_parser(
+        "top", add_help=False,
+        help="live fleet dashboard: poll every rank's /metrics + /healthz "
+             "and render the link matrix, stragglers, SLO state and "
+             "membership in one refreshing terminal frame")
     pd = sub.add_parser(
         "schedule-dump",
         help="compiled-schedule pipeline report (provenance, rounds, "

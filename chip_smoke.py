@@ -158,14 +158,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 18. ``ulysses_reference`` — the same for Ulysses all-to-all attention (one
    launch of each kernel a layer, on the gathered sequence).
 19. ``ring_train`` — the slice's main path: ``long_context_training.
-   SequenceParallelLM`` at the 1.3B LM's widths (``RING_LAYERS`` = 6
-   layers, cut from 24 and then 12 for the smoke's time, width 2048, 16 heads of 128,
+   SequenceParallelLM`` at the 1.3B LM's widths (``RING_LAYERS`` = 4
+   layers, cut from 24, 12 and 6 for the smoke's time, width 2048, 16 heads of 128,
    vocab 32000, RoPE; 24 layers are 1,339,131,904 parameters), bf16 over
    float32 parameters, full remat, the chunked loss, Adam, one sequence of
    16,384 tokens over 4 rank-major ring shards of 4,096, ``RING_STEPS`` =
    3 steps (cut from 5 for the smoke's time): step ms
    (the first step left out), tokens/s, peak memory, launches (K1 2 x 4
-   hops x 6 layers a step, K2 and K3 4 x 6) and a ``profile_step``
+   hops x 4 layers a step, K2 and K3 4 x 4) and a ``profile_step``
    profile of one more step (device idle share, K1-K3's device time).
 20. ``ulysses_train`` — the same LM at 4 layers through Ulysses, with a
    ``profile_step`` profile of one more step: the copies of its two moves
@@ -194,22 +194,22 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 25. ``tp_train`` — ``__graft_entry__.dryrun_multichip``'s tensor-parallel
    step at dp 2 x tp 2 on 4 virtual ranks: ``tensor_parallel_training.
    DataTensorParallelLM`` at the 1.3B LM's widths with SwiGLU
-   (``TP_LAYERS`` = 8 layers, cut from 24 and then 12 for the smoke's
-   time, 672,172,032 parameters a dp replica, no remat), batch 2 x 2048 a dp
+   (``TP_LAYERS`` = 4 layers, cut from 24, 12 and 8 for the smoke's
+   time, 403,720,192 parameters a dp replica, no remat), batch 2 x 2048 a dp
    rank, ATC SGD (lr 0.025) over the one-peer Exp2 walk, 4 steps: step ms
    (the first left out), tokens/s, peak memory under 80 GB, the spread
-   exactly 0.0 after every combine, launches 8 layers x 2 dp ranks of
+   exactly 0.0 after every combine, launches 4 layers x 2 dp ranks of
    each kernel a step; a ``profile_step`` profile of one more step (idle
    share, K1-K3, the tp sums ``tp::row_sum``).
 26. ``pp_train`` — 1F1B (``parallel.pipeline.pipeline_train_step``) of the
-   same model's blocks, ``PP_LAYERS`` = 8 (cut from 24 and then 12 for
-   the smoke's time) in 4 rank-major stages of 2, 8 microbatches of one
+   same model's blocks, ``PP_LAYERS`` = 4 (cut from 24, 12 and 8 for
+   the smoke's time) in 4 rank-major stages of 1, 8 microbatches of one
    2048-token sequence, MSE against a synthetic target, 3 SGD steps: the
-   first step's loss and gradients against autograd through the 8 blocks
+   first step's loss and gradients against autograd through the 4 blocks
    in sequence
    (``REF_LOGITS_TOL``, ``REF_GRAD_TOL``), step ms, tokens/s, the 22
-   ticks, peak memory under 80 GB, launches K1 2 x 8 x 8 and K2, K3
-   8 x 8 a step; ``profile_step.trace`` of one more step.
+   ticks, peak memory under 80 GB, launches K1 2 x 4 x 8 and K2, K3
+   4 x 8 a step; ``profile_step.trace`` of one more step.
 27. ``pp_variants`` — GPipe (autograd through ``pipeline_apply``),
    interleaved 1F1B (v = 2) and ZB-H1 at 8 blocks (the depth cut for the
    smoke's time), each warmed once, then one timed step against plain
@@ -310,8 +310,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    win_put`` (batch 64, 4 ranks, 1 warmup + 2 timed steps), with the
    window combine's time beside its bound.
 37. ``win_dist_train`` — across the same 2 x 2: the benchmark's win_put
-   LM at full width cut to ``WIN_DIST_LAYERS`` = 2 blocks (at 10, a step
-   took 25 s, at 4 11 s: the smoke's time; owned layout), 1 warmup + 1
+   LM at full width cut to ``WIN_DIST_LAYERS`` = 1 block (at 10, a step
+   took 25 s, at 4 11 s, at 2 more than the smoke's time allows; owned layout), 1 warmup + 1
    timed step (cut from 2):
    finite losses, K1-K3 launches layers x 2 ranks x 2 steps a process,
    the combine shrinks the world's spread; step ms, tokens/s, the window
@@ -404,18 +404,18 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 44a. ``churn_train`` — elasticity across processes (ROADMAP item 20): 4
    processes of one rank on card 0 (``BFTPU_*`` rendezvous, gloo for the
    control, the window transport for the rows), the 1.3B LM at full width
-   and ``WIN_DIST_LAYERS`` = 2 blocks in the owned layout,
+   and ``WIN_DIST_LAYERS`` = 1 block in the owned layout (a 0.74 GB row),
    ``DistributedWinPutOptimizer(fused=True)`` on ``ExponentialGraph(4)``,
    ``CHURN_STEPS`` = 12 steps under ``CHURN_KNOBS`` (the JAX package's
-   ``tools/chaos.py`` demo: 80 ms heartbeats, one retry of 25 ms,
-   ``kill:rank=3:step=2``, but 2,000 ms of suspicion where the demo has
-   500: at 500 a live process was voted out in 7 of 14 runs of this
-   phase before each heartbeat copy had its own sender thread, and gaps
-   of up to ~1.5 s remain; 2 stripes, each heartbeat copy sent from its
-   own thread, so
-   that none waits behind a 0.94 GB row).  Before the checks, a
+   ``tools/chaos.py`` demo: 80 ms heartbeats, 500 ms of suspicion, one
+   retry of 25 ms, ``kill:rank=3:step=2``; 2 stripes, each heartbeat copy
+   sent from its own thread as a frame of its own, which the receiver's
+   control lane takes, so that none waits behind a row on the wire or in
+   the drain).  Before the checks, a
    ``churn_liveness`` line: each survivor's longest heartbeat gaps from
-   each peer, its heartbeat thread's ticks, probes and proposals, the
+   each peer, each gap over 250 ms split across the sender's pause, the
+   wire, the wait from the read to the pop and from the pop to the note,
+   its heartbeat thread's ticks, probes and proposals, the
    drain's slow calls and the longest stalls of its threads with where
    each thread stood.  Rank 3 SIGKILLs itself at the top
    of step 2 and must die of it; the survivors, without a leader or a
@@ -426,7 +426,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    isolated, build and capture the fused program anew at the new epoch
    with statuses 0, keep finite losses, and at the last step the rms
    spread across them (over ``CHURN_SAMPLE`` sampled columns) is smaller
-   after the combine than after the adapt; K1-K3 launch 2 x 12 times in
+   after the combine than after the adapt; K1-K3 launch 1 x 12 times in
    each survivor (the processes drift apart: the survivors commit at their
    step 2 to 4).  The rebuilt staging is zero, as the JAX supervisor
    leaves it: a survivor's first combine after its rebuild takes a zero
@@ -442,7 +442,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    report through their JSON files only: after the kill nothing calls a
    collective.
 44b. ``elastic_train`` — ``utils.elastic.run_elastic`` in this process: the
-   LM at 2 blocks on 4 virtual ranks, static neighbor_allreduce, 4 steps
+   LM at 1 block on 4 virtual ranks, static neighbor_allreduce, 4 steps
    in a temporary directory the phase removes: the 4 steps uninterrupted
    (the reference, no checkpoint), then under ``run_elastic`` a checkpoint
    (DCP, ``utils/checkpoint.py``) every 2
@@ -451,11 +451,23 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    6 steps until cut for the smoke's time):
    the final parameters bit for bit the uninterrupted run's (else the
    largest difference is reported and the phase fails).  Prints each
-   save's pinned host copy and DCP write of the 3.78 GB of rows in GB/s,
+   save's pinned host copy and DCP write of the 2.97 GB of rows in GB/s,
    and the resume seconds.  Push-sum's resume with its window store in
    the checkpoint runs in ``elastic_example``: at these widths its store
    (main and staging, ~11 GB a save) would take the machine's disk past
    its 45 GiB of writes a call.
+44c. ``chaos_tool`` — the port's chaos harness on the card (ROADMAP item
+   22c): ``python -m bluefog_tpu_torch.tools chaos --join-leg --device
+   cuda`` at the smoke profile's sizes with 40 s of gossip and a 10 ms
+   pace (``CHAOS_TOOL_ARGS``; 4 processes of one rank under ``bfrun
+   --elastic --chaos``, rows of 32 float32 on the card, 80 ms heartbeats,
+   500 ms of suspicion, rank 2 killed at step 80, a fresh process
+   admitted through the persisted gang directory by one grow epoch), and
+   while that gang is live one ``tools top --once`` frame of its
+   telemetry endpoints: the tool's verdict, the rows' device, the
+   joiner's admission seconds, detection (the victim's clock at its kill
+   to each member's shrink commit), recovery, the frame's lines and its
+   endpoints up (4 of 4).
 45. ``{"kernels": [...]}`` (launches from the ``train``,
    ``train_host_data``, ``llama_train``,
    ``moe_train``, ``ring_train``, ``ulysses_train``, ``dp_sp_train``,
@@ -509,16 +521,16 @@ SWITCH_F32_TOL = 1e-5        # SwitchMlp f32, card vs CPU: relative
 VIT_LAYERS = 12
 SEQ_TOKENS = 16384           # the long-context LM: one sequence of 16,384
 SEQ_SHARDS = 4               # tokens over 4 rank-major shards of 4,096
-RING_LAYERS = 6              # ring_train: 6 layers and 3 Adam steps
-RING_STEPS = 3               # (24 and 5, then 12 layers: cut for time)
+RING_LAYERS = 4              # ring_train: 4 layers and 3 Adam steps
+RING_STEPS = 3               # (24 and 5, then 12 and 6 layers: cut for time)
 ULYSSES_LAYERS = 4           # ulysses_train and dp_sp_train at a reduced
 DP_SP_LAYERS = 4             # depth, to keep the smoke within its time
 TP_DP, TP_WAYS = 2, 2        # tp_train: dp 2 x tp 2, 4 virtual ranks
-TP_LAYERS = 8                # tp_train's depth (24, then 12: cut for time)
-TP_PARAMS = 672172032        # a dp replica: MHA, SwiGLU, learned positions
-PP_STAGES, PP_MICROBATCHES = 4, 8   # pp_train: 8 blocks in 4 stages of 2,
-PP_LAYERS = 8                       # 8 microbatches of one 2048 sequence
-PP_BLOCK_PARAMS = 536903680         # (24, then 12 blocks: cut for time)
+TP_LAYERS = 4                # tp_train's depth (24, 12, 8: cut for time)
+TP_PARAMS = 403720192        # a dp replica: MHA, SwiGLU, learned positions
+PP_STAGES, PP_MICROBATCHES = 4, 8   # pp_train: 4 blocks in 4 stages of 1,
+PP_LAYERS = 4                       # 8 microbatches of one 2048 sequence
+PP_BLOCK_PARAMS = 268451840         # (24, 12, 8 blocks: cut for time)
 PP_VARIANT_LAYERS = 8        # pp_variants: depth cut to keep the smoke's time
 COMPOSED_TOL = (2e-4, 2e-5)  # dp x tp x pp (x ep) vs dense, f32: rtol, atol
 SEED = 0                     # inputs and weights are drawn from it
@@ -529,7 +541,8 @@ WINPUT_LAYERS = 10           # winput_train: the windows' 25 rows a step fit
 FUSED_BUCKETS = 4            # fused_train: winput_train's LM and depth in
 FUSED_STEPS = 3              # 4 fusion buckets, 1 uncaptured + 2 replayed
 FUSED_COMPARE_AT = (2,)      # steps after which the parameters must agree
-WIN_DIST_LAYERS = 2          # win_dist_train: the depth its time allows
+WIN_DIST_LAYERS = 1          # win_dist_train, churn_train, elastic_train:
+                             # the depth their time allows
 WIN_VARIANT_LAYERS = 2       # win_variants: pull-get, push-sum, overlap
 WIN_OPS_COLS = 1 << 24       # win_ops and the hierarchical card-vs-CPU check
 WIN_CHECK_COLS = 1 << 22     # winput_train's float64 recheck: column sample
@@ -592,22 +605,21 @@ CHURN_PROCS = 4              # churn_train: 4 processes of one rank on
 CHURN_STEPS = 12             # card 0, win_put steps; rank 3 killed at
 CHURN_KILL_STEP = 2          # step 2 (rank 0 hosts the rendezvous)
 CHURN_SAMPLE = 4096          # columns sampled for the spread across them
-# tools/chaos.py run_demo's knobs (heartbeat, retries) but 2 s of suspicion
-# where the demo has 500 ms: at 500 a live process was voted out in 7 of
-# 14 runs here before each heartbeat copy had its own sender thread, and
-# gaps of up to ~1.5 s between heartbeats remain after (4 processes put
-# 0.94 GB rows over one loopback; PERF.md section 7), and 2 stripes: the
-# row of a (window, rank) rides one, and every heartbeat is sent on each.
+# tools/chaos.py run_demo's knobs (80 ms heartbeats, 500 ms of suspicion,
+# retries), and 2 stripes: the row of a (window, rank) rides one, and every
+# heartbeat is sent on each, as a frame of its own that the receiver's
+# control lane takes (a heartbeat behind the drain's fold of a 0.94 GB row
+# waited 0.4-0.9 s at 2 blocks: PERF.md section 6).
 CHURN_KNOBS = {"BLUEFOG_TPU_CHURN": "1",
                "BLUEFOG_TPU_CHURN_HEARTBEAT_MS": "80",
-               "BLUEFOG_TPU_CHURN_SUSPECT_MS": "2000",
+               "BLUEFOG_TPU_CHURN_SUSPECT_MS": "500",
                "BLUEFOG_TPU_WIN_RETRIES": "1",
                "BLUEFOG_TPU_WIN_RETRY_BACKOFF_MS": "25",
                "BLUEFOG_TPU_WIN_STRIPES": "2",
                "BLUEFOG_TPU_CHAOS": f"kill:rank=3:step={CHURN_KILL_STEP}"}
 ELASTIC_STEPS = 4            # elastic_train: the LM at WIN_DIST_LAYERS
 ELASTIC_SAVE_EVERY = 2       # under run_elastic, SIGTERM after step 3;
-ELASTIC_PREEMPT = 3          # saves of 3.78 GB at steps 2, 3 and 4 (the
+ELASTIC_PREEMPT = 3          # saves of 2.97 GB at steps 2, 3 and 4 (the
                              # machine's disk takes 45 GiB of writes a
                              # call; 6 steps until cut for the smoke's time)
 LM_WIDTHS = {"width": 2048, "heads": 16, "seq": 2048, "vocab": 32000}
@@ -3276,9 +3288,11 @@ def win_ops_phase():
 # ---------------------------------------------------------------------------
 
 def row_hashes(t):
+    """sha256 of each row's bytes, hashed from the host copy's buffer (a
+    ``.tobytes()`` copy of a 0.94 GB row held the GIL 0.43-0.49 s)."""
     import hashlib
-    return [hashlib.sha256(r.contiguous().cpu().numpy().tobytes())
-            .hexdigest() for r in t]
+    return [hashlib.sha256(r.contiguous().cpu().numpy().data).hexdigest()
+            for r in t]
 
 
 def launch_workers(phase, args=(), device=None, procs=WIN_DIST_PROCS,
@@ -4452,15 +4466,29 @@ def _watch_liveness(sup):
     process's heartbeat thread (the round of sends and probes), each
     reachability probe, and each call of the drain thread that took
     over 50 ms; the lists live in the returned dict."""
-    live = {"arrivals": {}, "ticks": [], "probes": [], "drain": [],
-            "steps": [], "proposals": [], "own_proposals": []}
+    live = {"arrivals": {}, "stages": {}, "sent": {}, "ticks": [],
+            "probes": [], "drain": [], "steps": [], "proposals": [],
+            "own_proposals": [], "port": sup._d.transport.port,
+            "startup_heard": sup.startup_heard}
     ctrl = sup.ctrl
     on_message, tick, probe = ctrl.on_message, ctrl.tick, ctrl.probe_fn
     tr = sup._d.transport
+    owner = sup._d.rank_owner
+    tr.member_rx.clear()
 
     def timed_on_message(msg):
         t = time.monotonic()
-        live["arrivals"].setdefault(str(msg.get("proc", -1)), []).append(t)
+        p = msg.get("proc", -1)
+        live["arrivals"].setdefault(str(p), []).append(t)
+        # The frame's read and pop stamps (the transport keeps them a
+        # source rank, in the order they are handed on).
+        for r in sorted(q for q, o in owner.items() if o == p):
+            stamps = tr.member_rx.get(r)
+            if stamps:
+                read, popped = stamps.popleft()
+                live["stages"].setdefault(str(p), []).append(
+                    [t, read, popped])
+                break
         if msg.get("prop") is not None:
             live["proposals"].append([t, msg.get("proc"), msg.get("epoch"),
                                       sorted(msg["prop"])])
@@ -4523,6 +4551,17 @@ def _watch_liveness(sup):
             if late > 0.25:
                 live["stalls"].append([t0, late, where])
 
+    send_copy = sup._send_copy
+
+    def noted_send(key, payload):
+        # Each heartbeat copy's enqueue, a peer's port at a time.
+        live["sent"].setdefault(str(key[1]), []).append(time.monotonic())
+        send_copy(key, payload)
+
+    sup._send_copy = noted_send
+    with sup._senders_lock:
+        for sender in sup._senders.values():
+            sender._send = noted_send
     live["stalls"] = []
     threading.Thread(target=watch_stalls, daemon=True,
                      name="smoke-stall-watch").start()
@@ -4543,15 +4582,59 @@ def _innermost(frame, k):
     return out
 
 
+GAP_SPLIT_S = 0.25            # heartbeat gaps split across their stages
+
+
+def _gap_splits(stages, sent, kill_mono, until=None):
+    """Every gap over ``GAP_SPLIT_S`` between two heartbeats of one peer
+    (each ``[noted, read, popped]``) split across the stages: the longest
+    pause of the sender's enqueues to this process inside the gap, the
+    rest of the gap between the two frames' reads (the wire and the
+    reader), the ending frame's wait from its read to its pop (behind the
+    frames ahead of it), and from its pop to the controller's note.  Gaps
+    that start at or after ``until`` are left out (a killed peer's)."""
+    out = []
+    for (n1, r1, q1), (n2, r2, q2) in zip(stages, stages[1:]):
+        if n2 - n1 <= GAP_SPLIT_S or (until is not None and n1 >= until):
+            continue
+        inside = [t for t in sent if n1 - 1.0 <= t <= n2]
+        pause = max((b - a for a, b in zip(inside, inside[1:])),
+                    default=None)
+        read_gap = r2 - r1
+        out.append({
+            "start": round(n1 - kill_mono, 4), "gap": round(n2 - n1, 4),
+            "sender_pause": None if pause is None else round(pause, 4),
+            "wire_and_reader": round(read_gap - (pause or 0.0), 4),
+            "queued_to_pop": round(q2 - r2, 4),
+            "pop_to_note": round(n2 - q2, 4)})
+    return out
+
+
 def _liveness_report(survivors, kill_mono, suspect_s):
     """Per survivor, on times relative to the kill: each peer's three
-    longest gaps between heartbeats (start, seconds), the heartbeat
-    thread's longest gap between ticks and longest tick, every probe,
-    the three longest drain calls, the commit of the new view, and the
-    three longest stalls of the process's threads with where each was."""
+    longest gaps between heartbeats (start, seconds), every gap over
+    ``GAP_SPLIT_S`` split across its stages (``_gap_splits``; a killed
+    peer's from its kill on left out), the heartbeat thread's longest gap
+    between ticks and longest tick, every probe, the three longest drain
+    calls, the commit of the new view, and the three longest stalls of
+    the process's threads with where each was."""
     out = []
     for p, rec in enumerate(survivors):
         live = rec.get("liveness") or {}
+        # What each live peer enqueued to this process.
+        sent_to_me = {str(q): (other.get("liveness") or {}).get(
+            "sent", {}).get(str(live.get("port")), [])
+            for q, other in enumerate(survivors) if q != p}
+        splits = {}
+        for q, st in sorted(live.get("stages", {}).items()):
+            gaps = _gap_splits(st, sent_to_me.get(q, []), kill_mono,
+                               until=None if q in sent_to_me else kill_mono)
+            splits[q] = {
+                "count": len(gaps),
+                "sums": {k: round(sum(g[k] or 0.0 for g in gaps), 4)
+                         for k in ("gap", "sender_pause", "wire_and_reader",
+                                   "queued_to_pop", "pop_to_note")},
+                "longest": sorted(gaps, key=lambda g: -g["gap"])[:5]}
 
         def longest(times, k=3):
             gaps = sorted(((b - a, a) for a, b in zip(times, times[1:])),
@@ -4561,10 +4644,15 @@ def _liveness_report(survivors, kill_mono, suspect_s):
         out.append({
             "process": p, "epoch": rec.get("epoch"),
             "active": rec.get("active"), "evicted": rec.get("evicted"),
+            "startup_heard_s": live.get("startup_heard"),
             "commit_s": (None if live.get("commit_mono") is None
                          else round(live["commit_mono"] - kill_mono, 4)),
             "heartbeat_gaps": {q: longest(ts) for q, ts in
                                sorted(live.get("arrivals", {}).items())},
+            "gap_splits": splits,
+            "longest_live_gap": max(
+                (g["gap"] for sp in splits.values() for g in sp["longest"]),
+                default=0.0),
             "gaps_over_suspicion": {
                 q: sum(1 for a, b in zip(ts, ts[1:]) if b - a > suspect_s)
                 for q, ts in sorted(live.get("arrivals", {}).items())},
@@ -4629,8 +4717,12 @@ def churn_train_phase():
     suspect_s = float(CHURN_KNOBS["BLUEFOG_TPU_CHURN_SUSPECT_MS"]) / 1e3
     zero = (kill_mono if kill_mono is not None
             else survivors[0]["liveness"]["steps"][0][0])
+    # The start-up skew: the latest first heartbeat of a peer, in seconds
+    # from a supervisor's start (the supervisor's start-up window).
+    skew = max((s for rec in survivors for s in ((rec.get("liveness") or {})
+                .get("startup_heard") or {}).values()), default=None)
     emit("churn_liveness", exit_summary=summary, launch_clock=clock,
-         suspect_s=suspect_s,
+         suspect_s=suspect_s, startup_skew_s=skew,
          times_from="kill" if kill_mono is not None else "first step",
          survivors=_liveness_report(survivors, zero, suspect_s))
     require(kill_mono is not None, "churn: rank 3 left no kill time")
@@ -4726,6 +4818,70 @@ def churn_train_phase():
         expected_launches_per_survivor=expected, per_process=per_process,
         launches=launches)
     return launches
+
+
+# chaos_tool: the tool's join leg at its smoke profile's sizes (32-float
+# rows, the kill at step 80) but 40 s of gossip where --join-smoke caps it at
+# 24 and a 10 ms pace where it has 3: on a loaded host the joiner, which
+# imports torch and opens its CUDA context after the shrink, came up after
+# the members had stopped at the 24 s deadline (PERF.md section 6).
+CHAOS_TOOL_ARGS = ("--join-leg", "--run-sec", "40", "--dim", "32",
+                   "--pace-ms", "10", "--kill-step", "80")
+CHAOS_TOOL_TIMEOUT = 300
+
+
+def chaos_tool_phase():
+    """The port's chaos harness on the card, ``python -m
+    bluefog_tpu_torch.tools chaos`` with ``CHAOS_TOOL_ARGS`` and
+    ``--device cuda``, the tool's join leg at its own knobs: 4 processes
+    of one rank under ``bfrun --elastic --chaos`` (rows of 32 float32 on
+    the card, 80 ms heartbeats, 500 ms of suspicion), rank 2 killed at
+    step 80, and a fresh process that joins through the persisted gang
+    directory and takes its seat by one grow epoch; while that gang is
+    live, ``tools top --once`` renders one frame from its telemetry
+    endpoints.  The tool's verdict, the joiner's admission seconds,
+    detection (the victim's clock at its kill to each member's shrink
+    commit), recovery and the frame's lines."""
+    import re
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-m", "bluefog_tpu_torch.tools", "chaos",
+         *CHAOS_TOOL_ARGS, "--device", DEVICE], cwd=here,
+        env=_launcher_free_env(), capture_output=True, text=True,
+        timeout=CHAOS_TOOL_TIMEOUT)
+    wall = time.perf_counter() - t0
+    out = p.stdout
+    verdict = next((ln for ln in out.splitlines()
+                    if re.match(r"chaos join (OK|FAILED)", ln)), None)
+    m = re.search(r"chaos join: detection (\[.*?\]|None) s .*?recovery "
+                  r"(\[.*?\]) s, joiner admitted after (\[.*?\]) s", out)
+    t = re.search(r"tools top rendered (\d+) lines, (\d+)/(\d+) endpoints "
+                  r"up \(rc (-?\d+)", out)
+    rows_on = sorted(set(re.findall(r"rows on (\S+)", out)))
+    frame = [ln for ln in out.splitlines() if ln.startswith("127.0.0.1:")]
+    res = {"rc": p.returncode, "verdict": verdict, "wall_s": wall,
+           "detection_s": json.loads(m.group(1)) if m else None,
+           "recovery_s": json.loads(m.group(2)) if m else None,
+           "admitted_after_s": json.loads(m.group(3)) if m else None,
+           "top_lines": int(t.group(1)) if t else None,
+           "top_up": int(t.group(2)) if t else None,
+           "top_endpoints": int(t.group(3)) if t else None,
+           "top_rc": int(t.group(4)) if t else None,
+           "top_rows": frame, "rows_on": rows_on}
+    emit("chaos_tool", args=list(CHAOS_TOOL_ARGS), device=DEVICE, **res)
+    require(p.returncode == 0 and verdict and verdict.startswith(
+        "chaos join OK"), f"chaos_tool: rc {p.returncode}, verdict "
+        f"{verdict}:\n{out[-3000:]}\n{p.stderr[-3000:]}")
+    require(t is not None and res["top_rc"] == 0 and res["top_up"] == 4
+            and res["top_endpoints"] == 4,
+            f"chaos_tool: the top frame {res}")
+    want = "cuda:0" if DEVICE == "cuda" else "cpu"
+    require(rows_on == [want], f"chaos_tool: rows on {rows_on}")
+    require(m is not None and res["detection_s"]
+            and all(d > 0 for d in res["detection_s"]),
+            f"chaos_tool: detection {res}")
+    return res
 
 
 class _RecordingSaver:
@@ -5750,6 +5906,7 @@ def main():
     win_sharded_phase()
     churn_launches = churn_train_phase()
     elastic_launches = elastic_train_phase(benchmark)
+    chaos_tool_phase()
     flush_wall()
 
     kernels = []
@@ -5814,7 +5971,45 @@ def main():
     return 0
 
 
+def churn_runs(runs):
+    """``--churn-runs N``: ``churn_train`` alone, N times at
+    ``CHURN_KNOBS`` (the heartbeat-liveness measurement), each run's
+    ``churn_liveness`` and verdict on lines of their own; exits 0 iff
+    every run passed."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script "
+              "runs on the GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from bluefog_tpu_torch.ops import flash_attention as FA
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0))
+    FA.load_library()
+    build_native()
+    passed = 0
+    for run in range(runs):
+        t0 = time.perf_counter()
+        try:
+            churn_train_phase()
+            ok, why = True, None
+        except Exception as e:  # noqa: BLE001 — the next run still runs
+            ok, why = False, str(e)[-2000:]
+        passed += ok
+        emit("churn_run", run=run, ok=ok, error=why,
+             wall_s=time.perf_counter() - t0)
+    flush_wall()
+    return 0 if passed == runs else 1
+
+
 if __name__ == "__main__":
     if len(sys.argv) > 4 and sys.argv[1] == "--worker":
         sys.exit(worker_main(*sys.argv[2:]))
+    if len(sys.argv) > 2 and sys.argv[1] == "--churn-runs":
+        import argparse
+        ap = argparse.ArgumentParser(prog="chip_smoke.py --churn-runs")
+        ap.add_argument("--churn-runs", type=int, required=True)
+        sys.exit(churn_runs(ap.parse_args().churn_runs))
     sys.exit(main())

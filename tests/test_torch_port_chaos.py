@@ -143,23 +143,30 @@ def test_member_frame_ships_at_once_behind_queued_data(elems):
     """An OP_MEMBER heartbeat is urgent on the native sender: queued
     behind a put on the same peer's FIFO (256 KiB, under the byte
     threshold, so only the heartbeat's urgency ships it; and 32 MiB), it
-    cuts a 5 s linger and reaches the receiver right after the put."""
+    cuts a 5 s linger, ships right behind the put as a frame of its own,
+    and the receiver hands it to the control lane (``apply``), never to
+    the drain (``apply_items``), which gets the put."""
     import threading
 
     from bluefog_tpu_torch.utils import config
     got = []
     ev = threading.Event()
+    put_ev = threading.Event()
+
+    def apply(op, *a):
+        got.append(("control", op & ~T.OP_FLAG_MASK, time.monotonic()))
+        if (op & ~T.OP_FLAG_MASK) == T.OP_MEMBER:
+            ev.set()
 
     def apply_items(items):
         for kind, payload in items:
             op = payload[0] if kind == 0 else None
-            got.append((kind, op, time.monotonic()))
-            if op is not None and (op & ~T.OP_FLAG_MASK) == T.OP_MEMBER:
-                ev.set()
+            got.append(("drain", op, time.monotonic()))
+            if op is not None and (op & ~T.OP_FLAG_MASK) == T.OP_PUT:
+                put_ev.set()
 
     with config.override(win_coalesce_linger_ms=5000.0):
-        server = T.WindowTransport(lambda *a: None,
-                                   apply_items=apply_items)
+        server = T.WindowTransport(apply, apply_items=apply_items)
         client = T.WindowTransport(lambda *a: None)
     try:
         assert client.native_path
@@ -169,9 +176,14 @@ def test_member_frame_ships_at_once_behind_queued_data(elems):
         client.send("127.0.0.1", server.port, T.OP_MEMBER, "", 0, -1, 0.0,
                     np.frombuffer(b'{"k": "hb"}', np.uint8))
         assert ev.wait(timeout=4.0), "heartbeat waited for the linger"
+        assert put_ev.wait(timeout=4.0)
         assert time.monotonic() - t0 < 4.0
-        ops = [op & ~T.OP_FLAG_MASK for k, op, _ in got if k == 0]
-        assert ops.index(T.OP_MEMBER) > ops.index(T.OP_PUT)
+        assert [(lane, op) for lane, op, _ in got] == [
+            ("control", T.OP_MEMBER), ("drain", T.OP_PUT)] or [
+            (lane, op) for lane, op, _ in got] == [
+            ("drain", T.OP_PUT), ("control", T.OP_MEMBER)]
+        (read, popped), = server.member_rx[0]
+        assert t0 <= read <= popped
     finally:
         client.stop()
         server.stop()

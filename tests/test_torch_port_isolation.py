@@ -44,6 +44,7 @@ def test_import_leaves_jax_out():
             "bluefog_tpu_torch.mnist_lenet, bluefog_tpu_torch.tools, "
             "bluefog_tpu_torch.tools.tracegossip, "
             "bluefog_tpu_torch.tools.metrics_lint, "
+            "bluefog_tpu_torch.tools.chaos, bluefog_tpu_torch.tools.top, "
             "bluefog_tpu_torch.run.run;"
             "bf = bluefog_tpu_torch; bf.pipeline_train_step, bf.moe_apply, "
             "bf.tp_shard_params, bf.parallel.pipeline_apply;"
