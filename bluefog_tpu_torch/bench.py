@@ -39,9 +39,13 @@ SLO rules and this process's link table, as the root ``bench.py``'s
 table is empty; the block keeps the schema), and ``churn``: the churn
 controller's membership view (epoch, active ranks, changes, last change)
 with ``BLUEFOG_TPU_CHURN=1``, ``{"enabled": false}`` otherwise, as the
-root's ``_churn_summary``.  The root's ``fused_step``
-block drives ``bench_comm.py``'s loopback rig and comes with that rig
-(ROADMAP item 22).
+root's ``_churn_summary``, and ``fused_step``: with
+``BLUEFOG_TPU_FUSED_STEP`` set, the eager-vs-fused step time (p50/p99 ms),
+speedup, build and capture seconds and the probes' measured overlap of
+``bench_comm``'s loopback rig (``bench_comm._fused_timing_cell(steps=20,
+warm=4)``: 32 leaves of (8, 128) over 8 fusion buckets, on the bench's
+device), as the root's ``_fused_step_summary``; ``{"enabled": false}``
+unless the flag is set.
 """
 
 from __future__ import annotations
@@ -279,6 +283,24 @@ def _churn_summary() -> dict:
             "last_change_unix": m["last_change_unix"]}
 
 
+def _fused_step_summary(device: str) -> dict:
+    """The fused step's evidence (the root ``bench.py``'s
+    ``_fused_step_summary``): with ``BLUEFOG_TPU_FUSED_STEP`` set, the
+    timing cell of ``bench_comm``'s loopback rig; ``{"enabled": False}``
+    otherwise.  A rig that fails raises (the root labels a skip)."""
+    from bluefog_tpu_torch import bench_comm
+    from bluefog_tpu_torch.utils import config
+    if not config.get().fused_step:
+        return {"enabled": False}
+    prev = bench_comm._fused_env_setup()
+    try:
+        cell = bench_comm._fused_timing_cell(steps=20, warm=4,
+                                             device=device)
+    finally:
+        bench_comm._fused_env_restore(prev)
+    return {"enabled": True, **cell}
+
+
 def _no_backend_or_cpu(reason: str) -> bool:
     """The card was asked for and is absent: with
     ``BLUEFOG_TPU_BENCH_ALLOW_CPU=1`` go on as a labeled CPU smoke run
@@ -353,6 +375,8 @@ def main(argv=None):
         "links": _links_summary(),
         "telemetry": telemetry.snapshot() if telemetry.enabled() else None,
     }
+    # After the snapshot: the fused rig resets the registry.
+    detail["fused_step"] = _fused_step_summary(args.device)
     if on_card:
         detail["device_name"] = torch.cuda.get_device_name(0)
     print(json.dumps({

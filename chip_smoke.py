@@ -220,7 +220,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    against the dense sequential step on the card (``COMPOSED_TOL``).
 29. ``tp_example``, 30. ``pp_example`` — ``python -m bluefog_tpu_torch.
    tensor_parallel_training``'s and ``pipeline_training``'s ``main`` on the
-   card (each schedule): the loss falls.
+   card (each schedule), 8 and 10 steps (15 and 20 before the bench rigs'
+   legs): the loss falls.
 30a. ``elastic_example`` — ``python -m bluefog_tpu_torch.elastic_training``'s
    ``main`` on the card at its own size (60 steps of a small MLP on 4
    ranks, a checkpoint every 10), under neighbor_allreduce and under
@@ -255,15 +256,20 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    columns (``WIN_TOL``).
 32a. ``fused_train`` — the fused window step (``ops/fused_step.py``):
    ``winput_train``'s LM and depth, win_put in ``FUSED_BUCKETS`` = 4
-   fusion buckets, ``FUSED_STEPS`` = 3 steps eagerly, then 3 fused from the
+   fusion buckets, ``FUSED_STEPS`` = 2 steps eagerly, then 2 fused from the
    same seed (the first uncaptured, then captured into a CUDA graph and
-   replayed): the parameters bit for bit the eager ones after step 2 (a
-   replayed step); ``bf_fused_step_active`` 1, the replays equal to the 2 timed
-   steps; each step's ms both ways, the window ms beside its bound of 28
-   row passes, the capture seconds, the synchronizing calls of step 3
+   replayed): the parameters bit for bit the eager ones after step 2 (the
+   replayed step); ``bf_fused_step_active`` 1, one replay; each step's ms
+   both ways, the window ms beside its bound of 28
+   row passes, the capture seconds, the synchronizing calls of step 2
    both ways (``set_sync_debug_mode``), the probes' measured overlap
    beside ``modeled_overlap``'s, and K1-K3 launches (the graph holds no
-   attention: the eager count).
+   attention: the eager count).  Then the bench rigs' legs (ROADMAP item
+   22d, ``fused_rig_legs``): ``bench_comm``'s ``--ffi-smoke`` (on the card
+   the plans' pinned staging bytes equal the source rows put),
+   ``--fused-smoke`` and ``--probe-smoke`` on card tensors through its
+   loopback store, and the port bench's ``fused_step`` block with
+   ``BLUEFOG_TPU_FUSED_STEP`` set, each JSON on a line of the phase.
 33. ``win_variants`` — ``DistributedPullGetOptimizer``,
    ``DistributedPushSumOptimizer`` and ``DistributedWinPutOptimizer(
    overlap=True)`` on the LM at full width and 2 blocks, 3 steps each: the
@@ -276,7 +282,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    state-dict round trip and ``win_mutex`` against a writer in another
    thread, on a (4, 2^24) float32 tensor under ExponentialGraph(4): the
    card against the CPU bit for bit; ``win_update``'s time beside its
-   bound.
+   bound.  Then ``window_benchmark``'s single-process leg (item 22d) at
+   its ResNet-50 width, 8 ranks, ``WINDOW_BENCH_ROUNDS`` rounds.
 35-41 across processes: one launch of 2 processes of 2 ranks runs the
    workers of ``win_dist_ops``, ``win_dist_train``, ``win_async_ops`` and
    ``win_async_train`` in turn (``dist_phases``: one start-up of the
@@ -381,7 +388,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    ``neighbor_allreduce`` and the dynamic combine of every phase on
    (16, 2^20) float32 rows over those schedules, bit for bit the same calls
    on the CPU, timed beside the byte bound.  Fails unless some dispatched
-   schedule is congestion-packed or synthesized.
+   schedule is congestion-packed or synthesized.  Then ``bench_comm``'s
+   schedule bench (``--smoke``, item 22d) on the card.
 43. ``sharded_moe_train`` — the switch-MoE LM at the 1.3B LM's widths
    (``SHARD_LAYERS`` = 2 blocks of 8 GELU experts, 705,734,656 parameters a
    rank, full remat, bf16 through K1-K3), 4 ranks, each row offset from the
@@ -539,7 +547,8 @@ SOURCE = "bluefog_tpu_torch/csrc/flash_attention.cu"
 HIER_LAYERS = 24             # hier_train: full depth
 WINPUT_LAYERS = 10           # winput_train: the windows' 25 rows a step fit
 FUSED_BUCKETS = 4            # fused_train: winput_train's LM and depth in
-FUSED_STEPS = 3              # 4 fusion buckets, 1 uncaptured + 2 replayed
+FUSED_STEPS = 2              # 4 fusion buckets, 1 uncaptured + 1 replayed
+                             # (3 until the bench rigs' legs joined)
 FUSED_COMPARE_AT = (2,)      # steps after which the parameters must agree
 WIN_DIST_LAYERS = 1          # win_dist_train, churn_train, elastic_train:
                              # the depth their time allows
@@ -547,6 +556,7 @@ WIN_VARIANT_LAYERS = 2       # win_variants: pull-get, push-sum, overlap
 WIN_OPS_COLS = 1 << 24       # win_ops and the hierarchical card-vs-CPU check
 WIN_CHECK_COLS = 1 << 22     # winput_train's float64 recheck: column sample
 WIN_TOL = 1e-6               # window combine vs float64: ||err|| / ||ref||
+WINDOW_BENCH_ROUNDS = 2      # win_ops' window benchmark leg (default 5)
 WIN_DIST_PROCS = 2           # win_dist_*: processes, all on card 0 (NCCL
 WIN_DIST_PER = 2             # refuses two ranks on one card): the world of
                              # 4 ranks, 2 a process, gloo for the control
@@ -2541,6 +2551,31 @@ def _env_set(values):
     return before
 
 
+def rig_leg(phase, module, argv):
+    """One leg of a bench rig (ROADMAP item 22d) in this process on
+    ``DEVICE``: its JSON last line, which must say the rig passed, on a
+    line of ``phase`` with the leg's seconds.  Returns that line."""
+    import contextlib
+    import importlib
+    import io
+    mod = importlib.import_module(f"bluefog_tpu_torch.{module}")
+    argv = [*argv, "--device", DEVICE]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(argv)
+    seconds = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    require(lines, f"{module} {argv}: no output")
+    # bench_comm returns its exit code, window_benchmark its summary.
+    require(not isinstance(rc, int) or rc == 0,
+            f"{module} {argv}: exit {rc}: {lines[-1][:2000]}")
+    line = json.loads(lines[-1])
+    emit(phase, leg=f"{module} {' '.join(argv)}", seconds=seconds,
+         result=line)
+    return line
+
+
 def sync_warnings(tr, telemetry_on):
     """The synchronizing CUDA calls one training step of ``tr`` makes
     (``torch.cuda.set_sync_debug_mode("warn")``), with telemetry on or
@@ -3096,7 +3131,29 @@ def fused_train_phase(benchmark):
         require(all(c == expected for c in rec["launches"].values()),
                 f"fused_train launches {rec['launches']}, expected "
                 f"{expected} of each")
+    fused_rig_legs()
     return fused["launches"]
+
+
+def fused_rig_legs():
+    """bench_comm's put-plan, fused-step and probe smokes (item 22d) on
+    card tensors through its loopback store, then the port bench's
+    ``fused_step`` block with ``BLUEFOG_TPU_FUSED_STEP`` set (the rig's
+    timing cell: 32 leaves of (8, 128) in 8 buckets, 4 + 20 steps)."""
+    from bluefog_tpu_torch import bench
+    for mode in ("--ffi-smoke", "--fused-smoke", "--probe-smoke"):
+        rig_leg("fused_train", "bench_comm", [mode])
+    before = _env_set({"BLUEFOG_TPU_FUSED_STEP": "1"})
+    try:
+        t0 = time.perf_counter()
+        block = bench._fused_step_summary(DEVICE)
+        seconds = time.perf_counter() - t0
+    finally:
+        _env_set(before)
+    require(block.get("enabled") is True and block.get("fused_steps") == 24,
+            f"bench fused_step block {block}")
+    emit("fused_train", leg="bench fused_step block", seconds=seconds,
+         fused_step=block)
 
 
 def win_variants_phase(benchmark, steps=3):
@@ -3278,6 +3335,9 @@ def win_ops_phase():
          topology="ExponentialGraph(4)", win_update_ms=card.get(
              "win_update_ms"), win_update_bound_ms=1e3 * 16 * 4 *
          WIN_OPS_COLS / PEAK_BYTES, **res)
+    # The window benchmark (item 22d) in one process at ResNet-50's width.
+    rig_leg("win_ops", "window_benchmark", ["--json", "--rounds",
+                                            str(WINDOW_BENCH_ROUNDS)])
     return card
 
 
@@ -5164,6 +5224,9 @@ def schedule_pipeline_phase():
                   "one-peer phases", native_rounds=native_rounds,
          tori=tori, combine_bound_ms=1e3 * 2 * 4 * SCHED_RANKS * SCHED_COLS
          / PEAK_BYTES)
+    # bench_comm's schedule bench (item 22d) on the card: rounds against
+    # König's bound, the outputs within 1e-6, ms an op by CUDA events.
+    rig_leg("schedule_pipeline", "bench_comm", ["--smoke"])
 
 
 def _col_spread(flat, ranges, rows):
@@ -5508,13 +5571,13 @@ def check_mp_examples():
     points on the card, each schedule: the loss falls."""
     from bluefog_tpu_torch import pipeline_training as PT
     from bluefog_tpu_torch import tensor_parallel_training as TPT
-    res = TPT.main(["--steps", "15"])
+    res = TPT.main(["--steps", "8"])
     require(res["losses"][-1] < res["losses"][0], f"tp: {res['losses']}")
     tp = {"dp": res["dp"], "tp": res["tp"], "qkv_shards": res["qkv_shards"],
           "first_loss": res["losses"][0], "last_loss": res["losses"][-1]}
     pp = {}
     for schedule in ("gpipe", "1f1b", "zb"):
-        res = PT.main(["--steps", "20", "--schedule", schedule])
+        res = PT.main(["--steps", "10", "--schedule", schedule])
         require(res["losses"][-1] < res["losses"][0],
                 f"pp {schedule}: {res['losses']}")
         pp[schedule] = {"first_loss": res["losses"][0],

@@ -45,7 +45,8 @@ def test_import_leaves_jax_out():
             "bluefog_tpu_torch.tools.tracegossip, "
             "bluefog_tpu_torch.tools.metrics_lint, "
             "bluefog_tpu_torch.tools.chaos, bluefog_tpu_torch.tools.top, "
-            "bluefog_tpu_torch.run.run;"
+            "bluefog_tpu_torch.run.run, bluefog_tpu_torch.bench_comm, "
+            "bluefog_tpu_torch.window_benchmark;"
             "bf = bluefog_tpu_torch; bf.pipeline_train_step, bf.moe_apply, "
             "bf.tp_shard_params, bf.parallel.pipeline_apply;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -155,3 +156,17 @@ def test_example_entry_points_default_to_cuda(module):
     main = importlib.import_module(f"bluefog_tpu_torch.{module}").main
     with pytest.raises(RuntimeError, match="no GPU"):
         main([])
+
+
+@pytest.mark.parametrize("module,argv", [
+    ("bench_comm", ["--smoke"]),
+    ("window_benchmark", ["--elements", "16", "--rounds", "1"])])
+def test_bench_rigs_default_to_cuda(module, argv):
+    """The bench rigs (item 22d) run on CUDA unless ``--device cpu`` is
+    given: without a GPU they raise before any work."""
+    import importlib
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    main = importlib.import_module(f"bluefog_tpu_torch.{module}").main
+    with pytest.raises(RuntimeError, match="no GPU"):
+        main(argv)
