@@ -43,6 +43,8 @@ bluefog_tpu_torch.tools`` start without torch.
 import importlib
 import importlib.util
 
+from bluefog_tpu_torch.version import __version__  # noqa: F401
+
 # name -> (module, attribute in it; None for the module itself).
 _EXPORTS = {"topology_util": ("topology", None), "data": ("data", None),
             "optim": ("optim", None), "gang": ("ops.gang", None),

@@ -229,6 +229,14 @@ def _rendezvous(env) -> tuple:
             int(env.get("LOCAL_RANK", "0")))
 
 
+def _local_card(dev: torch.device, local_id: int) -> torch.device:
+    """The card of a CUDA ``dev``: the one it names, else the process's
+    local slot modulo the cards present."""
+    if dev.index is not None:
+        return dev
+    return torch.device("cuda", local_id % torch.cuda.device_count())
+
+
 def init_distributed(topology_fn=None, is_weighted: bool = False, *,
                      backend: Optional[str] = None, device="cuda") -> None:
     """Multi-process init over ``torch.distributed``, the port of the JAX
@@ -237,8 +245,11 @@ def init_distributed(topology_fn=None, is_weighted: bool = False, *,
     The rendezvous reads the environment ``bfrun`` sets, else
     ``torchrun``'s (:func:`_rendezvous`).  ``backend``: NCCL for a CUDA
     ``device`` (default), gloo for the CPU; asking for NCCL without a GPU
-    raises.  On CUDA the process takes card ``BFTPU_LOCAL_ID``
-    (``LOCAL_RANK``).  Each process owns ``BFTPU_LOCAL_DEVICES`` ranks
+    raises.  On CUDA the process takes the card ``device`` names
+    (``cuda:N``), else card ``BFTPU_LOCAL_ID`` (``LOCAL_RANK``) modulo the
+    cards present, so a gang of more processes than cards shares them
+    (NCCL refuses two processes on one card: such a gang runs gloo).  Each
+    process owns ``BFTPU_LOCAL_DEVICES`` ranks
     (default 1; the JAX package's virtual CPU mode gives a process that
     many devices), a contiguous block in process order; every process must
     own as many.  ``local_size`` is the ranks a process owns when there are
@@ -257,7 +268,7 @@ def init_distributed(topology_fn=None, is_weighted: bool = False, *,
             raise ValueError(f"the NCCL backend moves CUDA tensors; device "
                              f"is {dev}")
     if dev.type == "cuda":
-        dev = torch.device("cuda", local_id)
+        dev = _local_card(dev, local_id)
         torch.cuda.set_device(dev)
     per = int(env.get("BFTPU_LOCAL_DEVICES", "1"))
     shutdown()

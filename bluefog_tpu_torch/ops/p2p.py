@@ -26,6 +26,13 @@ the CPU tests also run two.
 expert): an ``int`` ``n`` is rank-major, all ``n`` shards in this process;
 a :class:`ProcessRanks` spreads them over the world's ranks.
 
+gloo's point-to-point send and receive read and write host memory only (its
+collectives copy CUDA tensors themselves), so under gloo the rows of
+:meth:`ProcessRanks.exchange` and :meth:`ProcessRanks.rotate` that cross
+processes go through host copies when they live on the card: a gang of
+processes sharing one card runs gloo, since NCCL refuses two processes on
+one card.
+
 Every move returns a :class:`Pending`: the async works and what finishes the
 result once they are done, so the ``*_nonblocking`` calls can hand it out as
 a handle and the blocking calls wait on it at once.  A single-process
@@ -40,6 +47,12 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["Pending", "ProcessRanks", "shard_axis"]
+
+
+def _host_staged(device: torch.device) -> bool:
+    """True when point-to-point rows on ``device`` must cross processes
+    through host copies (gloo, CUDA tensors)."""
+    return device.type == "cuda" and dist.get_backend() == "gloo"
 
 
 class Pending:
@@ -118,10 +131,11 @@ class ProcessRanks:
         and its sender agree on the order of a pair of processes' rows
         (ascending receiver, then payload), and each round has its tag."""
         lo, hi = self.lo, self.hi
-        works, keep, out = [], [], []
+        works, keep, out, staged_in = [], [], [], []
         for tag, (rnd, payload) in enumerate(zip(rounds, payloads)):
             sends = [t.contiguous() for t in payload]
             recvs = [torch.zeros_like(t) for t in sends]
+            stage = bool(sends) and _host_staged(sends[0].device)
             local_d, local_s, ops = [], [], []
             for d in range(lo, hi):
                 s = int(rnd.src_of[d])
@@ -130,14 +144,25 @@ class ProcessRanks:
                 if self.owns(s):
                     local_d.append(d - lo)
                     local_s.append(s - lo)
-                else:
-                    ops += [dist.P2POp(dist.irecv, r[d - lo], self.owner(s),
-                                       tag=tag) for r in recvs]
+                    continue
+                for r in recvs:
+                    buf = r[d - lo]
+                    if stage:
+                        staged_in.append((buf, torch.empty_like(
+                            buf, device="cpu")))
+                        buf = staged_in[-1][1]
+                    ops.append(dist.P2POp(dist.irecv, buf, self.owner(s),
+                                          tag=tag))
             for s in sorted(range(lo, hi), key=lambda s: int(rnd.dst_of[s])):
                 d = int(rnd.dst_of[s])
                 if d >= 0 and not self.owns(d):
-                    ops += [dist.P2POp(dist.isend, t[s - lo], self.owner(d),
-                                       tag=tag) for t in sends]
+                    for t in sends:
+                        buf = t[s - lo]
+                        if stage:
+                            buf = buf.cpu()
+                            keep.append(buf)
+                        ops.append(dist.P2POp(dist.isend, buf,
+                                              self.owner(d), tag=tag))
             if local_d:
                 dst = torch.tensor(local_d, device=sends[0].device)
                 src = torch.tensor(local_s, device=sends[0].device)
@@ -147,7 +172,13 @@ class ProcessRanks:
                 works += dist.batch_isend_irecv(ops)
                 keep += sends
             out.append(recvs)
-        return Pending(works, lambda: out, keep)
+
+        def finish():
+            for row, host in staged_in:
+                row.copy_(host)
+            return out
+
+        return Pending(works, finish, keep)
 
     # -- the dense family ---------------------------------------------------
 
@@ -215,6 +246,8 @@ class ProcessRanks:
         for x in xs:
             x = x.contiguous()
             edge = x[-1] if up else x[0]
+            if _host_staged(x.device):
+                edge = edge.cpu()
             recv = torch.empty_like(edge)
             ops += [dist.P2POp(dist.isend, edge, to),
                     dist.P2POp(dist.irecv, recv, frm)]
@@ -222,6 +255,7 @@ class ProcessRanks:
             outs.append(x)
         for w in dist.batch_isend_irecv(ops):
             w.wait()
+        recvs = [r.to(x.device) for r, x in zip(recvs, outs)]
         return [torch.cat([r[None], x[:-1]]) if up else
                 torch.cat([x[1:], r[None]]) for r, x in zip(recvs, outs)]
 

@@ -123,21 +123,7 @@ def _init_rendezvous(device: str) -> None:
     if os.environ.get("BFTPU_COORDINATOR") is None:
         raise SystemExit("chaos --worker must be launched under bfrun")
     import bluefog_tpu_torch as bf
-    bf.init_distributed(backend="gloo", device=_worker_device(device))
-
-
-def _worker_device(device: str) -> str:
-    """The window rows' device; on CUDA, card ``BFTPU_LOCAL_ID`` modulo
-    the card count is set as this process's local card."""
-    import torch
-    if device != "cuda":
-        return device
-    if not torch.cuda.is_available():
-        raise SystemExit("chaos: --device cuda but torch.cuda.is_available() "
-                         "is false (pass --device cpu)")
-    local = int(os.environ.get("BFTPU_LOCAL_ID", "0"))
-    os.environ["BFTPU_LOCAL_ID"] = str(local % torch.cuda.device_count())
-    return device
+    bf.init_distributed(backend="gloo", device=device)
 
 
 def _store():
@@ -469,7 +455,7 @@ def _init_world(device: str) -> None:
     count): rank ownership is per process, through the gang directory."""
     import bluefog_tpu_torch as bf
     bf.init(int(os.environ.get("BFTPU_LOCAL_DEVICES", "1")),
-            device=_worker_device(device))
+            device=device)
 
 
 def elastic_worker_main(args) -> int:

@@ -165,29 +165,14 @@ def single_process(args) -> dict:
     return out
 
 
-def _child_device(requested: str) -> str:
-    """The child's device: card ``BFTPU_LOCAL_ID`` modulo the cards present
-    (bfrun numbers the local slots 0..np-1; a one-card machine runs every
-    child on card 0), or the CPU."""
-    if requested == "cpu":
-        return "cpu"
-    import torch
-    if not torch.cuda.is_available():
-        raise RuntimeError("window_benchmark: --device cuda needs a GPU")
-    local = int(os.environ.get("BFTPU_LOCAL_ID", "0"))
-    os.environ["BFTPU_LOCAL_ID"] = str(local % torch.cuda.device_count())
-    return "cuda"
-
-
 def multiproc_child(args) -> dict:
     import bluefog_tpu_torch as bf
     from bluefog_tpu_torch import topology as topo
 
-    dev = _child_device(args.device)
     world = (int(os.environ["BFTPU_NUM_PROCESSES"])
              * int(os.environ.get("BFTPU_LOCAL_DEVICES", "1")))
     bf.init_distributed(lambda: topo.RingGraph(world), backend="gloo",
-                        device=dev)
+                        device=args.device)
     n = bf.size()
     P = args.elements
     mb = P * 4 / 1e6

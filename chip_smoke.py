@@ -220,8 +220,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    against the dense sequential step on the card (``COMPOSED_TOL``).
 29. ``tp_example``, 30. ``pp_example`` — ``python -m bluefog_tpu_torch.
    tensor_parallel_training``'s and ``pipeline_training``'s ``main`` on the
-   card (each schedule), 8 and 10 steps (15 and 20 before the bench rigs'
-   legs): the loss falls.
+   card (each schedule), 6 and 8 steps (15 and 20 before the bench rigs'
+   legs, 8 and 10 before the interactive leg): the loss falls.
 30a. ``elastic_example`` — ``python -m bluefog_tpu_torch.elastic_training``'s
    ``main`` on the card at its own size (60 steps of a small MLP on 4
    ranks, a checkpoint every 10), under neighbor_allreduce and under
@@ -237,6 +237,22 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    4 steps where it runs 3 of 16; cuDNN's autotuning off, as the example
    leaves it) and ``mnist_lenet`` (its defaults); each error or loss must
    fall.
+30c. ``interactive`` — ROADMAP item 22e.  Its two sessions start before
+   ``tp_example`` and run while 29-30b run in this process (phases with
+   no liveness check and no timing gate, ``IBF_RIDES``); the leg's line
+   comes after ``examples_22a``'s.  (a) ``python -m
+   bluefog_tpu_torch.run.interactive -np 4`` with the JAX package's three
+   piped cells (``IBF_CELLS``): ``CELL1``-``CELL3`` True, the rows on
+   ``cuda:0``; (c) ``-np 2 --hosts 127.0.0.1:2 --backend gloo``, process
+   0 the line REPL and process 1 a worker, both on ``cuda:0``: the
+   cluster notebook's cells (``CLUSTER-NB-OK True`` from both),
+   ``%bfstat`` (a ``proc i/2`` block from each), a cell raising on rank 1
+   only (``rank 1 raised`` on stderr), one more cell (run by both), and
+   the exit (0, the workers gone on their own within ibfrun's 15 s); then
+   after ``examples_22a`` (b) the port's helloworld notebook in this
+   process at 8 ranks on the card: max deviation below 1e-3.  Each
+   session's seconds to "ready", each cell's and the exit's, and the
+   seconds the sessions rode.
 31. ``hier_train`` — the benchmark with ``--dist-optimizer hierarchical
    --atc --dynamic``: the 1.3B LM at full width and depth, 4 ranks in 2
    machines of 2 (the machine topology's one-peer walk), 1 warmup + 2
@@ -4890,6 +4906,207 @@ CHAOS_TOOL_ARGS = ("--join-leg", "--run-sec", "40", "--dim", "32",
 CHAOS_TOOL_TIMEOUT = 300
 
 
+# interactive: ibfrun's sessions (ROADMAP item 22e).  The JAX package's
+# piped-session cells (tests/test_interactive.py), on the card's rows; each
+# marker line is flushed so its arrival times the cell.
+IBF_CELLS = """
+import torch
+x = torch.arange(bf.size(), dtype=torch.float32, device=bf.device())[:, None]
+for _ in range(60): x = bf.neighbor_allreduce(x)
+
+print('CELL1', float(abs(x - x.mean()).max()) < 1e-3, flush=True)
+bf.suspend()
+try:
+    bf.neighbor_allreduce(x)
+    print('CELL2 False', flush=True)
+except RuntimeError:
+    print('CELL2 True', flush=True)
+
+bf.resume()
+print('CELL3', float(bf.allreduce(x).mean()) >= 0, flush=True)
+print('ROWS', tuple(x.shape), x.device, flush=True)
+"""
+# The gang's cells after the cluster notebook's: %bfstat, a cell that
+# raises on process 1 only, one more cell, then EOF (the exit).
+IBF_GANG_TAIL = ("%bfstat\n"
+                 "print('RAISE-CELL', bf.rank(), flush=True)\n"
+                 "if bf.rank() == 1: raise ValueError('only on rank 1')\n\n"
+                 "print('AFTER', bf.rank(), bf.device(), flush=True)\n")
+IBF_TIMEOUT = 240            # seconds a session may take
+IBF_EXIT_DEADLINE = 15.0     # ibfrun's wait for the workers after the REPL
+
+
+def _nb_cells(name):
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "bluefog_tpu_torch", "notebooks", name)
+    with open(path) as f:
+        nb = json.load(f)
+    return ["".join(c["source"]) for c in nb["cells"]
+            if c["cell_type"] == "code"]
+
+
+def _ibf_session(argv, cells, env):
+    """``python -m bluefog_tpu_torch.run.interactive argv`` with ``cells``
+    piped in, under ``env``: the exit code, the stdout lines each with its
+    seconds since the launch, stderr and the seconds to the exit."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    p = subprocess.Popen(
+        [sys.executable, "-m", "bluefog_tpu_torch.run.interactive", *argv],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=here, env=env)
+    lines, err = [], []
+    pumps = [threading.Thread(target=lambda: lines.extend(
+                 (time.perf_counter() - t0, ln) for ln in p.stdout)),
+             threading.Thread(target=lambda: err.append(p.stderr.read()))]
+    for t in pumps:
+        t.start()
+    try:
+        p.stdin.write(cells)
+        p.stdin.close()
+        rc = p.wait(timeout=IBF_TIMEOUT)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    exit_s = time.perf_counter() - t0
+    for t in pumps:
+        t.join(timeout=10)
+    return rc, lines, err[0] if err else "", exit_s
+
+
+def _marks(lines, markers):
+    """The seconds at which each marker's first line arrived (None if it
+    never did), and each step's seconds from the marker before."""
+    at = [next((t for t, ln in lines if m in ln), None) for m in markers]
+    steps = [None if b is None or a is None else b - a
+             for a, b in zip(at, at[1:])]
+    return at, steps
+
+
+def _session_report(rc, lines, err, exit_s, markers):
+    at, steps = _marks(lines, markers)
+    last = max((t for t in at if t is not None), default=None)
+    return {"rc": rc, "ready_s": at[0],
+            "cell_s": dict(zip(markers[1:], steps)),
+            "exit_after_last_cell_s": None if last is None
+            else exit_s - last, "wall_s": exit_s,
+            "stderr_tail": err[-1500:] if rc else None}
+
+
+def _helloworld_in_process():
+    """The port's helloworld notebook cell by cell in this process, 8
+    ranks on the card: its printed lines and each cell's seconds."""
+    import bluefog_tpu_torch as bf
+    before = _env_set({"BFTPU_DEVICE": DEVICE, "BFTPU_LOCAL_DEVICES": None})
+    ns, cell_s = {}, []
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            for cell in _nb_cells("interactive_helloworld.ipynb"):
+                t0 = time.perf_counter()
+                exec(cell, ns)  # noqa: S102
+                sync()
+                cell_s.append(time.perf_counter() - t0)
+        dev = str(bf.device())
+    finally:
+        bf.shutdown()
+        _env_set(before)
+    out = buf.getvalue()
+    m = re.search(r"max deviation from mean: (\S+)", out)
+    res = {"device": dev, "cell_s": cell_s,
+           "ranks": "ranks: 8 | my rank: 0" in out,
+           "suspended_refused": "comm while suspended -> RuntimeError" in out,
+           "max_deviation": float(m.group(1)) if m else None}
+    require(res["ranks"] and res["suspended_refused"]
+            and dev.startswith(DEVICE) and res["max_deviation"] is not None
+            and res["max_deviation"] < 1e-3,
+            f"interactive helloworld notebook: {res}\n{out[-2000:]}")
+    return res
+
+
+# The phases the interactive leg's sessions ride: in this process, with no
+# liveness check and no timing gate.
+IBF_RIDES = ("tp_example", "pp_example", "elastic_example", "examples_22a")
+
+
+def start_interactive_sessions():
+    """(a) and (c) of the ``interactive`` leg, started before the phases
+    of ``IBF_RIDES`` (most of a session is its processes' start-up, which
+    then overlaps them): (a) ``ibfrun -np 4`` with the JAX package's three
+    piped cells; (c) a two-process ``ibfrun -np 2 --hosts 127.0.0.1:2
+    --backend gloo`` gang, process 0 the line REPL and process 1 a worker,
+    with the cluster notebook's cells, ``%bfstat``, a cell that raises on
+    rank 1 only, one more cell, and the exit.  Each session's environment
+    is built here, before anything else of the leg runs.  Returns what
+    :func:`interactive_leg` collects."""
+    # (DEVICE "cpu" rehearses the leg: --device cpu.)
+    dev_args = [] if DEVICE == "cuda" else ["--device", DEVICE]
+    cells = "".join(c.rstrip("\n") + "\n\n"
+                    for c in _nb_cells("cluster_notebook.ipynb"))
+    env = _launcher_free_env()
+    env["PYTHONUNBUFFERED"] = "1"
+    from concurrent.futures import ThreadPoolExecutor
+    pool = ThreadPoolExecutor(2)
+    single = pool.submit(_ibf_session, ["-np", "4", *dev_args], IBF_CELLS,
+                         dict(env))
+    gang = pool.submit(_ibf_session, [
+        "-np", "2", "--hosts", "127.0.0.1:2", "--backend", "gloo",
+        *dev_args], cells + IBF_GANG_TAIL, dict(env))
+    pool.shutdown(wait=False)
+    return time.perf_counter(), single, gang
+
+
+def interactive_leg(sessions):
+    """ROADMAP item 22e on the card: (b) the port's helloworld notebook at
+    8 ranks in this process, then the two sessions that
+    :func:`start_interactive_sessions` started, collected and checked:
+    (a) ``CELL1``-``CELL3`` True with the rows on ``cuda:0``; (c) the
+    cluster notebook's ``CLUSTER-NB-OK True`` from both processes, a
+    ``%bfstat`` block from each, ``rank 1 raised`` on stderr, the last
+    cell run by both, and the gang's exit 0 within ibfrun's 15 s
+    deadline.  The seconds from each launch to "ready", each cell's and
+    the exit's, and the seconds the sessions ran before this call.
+    (Kernel mode, ``--kernel-file``, is tested on the CPU only: the
+    card's machine has no ``ipykernel``.)"""
+    t0, single_run, gang_run = sessions
+    ride_s = time.perf_counter() - t0
+    want = "cuda:0" if DEVICE == "cuda" else DEVICE
+    notebook = _helloworld_in_process()
+    rc, lines, err, exit_s = single_run.result()
+    out = "".join(ln for _, ln in lines)
+    single = _session_report(rc, lines, err, exit_s,
+                             ["rank(s) ready on", "CELL1", "CELL2",
+                              "CELL3", "ROWS"])
+    require(rc == 0 and all(f"CELL{i} True" in out for i in (1, 2, 3))
+            and f"ROWS (4, 1) {want}" in out,
+            f"interactive single-machine session: rc {rc}\n{out[-3000:]}\n"
+            f"{err[-3000:]}")
+    rc, lines, err, exit_s = gang_run.result()
+    out = "".join(ln for _, ln in lines)
+    gang = _session_report(
+        rc, lines, err, exit_s,
+        [f"2 rank(s) across 2 process(es) ready on {want}", "ranks: 2",
+         "max deviation from mean", "CLUSTER-NB-OK", "[bfstat] proc 0/2",
+         "RAISE-CELL 0", "AFTER 0"])
+    gang.update(
+        nb_ok=out.count("CLUSTER-NB-OK True"),
+        bfstat=sorted(set(re.findall(r"\[bfstat\] proc (\d)/2", out))),
+        raised="[ibfrun] rank 1 raised: ValueError: only on rank 1" in err,
+        after=sorted(set(re.findall(r"AFTER (\d) (\S+)", out))),
+        killed="gang exit summary" in err)
+    require(rc == 0 and gang["nb_ok"] == 2 and gang["bfstat"] == ["0", "1"]
+            and gang["raised"]
+            and gang["after"] == [("0", want), ("1", want)]
+            and not gang["killed"]
+            and gang["exit_after_last_cell_s"] is not None
+            and gang["exit_after_last_cell_s"] < IBF_EXIT_DEADLINE,
+            f"interactive gang: {gang}\n{out[-3000:]}\n{err[-3000:]}")
+    return {"single": single, "notebook": notebook, "gang": gang,
+            "rode": list(IBF_RIDES), "ride_s": ride_s,
+            "wall_s": time.perf_counter() - t0}
+
+
 def chaos_tool_phase():
     """The port's chaos harness on the card, ``python -m
     bluefog_tpu_torch.tools chaos`` with ``CHAOS_TOOL_ARGS`` and
@@ -5571,13 +5788,13 @@ def check_mp_examples():
     points on the card, each schedule: the loss falls."""
     from bluefog_tpu_torch import pipeline_training as PT
     from bluefog_tpu_torch import tensor_parallel_training as TPT
-    res = TPT.main(["--steps", "8"])
+    res = TPT.main(["--steps", "6"])
     require(res["losses"][-1] < res["losses"][0], f"tp: {res['losses']}")
     tp = {"dp": res["dp"], "tp": res["tp"], "qkv_shards": res["qkv_shards"],
           "first_loss": res["losses"][0], "last_loss": res["losses"][-1]}
     pp = {}
     for schedule in ("gpipe", "1f1b", "zb"):
-        res = PT.main(["--steps", "10", "--schedule", schedule])
+        res = PT.main(["--steps", "8", "--schedule", schedule])
         require(res["losses"][-1] < res["losses"][0],
                 f"pp {schedule}: {res['losses']}")
         pp[schedule] = {"first_loss": res["losses"][0],
@@ -5940,11 +6157,13 @@ def main():
     pp_launches = pp_train_phase()
     pp_variant_launches = pp_variants_phase()
     emit("dp_tp_pp_ep", **check_compositions(SEED))
+    sessions = start_interactive_sessions()   # they ride IBF_RIDES
     tp_example, pp_example, elastic_example = check_mp_examples()
     emit("tp_example", **tp_example)
     emit("pp_example", **pp_example)
     emit("elastic_example", **elastic_example)
     emit("examples_22a", **check_22a_examples())
+    emit("interactive", **interactive_leg(sessions))
     hier_launches = hier_train_phase(benchmark)
     winput_launches = winput_train_phase(benchmark)
     fused_launches = fused_train_phase(benchmark)

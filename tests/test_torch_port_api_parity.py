@@ -4,8 +4,8 @@
 ``bluefog.torch`` (``tests/test_api_parity.py``'s
 ``REFERENCE_TORCH_EXPORTS``) except those of ROADMAP items still queued, and
 every public name of ``bluefog_tpu`` that the port still lacks is listed in
-:data:`NOT_PORTED` with its ROADMAP item: the list is exact, so the PR that
-lands an item deletes its own lines.  Then the names this surface gained,
+:data:`NOT_PORTED` with its reason: the list is exact, so a name that
+lands must leave it.  Then the names this surface gained,
 each against the JAX package on the same seeded inputs: the neighbor
 queries, the in-place collectives (the bits of the out-of-place ops, written
 into their input), the parameter utilities, the shims, ``suspend`` and
@@ -31,11 +31,14 @@ from test_api_parity import REFERENCE_TORCH_EXPORTS
 
 N = 8
 
-# Every public name of bluefog_tpu the port lacks, with the ROADMAP item
-# that brings it (item 22: the jax-only names whose role the port's
-# rank-major tensors and process_ranks() take).
+# Every public name of bluefog_tpu the port lacks, with its reason: the
+# module items have all landed, and these three hand out jax ``Mesh``
+# objects and ``device_get``, whose role the port's rank-major tensors,
+# ``allgather`` and ``process_ranks()`` take (ROADMAP, "Not ported, by
+# decision").
 NOT_PORTED = {
-    "mesh": "22", "hierarchical_mesh": "22", "to_numpy": "22",
+    "mesh": "by decision", "hierarchical_mesh": "by decision",
+    "to_numpy": "by decision",
 }
 
 
@@ -91,7 +94,15 @@ def test_not_ported_list_is_exact():
     ``NOT_PORTED``'s: a name that lands must leave the list."""
     lacking = {n for n in _jax_surface() if not hasattr(tbf, n)}
     assert lacking == set(NOT_PORTED)
-    assert set(NOT_PORTED.values()) <= {"22"}
+    assert set(NOT_PORTED.values()) == {"by decision"}
+
+
+def test_version_equals_jax():
+    """``bluefog_tpu_torch.__version__`` is the JAX package's, read without
+    importing torch."""
+    assert tbf.__version__ == jbf.__version__
+    from bluefog_tpu_torch import version
+    assert version.__version__ == jbf.__version__
 
 
 @pytest.fixture

@@ -46,7 +46,11 @@ def test_import_leaves_jax_out():
             "bluefog_tpu_torch.tools.metrics_lint, "
             "bluefog_tpu_torch.tools.chaos, bluefog_tpu_torch.tools.top, "
             "bluefog_tpu_torch.run.run, bluefog_tpu_torch.bench_comm, "
-            "bluefog_tpu_torch.window_benchmark;"
+            "bluefog_tpu_torch.window_benchmark, "
+            "bluefog_tpu_torch.run.interactive, "
+            "bluefog_tpu_torch.run.cluster_repl, bluefog_tpu_torch.version;"
+            "from bluefog_tpu_torch.run import cluster_repl;"
+            "cluster_repl.bfstat_text();"
             "bf = bluefog_tpu_torch; bf.pipeline_train_step, bf.moe_apply, "
             "bf.tp_shard_params, bf.parallel.pipeline_apply;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -170,3 +174,29 @@ def test_bench_rigs_default_to_cuda(module, argv):
     main = importlib.import_module(f"bluefog_tpu_torch.{module}").main
     with pytest.raises(RuntimeError, match="no GPU"):
         main(argv)
+
+
+def test_interactive_modules_are_in_the_source_scan():
+    """The interactive cluster's modules and the notebooks' sources are
+    held to the no-jax rule too."""
+    paths = set(_port_sources())
+    for rel in ("run/interactive.py", "run/cluster_repl.py", "version.py"):
+        assert PORT / rel in paths
+    for nb in sorted((PORT / "notebooks").glob("*.ipynb")):
+        import json
+        src = "\n".join("".join(c["source"]) for c in
+                        json.loads(nb.read_text())["cells"]
+                        if c["cell_type"] == "code")
+        bad = [m for m in _IMPORT.findall(src) if m.split(".")[0] in
+               ("jax", "jaxlib", "flax", "optax", "bluefog_tpu")]
+        assert not bad, f"{nb.name} imports {bad}"
+
+
+def test_interactive_launcher_starts_without_torch():
+    """``ibfrun``'s launcher imports no torch (its children do), as bfrun."""
+    code = ("import sys, bluefog_tpu_torch.run.interactive;"
+            "sys.exit(1 if 'torch' in sys.modules else 0)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
