@@ -46,13 +46,13 @@ from __future__ import annotations
 
 import base64
 import json
+import logging
 import os
 import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from bluefog_tpu_torch.utils import config
 
@@ -78,6 +78,62 @@ def parse_peers(spec: str) -> List[Tuple[str, int]]:
     if not peers:
         raise ValueError("gang: BFTPU_GANG_PEERS is empty")
     return peers
+
+
+def _stage_replica(path: str, text: str) -> str:
+    """Write ``text`` to a temporary file beside ``path`` and return its
+    name.  The name is this write's own (process and thread), so two
+    writes of one path at once never rename each other's file (the rename
+    race); it does not end in ``.json``, so
+    :meth:`GangDirectory.load_any` never reads one."""
+    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    try:
+        with open(tmp, "w") as fh:
+            fh.write(text)
+    except BaseException:
+        _place_replica(tmp, None)
+        raise
+    return tmp
+
+
+def _place_replica(tmp: str, path: Optional[str]) -> None:
+    """Replace ``path`` with a staged replica atomically (a reader never
+    sees a torn replica, and a crash mid-write leaves the previous copy),
+    or, with ``path`` None, drop it; a failed replace drops it too."""
+    placed = False
+    try:
+        if path is not None:
+            os.replace(tmp, path)
+            placed = True
+    finally:
+        if not placed:
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+
+
+ADMISSION_STAMP = "gang admission "
+
+
+def _admission_stamp(step: str, unix: Optional[float] = None,
+                     **detail) -> None:
+    """One step of a join's admission, the joiner's or its granting
+    member's, on the log's info level (``BLUEFOG_TPU_LOG_LEVEL=info``):
+    :data:`ADMISSION_STAMP` and one JSON object, ``step``, ``unix`` (the
+    step's time on the unix clock, which a host's processes share) and
+    ``detail``.  ``tools chaos``'s join leg reads them from both sides'
+    stderr."""
+    from bluefog_tpu_torch.utils.logging import get_logger
+    log = get_logger()
+    if log.isEnabledFor(logging.INFO):
+        rec = {"step": step,
+               "unix": round(time.time() if unix is None else unix, 4)}
+        rec.update(detail)
+        log.info("%s%s", ADMISSION_STAMP, json.dumps(rec))
 
 
 def _ep_str(addr: Tuple[str, int]) -> str:
@@ -178,15 +234,11 @@ class GangDirectory:
     # -- persistence --------------------------------------------------------
 
     def persist(self, path: str) -> None:
-        """Atomic write (tmp + replace): a reader can never observe a torn
-        directory, and a crash mid-write leaves the previous copy."""
-        tmp = path + ".tmp"
-        d = os.path.dirname(path)
-        if d:
-            os.makedirs(d, exist_ok=True)
-        with open(tmp, "w") as fh:
-            json.dump(self.to_dict(), fh)
-        os.replace(tmp, path)
+        """Atomic write (:func:`_stage_replica`, :func:`_place_replica`):
+        a reader can never observe a torn directory, and a crash
+        mid-write leaves the previous copy."""
+        _place_replica(_stage_replica(path, json.dumps(self.to_dict())),
+                       path)
 
     @classmethod
     def load(cls, path: str) -> "GangDirectory":
@@ -309,6 +361,13 @@ class GangService:
         self._prefix = (cfg.gang_dir_path if persist_path is None
                         else persist_path)
         self._lock = threading.Lock()
+        # Persists replace the replica in snapshot order: a snapshot is
+        # numbered under `_lock`, and one older than the replica on disk
+        # is dropped (`_persist_lock` orders the replaces only; each
+        # write's own temporary name keeps concurrent writes apart).
+        self._persist_lock = threading.Lock()
+        self._snapshots = 0
+        self._persisted = 0
         self._reserved: Dict[int, tuple] = {}  # proc -> (ranks, expiry)
         self.pending_grant: Optional[JoinGrant] = None
         self.grants_total = 0
@@ -337,10 +396,15 @@ class GangService:
         # Snapshot under the service lock: the drain thread's anti-entropy
         # merges and the supervisor's commit follow-through mutate the
         # directory concurrently, and serializing a dict mid-mutation
-        # raises.  The disk write happens on the snapshot, outside.
+        # raises.  The disk write happens on the snapshot, outside, in
+        # snapshot order: the directory only grows, so a snapshot older
+        # than the replica on disk (a lower epoch, or fewer endpoints)
+        # never replaces it.
         with self._lock:
             body = json.dumps(self.directory.to_dict())
             epoch = self.directory.epoch
+            self._snapshots += 1
+            seq = self._snapshots
         telemetry.set_gauge("bf_gang_directory_epoch", epoch)
         if not self._prefix:
             return
@@ -348,13 +412,12 @@ class GangService:
         path = (f"{self._prefix}.{me}.json" if me is not None
                 else f"{self._prefix}.json")
         try:
-            tmp = path + ".tmp"
-            d = os.path.dirname(path)
-            if d:
-                os.makedirs(d, exist_ok=True)
-            with open(tmp, "w") as fh:
-                fh.write(body)
-            os.replace(tmp, path)
+            tmp = _stage_replica(path, body)
+            with self._persist_lock:
+                newer = seq >= self._persisted
+                _place_replica(tmp, path if newer else None)
+                if newer:
+                    self._persisted = seq
         except OSError as e:
             from bluefog_tpu_torch.utils.logging import get_logger
             get_logger().warning("gang: directory persist to %s failed: %s",
@@ -402,6 +465,7 @@ class GangService:
             # Grant work (window snapshots under win locks + a reply
             # send) must not run on the drain thread.
             from bluefog_tpu_torch.ops import window as W
+            _admission_stamp("request", nonce=msg.get("nonce"))
             W._store.svc_pool.submit(self._grant, msg)
             return
         if kind in ("grant", "deny"):
@@ -423,10 +487,13 @@ class GangService:
         """Admit one joiner: assign a fresh proc id + placement-priced
         vacant ranks, snapshot the live windows' owned rows, reply with
         the grant, and seed the membership controller so the grow
-        proposal starts propagating immediately."""
+        proposal starts propagating immediately.  Its admission stamps
+        (:func:`_admission_stamp`): the pool took it, the rows are
+        snapshotted, the grant is sent."""
         from bluefog_tpu_torch.ops import membership
         from bluefog_tpu_torch.ops import window as W
         from bluefog_tpu_torch.utils import telemetry
+        _admission_stamp("pool", nonce=msg.get("nonce"))
         ctrl = membership.current()
         joiner_ep = msg.get("ep")
         if not joiner_ep:
@@ -487,6 +554,7 @@ class GangService:
                              "dtype": _dtype_name(win.dtype),
                              "rows": {int(r): enc for r in ranks}}
             donor_note = donor
+        _admission_stamp("rows", nonce=msg.get("nonce"))
         with self._lock:
             body = {
                 "k": "grant", "nonce": msg.get("nonce"),
@@ -508,6 +576,7 @@ class GangService:
             with self._lock:
                 self._reserved.pop(proc, None)
             return
+        _admission_stamp("sent", nonce=msg.get("nonce"))
         ctrl.note_join(proc, ranks, joiner_ep)
         self.grants_total += 1
         telemetry.inc("bf_gang_join_grants_total")
@@ -680,6 +749,7 @@ def _dtype_name(dtype: torch.dtype) -> str:
 
 def _host_bytes(row: torch.Tensor) -> bytes:
     """One row's bytes on the host: a card's row through one pinned copy."""
+    import torch
     if row.device.type == "cuda":
         host = torch.empty(row.shape, dtype=row.dtype, pin_memory=True)
         host.copy_(row)
@@ -691,7 +761,11 @@ def _host_bytes(row: torch.Tensor) -> bytes:
 def _decode_grant(msg: dict, my_endpoint: str,
                   device: Optional[torch.device] = None) -> JoinGrant:
     """A grant message as a :class:`JoinGrant`; the window rows are
-    decoded onto ``device`` (default ``basics.device()``)."""
+    decoded onto ``device`` (default ``basics.device()``).  (torch is
+    imported where rows cross, here and in :func:`_host_bytes`: a process
+    that only reads the directory, as the chaos tool's launching process,
+    never loads it.)"""
+    import torch
     if device is None:
         from bluefog_tpu_torch import basics
         device = basics.device()
@@ -739,7 +813,10 @@ def join_gang(target: str, *, want: Optional[int] = None,
     the granted ranks) and the returned :class:`JoinGrant` carries the
     window snapshot to ``win_create`` from once the grow epoch commits
     (drive a :class:`~bluefog_tpu.run.supervisor.ChurnSupervisor` — it
-    seeds itself from the pending grant)."""
+    seeds itself from the pending grant).  Each step of the admission is
+    stamped (:func:`_admission_stamp`): the candidates, each endpoint
+    probed, the transport up, each request sent, the grant received,
+    decoded and installed."""
     import uuid
     cfg = config.get()
     if not cfg.elastic_join:
@@ -761,15 +838,22 @@ def join_gang(target: str, *, want: Optional[int] = None,
         candidates = directory.live_endpoints()
     else:
         candidates = [_ep_addr(target)]
+    _admission_stamp("candidates", n=len(candidates))
     # Cheap TCP pre-filter so a dead member (say, the killed rank 0) costs
     # a sub-second probe, not a full grant timeout.
-    live = [a for a in candidates if _probe_addr(a)]
+    live = []
+    for a in candidates:
+        ok = _probe_addr(a)
+        _admission_stamp("probe", addr=_ep_str(a), ok=ok)
+        if ok:
+            live.append(a)
     if not live:
         raise ConnectionError(
             f"gang: no live member endpoint reachable among {candidates}")
     from bluefog_tpu_torch import basics
     transport = W.make_transport(device=basics.device())
     me_ep = f"{W._local_host_addr()}:{transport.port}"
+    _admission_stamp("transport")
     grant_msg = None
     try:
         for addr in live:
@@ -784,6 +868,8 @@ def join_gang(target: str, *, want: Optional[int] = None,
                                         np.uint8)
                 transport.send(addr[0], addr[1], OP_GANG, "", -1, -1,
                                0.0, payload)
+                _admission_stamp("join_req", addr=_ep_str(addr),
+                                 nonce=nonce)
                 if waiter[0].wait(wait_sec) and waiter[1] is not None:
                     msg = waiter[1]
                     if msg.get("k") == "grant":
@@ -806,7 +892,9 @@ def join_gang(target: str, *, want: Optional[int] = None,
         raise TimeoutError(
             f"gang: no member of {live} granted the join within "
             f"{wait_sec:.0f}s per endpoint")
+    _admission_stamp("grant", proc=grant_msg.get("proc"))
     grant = _decode_grant(grant_msg, me_ep)
+    _admission_stamp("decode")
     rank_owner = dict(grant.directory.rank_owner)
     for r in grant.ranks:
         rank_owner[r] = grant.proc
@@ -820,6 +908,7 @@ def join_gang(target: str, *, want: Optional[int] = None,
     svc.pending_grant = grant
     install(svc)
     svc.persist()
+    _admission_stamp("installed")
     telemetry.inc("bf_gang_joins_requested_total")
     from bluefog_tpu_torch.utils.logging import get_logger
     get_logger().warning(

@@ -125,7 +125,7 @@ from bluefog_tpu_torch.ops.transport import (
 from bluefog_tpu_torch.ops import xlaffi
 from bluefog_tpu_torch.utils import (config, flightrec, linkobs, stall,
                                      telemetry)
-from bluefog_tpu_torch.utils.logging import get_logger
+from bluefog_tpu_torch.utils.logging import TRACE, get_logger
 from bluefog_tpu_torch.utils.timeline import op_span
 
 __all__ = [
@@ -143,6 +143,18 @@ __all__ = [
 ]
 
 _log = get_logger()
+
+
+def _mutex_stamp(what: str, name: str, rank: int, requester: int,
+                 **detail) -> None:
+    """One stamp of the remote mutex's grant path (the ACQ's arrival, the
+    hold's lookup, the grant sent and received, the release) on the log's
+    trace level (``BLUEFOG_TPU_LOG_LEVEL=trace``), with the monotonic
+    clock, so the stamps of a gang's processes line up."""
+    if _log.isEnabledFor(TRACE):
+        _log.log(TRACE, "mutex %.6f %s %r rank %d requester %d %s",
+                 time.monotonic(), what, name, rank, requester,
+                 " ".join(f"{k}={v}" for k, v in detail.items()))
 
 
 def _timeout() -> float:
@@ -1185,9 +1197,12 @@ def _remote_mutex(name: str, rank: int, my_rank: int):
             t0 = time.perf_counter()
             _send_to_rank_owner(rank, OP_MUTEX_ACQ, name, my_rank, rank, 0.0)
             _flush_transport({proc}, since=tok)
+            _mutex_stamp("acq_sent", name, rank, my_rank)
             with stall.watch(f"win_mutex({name!r}) grant of rank {rank}"):
                 got = _wait_on_peers(granted.wait, {proc}, tok,
                                      f"win_mutex({name!r}) grant")
+            _mutex_stamp("granted" if got else "grant_wait_ended", name,
+                         rank, my_rank)
             if not got:
                 raise ConnectionError(
                     f"win_mutex({name!r}): rank {rank}'s owner did not grant "
@@ -1210,6 +1225,7 @@ def _remote_mutex(name: str, rank: int, my_rank: int):
                                         rank, w, p_weight=serial_no,
                                         stripe=k)
                 _flush_transport({proc}, since=tok)
+                _mutex_stamp("rel_sent", name, rank, my_rank)
             except ConnectionError as e:
                 # Under churn a dead owner's release goes nowhere, and
                 # nothing waits for it.
@@ -1238,32 +1254,58 @@ def _requester_removed(requester: int) -> bool:
 def _hold_mutex_for_remote(name: str, rank: int, requester: int) -> None:
     """Hold rank's (owned) mutex for a remote requester until its
     MUTEX_REL arrives; on its own daemon thread.  A requester out of the
-    gang's committed view gets no grant."""
+    gang's committed view gets no grant.
+
+    The grant is of the mutex of the window that exists when the mutex is
+    taken.  A window freed since the ACQ arrived (the churn recovery frees
+    every window, then rebuilds it) parks the ACQ, as the drain parks one
+    that finds no window, and the rebuilt window replays it; the rebuilt
+    window keeps the owned ranks' mutexes (:func:`owned_snapshot`), so a
+    hold taken before the rebuild still guards it.  (The JAX package's
+    hold returns without a grant there, and the requester waits out
+    ``BLUEFOG_TPU_WIN_TIMEOUT``.)"""
     d = _store.distrib
-    try:
-        win = _store.get(name)
-    except KeyError:
-        return
+    while True:
+        with _store.lock:
+            win = _store.windows.get(name)
+            if win is None:
+                d.parked.setdefault(name, []).append(
+                    (OP_MUTEX_ACQ, name, requester, rank, 0.0, 0.0, b""))
+                _mutex_stamp("hold_parked", name, rank, requester)
+                return
+        mutex = win.mutexes[rank]
+        mutex.acquire()
+        with _store.lock:
+            now = _store.windows.get(name)
+        if now is not None and now.mutexes.get(rank) is mutex:
+            break
+        # Freed while this thread waited for the mutex: look again.
+        mutex.release()
+    _mutex_stamp("hold_lookup", name, rank, requester, win=id(now))
     release = threading.Event()
     key = (name, rank, requester)
     try:
-        with win.mutexes[rank]:
-            if _requester_removed(requester):
-                return
-            # Registered only once the mutex is ours: a predecessor's late
-            # release copies must not set this event.
-            with d.cv:
-                d.remote_holds[key] = release
-            proc = d.rank_owner[requester]
-            tok = d.transport.error_token({d.proc_addr[proc]})
-            _send_to_rank_owner(requester, OP_MUTEX_GRANT, name, requester,
-                                rank, 0.0)
-            _flush_transport({proc}, since=tok)
-            release.wait(timeout=_timeout())
+        if _requester_removed(requester):
+            _mutex_stamp("hold_requester_removed", name, rank, requester)
+            return
+        # Registered only once the mutex is ours: a predecessor's late
+        # release copies must not set this event.
+        with d.cv:
+            d.remote_holds[key] = release
+        proc = d.rank_owner[requester]
+        tok = d.transport.error_token({d.proc_addr[proc]})
+        _send_to_rank_owner(requester, OP_MUTEX_GRANT, name, requester,
+                            rank, 0.0)
+        _flush_transport({proc}, since=tok)
+        _mutex_stamp("grant_sent", name, rank, requester, win=id(now))
+        released = release.wait(timeout=_timeout())
+        _mutex_stamp("hold_released" if released else "hold_timed_out",
+                     name, rank, requester)
     finally:
         with d.cv:
             if d.remote_holds.get(key) is release:
                 d.remote_holds.pop(key, None)
+        mutex.release()
 
 
 def _apply_inbound(op: int, name: str, src: int, dst: int, weight: float,
@@ -1326,6 +1368,7 @@ def _apply_inbound(op: int, name: str, src: int, dst: int, weight: float,
     if op == OP_MUTEX_GRANT:
         with d.cv:
             ev = d.grant_events.get((name, dst))
+        _mutex_stamp("grant_in", name, dst, src, waiter=ev is not None)
         if ev is not None:
             ev.set()
         return
@@ -1339,6 +1382,7 @@ def _apply_inbound(op: int, name: str, src: int, dst: int, weight: float,
                     return
                 d.rel_seen.pop(key, None)
             ev = d.remote_holds.get((name, dst, src))
+        _mutex_stamp("rel_in", name, dst, src, hold=ev is not None)
         if ev is not None:
             ev.set()
         return
@@ -1401,6 +1445,7 @@ def _apply_inbound(op: int, name: str, src: int, dst: int, weight: float,
     elif op == OP_GET_REQ:
         _store.svc_pool.submit(_reply_get, name, src, dst, weight)
     elif op == OP_MUTEX_ACQ:
+        _mutex_stamp("acq_in", name, dst, src, win=id(win))
         threading.Thread(target=_hold_mutex_for_remote,
                          args=(name, dst, src), daemon=True,
                          name=f"bf-win-hold-{dst}").start()
@@ -1747,6 +1792,8 @@ def win_free(name: Optional[str] = None) -> bool:
             for nm in names:
                 if d is not None:
                     d.transport.unregister_window(nm)
+                _mutex_stamp("window_freed", nm, -1, -1,
+                             win=id(_store.windows[nm]))
                 del _store.windows[nm]
         return True
     finally:
@@ -1761,23 +1808,28 @@ def get_current_created_window_names() -> List[str]:
 def owned_snapshot(name: str) -> Dict[str, object]:
     """What a rebuild after a membership change starts from: the owned
     ranks' rows of the window's memory stacked into one tensor on the
-    window's device (no row crosses to the host), the push-sum scalars and
-    the layout.  Taken between whole updates (``update_lock``)."""
+    window's device (no row crosses to the host), the push-sum scalars,
+    the layout and the owned ranks' mutexes (the rebuilt window keeps
+    them: a peer's hold taken before the rebuild still guards its rank).
+    Taken between whole updates (``update_lock``)."""
     win = _store.get(name)
     with win.update_lock, win.lock, _stream(win.device):
         rows = (torch.stack([win.main[r] for r in win.owned]) if win.owned
                 else torch.empty((0,) + win.shape, dtype=win.dtype,
                                  device=win.device))
         return {"rows": rows, "owned": list(win.owned),
-                "p_main": dict(win.p_main), "layout": win.layout}
+                "p_main": dict(win.p_main), "layout": win.layout,
+                "mutexes": dict(win.mutexes)}
 
 
 def rebuild_from_snapshot(name: str, snap: Dict[str, object]) -> None:
     """Create window ``name`` anew under the current topology from an
     :func:`owned_snapshot`: its memory the snapshot's rows (the same
     bits), its staging zeroed (gossip of the old epoch, and of a dead
-    peer, is dropped), its push-sum scalars restored and its layout kept.
-    An SPMD call across the survivors (each rebuilds its own windows)."""
+    peer, is dropped), its push-sum scalars restored, its layout and its
+    owned ranks' mutexes kept; the remote mutex acquisitions parked while
+    it was absent are granted from here.  An SPMD call across the
+    survivors (each rebuilds its own windows)."""
     n, in_nbrs, out_nbrs = _neighbors_from_topology()
     rows = snap["rows"]
     owned = _owned_ranks(n)
@@ -1797,6 +1849,9 @@ def rebuild_from_snapshot(name: str, snap: Dict[str, object]) -> None:
             for r, p in snap["p_main"].items():
                 if r in win.p_main:
                     win.p_main[r] = p
+            win.mutexes.update(snap["mutexes"])
+            _mutex_stamp("window_rebuilt", name, -1, -1, win=id(win),
+                         parked=len(d.parked.get(name, ())) if d else 0)
             if d is not None:
                 for msg in d.parked.pop(name, []):
                     try:

@@ -449,6 +449,77 @@ def _top_live_frame(prefix: str, procs, leg: str) -> dict:
             "seconds": round(time.perf_counter() - t0, 3)}
 
 
+def _process_start_unix() -> Optional[float]:
+    """This process's start on the unix clock, from its start tick in
+    ``/proc/self/stat`` against ``/proc/uptime`` (10 ms resolution); None
+    where the system has no ``/proc``."""
+    try:
+        with open("/proc/self/stat") as fh:
+            start_ticks = int(fh.read().rsplit(")", 1)[1].split()[19])
+        with open("/proc/uptime") as fh:
+            uptime = float(fh.read().split()[0])
+        return time.time() - (uptime - start_ticks /
+                              os.sysconf("SC_CLK_TCK"))
+    except (OSError, ValueError, IndexError):
+        return None
+
+
+def _admission_stamps(stderr: str) -> list:
+    """The admission stamps (``gang._admission_stamp``) in a process's
+    stderr, in order."""
+    from bluefog_tpu_torch.ops.gang import ADMISSION_STAMP
+    recs = []
+    for ln in stderr.splitlines():
+        i = ln.find(ADMISSION_STAMP)
+        if i < 0:
+            continue
+        try:
+            recs.append(json.loads(ln[i + len(ADMISSION_STAMP):]))
+        except ValueError:
+            continue
+    return recs
+
+
+def _admission_split(launch: float, deadline: float, join_stderr: str,
+                     gang_stderr: str, members: dict) -> dict:
+    """Where the joiner's seconds went: each admission stamp of the
+    joiner as seconds after the join launch, the granting member's split
+    of the request the joiner sent (its arrival after the launch, then
+    the service pool taking it, the row snapshot and the send, after the
+    arrival), and each side's margin to the gang's shared deadline: the
+    joiner's entry into its gossip loop, and each member's grow commit.
+    Both sides' stamps are on the log's info level, which the join leg
+    sets unless ``BLUEFOG_TPU_LOG_LEVEL`` is set."""
+    steps = []
+    loop = None
+    nonces = set()
+    for rec in _admission_stamps(join_stderr):
+        rec["s"] = round(rec.pop("unix") - launch, 4)
+        steps.append(rec)
+        if rec["step"] == "loop":
+            loop = rec["s"]
+        if rec["step"] == "join_req":
+            nonces.add(rec.get("nonce"))
+    at = {}
+    for rec in _admission_stamps(gang_stderr):
+        if rec.get("nonce") in nonces:
+            at.setdefault(rec["step"], rec["unix"])
+    grant = None
+    if {"request", "pool", "rows", "sent"} <= set(at):
+        rx = at["request"]
+        grant = {"received_s": round(rx - launch, 4),
+                 "pool_s": round(at["pool"] - rx, 4),
+                 "rows_s": round(at["rows"] - rx, 4),
+                 "sent_s": round(at["sent"] - rx, 4)}
+    grows = [c[1] for _, r in sorted(members.items())
+             for c in r.get("changes", []) if c[0] == 2 and c[1]]
+    return {"steps": steps, "grant": grant,
+            "deadline_s": round(deadline - launch, 4),
+            "joiner_margin_s": (None if loop is None
+                                else round(deadline - launch - loop, 4)),
+            "members_margin_s": [round(deadline - g, 4) for g in grows]}
+
+
 def _init_world(device: str) -> None:
     """``bf.init`` over the whole virtual world (``BFTPU_LOCAL_DEVICES``,
     which ``bfrun --elastic`` / ``--join`` sets to the world's rank
@@ -515,6 +586,11 @@ def join_worker_main(args) -> int:
     directory (``BFTPU_GANG_JOIN=@<prefix>``), waits for the grow epoch to
     commit, creates its windows from the granted owned-row snapshot, and
     gossips as a full member from then on."""
+    from bluefog_tpu_torch.ops.gang import _admission_stamp
+    started = _process_start_unix()
+    if started is not None:
+        _admission_stamp("process", unix=started)
+    _admission_stamp("main")
     os.environ.setdefault("BLUEFOG_TPU_TELEMETRY", "1")
     import torch
 
@@ -523,8 +599,14 @@ def join_worker_main(args) -> int:
     from bluefog_tpu_torch.ops import window as W
     from bluefog_tpu_torch.run.supervisor import ChurnSupervisor
     from bluefog_tpu_torch.utils import config
+    _admission_stamp("import")
     config.reload()
     _init_world(args.device)
+    _admission_stamp("init_world")
+    # The CUDA context, which the transport's pinned rows and the grant's
+    # rows on the card need, as a step of its own.
+    torch.zeros(1, device=bf.device())
+    _admission_stamp("device_context")
     target_spec = os.environ.get("BFTPU_GANG_JOIN")
     if not target_spec:
         raise SystemExit("chaos --role joiner needs BFTPU_GANG_JOIN "
@@ -543,6 +625,7 @@ def join_worker_main(args) -> int:
         step += 1
         if not sup.ctrl.joining:
             admitted_after = round(time.monotonic() - t0, 3)
+            _admission_stamp("admitted")
             break
         time.sleep(0.05)
     me = min(grant.ranks)
@@ -565,6 +648,7 @@ def join_worker_main(args) -> int:
         rows = torch.stack([w["rows"][r] for r in sorted(grant.ranks)])
     W.win_create(rows.clone(), name, zero_init=True)
     x = rows[0].float().clone()
+    _admission_stamp("loop")
     print(f"chaos joiner: entering gossip loop at {time.time():.3f} "
           f"(deadline {args.deadline}, steps cap {args.steps}, "
           f"step0 {step})", file=sys.stderr, flush=True)
@@ -619,6 +703,9 @@ def run_elastic_demo(args, kill_rank: int) -> int:
         "BLUEFOG_TPU_WIN_RETRY_BACKOFF_MS": "25",
         "BLUEFOG_TPU_TELEMETRY": "1",
     })
+    # The joiner's and its granting member's admission stamps
+    # (`_admission_split`) are on the info level.
+    env.setdefault("BLUEFOG_TPU_LOG_LEVEL", "info")
     # Everyone — founding members and the late joiner — stops gossiping
     # at one shared wall-clock deadline, so the final iterates are a
     # joint consensus snapshot, not a race against exit skew.
@@ -646,6 +733,7 @@ def run_elastic_demo(args, kill_rank: int) -> int:
                                  stderr=gang_err, text=True)
     failures = []
     join_results = {}
+    join_launch = None
     join_stderr = ""
     top_info = None
     try:
@@ -685,6 +773,7 @@ def run_elastic_demo(args, kill_rank: int) -> int:
                         "--deadline", repr(deadline)]
             join_out = open(os.path.join(tmpdir, "join.out"), "w+")
             join_err = open(os.path.join(tmpdir, "join.err"), "w+")
+            join_launch = time.time()
             join_proc = subprocess.Popen(join_cmd, env=env, stdout=join_out,
                                          stderr=join_err, text=True)
             # While the joiner runs: once the grow epoch has committed (in
@@ -799,6 +888,11 @@ def run_elastic_demo(args, kill_rank: int) -> int:
           f"{[round(c[2], 4) for c in shrinks if c[2] is not None]} s, "
           f"joiner admitted after "
           f"{[v.get('admitted_after_sec') for v in joiners]} s", flush=True)
+    if join_launch is not None:
+        split = _admission_split(join_launch, deadline, join_stderr,
+                                 gang_stderr, members)
+        print(f"chaos {leg}: admission split {json.dumps(split)}",
+              flush=True)
     if top_info is not None:
         print(f"chaos {leg}: tools top rendered {top_info['lines']} lines, "
               f"{top_info['up']}/{top_info['endpoints']} endpoints up "

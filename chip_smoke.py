@@ -482,15 +482,18 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    its 45 GiB of writes a call.
 44c. ``chaos_tool`` — the port's chaos harness on the card (ROADMAP item
    22c): ``python -m bluefog_tpu_torch.tools chaos --join-leg --device
-   cuda`` at the smoke profile's sizes with 40 s of gossip and a 10 ms
+   cuda`` at the smoke profile's sizes with 45 s of gossip and a 10 ms
    pace (``CHAOS_TOOL_ARGS``; 4 processes of one rank under ``bfrun
    --elastic --chaos``, rows of 32 float32 on the card, 80 ms heartbeats,
    500 ms of suspicion, rank 2 killed at step 80, a fresh process
    admitted through the persisted gang directory by one grow epoch), and
    while that gang is live one ``tools top --once`` frame of its
    telemetry endpoints: the tool's verdict, the rows' device, the
-   joiner's admission seconds, detection (the victim's clock at its kill
-   to each member's shrink commit), recovery, the frame's lines and its
+   joiner's admission seconds and split (``admission_split``: each step
+   of its start-up and admission from its launch, the granting member's
+   request-to-send split, and the joiner's and each member's margin to
+   the gang's deadline), detection (the victim's clock at its kill to
+   each member's shrink commit), recovery, the frame's lines and its
    endpoints up (4 of 4).
 45. ``{"kernels": [...]}`` (launches from the ``train``,
    ``train_host_data``, ``llama_train``,
@@ -4897,11 +4900,14 @@ def churn_train_phase():
 
 
 # chaos_tool: the tool's join leg at its smoke profile's sizes (32-float
-# rows, the kill at step 80) but 40 s of gossip where --join-smoke caps it at
-# 24 and a 10 ms pace where it has 3: on a loaded host the joiner, which
-# imports torch and opens its CUDA context after the shrink, came up after
-# the members had stopped at the 24 s deadline (PERF.md section 6).
-CHAOS_TOOL_ARGS = ("--join-leg", "--run-sec", "40", "--dim", "32",
+# rows, the kill at step 80) but 45 s of gossip where --join-smoke caps it at
+# 24 and a 10 ms pace where it has 3.  The deadline counts two start-ups in
+# turn: the members' until the shrink commit (11.7-20.6 s on an H100 host)
+# and then the joiner's, launched on that commit, until its seat (9.3-17.3
+# s, all but 0.3-0.6 s of it its python, torch import and CUDA context); at
+# 40 s a slow host left 2 s of gossip after the seat, or none (PERF.md
+# section 5).
+CHAOS_TOOL_ARGS = ("--join-leg", "--run-sec", "45", "--dim", "32",
                    "--pace-ms", "10", "--kill-step", "80")
 CHAOS_TOOL_TIMEOUT = 300
 
@@ -5137,6 +5143,7 @@ def chaos_tool_phase():
                   r"up \(rc (-?\d+)", out)
     rows_on = sorted(set(re.findall(r"rows on (\S+)", out)))
     frame = [ln for ln in out.splitlines() if ln.startswith("127.0.0.1:")]
+    split = re.search(r"chaos join: admission split (\{.*\})", out)
     res = {"rc": p.returncode, "verdict": verdict, "wall_s": wall,
            "detection_s": json.loads(m.group(1)) if m else None,
            "recovery_s": json.loads(m.group(2)) if m else None,
@@ -5145,7 +5152,8 @@ def chaos_tool_phase():
            "top_up": int(t.group(2)) if t else None,
            "top_endpoints": int(t.group(3)) if t else None,
            "top_rc": int(t.group(4)) if t else None,
-           "top_rows": frame, "rows_on": rows_on}
+           "top_rows": frame, "rows_on": rows_on,
+           "admission_split": json.loads(split.group(1)) if split else None}
     emit("chaos_tool", args=list(CHAOS_TOOL_ARGS), device=DEVICE, **res)
     require(p.returncode == 0 and verdict and verdict.startswith(
         "chaos join OK"), f"chaos_tool: rc {p.returncode}, verdict "

@@ -296,3 +296,122 @@ def test_item20_knob_defaults_equal_jax(monkeypatch):
         tconfig.reload()
         assert [getattr(tconfig.get(), f) for f in fields] == \
             [getattr(jconfig.get(), f) for f in fields]
+
+
+@pytest.mark.parametrize("schedule", ["overlapping", "older_last", "eight"])
+def test_concurrent_persists_keep_the_newest_replica(tmp_path, caplog,
+                                                     monkeypatch, schedule):
+    """Threads of one process persist its replica at once (the commit's
+    and an anti-entropy merge's): no write fails, no temporary file is
+    left, and the replica on disk is the newest snapshot.
+    ``overlapping``: two writes reach the rename together; ``older_last``:
+    the epoch-1 snapshot's rename waits until the epoch-2 persist has
+    finished (or 1 s); ``eight``: eight threads, each raising the epoch
+    before its persist, reach the rename together."""
+    import threading
+    svc = TG.GangService(_dirs(epoch=1, active=(0, 1, 3))[1],
+                         persist_path=str(tmp_path / "g"))
+    real_replace = os.replace
+    barrier = threading.Barrier(8 if schedule == "eight" else 2,
+                                timeout=1.0)
+    a_at_rename, b_done = threading.Event(), threading.Event()
+
+    def replace(src, dst):
+        if not str(dst).startswith(str(tmp_path)):
+            return real_replace(src, dst)
+        me = threading.current_thread().name
+        if schedule != "older_last":
+            try:
+                barrier.wait()
+            except threading.BrokenBarrierError:
+                pass
+        elif me == "a":
+            a_at_rename.set()
+            b_done.wait(1.0)
+        real_replace(src, dst)
+        if me == "b":
+            b_done.set()
+
+    monkeypatch.setattr(TG.os, "replace", replace)
+
+    def raise_and_persist():
+        with svc._lock:
+            svc.directory.epoch += 1
+        svc.persist()
+    if schedule == "eight":
+        threads = [threading.Thread(target=raise_and_persist, name=str(i))
+                   for i in range(8)]
+        for t in threads:
+            t.start()
+    else:
+        threads = [threading.Thread(target=svc.persist, name="a"),
+                   threading.Thread(target=svc.persist, name="b")]
+        threads[0].start()
+        if schedule == "older_last":
+            assert a_at_rename.wait(5.0)
+            with svc._lock:
+                svc.directory.epoch = 2
+        threads[1].start()
+    for t in threads:
+        t.join(20.0)
+    assert not any(t.is_alive() for t in threads)
+    assert "persist" not in caplog.text, caplog.text
+    assert sorted(os.listdir(tmp_path)) == ["g.json"]
+    on_disk = TG.GangDirectory.load(str(tmp_path / "g.json"))
+    assert on_disk.epoch == svc.directory.epoch
+    assert (tmp_path / "g.json").read_text() == \
+        json.dumps(svc.directory.to_dict())
+
+
+def test_directory_persists_to_one_path_at_once(tmp_path, monkeypatch):
+    """Two threads write one replica path through
+    ``GangDirectory.persist`` with their renames together: neither
+    raises, no temporary file is left, and the file is one of the two
+    directories' JSON whole."""
+    import threading
+    path = str(tmp_path / "gang.0.json")
+    dirs = [_dirs(epoch=e, active=(0, 1, 3))[1] for e in (1, 2)]
+    real_replace = os.replace
+    barrier = threading.Barrier(2, timeout=1.0)
+
+    def replace(src, dst):
+        try:
+            barrier.wait()
+        except threading.BrokenBarrierError:
+            pass
+        real_replace(src, dst)
+
+    monkeypatch.setattr(TG.os, "replace", replace)
+    errors = []
+
+    def write(d):
+        try:
+            d.persist(path)
+        except Exception as e:  # noqa: BLE001 — the test's verdict
+            errors.append(e)
+    threads = [threading.Thread(target=write, args=(d,)) for d in dirs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(10.0)
+    assert errors == []
+    assert sorted(os.listdir(tmp_path)) == ["gang.0.json"]
+    assert (tmp_path / "gang.0.json").read_text() in \
+        [json.dumps(d.to_dict()) for d in dirs]
+
+
+def test_a_failed_replica_write_leaves_no_temporary_file(tmp_path,
+                                                         monkeypatch):
+    """A rename that fails raises from ``GangDirectory.persist`` (the
+    service logs it), leaves the previous replica and no temporary file."""
+    path = tmp_path / "gang.0.json"
+    a, b = (_dirs(epoch=e, active=(0, 1, 3))[1] for e in (1, 2))
+    a.persist(str(path))
+
+    def refuse(src, dst):
+        raise OSError("refused")
+    monkeypatch.setattr(TG.os, "replace", refuse)
+    with pytest.raises(OSError, match="refused"):
+        b.persist(str(path))
+    assert sorted(os.listdir(tmp_path)) == ["gang.0.json"]
+    assert path.read_text() == json.dumps(a.to_dict())
