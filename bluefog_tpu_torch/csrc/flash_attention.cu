@@ -12,6 +12,15 @@
 // no fold transpose and no copy.  O, dq, dk and dv are written contiguous
 // (B, S, H, D); lse and delta are f32 (B, H, S), dlse f32 (B, S, H).
 //
+// Head dims.  Three instances, D = 64, 128 and 256; a head dim Dt <= 256
+// runs in the smallest instance D >= Dt.  The tensor maps give the TMA the
+// true Dt as the inner extent and the instance's 64-column boxes, so the
+// columns past Dt arrive zero-filled: they add nothing to Q.K^T or dO.V^T
+// and give zero output columns, which the epilogues do not store (they
+// write the first Dt columns only).  Operands whose strides a tensor map
+// cannot describe are copied by the wrapper into a padded buffer first.
+// float32 operands run in csrc/flash_attention_f32.cu.
+//
 // Bounds on the H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s), at the main
 // path's shape B=2, S=2048, H=16, D=128, causal (half the score matrix):
 //   K1: 4*B*H*S*S*D/2 = 34.4 GFLOP -> 0.035 ms; 67 MB in/out -> 0.020 ms
@@ -34,6 +43,11 @@
 // tiles that cross the causal diagonal or the end of the sequence.
 // Grid (B*H, row tiles): block order puts the heaviest causal tiles of
 // every head first, so the short tiles fill the tail.
+// At D = 256 the tiles shrink to fit 232,448 bytes of shared memory and a
+// thread's registers: K1 streams 64-key tiles; K2 owns 64 query rows with
+// one consumer warpgroup (256 threads, 64-key tiles); K3 owns 64 keys and
+// its two consumer warpgroups split the work by role, one dV and one dK
+// (each accumulator 128 registers a thread; both would not fit one).
 //   K1: a block owns 128 query rows; Q arrives once, K and V tiles of 128
 //     keys stream.  S = Q.K^T (m64n128k16, both operands K-major in shared
 //     memory), the online softmax runs on the accumulator in registers,
@@ -75,54 +89,64 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
 #include "hopper.cuh"
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr float kMask = -1e30f;        // the TPU kernels' _NEG_INF
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
+using flash::kLn2;
+using flash::kLog2e;
+using flash::kMask;
 
 __device__ __forceinline__ uint32_t pack_f(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Store a warp's 16 x D f32 accumulator as bf16 rows of a contiguous
-// (B, S, H, D) tensor; `base` points at (b, 0, h, 0).
+// Columns d and d + 1 of a row of Dt columns: one 4-byte store when Dt is
+// even (d is even, so the pair is aligned), else one store per column.
+__device__ __forceinline__ void store_pair(bf16* p, int d, int Dt, float lo, float hi) {
+  if ((Dt & 1) == 0) {
+    if (d < Dt) *reinterpret_cast<uint32_t*>(p) = pack_f(lo, hi);
+  } else {
+    if (d < Dt) p[0] = __float2bfloat16_rn(lo);
+    if (d + 1 < Dt) p[1] = __float2bfloat16_rn(hi);
+  }
+}
+
+// Store the first Dt columns of a warp's 16 x D f32 accumulator as bf16
+// rows of a contiguous (B, S, H, Dt) tensor; `base` points at (b, 0, h, 0).
 template <int D>
-__device__ __forceinline__ void store_rows(bf16* base, int H, int S, int row0,
+__device__ __forceinline__ void store_rows(bf16* base, int H, int S, int Dt, int row0,
                                            const float (&acc)[D / 8][4],
                                            float mul0, float mul1, int g, int t) {
-  const long long rs = (long long)H * D;
+  const long long rs = (long long)H * Dt;
   const int r0 = row0 + g, r1 = row0 + g + 8;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     const int d = n * 8 + 2 * t;
-    if (r0 < S)
-      *reinterpret_cast<uint32_t*>(base + r0 * rs + d) =
-          pack_f(acc[n][0] * mul0, acc[n][1] * mul0);
-    if (r1 < S)
-      *reinterpret_cast<uint32_t*>(base + r1 * rs + d) =
-          pack_f(acc[n][2] * mul1, acc[n][3] * mul1);
+    if (r0 < S) store_pair(base + r0 * rs + d, d, Dt, acc[n][0] * mul0, acc[n][1] * mul0);
+    if (r1 < S) store_pair(base + r1 * rs + d, d, Dt, acc[n][2] * mul1, acc[n][3] * mul1);
   }
 }
 
 // ---------------------------------------------------------------------------
 // K1-K3: warp-specialised wgmma + TMA kernels (see the note above).
 // ---------------------------------------------------------------------------
-constexpr int kWsThreads = 384;    // 2 consumer warpgroups + 1 producer
-constexpr int kConsumerWarps = 8;
 constexpr int kAlign = 1024;        // swizzled tiles start 1024-byte aligned
 constexpr int kProducerRegs = 24;   // setmaxnreg budgets: 128 * 24 + 256 * 240
 constexpr int kConsumerRegs = 240;  // = 64512 of the SM's 65536 registers
 
+// Every block is kConsumers consumer warpgroups and one producer
+// warpgroup; with two consumers the producer's registers move to them
+// (setmaxnreg), with one the 256 threads take up to 255 registers each.
 template <int D>
 struct FwdTile {
+  static constexpr int kConsumers = 2;
   static constexpr int kRows = 128;  // query rows per block
-  static constexpr int kKeys = 128;  // keys per pipeline stage
+  static constexpr int kKeys = D > 128 ? 64 : 128;  // keys per pipeline stage
   static constexpr int kStages = 2;
   static constexpr uint32_t kQBytes = kRows * D * 2;
   static constexpr uint32_t kKVBytes = kKeys * D * 2;  // one K or V tile
@@ -131,8 +155,9 @@ struct FwdTile {
 
 template <int D>
 struct DqTile {
-  static constexpr int kRows = 128;  // query rows per block
-  static constexpr int kKeys = 128;  // keys per stage of the ring
+  static constexpr int kConsumers = D > 128 ? 1 : 2;
+  static constexpr int kRows = 64 * kConsumers;  // query rows per block
+  static constexpr int kKeys = D > 128 ? 64 : 128;  // keys per stage of the ring
   static constexpr int kStages = 2;  // a third does not fit beside Q, dO and O
   static constexpr uint32_t kRowBytes = kRows * D * 2;  // a Q, dO or O tile
   static constexpr uint32_t kKVBytes = kKeys * D * 2;   // one K or V tile
@@ -141,7 +166,9 @@ struct DqTile {
 
 template <int D>
 struct DkvTile {
-  static constexpr int kKeys = 128;  // keys per block
+  static constexpr int kConsumers = 2;
+  static constexpr bool kRoles = D > 128;  // both warpgroups on the same keys: dV, dK
+  static constexpr int kKeys = kRoles ? 64 : 128;  // keys per block
   static constexpr int kRows = 64;   // query rows per pipeline stage
   static constexpr int kStages = 2;
   static constexpr uint32_t kKVBytes = kKeys * D * 2;   // K or V
@@ -151,6 +178,19 @@ struct DkvTile {
       (2 * kRowBytes + 2 * kRows * 4 + kAlign - 1) / kAlign * kAlign;
   static constexpr int kSmem = kAlign + 2 * kKVBytes + kStages * kStageBytes;
 };
+
+template <typename T>
+constexpr int threads_of() { return 128 * (T::kConsumers + 1); }
+
+template <typename T>
+__device__ __forceinline__ void producer_regs() {
+  if constexpr (T::kConsumers == 2) hopper::setmaxnreg_dec<kProducerRegs>();
+}
+
+template <typename T>
+__device__ __forceinline__ void consumer_regs() {
+  if constexpr (T::kConsumers == 2) hopper::setmaxnreg_inc<kConsumerRegs>();
+}
 
 // The thread's warpgroup, read from lane 0 so that the compiler knows it is
 // the same for the whole warp: descriptors computed from it can then live
@@ -165,7 +205,8 @@ __device__ __forceinline__ unsigned char* align_smem(unsigned char* p) {
 }
 
 // TMA of rows [row0, row0 + rows) of the (b, h) slab, as D/64 column
-// halves of (rows x 64) one after the other.
+// blocks of (rows x 64) one after the other; columns past the map's head
+// dim arrive as zeros.
 template <int D>
 __device__ __forceinline__ void load_rows(unsigned char* dst, const CUtensorMap* map,
                                           uint64_t* bar, int rows, int row0, int h,
@@ -264,14 +305,16 @@ __device__ __forceinline__ void release_stage(uint64_t* empty) {
 }
 
 // ---------------------------------------------------------------------------
-// K1: forward.  Grid (B*H, ceil(S/128)); block = 128 query rows.
+// K1: forward.  Grid (B*H, ceil(S/128)); block = 128 query rows, K/V
+// tiles of 128 keys (64 at D = 256) stream up to the causal frontier.
 // ---------------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(kWsThreads, 1)
+__global__ void __launch_bounds__(threads_of<FwdTile<D>>(), 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
-                 float* __restrict__ lse, int H, int S, float scale_log2, int causal) {
+                 float* __restrict__ lse, int H, int S, int Dt, float scale_log2,
+                 int causal) {
   using T = FwdTile<D>;
   extern __shared__ unsigned char smem_raw[];
   __shared__ uint64_t bar_q, full[T::kStages], empty[T::kStages];
@@ -288,16 +331,16 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int s = 0; s < T::kStages; ++s) {
       hopper::mbar_init(&full[s], 1);
-      hopper::mbar_init(&empty[s], kConsumerWarps);
+      hopper::mbar_init(&empty[s], 4 * T::kConsumers);
     }
     hopper::fence_barrier_init();
   }
   __syncthreads();
 
   const int wg = warpgroup();
-  if (wg == 2) {
+  if (wg == T::kConsumers) {
     // Producer: one thread issues every load.
-    hopper::setmaxnreg_dec<kProducerRegs>();
+    producer_regs<T>();
     if (threadIdx.x % 128 == 0) {
       hopper::mbar_arrive_expect_tx(&bar_q, T::kQBytes);
       load_rows<D>(sQ, &tq, &bar_q, T::kRows, q0, h, b);
@@ -305,7 +348,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     }
   } else {
     // Consumers: warpgroup wg owns rows q0 + 64wg .. q0 + 64wg + 63.
-    hopper::setmaxnreg_inc<kConsumerRegs>();
+    consumer_regs<T>();
     const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     const int g = lane >> 2, t = lane & 3;
     const int row0 = q0 + wg * 64;
@@ -385,8 +428,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
 
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = fmaxf(quad_sum(l[r]), 1e-30f);
-    store_rows<D>(o + ((long long)b * S * H + h) * D, H, S, row0 + warp * 16, as_frags(acc),
-                  1.f / l[0], 1.f / l[1], g, t);
+    store_rows<D>(o + ((long long)b * S * H + h) * Dt, H, S, Dt, row0 + warp * 16,
+                  as_frags(acc), 1.f / l[0], 1.f / l[1], g, t);
     if (t == 0) {
 #pragma unroll
       for (int r = 0; r < 2; ++r)
@@ -397,18 +440,19 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
 
 // ---------------------------------------------------------------------------
 // K2: dq (and delta for K3).  Grid (B*H, ceil(S/128)); block = 128 query
-// rows, 128-key K/V tiles stream up to the causal frontier.
+// rows, 128-key K/V tiles stream up to the causal frontier (D = 256: 64
+// rows, one consumer warpgroup, 64-key tiles).
 // ---------------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(kWsThreads, 1)
+__global__ void __launch_bounds__(threads_of<DqTile<D>>(), 1)
 flash_dq_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
                 const __grid_constant__ CUtensorMap tdo,
                 const __grid_constant__ CUtensorMap to, const float* __restrict__ lse,
                 const float* __restrict__ dlse, float* __restrict__ delta,
-                bf16* __restrict__ dq, int H, int S, float scale, float scale_log2,
-                int causal) {
+                bf16* __restrict__ dq, int H, int S, int Dt, float scale,
+                float scale_log2, int causal) {
   using T = DqTile<D>;
   extern __shared__ unsigned char smem_raw[];
   __shared__ uint64_t bar_q, full[T::kStages], empty[T::kStages];
@@ -427,16 +471,16 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int s = 0; s < T::kStages; ++s) {
       hopper::mbar_init(&full[s], 1);
-      hopper::mbar_init(&empty[s], kConsumerWarps);
+      hopper::mbar_init(&empty[s], 4 * T::kConsumers);
     }
     hopper::fence_barrier_init();
   }
   __syncthreads();
 
   const int wg = warpgroup();
-  if (wg == 2) {
+  if (wg == T::kConsumers) {
     // Producer: one thread issues every load.
-    hopper::setmaxnreg_dec<kProducerRegs>();
+    producer_regs<T>();
     if (threadIdx.x % 128 == 0) {
       hopper::mbar_arrive_expect_tx(&bar_q, 3 * T::kRowBytes);
       load_rows<D>(sQ, &tq, &bar_q, T::kRows, q0, h, b);
@@ -446,7 +490,7 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tq,
     }
   } else {
     // Consumers: warpgroup wg owns rows q0 + 64wg .. q0 + 64wg + 63.
-    hopper::setmaxnreg_inc<kConsumerRegs>();
+    consumer_regs<T>();
     const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     const int g = lane >> 2, t = lane & 3;
     const int row0 = q0 + wg * 64;
@@ -535,24 +579,143 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tq,
     }
 
     // dQ takes the scale once, here.
-    store_rows<D>(dq + ((long long)b * S * H + h) * D, H, S, row0 + warp * 16, as_frags(acc),
-                  scale, scale, g, t);
+    store_rows<D>(dq + ((long long)b * S * H + h) * Dt, H, S, Dt, row0 + warp * 16,
+                  as_frags(acc), scale, scale, g, t);
   }
 }
 
 // ---------------------------------------------------------------------------
 // K3: dk and dv.  Grid (B*H, ceil(S/128)); block = 128 keys, loop over
-// 64-row q tiles from the causal frontier to the end.
+// 64-row q tiles from the causal frontier to the end.  At D = 256 a block
+// owns 64 keys and its two consumer warpgroups take one role each.
 // ---------------------------------------------------------------------------
+
+// A consumer warpgroup of K3 over keys kw0 .. kw0 + 63 (rows kr0 .. kr0 + 63
+// of the block's K and V tiles): dV += P^T.dO when kDV, dK += dS^T.Q when
+// kDK.  Below D = 256 one warpgroup takes both.
+template <typename T, int D, bool kDV, bool kDK>
+__device__ __forceinline__ void dkv_consumer(const unsigned char* sRing, uint32_t aK,
+                                             uint32_t aV, uint64_t* full, uint64_t* empty,
+                                             int kw0, int kr0, int qt0, int n_it, int S,
+                                             int H, int Dt, float scale, float scale_log2,
+                                             int causal, bf16* dk, bf16* dv, long long off) {
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int key[2] = {kw0 + warp * 16 + g, kw0 + warp * 16 + g + 8};
+
+  float acc_k[kDK ? D / 2 : 1], acc_v[kDV ? D / 2 : 1];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) {
+    if constexpr (kDK) acc_k[i] = 0.f;
+    if constexpr (kDV) acc_v[i] = 0.f;
+  }
+
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % T::kStages;
+    const int q0 = (qt0 + it) * T::kRows;
+    hopper::mbar_wait(&full[st], (it / T::kStages) & 1);
+    // A q tile whose every query precedes every key of this warpgroup
+    // contributes nothing.
+    if (!causal || q0 + T::kRows - 1 >= kw0) {
+      const unsigned char* stage = sRing + st * T::kStageBytes;
+      const uint32_t aQ = hopper::smem_u32(stage), aO = aQ + T::kRowBytes;
+      const float* stat = reinterpret_cast<const float*>(stage + 2 * T::kRowBytes);
+
+      // S^T - lse/scale = K . Q^T - lse/scale and dP^T - delta =
+      // V . dO^T - delta, rows = this warpgroup's keys: the accumulators
+      // start from the per-query terms, so no register holds lse or delta
+      // beside them.
+      float s[T::kRows / 2], dp[kDK ? T::kRows / 2 : 1];
+#pragma unroll
+      for (int i = 0; i < T::kRows / 2; i += 2) {
+        const int c = 8 * (i / 4) + 2 * t;  // query of s[i] within the tile
+        const float2 l2 = *reinterpret_cast<const float2*>(stat + c);
+        s[i] = l2.x;
+        s[i + 1] = l2.y;
+        if constexpr (kDK) {
+          const float2 d2 = *reinterpret_cast<const float2*>(stat + T::kRows + c);
+          dp[i] = d2.x;
+          dp[i + 1] = d2.y;
+        }
+      }
+      hopper::fence_regs(s);
+      if constexpr (kDK) hopper::fence_regs(dp);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_ss(s, desc_rows(aK, T::kKeys, kr0, kk),
+                         desc_rows(aQ, T::kRows, 0, kk), 1);
+      if constexpr (kDK) {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hopper::wgmma_ss(dp, desc_rows(aV, T::kKeys, kr0, kk),
+                           desc_rows(aO, T::kRows, 0, kk), 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(s);
+      if constexpr (kDK) hopper::fence_regs(dp);
+
+      // P^T = exp2(s * scale log2 e) and dS^T / scale = P^T (dP^T - delta)
+      // as bf16 A fragments; masked entries are 0.
+      const bool mask = q0 + T::kRows > S || (causal && q0 < kw0 + 63);
+      uint32_t pa[kDV ? T::kRows / 4 : 1], da[kDK ? T::kRows / 4 : 1];
+#pragma unroll
+      for (int i = 0; i < T::kRows / 2; i += 2) {
+        float p0 = hopper::exp2_ftz(s[i] * scale_log2);
+        float p1 = hopper::exp2_ftz(s[i + 1] * scale_log2);
+        if (mask) {
+          const int kr = key[(i >> 1) & 1], qa = q0 + 8 * (i / 4) + 2 * t;
+          if (qa >= S || (causal && kr > qa)) p0 = 0.f;
+          if (qa + 1 >= S || (causal && kr > qa + 1)) p1 = 0.f;
+        }
+        if constexpr (kDV) pa[i / 2] = pack_f(p0, p1);
+        if constexpr (kDK) da[i / 2] = pack_f(p0 * dp[i], p1 * dp[i + 1]);
+      }
+
+      // dV += P^T . dO ; dK += dS^T . Q
+      if constexpr (kDV) hopper::fence_regs(acc_v);
+      if constexpr (kDK) hopper::fence_regs(acc_k);
+      hopper::wgmma_fence();
+      if constexpr (kDV) {
+#pragma unroll
+        for (int kk = 0; kk < T::kRows / 16; ++kk)
+          hopper::wgmma_rs_tb(acc_v, &pa[4 * kk], desc_cols(aO, T::kRows, kk));
+      }
+      if constexpr (kDK) {
+#pragma unroll
+        for (int kk = 0; kk < T::kRows / 16; ++kk)
+          hopper::wgmma_rs_tb(acc_k, &da[4 * kk], desc_cols(aQ, T::kRows, kk));
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      if constexpr (kDV) {
+        keep_frags(pa);
+        hopper::fence_regs(acc_v);
+      }
+      if constexpr (kDK) {
+        keep_frags(da);
+        hopper::fence_regs(acc_k);
+      }
+    }
+    release_stage(&empty[st]);
+  }
+
+  if constexpr (kDK)
+    store_rows<D>(dk + off, H, S, Dt, kw0 + warp * 16, as_frags(acc_k), scale, scale, g, t);
+  if constexpr (kDV)
+    store_rows<D>(dv + off, H, S, Dt, kw0 + warp * 16, as_frags(acc_v), 1.f, 1.f, g, t);
+}
+
 template <int D>
-__global__ void __launch_bounds__(kWsThreads, 1)
+__global__ void __launch_bounds__(threads_of<DkvTile<D>>(), 1)
 flash_dkv_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv,
                  const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
                  const float* __restrict__ delta, bf16* __restrict__ dk,
-                 bf16* __restrict__ dv, int H, int S, float scale, float scale_log2,
-                 int causal) {
+                 bf16* __restrict__ dv, int H, int S, int Dt, float scale,
+                 float scale_log2, int causal) {
   using T = DkvTile<D>;
   extern __shared__ unsigned char smem_raw[];
   __shared__ uint64_t bar_kv, full[T::kStages], empty[T::kStages];
@@ -570,18 +733,18 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int s = 0; s < T::kStages; ++s) {
       hopper::mbar_init(&full[s], 32);  // every lane of the producer warp
-      hopper::mbar_init(&empty[s], kConsumerWarps);
+      hopper::mbar_init(&empty[s], 4 * T::kConsumers);
     }
     hopper::fence_barrier_init();
   }
   __syncthreads();
 
   const int wg = warpgroup();
-  if (wg == 2) {
+  if (wg == T::kConsumers) {
     // Producer warp: lane 0 issues the TMA loads; every lane copies two
     // rows' -lse/scale and -delta (0 past S), the accumulators' start
     // values for S^T and dP^T below.
-    hopper::setmaxnreg_dec<kProducerRegs>();
+    producer_regs<T>();
     if (threadIdx.x % 128 < 32) {
       const int lane = threadIdx.x % 32;
       if (lane == 0) {
@@ -612,101 +775,23 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tq,
       }
     }
   } else {
-    // Consumers: warpgroup wg owns keys kw0 .. kw0 + 63.
-    hopper::setmaxnreg_inc<kConsumerRegs>();
-    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-    const int g = lane >> 2, t = lane & 3;
-    const int kw0 = k0 + wg * 64;
-    const int key[2] = {kw0 + warp * 16 + g, kw0 + warp * 16 + g + 8};
+    // Consumers: warpgroup wg owns keys k0 + 64wg .. k0 + 64wg + 63 and
+    // both products, or at D = 256 the block's 64 keys and one product.
+    consumer_regs<T>();
     const uint32_t aK = hopper::smem_u32(sK), aV = hopper::smem_u32(sV);
-
-    float acc_k[D / 2], acc_v[D / 2];
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
-
+    const long long off = ((long long)b * S * H + h) * Dt;
     hopper::mbar_wait(&bar_kv, 0);
-    for (int it = 0; it < n_it; ++it) {
-      const int st = it % T::kStages;
-      const int q0 = (qt0 + it) * T::kRows;
-      hopper::mbar_wait(&full[st], (it / T::kStages) & 1);
-      // A q tile whose every query precedes every key of this warpgroup
-      // contributes nothing.
-      if (!causal || q0 + T::kRows - 1 >= kw0) {
-        const unsigned char* stage = sRing + st * T::kStageBytes;
-        const uint32_t aQ = hopper::smem_u32(stage), aO = aQ + T::kRowBytes;
-        const float* stat = reinterpret_cast<const float*>(stage + 2 * T::kRowBytes);
-
-        // S^T - lse/scale = K . Q^T - lse/scale and dP^T - delta =
-        // V . dO^T - delta, rows = this warpgroup's keys: the accumulators
-        // start from the per-query terms, so no register holds lse or delta
-        // beside them.
-        float s[T::kRows / 2], dp[T::kRows / 2];
-#pragma unroll
-        for (int i = 0; i < T::kRows / 2; i += 2) {
-          const int c = 8 * (i / 4) + 2 * t;  // query of s[i] within the tile
-          const float2 l2 = *reinterpret_cast<const float2*>(stat + c);
-          const float2 d2 = *reinterpret_cast<const float2*>(stat + T::kRows + c);
-          s[i] = l2.x;
-          s[i + 1] = l2.y;
-          dp[i] = d2.x;
-          dp[i + 1] = d2.y;
-        }
-        hopper::fence_regs(s);
-        hopper::fence_regs(dp);
-        hopper::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-          hopper::wgmma_ss(s, desc_rows(aK, T::kKeys, wg * 64, kk),
-                           desc_rows(aQ, T::kRows, 0, kk), 1);
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-          hopper::wgmma_ss(dp, desc_rows(aV, T::kKeys, wg * 64, kk),
-                           desc_rows(aO, T::kRows, 0, kk), 1);
-        hopper::wgmma_commit();
-        hopper::wgmma_wait<0>();
-        hopper::fence_regs(s);
-        hopper::fence_regs(dp);
-
-        // P^T = exp2(s * scale log2 e) and dS^T / scale = P^T (dP^T - delta)
-        // as bf16 A fragments; masked entries are 0.
-        const bool mask = q0 + T::kRows > S || (causal && q0 < kw0 + 63);
-        uint32_t pa[T::kRows / 4], da[T::kRows / 4];
-#pragma unroll
-        for (int i = 0; i < T::kRows / 2; i += 2) {
-          float p0 = hopper::exp2_ftz(s[i] * scale_log2);
-          float p1 = hopper::exp2_ftz(s[i + 1] * scale_log2);
-          if (mask) {
-            const int kr = key[(i >> 1) & 1], qa = q0 + 8 * (i / 4) + 2 * t;
-            if (qa >= S || (causal && kr > qa)) p0 = 0.f;
-            if (qa + 1 >= S || (causal && kr > qa + 1)) p1 = 0.f;
-          }
-          pa[i / 2] = pack_f(p0, p1);
-          da[i / 2] = pack_f(p0 * dp[i], p1 * dp[i + 1]);
-        }
-
-        // dV += P^T . dO ; dK += dS^T . Q
-        hopper::fence_regs(acc_v);
-        hopper::fence_regs(acc_k);
-        hopper::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < T::kRows / 16; ++kk)
-          hopper::wgmma_rs_tb(acc_v, &pa[4 * kk], desc_cols(aO, T::kRows, kk));
-#pragma unroll
-        for (int kk = 0; kk < T::kRows / 16; ++kk)
-          hopper::wgmma_rs_tb(acc_k, &da[4 * kk], desc_cols(aQ, T::kRows, kk));
-        hopper::wgmma_commit();
-        hopper::wgmma_wait<0>();
-        keep_frags(pa);
-        keep_frags(da);
-        hopper::fence_regs(acc_v);
-        hopper::fence_regs(acc_k);
-      }
-      release_stage(&empty[st]);
+    if constexpr (T::kRoles) {
+      if (wg == 0)
+        dkv_consumer<T, D, true, false>(sRing, aK, aV, full, empty, k0, 0, qt0, n_it, S, H,
+                                        Dt, scale, scale_log2, causal, dk, dv, off);
+      else
+        dkv_consumer<T, D, false, true>(sRing, aK, aV, full, empty, k0, 0, qt0, n_it, S, H,
+                                        Dt, scale, scale_log2, causal, dk, dv, off);
+    } else {
+      dkv_consumer<T, D, true, true>(sRing, aK, aV, full, empty, k0 + wg * 64, wg * 64, qt0,
+                                     n_it, S, H, Dt, scale, scale_log2, causal, dk, dv, off);
     }
-
-    const long long off = ((long long)b * S * H + h) * D;
-    store_rows<D>(dk + off, H, S, kw0 + warp * 16, as_frags(acc_k), scale, scale, g, t);
-    store_rows<D>(dv + off, H, S, kw0 + warp * 16, as_frags(acc_v), 1.f, 1.f, g, t);
   }
 }
 
@@ -764,45 +849,47 @@ cudaError_t make_map(CUtensorMap* map, const void* base, const long long* plan) 
 }
 
 // Grid, block and dynamic shared memory of a launch plan; the plan's
-// shared memory must be what the kernel's tile layout takes.
+// threads and shared memory must be what the kernel's tile takes.
 struct Launch {
   int grid_x, grid_y, threads, smem;
 };
 
-cudaError_t check_launch(const int* launch, int smem, Launch* ln) {
+template <typename T>
+cudaError_t check_launch(const int* launch, Launch* ln) {
   *ln = Launch{launch[0], launch[1], launch[2], launch[3]};
-  if (ln->threads != kWsThreads || ln->smem != smem || ln->grid_x < 1 || ln->grid_y < 1)
+  if (ln->threads != threads_of<T>() || ln->smem != T::kSmem || ln->grid_x < 1 ||
+      ln->grid_y < 1)
     return cudaErrorInvalidConfiguration;
   return cudaSuccess;
 }
 
 template <int D>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse, int S,
-                int H, const long long* maps, const int* launch, float scale, int causal,
-                cudaStream_t st) {
+                int H, int Dt, const long long* maps, const int* launch, float scale,
+                int causal, cudaStream_t st) {
   Launch ln;
   CUtensorMap tq, tk, tv;
   cudaError_t err;
-  if ((err = check_launch(launch, FwdTile<D>::kSmem, &ln)) != cudaSuccess ||
+  if ((err = check_launch<FwdTile<D>>(launch, &ln)) != cudaSuccess ||
       (err = make_map(&tq, q, maps)) != cudaSuccess ||
       (err = make_map(&tk, k, maps + kMapLen)) != cudaSuccess ||
       (err = make_map(&tv, v, maps + 2 * kMapLen)) != cudaSuccess ||
       (err = prepare(flash_fwd_kernel<D>, ln.smem)) != cudaSuccess)
     return err;
   flash_fwd_kernel<D><<<dim3(ln.grid_x, ln.grid_y), ln.threads, ln.smem, st>>>(
-      tq, tk, tv, (bf16*)o, (float*)lse, H, S, scale * kLog2e, causal);
+      tq, tk, tv, (bf16*)o, (float*)lse, H, S, Dt, scale * kLog2e, causal);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t dq(const void* q, const void* k, const void* v, const void* dout, const void* o,
                const void* lse, const void* dlse, void* delta, void* dqo, int S, int H,
-               const long long* maps, const int* launch, float scale, int causal,
+               int Dt, const long long* maps, const int* launch, float scale, int causal,
                cudaStream_t st) {
   Launch ln;
   CUtensorMap tq, tk, tv, tdo, to;
   cudaError_t err;
-  if ((err = check_launch(launch, DqTile<D>::kSmem, &ln)) != cudaSuccess ||
+  if ((err = check_launch<DqTile<D>>(launch, &ln)) != cudaSuccess ||
       (err = make_map(&tq, q, maps)) != cudaSuccess ||
       (err = make_map(&tk, k, maps + kMapLen)) != cudaSuccess ||
       (err = make_map(&tv, v, maps + 2 * kMapLen)) != cudaSuccess ||
@@ -812,19 +899,19 @@ cudaError_t dq(const void* q, const void* k, const void* v, const void* dout, co
     return err;
   flash_dq_kernel<D><<<dim3(ln.grid_x, ln.grid_y), ln.threads, ln.smem, st>>>(
       tq, tk, tv, tdo, to, (const float*)lse, (const float*)dlse, (float*)delta, (bf16*)dqo,
-      H, S, scale, scale * kLog2e, causal);
+      H, S, Dt, scale, scale * kLog2e, causal);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t dkv(const void* q, const void* k, const void* v, const void* dout,
                 const void* lse, const void* delta, void* dko, void* dvo, int S, int H,
-                const long long* maps, const int* launch, float scale, int causal,
+                int Dt, const long long* maps, const int* launch, float scale, int causal,
                 cudaStream_t st) {
   Launch ln;
   CUtensorMap tq, tk, tv, tdo;
   cudaError_t err;
-  if ((err = check_launch(launch, DkvTile<D>::kSmem, &ln)) != cudaSuccess ||
+  if ((err = check_launch<DkvTile<D>>(launch, &ln)) != cudaSuccess ||
       (err = make_map(&tq, q, maps)) != cudaSuccess ||
       (err = make_map(&tk, k, maps + kMapLen)) != cudaSuccess ||
       (err = make_map(&tv, v, maps + 2 * kMapLen)) != cudaSuccess ||
@@ -833,56 +920,59 @@ cudaError_t dkv(const void* q, const void* k, const void* v, const void* dout,
     return err;
   flash_dkv_kernel<D><<<dim3(ln.grid_x, ln.grid_y), ln.threads, ln.smem, st>>>(
       tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (bf16*)dko, (bf16*)dvo, H,
-      S, scale, scale * kLog2e, causal);
+      S, Dt, scale, scale * kLog2e, causal);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // C interface, bound with ctypes.  Tensors are bf16 except lse, dlse and
-// delta (f32); D must be 64 or 128.  Each kernel takes the launch plan of
-// ops/flash_attention.launch_plan: `maps` holds one tensor map per operand
-// (q, k, v[, dout[, o]]; kMapLen values each) and `launch` is (grid x,
-// grid y, threads, dynamic shared-memory bytes).  K2 reads dlse as
-// contiguous (B, S, H) and writes delta (B, H, S) for K3.  Each returns the
-// cudaError_t of the launch (0 on success).
+// delta (f32); D is the true head dim, 1 <= D <= 256, and runs in the
+// instance 64, 128 or 256 (the smallest at least D; a build holds
+// the one that -DFLASH_D names, flash_common.cuh).  Each kernel takes the
+// launch plan of ops/flash_attention.launch_plan: `maps` holds one tensor
+// map per operand (q, k, v[, dout[, o]]; kMapLen values each) and `launch`
+// is (grid x, grid y, threads, dynamic shared-memory bytes).  K2 reads dlse
+// as contiguous (B, S, H) and writes delta (B, H, S) for K3.  Each returns
+// the cudaError_t of the launch (0 on success).
+// The head-dim instance of D (64, 128, 256) runs f.
+template <typename F>
+int dispatch(int D, F f) {
+  int rc = (int)cudaErrorInvalidValue;
+  flash::instance<64>(D, 0, f, &rc) || flash::instance<128>(D, 64, f, &rc) ||
+      flash::instance<256>(D, 128, f, &rc);
+  return rc;
+}
+
 extern "C" {
 
 int bf_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int S,
                  int H, int D, const long long* maps, const int* launch, float scale,
                  int causal, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (D == 128) return fwd<128>(q, k, v, o, lse, S, H, maps, launch, scale, causal, st);
-  if (D == 64) return fwd<64>(q, k, v, o, lse, S, H, maps, launch, scale, causal, st);
-  return (int)cudaErrorInvalidValue;
+  return dispatch(D, [&](auto d) {
+    return fwd<decltype(d)::value>(q, k, v, o, lse, S, H, D, maps, launch, scale, causal,
+                                   (cudaStream_t)stream);
+  });
 }
 
 int bf_flash_dq(const void* q, const void* k, const void* v, const void* dout, const void* o,
                 const void* lse, const void* dlse, void* delta, void* dqo, int S, int H, int D,
                 const long long* maps, const int* launch, float scale, int causal,
                 void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (D == 128)
-    return dq<128>(q, k, v, dout, o, lse, dlse, delta, dqo, S, H, maps, launch, scale, causal,
-                   st);
-  if (D == 64)
-    return dq<64>(q, k, v, dout, o, lse, dlse, delta, dqo, S, H, maps, launch, scale, causal,
-                  st);
-  return (int)cudaErrorInvalidValue;
+  return dispatch(D, [&](auto d) {
+    return dq<decltype(d)::value>(q, k, v, dout, o, lse, dlse, delta, dqo, S, H, D, maps,
+                                  launch, scale, causal, (cudaStream_t)stream);
+  });
 }
 
 int bf_flash_dkv(const void* q, const void* k, const void* v, const void* dout,
                  const void* lse, const void* delta, void* dko, void* dvo, int S, int H,
                  int D, const long long* maps, const int* launch, float scale, int causal,
                  void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (D == 128)
-    return dkv<128>(q, k, v, dout, lse, delta, dko, dvo, S, H, maps, launch, scale, causal,
-                    st);
-  if (D == 64)
-    return dkv<64>(q, k, v, dout, lse, delta, dko, dvo, S, H, maps, launch, scale, causal,
-                   st);
-  return (int)cudaErrorInvalidValue;
+  return dispatch(D, [&](auto d) {
+    return dkv<decltype(d)::value>(q, k, v, dout, lse, delta, dko, dvo, S, H, D, maps,
+                                   launch, scale, causal, (cudaStream_t)stream);
+  });
 }
 
 }  // extern "C"

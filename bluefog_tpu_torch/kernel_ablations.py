@@ -5,8 +5,8 @@ time.
 
 Each variant is a copy of ``csrc/flash_attention.cu`` (and ``hopper.cuh``)
 with one part of the kernels' work removed or changed by a text edit; all
-copies build at once with ``nvcc`` and are timed against the source as it
-is, on the training shape (B=2, S=2048, H=16, D=128, bf16, causal, fused
+copies build at once with ``nvcc`` (the shape's head-dim instance alone)
+and are timed against the source as it is, on the training shape (B=2, S=2048, H=16, D=128, bf16, causal, fused
 QKV), in turns.  A variant that still computes attention is also held to
 the plain twin.  Needs a GPU; prints one JSON line per variant (``k1_ms``,
 ``k2_ms``, ``k3_ms``; the source's rows also ``flash_delta_ms``, the plain
@@ -43,6 +43,7 @@ import argparse
 import ctypes
 import json
 import math
+import shutil
 import subprocess
 import tempfile
 from pathlib import Path
@@ -90,14 +91,15 @@ VARIANTS = {
     ], [], {"grid": "swap"}),
     "stages-3": ([(f"{tile}\n  static constexpr int kStages = 2;",
                    f"{tile}\n  static constexpr int kStages = 3;")
-                  for tile in ("static constexpr int kKeys = 128;  // keys per pipeline stage",
+                  for tile in ("static constexpr int kKeys = D > 128 ? 64 : 128;  "
+                               "// keys per pipeline stage",
                                "static constexpr int kRows = 64;   // query rows per pipeline stage")],
                  [], {"stages": 3}),
     "k3-rows-32": ([("static constexpr int kRows = 64;   // query rows",
                      "static constexpr int kRows = 32;   // query rows")],
                    [("}  // namespace hopper", "WGMMA_N32\n}  // namespace hopper")],
                    {"dkv_rows": 32}),
-    "k2-keys-64": ([("static constexpr int kKeys = 128;  // keys per stage of the ring",
+    "k2-keys-64": ([("static constexpr int kKeys = D > 128 ? 64 : 128;  // keys per stage of the ring",
                      "static constexpr int kKeys = 64;  // keys per stage of the ring")],
                    [], {"dq_keys": 64}),
     "k2-no-delta": ([
@@ -159,20 +161,21 @@ def _load(path: Path):
 
 def _plan(kernel, strides, over):
     """The launch plan under a variant's overrides, as C arrays."""
-    saved = dict(FA._KERNELS)
+    saved = dict(FA._TILES)
+    key = (kernel, SHAPE[-1])
     try:
-        block, step, stages, res, streamed = FA._KERNELS[kernel]
+        block, step, stages, threads = FA._TILES[key]
         if kernel == "dkv":
             step = over.get("dkv_rows", step)
         if kernel == "dq":
             step = over.get("dq_keys", step)
         else:
             stages = over.get("stages", stages)
-        FA._KERNELS[kernel] = (block, step, stages, res, streamed)
+        FA._TILES[key] = (block, step, stages, threads)
         plan = FA.launch_plan(kernel, SHAPE, strides, True)
     finally:
-        FA._KERNELS.clear()
-        FA._KERNELS.update(saved)
+        FA._TILES.clear()
+        FA._TILES.update(saved)
     flat = [x for m in plan.maps.values() for x in m.flat()]
     grid = plan.grid[::-1] if over.get("grid") == "swap" else plan.grid
     return ((ctypes.c_longlong * len(flat))(*flat),
@@ -209,9 +212,12 @@ def _run(tmp: Path, iters: int):
         cu, h = variant_sources(name)
         (d / "flash_attention.cu").write_text(cu)
         (d / "hopper.cuh").write_text(h)
+        shutil.copy(_nvcc.CSRC_DIR / "flash_common.cuh", d)
+        # SHAPE's head-dim instance alone.
         procs[name] = subprocess.Popen(
-            [_nvcc._nvcc(), *_nvcc.NVCC_FLAGS, "-o", str(d / "lib.so"),
-             str(d / "flash_attention.cu")],
+            [_nvcc._nvcc(), *_nvcc.NVCC_FLAGS,
+             f"-DFLASH_D={FA.instance(torch.bfloat16, SHAPE[-1])}",
+             "-o", str(d / "lib.so"), str(d / "flash_attention.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     for name, p in procs.items():
         log = p.communicate()[0]

@@ -11,10 +11,10 @@ with ``--rope``.  The shards run rank-major in this process, stacked on the
 batch dim (the JAX example's mesh devices; ``--shards`` stands for its
 device count).
 
-The model is the JAX example's: 2 layers, 8 heads, vocabulary ``--vocab``.
-On the CPU it is its width 128 in float32 (heads of 16, the plain twins);
-the flash kernels take bfloat16 and heads of 64 or 128, so on CUDA it is
-width 512 in bfloat16 (heads of 64), through K1-K3.
+The model is the JAX example's on every device (:func:`model_config`): 2
+layers, 8 heads, width 128 in float32 (heads of 16), vocabulary
+``--vocab``; on CUDA its attention runs through the float32 K1-K3, on the
+CPU through their plain twins.
 
     python -m bluefog_tpu_torch.long_context_training --seq-len 8192
     python -m bluefog_tpu_torch.long_context_training --device cpu \\
@@ -41,7 +41,7 @@ from bluefog_tpu_torch.parallel.ring_attention import (ring_attention_impl,
 from bluefog_tpu_torch.parallel.ulysses import ulysses_attention_impl
 
 __all__ = ["synthetic_language", "SequenceParallelLM", "build_parser",
-           "main"]
+           "model_config", "main"]
 
 
 def synthetic_language(seq_len: int, vocab: int, seed: int = 0
@@ -62,20 +62,25 @@ class SequenceParallelLM:
     cut into the shards, stacked on the batch dim with their global
     positions, and every step's loss is the mean next-token cross-entropy
     over the whole sequence (``chunked_loss``: without the logits,
-    ``ops.chunked_loss``).  ``opt`` is the Adam over the parameters."""
+    ``ops.chunked_loss``).  ``opt`` is the Adam over the parameters.  The
+    weights are drawn from ``seed`` on ``init_device`` (default: the
+    tokens' device); drawn on the CPU they are the same on every device."""
 
     def __init__(self, cfg: TransformerConfig, attention: str, n: int,
                  tokens: torch.Tensor, targets: torch.Tensor, *, lr: float,
-                 chunked_loss: bool = False, seed: int = 0):
+                 chunked_loss: bool = False, seed: int = 0,
+                 init_device=None):
         if attention not in ("ring", "ulysses"):
             raise ValueError(f"attention {attention!r} not in ('ring', "
                              "'ulysses')")
         impl = (ring_attention_impl(n) if attention == "ring"
                 else ulysses_attention_impl(n))
         dev = tokens.device
-        self.model = TransformerLM(cfg, impl).to(dev)
+        init = torch.device(init_device or dev)
+        self.model = TransformerLM(cfg, impl).to(init)
         self.model.reset_parameters(
-            torch.Generator(device=dev).manual_seed(seed))
+            torch.Generator(device=init).manual_seed(seed))
+        self.model.to(dev)
         B, S = tokens.shape
         self.tokens = shard_sequence(tokens, n)
         self.targets = shard_sequence(targets, n)
@@ -121,6 +126,15 @@ def build_parser():
     return ap
 
 
+def model_config(args) -> TransformerConfig:
+    """The JAX example's model (``examples/long_context_training.py``), the
+    same whatever ``args.device``."""
+    return TransformerConfig(
+        vocab_size=args.vocab, num_layers=2, num_heads=8, embed_dim=128,
+        max_seq_len=args.seq_len, dtype=torch.float32,
+        pos_encoding="rope" if args.rope else "learned")
+
+
 def main(argv=None) -> dict:
     ap = build_parser()
     args = ap.parse_args(argv)
@@ -130,15 +144,10 @@ def main(argv=None) -> dict:
     if S % n:
         ap.error(f"--seq-len {S} must divide over {n} shards")
     dev = resolve_device(args.device)
-    cpu = dev.type == "cpu"
-    cfg = TransformerConfig(
-        vocab_size=args.vocab, num_layers=2, num_heads=8,
-        embed_dim=128 if cpu else 512, max_seq_len=S,
-        dtype=torch.float32 if cpu else torch.bfloat16,
-        pos_encoding="rope" if args.rope else "learned")
+    cfg = model_config(args)
     toks = torch.from_numpy(synthetic_language(S, args.vocab)).to(dev)
     lm = SequenceParallelLM(cfg, args.attention, n, toks[None, :S],
-                            toks[None, 1:], lr=args.lr)
+                            toks[None, 1:], lr=args.lr, init_device="cpu")
     losses = []
     for i in range(args.steps):
         losses.append(float(lm.step()))

@@ -2,7 +2,9 @@
 
 Each source under ``bluefog_tpu_torch/csrc/`` compiles with one ``nvcc``
 call into ``bluefog_tpu_torch/_build/<name>-<hash>.so``, keyed by a hash of
-the source, every header beside it (``csrc/*.cuh``) and the flags, so an
+the source, every header beside it (``csrc/*.cuh``), the flags and the
+call's macro definitions (``defines``: one source can build several
+libraries, say one per kernel instance, in calls that run at once), so an
 edited source or header rebuilds and an unchanged tree loads from the
 previous build.  The library has a plain C interface and is
 loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds).
@@ -14,8 +16,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Tuple
+from typing import Sequence, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -23,6 +27,10 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+# The flash-attention sources' head-dim instances (ops/flash_attention.
+# INSTANCES), a library each: -DFLASH_D=<instance>.
+FLASH_INSTANCES = {"flash_attention": (64, 128, 256),
+                   "flash_attention_f32": (16, 64, 128, 256)}
 
 
 def _nvcc() -> str:
@@ -37,29 +45,48 @@ def _nvcc() -> str:
                        "with the card")
 
 
-def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to under the current sources."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags(defines: Sequence[str]) -> Tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def library_path(name: str, defines: Sequence[str] = ()) -> Path:
+    """Where ``csrc/<name>.cu`` builds to under the current sources, with
+    the macro definitions ``defines`` (``"NAME=VALUE"``)."""
+    h = hashlib.sha256(" ".join(_flags(defines)).encode())
     for path in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
         h.update(f"\0{path.name}\0".encode() + path.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str, verbose: bool = False) -> Tuple[Path, str]:
-    """Compile ``csrc/<name>.cu`` unless its library is already built.
+def build(name: str, verbose: bool = False,
+          defines: Sequence[str] = ()) -> Tuple[Path, str]:
+    """Compile ``csrc/<name>.cu`` (with ``-D`` each of ``defines``) unless
+    its library is already built.
 
     Returns ``(path, log)``; with ``verbose`` the build passes
     ``-Xptxas -v`` and ``log`` holds what the compiler printed (registers,
     shared memory and spills of each kernel)."""
-    out = library_path(name)
+    out = library_path(name, defines)
     if out.exists() and not verbose:
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [_nvcc(), *_flags(defines), *(["-Xptxas", "-v"] if verbose else []),
            "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
     os.replace(tmp, out)
     return out, proc.stdout + proc.stderr
+
+
+def build_flash(verbose: bool = False):
+    """``build`` of every library of ``FLASH_INSTANCES``, every ``nvcc`` at
+    once, so that the build takes the time of its slowest instance;
+    returns ``{(source, instance): (path, log)}``.  It needs no torch, so a
+    caller can start it before torch loads."""
+    keys = [(name, d) for name, ds in FLASH_INSTANCES.items() for d in ds]
+    with ThreadPoolExecutor(len(keys)) as pool:
+        return dict(zip(keys, pool.map(
+            lambda key: build(key[0], verbose, (f"FLASH_D={key[1]}",)),
+            keys)))

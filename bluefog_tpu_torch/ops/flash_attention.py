@@ -1,9 +1,9 @@
 """Flash attention: hand-written Hopper kernels with a plain PyTorch twin.
 
 The port of ``bluefog_tpu/ops/flash_attention.py``.  Its three Pallas TPU
-kernels become three CUDA kernels for ``sm_90a`` in
-``bluefog_tpu_torch/csrc/flash_attention.cu``, each warp-specialised: TMA
-loads through an mbarrier ring, every product a ``wgmma``:
+kernels become CUDA kernels for ``sm_90a``, over the JAX kernels' domain:
+bfloat16 or float32 operands, any head dim D from 1 to 256, causal or not,
+any S, strided operands.
 
 - K1 ``flash_fwd_cuda`` (replaces ``_fwd_kernel``): O and the per-row
   logsumexp by the online-softmax recurrence, logits never in device memory;
@@ -13,24 +13,37 @@ loads through an mbarrier ring, every product a ``wgmma``:
 - K3 ``flash_dkv_cuda`` (replaces ``_dkv_kernel``): ``dk = sum_q dS^T Q`` and
   ``dv = sum_q P^T dO``.
 
+bfloat16 runs in ``csrc/flash_attention.cu``: warp-specialised kernels,
+TMA loads through an mbarrier ring, every product a ``wgmma``, in three
+instances D = 64, 128 and 256.  float32 runs in
+``csrc/flash_attention_f32.cu``: SIMT float32 kernels (no TF32), instances
+D = 16, 64, 128 and 256.  Each instance builds into a library of its own
+(:func:`load_library`).  A head dim runs in the smallest instance at least
+as wide (:func:`instance`); the columns past it are zeros the kernels never
+store.  float16 and D > 256 raise.
+
 ``flash_fwd_ref``, ``flash_bwd_ref`` and ``flash_delta`` are their plain
 twins: the same functions as dense float32 math.  :class:`FlashAttention`
 takes the plain path only for tensors on the CPU; for CUDA tensors it
-launches the kernels or raises.  Each CUDA wrapper counts its launches in a plain integer
-attribute ``launches``.
+launches the kernels or raises.  Each CUDA wrapper counts its launches in a
+plain integer attribute ``launches``, and per instance (``"bf16/D128"``,
+``"f32/D16"``, ...) in ``by_instance``; ``copies`` counts the bf16 operands
+it copied into a padded buffer because a TMA tensor map cannot describe
+their strides.
 
 Layout: ``(B, S, H, D)`` like ``models.transformer.local_attention``; the
 kernels read q, k, v and dO through their strides, so the fused-QKV slices
 need no copy.  The lse is ``(B, S, H)`` at the public functions.
 
 :func:`launch_plan` holds the host-side arithmetic of K1-K3 (grid, tile
-counts, shared memory, and the TMA tensor maps over the operands' strides)
-as a pure function of shapes and strides; the wrappers pass its result to
-the C interface.
+counts, shared memory, and the bf16 kernels' TMA tensor maps over the
+operands' strides) as a pure function of dtype, shapes and strides; the
+wrappers pass its result to the C interface.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
@@ -43,13 +56,34 @@ from bluefog_tpu_torch.ops import _nvcc
 
 __all__ = ["flash_attention", "flash_attention_lse", "flash_attention_impl",
            "FlashAttention", "flash_fwd_ref", "flash_bwd_ref", "flash_delta",
-           "flash_fwd_cuda", "flash_dq_cuda", "flash_dkv_cuda",
+           "flash_fwd_cuda", "flash_dq_cuda", "flash_dkv_cuda", "instance",
+           "INSTANCES", "describable",
            "load_library", "reset_launch_counts", "launch_plan",
            "LaunchPlan", "TensorMapPlan"]
 
 _NEG_INF = -1e30
-_HEAD_DIMS = (64, 128)
-_LIB = None
+# Each dtype's source and the suffix of its C functions' names.
+_SOURCES = {torch.bfloat16: ("flash_attention", ""),
+            torch.float32: ("flash_attention_f32", "_f32")}
+# Head-dim instances of each dtype's kernels; a head dim D runs in the
+# smallest instance >= D.
+INSTANCES = {dtype: _nvcc.FLASH_INSTANCES[src]
+             for dtype, (src, _) in _SOURCES.items()}
+_TAGS = {torch.bfloat16: "bf16", torch.float32: "f32"}
+_LIBS = None
+
+
+def instance(dtype, D: int) -> int:
+    """The kernel instance that runs head dim ``D`` in ``dtype``; raises
+    ``ValueError`` for a dtype or head dim the kernels do not take."""
+    if dtype not in INSTANCES:
+        raise ValueError(f"the flash kernels take bfloat16 and float32 "
+                         f"operands, got {dtype}")
+    for inst in INSTANCES[dtype]:
+        if 1 <= D <= inst:
+            return inst
+    raise ValueError(f"the flash kernels take head dims 1 to "
+                     f"{INSTANCES[dtype][-1]}, got {D}")
 
 
 # ---------------------------------------------------------------------------
@@ -105,43 +139,61 @@ def flash_bwd_ref(q, k, v, o, lse, do, dlse, causal: bool = True):
 # CUDA kernels (K1-K3)
 # ---------------------------------------------------------------------------
 
-def load_library(verbose: bool = False):
-    """Build (at first use) and load the kernels' library; returns
-    ``(ctypes library, compiler log)``."""
-    global _LIB
-    if _LIB is not None and not verbose:
-        return _LIB, ""
-    path, log = _nvcc.build("flash_attention", verbose=verbose)
-    lib = ctypes.CDLL(str(path))
+def load_library(verbose: bool = False, built=None):
+    """Build (at first use) and load the kernels' libraries, one per dtype
+    and head-dim instance, every ``nvcc`` at once (``_nvcc.build_flash``,
+    whose result ``built`` is, where the caller started it); returns
+    ``({(dtype, instance): (K1, K2, K3) C functions}, compiler log)``."""
+    global _LIBS
+    if _LIBS is not None and not verbose and built is None:
+        return _LIBS, ""
+    built = built or _nvcc.build_flash(verbose)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    plan = [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(I)]  # maps, launch
-    lib.bf_flash_fwd.argtypes = [P] * 5 + [I] * 3 + plan + [F, I, P]
-    lib.bf_flash_dq.argtypes = [P] * 9 + [I] * 3 + plan + [F, I, P]
-    lib.bf_flash_dkv.argtypes = [P] * 8 + [I] * 3 + plan + [F, I, P]
-    for fn in (lib.bf_flash_fwd, lib.bf_flash_dq, lib.bf_flash_dkv):
-        fn.restype = ctypes.c_int
-    _LIB = lib
-    return lib, log
+    plan = [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(I)]  # maps or strides, launch
+    libs = {}
+    for dtype, (src, suffix) in _SOURCES.items():
+        for inst in INSTANCES[dtype]:
+            lib = ctypes.CDLL(str(built[src, inst][0]))
+            fns = [getattr(lib, f"bf_flash_{k}{suffix}")
+                   for k in ("fwd", "dq", "dkv")]
+            for fn, pointers in zip(fns, (5, 9, 8)):
+                fn.argtypes = [P] * pointers + [I] * 3 + plan + [F, I, P]
+                fn.restype = ctypes.c_int
+            libs[dtype, inst] = fns
+    _LIBS = libs
+    return libs, "".join(log for _, log in built.values())
 
 
 # ---------------------------------------------------------------------------
 # Launch plan of K1-K3 (pure host arithmetic; tested on the CPU)
 # ---------------------------------------------------------------------------
 
-# Tiles of csrc/flash_attention.cu (FwdTile, DqTile, DkvTile): a block of 3
-# warpgroups owns `block` rows; `stream` rows of the other operands pass
-# through a ring of `stages` shared-memory stages.  K1's and K2's blocks are
-# query rows and stream keys; K3's block is keys and streams query rows.
-_WS_THREADS = 384
+# bf16 tiles of csrc/flash_attention.cu (FwdTile, DqTile, DkvTile) by
+# (kernel, instance): a block owns `block` rows; `stream` rows of the other
+# operands pass through a ring of `stages` shared-memory stages; `threads`
+# is 128 a consumer warpgroup plus a producer warpgroup.  K1's and K2's
+# blocks are query rows and stream keys; K3's block is keys and streams
+# query rows.
+_TILES = {
+    # (kernel, instance): (block rows, streamed rows, stages, threads)
+    ("fwd", 64): (128, 128, 2, 384), ("fwd", 128): (128, 128, 2, 384),
+    ("fwd", 256): (128, 64, 2, 384),
+    ("dq", 64): (128, 128, 2, 384), ("dq", 128): (128, 128, 2, 384),
+    ("dq", 256): (64, 64, 2, 256),
+    ("dkv", 64): (128, 64, 2, 384), ("dkv", 128): (128, 64, 2, 384),
+    ("dkv", 256): (64, 64, 2, 384),
+}
+# (resident operands, streamed operands) of each kernel
+_OPERANDS = {"fwd": (("q",), ("k", "v")), "dq": (("q", "do", "o"), ("k", "v")),
+             "dkv": (("k", "v"), ("q", "do"))}
 _ALIGN = 1024                 # swizzled tiles start 1024-byte aligned
 _SMEM_LIMIT = 232448          # dynamic shared memory a Hopper block may use
 _BOX_COLS = 64                # one TMA box row: 64 bf16 = the 128-byte swizzle
-_KERNELS = {
-    # name: (block rows, streamed rows, stages, resident operands, streamed)
-    "fwd": (128, 128, 2, ("q",), ("k", "v")),
-    "dq": (128, 128, 2, ("q", "do", "o"), ("k", "v")),
-    "dkv": (128, 64, 2, ("k", "v"), ("q", "do")),
-}
+# float32 tiles of csrc/flash_attention_f32.cu (Tile): 256 threads own 64
+# rows and stream 64-row tiles (32 at instance 256), each tile in shared
+# memory with a row stride of instance + 1 floats.
+_F32_THREADS = 256
+_F32_BLOCK = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,17 +211,28 @@ class TensorMapPlan:
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
     """Grid ``(B*H, row tiles)``, threads and dynamic shared-memory bytes of
-    one launch; ``inner_tiles`` counts the ring stages filled over one
-    (b, h), and ``maps`` the operands' tensor maps in C-interface order."""
+    one launch of the head-dim ``instance``; ``inner_tiles`` counts the
+    streamed tiles over one (b, h), and ``maps`` the bf16 operands' tensor
+    maps in C-interface order (float32 reads through strides: none)."""
     grid: Tuple[int, int]
     threads: int
     smem: int
     inner_tiles: int
+    instance: int
     maps: Dict[str, TensorMapPlan]
 
 
 def _ceil(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def describable(strides, data_ptr: int = 0) -> bool:
+    """Whether a TMA tensor map can describe a bf16 ``(B, S, H, D)``
+    operand: unit stride along D, 16-byte multiples for the other strides
+    and a 16-byte aligned base."""
+    sb, ss, sh, sd = strides
+    return sd == 1 and all((2 * x) % 16 == 0 for x in (sb, ss, sh)) \
+        and data_ptr % 16 == 0
 
 
 def _tensor_map(name, shape, strides, rows) -> TensorMapPlan:
@@ -178,76 +241,125 @@ def _tensor_map(name, shape, strides, rows) -> TensorMapPlan:
     if sd != 1:
         raise ValueError(f"{name}: the head dim must have unit stride, got "
                          f"{sd}")
-    if any((2 * x) % 16 for x in (sb, ss, sh)):
+    if not describable(strides):
         raise ValueError(f"{name}: TMA needs byte strides that are multiples "
                          f"of 16; got element strides {(sb, ss, sh)}")
+    # The true D is the map's inner extent; the instance's 64-column boxes
+    # reach past it, and the TMA fills those columns with zeros.
     return TensorMapPlan(dims=(D, S, H, B), strides=(2 * ss, 2 * sh, 2 * sb),
                          box=(_BOX_COLS, rows, 1, 1))
 
 
-def launch_plan(kernel: str, shape, strides, causal: bool = True) -> LaunchPlan:
+def _inner_tiles(kernel, S, block, step, causal) -> int:
+    """Streamed tiles over one (b, h): K1 and K2 stream keys up to each
+    query block's causal frontier, K3 query rows from each key block's."""
+    tiles = range(_ceil(S, block))
+    if kernel in ("fwd", "dq"):
+        return sum(_ceil(min(S, (t + 1) * block) if causal else S, step)
+                   for t in tiles)
+    return sum(_ceil(S, step) - (t * block // step if causal else 0)
+               for t in tiles)
+
+
+def _f32_plan(kernel, shape, inst, causal) -> LaunchPlan:
+    B, S, H, _ = shape
+    step = 32 if inst > 128 else 64
+    block_f = _F32_BLOCK * (inst + 1)      # floats of a 64-row operand tile
+    stream_f = step * (inst + 1)
+    score_f = _F32_BLOCK * (step + 1)
+    floats = {"fwd": block_f + 2 * stream_f + score_f,
+              "dq": 2 * block_f + 2 * stream_f + score_f,
+              "dkv": 2 * block_f + 2 * stream_f + 2 * score_f + 2 * step}
+    return LaunchPlan(grid=(B * H, _ceil(S, _F32_BLOCK)), threads=_F32_THREADS,
+                      smem=4 * floats[kernel],
+                      inner_tiles=_inner_tiles(kernel, S, _F32_BLOCK, step,
+                                               causal),
+                      instance=inst, maps={})
+
+
+def launch_plan(kernel: str, shape, strides, causal: bool = True,
+                dtype=torch.bfloat16) -> LaunchPlan:
     """The launch of K1 (``kernel="fwd"``; operands q, k, v), K2 (``"dq"``;
     q, k, v, do, o) or K3 (``"dkv"``; q, k, v, do) for ``shape = (B, S, H,
-    D)`` and each operand's element strides ``(sb, ss, sh, sd)``.  Raises
-    ``ValueError`` for a head dim other than 64 or 128, or strides a TMA
-    map cannot describe."""
-    block, step, stages, resident, streamed = _KERNELS[kernel]
+    D)`` in ``dtype`` and each operand's element strides ``(sb, ss, sh,
+    sd)``.  Raises ``ValueError`` for a dtype or head dim the kernels do not
+    take (float16, D > 256), and for bf16 strides a TMA map cannot describe
+    (the wrappers copy such an operand first)."""
     B, S, H, D = shape
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"the flash kernels take head dim {_HEAD_DIMS}, "
-                         f"got {D}")
+    inst = instance(dtype, D)
     if min(B, S, H) < 1:
         raise ValueError(f"empty shape {tuple(shape)}")
+    if dtype == torch.float32:
+        return _f32_plan(kernel, shape, inst, causal)
+    block, step, stages, threads = _TILES[kernel, inst]
+    resident, streamed = _OPERANDS[kernel]
     maps = {n: _tensor_map(n, shape, strides[n], block if n in resident else step)
             for n in ("q", "k", "v", "do", "o") if n in resident + streamed}
 
-    row_tiles = _ceil(S, block)
-    tile = lambda rows: rows * D * 2                        # noqa: E731
+    tile = lambda rows: rows * inst * 2                     # noqa: E731
     if kernel in ("fwd", "dq"):
         ring = stages * 2 * tile(step)                      # K and V
         smem = _ALIGN + len(resident) * tile(block) + ring
-        inner = sum(_ceil(min(S, (qt + 1) * block) if causal else S, step)
-                    for qt in range(row_tiles))
     else:
         stage = _ceil(2 * tile(step) + 2 * step * 4, _ALIGN) * _ALIGN
         smem = _ALIGN + 2 * tile(block) + stages * stage
-        inner = sum(_ceil(S, step) - (kt * block // step if causal else 0)
-                    for kt in range(row_tiles))
     if smem > _SMEM_LIMIT:
         raise ValueError(f"{kernel}: {smem} bytes of shared memory, over "
                          f"{_SMEM_LIMIT}")
-    return LaunchPlan(grid=(B * H, row_tiles), threads=_WS_THREADS,
-                      smem=smem, inner_tiles=inner, maps=maps)
+    return LaunchPlan(grid=(B * H, _ceil(S, block)), threads=threads,
+                      smem=smem,
+                      inner_tiles=_inner_tiles(kernel, S, block, step, causal),
+                      instance=inst, maps=maps)
 
 
 @functools.lru_cache(maxsize=256)
-def _c_plan(kernel: str, shape, strides, causal: bool):
-    """The plan as the C interface takes it (tensor maps, launch), cached
-    per shape and strides: a launch then costs the host no Python
-    arithmetic."""
-    plan = launch_plan(kernel, shape, dict(strides), causal)
-    flat = [x for m in plan.maps.values() for x in m.flat()]
+def _c_plan(kernel: str, shape, strides, causal: bool, dtype):
+    """The plan as the C interface takes it (bf16: the tensor maps; float32:
+    each operand's four element strides; then the launch), cached per
+    shape and strides: a launch then costs the host no Python arithmetic."""
+    plan = launch_plan(kernel, shape, dict(strides), causal, dtype)
+    if dtype == torch.float32:
+        flat = [x for _, st in strides for x in st]
+    else:
+        flat = [x for m in plan.maps.values() for x in m.flat()]
     maps = (ctypes.c_longlong * len(flat))(*flat)
     launch = (ctypes.c_int * 4)(*plan.grid, plan.threads, plan.smem)
     return maps, launch
 
 
-def _operand(t: torch.Tensor, name: str, like: torch.Tensor) -> torch.Tensor:
-    """Check a (B, S, H, D) bf16 CUDA operand; returns it, or a contiguous
-    copy when its strides do not allow 16-byte row loads."""
-    if not t.is_cuda:
-        raise ValueError(f"{name} must be a CUDA tensor")
-    if t.device != like.device:
-        raise ValueError(f"{name} is on {t.device}, q on {like.device}")
-    if t.dtype != torch.bfloat16:
-        raise ValueError(f"the flash kernels take bfloat16; {name} is {t.dtype}")
-    if t.shape != like.shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, q "
-                         f"{tuple(like.shape)}")
-    if (t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3])
-            or t.data_ptr() % 16):
-        t = t.contiguous()
-    return t
+def _padded(t: torch.Tensor, inst: int) -> torch.Tensor:
+    """``t`` copied into a contiguous zero buffer ``(B, S, H, inst)``, viewed
+    as its first D columns: strides every tensor map describes."""
+    buf = t.new_zeros(tuple(t.shape[:3]) + (inst,))
+    buf[..., :t.shape[-1]] = t
+    return buf[..., :t.shape[-1]]
+
+
+def _operands(fn, q: torch.Tensor, **ts) -> Tuple[Dict[str, torch.Tensor], int]:
+    """Checked ``(B, S, H, D)`` CUDA operands of one launch of ``fn`` (q
+    first) and their head-dim instance; a bf16 operand whose strides a
+    tensor map cannot describe is copied into a padded buffer and counted
+    in ``fn.copies``."""
+    if q.dim() != 4:
+        raise ValueError(f"expected (B, S, H, D) inputs, got {tuple(q.shape)}")
+    inst = instance(q.dtype, q.shape[-1])
+    out = {}
+    for name, t in (("q", q), *ts.items()):
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.dtype != q.dtype:
+            raise ValueError(f"{name} is {t.dtype}, q {q.dtype}")
+        if t.shape != q.shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, q "
+                             f"{tuple(q.shape)}")
+        if q.dtype == torch.bfloat16 and not describable(t.stride(),
+                                                         t.data_ptr()):
+            t = _padded(t, inst)
+            fn.copies += 1
+        out[name] = t
+    return out, inst
 
 
 def _stats(t: torch.Tensor, name: str, B: int, H: int, S: int) -> torch.Tensor:
@@ -257,41 +369,37 @@ def _stats(t: torch.Tensor, name: str, B: int, H: int, S: int) -> torch.Tensor:
     return t
 
 
-def _dims(q: torch.Tensor):
-    if q.dim() != 4:
-        raise ValueError(f"expected (B, S, H, D) inputs, got {tuple(q.shape)}")
+def _launch(fn, kernel: str, ops: Dict[str, torch.Tensor], inst: int,
+            causal: bool, *tail) -> None:
+    """One launch of ``kernel`` on ``ops`` (q, k, v[, do[, o]]); ``tail``
+    are the C function's other pointers, after the operands'.  Raises on a
+    refused launch; counts it in ``fn``."""
+    q = ops["q"]
     B, S, H, D = q.shape
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"the flash kernels take head dim {_HEAD_DIMS}, "
-                         f"got {D}")
-    return B, S, H, D
-
-
-def _check(rc: int, what: str) -> None:
+    plan = _c_plan(kernel, (B, S, H, D),
+                   tuple((n, t.stride()) for n, t in ops.items()),
+                   bool(causal), q.dtype)
+    libs, _ = load_library()
+    c_fn = libs[q.dtype, inst][("fwd", "dq", "dkv").index(kernel)]
+    rc = c_fn(*(t.data_ptr() for t in ops.values()), *tail, S, H, D, *plan,
+              1.0 / math.sqrt(D), int(causal),
+              torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+        raise RuntimeError(f"flash {kernel} kernel launch failed: CUDA "
+                           f"error {rc}")
+    fn.launches += 1
+    fn.by_instance[f"{_TAGS[q.dtype]}/D{inst}"] += 1
 
 
 def flash_fwd_cuda(q, k, v, causal: bool = True):
-    """K1: ``(o, lse)`` with o ``(B, S, H, D)`` bf16 and lse ``(B, H, S)``
-    float32."""
-    B, S, H, D = _dims(q)
-    q = _operand(q, "q", q)
-    k, v = _operand(k, "k", q), _operand(v, "v", q)
-    plan = _c_plan("fwd", (B, S, H, D), (("q", q.stride()), ("k", k.stride()),
-                                         ("v", v.stride())), bool(causal))
-    lib, _ = load_library()
+    """K1: ``(o, lse)`` with o ``(B, S, H, D)`` in q's dtype and lse ``(B, H,
+    S)`` float32."""
+    ops, inst = _operands(flash_fwd_cuda, q, k=k, v=v)
+    B, S, H, D = q.shape
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    rc = lib.bf_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        S, H, D, *plan, 1.0 / math.sqrt(D), int(causal), _stream(q))
-    _check(rc, "flash forward (K1)")
-    flash_fwd_cuda.launches += 1
+    _launch(flash_fwd_cuda, "fwd", ops, inst, causal, o.data_ptr(),
+            lse.data_ptr())
     return o, lse
 
 
@@ -300,60 +408,40 @@ def flash_dq_cuda(q, k, v, o, do, lse, dlse, causal: bool = True):
     ``(B, H, S)``) and the cotangents ``do`` and ``dlse`` (``(B, S, H)``, any
     strides); dq is ``(B, S, H, D)``, ``delta = rowsum(dO o) - dlse`` float32
     ``(B, H, S)``, the input of K3."""
-    B, S, H, D = _dims(q)
-    q = _operand(q, "q", q)
-    k, v, do, o = (_operand(t, n, q)
-                   for t, n in ((k, "k"), (v, "v"), (do, "do"), (o, "o")))
+    ops, inst = _operands(flash_dq_cuda, q, k=k, v=v, do=do, o=o)
+    B, S, H, D = q.shape
     lse = _stats(lse, "lse", B, H, S)
     if dlse.shape != (B, S, H) or dlse.device != q.device:
         raise ValueError(f"dlse must be (B, S, H) = {(B, S, H)} on {q.device}; "
                          f"got {tuple(dlse.shape)} on {dlse.device}")
     dlse = dlse.float().contiguous()
-    plan = _c_plan("dq", (B, S, H, D),
-                   (("q", q.stride()), ("k", k.stride()), ("v", v.stride()),
-                    ("do", do.stride()), ("o", o.stride())), bool(causal))
-    lib, _ = load_library()
     dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    rc = lib.bf_flash_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), dlse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        S, H, D, *plan, 1.0 / math.sqrt(D), int(causal), _stream(q))
-    _check(rc, "flash dq (K2)")
-    flash_dq_cuda.launches += 1
+    _launch(flash_dq_cuda, "dq", ops, inst, causal, lse.data_ptr(),
+            dlse.data_ptr(), delta.data_ptr(), dq.data_ptr())
     return dq, delta
 
 
 def flash_dkv_cuda(q, k, v, do, lse, delta, causal: bool = True):
     """K3: ``(dk, dv)``, each ``(B, S, H, D)``, from the saved lse and the
     ``delta`` that K2 returns, both float32 ``(B, H, S)``."""
-    B, S, H, D = _dims(q)
-    q = _operand(q, "q", q)
-    k, v, do = (_operand(t, n, q) for t, n in ((k, "k"), (v, "v"), (do, "do")))
+    ops, inst = _operands(flash_dkv_cuda, q, k=k, v=v, do=do)
+    B, S, H, D = q.shape
     lse, delta = _stats(lse, "lse", B, H, S), _stats(delta, "delta", B, H, S)
-    plan = _c_plan("dkv", (B, S, H, D),
-                   (("q", q.stride()), ("k", k.stride()), ("v", v.stride()),
-                    ("do", do.stride())), bool(causal))
-    lib, _ = load_library()
     dk = torch.empty((B, S, H, D), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, S, H, D), dtype=v.dtype, device=q.device)
-    rc = lib.bf_flash_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        S, H, D, *plan, 1.0 / math.sqrt(D), int(causal), _stream(q))
-    _check(rc, "flash dk/dv (K3)")
-    flash_dkv_cuda.launches += 1
+    _launch(flash_dkv_cuda, "dkv", ops, inst, causal, lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr())
     return dk, dv
-
-
-flash_fwd_cuda.launches = 0
-flash_dq_cuda.launches = 0
-flash_dkv_cuda.launches = 0
 
 
 def reset_launch_counts() -> None:
     for fn in (flash_fwd_cuda, flash_dq_cuda, flash_dkv_cuda):
-        fn.launches = 0
+        fn.launches = fn.copies = 0
+        fn.by_instance = collections.Counter()
+
+
+reset_launch_counts()
 
 
 def flash_delta(o, do, dlse):

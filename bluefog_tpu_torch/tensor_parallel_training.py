@@ -10,9 +10,9 @@ sequences, and the gradients are averaged over dp before Adam (gradient
 allreduce), which is what GSPMD's batch sharding computes in the JAX example.
 The run checks that the loss fell and that the qkv weight is cut over tp.
 
-On the CPU the model is the JAX example's width 128 in float32 (heads of 16,
-the plain attention twin); the flash kernels take bfloat16 and heads of 64 or
-128, so on CUDA it is width 512 in bfloat16 (heads of 64), through K1-K3.
+The model is the JAX example's width 128 in float32 (heads of 16) on every
+device (:func:`model_config`); on CUDA its head shards' attention runs
+through the float32 K1-K3, on the CPU through their plain twins.
 ``--num-experts`` makes its blocks switch-MoE blocks (GELU experts, whole on
 every tp shard) and ``--remat`` recomputes each block in the backward.
 
@@ -41,7 +41,7 @@ from bluefog_tpu_torch.parallel.tensor_parallel import (TensorParallelLM,
 from bluefog_tpu_torch.replicas import RankReplicas
 
 __all__ = ["synthetic_batch", "DataTensorParallelLM", "build_parser",
-           "main"]
+           "model_config", "main"]
 
 VOCAB = 256
 
@@ -120,6 +120,17 @@ def build_parser():
     return ap
 
 
+def model_config(args) -> TransformerConfig:
+    """The JAX example's model (``examples/tensor_parallel_training.py``),
+    the same whatever ``args.device``; ``--num-experts`` makes its blocks
+    switch-MoE blocks of GELU experts, ``--remat`` recomputes them."""
+    return TransformerConfig(
+        vocab_size=VOCAB, num_layers=2, num_heads=8, embed_dim=128,
+        max_seq_len=args.seq_len, dtype=torch.float32,
+        mlp="gelu" if args.num_experts else "swiglu",
+        num_experts=args.num_experts, remat=args.remat)
+
+
 def main(argv=None) -> dict:
     ap = build_parser()
     args = ap.parse_args(argv)
@@ -132,13 +143,7 @@ def main(argv=None) -> dict:
     if args.batch % dp:
         ap.error(f"--batch {args.batch} must divide over {dp} dp ranks")
     dev = basics.resolve_device(args.device)
-    cpu = dev.type == "cpu"
-    cfg = TransformerConfig(
-        vocab_size=VOCAB, num_layers=2, num_heads=8,
-        embed_dim=128 if cpu else 512, max_seq_len=args.seq_len,
-        dtype=torch.float32 if cpu else torch.bfloat16,
-        mlp="gelu" if args.num_experts else "swiglu",
-        num_experts=args.num_experts, remat=args.remat)
+    cfg = model_config(args)
     toks = torch.from_numpy(synthetic_batch(args.batch, args.seq_len)).to(dev)
     tokens = toks[:, :-1].reshape(dp, -1, args.seq_len)
     targets = toks[:, 1:].reshape(dp, -1, args.seq_len)

@@ -4,9 +4,8 @@ The port of ``examples/text_generation.py``: a Llama-style TransformerLM
 (GQA + RoPE + SwiGLU, float32) memorizes a pangram with Adam, then
 ``models.transformer.generate`` continues a prompt through one prefill
 forward and one-token decode steps; the KV cache stores the 2 shared kv
-heads, a quarter of the 8-head cache.  Its head dim is 128 / 8 = 16, which
-the flash kernels do not take (head dim 64 or 128), so it runs dense
-attention.  A greedy continuation of a prefix of the training text must
+heads, a quarter of the 8-head cache.  It runs dense attention, as the JAX
+example does.  A greedy continuation of a prefix of the training text must
 match the text exactly.
 
     python -m bluefog_tpu_torch.text_generation             # on the GPU

@@ -7,8 +7,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 
 1. ``device``   — the card (``nvidia-smi``), torch and CUDA versions.
 2. ``build``    — builds the flash-attention kernels from ``csrc/`` with
-   ``nvcc`` (``-Xptxas -v``: registers, shared memory, spills) and requires
-   K1, K2 and K3 to spill no register and to keep their wgmma products
+   ``nvcc``, the bf16 and the float32 source at once (``-Xptxas -v``:
+   registers, shared memory, spills) and requires every instance of K1,
+   K2 and K3 (bf16 D = 64, 128, 256; float32 D = 16, 64, 128, 256) to
+   spill no register, and the bf16 ones to keep their wgmma products
    asynchronous (ptxas reports no serialization).
 3. ``kernel``   — each of K1 (forward), K2 (dq) and K3 (dk/dv) against its
    plain PyTorch twin on the same inputs, at the training path's shape
@@ -16,11 +18,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    QKV tensor), at ragged S=1000, non-causal, with the Llama-style LM's
    GQA operands (q contiguous, k and v contiguous fan-outs of 4 kv heads)
    and at its generate prefill (S=512, K1 alone), with kernel, twin and
-   SDPA times (SDPA's forward and backward on the kernels' operands as
-   strided ``(B, H, S, D)`` views, which ``library_ms`` reports, and as
-   contiguous copies; each the median of 3 readings, with the backend that
-   ran) and the least time the card could take (989 TFLOP/s bf16,
-   3.35 TB/s); then checked only: S=100 (shorter than one 128-row tile),
+   SDPA times (``library_ms``: SDPA's forward and backward on the
+   kernels' operands as strided ``(B, H, S, D)`` views, one reading each,
+   with the backend that ran) and the least time the card could take
+   (989 TFLOP/s bf16, 3.35 TB/s); then checked only: S=100 (shorter than one 128-row tile),
    head dim 64 (causal, and ragged non-causal), MHA with RoPE's
    operands (q and k contiguous, v a slice), and the sequence-parallel
    paths' shapes: ``ring_train``'s hop 0 (B=4 shards, S=4,096, H=16,
@@ -43,7 +44,21 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    sees an error confined to a few rows; the lse by its largest absolute
    error (``LSE_TOL``).
    Case ``vit`` (timed): ViT-S/16's shape, B=64, S=197, H=6, D=64,
-   non-causal.
+   non-causal.  The JAX kernels' whole domain: bf16 checked at the graft
+   entry's heads (D=8, GQA) and the long-context model's (D=16, RoPE), at
+   D=36 on one head of a fused QKV (strides no tensor map describes: the
+   padded-copy route, its copies counted) and at D=136 (a 64-column box
+   wholly past D); timed at the heads of Phi-2 (32 of 80), Phi-3-mini (32
+   of 96) and Gemma-2B (8 of 256), B=2, S=2048, causal, fused; float32
+   (TF32 off) timed at the long-context model's ring hops (8 shards of
+   512 tokens, D=16) and its Ulysses gather (4,096 tokens, one head a
+   shard), checked at the graft entry's D=8 and at ``tp_example``'s head
+   shards (``tensor_parallel_training``'s defaults: tp x its batch share
+   = 16 rows, S=64, 2 heads of 16, fused QKV), timed at D=64, 128 and 256
+   (B=1, S=1024); float32 held to ``F32_FWD_TOL`` (o and lse, max |err|)
+   and ``F32_GRAD_TOL`` (dq, delta, dk, dv, relative).  Each line names
+   its dtype and the instance that ran; bounds count the true D's work
+   (989 TFLOP/s bf16, 67 TFLOP/s float32 FMA).
 4. ``reference`` — a small TransformerLM on the card: logits and gradients
    through the kernels against the same model with dense attention, by
    relative error (logits, and each parameter's gradient).
@@ -61,6 +76,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    4 virtual ranks on the card, ATC over the dynamic one-peer topology,
    1 warmup + 3 timed steps.  Launch counts of K1-K3 must equal
    layers x ranks x steps.
+   Launch counts throughout are read by ``flash_launches``, which also
+   requires every launch since the reset to have run in the path's
+   head-dim instance.
 6a. ``train_host_data`` — ``--host-data`` on the same trainer: each batch
    from host memory through ``data.prefetch_to_device`` (depth 2: a
    pinned copy and an async transfer a batch), 1 warmup + 2 timed steps;
@@ -88,6 +106,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    timeline: ``tools.trace_merge`` (one lane, strict JSON) and
    ``tools.trace_summary`` of the merged file (ENQUEUE and COMMUNICATE
    rows).
+6c. ``d256_train`` — ``train``'s benchmark with Gemma-2B's heads (width
+   2048, 8 heads of 256: the D = 256 instance), ``D256_LAYERS`` = 2
+   layers, 4 ranks, 1 warmup + 2 timed steps: finite losses, K1-K3
+   launches layers x ranks x steps, the combine shrinks the spread.
 7. ``resnet50`` — the benchmark with ``--model resnet50`` at 224x224, batch
    64 per rank, 4 ranks, ATC over the dynamic topology, momentum 0.9,
    2 warmup + 3 timed steps: img/s, step ms, peak memory, the spread.
@@ -177,8 +199,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    ring shards, ATC SGD over the one-peer Exp2 walk, 3 steps: the combine
    shrinks the spread every step.
 22. ``long_context_example`` — ``python -m bluefog_tpu_torch.
-   long_context_training``'s ``main`` on the card, ring and Ulysses: the
-   loss falls.
+   long_context_training``'s ``main`` on the card at the JAX example's
+   model (width 128, 8 heads of 16, float32: the float32 K1-K3), ring and
+   Ulysses over 8 shards of 4,096 tokens, RoPE, 12 steps: the loss falls,
+   K1-K3 launch layers x hops x steps, and the first 3 losses equal the
+   same seed's CPU run (the twins) within ``LC_LOSS_TOL``, relative.
 23. ``dist_nccl`` — ``init_distributed`` over a world-size-1 NCCL group (a
    localhost rendezvous): the collectives, a nonblocking allreduce and its
    wait, a 2-step ATC run of a small LM through the transport, and a
@@ -221,7 +246,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 29. ``tp_example``, 30. ``pp_example`` — ``python -m bluefog_tpu_torch.
    tensor_parallel_training``'s and ``pipeline_training``'s ``main`` on the
    card (each schedule), 6 and 8 steps (15 and 20 before the bench rigs'
-   legs, 8 and 10 before the interactive leg): the loss falls.
+   legs, 8 and 10 before the interactive leg): the loss falls; the tp
+   example at the JAX example's float32 model, K1-K3 (float32, D=16)
+   launching layers x dp ranks x steps.
 30a. ``elastic_example`` — ``python -m bluefog_tpu_torch.elastic_training``'s
    ``main`` on the card at its own size (60 steps of a small MLP on 4
    ranks, a checkpoint every 10), under neighbor_allreduce and under
@@ -495,15 +522,18 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    the gang's deadline), detection (the victim's clock at its kill to
    each member's shrink commit), recovery, the frame's lines and its
    endpoints up (4 of 4).
-45. ``{"kernels": [...]}`` (launches from the ``train``,
+45. ``{"kernels": [...]}``: K1-K3 of each source (bf16, float32), each
+   with every instance's launches and numbers (``instances``), the
+   entry's own those of its main instance (launches from the ``train``,
    ``train_host_data``, ``llama_train``,
    ``moe_train``, ``ring_train``, ``ulysses_train``, ``dp_sp_train``,
    ``tp_train``, ``pp_train``, ``pp_variants``, ``hier_train``,
    ``winput_train``, ``fused_train``, ``win_variants``, ``win_dist_train``,
    ``tp_moe_train``, ``win_async_train``, ``sharded_moe_train``,
-   ``churn_train``, ``elastic_train`` and ``observe_train`` phases,
-   each path's beside), then the ``nvidia-smi`` line, then the last line
-   ``{"ok": true, "device": {...}}``.
+   ``churn_train``, ``elastic_train``, ``observe_train``, ``generate``,
+   ``vit``, ``d256_train``, ``long_context_example`` and ``tp_example``
+   phases, each path's beside), then the ``nvidia-smi`` line, then the
+   last line ``{"ok": true, "device": {...}}``.
 
 After each phase a ``{"phase": "wall", "of": ..., "seconds": ...}`` line
 gives its wall seconds (from the previous phase's last line to its own
@@ -512,6 +542,7 @@ last).
 Exits non-zero, printing no result, without a GPU or outside the repository.
 """
 
+import atexit
 import contextlib
 import io
 import json
@@ -525,6 +556,7 @@ import threading
 import time
 
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16
+PEAK_F32_FLOPS = 67e12       # H100 SXM float32 FMA on the CUDA cores
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 # Limits, a few times the errors of sound bf16 kernels on the card (the
 # readings stand in PERF.md).  Both output measures scale with the typical
@@ -532,6 +564,14 @@ PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 REL_TOL = 1e-2               # K1-K3 outputs vs twin: ||err|| / ||twin||
 ELEM_TOL = 0.15              # and max |err| / (|twin| + rms(twin))
 LSE_TOL = 1e-4               # K1 lse vs twin: max |err| (f32, |lse| ~ 8)
+# float32 K1-K3 vs their float32 twins (TF32 off): the tolerances to which
+# tests/test_torch_port_flash.py holds the twins against JAX.
+F32_FWD_TOL = 2e-5           # K1's o and lse: max |err|
+F32_GRAD_TOL = 1e-4          # K2's dq and delta, K3's dk, dv: ||err|| / ||twin||
+LC_LOSS_TOL = 1e-4           # long_context_example: card vs CPU losses, relative
+LC_COMPARE_STEPS = 3         # the steps whose losses are compared
+D256_LAYERS = 2              # d256_train: Gemma-2B's heads (2048 / 8) in the
+D256_STEPS = 3               # LM, 2 layers, 1 warmup + 2 timed steps
 REF_LOGITS_TOL = 2e-2        # flash vs dense model, both bf16: logits
 REF_GRAD_TOL = 5e-2          # and each parameter's gradient
 LAYERS = 24
@@ -563,6 +603,7 @@ COMPOSED_TOL = (2e-4, 2e-5)  # dp x tp x pp (x ep) vs dense, f32: rtol, atol
 SEED = 0                     # inputs and weights are drawn from it
 TWIN_SCORES_BYTES = 1 << 32  # the plain twins' f32 scores, at most, a call
 SOURCE = "bluefog_tpu_torch/csrc/flash_attention.cu"
+SOURCE_F32 = "bluefog_tpu_torch/csrc/flash_attention_f32.cu"
 HIER_LAYERS = 24             # hier_train: full depth
 WINPUT_LAYERS = 10           # winput_train: the windows' 25 rows a step fit
 FUSED_BUCKETS = 4            # fused_train: winput_train's LM and depth in
@@ -716,18 +757,19 @@ def elem_err(a, b):
     return float(((a.float() - b).abs() / (b.abs() + rms)).max())
 
 
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
 def ptxas_report(log):
-    """Per kernel (``flash_fwd/D128`` ...): registers, static shared memory
-    and spill bytes from the ``-Xptxas -v`` log."""
+    """Per kernel and instance (``flash_fwd/D128``, ``flash_fwd_f32/D16``
+    ...): registers, static shared memory and spill bytes from the
+    ``-Xptxas -v`` log."""
     out, cur = {}, None
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function .*?(flash_(?:fwd|dq|dkv))_kernelILi(\d+)E",
-                      ln)
+        m = re.search(r"Compiling entry function .*?(flash_(?:fwd|dq|dkv)(?:_f32)?)"
+                      r"_kernelILi(\d+)E", ln)
         if m:
             cur = out.setdefault(f"{m.group(1)}/D{m.group(2)}", {})
             continue
@@ -741,36 +783,39 @@ def ptxas_report(log):
     return out
 
 
-def operands(B, S, H, D, layout, g, kv_heads):
-    """q, k, v in bf16 as a model path hands them to K1-K3: ``fused``,
+def operands(B, S, H, D, layout, g, kv_heads, dtype=None):
+    """q, k, v in ``dtype`` (bf16) as a model path hands them to K1-K3:
+    ``fused``,
     strided slices of one fused QKV tensor (the MHA LM); ``gqa``, q from its
     own projection and k, v contiguous ``repeat_interleave`` fan-outs of
     ``kv_heads`` shared heads that interleave K and V per head (the
     Llama-style LM); ``rope``, q and k rotated (contiguous), v a slice of
     the fused tensor (MHA with RoPE); ``ulysses``, RoPE's operands of
-    ``SEQ_SHARDS`` rank-major shards of ``S / SEQ_SHARDS`` tokens with
-    ``SEQ_SHARDS * H`` heads as ``parallel.ulysses`` hands them to its inner
-    attention (at one sequence a shard, strided views, no copy)."""
+    ``B`` rank-major shards (one sequence a shard) of ``S / B`` tokens with
+    ``B * H`` heads as ``parallel.ulysses`` hands them to its inner
+    attention (strided views, no copy)."""
     import torch
     dev = g.device
+    dtype = dtype or torch.bfloat16
     if layout == "ulysses":
         from bluefog_tpu_torch.parallel.ulysses import ulysses_attention
-        n, seen = SEQ_SHARDS, []
+        n, seen = B, []
 
         def inner(q, k, v, causal):
             seen.extend((q, k, v))
             return q
-        ulysses_attention(*operands(B, S // n, n * H, D, "rope", g, None),
+        ulysses_attention(*operands(B, S // n, n * H, D, "rope", g, None,
+                                    dtype),
                           axis=n, inner_attention=inner)
         return tuple(seen)
     if layout == "gqa":
-        q = torch.randn(B, S, H, D, generator=g, device=dev).to(torch.bfloat16)
+        q = torch.randn(B, S, H, D, generator=g, device=dev).to(dtype)
         kv = torch.randn(B, S, kv_heads, 2, D, generator=g,
-                         device=dev).to(torch.bfloat16)
+                         device=dev).to(dtype)
         rep = H // kv_heads
         return (q, kv[..., 0, :].repeat_interleave(rep, dim=2),
                 kv[..., 1, :].repeat_interleave(rep, dim=2))
-    qkv = torch.randn(B, S, H, 3, D, generator=g, device=dev).to(torch.bfloat16)
+    qkv = torch.randn(B, S, H, 3, D, generator=g, device=dev).to(dtype)
     q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
     if layout == "rope":
         q, k = q.contiguous(), k.contiguous()
@@ -816,91 +861,94 @@ def sdpa_backend(fn):
     return {"backend": "math", "kernel": None}
 
 
-def sdpa_times(q, k, v, do, causal, repeats=3):
+def sdpa_times(q, k, v, do, causal):
     """The library yardstick (never called by the port): SDPA's forward
-    and its backward (dq, dk and dv in one call) on ``(B, H, S, D)``
-    operands, as the strided views of the kernels' own inputs and as
-    contiguous copies; each the median of ``repeats`` ``cuda_ms`` readings
-    (each of those beside it), with the backend that ran."""
-    import statistics
-
+    and its backward (dq, dk and dv in one call) on the strided ``(B, H,
+    S, D)`` views of the kernels' own operands, a ``cuda_ms`` reading
+    each, with the backend that ran."""
     import torch
     import torch.nn.functional as F
-    out = {}
-    for layout in ("strided", "contiguous"):
-        ts = [t.transpose(1, 2) for t in (q, k, v, do)]
-        if layout == "contiguous":
-            ts = [t.contiguous() for t in ts]
-        qt, kt, vt = (t.detach().requires_grad_() for t in ts[:3])
-        dot = ts[3]
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2)
 
-        def fwd():
-            return F.scaled_dot_product_attention(qt, kt, vt,
-                                                  is_causal=causal)
-        o = fwd()
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    o = fwd()
 
-        def bwd():
-            return torch.autograd.grad(o, (qt, kt, vt), dot,
-                                       retain_graph=True)
-        fwd_runs = [cuda_ms(fwd) for _ in range(repeats)]
-        bwd_runs = [cuda_ms(bwd) for _ in range(repeats)]
-        out[layout] = {"fwd_ms": statistics.median(fwd_runs),
-                       "bwd_ms": statistics.median(bwd_runs),
-                       "fwd_runs_ms": fwd_runs, "bwd_runs_ms": bwd_runs,
-                       "fwd": sdpa_backend(fwd), "bwd": sdpa_backend(bwd)}
-    return out
+    def bwd():
+        return torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True)
+    return {"fwd_ms": cuda_ms(fwd), "bwd_ms": cuda_ms(bwd),
+            "fwd": sdpa_backend(fwd), "bwd": sdpa_backend(bwd)}
 
 
 def check_kernels(B, S, H, D, causal, seed, timed, repeat=False,
-                  layout="fused", kv_heads=None, fwd_only=False):
-    """K1-K3 (K1 alone with ``fwd_only``) against their twins at one shape
-    and operand layout (``operands``); returns per-kernel dicts.  With
-    ``repeat``, K1-K3 run again on the same inputs and must give the same
-    bits."""
+                  layout="fused", kv_heads=None, fwd_only=False, dtype=None):
+    """K1-K3 (K1 alone with ``fwd_only``) against their twins at one shape,
+    operand layout (``operands``) and dtype (bf16 or float32); returns
+    per-kernel dicts.  With ``repeat``, K1-K3 run again on the same inputs
+    and must give the same bits.  bf16 is held to ``REL_TOL``, ``ELEM_TOL``
+    and ``LSE_TOL``, float32 to ``F32_FWD_TOL`` and ``F32_GRAD_TOL``.  Each
+    kernel's ``operand_copies`` counts the operands its wrapper copied
+    into a padded buffer (the bf16 copy route)."""
     import torch
 
     from bluefog_tpu_torch.ops import flash_attention as FA
 
+    dtype = dtype or torch.bfloat16
+    f32 = dtype == torch.float32
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
-    q, k, v = operands(B, S, H, D, layout, g, kv_heads)
-    do = torch.randn(B, S, H, D, generator=g, device=dev).to(torch.bfloat16)
+    q, k, v = operands(B, S, H, D, layout, g, kv_heads, dtype)
+    do = torch.randn(B, S, H, D, generator=g, device=dev).to(dtype)
     dlse = 0.1 * torch.randn(B, S, H, generator=g, device=dev)
-    f32 = [t.float() for t in (q, k, v, do)]
+    ins = [t.float() for t in (q, k, v, do)]
+    fns = {"K1": FA.flash_fwd_cuda, "K2": FA.flash_dq_cuda,
+           "K3": FA.flash_dkv_cuda}
+    copies = {name: fn.copies for name, fn in fns.items()}
 
     o_k, lse_k = FA.flash_fwd_cuda(q, k, v, causal)
-    o_r, lse_r = by_batch(FA.flash_fwd_ref, H, S, *f32[:3], causal)
-    o = o_r.to(torch.bfloat16)
+    o_r, lse_r = by_batch(FA.flash_fwd_ref, H, S, *ins[:3], causal)
+    o = o_r.to(dtype)
     lse_bhs = lse_r.transpose(1, 2).contiguous()
     if not fwd_only:
         delta = FA.flash_delta(o, do, dlse)
         dq_k, delta_k = FA.flash_dq_cuda(q, k, v, o, do, lse_bhs, dlse, causal)
         dk_k, dv_k = FA.flash_dkv_cuda(q, k, v, do, lse_bhs, delta_k, causal)
-        dq_r, dk_r, dv_r = by_batch(FA.flash_bwd_ref, H, S, *f32[:3],
-                                    o.float(), lse_r, f32[3], dlse, causal)
+        dq_r, dk_r, dv_r = by_batch(FA.flash_bwd_ref, H, S, *ins[:3],
+                                    o.float(), lse_r, ins[3], dlse, causal)
     torch.cuda.synchronize()
 
-    def err(pairs):
+    def err(pairs, fwd):
         """Largest relative error and largest absolute error over the
-        outputs."""
+        outputs, held to the dtype's tolerances."""
         rel = max(rel_err(a, b) for a, b in pairs)
         elem = max(elem_err(a, b) for a, b in pairs)
         e = max(float((a.float() - b).abs().max()) for a, b in pairs)
-        require(math.isfinite(e) and rel <= REL_TOL,
-                f"||kernel - twin|| / ||twin|| {rel} over {REL_TOL}")
-        require(elem <= ELEM_TOL,
-                f"max |kernel - twin| / (|twin| + rms(twin)) {elem} over "
-                f"{ELEM_TOL}")
+        require(math.isfinite(e), f"kernel outputs finite ({e})")
+        if f32 and fwd:
+            require(e <= F32_FWD_TOL, f"max |kernel - twin| {e} over "
+                                      f"{F32_FWD_TOL}")
+        elif f32:
+            require(rel <= F32_GRAD_TOL,
+                    f"||kernel - twin|| / ||twin|| {rel} over {F32_GRAD_TOL}")
+        else:
+            require(rel <= REL_TOL,
+                    f"||kernel - twin|| / ||twin|| {rel} over {REL_TOL}")
+            require(elem <= ELEM_TOL,
+                    f"max |kernel - twin| / (|twin| + rms(twin)) {elem} over "
+                    f"{ELEM_TOL}")
         return {"rel_err": rel, "elem_err": elem, "max_abs_err": e}
 
-    res = {"K1": err([(o_k, o_r)])}
+    res = {"K1": err([(o_k, o_r)], True)}
     if not fwd_only:
-        res["K2"] = err([(dq_k, dq_r)])
-        res["K3"] = err([(dk_k, dk_r), (dv_k, dv_r)])
+        res["K2"] = err([(dq_k, dq_r)], False)
+        res["K3"] = err([(dk_k, dk_r), (dv_k, dv_r)], False)
         delta_err = rel_err(delta_k, delta)
-        require(delta_err <= REL_TOL,
+        delta_tol = F32_GRAD_TOL if f32 else REL_TOL
+        require(delta_err <= delta_tol,
                 f"K2 delta: ||kernel - flash_delta|| / ||flash_delta|| "
-                f"{delta_err} over {REL_TOL}")
+                f"{delta_err} over {delta_tol}")
         res["K2"]["delta_rel_err"] = delta_err
     if repeat:
         o_2, lse_2 = FA.flash_fwd_cuda(q, k, v, causal)
@@ -914,37 +962,46 @@ def check_kernels(B, S, H, D, causal, seed, timed, repeat=False,
             require(ok, f"{name} gave other bits on a second run with the "
                         f"same inputs")
             res[name]["bitwise_repeat"] = ok
-    strides = {"q": q.stride(), "k": k.stride(), "v": v.stride(),
-               "do": do.stride(), "o": o.stride()}
-    for name, kernel in (("K1", "fwd"), ("K2", "dq"), ("K3", "dkv")):
+    inst = FA.instance(dtype, D)
+    for name, kernel, ts in (("K1", "fwd", (q, k, v)),
+                             ("K2", "dq", (q, k, v, do, o)),
+                             ("K3", "dkv", (q, k, v, do))):
         if name not in res:
             continue
+        # The strides the kernel read: a copied operand's padded buffer's.
+        strides = {n: t.stride() if f32 or FA.describable(t.stride(),
+                                                          t.data_ptr())
+                   else (S * H * inst, H * inst, inst, 1)
+                   for n, t in zip(("q", "k", "v", "do", "o"), ts)}
         res[name]["dynamic_smem_bytes"] = FA.launch_plan(
-            kernel, (B, S, H, D), strides, causal).smem
+            kernel, (B, S, H, D), strides, causal, dtype).smem
+        res[name]["instance"] = f"{'f32' if f32 else 'bf16'}/D{inst}"
+        res[name]["operand_copies"] = fns[name].copies - copies[name]
     lse_err = float((lse_k.transpose(1, 2) - lse_r).abs().max())
-    require(lse_err <= LSE_TOL, f"max |lse - twin| {lse_err} over {LSE_TOL}")
+    lse_tol = F32_FWD_TOL if f32 else LSE_TOL
+    require(lse_err <= lse_tol, f"max |lse - twin| {lse_err} over {lse_tol}")
     res["K1"]["lse_max_abs_err"] = lse_err
     pairs = S * (S + 1) // 2 if causal else S * S
-    bsd, bhs = B * S * H * D * 2, B * H * S * 4
-    # K2 reads q, k, v, dO, O, lse and dlse, writes dq and delta.
+    esize = 4 if f32 else 2
+    bsd, bhs = B * S * H * D * esize, B * H * S * 4
+    # The true D's work.  K2 reads q, k, v, dO, O, lse and dlse, writes dq
+    # and delta.
     work = {"K1": (4 * B * H * pairs * D, 4 * bsd + bhs),
             "K2": (6 * B * H * pairs * D, 6 * bsd + 3 * bhs),
             "K3": (8 * B * H * pairs * D, 6 * bsd + 2 * bhs)}
+    peak = PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS
     for name in res:
-        res[name]["bound_ms"], res[name]["bound_by"] = bound(*work[name])
+        res[name]["bound_ms"], res[name]["bound_by"] = bound(*work[name], peak)
     if not timed:
         return res
 
     res["K1"]["ms"] = cuda_ms(lambda: FA.flash_fwd_cuda(q, k, v, causal))
     res["K1"]["plain_ms"] = cuda_ms(
         lambda: FA.flash_fwd_ref(q, k, v, causal), iters=5, warmup=1)
-    # The library yardstick: the kernels' own operands as (B, H, S, D)
-    # views (library_ms) and as contiguous copies, medians of 3.
+    # The library yardstick: SDPA on the kernels' own operands.
     sdpa = sdpa_times(q, k, v, do, causal)
-    res["K1"]["library_ms"] = sdpa["strided"]["fwd_ms"]
-    res["K1"]["sdpa"] = {lay: {k_: v_ for k_, v_ in d.items()
-                               if k_.startswith("fwd")}
-                         for lay, d in sdpa.items()}
+    res["K1"]["library_ms"] = sdpa["fwd_ms"]
+    res["K1"]["sdpa_backend"] = sdpa["fwd"]
     if fwd_only:
         return res
     res["K2"]["ms"] = cuda_ms(
@@ -960,12 +1017,8 @@ def check_kernels(B, S, H, D, causal, seed, timed, repeat=False,
     res["K2"]["plain_ms"] = res["K3"]["plain_ms"] = bwd_plain
     # SDPA's backward computes dq, dk and dv in one call: its time stands
     # for K2 and K3 together.
-    res["K2"]["library_ms"] = res["K3"]["library_ms"] = \
-        sdpa["strided"]["bwd_ms"]
-    for name in ("K2", "K3"):
-        res[name]["sdpa"] = {lay: {k_: v_ for k_, v_ in d.items()
-                                   if k_.startswith("bwd")}
-                             for lay, d in sdpa.items()}
+    res["K2"]["library_ms"] = res["K3"]["library_ms"] = sdpa["bwd_ms"]
+    res["K2"]["sdpa_backend"] = res["K3"]["sdpa_backend"] = sdpa["bwd"]
     return res
 
 
@@ -1108,10 +1161,18 @@ def logits_and_grads(model, tokens):
     return logits.detach(), {k: p.grad for k, p in model.named_parameters()}
 
 
-def flash_launches():
+def flash_launches(instance="bf16/D128"):
+    """K1-K3's launches since the counts were last reset; every one must
+    have run in the head-dim ``instance`` (``"bf16/D128"``, ``"f32/D16"``,
+    ...), so that a path's launches count towards its instance."""
     from bluefog_tpu_torch.ops import flash_attention as FA
-    return {"K1": FA.flash_fwd_cuda.launches, "K2": FA.flash_dq_cuda.launches,
-            "K3": FA.flash_dkv_cuda.launches}
+    out = {}
+    for name, fn in (("K1", FA.flash_fwd_cuda), ("K2", FA.flash_dq_cuda),
+                     ("K3", FA.flash_dkv_cuda)):
+        other = {i: n for i, n in fn.by_instance.items() if n and i != instance}
+        require(not other, f"{name} launched in {other}, expected {instance}")
+        out[name] = fn.launches
+    return out
 
 
 def check_llama_reference(seed):
@@ -1148,7 +1209,7 @@ def check_llama_reference(seed):
         FA.reset_launch_counts()
         res = logits_and_grads(model, tokens)
         torch.cuda.synchronize()
-        return res, flash_launches()
+        return res, flash_launches("bf16/D64")
 
     (want, want_g), plain = run(None)
     require(plain == {"K1": 2, "K2": 2, "K3": 2}, f"plain launches {plain}")
@@ -1749,19 +1810,86 @@ def dp_sp_train_phase(layers=DP_SP_LAYERS, steps=3):
     return launches
 
 
-def check_long_context_example():
-    """``long_context_training``'s own entry point on the card, both
-    attentions (width 512 in bf16, heads of 64): the loss falls."""
+LC_ARGV = ["--seq-len", "4096", "--rope"]   # long_context_example's runs
+LC_CPU_THREADS = "2"         # the CPU reference's threads, beside the card's
+
+
+def start_long_context_cpu():
+    """The CPU half of ``long_context_example`` (the same seed's runs
+    through the plain twins, ``LC_COMPARE_STEPS`` steps of each attention,
+    ~11 s each with all 8 cores) in a process of its own with
+    ``LC_CPU_THREADS`` threads, started after the kernels' build so that
+    it runs beside the card's phases; its last stdout line is a JSON of
+    the losses."""
+    code = ("import json\n"
+            "from bluefog_tpu_torch import long_context_training as LC\n"
+            f"argv = {LC_ARGV!r} + ['--steps', '{LC_COMPARE_STEPS}', "
+            "'--device', 'cpu']\n"
+            "print(json.dumps({a: LC.main(argv + ['--attention', a])"
+            "['losses'] for a in ('ring', 'ulysses')}))\n")
+    env = dict(os.environ, OMP_NUM_THREADS=LC_CPU_THREADS)
+    proc = subprocess.Popen([sys.executable, "-c", code],
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            env=env, stdout=subprocess.PIPE, text=True)
+    atexit.register(proc.kill)       # gone with this process, whatever
+    return proc, time.perf_counter()
+
+
+def check_long_context_example(cpu):
+    """``long_context_training``'s own entry point on the card at the JAX
+    example's model (width 128, 8 heads of 16, float32: the float32 K1-K3),
+    ring and Ulysses over its 8 shards of the default 4,096 tokens, with
+    RoPE, 12 steps: the loss falls; K1-K3 launch layers x hops x steps (a
+    ring hop each shard, one Ulysses call), all in the f32/D16 instance;
+    the first ``LC_COMPARE_STEPS`` losses equal the same seed's run on the
+    CPU (the plain twins; ``cpu``, ``start_long_context_cpu``'s process)
+    within ``LC_LOSS_TOL``, relative.  Returns the results and the
+    launches."""
     from bluefog_tpu_torch import long_context_training as LC
-    out = {}
+    from bluefog_tpu_torch.ops import flash_attention as FA
+    out, total = {}, {"K1": 0, "K2": 0, "K3": 0}
+    proc, started = cpu
+    t0 = time.perf_counter()
+    stdout, _ = proc.communicate(timeout=600)
+    require(proc.returncode == 0, f"the CPU reference exited "
+                                  f"{proc.returncode}: {stdout[-2000:]}")
+    cpu_losses = json.loads(stdout.strip().splitlines()[-1])
+    out["cpu_reference"] = {"threads": int(LC_CPU_THREADS),
+                            "waited_s": time.perf_counter() - t0,
+                            "since_start_s": time.perf_counter() - started}
     for attention in ("ring", "ulysses"):
-        res = LC.main(["--seq-len", "4096", "--steps", "12", "--attention",
-                       attention, "--rope"])
+        argv = LC_ARGV + ["--attention", attention]
+        args = LC.build_parser().parse_args(argv)
+        FA.reset_launch_counts()
+        res = LC.main(argv + ["--steps", "12"])
+        launches = flash_launches("f32/D16")
+        cfg = LC.model_config(args)
+        hops = args.shards if attention == "ring" else 1
+        expected = cfg.num_layers * hops * 12
+        require(launches == {"K1": expected, "K2": expected, "K3": expected},
+                f"{attention}: launches {launches}, expected {expected}")
         require(res["losses"][-1] < res["losses"][0],
                 f"{attention}: loss {res['losses']}")
+        cpu = cpu_losses[attention]
+        require(len(cpu) == LC_COMPARE_STEPS, f"CPU losses {cpu}")
+        rel = [abs(a - b) / abs(b) for a, b in
+               zip(res["losses"][:LC_COMPARE_STEPS], cpu)]
+        require(max(rel) <= LC_LOSS_TOL,
+                f"{attention}: card losses {res['losses'][:LC_COMPARE_STEPS]}"
+                f" vs CPU {cpu}: relative {rel} over {LC_LOSS_TOL}")
         out[attention] = {"first_loss": res["losses"][0],
-                          "last_loss": res["losses"][-1]}
-    return out
+                          "last_loss": res["losses"][-1],
+                          "card_losses": res["losses"][:LC_COMPARE_STEPS],
+                          "cpu_losses": cpu, "loss_rel_err": rel,
+                          "launches": launches}
+        for k in total:
+            total[k] += launches[k]
+    out.update(model={"embed_dim": cfg.embed_dim, "num_heads": cfg.num_heads,
+                      "head_dim": cfg.embed_dim // cfg.num_heads,
+                      "dtype": "float32", "seq_len": 4096,
+                      "shards": args.shards},
+               loss_tol=LC_LOSS_TOL)
+    return out, total
 
 
 def model_parallel_step(axis):
@@ -2541,6 +2669,42 @@ def check_compositions(seed):
 # ---------------------------------------------------------------------------
 # Hierarchical gossip and the one-sided windows
 # ---------------------------------------------------------------------------
+
+def d256_train_phase(benchmark):
+    """``d256_train``: ``train``'s benchmark with Gemma-2B's heads (width
+    2048, 8 heads of 256: K1-K3's D = 256 instance), ``D256_LAYERS``
+    layers, 4 ranks, ATC over the dynamic one-peer walk, ``D256_STEPS``
+    steps (1 warmup): finite losses, K1-K3 launches layers x ranks x steps,
+    the combine shrinks the spread.  Returns the launches."""
+    import torch
+
+    from bluefog_tpu_torch.ops import flash_attention as FA
+    argv = train_argv(D256_STEPS - 1)
+    argv[argv.index("--num-layers") + 1] = str(D256_LAYERS)
+    argv[argv.index("--num-heads") + 1] = "8"
+    args = benchmark.build_parser().parse_args(argv)
+    FA.reset_launch_counts()
+    tr = benchmark.Trainer(args)
+    res = benchmark.measure(args, tr, quiet=True)
+    launches = flash_launches("bf16/D256")
+    steps = args.num_warmup_batches + args.num_iters * args.num_batches_per_iter
+    expected = D256_LAYERS * args.ranks * steps
+    emit("d256_train", config={"num_layers": D256_LAYERS, "embed_dim": 2048,
+                               "num_heads": 8, "head_dim": 256,
+                               "seq_len": 2048, "batch_size": 2,
+                               "ranks": args.ranks},
+         launches=launches, expected_launches=expected, **res)
+    require(all(math.isfinite(x) for x in res["losses"]),
+            f"finite losses {res['losses']}")
+    require(res["steps"] == steps, f"{res['steps']} steps, expected {steps}")
+    require(all(c == expected for c in launches.values()),
+            f"launches {launches}, expected {expected} of each")
+    require(res["spread"]["after_combine"] < res["spread"]["after_adapt"],
+            f"the combine shrinks the spread {res['spread']}")
+    del tr
+    torch.cuda.empty_cache()
+    return launches
+
 
 def train_argv(iters):
     """The ``train`` phase's benchmark flags: the 1.3B MHA LM, 4 ranks,
@@ -5796,10 +5960,19 @@ def check_mp_examples():
     points on the card, each schedule: the loss falls."""
     from bluefog_tpu_torch import pipeline_training as PT
     from bluefog_tpu_torch import tensor_parallel_training as TPT
+    from bluefog_tpu_torch.ops import flash_attention as FA
+    FA.reset_launch_counts()
     res = TPT.main(["--steps", "6"])
+    # The JAX example's model: the float32 K1-K3 on the head shards, once a
+    # layer a dp rank a step.
+    launches = flash_launches("f32/D16")
+    expected = 2 * res["dp"] * 6
+    require(launches == {"K1": expected, "K2": expected, "K3": expected},
+            f"tp: launches {launches}, expected {expected}")
     require(res["losses"][-1] < res["losses"][0], f"tp: {res['losses']}")
     tp = {"dp": res["dp"], "tp": res["tp"], "qkv_shards": res["qkv_shards"],
-          "first_loss": res["losses"][0], "last_loss": res["losses"][-1]}
+          "first_loss": res["losses"][0], "last_loss": res["losses"][-1],
+          "launches": launches}
     pp = {}
     for schedule in ("gpipe", "1f1b", "zb"):
         res = PT.main(["--steps", "8", "--schedule", schedule])
@@ -5957,62 +6130,28 @@ def image_phase(benchmark, argv, checks_spread_by="max", time_combine=False):
     return res
 
 
-def main():
+def kernel_phase(ptxas):
+    """The ``kernel`` phase: every case of K1-K3 against its twin
+    (``check_kernels``), a line each kernel a case with its seconds
+    (``case_s``, the case's whole wall) and its build's ``ptxas``
+    report; returns ``{instance: (case, D, results)}`` of the case that
+    stands for each instance."""
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is false; this script "
-              "runs on the GPU", file=sys.stderr)
-        return 2
-    here = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, here)
-    from bluefog_tpu_torch import benchmark
+
     from bluefog_tpu_torch.ops import flash_attention as FA
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    name = torch.cuda.get_device_name(0)
-    emit("device", nvidia_smi=smi, name=name, count=torch.cuda.device_count(),
-         torch=torch.__version__, cuda=torch.version.cuda,
-         python=sys.version.split()[0])
-
-    # The host libraries build with g++ and nvcc in a thread meanwhile
-    # (the window transport's service and the timeline writer, its
-    # METH_FASTCALL binding, the round compiler, csrc/hostfn.cu): the
-    # worker processes later load what this one built.
-    from concurrent.futures import ThreadPoolExecutor
-    host_builds = ThreadPoolExecutor(1)
-    native_built = host_builds.submit(build_native)
-    t0 = time.perf_counter()
-    _, log = FA.load_library(verbose=True)
-    ptxas = ptxas_report(log)
-    serialized = [ln.strip() for ln in log.splitlines()
-                  if "wgmma.mma_async instructions are serialized" in ln]
-    emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas,
-         wgmma_serialized=serialized)
-    for fn, _ in KERNELS.values():
-        for d in (64, 128):
-            info = ptxas.get(f"{fn}/D{d}", {})
-            require(info.get("spill_bytes") == 0,
-                    f"{fn} (D={d}) spills registers: {info}")
-    require(not serialized, f"ptxas serialized wgmma: {serialized}")
-
-    main_res = None
     # (case, B, S, H, D, causal, timed, layout, kv heads, forward only):
-    # the LM's training shape, ragged S, non-causal, ViT-S/16's shape, the
-    # Llama-style LM's GQA operands at its training shape and its generate
-    # prefill (K1 alone); checked, not timed: S shorter than one tile, the
-    # head dim 64 instantiation, MHA with RoPE's operands, and the
+    # bf16: the LM's training shape, ragged S, non-causal, ViT-S/16's shape,
+    # the Llama-style LM's GQA operands at its training shape and its
+    # generate prefill (K1 alone); checked, not timed: S shorter than one
+    # tile, the head dim 64 instantiation, MHA with RoPE's operands, and the
     # sequence-parallel paths' shapes (ring_train: 4 shards of 4,096
     # tokens, causal at hop 0, then the non-causal blocks of 3 of them;
     # ulysses_train: the gathered 16,384 tokens, 4 heads a shard), each
     # with K2 taking a nonzero lse cotangent, as every case does; tp_train's
     # head shards (timed: tp x B = 4 rows of 8 heads) and pp_train's
     # microbatch of one sequence.
-    for case, B, S, H, D, causal, timed, layout, kv_h, fwd_only in (
+    bf16_cases = (
             ("main", 2, 2048, 16, 128, True, True, "fused", None, False),
             ("ragged", 2, 1000, 16, 128, True, True, "fused", None, False),
             ("noncausal", 2, 2048, 16, 128, False, True, "fused", None,
@@ -6035,18 +6174,142 @@ def main():
             ("tp-heads", TP_WAYS * 2, 2048, 16 // TP_WAYS, 128, True, True,
              "fused", None, False),
             ("pp-microbatch", 1, 2048, 16, 128, True, False, "fused", None,
-             False)):
-        res = check_kernels(B, S, H, D, causal, SEED, timed=timed,
-                            repeat=case == "main", layout=layout,
-                            kv_heads=kv_h, fwd_only=fwd_only)
-        for kname, r in res.items():
-            emit("kernel", kernel=kname, case=case, B=B, S=S, H=H, D=D,
-                 dtype="bfloat16", causal=causal, layout=layout,
-                 kv_heads=kv_h, rel_tol=REL_TOL, elem_tol=ELEM_TOL,
-                 lse_tol=LSE_TOL if kname == "K1" else None,
-                 **ptxas.get(f"{KERNELS[kname][0]}/D{D}", {}), **r)
-        if case == "main":
-            main_res = res
+             False),
+            # The JAX kernels' whole domain.  Checked: the graft entry's
+            # heads (its dp x sp ring's hop 0: 8 sequences x 2 shards of 16
+            # tokens, 4 heads of 8, 2 kv heads) and the long-context
+            # model's (8 ring shards of 512 tokens, 8 heads of 16, RoPE);
+            # D = 36 at one head of a fused QKV (216-byte rows: the padded
+            # copy route); D = 136 (a 64-column box wholly past D).  Timed:
+            # the heads of Phi-2 (32 of 80), Phi-3-mini (32 of 96) and
+            # Gemma-2B (8 of 256) at the LM's shape.
+            ("graft-d8", 16, 16, 4, 8, True, False, "gqa", 2, False),
+            ("lc-d16", 8, 512, 8, 16, True, False, "rope", None, False),
+            ("d36-copy", 2, 512, 1, 36, True, False, "fused", None, False),
+            ("d136", 1, 300, 4, 136, False, False, "fused", None, False),
+            ("phi-2", 2, 2048, 32, 80, True, True, "fused", None, False),
+            ("phi-3-mini", 2, 2048, 32, 96, True, True, "fused", None,
+             False),
+            ("gemma-2b", 2, 2048, 8, 256, True, True, "fused", None,
+             False))
+    # float32 (the JAX package's own dtype at small heads): timed, the
+    # long-context model's ring hops (8 shards of 512 tokens at the JAX
+    # default --seq-len 4096: hop 0 causal, a later hop's 7 shards not)
+    # and its Ulysses gather (8 shards, 4,096 tokens, one head a shard);
+    # checked, the graft entry's heads of 8 and tp_example's head shards
+    # (tensor_parallel_training's defaults: its tp shards of a dp rank's
+    # sequences stacked on the batch dim, S = --seq-len, the fused QKV's
+    # heads / tp); and timed, every other instance at B=1, S=1024.
+    from bluefog_tpu_torch import tensor_parallel_training as TPT
+    tp_args = TPT.build_parser().parse_args([])
+    tp_cfg = TPT.model_config(tp_args)
+    tp_dp = tp_args.ranks // tp_args.tp
+    f32_cases = (
+            ("lc-ring-hop0", 8, 512, 8, 16, True, True, "rope", None, False),
+            ("lc-ring-hop1", 7, 512, 8, 16, False, True, "rope", None,
+             False),
+            ("lc-ulysses", 8, 4096, 1, 16, True, True, "ulysses", None,
+             False),
+            ("graft-d8", 16, 16, 4, 8, True, False, "gqa", 2, False),
+            ("tp-example", tp_args.tp * (tp_args.batch // tp_dp),
+             tp_args.seq_len, tp_cfg.num_heads // tp_args.tp,
+             tp_cfg.embed_dim // tp_cfg.num_heads, tp_cfg.causal, False,
+             "fused", None, False),
+            ("f32-d64", 1, 1024, 8, 64, True, True, "fused", None, False),
+            ("f32-d128", 1, 1024, 8, 128, True, True, "fused", None, False),
+            ("f32-d256", 1, 1024, 8, 256, True, True, "fused", None, False))
+    # The case whose numbers stand for each instance in the kernels line.
+    instance_cases = {"bf16/D64": "vit", "bf16/D128": "main",
+                      "bf16/D256": "gemma-2b", "f32/D16": "lc-ring-hop0",
+                      "f32/D64": "f32-d64", "f32/D128": "f32-d128",
+                      "f32/D256": "f32-d256"}
+    inst_res = {}
+    for dtype, cases in ((torch.bfloat16, bf16_cases),
+                         (torch.float32, f32_cases)):
+        f32 = dtype == torch.float32
+        tag, suffix = ("f32", "_f32") if f32 else ("bf16", "")
+        for case, B, S, H, D, causal, timed, layout, kv_h, fwd_only in cases:
+            t0 = time.perf_counter()
+            res = check_kernels(B, S, H, D, causal, SEED, timed=timed,
+                                repeat=case == "main", layout=layout,
+                                kv_heads=kv_h, fwd_only=fwd_only, dtype=dtype)
+            if case == "d36-copy":
+                require(all(r["operand_copies"] > 0 for r in res.values()),
+                        f"D=36 took the padded-copy route: {res}")
+            inst = FA.instance(dtype, D)
+            tol = ({"fwd_tol": F32_FWD_TOL, "grad_tol": F32_GRAD_TOL} if f32
+                   else {"rel_tol": REL_TOL, "elem_tol": ELEM_TOL})
+            for kname, r in res.items():
+                emit("kernel", kernel=kname, case=case, B=B, S=S, H=H, D=D,
+                     dtype=str(dtype).replace("torch.", ""), causal=causal,
+                     layout=layout, kv_heads=kv_h,
+                     case_s=time.perf_counter() - t0, **tol,
+                     lse_tol=(F32_FWD_TOL if f32 else LSE_TOL)
+                     if kname == "K1" else None,
+                     **ptxas.get(f"{KERNELS[kname][0]}{suffix}/D{inst}", {}),
+                     **r)
+            if instance_cases.get(f"{tag}/D{inst}") == case:
+                inst_res[f"{tag}/D{inst}"] = (case, D, res)
+    return inst_res
+
+
+def main():
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from concurrent.futures import ThreadPoolExecutor
+
+    from bluefog_tpu_torch.ops import _nvcc
+
+    # The kernels build (every instance's nvcc at once) while torch and the
+    # port load and the card starts up.
+    t_build = time.perf_counter()
+    kernel_builds = ThreadPoolExecutor(1)
+    kernels_built = kernel_builds.submit(_nvcc.build_flash, True)
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script "
+              "runs on the GPU", file=sys.stderr)
+        return 2
+    from bluefog_tpu_torch import benchmark
+    from bluefog_tpu_torch.ops import flash_attention as FA
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    name = torch.cuda.get_device_name(0)
+    emit("device", nvidia_smi=smi, name=name, count=torch.cuda.device_count(),
+         torch=torch.__version__, cuda=torch.version.cuda,
+         python=sys.version.split()[0])
+
+    t0 = time.perf_counter()
+    _, log = FA.load_library(True, kernels_built.result())
+    kernel_builds.shutdown()
+    # Then the host libraries build with g++ and nvcc in a thread (the
+    # window transport's service and the timeline writer, its METH_FASTCALL
+    # binding, the round compiler, csrc/hostfn.cu; the worker processes
+    # later load what this one built), and long_context_example's CPU
+    # reference runs in a process, both beside the next phases (beside
+    # the kernels' seven nvcc they slowed the build).
+    host_builds = ThreadPoolExecutor(1)
+    native_built = host_builds.submit(build_native)
+    lc_cpu = start_long_context_cpu()
+    ptxas = ptxas_report(log)
+    serialized = [ln.strip() for ln in log.splitlines()
+                  if "wgmma.mma_async instructions are serialized" in ln]
+    emit("build", seconds=time.perf_counter() - t_build,
+         waited_s=time.perf_counter() - t0, ptxas=ptxas,
+         wgmma_serialized=serialized)
+    for fn, _ in KERNELS.values():
+        for dtype, suffix in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+            for d in FA.INSTANCES[dtype]:
+                info = ptxas.get(f"{fn}{suffix}/D{d}", {})
+                require(info.get("spill_bytes") == 0,
+                        f"{fn}{suffix} (D={d}) spills registers: {info}")
+    require(not serialized, f"ptxas serialized wgmma: {serialized}")
+
+    inst_res = kernel_phase(ptxas)
 
     emit("reference", **check_reference(SEED))
     emit("resnet_reference", **check_resnet_reference(SEED))
@@ -6055,9 +6318,7 @@ def main():
     FA.reset_launch_counts()
     tr = benchmark.Trainer(args)
     res = train_res = benchmark.measure(args, tr)
-    launches = {"K1": FA.flash_fwd_cuda.launches,
-                "K2": FA.flash_dq_cuda.launches,
-                "K3": FA.flash_dkv_cuda.launches}
+    launches = flash_launches()
     steps = args.num_warmup_batches + args.num_iters * args.num_batches_per_iter
     expected = LAYERS * args.ranks * steps
     emit("train", config={"num_layers": LAYERS, "embed_dim": 2048,
@@ -6085,6 +6346,7 @@ def main():
          library=str(native.library_path().name))
     observe_launches = observe_train_phase(benchmark, train_res)
     torch.cuda.empty_cache()
+    d256_launches = d256_train_phase(benchmark)
 
     image = ["--model", "resnet50", "--batch-size", "64", "--ranks", "4",
              "--atc", "--dynamic", "--momentum", "0.9"]
@@ -6119,9 +6381,7 @@ def main():
                 "--num-warmup-batches", "1", "--num-iters", "2",
                 "--num-batches-per-iter", "1"]
     res = image_phase(benchmark, vit_args)
-    vit_launches = {"K1": FA.flash_fwd_cuda.launches,
-                    "K2": FA.flash_dq_cuda.launches,
-                    "K3": FA.flash_dkv_cuda.launches}
+    vit_launches = flash_launches("bf16/D64")
     vit_expected = VIT_LAYERS * 4 * res["steps_expected"]
     require(all(c == vit_expected for c in vit_launches.values()),
             f"ViT launches {vit_launches}, expected {vit_expected} of each")
@@ -6158,7 +6418,8 @@ def main():
     ulysses_launches = seq_train_phase("ulysses_train", "ulysses",
                                        ULYSSES_LAYERS, profile=True)
     dp_sp_launches = dp_sp_train_phase()
-    emit("long_context_example", **check_long_context_example())
+    lc_res, lc_launches = check_long_context_example(lc_cpu)
+    emit("long_context_example", **lc_res)
     emit("dist_nccl", **check_dist_nccl())
     emit("tp_reference", **check_tp_reference(SEED))
     tp_launches = tp_train_phase(layers=TP_LAYERS)
@@ -6167,6 +6428,7 @@ def main():
     emit("dp_tp_pp_ep", **check_compositions(SEED))
     sessions = start_interactive_sessions()   # they ride IBF_RIDES
     tp_example, pp_example, elastic_example = check_mp_examples()
+    tp_example_launches = tp_example.pop("launches")
     emit("tp_example", **tp_example)
     emit("pp_example", **pp_example)
     emit("elastic_example", **elastic_example)
@@ -6199,60 +6461,62 @@ def main():
     chaos_tool_phase()
     flush_wall()
 
+    # Each path's launches, by the instance that flash_launches required
+    # every one of them to run in.
+    paths = {"bf16/D128": {"train": launches, "train_host_data": host_launches,
+                           "observe_train": observe_launches,
+                           "llama_train": llama_launches,
+                           "generate": gen_launches,
+                           "moe_train": moe_launches,
+                           "ring_train": ring_launches,
+                           "ulysses_train": ulysses_launches,
+                           "dp_sp_train": dp_sp_launches,
+                           "tp_train": tp_launches, "pp_train": pp_launches,
+                           "pp_variants": pp_variant_launches,
+                           "hier_train": hier_launches,
+                           "winput_train": winput_launches,
+                           "fused_train": fused_launches,
+                           "win_variants": win_variant_launches,
+                           "win_dist_train": win_dist_launches,
+                           "tp_moe_train": tp_moe_launches,
+                           "win_async_train": win_async_launches,
+                           "sharded_moe_train": sharded_launches,
+                           "churn_train": churn_launches,
+                           "elastic_train": elastic_launches},
+             "bf16/D64": {"vit": vit_launches},
+             "bf16/D256": {"d256_train": d256_launches},
+             "f32/D16": {"long_context_example": lc_launches,
+                         "tp_example": tp_example_launches}}
     kernels = []
-    for kname, (fn, replaces) in KERNELS.items():
-        r = main_res[kname]
-        kernels.append({"name": f"{kname} {fn}", "route": "cuda",
-                        "source": SOURCE, "replaces": replaces,
-                        "launches": (launches[kname]
-                                     + host_launches[kname]
-                                     + observe_launches[kname]
-                                     + llama_launches[kname]
-                                     + moe_launches[kname]
-                                     + ring_launches[kname]
-                                     + ulysses_launches[kname]
-                                     + dp_sp_launches[kname]
-                                     + tp_launches[kname]
-                                     + pp_launches[kname]
-                                     + pp_variant_launches[kname]
-                                     + hier_launches[kname]
-                                     + winput_launches[kname]
-                                     + fused_launches[kname]
-                                     + win_variant_launches[kname]
-                                     + win_dist_launches[kname]
-                                     + tp_moe_launches[kname]
-                                     + win_async_launches[kname]
-                                     + sharded_launches[kname]
-                                     + churn_launches[kname]
-                                     + elastic_launches[kname]),
-                        "launches_by_path": {
-                            "train": launches[kname],
-                            "train_host_data": host_launches[kname],
-                            "observe_train": observe_launches[kname],
-                            "llama_train": llama_launches[kname],
-                            "moe_train": moe_launches[kname],
-                            "ring_train": ring_launches[kname],
-                            "ulysses_train": ulysses_launches[kname],
-                            "dp_sp_train": dp_sp_launches[kname],
-                            "tp_train": tp_launches[kname],
-                            "pp_train": pp_launches[kname],
-                            "pp_variants": pp_variant_launches[kname],
-                            "hier_train": hier_launches[kname],
-                            "winput_train": winput_launches[kname],
-                            "fused_train": fused_launches[kname],
-                            "win_variants": win_variant_launches[kname],
-                            "win_dist_train": win_dist_launches[kname],
-                            "tp_moe_train": tp_moe_launches[kname],
-                            "win_async_train": win_async_launches[kname],
-                            "sharded_moe_train": sharded_launches[kname],
-                            "churn_train": churn_launches[kname],
-                            "elastic_train": elastic_launches[kname],
-                            "generate": gen_launches[kname],
-                            "vit": vit_launches[kname]},
-                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"]})
+    for tag, dtype, source in (("bf16", torch.bfloat16, SOURCE),
+                               ("f32", torch.float32, SOURCE_F32)):
+        for kname, (fn, replaces) in KERNELS.items():
+            instances = []
+            for inst in FA.INSTANCES[dtype]:
+                key = f"{tag}/D{inst}"
+                case, D, res = inst_res[key]
+                r = res[kname]
+                instances.append({
+                    "instance": key, "case": case, "D": D,
+                    "launches": sum(c[kname] for c in
+                                    paths.get(key, {}).values()),
+                    "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                    "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            # The entry's own numbers: its main instance's (bf16: the LM's
+            # shape; float32: the long-context model's ring hop).
+            head = instances[1] if tag == "bf16" else instances[0]
+            kernels.append({
+                "name": f"{kname} {fn}" + ("_f32" if tag == "f32" else ""),
+                "route": "cuda", "source": source, "replaces": replaces,
+                "launches": sum(i["launches"] for i in instances),
+                "launches_by_path": {p: c[kname] for key in paths
+                                     if key.startswith(tag)
+                                     for p, c in paths[key].items()},
+                **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms")},
+                "instances": instances})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -48,6 +48,16 @@ def test_key_changes_with_what_the_build_reads(csrc, monkeypatch, edit):
     assert _nvcc.library_path("k") != before
 
 
+def test_key_covers_the_macro_definitions(csrc):
+    """One source builds a library per definition (the flash kernels' one
+    per head-dim instance): each its own key, the same key for the same
+    definition."""
+    keys = {d: _nvcc.library_path("k", d)
+            for d in ((), ("FLASH_D=64",), ("FLASH_D=128",))}
+    assert len(set(keys.values())) == 3
+    assert _nvcc.library_path("k", ("FLASH_D=64",)) == keys[("FLASH_D=64",)]
+
+
 def test_key_ignores_another_source(csrc):
     before = _nvcc.library_path("k")
     (csrc / "other.cu").write_text("int h() { return 3; }\n")

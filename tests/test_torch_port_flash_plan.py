@@ -1,9 +1,10 @@
 """The launch plan of the Hopper kernels K1 (flash forward), K2 (dq) and K3
 (dk/dv),
-``ops.flash_attention.launch_plan``: grid, tile counts, shared memory and
-the TMA tensor maps over the operands' strides.  Pure host arithmetic,
-held here against PyTorch's own addressing and a brute-force count of the
-tiles the causal mask leaves work in."""
+``ops.flash_attention.launch_plan``: the head-dim instance, grid, tile
+counts, shared memory and the TMA tensor maps over the operands' strides
+(bf16), and the float32 kernels' plan.  Pure host arithmetic, held here
+against PyTorch's own addressing and a brute-force count of the tiles the
+causal mask leaves work in."""
 
 import math
 
@@ -17,46 +18,55 @@ SMEM_LIMIT = 232448            # dynamic shared memory a Hopper block may use
 OPERANDS = {"fwd": ("q", "k", "v"), "dq": ("q", "k", "v", "do", "o"),
             "dkv": ("q", "k", "v", "do")}
 # Rows of one TMA box per operand: the block's own rows (128) and the rows
-# of one pipeline stage (K1 and K2: 128 keys; K3: 64 queries).
+# of one pipeline stage (K1 and K2: 128 keys; K3: 64 queries); at instance
+# 256, K1 streams 64 keys, K2 owns 64 rows and streams 64 keys, K3 owns 64
+# keys.
 BOX_ROWS = {"fwd": {"q": 128, "k": 128, "v": 128},
             "dq": {"q": 128, "k": 128, "v": 128, "do": 128, "o": 128},
             "dkv": {"q": 64, "k": 128, "v": 128, "do": 64}}
+BOX_ROWS_256 = {"fwd": {"q": 128, "k": 64, "v": 64},
+                "dq": {n: 64 for n in ("q", "k", "v", "do", "o")},
+                "dkv": {n: 64 for n in ("q", "k", "v", "do")}}
 RESIDENT = {"fwd": ("q",), "dq": ("q", "do", "o"), "dkv": ("k", "v")}
 
 
-def _operands(kernel, B, S, H, D, layout):
+def _operands(kernel, B, S, H, D, layout, dtype=torch.bfloat16):
     """Views as the model hands them over: q, k, v slices of one fused
     (B, S, H, 3, D) projection, or separate contiguous tensors; dO is always
     a contiguous gradient, and O (K2) the forward's contiguous output."""
     if layout == "fused":
-        qkv = torch.zeros(B, S, H, 3, D, dtype=torch.bfloat16)
+        qkv = torch.zeros(B, S, H, 3, D, dtype=dtype)
         ts = {"q": qkv[..., 0, :], "k": qkv[..., 1, :], "v": qkv[..., 2, :]}
     else:
-        ts = {n: torch.zeros(B, S, H, D, dtype=torch.bfloat16)
-              for n in ("q", "k", "v")}
+        ts = {n: torch.zeros(B, S, H, D, dtype=dtype) for n in ("q", "k", "v")}
     for name in OPERANDS[kernel][3:]:
-        ts[name] = torch.zeros(B, S, H, D, dtype=torch.bfloat16)
+        ts[name] = torch.zeros(B, S, H, D, dtype=dtype)
     return ts
 
 
-def _plan(kernel, B, S, H, D, layout="fused", causal=True):
-    ts = _operands(kernel, B, S, H, D, layout)
+def _plan(kernel, B, S, H, D, layout="fused", causal=True,
+          dtype=torch.bfloat16):
+    ts = _operands(kernel, B, S, H, D, layout, dtype)
     return FA.launch_plan(kernel, (B, S, H, D),
-                          {n: t.stride() for n, t in ts.items()}, causal), ts
+                          {n: t.stride() for n, t in ts.items()}, causal,
+                          dtype), ts
 
 
 @pytest.mark.parametrize("layout", ["fused", "contiguous"])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [8, 16, 64, 80, 96, 128, 256])
 @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
 def test_maps_address_what_torch_addresses(kernel, D, layout):
+    """Each map's inner extent is the true head dim, its box the
+    instance's 64-column block of the tile's rows."""
     B, S, H = 2, 300, 3
     plan, ts = _plan(kernel, B, S, H, D, layout)
     assert tuple(plan.maps) == OPERANDS[kernel]            # C-interface order
+    rows = (BOX_ROWS_256 if plan.instance == 256 else BOX_ROWS)[kernel]
     rng = np.random.RandomState(0)
     for name, m in plan.maps.items():
         t = ts[name]
         assert m.dims == (D, S, H, B)
-        assert m.box == (64, BOX_ROWS[kernel][name], 1, 1)
+        assert m.box == (64, rows[name], 1, 1)
         assert all(s % 16 == 0 for s in m.strides)
         assert len(m.flat()) == 11
         for b, s, h, d in zip(*(rng.randint(0, n, 8) for n in (B, S, H, D))):
@@ -91,11 +101,13 @@ def test_grid_and_tile_counts(kernel, S, causal):
                                                 block_is_keys=kernel == "dkv")
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
 def test_shared_memory_fits_a_block(kernel, D):
-    """Room for the resident tiles and two stages of the streamed ones."""
+    """Room for the resident tiles and two stages of the streamed ones,
+    each instance's tiles within a Hopper block's shared memory."""
     plan, _ = _plan(kernel, 2, 2048, 16, D)
+    assert plan.instance == D
     resident = RESIDENT[kernel]
     rows_bytes = {n: m.box[1] * D * 2 for n, m in plan.maps.items()}
     need = sum(b if n in resident else 2 * b for n, b in rows_bytes.items())
@@ -134,6 +146,79 @@ def test_refuses_what_a_tensor_map_cannot_describe(kernel, bad):
     elif bad == "head_dim_stride":
         st = (S * H * D * 2, H * D * 2, D * 2, 2)
     else:
-        shape = (B, S, H, 96)
+        shape = (B, S, H, 288)                     # past the widest instance
     with pytest.raises(ValueError):
         FA.launch_plan(kernel, shape, {n: st for n in OPERANDS[kernel]})
+
+
+@pytest.mark.parametrize("dtype, instances", [
+    (torch.bfloat16, (64, 128, 256)), (torch.float32, (16, 64, 128, 256))])
+def test_every_head_dim_takes_the_smallest_instance_that_holds_it(dtype,
+                                                                  instances):
+    """Every D from 1 to 256 plans in the smallest instance at least D (the
+    bf16 operands as the padded buffers the copy route gives odd widths);
+    D = 0 and D > 256 are refused."""
+    B, S, H = 1, 64, 2
+    for D in range(1, 257):
+        want = min(i for i in instances if i >= D)
+        assert FA.instance(dtype, D) == want, D
+        st = (S * H * want, H * want, want, 1)
+        plan = FA.launch_plan("dq", (B, S, H, D), {n: st for n in OPERANDS["dq"]},
+                              True, dtype)
+        assert plan.instance == want, D
+    for D in (0, 257, 288):
+        with pytest.raises(ValueError, match="head dims 1 to 256"):
+            FA.instance(dtype, D)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_refuses_dtypes_the_kernels_do_not_take(dtype):
+    with pytest.raises(ValueError, match="bfloat16 and float32"):
+        FA.launch_plan("fwd", (1, 64, 2, 64), {}, True, dtype)
+
+
+@pytest.mark.parametrize("D, H", [(36, 1), (20, 3), (1, 4)])
+def test_copy_route_for_strides_a_map_cannot_describe(D, H):
+    """A fused-QKV slice whose strides or base are not 16-byte multiples
+    (D = 36 at H = 1: 216-byte rows, k 72 bytes in) is copied into a zero
+    buffer padded to the instance; the copy holds the same values and its
+    strides plan."""
+    B, S = 2, 100
+    qkv = torch.randn(B, S, H, 3, D).to(torch.bfloat16)
+    k = qkv[..., 1, :]
+    assert not FA.describable(k.stride(), k.data_ptr())
+    with pytest.raises(ValueError, match="multiples of 16"):
+        FA.launch_plan("fwd", (B, S, H, D), {n: k.stride() for n in "qkv"})
+    inst = FA.instance(torch.bfloat16, D)
+    c = FA._padded(k, inst)
+    assert c.shape == k.shape and torch.equal(c, k)
+    assert c.stride() == (S * H * inst, H * inst, inst, 1)
+    assert FA.describable(c.stride(), c.data_ptr())
+    assert int(c._base[..., D:].abs().sum()) == 0          # zero past D
+    plan = FA.launch_plan("fwd", (B, S, H, D), {n: c.stride() for n in "qkv"})
+    assert plan.maps["k"].dims == (D, S, H, B)
+    assert plan.maps["k"].strides == (2 * H * inst, 2 * inst, 2 * S * H * inst)
+
+
+@pytest.mark.parametrize("D", [8, 16, 64, 80, 128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
+def test_float32_plan(kernel, causal, D):
+    """The float32 kernels: 256 threads over 64-row blocks, 64-row
+    streamed tiles (32 at instance 256), tiles of instance + 1 floats a row
+    in shared memory within a block's limit; no tensor maps (they read
+    through the strides)."""
+    S = 777
+    plan, _ = _plan(kernel, 2, S, 3, D, causal=causal, dtype=torch.float32)
+    inst = FA.instance(torch.float32, D)
+    step = 32 if inst == 256 else 64
+    assert plan.maps == {} and plan.instance == inst
+    assert plan.grid == (6, math.ceil(S / 64)) and plan.threads == 256
+    operand, score = 4 * (inst + 1), 4 * (step + 1)
+    need = {"fwd": 64 * operand + 2 * step * operand + 64 * score,
+            "dq": 2 * 64 * operand + 2 * step * operand + 64 * score,
+            "dkv": 2 * 64 * operand + 2 * step * operand + 2 * 64 * score
+            + 2 * 4 * step}[kernel]
+    assert plan.smem == need <= SMEM_LIMIT
+    assert plan.inner_tiles == _tiles_with_work(S, 64, step, causal,
+                                                block_is_keys=kernel == "dkv")
