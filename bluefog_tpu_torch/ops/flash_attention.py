@@ -16,9 +16,13 @@ any S, strided operands.
 bfloat16 runs in ``csrc/flash_attention.cu``: warp-specialised kernels,
 TMA loads through an mbarrier ring, every product a ``wgmma``, in three
 instances D = 64, 128 and 256.  float32 runs in
-``csrc/flash_attention_f32.cu``: SIMT float32 kernels (no TF32), instances
-D = 16, 64, 128 and 256.  Each instance builds into a library of its own
-(:func:`load_library`).  A head dim runs in the smallest instance at least
+``csrc/flash_attention_f32.cu``, instances D = 16, 64, 128 and 256: K1 and
+K3 on the tensor cores in 3xTF32 (``mma.sync`` TF32 products of each
+operand split into hi + lo, float32-accurate; whatever
+``torch.backends.cuda.matmul.allow_tf32`` says), their streamed tiles
+through a ring of ``cp.async`` copies, 16-byte where every operand allows
+(:func:`f32_copy_bytes`); K2 float32 FMA on the CUDA cores.  Each instance
+builds into a library of its own (:func:`load_library`).  A head dim runs in the smallest instance at least
 as wide (:func:`instance`); the columns past it are zeros the kernels never
 store.  float16 and D > 256 raise.
 
@@ -59,6 +63,7 @@ __all__ = ["flash_attention", "flash_attention_lse", "flash_attention_impl",
            "flash_fwd_cuda", "flash_dq_cuda", "flash_dkv_cuda", "instance",
            "INSTANCES", "describable",
            "load_library", "reset_launch_counts", "launch_plan",
+           "f32_copy_bytes",
            "LaunchPlan", "TensorMapPlan"]
 
 _NEG_INF = -1e30
@@ -189,11 +194,23 @@ _OPERANDS = {"fwd": (("q",), ("k", "v")), "dq": (("q", "do", "o"), ("k", "v")),
 _ALIGN = 1024                 # swizzled tiles start 1024-byte aligned
 _SMEM_LIMIT = 232448          # dynamic shared memory a Hopper block may use
 _BOX_COLS = 64                # one TMA box row: 64 bf16 = the 128-byte swizzle
-# float32 tiles of csrc/flash_attention_f32.cu (Tile): 256 threads own 64
-# rows and stream 64-row tiles (32 at instance 256), each tile in shared
-# memory with a row stride of instance + 1 floats.
-_F32_THREADS = 256
+# float32 tiles of csrc/flash_attention_f32.cu by (kernel, instance), every
+# block 64 rows.  K1 (FwdTile) and K3 (DkvTile) on the tensor cores: one or
+# two groups of 4 warps (128 threads a group) take turns over the streamed
+# tiles, a ring of `stages` stages of a tile a group, a row stride of
+# instance + 4 floats; K3 at 256 one block a role (dV, dK: grid y
+# doubled).  K2 (Tile): 256 SIMT threads, streamed tiles through one stage,
+# a row stride of instance + 1.
 _F32_BLOCK = 64
+_F32_TILES = {
+    # (kernel, instance): (threads, streamed rows, stages, roles)
+    ("fwd", 16): (128, 64, 4, 1), ("fwd", 64): (128, 64, 2, 1),
+    ("fwd", 128): (256, 32, 2, 1), ("fwd", 256): (256, 16, 2, 1),
+    ("dq", 16): (256, 64, 1, 1), ("dq", 64): (256, 64, 1, 1),
+    ("dq", 128): (256, 64, 1, 1), ("dq", 256): (256, 32, 1, 1),
+    ("dkv", 16): (128, 64, 4, 1), ("dkv", 64): (256, 64, 2, 1),
+    ("dkv", 128): (256, 16, 2, 1), ("dkv", 256): (128, 16, 2, 2),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -212,14 +229,17 @@ class TensorMapPlan:
 class LaunchPlan:
     """Grid ``(B*H, row tiles)``, threads and dynamic shared-memory bytes of
     one launch of the head-dim ``instance``; ``inner_tiles`` counts the
-    streamed tiles over one (b, h), and ``maps`` the bf16 operands' tensor
-    maps in C-interface order (float32 reads through strides: none)."""
+    streamed tiles over one (b, h) (each role's, at a role-split tile), and
+    ``maps`` the bf16 operands' tensor maps in C-interface order (float32
+    reads through strides: none); ``copy_bytes`` is the float32 K1's and
+    K3's copy by the strides (:func:`f32_copy_bytes`; bf16: 0)."""
     grid: Tuple[int, int]
     threads: int
     smem: int
     inner_tiles: int
     instance: int
     maps: Dict[str, TensorMapPlan]
+    copy_bytes: int = 0
 
 
 def _ceil(a: int, b: int) -> int:
@@ -261,20 +281,35 @@ def _inner_tiles(kernel, S, block, step, causal) -> int:
                for t in tiles)
 
 
-def _f32_plan(kernel, shape, inst, causal) -> LaunchPlan:
+def f32_copy_bytes(strides, data_ptrs=()) -> int:
+    """The float32 K1's and K3's copy of the streamed tiles: 16-byte
+    ``cp.async`` when every operand has unit stride along D, element strides
+    that are multiples of 4 (16-byte rows) and a 16-byte aligned base, else
+    4-byte copies.  Never a copy of an operand."""
+    aligned = all(sd == 1 and sb % 4 == 0 and ss % 4 == 0 and sh % 4 == 0
+                  for sb, ss, sh, sd in strides) \
+        and all(p % 16 == 0 for p in data_ptrs)
+    return 16 if aligned else 4
+
+
+def _f32_plan(kernel, shape, strides, inst, causal) -> LaunchPlan:
     B, S, H, _ = shape
-    step = 32 if inst > 128 else 64
-    block_f = _F32_BLOCK * (inst + 1)      # floats of a 64-row operand tile
-    stream_f = step * (inst + 1)
-    score_f = _F32_BLOCK * (step + 1)
-    floats = {"fwd": block_f + 2 * stream_f + score_f,
-              "dq": 2 * block_f + 2 * stream_f + score_f,
-              "dkv": 2 * block_f + 2 * stream_f + 2 * score_f + 2 * step}
-    return LaunchPlan(grid=(B * H, _ceil(S, _F32_BLOCK)), threads=_F32_THREADS,
-                      smem=4 * floats[kernel],
-                      inner_tiles=_inner_tiles(kernel, S, _F32_BLOCK, step,
-                                               causal),
-                      instance=inst, maps={})
+    threads, step, stages, roles = _F32_TILES[kernel, inst]
+    if kernel == "dq":
+        ld = inst + 1                      # the SIMT tiles' odd row stride
+        floats = (2 * _F32_BLOCK * ld + 2 * step * ld
+                  + _F32_BLOCK * (step + 1))
+    else:
+        ld = inst + 4
+        tile = 2 * step * ld + (2 * step if kernel == "dkv" else 0)
+        resident = (2 if kernel == "dkv" else 1) * _F32_BLOCK * ld
+        floats = resident + stages * (threads // 128) * tile
+    return LaunchPlan(grid=(B * H, roles * _ceil(S, _F32_BLOCK)),
+                      threads=threads, smem=4 * floats,
+                      inner_tiles=roles * _inner_tiles(kernel, S, _F32_BLOCK,
+                                                       step, causal),
+                      instance=inst, maps={},
+                      copy_bytes=f32_copy_bytes(strides.values()))
 
 
 def launch_plan(kernel: str, shape, strides, causal: bool = True,
@@ -290,7 +325,7 @@ def launch_plan(kernel: str, shape, strides, causal: bool = True,
     if min(B, S, H) < 1:
         raise ValueError(f"empty shape {tuple(shape)}")
     if dtype == torch.float32:
-        return _f32_plan(kernel, shape, inst, causal)
+        return _f32_plan(kernel, shape, strides, inst, causal)
     block, step, stages, threads = _TILES[kernel, inst]
     resident, streamed = _OPERANDS[kernel]
     maps = {n: _tensor_map(n, shape, strides[n], block if n in resident else step)
@@ -313,18 +348,21 @@ def launch_plan(kernel: str, shape, strides, causal: bool = True,
 
 
 @functools.lru_cache(maxsize=256)
-def _c_plan(kernel: str, shape, strides, causal: bool, dtype):
+def _c_plan(kernel: str, shape, strides, causal: bool, dtype,
+            bases_aligned: bool):
     """The plan as the C interface takes it (bf16: the tensor maps; float32:
-    each operand's four element strides; then the launch), cached per
+    each operand's four element strides; then the launch, float32's with
+    its copy bytes, 4 where a base is not 16-byte aligned), cached per
     shape and strides: a launch then costs the host no Python arithmetic."""
     plan = launch_plan(kernel, shape, dict(strides), causal, dtype)
+    launch = [*plan.grid, plan.threads, plan.smem]
     if dtype == torch.float32:
         flat = [x for _, st in strides for x in st]
+        launch.append(plan.copy_bytes if bases_aligned else 4)
     else:
         flat = [x for m in plan.maps.values() for x in m.flat()]
     maps = (ctypes.c_longlong * len(flat))(*flat)
-    launch = (ctypes.c_int * 4)(*plan.grid, plan.threads, plan.smem)
-    return maps, launch
+    return maps, (ctypes.c_int * len(launch))(*launch)
 
 
 def _padded(t: torch.Tensor, inst: int) -> torch.Tensor:
@@ -378,7 +416,8 @@ def _launch(fn, kernel: str, ops: Dict[str, torch.Tensor], inst: int,
     B, S, H, D = q.shape
     plan = _c_plan(kernel, (B, S, H, D),
                    tuple((n, t.stride()) for n, t in ops.items()),
-                   bool(causal), q.dtype)
+                   bool(causal), q.dtype,
+                   all(t.data_ptr() % 16 == 0 for t in ops.values()))
     libs, _ = load_library()
     c_fn = libs[q.dtype, inst][("fwd", "dq", "dkv").index(kernel)]
     rc = c_fn(*(t.data_ptr() for t in ops.values()), *tail, S, H, D, *plan,

@@ -9,9 +9,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 2. ``build``    — builds the flash-attention kernels from ``csrc/`` with
    ``nvcc``, the bf16 and the float32 source at once (``-Xptxas -v``:
    registers, shared memory, spills) and requires every instance of K1,
-   K2 and K3 (bf16 D = 64, 128, 256; float32 D = 16, 64, 128, 256) to
-   spill no register, and the bf16 ones to keep their wgmma products
-   asynchronous (ptxas reports no serialization).
+   K2 and K3 (bf16 D = 64, 128, 256; float32 D = 16, 64, 128, 256, K1 and
+   K3 in both copy routes) to spill no register, and the bf16 ones to
+   keep their wgmma products asynchronous (ptxas reports no
+   serialization).
 3. ``kernel``   — each of K1 (forward), K2 (dq) and K3 (dk/dv) against its
    plain PyTorch twin on the same inputs, at the training path's shape
    (B=2, S=2048, H=16, D=128, bf16, causal, q/k/v strided slices of a fused
@@ -50,15 +51,19 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    padded-copy route, its copies counted) and at D=136 (a 64-column box
    wholly past D); timed at the heads of Phi-2 (32 of 80), Phi-3-mini (32
    of 96) and Gemma-2B (8 of 256), B=2, S=2048, causal, fused; float32
-   (TF32 off) timed at the long-context model's ring hops (8 shards of
-   512 tokens, D=16) and its Ulysses gather (4,096 tokens, one head a
-   shard), checked at the graft entry's D=8 and at ``tp_example``'s head
-   shards (``tensor_parallel_training``'s defaults: tp x its batch share
-   = 16 rows, S=64, 2 heads of 16, fused QKV), timed at D=64, 128 and 256
-   (B=1, S=1024); float32 held to ``F32_FWD_TOL`` (o and lse, max |err|)
-   and ``F32_GRAD_TOL`` (dq, delta, dk, dv, relative).  Each line names
-   its dtype and the instance that ran; bounds count the true D's work
-   (989 TFLOP/s bf16, 67 TFLOP/s float32 FMA).
+   (TF32 off for the twins; K1 and K3 run 3xTF32 whatever it says) timed
+   at the long-context model's ring hops (8 shards of 512 tokens, D=16)
+   and its Ulysses gather (4,096 tokens, one head a shard), checked at the
+   graft entry's D=8, at D=6 on one head of a fused QKV (72-byte rows: K1
+   and K3 take the 4-byte copies, ``copy_bytes``) and at ``tp_example``'s
+   head shards (``tensor_parallel_training``'s defaults: tp x its batch
+   share = 16 rows, S=64, 2 heads of 16, fused QKV), timed at D=64, 128
+   and 256 (B=1, S=1024); float32 held to ``F32_FWD_TOL`` (o and lse, max
+   |err|) and ``F32_GRAD_TOL`` (dq, delta, dk, dv, relative).  Each line
+   names its dtype and the instance that ran; bounds count the true D's
+   work (989 TFLOP/s bf16; float32 at 495 / 3 = 165 TFLOP/s, 3xTF32 on
+   the tensor cores, the least time the card takes for float32-accurate
+   products).
 4. ``reference`` — a small TransformerLM on the card: logits and gradients
    through the kernels against the same model with dense attention, by
    relative error (logits, and each parameter's gradient).
@@ -556,7 +561,10 @@ import threading
 import time
 
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16
-PEAK_F32_FLOPS = 67e12       # H100 SXM float32 FMA on the CUDA cores
+# The least time the card takes for a float32-accurate product: 3xTF32 on
+# the tensor cores (495 TFLOP/s TF32, three products for each float32 one),
+# 2.5x the CUDA cores' 67 TFLOP/s FMA.  Bounds every float32 kernel.
+PEAK_F32_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 # Limits, a few times the errors of sound bf16 kernels on the card (the
 # readings stand in PERF.md).  Both output measures scale with the typical
@@ -771,7 +779,10 @@ def ptxas_report(log):
         m = re.search(r"Compiling entry function .*?(flash_(?:fwd|dq|dkv)(?:_f32)?)"
                       r"_kernelILi(\d+)E", ln)
         if m:
-            cur = out.setdefault(f"{m.group(1)}/D{m.group(2)}", {})
+            # The float32 K1 and K3 build twice an instance (the 16-byte
+            # and 4-byte copies): the entry holds the larger of each number.
+            cur = {}
+            out.setdefault(f"{m.group(1)}/D{m.group(2)}", []).append(cur)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m and cur is not None:
@@ -780,7 +791,9 @@ def ptxas_report(log):
         if m and cur is not None:
             cur["registers"] = int(m.group(1))
             cur["static_smem_bytes"] = int(m.group(2) or 0)
-    return out
+    return {key: {f: max(v.get(f, -1) for v in vs)
+                  for f in sorted({f for v in vs for f in v})}
+            for key, vs in out.items()}
 
 
 def operands(B, S, H, D, layout, g, kv_heads, dtype=None):
@@ -977,6 +990,10 @@ def check_kernels(B, S, H, D, causal, seed, timed, repeat=False,
             kernel, (B, S, H, D), strides, causal, dtype).smem
         res[name]["instance"] = f"{'f32' if f32 else 'bf16'}/D{inst}"
         res[name]["operand_copies"] = fns[name].copies - copies[name]
+        if f32 and name != "K2":
+            # The float32 K1's and K3's copy route (16- or 4-byte cp.async).
+            res[name]["copy_bytes"] = FA.f32_copy_bytes(
+                [t.stride() for t in ts], [t.data_ptr() for t in ts])
     lse_err = float((lse_k.transpose(1, 2) - lse_r).abs().max())
     lse_tol = F32_FWD_TOL if f32 else LSE_TOL
     require(lse_err <= lse_tol, f"max |lse - twin| {lse_err} over {lse_tol}")
@@ -6211,6 +6228,10 @@ def kernel_phase(ptxas):
             ("lc-ulysses", 8, 4096, 1, 16, True, True, "ulysses", None,
              False),
             ("graft-d8", 16, 16, 4, 8, True, False, "gqa", 2, False),
+            # One head of a fused QKV at D = 6: 72-byte rows, the k slice
+            # 24 bytes in, so K1 and K3 take the 4-byte copies.
+            ("f32-d6-copy4", 2, 300, 1, 6, True, False, "fused", None,
+             False),
             ("tp-example", tp_args.tp * (tp_args.batch // tp_dp),
              tp_args.seq_len, tp_cfg.num_heads // tp_args.tp,
              tp_cfg.embed_dim // tp_cfg.num_heads, tp_cfg.causal, False,
@@ -6236,6 +6257,9 @@ def kernel_phase(ptxas):
             if case == "d36-copy":
                 require(all(r["operand_copies"] > 0 for r in res.values()),
                         f"D=36 took the padded-copy route: {res}")
+            if case == "f32-d6-copy4":
+                require(res["K1"]["copy_bytes"] == res["K3"]["copy_bytes"]
+                        == 4, f"D=6 took the 4-byte copies: {res}")
             inst = FA.instance(dtype, D)
             tol = ({"fwd_tol": F32_FWD_TOL, "grad_tol": F32_GRAD_TOL} if f32
                    else {"rel_tol": REL_TOL, "elem_tol": ELEM_TOL})

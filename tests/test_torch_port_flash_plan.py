@@ -200,25 +200,89 @@ def test_copy_route_for_strides_a_map_cannot_describe(D, H):
     assert plan.maps["k"].strides == (2 * H * inst, 2 * inst, 2 * S * H * inst)
 
 
+# The float32 tiles of csrc/flash_attention_f32.cu: K1 (FwdTile) and K3
+# (DkvTile) on the tensor cores, one or two groups of 4 warps taking turns
+# over the streamed tiles, K3 at instance 256 one block a role (dV, dK); K2
+# (Tile) 256 SIMT threads.  (threads, streamed rows, stages, roles) by
+# (kernel, instance).
+F32_TILES = {("fwd", 16): (128, 64, 4, 1), ("fwd", 64): (128, 64, 2, 1),
+             ("fwd", 128): (256, 32, 2, 1), ("fwd", 256): (256, 16, 2, 1),
+             ("dq", 16): (256, 64, 1, 1), ("dq", 64): (256, 64, 1, 1),
+             ("dq", 128): (256, 64, 1, 1), ("dq", 256): (256, 32, 1, 1),
+             ("dkv", 16): (128, 64, 4, 1), ("dkv", 64): (256, 64, 2, 1),
+             ("dkv", 128): (256, 16, 2, 1), ("dkv", 256): (128, 16, 2, 2)}
+
+
 @pytest.mark.parametrize("D", [8, 16, 64, 80, 128, 256])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
 def test_float32_plan(kernel, causal, D):
-    """The float32 kernels: 256 threads over 64-row blocks, 64-row
-    streamed tiles (32 at instance 256), tiles of instance + 1 floats a row
-    in shared memory within a block's limit; no tensor maps (they read
-    through the strides)."""
+    """The float32 kernels over 64-row blocks.  K1 and K3: one or two
+    groups of 4 warps, a ring of 2-4 stages, each a streamed tile a group
+    (K1: K and V; K3: q and dO with their lse and delta), beside the
+    resident tiles (K1: q; K3: k and v), every tile instance + 4 floats a
+    row; K3 at instance 256 doubles grid y, a block a role, each streaming
+    its own tiles.  K2 as before: 256 threads,
+    64-row streamed tiles (32 at instance 256), instance + 1 floats a row.
+    All within a block's shared memory; no tensor maps (they read through
+    the strides)."""
     S = 777
     plan, _ = _plan(kernel, 2, S, 3, D, causal=causal, dtype=torch.float32)
     inst = FA.instance(torch.float32, D)
-    step = 32 if inst == 256 else 64
+    threads, step, stages, roles = F32_TILES[kernel, inst]
     assert plan.maps == {} and plan.instance == inst
-    assert plan.grid == (6, math.ceil(S / 64)) and plan.threads == 256
-    operand, score = 4 * (inst + 1), 4 * (step + 1)
-    need = {"fwd": 64 * operand + 2 * step * operand + 64 * score,
-            "dq": 2 * 64 * operand + 2 * step * operand + 64 * score,
-            "dkv": 2 * 64 * operand + 2 * step * operand + 2 * 64 * score
-            + 2 * 4 * step}[kernel]
+    assert plan.grid == (6, roles * math.ceil(S / 64))
+    assert plan.threads == threads
+    if kernel == "dq":
+        operand, score = 4 * (inst + 1), 4 * (step + 1)
+        need = 2 * 64 * operand + 2 * step * operand + 64 * score
+    else:
+        row = 4 * (inst + 4)
+        resident = (2 if kernel == "dkv" else 1) * 64 * row
+        stage = 2 * step * row + (2 * 4 * step if kernel == "dkv" else 0)
+        need = resident + stages * (threads // 128) * stage
     assert plan.smem == need <= SMEM_LIMIT
-    assert plan.inner_tiles == _tiles_with_work(S, 64, step, causal,
-                                                block_is_keys=kernel == "dkv")
+    assert plan.inner_tiles == roles * _tiles_with_work(
+        S, 64, step, causal, block_is_keys=kernel == "dkv")
+    assert plan.copy_bytes == 16          # fused slices at D = 8-256
+
+
+@pytest.mark.parametrize("case", ["contiguous", "fused", "fused-d6",
+                                  "odd-rows", "unaligned-base", "d-stride"])
+def test_float32_copy_route(case):
+    """The float32 K1 and K3 copy their streamed tiles with 16-byte
+    cp.async when every operand has unit stride along D, element strides
+    that are multiples of 4 and a 16-byte aligned base; else with 4-byte
+    copies, never a copy of the operand.  The plan decides by the strides,
+    the wrapper lowers it to 4 for a base off 16 bytes."""
+    B, S, H, D = 2, 300, 1, 16
+    if case == "contiguous":
+        ts = [torch.zeros(B, S, H, D) for _ in range(3)]
+    elif case in ("fused", "fused-d6"):
+        D = 6 if case == "fused-d6" else D
+        qkv = torch.zeros(B, S, H, 3, D)          # D = 6: 72-byte rows
+        ts = [qkv[..., i, :] for i in range(3)]
+    elif case == "odd-rows":
+        ts = [torch.zeros(B, S, H, D + 2)[..., :D] for _ in range(3)]
+    elif case == "unaligned-base":
+        ts = [torch.zeros(B * S * H * D + 1)[1:].view(B, S, H, D)
+              for _ in range(3)]
+    else:
+        ts = [torch.zeros(B, S, H, 2 * D)[..., ::2] for _ in range(3)]
+    strides = [t.stride() for t in ts]
+    by_strides = FA.f32_copy_bytes(strides)
+    got = FA.f32_copy_bytes(strides, [t.data_ptr() for t in ts])
+    want = {"contiguous": 16, "fused": 16, "fused-d6": 4, "odd-rows": 4,
+            "unaligned-base": 4, "d-stride": 4}[case]
+    assert got == want
+    assert by_strides == (16 if case == "unaligned-base" else want)
+    aligned = all(t.data_ptr() % 16 == 0 for t in ts)
+    do = (S * H * D, H * D, D, 1)
+    for kernel, names in (("fwd", "qkv"), ("dkv", ("q", "k", "v", "do"))):
+        st = tuple(zip(names, strides + [do]))
+        plan = FA.launch_plan(kernel, (B, S, H, D), dict(st), True,
+                              torch.float32)
+        assert plan.copy_bytes == by_strides
+        _, launch = FA._c_plan(kernel, (B, S, H, D), st, True, torch.float32,
+                               aligned)
+        assert list(launch) == [*plan.grid, plan.threads, plan.smem, want]

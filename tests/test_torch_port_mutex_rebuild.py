@@ -36,8 +36,8 @@ from bluefog_tpu_torch.ops import transport as T
 from bluefog_tpu_torch.ops import window as W
 from bluefog_tpu_torch.utils import config
 
-GRANT_BOUND = 5.0     # seconds from the rebuild to the grant's arrival
-LOOKUP_WAIT = 2.0     # how long the hold thread gets to look the window up
+GRANT_BOUND = 5.0     # seconds from the rebuild to the grant's arrival,
+                      # and for the gated hold thread's own lookup
 
 
 class _Peer:
@@ -157,7 +157,11 @@ def test_grant_is_of_the_window_that_exists(native, case, monkeypatch):
         W.win_free("m")
         go.set()
         if gated:
-            assert looked.wait(LOOKUP_WAIT)
+            # The hold thread has looked the window up and parked the ACQ
+            # before the rebuild: the interleaving the case forces.  A
+            # bound on this test's own thread, not on the port.
+            assert looked.wait(GRANT_BOUND), \
+                "the gated hold thread did not look the window up"
         if case == "recreated":
             assert W.win_create(torch.zeros(1, 4), "m", zero_init=True)
         else:
