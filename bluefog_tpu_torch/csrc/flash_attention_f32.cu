@@ -1,5 +1,5 @@
-// Flash attention in float32 for Hopper (sm_90a): forward (K1) and dk/dv
-// (K3) on the tensor cores in 3xTF32, dq (K2) on the CUDA cores.
+// Flash attention in float32 for Hopper (sm_90a): forward (K1), dq (K2) and
+// dk/dv (K3) on the tensor cores in 3xTF32.
 //
 // Replaces the same three Pallas TPU kernels of
 // bluefog_tpu/ops/flash_attention.py as csrc/flash_attention.cu, for float32
@@ -19,7 +19,7 @@
 // the smallest DM >= Dt; tile columns past Dt are zeros, and output columns
 // past Dt are never stored.
 //
-// K1 and K3: every product in 3xTF32 (mma_tf32.cuh), mma.sync.m16n8k8 in
+// Every product in 3xTF32 (mma_tf32.cuh), mma.sync.m16n8k8 in
 // TF32 with each float32 operand split into hi + lo, rounded to nearest
 // (cvt.rna's rounding, in integer operations), and lo.hi + hi.lo + hi.hi
 // summed in float32.  A TF32 product alone (one rounding to 11 significant
@@ -30,9 +30,9 @@
 // truncation, up to an ulp toward zero each time, so a chain of additions
 // drifts with its length: the score products keep hi.hi apart from the
 // small products where registers allow (kSplitAcc; K1 always), and at
-// small DM a tile's P.V (K3: dK, dV) is summed apart and added in float32
-// (kTwoLevel), so that no tensor-core chain runs over a whole row of 4,096
-// keys.  Bound: 3 TF32 products for each float32 one, 495 / 3 = 165
+// small DM a tile's P.V (K2: dS.K; K3: dK, dV) is summed apart and added
+// in float32 (kTwoLevel), so that no tensor-core chain runs over a whole
+// row of 4,096 keys.  Bound: 3 TF32 products for each float32 one, 495 / 3 = 165
 // TFLOP/s on the H100 SXM, 2.5x the CUDA cores' 67; every case is bound by
 // operations.
 //
@@ -43,33 +43,37 @@
 // mma.sync reads B from registers, so a warp splits its fragments as it
 // loads them and shared memory holds one float32 copy of each tile.
 //
-// FlashAttention-2 layout: a warp owns 16 rows of the block (K1: queries,
-// K3: keys), 4 warps a block of 64.  The scores of a tile stay in the
+// FlashAttention-2 layout: a warp owns 16 rows of the block (K1, K2:
+// queries; K3: keys), 4 warps a block of 64.  The scores of a tile stay in the
 // warp's accumulators: the row max and sum are two shuffles within a quad,
 // and the accumulator feeds the next product as its A operand without a
 // shuffle (acc_as_a: a lane holds score columns 2t and 2t + 1, which serve
-// as k = t and t + 4, and B's rows are read in that order).  K1's Q
-// fragments stay split in registers at DM <= 64 and are split as they load
-// at DM >= 128; K3 keeps K's and V's split fragments in registers at
-// DM = 16.  Where a block's grid gives one block an SM (B*H*S/64 ~ the
-// SMs), two groups of 4 warps own the same 64 rows and take turns over the
-// streamed tiles (kGroups: K1 at DM >= 128, K3 at 64 and 128); group 1
-// hands its (m, l, O) or its dK, dV to group 0 through shared memory at
-// the end.  K3 at DM = 256 splits by role, a block computing dV and
+// as k = t and t + 4, and B's rows are read in that order; K2's dS feeds
+// dS.K so, the K tile of its scores read by columns).  K1's Q fragments
+// stay split in registers at DM <= 64 and are split as they load at
+// DM >= 128; K2 keeps Q's and dO's split fragments in registers at
+// DM = 16, K3 K's and V's.  Where a block's grid gives one block an SM
+// (B*H*S/64 ~ the SMs), two groups of 4 warps own the same 64 rows and
+// take turns over the streamed tiles (kGroups: K1 at DM >= 128, K2 and K3
+// at 64 and 128); group 1 hands its (m, l, O), its dQ or its
+// dK, dV to group 0 through shared memory at the end.  K3 at DM = 256 splits by role, a block computing dV and
 // another dK for the same 64 keys (grid y doubled), since a warp's dK and
 // dV of 16 keys would take 256 accumulator registers; the dK block
 // recomputes S^T.
 //
-// The streamed tiles (K1: K and V; K3: q and dO with their lse and delta)
-// come through a ring of cp.async, 2 stages (4 at DM = 16) of one tile a
-// group: the next stages land while a stage is multiplied, one
+// The streamed tiles (K1, K2: K and V; K3: q and dO with their lse and
+// delta) come through a ring of cp.async, 2 stages (4 at DM = 16) of one
+// tile a group: the next stages land while a stage is multiplied, one
 // __syncthreads() a stage.  The wrapper picks the copy: 16-byte
 // cp.async.cg where every operand has unit stride along D and 16-byte
 // aligned rows and base, 4-byte copies otherwise (the fused-QKV slices at
 // odd head dims); never a copy of the operand.  The route is a template
 // flag: a runtime branch between the two in one kernel cost K1 and K3
-// 10-25% on an H100 (PERF.md).  Rows past S and columns past Dt arrive as
-// zeros (the copy's src-size).
+// 10-25% on an H100 (PERF.md).  A library holds one route,
+// -DFLASH_COPY=<bytes> (16 or 4), so that no nvcc compiles both.  K2
+// reads its resident Q and dO, and the O of its delta, through the same
+// copies before the ring starts.  Rows past S and columns past Dt arrive
+// as zeros (the copy's src-size).
 //
 // Bank conflicts (no ncu on the card's machine, so by arithmetic): tiles
 // have a row stride of LD = DM + 4 floats, 16-byte aligned rows for the
@@ -77,14 +81,8 @@
 // (load_a, load_b_rows: lane (g, t) reads row g, column t) hit bank 4g + t
 // (16: 20g + t), 32 banks for 32 lanes; the P.V-side loads (load_b_cols:
 // rows 2t and 2t + 1, column g) hit 8t + g and 8t + 4 + g (16: 8t + g and
-// 8t + 20 + g), 32 banks each.  K3 reads its q and dO tiles both ways with
-// no swizzle.
-//
-// K2 is still the SIMT design of the first float32 port: 256 threads in a
-// 16 x 16 grid over 64 query rows, 64-key tiles (32 at DM = 256) through
-// shared memory with plain loads and an odd row stride, scores through a
-// shared tile, float32 FMA on the CUDA cores (bounded here at the same
-// 165 TFLOP/s: the least time the card takes for float32-accurate work).
+// 8t + 20 + g), 32 banks each.  K2 reads its K tiles and K3 its q and dO
+// tiles both ways with no swizzle.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -93,11 +91,16 @@
 #include "hopper.cuh"
 #include "mma_tf32.cuh"
 
+#if !defined(FLASH_COPY) || (FLASH_COPY != 16 && FLASH_COPY != 4)
+#error "build with -DFLASH_COPY=16 or 4: the copy route of this library"
+#endif
+
 namespace {
 
 using flash::kLn2;
 using flash::kLog2e;
 using flash::kMask;
+constexpr bool kVec = FLASH_COPY == 16;  // this library's copy route
 
 // One (B, S, H, Dt) operand: its base and element strides.
 struct Operand {
@@ -106,7 +109,7 @@ struct Operand {
 };
 
 // ---------------------------------------------------------------------------
-// K1 and K3 on the tensor cores.
+// K1-K3 on the tensor cores.
 // ---------------------------------------------------------------------------
 
 // K1's tile: kGroups groups of 4 warps own the same 64 query rows, each
@@ -145,6 +148,29 @@ struct DkvTile {
   static constexpr bool kSplitAcc = DM == 16 || DM == 256;  // big and small score accumulators
   static constexpr int kTileFloats = 2 * kStream * kLd + 2 * kStream;  // q, dO, lse, delta
   static constexpr int kSmem = 4 * (2 * kBlock * kLd + kStages * kGroups * kTileFloats);
+};
+
+// K2's tile: as K1's, kGroups groups of 4 warps own the same 64 query rows
+// and take turns over the key tiles (kStream keys each, K and V), with Q
+// and dO resident beside the ring and delta of the 64 rows.  The groups
+// add their dQ through shared memory at the end.  At DM = 256 one group:
+// Q and dO take 133,120 bytes, so two groups' 16-key K and V tiles in two
+// stages (another 133,120) do not fit a block's 232,448, and two groups
+// over 8-key tiles ran 10% slower than one over 16-key tiles on an H100
+// (PERF.md).
+template <int DM>
+struct DqTile {
+  static constexpr int kGroups = DM == 64 || DM == 128 ? 2 : 1;
+  static constexpr int kThreads = 128 * kGroups;
+  static constexpr int kBlock = 64;
+  static constexpr int kStream = DM == 256 ? 16 : DM == 128 ? 32 : 64;
+  static constexpr int kLd = DM + 4;
+  static constexpr int kStages = DM == 16 ? 4 : 2;
+  static constexpr bool kRegs = DM <= 16;       // Q's and dO's split fragments in registers
+  static constexpr bool kTwoLevel = DM <= 64;   // a tile's dS.K apart, then added
+  static constexpr bool kSplitAcc = DM >= 128;  // big and small score accumulators
+  static constexpr int kTileFloats = 2 * kStream * kLd;  // K, then V
+  static constexpr int kSmem = 4 * (2 * kBlock * kLd + kBlock + kStages * kGroups * kTileFloats);
 };
 
 // Rows row0 .. row0 + ROWS - 1, columns 0 .. DM - 1, of the (b, h) slab of
@@ -657,181 +683,214 @@ flash_dkv_f32_kernel(Operand q, Operand k, Operand v, Operand dout,
 }
 
 // ---------------------------------------------------------------------------
-// K2 on the CUDA cores: a 16 x 16 thread grid over 64 query rows.
-// ---------------------------------------------------------------------------
-constexpr int kThreads = 256;  // a 16 x 16 grid
-
-template <int DM>
-struct Tile {
-  static constexpr int kBlock = 64;                   // the block's own rows
-  static constexpr int kStream = DM > 128 ? 32 : 64;  // rows of a streamed tile
-  static constexpr int kLd = DM + 1;        // operand tile row stride (odd)
-  static constexpr int kPLd = kStream + 1;  // score tile row stride
-  static constexpr int kRI = kBlock / 16;   // block rows a thread holds
-  static constexpr int kCI = kStream / 16;  // score columns a thread holds
-  static constexpr int kDI = DM / 16;       // output columns a thread holds
-  static constexpr int kBlockFloats = kBlock * kLd;
-  static constexpr int kStreamFloats = kStream * kLd;
-  static constexpr int kScoreFloats = kBlock * kPLd;
-  // Dynamic shared memory, in bytes.
-  static constexpr int kDqSmem = 4 * (2 * kBlockFloats + 2 * kStreamFloats + kScoreFloats);
-};
-
-__device__ __forceinline__ float load(const Operand& t, int b, int s, int h, int d) {
-  return t.p[b * t.sb + s * t.ss + h * t.sh + d * t.sd];
-}
-
-// Rows row0 .. row0 + ROWS - 1 of the (b, h) slab into a shared tile of
-// row stride DM + 1; zeros past S and past Dt.
-template <int DM, int ROWS>
-__device__ __forceinline__ void load_tile(float* dst, const Operand& t, int b, int h,
-                                          int row0, int S, int Dt) {
-  for (int i = threadIdx.x; i < ROWS * DM; i += kThreads) {
-    const int r = i / DM, d = i % DM;
-    const int s = row0 + r;
-    dst[r * (DM + 1) + d] = (s < S && d < Dt) ? load(t, b, s, h, d) : 0.f;
-  }
-}
-
-// A sum over the 16 threads of one ty (half a warp).
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// x[i][j] = row (ty + 16i) of `a` . row (tx + 16j) of `b` over the first Dt
-// columns (`a`: the block tile, `b`: a streamed tile).
-template <typename T>
-__device__ __forceinline__ void dots(float (&x)[T::kRI][T::kCI], const float* a,
-                                     const float* b, int ty, int tx, int Dt) {
-#pragma unroll
-  for (int i = 0; i < T::kRI; ++i)
-#pragma unroll
-    for (int j = 0; j < T::kCI; ++j) x[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < Dt; ++d) {
-    float av[T::kRI], bv[T::kCI];
-#pragma unroll
-    for (int i = 0; i < T::kRI; ++i) av[i] = a[(ty + 16 * i) * T::kLd + d];
-#pragma unroll
-    for (int j = 0; j < T::kCI; ++j) bv[j] = b[(tx + 16 * j) * T::kLd + d];
-#pragma unroll
-    for (int i = 0; i < T::kRI; ++i)
-#pragma unroll
-      for (int j = 0; j < T::kCI; ++j) x[i][j] = fmaf(av[i], bv[j], x[i][j]);
-  }
-}
-
-// acc[i][jd] += sum_c p[ty + 16i][c] * m[c][tx + 16jd]: a score tile times
-// a streamed operand tile.
-template <typename T>
-__device__ __forceinline__ void accumulate(float (&acc)[T::kRI][T::kDI], const float* p,
-                                           const float* m, int ty, int tx) {
-#pragma unroll 4
-  for (int c = 0; c < T::kStream; ++c) {
-    float mv[T::kDI];
-#pragma unroll
-    for (int j = 0; j < T::kDI; ++j) mv[j] = m[c * T::kLd + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < T::kRI; ++i) {
-      const float pv = p[(ty + 16 * i) * T::kPLd + c];
-#pragma unroll
-      for (int j = 0; j < T::kDI; ++j) acc[i][j] = fmaf(pv, mv[j], acc[i][j]);
-    }
-  }
-}
-
-// Row `row` of a contiguous (B, S, H, Dt) output, its columns tx + 16j < Dt.
-template <typename T>
-__device__ __forceinline__ void store_row(float* out, int b, int row, int h, int H, int S,
-                                          int Dt, const float (&acc)[T::kDI], float mul,
-                                          int tx) {
-  if (row >= S) return;
-  float* base = out + (((long long)b * S + row) * H + h) * Dt;
-#pragma unroll
-  for (int j = 0; j < T::kDI; ++j) {
-    const int d = tx + 16 * j;
-    if (d < Dt) base[d] = acc[j] * mul;
-  }
-}
-
-// ---------------------------------------------------------------------------
 // K2: dq, and delta = rowsum(dO o) - dlse for K3.  Grid (B*H, ceil(S/64));
-// block = 64 query rows, K/V tiles up to the causal frontier.
+// block = 64 query rows, the heaviest causal tiles first; key tiles up to
+// the causal frontier.
 // ---------------------------------------------------------------------------
-template <int DM>
-__global__ void __launch_bounds__(kThreads)
+template <int DM, bool VEC>
+__global__ void __launch_bounds__(DqTile<DM>::kThreads, 1)
 flash_dq_f32_kernel(Operand q, Operand k, Operand v, Operand dout, Operand o,
                     const float* __restrict__ lse, const float* __restrict__ dlse,
                     float* __restrict__ delta, float* __restrict__ dq, int H, int S, int Dt,
                     float scale, float scale_log2, int causal) {
-  using T = Tile<DM>;
-  extern __shared__ float smem[];
+  using T = DqTile<DM>;
+  constexpr int LD = T::kLd, BN = T::kStream, NJ = BN / 8, ND = DM / 8, G = T::kGroups;
+  constexpr int kUnrollS = T::kRegs ? ND : 4;  // as K1's
+  constexpr int kRingFloats = T::kStages * G * T::kTileFloats;
+  static_assert(kRingFloats >= T::kBlock * LD, "O's tile fits the ring");
+  static_assert(G == 1 || kRingFloats >= 4 * ND * 4 * 32, "the groups' merge fits the ring");
+  extern __shared__ __align__(16) float smem[];
   float* sQ = smem;
-  float* sdO = sQ + T::kBlockFloats;
-  float* sK = sdO + T::kBlockFloats;
-  float* sV = sK + T::kStreamFloats;
-  float* sDS = sV + T::kStreamFloats;
+  float* sdO = sQ + T::kBlock * LD;
+  float* sDelta = sdO + T::kBlock * LD;
+  float* ring = sDelta + T::kBlock;  // O's tile first; then stage i: group g's K, V
 
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * T::kBlock;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int grp = warp / 4, r0 = 16 * (warp % 4);  // the warp's rows in the block
   const int kend = causal ? min(S, q0 + T::kBlock) : S;
-  load_tile<DM, T::kBlock>(sQ, q, b, h, q0, S, Dt);
-  load_tile<DM, T::kBlock>(sdO, dout, b, h, q0, S, Dt);
-  __syncthreads();
+  const int ntiles = (kend + BN - 1) / BN;
 
-  // The thread's rows: lse in log2 units and delta (0 past S).
-  float lse2[T::kRI], dlt[T::kRI];
+  // Q, dO and O land; delta = rowsum(dO o) - dlse, kThreads / 64 adjacent
+  // lanes a row, into shared memory and to K3's buffer.
+  copy_tile<T::kBlock, DM, LD, T::kThreads, VEC>(sQ, q, b, h, q0, S, Dt);
+  copy_tile<T::kBlock, DM, LD, T::kThreads, VEC>(sdO, dout, b, h, q0, S, Dt);
+  copy_tile<T::kBlock, DM, LD, T::kThreads, VEC>(ring, o, b, h, q0, S, Dt);
+  tf32::cp_async_commit();
+  tf32::cp_async_wait<0>();
+  __syncthreads();
+  {
+    constexpr int P = T::kThreads / T::kBlock;
+    const int row = threadIdx.x / P, s = q0 + row;
+    float sum = 0.f;
+#pragma unroll 4
+    for (int d = threadIdx.x % P; d < DM; d += P)
+      sum = fmaf(sdO[row * LD + d], ring[row * LD + d], sum);
 #pragma unroll
-  for (int i = 0; i < T::kRI; ++i) {
-    const int row = q0 + ty + 16 * i;
-    const bool in = row < S;
-    float part = 0.f;
-    if (in)
-      for (int d = tx; d < Dt; d += 16)
-        part = fmaf(sdO[(ty + 16 * i) * T::kLd + d], load(o, b, row, h, d), part);
-    part = group_sum(part);
-    lse2[i] = in ? lse[(long long)bh * S + row] * kLog2e : 0.f;
-    dlt[i] = in ? part - dlse[((long long)b * S + row) * H + h] : 0.f;
-    if (tx == 0 && in) delta[(long long)bh * S + row] = dlt[i];
+    for (int off = 1; off < P; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    const float dl = s < S ? sum - dlse[((long long)b * S + s) * H + h] : 0.f;
+    if (threadIdx.x % P == 0) {
+      sDelta[row] = dl;
+      if (s < S) delta[(long long)bh * S + s] = dl;
+    }
+  }
+  __syncthreads();  // delta is in shared memory; O's room is free for the ring
+
+  // The lane's rows g and g + 8: lse in log2 units and delta (0 past S).
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + g + 8 * r;
+    lse2[r] = row < S ? lse[(long long)bh * S + row] * kLog2e : 0.f;
+    dlt[r] = sDelta[r0 + g + 8 * r];
+  }
+  tf32::FragA qf[T::kRegs ? ND : 1], df[T::kRegs ? ND : 1];
+  if constexpr (T::kRegs) {
+#pragma unroll
+    for (int ks = 0; ks < ND; ++ks) {
+      tf32::load_a<LD>(qf[ks], sQ, r0, 8 * ks, g, t);
+      tf32::load_a<LD>(df[ks], sdO, r0, 8 * ks, g, t);
+    }
   }
 
-  float acc[T::kRI][T::kDI];
+  auto issue = [&](int i) {
 #pragma unroll
-  for (int i = 0; i < T::kRI; ++i)
-#pragma unroll
-    for (int j = 0; j < T::kDI; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < kend; k0 += T::kStream) {
-    __syncthreads();
-    load_tile<DM, T::kStream>(sK, k, b, h, k0, S, Dt);
-    load_tile<DM, T::kStream>(sV, v, b, h, k0, S, Dt);
-    __syncthreads();
-
-    float x[T::kRI][T::kCI], y[T::kRI][T::kCI];
-    dots<T>(x, sQ, sK, ty, tx, Dt);   // S = Q . K^T
-    dots<T>(y, sdO, sV, ty, tx, Dt);  // dP = dO . V^T
-#pragma unroll
-    for (int i = 0; i < T::kRI; ++i) {
-      const int row = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < T::kCI; ++j) {
-        const int col = k0 + tx + 16 * j;
-        float p = exp2f(fmaf(x[i][j], scale_log2, -lse2[i]));
-        if (col >= S || (causal && col > row)) p = 0.f;
-        // dS / scale = P (dP - delta)
-        sDS[(ty + 16 * i) * T::kPLd + tx + 16 * j] = p * (y[i][j] - dlt[i]);
+    for (int gi = 0; gi < G; ++gi) {
+      const int it = i * G + gi;
+      float* st = ring + ((i % T::kStages) * G + gi) * T::kTileFloats;
+      if (it < ntiles) {
+        copy_tile<BN, DM, LD, T::kThreads, VEC>(st, k, b, h, it * BN, S, Dt);
+        copy_tile<BN, DM, LD, T::kThreads, VEC>(st + BN * LD, v, b, h, it * BN, S, Dt);
       }
     }
-    __syncthreads();
-    accumulate<T>(acc, sDS, sK, ty, tx);  // dQ += dS . K
-  }
+  };
 
+  float acc[ND][4];
+  zero(acc);
+  const int nsteps = (ntiles + G - 1) / G;  // ring stages of G tiles
 #pragma unroll
-  for (int i = 0; i < T::kRI; ++i)
-    store_row<T>(dq, b, q0 + ty + 16 * i, h, H, S, Dt, acc[i], scale, tx);
+  for (int i = 0; i < T::kStages - 1; ++i) {
+    if (i < nsteps) issue(i);
+    tf32::cp_async_commit();
+  }
+  for (int i = 0; i < nsteps; ++i) {
+    tf32::cp_async_wait<T::kStages - 2>();
+    __syncthreads();  // stage i has landed; stage i - 1 is free
+    if (i + T::kStages - 1 < nsteps) issue(i + T::kStages - 1);
+    tf32::cp_async_commit();
+    const int it = i * G + grp;  // the group's tile
+    if (it >= ntiles) continue;
+    const float* sK = ring + ((i % T::kStages) * G + grp) * T::kTileFloats;
+    const float* sV = sK + BN * LD;
+
+    // S = Q . K^T and dP = dO . V^T (with kSplitAcc hi.hi and the small
+    // products apart)
+    constexpr int NS = T::kSplitAcc ? NJ : 1;
+    float x[NJ][4], y[NJ][4], x2[NS][4], y2[NS][4];
+    zero(x);
+    zero(y);
+    zero(x2);
+    zero(y2);
+#pragma unroll kUnrollS
+    for (int ks = 0; ks < ND; ++ks) {
+      tf32::FragA a;
+      if constexpr (T::kRegs)
+        a = qf[ks];
+      else
+        tf32::load_a<LD>(a, sQ, r0, 8 * ks, g, t);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        tf32::FragB bk;
+        tf32::load_b_rows<LD>(bk, sK, 8 * j, 8 * ks, g, t);
+        if constexpr (T::kSplitAcc)
+          tf32::mma3(x[j], x2[j], a, bk);
+        else
+          tf32::mma3(x[j], a, bk);
+      }
+      if constexpr (T::kRegs)
+        a = df[ks];
+      else
+        tf32::load_a<LD>(a, sdO, r0, 8 * ks, g, t);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        tf32::FragB bv;
+        tf32::load_b_rows<LD>(bv, sV, 8 * j, 8 * ks, g, t);
+        if constexpr (T::kSplitAcc)
+          tf32::mma3(y[j], y2[j], a, bv);
+        else
+          tf32::mma3(y[j], a, bv);
+      }
+    }
+    if constexpr (T::kSplitAcc) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          x[j][e] += x2[j][e];
+          y[j][e] += y2[j][e];
+        }
+    }
+
+    // P = exp(S scale - lse), 0 where masked; dS / scale = P (dP - delta).
+    const int k0 = it * BN;
+    const bool edge = k0 + BN > S || (causal && k0 + BN - 1 > q0 + r0);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = hopper::exp2_ftz(fmaf(x[j][e], scale_log2, -lse2[e >> 1]));
+        if (edge) {
+          const int col = k0 + 8 * j + 2 * t + (e & 1);
+          const int row = q0 + r0 + g + 8 * (e >> 1);
+          if (col >= S || (causal && col > row)) p = 0.f;
+        }
+        y[j][e] = p * (y[j][e] - dlt[e >> 1]);
+      }
+
+    // dQ += dS . K, dS straight from the accumulators and the same K tile
+    // read by columns; with kTwoLevel the tile's product is summed apart
+    // and added in float32.
+    float part[T::kTwoLevel ? ND : 1][4];
+    zero(part);
+#pragma unroll
+    for (int kk = 0; kk < NJ; ++kk) {
+      tf32::FragA a;
+      tf32::acc_as_a(a, y[kk]);
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        tf32::FragB bk;
+        tf32::load_b_cols<LD>(bk, sK, 8 * kk, 8 * n, g, t);
+        if constexpr (T::kTwoLevel)
+          tf32::mma3(part[n], a, bk);
+        else
+          tf32::mma3(acc[n], a, bk);
+      }
+    }
+    if constexpr (T::kTwoLevel) {
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
+    }
+  }
+  tf32::cp_async_wait<0>();
+  __syncthreads();  // every group done: the ring is free for the merge
+
+  if constexpr (G == 2) {
+    // Group 1 hands its dQ to group 0, which adds and stores.
+    float* xch = ring + (warp % 4) * (ND * 4) * 32;
+    if (grp == 1) put_acc<ND>(xch, acc, lane);
+    __syncthreads();
+    if (grp == 1) return;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += xch[(4 * n + e) * 32 + lane];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    store_acc<ND>(dq, b, q0 + r0 + g + 8 * r, h, H, S, Dt, acc, r, scale, t);
 }
 
 // ---------------------------------------------------------------------------
@@ -843,12 +902,12 @@ Operand operand(const void* p, const long long* strides) {
 
 // The launch plan's (grid x, grid y, threads, dynamic shared-memory bytes,
 // copy bytes) must be what the instance's tile takes: grid y a multiple of
-// the tile's roles, and K1's and K3's copies 16 or 4 bytes.
+// the tile's roles, and the copies this library's route.
 bool check_launch(const int* launch, int threads, int smem, int roles) {
   return launch[0] >= 1 && launch[1] >= 1 && launch[1] % roles == 0 &&
          launch[2] == threads && launch[3] == smem;
 }
-bool check_copy(const int* launch) { return launch[4] == 16 || launch[4] == 4; }
+bool check_copy(const int* launch) { return launch[4] == FLASH_COPY; }
 
 template <typename K>
 cudaError_t prepare(K kernel, int smem) {
@@ -862,7 +921,7 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse,
   using T = FwdTile<DM>;
   if (!check_launch(launch, T::kThreads, T::kSmem, 1) || !check_copy(launch))
     return cudaErrorInvalidConfiguration;
-  auto kernel = launch[4] == 16 ? flash_fwd_f32_kernel<DM, true> : flash_fwd_f32_kernel<DM, false>;
+  auto kernel = flash_fwd_f32_kernel<DM, kVec>;
   cudaError_t err = prepare(kernel, T::kSmem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(launch[0], launch[1]), T::kThreads, T::kSmem, stream>>>(
@@ -876,11 +935,13 @@ cudaError_t dq(const void* q, const void* k, const void* v, const void* dout, co
                const void* lse, const void* dlse, void* delta, void* dqo, int S, int H,
                int Dt, const long long* st, const int* launch, float scale, int causal,
                cudaStream_t stream) {
-  using T = Tile<DM>;
-  if (!check_launch(launch, kThreads, T::kDqSmem, 1)) return cudaErrorInvalidConfiguration;
-  cudaError_t err = prepare(flash_dq_f32_kernel<DM>, T::kDqSmem);
+  using T = DqTile<DM>;
+  if (!check_launch(launch, T::kThreads, T::kSmem, 1) || !check_copy(launch))
+    return cudaErrorInvalidConfiguration;
+  auto kernel = flash_dq_f32_kernel<DM, kVec>;
+  cudaError_t err = prepare(kernel, T::kSmem);
   if (err != cudaSuccess) return err;
-  flash_dq_f32_kernel<DM><<<dim3(launch[0], launch[1]), kThreads, T::kDqSmem, stream>>>(
+  kernel<<<dim3(launch[0], launch[1]), T::kThreads, T::kSmem, stream>>>(
       operand(q, st), operand(k, st + 4), operand(v, st + 8), operand(dout, st + 12),
       operand(o, st + 16), (const float*)lse, (const float*)dlse, (float*)delta, (float*)dqo,
       H, S, Dt, scale, scale * kLog2e, causal);
@@ -895,7 +956,7 @@ cudaError_t dkv(const void* q, const void* k, const void* v, const void* dout,
   using T = DkvTile<DM>;
   if (!check_launch(launch, T::kThreads, T::kSmem, T::kRoles) || !check_copy(launch))
     return cudaErrorInvalidConfiguration;
-  auto kernel = launch[4] == 16 ? flash_dkv_f32_kernel<DM, true> : flash_dkv_f32_kernel<DM, false>;
+  auto kernel = flash_dkv_f32_kernel<DM, kVec>;
   cudaError_t err = prepare(kernel, T::kSmem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(launch[0], launch[1]), T::kThreads, T::kSmem, stream>>>(
@@ -919,11 +980,12 @@ int dispatch(int D, F f) {
 // C interface, bound with ctypes.  Every tensor is float32; D is the true
 // head dim, 1 <= D <= 256, and runs in the instance 16, 64, 128 or 256 (the
 // smallest at least D; a build holds the one that -DFLASH_D names,
-// flash_common.cuh).  `strides` holds four element strides (b, s, h, d)
-// per operand (q, k, v[, dout[, o]]) and `launch` is the launch plan's
-// (grid x, grid y, threads, dynamic shared-memory bytes, copy bytes)
-// (ops/flash_attention.launch_plan; K2 reads no copy bytes).  Each
-// returns the cudaError_t of the launch (0 on success).
+// flash_common.cuh, in the copy route that -DFLASH_COPY names).
+// `strides` holds four element strides (b, s, h, d) per operand (q, k,
+// v[, dout[, o]]) and `launch` is the launch plan's (grid x, grid y,
+// threads, dynamic shared-memory bytes, copy bytes)
+// (ops/flash_attention.launch_plan).  Each returns the cudaError_t of the
+// launch (0 on success).
 extern "C" {
 
 int bf_flash_fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse, int S,

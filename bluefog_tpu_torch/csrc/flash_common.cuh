@@ -3,8 +3,9 @@
 // head-dim instance a C call runs.
 //
 // A source builds one instance, -DFLASH_D=<instance>
-// (ops/flash_attention.load_library builds one library per instance, all
-// at once, so that the build takes the time of its slowest instance).
+// (ops/flash_attention.load_library builds one library per instance, and
+// of the float32 source per copy route, all at once, so that the build
+// takes the time of its slowest library).
 
 #pragma once
 

@@ -28,9 +28,12 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 # The flash-attention sources' head-dim instances (ops/flash_attention.
-# INSTANCES), a library each: -DFLASH_D=<instance>.
+# INSTANCES), a library each: -DFLASH_D=<instance>; the float32 source's
+# also one a copy route (its kernels' template flag), -DFLASH_COPY=<bytes>,
+# so that no nvcc compiles both routes and the longest one is half as long.
 FLASH_INSTANCES = {"flash_attention": (64, 128, 256),
                    "flash_attention_f32": (16, 64, 128, 256)}
+FLASH_ROUTES = {"flash_attention_f32": (16, 4)}
 
 
 def _nvcc() -> str:
@@ -80,13 +83,24 @@ def build(name: str, verbose: bool = False,
     return out, proc.stdout + proc.stderr
 
 
+def flash_libraries():
+    """``(source, instance, route)`` of every flash library: each instance
+    of ``FLASH_INSTANCES``, and of a source in ``FLASH_ROUTES`` each copy
+    route (route 0 where the source has none)."""
+    return [(name, d, r) for name, ds in FLASH_INSTANCES.items() for d in ds
+            for r in FLASH_ROUTES.get(name, (0,))]
+
+
 def build_flash(verbose: bool = False):
-    """``build`` of every library of ``FLASH_INSTANCES``, every ``nvcc`` at
-    once, so that the build takes the time of its slowest instance;
-    returns ``{(source, instance): (path, log)}``.  It needs no torch, so a
-    caller can start it before torch loads."""
-    keys = [(name, d) for name, ds in FLASH_INSTANCES.items() for d in ds]
+    """``build`` of every library of :func:`flash_libraries`, every
+    ``nvcc`` at once, so that the build takes the time of its slowest
+    library; returns ``{(source, instance, route): (path, log)}``.  It
+    needs no torch, so a caller can start it before torch loads."""
+    keys = flash_libraries()
+
+    def one(key):
+        name, d, route = key
+        return build(name, verbose, (f"FLASH_D={d}",)
+                     + ((f"FLASH_COPY={route}",) if route else ()))
     with ThreadPoolExecutor(len(keys)) as pool:
-        return dict(zip(keys, pool.map(
-            lambda key: build(key[0], verbose, (f"FLASH_D={key[1]}",)),
-            keys)))
+        return dict(zip(keys, pool.map(one, keys)))

@@ -16,13 +16,13 @@ any S, strided operands.
 bfloat16 runs in ``csrc/flash_attention.cu``: warp-specialised kernels,
 TMA loads through an mbarrier ring, every product a ``wgmma``, in three
 instances D = 64, 128 and 256.  float32 runs in
-``csrc/flash_attention_f32.cu``, instances D = 16, 64, 128 and 256: K1 and
-K3 on the tensor cores in 3xTF32 (``mma.sync`` TF32 products of each
-operand split into hi + lo, float32-accurate; whatever
+``csrc/flash_attention_f32.cu``, instances D = 16, 64, 128 and 256: K1-K3
+on the tensor cores in 3xTF32 (``mma.sync`` TF32 products of each operand
+split into hi + lo, float32-accurate; whatever
 ``torch.backends.cuda.matmul.allow_tf32`` says), their streamed tiles
 through a ring of ``cp.async`` copies, 16-byte where every operand allows
-(:func:`f32_copy_bytes`); K2 float32 FMA on the CUDA cores.  Each instance
-builds into a library of its own (:func:`load_library`).  A head dim runs in the smallest instance at least
+(:func:`f32_copy_bytes`).  Each instance builds into a library of its own,
+float32 one a copy route (:func:`load_library`).  A head dim runs in the smallest instance at least
 as wide (:func:`instance`); the columns past it are zeros the kernels never
 store.  float16 and D > 256 raise.
 
@@ -146,9 +146,11 @@ def flash_bwd_ref(q, k, v, o, lse, do, dlse, causal: bool = True):
 
 def load_library(verbose: bool = False, built=None):
     """Build (at first use) and load the kernels' libraries, one per dtype
-    and head-dim instance, every ``nvcc`` at once (``_nvcc.build_flash``,
-    whose result ``built`` is, where the caller started it); returns
-    ``({(dtype, instance): (K1, K2, K3) C functions}, compiler log)``."""
+    and head-dim instance (float32: and copy route), every ``nvcc`` at once
+    (``_nvcc.build_flash``, whose result ``built`` is, where the caller
+    started it); returns ``({(dtype, instance, route): (K1, K2, K3) C
+    functions}, compiler log)``, route the float32 copy bytes (16 or 4;
+    bf16: 0)."""
     global _LIBS
     if _LIBS is not None and not verbose and built is None:
         return _LIBS, ""
@@ -156,15 +158,16 @@ def load_library(verbose: bool = False, built=None):
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     plan = [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(I)]  # maps or strides, launch
     libs = {}
-    for dtype, (src, suffix) in _SOURCES.items():
-        for inst in INSTANCES[dtype]:
-            lib = ctypes.CDLL(str(built[src, inst][0]))
-            fns = [getattr(lib, f"bf_flash_{k}{suffix}")
-                   for k in ("fwd", "dq", "dkv")]
-            for fn, pointers in zip(fns, (5, 9, 8)):
-                fn.argtypes = [P] * pointers + [I] * 3 + plan + [F, I, P]
-                fn.restype = ctypes.c_int
-            libs[dtype, inst] = fns
+    srcs = {src: (dtype, suffix) for dtype, (src, suffix) in _SOURCES.items()}
+    for src, inst, route in _nvcc.flash_libraries():
+        dtype, suffix = srcs[src]
+        lib = ctypes.CDLL(str(built[src, inst, route][0]))
+        fns = [getattr(lib, f"bf_flash_{k}{suffix}")
+               for k in ("fwd", "dq", "dkv")]
+        for fn, pointers in zip(fns, (5, 9, 8)):
+            fn.argtypes = [P] * pointers + [I] * 3 + plan + [F, I, P]
+            fn.restype = ctypes.c_int
+        libs[dtype, inst, route] = fns
     _LIBS = libs
     return libs, "".join(log for _, log in built.values())
 
@@ -195,19 +198,18 @@ _ALIGN = 1024                 # swizzled tiles start 1024-byte aligned
 _SMEM_LIMIT = 232448          # dynamic shared memory a Hopper block may use
 _BOX_COLS = 64                # one TMA box row: 64 bf16 = the 128-byte swizzle
 # float32 tiles of csrc/flash_attention_f32.cu by (kernel, instance), every
-# block 64 rows.  K1 (FwdTile) and K3 (DkvTile) on the tensor cores: one or
-# two groups of 4 warps (128 threads a group) take turns over the streamed
-# tiles, a ring of `stages` stages of a tile a group, a row stride of
-# instance + 4 floats; K3 at 256 one block a role (dV, dK: grid y
-# doubled).  K2 (Tile): 256 SIMT threads, streamed tiles through one stage,
-# a row stride of instance + 1.
+# block 64 rows, all three on the tensor cores (FwdTile, DqTile, DkvTile):
+# one or two groups of 4 warps (128 threads a group) take turns over the
+# streamed tiles, a ring of `stages` stages of a tile a group, a row
+# stride of instance + 4 floats; K3 at 256 one block a role (dV, dK: grid
+# y doubled).  K2 keeps q, dO and the 64 rows' delta beside the ring.
 _F32_BLOCK = 64
 _F32_TILES = {
     # (kernel, instance): (threads, streamed rows, stages, roles)
     ("fwd", 16): (128, 64, 4, 1), ("fwd", 64): (128, 64, 2, 1),
     ("fwd", 128): (256, 32, 2, 1), ("fwd", 256): (256, 16, 2, 1),
-    ("dq", 16): (256, 64, 1, 1), ("dq", 64): (256, 64, 1, 1),
-    ("dq", 128): (256, 64, 1, 1), ("dq", 256): (256, 32, 1, 1),
+    ("dq", 16): (128, 64, 4, 1), ("dq", 64): (256, 64, 2, 1),
+    ("dq", 128): (256, 32, 2, 1), ("dq", 256): (128, 16, 2, 1),
     ("dkv", 16): (128, 64, 4, 1), ("dkv", 64): (256, 64, 2, 1),
     ("dkv", 128): (256, 16, 2, 1), ("dkv", 256): (128, 16, 2, 2),
 }
@@ -231,8 +233,8 @@ class LaunchPlan:
     one launch of the head-dim ``instance``; ``inner_tiles`` counts the
     streamed tiles over one (b, h) (each role's, at a role-split tile), and
     ``maps`` the bf16 operands' tensor maps in C-interface order (float32
-    reads through strides: none); ``copy_bytes`` is the float32 K1's and
-    K3's copy by the strides (:func:`f32_copy_bytes`; bf16: 0)."""
+    reads through strides: none); ``copy_bytes`` is the float32 kernels'
+    copy by the strides (:func:`f32_copy_bytes`; bf16: 0)."""
     grid: Tuple[int, int]
     threads: int
     smem: int
@@ -282,7 +284,7 @@ def _inner_tiles(kernel, S, block, step, causal) -> int:
 
 
 def f32_copy_bytes(strides, data_ptrs=()) -> int:
-    """The float32 K1's and K3's copy of the streamed tiles: 16-byte
+    """The float32 kernels' copy of their tiles: 16-byte
     ``cp.async`` when every operand has unit stride along D, element strides
     that are multiples of 4 (16-byte rows) and a 16-byte aligned base, else
     4-byte copies.  Never a copy of an operand."""
@@ -295,15 +297,13 @@ def f32_copy_bytes(strides, data_ptrs=()) -> int:
 def _f32_plan(kernel, shape, strides, inst, causal) -> LaunchPlan:
     B, S, H, _ = shape
     threads, step, stages, roles = _F32_TILES[kernel, inst]
-    if kernel == "dq":
-        ld = inst + 1                      # the SIMT tiles' odd row stride
-        floats = (2 * _F32_BLOCK * ld + 2 * step * ld
-                  + _F32_BLOCK * (step + 1))
-    else:
-        ld = inst + 4
-        tile = 2 * step * ld + (2 * step if kernel == "dkv" else 0)
-        resident = (2 if kernel == "dkv" else 1) * _F32_BLOCK * ld
-        floats = resident + stages * (threads // 128) * tile
+    ld = inst + 4
+    # A stage's tile a group (K and V; K3: q and dO with lse and delta) and
+    # the resident tiles (K1: q; K2: q, dO and delta; K3: k and v).
+    tile = 2 * step * ld + (2 * step if kernel == "dkv" else 0)
+    resident = {"fwd": _F32_BLOCK * ld, "dq": 2 * _F32_BLOCK * ld + _F32_BLOCK,
+                "dkv": 2 * _F32_BLOCK * ld}[kernel]
+    floats = resident + stages * (threads // 128) * tile
     return LaunchPlan(grid=(B * H, roles * _ceil(S, _F32_BLOCK)),
                       threads=threads, smem=4 * floats,
                       inner_tiles=roles * _inner_tiles(kernel, S, _F32_BLOCK,
@@ -419,7 +419,8 @@ def _launch(fn, kernel: str, ops: Dict[str, torch.Tensor], inst: int,
                    bool(causal), q.dtype,
                    all(t.data_ptr() % 16 == 0 for t in ops.values()))
     libs, _ = load_library()
-    c_fn = libs[q.dtype, inst][("fwd", "dq", "dkv").index(kernel)]
+    route = plan[1][4] if q.dtype == torch.float32 else 0
+    c_fn = libs[q.dtype, inst, route][("fwd", "dq", "dkv").index(kernel)]
     rc = c_fn(*(t.data_ptr() for t in ops.values()), *tail, S, H, D, *plan,
               1.0 / math.sqrt(D), int(causal),
               torch.cuda.current_stream(q.device).cuda_stream)

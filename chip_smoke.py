@@ -9,8 +9,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 2. ``build``    — builds the flash-attention kernels from ``csrc/`` with
    ``nvcc``, the bf16 and the float32 source at once (``-Xptxas -v``:
    registers, shared memory, spills) and requires every instance of K1,
-   K2 and K3 (bf16 D = 64, 128, 256; float32 D = 16, 64, 128, 256, K1 and
-   K3 in both copy routes) to spill no register, and the bf16 ones to
+   K2 and K3 (bf16 D = 64, 128, 256; float32 D = 16, 64, 128, 256, each in
+   both copy routes) to spill no register, and the bf16 ones to
    keep their wgmma products asynchronous (ptxas reports no
    serialization).
 3. ``kernel``   — each of K1 (forward), K2 (dq) and K3 (dk/dv) against its
@@ -51,11 +51,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    padded-copy route, its copies counted) and at D=136 (a 64-column box
    wholly past D); timed at the heads of Phi-2 (32 of 80), Phi-3-mini (32
    of 96) and Gemma-2B (8 of 256), B=2, S=2048, causal, fused; float32
-   (TF32 off for the twins; K1 and K3 run 3xTF32 whatever it says) timed
+   (TF32 off for the twins; K1-K3 run 3xTF32 whatever it says) timed
    at the long-context model's ring hops (8 shards of 512 tokens, D=16)
    and its Ulysses gather (4,096 tokens, one head a shard), checked at the
-   graft entry's D=8, at D=6 on one head of a fused QKV (72-byte rows: K1
-   and K3 take the 4-byte copies, ``copy_bytes``) and at ``tp_example``'s
+   graft entry's D=8, at D=6 on one head of a fused QKV (72-byte rows:
+   K1-K3 take the 4-byte copies, ``copy_bytes``) and at ``tp_example``'s
    head shards (``tensor_parallel_training``'s defaults: tp x its batch
    share = 16 rows, S=64, 2 heads of 16, fused QKV), timed at D=64, 128
    and 256 (B=1, S=1024); float32 held to ``F32_FWD_TOL`` (o and lse, max
@@ -773,14 +773,15 @@ def bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
 def ptxas_report(log):
     """Per kernel and instance (``flash_fwd/D128``, ``flash_fwd_f32/D16``
     ...): registers, static shared memory and spill bytes from the
-    ``-Xptxas -v`` log."""
+    ``-Xptxas -v`` log, and ``builds``, the entries the instance built
+    (the float32 kernels: one a copy route)."""
     out, cur = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function .*?(flash_(?:fwd|dq|dkv)(?:_f32)?)"
                       r"_kernelILi(\d+)E", ln)
         if m:
-            # The float32 K1 and K3 build twice an instance (the 16-byte
-            # and 4-byte copies): the entry holds the larger of each number.
+            # The float32 K1-K3 build twice an instance (the 16-byte and
+            # 4-byte copies): the entry holds the larger of each number.
             cur = {}
             out.setdefault(f"{m.group(1)}/D{m.group(2)}", []).append(cur)
             continue
@@ -791,8 +792,9 @@ def ptxas_report(log):
         if m and cur is not None:
             cur["registers"] = int(m.group(1))
             cur["static_smem_bytes"] = int(m.group(2) or 0)
-    return {key: {f: max(v.get(f, -1) for v in vs)
-                  for f in sorted({f for v in vs for f in v})}
+    return {key: {**{f: max(v.get(f, -1) for v in vs)
+                     for f in sorted({f for v in vs for f in v})},
+                  "builds": len(vs)}
             for key, vs in out.items()}
 
 
@@ -990,8 +992,8 @@ def check_kernels(B, S, H, D, causal, seed, timed, repeat=False,
             kernel, (B, S, H, D), strides, causal, dtype).smem
         res[name]["instance"] = f"{'f32' if f32 else 'bf16'}/D{inst}"
         res[name]["operand_copies"] = fns[name].copies - copies[name]
-        if f32 and name != "K2":
-            # The float32 K1's and K3's copy route (16- or 4-byte cp.async).
+        if f32:
+            # The float32 kernels' copy route (16- or 4-byte cp.async).
             res[name]["copy_bytes"] = FA.f32_copy_bytes(
                 [t.stride() for t in ts], [t.data_ptr() for t in ts])
     lse_err = float((lse_k.transpose(1, 2) - lse_r).abs().max())
@@ -6229,7 +6231,7 @@ def kernel_phase(ptxas):
              False),
             ("graft-d8", 16, 16, 4, 8, True, False, "gqa", 2, False),
             # One head of a fused QKV at D = 6: 72-byte rows, the k slice
-            # 24 bytes in, so K1 and K3 take the 4-byte copies.
+            # 24 bytes in, so K1-K3 take the 4-byte copies.
             ("f32-d6-copy4", 2, 300, 1, 6, True, False, "fused", None,
              False),
             ("tp-example", tp_args.tp * (tp_args.batch // tp_dp),
@@ -6258,8 +6260,8 @@ def kernel_phase(ptxas):
                 require(all(r["operand_copies"] > 0 for r in res.values()),
                         f"D=36 took the padded-copy route: {res}")
             if case == "f32-d6-copy4":
-                require(res["K1"]["copy_bytes"] == res["K3"]["copy_bytes"]
-                        == 4, f"D=6 took the 4-byte copies: {res}")
+                require(all(r["copy_bytes"] == 4 for r in res.values()),
+                        f"D=6 took the 4-byte copies: {res}")
             inst = FA.instance(dtype, D)
             tol = ({"fwd_tol": F32_FWD_TOL, "grad_tol": F32_GRAD_TOL} if f32
                    else {"rel_tol": REL_TOL, "elem_tol": ELEM_TOL})
@@ -6283,7 +6285,7 @@ def main():
 
     from bluefog_tpu_torch.ops import _nvcc
 
-    # The kernels build (every instance's nvcc at once) while torch and the
+    # The kernels build (every library's nvcc at once) while torch and the
     # port load and the card starts up.
     t_build = time.perf_counter()
     kernel_builds = ThreadPoolExecutor(1)
@@ -6315,7 +6317,7 @@ def main():
     # binding, the round compiler, csrc/hostfn.cu; the worker processes
     # later load what this one built), and long_context_example's CPU
     # reference runs in a process, both beside the next phases (beside
-    # the kernels' seven nvcc they slowed the build).
+    # the kernels' eleven nvcc they slowed the build).
     host_builds = ThreadPoolExecutor(1)
     native_built = host_builds.submit(build_native)
     lc_cpu = start_long_context_cpu()
@@ -6331,6 +6333,9 @@ def main():
                 info = ptxas.get(f"{fn}{suffix}/D{d}", {})
                 require(info.get("spill_bytes") == 0,
                         f"{fn}{suffix} (D={d}) spills registers: {info}")
+                require(info["builds"] == (2 if suffix else 1),
+                        f"{fn}{suffix} (D={d}) built once a copy route: "
+                        f"{info}")
     require(not serialized, f"ptxas serialized wgmma: {serialized}")
 
     inst_res = kernel_phase(ptxas)

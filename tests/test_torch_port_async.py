@@ -52,6 +52,7 @@ from bluefog_tpu import topology as jtopo
 from bluefog_tpu.ops import transport as JT
 from bluefog_tpu.ops import window as JW
 from bluefog_tpu.utils import config as jconfig
+from bluefog_tpu.utils import linkobs as jlinkobs
 from bluefog_tpu_torch import native as tnative
 from bluefog_tpu_torch import topology as ttopo
 from bluefog_tpu_torch.models import convert
@@ -59,6 +60,7 @@ from bluefog_tpu_torch.ops import transport as TT
 from bluefog_tpu_torch.ops import window as TW
 from bluefog_tpu_torch.optim import window_optimizers as TWO
 from bluefog_tpu_torch.utils import config as tconfig
+from bluefog_tpu_torch.utils import linkobs as tlinkobs
 
 ROOT = Path(__file__).resolve().parents[1]
 N = 8
@@ -102,6 +104,7 @@ class Side:
         self.name = name
         jax = name == "jax"
         self.bf, self.W, self.T = (jbf, JW, JT) if jax else (tbf, TW, TT)
+        self.linkobs = jlinkobs if jax else tlinkobs
         self.devices = devices
 
     def window(self, n=N, dim=5, graph="RingGraph", owner=None):
@@ -124,6 +127,12 @@ class Side:
 
     def close(self):
         self.W._store.distrib = self.saved
+        # The fake transport's series go with it, as _shutdown_transport
+        # retires a real one's: the per-edge contribution ages and the
+        # link observatory's edges, which later tests in this process
+        # would otherwise read (bfstat's health lines).
+        self.W.clear_contribution_age()
+        self.linkobs.clear_all()
         self.bf.win_free("async_w")
         self.W.turn_off_win_ops_with_associated_p()
         if self.name == "port":

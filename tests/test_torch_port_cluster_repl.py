@@ -482,12 +482,34 @@ def _before_telemetry(text):
                        if ln.startswith("[bfstat]   "))]
 
 
+def _quiet_health(pkg):
+    """Put right, in package ``pkg``, the process-global state that
+    bfstat's health lines read and that an earlier test in this process
+    may have left behind without a transport shutdown to retire it (the
+    JAX package's ``test_tracing.py`` leaves link-observatory edges,
+    ``test_async_gossip.py`` the async mode armed): the telemetry series
+    (per-edge contribution ages among them), the link observatory, the
+    async mode, the straggler report and the metrics endpoint."""
+    import importlib
+    mod = lambda name: importlib.import_module(f"{pkg}.{name}")  # noqa: E731
+    mod("utils.telemetry").stop_http_server()
+    mod("utils.telemetry").reset()
+    mod("utils.linkobs").reset()
+    mod("utils.profiler")._reset_for_tests()
+    mod("ops.window").configure_async(False)
+
+
 def test_bfstat_text_equals_jax():
     """8 ranks, Exp2 and a window ``w`` in each package: the identity,
     topology and health lines are the JAX package's (``proc 0/1`` from
-    ``process_ranks()`` in one process, as ``jax.process_index()``)."""
+    ``process_ranks()`` in one process, as ``jax.process_index()``).
+    Both packages' observability state is put right first
+    (``_quiet_health``): the two run side by side in one process, so what
+    an earlier test left in either would show as a difference."""
     import bluefog_tpu_torch as tbf
     assert TCR.bfstat_text() == "[bfstat] bluefog_tpu_torch not initialized"
+    for pkg in ("bluefog_tpu", "bluefog_tpu_torch"):
+        _quiet_health(pkg)
     jbf.init()
     tbf.init(8, device="cpu")
     try:
@@ -692,17 +714,22 @@ def test_remote_worker_gets_the_token_over_rsh_stdin(tmp_path):
     """A worker on another "host" (127.0.0.2) launched over ``--rsh``: its
     token arrives on the rsh client's stdin, never on a command line, the
     handshake admits it, a cell runs on both processes, and the gang ends
-    with no pidfile left."""
+    with no pidfile left.  The pidfile check reads this gang's own tag
+    (``BFTPU_GANG_TAG`` in the remote worker's environment, and its
+    pidfile there while the cell runs): other gangs, launched beside this
+    one by other test processes, come and go in the same directory."""
     import glob
     rsh = tmp_path / "fakersh.sh"
     rsh.write_text(_FAKERSH)
-    before = set(glob.glob("/tmp/ibfrun-gang-*.pid"))
     out = subprocess.run(
         [sys.executable, "-m", "bluefog_tpu_torch.run.interactive", "-np",
          "2", "--hosts", "127.0.0.1:1,127.0.0.2:1", "--rsh", f"sh {rsh}",
          "--device", "cpu"],
-        input="import torch\nprint('SUM', bf.rank(), float(bf.allreduce("
-              "torch.ones(1, 1), average=False)[0, 0]))\n",
+        input="import os, torch\nprint('SUM', bf.rank(), float(bf.allreduce("
+              "torch.ones(1, 1), average=False)[0, 0]))\n"
+              "tag = os.environ.get('BFTPU_GANG_TAG', '')\n"
+              "print('TAG', bf.rank(), tag, os.path.exists(f'/tmp/{tag}.'"
+              "f'{bf.rank()}.pid'))\n",
         capture_output=True, text=True, timeout=120, cwd=REPO,
         env=_gang_env())
     assert out.returncode == 0, out.stderr[-3000:]
@@ -710,4 +737,10 @@ def test_remote_worker_gets_the_token_over_rsh_stdin(tmp_path):
         out.stdout
     assert "rejected" not in out.stderr and "UNAUTHENTICATED" not in \
         out.stderr, out.stderr[-3000:]
-    assert set(glob.glob("/tmp/ibfrun-gang-*.pid")) <= before
+    # The ranks' lines share one stdout: find the remote rank's anywhere.
+    seen = re.findall(r"TAG 1 (ibfrun-gang-[0-9a-f]{12}) (True|False)",
+                      out.stdout)
+    assert len(seen) == 1, out.stdout
+    (tag, alive), = seen
+    assert alive == "True", out.stdout       # the remote rank's pidfile
+    assert not glob.glob(f"/tmp/{tag}.*.pid")

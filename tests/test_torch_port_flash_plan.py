@@ -105,7 +105,9 @@ def test_grid_and_tile_counts(kernel, S, causal):
 @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
 def test_shared_memory_fits_a_block(kernel, D):
     """Room for the resident tiles and two stages of the streamed ones,
-    each instance's tiles within a Hopper block's shared memory."""
+    each instance's tiles within a Hopper block's shared memory; the
+    float32 kernel's tiles at the same instance too (K2's q, dO and
+    delta beside its K/V ring)."""
     plan, _ = _plan(kernel, 2, 2048, 16, D)
     assert plan.instance == D
     resident = RESIDENT[kernel]
@@ -113,6 +115,8 @@ def test_shared_memory_fits_a_block(kernel, D):
     need = sum(b if n in resident else 2 * b for n, b in rows_bytes.items())
     assert plan.smem % 1024 == 0
     assert need <= plan.smem <= SMEM_LIMIT
+    f32, _ = _plan(kernel, 2, 2048, 16, D, dtype=torch.float32)
+    assert f32.instance == D and f32.smem <= SMEM_LIMIT
 
 
 def test_main_shape_plan():
@@ -200,15 +204,15 @@ def test_copy_route_for_strides_a_map_cannot_describe(D, H):
     assert plan.maps["k"].strides == (2 * H * inst, 2 * inst, 2 * S * H * inst)
 
 
-# The float32 tiles of csrc/flash_attention_f32.cu: K1 (FwdTile) and K3
-# (DkvTile) on the tensor cores, one or two groups of 4 warps taking turns
-# over the streamed tiles, K3 at instance 256 one block a role (dV, dK); K2
-# (Tile) 256 SIMT threads.  (threads, streamed rows, stages, roles) by
-# (kernel, instance).
+# The float32 tiles of csrc/flash_attention_f32.cu: K1 (FwdTile), K2
+# (DqTile) and K3 (DkvTile) on the tensor cores, one or two groups of 4
+# warps taking turns over the streamed tiles, K3 at instance 256 one block
+# a role (dV, dK).  (threads, streamed rows, stages, roles) by (kernel,
+# instance).
 F32_TILES = {("fwd", 16): (128, 64, 4, 1), ("fwd", 64): (128, 64, 2, 1),
              ("fwd", 128): (256, 32, 2, 1), ("fwd", 256): (256, 16, 2, 1),
-             ("dq", 16): (256, 64, 1, 1), ("dq", 64): (256, 64, 1, 1),
-             ("dq", 128): (256, 64, 1, 1), ("dq", 256): (256, 32, 1, 1),
+             ("dq", 16): (128, 64, 4, 1), ("dq", 64): (256, 64, 2, 1),
+             ("dq", 128): (256, 32, 2, 1), ("dq", 256): (128, 16, 2, 1),
              ("dkv", 16): (128, 64, 4, 1), ("dkv", 64): (256, 64, 2, 1),
              ("dkv", 128): (256, 16, 2, 1), ("dkv", 256): (128, 16, 2, 2)}
 
@@ -217,15 +221,13 @@ F32_TILES = {("fwd", 16): (128, 64, 4, 1), ("fwd", 64): (128, 64, 2, 1),
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
 def test_float32_plan(kernel, causal, D):
-    """The float32 kernels over 64-row blocks.  K1 and K3: one or two
-    groups of 4 warps, a ring of 2-4 stages, each a streamed tile a group
-    (K1: K and V; K3: q and dO with their lse and delta), beside the
-    resident tiles (K1: q; K3: k and v), every tile instance + 4 floats a
-    row; K3 at instance 256 doubles grid y, a block a role, each streaming
-    its own tiles.  K2 as before: 256 threads,
-    64-row streamed tiles (32 at instance 256), instance + 1 floats a row.
-    All within a block's shared memory; no tensor maps (they read through
-    the strides)."""
+    """The float32 kernels over 64-row blocks: one or two groups of 4
+    warps, a ring of 2-4 stages, each a streamed tile a group (K1 and K2: K
+    and V; K3: q and dO with their lse and delta), beside the resident
+    tiles (K1: q; K2: q, dO and the rows' delta; K3: k and v), every tile
+    instance + 4 floats a row; K3 at instance 256 doubles grid y, a block a
+    role, each streaming its own tiles.  All within a block's shared
+    memory; no tensor maps (they read through the strides)."""
     S = 777
     plan, _ = _plan(kernel, 2, S, 3, D, causal=causal, dtype=torch.float32)
     inst = FA.instance(torch.float32, D)
@@ -233,14 +235,11 @@ def test_float32_plan(kernel, causal, D):
     assert plan.maps == {} and plan.instance == inst
     assert plan.grid == (6, roles * math.ceil(S / 64))
     assert plan.threads == threads
-    if kernel == "dq":
-        operand, score = 4 * (inst + 1), 4 * (step + 1)
-        need = 2 * 64 * operand + 2 * step * operand + 64 * score
-    else:
-        row = 4 * (inst + 4)
-        resident = (2 if kernel == "dkv" else 1) * 64 * row
-        stage = 2 * step * row + (2 * 4 * step if kernel == "dkv" else 0)
-        need = resident + stages * (threads // 128) * stage
+    row = 4 * (inst + 4)
+    resident = {"fwd": 64 * row, "dq": 2 * 64 * row + 4 * 64,
+                "dkv": 2 * 64 * row}[kernel]
+    stage = 2 * step * row + (2 * 4 * step if kernel == "dkv" else 0)
+    need = resident + stages * (threads // 128) * stage
     assert plan.smem == need <= SMEM_LIMIT
     assert plan.inner_tiles == roles * _tiles_with_work(
         S, 64, step, causal, block_is_keys=kernel == "dkv")
@@ -250,7 +249,7 @@ def test_float32_plan(kernel, causal, D):
 @pytest.mark.parametrize("case", ["contiguous", "fused", "fused-d6",
                                   "odd-rows", "unaligned-base", "d-stride"])
 def test_float32_copy_route(case):
-    """The float32 K1 and K3 copy their streamed tiles with 16-byte
+    """The float32 K1-K3 copy their tiles with 16-byte
     cp.async when every operand has unit stride along D, element strides
     that are multiples of 4 and a 16-byte aligned base; else with 4-byte
     copies, never a copy of the operand.  The plan decides by the strides,
@@ -278,11 +277,53 @@ def test_float32_copy_route(case):
     assert by_strides == (16 if case == "unaligned-base" else want)
     aligned = all(t.data_ptr() % 16 == 0 for t in ts)
     do = (S * H * D, H * D, D, 1)
-    for kernel, names in (("fwd", "qkv"), ("dkv", ("q", "k", "v", "do"))):
-        st = tuple(zip(names, strides + [do]))
+    for kernel, names in (("fwd", "qkv"), ("dq", ("q", "k", "v", "do", "o")),
+                          ("dkv", ("q", "k", "v", "do"))):
+        st = tuple(zip(names, strides + [do, do]))
         plan = FA.launch_plan(kernel, (B, S, H, D), dict(st), True,
                               torch.float32)
         assert plan.copy_bytes == by_strides
         _, launch = FA._c_plan(kernel, (B, S, H, D), st, True, torch.float32,
                                aligned)
         assert list(launch) == [*plan.grid, plan.threads, plan.smem, want]
+
+
+@pytest.mark.parametrize("route", [16, 4])
+@pytest.mark.parametrize("inst", [16, 64, 128, 256])
+def test_float32_dq_tiles(inst, route):
+    """K2 (DqTile) at every instance, in both copy routes (contiguous
+    operands: 16-byte copies; one head of a fused QKV at an odd width:
+    4-byte): two groups of 4 warps at instances 64 and 128, one at 16 (its
+    grids hold many blocks) and at 256 (q and dO take 133,120 bytes, and
+    two groups' 16-key tiles in two stages would take as much again);
+    64/64/32/16 streamed keys, 4 stages at 16 and 2 above; the same
+    shared memory in both routes, within a block's, the ring room for O's
+    tile before it starts and for the groups' dQ merge at the end; the
+    route in the plan and in the C launch."""
+    B, S, H = 2, 300, 1
+    D = {16: 15, 64: 63, 128: 127, 256: 255}[inst] if route == 4 else inst
+    if route == 4:
+        qkv = torch.zeros(B, S, H, 3, D)
+        ts = [qkv[..., i, :] for i in range(3)]
+    else:
+        ts = [torch.zeros(B, S, H, D) for _ in range(3)]
+    ts += [torch.zeros(B, S, H, D) for _ in range(2)]          # dO, O
+    st = tuple(zip(("q", "k", "v", "do", "o"), (t.stride() for t in ts)))
+    plan = FA.launch_plan("dq", (B, S, H, D), dict(st), True, torch.float32)
+    threads, step, stages, roles = F32_TILES["dq", inst]
+    groups = threads // 128
+    assert (groups, step, stages, roles) == {
+        16: (1, 64, 4, 1), 64: (2, 64, 2, 1), 128: (2, 32, 2, 1),
+        256: (1, 16, 2, 1)}[inst]
+    row = 4 * (inst + 4)
+    ring = stages * groups * 2 * step * row
+    assert plan.smem == 2 * 64 * row + 4 * 64 + ring <= SMEM_LIMIT
+    assert ring >= 64 * row                    # O's tile, before the ring
+    assert ring >= 4 * (inst // 8) * 4 * 32 * 4        # the groups' merge
+    assert plan.instance == inst and plan.threads == threads
+    assert plan.grid == (B * H, math.ceil(S / 64))
+    assert plan.inner_tiles == _tiles_with_work(S, 64, step, True,
+                                                block_is_keys=False)
+    assert plan.copy_bytes == route
+    _, launch = FA._c_plan("dq", (B, S, H, D), st, True, torch.float32, True)
+    assert list(launch) == [*plan.grid, threads, plan.smem, route]

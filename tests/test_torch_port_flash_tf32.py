@@ -1,18 +1,19 @@
-"""The arithmetic of the float32 K1 and K3 (``csrc/flash_attention_f32.cu``)
-on the CPU, against the JAX package's Pallas kernels in interpret mode.
+"""The arithmetic of the float32 K1-K3 (``csrc/flash_attention_f32.cu``) on
+the CPU, against the JAX package's Pallas kernels in interpret mode.
 
 The kernels run every product on the tensor cores in 3xTF32: each float32
 operand splits into hi = tf32(x) and lo = tf32(x - hi), rounded to nearest
 with ties away from zero (``cvt.rna``'s rounding, ``mma_tf32.cuh``
 ``round_tf32``), and lo.hi + hi.lo + hi.hi sum in float32.  Here a numpy
-emulation of that split computes K1's forward and K3's dk and dv blockwise
-in the kernels' order: 64-row blocks, the instance's streamed tiles, the
-online softmax in log2 units, a tile's products added in float32.  It is
-held to the JAX kernels at the tolerances the kernels are held to on the
-card (o and lse 2e-5 max abs, dk and dv 1e-4 relative); one TF32 product
-alone misses them at D = 256.  The fragment order in which a score
-accumulator feeds the next product without a shuffle is checked lane by
-lane."""
+emulation of that split computes K1's forward, K2's dq and delta and K3's
+dk and dv blockwise in the kernels' order: 64-row blocks, the instance's
+streamed tiles (K2's taken in turns by its warp groups), the online
+softmax in log2 units, a tile's products added in float32.  It is held to
+the JAX kernels at the tolerances the kernels are held to on the card (o
+and lse 2e-5 max abs, dq, delta, dk and dv 1e-4 relative); one TF32
+product alone misses them at D = 256.  The fragment order in which a
+score accumulator feeds the next product without a shuffle is checked
+lane by lane."""
 
 import functools
 import math
@@ -27,12 +28,14 @@ from bluefog_tpu.ops import flash_attention as JF
 B, S, H = 1, 80, 2            # S = 80: a ragged last 64-row block and tile
 BLOCK = 64                    # rows a block (FwdTile, DkvTile kBlock)
 INSTANCES = (16, 64, 128, 256)
-# Streamed rows a tile by instance (FwdTile, DkvTile kStream).
+# Streamed rows a tile by instance (FwdTile, DqTile, DkvTile kStream).
 FWD_STREAM = {16: 64, 64: 64, 128: 32, 256: 16}
+DQ_STREAM = {16: 64, 64: 64, 128: 32, 256: 16}
 DKV_STREAM = {16: 64, 64: 64, 128: 16, 256: 16}
+DQ_GROUPS = {16: 1, 64: 2, 128: 2, 256: 1}    # DqTile kGroups
 LOG2E = 1.4426950408889634
 FWD_TOL = 2e-5                # o and lse: max |err|
-GRAD_TOL = 1e-4               # dk, dv: ||err|| / ||ref||
+GRAD_TOL = 1e-4               # dq, delta, dk, dv: ||err|| / ||ref||
 
 
 def round_tf32(x):
@@ -93,6 +96,41 @@ def fwd_emulated(q, k, v, causal, mm=mm3):
         o[rows] = acc / li[:, None]
         lse[rows] = (m + np.log2(li)) * np.float32(math.log(2.0))
     return o, lse
+
+
+def dq_emulated(q, k, v, do, o, lse, dlse, causal, mm=mm3):
+    """K2 on (S, D) slabs: dq and delta.  Per 64-row block: delta =
+    rowsum(dO o) - dlse, each row summed in parts by the block's lanes;
+    key tiles up to the causal frontier, tile i to warp group i mod G, each
+    group's dQ += dS.K a tile at a time; the groups' dQ added at the end."""
+    D = q.shape[1]
+    inst = instance(D)
+    step, G = DQ_STREAM[inst], DQ_GROUPS[inst]
+    lanes = 128 * G // BLOCK                      # lanes summing a row
+    scale = np.float32(1.0 / math.sqrt(D))
+    scale_log2 = np.float32(LOG2E / math.sqrt(D))
+    dq = np.zeros_like(q)
+    delta = np.zeros(S, np.float32)
+    for q0 in range(0, S, BLOCK):
+        rows = np.arange(q0, min(S, q0 + BLOCK))
+        prod = np.zeros((len(rows), inst), np.float32)
+        prod[:, :D] = do[rows] * o[rows]
+        dl = prod.reshape(len(rows), -1, lanes).sum(1, dtype=np.float32)
+        dl = dl.sum(1, dtype=np.float32) - dlse[rows]
+        delta[rows] = dl
+        acc = np.zeros((G, len(rows), D), np.float32)
+        kend = min(S, q0 + BLOCK) if causal else S
+        for i, k0 in enumerate(range(0, kend, step)):
+            cols = np.arange(k0, min(S, k0 + step))
+            s = mm(q[rows], k[cols].T)
+            p = np.exp2(s * scale_log2 - lse[rows][:, None] * np.float32(LOG2E))
+            if causal:
+                p = np.where(cols[None] > rows[:, None], 0, p)
+            dp = mm(do[rows], v[cols].T)
+            ds = (p * (dp - dl[:, None])).astype(np.float32)
+            acc[i % G] = acc[i % G] + mm(ds, k[cols])
+        dq[rows] = acc.sum(0, dtype=np.float32) * scale
+    return dq, delta
 
 
 def dkv_emulated(q, k, v, do, lse, delta, causal, mm=mm3):
@@ -178,6 +216,40 @@ def test_k3_3xtf32_matches_jax(D, causal):
                 assert rel <= GRAD_TOL, rel
 
 
+def _rel(got, ref):
+    return np.linalg.norm(got - ref) / np.linalg.norm(ref)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [16, 64, 128, 256])
+def test_k2_3xtf32_matches_jax(D, causal):
+    """dq from the forward's o and lse and the cotangents (dO, dlse), in
+    each instance's tiles and warp groups; delta from the same o, against
+    the JAX backward's own sum."""
+    q, k, v, do, dlse = _inputs(D, seed=100 + D)
+    o_j, lse_j, dq_j = _jax(D, causal)[:3]
+    delta_j = np.asarray(jnp.sum(jnp.asarray(do) * jnp.asarray(o_j), -1)
+                         - jnp.asarray(dlse))                  # (B, S, H)
+    for b in range(B):
+        for h in range(H):
+            dq, delta = dq_emulated(*(_slab(x, b, h) for x in (q, k, v, do,
+                                                               o_j)),
+                                    lse_j[b, :, h], dlse[b, :, h], causal)
+            assert _rel(dq, dq_j[b, :, h]) <= GRAD_TOL
+            assert _rel(delta, delta_j[b, :, h]) <= GRAD_TOL
+
+
+def test_one_tf32_product_misses_the_dq_tolerance_at_d256():
+    """K2's three products each in one TF32 product: dq at D = 256 is off
+    by more than the float32 tolerance."""
+    D = 256
+    q, k, v, do, dlse = _inputs(D, seed=100 + D)
+    o_j, lse_j, dq_j = _jax(D, True)[:3]
+    dq, _ = dq_emulated(*(_slab(x, 0, 0) for x in (q, k, v, do, o_j)),
+                        lse_j[0, :, 0], dlse[0, :, 0], True, mm=mm1)
+    assert _rel(dq, dq_j[0, :, 0]) > 3 * GRAD_TOL         # ~6e-4
+
+
 def test_one_tf32_product_misses_the_tolerance_at_d256():
     """Why three products: with one TF32 rounding of each operand the
     forward at D = 256 is off by more than the float32 tolerance."""
@@ -218,14 +290,16 @@ def _mma(a_frag, b_frag):
     return A @ Bm
 
 
-@pytest.mark.parametrize("n0", [0, 8])
+@pytest.mark.parametrize("n0", [0, 8, 16, 24])
 def test_scores_feed_the_next_product_without_a_shuffle(n0):
     """acc_as_a and load_b_cols: a lane's score accumulator (columns 2t and
     2t + 1 of rows g and g + 8) is A at k = t and t + 4, and B's rows are
-    read as 2t and 2t + 1; the product is P . V (K3: dS^T . Q)."""
+    read as 2t and 2t + 1; the product is P . V (K2: dS . K, the K tile
+    of the scores read by columns; K3: dS^T . Q), at head-dim columns n0
+    to n0 + 8."""
     rng = np.random.RandomState(n0)
     P = rng.randn(16, 8)                  # one 16 x 8 score tile
-    V = rng.randn(8, 16)                  # its 8 rows of the other operand
+    V = rng.randn(8, 32)                  # its 8 rows of the other operand
     a_frag, b_frag = [], []
     for lane in range(32):
         g, t = divmod(lane, 4)
