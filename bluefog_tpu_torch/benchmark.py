@@ -330,7 +330,12 @@ class Trainer:
                                          generator=gen,
                                          device=self.device)[rows]
         else:
+            # The LM's compute dtype: TransformerConfig's (bfloat16), or a
+            # caller's ``args.lm_dtype`` (no flag: chip_smoke's f16_train
+            # sets torch.float16, the JAX model's own dtype field).
+            lm_dtype = getattr(args, "lm_dtype", None)
             self.cfg = TransformerConfig(
+                **({"dtype": lm_dtype} if lm_dtype is not None else {}),
                 vocab_size=args.vocab_size, num_layers=args.num_layers,
                 num_heads=args.num_heads, embed_dim=args.embed_dim,
                 max_seq_len=args.seq_len, remat=args.remat,

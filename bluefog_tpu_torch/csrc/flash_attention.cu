@@ -12,14 +12,20 @@
 // no fold transpose and no copy.  O, dq, dk and dv are written contiguous
 // (B, S, H, D); lse and delta are f32 (B, H, S), dlse f32 (B, S, H).
 //
+// Types.  The element type is a build parameter: bf16, or float16 with
+// -DFLASH_F16 (one library a dtype and instance; the same kernels, their
+// wgmma on f16 operands, hopper.cuh).  float32 operands run in
+// csrc/flash_attention_f32.cu; operands of mixed dtypes or float64 run
+// there on float32 copies (ops/flash_attention.py).
+//
 // Head dims.  Three instances, D = 64, 128 and 256; a head dim Dt <= 256
-// runs in the smallest instance D >= Dt.  The tensor maps give the TMA the
+// runs in the smallest instance D >= Dt, every Dt > 256 in the wide route
+// of flash_wide.cuh (-DFLASH_D=0).  The tensor maps give the TMA the
 // true Dt as the inner extent and the instance's 64-column boxes, so the
 // columns past Dt arrive zero-filled: they add nothing to Q.K^T or dO.V^T
 // and give zero output columns, which the epilogues do not store (they
 // write the first Dt columns only).  Operands whose strides a tensor map
 // cannot describe are copied by the wrapper into a padded buffer first.
-// float32 operands run in csrc/flash_attention_f32.cu.
 //
 // Bounds on the H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s), at the main
 // path's shape B=2, S=2048, H=16, D=128, causal (half the score matrix):
@@ -51,7 +57,7 @@
 //   K1: a block owns 128 query rows; Q arrives once, K and V tiles of 128
 //     keys stream.  S = Q.K^T (m64n128k16, both operands K-major in shared
 //     memory), the online softmax runs on the accumulator in registers,
-//     P is converted there to bf16 A fragments and O += P.V (m64nDk16)
+//     P is converted there to 16-bit A fragments and O += P.V (m64nDk16)
 //     takes V MN-major from shared memory: P never touches memory.
 //   K2: a block owns 128 query rows; Q, dO and O arrive once, K and V
 //     tiles of 128 keys stream as in K1.  First each thread computes
@@ -62,7 +68,7 @@
 //     that P is computed from S while dP is still in the tensor cores;
 //     dS / scale = P (dP - delta) follows on the accumulators in registers
 //     (a thread holds two rows, so lse and delta are four registers) and
-//     is packed into bf16 A fragments; dQ += dS.K (m64nDk16)
+//     is packed into 16-bit A fragments; dQ += dS.K (m64nDk16)
 //     reads K MN-major from the same shared tile.  dQ takes the scale once
 //     at the end and stays in registers: no atomics, deterministic.
 //   K3: a block owns 128 keys; K and V arrive once, Q and dO tiles of 64
@@ -86,40 +92,58 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "flash_wide.cuh"
 #include "hopper.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
+// The operands' element type: bf16, or float16 in a build with -DFLASH_F16
+// (hopper.cuh's wgmma take the same type).
+#ifdef FLASH_F16
+typedef __half elem;
+typedef __half2 elem2;
+constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+__device__ __forceinline__ elem2 to_pair(float lo, float hi) { return __floats2half2_rn(lo, hi); }
+__device__ __forceinline__ float2 from_pair(elem2 v) { return __half22float2(v); }
+#else
+typedef __nv_bfloat16 elem;
+typedef __nv_bfloat162 elem2;
+constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+__device__ __forceinline__ elem2 to_pair(float lo, float hi) {
+  return __floats2bfloat162_rn(lo, hi);
+}
+__device__ __forceinline__ float2 from_pair(elem2 v) { return __bfloat1622float2(v); }
+#endif
 
 using flash::kLn2;
 using flash::kLog2e;
 using flash::kMask;
 
 __device__ __forceinline__ uint32_t pack_f(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  elem2 v = to_pair(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // Columns d and d + 1 of a row of Dt columns: one 4-byte store when Dt is
 // even (d is even, so the pair is aligned), else one store per column.
-__device__ __forceinline__ void store_pair(bf16* p, int d, int Dt, float lo, float hi) {
+__device__ __forceinline__ void store_pair(elem* p, int d, int Dt, float lo, float hi) {
   if ((Dt & 1) == 0) {
     if (d < Dt) *reinterpret_cast<uint32_t*>(p) = pack_f(lo, hi);
   } else {
-    if (d < Dt) p[0] = __float2bfloat16_rn(lo);
-    if (d + 1 < Dt) p[1] = __float2bfloat16_rn(hi);
+    if (d < Dt) p[0] = wide::from_f<elem>(lo);
+    if (d + 1 < Dt) p[1] = wide::from_f<elem>(hi);
   }
 }
 
-// Store the first Dt columns of a warp's 16 x D f32 accumulator as bf16
+// Store the first Dt columns of a warp's 16 x D f32 accumulator as 16-bit
 // rows of a contiguous (B, S, H, Dt) tensor; `base` points at (b, 0, h, 0).
 template <int D>
-__device__ __forceinline__ void store_rows(bf16* base, int H, int S, int Dt, int row0,
+__device__ __forceinline__ void store_rows(elem* base, int H, int S, int Dt, int row0,
                                            const float (&acc)[D / 8][4],
                                            float mul0, float mul1, int g, int t) {
   const long long rs = (long long)H * Dt;
@@ -266,11 +290,11 @@ __device__ __forceinline__ float row_dot(const unsigned char* a, const unsigned 
     const int off = (c / 8) * rows * 128 + r * 128 + ((c % 8) ^ (r % 8)) * 16;
     const uint4 x = *reinterpret_cast<const uint4*>(a + off);
     const uint4 y = *reinterpret_cast<const uint4*>(b + off);
-    const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&x);
-    const __nv_bfloat162* y2 = reinterpret_cast<const __nv_bfloat162*>(&y);
+    const elem2* x2 = reinterpret_cast<const elem2*>(&x);
+    const elem2* y2 = reinterpret_cast<const elem2*>(&y);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float2 fx = __bfloat1622float2(x2[e]), fy = __bfloat1622float2(y2[e]);
+      const float2 fx = from_pair(x2[e]), fy = from_pair(y2[e]);
       sum = fmaf(fx.x, fy.x, sum);
       sum = fmaf(fx.y, fy.y, sum);
     }
@@ -282,7 +306,7 @@ __device__ __forceinline__ float row_dot(const unsigned char* a, const unsigned 
 // g + 8 * ((i >> 1) & 1) of its warp's 16 rows and in column
 // 8 * (i / 4) + 2t + (i & 1) (g = lane / 4, t = lane % 4): per 8 columns
 // the m16n8 C layout, so the array reads as [N / 8][4] for store_rows.
-// The pair (i, i + 1) shares a row; packed to bf16 it is register i / 2 of
+// The pair (i, i + 1) shares a row; packed to 16 bits it is register i / 2 of
 // the m16n8k16 A fragments of a product over these columns.
 template <int N>
 __device__ __forceinline__ const float (&as_frags(const float (&acc)[N]))[N / 4][4] {
@@ -312,7 +336,7 @@ template <int D>
 __global__ void __launch_bounds__(threads_of<FwdTile<D>>(), 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
-                 const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+                 const __grid_constant__ CUtensorMap tv, elem* __restrict__ o,
                  float* __restrict__ lse, int H, int S, int Dt, float scale_log2,
                  int causal) {
   using T = FwdTile<D>;
@@ -402,7 +426,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
       }
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
-      // P as bf16 A fragments: pair (i, i + 1) is register i / 2.
+      // P as 16-bit A fragments: pair (i, i + 1) is register i / 2.
       uint32_t p[T::kKeys / 4];
 #pragma unroll
       for (int i = 0; i < T::kKeys / 2; i += 2) {
@@ -451,7 +475,7 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tdo,
                 const __grid_constant__ CUtensorMap to, const float* __restrict__ lse,
                 const float* __restrict__ dlse, float* __restrict__ delta,
-                bf16* __restrict__ dq, int H, int S, int Dt, float scale,
+                elem* __restrict__ dq, int H, int S, int Dt, float scale,
                 float scale_log2, int causal) {
   using T = DqTile<D>;
   extern __shared__ unsigned char smem_raw[];
@@ -556,7 +580,7 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tq,
       hopper::wgmma_wait<0>();
       hopper::fence_regs(dp);
 
-      // dS / scale = P (dP - delta) as bf16 A fragments: pair (i, i + 1)
+      // dS / scale = P (dP - delta) as 16-bit A fragments: pair (i, i + 1)
       // is register i / 2.
       uint32_t ds[T::kKeys / 4];
 #pragma unroll
@@ -598,7 +622,7 @@ __device__ __forceinline__ void dkv_consumer(const unsigned char* sRing, uint32_
                                              uint32_t aV, uint64_t* full, uint64_t* empty,
                                              int kw0, int kr0, int qt0, int n_it, int S,
                                              int H, int Dt, float scale, float scale_log2,
-                                             int causal, bf16* dk, bf16* dv, long long off) {
+                                             int causal, elem* dk, elem* dv, long long off) {
   const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const int key[2] = {kw0 + warp * 16 + g, kw0 + warp * 16 + g + 8};
@@ -657,7 +681,7 @@ __device__ __forceinline__ void dkv_consumer(const unsigned char* sRing, uint32_
       if constexpr (kDK) hopper::fence_regs(dp);
 
       // P^T = exp2(s * scale log2 e) and dS^T / scale = P^T (dP^T - delta)
-      // as bf16 A fragments; masked entries are 0.
+      // as 16-bit A fragments; masked entries are 0.
       const bool mask = q0 + T::kRows > S || (causal && q0 < kw0 + 63);
       uint32_t pa[kDV ? T::kRows / 4 : 1], da[kDK ? T::kRows / 4 : 1];
 #pragma unroll
@@ -713,8 +737,8 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv,
                  const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
-                 const float* __restrict__ delta, bf16* __restrict__ dk,
-                 bf16* __restrict__ dv, int H, int S, int Dt, float scale,
+                 const float* __restrict__ delta, elem* __restrict__ dk,
+                 elem* __restrict__ dv, int H, int S, int Dt, float scale,
                  float scale_log2, int causal) {
   using T = DkvTile<D>;
   extern __shared__ unsigned char smem_raw[];
@@ -841,7 +865,7 @@ cudaError_t make_map(CUtensorMap* map, const void* base, const long long* plan) 
     box[i] = (cuuint32_t)plan[7 + i];
   }
   for (int i = 0; i < 3; ++i) strides[i] = (cuuint64_t)plan[4 + i];
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+  const CUresult r = encode(map, kMapType, 4, const_cast<void*>(base),
                             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -877,7 +901,7 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse,
       (err = prepare(flash_fwd_kernel<D>, ln.smem)) != cudaSuccess)
     return err;
   flash_fwd_kernel<D><<<dim3(ln.grid_x, ln.grid_y), ln.threads, ln.smem, st>>>(
-      tq, tk, tv, (bf16*)o, (float*)lse, H, S, Dt, scale * kLog2e, causal);
+      tq, tk, tv, (elem*)o, (float*)lse, H, S, Dt, scale * kLog2e, causal);
   return cudaGetLastError();
 }
 
@@ -898,7 +922,7 @@ cudaError_t dq(const void* q, const void* k, const void* v, const void* dout, co
       (err = prepare(flash_dq_kernel<D>, ln.smem)) != cudaSuccess)
     return err;
   flash_dq_kernel<D><<<dim3(ln.grid_x, ln.grid_y), ln.threads, ln.smem, st>>>(
-      tq, tk, tv, tdo, to, (const float*)lse, (const float*)dlse, (float*)delta, (bf16*)dqo,
+      tq, tk, tv, tdo, to, (const float*)lse, (const float*)dlse, (float*)delta, (elem*)dqo,
       H, S, Dt, scale, scale * kLog2e, causal);
   return cudaGetLastError();
 }
@@ -919,28 +943,32 @@ cudaError_t dkv(const void* q, const void* k, const void* v, const void* dout,
       (err = prepare(flash_dkv_kernel<D>, ln.smem)) != cudaSuccess)
     return err;
   flash_dkv_kernel<D><<<dim3(ln.grid_x, ln.grid_y), ln.threads, ln.smem, st>>>(
-      tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (bf16*)dko, (bf16*)dvo, H,
+      tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (elem*)dko, (elem*)dvo, H,
       S, Dt, scale, scale * kLog2e, causal);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// C interface, bound with ctypes.  Tensors are bf16 except lse, dlse and
-// delta (f32); D is the true head dim, 1 <= D <= 256, and runs in the
-// instance 64, 128 or 256 (the smallest at least D; a build holds
-// the one that -DFLASH_D names, flash_common.cuh).  Each kernel takes the
-// launch plan of ops/flash_attention.launch_plan: `maps` holds one tensor
-// map per operand (q, k, v[, dout[, o]]; kMapLen values each) and `launch`
-// is (grid x, grid y, threads, dynamic shared-memory bytes).  K2 reads dlse
-// as contiguous (B, S, H) and writes delta (B, H, S) for K3.  Each returns
-// the cudaError_t of the launch (0 on success).
-// The head-dim instance of D (64, 128, 256) runs f.
+// C interface, bound with ctypes.  Tensors are bf16 (float16 in a
+// -DFLASH_F16 build) except lse, dlse and delta (f32); D is the true head
+// dim, D >= 1: 1 <= D <= 256 runs in the instance 64, 128 or 256 (the
+// smallest at least D), D > 256 in the wide route (flash_wide.cuh); a build
+// holds the one that -DFLASH_D names (0: the wide route), flash_common.cuh.
+// Each kernel takes the launch plan of ops/flash_attention.launch_plan: in
+// an instance `maps` holds one tensor map per operand (q, k, v[, dout[,
+// o]]; kMapLen values each) and `launch` is (grid x, grid y, threads,
+// dynamic shared-memory bytes); in the wide route `maps` holds four element
+// strides per operand and `launch` is (grid x, grid y, grid z, threads,
+// dynamic shared-memory bytes, copy bytes).  K2 reads dlse as contiguous
+// (B, S, H) and writes delta (B, H, S) for K3.  Each returns the
+// cudaError_t of the launch (0 on success).
+// The head-dim instance of D (64, 128, 256, or the wide route) runs f.
 template <typename F>
 int dispatch(int D, F f) {
   int rc = (int)cudaErrorInvalidValue;
   flash::instance<64>(D, 0, f, &rc) || flash::instance<128>(D, 64, f, &rc) ||
-      flash::instance<256>(D, 128, f, &rc);
+      flash::instance<256>(D, 128, f, &rc) || flash::wide(D, f, &rc);
   return rc;
 }
 
@@ -950,8 +978,13 @@ int bf_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse
                  int H, int D, const long long* maps, const int* launch, float scale,
                  int causal, void* stream) {
   return dispatch(D, [&](auto d) {
-    return fwd<decltype(d)::value>(q, k, v, o, lse, S, H, D, maps, launch, scale, causal,
+    constexpr int DM = decltype(d)::value;
+    if constexpr (DM == flash::kWide)
+      return wide::fwd<elem, true>(q, k, v, o, lse, S, H, D, maps, launch, scale, causal,
                                    (cudaStream_t)stream);
+    else
+      return fwd<DM>(q, k, v, o, lse, S, H, D, maps, launch, scale, causal,
+                     (cudaStream_t)stream);
   });
 }
 
@@ -960,8 +993,13 @@ int bf_flash_dq(const void* q, const void* k, const void* v, const void* dout, c
                 const long long* maps, const int* launch, float scale, int causal,
                 void* stream) {
   return dispatch(D, [&](auto d) {
-    return dq<decltype(d)::value>(q, k, v, dout, o, lse, dlse, delta, dqo, S, H, D, maps,
+    constexpr int DM = decltype(d)::value;
+    if constexpr (DM == flash::kWide)
+      return wide::dq<elem, true>(q, k, v, dout, o, lse, dlse, delta, dqo, S, H, D, maps,
                                   launch, scale, causal, (cudaStream_t)stream);
+    else
+      return dq<DM>(q, k, v, dout, o, lse, dlse, delta, dqo, S, H, D, maps, launch, scale,
+                    causal, (cudaStream_t)stream);
   });
 }
 
@@ -970,8 +1008,13 @@ int bf_flash_dkv(const void* q, const void* k, const void* v, const void* dout,
                  int D, const long long* maps, const int* launch, float scale, int causal,
                  void* stream) {
   return dispatch(D, [&](auto d) {
-    return dkv<decltype(d)::value>(q, k, v, dout, lse, delta, dko, dvo, S, H, D, maps,
-                                   launch, scale, causal, (cudaStream_t)stream);
+    constexpr int DM = decltype(d)::value;
+    if constexpr (DM == flash::kWide)
+      return wide::dkv<elem, true>(q, k, v, dout, lse, delta, dko, dvo, S, H, D, maps, launch,
+                                   scale, causal, (cudaStream_t)stream);
+    else
+      return dkv<DM>(q, k, v, dout, lse, delta, dko, dvo, S, H, D, maps, launch, scale,
+                     causal, (cudaStream_t)stream);
   });
 }
 

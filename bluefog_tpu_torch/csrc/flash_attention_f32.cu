@@ -17,7 +17,8 @@
 // and dv are written contiguous (B, S, H, Dt); lse and delta are (B, H, S),
 // dlse (B, S, H).  Instances DM = 16, 64, 128, 256: a head dim Dt runs in
 // the smallest DM >= Dt; tile columns past Dt are zeros, and output columns
-// past Dt are never stored.
+// past Dt are never stored.  Every Dt > 256 runs in the wide route
+// (flash_wide.cuh, -DFLASH_D=0), in both copy routes.
 //
 // Every product in 3xTF32 (mma_tf32.cuh), mma.sync.m16n8k8 in
 // TF32 with each float32 operand split into hi + lo, rounded to nearest
@@ -88,6 +89,7 @@
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "flash_wide.cuh"
 #include "hopper.cuh"
 #include "mma_tf32.cuh"
 
@@ -966,34 +968,42 @@ cudaError_t dkv(const void* q, const void* k, const void* v, const void* dout,
   return cudaGetLastError();
 }
 
-// The head-dim instance of D (16, 64, 128, 256) runs f.
+// The head-dim instance of D (16, 64, 128, 256, or the wide route) runs f.
 template <typename F>
 int dispatch(int D, F f) {
   int rc = (int)cudaErrorInvalidValue;
   flash::instance<16>(D, 0, f, &rc) || flash::instance<64>(D, 16, f, &rc) ||
-      flash::instance<128>(D, 64, f, &rc) || flash::instance<256>(D, 128, f, &rc);
+      flash::instance<128>(D, 64, f, &rc) || flash::instance<256>(D, 128, f, &rc) ||
+      flash::wide(D, f, &rc);
   return rc;
 }
 
 }  // namespace
 
 // C interface, bound with ctypes.  Every tensor is float32; D is the true
-// head dim, 1 <= D <= 256, and runs in the instance 16, 64, 128 or 256 (the
-// smallest at least D; a build holds the one that -DFLASH_D names,
-// flash_common.cuh, in the copy route that -DFLASH_COPY names).
+// head dim, D >= 1: 1 <= D <= 256 runs in the instance 16, 64, 128 or 256
+// (the smallest at least D), D > 256 in the wide route (flash_wide.cuh); a
+// build holds the one that -DFLASH_D names (0: the wide route),
+// flash_common.cuh, in the copy route that -DFLASH_COPY names.
 // `strides` holds four element strides (b, s, h, d) per operand (q, k,
 // v[, dout[, o]]) and `launch` is the launch plan's (grid x, grid y,
-// threads, dynamic shared-memory bytes, copy bytes)
-// (ops/flash_attention.launch_plan).  Each returns the cudaError_t of the
-// launch (0 on success).
+// threads, dynamic shared-memory bytes, copy bytes); the wide route's is
+// (grid x, grid y, grid z, threads, dynamic shared-memory bytes, copy
+// bytes) (ops/flash_attention.launch_plan).  Each returns the cudaError_t
+// of the launch (0 on success).
 extern "C" {
 
 int bf_flash_fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse, int S,
                      int H, int D, const long long* strides, const int* launch, float scale,
                      int causal, void* stream) {
   return dispatch(D, [&](auto d) {
-    return fwd<decltype(d)::value>(q, k, v, o, lse, S, H, D, strides, launch, scale, causal,
-                                   (cudaStream_t)stream);
+    constexpr int DM = decltype(d)::value;
+    if constexpr (DM == flash::kWide)
+      return wide::fwd<float, kVec>(q, k, v, o, lse, S, H, D, strides, launch, scale, causal,
+                                    (cudaStream_t)stream);
+    else
+      return fwd<DM>(q, k, v, o, lse, S, H, D, strides, launch, scale, causal,
+                     (cudaStream_t)stream);
   });
 }
 
@@ -1002,8 +1012,13 @@ int bf_flash_dq_f32(const void* q, const void* k, const void* v, const void* dou
                     int S, int H, int D, const long long* strides, const int* launch,
                     float scale, int causal, void* stream) {
   return dispatch(D, [&](auto d) {
-    return dq<decltype(d)::value>(q, k, v, dout, o, lse, dlse, delta, dqo, S, H, D, strides,
-                                  launch, scale, causal, (cudaStream_t)stream);
+    constexpr int DM = decltype(d)::value;
+    if constexpr (DM == flash::kWide)
+      return wide::dq<float, kVec>(q, k, v, dout, o, lse, dlse, delta, dqo, S, H, D, strides,
+                                   launch, scale, causal, (cudaStream_t)stream);
+    else
+      return dq<DM>(q, k, v, dout, o, lse, dlse, delta, dqo, S, H, D, strides, launch, scale,
+                    causal, (cudaStream_t)stream);
   });
 }
 
@@ -1012,8 +1027,13 @@ int bf_flash_dkv_f32(const void* q, const void* k, const void* v, const void* do
                      int D, const long long* strides, const int* launch, float scale,
                      int causal, void* stream) {
   return dispatch(D, [&](auto d) {
-    return dkv<decltype(d)::value>(q, k, v, dout, lse, delta, dko, dvo, S, H, D, strides,
-                                   launch, scale, causal, (cudaStream_t)stream);
+    constexpr int DM = decltype(d)::value;
+    if constexpr (DM == flash::kWide)
+      return wide::dkv<float, kVec>(q, k, v, dout, lse, delta, dko, dvo, S, H, D, strides,
+                                    launch, scale, causal, (cudaStream_t)stream);
+    else
+      return dkv<DM>(q, k, v, dout, lse, delta, dko, dvo, S, H, D, strides, launch, scale,
+                     causal, (cudaStream_t)stream);
   });
 }
 

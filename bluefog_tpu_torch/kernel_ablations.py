@@ -212,7 +212,9 @@ def _run(tmp: Path, iters: int):
         cu, h = variant_sources(name)
         (d / "flash_attention.cu").write_text(cu)
         (d / "hopper.cuh").write_text(h)
-        shutil.copy(_nvcc.CSRC_DIR / "flash_common.cuh", d)
+        for header in _nvcc.CSRC_DIR.glob("*.cuh"):
+            if header.name != "hopper.cuh":
+                shutil.copy(header, d)
         # SHAPE's head-dim instance alone.
         procs[name] = subprocess.Popen(
             [_nvcc._nvcc(), *_nvcc.NVCC_FLAGS,

@@ -27,13 +27,20 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-# The flash-attention sources' head-dim instances (ops/flash_attention.
-# INSTANCES), a library each: -DFLASH_D=<instance>; the float32 source's
-# also one a copy route (its kernels' template flag), -DFLASH_COPY=<bytes>,
-# so that no nvcc compiles both routes and the longest one is half as long.
-FLASH_INSTANCES = {"flash_attention": (64, 128, 256),
-                   "flash_attention_f32": (16, 64, 128, 256)}
-FLASH_ROUTES = {"flash_attention_f32": (16, 4)}
+# The flash-attention libraries by dtype: the source and the macro
+# definitions that pick its element type (the bf16 source builds float16
+# with -DFLASH_F16), and the head-dim instances (ops/flash_attention.
+# INSTANCES), a library each: -DFLASH_D=<instance>, the wide route of every
+# head dim past 256 -DFLASH_D=0; the float32 source's also one a copy route
+# (its kernels' template flag), -DFLASH_COPY=<bytes>, so that no nvcc
+# compiles both routes and the longest one is half as long.
+WIDE = "wide"
+FLASH_DTYPES = {"bf16": ("flash_attention", ()),
+                "f16": ("flash_attention", ("FLASH_F16=1",)),
+                "f32": ("flash_attention_f32", ())}
+FLASH_INSTANCES = {"bf16": (64, 128, 256, WIDE), "f16": (64, 128, 256, WIDE),
+                   "f32": (16, 64, 128, 256, WIDE)}
+FLASH_ROUTES = {"f32": (16, 4)}
 
 
 def _nvcc() -> str:
@@ -84,23 +91,28 @@ def build(name: str, verbose: bool = False,
 
 
 def flash_libraries():
-    """``(source, instance, route)`` of every flash library: each instance
-    of ``FLASH_INSTANCES``, and of a source in ``FLASH_ROUTES`` each copy
-    route (route 0 where the source has none)."""
-    return [(name, d, r) for name, ds in FLASH_INSTANCES.items() for d in ds
-            for r in FLASH_ROUTES.get(name, (0,))]
+    """``(dtype tag, instance, route)`` of every flash library: each
+    instance of ``FLASH_INSTANCES``, and of a dtype in ``FLASH_ROUTES``
+    each copy route (route 0 where the dtype has none)."""
+    return [(tag, d, r) for tag, ds in FLASH_INSTANCES.items() for d in ds
+            for r in FLASH_ROUTES.get(tag, (0,))]
 
 
-def build_flash(verbose: bool = False):
-    """``build`` of every library of :func:`flash_libraries`, every
-    ``nvcc`` at once, so that the build takes the time of its slowest
-    library; returns ``{(source, instance, route): (path, log)}``.  It
-    needs no torch, so a caller can start it before torch loads."""
-    keys = flash_libraries()
+def flash_defines(tag, d, route) -> Tuple[str, ...]:
+    """The macro definitions of one flash library."""
+    return (FLASH_DTYPES[tag][1] + (f"FLASH_D={0 if d == WIDE else d}",)
+            + ((f"FLASH_COPY={route}",) if route else ()))
+
+
+def build_flash(verbose: bool = False, keys=None):
+    """``build`` of every library of :func:`flash_libraries` (or of
+    ``keys``, some of them), every ``nvcc`` at once, so that the build
+    takes the time of its slowest library; returns ``{(dtype tag, instance,
+    route): (path, log)}``.  It needs no torch, so a caller can start it
+    before torch loads."""
+    keys = list(keys or flash_libraries())
 
     def one(key):
-        name, d, route = key
-        return build(name, verbose, (f"FLASH_D={d}",)
-                     + ((f"FLASH_COPY={route}",) if route else ()))
+        return build(FLASH_DTYPES[key[0]][0], verbose, flash_defines(*key))
     with ThreadPoolExecutor(len(keys)) as pool:
         return dict(zip(keys, pool.map(one, keys)))

@@ -7,12 +7,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 
 1. ``device``   — the card (``nvidia-smi``), torch and CUDA versions.
 2. ``build``    — builds the flash-attention kernels from ``csrc/`` with
-   ``nvcc``, the bf16 and the float32 source at once (``-Xptxas -v``:
-   registers, shared memory, spills) and requires every instance of K1,
-   K2 and K3 (bf16 D = 64, 128, 256; float32 D = 16, 64, 128, 256, each in
-   both copy routes) to spill no register, and the bf16 ones to
-   keep their wgmma products asynchronous (ptxas reports no
-   serialization).
+   ``nvcc``, every library of a wave at once (``-Xptxas -v``: registers,
+   shared memory, spills): the bf16 and float32 instances (bf16 D = 64,
+   128, 256; float32 D = 16, 64, 128, 256, each in both copy routes)
+   beside torch's import, then (``build_second``, inside ``kernel``) the
+   float16 instances and the wide route of every dtype beside the bf16
+   and float32 kernel cases; requires every instance of K1, K2 and K3 to
+   spill no register, and the 16-bit ones to keep their wgmma products
+   asynchronous (ptxas reports no serialization).
 3. ``kernel``   — each of K1 (forward), K2 (dq) and K3 (dk/dv) against its
    plain PyTorch twin on the same inputs, at the training path's shape
    (B=2, S=2048, H=16, D=128, bf16, causal, q/k/v strided slices of a fused
@@ -63,7 +65,19 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    names its dtype and the instance that ran; bounds count the true D's
    work (989 TFLOP/s bf16; float32 at 495 / 3 = 165 TFLOP/s, 3xTF32 on
    the tensor cores, the least time the card takes for float32-accurate
-   products).
+   products).  float16 (the bf16 kernels' design, held to the bf16
+   limits, 989 TFLOP/s) timed at the LM's shape (its bits held on a
+   second run), ViT-S/16's and Gemma-2B's heads, checked at D=36 on one
+   head of a fused QKV (the padded copy).  The wide route
+   (``csrc/flash_wide.cuh``, every D > 256) in bf16, float16 and float32:
+   timed at the JAX benchmark's ``--embed-dim 2048 --num-heads 4`` heads
+   (B=2, S=2048, H=4, D=512, causal), checked at D=257 on one head of a
+   fused QKV (514-byte rows: the 16-bit padded copy, float32's 4-byte
+   copies) and D=1024 at B*H=2, bf16 also at D=320 and 384.  Then
+   ``kernel_mixed``: q bf16 with k, v float32, and q float16 with k, v
+   bf16, through ``flash_attention_lse`` forward and backward on the card
+   (the float32 kernels on float32 copies, counted; each output in its
+   operand's dtype) against the twins (``REL_TOL``, ``LSE_TOL``).
 4. ``reference`` — a small TransformerLM on the card: logits and gradients
    through the kernels against the same model with dense attention, by
    relative error (logits, and each parameter's gradient).
@@ -115,6 +129,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    2048, 8 heads of 256: the D = 256 instance), ``D256_LAYERS`` = 2
    layers, 4 ranks, 1 warmup + 2 timed steps: finite losses, K1-K3
    launches layers x ranks x steps, the combine shrinks the spread.
+6d. ``f16_train`` — the same with the 1.3B LM's heads (16 of 128) in
+   ``TransformerLM(dtype=float16)``, the JAX model's own dtype field (the
+   float16 K1-K3), ``F16_LAYERS`` = 2 layers, 3 steps, the same checks;
+   then ``f16_train_vs_f32``: the same weights and batches in float32
+   (the float32 K1-K3), whose first 2 steps' losses the float16 run's
+   meet within ``F16_LOSS_TOL`` (relative, every rank).
+6e. ``dwide_train`` — the same with the JAX benchmark's ``--embed-dim 2048
+   --num-heads 4`` (heads of 512: the wide route in bf16), ``DWIDE_LAYERS``
+   = 2 layers, 3 steps, the same checks.
 7. ``resnet50`` — the benchmark with ``--model resnet50`` at 224x224, batch
    64 per rank, 4 ranks, ATC over the dynamic topology, momentum 0.9,
    2 warmup + 3 timed steps: img/s, step ms, peak memory, the spread.
@@ -527,7 +550,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    the gang's deadline), detection (the victim's clock at its kill to
    each member's shrink commit), recovery, the frame's lines and its
    endpoints up (4 of 4).
-45. ``{"kernels": [...]}``: K1-K3 of each source (bf16, float32), each
+45. ``{"kernels": [...]}``: K1-K3 of each family (bf16, float16 and
+   float32 D <= 256, and the wide route in each dtype), each
    with every instance's launches and numbers (``instances``), the
    entry's own those of its main instance (launches from the ``train``,
    ``train_host_data``, ``llama_train``,
@@ -536,7 +560,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    ``winput_train``, ``fused_train``, ``win_variants``, ``win_dist_train``,
    ``tp_moe_train``, ``win_async_train``, ``sharded_moe_train``,
    ``churn_train``, ``elastic_train``, ``observe_train``, ``generate``,
-   ``vit``, ``d256_train``, ``long_context_example`` and ``tp_example``
+   ``vit``, ``d256_train``, ``f16_train``, ``dwide_train``,
+   ``long_context_example`` and ``tp_example``
    phases, each path's beside), then the ``nvidia-smi`` line, then the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -580,6 +605,13 @@ LC_LOSS_TOL = 1e-4           # long_context_example: card vs CPU losses, relativ
 LC_COMPARE_STEPS = 3         # the steps whose losses are compared
 D256_LAYERS = 2              # d256_train: Gemma-2B's heads (2048 / 8) in the
 D256_STEPS = 3               # LM, 2 layers, 1 warmup + 2 timed steps
+F16_LAYERS = 2               # f16_train: the LM's heads (16 of 128) in
+F16_STEPS = 3                # TransformerLM(dtype=float16), 2 layers by time,
+F16_COMPARE_STEPS = 2        # its first 2 steps' losses against the same
+F16_LOSS_TOL = 1e-2          # weights and batch in float32: relative (float16
+                             # activations keep 11 significant bits)
+DWIDE_LAYERS = 2             # dwide_train: 4 heads of 512 (width 2048, the
+DWIDE_STEPS = 3              # wide route in bf16), 2 layers by time
 REF_LOGITS_TOL = 2e-2        # flash vs dense model, both bf16: logits
 REF_GRAD_TOL = 5e-2          # and each parameter's gradient
 LAYERS = 24
@@ -612,6 +644,7 @@ SEED = 0                     # inputs and weights are drawn from it
 TWIN_SCORES_BYTES = 1 << 32  # the plain twins' f32 scores, at most, a call
 SOURCE = "bluefog_tpu_torch/csrc/flash_attention.cu"
 SOURCE_F32 = "bluefog_tpu_torch/csrc/flash_attention_f32.cu"
+SOURCE_WIDE = "bluefog_tpu_torch/csrc/flash_wide.cuh"
 HIER_LAYERS = 24             # hier_train: full depth
 WINPUT_LAYERS = 10           # winput_train: the windows' 25 rows a step fit
 FUSED_BUCKETS = 4            # fused_train: winput_train's LM and depth in
@@ -771,19 +804,26 @@ def bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
 
 
 def ptxas_report(log):
-    """Per kernel and instance (``flash_fwd/D128``, ``flash_fwd_f32/D16``
-    ...): registers, static shared memory and spill bytes from the
-    ``-Xptxas -v`` log, and ``builds``, the entries the instance built
-    (the float32 kernels: one a copy route)."""
-    out, cur = {}, None
+    """Per kernel, dtype and instance (``flash_fwd/bf16/D128``,
+    ``flash_fwd/f16/D64``, ``flash_dq/f32/Dwide`` ...): registers, static
+    shared memory and spill bytes from the ``-Xptxas -v`` log (each
+    library's part headed by ``FA.load_library``'s ``== flash library``
+    line), and ``builds``, the entries the instance built (the float32
+    kernels: one a copy route)."""
+    out, cur, lib = {}, None, None
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function .*?(flash_(?:fwd|dq|dkv)(?:_f32)?)"
-                      r"_kernelILi(\d+)E", ln)
+        m = re.match(r"== flash library (\w+)/D(\w+) route", ln)
         if m:
+            lib, cur = m.groups(), None
+            continue
+        m = re.search(r"Compiling entry function .*?(?:flash|wide)_"
+                      r"(fwd|dq|dkv)(?:_f32)?_kernel", ln)
+        if m and lib:
             # The float32 K1-K3 build twice an instance (the 16-byte and
             # 4-byte copies): the entry holds the larger of each number.
             cur = {}
-            out.setdefault(f"{m.group(1)}/D{m.group(2)}", []).append(cur)
+            out.setdefault(f"flash_{m.group(1)}/{lib[0]}/D{lib[1]}",
+                           []).append(cur)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m and cur is not None:
@@ -900,18 +940,20 @@ def sdpa_times(q, k, v, do, causal):
 def check_kernels(B, S, H, D, causal, seed, timed, repeat=False,
                   layout="fused", kv_heads=None, fwd_only=False, dtype=None):
     """K1-K3 (K1 alone with ``fwd_only``) against their twins at one shape,
-    operand layout (``operands``) and dtype (bf16 or float32); returns
-    per-kernel dicts.  With ``repeat``, K1-K3 run again on the same inputs
-    and must give the same bits.  bf16 is held to ``REL_TOL``, ``ELEM_TOL``
-    and ``LSE_TOL``, float32 to ``F32_FWD_TOL`` and ``F32_GRAD_TOL``.  Each
-    kernel's ``operand_copies`` counts the operands its wrapper copied
-    into a padded buffer (the bf16 copy route)."""
+    operand layout (``operands``) and dtype (bf16, float16 or float32);
+    returns per-kernel dicts.  With ``repeat``, K1-K3 run again on the same
+    inputs and must give the same bits.  bf16 and float16 are held to
+    ``REL_TOL``, ``ELEM_TOL`` and ``LSE_TOL``, float32 to ``F32_FWD_TOL``
+    and ``F32_GRAD_TOL``.  Each kernel's ``operand_copies`` counts the
+    operands its wrapper copied into a padded buffer (the 16-bit copy
+    route)."""
     import torch
 
     from bluefog_tpu_torch.ops import flash_attention as FA
 
     dtype = dtype or torch.bfloat16
     f32 = dtype == torch.float32
+    tag = FA._TAGS[dtype]
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     q, k, v = operands(B, S, H, D, layout, g, kv_heads, dtype)
@@ -978,6 +1020,8 @@ def check_kernels(B, S, H, D, causal, seed, timed, repeat=False,
                         f"same inputs")
             res[name]["bitwise_repeat"] = ok
     inst = FA.instance(dtype, D)
+    # A copied operand's padded width (the wide route: D rounded up to 8).
+    width = -(-D // 8) * 8 if inst == FA.WIDE else inst
     for name, kernel, ts in (("K1", "fwd", (q, k, v)),
                              ("K2", "dq", (q, k, v, do, o)),
                              ("K3", "dkv", (q, k, v, do))):
@@ -986,11 +1030,12 @@ def check_kernels(B, S, H, D, causal, seed, timed, repeat=False,
         # The strides the kernel read: a copied operand's padded buffer's.
         strides = {n: t.stride() if f32 or FA.describable(t.stride(),
                                                           t.data_ptr())
-                   else (S * H * inst, H * inst, inst, 1)
+                   else (S * H * width, H * width, width, 1)
                    for n, t in zip(("q", "k", "v", "do", "o"), ts)}
-        res[name]["dynamic_smem_bytes"] = FA.launch_plan(
-            kernel, (B, S, H, D), strides, causal, dtype).smem
-        res[name]["instance"] = f"{'f32' if f32 else 'bf16'}/D{inst}"
+        plan = FA.launch_plan(kernel, (B, S, H, D), strides, causal, dtype)
+        res[name]["dynamic_smem_bytes"] = plan.smem
+        res[name]["grid"] = list(plan.grid)
+        res[name]["instance"] = f"{tag}/D{inst}"
         res[name]["operand_copies"] = fns[name].copies - copies[name]
         if f32:
             # The float32 kernels' copy route (16- or 4-byte cp.async).
@@ -1001,7 +1046,7 @@ def check_kernels(B, S, H, D, causal, seed, timed, repeat=False,
     require(lse_err <= lse_tol, f"max |lse - twin| {lse_err} over {lse_tol}")
     res["K1"]["lse_max_abs_err"] = lse_err
     pairs = S * (S + 1) // 2 if causal else S * S
-    esize = 4 if f32 else 2
+    esize = dtype.itemsize
     bsd, bhs = B * S * H * D * esize, B * H * S * 4
     # The true D's work.  K2 reads q, k, v, dO, O, lse and dlse, writes dq
     # and delta.
@@ -2689,29 +2734,32 @@ def check_compositions(seed):
 # Hierarchical gossip and the one-sided windows
 # ---------------------------------------------------------------------------
 
-def d256_train_phase(benchmark):
-    """``d256_train``: ``train``'s benchmark with Gemma-2B's heads (width
-    2048, 8 heads of 256: K1-K3's D = 256 instance), ``D256_LAYERS``
-    layers, 4 ranks, ATC over the dynamic one-peer walk, ``D256_STEPS``
-    steps (1 warmup): finite losses, K1-K3 launches layers x ranks x steps,
-    the combine shrinks the spread.  Returns the launches."""
+def heads_train_phase(benchmark, phase, heads, layers, steps, instance,
+                      lm_dtype=None):
+    """``train``'s benchmark at width 2048 with ``heads`` heads, ``layers``
+    layers, 4 ranks, ATC over the dynamic one-peer walk, ``steps`` steps
+    (1 warmup), the LM in ``lm_dtype`` (bfloat16 by default): finite
+    losses, K1-K3 launches layers x ranks x steps, every one in
+    ``instance``, the combine shrinks the spread.  Emits ``phase``;
+    returns the launches and the benchmark's result."""
     import torch
 
     from bluefog_tpu_torch.ops import flash_attention as FA
-    argv = train_argv(D256_STEPS - 1)
-    argv[argv.index("--num-layers") + 1] = str(D256_LAYERS)
-    argv[argv.index("--num-heads") + 1] = "8"
+    argv = train_argv(steps - 1)
+    argv[argv.index("--num-layers") + 1] = str(layers)
+    argv[argv.index("--num-heads") + 1] = str(heads)
     args = benchmark.build_parser().parse_args(argv)
+    args.lm_dtype = lm_dtype
     FA.reset_launch_counts()
     tr = benchmark.Trainer(args)
     res = benchmark.measure(args, tr, quiet=True)
-    launches = flash_launches("bf16/D256")
+    launches = flash_launches(instance)
     steps = args.num_warmup_batches + args.num_iters * args.num_batches_per_iter
-    expected = D256_LAYERS * args.ranks * steps
-    emit("d256_train", config={"num_layers": D256_LAYERS, "embed_dim": 2048,
-                               "num_heads": 8, "head_dim": 256,
-                               "seq_len": 2048, "batch_size": 2,
-                               "ranks": args.ranks},
+    expected = layers * args.ranks * steps
+    emit(phase, config={"num_layers": layers, "embed_dim": 2048,
+                        "num_heads": heads, "head_dim": 2048 // heads,
+                        "seq_len": 2048, "batch_size": 2,
+                        "ranks": args.ranks, "dtype": str(tr.cfg.dtype)},
          launches=launches, expected_launches=expected, **res)
     require(all(math.isfinite(x) for x in res["losses"]),
             f"finite losses {res['losses']}")
@@ -2722,6 +2770,51 @@ def d256_train_phase(benchmark):
             f"the combine shrinks the spread {res['spread']}")
     del tr
     torch.cuda.empty_cache()
+    return launches, res
+
+
+def d256_train_phase(benchmark):
+    """``d256_train``: Gemma-2B's heads (width 2048, 8 heads of 256: K1-K3's
+    D = 256 instance), ``D256_LAYERS`` layers, ``D256_STEPS`` steps."""
+    return heads_train_phase(benchmark, "d256_train", 8, D256_LAYERS,
+                             D256_STEPS, "bf16/D256")[0]
+
+
+def dwide_train_phase(benchmark):
+    """``dwide_train``: the JAX benchmark's ``--embed-dim 2048 --num-heads
+    4`` (heads of 512: K1-K3's wide route in bf16), ``DWIDE_LAYERS``
+    layers, ``DWIDE_STEPS`` steps."""
+    return heads_train_phase(benchmark, "dwide_train", 4, DWIDE_LAYERS,
+                             DWIDE_STEPS, "bf16/Dwide")[0]
+
+
+def f16_train_phase(benchmark):
+    """``f16_train``: the 1.3B LM's heads (16 of 128) in
+    ``TransformerLM(dtype=float16)`` (the float16 K1-K3), ``F16_LAYERS``
+    layers, ``F16_STEPS`` steps; then the same weights and batches in
+    float32 (the float32 K1-K3) for ``F16_COMPARE_STEPS`` steps, whose
+    losses the float16 run's first ones must meet within
+    ``F16_LOSS_TOL`` (relative, every rank).  Returns the float16 run's
+    launches."""
+    import torch
+    launches, res = heads_train_phase(benchmark, "f16_train", 16, F16_LAYERS,
+                                      F16_STEPS, "f16/D128", torch.float16)
+    argv = train_argv(F16_COMPARE_STEPS - 1)
+    argv[argv.index("--num-layers") + 1] = str(F16_LAYERS)
+    argv[argv.index("--num-heads") + 1] = "16"
+    args = benchmark.build_parser().parse_args(argv)
+    args.lm_dtype = torch.float32
+    tr = benchmark.Trainer(args)
+    ref = benchmark.measure(args, tr, quiet=True)["losses_by_step"]
+    del tr
+    torch.cuda.empty_cache()
+    got = res["losses_by_step"][:F16_COMPARE_STEPS]
+    err = max(abs(a - b) / abs(b) for ga, gb in zip(got, ref)
+              for a, b in zip(ga, gb))
+    emit("f16_train_vs_f32", steps=F16_COMPARE_STEPS, f16_losses=got,
+         f32_losses=ref, max_rel_err=err, tol=F16_LOSS_TOL)
+    require(err <= F16_LOSS_TOL, f"f16_train's losses {got} within "
+                                 f"{F16_LOSS_TOL} of float32's {ref}: {err}")
     return launches
 
 
@@ -6149,12 +6242,42 @@ def image_phase(benchmark, argv, checks_spread_by="max", time_combine=False):
     return res
 
 
-def kernel_phase(ptxas):
+def FIRST_WAVE(key):
+    """Whether a flash library (``_nvcc.flash_libraries()``'s key) builds
+    in the first wave, beside torch's import: the bf16 and float32
+    instances of D <= 256.  The float16 instances and the wide route build
+    in a second wave beside the kernel phase's bf16 and float32 cases, so
+    that their ``nvcc`` do not starve torch's import of the host's 8 cores
+    (all 18 at once made ``device`` 12-14 s longer on an H100 host with 8
+    cores: PERF.md section 5)."""
+    tag, inst, _ = key
+    return tag != "f16" and inst != "wide"
+
+
+def require_clean_builds(ptxas, log, keys):
+    """Every K1-K3 entry of the libraries ``keys`` spills no register and
+    built once a copy route; no wgmma was serialized (``log``)."""
+    for fn, _ in KERNELS.values():
+        for tag, d in sorted({(t, i) for t, i, _ in keys}, key=str):
+            info = ptxas.get(f"{fn}/{tag}/D{d}", {})
+            require(info.get("spill_bytes") == 0,
+                    f"{fn} ({tag}, D={d}) spills registers: {info}")
+            require(info["builds"] == (2 if tag == "f32" else 1),
+                    f"{fn} ({tag}, D={d}) built once a copy route: {info}")
+    serialized = [ln.strip() for ln in log.splitlines()
+                  if "wgmma.mma_async instructions are serialized" in ln]
+    require(not serialized, f"ptxas serialized wgmma: {serialized}")
+
+
+def kernel_phase(ptxas, second=None):
     """The ``kernel`` phase: every case of K1-K3 against its twin
     (``check_kernels``), a line each kernel a case with its seconds
     (``case_s``, the case's whole wall) and its build's ``ptxas``
     report; returns ``{instance: (case, D, results)}`` of the case that
-    stands for each instance."""
+    stands for each instance.  ``second``, ``(future, start)`` of the
+    second wave's build (``FIRST_WAVE``), is waited for, loaded and
+    checked (``build_second``) after the bf16 and float32 cases of D <=
+    256, before the float16 and wide-route cases."""
     import torch
 
     from bluefog_tpu_torch.ops import flash_attention as FA
@@ -6211,6 +6334,17 @@ def kernel_phase(ptxas):
              False),
             ("gemma-2b", 2, 2048, 8, 256, True, True, "fused", None,
              False))
+    # float16 on the bf16 kernels' design: timed at the LM's shape (its
+    # bits held on a second run), ViT-S/16's and Gemma-2B's heads; checked,
+    # one head of a fused QKV at D = 36 (the padded copy).
+    f16_cases = (
+            ("f16-main", 2, 2048, 16, 128, True, True, "fused", None, False),
+            ("f16-vit", 64, 197, 6, 64, False, True, "fused", None, False),
+            ("f16-gemma-2b", 2, 2048, 8, 256, True, True, "fused", None,
+             False),
+            ("f16-d36-copy", 2, 512, 1, 36, True, False, "fused", None,
+             False),
+            *wide_cases("f16"))
     # float32 (the JAX package's own dtype at small heads): timed, the
     # long-context model's ring hops (8 shards of 512 tokens at the JAX
     # default --seq-len 4096: hop 0 causal, a later hop's 7 shards not)
@@ -6243,40 +6377,134 @@ def kernel_phase(ptxas):
             ("f32-d256", 1, 1024, 8, 256, True, True, "fused", None, False))
     # The case whose numbers stand for each instance in the kernels line.
     instance_cases = {"bf16/D64": "vit", "bf16/D128": "main",
-                      "bf16/D256": "gemma-2b", "f32/D16": "lc-ring-hop0",
+                      "bf16/D256": "gemma-2b", "f16/D64": "f16-vit",
+                      "f16/D128": "f16-main", "f16/D256": "f16-gemma-2b",
+                      "f32/D16": "lc-ring-hop0",
                       "f32/D64": "f32-d64", "f32/D128": "f32-d128",
-                      "f32/D256": "f32-d256"}
+                      "f32/D256": "f32-d256", "bf16/Dwide": "bf16-d512",
+                      "f16/Dwide": "f16-d512", "f32/Dwide": "f32-d512"}
     inst_res = {}
-    for dtype, cases in ((torch.bfloat16, bf16_cases),
-                         (torch.float32, f32_cases)):
-        f32 = dtype == torch.float32
-        tag, suffix = ("f32", "_f32") if f32 else ("bf16", "")
-        for case, B, S, H, D, causal, timed, layout, kv_h, fwd_only in cases:
+    passes = (((torch.bfloat16, bf16_cases), (torch.float32, f32_cases)),
+              ((torch.float16, f16_cases),
+               (torch.bfloat16, wide_cases("bf16")),
+               (torch.float32, wide_cases("f32"))))
+    for wave, groups in enumerate(passes):
+        if wave == 1 and second is not None:
             t0 = time.perf_counter()
-            res = check_kernels(B, S, H, D, causal, SEED, timed=timed,
-                                repeat=case == "main", layout=layout,
-                                kv_heads=kv_h, fwd_only=fwd_only, dtype=dtype)
-            if case == "d36-copy":
-                require(all(r["operand_copies"] > 0 for r in res.values()),
-                        f"D=36 took the padded-copy route: {res}")
-            if case == "f32-d6-copy4":
-                require(all(r["copy_bytes"] == 4 for r in res.values()),
-                        f"D=6 took the 4-byte copies: {res}")
-            inst = FA.instance(dtype, D)
-            tol = ({"fwd_tol": F32_FWD_TOL, "grad_tol": F32_GRAD_TOL} if f32
-                   else {"rel_tol": REL_TOL, "elem_tol": ELEM_TOL})
-            for kname, r in res.items():
-                emit("kernel", kernel=kname, case=case, B=B, S=S, H=H, D=D,
-                     dtype=str(dtype).replace("torch.", ""), causal=causal,
-                     layout=layout, kv_heads=kv_h,
-                     case_s=time.perf_counter() - t0, **tol,
-                     lse_tol=(F32_FWD_TOL if f32 else LSE_TOL)
-                     if kname == "K1" else None,
-                     **ptxas.get(f"{KERNELS[kname][0]}{suffix}/D{inst}", {}),
-                     **r)
-            if instance_cases.get(f"{tag}/D{inst}") == case:
-                inst_res[f"{tag}/D{inst}"] = (case, D, res)
+            built = second[0].result()
+            _, log = FA.load_library(True, built)
+            more = ptxas_report(log)
+            emit("build_second", seconds=time.perf_counter() - second[1],
+                 waited_s=time.perf_counter() - t0, ptxas=more)
+            require_clean_builds(more, log, list(built))
+            ptxas.update(more)
+        for dtype, cases in groups:
+            kernel_cases(dtype, cases, ptxas, instance_cases, inst_res)
+    for qd, kd in ((torch.bfloat16, torch.float32),
+                   (torch.float16, torch.bfloat16)):
+        emit("kernel_mixed", **check_mixed_dtypes(qd, kd, SEED))
     return inst_res
+
+
+def kernel_cases(dtype, cases, ptxas, instance_cases, inst_res):
+    """``check_kernels`` over ``cases`` in ``dtype``, a line each kernel
+    a case; ``inst_res`` takes the case that stands for each instance."""
+    import torch
+
+    from bluefog_tpu_torch.ops import flash_attention as FA
+    f32 = dtype == torch.float32
+    tag = FA._TAGS[dtype]
+    for case, B, S, H, D, causal, timed, layout, kv_h, fwd_only in cases:
+        t0 = time.perf_counter()
+        res = check_kernels(B, S, H, D, causal, SEED, timed=timed,
+                            repeat=case in ("main", "f16-main"),
+                            layout=layout, kv_heads=kv_h,
+                            fwd_only=fwd_only, dtype=dtype)
+        if case.endswith(("d36-copy", "d257")) and not f32:
+            require(all(r["operand_copies"] > 0 for r in res.values()),
+                    f"{case} took the padded-copy route: {res}")
+        if case in ("f32-d6-copy4", "f32-d257"):
+            require(all(r["copy_bytes"] == 4 for r in res.values()),
+                    f"{case} took the 4-byte copies: {res}")
+        inst = FA.instance(dtype, D)
+        tol = ({"fwd_tol": F32_FWD_TOL, "grad_tol": F32_GRAD_TOL} if f32
+               else {"rel_tol": REL_TOL, "elem_tol": ELEM_TOL})
+        for kname, r in res.items():
+            emit("kernel", kernel=kname, case=case, B=B, S=S, H=H, D=D,
+                 dtype=str(dtype).replace("torch.", ""), causal=causal,
+                 layout=layout, kv_heads=kv_h,
+                 case_s=time.perf_counter() - t0, **tol,
+                 lse_tol=(F32_FWD_TOL if f32 else LSE_TOL)
+                 if kname == "K1" else None,
+                 **ptxas.get(f"{KERNELS[kname][0]}/{tag}/D{inst}", {}),
+                 **r)
+        if instance_cases.get(f"{tag}/D{inst}") == case:
+            inst_res[f"{tag}/D{inst}"] = (case, D, res)
+
+
+def wide_cases(tag):
+    """The wide route's cases (every D > 256) in one dtype: timed, the JAX
+    benchmark's ``--embed-dim 2048 --num-heads 4`` heads (4 of 512) at
+    the LM's shape; checked, one head of a fused QKV at D = 257 (514-byte
+    rows: the 16-bit padded copy, float32's 4-byte copies) and D = 1024
+    at a small B*H; bf16 also D = 320 and 384 (groups of 128 columns, the
+    last partial)."""
+    cases = [(f"{tag}-d512", 2, 2048, 4, 512, True, True, "fused", None,
+              False),
+             (f"{tag}-d257", 1, 300, 1, 257, True, False, "fused", None,
+              False),
+             (f"{tag}-d1024", 1, 512, 2, 1024, True, False, "fused", None,
+              False)]
+    if tag == "bf16":
+        cases += [("bf16-d320", 1, 500, 3, 320, False, False, "fused", None,
+                   False),
+                  ("bf16-d384", 2, 256, 2, 384, True, False, "fused", None,
+                   False)]
+    return tuple(cases)
+
+
+def check_mixed_dtypes(qd, kd, seed, shape=(2, 512, 4, 64)):
+    """q in ``qd`` with k and v in ``kd`` through ``flash_attention_lse``
+    on the card, forward and backward of sum(o^2) + sum(lse): K1-K3 run
+    the float32 kernels on float32 copies (counted in ``copies``, every
+    launch in f32/D64), o comes back in q's dtype and each gradient in its
+    operand's; held against the twins on the same values to ``REL_TOL``
+    (outputs rounded to 16 bits) and the lse to ``LSE_TOL``."""
+    import torch
+
+    from bluefog_tpu_torch.ops import flash_attention as FA
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ins = [torch.randn(*shape, generator=g, device="cuda").to(d)
+           for d in (qd, kd, kd)]
+    ts = [t.clone().requires_grad_() for t in ins]
+    FA.reset_launch_counts()
+    o, lse = FA.flash_attention_lse(*ts, causal=True)
+    (o.float().pow(2).sum() + lse.sum()).backward()
+    torch.cuda.synchronize()
+    launches = flash_launches("f32/D64")
+    fns = (FA.flash_fwd_cuda, FA.flash_dq_cuda, FA.flash_dkv_cuda)
+    copies = {k: fn.copies for k, fn in zip(KERNELS, fns)}
+    o_r, lse_r = FA.flash_fwd_ref(*ins, True)
+    do = (2 * o.detach().float()).to(o.dtype)
+    grads_r = FA.flash_bwd_ref(*ins, o.detach(), lse_r, do,
+                               torch.ones_like(lse_r), True)
+    require(o.dtype == qd and all(t.grad.dtype == t.dtype for t in ts),
+            f"outputs in their operands' dtypes: {o.dtype}, "
+            f"{[t.grad.dtype for t in ts]}")
+    errs = {"o": rel_err(o, o_r), **{f"d{n}": rel_err(t.grad, r) for n, t, r
+                                     in zip("qkv", ts, grads_r)}}
+    lse_err = float((lse - lse_r).abs().max())
+    require(max(errs.values()) <= REL_TOL,
+            f"mixed {qd}/{kd}: ||kernel - twin|| / ||twin|| {errs} over "
+            f"{REL_TOL}")
+    require(lse_err <= LSE_TOL, f"mixed {qd}/{kd}: lse {lse_err} over "
+                                f"{LSE_TOL}")
+    require(all(c > 0 for c in copies.values()) and
+            all(c == 1 for c in launches.values()),
+            f"mixed {qd}/{kd}: float32 copies {copies}, launches {launches}")
+    return {"q": str(qd), "kv": str(kd), "shape": list(shape),
+            "rel_errs": errs, "lse_max_abs_err": lse_err, "copies": copies,
+            "launches": launches, "rel_tol": REL_TOL, "lse_tol": LSE_TOL}
 
 
 def main():
@@ -6286,10 +6514,13 @@ def main():
     from bluefog_tpu_torch.ops import _nvcc
 
     # The kernels build (every library's nvcc at once) while torch and the
-    # port load and the card starts up.
+    # port load and the card starts up: the bf16 and float32 instances of
+    # D <= 256; the float16 instances and the wide route build after them,
+    # beside the kernel phase's bf16 and float32 cases (FIRST_WAVE).
     t_build = time.perf_counter()
     kernel_builds = ThreadPoolExecutor(1)
-    kernels_built = kernel_builds.submit(_nvcc.build_flash, True)
+    first = [k for k in _nvcc.flash_libraries() if FIRST_WAVE(k)]
+    kernels_built = kernel_builds.submit(_nvcc.build_flash, True, first)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -6311,7 +6542,10 @@ def main():
 
     t0 = time.perf_counter()
     _, log = FA.load_library(True, kernels_built.result())
-    kernel_builds.shutdown()
+    second = (kernel_builds.submit(
+        _nvcc.build_flash, True,
+        [k for k in _nvcc.flash_libraries() if not FIRST_WAVE(k)]),
+        time.perf_counter())
     # Then the host libraries build with g++ and nvcc in a thread (the
     # window transport's service and the timeline writer, its METH_FASTCALL
     # binding, the round compiler, csrc/hostfn.cu; the worker processes
@@ -6327,18 +6561,9 @@ def main():
     emit("build", seconds=time.perf_counter() - t_build,
          waited_s=time.perf_counter() - t0, ptxas=ptxas,
          wgmma_serialized=serialized)
-    for fn, _ in KERNELS.values():
-        for dtype, suffix in ((torch.bfloat16, ""), (torch.float32, "_f32")):
-            for d in FA.INSTANCES[dtype]:
-                info = ptxas.get(f"{fn}{suffix}/D{d}", {})
-                require(info.get("spill_bytes") == 0,
-                        f"{fn}{suffix} (D={d}) spills registers: {info}")
-                require(info["builds"] == (2 if suffix else 1),
-                        f"{fn}{suffix} (D={d}) built once a copy route: "
-                        f"{info}")
-    require(not serialized, f"ptxas serialized wgmma: {serialized}")
-
-    inst_res = kernel_phase(ptxas)
+    require_clean_builds(ptxas, log, first)
+    inst_res = kernel_phase(ptxas, second)
+    kernel_builds.shutdown()
 
     emit("reference", **check_reference(SEED))
     emit("resnet_reference", **check_resnet_reference(SEED))
@@ -6376,6 +6601,8 @@ def main():
     observe_launches = observe_train_phase(benchmark, train_res)
     torch.cuda.empty_cache()
     d256_launches = d256_train_phase(benchmark)
+    f16_launches = f16_train_phase(benchmark)
+    dwide_launches = dwide_train_phase(benchmark)
 
     image = ["--model", "resnet50", "--batch-size", "64", "--ranks", "4",
              "--atc", "--dynamic", "--momentum", "0.9"]
@@ -6514,15 +6741,24 @@ def main():
                            "elastic_train": elastic_launches},
              "bf16/D64": {"vit": vit_launches},
              "bf16/D256": {"d256_train": d256_launches},
+             "f16/D128": {"f16_train": f16_launches},
+             "bf16/Dwide": {"dwide_train": dwide_launches},
              "f32/D16": {"long_context_example": lc_launches,
                          "tp_example": tp_example_launches}}
+    # An entry a kernel and family: the bf16, float16 and float32
+    # instances of D <= 256 (each its own source's), and the wide route
+    # (csrc/flash_wide.cuh) in every dtype.
+    families = (("", SOURCE, [f"bf16/D{i}" for i in (64, 128, 256)], 1),
+                ("_f16", SOURCE, [f"f16/D{i}" for i in (64, 128, 256)], 1),
+                ("_f32", SOURCE_F32, [f"f32/D{i}" for i in (16, 64, 128, 256)],
+                 0),
+                ("_wide", SOURCE_WIDE, ["bf16/Dwide", "f16/Dwide",
+                                        "f32/Dwide"], 0))
     kernels = []
-    for tag, dtype, source in (("bf16", torch.bfloat16, SOURCE),
-                               ("f32", torch.float32, SOURCE_F32)):
+    for suffix, source, keys, main_at in families:
         for kname, (fn, replaces) in KERNELS.items():
             instances = []
-            for inst in FA.INSTANCES[dtype]:
-                key = f"{tag}/D{inst}"
+            for key in keys:
                 case, D, res = inst_res[key]
                 r = res[kname]
                 instances.append({
@@ -6532,16 +6768,16 @@ def main():
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-            # The entry's own numbers: its main instance's (bf16: the LM's
-            # shape; float32: the long-context model's ring hop).
-            head = instances[1] if tag == "bf16" else instances[0]
+            # The entry's own numbers: its main instance's (bf16 and
+            # float16: the LM's shape; float32: the long-context model's
+            # ring hop; the wide route: bf16 at D = 512).
+            head = instances[main_at]
             kernels.append({
-                "name": f"{kname} {fn}" + ("_f32" if tag == "f32" else ""),
+                "name": f"{kname} {fn}{suffix}",
                 "route": "cuda", "source": source, "replaces": replaces,
                 "launches": sum(i["launches"] for i in instances),
-                "launches_by_path": {p: c[kname] for key in paths
-                                     if key.startswith(tag)
-                                     for p, c in paths[key].items()},
+                "launches_by_path": {p: c[kname] for key in keys
+                                     for p, c in paths.get(key, {}).items()},
                 **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms",
                                         "bound_ms", "bound_by",
                                         "library_ms")},

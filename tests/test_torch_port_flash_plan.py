@@ -150,7 +150,7 @@ def test_refuses_what_a_tensor_map_cannot_describe(kernel, bad):
     elif bad == "head_dim_stride":
         st = (S * H * D * 2, H * D * 2, D * 2, 2)
     else:
-        shape = (B, S, H, 288)                     # past the widest instance
+        shape = (B, S, H, 0)                       # no kernel takes D = 0
     with pytest.raises(ValueError):
         FA.launch_plan(kernel, shape, {n: st for n in OPERANDS[kernel]})
 
@@ -161,7 +161,7 @@ def test_every_head_dim_takes_the_smallest_instance_that_holds_it(dtype,
                                                                   instances):
     """Every D from 1 to 256 plans in the smallest instance at least D (the
     bf16 operands as the padded buffers the copy route gives odd widths);
-    D = 0 and D > 256 are refused."""
+    D > 256 takes the wide route; D = 0 is refused."""
     B, S, H = 1, 64, 2
     for D in range(1, 257):
         want = min(i for i in instances if i >= D)
@@ -170,15 +170,33 @@ def test_every_head_dim_takes_the_smallest_instance_that_holds_it(dtype,
         plan = FA.launch_plan("dq", (B, S, H, D), {n: st for n in OPERANDS["dq"]},
                               True, dtype)
         assert plan.instance == want, D
-    for D in (0, 257, 288):
-        with pytest.raises(ValueError, match="head dims 1 to 256"):
-            FA.instance(dtype, D)
+    for D in (257, 288):
+        assert FA.instance(dtype, D) == FA.WIDE, D
+    with pytest.raises(ValueError, match="head dims from 1"):
+        FA.instance(dtype, 0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
 def test_refuses_dtypes_the_kernels_do_not_take(dtype):
-    with pytest.raises(ValueError, match="bfloat16 and float32"):
+    """float16 runs its own instances (the bf16 kernels' design), float64
+    the float32 kernels on float32 copies: both plan as those kernels."""
+    st = (64 * 2 * 64, 2 * 64, 64, 1)
+    plan = FA.launch_plan("fwd", (1, 64, 2, 64), {n: st for n in "qkv"},
+                          True, dtype)
+    want = {torch.float16: torch.bfloat16, torch.float64: torch.float32}
+    assert plan == FA.launch_plan("fwd", (1, 64, 2, 64),
+                                  {n: st for n in "qkv"}, True, want[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int8, torch.bool,
+                                   torch.complex64])
+def test_refuses_dtypes_that_are_not_floats(dtype):
+    """A dtype that is not a float raises, naming what the kernels take."""
+    with pytest.raises(ValueError, match="float16, bfloat16, float32 and "
+                                         "float64"):
         FA.launch_plan("fwd", (1, 64, 2, 64), {}, True, dtype)
+    with pytest.raises(ValueError, match="float16, bfloat16, float32"):
+        FA.instance(dtype, 64)
 
 
 @pytest.mark.parametrize("D, H", [(36, 1), (20, 3), (1, 4)])

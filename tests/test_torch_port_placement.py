@@ -362,6 +362,9 @@ def test_placement_is_memoized_and_generation_keys_dispatch():
     the generation that keys the dispatched schedules, and the optimizers'
     logical schedule stays the compile cache's."""
     _env(BLUEFOG_TPU_FAKE_TORUS="2x4", BLUEFOG_TPU_PLACEMENT_ITERS="100")
+    # The model cache is process-global: a file run earlier in the same
+    # worker may have left another torus's model in it.
+    tbasics._placement_model_cache.clear()
     tbf.init(N, device="cpu",
              topology_fn=lambda: ttopo.RandomRegularGraph(N, 4, seed=1))
     ctx = tbasics._ctx
